@@ -1,0 +1,85 @@
+"""The port's own copy of the configuration equals the JAX package's:
+field names, defaults, presets and experiment overlays, so any drift
+between the two fails here."""
+
+import dataclasses
+
+import pytest
+
+from unidisc_tpu import config as jax_config
+from unidisc_tpu_torch import config
+
+SECTIONS = ["ModelConfig", "NoiseConfig", "TrainerConfig", "SamplingConfig",
+            "MeshConfig", "DataConfig", "Config"]
+
+
+def fields(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        default = f.default if f.default is not dataclasses.MISSING \
+            else f.default_factory()
+        out[f.name] = default
+    return out
+
+
+@pytest.mark.parametrize("name", SECTIONS)
+def test_sections_have_the_same_fields_and_defaults(name):
+    ours, theirs = fields(getattr(config, name)), \
+        fields(getattr(jax_config, name))
+    assert list(ours) == list(theirs)
+    for key in ours:
+        a, b = ours[key], theirs[key]
+        if dataclasses.is_dataclass(a):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b, key
+
+
+def test_presets_and_experiments_match():
+    assert set(config.MODEL_PRESETS) == set(jax_config.MODEL_PRESETS)
+    for name, preset in config.MODEL_PRESETS.items():
+        assert dataclasses.asdict(preset) == \
+            dataclasses.asdict(jax_config.MODEL_PRESETS[name]), name
+    assert config.EXPERIMENTS == jax_config.EXPERIMENTS
+    assert config.DEFAULT_TEXT_VOCAB == jax_config.DEFAULT_TEXT_VOCAB
+    assert config.DEFAULT_IMAGE_VOCAB == jax_config.DEFAULT_IMAGE_VOCAB
+
+
+def test_make_override_experiments_and_json_agree():
+    over = {"model.n_blocks": 3, "sampling.cfg": 2.0, "seed": 7}
+    ours = config.Config.make("small", **over).apply_experiments(
+        "vq16_t2i", "fast_nfe")
+    theirs = jax_config.Config.make("small", **over).apply_experiments(
+        "vq16_t2i", "fast_nfe")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.to_json() == theirs.to_json()
+    assert config.Config.from_json(ours.to_json()) == ours
+    with pytest.raises(KeyError):
+        ours.apply_experiments("no_such_experiment")
+
+
+def test_flagship_overrides_match_the_benchmark_config():
+    """FLAGSHIP_OVERRIDES is __graft_entry__._flagship_config() plus the
+    sampling settings bench.py applies."""
+    from __graft_entry__ import _flagship_config
+    want = _flagship_config().override(**{
+        "sampling.predictor": "maskgit", "sampling.steps": 32,
+        "sampling.cfg": 2.0, "model.logits_dtype": "bfloat16"})
+    ours = config.Config.make("small", **config.FLAGSHIP_OVERRIDES)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("over", [
+    {"model.hidden_size": 100, "model.n_heads": 3},
+    {"model.txt_length": 10},
+    {"trainer.parameterization": "ar"},
+    {"sampling.cfg": -2.0},
+    {"model.quant": "int4"},
+    {"model.cond_label": True, "model.time_conditioning": True},
+    {"mesh.ep": 2},
+])
+def test_validate_rejects_what_the_jax_config_rejects(over):
+    with pytest.raises(ValueError):
+        jax_config.Config.make("tiny", **over).validate()
+    with pytest.raises(ValueError):
+        config.Config.make("tiny", **over).validate()
+    config.Config.make("tiny").validate()

@@ -1,0 +1,164 @@
+"""The port's DIT against the JAX DIT at identical weights.
+
+A tiny flagship-shaped config (2 blocks, hidden 128, head_dim 64, rms,
+QK-norm, sandwich norm, modality embedding, 2D rope on a 4x4 image grid,
+time conditioning). The JAX init zeroes the adaLN tables and the head, so
+every parameter is redrawn from a numpy seed before it is carried over
+with `dit_state_dict_from_jax`; both sides compute in fp32.
+
+Tolerance atol 2e-4, rtol 1e-3, as in tests/test_port.py: fp32 on both
+sides, differing only in summation order through two blocks and the head.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from unidisc_tpu.config import Config as JaxConfig
+from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.models.port import port_dit_state_dict
+from unidisc_tpu_torch.config import Config
+from unidisc_tpu_torch.models.dit import DIT
+from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
+
+B, TXT, IMG = 2, 8, 16
+L = TXT + IMG
+ATOL, RTOL = 2e-4, 1e-3
+
+OVERRIDES = {
+    "model.hidden_size": 128, "model.n_heads": 2, "model.n_blocks": 2,
+    "model.cond_dim": 32, "model.length": L, "model.txt_length": TXT,
+    "model.img_length": IMG, "model.text_vocab_size": 24,
+    "model.image_vocab_size": 40, "model.time_conditioning": True,
+    "model.qk_norm": True, "model.norm_type": "rms",
+    "model.sandwich_normalization": True, "model.modality_embed": True,
+    "model.rope_2d": True, "model.zero_linear_init": False,
+    "model.dropout": 0.0,
+}
+
+
+def configs(**extra):
+    over = {**OVERRIDES, **extra}
+    return JaxConfig.make("tiny", **over), Config.make("tiny", **over)
+
+
+def random_params(params, seed=0):
+    """Every leaf redrawn: norm scales near 1, everything else small."""
+    rng = np.random.RandomState(seed)
+    flat = traverse_util.flatten_dict(params, sep="/")
+    out = {}
+    for k, v in flat.items():
+        shape = np.shape(v)
+        if k.endswith(("weight", "scale")):
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            fan = shape[-2] if len(shape) >= 2 else shape[-1]
+            arr = rng.standard_normal(shape) / np.sqrt(fan)
+        out[k] = jnp.asarray(arr, jnp.float32)
+    return traverse_util.unflatten_dict(out, sep="/")
+
+
+def inputs(m, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = np.concatenate([rng.randint(0, m.text_vocab_size, (B, TXT)),
+                          rng.randint(m.text_vocab_size, m.vocab_size,
+                                      (B, IMG))], 1).astype(np.int32)
+    modality = np.concatenate([np.zeros((B, TXT)), np.ones((B, IMG))],
+                              1).astype(np.int32)
+    sigma = np.asarray([0.3, 1.7], np.float32)
+    return ids, sigma, modality
+
+
+def port_model(tcfg, params):
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    model.load_state_dict(dit_state_dict_from_jax(params))
+    return model
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    jcfg, _ = configs()
+    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
+                         compute_dtype=jnp.float32)
+    return random_params(params)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_logits_and_hidden_match_jax(jax_params, backend):
+    jcfg, tcfg = configs(**{"model.attn_backend": backend})
+    jmodel, _ = init_dit(jax.random.PRNGKey(0), jcfg.model,
+                         compute_dtype=jnp.float32)
+    ids, sigma, modality = inputs(jcfg.model)
+    want_logits, want_hidden = jmodel.apply(
+        {"params": jax_params}, jnp.asarray(ids), jnp.asarray(sigma),
+        modality=jnp.asarray(modality), return_hidden=True)
+    model = port_model(tcfg, jax_params)
+    with torch.no_grad():
+        logits, hidden = model(torch.from_numpy(ids).long(),
+                               torch.from_numpy(sigma),
+                               modality=torch.from_numpy(modality).long(),
+                               return_hidden=True)
+        only_hidden = model.hidden(torch.from_numpy(ids).long(),
+                                   torch.from_numpy(sigma),
+                                   modality=torch.from_numpy(
+                                       modality).long())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(want_hidden),
+                               atol=ATOL, rtol=RTOL)
+    assert torch.equal(only_hidden, hidden)
+
+
+def test_causal_layernorm_variant_matches_jax():
+    extra = {"model.full_attention": False, "model.norm_type": "layernorm",
+             "model.qk_norm": False, "model.sandwich_normalization": False,
+             "model.rope_2d": False, "model.attn_backend": "pallas"}
+    jcfg, tcfg = configs(**extra)
+    jmodel, params = init_dit(jax.random.PRNGKey(1), jcfg.model,
+                              compute_dtype=jnp.float32)
+    params = random_params(params, seed=1)
+    ids, sigma, modality = inputs(jcfg.model, seed=1)
+    want = jmodel.apply({"params": params}, jnp.asarray(ids),
+                        jnp.asarray(sigma), modality=jnp.asarray(modality))
+    model = port_model(tcfg, params)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+                    modality=torch.from_numpy(modality).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_weight_carry_over_round_trips(jax_params):
+    sd = dit_state_dict_from_jax(jax_params)
+    jcfg, tcfg = configs()
+    # the port's module has exactly these keys and shapes
+    model = DIT(tcfg.model, compute_dtype=torch.float32)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+    # and the JAX package's own torch->flax mapping restores the tree
+    _, template = init_dit(jax.random.PRNGKey(5), jcfg.model)
+    back = port_dit_state_dict(template,
+                               {k: v.numpy() for k, v in sd.items()})
+    want = traverse_util.flatten_dict(jax_params, sep="/")
+    got = traverse_util.flatten_dict(back, sep="/")
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k]), err_msg=k)
+
+
+def test_unported_branches_raise():
+    _, tcfg = configs()
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    ids, sigma, modality = inputs(tcfg.model)
+    with pytest.raises(NotImplementedError, match="kv_cache"):
+        model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+              modality=torch.from_numpy(modality).long(), kv_cache=(1, 2))
+    for flag in ("split_embed", "cond_label"):
+        with pytest.raises(NotImplementedError, match=flag):
+            DIT(tcfg.override(**{f"model.{flag}": True}).model)
+    with pytest.raises(NotImplementedError, match="moe"):
+        DIT(tcfg.override(**{"model.moe_experts": 4}).model)

@@ -1,0 +1,79 @@
+"""The port's inference engine: request preparation equals the JAX
+engine's, a tiny engine serves requests on the CPU, and the entry points
+refuse to run without CUDA unless asked for the CPU."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.serving.engine import InferenceEngine as JaxEngine
+from unidisc_tpu_torch.models.dit import DIT
+from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+from unidisc_tpu_torch.serving.engine import InferenceEngine, build_engine
+from test_torch_dit import OVERRIDES, configs
+
+OVER = {"sampling.predictor": "maskgit", "sampling.steps": 4,
+        "sampling.cfg": 2.0, "model.text_vocab_size": 300}
+
+REQUESTS = [
+    dict(text="a red cube"),
+    dict(text=""),
+    dict(text="x" * 40),                                   # truncated
+    dict(text="a <mask:3> on a table"),                    # infill slots
+    dict(text="two <mask> cats", task="gen_image"),
+    dict(image_ids=np.arange(16) % 7),                     # gen_text
+    dict(text="caption", image_ids=np.arange(16) % 5,
+         image_mask=np.arange(16) % 2 == 0),               # infill
+    dict(),                                                # joint
+]
+
+
+def test_prepare_matches_jax_engine():
+    jcfg, tcfg = configs(**OVER)
+    jmodel, params = init_dit(jax.random.PRNGKey(0), jcfg.model)
+    jeng = JaxEngine(jcfg, jmodel, params)
+    eng = InferenceEngine(tcfg, DIT(tcfg.model), device="cpu")
+    for req in REQUESTS:
+        want, got = jeng.prepare(**req), eng.prepare(**req)
+        assert got["task"] == want["task"], req
+        assert got["fastpath"] == want["fastpath"], req
+        np.testing.assert_array_equal(got["x0"], want["x0"])
+        np.testing.assert_array_equal(got["unmask"], want["unmask"])
+
+
+def test_tiny_engine_serves_requests_on_cpu():
+    eng = build_engine(preset="tiny", device="cpu",
+                       overrides={**OVERRIDES, **OVER})
+    prompts = ["a cat", "a dog", "a boat"]
+    results = eng.run_batch([eng.prepare(text=p) for p in prompts], seed=1,
+                            pad_to=4)
+    m = eng.m
+    assert len(results) == 3
+    for p, r in zip(prompts, results):
+        assert r["text"] == p
+        assert r["image_ids"].shape == (1, m.img_length)
+        assert r["image_ids"].min() >= 0
+        assert r["image_ids"].max() < m.image_vocab_size
+        assert r["nfe"] == 4
+    again = eng.run_batch([eng.prepare(text=p) for p in prompts], seed=1,
+                          pad_to=4)
+    for r, s in zip(results, again):
+        np.testing.assert_array_equal(r["image_ids"], s["image_ids"])
+    one = eng.run(text="a cat", seed=1, batch=2)
+    assert one["image_ids"].shape == (2, m.img_length)
+    with pytest.raises(NotImplementedError, match="generic sampler"):
+        eng.run_batch([eng.prepare(text="a <mask:2> cat")])
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = configs(**OVER)
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_engine(preset="tiny")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(tcfg, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_t2i_sampler(model, tcfg)

@@ -1,0 +1,49 @@
+"""The port stands alone: no file of unidisc_tpu_torch/ and not
+chip_smoke.py imports JAX, flax or the JAX package, and importing the
+package needs neither nvcc nor CUDA."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "unidisc_tpu"}
+FILES = sorted(str(p.relative_to(ROOT))
+               for p in (ROOT / "unidisc_tpu_torch").rglob("*.py")) \
+    + ["chip_smoke.py"]
+
+
+def imported_roots(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_no_jax_imports(path):
+    # the first dotted component must not be a forbidden name exactly:
+    # unidisc_tpu_torch starts with unidisc_tpu but is the port itself
+    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_package_imports_without_cuda_or_nvcc():
+    code = ("import sys, torch, importlib, pkgutil\n"
+            "import unidisc_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'unidisc_tpu')]\n"
+            "assert not bad, bad\n"
+            "from unidisc_tpu_torch.ops import _build\n"
+            "assert not _build._libs\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   env={"PATH": "/nonexistent", "CUDA_VISIBLE_DEVICES": "",
+                        "CUDA_HOME": "/nonexistent"})

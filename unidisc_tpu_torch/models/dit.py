@@ -1,0 +1,439 @@
+"""DiT denoiser backbone in PyTorch (port of ``unidisc_tpu/models/dit.py``).
+
+Mirrors the JAX module's numerics, so that the two agree at identical
+weights:
+
+  * weight-only LayerNorm/RMSNorm computed in fp32 and rounded to the
+    compute dtype (eps 1e-5 for layernorm, 1e-6 for RMS);
+  * QK-norm is a LayerNorm with bias over the full q and k width, with
+    flax's eps 1e-6 and its one-pass variance;
+  * adaLN time conditioning modulates and gates only image rows;
+  * sandwich norm replaces the gate on the attention branch;
+  * tanh-GELU MLP; rotary in the GPT-NeoX convention.
+
+Parameters are fp32; matmuls run in the compute dtype (bf16 by default)
+like flax ``nn.Dense(dtype=...)``. Parameter names are the reference
+torch names (``unidisc_tpu/models/port.py``), so ``models/port.py`` maps
+the JAX parameter tree onto ``state_dict`` one to one.
+
+Unmasked self-attention goes through ``ops/flash_attention.py``: on the
+card that is the hand-written kernel, for every shape. This slice covers
+the inference forward; the KV-cache, frozen-KV, image-conditioning, MoE,
+int8, split-embedding, class-label, multi-resolution and parallel
+branches raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from unidisc_tpu_torch.config import ModelConfig
+from unidisc_tpu_torch.models.rotary import apply_rope, build_multimodal_rope
+from unidisc_tpu_torch.ops.attention import multihead_attention
+from unidisc_tpu_torch.ops.flash_attention import flash_attention
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+    """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
+    `dtype`, product in `dtype`."""
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class Embedding(nn.Module):
+    """A lookup table stored as ``<name>.embedding`` (reference naming)."""
+
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, dim))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids]
+
+
+class Norm(nn.Module):
+    """Weight-only LayerNorm/RMSNorm computed in fp32, rounded to the
+    compute dtype."""
+
+    def __init__(self, dim: int, norm_type: str = "layernorm",
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if norm_type not in ("layernorm", "rms"):
+            raise ValueError(norm_type)
+        self.norm_type = norm_type
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.norm_type == "layernorm":
+            mean = x32.mean(-1, keepdim=True)
+            var = x32.var(-1, keepdim=True, unbiased=False)
+            y = (x32 - mean) * torch.rsqrt(var + 1e-5)
+        else:
+            y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-6)
+        return (y * self.weight.float()).to(self.compute_dtype)
+
+
+class QKNorm(nn.Module):
+    """flax ``nn.LayerNorm(use_bias=True)``: fp32 statistics with the
+    one-pass variance E[x^2] - E[x]^2 clipped at 0, eps 1e-6."""
+
+    def __init__(self, dim: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + 1e-6) * self.weight.float()
+        y = (x32 - mean) * mul + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal timestep embedding -> 2-layer MLP in fp32, rounded to
+    the compute dtype."""
+
+    def __init__(self, cond_dim: int, freq_dim: int = 256,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.freq_dim = freq_dim
+        self.compute_dtype = compute_dtype
+        self.mlp = nn.Sequential(nn.Linear(freq_dim, cond_dim), nn.SiLU(),
+                                 nn.Linear(cond_dim, cond_dim))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mlp(timestep_features(t, self.freq_dim)).to(
+            self.compute_dtype)
+
+
+def timestep_features(t: torch.Tensor, freq_dim: int = 256) -> torch.Tensor:
+    half = freq_dim // 2
+    freqs = torch.exp(-math.log(10_000)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t[:, None].float() * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) with the sigmoid rounded to x.dtype first, as
+    ``jax.nn.silu`` computes it in bf16."""
+    return x * torch.sigmoid(x)
+
+
+def modulate(x, shift, scale, modality=None):
+    """adaLN modulation; with `modality`, only image rows (1) change."""
+    out = x * (1 + scale) + shift
+    if modality is None:
+        return out
+    return torch.where((modality == 1)[..., None], out, x)
+
+
+def gate_residual(x_skip, out, gate, modality):
+    """Residual add with the adaLN gate on image rows; text rows take the
+    raw branch output when `modality` is given."""
+    if gate is None:
+        return x_skip + out
+    gated = gate * out
+    if modality is not None:
+        gated = torch.where((modality == 1)[..., None], gated, out)
+    return x_skip + gated
+
+
+class DDiTBlock(nn.Module):
+    """Transformer block with optional adaLN time conditioning and
+    sandwich normalization. The self-attention parameters sit on the
+    block (``attn_qkv``, ``attn_out``, ``q_norm``, ``k_norm``), as in the
+    reference torch names."""
+
+    def __init__(self, cfg: ModelConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        dim = cfg.hidden_size
+        self.norm1 = Norm(dim, cfg.norm_type, compute_dtype)
+        self.attn_qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.attn_out = nn.Linear(dim, dim, bias=False)
+        if cfg.qk_norm:
+            self.q_norm = QKNorm(dim, compute_dtype)
+            self.k_norm = QKNorm(dim, compute_dtype)
+        self.norm2 = Norm(dim, cfg.norm_type, compute_dtype)
+        self.mlp = nn.Sequential(nn.Linear(dim, cfg.mlp_ratio * dim),
+                                 nn.GELU(approximate="tanh"),
+                                 nn.Linear(cfg.mlp_ratio * dim, dim))
+        if cfg.time_conditioning:
+            self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim)
+        if cfg.sandwich_normalization:
+            self.pre_residual_norm = Norm(dim, cfg.norm_type, compute_dtype)
+            self.post_ff_norm = Norm(dim, cfg.norm_type, compute_dtype)
+
+    def attention(self, x, rope_cos, rope_sin, attn_mask=None):
+        cfg = self.cfg
+        dt = self.compute_dtype
+        b, l, dim = x.shape
+        h, d = cfg.n_heads, cfg.head_dim
+        qkv = dense(x, self.attn_qkv, dt)
+        if cfg.qk_norm:
+            qkv = torch.cat([self.q_norm(qkv[..., :dim]),
+                             self.k_norm(qkv[..., dim:2 * dim]),
+                             qkv[..., 2 * dim:]], dim=-1)
+        q, k, v = qkv.view(b, l, 3, h, d).unbind(2)
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+        causal = not cfg.full_attention
+        if cfg.attn_backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown attn_backend {cfg.attn_backend!r}")
+        if attn_mask is None and cfg.attn_backend != "xla":
+            out = flash_attention(q, k, v, causal=causal)
+        else:
+            out = multihead_attention(q, k, v, mask=attn_mask, causal=causal)
+        return dense(out.reshape(b, l, dim), self.attn_out, dt)
+
+    def forward(self, x, c, rope_cos, rope_sin, modality=None,
+                attn_mask=None):
+        cfg = self.cfg
+        dt = self.compute_dtype
+        if cfg.time_conditioning:
+            cond = dense(c, self.adaLN_modulation, dt)[:, None, :]
+            (shift_msa, scale_msa, gate_msa,
+             shift_mlp, scale_mlp, gate_mlp) = cond.chunk(6, dim=-1)
+        else:
+            gate_msa = gate_mlp = None
+
+        x_skip = x
+        hidden = self.norm1(x)
+        if cfg.time_conditioning:
+            hidden = modulate(hidden, shift_msa, scale_msa, modality)
+        attn_out = self.attention(hidden, rope_cos, rope_sin, attn_mask)
+        if cfg.sandwich_normalization:
+            x = x_skip + self.pre_residual_norm(attn_out)
+        else:
+            x = gate_residual(x_skip, attn_out, gate_msa, modality)
+
+        hidden = self.norm2(x)
+        if cfg.time_conditioning:
+            hidden = modulate(hidden, shift_mlp, scale_mlp, modality)
+        hidden = dense(hidden, self.mlp[0], dt)
+        hidden = F.gelu(hidden, approximate="tanh")
+        hidden = dense(hidden, self.mlp[2], dt)
+        if cfg.sandwich_normalization:
+            hidden = self.post_ff_norm(hidden)
+        return gate_residual(x, hidden, gate_mlp, modality)
+
+
+class DDitFinalLayer(nn.Module):
+    """Output head: norm, adaLN modulation, linear over the vocab."""
+
+    def __init__(self, cfg: ModelConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.norm_final = Norm(cfg.hidden_size, cfg.norm_type, compute_dtype)
+        if cfg.time_conditioning:
+            self.adaLN_modulation = nn.Linear(cfg.cond_dim,
+                                              2 * cfg.hidden_size)
+        self.linear = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+
+    def forward(self, x, c, modality=None):
+        cfg = self.cfg
+        x = self.norm_final(x)
+        if cfg.time_conditioning:
+            cond = dense(c, self.adaLN_modulation,
+                         self.compute_dtype)[:, None, :]
+            shift, scale = cond.chunk(2, dim=-1)
+            x = modulate(x, shift, scale, modality)
+        out_dtype = _DTYPES[cfg.logits_dtype]
+        return dense(x.to(out_dtype), self.linear, out_dtype)
+
+
+# arguments of the JAX DIT.__call__ whose branches later slices port
+_LATER_ARGS = ("kv_cache", "cache_index", "frozen_kv", "sample_ids",
+               "rope_index", "label", "x_cond", "extra_embed",
+               "img_block_index")
+
+_UNSUPPORTED_FLAGS = {
+    "split_embed": "split text/image embedding",
+    "cond_label": "class-label conditioning",
+    "img_cond": "image cross-attention conditioning",
+    "img_count_embed": "image-count embedding",
+}
+
+
+class DIT(nn.Module):
+    """The UniDisc denoiser.
+
+    forward(indices (B, L), sigma (B,), modality (B, L) 0=text/1=image,
+    attn_mask optional boolean (B, L, L) or (B, H, L, L)) -> logits
+    (B, L, vocab) in ``model.logits_dtype``; with return_hidden, also the
+    final hidden state. ``hidden(...)`` returns only the hidden state and
+    skips the vocab head.
+    """
+
+    def __init__(self, cfg: ModelConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        for flag, what in _UNSUPPORTED_FLAGS.items():
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"model.{flag} ({what}) is not in the port yet")
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("model.moe_experts > 0 (MoE MLP) is "
+                                      "not in the port yet")
+        if cfg.quant is not None:
+            raise NotImplementedError("model.quant (int8 W8A8) is not in "
+                                      "the port yet")
+        if cfg.img_resolutions is not None:
+            raise NotImplementedError("model.img_resolutions (multi-"
+                                      "resolution rope) is not in the port "
+                                      "yet")
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        dim = cfg.hidden_size
+        self.vocab_embed = Embedding(cfg.vocab_size, dim)
+        if cfg.time_conditioning:
+            self.sigma_map = TimestepEmbedder(cfg.cond_dim,
+                                              compute_dtype=compute_dtype)
+        if cfg.modality_embed:
+            self.modality_embed = Embedding(2, dim)
+        self.blocks = nn.ModuleList(DDiTBlock(cfg, compute_dtype)
+                                    for _ in range(cfg.n_blocks))
+        self.output_layer = DDitFinalLayer(cfg, compute_dtype)
+        cos, sin = build_multimodal_rope(cfg.txt_length, cfg.img_length,
+                                         cfg.head_dim, cfg.rope_2d,
+                                         base=cfg.rope_base)
+        self.register_buffer("rope_cos", torch.from_numpy(cos),
+                             persistent=False)
+        self.register_buffer("rope_sin", torch.from_numpy(sin),
+                             persistent=False)
+        self.reset_parameters(torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Initialise like ``unidisc_tpu.models.dit.init_dit`` (the same
+        distributions; torch and JAX draw different numbers): torch-Linear
+        uniform kernels, uniform embeddings, zero adaLN tables, and a zero
+        vocab head under ``zero_linear_init``."""
+        cfg = self.cfg
+
+        def uniform_(p, fan):
+            bound = 1.0 / math.sqrt(fan)
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                  generator=generator))
+
+        def linear_(lin, bias="zeros"):
+            uniform_(lin.weight, lin.in_features)
+            if lin.bias is not None:
+                if bias == "zeros":
+                    lin.bias.zero_()
+                else:  # the JAX init draws the bias with fan = its length
+                    uniform_(lin.bias, lin.bias.numel())
+
+        uniform_(self.vocab_embed.embedding, cfg.hidden_size)
+        if cfg.modality_embed:
+            uniform_(self.modality_embed.embedding, cfg.hidden_size)
+        if cfg.time_conditioning:
+            linear_(self.sigma_map.mlp[0])
+            linear_(self.sigma_map.mlp[2])
+        for blk in self.blocks:
+            linear_(blk.attn_qkv)
+            linear_(blk.attn_out)
+            linear_(blk.mlp[0], bias="uniform")
+            linear_(blk.mlp[2], bias="uniform")
+            if cfg.time_conditioning:
+                blk.adaLN_modulation.weight.zero_()
+                blk.adaLN_modulation.bias.zero_()
+            for m in blk.modules():
+                if isinstance(m, (Norm, QKNorm)):
+                    m.weight.fill_(1.0)
+                    if isinstance(m, QKNorm):
+                        m.bias.zero_()
+        out = self.output_layer
+        out.norm_final.weight.fill_(1.0)
+        if cfg.time_conditioning:
+            out.adaLN_modulation.weight.zero_()
+            out.adaLN_modulation.bias.zero_()
+        if cfg.zero_linear_init:
+            out.linear.weight.zero_()
+        else:
+            uniform_(out.linear.weight, cfg.hidden_size)
+        out.linear.bias.zero_()
+
+    def _check(self, sigma, modality, unsupported) -> None:
+        for name, value in unsupported.items():
+            if name not in _LATER_ARGS:
+                raise TypeError(f"DIT.forward got an unexpected argument "
+                                f"{name!r}")
+            if value is not None:
+                raise NotImplementedError(
+                    f"DIT.forward({name}=...) is not in the port yet")
+        if self.training and self.cfg.dropout > 0:
+            raise NotImplementedError("training-mode dropout is not in the "
+                                      "port yet; call .eval()")
+        if self.cfg.time_conditioning and sigma is None:
+            raise ValueError("time_conditioning needs sigma")
+        if self.cfg.modality_embed and modality is None:
+            raise ValueError("modality_embed needs modality")
+
+    def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
+               **unsupported):
+        """Final hidden state (B, L, hidden) after the block stack, without
+        the vocab head."""
+        return self._trunk(indices, sigma, modality, attn_mask,
+                           unsupported)[0]
+
+    def _trunk(self, indices, sigma, modality, attn_mask, unsupported):
+        self._check(sigma, modality, unsupported)
+        cfg = self.cfg
+        dt = self.compute_dtype
+        x = self.vocab_embed(indices).to(dt)
+        c = None
+        if cfg.time_conditioning:
+            c = silu(self.sigma_map(sigma))
+        if cfg.modality_embed:
+            x = x + self.modality_embed(modality).to(dt)
+        l = indices.shape[1]
+        cos, sin = self.rope_cos[:l], self.rope_sin[:l]
+        for blk in self.blocks:
+            x = blk(x, c, cos, sin, modality, attn_mask)
+        return x, c
+
+    def forward(self, indices, sigma=None, *, modality=None,
+                attn_mask=None, return_hidden: bool = False,
+                **unsupported):
+        x, c = self._trunk(indices, sigma, modality, attn_mask, unsupported)
+        logits = self.output_layer(x, c, modality)
+        return (logits, x) if return_hidden else logits
+
+
+@torch.no_grad()
+def randomize_(model: nn.Module, seed: int) -> None:
+    """Non-zero weights from a seed, for measurement runs without a
+    checkpoint: norm scales 1 + 0.1 N(0, 1), matrices and tables
+    N(0, 1/fan_in), biases 0.02 N(0, 1). (The default init zeroes the adaLN
+    tables and the vocab head, which would make the logits constant.) The
+    noise is drawn on the parameters' device."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        noise = torch.randn(p.shape, generator=gen, device=device)
+        if p.ndim == 1 and name.endswith("weight"):
+            p.copy_(1.0 + 0.1 * noise)
+        elif p.ndim == 2:
+            p.copy_(noise / math.sqrt(p.shape[1]))
+        else:
+            p.copy_(0.02 * noise)
+

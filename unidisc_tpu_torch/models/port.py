@@ -1,0 +1,80 @@
+"""Weight carry-over from the JAX package's DIT parameters to the port.
+
+``dit_state_dict_from_jax`` takes the flax parameter tree of
+``unidisc_tpu.models.dit.DIT`` (as numpy arrays) and returns a
+``state_dict`` for ``unidisc_tpu_torch.models.dit.DIT``. It is the inverse
+of ``unidisc_tpu/models/port.py::port_dit_state_dict``, with the same
+reference torch names:
+
+  vocab_embed                         -> vocab_embed.embedding
+  modality_embed                      -> modality_embed.embedding
+  sigma_map/mlp_{0,2}/{kernel,bias}   -> sigma_map.mlp.{0,2}.{weight,bias}
+  blocks/attention/attn_qkv/kernel[i] -> blocks.{i}.attn_qkv.weight
+  blocks/attention/attn_out/kernel[i] -> blocks.{i}.attn_out.weight
+  blocks/attention/{q,k}_norm/{scale,bias}[i]
+                                      -> blocks.{i}.{q,k}_norm.{weight,bias}
+  blocks/norm{1,2}/weight[i]          -> blocks.{i}.norm{1,2}.weight
+  blocks/adaLN_modulation/*[i]        -> blocks.{i}.adaLN_modulation.*
+  blocks/mlp_{0,2}/*[i]               -> blocks.{i}.mlp.{0,2}.*
+  blocks/{pre_residual,post_ff}_norm/weight[i]
+                                      -> blocks.{i}.{...}_norm.weight
+  output_layer/{norm_final,adaLN_modulation,linear}/*
+                                      -> output_layer.*
+
+The scan axis of the stacked blocks becomes ``blocks.{i}``; flax kernels
+(in, out) are transposed to torch weights (out, in).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_TOP_LEVEL = ("vocab_embed", "modality_embed", "sigma_map", "blocks",
+              "output_layer")
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path))
+        else:
+            out[path] = np.asarray(value)
+    return out
+
+
+def _torch_name(path: tuple) -> str:
+    """Flax path (without the scan axis) -> reference torch name."""
+    if len(path) == 1:                       # a bare table
+        return f"{path[0]}.embedding"
+    mods = [re.sub(r"^mlp_(\d)$", r"mlp.\1", p) for p in path[:-1]
+            if p != "attention"]
+    leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
+    return ".".join(mods + [leaf])
+
+
+def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax DIT params (nested mapping of arrays) -> the port's state_dict
+    (fp32 tensors on the CPU)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        if path[0] not in _TOP_LEVEL:
+            raise NotImplementedError(
+                f"parameter {'/'.join(path)} belongs to a DIT branch that "
+                f"is not in the port yet")
+        kernel = path[-1] == "kernel"
+        arr = arr.astype(np.float32)
+        if path[0] == "blocks":
+            name = _torch_name(path[1:])
+            for i, a in enumerate(arr):
+                sd[f"blocks.{i}.{name}"] = torch.from_numpy(
+                    np.ascontiguousarray(a.T if kernel else a))
+        else:
+            sd[_torch_name(path)] = torch.from_numpy(
+                np.ascontiguousarray(arr.T if kernel else arr))
+    return sd

@@ -1,0 +1,120 @@
+"""Where a flagship text->image batch spends its time on the card.
+
+    python -m unidisc_tpu_torch.profile_t2i [--requests 8] [--top 20]
+        [--out chiprun_out/profile_t2i.json]
+
+Builds the flagship engine (``config.FLAGSHIP_OVERRIDES``, random weights
+from a seed), serves one warm-up batch, then measures:
+
+  * one DIT forward at the CFG batch (2 x requests rows): the time between
+    CUDA events around it (device idle gaps included), and the host time
+    to enqueue it without waiting; when the two are equal the host, not
+    the card, sets the pace;
+  * one served batch under ``torch.profiler``: device time by kernel name
+    and the device's busy share of the batch's wall time.
+
+Needs a CUDA device; prints one JSON object as its last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from unidisc_tpu_torch.config import FLAGSHIP_OVERRIDES
+from unidisc_tpu_torch.models.dit import randomize_
+from unidisc_tpu_torch.serving.engine import build_engine
+
+
+def forward_times(engine, rows: int, iters: int = 10) -> dict:
+    m = engine.m
+    x = torch.full((rows, m.length), m.mask_index, dtype=torch.long,
+                   device="cuda")
+    x[:, :m.txt_length] = 5
+    modality = torch.zeros_like(x)
+    modality[:, m.txt_length:] = 1
+    sigma = torch.full((rows,), 0.5, device="cuda")
+    model = engine.model
+    with torch.inference_mode():
+        for _ in range(3):
+            model.hidden(x, sigma, modality=modality)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            model.hidden(x, sigma, modality=modality)
+        end.record()
+        enqueue_s = (time.perf_counter() - t0) / iters
+        torch.cuda.synchronize()
+        wall_s = (time.perf_counter() - t0) / iters
+    return {"rows": rows, "event_ms": start.elapsed_time(end) / iters,
+            "host_enqueue_ms": enqueue_s * 1e3, "wall_ms": wall_s * 1e3}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out/profile_t2i.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_t2i: CUDA is not available", file=sys.stderr)
+        return 1
+
+    engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
+    randomize_(engine.model, args.seed)
+    prepared = [engine.prepare(text=f"a profile prompt {i}")
+                for i in range(args.requests)]
+    engine.run_batch(prepared, seed=0)                    # warm-up
+    torch.cuda.synchronize()
+
+    record = {"device": torch.cuda.get_device_name(0),
+              "requests": args.requests,
+              "forward": forward_times(engine, 2 * args.requests)}
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = engine.run_batch(prepared, seed=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    record["batch"] = {
+        "wall_ms": wall_ms, "nfe": results[0]["nfe"],
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "kernels": [{"name": e.key[:120], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3,
+                     "share_of_busy": (e.self_device_time_total / 1e3
+                                       / busy_ms) if busy_ms else None}
+                    for e in kernels[:args.top]]}
+    if not busy_ms:
+        record["batch"]["note"] = ("the profiler recorded no device time: "
+                                   "device busy share not measured")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(record, f, indent=1)
+    for k in record["batch"]["kernels"]:
+        print(f"{k['device_ms']:10.3f} ms {k['count']:6d}x  {k['name']}")
+    print(json.dumps({"forward": record["forward"],
+                      "batch_wall_ms": wall_ms,
+                      "device_busy_ms": busy_ms,
+                      "device_busy_share": record["batch"][
+                          "device_busy_share"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

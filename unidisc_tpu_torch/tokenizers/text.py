@@ -1,0 +1,97 @@
+"""Text tokenizer and decode helpers (port of
+``unidisc_tpu/tokenizers/text.py``): the offline byte-level tokenizer.
+The HF-backed tokenizers are not in the port yet."""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+
+IMAGE_TOKEN = "<image>"
+
+
+class ByteTokenizer:
+    """Deterministic byte-level tokenizer.
+
+    Layout: 0 = pad, 1 = bos, 2 = eos, 3 = <image>, 4..259 = bytes.
+    vocab_size = 260 (+1 mask appended by the vocab logic downstream).
+    """
+
+    pad_token_id = 0
+    bos_token_id = 1
+    eos_token_id = 2
+    image_token_id = 3
+    _OFFSET = 4
+
+    def __init__(self):
+        self.vocab_size = 256 + self._OFFSET
+
+    def encode(self, text: str, *, add_bos: bool = True,
+               add_eos: bool = True) -> List[int]:
+        ids: List[int] = [self.bos_token_id] if add_bos else []
+        for part in text.split(IMAGE_TOKEN):
+            ids.extend(b + self._OFFSET for b in part.encode("utf-8"))
+            ids.append(self.image_token_id)
+        ids.pop()  # the trailing image token of the final split
+        if add_eos:
+            ids.append(self.eos_token_id)
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        out = bytearray()
+        for i in ids:
+            i = int(i)
+            if i == self.image_token_id:
+                out.extend(IMAGE_TOKEN.encode())
+            elif self._OFFSET <= i < self._OFFSET + 256:
+                out.append(i - self._OFFSET)
+        return out.decode("utf-8", errors="replace")
+
+    def __call__(self, texts, max_length: int = 128,
+                 padding: str = "max_length", truncation: bool = True):
+        if isinstance(texts, str):
+            texts = [texts]
+        rows, mask = [], []
+        for t in texts:
+            ids = self.encode(t)
+            if truncation:
+                ids = ids[:max_length]
+                if len(ids) == max_length:
+                    ids[-1] = self.eos_token_id
+            am = [1] * len(ids)
+            if padding == "max_length":
+                pad = max_length - len(ids)
+                ids = ids + [self.pad_token_id] * pad
+                am = am + [0] * pad
+            rows.append(ids)
+            mask.append(am)
+        return {"input_ids": np.asarray(rows, np.int32),
+                "attention_mask": np.asarray(mask, np.int32)}
+
+    def batch_decode(self, batch) -> List[str]:
+        return [self.decode(row) for row in batch]
+
+
+def get_tokenizer(name: str = "byte"):
+    if name == "byte":
+        return ByteTokenizer()
+    raise NotImplementedError(f"tokenizer {name!r}: only the byte-level "
+                              f"tokenizer is in the port yet")
+
+
+def mask_after_eos(ids: np.ndarray, eos_id: int, pad_id: int) -> np.ndarray:
+    """Replace everything after the first EOS with pad."""
+    ids = np.asarray(ids)
+    is_eos = ids == eos_id
+    after = np.cumsum(is_eos, axis=-1) - is_eos.astype(int) > 0
+    return np.where(after, pad_id, ids)
+
+
+def wrapped_batch_decode(tokenizer, ids: np.ndarray, *,
+                         cut_at_eos: bool = True) -> List[str]:
+    ids = np.asarray(ids)
+    if cut_at_eos:
+        ids = mask_after_eos(ids, tokenizer.eos_token_id,
+                             tokenizer.pad_token_id)
+    return tokenizer.batch_decode(ids)
