@@ -10,15 +10,23 @@ and prints no result):
   2. build: compile every kernel source under unidisc_tpu_torch/ops/csrc
      with nvcc, one process per source, all started together.
   3. kernels: hold each kernel against its plain PyTorch version on the
-     card at the main path's shapes and the other listed shapes, and time
-     the kernel, the plain version and one PyTorch library call.
-  4. path: build the flagship text->image engine at full width with random
-     weights from the seed; check full-width logits through the kernel
-     against the plain path; check the sampler on the card against the
-     CPU on a tiny model; then serve 8 requests through
+     card at the main paths' shapes and the other listed shapes, and time
+     the kernel, the plain version and one PyTorch library call: the
+     attention forward (flash_fwd) and the two attention backward kernels
+     (flash_bwd_dq, flash_bwd_dkv).
+  4. serve path: build the flagship text->image engine at full width with
+     random weights from the seed; check full-width logits through the
+     kernel against the plain path; check the sampler on the card against
+     the CPU on a tiny model; then serve 8 requests through
      InferenceEngine.run_batch with the launch counts set to 0 just
      before and read just after, and check the tokens that come out.
-  5. print the kernels line, the card line and the result line.
+  5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
+     batch 32) through the kernels against the plain path; then train the
+     flagship for 20 steps through Trainer.fit on one synthetic batch with
+     the launch counts set to 0 just before and read just after, check
+     that the loss falls, the counts per step, the EMA, and that a
+     checkpoint from step 10 gives step 11's loss again.
+  6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
 card this run lands on; the bound uses the H100 SXM's published peaks.
@@ -29,30 +37,47 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import itertools
 import json
+import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unidisc_tpu_torch.config import FLAGSHIP_OVERRIDES, Config
+from unidisc_tpu_torch.config import (FLAGSHIP_OVERRIDES,
+                                      FLAGSHIP_TRAIN_OVERRIDES, Config)
+from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
 from unidisc_tpu_torch.models.dit import DIT, randomize_
 from unidisc_tpu_torch.ops import _build
-from unidisc_tpu_torch.ops.flash_attention import (attention_reference,
-                                                   flash_attention)
+from unidisc_tpu_torch.ops.flash_attention import (
+    attention_backward_reference, attention_reference, bwd_launches,
+    flash_attention)
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch.serving.engine import build_engine
+from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
+                                                    make_apply_fn)
+from unidisc_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
 OUT_TOL = 2e-2    # bf16 outputs of magnitude ~1 round at 4e-3; the kernel
 #                   rounds unnormalised P, the reference normalised P
 LSE_TOL = 1e-3    # fp32 on both sides: summation order of Q K^T
+BWD_REL_TOL = 2e-2  # max abs error <= 2e-2 x max |grad|: the kernels round
+#                     P and dS to bf16 before the second product of each
+#                     pair and write bf16 gradients (2^-9 relative each)
 REQUESTS = 8      # batch 8 -> 16 rows under CFG
+TRAIN_BATCH = 32
+TRAIN_STEPS = 20
+CKPT_STEP = 10
 
 KERNELS = {
     "flash_fwd": {
@@ -60,6 +85,16 @@ KERNELS = {
         "source": "unidisc_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "unidisc_tpu/ops/pallas_attention.py:119",
         "also_replaces": "unidisc_tpu/ops/pallas_attention.py:47",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "unidisc_tpu/ops/pallas_attention.py:449",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "unidisc_tpu/ops/pallas_attention.py:402",
     },
 }
 
@@ -105,9 +140,11 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 ATTN_CASES = [
-    # name, (B, H, L, D), causal, segments; the first is the main path's
-    # shape (16 rows = batch 8 under CFG, small preset: 12 heads of 64)
+    # name, (B, H, L, D), causal, segments; the first is the serve path's
+    # shape (16 rows = batch 8 under CFG, small preset: 12 heads of 64),
+    # the second the train path's (batch 32)
     ("main_path", (16, 12, 384, 64), False, False),
+    ("train_path", (32, 12, 384, 64), False, False),
     ("extra_large_head_dim", (4, 16, 384, 128), False, False),
     ("long_tiled_range", (2, 12, 1024, 64), False, False),
     ("causal_segments_padding", (2, 8, 512, 128), True, True),
@@ -161,7 +198,7 @@ def phase_kernels(seed: int) -> list:
     rows = []
     for name, shape, causal, segs in ATTN_CASES:
         q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen)
-        need_lse = name != "main_path"
+        need_lse = name != "main_path"   # training asks for the LSE
         out = flash_attention(q, k, v, need_lse=need_lse, **kw)
         ref = attention_reference(q, k, v, need_lse=need_lse, **kw)
         torch.cuda.synchronize()
@@ -204,8 +241,128 @@ def phase_kernels(seed: int) -> list:
     return rows
 
 
+BWD_CASES = [
+    # the train path's shape (batch 32, small preset) and the forward's
+    # other cases
+    ("train_path", (32, 12, 384, 64), False, False),
+    ("extra_large_head_dim", (4, 16, 384, 128), False, False),
+    ("long_tiled_range", (2, 12, 1024, 64), False, False),
+    ("causal_segments_padding", (2, 8, 512, 128), True, True),
+]
+
+
+def backward_bounds(shape, mask, segs):
+    """Least times of the backward's work: every tensor moved once at the
+    HBM rate, or the products' FLOPs over allowed (query, key) pairs at the
+    bf16 peak, whichever is longer. Returns the whole backward's bound (q,
+    k, v, o, dO, dq, dk, dv, LSE and di; 10 D FLOPs a pair) and each
+    kernel's: dq reads q, k, v, o, dO, LSE and writes dq, di (S, dP, dQ:
+    6 D a pair); dkv reads q, k, v, dO, LSE, di and writes dk, dv (S, dP,
+    dV, dK: 8 D a pair)."""
+    b, h, l, d = shape
+    act = b * l * h * d * 2
+    rows = b * h * l * 4
+    seg = 2 * b * l * 4 if segs else 0
+    if mask is not None:
+        pairs = int(mask.expand(b, 1, l, l).sum().item()) * h
+    else:
+        pairs = b * h * l * l
+
+    def bound(nbytes, flops_per_pair):
+        flops = flops_per_pair * d * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops}
+
+    return {"backward": bound(8 * act + 2 * rows + seg, 10),
+            "flash_bwd_dq": bound(6 * act + 2 * rows + seg, 6),
+            "flash_bwd_dkv": bound(6 * act + 2 * rows + seg, 8)}
+
+
+def sdpa_backward_ms(q, k, v, do, mask) -> float:
+    """One call of PyTorch's fused attention backward on the same inputs,
+    in the (B, H, L, D) layout SDPA uses: FlashAttention-2's backward where
+    nothing is masked, the memory-efficient kernel's backward with the
+    mask as an additive bias where something is (what
+    F.scaled_dot_product_attention dispatches to). The aten ops are called
+    directly, so no autograd overhead is timed."""
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    aten = torch.ops.aten
+    if mask is None:
+        (out, lse, cq, ck, mq, mk, seed, offset,
+         _) = aten._scaled_dot_product_flash_attention(qt, kt, vt)
+        bwd = aten._scaled_dot_product_flash_attention_backward
+        return time_ms(lambda: bwd(dot, qt, kt, vt, out, lse, cq, ck, mq,
+                                   mk, 0.0, False, seed, offset))
+    b, h, l, _ = qt.shape
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device) \
+        .masked_fill(~mask, float("-inf")).expand(b, h, l, l)
+    out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias, True)
+    bwd = aten._scaled_dot_product_efficient_attention_backward
+    return time_ms(lambda: bwd(dot, qt, kt, vt, bias, out, lse, seed, offset,
+                               0.0, [True, True, True, False]))
+
+
+def phase_bwd_kernels(seed: int) -> list:
+    """The two backward kernels against attention_backward_reference,
+    computed in fp32 on the card from the same bf16 inputs (and the
+    forward kernel's O and LSE)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows = []
+    for name, shape, causal, segs in BWD_CASES:
+        q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen)
+        b, h, l, d = shape
+        do = torch.randn((b, l, h, d), generator=gen, device="cuda",
+                         dtype=torch.float32).to(torch.bfloat16)
+        o, lse = flash_attention(q, k, v, need_lse=True, **kw)
+        scale = d ** -0.5
+        seg_ids = kw.get("segment_ids")
+        grads, launch_dq, launch_dkv = bwd_launches(
+            q, k, v, o, lse, do, seg_ids, causal, scale)
+        launch_dq()
+        launch_dkv()
+        ref = attention_backward_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            err = (g.float() - r).abs().max().item()
+            top = r.abs().max().item()
+            finite = bool(torch.isfinite(g.float()).all().item())
+            errs[gname] = {"max_abs_err": err, "max_abs_ref": top}
+            if not finite or err > BWD_REL_TOL * top:
+                raise AssertionError(
+                    f"flash_bwd disagrees with attention_backward_reference "
+                    f"at {name} {shape}: {gname} max_abs_err {err} > "
+                    f"{BWD_REL_TOL} x {top} (finite {finite})")
+        if segs:
+            pad = seg_ids[0] < 0    # padded rows (queries) and keys
+            for gname, g in zip(("dq", "dk", "dv"), grads):
+                if not bool((g[pad] == 0).all().item()):
+                    raise AssertionError(f"{name}: {gname} is not zero on "
+                                         f"padded rows / keys")
+        bounds = backward_bounds(shape, mask, segs)
+        row = {"case": name, "shape_bhld": list(shape), "causal": causal,
+               "segments": segs, "errors": errs, "rel_tol": BWD_REL_TOL,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "ms_dq": time_ms(launch_dq), "ms_dkv": time_ms(launch_dkv),
+               "plain_ms": time_ms(lambda: attention_backward_reference(
+                   q, k, v, o, lse, do, **kw), iters=5),
+               "library_ms": sdpa_backward_ms(q, k, v, do, mask),
+               "bounds": bounds}
+        row["ms"] = row["ms_dq"] + row["ms_dkv"]
+        rows.append(row)
+        print("kernel flash_bwd " + json.dumps(row))
+        del q, k, v, o, lse, do, grads, ref
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# path phase
+# serve path
 # ---------------------------------------------------------------------------
 
 def forward_inputs(engine, batch, seed):
@@ -369,6 +526,171 @@ def phase_serve(engine) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# train path
+# ---------------------------------------------------------------------------
+
+def train_config(**extra) -> Config:
+    """The flagship training configuration with a 2-step warmup, so the LR
+    is non-zero from the second step."""
+    return Config.make("small", **{**FLAGSHIP_TRAIN_OVERRIDES,
+                                   "trainer.warmup_steps": 2,
+                                   **extra}).validate()
+
+
+def fixed_draws(cfg, batch, seed, device):
+    """Every draw of one compute_batch_loss, made once from a seed, so the
+    kernel path and the plain path see the same corruption."""
+    gen = torch.Generator().manual_seed(seed)
+    b, l = batch, cfg.model.length
+    return {"t": torch.rand((b,), generator=gen).to(device),
+            "move": torch.rand((b, l), generator=gen).to(device),
+            "txt": torch.rand((b, 1), generator=gen).to(device),
+            "img": torch.rand((b, 1), generator=gen).to(device)}
+
+
+def flat_grad(cfg, model, batch, draws) -> torch.Tensor:
+    apply_fn = make_apply_fn(cfg, model)
+    out = compute_batch_loss(cfg, apply_fn, None, batch, train=True,
+                             draws=draws)
+    params = [p for _, p in sorted(model.named_parameters())]
+    grads = torch.autograd.grad(out.loss, params)
+    return torch.cat([g.float().reshape(-1) for g in grads])
+
+
+def phase_grad_check(cfg, batch_size, seed, device="cuda") -> dict:
+    """One compute_batch_loss + backward at full width through the kernels
+    (bf16) against the plain path (plain attention, its autograd) in fp32.
+    Truth is the plain path in fp32; the kernel path must be as close to
+    it as the plain path in bf16 is, within a factor of 2."""
+    m = cfg.model
+    loader = SyntheticDataLoader(cfg, batch_size, seed=seed)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in next(loader).items()}
+    draws = fixed_draws(cfg, batch_size, seed, device)
+    state = None
+    grads = {}
+    for label, backend, dtype in (("kernel_bf16", "auto", torch.bfloat16),
+                                  ("plain_bf16", "xla", torch.bfloat16),
+                                  ("plain_fp32", "xla", torch.float32)):
+        mcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            m, attn_backend=backend))
+        model = DIT(mcfg.model, compute_dtype=dtype).to(device)
+        if state is None:
+            randomize_(model, seed)
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        _build.reset_launch_counts()
+        grads[label] = flat_grad(mcfg, model, batch, draws)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        if label == "kernel_bf16" and device == "cuda":
+            want = {"flash_fwd": m.n_blocks, "flash_bwd_dq": m.n_blocks,
+                    "flash_bwd_dkv": m.n_blocks}
+            if launches != want:
+                raise AssertionError(f"gradient check launched {launches}, "
+                                     f"expected {want}")
+        del model
+    truth = grads["plain_fp32"]
+    norm = truth.norm().item()
+    rel = {k: (grads[k] - truth).norm().item() / norm
+           for k in ("kernel_bf16", "plain_bf16")}
+    finite = bool(torch.isfinite(grads["kernel_bf16"]).all().item())
+    rec = {"batch": batch_size, "n_grad": truth.numel(), "grad_norm": norm,
+           "rel_err_kernel_bf16_vs_plain_fp32": rel["kernel_bf16"],
+           "rel_err_plain_bf16_vs_plain_fp32": rel["plain_bf16"],
+           "finite": finite}
+    print("grad_check " + json.dumps(rec))
+    if not finite or rel["kernel_bf16"] > 2 * rel["plain_bf16"]:
+        raise AssertionError(f"the full-width gradient through the kernels "
+                             f"is off: {rec}")
+    return rec
+
+
+def logged(run_dir) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train(cfg, batch_size, steps, seed, device="cuda") -> dict:
+    """Trainer.fit on one synthetic batch, with the counts set to 0 just
+    before and read just after; then a resume from the step-CKPT_STEP
+    checkpoint must give the next step's loss again."""
+    m = cfg.model
+    first = next(SyntheticDataLoader(cfg, batch_size, seed=seed))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        run_a = os.path.join(root, "a")
+        trainer = Trainer(cfg, run_a, device=device, log_every=1,
+                          ckpt_every=CKPT_STEP, max_ckpts=2)
+        init = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(itertools.repeat(first), max_steps=steps)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        recs = [r for r in logged(run_a) if "loss" in r]
+        losses = [r["loss"] for r in recs]
+        step_s = [r["step_s"] for r in recs]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train losses {losses}")
+        early, late = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        if not late < early:
+            raise AssertionError(f"the loss did not fall: first 5 mean "
+                                 f"{early}, last 5 mean {late}: {losses}")
+        if device == "cuda":
+            want = {name: m.n_blocks * steps for name in KERNELS}
+            if launches != want:
+                raise AssertionError(f"train path launched {launches}, "
+                                     f"expected {want} (12 blocks x "
+                                     f"{steps} steps each)")
+        ema_moved = max((trainer.state.ema_params[k] - init[k].float())
+                        .abs().max().item() for k in init)
+        if not ema_moved > 0:
+            raise AssertionError("the EMA did not move")
+        trainer.close()
+        del trainer
+
+        # resume: only the step-CKPT_STEP checkpoint, then one more step
+        run_b = os.path.join(root, "b")
+        shutil.copytree(os.path.join(run_a, "checkpoints", str(CKPT_STEP)),
+                        os.path.join(run_b, "checkpoints", str(CKPT_STEP)))
+        resumed = Trainer(cfg, run_b, device=device, log_every=1,
+                          ckpt_every=0)
+        resumed.fit(itertools.repeat(first), max_steps=CKPT_STEP + 1)
+        resumed.close()
+        again = [r["loss"] for r in logged(run_b) if "loss" in r]
+        want_loss = losses[CKPT_STEP]         # the loss of step CKPT_STEP + 1
+        if len(again) != 1 or abs(again[0] - want_loss) > 1e-5 * abs(
+                want_loss):
+            raise AssertionError(f"resumed step {CKPT_STEP + 1} loss "
+                                 f"{again} != {want_loss}")
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steady = step_s[2:]
+    median_s = statistics.median(steady)
+    rec = {"batch": batch_size, "length": m.length, "steps": steps,
+           "losses": losses, "loss_first5_mean": early,
+           "loss_last5_mean": late, "launches": launches,
+           "expected_launches_per_kernel": m.n_blocks * steps,
+           "step_s": step_s, "median_steady_step_s": median_s,
+           "train_tok_per_s": batch_size * m.length / median_s,
+           "fit_wall_s": wall_s, "peak_memory_bytes": peak,
+           "ema_max_change": ema_moved,
+           "resumed_step_loss": again[0], "straight_step_loss": want_loss}
+    print("train " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -390,6 +712,7 @@ def main() -> int:
 
     record["build"] = phase_build()
     record["kernel_cases"] = phase_kernels(args.seed)
+    record["bwd_kernel_cases"] = phase_bwd_kernels(args.seed)
 
     t0 = time.perf_counter()
     engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
@@ -398,20 +721,49 @@ def main() -> int:
     record["logits"] = phase_logits(engine, args.seed)
     record["sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(args.seed)
     record["serve"] = phase_serve(engine)
+    del engine
+    torch.cuda.empty_cache()
 
-    main_case = record["kernel_cases"][0]
+    cfg = train_config()
+    record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
+    torch.cuda.empty_cache()
+    record["train"] = phase_train(cfg, TRAIN_BATCH, TRAIN_STEPS, args.seed)
+
+    by_path = {name: {"serve": record["serve"]["launches"].get(name, 0),
+                      "train": record["train"]["launches"].get(name, 0)}
+               for name in KERNELS}
+    fwd = record["kernel_cases"][0]          # the serve path's shape
+    bwd = record["bwd_kernel_cases"][0]      # the train path's shape
+    measured = {
+        "flash_fwd": {"max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+                      "bound_ms": fwd["bound_ms"],
+                      "bound_by": fwd["bound_by"]},
+        "flash_bwd_dq": {"max_abs_err": bwd["errors"]["dq"]["max_abs_err"],
+                         "ms": bwd["ms_dq"],
+                         **bwd["bounds"]["flash_bwd_dq"]},
+        "flash_bwd_dkv": {"max_abs_err": max(
+            bwd["errors"][g]["max_abs_err"] for g in ("dk", "dv")),
+            "ms": bwd["ms_dkv"], **bwd["bounds"]["flash_bwd_dkv"]},
+    }
     kernels = []
     for name, meta in KERNELS.items():
+        case = fwd if name == "flash_fwd" else bwd
         kernels.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],
-            "also_replaces": meta["also_replaces"],
-            "launches": record["serve"]["launches"].get(name, 0),
-            "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]})
+            **({"also_replaces": meta["also_replaces"]}
+               if "also_replaces" in meta else {}),
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "shape_bhld": case["shape_bhld"],
+            "max_abs_err": measured[name]["max_abs_err"],
+            "ms": measured[name]["ms"],
+            # the plain version and the library call compute the whole
+            # backward (both kernels) for flash_bwd_dq and flash_bwd_dkv
+            "plain_ms": case["plain_ms"],
+            "bound_ms": measured[name]["bound_ms"],
+            "bound_by": measured[name]["bound_by"],
+            "library_ms": case["library_ms"]})
     record["kernels"] = kernels
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -26,6 +26,27 @@ def imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# the modules of the training slice, each of which must be in FILES
+TRAINING_SLICE = [
+    "unidisc_tpu_torch/diffusion/subs.py",
+    "unidisc_tpu_torch/diffusion/forward_process.py",
+    "unidisc_tpu_torch/diffusion/loss.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/training/checkpoint.py",
+    "unidisc_tpu_torch/training/trainer.py",
+    "unidisc_tpu_torch/data/synthetic.py",
+    "unidisc_tpu_torch/utils/monitor.py",
+    "unidisc_tpu_torch/utils/logging.py",
+    "unidisc_tpu_torch/train.py",
+    "unidisc_tpu_torch/profile_train.py",
+]
+
+
+def test_training_slice_is_checked():
+    assert set(TRAINING_SLICE) <= set(FILES)
+    assert (ROOT / "unidisc_tpu_torch/ops/csrc/flash_bwd.cu").exists()
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -131,8 +131,9 @@ class NoiseConfig:
 
 @dataclass(frozen=True)
 class TrainerConfig:
-    """Training hyperparameters (the train step is not in the port yet;
-    the fields are kept so configurations round-trip)."""
+    """Training hyperparameters. The port's train step
+    (``training/train_state.py``) takes AdamW, the four LR schedules and
+    the ``subs`` parameterization; the other options raise there."""
 
     optimizer: str = "adamw"  # adamw | adafactor | lion | ademamix | muon
     grad_accum_steps: int = 1
@@ -545,4 +546,21 @@ FLAGSHIP_OVERRIDES = {
     "sampling.predictor": "maskgit",
     "sampling.steps": 32,
     "sampling.cfg": 2.0,
+}
+
+
+# The flagship training configuration: the flagship model settings
+# (``__graft_entry__.py`` ``_flagship_config()``) with fp32 logits, the
+# default for training, and the production loss settings of the
+# large_scale_train recipe (entire-modality masking 0.15, softmin-SNR 5,
+# text/image loss weights 1.0 / 0.6). Everything else keeps the
+# TrainerConfig defaults: AdamW, constant_warmup, clip 1.0, EMA 0.9999,
+# bf16 compute, no gradient accumulation.
+FLAGSHIP_TRAIN_OVERRIDES = {
+    **{k: v for k, v in FLAGSHIP_OVERRIDES.items()
+       if k.startswith("model.") and k != "model.logits_dtype"},
+    "trainer.mask_entire_modality": 0.15,
+    "trainer.softmin_snr": 5.0,
+    "trainer.text_loss_weight": 1.0,
+    "trainer.img_loss_weight": 0.6,
 }

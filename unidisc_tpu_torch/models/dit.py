@@ -17,10 +17,12 @@ torch names (``unidisc_tpu/models/port.py``), so ``models/port.py`` maps
 the JAX parameter tree onto ``state_dict`` one to one.
 
 Unmasked self-attention goes through ``ops/flash_attention.py``: on the
-card that is the hand-written kernel, for every shape. This slice covers
-the inference forward; the KV-cache, frozen-KV, image-conditioning, MoE,
-int8, split-embedding, class-label, multi-resolution and parallel
-branches raise ``NotImplementedError``.
+card that is the hand-written forward kernel for every shape and, under
+grad, the hand-written backward kernels. The port covers the inference
+forward and training mode without dropout (the flagship trains with
+dropout 0.0); training-mode dropout, the KV-cache, frozen-KV,
+image-conditioning, MoE, int8, split-embedding, class-label,
+multi-resolution and parallel branches raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class Embedding(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num, dim))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        return F.embedding(ids, self.embedding)
 
 
 class Norm(nn.Module):
@@ -114,8 +116,12 @@ class TimestepEmbedder(nn.Module):
                                  nn.Linear(cond_dim, cond_dim))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.mlp(timestep_features(t, self.freq_dim)).to(
-            self.compute_dtype)
+        # in fp32 whatever the parameters' dtype (bf16 under
+        # low_precision_params), as flax promotes bf16 params to f32 inputs
+        h = dense(timestep_features(t, self.freq_dim), self.mlp[0],
+                  torch.float32)
+        h = dense(F.silu(h), self.mlp[2], torch.float32)
+        return h.to(self.compute_dtype)
 
 
 def timestep_features(t: torch.Tensor, freq_dim: int = 256) -> torch.Tensor:
@@ -382,7 +388,8 @@ class DIT(nn.Module):
                     f"DIT.forward({name}=...) is not in the port yet")
         if self.training and self.cfg.dropout > 0:
             raise NotImplementedError("training-mode dropout is not in the "
-                                      "port yet; call .eval()")
+                                      "port yet; set model.dropout=0.0 or "
+                                      "call .eval()")
         if self.cfg.time_conditioning and sigma is None:
             raise ValueError("time_conditioning needs sigma")
         if self.cfg.modality_embed and modality is None:
@@ -417,6 +424,10 @@ class DIT(nn.Module):
         x, c = self._trunk(indices, sigma, modality, attn_mask, unsupported)
         logits = self.output_layer(x, c, modality)
         return (logits, x) if return_hidden else logits
+
+
+def count_params(model: nn.Module) -> int:
+    return int(sum(p.numel() for p in model.parameters()))
 
 
 @torch.no_grad()

@@ -23,6 +23,10 @@ reference torch names:
 
 The scan axis of the stacked blocks becomes ``blocks.{i}``; flax kernels
 (in, out) are transposed to torch weights (out, in).
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` over (params,
+EMA, the Adam moments and counts, the schedule's count) with the same
+mapping, into the layout of the port's ``TrainState.state_dict``.
 """
 
 from __future__ import annotations
@@ -78,3 +82,24 @@ def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[_torch_name(path)] = torch.from_numpy(
                 np.ascontiguousarray(arr.T if kernel else arr))
     return sd
+
+
+def _count(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, dtype=np.int32).copy())
+
+
+def train_state_from_jax(state) -> Dict[str, object]:
+    """A JAX ``TrainState`` of ``make_train_step`` (arrays as numpy) -> a
+    state_dict for the port's ``TrainState.load_state_dict``.
+
+    The JAX optimizer state is that of ``chain(clip_by_global_norm,
+    adamw)``: ``(EmptyState, (ScaleByAdamState, EmptyState,
+    ScaleByScheduleState))``."""
+    _clip, (adam, _decay, schedule) = state.opt_state
+    return {"step": torch.as_tensor(int(np.asarray(state.step))),
+            "params": dit_state_dict_from_jax(state.params),
+            "ema_params": dit_state_dict_from_jax(state.ema_params),
+            "adam_count": _count(adam.count),
+            "mu": dit_state_dict_from_jax(adam.mu),
+            "nu": dit_state_dict_from_jax(adam.nu),
+            "schedule_count": _count(schedule.count)}

@@ -1,0 +1,570 @@
+"""Train state, optimizer, loss and the train step (port of
+``unidisc_tpu/training/train_state.py``).
+
+One step: t-sampling, corruption, forward, SUBS, NELBO, backward, clip,
+AdamW, the non-finite-loss skip and the EMA. The optimizer follows optax's
+semantics, not ``torch.optim``'s: the learning rate is read at the
+schedule's count before the update (step 0 runs at ``warmup_lr_init``),
+clipping scales by max_norm / g_norm only when g_norm >= max_norm (no
+epsilon), Adam's bias correction uses count + 1, weight decay is decoupled,
+and a step whose loss is not finite leaves the parameters and the whole
+optimizer state, counts included, as they were (``TrainState.step`` still
+advances and the EMA still moves toward the unchanged parameters).
+
+The step updates the state in place. The parameters are the model's own
+``nn.Parameter``s, made views of one flat buffer; the Adam moments and the
+EMA are flat buffers too (one element per parameter element, in the
+parameters' order), so the update and the EMA run on whole buffers. The skip is a ``torch.where`` on the device;
+nothing is read back to the host.
+
+Random numbers: the JAX step derives its draws from a key; here they come
+from a ``torch.Generator`` passed to the step, or are injected as tensors
+(``draws``, names in ``diffusion/forward_process.py`` plus "joint" (B,) for
+joint AR+NAR rows), which is how the tests feed both packages the same
+numbers.
+
+Ported: the ``subs`` parameterization with importance sampling, change of
+variables, joint AR+NAR and the AR-LLM loss; AdamW with the four LR
+schedules; gradient accumulation; low-precision params with an fp32 EMA.
+The ``ar``, ``sedd`` and ``d3pm`` parameterizations, ``add_label``,
+``img_cond``, MoE, the other optimizers and muP raise
+``NotImplementedError`` (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from unidisc_tpu_torch.config import Config
+from unidisc_tpu_torch.diffusion.forward_process import (Draws,
+                                                         draw_uniform,
+                                                         q_xt, sample_t)
+from unidisc_tpu_torch.diffusion.loss import (LossOutput, ar_llm_token_nll,
+                                              nelbo_loss, nelbo_weighting)
+from unidisc_tpu_torch.diffusion.noise import get_noise
+from unidisc_tpu_torch.diffusion.subs import subs_log_p_at
+
+Params = Dict[str, torch.Tensor]
+
+
+def flat_views(flat: torch.Tensor, like: Params) -> Params:
+    """Views of a flat buffer shaped like `like`, in its order."""
+    out, off = {}, 0
+    for name, p in like.items():
+        out[name] = flat[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return out
+
+
+def flatten(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+@torch.no_grad()
+def flat_parameters(params: Params) -> torch.Tensor:
+    """Moves the tensors of `params` into one flat buffer, in their order,
+    and makes each a view of it; returns the buffer."""
+    dtypes = {p.dtype for p in params.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"parameters of one dtype expected, got {dtypes}")
+    flat = flatten(params.values())
+    for p, view in zip(params.values(), flat_views(flat, params).values()):
+        p.data = view
+    return flat
+
+
+@dataclass
+class AdamState:
+    """optax ScaleByAdamState, with the moments as flat buffers in the
+    order of the parameters."""
+    count: torch.Tensor   # () int32
+    mu: torch.Tensor      # flat, the parameters' dtype
+    nu: torch.Tensor
+
+
+@dataclass
+class OptState:
+    """The state of ``chain(clip_by_global_norm, adamw)``: the Adam state
+    and the count of the learning-rate schedule (optax
+    ScaleByScheduleState); the clip and the weight decay keep none."""
+    adam: AdamState
+    schedule_count: torch.Tensor   # () int32
+
+
+@dataclass
+class TrainState:
+    step: torch.Tensor    # () int64
+    params: Params        # the model's own parameters, views of `flat`
+    flat: torch.Tensor    # the parameters, updated in place
+    opt_state: OptState
+    ema: torch.Tensor     # flat fp32 EMA in the order of params
+
+    @property
+    def ema_params(self) -> Params:
+        return flat_views(self.ema, self.params)
+
+    def state_dict(self) -> dict:
+        """Tensors by parameter name (views of the flat buffers)."""
+        adam = self.opt_state.adam
+        return {"step": self.step, "params": dict(self.params),
+                "ema_params": self.ema_params, "adam_count": adam.count,
+                "mu": flat_views(adam.mu, self.params),
+                "nu": flat_views(adam.nu, self.params),
+                "schedule_count": self.opt_state.schedule_count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a state_dict into this state's tensors, in place."""
+        mine = self.state_dict()
+        for key in ("step", "adam_count", "schedule_count"):
+            mine[key].copy_(sd[key])
+        for key in ("params", "ema_params", "mu", "nu"):
+            have, got = set(mine[key]), set(sd[key])
+            if have != got:
+                raise KeyError(f"{key}: missing {sorted(have - got)}, "
+                               f"unexpected {sorted(got - have)}")
+            for name, dst in mine[key].items():
+                dst.copy_(sd[key][name])
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    txt_loss: torch.Tensor
+    img_loss: torch.Tensor
+    nll_sum: torch.Tensor
+    token_count: torch.Tensor
+    grad_norm: torch.Tensor
+    nll_txt_sum: torch.Tensor
+    txt_count: torch.Tensor
+    nll_img_sum: torch.Tensor
+    img_count: torch.Tensor
+
+
+def _split_metrics(out: LossOutput, modality, loss, grad_norm) -> StepMetrics:
+    mask = out.token_mask
+    if modality is None:
+        txt_mask = mask
+        img_mask = torch.zeros_like(mask)
+    else:
+        if modality.shape[-1] != mask.shape[-1]:
+            modality = modality[..., -mask.shape[-1]:]
+        txt_mask = mask & (modality == 0)
+        img_mask = mask & (modality == 1)
+    return StepMetrics(
+        loss=loss, txt_loss=out.txt_loss, img_loss=out.img_loss,
+        nll_sum=(out.nlls * mask).sum(), token_count=mask.sum(),
+        grad_norm=grad_norm,
+        nll_txt_sum=(out.nlls * txt_mask).sum(), txt_count=txt_mask.sum(),
+        nll_img_sum=(out.nlls * img_mask).sum(), img_count=img_mask.sum())
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+# ---------------------------------------------------------------------------
+
+def _linear(init: float, end: float, steps: int):
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: torch.full_like(count, init, dtype=torch.float32)
+
+    def schedule(count):
+        c = count.clamp(0, steps).float()
+        return (init - end) * (1 - c / steps) + end
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int, alpha: float = 0.0):
+    """optax.cosine_decay_schedule."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+
+    def schedule(count):
+        c = torch.minimum(count.float(), torch.tensor(float(decay_steps),
+                                                      device=count.device))
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
+        return init * ((1 - alpha) * cosine + alpha)
+    return schedule
+
+
+def _join(schedules, boundaries):
+    """optax.join_schedules."""
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, fn in zip(boundaries, schedules[1:]):
+            out = torch.where(count < boundary, out, fn(count - boundary))
+        return out
+    return schedule
+
+
+def make_lr_schedule(config: Config):
+    """count (an int tensor) -> learning rate (fp32 tensor on its device):
+    constant_warmup, cosine_decay, constant_warmup_cosine_decay or
+    cosine_hard_restarts, as in the JAX package."""
+    t = config.trainer
+    if t.scale_lr_by_batch_size:
+        t = replace(t, lr=t.lr * t.global_batch_size / 512)
+    total = max(t.max_steps, t.warmup_steps + 1)
+    warmup = _linear(t.warmup_lr_init, t.lr, t.warmup_steps)
+    if t.lr_schedule == "constant_warmup":
+        return _join([warmup, lambda c: torch.full_like(
+            c, t.lr, dtype=torch.float32)], [t.warmup_steps])
+    if t.lr_schedule == "cosine_decay":
+        return _join([warmup, _cosine(t.lr, total - t.warmup_steps)],
+                     [t.warmup_steps])
+    if t.lr_schedule == "constant_warmup_cosine_decay":
+        return _join([warmup, _cosine(t.lr, max(total - t.warmup_steps, 1),
+                                      alpha=t.lr_min / t.lr)],
+                     [t.warmup_steps])
+    if t.lr_schedule == "cosine_hard_restarts":
+        decay_len = max(total - t.warmup_steps, 1)
+
+        def restarts(step):
+            progress = step / decay_len
+            phase = torch.remainder(
+                t.num_cycles * torch.clamp(progress, max=1.0), 1.0)
+            return (t.lr * 0.5 * (1.0 + torch.cos(math.pi * phase))
+                    * (progress < 1.0))
+
+        return _join([warmup, restarts], [t.warmup_steps])
+    raise ValueError(t.lr_schedule)
+
+
+class ClippedAdamW:
+    """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
+    eps, weight_decay))`` with optax's arithmetic, updating in place. It
+    runs on flat buffers (the parameters and the gradients, each in the
+    parameters' order), so a step is a few dozen kernels whatever the
+    number of parameter tensors."""
+
+    def __init__(self, schedule, *, max_norm: float, b1: float, b2: float,
+                 eps: float, weight_decay: float):
+        self.schedule = schedule
+        self.max_norm = max_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, flat: torch.Tensor) -> OptState:
+        """The state for the flat parameter buffer `flat`."""
+        count = lambda: torch.zeros((), dtype=torch.int32,  # noqa: E731
+                                    device=flat.device)
+        return OptState(adam=AdamState(count=count(),
+                                       mu=torch.zeros_like(flat),
+                                       nu=torch.zeros_like(flat)),
+                        schedule_count=count())
+
+    @torch.no_grad()
+    def apply(self, p: torch.Tensor, g: torch.Tensor, state: OptState,
+              ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update of the flat parameters `p` and of state, in place,
+        from the flat gradients `g`; returns the global norm of the
+        gradients (before clipping). Where `ok` (a () bool tensor) is False,
+        p and the whole state stay as they were."""
+        b1, b2 = self.b1, self.b2
+        adam = state.adam
+        g_norm = torch.sqrt(torch.sum(g.float() * g.float()))
+        g = torch.where(g_norm < self.max_norm, g,
+                        (g / g_norm.to(g.dtype)) * self.max_norm)
+        count_inc = adam.count + 1
+        bc1 = 1 - b1 ** count_inc.float()
+        bc2 = 1 - b2 ** count_inc.float()
+        mu = (1 - b1) * g + b1 * adam.mu
+        nu = (1 - b2) * (g * g) + b2 * adam.nu
+        u = (mu / bc1.to(mu.dtype)) / (
+            torch.sqrt(nu / bc2.to(nu.dtype)) + self.eps)
+        u = u + self.weight_decay * p
+        u = -self.schedule(state.schedule_count).to(u.dtype) * u
+        new_p = (p + u).to(p.dtype)
+        counts = (adam.count, state.schedule_count)
+        new_counts = [c + 1 for c in counts]
+        if ok is not None:
+            new_p = torch.where(ok, new_p, p)
+            mu = torch.where(ok, mu, adam.mu)
+            nu = torch.where(ok, nu, adam.nu)
+            new_counts = [torch.where(ok, n, c)
+                          for n, c in zip(new_counts, counts)]
+        p.copy_(new_p)
+        adam.mu.copy_(mu)
+        adam.nu.copy_(nu)
+        for c, n in zip(counts, new_counts):
+            c.copy_(n)
+        return g_norm
+
+
+def make_optimizer(config: Config) -> ClippedAdamW:
+    """Global-norm clipping + AdamW. The JAX package's other optimizers and
+    muP are not in the port yet."""
+    t = config.trainer
+    if t.optimizer != "adamw":
+        raise NotImplementedError(f"trainer.optimizer={t.optimizer!r} is "
+                                  f"not in the port yet (only adamw)")
+    if config.model.mup:
+        raise NotImplementedError("model.mup is not in the port yet")
+    return ClippedAdamW(make_lr_schedule(config),
+                        max_norm=t.gradient_clip_val, b1=t.beta1,
+                        b2=t.beta2, eps=t.opt_eps,
+                        weight_decay=t.weight_decay)
+
+
+@torch.no_grad()
+def init_train_state(config: Config, model: nn.Module) -> TrainState:
+    """The train state over `model`'s own parameters (move the model to its
+    device first). With low_precision_params the parameters (and so the
+    Adam moments) become bf16 in place; the EMA stays fp32, because at
+    decay 0.9999 the increment is far below bf16's resolution."""
+    if config.trainer.low_precision_params:
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(torch.bfloat16)
+    params = dict(model.named_parameters())
+    flat = flat_parameters(params)
+    return TrainState(step=torch.zeros((), dtype=torch.int64,
+                                       device=flat.device),
+                      params=params, flat=flat,
+                      opt_state=make_optimizer(config).init(flat),
+                      ema=flat.to(torch.float32, copy=True))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+_LATER_BATCH_KEYS = ("sample_ids", "rope_index", "x_cond")
+
+
+def compute_batch_loss(config: Config, apply_fn, params, batch, *,
+                       train: bool = True, step=None,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Draws = None) -> LossOutput:
+    """t-sample -> corrupt -> backbone -> SUBS -> NELBO.
+
+    batch: dict with input_ids (B, L) and optionally modality (B, L) and
+    attention_mask (B, L), as tensors on the model's device. params: the
+    parameters apply_fn runs with (None: the model's own).
+    """
+    t_cfg = config.trainer
+    m_cfg = config.model
+    if t_cfg.parameterization != "subs":
+        raise NotImplementedError(f"trainer.parameterization="
+                                  f"{t_cfg.parameterization!r} is not in "
+                                  f"the port yet (only subs)")
+    if t_cfg.add_label:
+        raise NotImplementedError("trainer.add_label is not in the port yet")
+    if m_cfg.img_cond or m_cfg.moe_experts > 0:
+        raise NotImplementedError("img_cond and MoE training are not in the "
+                                  "port yet")
+    later = [k for k in _LATER_BATCH_KEYS if k in batch]
+    if later:
+        raise NotImplementedError(f"batch keys {later} (interleaved / "
+                                  f"image-conditioned batches) are not in "
+                                  f"the port yet")
+    noise = get_noise(config.noise)
+    x0 = batch["input_ids"].long()
+    modality = batch.get("modality")
+    if modality is not None:
+        modality = modality.long()
+    attention_mask = batch.get("attention_mask")
+    if attention_mask is not None:
+        attention_mask = attention_mask.bool()
+    b = x0.shape[0]
+    dev = x0.device
+
+    t = sample_t(b, antithetic=t_cfg.antithetic_sampling,
+                 sampling_eps=t_cfg.sampling_eps,
+                 force_timestep=t_cfg.force_timestep, draws=draws,
+                 generator=generator, device=dev)
+    if t_cfg.importance_sampling and hasattr(
+            noise, "importance_sampling_transformation"):
+        t = noise.importance_sampling_transformation(t)
+    cov_weight = None
+    if t_cfg.change_of_variables:
+        f_T = math.log1p(-math.exp(-float(noise.sigma_max)))
+        f_0 = math.log1p(-math.exp(-float(noise.sigma_min)))
+        move_chance = torch.exp(f_0 + t * (f_T - f_0))
+        sigma = t
+        dsigma = noise.rate(t)
+    else:
+        sigma = noise.total(t)
+        dsigma = noise.rate(t)
+        move_chance = 1 - torch.exp(-sigma)
+    if t_cfg.change_of_variables or t_cfg.importance_sampling:
+        cov_weight = math.log1p(-math.exp(-float(noise.sigma_min)))
+
+    restrict = m_cfg.force_argmax_valid_indices
+    corrupted = q_xt(
+        x0, move_chance, m_cfg.mask_index, modality=modality,
+        mask_entire_modality=t_cfg.mask_entire_modality if train else None,
+        multimodal=t_cfg.multimodal_batches,
+        first_token_dropout=t_cfg.first_token_dropout if train else None,
+        diffusion_mode=t_cfg.discrete_diffusion_mode,
+        text_vocab_size=m_cfg.text_vocab_size if restrict else None,
+        vocab_size=m_cfg.vocab_size, draws=draws, generator=generator)
+
+    xt = corrupted.xt
+    batch_ignore = corrupted.batch_ignore
+    joint_mask = None
+    if train and t_cfg.joint_ar_nar_prob is not None:
+        p_final = t_cfg.joint_ar_nar_prob
+        w = t_cfg.joint_ar_nar_prob_warmup_steps
+        if w and step is not None:
+            step_t = torch.as_tensor(step, device=dev).float()
+            frac = torch.clamp(step_t / max(1, w), max=1.0)
+            p_cur = 1.0 + (p_final - 1.0) * frac
+        else:
+            p_cur = p_final
+        joint_mask = draw_uniform(draws, "joint", (b,), generator,
+                                  dev) < p_cur
+        xt = torch.where(joint_mask[:, None], x0, xt)
+        batch_ignore = batch_ignore | joint_mask
+
+    logits = apply_fn(params, xt, sigma, modality, train)
+    log_p_theta = subs_log_p_at(
+        logits, xt, x0, m_cfg.mask_index,
+        modality=modality if restrict else None,
+        text_vocab_size=m_cfg.text_vocab_size)
+    out = nelbo_loss(
+        log_p_theta, x0, sigma, dsigma, attention_mask=attention_mask,
+        modality=modality, batch_ignore=batch_ignore, cov_weight=cov_weight,
+        no_ce_weighting=t_cfg.no_ce_weighting,
+        softmin_snr=t_cfg.softmin_snr,
+        text_loss_weight=None if joint_mask is not None
+        else t_cfg.text_loss_weight,
+        img_loss_weight=None if joint_mask is not None
+        else t_cfg.img_loss_weight)
+
+    if joint_mask is not None or t_cfg.ar_llm_loss:
+        ar_tok = ar_llm_token_nll(
+            logits.float(), x0, m_cfg.mask_index,
+            modality=modality if restrict else None,
+            text_vocab_size=m_cfg.text_vocab_size)
+        attn = attention_mask if attention_mask is not None else \
+            torch.ones(x0.shape, dtype=torch.bool, device=dev)
+        if joint_mask is not None:
+            if t_cfg.no_ce_weighting:
+                nar_tok = -log_p_theta
+            else:
+                nar_tok = -log_p_theta * nelbo_weighting(
+                    sigma, dsigma, t_cfg.softmin_snr)[:, None]
+            ar_w = joint_mask.float().mean()
+            mixed = torch.where(joint_mask[:, None], ar_tok * ar_w,
+                                nar_tok * (1.0 - ar_w))
+            loss = (mixed * attn).sum() / attn.sum().clamp(min=1)
+        else:
+            valid = (xt == m_cfg.mask_index) & attn
+            loss = (ar_tok * valid).sum() / valid.sum().clamp(min=1)
+        out = out._replace(loss=loss)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Train / eval steps
+# ---------------------------------------------------------------------------
+
+def make_apply_fn(config: Config, model: nn.Module):
+    """fn(params, x, sigma, modality, train) -> logits: the model run with
+    `params` (a name -> tensor mapping; None for its own parameters), in
+    train or eval mode; sigma None means zeros."""
+    if config.trainer.use_gradient_checkpointing:
+        raise NotImplementedError("trainer.use_gradient_checkpointing "
+                                  "(remat) is not in the port yet")
+
+    def apply_fn(params, x, sigma, modality, train):
+        model.train(train)
+        if sigma is None:
+            sigma = torch.zeros((x.shape[0],), dtype=torch.float32,
+                                device=x.device)
+        if params is None:
+            return model(x, sigma, modality=modality)
+        return functional_call(model, params, (x, sigma),
+                               {"modality": modality})
+    return apply_fn
+
+
+def _chunks(batch: dict, accum: int) -> List[dict]:
+    b = batch["input_ids"].shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum_steps "
+                         f"{accum}")
+    mb = b // accum
+    return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for i in range(accum)]
+
+
+def make_train_step(config: Config, model: nn.Module):
+    """The train step fn(state, batch, generator=None, draws=None) ->
+    (state, metrics). It updates `state` in place and returns it.
+
+    With grad_accum_steps > 1 the batch is split into that many equal
+    microbatches whose gradients are averaged; `draws` is then a sequence
+    with one mapping per microbatch."""
+    opt = make_optimizer(config)
+    apply_fn = make_apply_fn(config, model)
+    ema_decay = config.trainer.ema_decay
+    accum = config.trainer.grad_accum_steps
+
+    def grads_of(state, batch, generator, draws):
+        out = compute_batch_loss(config, apply_fn, None, batch, train=True,
+                                 step=state.step, generator=generator,
+                                 draws=draws)
+        return out, flatten(torch.autograd.grad(out.loss,
+                                                list(state.params.values())))
+
+    def train_step(state: TrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Union[Draws, Sequence[Draws]] = None):
+        if accum > 1:
+            micro = _chunks(batch, accum)
+            per = draws if draws is not None else [None] * accum
+            outs, grads = [], None
+            for chunk, d in zip(micro, per):
+                out, g = grads_of(state, chunk, generator, d)
+                outs.append(out)
+                grads = g if grads is None else grads + g
+            grads = grads / accum
+            loss = sum(o.loss.detach() for o in outs) / accum
+            out = LossOutput(
+                loss=loss,
+                nlls=torch.cat([o.nlls for o in outs]),
+                token_mask=torch.cat([o.token_mask for o in outs]),
+                txt_loss=torch.stack([o.txt_loss for o in outs]).mean(),
+                img_loss=torch.stack([o.img_loss for o in outs]).mean())
+        else:
+            out, grads = grads_of(state, batch, generator, draws)
+            loss = out.loss.detach()
+        ok = torch.isfinite(loss)
+        grad_norm = opt.apply(state.flat, grads, state.opt_state, ok)
+        with torch.no_grad():
+            state.ema.copy_(state.ema * ema_decay
+                            + state.flat.to(state.ema.dtype)
+                            * (1 - ema_decay))
+            state.step += 1
+        out = LossOutput(*(x.detach() for x in out))
+        return state, _split_metrics(out, batch.get("modality"), loss,
+                                     grad_norm)
+
+    return train_step
+
+
+def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True):
+    """fn(state, batch, generator=None, draws=None) -> StepMetrics with the
+    eval loss (no entire-modality masking), under no_grad, with the EMA
+    parameters (or the live ones)."""
+    apply_fn = make_apply_fn(config, model)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Draws = None) -> StepMetrics:
+        params = state.ema_params if use_ema else None
+        out = compute_batch_loss(config, apply_fn, params, batch,
+                                 train=False, generator=generator,
+                                 draws=draws)
+        return _split_metrics(out, batch.get("modality"), out.loss,
+                              torch.zeros((), device=out.loss.device))
+    return eval_step

@@ -1,0 +1,216 @@
+"""The step loop around the train step (port of
+``unidisc_tpu/training/trainer.py``).
+
+Host-side work is data feeding, metric logging and checkpointing. The port
+trains on one device and computes in bf16, as the JAX trainer does. The
+JAX trainer's mesh, LoRA, host offload, signal handler and wandb are not in
+the port: asking for any of them raises.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from unidisc_tpu_torch.config import Config
+from unidisc_tpu_torch.device import resolve_device
+from unidisc_tpu_torch.models.dit import DIT, count_params
+from unidisc_tpu_torch.training.checkpoint import CheckpointManager
+from unidisc_tpu_torch.training.train_state import (StepMetrics,
+                                                    init_train_state,
+                                                    make_eval_step,
+                                                    make_train_step)
+from unidisc_tpu_torch.utils.logging import MetricLogger
+from unidisc_tpu_torch.utils.monitor import PhaseTimer, ThroughputMonitor
+
+LN2 = math.log(2.0)
+
+
+def metrics_to_host(metrics: StepMetrics) -> dict:
+    """One device-to-host transfer for the whole metrics tuple."""
+    vals = StepMetrics(*torch.stack(
+        [m.detach().float().reshape(()) for m in metrics]).cpu().tolist())
+    out = {"loss": vals.loss, "grad_norm": vals.grad_norm}
+    nll = vals.nll_sum / max(vals.token_count, 1.0)
+    out["nll"] = nll
+    out["bpd"] = nll / LN2
+    out["ppl"] = math.exp(min(nll, 50.0))
+    if vals.txt_count > 0:
+        t = vals.nll_txt_sum / vals.txt_count
+        out["txt_nll"] = t
+        out["txt_ppl"] = math.exp(min(t, 50.0))
+    if vals.img_count > 0:
+        i = vals.nll_img_sum / vals.img_count
+        out["img_nll"] = i
+        out["img_bpd"] = i / LN2
+    return out
+
+
+def _step_seed(base: int, step: int) -> int:
+    """Seed of the generator for one step: the port's counterpart of
+    fold_in(PRNGKey(base), step), so a resumed run draws what the
+    uninterrupted run drew."""
+    return (base * 1_000_003 + step) % (2 ** 63)
+
+
+class Trainer:
+    def __init__(self, config: Config, run_dir: str, *, device="cuda",
+                 log_every: int = 10, val_every: int = 0,
+                 ckpt_every: int = 1000, max_ckpts: int = 3,
+                 val_use_ema: bool = True, use_wandb: bool = False,
+                 mesh=None, base_params=None,
+                 base_checkpoint: Optional[str] = None):
+        if mesh is not None:
+            raise NotImplementedError("device meshes are not in the port "
+                                      "yet; it trains on one device")
+        if base_params is not None or base_checkpoint is not None \
+                or config.model.lora_rank > 0:
+            raise NotImplementedError("LoRA fine-tuning is not in the port "
+                                      "yet")
+        if config.trainer.host_offload_optimizer:
+            raise NotImplementedError("host_offload_optimizer is not in "
+                                      "the port yet")
+        self.device = resolve_device(device)
+        self.config = config
+        self.run_dir = run_dir
+        self.log_every = log_every
+        self.val_every = val_every
+        self.ckpt_every = ckpt_every
+
+        model = DIT(config.model, compute_dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(config.seed))
+        self.model = model.to(self.device)
+        self.n_params = count_params(self.model)
+        self.state = init_train_state(config, self.model)
+        self.train_step = make_train_step(config, self.model)
+        self.eval_step = make_eval_step(config, self.model,
+                                        use_ema=val_use_ema)
+        self.generator = torch.Generator(device=self.device)
+        self.ckpt = CheckpointManager(f"{run_dir}/checkpoints",
+                                      max_to_keep=max_ckpts,
+                                      save_interval_steps=ckpt_every)
+        self.logger = MetricLogger(run_dir, use_wandb=use_wandb,
+                                   console_every=log_every)
+        self.monitor = ThroughputMonitor(self.n_params, device=self.device)
+        self._last_saved = None
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+    # ------------------------------------------------------------------
+    def maybe_restore(self, loader=None) -> int:
+        """Resume from the latest checkpoint if there is one; returns the
+        step to continue from."""
+        step = self.ckpt.latest_step()
+        if step is None:
+            return 0
+        self.state, meta = self.ckpt.restore(self.state)
+        if loader is not None and "loader" in meta and \
+                hasattr(loader, "load_state_dict"):
+            loader.load_state_dict(meta["loader"])
+        print(f"[trainer] resumed from step {step}")
+        return int(step)
+
+    def fit(self, train_loader: Iterator, val_loader=None,
+            max_steps: Optional[int] = None, *,
+            overfit_first_batch: bool = False) -> dict:
+        """Train until max_steps (default trainer.max_steps) or the loader
+        ends. Every log_every steps the metrics come to the host (one sync)
+        and are logged with the host seconds per step since the last log
+        (step_s) and the throughput. Returns the step and the last logged
+        metrics."""
+        cfg = self.config
+        max_steps = max_steps or cfg.trainer.max_steps
+        start = self.maybe_restore(train_loader)
+        if overfit_first_batch:
+            first = next(iter(train_loader))
+            train_loader = iter(lambda: first, None)
+
+        step = start
+        last = {}
+        phases = PhaseTimer()
+        loader_it = iter(train_loader)
+        t_log, step_log = time.perf_counter(), step
+        # the step check comes before the fetch, so the saved loader state
+        # is that of the last batch trained on (the JAX loop fetches one
+        # batch more, which a resumed run would skip)
+        while step < max_steps:
+            with phases("data"):
+                batch = next(loader_it, None)
+            if batch is None:
+                break
+            with phases("h2d"):
+                tbatch = self._to_device(batch)
+            with phases("dispatch"):
+                self.generator.manual_seed(_step_seed(cfg.seed + 1, step))
+                self.state, metrics = self.train_step(
+                    self.state, tbatch, generator=self.generator)
+            step += 1
+            b, l = tbatch["input_ids"].shape
+            self.monitor.step(b, b * l)
+
+            if step % self.log_every == 0 or step == max_steps:
+                last = metrics_to_host(metrics)
+                now = time.perf_counter()
+                last["step_s"] = (now - t_log) / (step - step_log)
+                t_log, step_log = now, step
+                last.update(self.monitor.stats())
+                last.update(phases.stats())
+                self.logger.log(last, step)
+
+            if self.val_every and val_loader is not None and \
+                    step % self.val_every == 0:
+                self.validate(val_loader, step)
+
+            if self.ckpt_every and step % self.ckpt_every == 0:
+                self._save(step, train_loader)
+
+        if self._last_saved != step:
+            self._save(step, train_loader, force=True)
+        return {"step": step, **last}
+
+    # ------------------------------------------------------------------
+    def validate(self, val_loader, step: int, max_batches: int = 16) -> dict:
+        """Aggregate validation NLL / BPD / PPL over up to max_batches."""
+        gen = torch.Generator(device=self.device)
+        sums = None
+        for i, batch in enumerate(val_loader):
+            if i >= max_batches:
+                break
+            gen.manual_seed(_step_seed(self.config.seed + 2, i))
+            m = self.eval_step(self.state, self._to_device(batch),
+                               generator=gen)
+            cur = torch.stack([m.nll_sum.float(), m.token_count.float(),
+                               m.nll_txt_sum.float(), m.txt_count.float(),
+                               m.nll_img_sum.float(), m.img_count.float(),
+                               m.loss.float()]).double().cpu().numpy()
+            cur = np.append(cur, 1.0)
+            sums = cur if sums is None else sums + cur
+        if sums is None:
+            return {}
+        nll = sums[0] / max(sums[1], 1)
+        out = {"val/loss": sums[6] / sums[7], "val/nll": nll,
+               "val/bpd": nll / LN2, "val/ppl": float(np.exp(min(nll, 50.0)))}
+        if sums[3] > 0:
+            out["val/txt_ppl"] = float(np.exp(min(sums[2] / sums[3], 50.0)))
+        if sums[5] > 0:
+            out["val/img_bpd"] = sums[4] / sums[5] / LN2
+        self.logger.log(out, step)
+        return out
+
+    # ------------------------------------------------------------------
+    def _save(self, step: int, loader, force: bool = False):
+        extra = {}
+        if hasattr(loader, "state_dict"):
+            extra["loader"] = loader.state_dict()
+        if self.ckpt.save(step, self.state, self.config, extra=extra,
+                          force=force):
+            self._last_saved = step
+
+    def close(self):
+        self.logger.close()
