@@ -12,14 +12,24 @@ and prints no result):
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the main paths' shapes and the other listed shapes, and time
      the kernel, the plain version and one PyTorch library call: the
-     attention forward (flash_fwd) and the two attention backward kernels
-     (flash_bwd_dq, flash_bwd_dkv).
+     attention forward (flash_fwd), the two attention backward kernels
+     (flash_bwd_dq, flash_bwd_dkv), the int8 product (int8_matmul; fp32
+     output bit-exact, bf16 within one ulp) at the five products of the
+     int8 serve path, and the fused quantize kernel (fused_qmm; scales
+     within 1e-6 relative, int8 values within one step on at most 0.1% of
+     the elements) in each of its modes.
   4. serve path: build the flagship text->image engine at full width with
      random weights from the seed; check full-width logits through the
      kernel against the plain path; check the sampler on the card against
      the CPU on a tiny model; then serve 8 requests through
      InferenceEngine.run_batch with the launch counts set to 0 just
      before and read just after, and check the tokens that come out.
+  4b. int8 serve path: the same weights quantized into the engine of
+     build_engine(quantize="int8") with FLAGSHIP_INT8_OVERRIDES; check its
+     full-width logits against the plain int8 path and the bf16 model,
+     the int8 sampler on the card against the CPU on a tiny model, and
+     serve 8 requests with the counts of all three serving kernels checked
+     exactly.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
@@ -52,7 +62,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unidisc_tpu_torch.config import (FLAGSHIP_OVERRIDES,
+from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
+                                      FLAGSHIP_OVERRIDES,
                                       FLAGSHIP_TRAIN_OVERRIDES, Config)
 from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
 from unidisc_tpu_torch.models.dit import DIT, randomize_
@@ -60,6 +71,11 @@ from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.flash_attention import (
     attention_backward_reference, attention_reference, bwd_launches,
     flash_attention)
+from unidisc_tpu_torch.ops.fused_qmm import (fused_quantize,
+                                             fused_quantize_reference)
+from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                               int8_matmul_reference)
+from unidisc_tpu_torch.ops.quant import quantize_dit_params, quantize_model
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch.serving.engine import build_engine
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
@@ -68,12 +84,17 @@ from unidisc_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
+INT8_OP_PER_S = 1979e12        # H100 SXM dense int8, published
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 OUT_TOL = 2e-2    # bf16 outputs of magnitude ~1 round at 4e-3; the kernel
 #                   rounds unnormalised P, the reference normalised P
 LSE_TOL = 1e-3    # fp32 on both sides: summation order of Q K^T
 BWD_REL_TOL = 2e-2  # max abs error <= 2e-2 x max |grad|: the kernels round
 #                     P and dS to bf16 before the second product of each
 #                     pair and write bf16 gradients (2^-9 relative each)
+BF16_ULP = 2.0 ** -7   # relative spacing of bf16 (8-bit significand)
+Q_SCALE_RTOL = 1e-6    # fused_qmm scales: fp32 row sums in another order
+Q_MOVED_SHARE = 1e-3   # ... can move a value on a rounding boundary by one
 REQUESTS = 8      # batch 8 -> 16 rows under CFG
 TRAIN_BATCH = 32
 TRAIN_STEPS = 20
@@ -96,7 +117,18 @@ KERNELS = {
         "source": "unidisc_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "unidisc_tpu/ops/pallas_attention.py:402",
     },
+    "int8_matmul": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "unidisc_tpu/ops/int8_matmul.py:53",
+    },
+    "fused_qmm": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
+        "replaces": "unidisc_tpu/ops/fused_qmm.py:97",
+    },
 }
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def card_line() -> str:
@@ -361,6 +393,175 @@ def phase_bwd_kernels(seed: int) -> list:
     return rows
 
 
+def int8_gemm_shapes(m) -> list:
+    """(name, M, K, N, bias) of the five int8 products of one denoise step
+    of the int8 serve path: the four trunk products at 2 x REQUESTS rows
+    of the whole sequence (CFG), and the head over the image rows after
+    the CFG combine against the image vocabulary."""
+    rows = 2 * REQUESTS * m.length
+    d, f = m.hidden_size, m.mlp_ratio * m.hidden_size
+    return [("attn_qkv", rows, d, 3 * d, False),
+            ("attn_out", rows, d, d, False),
+            ("mlp_0", rows, d, f, True),
+            ("mlp_2", rows, f, d, True),
+            ("head", REQUESTS * m.img_length, d, m.image_vocab_size, True)]
+
+
+def int8_gemm_bound(mm, k, n, bias, out_bytes):
+    """Operands (int8 x and w, fp32 scales and bias) read once and the
+    output written once at the HBM rate, or 2 M N K int8 operations at
+    the int8 peak, whichever is longer."""
+    nbytes = mm * k + n * k + 4 * mm + 4 * n * (2 if bias else 1) \
+        + mm * n * out_bytes
+    ops = 2.0 * mm * n * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ops
+
+
+def library_int8_ms(xq, s, wq, ws, b):
+    """torch._int_mm (cuBLASLt int8 x int8 -> int32) with the epilogue in
+    torch ops: the library's way to the same function; None where
+    _int_mm refuses the shape."""
+    def run():
+        acc = torch._int_mm(xq, wq.t())
+        out = acc.float() * s * ws
+        if b is not None:
+            out = out + b
+        return out.to(torch.bfloat16)
+    try:
+        run()
+    except RuntimeError as err:
+        print(f"  torch._int_mm refused {tuple(xq.shape)} x "
+              f"{tuple(wq.shape)}: {str(err).splitlines()[0]}")
+        return None
+    return time_ms(run)
+
+
+def phase_int8_matmul(m, seed) -> list:
+    """int8_matmul against int8_matmul_reference at the serve path's five
+    products, with and without a bias, fp32 (bit-exact) and bf16 (within
+    one ulp) output; times at the path's own bias setting, bf16 out."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows = []
+    for name, mm, k, n, path_bias in int8_gemm_shapes(m):
+        kw = dict(generator=gen, device="cuda")
+        xq = torch.randint(-127, 128, (mm, k), dtype=torch.int8, **kw)
+        s = torch.rand((mm, 1), **kw) * 0.02 + 1e-3
+        wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, **kw)
+        ws = torch.rand((n,), **kw) * 0.02 + 1e-3
+        b = torch.randn((n,), **kw)
+        errs = {}
+        for bias in (False, True):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                bb = b if bias else None
+                got = int8_matmul(xq, s, wq, ws, bias=bb, out_dtype=out_dtype)
+                want = int8_matmul_reference(xq, s, wq, ws, bias=bb,
+                                             out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                label = f"{'bias' if bias else 'no_bias'}_" \
+                    f"{'fp32' if out_dtype == torch.float32 else 'bf16'}"
+                errs[label] = diff.max().item()
+                ok = (bool((diff == 0).all()) if out_dtype == torch.float32
+                      else bool((diff <= BF16_ULP
+                                 * want.float().abs()).all()))
+                if not ok or not bool(torch.isfinite(got.float()).all()):
+                    raise AssertionError(
+                        f"int8_matmul disagrees with int8_matmul_reference "
+                        f"at {name} ({mm}, {k}, {n}) {label}: max abs "
+                        f"{errs[label]}")
+                del got, want, diff
+        bb = b if path_bias else None
+        bound_ms, bound_by, nbytes, ops = int8_gemm_bound(mm, k, n,
+                                                          path_bias, 2)
+        row = {"case": name, "shape_mkn": [mm, k, n], "bias": path_bias,
+               "max_abs_err": max(errs.values()), "errors": errs,
+               "ms": time_ms(lambda: int8_matmul(xq, s, wq, ws, bias=bb)),
+               "plain_ms": time_ms(lambda: int8_matmul_reference(
+                   xq, s, wq, ws, bias=bb), iters=5),
+               "library_ms": library_int8_ms(xq, s, wq, ws, bb),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops}
+        rows.append(row)
+        print("kernel int8_matmul " + json.dumps(row))
+        del xq, wq
+    return rows
+
+
+QUANT_CASES = [
+    # name, mode, norm_type, conditioning: the first is the serve path's
+    # (the flagship's rms prologue of attn_qkv and mlp.0)
+    ("main_path", "adaln_norm", "rms", True),
+    ("layernorm_cond", "adaln_norm", "layernorm", True),
+    ("gelu", "gelu", "layernorm", False),
+    ("none", "none", "layernorm", False),
+]
+# fp32 operations per element of each mode's passes (the bound's
+# operation count; every mode is bound by bytes by a wide margin)
+QUANT_OPS_PER_ELEMENT = {"adaln_norm": 14, "gelu": 13, "none": 4}
+
+
+def phase_fused_qmm(m, seed) -> list:
+    """fused_quantize against fused_quantize_reference at the serve path's
+    (2 x REQUESTS x L, hidden) bf16 activations, with the adaLN rows as
+    strided views of the block's modulation table and the serving
+    modality layout (text rows 0, image rows 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    b, l, k = 2 * REQUESTS, m.length, m.hidden_size
+    mm = b * l
+    x = (torch.randn((mm, k), generator=gen, device="cuda")).bfloat16()
+    norm_w = 1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
+    table = (0.2 * torch.randn((b, 6 * k), generator=gen,
+                               device="cuda")).bfloat16()
+    modality = torch.cat([torch.zeros((b, m.txt_length), dtype=torch.long),
+                          torch.ones((b, m.img_length), dtype=torch.long)],
+                         1).reshape(-1).float().cuda()
+    rows = []
+    for name, mode, norm_type, cond in QUANT_CASES:
+        kw = dict(mode=mode, norm_type=norm_type)
+        nbytes = mm * k * 2 + mm * k + mm * 4
+        if mode == "adaln_norm":
+            kw["norm_w"] = norm_w
+            nbytes += k * 4
+        if cond:
+            kw.update(shift=table[:, :k], scale=table[:, k:2 * k],
+                      modality=modality, rows_per_batch=l)
+            nbytes += 2 * b * k * 2 + mm * 4
+        q, s = fused_quantize(x, **kw)
+        q_ref, s_ref = fused_quantize_reference(x, **kw)
+        torch.cuda.synchronize()
+        s_err = ((s - s_ref).abs() / s_ref.abs()).max().item()
+        moved = (q.int() - q_ref.int()).abs()
+        moved_max = int(moved.max().item())
+        moved_share = moved.float().mean().item()
+        if (s_err > Q_SCALE_RTOL or moved_max > 1
+                or moved_share > Q_MOVED_SHARE):
+            raise AssertionError(
+                f"fused_qmm disagrees with fused_quantize_reference at "
+                f"{name}: scale rel err {s_err} (tol {Q_SCALE_RTOL}), int8 "
+                f"max step {moved_max}, share moved {moved_share} (tol "
+                f"{Q_MOVED_SHARE})")
+        ops = QUANT_OPS_PER_ELEMENT[mode] * mm * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOP_PER_S * 1e3
+        row = {"case": name, "shape_mk": [mm, k], "mode": mode,
+               "norm_type": norm_type, "cond": cond,
+               "max_abs_err": float(moved_max), "scale_rel_err": s_err,
+               "moved_share": moved_share,
+               "ms": time_ms(lambda: fused_quantize(x, **kw)),
+               "plain_ms": time_ms(lambda: fused_quantize_reference(x, **kw),
+                                   iters=5),
+               "library_ms": None,      # no single PyTorch call computes it
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        rows.append(row)
+        print("kernel fused_qmm " + json.dumps(row))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # serve path
 # ---------------------------------------------------------------------------
@@ -422,10 +623,85 @@ def phase_logits(engine, seed) -> dict:
     return rec
 
 
-def phase_sampler_cpu_agreement(seed) -> dict:
+def phase_int8_logits(engine, qengine, seed) -> dict:
+    """Full-width int8 logits through the kernels (int8_matmul, fused_qmm,
+    flash_fwd) against the plain int8 path (plain products, unfused, plain
+    attention) at the same int8 weights, and against the bf16 model.
+
+    Truth for the kernels is the plain int8 path in fp32; the kernel path
+    (bf16) must be as close to it as the plain int8 path in bf16 is,
+    within a factor of 2, in mean absolute error (the max moves with the
+    few rows whose int8 activations land a step apart). Against the bf16
+    model the int8 logits must track it as tests/test_quant.py asks of the
+    JAX int8 DIT: cosine > 0.99 and top-1 agreement > 0.9, the latter
+    where the bf16 model's best logit leads its second by more than twice
+    the mean |int8 - bf16| logit difference. Over every position top-1
+    agreement is recorded, not gated: with random weights and bf16 logits
+    the median lead of the best logit is one or two bf16 steps, and the
+    JAX package's own int8 DIT agrees with its bf16 model on 0.87-0.91 of
+    all positions at such weights (scripts/port_int8_top1.py)."""
+    cfg = qengine.config.model
+    state = qengine.model.state_dict()
+    x, sigma, modality = forward_inputs(qengine, 2 * REQUESTS, seed)
+    out = {}
+    with torch.inference_mode():
+        out["kernel"] = qengine.model(x, sigma, modality=modality).float()
+        out["bf16_model"] = engine.model(x, sigma, modality=modality).float()
+        for label, dtype, logits in (("plain_bf16", torch.bfloat16,
+                                      cfg.logits_dtype),
+                                     ("plain_fp32", torch.float32,
+                                      "float32")):
+            mdl = DIT(dataclasses.replace(
+                cfg, attn_backend="xla", quant_backend="xla",
+                quant_fused=False, logits_dtype=logits),
+                compute_dtype=dtype).to("cuda").eval()
+            mdl.load_state_dict(state)
+            out[label] = mdl(x, sigma, modality=modality).float()
+            del mdl
+    torch.cuda.synchronize()
+    kern, truth = out["kernel"], out["plain_fp32"]
+    err_kernel = (kern - truth).abs().mean().item()
+    err_plain16 = (out["plain_bf16"] - truth).abs().mean().item()
+    ref = out["bf16_model"]
+    cos = ((kern.double() * ref.double()).sum()
+           / (kern.double().norm() * ref.double().norm())).item()
+    agree = kern.argmax(-1) == ref.argmax(-1)
+    top1 = agree.float().mean().item()
+    mean_diff = (kern - ref).abs().mean().item()
+    best2 = ref.topk(2, dim=-1).values
+    clear = (best2[..., 0] - best2[..., 1]) > 2 * mean_diff
+    top1_clear = agree[clear].float().mean().item()
+    lt, v0 = cfg.txt_length, cfg.text_vocab_size
+    top1_img = (kern[:, lt:, v0:].argmax(-1) == ref[:, lt:, v0:].argmax(-1)
+                ).float().mean().item()
+    finite = bool(torch.isfinite(kern).all().item())
+    rec = {"shape": list(kern.shape), "logit_scale": truth.abs().max().item(),
+           "mean_abs_err_kernel_bf16_vs_plain_fp32": err_kernel,
+           "mean_abs_err_plain_bf16_vs_plain_fp32": err_plain16,
+           "max_abs_err_kernel_bf16_vs_plain_fp32":
+               (kern - truth).abs().max().item(),
+           "max_abs_err_plain_bf16_vs_plain_fp32":
+               (out["plain_bf16"] - truth).abs().max().item(),
+           "cosine_vs_bf16_model": cos, "top1_vs_bf16_model": top1,
+           "top1_vs_bf16_model_image_span": top1_img,
+           "top1_vs_bf16_model_clear_margin": top1_clear,
+           "share_clear_margin": clear.float().mean().item(),
+           "mean_abs_diff_vs_bf16_model": mean_diff, "finite": finite}
+    print("int8_logits " + json.dumps(rec))
+    del out, kern, truth, ref, agree, best2, clear
+    if (not finite or err_kernel > 2 * err_plain16 or not cos > 0.99
+            or not top1_clear > 0.9):
+        raise AssertionError(f"full-width int8 logits through the kernels "
+                             f"are off: {rec}")
+    return rec
+
+
+def phase_sampler_cpu_agreement(seed, int8=False) -> dict:
     """The port's sampler on the card against the port on the CPU (which
     tests/test_torch_t2i.py holds token for token to the JAX sampler), on
-    a tiny fp32 model with the same injected noise."""
+    a tiny fp32 model with the same injected noise; with `int8`, on the
+    model quantized with the flagship's int8 settings (the kernels on the
+    card, their plain versions on the CPU)."""
     over = {"model.hidden_size": 128, "model.n_heads": 2,
             "model.n_blocks": 2, "model.cond_dim": 32, "model.length": 24,
             "model.txt_length": 8, "model.img_length": 16,
@@ -436,6 +712,9 @@ def phase_sampler_cpu_agreement(seed) -> dict:
             "model.attn_backend": "xla", "model.dropout": 0.0,
             "sampling.predictor": "maskgit", "sampling.steps": 5,
             "sampling.cfg": 2.0}
+    if int8:
+        over.update({"model.quant_backend": "pallas",
+                     "model.quant_fused": True})
     cfg = Config.make("tiny", **over)
     m = cfg.model
     rng = np.random.RandomState(seed)
@@ -450,12 +729,17 @@ def phase_sampler_cpu_agreement(seed) -> dict:
     randomize_(gpu_model, seed)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                gpu_model.state_dict().items()})
+    if int8:
+        cfg, cpu_model = quantize_model(cfg, cpu_model)
+        gpu_model = DIT(cfg.model, compute_dtype=torch.float32) \
+            .to("cuda").eval()
+        gpu_model.load_state_dict(cpu_model.state_dict())
     toks = {}
     for dev, mdl in (("cpu", cpu_model), ("cuda", gpu_model)):
         sample = build_t2i_sampler(mdl, cfg, inject_noise=True, device=dev)
         toks[dev] = sample(txt, injected=injected).tokens.cpu()
     agree = float((toks["cpu"] == toks["cuda"]).float().mean().item())
-    rec = {"token_agreement": agree}
+    rec = {"token_agreement": agree, "int8": int8}
     print("sampler_cpu_vs_cuda " + json.dumps(rec))
     if agree < 0.95:
         raise AssertionError(f"the sampler on the card disagrees with the "
@@ -479,7 +763,22 @@ def check_results(engine, prompts, results) -> None:
             raise AssertionError(f"nfe {r['nfe']}")
 
 
-def phase_serve(engine) -> dict:
+def expected_serve_launches(m, nfe) -> dict:
+    """Kernel launches of one served batch of `nfe` denoise steps, from the
+    code: one trunk pass at the CFG batch a step (each block one attention
+    and, in int8, four products, two of them behind a fused prologue) and
+    one int8 head product a step (t2i_fast applies guidance before the
+    head)."""
+    want = {"flash_fwd": m.n_blocks * nfe}
+    if m.quant == "int8":
+        if m.quant_backend == "pallas":
+            want["int8_matmul"] = (4 * m.n_blocks + 1) * nfe
+        if m.quant_fused:
+            want["fused_qmm"] = 2 * m.n_blocks * nfe
+    return want
+
+
+def phase_serve(engine, label="serve") -> dict:
     m = engine.m
     prompts = [f"a watercolor painting of a lighthouse, variant {i}"
                for i in range(REQUESTS)]
@@ -497,11 +796,11 @@ def phase_serve(engine) -> dict:
     launches = dict(_build.launch_counts)
     check_results(engine, prompts, results)
     nfe = results[0]["nfe"]
-    want = m.n_blocks * nfe        # one sample call
-    if launches.get("flash_fwd", 0) != want:
-        raise AssertionError(f"flash_fwd launched {launches} times on the "
-                             f"main path; expected {want} = n_blocks "
-                             f"{m.n_blocks} x NFE {nfe}")
+    want = expected_serve_launches(m, nfe)
+    if launches != want:
+        raise AssertionError(f"{label}: the main path launched {launches}; "
+                             f"expected {want} (n_blocks {m.n_blocks}, NFE "
+                             f"{nfe})")
 
     # steady state: the same batch again, timed on the host
     times = []
@@ -514,15 +813,14 @@ def phase_serve(engine) -> dict:
         check_results(engine, prompts, again)
     gen_tokens = REQUESTS * m.img_length
     rec = {"requests": REQUESTS, "rows_under_cfg": 2 * REQUESTS,
-           "nfe": nfe, "launches": launches,
-           "expected_flash_fwd_launches": want,
+           "nfe": nfe, "launches": launches, "expected_launches": want,
            "first_batch_s": first_s,
            "first_batch_tok_per_s": gen_tokens / first_s,
            "steady_batch_s": times,
            "steady_tok_per_s": gen_tokens / min(times),
            "distinct_images": len({r["image_ids"].tobytes()
                                    for r in results})}
-    print("serve " + json.dumps(rec))
+    print(f"{label} " + json.dumps(rec))
     return rec
 
 
@@ -647,7 +945,7 @@ def phase_train(cfg, batch_size, steps, seed, device="cuda") -> dict:
             raise AssertionError(f"the loss did not fall: first 5 mean "
                                  f"{early}, last 5 mean {late}: {losses}")
         if device == "cuda":
-            want = {name: m.n_blocks * steps for name in KERNELS}
+            want = {name: m.n_blocks * steps for name in TRAIN_KERNELS}
             if launches != want:
                 raise AssertionError(f"train path launched {launches}, "
                                      f"expected {want} (12 blocks x "
@@ -713,6 +1011,9 @@ def main() -> int:
     record["build"] = phase_build()
     record["kernel_cases"] = phase_kernels(args.seed)
     record["bwd_kernel_cases"] = phase_bwd_kernels(args.seed)
+    int8_model = Config.make("small", **FLAGSHIP_INT8_OVERRIDES).model
+    record["int8_matmul_cases"] = phase_int8_matmul(int8_model, args.seed)
+    record["fused_qmm_cases"] = phase_fused_qmm(int8_model, args.seed)
 
     t0 = time.perf_counter()
     engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
@@ -721,7 +1022,22 @@ def main() -> int:
     record["logits"] = phase_logits(engine, args.seed)
     record["sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(args.seed)
     record["serve"] = phase_serve(engine)
-    del engine
+
+    # the int8 engine, its weights the bf16 engine's quantized
+    t0 = time.perf_counter()
+    qengine = build_engine(preset="small", overrides=FLAGSHIP_INT8_OVERRIDES,
+                           quantize="int8")
+    qengine.model.load_state_dict(quantize_dit_params(
+        engine.model.state_dict()))
+    record["int8_engine_build_s"] = time.perf_counter() - t0
+    record["int8_logits"] = phase_int8_logits(engine, qengine, args.seed)
+    record["int8_sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(
+        args.seed, int8=True)
+    record["serve_int8"] = phase_serve(qengine, "serve_int8")
+    print("serve_tok_per_s " + json.dumps({
+        "bf16_steady_tok_per_s": record["serve"]["steady_tok_per_s"],
+        "int8_steady_tok_per_s": record["serve_int8"]["steady_tok_per_s"]}))
+    del engine, qengine
     torch.cuda.empty_cache()
 
     cfg = train_config()
@@ -729,11 +1045,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train"] = phase_train(cfg, TRAIN_BATCH, TRAIN_STEPS, args.seed)
 
-    by_path = {name: {"serve": record["serve"]["launches"].get(name, 0),
-                      "train": record["train"]["launches"].get(name, 0)}
+    by_path = {name: {path: record[path]["launches"].get(name, 0)
+                      for path in ("serve", "serve_int8", "train")}
                for name in KERNELS}
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
+    qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path
+    fq = record["fused_qmm_cases"][0]        # its rms + adaLN prologue
     measured = {
         "flash_fwd": {"max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
                       "bound_ms": fwd["bound_ms"],
@@ -744,10 +1062,14 @@ def main() -> int:
         "flash_bwd_dkv": {"max_abs_err": max(
             bwd["errors"][g]["max_abs_err"] for g in ("dk", "dv")),
             "ms": bwd["ms_dkv"], **bwd["bounds"]["flash_bwd_dkv"]},
+        "int8_matmul": qmm, "fused_qmm": fq,
     }
+    shape_key = {"int8_matmul": "shape_mkn", "fused_qmm": "shape_mk"}
     kernels = []
     for name, meta in KERNELS.items():
-        case = fwd if name == "flash_fwd" else bwd
+        case = {"flash_fwd": fwd, "int8_matmul": qmm,
+                "fused_qmm": fq}.get(name, bwd)
+        key = shape_key.get(name, "shape_bhld")
         kernels.append({
             "name": name, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"],
@@ -755,7 +1077,7 @@ def main() -> int:
                if "also_replaces" in meta else {}),
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
-            "shape_bhld": case["shape_bhld"],
+            key: case[key],
             "max_abs_err": measured[name]["max_abs_err"],
             "ms": measured[name]["ms"],
             # the plain version and the library call compute the whole

@@ -67,6 +67,31 @@ def test_tiny_engine_serves_requests_on_cpu():
         eng.run_batch([eng.prepare(text="a <mask:2> cat")])
 
 
+def test_tiny_int8_engine_serves_requests_on_cpu():
+    from unidisc_tpu_torch.config import FLAGSHIP_INT8_OVERRIDES
+    from unidisc_tpu_torch.models.dit import QLinear
+    eng = build_engine(preset="tiny", device="cpu", quantize="int8",
+                       overrides={**FLAGSHIP_INT8_OVERRIDES, **OVERRIDES,
+                                  **OVER})
+    m = eng.m
+    assert (m.quant, m.quant_backend, m.quant_fused) == \
+        ("int8", "pallas", True)
+    lin = eng.model.blocks[0].attn_qkv
+    assert isinstance(lin, QLinear) and lin.weight_q.dtype == torch.int8
+    assert isinstance(eng.model.output_layer.linear, QLinear)
+    prompts = ["a cat", "a dog"]
+    results = eng.run_batch([eng.prepare(text=p) for p in prompts], seed=2)
+    again = eng.run_batch([eng.prepare(text=p) for p in prompts], seed=2)
+    for p, r, s in zip(prompts, results, again):
+        assert r["text"] == p and r["nfe"] == 4
+        assert r["image_ids"].shape == (1, m.img_length)
+        assert 0 <= r["image_ids"].min() <= r["image_ids"].max() \
+            < m.image_vocab_size
+        np.testing.assert_array_equal(r["image_ids"], s["image_ids"])
+    with pytest.raises(ValueError, match="quantize"):
+        build_engine(preset="tiny", device="cpu", quantize="int4")
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = configs(**OVER)

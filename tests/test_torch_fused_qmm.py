@@ -1,0 +1,121 @@
+"""The plain version of the port's fused quantize kernel
+(ops/fused_qmm.py, which the wrapper runs on a CPU tensor) against the JAX
+package, at the shapes of tests/test_fused_qmm.py (B 2 x L 128 rows,
+rows_per_batch % 128 == 0, so the Pallas kernel runs in interpret mode
+and not its XLA fallback).
+
+- The prologue and quantization, (q, s), against the JAX ``_prologue`` +
+  ``_quantize`` that the Pallas kernel body runs: s within 1e-6 relative,
+  q within one int8 step on at most 0.1% of the elements (the fp32 sums
+  of the norms are taken in another order, which can move a value that
+  sits on a rounding boundary).
+- The whole fused product against the Pallas ``fused_qmm`` in interpret
+  mode, fp32 out, no bias (the bias add is held in
+  test_torch_int8_matmul.py): within 1e-6 relative, from scales that
+  differ by an ulp where XLA compiles the kernel body with other roundings
+  than it runs the ops one by one, plus one int8 step (127 s max(w_scale))
+  for each q element of the row that moved; at most 1% of the rows may
+  need a moved element, and none does in these cases.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unidisc_tpu.ops import fused_qmm as jax_fused
+from unidisc_tpu_torch.ops.fused_qmm import fused_qmm, fused_quantize
+
+K, N = 256, 384
+B, L = 2, 128
+M = B * L
+SCALE_RTOL = 1e-6
+MOVED_SHARE = 1e-3
+
+CASES = {
+    "layernorm_cond": dict(mode="adaln_norm", norm_type="layernorm",
+                           cond=True),
+    "rms_cond": dict(mode="adaln_norm", norm_type="rms", cond=True),
+    "layernorm_no_cond": dict(mode="adaln_norm", norm_type="layernorm",
+                              cond=False),
+    "gelu": dict(mode="gelu", norm_type="layernorm", cond=False),
+    "none": dict(mode="none", norm_type="layernorm", cond=False),
+}
+
+
+def inputs(seed):
+    rng = np.random.RandomState(seed)
+    return dict(
+        x=(rng.randn(M, K) * 0.5).astype(np.float32),
+        w_q=rng.randint(-127, 128, (N, K)).astype(np.int8),     # (N, K)
+        w_scale=(rng.rand(N) * 0.02 + 0.001).astype(np.float32),
+        bias=(rng.randn(N) * 0.1).astype(np.float32),
+        norm_w=(rng.rand(K) + 0.5).astype(np.float32),
+        shift=(rng.randn(B, K) * 0.2).astype(np.float32),
+        scale=(rng.randn(B, K) * 0.2).astype(np.float32),
+        modality=rng.randint(0, 2, (M,)).astype(np.int32))
+
+
+def prologue_args(a, mode, norm_type, cond, to):
+    kw = dict(mode=mode, norm_type=norm_type)
+    if mode == "adaln_norm":
+        kw["norm_w"] = to(a["norm_w"])
+    if cond:
+        kw.update(shift=to(a["shift"]), scale=to(a["scale"]),
+                  modality=to(a["modality"]), rows_per_batch=L)
+    return kw
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_qmm_matches_jax(case):
+    c = CASES[case]
+    a = inputs(seed=list(CASES).index(case))
+    # bf16 activations, as the DIT hands them over
+    x_bf16 = torch.from_numpy(a["x"]).bfloat16()
+    jx = jnp.asarray(x_bf16.float().numpy()).astype(jnp.bfloat16)
+
+    # (q, s) against the JAX kernel body's math
+    jkw = prologue_args(a, c["mode"], c["norm_type"], c["cond"], jnp.asarray)
+    x32 = jx.astype(jnp.float32)
+    if c["cond"]:
+        y = jax_fused._prologue(
+            x32, c["mode"], c["norm_type"], jkw["norm_w"],
+            jnp.repeat(jkw["shift"], L, 0), jnp.repeat(jkw["scale"], L, 0),
+            jkw["modality"].astype(jnp.float32)[:, None])
+    else:
+        y = jax_fused._prologue(x32, c["mode"], c["norm_type"],
+                                jkw.get("norm_w"), None, None, None)
+    want_q, want_s = (np.asarray(t) for t in jax_fused._quantize(y))
+    tkw = prologue_args(a, c["mode"], c["norm_type"], c["cond"],
+                        torch.from_numpy)
+    q, s = fused_quantize(x_bf16, **tkw)
+    assert q.dtype == torch.int8 and s.shape == (M, 1)
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=SCALE_RTOL, atol=0)
+    moved = np.abs(q.numpy().astype(np.int32) - want_q.astype(np.int32))
+    assert moved.max() <= 1 and moved.mean() <= MOVED_SHARE
+
+    # the fused product against the Pallas kernel in interpret mode
+    want = np.asarray(jax_fused.fused_qmm(
+        jx, jnp.asarray(a["w_q"].T), jnp.asarray(a["w_scale"]),
+        out_dtype=jnp.float32, block_m=128, block_n=128, **jkw))
+    t = torch.from_numpy
+    step = 127 * s.numpy() * a["w_scale"].max()          # (M, 1)
+    for backend in ("xla", "pallas"):
+        got = fused_qmm(x_bf16, t(a["w_q"]), t(a["w_scale"]),
+                        out_dtype=torch.float32, backend=backend,
+                        **tkw).numpy()
+        excess = np.abs(got - want) - SCALE_RTOL * np.abs(want)
+        steps = np.ceil(np.maximum(excess, 0) / step).max(-1)
+        assert (steps == 0).mean() >= 0.99 and steps.max() <= 2
+
+
+def test_modality_none_modulates_every_row():
+    a = inputs(seed=9)
+    t = torch.from_numpy
+    kw = dict(mode="adaln_norm", norm_type="rms", norm_w=t(a["norm_w"]),
+              shift=t(a["shift"]), scale=t(a["scale"]), rows_per_batch=L)
+    q_none = fused_quantize(t(a["x"]), **kw)
+    q_ones = fused_quantize(t(a["x"]), modality=torch.ones(M), **kw)
+    assert all(torch.equal(u, v) for u, v in zip(q_none, q_ones))
+    with pytest.raises(ValueError, match="mode"):
+        fused_quantize(t(a["x"]), mode="silu")

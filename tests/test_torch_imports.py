@@ -47,6 +47,20 @@ def test_training_slice_is_checked():
     assert (ROOT / "unidisc_tpu_torch/ops/csrc/flash_bwd.cu").exists()
 
 
+# the modules of the int8 serving slice
+INT8_SLICE = [
+    "unidisc_tpu_torch/ops/quant.py",
+    "unidisc_tpu_torch/ops/int8_matmul.py",
+    "unidisc_tpu_torch/ops/fused_qmm.py",
+]
+
+
+def test_int8_slice_is_checked():
+    assert set(INT8_SLICE) <= set(FILES)
+    for name in ("int8_matmul", "fused_qmm"):
+        assert (ROOT / f"unidisc_tpu_torch/ops/csrc/{name}.cu").exists()
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -1,0 +1,108 @@
+"""The plain version of the port's int8 kernel (ops/int8_matmul.py, which
+the wrapper runs on a CPU tensor) against the JAX package's Pallas
+int8_matmul in interpret mode, at the shapes that tile for it (those of
+tests/test_int8_matmul.py), and against its XLA oracle at shapes that do
+not. The integer product is exact on both sides and the fp32 epilogue is
+the same sequence of roundings: without a bias the fp32 outputs are equal
+bit for bit. With a bias, XLA's CPU compiler contracts the last multiply
+and the bias add into one FMA inside a compiled graph (the Pallas kernel
+in interpret mode, or the oracle under jit); the port, kernel and plain
+version alike, keeps JAX's two roundings, so it equals the oracle run op
+by op bit for bit and the compiled graph to within one rounding of the
+product (2^-23 of |product| + |out|). bf16 outputs: within one bf16 ulp
+(tests/test_int8_matmul.py allows the same).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unidisc_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
+from unidisc_tpu.ops.int8_matmul import xla_reference
+from unidisc_tpu_torch.ops import _build
+from unidisc_tpu_torch.ops.int8_matmul import int8_matmul
+from unidisc_tpu_torch.ops.quant import qdot
+
+BF16_ULP = 2.0 ** -7      # relative spacing of bf16 (8-bit significand)
+
+
+def operands(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    s = (rng.random((m, 1), np.float32) * 0.2 + 0.01).astype(np.float32)
+    wq = rng.integers(-127, 128, (n, k)).astype(np.int8)     # (N, K)
+    ws = (rng.random((n,), np.float32) * 0.2 + 0.01).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    return xq, s, wq, ws, b
+
+
+def port(xq, s, wq, ws, b, out_dtype):
+    t = torch.from_numpy
+    return int8_matmul(t(xq), t(s), t(wq), t(ws),
+                       bias=None if b is None else t(b),
+                       out_dtype=out_dtype).float().numpy()
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (256, 128, 256, (128, 128)),
+    (384, 256, 512, (128, 256)),
+    (512, 128, 128, (512, 128)),
+])
+def test_fp32_equals_pallas_interpret_bit_for_bit(m, k, n, blocks, bias):
+    xq, s, wq, ws, b = operands(m, k, n)
+    b = b if bias else None
+    want = np.asarray(jax_int8_matmul(
+        jnp.asarray(xq), jnp.asarray(s), jnp.asarray(wq.T), jnp.asarray(ws),
+        bias=None if b is None else jnp.asarray(b), block_m=blocks[0],
+        block_n=blocks[1], out_dtype=jnp.float32))
+    before = dict(_build.launch_counts)
+    got = port(xq, s, wq, ws, b, torch.float32)
+    assert dict(_build.launch_counts) == before   # no kernel on the CPU
+    if b is None:
+        np.testing.assert_array_equal(got, want)
+        return
+    oracle = xla_reference(jnp.asarray(xq), jnp.asarray(s),
+                           jnp.asarray(wq.T), jnp.asarray(ws),
+                           jnp.asarray(b), out_dtype=jnp.float32)
+    np.testing.assert_array_equal(got, np.asarray(oracle))
+    product = port(xq, s, wq, ws, None, torch.float32)
+    assert (np.abs(got - want)
+            <= 2.0 ** -23 * (np.abs(product) + np.abs(want))).all()
+
+
+def test_bf16_within_one_ulp_of_pallas_interpret():
+    xq, s, wq, ws, b = operands(256, 128, 256, seed=1)
+    want = np.asarray(jax_int8_matmul(
+        jnp.asarray(xq), jnp.asarray(s), jnp.asarray(wq.T), jnp.asarray(ws),
+        bias=jnp.asarray(b)), np.float32)
+    np.testing.assert_allclose(port(xq, s, wq, ws, b, torch.bfloat16), want,
+                               rtol=BF16_ULP, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n", [(40, 96, 56), (3, 16, 7)])
+def test_untileable_shapes_equal_the_xla_oracle(m, k, n):
+    xq, s, wq, ws, b = operands(m, k, n, seed=2)
+    want = xla_reference(jnp.asarray(xq), jnp.asarray(s), jnp.asarray(wq.T),
+                         jnp.asarray(ws), jnp.asarray(b),
+                         out_dtype=jnp.float32)
+    np.testing.assert_array_equal(port(xq, s, wq, ws, b, torch.float32),
+                                  np.asarray(want))
+
+
+def test_qdot_backends_agree_and_track_the_float_product():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(4, 16, 96)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(128, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(128,)).astype(np.float32))
+    from unidisc_tpu_torch.ops.quant import quantize_per_channel
+    w_q, w_s = quantize_per_channel(w, axis=1)
+    y = {be: qdot(x, w_q, w_s, bias=b, out_dtype=torch.float32, backend=be)
+         for be in ("xla", "pallas")}
+    assert torch.equal(y["xla"], y["pallas"]) and y["xla"].shape == (4, 16, 128)
+    ref = x @ w.t() + b
+    # W8A8 at these sizes: ~1% of the output scale, as tests/test_quant.py
+    assert ((y["xla"] - ref).abs().mean() / ref.abs().mean()) < 0.02
+    with pytest.raises(ValueError, match="quant_backend"):
+        qdot(x, w_q, w_s, backend="mosaic")

@@ -11,8 +11,14 @@ Fields whose meaning was tied to the TPU map as follows in the port:
     attention kernel (``ops/flash_attention.py``) for every unmasked
     self-attention; "xla" means the plain PyTorch attention
     (``ops/attention.py``).
-  * ``model.quant_backend``: "pallas" will mean the hand-written int8 GEMM
-    once that kernel is ported; the int8 path is not in the port yet.
+  * ``model.quant_backend`` (with ``model.quant="int8"``): "pallas" means
+    the hand-written int8 GEMM (``ops/int8_matmul.py``) for every int8
+    product; "xla" means its plain PyTorch version, as ``attn_backend="xla"``
+    means the plain attention.
+  * ``model.quant_fused``: attn_qkv and mlp.0 of every block take their
+    norm and adaLN modulation through the hand-written fused quantize
+    kernel (``ops/fused_qmm.py``) on the card, its plain version on the
+    CPU.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ class ModelConfig:
     lora_alpha: float = 32.0
     lora_targets: Tuple[str, ...] = ("attn_qkv", "qkv_proj")
     lora_train_full: Tuple[str, ...] = ()
-    # inference quantization: None | "int8" (not in the port yet)
+    # inference quantization: None | "int8" (see the module docstring)
     quant: Optional[str] = None
     quant_backend: str = "xla"
     quant_fused: bool = False
@@ -546,6 +552,17 @@ FLAGSHIP_OVERRIDES = {
     "sampling.predictor": "maskgit",
     "sampling.steps": 32,
     "sampling.cfg": 2.0,
+}
+
+
+# The flagship text->image serving configuration in int8 W8A8: every trunk
+# and head product through the int8 kernel, the adaLN prologues of attn_qkv
+# and mlp.0 through the fused quantize kernel. The model becomes int8 with
+# ``build_engine(quantize="int8")`` (``ops/quant.py::quantize_model``).
+FLAGSHIP_INT8_OVERRIDES = {
+    **FLAGSHIP_OVERRIDES,
+    "model.quant_backend": "pallas",
+    "model.quant_fused": True,
 }
 
 

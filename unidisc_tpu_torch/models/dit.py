@@ -18,11 +18,22 @@ the JAX parameter tree onto ``state_dict`` one to one.
 
 Unmasked self-attention goes through ``ops/flash_attention.py``: on the
 card that is the hand-written forward kernel for every shape and, under
-grad, the hand-written backward kernels. The port covers the inference
-forward and training mode without dropout (the flagship trains with
-dropout 0.0); training-mode dropout, the KV-cache, frozen-KV,
-image-conditioning, MoE, int8, split-embedding, class-label,
-multi-resolution and parallel branches raise ``NotImplementedError``.
+grad, the hand-written backward kernels.
+
+With ``model.quant="int8"`` (inference; weights from
+``ops/quant.py::quantize_dit_params``) the four trunk matmuls of every
+block and the vocab head are ``QLinear`` (int8 W8A8): under
+``quant_backend="pallas"`` their products go through the hand-written int8
+kernel (``ops/int8_matmul.py``), under "xla" through its plain version.
+With ``quant_fused`` as well, attn_qkv and mlp.0 take the norm and the
+adaLN modulation as an fp32 prologue of the fused quantize kernel
+(``ops/fused_qmm.py``), as the JAX block does.
+
+The port covers the inference forward (bf16 and int8) and training mode
+without dropout (the flagship trains with dropout 0.0); training-mode
+dropout, the KV-cache, frozen-KV, image-conditioning, MoE,
+split-embedding, class-label, multi-resolution and parallel branches raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,13 +48,61 @@ from unidisc_tpu_torch.config import ModelConfig
 from unidisc_tpu_torch.models.rotary import apply_rope, build_multimodal_rope
 from unidisc_tpu_torch.ops.attention import multihead_attention
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
+from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
+from unidisc_tpu_torch.ops.quant import qdot
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+class QLinear(nn.Module):
+    """int8 W8A8 linear for inference, the counterpart of the JAX
+    ``QDense``: an int8 ``weight_q`` (out, in) and its fp32 per-output-
+    channel ``scale``, both buffers (no gradients), and an fp32 bias. The
+    activations are quantized per row at each call."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, backend: str = "xla"):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.backend = backend
+        self.register_buffer("weight_q", torch.zeros(
+            (out_features, in_features), dtype=torch.int8))
+        self.register_buffer("scale", torch.full((out_features,),
+                                                 1 / 127.0))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype,
+                prologue=None) -> torch.Tensor:
+        """x (..., in) -> (..., out) in `out_dtype`. `prologue`: the keyword
+        arguments of ``fused_qmm`` (mode, norm and adaLN operands) for the
+        fused path, or None for ``qdot``."""
+        if prologue is None:
+            return qdot(x, self.weight_q, self.scale, bias=self.bias,
+                        out_dtype=out_dtype, backend=self.backend)
+        y = fused_qmm(x.reshape(-1, self.in_features), self.weight_q,
+                      self.scale, bias=self.bias, out_dtype=out_dtype,
+                      backend=self.backend, **prologue)
+        return y.reshape(*x.shape[:-1], self.out_features)
+
+
+def make_linear(cfg: ModelConfig, in_features: int, out_features: int, *,
+                bias: bool) -> nn.Module:
+    """``nn.Linear``, or ``QLinear`` when ``cfg.quant == "int8"``."""
+    if cfg.quant == "int8":
+        return QLinear(in_features, out_features, bias=bias,
+                       backend=cfg.quant_backend)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
+def dense(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype):
     """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to
-    `dtype`, product in `dtype`."""
+    `dtype`, product in `dtype`; a ``QLinear`` computes in int8 and writes
+    `dtype`."""
+    if isinstance(layer, QLinear):
+        return layer(x, dtype)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -171,27 +230,32 @@ class DDiTBlock(nn.Module):
         self.compute_dtype = compute_dtype
         dim = cfg.hidden_size
         self.norm1 = Norm(dim, cfg.norm_type, compute_dtype)
-        self.attn_qkv = nn.Linear(dim, 3 * dim, bias=False)
-        self.attn_out = nn.Linear(dim, dim, bias=False)
+        self.attn_qkv = make_linear(cfg, dim, 3 * dim, bias=False)
+        self.attn_out = make_linear(cfg, dim, dim, bias=False)
         if cfg.qk_norm:
             self.q_norm = QKNorm(dim, compute_dtype)
             self.k_norm = QKNorm(dim, compute_dtype)
         self.norm2 = Norm(dim, cfg.norm_type, compute_dtype)
-        self.mlp = nn.Sequential(nn.Linear(dim, cfg.mlp_ratio * dim),
-                                 nn.GELU(approximate="tanh"),
-                                 nn.Linear(cfg.mlp_ratio * dim, dim))
+        self.mlp = nn.Sequential(
+            make_linear(cfg, dim, cfg.mlp_ratio * dim, bias=True),
+            nn.GELU(approximate="tanh"),
+            make_linear(cfg, cfg.mlp_ratio * dim, dim, bias=True))
         if cfg.time_conditioning:
             self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim)
         if cfg.sandwich_normalization:
             self.pre_residual_norm = Norm(dim, cfg.norm_type, compute_dtype)
             self.post_ff_norm = Norm(dim, cfg.norm_type, compute_dtype)
 
-    def attention(self, x, rope_cos, rope_sin, attn_mask=None):
+    def attention(self, x, rope_cos, rope_sin, attn_mask=None,
+                  qkv_prologue=None):
         cfg = self.cfg
         dt = self.compute_dtype
         b, l, dim = x.shape
         h, d = cfg.n_heads, cfg.head_dim
-        qkv = dense(x, self.attn_qkv, dt)
+        if qkv_prologue is None:
+            qkv = dense(x, self.attn_qkv, dt)
+        else:
+            qkv = self.attn_qkv(x, dt, qkv_prologue)
         if cfg.qk_norm:
             qkv = torch.cat([self.q_norm(qkv[..., :dim]),
                              self.k_norm(qkv[..., dim:2 * dim]),
@@ -217,22 +281,48 @@ class DDiTBlock(nn.Module):
             (shift_msa, scale_msa, gate_msa,
              shift_mlp, scale_mlp, gate_mlp) = cond.chunk(6, dim=-1)
         else:
+            shift_msa = scale_msa = shift_mlp = scale_mlp = None
             gate_msa = gate_mlp = None
+        # fused int8 inference: the norm and the adaLN modulation of the
+        # attn_qkv and mlp.0 inputs run in fp32 inside the fused quantize
+        # kernel, with no bf16 rounding between them; attn_out and mlp.2
+        # keep qdot
+        fused = cfg.quant == "int8" and cfg.quant_fused
+        if fused:
+            gate_rows = None if modality is None \
+                else modality.reshape(-1).float()
+
+            def prologue(norm, shift, scale):
+                pro = dict(mode="adaln_norm", norm_type=cfg.norm_type,
+                           norm_w=norm.weight, rows_per_batch=x.shape[1])
+                if shift is not None:
+                    pro.update(shift=shift[:, 0], scale=scale[:, 0],
+                               modality=gate_rows)
+                return pro
 
         x_skip = x
-        hidden = self.norm1(x)
-        if cfg.time_conditioning:
-            hidden = modulate(hidden, shift_msa, scale_msa, modality)
-        attn_out = self.attention(hidden, rope_cos, rope_sin, attn_mask)
+        if fused:
+            attn_out = self.attention(
+                x, rope_cos, rope_sin, attn_mask,
+                qkv_prologue=prologue(self.norm1, shift_msa, scale_msa))
+        else:
+            hidden = self.norm1(x)
+            if cfg.time_conditioning:
+                hidden = modulate(hidden, shift_msa, scale_msa, modality)
+            attn_out = self.attention(hidden, rope_cos, rope_sin, attn_mask)
         if cfg.sandwich_normalization:
             x = x_skip + self.pre_residual_norm(attn_out)
         else:
             x = gate_residual(x_skip, attn_out, gate_msa, modality)
 
-        hidden = self.norm2(x)
-        if cfg.time_conditioning:
-            hidden = modulate(hidden, shift_mlp, scale_mlp, modality)
-        hidden = dense(hidden, self.mlp[0], dt)
+        if fused:
+            hidden = self.mlp[0](x, dt, prologue(self.norm2, shift_mlp,
+                                                 scale_mlp))
+        else:
+            hidden = self.norm2(x)
+            if cfg.time_conditioning:
+                hidden = modulate(hidden, shift_mlp, scale_mlp, modality)
+            hidden = dense(hidden, self.mlp[0], dt)
         hidden = F.gelu(hidden, approximate="tanh")
         hidden = dense(hidden, self.mlp[2], dt)
         if cfg.sandwich_normalization:
@@ -252,7 +342,8 @@ class DDitFinalLayer(nn.Module):
         if cfg.time_conditioning:
             self.adaLN_modulation = nn.Linear(cfg.cond_dim,
                                               2 * cfg.hidden_size)
-        self.linear = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.linear = make_linear(cfg, cfg.hidden_size, cfg.vocab_size,
+                                  bias=True)
 
     def forward(self, x, c, modality=None):
         cfg = self.cfg
@@ -299,9 +390,6 @@ class DIT(nn.Module):
         if cfg.moe_experts > 0:
             raise NotImplementedError("model.moe_experts > 0 (MoE MLP) is "
                                       "not in the port yet")
-        if cfg.quant is not None:
-            raise NotImplementedError("model.quant (int8 W8A8) is not in "
-                                      "the port yet")
         if cfg.img_resolutions is not None:
             raise NotImplementedError("model.img_resolutions (multi-"
                                       "resolution rope) is not in the port "
@@ -332,7 +420,9 @@ class DIT(nn.Module):
         """Initialise like ``unidisc_tpu.models.dit.init_dit`` (the same
         distributions; torch and JAX draw different numbers): torch-Linear
         uniform kernels, uniform embeddings, zero adaLN tables, and a zero
-        vocab head under ``zero_linear_init``."""
+        vocab head under ``zero_linear_init``. A ``QLinear`` takes the
+        JAX ``QDense`` init, round(127 x the uniform kernel) with scale
+        1/127, the vocab head too."""
         cfg = self.cfg
 
         def uniform_(p, fan):
@@ -341,7 +431,13 @@ class DIT(nn.Module):
                                                   generator=generator))
 
         def linear_(lin, bias="zeros"):
-            uniform_(lin.weight, lin.in_features)
+            if isinstance(lin, QLinear):
+                w = torch.empty(lin.weight_q.shape)
+                uniform_(w, lin.in_features)
+                lin.weight_q.copy_(torch.round(w * 127).to(torch.int8))
+                lin.scale.fill_(1 / 127.0)
+            else:
+                uniform_(lin.weight, lin.in_features)
             if lin.bias is not None:
                 if bias == "zeros":
                     lin.bias.zero_()
@@ -372,11 +468,11 @@ class DIT(nn.Module):
         if cfg.time_conditioning:
             out.adaLN_modulation.weight.zero_()
             out.adaLN_modulation.bias.zero_()
-        if cfg.zero_linear_init:
-            out.linear.weight.zero_()
+        if isinstance(out.linear, QLinear) or not cfg.zero_linear_init:
+            linear_(out.linear)
         else:
-            uniform_(out.linear.weight, cfg.hidden_size)
-        out.linear.bias.zero_()
+            out.linear.weight.zero_()
+            out.linear.bias.zero_()
 
     def _check(self, sigma, modality, unsupported) -> None:
         for name, value in unsupported.items():

@@ -24,6 +24,13 @@ reference torch names:
 The scan axis of the stacked blocks becomes ``blocks.{i}``; flax kernels
 (in, out) are transposed to torch weights (out, in).
 
+A quantized tree (``unidisc_tpu/ops/quant.py::quantize_dit_params``)
+carries its int8 linears over as the port's ``QLinear``: a ``QDense``'s
+``kernel_q`` (in, out) int8 becomes ``weight_q`` (out, in), transposed and
+kept int8, and its per-channel ``scale`` stays ``scale``, while a
+LayerNorm's ``scale`` still becomes ``weight``. Every other leaf is cast
+to fp32.
+
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` over (params,
 EMA, the Adam moments and counts, the schedule's count) with the same
 mapping, into the layout of the port's ``TrainState.state_dict``.
@@ -52,34 +59,48 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def _torch_name(path: tuple) -> str:
-    """Flax path (without the scan axis) -> reference torch name."""
+_LEAVES = {"kernel": "weight", "scale": "weight", "kernel_q": "weight_q"}
+
+
+def _torch_name(path: tuple, quantized: bool = False) -> str:
+    """Flax path (without the scan axis) -> reference torch name. In a
+    quantized dense (`quantized`), ``scale`` is the per-channel weight
+    scale and keeps its name."""
     if len(path) == 1:                       # a bare table
         return f"{path[0]}.embedding"
     mods = [re.sub(r"^mlp_(\d)$", r"mlp.\1", p) for p in path[:-1]
             if p != "attention"]
-    leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
+    leaf = path[-1] if quantized and path[-1] == "scale" \
+        else _LEAVES.get(path[-1], path[-1])
     return ".".join(mods + [leaf])
 
 
 def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax DIT params (nested mapping of arrays) -> the port's state_dict
-    (fp32 tensors on the CPU)."""
+    (tensors on the CPU: fp32, and int8 for quantized weights)."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params).items():
+    flat = _flatten(params)
+    qdense = {path[:-1] for path in flat if path[-1] == "kernel_q"}
+    for path, arr in flat.items():
         if path[0] not in _TOP_LEVEL:
             raise NotImplementedError(
                 f"parameter {'/'.join(path)} belongs to a DIT branch that "
                 f"is not in the port yet")
-        kernel = path[-1] == "kernel"
-        arr = arr.astype(np.float32)
+        kernel = path[-1] in ("kernel", "kernel_q")
+        quantized = path[:-1] in qdense
+        if path[-1] == "kernel_q":
+            if arr.dtype != np.int8:
+                raise TypeError(f"{'/'.join(path)} must be int8, got "
+                                f"{arr.dtype}")
+        else:
+            arr = arr.astype(np.float32)
         if path[0] == "blocks":
-            name = _torch_name(path[1:])
+            name = _torch_name(path[1:], quantized)
             for i, a in enumerate(arr):
                 sd[f"blocks.{i}.{name}"] = torch.from_numpy(
                     np.ascontiguousarray(a.T if kernel else a))
         else:
-            sd[_torch_name(path)] = torch.from_numpy(
+            sd[_torch_name(path, quantized)] = torch.from_numpy(
                 np.ascontiguousarray(arr.T if kernel else arr))
     return sd
 

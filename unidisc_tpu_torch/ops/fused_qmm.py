@@ -1,0 +1,220 @@
+"""Fused prologue + dynamic int8 quantization, through the hand-written
+Hopper kernel ``ops/csrc/fused_qmm.cu`` (the port of the JAX package's
+Pallas ``fused_qmm``, ``unidisc_tpu/ops/fused_qmm.py``), followed by the
+int8 product.
+
+``fused_quantize`` computes, per row and in fp32, the prologue (norm and
+modality-gated adaLN modulation, or tanh-GELU, or identity) and the
+per-row symmetric int8 quantization with ``s = amax * (1/127)`` and
+``round(y * (1/s))``: the multiplying form of ``fused_qmm.py:88-94``, which
+differs from the dividing form of ``ops/quant.py`` on borderline values.
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+``fused_quantize_reference``, which mirrors the JAX ``_prologue`` and
+``_quantize`` (including the two-pass variance ``mean((x - mu)^2)``).
+
+``fused_qmm`` adds the product: through the int8 kernel
+(``ops/int8_matmul.py``) under ``backend="pallas"``, through its plain
+version otherwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from unidisc_tpu_torch.ops import _build
+from unidisc_tpu_torch.ops.int8_matmul import int8_product
+
+KERNEL = "fused_qmm"
+MODES = {"none": 0, "adaln_norm": 1, "gelu": 2}
+NORM_TYPES = {"layernorm": 0, "rms": 1}
+X_DTYPES = (torch.bfloat16, torch.float32)
+GELU_C = 0.7978845608028654     # sqrt(2 / pi)
+
+
+def _prologue(x, mode, norm_type, norm_w, shift, scale, mod):
+    """fp32 in and out; shift, scale (M, K) and mod (M, 1) or None."""
+    if mode == "adaln_norm":
+        if norm_type == "layernorm":
+            mu = x.mean(-1, keepdim=True)
+            var = (x - mu).square().mean(-1, keepdim=True)
+            y = (x - mu) * torch.rsqrt(var + 1e-5)
+        elif norm_type == "rms":
+            y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
+        else:
+            raise ValueError(norm_type)
+        y = y * norm_w
+        if shift is not None:
+            # modality-gated adaLN: rows with m = 0 (text) pass through
+            y = y * (1.0 + scale * mod) + shift * mod
+        return y
+    if mode == "gelu":
+        return 0.5 * x * (1.0 + torch.tanh(GELU_C * (x + 0.044715 * (x * x * x))))
+    if mode == "none":
+        return x
+    raise ValueError(f"unknown fused_qmm mode {mode!r}")
+
+
+def _quantize(y):
+    amax = y.abs().amax(-1, keepdim=True)
+    s = torch.where(amax > 0, amax * (1.0 / 127.0), 1.0)
+    return torch.round(y * (1.0 / s)).to(torch.int8), s
+
+
+def fused_quantize_reference(x: torch.Tensor, *, mode: str = "none",
+                             norm_type: str = "layernorm",
+                             norm_w: Optional[torch.Tensor] = None,
+                             shift: Optional[torch.Tensor] = None,
+                             scale: Optional[torch.Tensor] = None,
+                             modality: Optional[torch.Tensor] = None,
+                             rows_per_batch: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: x (M, K) -> (q (M, K) int8, s (M, 1)
+    fp32). shift/scale are (B, K), one row per batch element, each row of x
+    taking row ``index // rows_per_batch``; modality (M,) gates them (None
+    means every row is modulated)."""
+    m_rows = x.shape[0]
+    sh = sc = mod = None
+    if shift is not None:
+        batch_of_row = torch.arange(m_rows, device=x.device) \
+            // _rows_per_batch(rows_per_batch)
+        sh = shift.float()[batch_of_row]
+        sc = scale.float()[batch_of_row]
+        mod = (torch.ones((m_rows, 1), device=x.device) if modality is None
+               else modality.reshape(m_rows, 1).float())
+    y = _prologue(x.float(), mode, norm_type,
+                  None if norm_w is None else norm_w.float(), sh, sc, mod)
+    return _quantize(y)
+
+
+def _rows_per_batch(rows_per_batch) -> int:
+    if rows_per_batch is None or rows_per_batch < 1:
+        raise ValueError("fused_qmm: conditioning needs rows_per_batch >= 1")
+    return rows_per_batch
+
+
+def fused_quantize(x: torch.Tensor, *, mode: str = "none",
+                   norm_type: str = "layernorm",
+                   norm_w: Optional[torch.Tensor] = None,
+                   shift: Optional[torch.Tensor] = None,
+                   scale: Optional[torch.Tensor] = None,
+                   modality: Optional[torch.Tensor] = None,
+                   rows_per_batch: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prologue + per-row int8 quantization: x (M, K) bf16 or fp32 ->
+    (q (M, K) int8, s (M, 1) fp32). Arguments as in
+    ``fused_quantize_reference``."""
+    kw = dict(mode=mode, norm_type=norm_type, norm_w=norm_w, shift=shift,
+              scale=scale, modality=modality, rows_per_batch=rows_per_batch)
+    if mode not in MODES:
+        raise ValueError(f"unknown fused_qmm mode {mode!r}")
+    if x.device.type == "cpu":
+        return fused_quantize_reference(x, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_qmm: unsupported device {x.device}")
+    return _fused_quantize_cuda(x, **kw)
+
+
+def fused_qmm(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
+              bias: Optional[torch.Tensor] = None, mode: str = "none",
+              norm_type: str = "layernorm",
+              norm_w: Optional[torch.Tensor] = None,
+              shift: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None,
+              modality: Optional[torch.Tensor] = None,
+              rows_per_batch: Optional[int] = None,
+              out_dtype: torch.dtype = torch.bfloat16,
+              backend: str = "xla") -> torch.Tensor:
+    """prologue -> dynamic int8 -> int8 product with the fused epilogue.
+
+    x: (M, K); w_q (N, K) int8; w_scale (N,) fp32; bias (N,) or None.
+    backend "pallas": the product through the int8 kernel; "xla": through
+    its plain version."""
+    matmul = int8_product(backend)
+    y_q, s = fused_quantize(x, mode=mode, norm_type=norm_type, norm_w=norm_w,
+                            shift=shift, scale=scale, modality=modality,
+                            rows_per_batch=rows_per_batch)
+    return matmul(y_q, s, w_q, w_scale, bias=bias, out_dtype=out_dtype)
+
+
+def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
+                         modality, rows_per_batch):
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"fused_qmm: x must be one of {X_DTYPES}, got "
+                        f"{x.dtype}")
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"fused_qmm: x must be a contiguous (M, K) "
+                         f"matrix, got shape {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+    m_rows, k = x.shape
+    dev = x.device
+
+    def on_device(name, t):
+        if t.device != dev:
+            raise ValueError(f"fused_qmm: {name} is on {t.device}, x on "
+                             f"{dev}")
+        return t
+
+    if norm_type not in NORM_TYPES:
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    if mode == "adaln_norm":
+        if norm_w is None or norm_w.shape != (k,):
+            raise ValueError(f"fused_qmm: adaln_norm needs norm_w ({k},)")
+        norm_w = on_device("norm_w", norm_w.float().contiguous())
+    else:
+        norm_w = None
+    cond = mode == "adaln_norm" and shift is not None
+    rpb, stride, cond_bf16 = 1, 0, 0
+    if cond:
+        rpb = _rows_per_batch(rows_per_batch)
+        n_batch = -(-m_rows // rpb)
+        for name, t in (("shift", shift), ("scale", scale)):
+            if (t is None or t.ndim != 2 or t.shape[0] < n_batch
+                    or t.shape[1] != k or t.stride(1) != 1
+                    or t.dtype not in X_DTYPES):
+                raise ValueError(f"fused_qmm: {name} must be a ({n_batch}, "
+                                 f"{k}) bf16 or fp32 matrix with a "
+                                 f"contiguous last dimension")
+            on_device(name, t)
+        if shift.dtype != scale.dtype or shift.stride() != scale.stride():
+            raise ValueError("fused_qmm: shift and scale must share dtype "
+                             "and strides")
+        stride, cond_bf16 = shift.stride(0), int(shift.dtype == torch.bfloat16)
+        if modality is not None:
+            modality = on_device("modality",
+                                 modality.reshape(-1).float().contiguous())
+            if modality.numel() != m_rows:
+                raise ValueError(f"fused_qmm: modality must have {m_rows} "
+                                 f"elements")
+    else:
+        shift = scale = modality = None
+    q = torch.empty((m_rows, k), dtype=torch.int8, device=dev)
+    s = torch.empty((m_rows, 1), dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_qmm(
+            x.data_ptr(), ptr(norm_w), ptr(shift), ptr(scale), ptr(modality),
+            q.data_ptr(), s.data_ptr(), stride, m_rows, k, rpb, MODES[mode],
+            NORM_TYPES[norm_type], int(x.dtype == torch.bfloat16), cond_bf16,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"fused_qmm launch failed: "
+                           f"{lib.fused_qmm_error_string(err).decode()}")
+    _build.launch_counts[KERNEL] += 1
+    return q, s
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    if lib.fused_qmm.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fused_qmm.argtypes = ([ptr] * 7 + [ctypes.c_longlong]
+                                  + [i32] * 7 + [ptr])
+        lib.fused_qmm.restype = i32
+        lib.fused_qmm_error_string.argtypes = [i32]
+        lib.fused_qmm_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,145 @@
+"""int8 W8A8 matrix product with the dequantizing epilogue, through the
+hand-written Hopper kernel ``ops/csrc/int8_matmul.cu`` (the port of the
+JAX package's Pallas ``int8_matmul``, ``unidisc_tpu/ops/int8_matmul.py``).
+
+    out = (x_q @ w_q^T)_int32 * s_row * w_scale_col (+ bias)   -> out_dtype
+
+The weight is stored in the port's (N, K) layout, K contiguous: a row
+slice (the t2i head's image vocabulary) is itself a contiguous (N', K)
+matrix. On a CUDA tensor ``int8_matmul`` launches the kernel or raises; on
+a CPU tensor it runs ``int8_matmul_reference``, which mirrors the JAX
+oracle ``xla_reference``: the integer product exactly, then the fp32
+epilogue in JAX's order, ``(acc * s) * w_scale``, then ``+ bias``, then the
+cast.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from unidisc_tpu_torch.ops import _build
+
+KERNEL = "int8_matmul"
+BLOCK_M = 128          # output rows per thread block (int8_matmul.cu)
+MAX_GRID_Y = 65535
+OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def int8_matmul_reference(x_q: torch.Tensor, s: torch.Tensor,
+                          w_q: torch.Tensor, w_scale: torch.Tensor, *,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """The kernel's plain version. x_q (M, K) int8, s (M, 1) fp32,
+    w_q (N, K) int8, w_scale (N,), bias (N,) or None -> (M, N) out_dtype.
+
+    The product is taken in fp64, where every partial sum of int8 x int8
+    products is an exact integer (|acc| <= 127^2 K < 2^53), so the result
+    is the int32 accumulator whatever the summation order; its cast to fp32
+    rounds as JAX's int32 -> fp32 cast does."""
+    acc = (x_q.double() @ w_q.double().t()).float()
+    out = acc * s.float().reshape(-1, 1) * w_scale.float()[None, :]
+    if bias is not None:
+        out = out + bias.float()[None, :]
+    return out.to(out_dtype)
+
+
+def int8_matmul(x_q: torch.Tensor, s: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, *,
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(x_q int8 (M, K), s fp32 (M, 1)) x (w_q int8 (N, K), w_scale (N,))
+    -> out_dtype (M, N), the epilogue fused.
+
+    On the card: K must be a multiple of 16 (16-byte row loads), both int8
+    operands K-contiguous and 16-byte aligned; any M and N."""
+    if x_q.device.type == "cpu":
+        return int8_matmul_reference(x_q, s, w_q, w_scale, bias=bias,
+                                     out_dtype=out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
+    return _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype)
+
+
+def int8_product(backend: str):
+    """The int8 product of a ``model.quant_backend``: the kernel wrapper
+    for "pallas", its plain version for "xla"."""
+    if backend == "pallas":
+        return int8_matmul
+    if backend == "xla":
+        return int8_matmul_reference
+    raise ValueError(f"unknown quant_backend {backend!r}")
+
+
+def _aligned_rows(x: torch.Tensor) -> bool:
+    return x.stride(-1) == 1 and x.stride(0) == x.shape[1] \
+        and x.data_ptr() % 16 == 0
+
+
+def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype):
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"int8_matmul: x_q and w_q must be int8, got "
+                        f"{x_q.dtype} and {w_q.dtype}")
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[1]:
+        raise ValueError(f"int8_matmul: shapes x_q {tuple(x_q.shape)} and "
+                         f"w_q {tuple(w_q.shape)} (N, K) disagree")
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    if k % 16:
+        raise ValueError(f"int8_matmul: K = {k} must be a multiple of 16")
+    if m < 1 or n < 1 or -(-m // BLOCK_M) > MAX_GRID_Y:
+        raise ValueError(f"int8_matmul: unsupported M = {m}, N = {n}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"int8_matmul: out_dtype {out_dtype} not in "
+                        f"{OUT_DTYPES}")
+    dev = x_q.device
+    for name, t in (("x_q", x_q), ("w_q", w_q)):
+        if t.device != dev:
+            raise ValueError(f"int8_matmul: {name} is on {t.device}, x_q "
+                             f"on {dev}")
+        if not _aligned_rows(t):
+            raise ValueError(f"int8_matmul: {name} needs contiguous rows "
+                             f"and 16-byte alignment; got strides "
+                             f"{t.stride()}")
+    # the epilogue reads fp32 vectors (JAX casts w_scale and bias to fp32
+    # in its epilogue); these are no-ops for fp32 inputs
+    s = s.reshape(-1).float().contiguous()
+    w_scale = w_scale.float().contiguous()
+    if s.numel() != m or w_scale.shape != (n,):
+        raise ValueError(f"int8_matmul: s must have {m} and w_scale {n} "
+                         f"elements")
+    if bias is not None:
+        bias = bias.float().contiguous()
+        if bias.shape != (n,):
+            raise ValueError(f"int8_matmul: bias must be ({n},)")
+    for name, t in (("s", s), ("w_scale", w_scale), ("bias", bias)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"int8_matmul: {name} is on {t.device}, x_q "
+                             f"on {dev}")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.int8_matmul(
+            x_q.data_ptr(), s.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            m, n, k, int(out_dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul launch failed: "
+                           f"{lib.int8_matmul_error_string(err).decode()}")
+    _build.launch_counts[KERNEL] += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    if lib.int8_matmul.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.int8_matmul.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.int8_matmul.restype = i32
+        lib.int8_matmul_error_string.argtypes = [i32]
+        lib.int8_matmul_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,10 +1,12 @@
 """Where a flagship text->image batch spends its time on the card.
 
     python -m unidisc_tpu_torch.profile_t2i [--requests 8] [--top 20]
-        [--out chiprun_out/profile_t2i.json]
+        [--int8] [--out chiprun_out/profile_t2i.json]
 
 Builds the flagship engine (``config.FLAGSHIP_OVERRIDES``, random weights
-from a seed), serves one warm-up batch, then measures:
+from a seed; with ``--int8`` those weights quantized, served under
+``config.FLAGSHIP_INT8_OVERRIDES``), serves one warm-up batch, then
+measures:
 
   * one DIT forward at the CFG batch (2 x requests rows): the time between
     CUDA events around it (device idle gaps included), and the host time
@@ -26,9 +28,11 @@ import time
 
 import torch
 
-from unidisc_tpu_torch.config import FLAGSHIP_OVERRIDES
+from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
+                                      FLAGSHIP_OVERRIDES)
 from unidisc_tpu_torch.models.dit import randomize_
-from unidisc_tpu_torch.serving.engine import build_engine
+from unidisc_tpu_torch.ops.quant import quantize_model
+from unidisc_tpu_torch.serving.engine import InferenceEngine, build_engine
 
 
 def forward_times(engine, rows: int, iters: int = 10) -> dict:
@@ -63,21 +67,27 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the int8 W8A8 model")
     ap.add_argument("--out", default="chiprun_out/profile_t2i.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_t2i: CUDA is not available", file=sys.stderr)
         return 1
 
-    engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
+    overrides = FLAGSHIP_INT8_OVERRIDES if args.int8 else FLAGSHIP_OVERRIDES
+    engine = build_engine(preset="small", overrides=overrides)
     randomize_(engine.model, args.seed)
+    if args.int8:
+        engine = InferenceEngine(*quantize_model(engine.config,
+                                                 engine.model))
     prepared = [engine.prepare(text=f"a profile prompt {i}")
                 for i in range(args.requests)]
     engine.run_batch(prepared, seed=0)                    # warm-up
     torch.cuda.synchronize()
 
     record = {"device": torch.cuda.get_device_name(0),
-              "requests": args.requests,
+              "requests": args.requests, "int8": args.int8,
               "forward": forward_times(engine, 2 * args.requests)}
 
     from torch.profiler import ProfilerActivity, profile

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
 from unidisc_tpu_torch.diffusion.noise import get_noise
-from unidisc_tpu_torch.models.dit import silu, timestep_features
+from unidisc_tpu_torch.models.dit import QLinear, silu, timestep_features
+from unidisc_tpu_torch.ops.quant import qdot
 from unidisc_tpu_torch.sampling.sampler import (SampleResult,
                                                 adaptive_schedule,
                                                 confidence_threshold,
@@ -57,10 +58,16 @@ def _head_pre(model, hidden_img, c, cfg: Config,
 
 
 def _head_linear(model, y, cfg: Config, v0: int):
-    """The final linear restricted to the image vocabulary (rows v0:)."""
+    """The final linear restricted to the image vocabulary (rows v0:). An
+    int8 head slices the rows of its (N, K) weight, which stay contiguous,
+    and their scales and bias, and goes through ``qdot``."""
     lin = model.output_layer.linear
     dt = torch.bfloat16 if cfg.model.logits_dtype == "bfloat16" \
         else torch.float32
+    if isinstance(lin, QLinear):
+        return qdot(y, lin.weight_q[v0:], lin.scale[v0:],
+                    bias=lin.bias[v0:], out_dtype=dt,
+                    backend=cfg.model.quant_backend)
     return y.to(dt) @ lin.weight[v0:].to(dt).t() + lin.bias[v0:].to(dt)
 
 
@@ -156,7 +163,7 @@ def build_t2i_sampler(model, config: Config,
     if cached_cond or cond_refresh:
         raise NotImplementedError(
             "cached_cond (conditioning-frozen sampling) is not in the port "
-            "yet (ROADMAP queue 1, item 7)")
+            "yet (ROADMAP queue 1, item 3)")
     dev = resolve_device(device)
     _check_model_device(model, dev)
     m = config.model

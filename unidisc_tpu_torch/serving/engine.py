@@ -2,10 +2,11 @@
 (port of the text->image path of ``unidisc_tpu/serving/engine.py``).
 
 This slice serves the span-factored text->image fast path: a request whose
-text is given in full and whose image is generated. Other tasks (text
+text is given in full and whose image is generated, in bf16 or, with
+``build_engine(quantize="int8")``, in int8 W8A8. Other tasks (text
 generation, infilling, joint generation) need the generic sampler and
-raise, as do checkpoints, meshes, rolling batching, scaffold decoding and
-int8, which later slices port (ROADMAP queue 1).
+raise, as do checkpoints, meshes, rolling batching and scaffold decoding,
+which later slices port (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -140,7 +141,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "only fully text-conditioned image generation (the t2i "
                 "fast path) is in the port yet; other tasks need the "
-                "generic sampler (ROADMAP queue 1, item 4)")
+                "generic sampler (ROADMAP queue 1, item 3)")
         x0 = np.stack([p["x0"] for p in prepared])
         if pad_to and pad_to > n:
             x0 = np.concatenate([x0, np.repeat(x0[-1:], pad_to - n, 0)])
@@ -180,11 +181,14 @@ class InferenceEngine:
 
 def build_engine(*, preset: str = "small", device="cuda",
                  experiments=None, overrides: Optional[dict] = None,
-                 steps: Optional[int] = None) -> InferenceEngine:
+                 steps: Optional[int] = None,
+                 quantize: Optional[str] = None) -> InferenceEngine:
     """An engine for a config preset with weights drawn from the config's
     seed (the JAX init's distributions). `overrides` are dotted config
     overrides applied with the preset; `experiments` are overlays applied
-    after them, as in the JAX engine. The model computes in bf16."""
+    after them, as in the JAX engine. The model computes in bf16;
+    ``quantize="int8"`` converts it to int8 W8A8 after the weights are
+    drawn (``ops/quant.py::quantize_model``)."""
     from unidisc_tpu_torch.models.dit import DIT
     dev = resolve_device(device)
     over = dict(overrides or {})
@@ -194,6 +198,11 @@ def build_engine(*, preset: str = "small", device="cuda",
     if experiments:
         config = config.apply_experiments(*experiments)
     config.validate()
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize {quantize!r}")
     model = DIT(config.model, compute_dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(config.seed))
+    if quantize:
+        from unidisc_tpu_torch.ops.quant import quantize_model
+        config, model = quantize_model(config, model)
     return InferenceEngine(config, model, device=dev)
