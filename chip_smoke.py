@@ -11,7 +11,10 @@ and prints no result):
      with nvcc, one process per source, all started together.
   3. kernels: hold each kernel against its plain PyTorch version on the
      card at the main paths' shapes and the other listed shapes, and time
-     the kernel, the plain version and one PyTorch library call: the
+     the kernel, the plain version and one PyTorch library call (ms: CUDA
+     events around 20 calls of the Python wrapper; device_ms: the summed
+     device time of the kernels those calls launch, from torch.profiler;
+     host_us: the wrapper's host time per call): the
      attention forward (flash_fwd), the two attention backward kernels
      (flash_bwd_dq, flash_bwd_dkv), the int8 product (int8_matmul; fp32
      output bit-exact, bf16 within one ulp) at the five products of the
@@ -45,6 +48,7 @@ card this run lands on; the bound uses the H100 SXM's published peaks.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
@@ -114,7 +118,7 @@ KERNELS = {
     },
     "flash_bwd_dkv": {
         "route": "cuda",
-        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd.cu",
+        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "unidisc_tpu/ops/pallas_attention.py:402",
     },
     "int8_matmul": {
@@ -149,6 +153,52 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: the device time of every kernel (and device
+    copy) that a call of fn launches, from torch.profiler's CUDA trace of
+    `iters` calls. Unlike time_ms, host work between launches is not
+    counted, so a kernel faster than its wrapper's host path is still
+    timed. The trace can lose an event (19 of 20 launches were seen on the
+    card), so each kernel name contributes its mean duration times the
+    whole number of launches a call makes of it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name].append(e.time_range.elapsed_us())
+    per_call = {name: round(len(times) / iters)
+                for name, times in by_name.items()}
+    if not by_name or not any(per_call.values()):
+        raise RuntimeError(f"torch.profiler recorded no device time in "
+                           f"{iters} calls")
+    return sum(statistics.fmean(times) * per_call[name]
+               for name, times in by_name.items()) / 1e3
+
+
+def host_us(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Host time of one call of fn with the device idle (synchronised
+    before and after each call, so a full launch queue never blocks the
+    host): the median over `iters` calls, in microseconds."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def phase_build() -> dict:
@@ -251,23 +301,26 @@ def phase_kernels(seed: int) -> list:
                 f"flash_fwd disagrees with attention_reference at {name} "
                 f"{shape}: max_abs_err {err} (tol {OUT_TOL}), lse_err "
                 f"{lse_err} (tol {LSE_TOL}), finite {finite}")
-        kernel_ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+        def kernel():
+            return flash_attention(q, k, v, **kw)
+
         plain_ms = time_ms(lambda: attention_reference(q, k, v, **kw),
                            iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if mask is None:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt))
-        else:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
         bound_ms, bound_by, nbytes, flops = attention_bound(shape, mask,
                                                             segs)
         row = {"case": name, "shape_bhld": list(shape), "causal": causal,
                "segments": segs, "max_abs_err": err, "tol": OUT_TOL,
-               "lse_err": lse_err, "ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+               "lse_err": lse_err, "ms": time_ms(kernel),
+               "device_ms": device_ms(kernel), "host_us": host_us(kernel),
+               "plain_ms": plain_ms, "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops}
         rows.append(row)
         print("kernel flash_fwd " + json.dumps(row))
     return rows
@@ -313,7 +366,7 @@ def backward_bounds(shape, mask, segs):
             "flash_bwd_dkv": bound(6 * act + 2 * rows + seg, 8)}
 
 
-def sdpa_backward_ms(q, k, v, do, mask) -> float:
+def sdpa_backward_fn(q, k, v, do, mask):
     """One call of PyTorch's fused attention backward on the same inputs,
     in the (B, H, L, D) layout SDPA uses: FlashAttention-2's backward where
     nothing is masked, the memory-efficient kernel's backward with the
@@ -326,16 +379,16 @@ def sdpa_backward_ms(q, k, v, do, mask) -> float:
         (out, lse, cq, ck, mq, mk, seed, offset,
          _) = aten._scaled_dot_product_flash_attention(qt, kt, vt)
         bwd = aten._scaled_dot_product_flash_attention_backward
-        return time_ms(lambda: bwd(dot, qt, kt, vt, out, lse, cq, ck, mq,
-                                   mk, 0.0, False, seed, offset))
+        return lambda: bwd(dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0,
+                           False, seed, offset)
     b, h, l, _ = qt.shape
     bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device) \
         .masked_fill(~mask, float("-inf")).expand(b, h, l, l)
     out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
         qt, kt, vt, bias, True)
     bwd = aten._scaled_dot_product_efficient_attention_backward
-    return time_ms(lambda: bwd(dot, qt, kt, vt, bias, out, lse, seed, offset,
-                               0.0, [True, True, True, False]))
+    return lambda: bwd(dot, qt, kt, vt, bias, out, lse, seed, offset, 0.0,
+                       [True, True, True, False])
 
 
 def phase_bwd_kernels(seed: int) -> list:
@@ -378,13 +431,19 @@ def phase_bwd_kernels(seed: int) -> list:
                     raise AssertionError(f"{name}: {gname} is not zero on "
                                          f"padded rows / keys")
         bounds = backward_bounds(shape, mask, segs)
+        library = sdpa_backward_fn(q, k, v, do, mask)
         row = {"case": name, "shape_bhld": list(shape), "causal": causal,
                "segments": segs, "errors": errs, "rel_tol": BWD_REL_TOL,
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "ms_dq": time_ms(launch_dq), "ms_dkv": time_ms(launch_dkv),
+               "device_ms_dq": device_ms(launch_dq),
+               "device_ms_dkv": device_ms(launch_dkv),
+               "host_us_dq": host_us(launch_dq),
+               "host_us_dkv": host_us(launch_dkv),
                "plain_ms": time_ms(lambda: attention_backward_reference(
                    q, k, v, o, lse, do, **kw), iters=5),
-               "library_ms": sdpa_backward_ms(q, k, v, do, mask),
+               "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library),
                "bounds": bounds}
         row["ms"] = row["ms_dq"] + row["ms_dkv"]
         rows.append(row)
@@ -420,7 +479,7 @@ def int8_gemm_bound(mm, k, n, bias, out_bytes):
                                  else "operations"), nbytes, ops
 
 
-def library_int8_ms(xq, s, wq, ws, b):
+def library_int8_fn(xq, s, wq, ws, b):
     """torch._int_mm (cuBLASLt int8 x int8 -> int32) with the epilogue in
     torch ops: the library's way to the same function; None where
     _int_mm refuses the shape."""
@@ -436,7 +495,7 @@ def library_int8_ms(xq, s, wq, ws, b):
         print(f"  torch._int_mm refused {tuple(xq.shape)} x "
               f"{tuple(wq.shape)}: {str(err).splitlines()[0]}")
         return None
-    return time_ms(run)
+    return run
 
 
 def phase_int8_matmul(m, seed) -> list:
@@ -476,12 +535,20 @@ def phase_int8_matmul(m, seed) -> list:
         bb = b if path_bias else None
         bound_ms, bound_by, nbytes, ops = int8_gemm_bound(mm, k, n,
                                                           path_bias, 2)
+
+        def kernel():
+            return int8_matmul(xq, s, wq, ws, bias=bb)
+
+        library = library_int8_fn(xq, s, wq, ws, bb)
         row = {"case": name, "shape_mkn": [mm, k, n], "bias": path_bias,
                "max_abs_err": max(errs.values()), "errors": errs,
-               "ms": time_ms(lambda: int8_matmul(xq, s, wq, ws, bias=bb)),
+               "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+               "host_us": host_us(kernel),
                "plain_ms": time_ms(lambda: int8_matmul_reference(
                    xq, s, wq, ws, bias=bb), iters=5),
-               "library_ms": library_int8_ms(xq, s, wq, ws, bb),
+               "library_ms": time_ms(library) if library else None,
+               "library_device_ms": (device_ms(library) if library
+                                     else None),
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops}
         rows.append(row)
@@ -551,9 +618,12 @@ def phase_fused_qmm(m, seed) -> list:
                "max_abs_err": float(moved_max), "scale_rel_err": s_err,
                "moved_share": moved_share,
                "ms": time_ms(lambda: fused_quantize(x, **kw)),
+               "device_ms": device_ms(lambda: fused_quantize(x, **kw)),
+               "host_us": host_us(lambda: fused_quantize(x, **kw)),
                "plain_ms": time_ms(lambda: fused_quantize_reference(x, **kw),
                                    iters=5),
                "library_ms": None,      # no single PyTorch call computes it
+               "library_device_ms": None,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops}
@@ -1054,14 +1124,19 @@ def main() -> int:
     fq = record["fused_qmm_cases"][0]        # its rms + adaLN prologue
     measured = {
         "flash_fwd": {"max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+                      "device_ms": fwd["device_ms"],
+                      "host_us": fwd["host_us"],
                       "bound_ms": fwd["bound_ms"],
                       "bound_by": fwd["bound_by"]},
         "flash_bwd_dq": {"max_abs_err": bwd["errors"]["dq"]["max_abs_err"],
-                         "ms": bwd["ms_dq"],
+                         "ms": bwd["ms_dq"], "device_ms": bwd["device_ms_dq"],
+                         "host_us": bwd["host_us_dq"],
                          **bwd["bounds"]["flash_bwd_dq"]},
         "flash_bwd_dkv": {"max_abs_err": max(
             bwd["errors"][g]["max_abs_err"] for g in ("dk", "dv")),
-            "ms": bwd["ms_dkv"], **bwd["bounds"]["flash_bwd_dkv"]},
+            "ms": bwd["ms_dkv"], "device_ms": bwd["device_ms_dkv"],
+            "host_us": bwd["host_us_dkv"],
+            **bwd["bounds"]["flash_bwd_dkv"]},
         "int8_matmul": qmm, "fused_qmm": fq,
     }
     shape_key = {"int8_matmul": "shape_mkn", "fused_qmm": "shape_mk"}
@@ -1080,12 +1155,15 @@ def main() -> int:
             key: case[key],
             "max_abs_err": measured[name]["max_abs_err"],
             "ms": measured[name]["ms"],
+            "device_ms": measured[name]["device_ms"],
+            "host_us": measured[name]["host_us"],
             # the plain version and the library call compute the whole
             # backward (both kernels) for flash_bwd_dq and flash_bwd_dkv
             "plain_ms": case["plain_ms"],
             "bound_ms": measured[name]["bound_ms"],
             "bound_by": measured[name]["bound_by"],
-            "library_ms": case["library_ms"]})
+            "library_ms": case["library_ms"],
+            "library_device_ms": case["library_device_ms"]})
     record["kernels"] = kernels
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -130,3 +130,172 @@ def test_autograd_goes_through_the_backward_kernels():
     assert dict(_build.launch_counts) == {"flash_fwd": 1, "flash_bwd_dq": 1,
                                           "flash_bwd_dkv": 1}
     assert all(bool(torch.isfinite(x.float()).all()) for x in (dq, dk, dv))
+
+
+# --- shapes the TMA / wgmma designs make risky ------------------------------
+#
+# Lengths that are not multiples of the tiles (TMA's zero fill at the end of
+# a head), lengths with more KV or Q tiles than the shared-memory ring has
+# stages (mbarrier parity at wraparound), Lq != Lk, causal with segment ids
+# and padding rows, operands whose strides are not the (B, L, H, D)
+# contiguous ones, and the shape list of KERNEL_CHECK.json. Same tolerances
+# as above.
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run chip_smoke.py or this file "
+                    "on the card")
+
+
+def make_case(b, lq, lk, h, d, seed, layout="projection", segments=False):
+    """q (B, Lq, H, D), k and v (B, Lk, H, D) bf16 in one of three layouts:
+    "projection" (views of one (B, L, 3, H, D) tensor, needs Lq == Lk),
+    "heads_outer" (transposes of (B, H, L, D) tensors) or "contiguous";
+    segment ids (three segments, the last eighth of batch row 0 padding)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    if layout == "projection":
+        assert lq == lk
+        q, k, v = rand(b, lq, 3, h, d).unbind(2)
+    elif layout == "heads_outer":
+        q = rand(b, h, lq, d).transpose(1, 2)
+        k, v = rand(b, h, lk, d).transpose(1, 2), rand(b, h, lk, d).transpose(1, 2)
+    else:
+        q, k, v = rand(b, lq, h, d), rand(b, lk, h, d), rand(b, lk, h, d)
+    kw = {}
+    if segments:
+        def seg(n):
+            s = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+            s[:, n // 3:] = 1
+            s[:, 2 * n // 3:] = 2
+            s[0, n - n // 8:] = -1
+            return s
+        kw["segment_ids"] = (seg(lq), seg(lk))
+    return q, k, v, kw, gen
+
+
+def check_forward(q, k, v, kw):
+    before = _build.launch_counts["flash_fwd"]
+    out, lse = flash_attention(q, k, v, need_lse=True, **kw)
+    ref, ref_lse = attention_reference(q, k, v, need_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    if "segment_ids" in kw:
+        pad = kw["segment_ids"][0] < 0
+        assert bool((out[pad] == 0).all()) and bool((lse.transpose(1, 2)[pad]
+                                                     == 0).all())
+    return out, lse
+
+
+def check_backward(q, k, v, kw, gen, repeat=False):
+    from unidisc_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, bwd_launches)
+    o, lse = flash_attention(q, k, v, need_lse=True, **kw)
+    do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    causal = kw.get("causal", False)
+    seg = kw.get("segment_ids")
+    grads, launch_dq, launch_dkv = bwd_launches(q, k, v, o, lse, do, seg,
+                                                causal, q.shape[-1] ** -0.5)
+    before = _build.launch_counts["flash_bwd_dkv"]
+    launch_dq()
+    launch_dkv()
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_bwd_dkv"] == before + 1
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        assert err <= BWD_REL_TOL * top, (name, err, top)
+    if seg is not None:
+        assert bool((grads[0][seg[0] < 0] == 0).all())
+        for g in grads[1:]:
+            assert bool((g[seg[1] < 0] == 0).all())
+    if repeat:
+        dk, dv = grads[1].clone(), grads[2].clone()
+        launch_dkv()
+        torch.cuda.synchronize()
+        assert torch.equal(grads[1], dk) and torch.equal(grads[2], dv)
+
+
+# (B, Lq, Lk, H, D, layout, causal, segments)
+RISKY_CASES = {
+    "L200_d64": (2, 200, 200, 3, 64, "projection", False, False),
+    "L385_d64": (2, 385, 385, 3, 64, "projection", False, False),
+    "L1024_d64": (1, 1024, 1024, 2, 64, "projection", False, False),
+    "L200_d128": (2, 200, 200, 3, 128, "projection", False, False),
+    "L385_d128": (2, 385, 385, 3, 128, "projection", False, False),
+    "L1024_d128": (1, 1024, 1024, 2, 128, "projection", False, False),
+    "Lq200_Lk385": (2, 200, 385, 3, 64, "contiguous", False, False),
+    "Lq385_Lk200": (2, 385, 200, 3, 128, "contiguous", False, False),
+    "Lq385_Lk200_causal": (2, 385, 200, 2, 64, "contiguous", True, False),
+    "causal_segments_d64": (2, 385, 385, 3, 64, "projection", True, True),
+    "causal_segments_d128": (2, 300, 300, 2, 128, "projection", True, True),
+    "heads_outer_d64": (2, 257, 257, 4, 64, "heads_outer", False, False),
+    "heads_outer_d128": (2, 257, 257, 4, 128, "heads_outer", True, True),
+    # KERNEL_CHECK.json's shape list
+    "B4_L384_H12_D64": (4, 384, 384, 12, 64, "projection", False, False),
+    "B2_L1024_H12_D64": (2, 1024, 1024, 12, 64, "projection", False, False),
+    "B2_L1024_H8_D128": (2, 1024, 1024, 8, 128, "projection", False, False),
+    "B1_L4096_H8_D128": (1, 4096, 4096, 8, 128, "projection", False, False),
+    "B2_L512_H8_D128_causal": (2, 512, 512, 8, 128, "projection", True,
+                               False),
+    "B2_L1024_H8_D128_seg": (2, 1024, 1024, 8, 128, "projection", False,
+                             True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RISKY_CASES))
+def test_forward_kernel_on_risky_shapes(case):
+    needs_card()
+    b, lq, lk, h, d, layout, causal, segments = RISKY_CASES[case]
+    q, k, v, kw, _ = make_case(b, lq, lk, h, d, seed=lq + d, layout=layout,
+                               segments=segments)
+    if causal:
+        kw["causal"] = True
+    check_forward(q, k, v, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RISKY_CASES))
+def test_backward_kernels_on_risky_shapes(case):
+    needs_card()
+    b, lq, lk, h, d, layout, causal, segments = RISKY_CASES[case]
+    q, k, v, kw, gen = make_case(b, lq, lk, h, d, seed=lq + d + 1,
+                                 layout=layout, segments=segments)
+    if causal:
+        kw["causal"] = True
+    check_backward(q, k, v, kw, gen, repeat=True)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_takes_a_broadcast_operand():
+    needs_card()
+    q, k, v, kw, _ = make_case(2, 200, 200, 4, 64, seed=5,
+                               layout="contiguous")
+    k = k[:, :, :1].expand_as(k)    # head stride 0
+    check_forward(q, k, v, kw)
+
+
+def test_tma_ready_copies_only_broadcast_operands():
+    # runs on the CPU: the TMA tensor maps take no zero stride, so the
+    # wrappers copy a broadcast operand and leave every other view alone
+    from unidisc_tpu_torch.ops.flash_attention import _tma_ready
+    qkv = torch.zeros((2, 5, 3, 4, 64), dtype=torch.bfloat16)
+    v = qkv[:, :, 2]
+    assert _tma_ready(v) is v
+    k = torch.zeros((2, 5, 1, 64), dtype=torch.bfloat16).expand(2, 5, 4, 64)
+    out = _tma_ready(k)
+    assert out is not k and out.is_contiguous() and torch.equal(out, k)
+    # a zero stride on a dimension of size 1 is never followed: no copy
+    h1 = torch.zeros((2, 5, 64), dtype=torch.bfloat16)[:, :, None]
+    h1 = h1.as_strided(h1.shape, (h1.stride(0), h1.stride(1), 0, 1))
+    assert _tma_ready(h1) is h1

@@ -2,8 +2,9 @@
 
 Each source in ``ops/csrc/`` exports a plain C interface. At first use it
 is compiled with ``nvcc`` for Hopper (``sm_90a``) into ``build/`` at the
-repository root, under a name that carries the hash of the source, and
-loaded with ``ctypes``. No PyTorch headers are compiled, so a build takes
+repository root, under a name that carries the hash of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags, and loaded with
+``ctypes``. No PyTorch headers are compiled, so a build takes
 seconds. A failed build or load raises: nothing falls back to the plain
 PyTorch versions.
 
@@ -59,8 +60,11 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>-<hash>.so`` unless
     that file exists already. Returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

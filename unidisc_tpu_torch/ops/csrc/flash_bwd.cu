@@ -1,55 +1,50 @@
-// Attention backward for Hopper (sm_90a), bf16 in and out, fp32 accumulation.
+// Attention backward, dQ, for Hopper (sm_90a): bf16 in and out, fp32
+// accumulation.
 //
-// Replaces the JAX package's Pallas TPU kernels
+// Replaces the JAX package's Pallas TPU kernel
 //   unidisc_tpu/ops/pallas_attention.py:449  _bwd_dq_kernel   (dQ)
+// in the FlashAttention-2 split of the backward; its partner, the port of
 //   unidisc_tpu/ops/pallas_attention.py:402  _bwd_dkv_kernel  (dK, dV)
-// with two kernels that follow the same FlashAttention-2 split:
-//   flash_bwd_dq_kernel:  one block per (batch * head, 64-row query tile),
+// is flash_bwd_dkv.cu, launched after this one on the same stream.
+//   flash_bwd_dq_kernel: one block per (batch * head, 64-row query tile),
 //     looping over KV tiles. It first computes di = rowsum(O * dO) for its
 //     rows (JAX computes di outside its kernels, pallas_attention.py:494)
-//     and writes it to a (B, H, Lq) fp32 buffer, then accumulates
-//     dQ = sum_kv dS K.
-//   flash_bwd_dkv_kernel: one block per (batch * head, 64-key KV tile),
-//     looping over query tiles, reading the di that the dq kernel wrote
-//     (launch order on one stream), and accumulating dV = P^T dO and
-//     dK = dS^T Q.
-// Neither kernel uses atomics, so the result is deterministic.
+//     and writes it to a (B, H, Lq) fp32 buffer, which the dkv kernel
+//     reads, then accumulates dQ = sum_kv dS K.
+// No atomics, so the result is deterministic.
 //
-// Semantics (identical to _masked_p and the two TPU kernels):
+// Semantics (identical to _masked_p and the TPU kernel):
 //   S = Q K^T * scale in fp32 from bf16 products; masked (query, key) pairs
 //   (causal: key > query; segments: qseg != kseg or qseg < 0) get an
 //   additive -1e30; P = exp(S - LSE) with the forward's LSE; a row with no
-//   allowed key has LSE 0, so its P, dQ and its share of dK, dV are 0.
-//   dP = dO V^T; dS = P * (dP - di) * scale; dQ = dS K; dK = dS^T Q;
-//   dV = P^T dO. Keys at or past Lk and queries at or past Lq contribute
-//   nothing. P and dS are rounded to bf16 as the A operand of the second
-//   product of each pair (the JAX kernels keep them in fp32).
+//   allowed key has LSE 0, so its P and dQ are 0. dP = dO V^T;
+//   dS = P * (dP - di) * scale; dQ = dS K. Keys at or past Lk contribute
+//   nothing. dS is rounded to bf16 as the A operand of dS K (the JAX kernel
+//   keeps it in fp32).
 //
-// Layout: q, k, v, o, dO, dq, dk, dv are (B, L, H, D) with any batch, row
-// and head strides (in elements, multiples of 8) and a contiguous last
-// dimension, so the kernels read the DIT's projection views with no
-// transposes. LSE and di are (B, H, Lq) fp32; segment ids (B, Lq) and
-// (B, Lk) int32.
+// Layout: q, k, v, o, dO, dq are (B, L, H, D) with any batch, row and head
+// strides (in elements, multiples of 8) and a contiguous last dimension, so
+// the kernel reads the DIT's projection views with no transposes. LSE and
+// di are (B, H, Lq) fp32; segment ids (B, Lq) and (B, Lk) int32.
 //
-// Design: 4 warps per block, each warp owns 16 rows of the block's tile
-// (query rows in the dq kernel, key rows in the dkv kernel). The tile of the
-// block and the tile of the inner loop are staged in shared memory (rows
-// padded by 8 elements) and the A fragments are read from there at each
-// use, which keeps registers for the fp32 accumulators. Products use
-// mma.sync m16n8k16 bf16 -> fp32; the fp32 score fragments are repacked in
-// registers into the A operand of the next product. Causal tiles that hold
-// no allowed pair are skipped in both kernels.
+// Design: 4 warps per block, each warp owns 16 query rows of the block's
+// tile. The block's Q and dO tiles and the K/V tiles of the inner loop are
+// staged in shared memory (rows padded by 8 elements) and the A fragments
+// are read from there at each use, which keeps registers for the fp32
+// accumulator. Products use mma.sync m16n8k16 bf16 -> fp32; the fp32 score
+// fragments are repacked in registers into the A operand of the next
+// product. Causal tiles that hold no allowed pair are skipped.
 //
 // Bound at the train path's shape (B 32, H 12, L 384, D 64): q, k, v, o,
-// dO, dq, dk, dv are 151 MB and LSE, di 1.2 MB, 45 us at 3.35 TB/s; the
-// five products are 10 D FLOPs per (query, key) pair, 36 GFLOP, 37 us at
-// 989 TFLOP/s. The pair is bound by bytes, near the ridge.
+// dO, dq are 113 MB and LSE, di 1.2 MB, 34 us at 3.35 TB/s; the three
+// products are 6 D FLOPs per (query, key) pair, 22 GFLOP, 22 us at 989
+// TFLOP/s: bound by bytes.
 //
 // What this simple design leaves on the table: loads are synchronous (no
 // cp.async or TMA pipelining), mma.sync reaches a fraction of wgmma, the
-// transposed B operands (dO, Q in the dkv kernel; K in the dq kernel) are
-// gathered with 16-bit shared-memory loads instead of ldmatrix.trans, and
-// S and dP are computed twice (once in each kernel).
+// transposed B operand K is gathered with 16-bit shared-memory loads
+// instead of ldmatrix.trans, and S and dP are computed again here and in
+// the dkv kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,111 +325,6 @@ flash_bwd_dq_kernel(const Params p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LDS = D + PAD;
-  constexpr int NS = BLOCK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + BLOCK * LDS;
-  __nv_bfloat16* sQ = sV + BLOCK * LDS;
-  __nv_bfloat16* sDO = sQ + BLOCK * LDS;
-  int* sQseg = reinterpret_cast<int*>(sDO + BLOCK * LDS);
-  float* sLse = reinterpret_cast<float*>(sQseg + BLOCK);
-  float* sDi = sLse + BLOCK;
-
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
-  const int k0 = blockIdx.y * BLOCK;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long bh_row = (static_cast<long long>(b) * p.H + h) * p.Lq;
-
-  load_tile<D>(sK, p.k + b * p.st[K][0] + h * p.st[K][2], p.st[K][1], k0,
-               p.Lk, tid);
-  load_tile<D>(sV, p.v + b * p.st[V][0] + h * p.st[V][2], p.st[V][1], k0,
-               p.Lk, tid);
-
-  const int r0 = warp * 16;  // this warp's first local key
-  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  int ks[2] = {0, 0};
-  if (p.kseg != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ks[r] = key[r] < p.Lk ? p.kseg[b * p.Lk + key[r]] : -2;
-    }
-  }
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-  }
-
-  const int n_tiles = (p.Lq + BLOCK - 1) / BLOCK;
-  // causal: query tiles that end before this key tile starts see none of
-  // its keys
-  const int first = p.causal ? k0 / BLOCK : 0;
-  const __nv_bfloat16* qbase = p.q + b * p.st[Q][0] + h * p.st[Q][2];
-  const __nv_bfloat16* dobase = p.dout + b * p.st[DO][0] + h * p.st[DO][2];
-
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * BLOCK;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D>(sQ, qbase, p.st[Q][1], q0, p.Lq, tid);
-    load_tile<D>(sDO, dobase, p.st[DO][1], q0, p.Lq, tid);
-    if (tid < BLOCK) {
-      const bool in = q0 + tid < p.Lq;
-      sLse[tid] = in ? p.lse[bh_row + q0 + tid] : 0.f;
-      sDi[tid] = in ? p.di[bh_row + q0 + tid] : 0.f;
-      if (p.qseg != nullptr) {
-        sQseg[tid] = in ? p.qseg[b * p.Lq + q0 + tid] : -1;
-      }
-    }
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-    rows_times_tile_t<D>(s, sK, r0, sQ, g, t);    // S^T = K Q^T
-    rows_times_tile_t<D>(dp, sV, r0, sDO, g, t);  // dP^T = V dO^T
-
-    // P^T into s, dS^T into dp
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int cl = j * 8 + 2 * t + (e & 1);
-        const int qrow = q0 + cl;
-        float pv = 0.f;
-        if (qrow < p.Lq && key[r] < p.Lk) {
-          float val = s[j][e] * p.scale;
-          bool ok = true;
-          if (p.causal) ok = key[r] <= qrow;
-          if (p.qseg != nullptr) {
-            ok = ok && sQseg[cl] == ks[r] && sQseg[cl] >= 0;
-          }
-          if (!ok) val += MASK_VALUE;
-          pv = expf(val - sLse[cl]);
-        }
-        s[j][e] = pv;
-        dp[j][e] = pv * (dp[j][e] - sDi[cl]) * p.scale;
-      }
-    }
-    score_times_tile<D>(acc_dv, s, sDO, g, t);  // dV += P^T dO
-    score_times_tile<D>(acc_dk, dp, sQ, g, t);  // dK += dS^T Q
-  }
-
-  store_rows<D>(p.dk + b * p.st[DK][0] + h * p.st[DK][2], p.st[DK][1], key,
-                p.Lk, acc_dk, t);
-  store_rows<D>(p.dv + b * p.st[DV][0] + h * p.st[DV][2], p.st[DV][1], key,
-                p.Lk, acc_dv, t);
-}
-
-template <int D>
 int smem_bytes() {
   return 4 * BLOCK * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16)) +
          3 * BLOCK * 4;
@@ -483,11 +373,11 @@ Params make_params(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// Both entry points return a cudaError_t (0 on success). Shapes, strides
-// and types are checked by the Python wrapper; head_dim must be 64 or 128.
-// `strides` holds (batch, row, head) strides, in elements, of q, k, v, o,
-// dout, dq, dk, dv in that order. flash_bwd_dq_bf16 writes di and dq; it
-// must run before flash_bwd_dkv_bf16, which reads di and writes dk, dv.
+// Returns a cudaError_t (0 on success). Shapes, strides and types are
+// checked by the Python wrapper; head_dim must be 64 or 128. `strides`
+// holds (batch, row, head) strides, in elements, of q, k, v, o, dout, dq,
+// dk, dv in that order. flash_bwd_dq_bf16 writes di and dq; it must run
+// before flash_bwd_dkv_bf16 (flash_bwd_dkv.cu), which reads di.
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* lse,
                       void* di, void* dq, const void* qseg, const void* kseg,
@@ -506,28 +396,6 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   if (head_dim == 128) {
     return static_cast<int>(
         launch(flash_bwd_dq_kernel<128>, smem_bytes<128>(), grid, p, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* di,
-                       void* dk, void* dv, const void* qseg, const void* kseg,
-                       int batch, int heads, int lq, int lk, int head_dim,
-                       const long long* strides, float scale, int causal,
-                       void* stream) {
-  const Params p = make_params(q, k, v, nullptr, dout, lse,
-                               const_cast<void*>(di), nullptr, dk, dv, qseg,
-                               kseg, heads, lq, lk, strides, scale, causal);
-  const dim3 grid(batch * heads, (lk + BLOCK - 1) / BLOCK);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return static_cast<int>(
-        launch(flash_bwd_dkv_kernel<64>, smem_bytes<64>(), grid, p, s));
-  }
-  if (head_dim == 128) {
-    return static_cast<int>(
-        launch(flash_bwd_dkv_kernel<128>, smem_bytes<128>(), grid, p, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,306 +13,381 @@
 //   and segment mask (qseg == kseg && qseg >= 0), applied as an additive
 //   -1e30; P = exp(S - m) is rounded to bf16 before P V; O is normalised
 //   after P V. A row with no allowed key gives O = 0 and LSE = 0.
-//   The LSE (B, H, Lq) fp32 is written only when asked for.
+//   The LSE (B, H, Lq) fp32, a natural log, is written only when asked for.
 //
 // Layout: q, k, v, o are (B, L, H, D) with any batch, row and head strides
 // (in elements, multiples of 8) and a contiguous last dimension, so the
 // kernel reads Q/K/V straight out of the model's activations with no
 // transposes. Segment ids are (B, Lq) and (B, Lk) int32.
 //
-// Design: one thread block of 4 warps per (batch * head, 64-row query
-// tile); each warp owns 16 query rows. Q, K and V tiles are staged in
-// shared memory (rows padded by 8 elements, so the fragment loads are free
-// of bank conflicts). Products use mma.sync m16n8k16 bf16 -> fp32; the
-// score accumulator is reused in registers as the A operand of P V.
+// Design (FlashAttention-3's shape, without its intra-warpgroup overlap):
+// one block of 288 threads per (batch * head, 128-row query tile).
+//   - Warp 8 is the producer. Its lane 0 loads the Q tile once and streams
+//     K and V tiles of 64 keys through a ring of STAGES shared-memory
+//     stages with TMA (cp.async.bulk.tensor over rank-4 (D, H, L, B) tensor
+//     maps built from the strides, 128-byte swizzle, one 64-column box per
+//     64 columns of D). A full and an empty mbarrier per stage carry the
+//     handshake; the warp's lanes copy the tile's key segment ids into the
+//     stage with cp.async, whose completion also arrives on the stage's
+//     full barrier. TMA's per-dimension
+//     bounds make rows at or past L read as zeros without touching the
+//     next batch or head.
+//   - Warps 0-3 and 4-7 are two consumer warpgroups, each owning 64 query
+//     rows. S = Q K^T is wgmma m64n64k16 with both operands in shared
+//     memory (K is K-major as stored). The fp32 S accumulator is rescaled,
+//     masked and exponentiated in registers, then repacked in place as the
+//     bf16 A operand of O += P V (wgmma from registers; V is the B operand
+//     from shared memory, MN-major, with the transpose flag), one m64n64
+//     product per 64 columns of D.
+//   - The softmax runs in base 2: scale * log2(e) is folded into one
+//     multiply, exponentials are ex2.approx, m and l stay fp32 and the LSE
+//     is converted back to a natural log when it is written. Masked scores
+//     take -1e30 * log2(e), so the masked-row test m > MASK / 2 still holds.
+//   - No setmaxnreg: ptxas budgets registers for whole warpgroups once a
+//     kernel uses it (168 a thread for this 288-thread block, 65536 / 384),
+//     so a lone producer warp frees too little for the consumers to rise;
+//     the launch bounds size the registers instead.
+//   - The host sets the dynamic shared-memory limit once per device and
+//     encodes the three tensor maps on every call (kernel parameters).
 //
 // Bound at the main path's shape (B 16, H 12, L 384, D 64): Q, K, V and O
 // are 37.7 MB, 11 us at 3.35 TB/s; QK^T and PV are 7.25 GFLOP, 7 us at
 // 989 TFLOP/s. The kernel is bound by bytes.
 //
-// What this simple design leaves on the table: loads are synchronous
-// (no cp.async or TMA double buffering, so load latency is not hidden
-// behind the MMAs); mma.sync reaches a fraction of what wgmma does; K and
-// V are re-read from L2 by each of the L/64 query tiles of a head; the V
-// operand is gathered with 16-bit shared-memory loads rather than
-// ldmatrix.trans.
+// Occupancy. D 64: shared memory 16 KB (Q) + 4 stages x 16 KB (K, V) + 1 KB
+// of segment ids and barriers + 1 KB alignment slack = 82 KB; 288 threads
+// under launch bounds of 2 blocks per SM (18 warps, 5 on one quarter of the
+// register file: at most 102 registers a thread), so 2 blocks (16 consumer
+// warps) per SM. (16,12,384,64) is 192 heads x 3
+// query tiles = 576 blocks, 2.2 waves of 264; (32,12,384,64) is 1,152
+// blocks, 4.4 waves. D 128: 32 KB + 2 x 32 KB + 2 KB = 98 KB, at most 168
+// registers (9 warps, 3 on one quarter): 1 block per SM. ptxas -v (nvcc
+// 12.9): 96 registers a thread at D 64, 155 at D 128, 0 bytes spill.
+//
+// What the design does about the points of the first version: loads are
+// asynchronous (TMA into a 2-4 stage ring, so the next K/V tiles land while
+// the current one is multiplied) and no __syncthreads runs in the loop;
+// products run on wgmma; V is read by wgmma's transposed descriptor instead
+// of 16-bit gathers; exponentials are ex2.approx with the scale folded in;
+// 128-row tiles halve the re-reads of K and V per head against 64-row ones;
+// the shared-memory attribute is set once.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // query rows per block
+using namespace hopper;
+
 constexpr int BLOCK_N = 64;   // keys per KV tile
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
-constexpr int PAD = 8;        // shared-memory row padding, in elements
 constexpr float MASK_VALUE = -1e30f;
+constexpr float MASK2 = MASK_VALUE * LOG2E;  // the mask in base 2
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   __nv_bfloat16* o;
   float* lse;        // (B, H, Lq) or nullptr
   const int* qseg;   // (B, Lq) or nullptr
   const int* kseg;   // (B, Lk) or nullptr (set iff qseg is)
   int H, Lq, Lk;
-  long long q_sb, q_sl, q_sh;
-  long long k_sb, k_sl, k_sh;
-  long long v_sb, v_sl, v_sh;
   long long o_sb, o_sl, o_sh;
-  float scale;
+  float scale_log2;  // scale * log2(e)
   int causal;
 };
 
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D (16x8, fp32) += A (16x16 bf16, row-major) * B (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [row0, row0 + 64) of a (L, D) slab with row stride `sl` into
-// shared memory (row stride D + PAD); rows at or past L are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long sl, int row0, int L,
-                                          int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int idx = tid; idx < 64 * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < L) {
-      val = *reinterpret_cast<const uint4*>(src + gr * sl + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c * 8) = val;
+struct Config {
+  static constexpr int CONSUMERS = 2;  // consumer warpgroups
+  static constexpr int BLOCK_M = CONSUMERS * 64;  // query rows per block
+  static constexpr int THREADS = CONSUMERS * 128 + 32;
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;
+  static constexpr int Q_BYTES = BLOCK_M * D * 2;
+  static constexpr int KV_BYTES = BLOCK_N * D * 2;  // one of K, V
+  // byte offsets into the 1024-aligned dynamic shared memory
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_KSEG = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_KSEG + STAGES * BLOCK_N * 4;
+  static constexpr int SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// Scale a score tile into base 2 and apply the masks with selects (no
+// per-element branches): keys past Lk take -inf, masked pairs (causal, or
+// segments when SEG) an additive -1e30 * log2(e). Tracks the row maxima.
+template <bool SEG>
+__device__ __forceinline__ void mask_scores(float (&s)[32], float (&mx)[2],
+                                            const Params& p, int k0, int t,
+                                            const int (&row)[2],
+                                            const int (&qs)[2],
+                                            const int* tKseg) {
+  const bool causal = p.causal != 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int cl = (i >> 2) * 8 + 2 * t + (i & 1);
+    const int col = k0 + cl;
+    bool ok = !causal | (col <= row[r]);
+    if (SEG) ok = ok & (qs[r] == tKseg[cl]) & (qs[r] >= 0);
+    float val = s[i] * p.scale_log2 + (ok ? 0.f : MASK2);
+    val = col < p.Lk ? val : -INFINITY;  // past the end: contributes nothing
+    s[i] = val;
+    mx[r] = fmaxf(mx[r], val);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const Params p) {
-  constexpr int LDS = D + PAD;
-  constexpr int KD = D / 16;        // k-steps of QK^T
-  constexpr int ND = D / 8;         // n-tiles of the output
-  constexpr int NS = BLOCK_N / 8;   // n-tiles of the score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BLOCK_M * LDS;
-  __nv_bfloat16* sV = sK + BLOCK_N * LDS;
-  int* sKseg = reinterpret_cast<int*>(sV + BLOCK_N * LDS);
+__global__ void __launch_bounds__(Config<D>::THREADS, Config<D>::MIN_BLOCKS)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const Params p) {
+  using C = Config<D>;
+  constexpr int NB = D / 64;  // 64-column boxes of D
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::OFF_K;
+  unsigned char* sV = smem + C::OFF_V;
+  int* sKseg = reinterpret_cast<int*>(smem + C::OFF_KSEG);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* bar_q = empty + C::STAGES;
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.y * BLOCK_M;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x % p.H;
+  const int q0 = blockIdx.y * C::BLOCK_M;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-
-  const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kbase = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + b * p.v_sb + h * p.v_sh;
-
-  load_tile<D>(sQ, qbase, p.q_sl, q0, p.Lq, tid);
-  __syncthreads();
-
-  // this thread's two query rows: local r_lo and r_lo + 8 of the warp's 16
-  const int r_lo = warp * 16 + g;
-  const int row[2] = {q0 + r_lo, q0 + r_lo + 8};
-
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kc = 0; kc < KD; ++kc) {
-    const __nv_bfloat16* lo = sQ + r_lo * LDS + kc * 16 + 2 * t;
-    const __nv_bfloat16* hi = lo + 8 * LDS;
-    qa[kc][0] = *reinterpret_cast<const uint32_t*>(lo);
-    qa[kc][1] = *reinterpret_cast<const uint32_t*>(hi);
-    qa[kc][2] = *reinterpret_cast<const uint32_t*>(lo + 8);
-    qa[kc][3] = *reinterpret_cast<const uint32_t*>(hi + 8);
-  }
-
-  int qs[2] = {0, 0};
-  if (p.qseg != nullptr) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      qs[r] = row[r] < p.Lq ? p.qseg[b * p.Lq + row[r]] : -1;
-    }
-  }
-
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
 
   int n_tiles = (p.Lk + BLOCK_N - 1) / BLOCK_N;
   if (p.causal) {
     // skip KV tiles that start past this query tile's last row
-    const int q_last = min(q0 + BLOCK_M, p.Lq) - 1;
+    const int q_last = min(q0 + C::BLOCK_M, p.Lq) - 1;
     n_tiles = min(n_tiles, q_last / BLOCK_N + 1);
   }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kbase, p.k_sl, k0, p.Lk, tid);
-    load_tile<D>(sV, vbase, p.v_sl, k0, p.Lk, tid);
-    if (p.kseg != nullptr && tid < BLOCK_N) {
-      sKseg[tid] = k0 + tid < p.Lk ? p.kseg[b * p.Lk + k0 + tid] : -2;
+  TRACE_IF(tid == 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      // the TMA's expect_tx arrival and the producer lanes' cp.async ones
+      mbar_init(&full[s], 1 + 32);
+      mbar_init(&empty[s], C::CONSUMERS * 4);  // lane 0 of each consumer warp
     }
-    __syncthreads();
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if (tid >= C::CONSUMERS * 128) {
+    // ---- producer warp ----
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, C::Q_BYTES);
+      tma_load_rows<D>(sQ, &map_q, bar_q, C::BLOCK_M, h, q0, b);
     }
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int stage = kt % C::STAGES;
+      const int k0 = kt * BLOCK_N;
+      mbar_wait(&empty[stage], ((kt / C::STAGES) & 1) ^ 1);
+      if (p.kseg != nullptr) {
+        // the tile's key segment ids (zeros past Lk, where every score
+        // is -inf)
 #pragma unroll
-    for (int kc = 0; kc < KD; ++kc) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kr = sK + (j * 8 + g) * LDS + kc * 16 + 2 * t;
-        mma_16816(s[j], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // scale, mask, row max
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int cl = j * 8 + 2 * t + (e & 1);
-        const int col = k0 + cl;
-        float val = s[j][e] * p.scale;
-        if (col >= p.Lk) {
-          val = -INFINITY;  // past the end: contributes nothing
-        } else {
-          bool ok = true;
-          if (p.causal) ok = col <= row[r];
-          if (p.qseg != nullptr) {
-            ok = ok && qs[r] == sKseg[cl] && qs[r] >= 0;
-          }
-          if (!ok) val += MASK_VALUE;
+        for (int i = lane; i < BLOCK_N; i += 32) {
+          const bool in = k0 + i < p.Lk;
+          cp_async_4(sKseg + stage * BLOCK_N + i,
+                     p.kseg + (in ? b * p.Lk + k0 + i : 0), in);
         }
-        s[j][e] = val;
-        mx[r] = fmaxf(mx[r], val);
+      }
+      cp_async_arrive(&full[stage]);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        TRACE_IF(kt < 6, 40 + kt);
+        tma_load_rows<D>(sK + stage * C::KV_BYTES, &map_k, &full[stage],
+                         BLOCK_N, h, k0, b);
+        tma_load_rows<D>(sV + stage * C::KV_BYTES, &map_v, &full[stage],
+                         BLOCK_N, h, k0, b);
       }
     }
-    float alpha[2];
+  } else {
+    // ---- consumer warpgroups ----
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid & 31;
+    const int g = lane >> 2;  // fragment row group
+    const int t = lane & 3;   // thread within the group
+    // this thread's two query rows
+    const int row[2] = {q0 + wg * 64 + warp * 16 + g,
+                        q0 + wg * 64 + warp * 16 + g + 8};
+    int qs[2] = {0, 0};
+    if (p.qseg != nullptr) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        qs[r] = row[r] < p.Lq ? p.qseg[b * p.Lq + row[r]] : -1;
+      }
+    }
+
+    float m_i[2] = {-INFINITY, -INFINITY};  // running max, base 2
+    float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float acc[NB][32];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    }
+
+    mbar_wait(bar_q, 0);
+    TRACE_IF(tid == 0, 1);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int stage = kt % C::STAGES;
+      const int k0 = kt * BLOCK_N;
+      const unsigned char* tK = sK + stage * C::KV_BYTES;
+      const unsigned char* tV = sV + stage * C::KV_BYTES;
+      const int* tKseg = sKseg + stage * BLOCK_N;
+      mbar_wait(&full[stage], (kt / C::STAGES) & 1);
+      TRACE_IF(tid == 0 && kt < 6, 2 + 6 * kt);
+
+      // S = Q K^T for this warpgroup's 64 rows x 64 keys
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss_64x64<0>(s, desc_kmajor(sQ, C::BLOCK_M, wg * 64, ks),
+                          desc_kmajor(tK, BLOCK_N, 0, ks), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(s);
+      TRACE_IF(tid == 0 && kt < 6, 3 + 6 * kt);
+
+      // scale (base 2), mask, row max. Whether the tile needs a mask is
+      // uniform over the block, so a full unmasked tile (the main path's)
+      // runs a loop with no per-element tests.
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (p.causal || p.qseg != nullptr || k0 + BLOCK_N > p.Lk) {
+        if (p.qseg != nullptr) {
+          mask_scores<true>(s, mx, p, k0, t, row, qs, tKseg);
+        } else {
+          mask_scores<false>(s, mx, p, k0, t, row, qs, tKseg);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] *= p.scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // every tile holds at least one in-range key, so mx is finite
+        const float m_new = fmaxf(m_i[r], mx[r]);
+        alpha[r] = ex2(m_i[r] - m_new);
+        m_i[r] = m_new;
+      }
+
+      // P = exp2(S - m), row sums in fp32, P packed to bf16 A fragments
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = ex2(s[i] - m_i[r]);
+        rs[r] += s[i];
+      }
+      uint32_t pa[BLOCK_N / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BLOCK_N / 16; ++kk) acc_to_a(pa[kk], s, kk);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[nb][i] *= alpha[(i >> 1) & 1];
+      }
+
+      TRACE_IF(tid == 0 && kt < 6, 4 + 6 * kt);
+      // O += P V
+      wgmma_fence();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+          wgmma_rs_64x64<1>(acc[nb], pa[kk],
+                            desc_mnmajor(tV, BLOCK_N, nb, kk), 1);
+        }
+      }
+      wgmma_commit();
+      TRACE_IF(tid == 0 && kt < 6, 5 + 6 * kt);
+      wgmma_wait0();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) fence_acc(acc[nb]);
+      TRACE_IF(tid == 0 && kt < 6, 6 + 6 * kt);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      TRACE_IF(tid == 0 && kt < 6, 7 + 6 * kt);
+    }
+
+    float inv[2], lse[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every tile holds at least one in-range key, so mx is finite
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      alpha[r] = expf(m_i[r] - m_new);
-      m_i[r] = m_new;
+      float l = l_i[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const bool valid = m_i[r] > MASK2 * 0.5f;
+      inv[r] = valid ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+      lse[r] = valid ? (m_i[r] + log2f(fmaxf(l, 1e-30f))) * LN2 : 0.f;
     }
 
-    // P = exp(S - m), row sums in fp32, P packed to bf16 A fragments
-    uint32_t pa[BLOCK_N / 16][4];
-    float rs[2] = {0.f, 0.f};
+    __nv_bfloat16* obase = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float p0 = expf(s[j][0] - m_i[0]);
-      const float p1 = expf(s[j][1] - m_i[0]);
-      const float p2 = expf(s[j][2] - m_i[1]);
-      const float p3 = expf(s[j][3] - m_i[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      const int kk = j >> 1;
-      const int slot = (j & 1) * 2;
-      pa[kk][slot + 0] = pack_floats(p0, p1);
-      pa[kk][slot + 1] = pack_floats(p2, p3);
-    }
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= p.Lq) continue;
+      __nv_bfloat16* orow = obase + row[r] * p.o_sl + 2 * t;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + rs[r];
+      for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vc = sV + (kk * 16 + 2 * t) * LDS + n * 8 + g;
-        const uint32_t b0 = pack_bf16(vc[0], vc[LDS]);
-        const uint32_t b1 = pack_bf16(vc[8 * LDS], vc[9 * LDS]);
-        mma_16816(acc[n], pa[kk], b0, b1);
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<uint32_t*>(orow + nb * 64 + j * 8) =
+              pack_bf16x2(acc[nb][4 * j + 2 * r] * inv[r],
+                          acc[nb][4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
+      if (p.lse != nullptr && t == 0) {
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row[r]] = lse[r];
       }
     }
-  }
-
-  float inv[2], lse[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_i[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const bool valid = m_i[r] > MASK_VALUE * 0.5f;
-    inv[r] = valid ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-    lse[r] = valid ? m_i[r] + logf(fmaxf(l, 1e-30f)) : 0.f;
-  }
-
-  __nv_bfloat16* obase = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= p.Lq) continue;
-    __nv_bfloat16* orow = obase + row[r] * p.o_sl + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_floats(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
-    }
-    if (p.lse != nullptr && t == 0) {
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row[r]] = lse[r];
-    }
+    TRACE_IF(tid == 0, 62);
   }
 }
 
+// Encode the three tensor maps (q in boxes of the block's rows, k and v in
+// 64-row boxes) and launch on `stream`.
 template <int D>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  const int smem = (BLOCK_M + 2 * BLOCK_N) * (D + PAD) *
-                       static_cast<int>(sizeof(__nv_bfloat16)) +
-                   BLOCK_N * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const long long (&st)[9], int batch, const Params& p,
+                   cudaStream_t stream) {
+  using C = Config<D>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = encode_bhld(&mq, q, batch, p.Lq, p.H, D, st[0], st[1],
+                                st[2], C::BLOCK_M);
+  if (err == cudaSuccess) {
+    err = encode_bhld(&mk, k, batch, p.Lk, p.H, D, st[3], st[4], st[5],
+                      BLOCK_N);
+  }
+  if (err == cudaSuccess) {
+    err = encode_bhld(&mv, v, batch, p.Lk, p.H, D, st[6], st[7], st[8],
+                      BLOCK_N);
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * p.H, (p.Lq + BLOCK_M - 1) / BLOCK_M);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  static unsigned long long smem_set = 0;
+  err = set_smem_once(flash_fwd_kernel<D>, C::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * p.H, (p.Lq + C::BLOCK_M - 1) / C::BLOCK_M);
+  flash_fwd_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
@@ -330,10 +405,10 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    long long v_sl, long long v_sh, long long o_sb,
                    long long o_sl, long long o_sh, float scale, int causal,
                    void* stream) {
+  if (head_dim != 64 && head_dim != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.qseg = static_cast<const int*>(qseg);
@@ -341,16 +416,14 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   p.H = heads;
   p.Lq = lq;
   p.Lk = lk;
-  p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_sl = v_sl; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_sl = o_sl; p.o_sh = o_sh;
-  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return static_cast<int>(launch<64>(p, batch, s));
-  if (head_dim == 128) return static_cast<int>(launch<128>(p, batch, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[9] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
+                           v_sb, v_sl, v_sh};
+  if (head_dim == 64) return static_cast<int>(launch<64>(q, k, v, st, batch, p, s));
+  return static_cast<int>(launch<128>(q, k, v, st, batch, p, s));
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -1,7 +1,8 @@
 """Attention through the hand-written Hopper kernels, the port of the JAX
 package's Pallas ``flash_attention`` (``unidisc_tpu/ops/pallas_attention.py``):
 the forward in ``ops/csrc/flash_fwd.cu``, the backward in
-``ops/csrc/flash_bwd.cu``.
+``ops/csrc/flash_bwd.cu`` (dQ, and di = rowsum(O dO)) and
+``ops/csrc/flash_bwd_dkv.cu`` (dK, dV).
 
 ``flash_attention`` takes (B, L, H, D) tensors. On a CUDA tensor it
 launches the kernels (bf16, head_dim 64 or 128) or raises; on a CPU tensor
@@ -29,7 +30,7 @@ MASK_VALUE = -1e30
 KERNEL = "flash_fwd"
 BWD_SOURCE = "flash_bwd"
 BWD_DQ = "flash_bwd_dq"     # launch-count names of the two backward kernels
-BWD_DKV = "flash_bwd_dkv"
+BWD_DKV = "flash_bwd_dkv"   # (also the dkv kernel's source name)
 HEAD_DIMS = (64, 128)
 BLOCK_M = 64          # query rows per thread block (flash_fwd.cu)
 MAX_GRID_Y = 65535
@@ -201,6 +202,17 @@ def _check_operand(name: str, x: torch.Tensor, device) -> None:
                          f"16-byte alignment; got strides {x.stride()}")
 
 
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x itself, or a contiguous copy where a dimension of size > 1 has
+    stride 0 (a broadcast view): the kernels read their operands through
+    TMA tensor maps, which take no zero stride."""
+    strides = x.stride()
+    if 0 in strides and any(st == 0 and n > 1
+                            for st, n in zip(strides, x.shape)):
+        return x.contiguous()
+    return x
+
+
 def _check_qkv(q, k, v, segment_ids):
     """Check the operands both kernels take; returns the segment ids as
     (q_seg, k_seg), each None when there are none."""
@@ -232,6 +244,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids, causal, scale, need_lse):
     b, lq, h, d = q.shape
     lk = k.shape[1]
     qseg, kseg = _check_qkv(q, k, v, segment_ids)
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     out = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if need_lse else None)
@@ -267,18 +280,21 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load(BWD_SOURCE)
-    if lib.flash_bwd_dq_bf16.argtypes is None:
+def _bwd_library(source: str, entry: str) -> ctypes.CDLL:
+    """The library of one backward kernel (``flash_bwd`` holds the dq
+    kernel, ``flash_bwd_dkv`` the dkv kernel); both entry points take
+    (10 pointers, batch, heads, lq, lk, head_dim, strides, scale, causal,
+    stream)."""
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [i32] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                            ctypes.c_float, i32, ptr]
-        lib.flash_bwd_dq_bf16.argtypes = [ptr] * 10 + tail
-        lib.flash_bwd_dkv_bf16.argtypes = [ptr] * 10 + tail
-        lib.flash_bwd_dq_bf16.restype = i32
-        lib.flash_bwd_dkv_bf16.restype = i32
-        lib.flash_bwd_error_string.argtypes = [i32]
-        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ptr] * 10 + [i32] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr]
+        fn.restype = i32
+        err_fn = getattr(lib, f"{source}_error_string")
+        err_fn.argtypes = [i32]
+        err_fn.restype = ctypes.c_char_p
     return lib
 
 
@@ -303,6 +319,7 @@ def bwd_launches(q, k, v, o, lse, do, segment_ids, causal, scale):
     if not _layout_ok(do):
         do = do.contiguous()    # autograd may hand over a strided gradient
     qseg, kseg = _check_qkv(q, k, v, segment_ids)
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     for name, x in (("o", o), ("do", do)):
         _check_operand(name, x, q.device)
         if x.shape != q.shape:
@@ -323,24 +340,26 @@ def bwd_launches(q, k, v, o, lse, do, segment_ids, causal, scale):
     seg_ptrs = (qseg.data_ptr() if qseg is not None else None,
                 kseg.data_ptr() if kseg is not None else None)
     tail = (b, h, lq, lk, d, strides, scale, int(causal))
-    lib = _bwd_library()
+    lib_dq = _bwd_library(BWD_SOURCE, "flash_bwd_dq_bf16")
+    lib_dkv = _bwd_library(BWD_DKV, "flash_bwd_dkv_bf16")
 
-    def run(fn, name, ptrs):
+    def run(lib, source, name, ptrs):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*ptrs, *seg_ptrs, *tail, stream)
+            err = getattr(lib, f"{name}_bf16")(*ptrs, *seg_ptrs, *tail,
+                                               stream)
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: "
-                               f"{lib.flash_bwd_error_string(err).decode()}")
+            msg = getattr(lib, f"{source}_error_string")(err).decode()
+            raise RuntimeError(f"{name} launch failed: {msg}")
         _build.launch_counts[name] += 1
 
     def launch_dq():
-        run(lib.flash_bwd_dq_bf16, BWD_DQ,
+        run(lib_dq, BWD_SOURCE, BWD_DQ,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr()))
 
     def launch_dkv():
-        run(lib.flash_bwd_dkv_bf16, BWD_DKV,
+        run(lib_dkv, BWD_DKV, BWD_DKV,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr()))
 
