@@ -113,7 +113,7 @@ KERNELS = {
     },
     "flash_bwd_dq": {
         "route": "cuda",
-        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd.cu",
+        "source": "unidisc_tpu_torch/ops/csrc/flash_bwd_dq.cu",
         "replaces": "unidisc_tpu/ops/pallas_attention.py:449",
     },
     "flash_bwd_dkv": {
@@ -502,6 +502,9 @@ def phase_int8_matmul(m, seed) -> list:
     """int8_matmul against int8_matmul_reference at the serve path's five
     products, with and without a bias, fp32 (bit-exact) and bf16 (within
     one ulp) output; times at the path's own bias setting, bf16 out."""
+    # imported here: scripts/*_kernel_times.py load this file's helpers
+    # over other trees, whose wrappers may have no plan
+    from unidisc_tpu_torch.ops.int8_matmul import plan
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     rows = []
     for name, mm, k, n, path_bias in int8_gemm_shapes(m):
@@ -540,7 +543,10 @@ def phase_int8_matmul(m, seed) -> list:
             return int8_matmul(xq, s, wq, ws, bias=bb)
 
         library = library_int8_fn(xq, s, wq, ws, bb)
+        block_n, tiles, grid = plan(mm, n, torch.cuda.get_device_properties(
+            0).multi_processor_count)
         row = {"case": name, "shape_mkn": [mm, k, n], "bias": path_bias,
+               "plan": {"block_n": block_n, "tiles": tiles, "grid": grid},
                "max_abs_err": max(errs.values()), "errors": errs,
                "ms": time_ms(kernel), "device_ms": device_ms(kernel),
                "host_us": host_us(kernel),

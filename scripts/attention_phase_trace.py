@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Where a block of the redesigned attention kernels spends its time, on
-the card: flash_fwd at the serve path's shape (16, 12, 384, 64) and
+"""Where a block of the attention kernels spends its time, on the card:
+flash_fwd at the serve path's shape (16, 12, 384, 64), flash_bwd_dq and
 flash_bwd_dkv at the train path's (32, 12, 384, 64).
 
     python3 scripts/attention_phase_trace.py
 
-Builds flash_fwd.cu and flash_bwd_dkv.cu once more with -DATTN_TRACE (a
-separate library; the trace slots are described in ops/csrc/hopper.cuh),
-launches each kernel once with tracing on and reports, as medians over the
-blocks in microseconds: the block's lifetime, its prologue (first data
-landed), and for each of the first six tiles the time waiting for the
-tile's data, the first products (S, or S^T and dP^T), the elementwise
-phase (softmax, or P^T and dS^T), the second products and the release of
-the stage; also the kernel's span and the mean number of blocks in flight.
-Prints one JSON line and writes chiprun_out/attention_phase_trace.json.
+Builds the kernels once more with -DATTN_TRACE (a separate library; the
+trace slots are described in ops/csrc/hopper.cuh), launches each kernel
+once with tracing on and reports, as medians over the blocks in
+microseconds: the block's lifetime, its prologue (first data landed; for
+dq also the di it forms from O and dO before its loop), and for each of
+the first six tiles the time waiting for the tile's data, the first
+products (S; S and dP; S^T and dP^T), the elementwise phase (softmax; dS;
+P^T and dS^T), the second products and the release of the stage; also the
+kernel's span and the mean number of blocks in flight. Prints one JSON
+line and writes chiprun_out/attention_phase_trace.json.
 """
 
 from __future__ import annotations
@@ -49,11 +50,13 @@ def summarize(buf: torch.Tensor, blocks: int) -> dict:
     out = {"blocks": len(rows), "span_us": span / 1e3,
            "block_us": med_us(life), "blocks_in_flight": sum(life) / span,
            "prologue_us": med_us([r[1] - r[0] for r in rows]), "tiles": []}
+    if all(r[39] for r in rows):      # dq: di formed before the loop
+        out["di_us"] = med_us([r[39] - r[1] for r in rows])
     names = ("wait", "first_products", "elementwise", "second_issue",
              "second_products", "release")
     for k in range(TILES):
         base = 2 + 6 * k
-        prev = [r[1] if k == 0 else r[base - 1] for r in rows]
+        prev = [(r[39] or r[1]) if k == 0 else r[base - 1] for r in rows]
         marks = [[p] + [r[base + i] for i in range(6)]
                  for r, p in zip(rows, prev)]
         if not all(m[-1] for m in marks):
@@ -100,7 +103,8 @@ def main() -> int:
     o, lse = fa.flash_attention(q, k, v, need_lse=True)
     _, launch_dq, launch_dkv = fa.bwd_launches(q, k, v, o, lse, do, None,
                                                False, d ** -0.5)
-    launch_dq()
+    record["flash_bwd_dq"] = trace("flash_bwd_dq", launch_dq,
+                                   b * h * (l // 128))
     record["flash_bwd_dkv"] = trace("flash_bwd_dkv", launch_dkv,
                                     b * h * (l // 128))
     os.makedirs("chiprun_out", exist_ok=True)

@@ -1,7 +1,7 @@
 """The port's attention backward against the JAX package's.
 
 `attention_backward_reference` is the plain version of the backward
-kernels in `ops/csrc/flash_bwd.cu`. It is held against the Pallas
+kernels in `ops/csrc/flash_bwd_dq.cu` and `ops/csrc/flash_bwd_dkv.cu`. It is held against the Pallas
 `_flash_bwd` (its `_bwd_dkv_kernel` and `_bwd_dq_kernel` in interpret mode
 on the CPU) fed the same O and LSE, and against `jax.grad` of the Pallas
 `flash_attention`. The port's autograd Function on CPU tensors is held
@@ -28,7 +28,8 @@ import torch
 from unidisc_tpu.ops import pallas_attention as jax_pa
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.flash_attention import (
-    attention_backward_reference, attention_reference, flash_attention)
+    attention_backward_reference, attention_reference, bwd_operands,
+    flash_attention)
 
 ATOL, RTOL = 3e-3, 2e-3
 
@@ -145,3 +146,50 @@ def test_need_lse_under_grad_returns_a_constant_lse():
     _, want = attention_reference(torch.from_numpy(q), torch.from_numpy(k),
                                   torch.from_numpy(v), need_lse=True)
     assert torch.equal(lse, want)
+
+
+# --- how the backward kernels receive their operands (runs on the CPU) -----
+#
+# Both backward kernels read q, k, v, o and dO through TMA tensor maps,
+# which take a contiguous last dimension and no zero stride. bwd_operands
+# copies only what the maps cannot describe.
+
+def _views(b=2, l=5, h=4, d=64):
+    qkv = torch.zeros((b, l, 3, h, d), dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)       # the DIT's projection views
+    o = torch.randn((b, l, h, d)).bfloat16()
+    do = torch.randn((b, l, h, d)).bfloat16()
+    return q, k, v, o, do
+
+
+def test_bwd_operands_leave_kernel_ready_views_alone():
+    q, k, v, o, do = _views()
+    heads_outer = torch.randn((2, 4, 5, 64)).bfloat16().transpose(1, 2)
+    out = bwd_operands(q, k, v, o, heads_outer)
+    for got, given in zip(out, (q, k, v, o, heads_outer)):
+        assert got is given
+
+
+@pytest.mark.parametrize("which", ["o", "do"])
+def test_bwd_operands_copy_a_broadcast_o_or_do(which):
+    q, k, v, o, do = _views()
+    one_head = {"o": o, "do": do}[which][:, :, :1].expand(2, 5, 4, 64)
+    args = [q, k, v, o, do]
+    args[3 if which == "o" else 4] = one_head
+    out = bwd_operands(*args)
+    got = out[3 if which == "o" else 4]
+    assert got is not one_head and got.is_contiguous()
+    assert torch.equal(got, one_head)
+    for i in (0, 1, 2):
+        assert out[i] is args[i]
+
+
+def test_bwd_operands_make_a_strided_do_contiguous():
+    q, k, v, o, _ = _views()
+    # a gradient whose last dimension is not contiguous, and the expanded
+    # scalar that out.sum() hands over
+    strided = torch.randn((2, 5, 64, 4)).bfloat16().transpose(2, 3)
+    scalar = torch.full((), 0.5, dtype=torch.bfloat16).expand(2, 5, 4, 64)
+    for do in (strided, scalar):
+        got = bwd_operands(q, k, v, o, do)[4]
+        assert got.is_contiguous() and torch.equal(got, do)

@@ -61,7 +61,7 @@ def test_kernel_rejects_what_it_does_not_take():
         flash_attention(q96, q96, q96)
 
 
-# --- backward kernels (ops/csrc/flash_bwd.cu) -------------------------------
+# --- backward kernels (ops/csrc/flash_bwd_dq.cu, flash_bwd_dkv.cu) -----------
 #
 # Tolerance: max abs error of each of dq, dk, dv against
 # attention_backward_reference (fp32 from the same bf16 inputs) at most
@@ -219,9 +219,12 @@ def check_backward(q, k, v, kw, gen, repeat=False):
         for g in grads[1:]:
             assert bool((g[seg[1] < 0] == 0).all())
     if repeat:
-        dk, dv = grads[1].clone(), grads[2].clone()
+        # no atomics: a second launch of each kernel writes the same bits
+        dq, dk, dv = (g.clone() for g in grads)
+        launch_dq()
         launch_dkv()
         torch.cuda.synchronize()
+        assert torch.equal(grads[0], dq)
         assert torch.equal(grads[1], dk) and torch.equal(grads[2], dv)
 
 
@@ -274,6 +277,33 @@ def test_backward_kernels_on_risky_shapes(case):
     if causal:
         kw["causal"] = True
     check_backward(q, k, v, kw, gen, repeat=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_kernels_take_strided_and_broadcast_o_and_do(d):
+    # dO with a non-contiguous last dimension (bwd_operands copies it) and
+    # an O broadcast over heads (stride 0, copied for the tensor maps): the
+    # dq kernel reads both through TMA to form di
+    from unidisc_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, bwd_launches)
+    needs_card()
+    q, k, v, kw, gen = make_case(2, 200, 200, 3, d, seed=d + 7)
+    o, lse = flash_attention(q, k, v, need_lse=True)
+    o = o[:, :, :1].expand_as(o)
+    do = torch.randn((2, 200, d, 3), generator=gen,
+                     device="cuda").bfloat16().transpose(2, 3)
+    grads, launch_dq, launch_dkv = bwd_launches(q, k, v, o, lse, do, None,
+                                                False, d ** -0.5)
+    launch_dq()
+    launch_dkv()
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float())
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        err = (g.float() - w).abs().max().item()
+        top = w.abs().max().item()
+        assert err <= BWD_REL_TOL * top, (name, err, top)
 
 
 @pytest.mark.cuda

@@ -44,7 +44,39 @@ TRAINING_SLICE = [
 
 def test_training_slice_is_checked():
     assert set(TRAINING_SLICE) <= set(FILES)
-    assert (ROOT / "unidisc_tpu_torch/ops/csrc/flash_bwd.cu").exists()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert (ROOT / f"unidisc_tpu_torch/ops/csrc/{name}.cu").exists()
+    # the dq kernel's first source, replaced by flash_bwd_dq.cu
+    assert not (ROOT / "unidisc_tpu_torch/ops/csrc/flash_bwd.cu").exists()
+
+
+def chip_smoke_sources():
+    """The "source" of every kernel in chip_smoke.py's KERNELS table."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "KERNELS"):
+            table = ast.literal_eval(node.value)
+            return {name: meta["source"] for name, meta in table.items()}
+    raise AssertionError("chip_smoke.py has no KERNELS table")
+
+
+CSRC = sorted(p.name for p in (ROOT / "unidisc_tpu_torch/ops/csrc")
+              .glob("*.cu"))
+
+
+@pytest.mark.parametrize("source", CSRC)
+def test_every_kernel_source_is_in_chip_smoke(source):
+    named = {pathlib.Path(s).name for s in chip_smoke_sources().values()}
+    assert source in named
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv", "int8_matmul",
+                                  "fused_qmm"])
+def test_chip_smoke_names_an_existing_source(name):
+    source = chip_smoke_sources()[name]
+    assert (ROOT / source).exists() and source.endswith(f"/{name}.cu")
 
 
 # the modules of the int8 serving slice

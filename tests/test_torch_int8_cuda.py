@@ -60,6 +60,80 @@ def test_int8_matmul_equals_reference_on_card(m, k, n, out_dtype, bias):
     assert torch.equal(got, want)
 
 
+def check_int8(m, k, n, out_dtype, bias, seed, w_rows=None, **kw):
+    """int8_matmul against its plain version, equal bit for bit. w_rows
+    takes a row slice w_q[v0:] of a taller weight (the t2i head's)."""
+    xq, s, wq, ws, b = operands(m, k, n if w_rows is None else w_rows, seed)
+    if w_rows is not None:
+        v0 = w_rows - n
+        wq, ws, b = wq[v0:], ws[v0:], b[v0:]
+    b = b if bias else None
+    before = _build.launch_counts["int8_matmul"]
+    if kw:
+        from unidisc_tpu_torch.ops.int8_matmul import _int8_matmul_cuda
+        got = _int8_matmul_cuda(xq, s, wq, ws, b, out_dtype, **kw)
+    else:
+        got = int8_matmul(xq, s, wq, ws, bias=b, out_dtype=out_dtype)
+    want = int8_matmul_reference(xq, s, wq, ws, bias=b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8_matmul"] == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+# the five products of the int8 serve path (M 16 rows x 384 tokens; the
+# head over 8 x 256 image rows), each with the tile width plan() gives it
+PATH_SHAPES = {"attn_qkv": (6144, 768, 2304), "attn_out": (6144, 768, 768),
+               "mlp_0": (6144, 768, 3072), "mlp_2": (6144, 3072, 768),
+               "head": (2048, 768, 16384)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PATH_SHAPES))
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+def test_int8_matmul_at_the_serve_path_shapes(name, out_dtype, bias):
+    need_card()
+    m, k, n = PATH_SHAPES[name]
+    check_int8(m, k, n, out_dtype, bias, seed=len(name))
+
+
+# ragged M and N (TMA's zero fill at the tile edges, odd N stored pair by
+# pair), K tails past the 128-byte box, a long K
+RAGGED = [(1, 128, 136), (127, 256, 8), (6145, 768, 136), (300, 16, 77),
+          (129, 48, 300), (64, 3072, 264), (1, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", RAGGED)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_matmul_on_ragged_shapes(m, k, n, out_dtype):
+    need_card()
+    check_int8(m, k, n, out_dtype, True, seed=m + k + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n", [128, 192, 256])
+@pytest.mark.parametrize("m,k,n", [(333, 784, 1000), (6144, 768, 768)])
+def test_int8_matmul_every_tile_width(block_n, m, k, n):
+    # each of the kernel's tile widths, whatever plan() would choose
+    need_card()
+    check_int8(m, k, n, torch.float32, True, seed=block_n, block_n=block_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_matmul_takes_the_heads_row_slice(out_dtype):
+    # the t2i head multiplies by w_q[v0:], the image vocabulary's rows of
+    # the full (text + image) weight: a contiguous matrix at an offset
+    need_card()
+    check_int8(2048, 768, 16384, out_dtype, True, seed=3,
+               w_rows=16384 + 4099)
+
+
 @pytest.mark.cuda
 def test_int8_matmul_takes_a_row_slice_and_rejects_bad_operands():
     need_card()

@@ -106,3 +106,61 @@ def test_qdot_backends_agree_and_track_the_float_product():
     assert ((y["xla"] - ref).abs().mean() / ref.abs().mean()) < 0.02
     with pytest.raises(ValueError, match="quant_backend"):
         qdot(x, w_q, w_s, backend="mosaic")
+
+
+# --- the kernel's launch plan (runs on the CPU) -----------------------------
+#
+# plan(M, N, sms) picks the tile width and the persistent grid of the
+# kernel's launch. The five products of the int8 serve path (M 6144 = 16
+# rows x 384 tokens; the head's M 2048 = 8 requests x 256 image rows) on
+# the H100's 132 SMs, with the width the wave model gives each.
+from unidisc_tpu_torch.ops.int8_matmul import (BLOCK_M, BLOCK_NS,  # noqa: E402
+                                               TILE_OVERHEAD, plan)
+
+H100_SMS = 132
+PATH_PLANS = {
+    # name: (M, N, block_n)
+    "attn_qkv": (6144, 2304, 192),     # 576 tiles, 4.36 waves
+    "attn_out": (6144, 768, 192),      # 192 tiles, 1.45 waves
+    "mlp_0": (6144, 3072, 192),        # 768 tiles, 5.82 waves
+    "mlp_2": (6144, 768, 192),         # 192 tiles, 1.45 waves
+    "head": (2048, 16384, 256),        # 1,024 tiles, 7.76 waves
+}
+
+
+def ceil_div(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("name", sorted(PATH_PLANS))
+def test_plan_at_the_serve_path_shapes(name):
+    m, n, want_bn = PATH_PLANS[name]
+    bn, tiles, grid = plan(m, n, H100_SMS)
+    assert bn == want_bn
+    assert tiles == ceil_div(m, BLOCK_M) * ceil_div(n, bn)
+    assert grid == H100_SMS
+
+
+@pytest.mark.parametrize("m,n,sms", [(6144, 768, 132), (2048, 16384, 132),
+                                     (1, 8, 132), (127, 136, 132),
+                                     (6145, 1000, 114), (300, 77, 16)])
+def test_plan_takes_the_cheapest_width_and_a_grid_within_the_tiles(m, n,
+                                                                    sms):
+    bn, tiles, grid = plan(m, n, sms)
+    assert bn in BLOCK_NS
+
+    def cost(width):
+        t = ceil_div(m, BLOCK_M) * ceil_div(n, width)
+        return ceil_div(t, sms) * (width + TILE_OVERHEAD)
+
+    assert cost(bn) == min(cost(w) for w in BLOCK_NS)
+    # on a tie the widest width wins: fewer passes over the A rows
+    assert bn == max(w for w in BLOCK_NS if cost(w) == cost(bn))
+    assert tiles == ceil_div(m, BLOCK_M) * ceil_div(n, bn)
+    assert 1 <= grid == min(tiles, sms)
+
+
+def test_plan_narrows_the_tile_when_the_grid_would_be_short():
+    # one tile row: the narrowest width gives the most blocks
+    bn, tiles, grid = plan(128, 1024, H100_SMS)
+    assert (bn, tiles, grid) == (128, 8, 8)

@@ -3,8 +3,8 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   unidisc_tpu/ops/pallas_attention.py:402  _bwd_dkv_kernel
-// It runs after flash_bwd_dq_kernel (flash_bwd.cu) on the same stream and
-// reads the di = rowsum(O * dO) that kernel writes.
+// It runs after flash_bwd_dq_kernel (flash_bwd_dq.cu) on the same stream
+// and reads the di = rowsum(O * dO) that kernel writes.
 //
 // Semantics (identical to _masked_p and the TPU kernel):
 //   S = Q K^T * scale in fp32 from bf16 products; masked (query, key) pairs
@@ -39,8 +39,7 @@
 //     dK += dS^T Q, whose B operands (dO, Q) are read MN-major from shared
 //     memory with the transpose flag.
 //   - No setmaxnreg (see flash_fwd.cu); the launch bounds size the
-//     registers. The shared-memory limit is set once per device (its own
-//     launcher: the dq kernel keeps flash_bwd.cu's).
+//     registers. The shared-memory limit is set once per device.
 //
 // Registers. A consumer thread holds dK and dV for 64 keys x D: 2 x D / 2
 // fp32 (D 64: 64; D 128: 128, i.e. 64 each for a 64 x 128 tile), S^T and

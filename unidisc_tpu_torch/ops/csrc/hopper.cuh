@@ -1,11 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels that run
-// on TMA, mbarriers and wgmma (flash_fwd.cu, flash_bwd_dkv.cu): inline PTX
-// only, so a source that includes this header builds in seconds.
+// Hopper (sm_90a) building blocks shared by the kernels that run on TMA,
+// mbarriers and wgmma (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu,
+// int8_matmul.cu): inline PTX only, so a source that includes this header
+// builds in seconds.
 //
 // Shared-memory tiles are 128-byte-swizzled boxes written by TMA: a box of
-// R rows x 64 bf16 columns is R rows of 128 bytes, the 16-byte chunks of row
-// r XOR-ed with r % 8, and it starts on a 1024-byte boundary. A head_dim of
-// 128 is two such boxes side by side (columns 0-63, then 64-127).
+// R rows x 64 bf16 (or 128 int8) columns is R rows of 128 bytes, the 16-byte
+// chunks of row r XOR-ed with r % 8, and it starts on a 1024-byte boundary.
+// A head_dim of 128 is two such boxes side by side (columns 0-63, then
+// 64-127).
 
 #pragma once
 
@@ -120,6 +122,19 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
   }
 }
 
+// Copy the box at element coordinates (c0 column, c1 row) of a rank-2 tensor
+// map into shared memory; completion is counted on `bar` in bytes.
+// Coordinates out of range read as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor with 128-byte swizzle. lbo and sbo are in
@@ -167,6 +182,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.
@@ -174,6 +194,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define HOPPER_D32(d)                                                        \
@@ -243,6 +268,65 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[32],
   a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
+// int8 products: d (64 x N s32) (+)= A (64 x 32 s8, shared, K-major) *
+// B (32 x N s8, shared, K-major: N rows of 32 bytes along K), N 128, 192 or
+// 256. wgmma takes 8-bit operands K-major only. The s32 accumulator has the
+// fp32 one's layout: d[4 j + e] is (row 16 w + l / 4 + 8 (e / 2), column
+// 8 j + 2 (l % 4) + e % 2) for thread (warp w, lane l).
+#define HOPPER_R8(i)                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define HOPPER_R32(i) \
+  HOPPER_R8(i), HOPPER_R8(i + 8), HOPPER_R8(i + 16), HOPPER_R8(i + 24)
+#define HOPPER_S8_LIST128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63}"
+#define HOPPER_S8_LIST192 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+  "%91, %92, %93, %94, %95}"
+#define HOPPER_S8_LIST256 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, " \
+  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define HOPPER_WGMMA_S8(N, DA, DB, ACC, ...)                                  \
+  __device__ __forceinline__ void wgmma_s8_64x##N(                            \
+      int32_t(&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {         \
+    asm volatile(                                                             \
+        "{\n"                                                                 \
+        ".reg .pred p;\n"                                                     \
+        "setp.ne.b32 p, " ACC ", 0;\n"                                        \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 "               \
+        HOPPER_S8_LIST##N ", " DA ", " DB ", p;\n"                             \
+        "}\n"                                                                 \
+        : __VA_ARGS__                                                         \
+        : "l"(da), "l"(db), "r"(accumulate));                                 \
+  }
+HOPPER_WGMMA_S8(128, "%64", "%65", "%66", HOPPER_R32(0), HOPPER_R32(32))
+HOPPER_WGMMA_S8(192, "%96", "%97", "%98", HOPPER_R32(0), HOPPER_R32(32),
+                HOPPER_R32(64))
+HOPPER_WGMMA_S8(256, "%128", "%129", "%130", HOPPER_R32(0), HOPPER_R32(32),
+                HOPPER_R32(64), HOPPER_R32(96))
+#undef HOPPER_WGMMA_S8
+#undef HOPPER_S8_LIST128
+#undef HOPPER_S8_LIST192
+#undef HOPPER_S8_LIST256
+#undef HOPPER_R32
+#undef HOPPER_R8
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -308,6 +392,27 @@ inline cudaError_t encode_bhld(CUtensorMap* map, const void* base, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Rank-2 tensor map over a (rows, K) int8 matrix with contiguous rows of K
+// bytes (K a multiple of 16, as TMA's strides must be): boxes of 128 bytes
+// of K x `box_rows` rows, 128-byte swizzle, zeros out of range.
+inline cudaError_t encode_rows_s8(CUtensorMap* map, const void* base, int rows,
+                                  int K, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {ROW_BYTES, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Set a kernel's dynamic shared-memory limit once per device, not on every
 // launch.
 template <typename Kernel>
@@ -329,10 +434,11 @@ cudaError_t set_smem_once(Kernel kernel, int bytes, unsigned long long* done) {
 // builds and reads it): thread 0 of the first consumer warpgroup, and lane 0
 // of the producer, write %globaltimer (ns) into 64 slots per block of the
 // buffer set by attn_trace_set: 0 start; 1 first tile of the block's own
-// operand (Q, or K and V) landed; for KV / query tile k < 6, at 2 + 6 k:
-// its data landed, first products done, elementwise done, second products
-// issued, second products done, stage released; 40 + k the producer's TMA
-// issue of tile k, 46 + k its empty-wait passed (dkv); 62 end.
+// operand (Q; Q, dO and O; or K and V) landed; 39 di formed (dq); for KV /
+// query tile k < 6, at 2 + 6 k: its data landed, first products done,
+// elementwise done, second products issued, second products done, stage
+// released; 40 + k the producer's TMA issue of tile k, 46 + k its
+// empty-wait passed (dq, dkv); 62 end.
 #ifdef ATTN_TRACE
 __device__ unsigned long long* g_trace;
 extern "C" int attn_trace_set(void* p) {

@@ -7,10 +7,9 @@
 //   out[m, n] = float(sum_k a[m, k] * w[n, k]) * s[m] * ws[n] (+ bias[n])
 //
 // a (M, K) int8 row-major (per-row quantized activations), w (N, K) int8
-// with K contiguous (the port's weight layout: the "col" operand of the
-// tensor-core product), s (M) and ws (N) fp32 scales, bias (N) fp32 or
-// null; out (M, N) bf16 or fp32, written once. The int32 accumulator never
-// leaves the registers.
+// with K contiguous (the port's weight layout), s (M) and ws (N) fp32
+// scales, bias (N) fp32 or null; out (M, N) bf16 or fp32, written once.
+// The int32 accumulator never leaves the registers.
 //
 // Numerics: the integer product is exact. The epilogue keeps the JAX
 // oracle's order, ((acc * s) * ws) + bias, with round-to-nearest intrinsics
@@ -18,15 +17,42 @@
 // fp32 output is bit-exact against the plain version, and the bf16 output
 // is its round-to-nearest-even cast.
 //
-// Design: a 128 x 128 output tile per block of 8 warps (2 x 4), each warp a
-// 64 x 32 tile of mma.sync.m16n8k32 int8 products (4 x 4 per 32-deep step,
-// 64 int32 accumulators a thread). K advances in 64-byte steps through two
-// shared-memory buffers: the next step's tiles are read from global memory
-// into registers while the tensor cores work on the current one, then
-// stored to the other buffer, one barrier a step. Rows are padded to 80
-// bytes, so the fragment loads (8 rows x 4 words a warp) hit 32 distinct
-// banks. Edges in M and N are predicated (out-of-range rows load as zero
-// and are not stored); K must be a multiple of 16, checked by the wrapper.
+// Design: a persistent grid (one block per SM, at most one per tile) walks
+// output tiles of 128 rows x BLOCK_N columns, BLOCK_N 128, 192 or 256,
+// chosen per shape by the wrapper (ops/int8_matmul.py, plan) against the
+// wave quantization of the tiles over the SMs. At the int8 serve path's
+// products on 132 SMs: attn_qkv, attn_out, mlp_0 and mlp_2 run 192-wide
+// tiles (576, 192, 768 and 192 tiles: 4.36, 1.45, 5.82 and 1.45 waves),
+// the head 256-wide ones (1,024 tiles, 7.76 waves).
+//   - The last warp is the producer: its lane 0 streams, for each of the
+//     block's tiles in turn, 128-byte slices of K of the A rows and of the
+//     W rows through a ring of STAGES shared-memory stages with TMA
+//     (rank-2 (K, rows) tensor maps, 128-byte swizzle, zeros out of range:
+//     the M and N edges and the K tail past a multiple of 128), with a full
+//     and an empty mbarrier per stage. The ring runs on across tiles, so
+//     the next tile's loads overlap this tile's epilogue.
+//   - Two consumer warpgroups own 64 rows of the tile each and run
+//     wgmma m64nBLOCK_Nk32 s8 x s8 -> s32 with both operands K-major in
+//     shared memory, as stored (wgmma takes 8-bit operands K-major only); a
+//     k32 step is 32 bytes into the swizzled row, the descriptor arithmetic
+//     of bf16's k16. One stage's four products are committed as a group
+//     and the stage before it is released once its group is done, so the
+//     tensor cores always have the next group queued.
+//   - The epilogue scales the s32 accumulator (the fp32 accumulator's
+//     layout) in registers. The tile's column scales and bias are loaded
+//     before its products and parked in shared memory, and each warp
+//     stages 128 bytes of each of its 16 rows at a time in shared memory,
+//     so that its stores are whole 16-byte pieces of whole rows. Loaded
+//     where it is used, each column's scale costs an L2 round trip (the
+//     live accumulator leaves no registers to load ahead), and the
+//     accumulator's fragments stored directly write 4 bytes of each of 8
+//     rows a store: the epilogue then took several times the products.
+//
+// Registers: the accumulator is BLOCK_N / 2 a thread; the 9 warps cap a
+// thread at 168. ptxas -v (nvcc 12.9): 127, 150 and 168 registers at
+// BLOCK_N 128, 192 and 256, 0 bytes spill. Shared memory: 6, 4 or 4
+// stages of 16 KB + BLOCK_N x 128 bytes, 18 KB of staging and the scales:
+// 214-220 KB.
 //
 // Bound: at the main path's trunk shapes (M 6144 = 16 rows x 384 tokens,
 // K 768 or 3072, N 768 to 3072) the products are 7.2 to 29 G int8 ops, 3.7
@@ -35,167 +61,298 @@
 // by bytes at N = 768 (attn_out). The head (M 2048, K 768, N 16384) is
 // 51.5 G ops (26 us) against 81 MB (24 us).
 //
-// What this simple design leaves on the table: mma.sync reaches a fraction
-// of what wgmma does; the global loads are synchronous (staged through
-// registers, not cp.async or TMA); no persistent scheduling or split-K for
-// small grids.
+// What the design does about the first version (mma.sync m16n8k32, loads
+// staged through registers, one barrier a 64-byte step, one block per
+// tile): wgmma at up to 64 x 256 a warpgroup, TMA loads with no thread
+// spending an instruction on an address, no __syncthreads in the loop,
+// a persistent grid whose tile width is chosen per shape, and whole-row
+// stores.
+//
+// Phase trace (-DATTN_TRACE, read by scripts/int8_kernel_times.py
+// --trace): thread 0 writes %globaltimer into slot 0 at the start, for the
+// block's tile n < 7 into 8 n + 1 its start, 8 n + 2 its first stage
+// landed, 8 n + 3 its last stage landed, 8 n + 4 its products done and
+// 8 n + 7 its epilogue done; the producer into 8 n + 5 and 8 n + 6 the
+// issue of the tile's first and last stage; 62 the end.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;      // output rows per block
-constexpr int BN = 128;      // output columns per block
-constexpr int BK = 64;       // K bytes per shared-memory step
-constexpr int SROW = BK + 16;  // padded shared-memory row, in bytes
-constexpr int THREADS = 256;   // 8 warps: 2 along M x 4 along N
-constexpr int CHUNKS = BM * BK / 16 / THREADS;  // 16-byte loads a thread
+using namespace hopper;
+
+constexpr int BLOCK_M = 128;  // output rows per tile (two warpgroups of 64)
+constexpr int BLOCK_K = 128;  // K bytes per stage: one 128-byte box row
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = CONSUMERS * 128 + 32;
+// a consumer warp stages 128 bytes of each of its 16 output rows at a
+// time, each padded by 16 bytes against bank conflicts
+constexpr int EPI_ROW = 128 + 16;
 
 struct Params {
-  const int8_t* a;     // (M, K)
   const float* s;      // (M)
-  const int8_t* w;     // (N, K)
   const float* ws;     // (N)
   const float* bias;   // (N) or nullptr
   void* out;           // (M, N)
   int M, N, K;
+  int out_bf16;
 };
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+template <int BN>
+struct Config {
+  static constexpr int A_BYTES = BLOCK_M * BLOCK_K;  // 16 KB
+  static constexpr int B_BYTES = BN * BLOCK_K;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // each consumer warp's staging area (EPI_ROW), and each warpgroup's
+  // copy of the tile's column scales and bias
+  static constexpr int EPI_BYTES = CONSUMERS * 4 * 16 * EPI_ROW;
+  static constexpr int COLS_BYTES = CONSUMERS * 2 * BN * 4;
+  static constexpr int STAGES =  // 6, 4 or 4
+      (220 * 1024 - EPI_BYTES - COLS_BYTES) / STAGE_BYTES;
+  static constexpr int OFF_B = STAGES * A_BYTES;
+  static constexpr int OFF_EPI = OFF_B + STAGES * B_BYTES;
+  static constexpr int OFF_COLS = OFF_EPI + EPI_BYTES;
+  static constexpr int OFF_BAR = OFF_COLS + COLS_BYTES;
+  static constexpr int SMEM = OFF_BAR + 2 * STAGES * 8 + 1024;
+};
 
-__device__ __forceinline__ void store_out(void* out, long long idx, float v,
-                                          bool bf16) {
-  if (bf16) {
-    static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BN == 128) {
+    wgmma_s8_64x128(d, da, db, accumulate);
+  } else if constexpr (BN == 192) {
+    wgmma_s8_64x192(d, da, db, accumulate);
   } else {
-    static_cast<float*>(out)[idx] = v;
+    wgmma_s8_64x256(d, da, db, accumulate);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const Params p, const bool out_bf16) {
-  __shared__ __align__(16) int8_t a_s[2][BM * SROW];
-  __shared__ __align__(16) int8_t w_s[2][BN * SROW];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 64-row half of the tile
-  const int wn = warp & 3;   // 32-column quarter of the tile
-  const int g = lane >> 2;   // mma groupID
-  const int t = lane & 3;    // mma threadID_in_group
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  int acc[4][4][4];
+// The epilogue of one consumer warp: its 16 rows (row0 .. row0 + 15 of
+// the output, the fragment rows g and g + 8 of this thread) x BN columns
+// from n0, scaled in the JAX oracle's order. 128 bytes of each row at a
+// time (64 bf16 or 32 fp32 columns) go through the warp's staging area, so
+// that the stores to `out` are whole 16-byte pieces of whole rows: each
+// store instruction of the warp writes four 128-byte row segments. Pieces
+// at the edges (or all of them, where a row of `out` is not a multiple of
+// 16 bytes) are stored element by element.
+template <typename T, int BN>
+__device__ __forceinline__ void store_tile(const Params& p,
+                                           const int32_t (&acc)[BN / 2],
+                                           unsigned char* stage, int row0,
+                                           int n0, const float* sWs,
+                                           const float* sBias, int lane) {
+  constexpr int CH = 128 / sizeof(T);  // columns of one 128-byte segment
+  const int g = lane >> 2, t = lane & 3;
+  const float s0 = row0 + g < p.M ? __ldg(p.s + row0 + g) : 0.f;
+  const float s1 = row0 + g + 8 < p.M ? __ldg(p.s + row0 + g + 8) : 0.f;
+  const bool bias = p.bias != nullptr;
+  const bool vec = (static_cast<long long>(p.N) * sizeof(T)) % 16 == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < BN / CH; ++c) {
+    // this thread's values of the segment into the staging area
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int jj = 0; jj < CH / 8; ++jj) {
+      const int j = c * (CH / 8) + jj;
+      const int cl = 8 * j + 2 * t;  // column within the tile
+      float v[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // 16-byte chunk c of a tile: row c / 4, bytes (c % 4) * 16 .. + 15
-  uint4 ra[CHUNKS], rw[CHUNKS];
-  auto load_global = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c >> 2;
-      const int k = k0 + (c & 3) * 16;
-      const uint4 zero = make_uint4(0, 0, 0, 0);
-      ra[i] = (m0 + r < p.M && k < p.K)
-                  ? *reinterpret_cast<const uint4*>(
-                        p.a + static_cast<long long>(m0 + r) * p.K + k)
-                  : zero;
-      rw[i] = (n0 + r < p.N && k < p.K)
-                  ? *reinterpret_cast<const uint4*>(
-                        p.w + static_cast<long long>(n0 + r) * p.K + k)
-                  : zero;
-    }
-  };
-  auto store_shared = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int c = tid + i * THREADS;
-      const int off = (c >> 2) * SROW + (c & 3) * 16;
-      *reinterpret_cast<uint4*>(&a_s[buf][off]) = ra[i];
-      *reinterpret_cast<uint4*>(&w_s[buf][off]) = rw[i];
-    }
-  };
-
-  const int nk = (p.K + BK - 1) / BK;
-  load_global(0);
-  store_shared(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) load_global((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // A fragment: rows g and g + 8, bytes 4t..4t+3 and 16 + 4t..
-        const int8_t* base =
-            &a_s[buf][(wm * 64 + mi * 16 + g) * SROW + kk + t * 4];
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW + 16);
+      for (int e = 0; e < 4; ++e) {
+        v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]),
+                                   e < 2 ? s0 : s1),
+                         sWs[cl + e % 2]);
+        if (bias) v[e] = __fadd_rn(v[e], sBias[cl + e % 2]);
       }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        // B fragment: column (weight row) g, k = 4t..4t+3 and 16 + 4t..
-        const int8_t* base =
-            &w_s[buf][(wn * 32 + ni * 8 + g) * SROW + kk + t * 4];
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(base);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    if (kt + 1 < nk) store_shared(buf ^ 1);
-    __syncthreads();
-  }
-
-  // epilogue: accumulator element e of tile (mi, ni) sits at row
-  // g + 8 (e / 2), column 2t + (e % 2)
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (row >= p.M) continue;
-      const float sr = p.s[row];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * 32 + ni * 8 + t * 2 + e;
-          if (col >= p.N) continue;
-          float v = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + e]), sr),
-              p.ws[col]);
-          if (p.bias != nullptr) v = __fadd_rn(v, p.bias[col]);
-          store_out(p.out, static_cast<long long>(row) * p.N + col, v,
-                    out_bf16);
+      for (int r = 0; r < 2; ++r) {
+        unsigned char* at = stage + (g + 8 * r) * EPI_ROW +
+                            (8 * jj + 2 * t) * sizeof(T);
+        if constexpr (sizeof(T) == 2) {
+          *reinterpret_cast<__nv_bfloat162*>(at) =
+              __floats2bfloat162_rn(v[2 * r], v[2 * r + 1]);
+        } else {
+          *reinterpret_cast<float2*>(at) = make_float2(v[2 * r], v[2 * r + 1]);
         }
       }
     }
+    __syncwarp();
+    // the segment's 16 rows x 8 pieces of 16 bytes, four rows a store
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int r = 4 * it + (lane >> 3);
+      const int piece = lane & 7;
+      const int row = row0 + r;
+      const int col = n0 + c * CH + piece * (16 / sizeof(T));
+      const unsigned char* from =
+          stage + r * EPI_ROW + piece * 16;
+      T* to = static_cast<T*>(p.out) + static_cast<long long>(row) * p.N + col;
+      if (row < p.M) {
+        if (vec && col + 16 / static_cast<int>(sizeof(T)) <= p.N) {
+          *reinterpret_cast<uint4*>(to) =
+              *reinterpret_cast<const uint4*>(from);
+        } else {
+          const T* vals = reinterpret_cast<const T*>(from);
+#pragma unroll
+          for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) {
+            if (col + e < p.N) to[e] = vals[e];
+          }
+        }
+      }
+    }
+    __syncwarp();
   }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    int8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const Params p) {
+  using C = Config<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sA = smem;
+  unsigned char* sB = smem + C::OFF_B;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + C::STAGES;
+
+  // tiles in order of M first, so that the blocks in flight share W tiles
+  const int m_tiles = (p.M + BLOCK_M - 1) / BLOCK_M;
+  const int tiles = m_tiles * ((p.N + BN - 1) / BN);
+  const int nk = (p.K + BLOCK_K - 1) / BLOCK_K;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);                // the TMA's expect_tx arrival
+      mbar_init(&empty[s], CONSUMERS * 4);   // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {
+    // ---- producer: lane 0 of the last warp ----
+    if (tid == CONSUMERS * 128) {
+      int it = 0, nt = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++nt) {
+        const int m0 = (tile % m_tiles) * BLOCK_M;
+        const int n0 = (tile / m_tiles) * BN;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int stage = it % C::STAGES;
+          mbar_wait(&empty[stage], ((it / C::STAGES) & 1) ^ 1);
+          TRACE_IF(nt < 7 && kb == 0, 8 * nt + 5);
+          TRACE_IF(nt < 7 && kb == nk - 1, 8 * nt + 6);
+          mbar_arrive_expect_tx(&full[stage], C::STAGE_BYTES);
+          tma_load_2d(sA + stage * C::A_BYTES, &map_a, &full[stage],
+                      kb * BLOCK_K, m0);
+          tma_load_2d(sB + stage * C::B_BYTES, &map_w, &full[stage],
+                      kb * BLOCK_K, n0);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid & 31;
+    const int lt = tid % 128;  // thread within the warpgroup
+    float* sWs = reinterpret_cast<float*>(smem + C::OFF_COLS) + wg * 2 * BN;
+    float* sBias = sWs + BN;
+    unsigned char* stage_epi = smem + C::OFF_EPI +
+                               (wg * 4 + warp) * 16 * EPI_ROW;
+    int32_t acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+    auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    };
+    // every thread of this warpgroup (named barrier 1 + wg; 0 is the
+    // block's)
+    auto wg_sync = [&]() {
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    };
+
+    int it = 0, nt = 0;
+    TRACE_IF(tid == 0, 0);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++nt) {
+      const int m0 = (tile % m_tiles) * BLOCK_M;
+      const int n0 = (tile / m_tiles) * BN;
+      TRACE_IF(tid == 0 && nt < 7, 8 * nt + 1);
+      // the tile's column scales and bias: loaded now, used after the
+      // products, so their latency hides behind them
+      constexpr int PER = (BN + 127) / 128;
+      float wv[PER], bv[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int c = n0 + lt + 128 * i;
+        const bool in = lt + 128 * i < BN && c < p.N;
+        wv[i] = in ? __ldg(p.ws + c) : 0.f;
+        bv[i] = in && p.bias != nullptr ? __ldg(p.bias + c) : 0.f;
+      }
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int stage = it % C::STAGES;
+        const unsigned char* tA = sA + stage * C::A_BYTES;
+        const unsigned char* tB = sB + stage * C::B_BYTES;
+        mbar_wait(&full[stage], (it / C::STAGES) & 1);
+        TRACE_IF(tid == 0 && nt < 7 && kb == 0, 8 * nt + 2);
+        TRACE_IF(tid == 0 && nt < 7 && kb == nk - 1, 8 * nt + 3);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BLOCK_K / 32; ++ks) {
+          wgmma_s8<BN>(acc, desc_kmajor(tA, BLOCK_M, wg * 64, ks),
+                       desc_kmajor(tB, BN, 0, ks), kb > 0 || ks > 0);
+        }
+        wgmma_commit();
+        // the previous stage's products are done: release it
+        wgmma_wait<1>();
+        if (kb > 0) release((it - 1) % C::STAGES);
+      }
+      wgmma_wait0();
+      fence_acc(acc);
+      release((it - 1) % C::STAGES);
+      TRACE_IF(tid == 0 && nt < 7, 8 * nt + 4);
+
+      wg_sync();  // the previous tile's epilogue is done with sWs, sBias
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (lt + 128 * i < BN) {
+          sWs[lt + 128 * i] = wv[i];
+          sBias[lt + 128 * i] = bv[i];
+        }
+      }
+      wg_sync();
+      const int row0 = m0 + wg * 64 + warp * 16;
+      if (p.out_bf16) {
+        store_tile<__nv_bfloat16, BN>(p, acc, stage_epi, row0, n0, sWs,
+                                      sBias, lane);
+      } else {
+        store_tile<float, BN>(p, acc, stage_epi, row0, n0, sWs, sBias,
+                              lane);
+      }
+      TRACE_IF(tid == 0 && nt < 7, 8 * nt + 7);
+    }
+    TRACE_IF(tid == 0, 62);
+  }
+}
+
+// Encode the two tensor maps and launch `grid` blocks on `stream`.
+template <int BN>
+cudaError_t launch(const void* a, const void* w, int grid, const Params& p,
+                   cudaStream_t stream) {
+  using C = Config<BN>;
+  CUtensorMap ma, mw;
+  cudaError_t err = encode_rows_s8(&ma, a, p.M, p.K, BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows_s8(&mw, w, p.N, p.K, BN);
+  if (err != cudaSuccess) return err;
+  static unsigned long long smem_set = 0;
+  err = set_smem_once(int8_matmul_kernel<BN>, C::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  int8_matmul_kernel<BN><<<grid, THREADS, C::SMEM, stream>>>(ma, mw, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -203,27 +360,31 @@ int8_matmul_kernel(const Params p, const bool out_bf16) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success). Shapes, dtypes, alignment and
-// K % 16 == 0 are checked by the Python wrapper.
+// K % 16 == 0 are checked by the Python wrapper, which also chooses
+// block_n (128, 192 or 256) and the persistent grid (at most one block per
+// tile).
 int int8_matmul(const void* a, const void* s, const void* w, const void* ws,
-                const void* bias, void* out, int M, int N, int K,
-                int out_bf16, void* stream) {
+                const void* bias, void* out, int M, int N, int K, int block_n,
+                int grid, int out_bf16, void* stream) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
-  p.a = static_cast<const int8_t*>(a);
   p.s = static_cast<const float*>(s);
-  p.w = static_cast<const int8_t*>(w);
   p.ws = static_cast<const float*>(ws);
   p.bias = static_cast<const float*>(bias);
   p.out = out;
   p.M = M;
   p.N = N;
   p.K = K;
-  if (M < 1 || N < 1 || K < 16 || K % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.out_bf16 = out_bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (block_n) {
+    case 128: return static_cast<int>(launch<128>(a, w, grid, p, st));
+    case 192: return static_cast<int>(launch<192>(a, w, grid, p, st));
+    case 256: return static_cast<int>(launch<256>(a, w, grid, p, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, out_bf16 != 0);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* int8_matmul_error_string(int err) {

@@ -1,7 +1,7 @@
 """Attention through the hand-written Hopper kernels, the port of the JAX
 package's Pallas ``flash_attention`` (``unidisc_tpu/ops/pallas_attention.py``):
 the forward in ``ops/csrc/flash_fwd.cu``, the backward in
-``ops/csrc/flash_bwd.cu`` (dQ, and di = rowsum(O dO)) and
+``ops/csrc/flash_bwd_dq.cu`` (dQ, and di = rowsum(O dO)) and
 ``ops/csrc/flash_bwd_dkv.cu`` (dK, dV).
 
 ``flash_attention`` takes (B, L, H, D) tensors. On a CUDA tensor it
@@ -28,9 +28,8 @@ from unidisc_tpu_torch.ops import _build
 
 MASK_VALUE = -1e30
 KERNEL = "flash_fwd"
-BWD_SOURCE = "flash_bwd"
-BWD_DQ = "flash_bwd_dq"     # launch-count names of the two backward kernels
-BWD_DKV = "flash_bwd_dkv"   # (also the dkv kernel's source name)
+BWD_DQ = "flash_bwd_dq"     # launch-count and source names of the two
+BWD_DKV = "flash_bwd_dkv"   # backward kernels
 HEAD_DIMS = (64, 128)
 BLOCK_M = 64          # query rows per thread block (flash_fwd.cu)
 MAX_GRID_Y = 65535
@@ -280,19 +279,30 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _bwd_library(source: str, entry: str) -> ctypes.CDLL:
-    """The library of one backward kernel (``flash_bwd`` holds the dq
-    kernel, ``flash_bwd_dkv`` the dkv kernel); both entry points take
-    (10 pointers, batch, heads, lq, lk, head_dim, strides, scale, causal,
+def bwd_operands(q, k, v, o, do):
+    """q, k, v, o and dO as the backward kernels read them, all through
+    TMA tensor maps: dO copied to a contiguous tensor where its layout does
+    not suit the kernels (autograd may hand over a strided or expanded
+    gradient), and any broadcast operand copied (``_tma_ready``); every
+    other view is passed on as it is."""
+    if not _layout_ok(do):
+        do = do.contiguous()
+    return tuple(_tma_ready(x) for x in (q, k, v, o, do))
+
+
+def _bwd_library(name: str) -> ctypes.CDLL:
+    """The library of one backward kernel, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``; both entry points, ``<name>_bf16``, take (10
+    pointers, batch, heads, lq, lk, head_dim, strides, scale, causal,
     stream)."""
-    lib = _build.load(source)
-    fn = getattr(lib, entry)
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_bf16")
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 10 + [i32] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i32, ptr]
         fn.restype = i32
-        err_fn = getattr(lib, f"{source}_error_string")
+        err_fn = getattr(lib, f"{name}_error_string")
         err_fn.argtypes = [i32]
         err_fn.restype = ctypes.c_char_p
     return lib
@@ -316,10 +326,8 @@ def bwd_launches(q, k, v, o, lse, do, segment_ids, causal, scale):
     run before launch_dkv."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    if not _layout_ok(do):
-        do = do.contiguous()    # autograd may hand over a strided gradient
     qseg, kseg = _check_qkv(q, k, v, segment_ids)
-    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    q, k, v, o, do = bwd_operands(q, k, v, o, do)
     for name, x in (("o", o), ("do", do)):
         _check_operand(name, x, q.device)
         if x.shape != q.shape:
@@ -340,26 +348,26 @@ def bwd_launches(q, k, v, o, lse, do, segment_ids, causal, scale):
     seg_ptrs = (qseg.data_ptr() if qseg is not None else None,
                 kseg.data_ptr() if kseg is not None else None)
     tail = (b, h, lq, lk, d, strides, scale, int(causal))
-    lib_dq = _bwd_library(BWD_SOURCE, "flash_bwd_dq_bf16")
-    lib_dkv = _bwd_library(BWD_DKV, "flash_bwd_dkv_bf16")
+    lib_dq = _bwd_library(BWD_DQ)
+    lib_dkv = _bwd_library(BWD_DKV)
 
-    def run(lib, source, name, ptrs):
+    def run(lib, name, ptrs):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"{name}_bf16")(*ptrs, *seg_ptrs, *tail,
                                                stream)
         if err != 0:
-            msg = getattr(lib, f"{source}_error_string")(err).decode()
+            msg = getattr(lib, f"{name}_error_string")(err).decode()
             raise RuntimeError(f"{name} launch failed: {msg}")
         _build.launch_counts[name] += 1
 
     def launch_dq():
-        run(lib_dq, BWD_SOURCE, BWD_DQ,
+        run(lib_dq, BWD_DQ,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr()))
 
     def launch_dkv():
-        run(lib_dkv, BWD_DKV, BWD_DKV,
+        run(lib_dkv, BWD_DKV,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr()))
 

@@ -16,15 +16,23 @@ cast.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from unidisc_tpu_torch.ops import _build
 
 KERNEL = "int8_matmul"
-BLOCK_M = 128          # output rows per thread block (int8_matmul.cu)
-MAX_GRID_Y = 65535
+BLOCK_M = 128               # output rows per tile (int8_matmul.cu)
+BLOCK_NS = (256, 192, 128)  # the tile widths the kernel is built for
+# A tile's cost in the wave model of `plan`, in output columns: BLOCK_N for
+# its products and stores plus a share that every tile pays whatever its
+# width (its A rows, the ring's refill, the epilogue's fixed steps). 32 makes
+# the model pick the fastest of the three widths at each of the five
+# products of the int8 serve path on an H100 (PERF.md §6).
+TILE_OVERHEAD = 32
+MAX_TILES = 2 ** 31 - 1
 OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -54,8 +62,9 @@ def int8_matmul(x_q: torch.Tensor, s: torch.Tensor, w_q: torch.Tensor,
     """(x_q int8 (M, K), s fp32 (M, 1)) x (w_q int8 (N, K), w_scale (N,))
     -> out_dtype (M, N), the epilogue fused.
 
-    On the card: K must be a multiple of 16 (16-byte row loads), both int8
-    operands K-contiguous and 16-byte aligned; any M and N."""
+    On the card: K must be a multiple of 16 (the TMA tensor maps' row
+    strides are multiples of 16 bytes), both int8 operands K-contiguous and
+    16-byte aligned; any M and N."""
     if x_q.device.type == "cpu":
         return int8_matmul_reference(x_q, s, w_q, w_scale, bias=bias,
                                      out_dtype=out_dtype)
@@ -74,12 +83,33 @@ def int8_product(backend: str):
     raise ValueError(f"unknown quant_backend {backend!r}")
 
 
+def plan(m: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """The kernel's launch for an (M, N) output on a card of `sms`
+    streaming multiprocessors: (block_n, tiles, grid).
+
+    The persistent grid has one block per SM (at most one per tile), and
+    an SM that takes ceil(tiles / sms) tiles sets the time. Each width in
+    BLOCK_NS is costed as ceil(tiles / sms) x (block_n + TILE_OVERHEAD) and
+    the cheapest wins, the widest on a tie: wide tiles read the A rows
+    fewer times, narrow ones fill the last wave better."""
+    best = None
+    for bn in BLOCK_NS:
+        tiles = math.ceil(m / BLOCK_M) * math.ceil(n / bn)
+        cost = math.ceil(tiles / sms) * (bn + TILE_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, bn, tiles)
+    _, bn, tiles = best
+    return bn, tiles, min(tiles, sms)
+
+
 def _aligned_rows(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and x.stride(0) == x.shape[1] \
         and x.data_ptr() % 16 == 0
 
 
-def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype):
+def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype, block_n=None):
+    """The kernel's launch; block_n (one of BLOCK_NS) overrides plan's
+    choice of tile width, for measurement."""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"int8_matmul: x_q and w_q must be int8, got "
                         f"{x_q.dtype} and {w_q.dtype}")
@@ -90,7 +120,8 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype):
     n = w_q.shape[0]
     if k % 16:
         raise ValueError(f"int8_matmul: K = {k} must be a multiple of 16")
-    if m < 1 or n < 1 or -(-m // BLOCK_M) > MAX_GRID_Y:
+    if m < 1 or n < 1 or -(-m // BLOCK_M) * -(-n // min(BLOCK_NS)) \
+            > MAX_TILES:
         raise ValueError(f"int8_matmul: unsupported M = {m}, N = {n}")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"int8_matmul: out_dtype {out_dtype} not in "
@@ -121,12 +152,20 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype):
                              f"on {dev}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     lib = _library()
+    sms = _sm_count(dev)
+    bn, tiles, grid = plan(m, n, sms)
+    if block_n is not None:
+        if block_n not in BLOCK_NS:
+            raise ValueError(f"int8_matmul: block_n {block_n} not in "
+                             f"{BLOCK_NS}")
+        bn = block_n
+        grid = min(sms, -(-m // BLOCK_M) * -(-n // bn))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.int8_matmul(
             x_q.data_ptr(), s.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, n, k, int(out_dtype == torch.bfloat16), stream)
+            m, n, k, bn, grid, int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: "
                            f"{lib.int8_matmul_error_string(err).decode()}")
@@ -134,11 +173,22 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype):
     return out
 
 
+_sm_counts = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     if lib.int8_matmul.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.int8_matmul.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.int8_matmul.restype = i32
         lib.int8_matmul_error_string.argtypes = [i32]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
