@@ -18,9 +18,10 @@ and prints no result):
      attention forward (flash_fwd), the two attention backward kernels
      (flash_bwd_dq, flash_bwd_dkv), the int8 product (int8_matmul; fp32
      output bit-exact, bf16 within one ulp) at the five products of the
-     int8 serve path, and the fused quantize kernel (fused_qmm; scales
+     int8 serve path, the fused quantize kernel (fused_qmm; scales
      within 1e-6 relative, int8 values within one step on at most 0.1% of
-     the elements) in each of its modes.
+     the elements) in each of its modes, and the per-row quantize of the
+     int8 path (dynamic_quantize; q and s bit-exact) at its three shapes.
   4. serve path: build the flagship text->image engine at full width with
      random weights from the seed; check full-width logits through the
      kernel against the plain path; check the sampler on the card against
@@ -31,7 +32,7 @@ and prints no result):
      build_engine(quantize="int8") with FLAGSHIP_INT8_OVERRIDES; check its
      full-width logits against the plain int8 path and the bf16 model,
      the int8 sampler on the card against the CPU on a tiny model, and
-     serve 8 requests with the counts of all three serving kernels checked
+     serve 8 requests with the counts of all four serving kernels checked
      exactly.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
@@ -130,6 +131,13 @@ KERNELS = {
         "route": "cuda",
         "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
         "replaces": "unidisc_tpu/ops/fused_qmm.py:97",
+    },
+    # the int8 path's per-row activation quantize: no Pallas kernel in the
+    # JAX package (XLA fuses it); an entry of the fused_qmm source
+    "dynamic_quantize": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
+        "replaces": "unidisc_tpu/ops/quant.py:51",
     },
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -591,6 +599,10 @@ def phase_fused_qmm(m, seed) -> list:
     modality = torch.cat([torch.zeros((b, m.txt_length), dtype=torch.long),
                           torch.ones((b, m.img_length), dtype=torch.long)],
                          1).reshape(-1).float().cuda()
+    # the width of the row kernel the wrapper picks (trees before the row
+    # kernel have no plan)
+    from unidisc_tpu_torch.ops import fused_qmm as fq_module
+    plan = getattr(fq_module, "quantize_plan", None)
     rows = []
     for name, mode, norm_type, cond in QUANT_CASES:
         kw = dict(mode=mode, norm_type=norm_type)
@@ -621,6 +633,8 @@ def phase_fused_qmm(m, seed) -> list:
         t_ops = ops / FP32_FLOP_PER_S * 1e3
         row = {"case": name, "shape_mk": [mm, k], "mode": mode,
                "norm_type": norm_type, "cond": cond,
+               "plan": list(plan(x, kw.get("norm_w"), kw.get("shift"),
+                                 kw.get("scale"))) if plan else None,
                "max_abs_err": float(moved_max), "scale_rel_err": s_err,
                "moved_share": moved_share,
                "ms": time_ms(lambda: fused_quantize(x, **kw)),
@@ -635,6 +649,73 @@ def phase_fused_qmm(m, seed) -> list:
                "bytes": nbytes, "ops": ops}
         rows.append(row)
         print("kernel fused_qmm " + json.dumps(row))
+    return rows
+
+
+def dynamic_quantize_shapes(m) -> list:
+    """(name, M, K) of the int8 serve path's per-row quantize calls (qdot):
+    the inputs of attn_out and mlp.2 at 2 x REQUESTS rows of the whole
+    sequence, and of the image head."""
+    rows = 2 * REQUESTS * m.length
+    return [("attn_out", rows, m.hidden_size),
+            ("mlp_2", rows, m.mlp_ratio * m.hidden_size),
+            ("head", REQUESTS * m.img_length, m.hidden_size)]
+
+
+def dynamic_quantize_input(gen, mm, k) -> torch.Tensor:
+    """(mm, k) bf16 rows of random scale, every 64th row zero."""
+    x = torch.randn((mm, k), generator=gen, device="cuda") \
+        * torch.rand((mm, 1), generator=gen, device="cuda") * 4
+    x[::64] = 0.0
+    return x.bfloat16()
+
+
+def phase_dynamic_quantize(m, seed) -> list:
+    """dynamic_quantize (the row kernel, dividing form) against
+    dynamic_quantize_reference, q and s bit for bit, at the serve path's
+    three shapes, bf16 in, every 64th row zero. plain_ms and
+    plain_device_ms time the plain version: the eager chain of PyTorch ops
+    that the kernel replaces."""
+    # imported here: scripts/int8_kernel_times.py loads this file's helpers
+    # over other trees, which may have no such kernel
+    from unidisc_tpu_torch.ops.quant import (dynamic_quantize,
+                                             dynamic_quantize_reference)
+    from unidisc_tpu_torch.ops.fused_qmm import quantize_plan
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = []
+    for name, mm, k in dynamic_quantize_shapes(m):
+        x = dynamic_quantize_input(gen, mm, k)
+        q, s = dynamic_quantize(x)
+        q_ref, s_ref = dynamic_quantize_reference(x)
+        torch.cuda.synchronize()
+        q_err = (q.int() - q_ref.int()).abs().max().item()
+        s_err = (s - s_ref).abs().max().item()
+        if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+            raise AssertionError(
+                f"dynamic_quantize differs from dynamic_quantize_reference "
+                f"at {name} ({mm}, {k}): q max step {q_err}, s max abs "
+                f"{s_err}")
+        nbytes = mm * k * 2 + mm * k + mm * 4
+        ops = QUANT_OPS_PER_ELEMENT["none"] * mm * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOP_PER_S * 1e3
+        row = {"case": name, "shape_mk": [mm, k],
+               "plan": list(quantize_plan(x)),
+               "max_abs_err": float(max(q_err, s_err)),
+               "ms": time_ms(lambda: dynamic_quantize(x)),
+               "device_ms": device_ms(lambda: dynamic_quantize(x)),
+               "host_us": host_us(lambda: dynamic_quantize(x)),
+               "plain_ms": time_ms(lambda: dynamic_quantize_reference(x)),
+               "plain_device_ms": device_ms(
+                   lambda: dynamic_quantize_reference(x)),
+               "library_ms": None,      # no single PyTorch call computes it
+               "library_device_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        rows.append(row)
+        print("kernel dynamic_quantize " + json.dumps(row))
+        del x, q, s, q_ref, s_ref
     return rows
 
 
@@ -842,15 +923,17 @@ def check_results(engine, prompts, results) -> None:
 def expected_serve_launches(m, nfe) -> dict:
     """Kernel launches of one served batch of `nfe` denoise steps, from the
     code: one trunk pass at the CFG batch a step (each block one attention
-    and, in int8, four products, two of them behind a fused prologue) and
-    one int8 head product a step (t2i_fast applies guidance before the
-    head)."""
+    and, in int8, four products, two of them behind a fused prologue, the
+    others and the head behind a per-row quantize) and one int8 head
+    product a step (t2i_fast applies guidance before the head)."""
     want = {"flash_fwd": m.n_blocks * nfe}
     if m.quant == "int8":
         if m.quant_backend == "pallas":
             want["int8_matmul"] = (4 * m.n_blocks + 1) * nfe
         if m.quant_fused:
             want["fused_qmm"] = 2 * m.n_blocks * nfe
+        want["dynamic_quantize"] = ((2 if m.quant_fused else 4)
+                                    * m.n_blocks + 1) * nfe
     return want
 
 
@@ -1090,6 +1173,8 @@ def main() -> int:
     int8_model = Config.make("small", **FLAGSHIP_INT8_OVERRIDES).model
     record["int8_matmul_cases"] = phase_int8_matmul(int8_model, args.seed)
     record["fused_qmm_cases"] = phase_fused_qmm(int8_model, args.seed)
+    record["dynamic_quantize_cases"] = phase_dynamic_quantize(int8_model,
+                                                              args.seed)
 
     t0 = time.perf_counter()
     engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
@@ -1128,6 +1213,7 @@ def main() -> int:
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path
     fq = record["fused_qmm_cases"][0]        # its rms + adaLN prologue
+    dq = record["dynamic_quantize_cases"][0]  # attn_out's input
     measured = {
         "flash_fwd": {"max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
                       "device_ms": fwd["device_ms"],
@@ -1143,13 +1229,14 @@ def main() -> int:
             "ms": bwd["ms_dkv"], "device_ms": bwd["device_ms_dkv"],
             "host_us": bwd["host_us_dkv"],
             **bwd["bounds"]["flash_bwd_dkv"]},
-        "int8_matmul": qmm, "fused_qmm": fq,
+        "int8_matmul": qmm, "fused_qmm": fq, "dynamic_quantize": dq,
     }
-    shape_key = {"int8_matmul": "shape_mkn", "fused_qmm": "shape_mk"}
+    shape_key = {"int8_matmul": "shape_mkn", "fused_qmm": "shape_mk",
+                 "dynamic_quantize": "shape_mk"}
     kernels = []
     for name, meta in KERNELS.items():
-        case = {"flash_fwd": fwd, "int8_matmul": qmm,
-                "fused_qmm": fq}.get(name, bwd)
+        case = {"flash_fwd": fwd, "int8_matmul": qmm, "fused_qmm": fq,
+                "dynamic_quantize": dq}.get(name, bwd)
         key = shape_key.get(name, "shape_bhld")
         kernels.append({
             "name": name, "route": meta["route"], "source": meta["source"],

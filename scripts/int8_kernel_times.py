@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's int8 GEMM kernel (int8_matmul) of one tree on the card,
-at the five products of the int8 serve path: attn_qkv (6144, 768, 2304),
-attn_out (6144, 768, 768), mlp_0 (6144, 768, 3072), mlp_2 (6144, 3072, 768)
-and the head (2048, 768, 16384), as (M, K, N).
+"""Time the port's int8 kernels of one tree on the card: the int8 GEMM
+(int8_matmul) at the five products of the int8 serve path, attn_qkv
+(6144, 768, 2304), attn_out (6144, 768, 768), mlp_0 (6144, 768, 3072),
+mlp_2 (6144, 3072, 768) and the head (2048, 768, 16384), as (M, K, N); and
+the two per-row quantizers, fused_qmm in each of chip_smoke.py's
+QUANT_CASES at (6144, 768) and dynamic_quantize at (6144, 768),
+(6144, 3072) and (2048, 768).
 
     python3 scripts/int8_kernel_times.py [--root DIR] [--label NAME]
+        [--parts gemm,quant]
 
 --root is the repository root whose ``unidisc_tpu_torch`` is timed
 (default: this one), e.g. a ``git archive`` of another commit unpacked into
@@ -16,9 +20,12 @@ two trees run in one call are timed the same way: ms (CUDA events around
 (the wrapper's host time per call, device idle), library_device_ms and the
 bound. Where the tree's kernel takes a tile width (block_n), each width is
 timed as well, beside the one the wrapper's plan chooses. Each product is
-first held to int8_matmul_reference (fp32 output, bit for bit). Prints the
-card line and one JSON line, and writes
-chiprun_out/int8_kernel_times_<label>.json.
+first held to int8_matmul_reference (fp32 output, bit for bit). The
+quantizers are timed by chip_smoke.py's phase_fused_qmm and
+phase_dynamic_quantize, which hold each to its plain version first; in a
+tree where dynamic_quantize is still the eager chain of PyTorch ops, that
+chain is timed at the same shapes and inputs. Prints the card line and
+one JSON line, and writes chiprun_out/int8_kernel_times_<label>.json.
 
     python3 scripts/int8_kernel_times.py --trace
 
@@ -87,13 +94,36 @@ def trace_tiles(im, run, blocks: int) -> dict:
     return out
 
 
+def eager_chain_rows(cs, model, seed) -> list:
+    """dynamic_quantize of a tree without its kernel (the eager chain),
+    timed as phase_dynamic_quantize times the kernel, on the same
+    inputs."""
+    import torch
+    from unidisc_tpu_torch.ops.quant import dynamic_quantize
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = []
+    for name, mm, k in cs.dynamic_quantize_shapes(model):
+        x = cs.dynamic_quantize_input(gen, mm, k)
+        row = {"case": name, "shape_mk": [mm, k], "eager_chain": True,
+               "ms": cs.time_ms(lambda: dynamic_quantize(x)),
+               "device_ms": cs.device_ms(lambda: dynamic_quantize(x)),
+               "host_us": cs.host_us(lambda: dynamic_quantize(x))}
+        rows.append(row)
+        print(f"dynamic_quantize {json.dumps(row)}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="change")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--parts", default="gemm,quant",
+                    help="comma-separated: gemm (int8_matmul), quant "
+                         "(fused_qmm and dynamic_quantize)")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     root = Path(args.root).resolve()
     cs = load_helpers(root)
     if args.trace:
@@ -117,7 +147,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     record = {"label": args.label, "root": str(root), "card": card,
               "sms": sms}
-    for name, mm, k, n, bias in cs.int8_gemm_shapes(model):
+    for name, mm, k, n, bias in (cs.int8_gemm_shapes(model)
+                                 if "gemm" in parts else []):
         kw = dict(generator=gen, device="cuda")
         xq = torch.randint(-127, 128, (mm, k), dtype=torch.int8, **kw)
         s = torch.rand((mm, 1), **kw) * 0.02 + 1e-3
@@ -170,6 +201,13 @@ def main() -> int:
         record[name] = row
         print(f"{name} {json.dumps(row)}")
         del xq, wq, got, want
+    if "quant" in parts and not args.trace:
+        record["fused_qmm"] = cs.phase_fused_qmm(model, args.seed)
+        quant = sys.modules["unidisc_tpu_torch.ops.quant"]
+        record["dynamic_quantize"] = (
+            cs.phase_dynamic_quantize(model, args.seed)
+            if hasattr(quant, "dynamic_quantize_reference")
+            else eager_chain_rows(cs, model, args.seed))
     os.makedirs("chiprun_out", exist_ok=True)
     out = ("chiprun_out/int8_phase_trace.json" if args.trace
            else f"chiprun_out/int8_kernel_times_{args.label}.json")

@@ -24,7 +24,10 @@ import pytest
 import torch
 
 from unidisc_tpu.ops import fused_qmm as jax_fused
-from unidisc_tpu_torch.ops.fused_qmm import fused_qmm, fused_quantize
+from unidisc_tpu_torch.config import MODEL_PRESETS
+from unidisc_tpu_torch.ops.fused_qmm import (GENERIC, fused_qmm,
+                                             fused_quantize, quantize_plan,
+                                             row_plan)
 
 K, N = 256, 384
 B, L = 2, 128
@@ -119,3 +122,57 @@ def test_modality_none_modulates_every_row():
     assert all(torch.equal(u, v) for u, v in zip(q_none, q_ones))
     with pytest.raises(ValueError, match="mode"):
         fused_quantize(t(a["x"]), mode="silu")
+
+
+# --- the row kernel's width (runs on the CPU) --------------------------------
+#
+# row_plan / quantize_plan choose the register-resident row kernel of
+# fused_qmm.cu, (lanes a row, 16-byte vectors a lane), or its generic loop.
+
+
+def preset_widths():
+    """(K, dtype) of the bf16 rows the presets' int8 blocks quantize: the
+    hidden width (attn_qkv, mlp.0, attn_out, the head) and the MLP width
+    (mlp.2) where it is at most 4,096."""
+    out = set()
+    for cfg in MODEL_PRESETS.values():
+        out.add(cfg.hidden_size)
+        if cfg.mlp_ratio * cfg.hidden_size <= 4096:
+            out.add(cfg.mlp_ratio * cfg.hidden_size)
+    return sorted(out)
+
+
+@pytest.mark.parametrize("k", preset_widths())
+def test_row_plan_takes_the_row_kernel_at_the_preset_widths(k):
+    lanes, nv = row_plan(k, 2)
+    assert nv >= 1 and lanes * nv * 8 == k
+
+
+@pytest.mark.parametrize("k,itemsize,want", [
+    (768, 2, (32, 3)), (3072, 2, (32, 12)), (768, 4, (32, 6)),
+    (128, 2, (16, 1)), (64, 2, (8, 1)), (128, 4, (32, 1)), (512, 4, (32, 4)),
+    (24, 2, GENERIC), (24, 4, GENERIC), (769, 2, GENERIC), (101, 4, GENERIC),
+    (770, 2, GENERIC), (4100, 2, GENERIC), (5120, 2, GENERIC),
+])
+def test_row_plan_widths_and_the_generic_loop(k, itemsize, want):
+    assert row_plan(k, itemsize) == want
+    assert row_plan(k, itemsize, aligned=False) == GENERIC
+
+
+def test_quantize_plan_sends_unaligned_views_to_the_generic_loop():
+    k, dtype = 768, torch.bfloat16
+    x = torch.zeros((6, k), dtype=dtype)
+    norm_w = torch.ones(k)
+    table = torch.zeros((2, 6 * k), dtype=dtype)
+    shift, scale = table[:, :k], table[:, k:2 * k]   # the DIT's views
+    assert quantize_plan(x) == (32, 3)
+    assert quantize_plan(x, norm_w, shift, scale) == (32, 3)
+    # x one element into its storage: contiguous, rows 2 bytes off 16
+    x_off = torch.zeros(6 * k + 1, dtype=dtype)[1:].view(6, k)
+    assert x_off.is_contiguous() and quantize_plan(x_off) == GENERIC
+    # conditioning rows one element off, or rows an odd stride apart
+    assert quantize_plan(x, norm_w, table[:, 1:k + 1],
+                         table[:, k + 1:2 * k + 1]) == GENERIC
+    odd = torch.zeros((2, 6 * k + 1), dtype=dtype)
+    assert quantize_plan(x, norm_w, odd[:, :k], odd[:, k:2 * k]) == GENERIC
+    assert quantize_plan(x, torch.ones(k + 1)[1:]) == GENERIC

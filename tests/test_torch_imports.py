@@ -50,15 +50,20 @@ def test_training_slice_is_checked():
     assert not (ROOT / "unidisc_tpu_torch/ops/csrc/flash_bwd.cu").exists()
 
 
-def chip_smoke_sources():
-    """The "source" of every kernel in chip_smoke.py's KERNELS table."""
+def chip_smoke_kernels():
+    """chip_smoke.py's KERNELS table."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     for node in ast.walk(tree):
         if (isinstance(node, ast.Assign) and len(node.targets) == 1
                 and getattr(node.targets[0], "id", None) == "KERNELS"):
-            table = ast.literal_eval(node.value)
-            return {name: meta["source"] for name, meta in table.items()}
+            return ast.literal_eval(node.value)
     raise AssertionError("chip_smoke.py has no KERNELS table")
+
+
+def chip_smoke_sources():
+    """The "source" of every kernel in chip_smoke.py's KERNELS table."""
+    return {name: meta["source"]
+            for name, meta in chip_smoke_kernels().items()}
 
 
 CSRC = sorted(p.name for p in (ROOT / "unidisc_tpu_torch/ops/csrc")
@@ -77,6 +82,15 @@ def test_every_kernel_source_is_in_chip_smoke(source):
 def test_chip_smoke_names_an_existing_source(name):
     source = chip_smoke_sources()[name]
     assert (ROOT / source).exists() and source.endswith(f"/{name}.cu")
+
+
+def test_chip_smoke_names_the_dynamic_quantize_kernel():
+    # the per-row quantize of the int8 path is an entry of fused_qmm.cu
+    meta = chip_smoke_kernels()["dynamic_quantize"]
+    assert meta["source"] == "unidisc_tpu_torch/ops/csrc/fused_qmm.cu"
+    assert (ROOT / meta["source"]).exists()
+    assert "row_quantize_div" in (ROOT / meta["source"]).read_text()
+    assert meta["replaces"] == "unidisc_tpu/ops/quant.py:51"
 
 
 # the modules of the int8 serving slice

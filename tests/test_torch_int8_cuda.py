@@ -1,6 +1,7 @@
-"""The hand-written int8 kernels (int8_matmul.cu, fused_qmm.cu) against
-their plain versions, on the card. Skips where CUDA is absent. This file
-imports no JAX, so it also runs on a GPU machine without it:
+"""The hand-written int8 kernels (int8_matmul.cu, fused_qmm.cu with its
+two entries, fused_qmm and dynamic_quantize) against their plain versions,
+on the card. Skips where CUDA is absent. This file imports no JAX, so it
+also runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py
 
@@ -9,17 +10,23 @@ version's roundings (no FMA contraction), so fp32 outputs are bit-equal and
 bf16 outputs, one rounding of those, are equal too. The fused quantize
 kernel sums each row in another order than PyTorch's reductions: scales
 within 1e-6 relative, int8 values within one step on at most 0.1% of the
-elements.
+elements. dynamic_quantize takes no sum (amax does not depend on the
+order) and divides as its plain version does: q and s bit-equal, on the
+card and against the plain version on the CPU.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from unidisc_tpu_torch.ops import _build
-from unidisc_tpu_torch.ops.fused_qmm import (fused_quantize,
-                                             fused_quantize_reference)
+from unidisc_tpu_torch.ops.fused_qmm import (GENERIC, fused_quantize,
+                                             fused_quantize_reference,
+                                             quantize_plan)
 from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                int8_matmul_reference)
+from unidisc_tpu_torch.ops.quant import (dynamic_quantize,
+                                         dynamic_quantize_reference)
 
 SCALE_RTOL, MOVED_SHARE = 1e-6, 1e-3
 
@@ -143,16 +150,26 @@ def test_int8_matmul_takes_a_row_slice_and_rejects_bad_operands():
     want = int8_matmul_reference(xq, s, wq[v0 + 3:], ws[v0 + 3:],
                                  bias=b[v0 + 3:])
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        int8_matmul(xq[:, :40], s, wq[:, :40], ws)
+    # a K that is not a multiple of 16 (here strided views) is zero-padded
+    assert torch.equal(int8_matmul(xq[:, :40], s, wq[:, :40], ws),
+                       int8_matmul_reference(xq[:, :40], s, wq[:, :40], ws))
     with pytest.raises(TypeError):
         int8_matmul(xq.float(), s, wq, ws)
     with pytest.raises(ValueError):
         int8_matmul(xq, s, wq.t().contiguous().t(), ws)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [24, 40, 100])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_matmul_pads_k_that_is_not_a_multiple_of_16(k, out_dtype):
+    need_card()
+    check_int8(200, k, 77, out_dtype, True, seed=k)
+
+
 def quantize_case(mode, norm_type, cond, x_dtype, seed, m=300, k=768,
-                  rows_per_batch=100):
+                  rows_per_batch=100, cond_dtype=torch.bfloat16):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(generator=gen, device="cuda")
     x = (torch.randn((m, k), **kw) * 0.7).to(x_dtype)
@@ -160,14 +177,32 @@ def quantize_case(mode, norm_type, cond, x_dtype, seed, m=300, k=768,
     if mode == "adaln_norm":
         args["norm_w"] = torch.rand((k,), **kw) + 0.5
     if cond:
-        # shift and scale as strided bf16 views of one adaLN table, as the
-        # DIT hands them over
-        table = (torch.randn((m // rows_per_batch, 6 * k), **kw)
-                 * 0.2).bfloat16()
+        # shift and scale as strided views of one adaLN table, as the DIT
+        # hands them over
+        table = (torch.randn((-(-m // rows_per_batch), 6 * k), **kw)
+                 * 0.2).to(cond_dtype)
         args.update(shift=table[:, :k], scale=table[:, k:2 * k],
                     modality=torch.randint(0, 2, (m,), **kw),
                     rows_per_batch=rows_per_batch)
     return x, args
+
+
+def check_quantize(x, args, plan=None):
+    """fused_quantize against its plain version, with one launch; `plan`,
+    where given, is the row kernel's width the wrapper must pick."""
+    if plan is not None:
+        assert quantize_plan(x, args.get("norm_w"), args.get("shift"),
+                             args.get("scale")) == plan
+    before = _build.launch_counts["fused_qmm"]
+    q, s = fused_quantize(x, **args)
+    q_ref, s_ref = fused_quantize_reference(x, **args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_qmm"] == before + 1
+    assert q.dtype == torch.int8 and s.shape == (x.shape[0], 1)
+    assert ((s - s_ref).abs() <= SCALE_RTOL * s_ref.abs()).all()
+    moved = (q.int() - q_ref.int()).abs()
+    assert moved.max().item() <= 1
+    assert moved.float().mean().item() <= MOVED_SHARE
 
 
 @pytest.mark.cuda
@@ -180,13 +215,142 @@ def quantize_case(mode, norm_type, cond, x_dtype, seed, m=300, k=768,
 def test_fused_quantize_matches_reference_on_card(case, x_dtype):
     need_card()
     x, args = quantize_case(*case, x_dtype, seed=len(str(case)))
-    before = _build.launch_counts["fused_qmm"]
-    q, s = fused_quantize(x, **args)
-    q_ref, s_ref = fused_quantize_reference(x, **args)
+    check_quantize(x, args)
+
+
+QUANT_MODES = [("adaln_norm", "rms", True), ("adaln_norm", "layernorm", True),
+               ("adaln_norm", "rms", False), ("gelu", "layernorm", False),
+               ("none", "layernorm", False)]
+# (M, K, rows_per_batch): the serve path's (16 rows x 384 tokens, hidden
+# 768); narrow rows held by 8 or 16 lanes (in bf16); ragged K in the
+# generic loop; a wide row; rows_per_batch dividing M or not
+QUANT_SHAPES = {"main_path": (6144, 768, 384), "narrow_64": (96, 64, 32),
+                "narrow_128": (100, 128, 30), "ragged_k_100": (300, 100, 7),
+                "ragged_k_770": (130, 770, 7), "wide_3072": (64, 3072, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(QUANT_SHAPES))
+@pytest.mark.parametrize("case", QUANT_MODES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_fused_quantize_over_the_row_kernels_widths(shape, case, x_dtype):
+    need_card()
+    m, k, rpb = QUANT_SHAPES[shape]
+    x, args = quantize_case(*case, x_dtype, seed=m + k, m=m, k=k,
+                            rows_per_batch=rpb)
+    check_quantize(x, args, plan=GENERIC if shape.startswith("ragged")
+                   else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_fused_quantize_takes_fp32_conditioning_rows(x_dtype):
+    # an fp32 model hands fp32 adaLN rows over
+    need_card()
+    x, args = quantize_case("adaln_norm", "layernorm", True, x_dtype, seed=5,
+                            m=1000, k=768, rows_per_batch=384,
+                            cond_dtype=torch.float32)
+    check_quantize(x, args, plan=(32, 3 if x_dtype == torch.bfloat16 else 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["x", "cond"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_fused_quantize_unaligned_views_take_the_generic_loop(view, x_dtype):
+    need_card()
+    x, args = quantize_case("adaln_norm", "rms", True, x_dtype, seed=6)
+    if view == "x":
+        # contiguous, one element into its storage
+        moved = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        x = moved[1:].view_as(x).copy_(x)
+    else:
+        k = x.shape[1]
+        table = torch.zeros((args["shift"].shape[0], 6 * k + 1),
+                            dtype=torch.bfloat16, device="cuda")
+        table[:, 1:k + 1] = args["shift"]
+        table[:, k + 1:2 * k + 1] = args["scale"]
+        args.update(shift=table[:, 1:k + 1], scale=table[:, k + 1:2 * k + 1])
+    check_quantize(x, args, plan=GENERIC)
+
+
+def borderline_rows(seed=0, rows=64, k=96):
+    """Rows whose amax makes amax / 127 and amax * (1/127) differ by an
+    ulp, with values at (j + 1/2) scale (tests/test_torch_quant.py's
+    generator, which needs no JAX)."""
+    rng = np.random.RandomState(seed)
+    inv = np.float32(1.0) / np.float32(127.0)
+    out = []
+    while len(out) < rows:
+        amax = np.float32(rng.uniform(0.5, 4.0))
+        s_div = amax / np.float32(127.0)
+        if s_div == amax * inv:
+            continue
+        j = rng.randint(-126, 126, k - 1).astype(np.float32)
+        row = ((j + np.float32(0.5)) * s_div).astype(np.float32)
+        out.append(np.concatenate([[amax], row]).astype(np.float32))
+    x = np.stack(out)
+    return x * np.where(rng.rand(*x.shape) < 0.5, -1, 1).astype(np.float32)
+
+
+def check_dynamic_quantize(x_np, x_dtype):
+    """dynamic_quantize on the card against its plain version on the card
+    and on the CPU, q and s bit for bit, with one launch."""
+    x_cpu = torch.from_numpy(x_np).to(x_dtype)
+    x = x_cpu.cuda()
+    before = _build.launch_counts["dynamic_quantize"]
+    q, s = dynamic_quantize(x)
+    q_ref, s_ref = dynamic_quantize_reference(x)
     torch.cuda.synchronize()
-    assert _build.launch_counts["fused_qmm"] == before + 1
-    assert q.dtype == torch.int8 and s.shape == (x.shape[0], 1)
-    assert ((s - s_ref).abs() <= SCALE_RTOL * s_ref.abs()).all()
-    moved = (q.int() - q_ref.int()).abs()
-    assert moved.max().item() <= 1
-    assert moved.float().mean().item() <= MOVED_SHARE
+    assert _build.launch_counts["dynamic_quantize"] == before + 1
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == x.shape and s.shape == (*x.shape[:-1], 1)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    q_cpu, s_cpu = dynamic_quantize_reference(x_cpu)
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+# the serve path's three shapes (attn_out's and mlp.2's inputs at 16 rows x
+# 384 tokens, the head's at 8 x 256 image rows), ragged M, and K off the
+# row kernel's widths
+DQ_SHAPES = [(6144, 768), (6144, 3072), (2048, 768), (1, 768), (127, 768),
+             (6145, 768), (64, 24), (64, 100), (64, 770), (64, 4100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", DQ_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_dynamic_quantize_equals_its_plain_version_on_card(m, k, x_dtype):
+    need_card()
+    rng = np.random.RandomState(m + k)
+    x = rng.randn(m, k) * rng.uniform(0.01, 8.0, (m, 1))
+    check_dynamic_quantize(x.astype(np.float32), x_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_rows", "borderline_96",
+                                  "borderline_768", "tiny_96", "tiny_768",
+                                  "batched"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_dynamic_quantize_zero_and_borderline_rows_on_card(case, x_dtype):
+    need_card()
+    rng = np.random.RandomState(7)
+    if case == "zero_rows":
+        x = (rng.randn(130, 768) * 0.7).astype(np.float32)
+        x[::3] = 0.0
+        x[1, :] = 0.0
+        x[1, 5] = -2.0
+    elif case == "batched":       # (B, L, K), as qdot hands it a 3-D input
+        x = (rng.randn(4, 96, 768) * 0.7).astype(np.float32)
+    else:
+        x = borderline_rows(seed=3, rows=96, k=int(case.split("_")[1]))
+        if case.startswith("tiny"):
+            # scales below 2^-100 (down to subnormal), which the kernel
+            # lifts by 2^64 before its fast path
+            x = x * np.float32(2.0 ** -120)
+    check_dynamic_quantize(x, x_dtype)

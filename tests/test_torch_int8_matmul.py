@@ -21,7 +21,8 @@ import torch
 from unidisc_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
 from unidisc_tpu.ops.int8_matmul import xla_reference
 from unidisc_tpu_torch.ops import _build
-from unidisc_tpu_torch.ops.int8_matmul import int8_matmul
+from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                               int8_matmul_reference, pad_k)
 from unidisc_tpu_torch.ops.quant import qdot
 
 BF16_ULP = 2.0 ** -7      # relative spacing of bf16 (8-bit significand)
@@ -164,3 +165,22 @@ def test_plan_narrows_the_tile_when_the_grid_would_be_short():
     # one tile row: the narrowest width gives the most blocks
     bn, tiles, grid = plan(128, 1024, H100_SMS)
     assert (bn, tiles, grid) == (128, 8, 8)
+
+
+@pytest.mark.parametrize("k", [24, 100])
+def test_pad_k_keeps_the_product(k):
+    # the card's wrapper zero-pads K to a multiple of 16 for the kernel's
+    # tensor maps; the plain product of the padded operands is the same
+    xq, s, wq, ws, b = (torch.from_numpy(a) for a in operands(33, k, 40,
+                                                             seed=k))
+    xp, wp = pad_k(xq, wq)
+    kp = xp.shape[1]
+    assert kp % 16 == 0 and k < kp < k + 16 and wp.shape == (40, kp)
+    assert torch.equal(xp[:, :k], xq) and not xp[:, k:].any()
+    assert torch.equal(wp[:, :k], wq) and not wp[:, k:].any()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            int8_matmul_reference(xp, s, wp, ws, bias=b, out_dtype=out_dtype),
+            int8_matmul_reference(xq, s, wq, ws, bias=b, out_dtype=out_dtype))
+    # a K that is a multiple of 16 passes through untouched
+    assert all(a is b for a, b in zip(pad_k(xp, wp), (xp, wp)))

@@ -24,6 +24,8 @@ the JAX package.
   scale, mean <= 3e-3 x mean, top-1 agreement >= 99%.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,9 +39,10 @@ from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.ops import fused_qmm as jax_fused
 from unidisc_tpu.ops import quant as jax_quant
 from unidisc_tpu_torch.config import Config
-from unidisc_tpu_torch.models.dit import DIT, QLinear
+from unidisc_tpu_torch.models import dit as dit_module
+from unidisc_tpu_torch.models.dit import DIT, QLinear, randomize_
 from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
-from unidisc_tpu_torch.ops import fused_qmm, quant
+from unidisc_tpu_torch.ops import _build, fused_qmm, quant
 from test_torch_dit import random_params
 
 ROW_TOL, ROWS_AGREE = 1e-4, 0.75     # of the logits' scale; share of rows
@@ -84,6 +87,54 @@ def test_rounding_forms_match_jax_on_borderline_values():
     got_q, got_s = quant.quantize_per_channel(torch.from_numpy(x), axis=1)
     np.testing.assert_array_equal(got_q.numpy(), np.asarray(w_q).T)
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(w_s))
+
+
+def dq_input(case):
+    """x (numpy fp32) and its dtype for the dynamic_quantize cases: rows
+    at the serve path's widths, rows of zeros among them, and rows built
+    to sit on the dividing form's rounding boundaries."""
+    rng = np.random.RandomState(len(case))
+    if case == "borderline":
+        return borderline_rows(seed=5), torch.float32
+    if case == "zero_rows":
+        x = (rng.randn(16, 768) * 0.7).astype(np.float32)
+        x[[0, 5, 15]] = 0.0
+        x[7] = 0.0
+        x[7, 100] = -3.0
+        return x, torch.bfloat16
+    k, dtype = case.split("_")
+    x = (rng.randn(32, int(k[1:])) * rng.uniform(0.1, 4.0, (32, 1)))
+    return x.astype(np.float32), getattr(torch, {"bf16": "bfloat16",
+                                                 "fp32": "float32"}[dtype])
+
+
+@pytest.mark.parametrize("case", ["k768_bf16", "k768_fp32", "k3072_bf16",
+                                  "k3072_fp32", "zero_rows", "borderline"])
+def test_dynamic_quantize_reference_matches_jax(case):
+    # the kernel's plain version, bit for bit against JAX's dividing form;
+    # on a CPU tensor dynamic_quantize is that plain version
+    x, dtype = dq_input(case)
+    xt = torch.from_numpy(x).to(dtype)
+    jx = jnp.asarray(xt.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    want_q, want_s = (np.asarray(a) for a in jax_quant.dynamic_quantize(jx))
+    for fn in (quant.dynamic_quantize_reference, quant.dynamic_quantize):
+        q, s = fn(xt)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        np.testing.assert_array_equal(q.numpy(), want_q)
+        np.testing.assert_array_equal(s.numpy(), want_s)
+
+
+def test_dynamic_quantize_on_the_cpu_launches_no_kernel():
+    x = torch.from_numpy(dq_input("k768_bf16")[0])
+    w_q, w_s = quant.quantize_per_channel(torch.randn(64, 768), axis=1)
+    before = dict(_build.launch_counts)
+    q, s = quant.dynamic_quantize(x.reshape(4, 8, 768))
+    assert q.shape == (4, 8, 768) and s.shape == (4, 8, 1)
+    quant.qdot(x, w_q, w_s, backend="pallas")
+    assert dict(_build.launch_counts) == before
+    with pytest.raises(ValueError, match="device"):
+        quant.dynamic_quantize(torch.empty((2, 8), device="meta"))
 
 
 def test_zero_rows_and_channels_get_scale_one():
@@ -221,3 +272,43 @@ def test_int8_dit_tracks_the_float_model(trees):
     cos = (a * b).sum() / (a.norm() * b.norm())
     assert cos > 0.99
     assert (a.argmax(-1) == b.argmax(-1)).double().mean() > 0.9
+
+
+@pytest.mark.parametrize("rows", ["per_batch_row", "per_token"])
+def test_fused_block_path_needs_per_batch_row_adaln(rows, monkeypatch):
+    """A quant_fused block takes the fused quantize kernel only with one
+    adaLN row per batch element, as the JAX block does
+    (unidisc_tpu/models/dit.py:475-477); with per-token rows, from a
+    (B, L, cond_dim) conditioning, it keeps qdot and equals the unfused
+    block."""
+    _, tcfg = configs(**{"model.quant": "int8", "model.quant_fused": True})
+    m = tcfg.model
+    model = DIT(m, compute_dtype=torch.float32).eval()
+    randomize_(model, seed=4)
+    unfused = DIT(dataclasses.replace(m, quant_fused=False),
+                  compute_dtype=torch.float32).eval()
+    unfused.load_state_dict(model.state_dict())
+    calls = []
+    real = dit_module.fused_qmm
+    monkeypatch.setattr(dit_module, "fused_qmm",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    rng = np.random.RandomState(6)
+    l = m.length
+    x = torch.from_numpy(rng.randn(B, l, m.hidden_size).astype(np.float32))
+    shape = (B, m.cond_dim) if rows == "per_batch_row" \
+        else (B, l, m.cond_dim)
+    c = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    modality = torch.from_numpy(inputs(m)[2]).long()
+    args = (x, c, model.rope_cos[:l], model.rope_sin[:l], modality)
+    with torch.no_grad():
+        got = model.blocks[0](*args)
+        want = unfused.blocks[0](*args)
+    assert got.shape == (B, l, m.hidden_size)
+    assert bool(torch.isfinite(got).all())
+    if rows == "per_batch_row":
+        # attn_qkv and mlp.0, each behind its norm + adaLN prologue
+        assert [kw["mode"] for kw in calls] == ["adaln_norm"] * 2
+        assert all(kw["shift"].shape == (B, m.hidden_size) for kw in calls)
+    else:
+        assert calls == []
+        assert torch.equal(got, want)

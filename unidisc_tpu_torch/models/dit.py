@@ -277,7 +277,8 @@ class DDiTBlock(nn.Module):
         cfg = self.cfg
         dt = self.compute_dtype
         if cfg.time_conditioning:
-            cond = dense(c, self.adaLN_modulation, dt)[:, None, :]
+            cond = dense(c, self.adaLN_modulation, dt)
+            cond = cond[:, None, :] if cond.ndim == 2 else cond
             (shift_msa, scale_msa, gate_msa,
              shift_mlp, scale_mlp, gate_mlp) = cond.chunk(6, dim=-1)
         else:
@@ -286,8 +287,10 @@ class DDiTBlock(nn.Module):
         # fused int8 inference: the norm and the adaLN modulation of the
         # attn_qkv and mlp.0 inputs run in fp32 inside the fused quantize
         # kernel, with no bf16 rounding between them; attn_out and mlp.2
-        # keep qdot
-        fused = cfg.quant == "int8" and cfg.quant_fused
+        # keep qdot. The kernel takes one adaLN row per batch element, so
+        # per-token rows ((B, L, dim), from a (B, L, cond_dim) c) keep qdot
+        fused = (cfg.quant == "int8" and cfg.quant_fused
+                 and (shift_msa is None or shift_msa.shape[1] == 1))
         if fused:
             gate_rows = None if modality is None \
                 else modality.reshape(-1).float()

@@ -1,7 +1,15 @@
-// Fused prologue + per-row dynamic int8 quantization, for Hopper (sm_90a).
+// Per-row int8 quantization, with a fused prologue, for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernel
-//   unidisc_tpu/ops/fused_qmm.py:97  _kernel  (fused_qmm, call :216)
+// Two C entries share one row kernel:
+//
+//   fused_qmm         replaces the JAX package's Pallas TPU kernel
+//                       unidisc_tpu/ops/fused_qmm.py:97  _kernel
+//                       (fused_qmm, call :216):
+//                     a prologue, then the MULTIPLYING rounding form;
+//   row_quantize_div  the port's kernel for the JAX package's
+//                       unidisc_tpu/ops/quant.py:51  dynamic_quantize,
+//                     which has no Pallas kernel (XLA fuses it into the
+//                     jitted program): no prologue, the DIVIDING form.
 //
 // For each row x of an (M, K) activation matrix (bf16 or fp32), in fp32:
 //
@@ -12,27 +20,51 @@
 //                rows_per_batch and m = modality[row] (1 when absent);
 //              mode 2 (gelu): 0.5 x (1 + tanh(c (x + 0.044715 x^3)));
 //              mode 0: identity;
-//   quantize:  s = amax(|y|) * (1/127) (1 where amax = 0), and
-//              q = round_half_even(y * (1/s)) as int8.
+//   quantize:  multiplying form: s = amax(|y|) * (1/127), q = rint(y * (1/s));
+//              dividing form:    s = amax(|y|) / 127,     q = rint(y / s);
+//              s = 1 where amax = 0; rint rounds half to even.
 //
 // Writes q (M, K) int8 and s (M) fp32. The int8 product that follows is
-// int8_matmul.cu. Every multiply and add is a round-to-nearest intrinsic,
-// so nvcc contracts nothing into an FMA and the arithmetic is the one
-// written in the JAX oracle (fused_qmm.py:61-94); only the order of the
-// fp32 row sums differs from XLA's, which can move a value that sits on a
-// rounding boundary by one int8 step. Built without --use_fast_math.
+// int8_matmul.cu. Every multiply, add and divide is a round-to-nearest
+// intrinsic, so nvcc contracts nothing into an FMA and the arithmetic is
+// the one written in the JAX oracles (fused_qmm.py:61-94, quant.py:51-56).
+// The dividing form takes no sum, so it equals its plain version bit for
+// bit; its per-element division is a multiply by the reciprocal, which
+// rounds as the quotient does wherever it is clear of a half-integer, and
+// an exact residual test where it is not (quantize_vec, near_half). In the
+// prologue only the order of the fp32 row sums differs from XLA's, which
+// can move a value that sits on a rounding boundary by one int8 step.
+// Built without --use_fast_math.
 //
-// Design: one warp per row, 4 rows per block of 128 threads. A row is read
-// once from device memory; the passes (mean, variance, amax, quantize)
-// re-read it from L1. Unlike the TPU kernel there is no tile constraint:
-// any M, any K, any rows_per_batch.
+// Bound: bytes. x is read once, q and s written once (norm_w and the (B, K)
+// adaLN rows are a few KB, read from L2). At the int8 serve path's shapes,
+// bf16 in, at 3.35 TB/s: fused_qmm (6144, 768) rms + adaLN + modality
+// 14.3 MB, 4.26 us; dynamic_quantize (6144, 768) 14.2 MB, 4.23 us,
+// (6144, 3072) 56.6 MB, 16.9 us, (2048, 768) 4.7 MB, 1.41 us. The prologue
+// is ~15 fp32 operations an element, far under the card's rate.
 //
-// Bound: at the main path's shape (M 6144, K 768, bf16 in) it moves 9.4 MB
-// in and 4.7 MB out, 4.2 us at 3.35 TB/s, and does ~20 fp32 operations per
-// element: bound by bytes.
+// Design: register-resident rows. LANES lanes hold a row (a warp, or a
+// quarter or half warp for narrow rows); each lane issues all of its
+// NV 16-byte loads of the row up front (3 at K 768 bf16, 12 at K 3072
+// bf16, 6 at K 768 fp32), so a warp keeps the whole row in flight. The row
+// stays in registers: the mean, variance or sum of squares and the amax
+// are taken from them, each with one shuffle reduction, and the prologue
+// runs once an element. norm_w and the shift and scale rows are read as
+// 16-byte vectors in the same column order, the modality gate once a row.
+// Values are rounded to integers by an add (ROUND_MAGIC), not by the
+// conversion instructions, and the dividing form divides nothing an
+// element. int8 goes out as one 8-byte store per 8 bf16 (4 bytes per 4
+// fp32), so a warp writes contiguous 256-byte runs; the scale once a row.
+// The vectors-per-lane count is a template parameter; the wrapper picks it
+// (ops/fused_qmm.py row_plan). Any other K, or an operand that is not
+// 16-byte aligned, takes the generic loop below: one warp a row, scalar
+// loads, the row walked from L1 once per pass. No TMA or wgmma: there is
+// no product here.
 //
-// What this simple design leaves on the table: 2-byte scalar loads (no
-// 16-byte vector loads); the per-row passes are serial within a warp.
+// ptxas -v (nvcc 12.9, sm_90a), 72 instantiations, none spills: at K 768
+// bf16, fused_qmm 56 registers (bf16 adaLN rows), dynamic_quantize 60; at
+// K 3072 bf16, dynamic_quantize 167 (three blocks an SM); the widest,
+// K 4096 bf16, 254-255.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,13 +73,14 @@
 
 namespace {
 
-constexpr int ROWS = 4;                 // rows (warps) per block
-constexpr int THREADS = 32 * ROWS;
+constexpr int WARPS = 4;                // warps per block
+constexpr int THREADS = 32 * WARPS;
 constexpr float INV127 = 1.0f / 127.0f;
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2 / pi)
 
 enum Mode { kNone = 0, kAdalnNorm = 1, kGelu = 2 };
 enum NormType { kLayerNorm = 0, kRms = 1 };
+enum Form { kMultiply = 0, kDivide = 1 };
 
 struct Params {
   const void* x;         // (M, K) bf16 or fp32
@@ -66,38 +99,312 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// sum / max over the aligned group of LANES lanes that holds a row
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(~0u, v, o));
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(~0u, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <int LANES>
+__device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
   return v;
 }
 
-template <typename TX, typename TC>
-__global__ void __launch_bounds__(THREADS) fused_qmm_kernel(const Params p) {
+// one 32-bit word of T values as floats (bf16 is the top half of an fp32)
+template <typename T>
+__device__ __forceinline__ void unpack_word(uint32_t w, float* out);
+template <>
+__device__ __forceinline__ void unpack_word<__nv_bfloat16>(uint32_t w,
+                                                           float* out) {
+  out[0] = __uint_as_float(w << 16);
+  out[1] = __uint_as_float(w & 0xffff0000u);
+}
+template <>
+__device__ __forceinline__ void unpack_word<float>(uint32_t w, float* out) {
+  out[0] = __uint_as_float(w);
+}
+
+// N consecutive T values at p as floats: 16-byte loads, or one 8-byte load
+// for 8 bytes. p is aligned to the load's width.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  constexpr int WORDS = N * static_cast<int>(sizeof(T)) / 4;
+  constexpr int PER_WORD = 4 / static_cast<int>(sizeof(T));
+  if constexpr (WORDS % 4 == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int c = 0; c < WORDS / 4; ++c) {
+      const uint4 u = __ldg(v + c);
+      unpack_word<T>(u.x, out + (4 * c + 0) * PER_WORD);
+      unpack_word<T>(u.y, out + (4 * c + 1) * PER_WORD);
+      unpack_word<T>(u.z, out + (4 * c + 2) * PER_WORD);
+      unpack_word<T>(u.w, out + (4 * c + 3) * PER_WORD);
+    }
+  } else {
+    static_assert(WORDS == 2, "load_vec: 8 or a multiple of 16 bytes");
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack_word<T>(u.x, out);
+    unpack_word<T>(u.y, out + PER_WORD);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack4(const int* v) {
+  return (static_cast<uint32_t>(v[0]) & 0xffu)
+       | ((static_cast<uint32_t>(v[1]) & 0xffu) << 8)
+       | ((static_cast<uint32_t>(v[2]) & 0xffu) << 16)
+       | (static_cast<uint32_t>(v[3]) << 24);
+}
+
+// V int8 values (4 or 8) to p in one store
+template <int V>
+__device__ __forceinline__ void store_q(int8_t* p, const int* v) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack4(v), pack4(v + 4));
+  } else {
+    static_assert(V == 4, "store_q: 4 or 8 values");
+    *reinterpret_cast<uint32_t*>(p) = pack4(v);
+  }
+}
+
+__device__ __forceinline__ float gelu(float v) {
+  const float x3 = __fmul_rn(__fmul_rn(v, v), v);
+  const float inner = __fmul_rn(GELU_C, __fadd_rn(v, __fmul_rn(0.044715f, x3)));
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, tanhf(inner)));
+}
+
+// the modulated, normalised value of one element
+__device__ __forceinline__ float adaln(float v, bool layernorm, float mu,
+                                       float rs, float w, bool cond, float sh,
+                                       float sc, float m) {
+  float y = layernorm ? __fmul_rn(__fsub_rn(v, mu), rs) : __fmul_rn(v, rs);
+  y = __fmul_rn(y, w);
+  if (cond) {
+    y = __fadd_rn(__fmul_rn(y, __fadd_rn(1.0f, __fmul_rn(sc, m))),
+                  __fmul_rn(sh, m));
+  }
+  return y;
+}
+
+template <int FORM>
+__device__ __forceinline__ float row_scale(float amax) {
+  if constexpr (FORM == kMultiply) {
+    return amax > 0.0f ? __fmul_rn(amax, INV127) : 1.0f;
+  } else {
+    return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
+  }
+}
+
+// 1 / s: the multiplying form's reciprocal, and the dividing form's for its
+// fast path (both correctly rounded)
+__device__ __forceinline__ float row_inverse(float s) { return __frcp_rn(s); }
+
+// rint (half to even) of |t| < 2^22 without the card's conversion
+// instructions (16 results a clock an SM, against 128 for an add): t + 1.5
+// 2^23 lands where the spacing of floats is 1, so the add rounds t to an
+// integer, held in the low bits of the sum, which is ROUND_BITS + rint(t).
+constexpr float ROUND_MAGIC = 12582912.0f;  // 1.5 * 2^23
+constexpr int ROUND_BITS = 0x4B400000;       // its bits
+// the dividing form's fast path holds where t is this far from a
+// half-integer: 0.5 - 2^-14
+constexpr float CLEAR_OF_HALF = 0.49993896484375f;
+// a dividing-form row whose scale is under TINY_SCALE is scaled by
+// TINY_LIFT, exactly (y / s is unchanged), so that 1 / s and the residuals
+// of near_half stay normal
+constexpr float TINY_SCALE = 0x1p-100f;
+constexpr float TINY_LIFT = 0x1p64f;
+
+// rint(y / s) for a y whose t = y * (1 / s) lies within 2^-14 of a
+// half-integer h = lo + 1/2 (n = rint(t), as an int and a float). Then
+// |y / s - h| < 2^-13, so r = y - h s spans at most 13 bits of s's grid and
+// the FMA computes it exactly: its sign says on which side of h the
+// quotient lies. The quotient rounds to h itself, and then to h's even
+// neighbour, where |r| < (ulp(h) / 2) s (exact: a power of two times s); it
+// is never exactly a midpoint of floats (a quotient of two floats is not),
+// so there is no tie to break. Needs s >= TINY_SCALE.
+__device__ __forceinline__ int near_half(float y, float s, float t, int n,
+                                         float nf) {
+  const bool below = __fsub_rn(t, nf) < 0.0f;
+  const int lo = below ? n - 1 : n;
+  const float h = below ? __fsub_rn(nf, 0.5f) : __fadd_rn(nf, 0.5f);
+  const float r = __fmaf_rn(-h, s, y);
+  const float half_ulp =
+      __int_as_float((__float_as_int(h) & 0x7f800000) - (24 << 23));
+  const bool on_h = fabsf(r) < __fmul_rn(half_ulp, s);
+  return lo + ((on_h ? (lo & 1) != 0 : r > 0.0f) ? 1 : 0);
+}
+
+// V values of a row quantized in its rounding form into q: s the row's
+// scale (lifted for the dividing form, see TINY_SCALE) and inv =
+// row_inverse(s).
+//
+// The dividing form's q = rint(y / s) equals rint(__fdiv_rn(y, s)) without
+// a division an element: with |y| <= amax, |y / s| < 128, so t = y * inv
+// (two roundings of 2^-24) is within 2^-16 of y / s, and within 2^-15 of
+// its rounded quotient (half an ulp, <= 2^-18, below 128). Where t is more
+// than 2^-14 from every half-integer, the rounded quotient lies in the same
+// interval between half-integers and rounds to the same integer as t. A
+// vector with a value nearer than that (about one value in 8,000 of random
+// data) goes through near_half.
+template <int FORM, int V>
+__device__ __forceinline__ void quantize_vec(const float* y, float s,
+                                            float inv, int* q) {
+  bool clear = true;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float t = __fmul_rn(y[i], inv);
+    const float u = __fadd_rn(t, ROUND_MAGIC);
+    q[i] = __float_as_int(u) - ROUND_BITS;
+    if constexpr (FORM == kDivide) {
+      clear &= fabsf(__fsub_rn(t, __fsub_rn(u, ROUND_MAGIC))) < CLEAR_OF_HALF;
+    }
+  }
+  if (FORM == kDivide && !clear) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float t = __fmul_rn(y[i], inv);
+      const float u = __fadd_rn(t, ROUND_MAGIC);
+      const float nf = __fsub_rn(u, ROUND_MAGIC);
+      if (!(fabsf(__fsub_rn(t, nf)) < CLEAR_OF_HALF)) {
+        q[i] = near_half(y[i], s, t, __float_as_int(u) - ROUND_BITS, nf);
+      }
+    }
+  }
+}
+
+// the dividing form's lift of a row of tiny scale (1 for the other rows and
+// for the multiplying form)
+template <int FORM>
+__device__ __forceinline__ float tiny_lift(float s) {
+  return FORM == kDivide && s < TINY_SCALE ? TINY_LIFT : 1.0f;
+}
+
+// The register-resident row kernel: LANES lanes a row, NV 16-byte vectors
+// a lane, K = NV * LANES * (16 / sizeof(TX)). Lane l of a row holds the
+// vectors l, l + LANES, l + 2 LANES, ... of it.
+template <typename TX, typename TC, int LANES, int NV, int FORM>
+__global__ void __launch_bounds__(THREADS) row_kernel(const Params p) {
+  constexpr int V = 16 / static_cast<int>(sizeof(TX));  // values a vector
+  constexpr int E = NV * V;                             // values a lane
+  constexpr int K = NV * LANES * V;
+  constexpr int ROWS_PER_WARP = 32 / LANES;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS + (threadIdx.x >> 5);
+  const int sub = lane % LANES;
+  const int first = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * ROWS_PER_WARP;
+  const int r = first + lane / LANES;
+  // a group past the last row works on the last row (every lane takes part
+  // in the shuffles) and stores nothing
+  const bool valid = r < p.M;
+  const int row = valid ? r : p.M - 1;
+
+  const TX* x = static_cast<const TX*>(p.x) + static_cast<long long>(row) * K;
+  float y[E];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) load_vec<TX, V>(x + (v * LANES + sub) * V, y + v * V);
+
+  // the dividing form (dynamic_quantize) has no prologue
+  if (FORM == kMultiply && p.mode == kAdalnNorm) {
+    const bool layernorm = p.norm_type == kLayerNorm;
+    float mu = 0.0f, rs;
+    if (layernorm) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) sum = __fadd_rn(sum, y[e]);
+      mu = __fdiv_rn(group_sum<LANES>(sum), static_cast<float>(K));
+      float sq = 0.0f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = __fsub_rn(y[e], mu);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+      const float var = __fdiv_rn(group_sum<LANES>(sq), static_cast<float>(K));
+      rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
+    } else {
+      float sq = 0.0f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) sq = __fadd_rn(sq, __fmul_rn(y[e], y[e]));
+      const float ms = __fdiv_rn(group_sum<LANES>(sq), static_cast<float>(K));
+      rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ms, 1e-6f)));
+    }
+    const bool cond = p.shift != nullptr;
+    const long long cond_off =
+        cond ? static_cast<long long>(row / p.rows_per_batch) * p.cond_stride : 0;
+    const TC* sh = cond ? static_cast<const TC*>(p.shift) + cond_off : nullptr;
+    const TC* sc = cond ? static_cast<const TC*>(p.scale) + cond_off : nullptr;
+    const float m = p.modality != nullptr ? p.modality[row] : 1.0f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int col = (v * LANES + sub) * V;
+      float w[V], shv[V], scv[V];
+      load_vec<float, V>(p.norm_w + col, w);
+      if (cond) {
+        load_vec<TC, V>(sh + col, shv);
+        load_vec<TC, V>(sc + col, scv);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        y[v * V + i] = adaln(y[v * V + i], layernorm, mu, rs, w[i], cond,
+                             cond ? shv[i] : 0.0f, cond ? scv[i] : 0.0f, m);
+      }
+    }
+  } else if (FORM == kMultiply && p.mode == kGelu) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) y[e] = gelu(y[e]);
+  }
+
+  float amax = 0.0f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(y[e]));
+  amax = group_max<LANES>(amax);
+  const float s = row_scale<FORM>(amax);
+  const float lift = tiny_lift<FORM>(s);
+  const float s_lifted = __fmul_rn(s, lift);
+  const float inv = row_inverse(s_lifted);
+  if (lift != 1.0f) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) y[e] = __fmul_rn(y[e], lift);
+  }
+  if (!valid) return;
+  int8_t* q = p.q + static_cast<long long>(row) * K;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    int qv[V];
+    quantize_vec<FORM, V>(y + v * V, s_lifted, inv, qv);
+    store_q<V>(q + (v * LANES + sub) * V, qv);
+  }
+  if (sub == 0) p.s[row] = s;
+}
+
+// The generic loop: one warp a row, any K, any alignment. The row is read
+// from device memory once; the passes (mean, variance, amax, quantize)
+// re-read it from L1 and apply the prologue where they need it.
+template <typename TX, typename TC, int FORM>
+__global__ void __launch_bounds__(THREADS) generic_kernel(const Params p) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= p.M) return;
   const TX* x = static_cast<const TX*>(p.x) + static_cast<long long>(row) * p.K;
   const float kf = static_cast<float>(p.K);
+  const bool layernorm = p.norm_type == kLayerNorm;
 
+  const int mode = FORM == kMultiply ? p.mode : kNone;
   float mu = 0.0f, rs = 1.0f;
-  if (p.mode == kAdalnNorm) {
-    if (p.norm_type == kLayerNorm) {
+  if (mode == kAdalnNorm) {
+    if (layernorm) {
       float sum = 0.0f;
       for (int j = lane; j < p.K; j += 32) sum = __fadd_rn(sum, to_float(x[j]));
-      mu = __fdiv_rn(warp_sum(sum), kf);
+      mu = __fdiv_rn(group_sum<32>(sum), kf);
       float sq = 0.0f;
       for (int j = lane; j < p.K; j += 32) {
         const float d = __fsub_rn(to_float(x[j]), mu);
         sq = __fadd_rn(sq, __fmul_rn(d, d));
       }
-      const float var = __fdiv_rn(warp_sum(sq), kf);
+      const float var = __fdiv_rn(group_sum<32>(sq), kf);
       rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
     } else {
       float sq = 0.0f;
@@ -105,70 +412,92 @@ __global__ void __launch_bounds__(THREADS) fused_qmm_kernel(const Params p) {
         const float v = to_float(x[j]);
         sq = __fadd_rn(sq, __fmul_rn(v, v));
       }
-      const float ms = __fdiv_rn(warp_sum(sq), kf);
+      const float ms = __fdiv_rn(group_sum<32>(sq), kf);
       rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(ms, 1e-6f)));
     }
   }
   const bool cond = p.shift != nullptr;
-  const long long cond_off = cond
-      ? static_cast<long long>(row / p.rows_per_batch) * p.cond_stride : 0;
+  const long long cond_off =
+      cond ? static_cast<long long>(row / p.rows_per_batch) * p.cond_stride : 0;
   const TC* sh = cond ? static_cast<const TC*>(p.shift) + cond_off : nullptr;
   const TC* sc = cond ? static_cast<const TC*>(p.scale) + cond_off : nullptr;
   const float m = p.modality != nullptr ? p.modality[row] : 1.0f;
 
   auto prologue = [&](int j) -> float {
     const float v = to_float(x[j]);
-    if (p.mode == kAdalnNorm) {
-      float y = p.norm_type == kLayerNorm ? __fmul_rn(__fsub_rn(v, mu), rs)
-                                          : __fmul_rn(v, rs);
-      y = __fmul_rn(y, p.norm_w[j]);
-      if (cond) {
-        y = __fadd_rn(
-            __fmul_rn(y, __fadd_rn(1.0f, __fmul_rn(to_float(sc[j]), m))),
-            __fmul_rn(to_float(sh[j]), m));
-      }
-      return y;
+    if (mode == kAdalnNorm) {
+      return adaln(v, layernorm, mu, rs, p.norm_w[j], cond,
+                   cond ? to_float(sh[j]) : 0.0f,
+                   cond ? to_float(sc[j]) : 0.0f, m);
     }
-    if (p.mode == kGelu) {
-      const float x3 = __fmul_rn(__fmul_rn(v, v), v);
-      const float inner =
-          __fmul_rn(GELU_C, __fadd_rn(v, __fmul_rn(0.044715f, x3)));
-      return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, tanhf(inner)));
-    }
-    return v;
+    return mode == kGelu ? gelu(v) : v;
   };
 
   float amax = 0.0f;
   for (int j = lane; j < p.K; j += 32) amax = fmaxf(amax, fabsf(prologue(j)));
-  amax = warp_max(amax);
-  const float s = amax > 0.0f ? __fmul_rn(amax, INV127) : 1.0f;
-  const float inv = __fdiv_rn(1.0f, s);
+  const float s = row_scale<FORM>(group_max<32>(amax));
+  const float lift = tiny_lift<FORM>(s);
+  const float s_lifted = __fmul_rn(s, lift);
+  const float inv = row_inverse(s_lifted);
   int8_t* q = p.q + static_cast<long long>(row) * p.K;
   for (int j = lane; j < p.K; j += 32) {
-    q[j] = static_cast<int8_t>(static_cast<int>(rintf(__fmul_rn(prologue(j), inv))));
+    const float y = __fmul_rn(prologue(j), lift);
+    int qj;
+    quantize_vec<FORM, 1>(&y, s_lifted, inv, &qj);
+    q[j] = static_cast<int8_t>(qj);
   }
   if (lane == 0) p.s[row] = s;
 }
 
-template <typename TX, typename TC>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename TX, typename TC, int LANES, int NV, int FORM>
+cudaError_t launch_rows(const Params& p, cudaStream_t stream) {
+  if (p.K != NV * LANES * (16 / static_cast<int>(sizeof(TX)))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int ROWS = WARPS * (32 / LANES);
   const dim3 grid((p.M + ROWS - 1) / ROWS);
-  fused_qmm_kernel<TX, TC><<<grid, THREADS, 0, stream>>>(p);
+  row_kernel<TX, TC, LANES, NV, FORM><<<grid, THREADS, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// (lanes, nv) as the wrapper's row_plan gives them; (32, 0) is the generic
+// loop
+template <typename TX, typename TC, int FORM>
+cudaError_t launch(const Params& p, int lanes, int nv, cudaStream_t stream) {
+  switch (lanes * 100 + nv) {
+    case 3200: {
+      const dim3 grid((p.M + WARPS - 1) / WARPS);
+      generic_kernel<TX, TC, FORM><<<grid, THREADS, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
+    case 801: return launch_rows<TX, TC, 8, 1, FORM>(p, stream);
+    case 1601: return launch_rows<TX, TC, 16, 1, FORM>(p, stream);
+    case 3201: return launch_rows<TX, TC, 32, 1, FORM>(p, stream);
+    case 3202: return launch_rows<TX, TC, 32, 2, FORM>(p, stream);
+    case 3203: return launch_rows<TX, TC, 32, 3, FORM>(p, stream);
+    case 3204: return launch_rows<TX, TC, 32, 4, FORM>(p, stream);
+    case 3205: return launch_rows<TX, TC, 32, 5, FORM>(p, stream);
+    case 3206: return launch_rows<TX, TC, 32, 6, FORM>(p, stream);
+    case 3208: return launch_rows<TX, TC, 32, 8, FORM>(p, stream);
+    case 3212: return launch_rows<TX, TC, 32, 12, FORM>(p, stream);
+    case 3216: return launch_rows<TX, TC, 32, 16, FORM>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). Shapes and dtypes are checked by
-// the Python wrapper. x_bf16 / cond_bf16 select bf16 (1) or fp32 (0)
-// activations and conditioning rows.
+// Returns a cudaError_t (0 on success). Shapes, dtypes and alignment are
+// checked by the Python wrapper. x_bf16 / cond_bf16 select bf16 (1) or
+// fp32 (0) activations and conditioning rows; (lanes, nv) the row kernel's
+// width, or (32, 0) for the generic loop.
 int fused_qmm(const void* x, const void* norm_w, const void* shift,
               const void* scale, const void* modality, void* q, void* s,
               long long cond_stride, int M, int K, int rows_per_batch,
-              int mode, int norm_type, int x_bf16, int cond_bf16,
-              void* stream) {
+              int mode, int norm_type, int lanes, int nv, int x_bf16,
+              int cond_bf16, void* stream) {
   Params p;
   p.x = x;
   p.norm_w = static_cast<const float*>(norm_w);
@@ -189,12 +518,35 @@ int fused_qmm(const void* x, const void* norm_w, const void* shift,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (x_bf16) {
-    return static_cast<int>(cond_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(p, st)
-                                      : launch<__nv_bfloat16, float>(p, st));
+    err = cond_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kMultiply>(p, lanes, nv, st)
+                    : launch<__nv_bfloat16, float, kMultiply>(p, lanes, nv, st);
+  } else {
+    err = cond_bf16 ? launch<float, __nv_bfloat16, kMultiply>(p, lanes, nv, st)
+                    : launch<float, float, kMultiply>(p, lanes, nv, st);
   }
-  return static_cast<int>(cond_bf16 ? launch<float, __nv_bfloat16>(p, st)
-                                    : launch<float, float>(p, st));
+  return static_cast<int>(err);
+}
+
+// dynamic_quantize: x (M, K) -> q (M, K) int8, s (M) fp32 in the dividing
+// form, no prologue.
+int row_quantize_div(const void* x, void* q, void* s, int M, int K, int lanes,
+                     int nv, int x_bf16, void* stream) {
+  Params p = {};
+  p.x = x;
+  p.q = static_cast<int8_t*>(q);
+  p.s = static_cast<float*>(s);
+  p.M = M;
+  p.K = K;
+  p.rows_per_batch = 1;
+  p.mode = kNone;
+  p.norm_type = kLayerNorm;
+  if (M < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kDivide>(p, lanes, nv, st)
+             : launch<float, float, kDivide>(p, lanes, nv, st));
 }
 
 const char* fused_qmm_error_string(int err) {

@@ -15,6 +15,12 @@ On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 ``fused_qmm`` adds the product: through the int8 kernel
 (``ops/int8_matmul.py``) under ``backend="pallas"``, through its plain
 version otherwise.
+
+The same source carries the kernel of ``ops/quant.py::dynamic_quantize``
+(``_dynamic_quantize_cuda``, counted as "dynamic_quantize"): the row
+kernel with no prologue, in the dividing form. ``row_plan`` and
+``quantize_plan`` choose the row kernel's width, or its generic loop, from
+the row's width and the operands' alignment.
 """
 
 from __future__ import annotations
@@ -28,10 +34,18 @@ from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.int8_matmul import int8_product
 
 KERNEL = "fused_qmm"
+DQ_KERNEL = "dynamic_quantize"
 MODES = {"none": 0, "adaln_norm": 1, "gelu": 2}
 NORM_TYPES = {"layernorm": 0, "rms": 1}
 X_DTYPES = (torch.bfloat16, torch.float32)
 GELU_C = 0.7978845608028654     # sqrt(2 / pi)
+# the row kernel's widths (fused_qmm.cu): a row of 8 or 16 16-byte vectors
+# takes that many lanes, one vector each; a row of 32 n vectors takes a
+# warp, n vectors a lane, for each n in LANE_VECTORS
+VECTOR_BYTES = 16
+NARROW_LANES = (8, 16)
+LANE_VECTORS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
+GENERIC = (32, 0)               # the generic loop: one warp a row
 
 
 def _prologue(x, mode, norm_type, norm_w, shift, scale, mod):
@@ -139,6 +153,41 @@ def fused_qmm(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     return matmul(y_q, s, w_q, w_scale, bias=bias, out_dtype=out_dtype)
 
 
+def row_plan(k: int, itemsize: int, aligned: bool = True
+             ) -> Tuple[int, int]:
+    """The row kernel's width for rows of `k` elements of `itemsize` bytes:
+    (lanes a row, 16-byte vectors a lane), or GENERIC, the generic loop,
+    for a row the kernel is not built for or operands that are not
+    16-byte aligned."""
+    if not aligned or (k * itemsize) % VECTOR_BYTES:
+        return GENERIC
+    vectors = k * itemsize // VECTOR_BYTES
+    if vectors in NARROW_LANES:
+        return vectors, 1
+    if vectors % 32 == 0 and vectors // 32 in LANE_VECTORS:
+        return 32, vectors // 32
+    return GENERIC
+
+
+def _aligned(t: Optional[torch.Tensor]) -> bool:
+    """t (None, or a matrix or vector with a contiguous last dimension)
+    starts on a 16-byte boundary and each of its rows does too."""
+    if t is None:
+        return True
+    rows_aligned = t.ndim < 2 or (t.stride(0) * t.element_size()) \
+        % VECTOR_BYTES == 0
+    return t.data_ptr() % VECTOR_BYTES == 0 and rows_aligned
+
+
+def quantize_plan(x: torch.Tensor, norm_w: Optional[torch.Tensor] = None,
+                  shift: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """``row_plan`` for the operands of one launch: x (M, K) contiguous,
+    and the fp32 norm_w and the shift and scale rows the kernel reads."""
+    aligned = all(_aligned(t) for t in (x, norm_w, shift, scale))
+    return row_plan(x.shape[-1], x.element_size(), aligned)
+
+
 def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
                          modality, rows_per_batch):
     if x.dtype not in X_DTYPES:
@@ -192,6 +241,7 @@ def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
         shift = scale = modality = None
     q = torch.empty((m_rows, k), dtype=torch.int8, device=dev)
     s = torch.empty((m_rows, 1), dtype=torch.float32, device=dev)
+    lanes, nv = quantize_plan(x, norm_w, shift, scale)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = _library()
     with torch.cuda.device(dev):
@@ -199,13 +249,45 @@ def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
         err = lib.fused_qmm(
             x.data_ptr(), ptr(norm_w), ptr(shift), ptr(scale), ptr(modality),
             q.data_ptr(), s.data_ptr(), stride, m_rows, k, rpb, MODES[mode],
-            NORM_TYPES[norm_type], int(x.dtype == torch.bfloat16), cond_bf16,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"fused_qmm launch failed: "
-                           f"{lib.fused_qmm_error_string(err).decode()}")
+            NORM_TYPES[norm_type], lanes, nv, int(x.dtype == torch.bfloat16),
+            cond_bf16, stream)
+    _check(lib, err, KERNEL)
     _build.launch_counts[KERNEL] += 1
     return q, s
+
+
+def _dynamic_quantize_cuda(x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops/quant.py::dynamic_quantize`` through the row kernel: x (M, K)
+    bf16 or fp32 with contiguous rows -> (q (M, K) int8, s (M, 1) fp32),
+    s = amax / 127 and q = round(x / s), as its plain version."""
+    if x.dtype not in X_DTYPES:
+        raise TypeError(f"dynamic_quantize: x must be one of {X_DTYPES}, "
+                        f"got {x.dtype}")
+    if x.ndim != 2 or not x.is_contiguous() or min(x.shape) < 1:
+        raise ValueError(f"dynamic_quantize: x must be a contiguous (M, K) "
+                         f"matrix with M, K >= 1, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    m_rows, k = x.shape
+    dev = x.device
+    q = torch.empty((m_rows, k), dtype=torch.int8, device=dev)
+    s = torch.empty((m_rows, 1), dtype=torch.float32, device=dev)
+    lanes, nv = quantize_plan(x)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.row_quantize_div(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                   m_rows, k, lanes, nv,
+                                   int(x.dtype == torch.bfloat16), stream)
+    _check(lib, err, DQ_KERNEL)
+    _build.launch_counts[DQ_KERNEL] += 1
+    return q, s
+
+
+def _check(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.fused_qmm_error_string(err).decode()}")
 
 
 def _library() -> ctypes.CDLL:
@@ -213,8 +295,10 @@ def _library() -> ctypes.CDLL:
     if lib.fused_qmm.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fused_qmm.argtypes = ([ptr] * 7 + [ctypes.c_longlong]
-                                  + [i32] * 7 + [ptr])
+                                  + [i32] * 9 + [ptr])
         lib.fused_qmm.restype = i32
+        lib.row_quantize_div.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.row_quantize_div.restype = i32
         lib.fused_qmm_error_string.argtypes = [i32]
         lib.fused_qmm_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,6 +20,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from unidisc_tpu_torch.ops import _build
 
@@ -62,9 +63,9 @@ def int8_matmul(x_q: torch.Tensor, s: torch.Tensor, w_q: torch.Tensor,
     """(x_q int8 (M, K), s fp32 (M, 1)) x (w_q int8 (N, K), w_scale (N,))
     -> out_dtype (M, N), the epilogue fused.
 
-    On the card: K must be a multiple of 16 (the TMA tensor maps' row
-    strides are multiples of 16 bytes), both int8 operands K-contiguous and
-    16-byte aligned; any M and N."""
+    On the card: both int8 operands K-contiguous and 16-byte aligned, any
+    M, N and K (a K that is not a multiple of 16, which the TMA tensor
+    maps' row strides need, is zero-padded: ``pad_k``)."""
     if x_q.device.type == "cpu":
         return int8_matmul_reference(x_q, s, w_q, w_scale, bias=bias,
                                      out_dtype=out_dtype)
@@ -102,6 +103,17 @@ def plan(m: int, n: int, sms: int) -> Tuple[int, int, int]:
     return bn, tiles, min(tiles, sms)
 
 
+def pad_k(x_q: torch.Tensor, w_q: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_q (M, K) and w_q (N, K) with K zero-padded to the next multiple
+    of 16; the operands themselves where K is one already. The zeros add
+    nothing to the int32 sums, so the product is the same."""
+    pad = -x_q.shape[1] % 16
+    if pad == 0:
+        return x_q, w_q
+    return F.pad(x_q, (0, pad)), F.pad(w_q, (0, pad))
+
+
 def _aligned_rows(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and x.stride(0) == x.shape[1] \
         and x.data_ptr() % 16 == 0
@@ -116,10 +128,9 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype, block_n=None):
     if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[1]:
         raise ValueError(f"int8_matmul: shapes x_q {tuple(x_q.shape)} and "
                          f"w_q {tuple(w_q.shape)} (N, K) disagree")
+    x_q, w_q = pad_k(x_q, w_q)
     m, k = x_q.shape
     n = w_q.shape[0]
-    if k % 16:
-        raise ValueError(f"int8_matmul: K = {k} must be a multiple of 16")
     if m < 1 or n < 1 or -(-m // BLOCK_M) * -(-n // min(BLOCK_NS)) \
             > MAX_TILES:
         raise ValueError(f"int8_matmul: unsupported M = {m}, N = {n}")

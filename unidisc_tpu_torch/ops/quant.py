@@ -14,6 +14,11 @@ module does; the fused prologue (``ops/fused_qmm.py``) multiplies by the
 reciprocals instead, as its JAX counterpart does. Rounding is half to even
 (``torch.round``), as ``jnp.round``.
 
+``dynamic_quantize`` runs on a CUDA tensor through the row kernel of
+``ops/csrc/fused_qmm.cu`` in the dividing form (one launch, counted as
+"dynamic_quantize", whatever the product's backend), on a CPU tensor
+through ``dynamic_quantize_reference``, its plain version.
+
 The int8 KV cache (``quantize_kv``, ``int8_kv_attention``) and the OpenELM
 conversion (``quantize_elm_params``) come with the port's KV-cache and ELM
 slices.
@@ -27,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from unidisc_tpu_torch.ops.fused_qmm import _dynamic_quantize_cuda
 from unidisc_tpu_torch.ops.int8_matmul import int8_product
 
 # the DIT linears that quantize_dit_params converts: the four trunk
@@ -44,18 +50,39 @@ def quantize_per_channel(w: torch.Tensor, axis: int = 1
     shape, scale fp32 with `axis` reduced)."""
     w32 = w.float()
     amax = w32.abs().amax(dim=axis)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    scale = torch.where(amax > 0, _div127(amax), 1.0)
     w_q = torch.round(w32 / scale.unsqueeze(axis)).to(torch.int8)
     return w_q, scale
 
 
-def dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row (last dimension) symmetric int8 activation quantization:
-    (x_q int8, scale fp32 (..., 1))."""
+def _div127(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127 in fp32, divided on every device. The divisor is a
+    tensor on amax's device: PyTorch's CUDA division by a CPU scalar
+    multiplies by the scalar's reciprocal, the fused prologue's form,
+    which differs from the quotient by an ulp on some values."""
+    return amax / torch.full_like(amax, 127.0)
+
+
+def dynamic_quantize_reference(x: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: per-row (last dimension) symmetric int8
+    activation quantization, (x_q int8, scale fp32 (..., 1))."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    scale = torch.where(amax > 0, _div127(amax), 1.0)
     return torch.round(x32 / scale).to(torch.int8), scale
+
+
+def dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (last dimension) symmetric int8 activation quantization:
+    (x_q int8, scale fp32 (..., 1)). On the card x is bf16 or fp32 with
+    contiguous rows."""
+    if x.device.type == "cpu":
+        return dynamic_quantize_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"dynamic_quantize: unsupported device {x.device}")
+    x_q, scale = _dynamic_quantize_cuda(x.reshape(-1, x.shape[-1]))
+    return x_q.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
 
 
 def qdot(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,

@@ -12,8 +12,11 @@ measures:
     CUDA events around it (device idle gaps included), and the host time
     to enqueue it without waiting; when the two are equal the host, not
     the card, sets the pace;
-  * one served batch under ``torch.profiler``: device time by kernel name
-    and the device's busy share of the batch's wall time.
+  * the device operations (kernels, copies, fills) one forward launches,
+    counted by ``torch.profiler``;
+  * one served batch under ``torch.profiler``: device time by kernel name,
+    the device operations per denoise step, and the device's busy share of
+    the batch's wall time.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -33,6 +36,12 @@ from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
 from unidisc_tpu_torch.models.dit import randomize_
 from unidisc_tpu_torch.ops.quant import quantize_model
 from unidisc_tpu_torch.serving.engine import InferenceEngine, build_engine
+
+
+def device_events(prof) -> list:
+    """The device operations of a torch.profiler run, by name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def forward_times(engine, rows: int, iters: int = 10) -> dict:
@@ -58,8 +67,14 @@ def forward_times(engine, rows: int, iters: int = 10) -> dict:
         enqueue_s = (time.perf_counter() - t0) / iters
         torch.cuda.synchronize()
         wall_s = (time.perf_counter() - t0) / iters
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.hidden(x, sigma, modality=modality)
+            torch.cuda.synchronize()
     return {"rows": rows, "event_ms": start.elapsed_time(end) / iters,
-            "host_enqueue_ms": enqueue_s * 1e3, "wall_ms": wall_s * 1e3}
+            "host_enqueue_ms": enqueue_s * 1e3, "wall_ms": wall_s * 1e3,
+            "device_ops": sum(e.count for e in device_events(prof))}
 
 
 def main() -> int:
@@ -97,19 +112,20 @@ def main() -> int:
         results = engine.run_batch(prepared, seed=1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    nfe = results[0]["nfe"]
+    ops = sum(e.count for e in kernels)
+    rows = [{"name": e.key[:120], "count": e.count,
+             "device_ms": e.self_device_time_total / 1e3,
+             "share_of_busy": (e.self_device_time_total / 1e3 / busy_ms)
+             if busy_ms else None} for e in kernels]
     record["batch"] = {
-        "wall_ms": wall_ms, "nfe": results[0]["nfe"],
-        "device_busy_ms": busy_ms,
+        "wall_ms": wall_ms, "nfe": nfe, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-        "kernels": [{"name": e.key[:120], "count": e.count,
-                     "device_ms": e.self_device_time_total / 1e3,
-                     "share_of_busy": (e.self_device_time_total / 1e3
-                                       / busy_ms) if busy_ms else None}
-                    for e in kernels[:args.top]]}
+        "device_ops": ops, "device_ops_per_step": ops / nfe,
+        "kernels": rows[:args.top], "all_kernels": rows}
     if not busy_ms:
         record["batch"]["note"] = ("the profiler recorded no device time: "
                                    "device busy share not measured")
@@ -120,6 +136,7 @@ def main() -> int:
         print(f"{k['device_ms']:10.3f} ms {k['count']:6d}x  {k['name']}")
     print(json.dumps({"forward": record["forward"],
                       "batch_wall_ms": wall_ms,
+                      "device_ops_per_step": ops / nfe,
                       "device_busy_ms": busy_ms,
                       "device_busy_share": record["batch"][
                           "device_busy_share"]}))
