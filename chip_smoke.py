@@ -13,7 +13,8 @@ and prints no result):
      card at the main paths' shapes and the other listed shapes, and time
      the kernel, the plain version and one PyTorch library call (ms: CUDA
      events around 20 calls of the Python wrapper; device_ms: the summed
-     device time of the kernels those calls launch, from torch.profiler;
+     device time of the kernels those calls launch, from torch.profiler,
+     or from CUDA events where every trace came back empty;
      host_us: the wrapper's host time per call): the
      attention forward (flash_fwd), the two attention backward kernels
      (flash_bwd_dq, flash_bwd_dkv), the int8 product (int8_matmul; fp32
@@ -21,19 +22,36 @@ and prints no result):
      int8 serve path, the fused quantize kernel (fused_qmm; scales
      within 1e-6 relative, int8 values within one step on at most 0.1% of
      the elements) in each of its modes, and the per-row quantize of the
-     int8 path (dynamic_quantize; q and s bit-exact) at its three shapes.
+     int8 path (dynamic_quantize; q and s bit-exact) at its three shapes;
+     and the conditioning-frozen paths' shapes (attention Lq 256 against
+     Lk 384, the products and row kernels at 4096, 3072 and 2048 rows).
   4. serve path: build the flagship text->image engine at full width with
      random weights from the seed; check full-width logits through the
-     kernel against the plain path; check the sampler on the card against
-     the CPU on a tiny model; then serve 8 requests through
-     InferenceEngine.run_batch with the launch counts set to 0 just
-     before and read just after, and check the tokens that come out.
+     kernel against the plain path; check the t2i sampler, the
+     conditioning-frozen t2i sampler and the generic maskgit sampler on
+     the card against the CPU on a tiny model (injected noise); then serve
+     8 requests through InferenceEngine.run_batch, which runs the
+     sampler's captured CUDA-graph program (sampling/graph.py): the first
+     batch captures it, the counted batch replays it with the launch
+     counts set to 0 just before and read just after (exact, counted from
+     the replay), and the tokens are checked; the program is held to the
+     eager sampler at the same seed, and captured and eager steady tok/s
+     are printed on a line of their own. The same for 8 image->caption
+     requests (gen_text: the generic maskgit sampler, CFG 2.0).
   4b. int8 serve path: the same weights quantized into the engine of
      build_engine(quantize="int8") with FLAGSHIP_INT8_OVERRIDES; check its
      full-width logits against the plain int8 path and the bf16 model,
      the int8 sampler on the card against the CPU on a tiny model, and
      serve 8 requests with the counts of all four serving kernels checked
      exactly.
+  4c. graph_vs_eager: on a tiny model and at flagship width (4 steps),
+     the captured programs of t2i bf16, t2i int8, conditioning-frozen
+     int8, refresh-2 int8 with an int8 KV cache and generic maskgit give
+     the eager samplers' tokens under the same injected noise.
+  4d. the conditioning-frozen int8 engines (the frozen_cond overlay, 32
+     steps, CFG 2.0; distilled_stack, 8 steps, dilation 2, no CFG) on the
+     same int8 weights, served as in 4 with exact launch counts: step 0
+     writes the KV cache and leaves the fused block path.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
@@ -52,6 +70,7 @@ import argparse
 import collections
 import concurrent.futures
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -81,6 +100,8 @@ from unidisc_tpu_torch.ops.fused_qmm import (fused_quantize,
 from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                int8_matmul_reference)
 from unidisc_tpu_torch.ops.quant import quantize_dit_params, quantize_model
+from unidisc_tpu_torch.sampling.graph import captured
+from unidisc_tpu_torch.sampling.sampler import build_sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch.serving.engine import build_engine
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
@@ -141,6 +162,9 @@ KERNELS = {
     },
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the served configurations, each one counted batch of REQUESTS
+SERVE_PATHS = ("serve", "serve_gen_text", "serve_int8",
+               "serve_int8_frozen_cond", "serve_int8_distilled_stack")
 
 
 def card_line() -> str:
@@ -163,34 +187,48 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# device_ms calls whose traces all came back empty and that were timed
+# with CUDA events instead; printed and written to the record
+DEVICE_MS_FALLBACKS = []
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, traces: int = 3) -> float:
     """Device time per call: the device time of every kernel (and device
     copy) that a call of fn launches, from torch.profiler's CUDA trace of
     `iters` calls. Unlike time_ms, host work between launches is not
     counted, so a kernel faster than its wrapper's host path is still
     timed. The trace can lose an event (19 of 20 launches were seen on the
     card), so each kernel name contributes its mean duration times the
-    whole number of launches a call makes of it."""
+    whole number of launches a call makes of it. A trace can also come
+    back with no device event at all: it is then taken again, up to
+    `traces` times, and if every trace is empty the calls are timed with
+    CUDA events (time_ms, which counts host gaps between launches too) and
+    the fallback is recorded in DEVICE_MS_FALLBACKS."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(list)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name].append(e.time_range.elapsed_us())
-    per_call = {name: round(len(times) / iters)
-                for name, times in by_name.items()}
-    if not by_name or not any(per_call.values()):
-        raise RuntimeError(f"torch.profiler recorded no device time in "
-                           f"{iters} calls")
-    return sum(statistics.fmean(times) * per_call[name]
-               for name, times in by_name.items()) / 1e3
+    for _ in range(traces):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name].append(e.time_range.elapsed_us())
+        per_call = {name: round(len(times) / iters)
+                    for name, times in by_name.items()}
+        if by_name and any(per_call.values()):
+            return sum(statistics.fmean(times) * per_call[name]
+                       for name, times in by_name.items()) / 1e3
+    ms = time_ms(fn, iters=iters, warmup=0)
+    DEVICE_MS_FALLBACKS.append(getattr(fn, "__qualname__", repr(fn)))
+    print(f"device_ms: torch.profiler recorded no device time in {traces} "
+          f"traces of {iters} calls of {DEVICE_MS_FALLBACKS[-1]}; timed "
+          f"with CUDA events instead: {ms} ms", file=sys.stderr)
+    return ms
 
 
 def host_us(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -230,24 +268,33 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 ATTN_CASES = [
-    # name, (B, H, L, D), causal, segments; the first is the serve path's
-    # shape (16 rows = batch 8 under CFG, small preset: 12 heads of 64),
-    # the second the train path's (batch 32)
+    # name, (B, H, L, D), causal, segments[, Lk]; the first is the serve
+    # path's shape (16 rows = batch 8 under CFG, small preset: 12 heads of
+    # 64), the second the train path's (batch 32); the frozen paths' image
+    # rows (Lq 256) attend over [text K/V || image K/V] (Lk 384) at 16 rows
+    # (frozen_cond, CFG) and 8 (distilled_stack)
     ("main_path", (16, 12, 384, 64), False, False),
     ("train_path", (32, 12, 384, 64), False, False),
     ("extra_large_head_dim", (4, 16, 384, 128), False, False),
     ("long_tiled_range", (2, 12, 1024, 64), False, False),
     ("causal_segments_padding", (2, 8, 512, 128), True, True),
+    ("frozen_cond_path", (16, 12, 256, 64), False, False, 384),
+    ("distilled_stack_path", (8, 12, 256, 64), False, False, 384),
 ]
 
 
-def attention_inputs(shape, causal, segs, gen):
+def attention_inputs(shape, causal, segs, gen, lk=None):
     b, h, l, d = shape
     # q, k, v as views of one (B, L, 3, H, D) projection, as the DIT
-    # hands them over (v keeps the projection's strides)
+    # hands them over (v keeps the projection's strides); with lk, k and v
+    # are contiguous (B, lk, H, D), as the frozen paths concatenate them
     qkv = torch.randn((b, l, 3, h, d), generator=gen, device="cuda",
                       dtype=torch.float32).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
+    if lk is not None:
+        k, v = (torch.randn((b, lk, h, d), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        return q, k, v, {"causal": causal}, None
     q, k = q.contiguous(), k.contiguous()
     kw = {"causal": causal}
     mask = None
@@ -265,17 +312,18 @@ def attention_inputs(shape, causal, segs, gen):
     return q, k, v, kw, mask
 
 
-def attention_bound(shape, mask, segs):
+def attention_bound(shape, mask, segs, lk=None):
     """Least time for the work: bytes of Q, K, V, O (and the segment ids)
     moved once, and 4 D FLOPs per allowed (query, key) pair."""
     b, h, l, d = shape
-    nbytes = 4 * b * l * h * d * 2
+    lk = lk or l
+    nbytes = 2 * b * (l + lk) * h * d * 2
     if segs:
         nbytes += 2 * b * l * 4
     if mask is not None:
         pairs = int(mask.expand(b, 1, l, l).sum().item()) * h
     else:
-        pairs = b * h * l * l
+        pairs = b * h * l * lk
     flops = 4.0 * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -286,8 +334,9 @@ def attention_bound(shape, mask, segs):
 def phase_kernels(seed: int) -> list:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for name, shape, causal, segs in ATTN_CASES:
-        q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen)
+    for name, shape, causal, segs, *lk in ATTN_CASES:
+        lk = lk[0] if lk else None
+        q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen, lk)
         need_lse = name != "main_path"   # training asks for the LSE
         out = flash_attention(q, k, v, need_lse=need_lse, **kw)
         ref = attention_reference(q, k, v, need_lse=need_lse, **kw)
@@ -320,8 +369,9 @@ def phase_kernels(seed: int) -> list:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
         bound_ms, bound_by, nbytes, flops = attention_bound(shape, mask,
-                                                            segs)
-        row = {"case": name, "shape_bhld": list(shape), "causal": causal,
+                                                            segs, lk)
+        row = {"case": name, "shape_bhld": list(shape), "lk": lk or shape[2],
+               "causal": causal,
                "segments": segs, "max_abs_err": err, "tol": OUT_TOL,
                "lse_err": lse_err, "ms": time_ms(kernel),
                "device_ms": device_ms(kernel), "host_us": host_us(kernel),
@@ -460,18 +510,32 @@ def phase_bwd_kernels(seed: int) -> list:
     return rows
 
 
+def frozen_rows(m) -> list:
+    """(name, trunk rows) of the conditioning-frozen serve paths: the
+    image rows under CFG (frozen_cond), distilled_stack's step 0 over the
+    whole sequence (it writes the cache) and its image-row trunk (no
+    CFG)."""
+    return [("frozen_cond_trunk", 2 * REQUESTS * m.img_length),
+            ("distilled_step0", REQUESTS * m.length),
+            ("distilled_trunk", REQUESTS * m.img_length)]
+
+
 def int8_gemm_shapes(m) -> list:
     """(name, M, K, N, bias) of the five int8 products of one denoise step
     of the int8 serve path: the four trunk products at 2 x REQUESTS rows
     of the whole sequence (CFG), and the head over the image rows after
-    the CFG combine against the image vocabulary."""
+    the CFG combine against the image vocabulary; then the four trunk
+    products at the frozen paths' rows."""
     rows = 2 * REQUESTS * m.length
     d, f = m.hidden_size, m.mlp_ratio * m.hidden_size
-    return [("attn_qkv", rows, d, 3 * d, False),
-            ("attn_out", rows, d, d, False),
-            ("mlp_0", rows, d, f, True),
-            ("mlp_2", rows, f, d, True),
-            ("head", REQUESTS * m.img_length, d, m.image_vocab_size, True)]
+    trunk = [("attn_qkv", d, 3 * d, False), ("attn_out", d, d, False),
+             ("mlp_0", d, f, True), ("mlp_2", f, d, True)]
+    return ([(name, rows, k, n, bias) for name, k, n, bias in trunk]
+            + [("head", REQUESTS * m.img_length, d, m.image_vocab_size,
+                True)]
+            + [(f"{name}@{path}", mm, k, n, bias)
+               for path, mm in frozen_rows(m)
+               for name, k, n, bias in trunk])
 
 
 def int8_gemm_bound(mm, k, n, bias, out_bytes):
@@ -588,31 +652,47 @@ def phase_fused_qmm(m, seed) -> list:
     """fused_quantize against fused_quantize_reference at the serve path's
     (2 x REQUESTS x L, hidden) bf16 activations, with the adaLN rows as
     strided views of the block's modulation table and the serving
-    modality layout (text rows 0, image rows 1)."""
+    modality layout (text rows 0, image rows 1); then the main path's mode
+    at the frozen paths' image rows (all modality 1), whose trunks take the
+    fused prologue (distilled_stack's step 0 writes the cache and does
+    not)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    b, l, k = 2 * REQUESTS, m.length, m.hidden_size
-    mm = b * l
-    x = (torch.randn((mm, k), generator=gen, device="cuda")).bfloat16()
+    k = m.hidden_size
     norm_w = 1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
-    table = (0.2 * torch.randn((b, 6 * k), generator=gen,
-                               device="cuda")).bfloat16()
-    modality = torch.cat([torch.zeros((b, m.txt_length), dtype=torch.long),
-                          torch.ones((b, m.img_length), dtype=torch.long)],
-                         1).reshape(-1).float().cuda()
     # the width of the row kernel the wrapper picks (trees before the row
     # kernel have no plan)
     from unidisc_tpu_torch.ops import fused_qmm as fq_module
     plan = getattr(fq_module, "quantize_plan", None)
+
+    def operands(b, txt, img):
+        x = torch.randn((b * (txt + img), k), generator=gen,
+                        device="cuda").bfloat16()
+        table = (0.2 * torch.randn((b, 6 * k), generator=gen,
+                                   device="cuda")).bfloat16()
+        modality = torch.cat([torch.zeros((b, txt), dtype=torch.long),
+                              torch.ones((b, img), dtype=torch.long)],
+                             1).reshape(-1).float().cuda()
+        return x, table, modality
+
+    main = operands(2 * REQUESTS, m.txt_length, m.img_length)
+    cases = [(name, mode, norm_type, cond, main)
+             for name, mode, norm_type, cond in QUANT_CASES]
+    for path, mm in frozen_rows(m):
+        if path != "distilled_step0":
+            cases.append((f"main_path@{path}", "adaln_norm", "rms", True,
+                          operands(mm // m.img_length, 0, m.img_length)))
     rows = []
-    for name, mode, norm_type, cond in QUANT_CASES:
+    for name, mode, norm_type, cond, (x, table, modality) in cases:
+        mm = x.shape[0]
         kw = dict(mode=mode, norm_type=norm_type)
         nbytes = mm * k * 2 + mm * k + mm * 4
         if mode == "adaln_norm":
             kw["norm_w"] = norm_w
             nbytes += k * 4
         if cond:
+            b = table.shape[0]
             kw.update(shift=table[:, :k], scale=table[:, k:2 * k],
-                      modality=modality, rows_per_batch=l)
+                      modality=modality, rows_per_batch=mm // b)
             nbytes += 2 * b * k * 2 + mm * 4
         q, s = fused_quantize(x, **kw)
         q_ref, s_ref = fused_quantize_reference(x, **kw)
@@ -655,11 +735,18 @@ def phase_fused_qmm(m, seed) -> list:
 def dynamic_quantize_shapes(m) -> list:
     """(name, M, K) of the int8 serve path's per-row quantize calls (qdot):
     the inputs of attn_out and mlp.2 at 2 x REQUESTS rows of the whole
-    sequence, and of the image head."""
+    sequence, and of the image head; then attn_out's and mlp.2's at the
+    frozen paths' rows (distilled_stack's trunk shares the head's
+    (2048, 768))."""
     rows = 2 * REQUESTS * m.length
-    return [("attn_out", rows, m.hidden_size),
-            ("mlp_2", rows, m.mlp_ratio * m.hidden_size),
-            ("head", REQUESTS * m.img_length, m.hidden_size)]
+    d, f = m.hidden_size, m.mlp_ratio * m.hidden_size
+    out = [("attn_out", rows, d), ("mlp_2", rows, f),
+           ("head", REQUESTS * m.img_length, d)]
+    for path, mm in frozen_rows(m):
+        out += [(f"{name}@{path}", mm, k) for name, k in
+                (("attn_out", d), ("mlp_2", f))
+                if (mm, k) != (REQUESTS * m.img_length, d)]
+    return out
 
 
 def dynamic_quantize_input(gen, mm, k) -> torch.Tensor:
@@ -853,34 +940,82 @@ def phase_int8_logits(engine, qengine, seed) -> dict:
     return rec
 
 
-def phase_sampler_cpu_agreement(seed, int8=False) -> dict:
+TINY_OVERRIDES = {
+    "model.hidden_size": 128, "model.n_heads": 2, "model.n_blocks": 2,
+    "model.cond_dim": 32, "model.length": 24, "model.txt_length": 8,
+    "model.img_length": 16, "model.text_vocab_size": 24,
+    "model.image_vocab_size": 40, "model.time_conditioning": True,
+    "model.qk_norm": True, "model.norm_type": "rms",
+    "model.sandwich_normalization": True, "model.modality_embed": True,
+    "model.rope_2d": True, "model.dropout": 0.0,
+    "model.force_argmax_valid_indices": True,
+    "sampling.predictor": "maskgit", "sampling.steps": 5,
+    "sampling.cfg": 2.0}
+TINY_BATCH = 4
+
+
+def build_sampler_of(kind, cfg, model, inject_noise, device="cuda"):
+    """The t2i sampler (its cached_cond settings from cfg) or the generic
+    one."""
+    s = cfg.sampling
+    if kind == "t2i":
+        return build_t2i_sampler(model, cfg, inject_noise=inject_noise,
+                                 cached_cond=s.cached_cond,
+                                 cond_refresh=s.cached_cond_refresh,
+                                 device=device)
+    return build_sampler(model, cfg, inject_noise=inject_noise,
+                         device=device)
+
+
+def sampler_inputs(kind, m, batch, steps, gen):
+    """(inputs, injected) of a sampler on the card, from `gen`: text
+    tokens, or x0 / x0_unmask / modality with the text given on every row
+    but one (a joint row); Gumbel and exponential noise of the injected
+    contract."""
+    kw = dict(generator=gen, device="cuda")
+    txt = torch.randint(0, m.mask_index, (batch, m.txt_length), **kw)
+
+    def gumbel(shape):
+        return -torch.log(-torch.log(torch.rand(shape, **kw)))
+
+    if kind == "t2i":
+        return (txt,), {
+            "gumbel_tok": gumbel((steps, batch, m.img_length,
+                                  m.image_vocab_size)),
+            "gumbel_conf": gumbel((steps, batch, m.img_length))}
+    x0 = torch.cat([txt, torch.full((batch, m.img_length), m.mask_index,
+                                    device="cuda")], 1)
+    unmask = torch.zeros_like(x0, dtype=torch.bool)
+    unmask[:, :m.txt_length] = True
+    unmask[-1, :m.txt_length] = False
+    modality = (torch.arange(m.length, device="cuda") >= m.txt_length) \
+        .long().expand(batch, -1)
+    shape = (steps, batch, m.length)
+    return (x0, unmask, modality), {
+        "exp": torch.empty(shape + (m.vocab_size,), device="cuda")
+        .exponential_(generator=gen),
+        "gumbel": gumbel(shape)}
+
+
+def phase_sampler_cpu_agreement(seed, int8=False, kind="t2i",
+                                cached_cond=False) -> dict:
     """The port's sampler on the card against the port on the CPU (which
-    tests/test_torch_t2i.py holds token for token to the JAX sampler), on
-    a tiny fp32 model with the same injected noise; with `int8`, on the
-    model quantized with the flagship's int8 settings (the kernels on the
-    card, their plain versions on the CPU)."""
-    over = {"model.hidden_size": 128, "model.n_heads": 2,
-            "model.n_blocks": 2, "model.cond_dim": 32, "model.length": 24,
-            "model.txt_length": 8, "model.img_length": 16,
-            "model.text_vocab_size": 24, "model.image_vocab_size": 40,
-            "model.time_conditioning": True, "model.qk_norm": True,
-            "model.norm_type": "rms", "model.sandwich_normalization": True,
-            "model.modality_embed": True, "model.rope_2d": True,
-            "model.attn_backend": "xla", "model.dropout": 0.0,
-            "sampling.predictor": "maskgit", "sampling.steps": 5,
-            "sampling.cfg": 2.0}
+    tests/test_torch_t2i.py and tests/test_torch_sampler.py hold token for
+    token to the JAX samplers), on a tiny fp32 model with the same injected
+    noise: the t2i sampler (with cached_cond, conditioning-frozen) or the
+    generic maskgit sampler, CFG 2.0; with `int8`, on the model quantized
+    with the flagship's int8 settings (the kernels on the card, their
+    plain versions on the CPU)."""
+    over = {**TINY_OVERRIDES, "model.attn_backend": "xla",
+            "sampling.cached_cond": cached_cond}
     if int8:
         over.update({"model.quant_backend": "pallas",
                      "model.quant_fused": True})
     cfg = Config.make("tiny", **over)
     m = cfg.model
-    rng = np.random.RandomState(seed)
-    txt = torch.from_numpy(rng.randint(0, m.text_vocab_size - 1, (4, 8)))
-    injected = {
-        "gumbel_tok": torch.from_numpy(rng.gumbel(
-            size=(5, 4, 16, m.image_vocab_size)).astype(np.float32)),
-        "gumbel_conf": torch.from_numpy(rng.gumbel(
-            size=(5, 4, 16)).astype(np.float32))}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args, injected = sampler_inputs(kind, m, TINY_BATCH,
+                                    cfg.sampling.steps, gen)
     cpu_model = DIT(m, compute_dtype=torch.float32).eval()
     gpu_model = DIT(m, compute_dtype=torch.float32).to("cuda").eval()
     randomize_(gpu_model, seed)
@@ -893,10 +1028,13 @@ def phase_sampler_cpu_agreement(seed, int8=False) -> dict:
         gpu_model.load_state_dict(cpu_model.state_dict())
     toks = {}
     for dev, mdl in (("cpu", cpu_model), ("cuda", gpu_model)):
-        sample = build_t2i_sampler(mdl, cfg, inject_noise=True, device=dev)
-        toks[dev] = sample(txt, injected=injected).tokens.cpu()
+        sample = build_sampler_of(kind, cfg, mdl, True, device=dev)
+        toks[dev] = sample(*(a.to(dev) for a in args),
+                           injected={k: v.to(dev) for k, v in
+                                     injected.items()}).tokens.cpu()
     agree = float((toks["cpu"] == toks["cuda"]).float().mean().item())
-    rec = {"token_agreement": agree, "int8": int8}
+    rec = {"token_agreement": agree, "int8": int8, "sampler": kind,
+           "cached_cond": cached_cond}
     print("sampler_cpu_vs_cuda " + json.dumps(rec))
     if agree < 0.95:
         raise AssertionError(f"the sampler on the card disagrees with the "
@@ -904,83 +1042,233 @@ def phase_sampler_cpu_agreement(seed, int8=False) -> dict:
     return rec
 
 
-def check_results(engine, prompts, results) -> None:
+# name, int8, sampler, overrides: the captured paths held to the eager
+# samplers
+GRAPH_CASES = [
+    ("t2i_bf16", False, "t2i", {}),
+    ("t2i_int8", True, "t2i", {}),
+    ("frozen_int8", True, "t2i", {"sampling.cached_cond": True}),
+    ("refresh_2_int8_kv_int8", True, "t2i", {
+        "sampling.cached_cond": True, "sampling.cached_cond_refresh": 2,
+        "model.kv_cache_dtype": "int8"}),
+    ("generic_maskgit", False, "generic", {}),
+]
+GRAPH_STEPS = 4     # at flagship width: the injected noise is (steps, B,
+#                     L, 48385) fp32 for the generic sampler
+
+
+def phase_graph_vs_eager(models, label, batch, steps, seed) -> dict:
+    """Each captured path (sampling/graph.py) against its eager sampler
+    under the same injected noise: tokens and NFE equal. `models` maps
+    int8 (False / True) to (config, model)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    rec = {}
+    for name, int8, kind, extra in GRAPH_CASES:
+        cfg, model = models[int8]
+        cfg = cfg.override(**{"sampling.steps": steps, **extra})
+        sample = build_sampler_of(kind, cfg, model, True)
+        args, injected = sampler_inputs(kind, cfg.model, batch, steps, gen)
+        want = sample(*args, injected=injected)
+        program = captured(sample, batch)
+        got = program(*args, injected=injected)
+        torch.cuda.synchronize()
+        agree = (got.tokens == want.tokens).float().mean().item()
+        rec[name] = {"batch": batch, "steps": steps, "token_agreement":
+                     agree, "nfe": [got.nfe, want.nfe],
+                     "graph_build_s": program.build_s}
+        if agree != 1.0 or got.nfe != want.nfe:
+            raise AssertionError(f"graph_vs_eager {label} {name}: the "
+                                 f"captured program differs from the "
+                                 f"eager sampler: {rec[name]}")
+        del sample, program, injected, want, got
+        gc.collect()
+    print(f"graph_vs_eager_{label} " + json.dumps(rec))
+    return rec
+
+
+def tiny_models(seed) -> dict:
+    """The tiny bf16 model on the card and its int8 (flagship settings)
+    quantization, for phase_graph_vs_eager."""
+    cfg = Config.make("tiny", **TINY_OVERRIDES)
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16).to("cuda").eval()
+    randomize_(model, seed)
+    qcfg = cfg.override(**{"model.quant_backend": "pallas",
+                           "model.quant_fused": True})
+    return {False: (cfg, model), True: quantize_model(qcfg, model)}
+
+
+def batch_inputs(engine, prepared):
+    """(t2i?, the sampler's inputs) of one served batch, as run_batch
+    builds them."""
+    m = engine.m
+    x0 = np.stack([p["x0"] for p in prepared])
+    if all(p["fastpath"] for p in prepared):
+        return True, (torch.from_numpy(x0[:, :m.txt_length]),)
+    unmask = np.stack([p["unmask"] for p in prepared])
+    return False, (x0, unmask, engine._layout(len(prepared)))
+
+
+def check_results(engine, prepared, results, tokens) -> None:
+    """The served results: image ids in the codebook, every given token
+    kept, a text prompt unchanged, the NFE the step count (plus one where
+    the noise-removal pass ran); `tokens` (a captured run of the same
+    batch) holds no mask and only its modality's ids."""
     m = engine.m
     steps = engine.config.sampling.steps
-    for p, r in zip(prompts, results):
+    lt, v0 = m.txt_length, m.text_vocab_size
+    for i, (p, r) in enumerate(zip(prepared, results)):
         ids = r["image_ids"]
         if ids.shape != (1, m.img_length):
             raise AssertionError(f"image_ids shape {ids.shape}")
         if ids.min() < 0 or ids.max() >= m.image_vocab_size:
             raise AssertionError("image token outside the image codebook "
                                  "(a mask or text token was left)")
-        if r["text"] != p:
+        known = p["unmask"][lt:]
+        if not np.array_equal(ids[0][known] + v0, p["x0"][lt:][known]):
+            raise AssertionError("a given image token changed")
+        if p["task"] == "gen_image" and r["text"] != p["prompt"]:
             raise AssertionError(f"text span changed: {r['text']!r}")
         if r["nfe"] not in (steps, steps + 1):
             raise AssertionError(f"nfe {r['nfe']}")
+        row = tokens[i].cpu().numpy()
+        if (row == m.mask_index).any() or (row[:lt] >= v0).any() \
+                or (row[lt:] < v0).any():
+            raise AssertionError("a mask, or an id of the other modality, "
+                                 "was left in the tokens")
+        if not np.array_equal(row[p["unmask"]], p["x0"][p["unmask"]]):
+            raise AssertionError("a given token changed")
 
 
-def expected_serve_launches(m, nfe) -> dict:
-    """Kernel launches of one served batch of `nfe` denoise steps, from the
-    code: one trunk pass at the CFG batch a step (each block one attention
-    and, in int8, four products, two of them behind a fused prologue, the
-    others and the head behind a per-row quantize) and one int8 head
-    product a step (t2i_fast applies guidance before the head)."""
-    want = {"flash_fwd": m.n_blocks * nfe}
-    if m.quant == "int8":
-        if m.quant_backend == "pallas":
-            want["int8_matmul"] = (4 * m.n_blocks + 1) * nfe
-        if m.quant_fused:
-            want["fused_qmm"] = 2 * m.n_blocks * nfe
-        want["dynamic_quantize"] = ((2 if m.quant_fused else 4)
-                                    * m.n_blocks + 1) * nfe
-    return want
+def expected_serve_launches(m, s, nfe, t2i=True) -> dict:
+    """Kernel launches of one served batch of `nfe` forwards, from the
+    code. A forward is one trunk pass (at the CFG batch) and the head:
+    each block one attention and, in int8, four products, the adaLN ones
+    (attn_qkv, mlp.0) behind the fused prologue, the others and the head
+    behind a per-row quantize; the t2i sampler applies guidance before its
+    one head product. A forward that writes a KV cache leaves the fused
+    prologue (four per-row quantizes a block): the frozen paths' step 0,
+    and every forward of the refresh paths."""
+    n = m.n_blocks
+
+    def forward(fused):
+        want = {"flash_fwd": n}
+        if m.quant == "int8":
+            if m.quant_backend == "pallas":
+                want["int8_matmul"] = 4 * n + 1
+            if fused:
+                want["fused_qmm"] = 2 * n
+            want["dynamic_quantize"] = (2 if fused else 4) * n + 1
+        return collections.Counter(want)
+
+    fused = m.quant == "int8" and m.quant_fused
+    total = collections.Counter()
+    if t2i and s.cached_cond and s.cached_cond_refresh == 0:
+        total += forward(False)
+        for _ in range(nfe - 1):
+            total += forward(fused)
+    else:
+        for _ in range(nfe):
+            total += forward(fused and not (t2i and s.cached_cond))
+    return dict(total)
 
 
-def phase_serve(engine, label="serve") -> dict:
-    m = engine.m
+def t2i_requests(engine) -> list:
     prompts = [f"a watercolor painting of a lighthouse, variant {i}"
                for i in range(REQUESTS)]
-    prepared = [engine.prepare(text=p) for p in prompts]
-    if not all(p["fastpath"] for p in prepared):
-        raise AssertionError("requests did not take the t2i fast path")
+    out = []
+    for text in prompts:
+        p = engine.prepare(text=text)
+        p["prompt"] = text
+        out.append(p)
+    return out
 
-    # the counted run: counts to 0 just before, read just after
+
+def gen_text_requests(engine, seed) -> list:
+    """Image -> caption requests with given image ids."""
+    m = engine.m
+    rng = np.random.RandomState(seed)
+    return [engine.prepare(image_ids=rng.randint(0, m.image_vocab_size,
+                                                 m.img_length))
+            for _ in range(REQUESTS)]
+
+
+def phase_serve(engine, prepared, label="serve") -> dict:
+    """Serve one batch of REQUESTS through InferenceEngine.run_batch, which
+    runs the sampler's captured program. The first batch captures it; the
+    counted run (counts to 0 just before, read just after) then replays
+    it, and its launches must be exactly those derived from the code. The
+    captured program is held to the eager sampler at the same seed, and
+    three steady batches of each are timed."""
+    m, s = engine.m, engine.config.sampling
+    t2i, args = batch_inputs(engine, prepared)
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
     t0 = time.perf_counter()
-    results = engine.run_batch(prepared, seed=0)
+    engine.run_batch(prepared, seed=0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    sample = engine._samplers[("t2i" if t2i else "generic", s.steps)]
+    program = sample.graphs[REQUESTS]
+
+    # the counted run: counts to 0 just before, read just after
+    _build.reset_launch_counts()
+    results = engine.run_batch(prepared, seed=0)
+    torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    check_results(engine, prompts, results)
     nfe = results[0]["nfe"]
-    want = expected_serve_launches(m, nfe)
+    want = expected_serve_launches(m, s, nfe, t2i)
     if launches != want:
         raise AssertionError(f"{label}: the main path launched {launches}; "
                              f"expected {want} (n_blocks {m.n_blocks}, NFE "
                              f"{nfe})")
+    tokens = program(*args, seed=0).tokens
+    check_results(engine, prepared, results, tokens)
+    # the seeded comparison: the program's generator against the eager
+    # sampler's at the same seed
+    eager = sample(*args, generator=torch.Generator(device="cuda")
+                   .manual_seed(0)).tokens
+    same_seed = (eager == tokens).float().mean().item()
 
-    # steady state: the same batch again, timed on the host
-    times = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = engine.run_batch(prepared, seed=i + 1)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check_results(engine, prompts, again)
-    gen_tokens = REQUESTS * m.img_length
-    rec = {"requests": REQUESTS, "rows_under_cfg": 2 * REQUESTS,
-           "nfe": nfe, "launches": launches, "expected_launches": want,
-           "first_batch_s": first_s,
-           "first_batch_tok_per_s": gen_tokens / first_s,
-           "steady_batch_s": times,
-           "steady_tok_per_s": gen_tokens / min(times),
-           "distinct_images": len({r["image_ids"].tobytes()
-                                   for r in results})}
+    def steady(run):
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(i + 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    captured_s = steady(lambda i: engine.run_batch(prepared, seed=i))
+    eager_s = steady(lambda i: sample(*args, generator=torch.Generator(
+        device="cuda").manual_seed(i)))
+    unmask = np.stack([p["unmask"] for p in prepared])
+    gen_tokens = int((~unmask).sum())
+    rec = {"requests": REQUESTS, "nfe": nfe, "sampler": "t2i" if t2i
+           else f"generic {s.predictor}", "cached_cond": s.cached_cond,
+           "launches": launches, "expected_launches": want,
+           "generated_tokens": gen_tokens, "first_batch_s": first_s,
+           "graph_build_s": program.build_s,
+           "captured_launches_per_replay": dict(program.launches),
+           "steady_batch_s": captured_s,
+           "steady_tok_per_s": gen_tokens / min(captured_s),
+           "eager_steady_batch_s": eager_s,
+           "eager_steady_tok_per_s": gen_tokens / min(eager_s),
+           "eager_same_seed_token_agreement": same_seed,
+           "distinct_outputs": len({tokens[i].cpu().numpy().tobytes()
+                                    for i in range(REQUESTS)})}
     print(f"{label} " + json.dumps(rec))
+    print(f"{label}_tok_per_s " + json.dumps({
+        "captured_steady_tok_per_s": rec["steady_tok_per_s"],
+        "eager_steady_tok_per_s": rec["eager_steady_tok_per_s"]}))
     return rec
+
+
+def free(*engines) -> None:
+    """Drop engines and their captured programs' memory pools."""
+    for engine in engines:
+        engine._samplers.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1182,24 +1470,58 @@ def main() -> int:
     record["engine_build_s"] = time.perf_counter() - t0
     record["logits"] = phase_logits(engine, args.seed)
     record["sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(args.seed)
-    record["serve"] = phase_serve(engine)
+    record["generic_sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(
+        args.seed, kind="generic")
+    record["frozen_sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(
+        args.seed, cached_cond=True)
+    record["serve"] = phase_serve(engine, t2i_requests(engine))
+    record["serve_gen_text"] = phase_serve(
+        engine, gen_text_requests(engine, args.seed), "serve_gen_text")
 
     # the int8 engine, its weights the bf16 engine's quantized
     t0 = time.perf_counter()
     qengine = build_engine(preset="small", overrides=FLAGSHIP_INT8_OVERRIDES,
                            quantize="int8")
-    qengine.model.load_state_dict(quantize_dit_params(
-        engine.model.state_dict()))
+    qstate = quantize_dit_params(engine.model.state_dict())
+    qengine.model.load_state_dict(qstate)
     record["int8_engine_build_s"] = time.perf_counter() - t0
     record["int8_logits"] = phase_int8_logits(engine, qengine, args.seed)
     record["int8_sampler_cpu_vs_cuda"] = phase_sampler_cpu_agreement(
         args.seed, int8=True)
-    record["serve_int8"] = phase_serve(qengine, "serve_int8")
-    print("serve_tok_per_s " + json.dumps({
-        "bf16_steady_tok_per_s": record["serve"]["steady_tok_per_s"],
-        "int8_steady_tok_per_s": record["serve_int8"]["steady_tok_per_s"]}))
+    record["serve_int8"] = phase_serve(qengine, t2i_requests(qengine),
+                                       "serve_int8")
+    free(engine, qengine)
+    record["graph_vs_eager"] = {
+        "tiny": phase_graph_vs_eager(tiny_models(args.seed), "tiny",
+                                     TINY_BATCH, TINY_OVERRIDES[
+                                         "sampling.steps"], args.seed),
+        "flagship": phase_graph_vs_eager(
+            {False: (engine.config, engine.model),
+             True: (qengine.config, qengine.model)}, "flagship", REQUESTS,
+            GRAPH_STEPS, args.seed)}
+    record["graph_vs_eager"]["seeded"] = {
+        label: record[label]["eager_same_seed_token_agreement"]
+        for label in ("serve", "serve_gen_text", "serve_int8")}
     del engine, qengine
-    torch.cuda.empty_cache()
+    free()
+
+    # the conditioning-frozen int8 engines, on the same int8 weights
+    for label, overlay in (("serve_int8_frozen_cond", "frozen_cond"),
+                           ("serve_int8_distilled_stack",
+                            "distilled_stack")):
+        fengine = build_engine(preset="small",
+                               overrides=FLAGSHIP_INT8_OVERRIDES,
+                               experiments=(overlay,), quantize="int8")
+        fengine.model.load_state_dict(qstate)
+        record[label] = phase_serve(fengine, t2i_requests(fengine), label)
+        free(fengine)
+        del fengine
+    del qstate
+    free()
+    print("serve_tok_per_s " + json.dumps({
+        label: {"captured": record[label]["steady_tok_per_s"],
+                "eager": record[label]["eager_steady_tok_per_s"]}
+        for label in SERVE_PATHS}))
 
     cfg = train_config()
     record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
@@ -1207,7 +1529,7 @@ def main() -> int:
     record["train"] = phase_train(cfg, TRAIN_BATCH, TRAIN_STEPS, args.seed)
 
     by_path = {name: {path: record[path]["launches"].get(name, 0)
-                      for path in ("serve", "serve_int8", "train")}
+                      for path in SERVE_PATHS + ("train",)}
                for name in KERNELS}
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
@@ -1258,6 +1580,7 @@ def main() -> int:
             "library_ms": case["library_ms"],
             "library_device_ms": case["library_device_ms"]})
     record["kernels"] = kernels
+    record["device_ms_fallbacks"] = DEVICE_MS_FALLBACKS
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

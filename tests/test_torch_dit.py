@@ -154,9 +154,12 @@ def test_unported_branches_raise():
     _, tcfg = configs()
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
     ids, sigma, modality = inputs(tcfg.model)
-    with pytest.raises(NotImplementedError, match="kv_cache"):
+    # the KV-cache and frozen-KV arguments are ported (tests/
+    # test_torch_kv_cache.py); the packed-batch ones still raise
+    with pytest.raises(NotImplementedError, match="sample_ids"):
         model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
-              modality=torch.from_numpy(modality).long(), kv_cache=(1, 2))
+              modality=torch.from_numpy(modality).long(),
+              sample_ids=torch.zeros((B, L), dtype=torch.int32))
     for flag in ("split_embed", "cond_label"):
         with pytest.raises(NotImplementedError, match=flag):
             DIT(tcfg.override(**{f"model.{flag}": True}).model)

@@ -1,6 +1,7 @@
 """The port's inference engine: request preparation equals the JAX
-engine's, a tiny engine serves requests on the CPU, and the entry points
-refuse to run without CUDA unless asked for the CPU."""
+engine's, a tiny engine serves text->image, image->text, infilling and
+joint requests on the CPU, and the entry points refuse to run without CUDA
+unless asked for the CPU."""
 
 import jax
 import numpy as np
@@ -63,8 +64,10 @@ def test_tiny_engine_serves_requests_on_cpu():
         np.testing.assert_array_equal(r["image_ids"], s["image_ids"])
     one = eng.run(text="a cat", seed=1, batch=2)
     assert one["image_ids"].shape == (2, m.img_length)
-    with pytest.raises(NotImplementedError, match="generic sampler"):
-        eng.run_batch([eng.prepare(text="a <mask:2> cat")])
+    # a request that is not pure text->image takes the generic sampler
+    infill = eng.run_batch([eng.prepare(text="a <mask:2> cat")])
+    assert infill[0]["nfe"] in (4, 5)
+    assert len(eng._samplers) == 2
 
 
 def test_tiny_int8_engine_serves_requests_on_cpu():
@@ -102,3 +105,65 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         InferenceEngine(tcfg, model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_t2i_sampler(model, tcfg)
+
+
+@pytest.mark.parametrize("predictor", ["maskgit", "ddpm", "first_hitting"])
+def test_tiny_engine_serves_the_generic_tasks_on_cpu(predictor):
+    """gen_text (image -> caption), infill and joint requests run through
+    the generic sampler: known tokens stay, generated ids lie in their
+    modality's vocabulary (force_argmax_valid_indices), and the NFE is the
+    step count (plus one where the noise-removal pass ran)."""
+    eng = build_engine(preset="tiny", device="cpu",
+                       overrides={**OVERRIDES, **OVER,
+                                  "model.force_argmax_valid_indices": True,
+                                  "sampling.predictor": predictor})
+    m = eng.m
+    requests = [dict(image_ids=np.arange(m.img_length) % 7),
+                dict(text="a <mask:3> on a table",
+                     image_ids=np.arange(m.img_length) % 5,
+                     image_mask=np.arange(m.img_length) % 2 == 0),
+                dict()]
+    prepared = [eng.prepare(**r) for r in requests]
+    assert [p["task"] for p in prepared] == ["gen_text", "infill", "joint"]
+    assert not any(p["fastpath"] for p in prepared)
+    results = eng.run_batch(prepared, seed=3, pad_to=4)
+    again = eng.run_batch(prepared, seed=3, pad_to=4)
+    lt, v0 = m.txt_length, m.text_vocab_size
+    for p, r, s in zip(prepared, results, again):
+        assert r["task"] == p["task"]
+        assert r["nfe"] in (4, 5)
+        assert r["image_ids"].shape == (1, m.img_length)
+        np.testing.assert_array_equal(r["image_ids"], s["image_ids"])
+        img = r["image_ids"][0] + v0
+        assert (img >= v0).all() and (img < m.vocab_size).all()
+        known = p["unmask"][lt:]
+        np.testing.assert_array_equal(img[known], p["x0"][lt:][known])
+    # the caption of the gen_text request is text: decodes to a string
+    assert isinstance(results[0]["text"], str)
+    out = eng._sampler(batch=4)(*[np.stack([p[k] for p in prepared]
+                                           + [prepared[-1][k]])
+                                  for k in ("x0", "unmask")],
+                                eng._layout(4), seed=3)
+    tokens = out.tokens.numpy()
+    assert (tokens[:, :lt] < v0).all() and (tokens[:, :lt] != m.mask_index
+                                            ).all()
+    assert (tokens[:, lt:] >= v0).all()
+    for i, p in enumerate(prepared):
+        np.testing.assert_array_equal(tokens[i][p["unmask"]],
+                                      p["x0"][p["unmask"]])
+
+
+def test_unported_engine_options_raise_naming_their_queue_item():
+    _, tcfg = configs(**OVER)
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    for name, value, item in (("codec", object(), 3), ("mesh", object(), 9),
+                              ("rolling", 8, 10)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            InferenceEngine(tcfg, model, device="cpu", **{name: value})
+    with pytest.raises(TypeError, match="unexpected"):
+        InferenceEngine(tcfg, model, device="cpu", shards=2)
+    eng = InferenceEngine(tcfg, model, device="cpu", rolling=0)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        eng.enable_scaffold(model, 4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        eng.continuous

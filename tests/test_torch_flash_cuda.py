@@ -329,3 +329,23 @@ def test_tma_ready_copies_only_broadcast_operands():
     h1 = torch.zeros((2, 5, 64), dtype=torch.bfloat16)[:, :, None]
     h1 = h1.as_strided(h1.shape, (h1.stride(0), h1.stride(1), 0, 1))
     assert _tma_ready(h1) is h1
+
+
+# the conditioning-frozen serve paths' attention: the image rows' queries (a
+# view of the qkv projection) against [frozen text K/V || image K/V] (or a
+# block's slice of the whole cache), contiguous: Lq 256, Lk 384, 12 heads of
+# 64, at B 16 (frozen_cond under CFG) and B 8 (distilled_stack)
+FROZEN_BATCHES = {"frozen_cond_B16": 16, "distilled_stack_B8": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FROZEN_BATCHES))
+def test_forward_kernel_at_the_frozen_paths_shapes(case):
+    needs_card()
+    b = FROZEN_BATCHES[case]
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    q = torch.randn((b, 256, 3, 12, 64), generator=gen,
+                    device="cuda").bfloat16().unbind(2)[0]
+    k, v = (torch.randn((b, 384, 12, 64), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    check_forward(q, k, v, {})

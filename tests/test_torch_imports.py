@@ -107,6 +107,28 @@ def test_int8_slice_is_checked():
         assert (ROOT / f"unidisc_tpu_torch/ops/csrc/{name}.cu").exists()
 
 
+# the modules of the sampler-program slice: the generic sampler, the KV
+# cache, the conditioning-frozen t2i sampler and the captured programs
+SAMPLER_SLICE = [
+    "unidisc_tpu_torch/sampling/sampler.py",
+    "unidisc_tpu_torch/sampling/ar_sampler.py",
+    "unidisc_tpu_torch/sampling/t2i_fast.py",
+    "unidisc_tpu_torch/sampling/graph.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/ops/quant.py",
+]
+
+
+def test_sampler_slice_is_checked():
+    assert set(SAMPLER_SLICE) <= set(FILES)
+    # the card tests of the slice import no JAX either
+    for name in ("test_torch_graph_cuda.py", "test_torch_flash_cuda.py",
+                 "test_torch_int8_cuda.py"):
+        path = f"tests/{name}"
+        assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

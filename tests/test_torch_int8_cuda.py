@@ -354,3 +354,41 @@ def test_dynamic_quantize_zero_and_borderline_rows_on_card(case, x_dtype):
             # lifts by 2^64 before its fast path
             x = x * np.float32(2.0 ** -120)
     check_dynamic_quantize(x, x_dtype)
+
+
+# the products and row kernels of the conditioning-frozen serve paths: the
+# trunk over the image rows under CFG (16 rows x 256 image tokens = 4096,
+# frozen_cond), distilled_stack's step 0 (8 x 384 = 3072, which writes the
+# cache and so leaves the fused prologue) and its trunk (8 x 256 = 2048)
+FROZEN_ROWS = {"frozen_cond_trunk": (4096, 256),
+               "distilled_step0": (3072, None),
+               "distilled_trunk": (2048, 256)}
+TRUNK_PRODUCTS = {"attn_qkv": (768, 2304, False),
+                  "attn_out": (768, 768, False),
+                  "mlp_0": (768, 3072, True), "mlp_2": (3072, 768, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", list(FROZEN_ROWS))
+@pytest.mark.parametrize("name", list(TRUNK_PRODUCTS))
+def test_int8_matmul_at_the_frozen_paths_shapes(rows, name):
+    need_card()
+    k, n, bias = TRUNK_PRODUCTS[name]
+    check_int8(FROZEN_ROWS[rows][0], k, n, torch.bfloat16, bias,
+               seed=len(rows) + len(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", list(FROZEN_ROWS))
+def test_row_kernels_at_the_frozen_paths_shapes(rows):
+    need_card()
+    m, rows_per_batch = FROZEN_ROWS[rows]
+    if rows_per_batch is not None:
+        x, args = quantize_case("adaln_norm", "rms", True, torch.bfloat16,
+                                seed=m, m=m, k=768,
+                                rows_per_batch=rows_per_batch)
+        check_quantize(x, args)
+    rng = np.random.RandomState(m)
+    for k in (768, 3072):
+        x = rng.randn(m, k) * rng.uniform(0.01, 8.0, (m, 1))
+        check_dynamic_quantize(x.astype(np.float32), torch.bfloat16)

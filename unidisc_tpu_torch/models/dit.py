@@ -29,9 +29,22 @@ With ``quant_fused`` as well, attn_qkv and mlp.0 take the norm and the
 adaLN modulation as an fp32 prologue of the fused quantize kernel
 (``ops/fused_qmm.py``), as the JAX block does.
 
-The port covers the inference forward (bf16 and int8) and training mode
-without dropout (the flagship trains with dropout 0.0); training-mode
-dropout, the KV-cache, frozen-KV, image-conditioning, MoE,
+With ``kv_cache`` (and ``cache_index``, an int or a (B,) tensor of
+per-row positions) a forward writes its K/V into the cache at
+``cache_index`` and attends over the whole cache (full attention) or the
+cached prefix (causal); an int8 cache (``model.kv_cache_dtype="int8"``)
+stores K/V through ``ops/quant.py::quantize_kv`` and is read by
+``int8_kv_attention``. The writes go into the given cache tensors in place
+(the JAX module returns a new cache; the port saves the copy) and the same
+tensors come back as the new cache. With ``frozen_kv`` a forward attends
+over [frozen K/V || its own K/V] and writes nothing. Unmasked attention
+over a cache or a frozen prefix takes the hand-written kernel on the card,
+like every unmasked self-attention; the fused int8 block path is left when
+a KV cache is given and kept under ``frozen_kv``, as in the JAX block.
+
+The port covers the inference forward (bf16 and int8, with the KV-cache and
+frozen-KV paths) and training mode without dropout (the flagship trains
+with dropout 0.0); training-mode dropout, the image-conditioning, MoE,
 split-embedding, class-label, multi-resolution and parallel branches raise
 ``NotImplementedError``.
 """
@@ -49,7 +62,8 @@ from unidisc_tpu_torch.models.rotary import apply_rope, build_multimodal_rope
 from unidisc_tpu_torch.ops.attention import multihead_attention
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
 from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
-from unidisc_tpu_torch.ops.quant import qdot
+from unidisc_tpu_torch.ops.quant import (int8_kv_attention, qdot,
+                                         quantize_kv)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -247,7 +261,10 @@ class DDiTBlock(nn.Module):
             self.post_ff_norm = Norm(dim, cfg.norm_type, compute_dtype)
 
     def attention(self, x, rope_cos, rope_sin, attn_mask=None,
-                  qkv_prologue=None):
+                  qkv_prologue=None, kv_cache=None, cache_index=None,
+                  frozen_kv=None):
+        """Self-attention. kv_cache: this block's (k, v) or int8 (k_q, k_s,
+        v_q, v_s) slices, written in place at cache_index."""
         cfg = self.cfg
         dt = self.compute_dtype
         b, l, dim = x.shape
@@ -266,14 +283,39 @@ class DDiTBlock(nn.Module):
         causal = not cfg.full_attention
         if cfg.attn_backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown attn_backend {cfg.attn_backend!r}")
-        if attn_mask is None and cfg.attn_backend != "xla":
+        kernel = cfg.attn_backend != "xla"
+        if kv_cache is not None:
+            new = (*quantize_kv(k), *quantize_kv(v)) if len(kv_cache) == 4 \
+                else (k, v)
+            for cache, value in zip(kv_cache, new):
+                write_cache(cache, value, cache_index)
+            mask = None if cfg.full_attention else cache_mask(
+                l, kv_cache[0].shape[1], cache_index, x.device)
+            if len(kv_cache) == 4:
+                out = int8_kv_attention(q, *kv_cache, mask=mask)
+            elif mask is None and kernel:
+                out = flash_attention(q, *kv_cache)
+            else:
+                out = multihead_attention(q, *kv_cache, mask=mask)
+        elif frozen_kv is not None:
+            if causal:
+                raise ValueError("frozen_kv needs model.full_attention")
+            fk, fv = frozen_kv
+            k = torch.cat([fk.to(k.dtype), k], dim=1)
+            v = torch.cat([fv.to(v.dtype), v], dim=1)
+            out = flash_attention(q, k, v) if kernel \
+                else multihead_attention(q, k, v)
+        elif attn_mask is None and kernel:
             out = flash_attention(q, k, v, causal=causal)
         else:
             out = multihead_attention(q, k, v, mask=attn_mask, causal=causal)
         return dense(out.reshape(b, l, dim), self.attn_out, dt)
 
     def forward(self, x, c, rope_cos, rope_sin, modality=None,
-                attn_mask=None):
+                attn_mask=None, kv_cache=None, cache_index=None,
+                frozen_kv=None):
+        """One block; a kv_cache (this block's slices) is written in
+        place."""
         cfg = self.cfg
         dt = self.compute_dtype
         if cfg.time_conditioning:
@@ -288,8 +330,10 @@ class DDiTBlock(nn.Module):
         # attn_qkv and mlp.0 inputs run in fp32 inside the fused quantize
         # kernel, with no bf16 rounding between them; attn_out and mlp.2
         # keep qdot. The kernel takes one adaLN row per batch element, so
-        # per-token rows ((B, L, dim), from a (B, L, cond_dim) c) keep qdot
+        # per-token rows ((B, L, dim), from a (B, L, cond_dim) c) keep qdot,
+        # and so does a forward that writes a KV cache, as in the JAX block
         fused = (cfg.quant == "int8" and cfg.quant_fused
+                 and kv_cache is None
                  and (shift_msa is None or shift_msa.shape[1] == 1))
         if fused:
             gate_rows = None if modality is None \
@@ -304,15 +348,19 @@ class DDiTBlock(nn.Module):
                 return pro
 
         x_skip = x
+        cache_kw = dict(kv_cache=kv_cache, cache_index=cache_index,
+                        frozen_kv=frozen_kv)
         if fused:
             attn_out = self.attention(
                 x, rope_cos, rope_sin, attn_mask,
-                qkv_prologue=prologue(self.norm1, shift_msa, scale_msa))
+                qkv_prologue=prologue(self.norm1, shift_msa, scale_msa),
+                **cache_kw)
         else:
             hidden = self.norm1(x)
             if cfg.time_conditioning:
                 hidden = modulate(hidden, shift_msa, scale_msa, modality)
-            attn_out = self.attention(hidden, rope_cos, rope_sin, attn_mask)
+            attn_out = self.attention(hidden, rope_cos, rope_sin, attn_mask,
+                                      **cache_kw)
         if cfg.sandwich_normalization:
             x = x_skip + self.pre_residual_norm(attn_out)
         else:
@@ -361,9 +409,8 @@ class DDitFinalLayer(nn.Module):
 
 
 # arguments of the JAX DIT.__call__ whose branches later slices port
-_LATER_ARGS = ("kv_cache", "cache_index", "frozen_kv", "sample_ids",
-               "rope_index", "label", "x_cond", "extra_embed",
-               "img_block_index")
+_LATER_ARGS = ("sample_ids", "rope_index", "label", "x_cond",
+               "extra_embed", "img_block_index")
 
 _UNSUPPORTED_FLAGS = {
     "split_embed": "split text/image embedding",
@@ -495,16 +542,30 @@ class DIT(nn.Module):
             raise ValueError("modality_embed needs modality")
 
     def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
+               kv_cache=None, cache_index=None, frozen_kv=None,
                **unsupported):
         """Final hidden state (B, L, hidden) after the block stack, without
-        the vocab head."""
-        return self._trunk(indices, sigma, modality, attn_mask,
-                           unsupported)[0]
+        the vocab head; with a kv_cache, (hidden, new_cache)."""
+        x, _, new_cache = self._trunk(indices, sigma, modality, attn_mask,
+                                      kv_cache, cache_index, frozen_kv,
+                                      unsupported)
+        return x if kv_cache is None else (x, new_cache)
 
-    def _trunk(self, indices, sigma, modality, attn_mask, unsupported):
+    def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
+               cache_index, frozen_kv, unsupported):
         self._check(sigma, modality, unsupported)
         cfg = self.cfg
         dt = self.compute_dtype
+        if kv_cache is not None and frozen_kv is not None:
+            raise ValueError("pass kv_cache or frozen_kv, not both")
+        if kv_cache is not None or frozen_kv is not None:
+            if attn_mask is not None or not (
+                    isinstance(cache_index, int)
+                    or (torch.is_tensor(cache_index)
+                        and cache_index.shape == indices.shape[:1])):
+                raise ValueError("kv_cache and frozen_kv need a cache_index "
+                                 "(an int, or a (B,) tensor of per-row "
+                                 "positions) and take no attn_mask")
         x = self.vocab_embed(indices).to(dt)
         c = None
         if cfg.time_conditioning:
@@ -512,17 +573,79 @@ class DIT(nn.Module):
         if cfg.modality_embed:
             x = x + self.modality_embed(modality).to(dt)
         l = indices.shape[1]
-        cos, sin = self.rope_cos[:l], self.rope_sin[:l]
-        for blk in self.blocks:
-            x = blk(x, c, cos, sin, modality, attn_mask)
-        return x, c
+        if kv_cache is None and frozen_kv is None:
+            cos, sin = self.rope_cos[:l], self.rope_sin[:l]
+        else:
+            cos, sin = cache_rope(self.rope_cos, self.rope_sin, cache_index,
+                                  l)
+        for i, blk in enumerate(self.blocks):
+            # block i writes its slices of the (n_blocks, ...) cache in place
+            x = blk(x, c, cos, sin, modality, attn_mask,
+                    kv_cache=None if kv_cache is None
+                    else tuple(t[i] for t in kv_cache),
+                    cache_index=cache_index,
+                    frozen_kv=None if frozen_kv is None
+                    else (frozen_kv[0][i], frozen_kv[1][i]))
+        return x, c, (None if kv_cache is None else tuple(kv_cache))
 
     def forward(self, indices, sigma=None, *, modality=None,
                 attn_mask=None, return_hidden: bool = False,
+                kv_cache=None, cache_index=None, frozen_kv=None,
                 **unsupported):
-        x, c = self._trunk(indices, sigma, modality, attn_mask, unsupported)
+        """logits; (logits, hidden) with return_hidden; with a kv_cache
+        also the new cache last: (logits, new_cache) or (logits, hidden,
+        new_cache)."""
+        x, c, new_cache = self._trunk(indices, sigma, modality, attn_mask,
+                                      kv_cache, cache_index, frozen_kv,
+                                      unsupported)
         logits = self.output_layer(x, c, modality)
-        return (logits, x) if return_hidden else logits
+        out = (logits, x) if return_hidden else (logits,)
+        if kv_cache is not None:
+            out = out + (new_cache,)
+        return out[0] if len(out) == 1 else out
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
+    """Write new (B, l, ...) into cache (B, max_len, ...) in place at
+    positions cache_index + [0, l): cache_index an int, or a (B,) tensor of
+    per-row positions. Each start is clamped to [0, max_len - l], as
+    ``jax.lax.dynamic_update_slice`` clamps it."""
+    l, size = new.shape[1], cache.shape[1]
+    new = new.to(cache.dtype)
+    if isinstance(cache_index, int):
+        start = min(max(cache_index, 0), size - l)
+        cache[:, start:start + l] = new
+        return
+    pos = cache_index.clamp(0, size - l)[:, None] \
+        + torch.arange(l, device=cache.device)
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[rows, pos] = new
+
+
+def cache_mask(l: int, lk: int, cache_index, device) -> torch.Tensor:
+    """Causal mask of l new queries at cache_index over lk cached keys:
+    query j sees keys <= cache_index + j. (1, 1, l, lk), or (B, 1, l, lk)
+    for per-row positions."""
+    q_pos = torch.arange(l, device=device)
+    keys = torch.arange(lk, device=device)
+    if isinstance(cache_index, int):
+        return (keys[None, :] <= cache_index + q_pos[:, None])[None, None]
+    return (keys[None, None, :]
+            <= cache_index[:, None, None] + q_pos[None, :, None])[:, None]
+
+
+def cache_rope(cos: torch.Tensor, sin: torch.Tensor, cache_index, l: int):
+    """The rotary rows of l tokens at cache_index: rows [start, start + l)
+    for an int (start clamped to the table as ``dynamic_slice`` clamps
+    it); each row's own (B, l, d/2) rows at cache_index[b] + [0, l)
+    (clipped to the table) for per-row positions."""
+    n = cos.shape[0]
+    if isinstance(cache_index, int):
+        start = min(max(cache_index, 0), n - l)
+        return cos[start:start + l], sin[start:start + l]
+    pos = (cache_index[:, None]
+           + torch.arange(l, device=cos.device)[None, :]).clamp(0, n - 1)
+    return cos[pos], sin[pos]
 
 
 def count_params(model: nn.Module) -> int:

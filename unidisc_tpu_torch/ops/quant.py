@@ -19,9 +19,10 @@ reciprocals instead, as its JAX counterpart does. Rounding is half to even
 "dynamic_quantize", whatever the product's backend), on a CPU tensor
 through ``dynamic_quantize_reference``, its plain version.
 
-The int8 KV cache (``quantize_kv``, ``int8_kv_attention``) and the OpenELM
-conversion (``quantize_elm_params``) come with the port's KV-cache and ELM
-slices.
+The int8 KV cache (``quantize_kv``, ``int8_kv_attention``) reaches no
+Pallas kernel in the JAX package (XLA computes it), so its plain PyTorch
+form here is its port. The OpenELM conversion (``quantize_elm_params``)
+comes with the port's ELM slice.
 """
 
 from __future__ import annotations
@@ -100,6 +101,60 @@ def qdot(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     x_q, x_scale = dynamic_quantize(x.reshape(-1, x.shape[-1]))
     y = matmul(x_q, x_scale, w_q, w_scale, bias=bias, out_dtype=out_dtype)
     return y.reshape(*lead, w_q.shape[0])
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position, head) symmetric int8 over the last (head_dim)
+    axis, in the multiplying form of the JAX package: s = amax x (1/127),
+    q = round(x x (1/s)). x (..., D) -> (int8 of x's shape, fp32 scale
+    (..., 1)). Used for the KV cache writes and for the q and p
+    quantization inside ``int8_kv_attention``."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(amax > 0, amax * (1.0 / 127.0), 1.0)
+    return torch.round(x32 * (1.0 / s)).to(torch.int8), s
+
+
+# keys per exact partial sum of the value product: n int8 x int8 products
+# sum exactly in fp32 while n x 127^2 < 2^24, that is n <= 1040
+_PV_CHUNK = 1024
+
+
+def int8_kv_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                      vq: torch.Tensor, vs: torch.Tensor, *,
+                      mask: Optional[torch.Tensor] = None,
+                      softmax_scale: Optional[float] = None
+                      ) -> torch.Tensor:
+    """Attention over an int8 KV cache without dequantizing it:
+
+      scores = (q8 . k8) * q_s * k_s * scale
+      out    = (p8 . v8) * p_s,   p8, p_s = quantize_kv(softmax(scores) * v_s)
+
+    q (B, l, H, D) float; kq, vq (B, L, H, D) int8; ks, vs (B, L, H, 1)
+    fp32; mask broadcastable to (B, H, l, L), True = attend. Returns
+    (B, l, H, D) in q's dtype.
+
+    PyTorch has no batched int8 product on the card, so both contractions
+    run in fp32 on int8-valued operands, where they are exact integers as
+    in the JAX package's int32 accumulation: the score product sums
+    D <= 128 terms; the value product sums the cache length in chunks of
+    at most 1024 keys, each exact in fp32, added exactly in int64."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    q_q, q_s = quantize_kv(q)
+    acc = torch.einsum("blhd,bkhd->bhlk", q_q.float(), kq.float())
+    scores = (acc * q_s.permute(0, 2, 1, 3) * ks.permute(0, 2, 3, 1)
+              * scale)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    p_q, p_s = quantize_kv(p * vs.permute(0, 2, 3, 1))
+    acc_v = sum(torch.einsum("bhlk,bkhd->bhld",
+                             p_q[..., k0:k0 + _PV_CHUNK].float(),
+                             vq[:, k0:k0 + _PV_CHUNK].float()).to(torch.int64)
+                for k0 in range(0, vq.shape[1], _PV_CHUNK))
+    out = acc_v.float() * p_s
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def quantize_dit_params(state_dict: Dict[str, torch.Tensor]

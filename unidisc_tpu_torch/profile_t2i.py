@@ -1,12 +1,13 @@
 """Where a flagship text->image batch spends its time on the card.
 
     python -m unidisc_tpu_torch.profile_t2i [--requests 8] [--top 20]
-        [--int8] [--out chiprun_out/profile_t2i.json]
+        [--int8] [--frozen] [--out chiprun_out/profile_t2i.json]
 
 Builds the flagship engine (``config.FLAGSHIP_OVERRIDES``, random weights
 from a seed; with ``--int8`` those weights quantized, served under
-``config.FLAGSHIP_INT8_OVERRIDES``), serves one warm-up batch, then
-measures:
+``config.FLAGSHIP_INT8_OVERRIDES``; with ``--frozen`` under the
+``frozen_cond`` overlay, conditioning-frozen sampling), serves one warm-up
+batch, which captures the sampler's CUDA-graph program, then measures:
 
   * one DIT forward at the CFG batch (2 x requests rows): the time between
     CUDA events around it (device idle gaps included), and the host time
@@ -14,9 +15,11 @@ measures:
     the card, sets the pace;
   * the device operations (kernels, copies, fills) one forward launches,
     counted by ``torch.profiler``;
-  * one served batch under ``torch.profiler``: device time by kernel name,
-    the device operations per denoise step, and the device's busy share of
-    the batch's wall time.
+  * one served batch under ``torch.profiler``, as the engine serves it
+    (the captured program's replay) and through the eager sampler: device
+    time by kernel name, the device operations per denoise step, and the
+    device's busy share of the batch's wall time; and the program's build
+    time.
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -29,6 +32,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
@@ -77,6 +81,37 @@ def forward_times(engine, rows: int, iters: int = 10) -> dict:
             "device_ops": sum(e.count for e in device_events(prof))}
 
 
+def profile_batch(run, nfe_of, top: int) -> dict:
+    """One batch `run()` under torch.profiler: wall time, device busy time
+    and share, device operations per denoise step, kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+    run()                                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    nfe = nfe_of(out)
+    ops = sum(e.count for e in kernels)
+    rows = [{"name": e.key[:120], "count": e.count,
+             "device_ms": e.self_device_time_total / 1e3,
+             "share_of_busy": (e.self_device_time_total / 1e3 / busy_ms)
+             if busy_ms else None} for e in kernels]
+    rec = {"wall_ms": wall_ms, "nfe": nfe, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+           "device_ops": ops, "device_ops_per_step": ops / nfe,
+           "kernels": rows[:top], "all_kernels": rows}
+    if not busy_ms:
+        rec["note"] = ("the profiler recorded no device time: device busy "
+                       "share not measured")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=8)
@@ -84,6 +119,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--int8", action="store_true",
                     help="serve the int8 W8A8 model")
+    ap.add_argument("--frozen", action="store_true",
+                    help="conditioning-frozen sampling (frozen_cond)")
     ap.add_argument("--out", default="chiprun_out/profile_t2i.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -91,55 +128,49 @@ def main() -> int:
         return 1
 
     overrides = FLAGSHIP_INT8_OVERRIDES if args.int8 else FLAGSHIP_OVERRIDES
-    engine = build_engine(preset="small", overrides=overrides)
+    engine = build_engine(preset="small", overrides=overrides,
+                          experiments=("frozen_cond",) if args.frozen
+                          else None)
     randomize_(engine.model, args.seed)
     if args.int8:
         engine = InferenceEngine(*quantize_model(engine.config,
                                                  engine.model))
     prepared = [engine.prepare(text=f"a profile prompt {i}")
                 for i in range(args.requests)]
-    engine.run_batch(prepared, seed=0)                    # warm-up
+    engine.run_batch(prepared, seed=0)        # warm-up: captures the program
     torch.cuda.synchronize()
+    sampler = engine._samplers[("t2i", engine.config.sampling.steps)]
+    # a tree before the captured programs (scripts/profile_t2i_root.py)
+    # serves eager: its "batch" is the eager one
+    program = getattr(sampler, "graphs", {}).get(args.requests)
+    build_s = program.build_s if program is not None else None
 
     record = {"device": torch.cuda.get_device_name(0),
               "requests": args.requests, "int8": args.int8,
+              "frozen": args.frozen, "captured": program is not None,
+              "graph_build_s": build_s,
               "forward": forward_times(engine, 2 * args.requests)}
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        results = engine.run_batch(prepared, seed=1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    nfe = results[0]["nfe"]
-    ops = sum(e.count for e in kernels)
-    rows = [{"name": e.key[:120], "count": e.count,
-             "device_ms": e.self_device_time_total / 1e3,
-             "share_of_busy": (e.self_device_time_total / 1e3 / busy_ms)
-             if busy_ms else None} for e in kernels]
-    record["batch"] = {
-        "wall_ms": wall_ms, "nfe": nfe, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-        "device_ops": ops, "device_ops_per_step": ops / nfe,
-        "kernels": rows[:args.top], "all_kernels": rows}
-    if not busy_ms:
-        record["batch"]["note"] = ("the profiler recorded no device time: "
-                                   "device busy share not measured")
+    txt = torch.from_numpy(np.stack([p["x0"] for p in prepared])[
+        :, :engine.m.txt_length])
+    record["batch"] = profile_batch(
+        lambda: engine.run_batch(prepared, seed=1),
+        lambda out: out[0]["nfe"], args.top)
+    record["batch_eager"] = profile_batch(
+        lambda: sampler(txt, generator=torch.Generator(device="cuda")
+                        .manual_seed(1)),
+        lambda out: out.nfe, args.top)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     for k in record["batch"]["kernels"]:
         print(f"{k['device_ms']:10.3f} ms {k['count']:6d}x  {k['name']}")
     print(json.dumps({"forward": record["forward"],
-                      "batch_wall_ms": wall_ms,
-                      "device_ops_per_step": ops / nfe,
-                      "device_busy_ms": busy_ms,
-                      "device_busy_share": record["batch"][
-                          "device_busy_share"]}))
+                      "graph_build_s": build_s,
+                      **{f"{label}_{key}": record[label][key]
+                         for label in ("batch", "batch_eager")
+                         for key in ("wall_ms", "device_busy_ms",
+                                     "device_busy_share",
+                                     "device_ops_per_step")}}))
     return 0
 
 

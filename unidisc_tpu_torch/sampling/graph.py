@@ -1,0 +1,120 @@
+"""The samplers as captured CUDA-graph programs: the port's counterpart of
+the JAX package's ``jax.jit`` around a sampler's ``lax.scan`` (one compiled
+program with no host round trip, ``unidisc_tpu/sampling/sampler.py:1-8``).
+
+``captured(sampler, batch)`` takes a built sampler
+(``t2i_fast.build_t2i_sampler`` or ``sampler.build_sampler``) and a batch
+size and returns a ``CapturedSampler``, cached on the sampler per batch
+size. Its call
+
+  1. copies its inputs (text tokens, or x0 / x0_unmask / modality, and any
+     injected noise) into static device buffers;
+  2. reseeds the program's own generator;
+  3. replays one ``torch.cuda.CUDAGraph`` that holds the whole denoise
+     loop (every step, every kernel);
+  4. runs the sampler's noise-removal pass after it (one host read of
+     whether a mask is left, and a forward only if one is) and returns the
+     tokens cloned out of the graph's memory pool.
+
+The capture: the sampler's per-batch constants are uploaded and its
+denoise loop runs once on a side stream first (that builds and loads the
+kernels, initialises cuBLAS and settles the allocator), then the loop is
+captured on the program's generator. Every operand of the hand kernels
+(their TMA tensor maps are encoded on the host at launch and reach the
+kernel by value) then lies in the static buffers, the sampler's constants
+or the graph's pool, so a replay reads the same addresses. A failed
+capture or replay raises; nothing falls back to the eager loop.
+
+Launch counts: ``ops/_build.launch_counts`` counts in Python where a
+wrapper launches, so a capture would count launches the device never ran
+and a replay none. The capture's counts are taken out again and recorded,
+and each replay adds them: the counts are what the device ran.
+
+ddpm_cache reads a device flag each step to skip its forward
+(``capturable`` is False) and is not captured.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Optional
+
+import torch
+
+from unidisc_tpu_torch.ops import _build
+from unidisc_tpu_torch.sampling.sampler import SampleResult
+
+
+class CapturedSampler:
+    """One sampler's denoise loop at one batch size, captured."""
+
+    def __init__(self, sampler, batch: int):
+        dev = sampler.device
+        if dev.type != "cuda":
+            raise ValueError(f"a captured sampler runs on the card; this "
+                             f"sampler runs on {dev}")
+        if not sampler.capturable:
+            raise ValueError("this sampler reads the device inside its "
+                             "loop (ddpm_cache) and cannot be captured")
+        if getattr(sampler, "return_trajectory", False):
+            raise ValueError("a captured sampler returns no trajectory")
+        self.sampler, self.batch = sampler, batch
+        self.generator = torch.Generator(device=dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self.static = sampler.example_inputs(batch)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                sampler.denoise(self.static, self.generator)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            register = getattr(self.graph, "register_generator_state", None)
+            if register is not None:
+                register(self.generator)
+            before = collections.Counter(_build.launch_counts)
+            with torch.cuda.graph(self.graph):
+                self.x, self.state = sampler.denoise(self.static,
+                                                     self.generator)
+            torch.cuda.synchronize(dev)
+        self.launches = collections.Counter(_build.launch_counts)
+        self.launches.subtract(before)
+        for name, n in self.launches.items():
+            _build.launch_counts[name] -= n
+            if _build.launch_counts[name] == 0:
+                del _build.launch_counts[name]
+        self.launches = +self.launches
+        self.build_s = time.perf_counter() - t0
+
+    def __call__(self, *args, seed: int = 0, injected=None) -> SampleResult:
+        """The sampler's call on `batch` rows: args are the eager sampler's
+        positional inputs; `seed` seeds the program's generator (unused
+        under injected noise)."""
+        with torch.inference_mode():
+            inputs = self.sampler.prepare(*args, injected=injected)
+            if set(inputs) != set(self.static):
+                raise ValueError(f"inputs {sorted(inputs)} differ from the "
+                                 f"captured {sorted(self.static)}")
+            for name, value in inputs.items():
+                if value.shape != self.static[name].shape:
+                    raise ValueError(
+                        f"{name} has shape {tuple(value.shape)}; the "
+                        f"program was captured at "
+                        f"{tuple(self.static[name].shape)}")
+                self.static[name].copy_(value)
+            self.generator.manual_seed(seed)
+            self.graph.replay()
+            _build.launch_counts.update(self.launches)
+            out = self.sampler.finish(self.x, self.state, self.static)
+            return SampleResult(tokens=out.tokens.clone(), nfe=out.nfe)
+
+
+def captured(sampler, batch: int) -> CapturedSampler:
+    """The captured program of `sampler` at `batch` rows, built at first
+    use and kept on the sampler."""
+    program: Optional[CapturedSampler] = sampler.graphs.get(batch)
+    if program is None:
+        program = sampler.graphs[batch] = CapturedSampler(sampler, batch)
+    return program

@@ -1,19 +1,48 @@
-"""Sampler building blocks (port of parts of
-``unidisc_tpu/sampling/sampler.py``).
+"""Masked-diffusion samplers (port of ``unidisc_tpu/sampling/sampler.py``).
 
-Everything the host knows before a sample starts (the unmasking schedule,
-the timesteps, the guidance weight at each step) is computed host-side in
-numpy float32, with the same float32 operations as the JAX package, so no
-denoise step reads a device tensor. Only ``confidence_threshold`` runs on
-device tensors.
+``build_sampler`` builds the generic sampler of one predictor, the
+counterpart of the JAX package's one-``lax.scan``-per-predictor design:
+
+  * ddpm          reverse step of the absorbing process, Gumbel-argmax on
+                  log q(x_s | x_t);
+  * ddpm_cache    ddpm that reuses log p(x0) while x is unchanged, skipping
+                  the forward (the MDLM caching trick);
+  * maskgit       confidence top-k: reveal the schedule's count of the most
+                  confident Gumbel-argmax predictions;
+  * maskgit_nucleus  maskgit whose token pick is top-p (``nucleus_sample``);
+  * first_hitting reveal the schedule's count of uniformly random masked
+                  positions.
+
+Classifier-free guidance is (1 + w) logit_c - w logit_u with the
+time-annealed w(t) (``guidance_weight``) and the unconditional branch
+formed by re-masking the conditioning tokens; the per-modality vocabulary
+restriction (``force_argmax_valid_indices``) goes through
+``diffusion/subs.py::subs_parameterization``.
+
+Everything the host knows before a sample starts (the timesteps, dt, the
+guidance weight at each step, the unmasking schedule from each request's
+count of masked tokens) is computed host-side in numpy float32, with the
+same float32 operations as the JAX package, and uploaded once; no denoise
+step reads a device tensor, so ``sampling/graph.py`` can capture the loop
+in one CUDA graph. The exception is ddpm_cache, whose skip is a device
+flag: it reads one flag a step and is not captured. The noise-removal pass
+after the loop reads the device once.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from unidisc_tpu_torch.config import Config
+from unidisc_tpu_torch.device import resolve_device
+from unidisc_tpu_torch.diffusion.noise import get_noise
+from unidisc_tpu_torch.diffusion.subs import subs_parameterization
+
+PREDICTORS = ("ddpm", "ddpm_cache", "maskgit", "maskgit_nucleus",
+              "first_hitting")
 
 
 def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
@@ -27,6 +56,64 @@ def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
     step = np.arange(div, dtype=np.float32) / np.float32(div)
     out = start32 * (np.float32(1) - step) + stop32 * step
     return np.concatenate([out, [stop32]]).astype(np.float32)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def gumbel(shape, generator: Optional[torch.Generator],
+           device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(E) with E ~ Exp(1), fp32, from
+    `generator` (the device's default generator when None)."""
+    e = torch.empty(shape, device=device).exponential_(generator=generator)
+    return -torch.log(e)
+
+
+def check_model_device(model, dev: torch.device) -> None:
+    p = next(model.parameters())
+    if p.device.type != dev.type or (dev.index is not None
+                                     and p.device.index != dev.index):
+        raise ValueError(f"the model's parameters are on {p.device}, the "
+                         f"sampler runs on {dev}; move the model first")
+
+
+def sample_categorical(probs: torch.Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Gumbel-trick categorical sampling in the reference's probs / Exp(1)
+    argmax form: argmax(probs / (E + 1e-10)), E ~ Exp(1) fp32."""
+    exp = torch.empty(probs.shape, device=probs.device).exponential_(
+        generator=generator) + 1e-10
+    return torch.argmax(probs / exp, dim=-1)
+
+
+def nucleus_sample(probs: torch.Tensor, top_p: float,
+                   temperature: float = 1.0, *,
+                   exp_noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Top-p (nucleus) sampling, token for token with the JAX package's:
+    probs divided by the temperature without a new softmax; the kept set
+    is the largest prefix of the (stably) sorted probabilities with
+    cumulative mass <= top_p, plus the top token; the draw is
+    argmax(filtered / E) in sorted space, so injected exponential noise
+    `exp_noise` (E, of probs' shape) lands on the same lanes."""
+    scaled = probs / temperature
+    order = torch.argsort(-scaled, dim=-1, stable=True)
+    sorted_probs = torch.gather(scaled, -1, order)
+    keep = torch.cumsum(sorted_probs, dim=-1) <= top_p
+    keep[..., 0] = True
+    filtered = torch.where(keep, sorted_probs, 0.0)
+    filtered = filtered / torch.clamp(filtered.sum(-1, keepdim=True),
+                                      min=1e-30)
+    if exp_noise is None:
+        exp_noise = torch.empty(filtered.shape,
+                                device=filtered.device).exponential_(
+            generator=generator) + 1e-10
+    j = torch.argmax(filtered / exp_noise, dim=-1)
+    return torch.gather(order, -1, j[..., None])[..., 0]
 
 
 def adaptive_schedule(num_masked, steps: int,
@@ -95,3 +182,276 @@ def guidance_weight(s, t) -> Optional[np.ndarray]:
     if hi is not None:
         wt = np.where(t < np.float32(hi), wt, np.float32(0))
     return wt.astype(np.float32)
+
+
+class Sampler:
+    """The generic sampler of one predictor (``build_sampler``).
+
+    Called as ``sample(x0, x0_unmask, modality=None, *, generator=None,
+    injected=None)``. ``prepare``, ``denoise`` and ``finish`` are the three
+    parts of that call: the upload of the inputs (with the schedule), the
+    denoise loop (device work only unless ddpm_cache, what
+    ``sampling/graph.py`` captures) and the noise-removal pass."""
+
+    def __init__(self, model, config: Config, num_steps, inject_noise,
+                 device):
+        self.device = resolve_device(device)
+        check_model_device(model, self.device)
+        s = config.sampling
+        if s.predictor not in PREDICTORS:
+            raise ValueError(f"unknown predictor {s.predictor}")
+        self.model, self.config = model, config
+        self.predictor = s.predictor
+        self.capturable = s.predictor != "ddpm_cache"
+        self.steps = num_steps or s.steps
+        self.inject_noise = inject_noise
+        self.noise = get_noise(config.noise)
+        self.use_cfg = s.cfg is not None
+        self._plans: Dict[int, dict] = {}
+        self.graphs: Dict[int, object] = {}   # sampling/graph.py's cache
+
+    @property
+    def _noise_keys(self) -> tuple:
+        """The injected noise this predictor reads."""
+        return {"maskgit": ("exp", "gumbel"),
+                "maskgit_nucleus": ("exp", "gumbel"),
+                "first_hitting": ("exp", "uniform")}.get(self.predictor,
+                                                         ("exp",))
+
+    @property
+    def _masks_by_schedule(self) -> bool:
+        return self.predictor in ("maskgit", "maskgit_nucleus",
+                                  "first_hitting")
+
+    def plan(self, b: int) -> dict:
+        """The host-known per-step values of a batch of b rows, on the
+        device, built once per batch size: the timesteps t (steps + 1, B)
+        (the last row sampling_eps, for the noise-removal pass), t - dt
+        (steps, B) and the guidance weights (steps + 1, B)."""
+        if b not in self._plans:
+            s = self.config.sampling
+            eps = np.float32(s.sampling_eps)
+            timesteps = linspace_f32(1.0, s.sampling_eps, self.steps + 1)
+            t_host = np.repeat(timesteps[:, None], b, axis=1)
+            dt = np.float32((1.0 - s.sampling_eps) / self.steps)
+            t_host[self.steps] = eps
+            plan = {"t": upload(t_host, self.device),
+                    "t_s": upload(t_host[:-1] - dt, self.device), "w": None}
+            if self.use_cfg:
+                plan["w"] = upload(np.stack([guidance_weight(s, row)
+                                             for row in t_host]),
+                                   self.device)
+            self._plans[b] = plan
+        return self._plans[b]
+
+    def prepare(self, x0, x0_unmask, modality=None, injected=None) -> dict:
+        """The inputs of one call as device tensors: "x0" (B, L) long,
+        "unmask" (B, L) bool, "modality" (B, L) long when given, the
+        schedule (B, steps) for the schedule-driven predictors (from each
+        row's count of masked tokens, on the host) and the injected
+        noise."""
+        if (injected is not None) != self.inject_noise:
+            raise ValueError("pass `injected` exactly when the sampler was "
+                             "built with inject_noise=True")
+        m, s = self.config.model, self.config.sampling
+        dev = self.device
+        x0_host = np.asarray(torch.as_tensor(x0).cpu(), np.int64)
+        unmask_host = np.asarray(torch.as_tensor(x0_unmask).cpu(), bool)
+        inputs = {"x0": upload(x0_host, dev),
+                  "unmask": upload(unmask_host, dev)}
+        if modality is not None:
+            inputs["modality"] = torch.as_tensor(modality).to(dev,
+                                                              torch.long)
+        if self._masks_by_schedule:
+            masked = np.where(unmask_host, x0_host, m.mask_index) \
+                == m.mask_index
+            inputs["schedule"] = upload(adaptive_schedule(
+                masked.sum(-1), self.steps, s.maskgit_mode), dev)
+        if self.inject_noise:
+            for key, value in injected.items():
+                if key not in ("exp", "gumbel", "uniform"):
+                    raise ValueError(f"unknown injected noise {key!r}")
+                if key in self._noise_keys:
+                    inputs[key] = torch.as_tensor(value).to(dev,
+                                                            torch.float32)
+        return inputs
+
+    def example_inputs(self, b: int) -> dict:
+        """Inputs of the right shapes for a batch of b rows, for a capture's
+        warm-up: the flagship layout's modality, the text masked."""
+        m = self.config.model
+        modality = np.concatenate([np.zeros((b, m.txt_length), np.int64),
+                                   np.ones((b, m.img_length), np.int64)], 1)
+        injected = None
+        if self.inject_noise:
+            shape = (self.steps, b, m.length)
+            injected = {"exp": np.ones(shape + (m.vocab_size,), np.float32),
+                        "gumbel": np.zeros(shape, np.float32),
+                        "uniform": np.full(shape, 0.5, np.float32)}
+            injected = {k: injected[k] for k in self._noise_keys}
+        return self.prepare(np.zeros((b, m.length), np.int64),
+                            modality == 1, modality, injected)
+
+    def _noise(self, inputs, key, i):
+        return inputs[key][i] if key in inputs else None
+
+    def _log_p(self, x, i, p, inputs, normalize=True):
+        """log p(x0 | x) at step i with CFG and the vocabulary restriction;
+        with normalize=False the masked unnormalized logits."""
+        m = self.config.model
+        t = p["t"][i]
+        sigma = self.noise.total(t)
+        modality = inputs.get("modality")
+        modal_kw = dict(modality=modality,
+                        text_vocab_size=m.text_vocab_size) \
+            if m.force_argmax_valid_indices and modality is not None else {}
+        if self.use_cfg:
+            x_uncond = torch.where(inputs["unmask"], m.mask_index, x)
+            mm = None if modality is None else torch.cat([modality,
+                                                          modality], 0)
+            logits = self.model(torch.cat([x, x_uncond], 0),
+                                torch.cat([sigma, sigma], 0), modality=mm)
+            logit_c, logit_u = logits.chunk(2, dim=0)
+            w = p["w"][i][:, None, None]
+            combined = (1 + w) * logit_c - w * logit_u
+            return subs_parameterization(combined, None, m.mask_index,
+                                         normalize=normalize, **modal_kw)
+        logits = self.model(x, sigma, modality=modality)
+        return subs_parameterization(logits, x, m.mask_index,
+                                     normalize=normalize, **modal_kw)
+
+    def _scores(self, log_p, i, p):
+        """log q(x_s | x_t) of the reverse step: log p(x0) + log(mc_t -
+        mc_s), the mask token log(mc_s); mc = 1 - exp(-sigma), in fp32."""
+        mask_index = self.config.model.mask_index
+        mc_t = (1 - torch.exp(-self.noise.total(p["t"][i])))[:, None, None]
+        mc_s = (1 - torch.exp(-self.noise.total(p["t_s"][i])))[:, None,
+                                                                 None]
+        ids = torch.arange(log_p.shape[-1], device=log_p.device)
+        return torch.where(ids == mask_index, torch.log(mc_s),
+                           log_p + torch.log(mc_t - mc_s))
+
+    def _select(self, scores, exp_noise, generator):
+        """Gumbel-argmax: argmax(scores - log E) with injected E, else
+        argmax(scores + G), G drawn in the scores' dtype."""
+        if exp_noise is not None:
+            return torch.argmax(scores - torch.log(exp_noise), dim=-1)
+        g = gumbel(scores.shape, generator, scores.device).to(scores.dtype)
+        return torch.argmax(scores + g, dim=-1)
+
+    def _maskgit_step(self, x, i, p, inputs, generator):
+        s = self.config.sampling
+        copy = x != self.config.model.mask_index
+        num = torch.minimum(inputs["schedule"][:, i], (~copy).sum(-1))
+        nucleus = self.predictor == "maskgit_nucleus" and s.top_p is not None
+        raw = self._log_p(x, i, p, inputs, normalize=nucleus)
+        exp_noise = self._noise(inputs, "exp", i)
+        if nucleus:
+            pred = nucleus_sample(torch.exp(raw), s.top_p, s.temperature,
+                                  exp_noise=exp_noise, generator=generator)
+            lse = torch.zeros(raw.shape[:-1], dtype=raw.dtype,
+                              device=raw.device)
+        else:
+            pred = self._select(raw, exp_noise, generator)
+            lse = torch.logsumexp(raw, dim=-1)
+        conf = torch.gather(raw, -1, pred[..., None])[..., 0] - lse
+        conf = torch.clamp(conf, min=_LOG_1E_30)
+        g = self._noise(inputs, "gumbel", i)
+        if g is None:
+            g = gumbel(pred.shape, generator, x.device)
+        conf = conf + s.maskgit_r_temp * g * p["t"][i][:, None]
+        conf = torch.where(copy, float("-inf"), conf)
+        thresh = confidence_threshold(conf, num)
+        return torch.where(conf >= thresh, pred, x)
+
+    def _first_hitting_step(self, x, i, p, inputs, generator):
+        copy = x != self.config.model.mask_index
+        num = torch.minimum(inputs["schedule"][:, i], (~copy).sum(-1))
+        log_p = self._log_p(x, i, p, inputs)
+        pred = self._select(log_p, self._noise(inputs, "exp", i), generator)
+        uniform = self._noise(inputs, "uniform", i)
+        if uniform is None:
+            uniform = torch.rand(x.shape, generator=generator,
+                                 device=x.device)
+        randv = torch.where(copy, -1.0, uniform)
+        thresh = confidence_threshold(randv, num)
+        return torch.where(randv >= thresh, pred, x)
+
+    def denoise(self, inputs, generator=None):
+        """The denoise loop: (x (B, L), state). state holds "nfe", the
+        forwards the loop ran (a host int)."""
+        mask_index = self.config.model.mask_index
+        x0, unmask = inputs["x0"], inputs["unmask"]
+        p = self.plan(x0.shape[0])
+        x = torch.where(unmask, x0, mask_index)
+        nfe = 0
+        log_p, valid = None, False
+        for i in range(self.steps):
+            if self.predictor in ("ddpm", "ddpm_cache"):
+                if not valid:
+                    log_p = self._log_p(x, i, p, inputs)
+                    nfe += 1
+                new = self._select(self._scores(log_p, i, p),
+                                   self._noise(inputs, "exp", i), generator)
+                x_next = torch.where(x != mask_index, x, new)
+            elif self.predictor == "first_hitting":
+                x_next = self._first_hitting_step(x, i, p, inputs, generator)
+                nfe += 1
+            else:
+                x_next = self._maskgit_step(x, i, p, inputs, generator)
+                nfe += 1
+            x_next = torch.where(unmask, x0, x_next)
+            if self.predictor == "ddpm_cache":
+                # the MDLM caching trick: log p stays valid while x is
+                # unchanged; one device flag read a step
+                valid = bool((x_next == x).all())
+            x = x_next
+        return x, {"nfe": nfe}
+
+    def finish(self, x, state, inputs) -> SampleResult:
+        """Noise removal: remaining masks take argmax p(x0) at
+        sampling_eps (one device read, and one forward where a mask is
+        left); then the conditioning is clamped."""
+        nfe = state["nfe"]
+        if self.config.sampling.noise_removal:
+            mask_index = self.config.model.mask_index
+            if bool((x == mask_index).any()):
+                p = self.plan(x.shape[0])
+                log_p = self._log_p(x, self.steps, p, inputs)
+                x = torch.where(x == mask_index, torch.argmax(log_p, -1), x)
+                nfe += 1
+            x = torch.where(inputs["unmask"], inputs["x0"], x)
+        return SampleResult(tokens=x, nfe=nfe)
+
+    @torch.inference_mode()
+    def __call__(self, x0, x0_unmask, modality=None, *,
+                 generator: Optional[torch.Generator] = None,
+                 injected=None) -> SampleResult:
+        inputs = self.prepare(x0, x0_unmask, modality, injected)
+        x, state = self.denoise(inputs, generator)
+        return self.finish(x, state, inputs)
+
+
+# maskgit's confidence floor, log(1e-30) in fp32
+_LOG_1E_30 = float(np.log(np.float32(1e-30)))
+
+
+def build_sampler(model, config: Config, num_steps: Optional[int] = None,
+                  inject_noise: bool = False, device="cuda") -> Sampler:
+    """The generic sampler of ``config.sampling.predictor``:
+    sample(x0 (B, L), x0_unmask (B, L) bool, modality (B, L) 0/1 or None,
+    *, generator=None, injected=None) -> SampleResult. x0 holds the given
+    tokens where x0_unmask is True; every other position is generated.
+
+    inject_noise=True: `sample` takes an `injected` dict of pre-drawn noise
+    instead of drawing from `generator`, the JAX package's contract, so the
+    two can be held token for token: "exp" (steps, B, L, V) exponential
+    draws (the token pick of ddpm, maskgit and first_hitting, and the
+    nucleus draw in sorted space), "gumbel" (steps, B, L) maskgit's
+    confidence noise, "uniform" (steps, B, L) first_hitting's position
+    draw; a key the predictor reads and the dict leaves out is drawn from
+    `generator`, one it does not read is ignored.
+
+    The model must already be on `device` and in eval mode.
+    """
+    return Sampler(model, config, num_steps, inject_noise, device)

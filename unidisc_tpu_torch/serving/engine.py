@@ -1,12 +1,19 @@
 """Inference engine: requests -> conditioned sampling -> decoded results
-(port of the text->image path of ``unidisc_tpu/serving/engine.py``).
+(port of ``unidisc_tpu/serving/engine.py``).
 
-This slice serves the span-factored text->image fast path: a request whose
-text is given in full and whose image is generated, in bf16 or, with
-``build_engine(quantize="int8")``, in int8 W8A8. Other tasks (text
-generation, infilling, joint generation) need the generic sampler and
-raise, as do checkpoints, meshes, rolling batching and scaffold decoding,
-which later slices port (ROADMAP queue 1).
+A batch whose requests all give their text in full and generate their
+image takes the span-factored text->image sampler (``sampling/t2i_fast.py``,
+with ``sampling.cached_cond`` its conditioning-frozen variant); any other
+batch (image->text, infilling, joint generation) takes the generic sampler
+of ``sampling.predictor`` (``sampling/sampler.py``). bf16, or int8 W8A8 with
+``build_engine(quantize="int8")``.
+
+On the card every sampler runs as its captured CUDA-graph program
+(``sampling/graph.py``), one per sampler and batch size, the counterpart
+of the JAX engine's ``jax.jit``; ddpm_cache, whose skip reads a device flag
+each step, runs eager. On the CPU the samplers run eager. Checkpoints, the
+image codec, meshes, rolling and continuous batching and scaffold decoding
+are later slices (ROADMAP queue 1, items 3 and 10).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
+from unidisc_tpu_torch.sampling.graph import captured
 
 MASK_TOKEN_RE = re.compile(r"<mask(?::(\d+))?>")
 
@@ -30,9 +38,23 @@ def expand_mask_tokens(text: str) -> str:
         lambda m: "<mask>" * int(m.group(1) or 1), text)
 
 
+# the JAX engine's options that later slices port, with their ROADMAP
+# queue 1 items
+_LATER_OPTIONS = {"codec": 3, "mesh": 9, "rolling": 10, "ar_draft": 10,
+                  "lookup_ngram": 10}
+
+
 class InferenceEngine:
     def __init__(self, config: Config, model, *, tokenizer=None,
-                 device="cuda"):
+                 device="cuda", **later):
+        for name, value in later.items():
+            if name not in _LATER_OPTIONS:
+                raise TypeError(f"InferenceEngine got an unexpected "
+                                f"argument {name!r}")
+            if value:
+                raise NotImplementedError(
+                    f"InferenceEngine({name}=...) is not in the port yet "
+                    f"(ROADMAP queue 1, item {_LATER_OPTIONS[name]})")
         self.device = resolve_device(device)
         self.config = config
         self.m = config.model
@@ -45,7 +67,29 @@ class InferenceEngine:
         # serializes device work and the sampler cache across threads
         self._device_lock = threading.Lock()
 
-    def _t2i_sampler(self, steps: Optional[int] = None):
+    def enable_scaffold(self, *args, **kwargs):
+        raise NotImplementedError("scaffold decoding is not in the port yet "
+                                  "(ROADMAP queue 1, item 4)")
+
+    @property
+    def continuous(self):
+        raise NotImplementedError("continuous batching is not in the port "
+                                  "yet (ROADMAP queue 1, item 10)")
+
+    def _program(self, sampler, batch: int):
+        """`sampler` as the engine runs it, run(*inputs, seed): on the card
+        its captured program at `batch` rows (ddpm_cache runs eager), on
+        the CPU the eager sampler with a generator seeded per call."""
+        if self.device.type == "cuda" and sampler.capturable:
+            return captured(sampler, batch)
+
+        def run(*inputs, seed: int):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return sampler(*inputs, generator=gen)
+        return run
+
+    def _t2i_sampler(self, steps: Optional[int] = None, batch: int = 1):
+        """The span-factored text->image sampler at `batch` rows."""
         key = ("t2i", steps or self.config.sampling.steps)
         if key not in self._samplers:
             from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
@@ -54,7 +98,24 @@ class InferenceEngine:
                 self.model, self.config, num_steps=key[1],
                 cached_cond=s.cached_cond,
                 cond_refresh=s.cached_cond_refresh, device=self.device)
-        return self._samplers[key]
+        return self._program(self._samplers[key], batch)
+
+    def _sampler(self, steps: Optional[int] = None, batch: int = 1):
+        """The generic sampler of sampling.predictor at `batch` rows."""
+        key = ("generic", steps or self.config.sampling.steps)
+        if key not in self._samplers:
+            from unidisc_tpu_torch.sampling.sampler import build_sampler
+            self._samplers[key] = build_sampler(
+                self.model, self.config, num_steps=key[1],
+                device=self.device)
+        return self._program(self._samplers[key], batch)
+
+    def _layout(self, batch: int) -> np.ndarray:
+        """The [text | image] modality rows (0 text, 1 image)."""
+        m = self.m
+        return np.concatenate([
+            np.zeros((batch, m.txt_length), np.int32),
+            np.ones((batch, m.img_length), np.int32)], axis=-1)
 
     def prepare(self, *, text: Optional[str] = None,
                 image_ids: Optional[np.ndarray] = None,
@@ -137,17 +198,20 @@ class InferenceEngine:
         n = len(prepared)
         if n == 0:
             raise ValueError("run_batch needs at least one request")
-        if not all(p["fastpath"] for p in prepared):
-            raise NotImplementedError(
-                "only fully text-conditioned image generation (the t2i "
-                "fast path) is in the port yet; other tasks need the "
-                "generic sampler (ROADMAP queue 1, item 3)")
         x0 = np.stack([p["x0"] for p in prepared])
+        unmask = np.stack([p["unmask"] for p in prepared])
         if pad_to and pad_to > n:
-            x0 = np.concatenate([x0, np.repeat(x0[-1:], pad_to - n, 0)])
-        sample = self._t2i_sampler(steps)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        out = sample(torch.from_numpy(x0[:, :m.txt_length]), generator=gen)
+            reps = pad_to - n
+            x0 = np.concatenate([x0, np.repeat(x0[-1:], reps, 0)])
+            unmask = np.concatenate([unmask, np.repeat(unmask[-1:], reps,
+                                                       0)])
+        b = x0.shape[0]
+        if all(p["fastpath"] for p in prepared):
+            sample = self._t2i_sampler(steps, b)
+            out = sample(torch.from_numpy(x0[:, :m.txt_length]), seed=seed)
+        else:
+            sample = self._sampler(steps, b)
+            out = sample(x0, unmask, self._layout(b), seed=seed)
         tokens = out.tokens[:n].cpu().numpy()
         return self._decode_rows(prepared, tokens, out.nfe)
 
