@@ -52,12 +52,28 @@ and prints no result):
      steps, CFG 2.0; distilled_stack, 8 steps, dilation 2, no CFG) on the
      same int8 weights, served as in 4 with exact launch counts: step 0
      writes the KV cache and leaves the fused block path.
+  4e. pixels: the LlamaGen VQ-16 codec (VQConfig(), random weights from
+     get_codec's seed 0) in true fp32 (TF32 off, as set below): its encode
+     latents, ids (where the CPU's top-2 margin exceeds 1e-4) and decoded
+     pixels on the card against the same module on the CPU at 64 px; the
+     flagship bf16 engine of phase 4's weights, and the int8 engine of
+     4b's, built with codec_name="llamagen-vq16", serve 8 t2i requests
+     as in 4 (counted launches exact) and return eight 256 x 256 PNGs
+     that hold the decode of the returned ids; the batch is timed with
+     and without the decode, and the decode's and the PNG encoding's own
+     times are taken; then the eight PNGs go back through
+     decode_image_b64 -> codec.encode -> prepare(image_ids=) -> gen_text
+     for eight captions, the encode timed.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
      the launch counts set to 0 just before and read just after, check
      that the loss falls, the counts per step, the EMA, and that a
      checkpoint from step 10 gives step 11's loss again.
+  5b. pixels from a trained run dir: unidisc_tpu_torch.generate.main
+     serves the train phase's run dir with --use-ema and the VQ-16 codec:
+     8 samples.jsonl lines and 8 PNGs, and the served weights equal the
+     trainer's final EMA. Then the pixels line.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -67,8 +83,10 @@ card this run lands on; the bound uses the H100 SXM's published peaks.
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
 import concurrent.futures
+import copy
 import dataclasses
 import gc
 import itertools
@@ -103,10 +121,13 @@ from unidisc_tpu_torch.ops.quant import quantize_dit_params, quantize_model
 from unidisc_tpu_torch.sampling.graph import captured
 from unidisc_tpu_torch.sampling.sampler import build_sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
-from unidisc_tpu_torch.serving.engine import build_engine
+from unidisc_tpu_torch import generate
+from unidisc_tpu_torch.serving.engine import (build_engine, decode_image_b64,
+                                              encode_image_b64, to_uint8)
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
                                                     make_apply_fn)
 from unidisc_tpu_torch.training.trainer import Trainer
+from unidisc_tpu_torch.utils.png import decode_png
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
@@ -122,6 +143,12 @@ BF16_ULP = 2.0 ** -7   # relative spacing of bf16 (8-bit significand)
 Q_SCALE_RTOL = 1e-6    # fused_qmm scales: fp32 row sums in another order
 Q_MOVED_SHARE = 1e-3   # ... can move a value on a rounding boundary by one
 REQUESTS = 8      # batch 8 -> 16 rows under CFG
+CODEC = "llamagen-vq16"
+# the codec on the card against the CPU: fp32 on both sides (TF32 off), in
+# another summation order; the bound of the JAX package's torch-mirror
+# test (tests/test_vqgan.py)
+CODEC_ATOL, CODEC_RTOL, ID_MARGIN = 1e-4, 1e-3, 1e-4
+CODEC_CHECK_PX = 64   # every channel width, a 4 x 4 grid: cheap on the CPU
 TRAIN_BATCH = 32
 TRAIN_STEPS = 20
 CKPT_STEP = 10
@@ -165,6 +192,8 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the served configurations, each one counted batch of REQUESTS
 SERVE_PATHS = ("serve", "serve_gen_text", "serve_int8",
                "serve_int8_frozen_cond", "serve_int8_distilled_stack")
+# the served paths with the codec behind them (phase 4e)
+PIXEL_PATHS = ("pixels_serve", "pixels_serve_int8", "pixels_caption")
 
 
 def card_line() -> str:
@@ -1272,6 +1301,272 @@ def free(*engines) -> None:
 
 
 # ---------------------------------------------------------------------------
+# pixels: the VQ-16 codec behind the engine
+# ---------------------------------------------------------------------------
+
+def codec_flops(module, fn) -> float:
+    """The multiply-adds x 2 of every convolution and product that fn runs
+    in `module` (conv hooks; the attention blocks' two products counted
+    from their shapes), from one call."""
+    total = [0.0]
+
+    def conv_hook(mod, inputs, out):
+        k = mod.weight[0].numel()              # cin x kh x kw
+        total[0] += 2.0 * out.numel() * k
+
+    def attn_hook(mod, inputs, out):
+        b, c, h, w = inputs[0].shape
+        total[0] += 2 * 2.0 * b * (h * w) ** 2 * c
+
+    from unidisc_tpu_torch.tokenizers.vqgan import AttnBlock
+    hooks = [m.register_forward_hook(
+        attn_hook if isinstance(m, AttnBlock) else conv_hook)
+        for m in module.modules()
+        if isinstance(m, (torch.nn.Conv2d, AttnBlock))]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_codec_cpu_vs_card(codec, seed) -> dict:
+    """The codec module on the card against a CPU copy, at
+    CODEC_CHECK_PX: encode latents, ids where the CPU's top-2 margin
+    exceeds ID_MARGIN, and the decode of the CPU's ids."""
+    card = codec.module
+    cpu = copy.deepcopy(card).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    imgs = torch.rand((2, CODEC_CHECK_PX, CODEC_CHECK_PX, 3),
+                      generator=gen) * 2 - 1
+    with torch.no_grad():
+        z_cpu = cpu.latents(imgs)
+        z_card = card.latents(imgs.cuda())
+        ids_cpu = cpu.quantize(z_cpu).reshape(2, -1)
+        ids_card = card.quantize(z_card).reshape(2, -1).cpu()
+        rec_cpu = cpu.decode(ids_cpu)
+        rec_card = card.decode(ids_cpu.cuda()).cpu()
+        cb = cpu._codes()
+        zf = z_cpu.permute(0, 2, 3, 1).reshape(-1, z_cpu.shape[1])
+        zf = zf / zf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        top = (2.0 * (zf @ cb.T) - (cb ** 2).sum(-1)).topk(2, -1).values
+        margin = (top[:, 0] - top[:, 1]).reshape(2, -1)
+    z_card = z_card.cpu()
+
+    def err(got, want):
+        excess = ((got - want).abs()
+                  - (CODEC_ATOL + CODEC_RTOL * want.abs())).max().item()
+        return {"max_abs_err": (got - want).abs().max().item(),
+                "max_abs": want.abs().max().item(),
+                "max_excess_over_tol": excess}
+
+    clear = margin > ID_MARGIN
+    rec = {"image_px": CODEC_CHECK_PX, "batch": 2,
+           "latents": err(z_card, z_cpu), "pixels": err(rec_card, rec_cpu),
+           "ids_clear_margin_share": clear.float().mean().item(),
+           "ids_equal_share": (ids_card == ids_cpu).float().mean().item(),
+           "ids_equal_where_clear": bool(torch.equal(ids_card[clear],
+                                                     ids_cpu[clear])),
+           "atol": CODEC_ATOL, "rtol": CODEC_RTOL, "id_margin": ID_MARGIN}
+    print("codec_cpu_vs_cuda " + json.dumps(rec))
+    torch.testing.assert_close(z_card, z_cpu, atol=CODEC_ATOL,
+                               rtol=CODEC_RTOL)
+    torch.testing.assert_close(rec_card, rec_cpu, atol=CODEC_ATOL,
+                               rtol=CODEC_RTOL)
+    if not rec["ids_equal_where_clear"] or rec["ids_clear_margin_share"] \
+            < 0.9:
+        raise AssertionError(f"codec ids on the card differ from the CPU's "
+                             f"where the margin is clear: {rec}")
+    return rec
+
+
+def alternate_steady(runs: dict, rounds: int = 3) -> dict:
+    """Seconds of each run, taken in turns (a, b, a, b, ...), each ending
+    in a device sync."""
+    times = {name: [] for name in runs}
+    for i in range(rounds):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(i + 1)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def phase_pixels_serve(engine, label) -> tuple:
+    """8 t2i requests through an engine with the codec: the counted,
+    captured batch of phase_serve, then eight 256-px PNGs that hold the
+    decode of the returned ids (to one step where an fp32 value lies on an
+    integer boundary), and the batch timed with and without the decode.
+    Returns (the served record, this phase's record, the results)."""
+    prepared = t2i_requests(engine)
+    served = phase_serve(engine, prepared, label)
+    results = engine.run_batch(prepared, seed=0)
+    codec, m = engine.codec, engine.m
+    size = math.isqrt(m.img_length) * codec.downsample
+    pngs = []
+    for r in results:
+        if len(r.get("images_b64", [])) != 1:
+            raise AssertionError(f"{label}: a t2i result without its PNG")
+        pngs.append(decode_png(base64.b64decode(r["images_b64"][0])))
+    pngs = np.stack(pngs)
+    if pngs.shape != (REQUESTS, size, size, 3):
+        raise AssertionError(f"{label}: PNGs of shape {pngs.shape}")
+    ids = torch.from_numpy(np.concatenate([r["image_ids"] for r in results])
+                           .clip(0, m.image_vocab_size - 1)).cuda()
+    want = to_uint8(codec.decode(ids)).cpu().numpy()
+    diff = np.abs(pngs.astype(np.int16) - want.astype(np.int16))
+    if diff.max() > 1:
+        raise AssertionError(f"{label}: the PNGs differ from the decode of "
+                             f"the returned ids by {diff.max()}")
+
+    decode_ms = time_ms(lambda: codec.decode(ids), iters=10, warmup=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    codec.decode(ids)
+    torch.cuda.synchronize()
+    decode_peak = torch.cuda.max_memory_allocated() - base
+    flops = codec_flops(codec.module, lambda: codec.decode(ids))
+    t0 = time.perf_counter()
+    for img in want:
+        encode_image_b64(img)
+    png_ms = (time.perf_counter() - t0) * 1e3
+
+    def without_codec(i):
+        engine.codec = None
+        try:
+            engine.run_batch(prepared, seed=i)
+        finally:
+            engine.codec = codec
+
+    steady = alternate_steady({
+        "with": lambda i: engine.run_batch(prepared, seed=i),
+        "without": without_codec})
+    with_s, without_s = min(steady["with"]), min(steady["without"])
+    rec = {"requests": REQUESTS, "image_px": size,
+           "png_equal_share": float((diff == 0).mean()),
+           "png_max_diff": int(diff.max()),
+           "decode_ms": decode_ms, "decode_conv_gflop": flops / 1e9,
+           "decode_fp32_bound_ms": flops / FP32_FLOP_PER_S * 1e3,
+           "decode_peak_bytes": decode_peak,
+           "png_encode_host_ms": png_ms,
+           "steady_batch_s_with_decode": steady["with"],
+           "steady_batch_s_without_decode": steady["without"],
+           "decode_share_of_batch": decode_ms / 1e3 / with_s,
+           "with_minus_without_s": with_s - without_s}
+    print(f"{label}_pixels " + json.dumps(rec))
+    return served, rec, results
+
+
+def phase_pixels_caption(engine, results) -> tuple:
+    """The served PNGs back through decode_image_b64 -> codec.encode ->
+    prepare(image_ids=) -> gen_text: eight captions, the given image ids
+    kept and no PNG returned. Returns (the served record, this record)."""
+    codec = engine.codec
+    images = np.stack([decode_image_b64(r["images_b64"][0])
+                       for r in results])
+    images_dev = torch.from_numpy(images).cuda()
+    ids = codec.encode(images_dev)
+    if ids.shape != (REQUESTS, engine.m.img_length) or ids.min() < 0 or \
+            ids.max() >= codec.vocab_size:
+        raise AssertionError(f"encoded ids {tuple(ids.shape)}, range "
+                             f"{ids.min().item()}..{ids.max().item()}")
+    encode_ms = time_ms(lambda: codec.encode(images_dev), iters=10,
+                        warmup=2)
+    flops = codec_flops(codec.module, lambda: codec.encode(images_dev))
+    # the codebook search: one (B x 256, 256) x (256, 16384) product
+    search = 2.0 * ids.numel() * codec.module.cfg.codebook_dim \
+        * codec.vocab_size
+    prepared = [engine.prepare(image_ids=row) for row in ids.cpu().numpy()]
+    served = phase_serve(engine, prepared, "pixels_caption")
+    captions = engine.run_batch(prepared, seed=0)
+    for p, r in zip(prepared, captions):
+        if r["task"] != "gen_text" or not isinstance(r["text"], str) or \
+                "images_b64" in r:
+            raise AssertionError(f"caption result {r['task']} {r.keys()}")
+    rec = {"requests": REQUESTS, "encode_ms": encode_ms,
+           "encode_conv_gflop": flops / 1e9,
+           "encode_codebook_search_gflop": search / 1e9,
+           "encode_fp32_bound_ms": (flops + search) / FP32_FLOP_PER_S * 1e3,
+           "captions": [r["text"] for r in captions]}
+    print("pixels_caption_text " + json.dumps(rec))
+    return served, rec
+
+
+def phase_pixels(seed, qstate) -> dict:
+    """Phase 4e: the codec on the card against the CPU, served pixels in
+    bf16 and int8, and captions from those pixels."""
+    t0 = time.perf_counter()
+    engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES,
+                          codec_name=CODEC)
+    randomize_(engine.model, seed)              # phase 4's weights
+    rec = {"engine_build_s": time.perf_counter() - t0,
+           "codec_params": sum(p.numel() for p in
+                               engine.codec.module.parameters())}
+    rec["cpu_vs_cuda"] = phase_codec_cpu_vs_card(engine.codec, seed)
+    served, rec["bf16"], results = phase_pixels_serve(engine,
+                                                      "pixels_serve")
+    served_caption, rec["caption"] = phase_pixels_caption(engine, results)
+    free(engine)
+    del engine
+    qengine = build_engine(preset="small", overrides=FLAGSHIP_INT8_OVERRIDES,
+                           quantize="int8", codec_name=CODEC)
+    qengine.model.load_state_dict(qstate)      # 4b's int8 weights
+    served_int8, rec["int8"], _ = phase_pixels_serve(qengine,
+                                                     "pixels_serve_int8")
+    free(qengine)
+    del qengine
+    free()
+    return {"pixels": rec, "pixels_serve": served,
+            "pixels_caption": served_caption,
+            "pixels_serve_int8": served_int8}
+
+
+def phase_generate(run_dir, final_ema, root) -> dict:
+    """Phase 5b: the generate CLI on the train phase's run dir with its
+    EMA weights and the VQ-16 codec."""
+    out = os.path.join(root, "samples")
+    prompt = "a watercolor painting of a lighthouse"
+    meta = os.path.join(run_dir, "checkpoints", str(TRAIN_STEPS),
+                        "meta.json")
+    with open(meta) as f:
+        img_length = json.load(f)["config"]["model"]["img_length"]
+    size = math.isqrt(img_length) * 16             # VQ-16's downsample
+    t0 = time.perf_counter()
+    result = generate.main(["--ckpt", run_dir, "--out", out, "--codec",
+                            CODEC, "--image-size", str(size), "--n",
+                            str(REQUESTS), "--prompt", prompt, "--use-ema"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    engine = result["engine"]
+    with open(os.path.join(out, "samples.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    pngs = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+    if len(lines) != REQUESTS or len(pngs) != REQUESTS:
+        raise AssertionError(f"generate wrote {len(lines)} lines and "
+                             f"{len(pngs)} PNGs")
+    for name in pngs:
+        with open(os.path.join(out, name), "rb") as f:
+            shape = decode_png(f.read()).shape
+        if shape != (size, size, 3):
+            raise AssertionError(f"{name}: {shape}")
+    if result["step"] != TRAIN_STEPS:
+        raise AssertionError(f"generate restored step {result['step']}")
+    for name, value in engine.model.state_dict().items():
+        if not torch.equal(value.cpu(), final_ema[name]):
+            raise AssertionError(f"generate's {name} is not the trainer's "
+                                 f"final EMA")
+    rec = {"step": result["step"], "samples": len(lines), "pngs": len(pngs),
+           "weights_equal_final_ema": True, "wall_s": wall_s,
+           "texts": sorted({r["text"] for r in lines})}
+    free(engine)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # train path
 # ---------------------------------------------------------------------------
 
@@ -1359,68 +1654,68 @@ def logged(run_dir) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train(cfg, batch_size, steps, seed, device="cuda") -> dict:
+def phase_train(cfg, batch_size, steps, seed, root, device="cuda") -> tuple:
     """Trainer.fit on one synthetic batch, with the counts set to 0 just
     before and read just after; then a resume from the step-CKPT_STEP
-    checkpoint must give the next step's loss again."""
+    checkpoint must give the next step's loss again. The run dirs stay in
+    `root` for phase 5b. Returns (the record, run A's dir, its final EMA
+    on the host)."""
     m = cfg.model
     first = next(SyntheticDataLoader(cfg, batch_size, seed=seed))
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        run_a = os.path.join(root, "a")
-        trainer = Trainer(cfg, run_a, device=device, log_every=1,
-                          ckpt_every=CKPT_STEP, max_ckpts=2)
-        init = {k: v.detach().clone() for k, v in trainer.state.params.items()}
-        if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        trainer.fit(itertools.repeat(first), max_steps=steps)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-        recs = [r for r in logged(run_a) if "loss" in r]
-        losses = [r["loss"] for r in recs]
-        step_s = [r["step_s"] for r in recs]
-        if len(losses) != steps or not all(map(math.isfinite, losses)):
-            raise AssertionError(f"train losses {losses}")
-        early, late = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-        if not late < early:
-            raise AssertionError(f"the loss did not fall: first 5 mean "
-                                 f"{early}, last 5 mean {late}: {losses}")
-        if device == "cuda":
-            want = {name: m.n_blocks * steps for name in TRAIN_KERNELS}
-            if launches != want:
-                raise AssertionError(f"train path launched {launches}, "
-                                     f"expected {want} (12 blocks x "
-                                     f"{steps} steps each)")
-        ema_moved = max((trainer.state.ema_params[k] - init[k].float())
-                        .abs().max().item() for k in init)
-        if not ema_moved > 0:
-            raise AssertionError("the EMA did not move")
-        trainer.close()
-        del trainer
+    run_a = os.path.join(root, "a")
+    trainer = Trainer(cfg, run_a, device=device, log_every=1,
+                      ckpt_every=CKPT_STEP, max_ckpts=2)
+    init = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(itertools.repeat(first), max_steps=steps)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    recs = [r for r in logged(run_a) if "loss" in r]
+    losses = [r["loss"] for r in recs]
+    step_s = [r["step_s"] for r in recs]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    early, late = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not late < early:
+        raise AssertionError(f"the loss did not fall: first 5 mean "
+                             f"{early}, last 5 mean {late}: {losses}")
+    if device == "cuda":
+        want = {name: m.n_blocks * steps for name in TRAIN_KERNELS}
+        if launches != want:
+            raise AssertionError(f"train path launched {launches}, "
+                                 f"expected {want} (12 blocks x "
+                                 f"{steps} steps each)")
+    ema_moved = max((trainer.state.ema_params[k] - init[k].float())
+                    .abs().max().item() for k in init)
+    if not ema_moved > 0:
+        raise AssertionError("the EMA did not move")
+    final_ema = {k: v.detach().cpu().clone()
+                 for k, v in trainer.state.ema_params.items()}
+    trainer.close()
+    del trainer
 
-        # resume: only the step-CKPT_STEP checkpoint, then one more step
-        run_b = os.path.join(root, "b")
-        shutil.copytree(os.path.join(run_a, "checkpoints", str(CKPT_STEP)),
-                        os.path.join(run_b, "checkpoints", str(CKPT_STEP)))
-        resumed = Trainer(cfg, run_b, device=device, log_every=1,
-                          ckpt_every=0)
-        resumed.fit(itertools.repeat(first), max_steps=CKPT_STEP + 1)
-        resumed.close()
-        again = [r["loss"] for r in logged(run_b) if "loss" in r]
-        want_loss = losses[CKPT_STEP]         # the loss of step CKPT_STEP + 1
-        if len(again) != 1 or abs(again[0] - want_loss) > 1e-5 * abs(
-                want_loss):
-            raise AssertionError(f"resumed step {CKPT_STEP + 1} loss "
-                                 f"{again} != {want_loss}")
-        del resumed
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # resume: only the step-CKPT_STEP checkpoint, then one more step
+    run_b = os.path.join(root, "b")
+    shutil.copytree(os.path.join(run_a, "checkpoints", str(CKPT_STEP)),
+                    os.path.join(run_b, "checkpoints", str(CKPT_STEP)))
+    resumed = Trainer(cfg, run_b, device=device, log_every=1,
+                      ckpt_every=0)
+    resumed.fit(itertools.repeat(first), max_steps=CKPT_STEP + 1)
+    resumed.close()
+    again = [r["loss"] for r in logged(run_b) if "loss" in r]
+    want_loss = losses[CKPT_STEP]         # the loss of step CKPT_STEP + 1
+    if len(again) != 1 or abs(again[0] - want_loss) > 1e-5 * abs(
+            want_loss):
+        raise AssertionError(f"resumed step {CKPT_STEP + 1} loss "
+                             f"{again} != {want_loss}")
+    del resumed
     steady = step_s[2:]
     median_s = statistics.median(steady)
     rec = {"batch": batch_size, "length": m.length, "steps": steps,
@@ -1433,7 +1728,7 @@ def phase_train(cfg, batch_size, steps, seed, device="cuda") -> dict:
            "ema_max_change": ema_moved,
            "resumed_step_loss": again[0], "straight_step_loss": want_loss}
     print("train " + json.dumps(rec))
-    return rec
+    return rec, run_a, final_ema
 
 
 def main() -> int:
@@ -1516,20 +1811,55 @@ def main() -> int:
         record[label] = phase_serve(fengine, t2i_requests(fengine), label)
         free(fengine)
         del fengine
-    del qstate
     free()
     print("serve_tok_per_s " + json.dumps({
         label: {"captured": record[label]["steady_tok_per_s"],
                 "eager": record[label]["eager_steady_tok_per_s"]}
         for label in SERVE_PATHS}))
 
+    # 4e: pixels, on phase 4's and 4b's weights
+    record.update(phase_pixels(args.seed, qstate))
+    del qstate
+    free()
+
     cfg = train_config()
     record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
     torch.cuda.empty_cache()
-    record["train"] = phase_train(cfg, TRAIN_BATCH, TRAIN_STEPS, args.seed)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        record["train"], run_dir, final_ema = phase_train(
+            cfg, TRAIN_BATCH, TRAIN_STEPS, args.seed, root)
+        torch.cuda.empty_cache()
+        record["pixels"]["generate"] = phase_generate(run_dir, final_ema,
+                                                      root)
+        del final_ema
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    pix = record["pixels"]
+    print("pixels " + json.dumps({
+        "card": card, "decode_ms_b8": {
+            q: pix[q]["decode_ms"] for q in ("bf16", "int8")},
+        "encode_ms_b8": pix["caption"]["encode_ms"],
+        "served_batch_s_with_decode": {
+            q: min(pix[q]["steady_batch_s_with_decode"])
+            for q in ("bf16", "int8")},
+        "served_batch_s_without_decode": {
+            q: min(pix[q]["steady_batch_s_without_decode"])
+            for q in ("bf16", "int8")},
+        "decode_share_of_batch": {
+            q: pix[q]["decode_share_of_batch"] for q in ("bf16", "int8")},
+        "png_encode_host_ms_b8": pix["bf16"]["png_encode_host_ms"],
+        "codec_cpu_vs_cuda_max_abs_err": {
+            k: pix["cpu_vs_cuda"][k]["max_abs_err"]
+            for k in ("latents", "pixels")},
+        "captions": len(pix["caption"]["captions"]),
+        "generate": {k: pix["generate"][k] for k in
+                     ("step", "samples", "pngs",
+                      "weights_equal_final_ema")}}))
 
     by_path = {name: {path: record[path]["launches"].get(name, 0)
-                      for path in SERVE_PATHS + ("train",)}
+                      for path in SERVE_PATHS + PIXEL_PATHS + ("train",)}
                for name in KERNELS}
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape

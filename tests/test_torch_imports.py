@@ -1,6 +1,7 @@
 """The port stands alone: no file of unidisc_tpu_torch/ and not
-chip_smoke.py imports JAX, flax or the JAX package, and importing the
-package needs neither nvcc nor CUDA."""
+chip_smoke.py imports JAX, flax or the JAX package, nor PIL or safetensors
+(the card's machine has neither), and importing the package needs neither
+nvcc nor CUDA."""
 
 import ast
 import pathlib
@@ -10,7 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "unidisc_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "unidisc_tpu",
+             "PIL", "safetensors"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "unidisc_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py"]
@@ -127,6 +129,25 @@ def test_sampler_slice_is_checked():
                  "test_torch_int8_cuda.py"):
         path = f"tests/{name}"
         assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+
+
+# the modules of the pixels slice: the codecs, the PNG and safetensors
+# readers, the engine's loading paths and the generate CLI
+CODEC_SLICE = [
+    "unidisc_tpu_torch/tokenizers/vqgan.py",
+    "unidisc_tpu_torch/tokenizers/image_codecs.py",
+    "unidisc_tpu_torch/utils/png.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/models/port.py",
+    "unidisc_tpu_torch/training/checkpoint.py",
+    "unidisc_tpu_torch/generate.py",
+]
+
+
+def test_codec_slice_is_checked():
+    assert set(CODEC_SLICE) <= set(FILES)
+    path = "tests/test_torch_codec_cuda.py"
+    assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
 
 
 @pytest.mark.parametrize("path", FILES)

@@ -34,11 +34,20 @@ to fp32.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` over (params,
 EMA, the Adam moments and counts, the schedule's count) with the same
 mapping, into the layout of the port's ``TrainState.state_dict``.
+
+Published reference checkpoints (``model.safetensors`` as
+PyTorchModelHubMixin saves it, or a torch ``.pt``) load as they are, since
+the port keeps the reference names: ``read_reference_state_dict`` reads
+one (``.safetensors`` through ``read_safetensors``, on the standard
+library), ``infer_dit_overrides`` infers the ``model.*`` config from its
+shapes, and ``reference_dit_state_dict`` puts it in the port's form.
 """
 
 from __future__ import annotations
 
+import json
 import re
+import struct
 from typing import Dict, Mapping
 
 import numpy as np
@@ -124,3 +133,154 @@ def train_state_from_jax(state) -> Dict[str, object]:
             "mu": dit_state_dict_from_jax(adam.mu),
             "nu": dit_state_dict_from_jax(adam.nu),
             "schedule_count": _count(schedule.count)}
+
+
+# ---------------------------------------------------------------------------
+# published reference checkpoints
+# ---------------------------------------------------------------------------
+
+# safetensors dtype -> (numpy dtype of the stored words, torch dtype)
+_ST_DTYPES = {
+    "F64": ("<f8", torch.float64), "F32": ("<f4", torch.float32),
+    "F16": ("<f2", torch.float16), "BF16": ("<u2", torch.bfloat16),
+    "I64": ("<i8", torch.int64), "I32": ("<i4", torch.int32),
+    "I16": ("<i2", torch.int16), "I8": ("i1", torch.int8),
+    "U8": ("u1", torch.uint8), "BOOL": ("?", torch.bool),
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file (an 8-byte little-endian header length, a
+    JSON header of dtype, shape and data_offsets, then the raw
+    little-endian data) -> CPU tensors."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{name}: unsupported dtype {info['dtype']}")
+        word, dtype = _ST_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        arr = np.frombuffer(data[start:end], dtype=word).copy()
+        t = torch.from_numpy(arr)
+        if dtype is torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def read_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A published-checkpoint file (``.safetensors`` or a torch
+    ``.pt``/``.bin``) -> CPU tensors, wrapper prefixes stripped."""
+    if path.endswith(".safetensors"):
+        sd = read_safetensors(path)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt.get("state_dict", ckpt)
+    return {k.removeprefix("module.").removeprefix("backbone."):
+            torch.as_tensor(v) for k, v in sd.items()}
+
+
+def _ignorable(key: str) -> bool:
+    """Reference keys that hold no weight of the DIT: rotary tables, the
+    cond blocks' unused attn_qkv_cond, BatchNorm counters."""
+    return ("rotary" in key or "attn_qkv_cond" in key
+            or key.endswith("num_batches_tracked"))
+
+
+def reference_dit_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference DIT state_dict in the port's form: the production DIT's
+    nested ``blocks.{i}.attention.*`` flattened to ``blocks.{i}.*`` (as
+    the frozen dit_orig names them), keys without weights dropped."""
+    return {k.replace(".attention.", "."): torch.as_tensor(v)
+            for k, v in state_dict.items() if not _ignorable(k)}
+
+
+# head counts of the reference model zoo (configs/model/*.yaml), by width
+_ZOO_HEADS = {256: 8, 512: 8, 768: 12, 1024: 16, 1280: 20, 2048: 16,
+              4096: 16}
+
+
+def infer_dit_overrides(state_dict: Mapping) -> Dict:
+    """``model.*`` config overrides inferred from a reference DIT
+    state_dict's shapes (the JAX package's rules): hidden and cond widths,
+    block count, MLP ratio, the vocab split (exact for split-embed
+    checkpoints, else via the 16384-way VQ codebook), norm type, the
+    sandwich / modality / QK-norm / time-conditioning flags, split embed,
+    the image-count embedding, class-label and image conditioning. The
+    head count comes from the reference zoo (head_dim 64 otherwise); the
+    sequence layout and rope_2d are not in the weights and stay with the
+    preset."""
+    sd = {k.replace(".attention.", "."): v for k, v in state_dict.items()}
+    shp = {k: tuple(v.shape) for k, v in sd.items()}
+    over: Dict = {}
+
+    hidden = shp["vocab_embed.embedding"][1]
+    over["model.hidden_size"] = hidden
+    n_blocks = 0
+    while f"blocks.{n_blocks}.attn_qkv.weight" in shp:
+        n_blocks += 1
+    if not n_blocks:
+        raise ValueError("no blocks.* keys: not a DIT state_dict")
+    over["model.n_blocks"] = n_blocks
+    over["model.mlp_ratio"] = shp["blocks.0.mlp.0.weight"][0] // hidden
+
+    over["model.qk_norm"] = "blocks.0.q_norm.weight" in shp
+    if hidden in _ZOO_HEADS:
+        over["model.n_heads"] = _ZOO_HEADS[hidden]
+    elif hidden % 64 == 0:
+        over["model.n_heads"] = hidden // 64
+
+    over["model.time_conditioning"] = "sigma_map.mlp.0.weight" in shp
+    if over["model.time_conditioning"]:
+        over["model.cond_dim"] = shp["sigma_map.mlp.0.weight"][0]
+    # rms and bias-less layernorm have the same shapes; in the reference
+    # zoo rms ships only with the production markers
+    production = (over["model.qk_norm"]
+                  or "blocks.0.pre_residual_norm.weight" in shp
+                  or "modality_embed.embedding" in shp)
+    over["model.norm_type"] = (
+        "layernorm" if "blocks.0.norm1.bias" in shp
+        else ("rms" if production else "layernorm"))
+    over["model.sandwich_normalization"] = \
+        "blocks.0.pre_residual_norm.weight" in shp
+    over["model.modality_embed"] = "modality_embed.embedding" in shp
+    over["model.img_count_embed"] = "img_count_embedding" in shp
+    if over["model.img_count_embed"]:
+        over["model.max_images_per_sample"] = shp["img_count_embedding"][0]
+    over["model.cond_label"] = "y_embedder.embedding_table.weight" in shp
+    if over["model.cond_label"] and not over["model.time_conditioning"]:
+        over["model.cond_dim"] = shp["y_embedder.embedding_table.weight"][1]
+
+    over["model.img_cond"] = \
+        "blocks.0.cross_attention.attn_qkv.weight" in shp
+    if over["model.img_cond"]:
+        key = ("cond_img_vocab_embed.embedding"
+               if "cond_img_vocab_embed.embedding" in shp
+               else "cond_img_vocab_embed.weight")
+        over["model.cond_image_vocab_size"] = shp[key][0]
+        if "cond_img_vocab_proj.weight" in shp:
+            over["model.cond_img_embed_dim"] = shp[key][1]
+        n_cond = 0
+        while f"img_cond_blocks.{n_cond}.attn_qkv.weight" in shp:
+            n_cond += 1
+        over["model.n_cond_blocks"] = n_cond
+
+    if "img_vocab_embed.weight" in shp:
+        # split embed: the text table has text_vocab + 1 rows (mask), the
+        # image table is the frozen VQ codebook
+        over["model.split_embed"] = True
+        over["model.text_vocab_size"] = shp["vocab_embed.embedding"][0] - 1
+        over["model.image_vocab_size"] = shp["img_vocab_embed.weight"][0]
+        over["model.img_embed_dim"] = shp["img_vocab_embed.weight"][1]
+    else:
+        over["model.split_embed"] = False
+        vocab = shp["vocab_embed.embedding"][0]
+        if vocab > 16384:
+            over["model.text_vocab_size"] = vocab - 16384
+            over["model.image_vocab_size"] = 16384
+    return over

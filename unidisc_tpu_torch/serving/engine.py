@@ -11,13 +11,23 @@ of ``sampling.predictor`` (``sampling/sampler.py``). bf16, or int8 W8A8 with
 On the card every sampler runs as its captured CUDA-graph program
 (``sampling/graph.py``), one per sampler and batch size, the counterpart
 of the JAX engine's ``jax.jit``; ddpm_cache, whose skip reads a device flag
-each step, runs eager. On the CPU the samplers run eager. Checkpoints, the
-image codec, meshes, rolling and continuous batching and scaffold decoding
-are later slices (ROADMAP queue 1, items 3 and 10).
+each step, runs eager. On the CPU the samplers run eager.
+
+With an image codec (``tokenizers/image_codecs.py``) every request but
+gen_text also returns its image as a base64 PNG: the codec decodes the
+sampler's tokens on the device, and only the uint8 images come to the
+host. ``build_engine`` serves random weights from the config's seed, a run
+dir that the port's Trainer wrote (``checkpoint=``, its EMA weights) or a
+published reference checkpoint (``reference_ckpt=``). Meshes, rolling and
+continuous batching, scaffold and speculative decoding, LoRA and the
+interleaved documents are later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import base64
+import json
+import math
 import re
 import threading
 from typing import Dict, List, Optional
@@ -28,6 +38,7 @@ import torch
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
 from unidisc_tpu_torch.sampling.graph import captured
+from unidisc_tpu_torch.utils.png import decode_png, encode_png
 
 MASK_TOKEN_RE = re.compile(r"<mask(?::(\d+))?>")
 
@@ -40,13 +51,13 @@ def expand_mask_tokens(text: str) -> str:
 
 # the JAX engine's options that later slices port, with their ROADMAP
 # queue 1 items
-_LATER_OPTIONS = {"codec": 3, "mesh": 9, "rolling": 10, "ar_draft": 10,
+_LATER_OPTIONS = {"mesh": 9, "rolling": 10, "ar_draft": 10,
                   "lookup_ngram": 10}
 
 
 class InferenceEngine:
     def __init__(self, config: Config, model, *, tokenizer=None,
-                 device="cuda", **later):
+                 codec=None, device="cuda", **later):
         for name, value in later.items():
             if name not in _LATER_OPTIONS:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -63,6 +74,14 @@ class InferenceEngine:
             from unidisc_tpu_torch.tokenizers.text import get_tokenizer
             tokenizer = get_tokenizer("byte")
         self.tokenizer = tokenizer
+        # an ImageCodec for pixel I/O, on the engine's device; every image
+        # id the model can emit must have a code (on the card an id past
+        # the codebook is a device-side assert, not an error)
+        if codec is not None and codec.vocab_size < self.m.image_vocab_size:
+            raise ValueError(f"codec {codec.name!r} has {codec.vocab_size} "
+                             f"codes; the model emits "
+                             f"{self.m.image_vocab_size} image ids")
+        self.codec = codec.to(self.device) if codec is not None else None
         self._samplers: Dict[tuple, object] = {}
         # serializes device work and the sampler cache across threads
         self._device_lock = threading.Lock()
@@ -212,20 +231,40 @@ class InferenceEngine:
         else:
             sample = self._sampler(steps, b)
             out = sample(x0, unmask, self._layout(b), seed=seed)
-        tokens = out.tokens[:n].cpu().numpy()
-        return self._decode_rows(prepared, tokens, out.nfe)
+        tokens = out.tokens[:n]
+        images = self._decode_images(prepared, tokens)
+        return self._decode_rows(prepared, tokens.cpu().numpy(), out.nfe,
+                                 images)
 
-    def _decode_rows(self, prepared, tokens, nfe):
-        """Token rows -> per-request result dicts (image token ids; pixel
-        decoding needs the VQGAN codec, not in the port yet)."""
+    def _decode_images(self, prepared, tokens: torch.Tensor):
+        """The rows' images as uint8 (n, H, W, 3) on the host, decoded by
+        the codec on the device from the sampler's tokens; None without a
+        codec or when every request is gen_text."""
+        if self.codec is None or all(p["task"] == "gen_text"
+                                     for p in prepared):
+            return None
+        m = self.m
+        # clamp out-of-codebook ids (text leakage below, label tokens
+        # above), as the JAX engine does
+        ids = (tokens[:, m.txt_length:] - m.text_vocab_size).clamp(
+            0, m.image_vocab_size - 1)
+        return to_uint8(self.codec.decode(ids)).cpu().numpy()
+
+    def _decode_rows(self, prepared, tokens, nfe, images=None):
+        """Token rows (and decoded images) -> per-request result dicts."""
         m = self.m
         txt_ids = tokens[:, :m.txt_length]
         img_ids = tokens[:, m.txt_length:] - m.text_vocab_size
         from unidisc_tpu_torch.tokenizers.text import wrapped_batch_decode
         texts = wrapped_batch_decode(self.tokenizer, txt_ids)
-        return [{"task": p["task"], "text": texts[i], "texts": [texts[i]],
+        results = []
+        for i, p in enumerate(prepared):
+            r = {"task": p["task"], "text": texts[i], "texts": [texts[i]],
                  "image_ids": img_ids[i:i + 1], "nfe": int(nfe)}
-                for i, p in enumerate(prepared)]
+            if images is not None and p["task"] != "gen_text":
+                r["images_b64"] = [encode_image_b64(images[i])]
+            results.append(r)
+        return results
 
     def run(self, *, text: Optional[str] = None,
             image_ids: Optional[np.ndarray] = None,
@@ -240,33 +279,148 @@ class InferenceEngine:
         first["texts"] = [r["text"] for r in results]
         first["image_ids"] = np.concatenate(
             [r["image_ids"] for r in results], 0)
+        if "images_b64" in first:
+            first["images_b64"] = [r["images_b64"][0] for r in results]
         return first
 
 
-def build_engine(*, preset: str = "small", device="cuda",
+# build_engine's options that later slices port, with their ROADMAP queue 1
+# items
+_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9, "scaffold": 4,
+                        "speculative": 10, "rolling": 10}
+
+
+def restore_run(run_dir: str, *, ema: bool = True):
+    """(config snapshot, DIT weights, step) of the latest checkpoint of a
+    run dir that the port's Trainer wrote: its EMA weights, or with
+    ``ema=False`` the live ones."""
+    from unidisc_tpu_torch.training.checkpoint import CheckpointManager
+    mgr = CheckpointManager(f"{run_dir}/checkpoints")
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {run_dir}")
+    snap = Config.from_json(json.dumps(mgr.read_meta(step)["config"]))
+    if snap.model.lora_rank > 0:
+        raise NotImplementedError("serving a LoRA run dir (adapter "
+                                  "checkpoints) is not in the port yet "
+                                  "(ROADMAP queue 1, item 5)")
+    if snap.trainer.host_offload_optimizer:
+        raise NotImplementedError("serving a host-offload run dir (chunked "
+                                  "flat state) is not in the port yet "
+                                  "(ROADMAP queue 1, item 5)")
+    state = mgr.read_state(step)
+    return snap, state["ema_params" if ema else "params"], step
+
+
+def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
+                 reference_ckpt: Optional[str] = None,
+                 codec_name: Optional[str] = None, device="cuda",
                  experiments=None, overrides: Optional[dict] = None,
                  steps: Optional[int] = None,
-                 quantize: Optional[str] = None) -> InferenceEngine:
-    """An engine for a config preset with weights drawn from the config's
-    seed (the JAX init's distributions). `overrides` are dotted config
-    overrides applied with the preset; `experiments` are overlays applied
-    after them, as in the JAX engine. The model computes in bf16;
-    ``quantize="int8"`` converts it to int8 W8A8 after the weights are
-    drawn (``ops/quant.py::quantize_model``)."""
+                 quantize: Optional[str] = None,
+                 **later) -> InferenceEngine:
+    """An engine for a config preset, as the JAX ``build_engine``:
+
+    * weights: drawn from the config's seed (the JAX init's
+      distributions); or ``checkpoint``, a run dir of the port's Trainer,
+      whose EMA weights are served under its config snapshot; or
+      ``reference_ckpt``, a published reference checkpoint
+      (``model.safetensors`` or ``.pt``), whose shapes set the
+      architecture (``models/port.py::infer_dit_overrides``);
+    * ``overrides`` (dotted config keys) and ``experiments`` (overlays)
+      beat the snapshot; the module is built from the final config;
+    * the model computes in bf16; ``quantize="int8"`` converts it to int8
+      W8A8 after the weights are loaded;
+    * ``codec_name`` adds an image codec sized to the model's image grid
+      (sqrt(img_length) x the codec's downsample), so results carry PNGs.
+
+    LoRA, meshes, scaffold, speculative decoding and rolling batching
+    raise NotImplementedError naming their ROADMAP items."""
+    for name, value in later.items():
+        if name not in _LATER_BUILD_OPTIONS:
+            raise TypeError(f"build_engine got an unexpected argument "
+                            f"{name!r}")
+        if value:
+            raise NotImplementedError(
+                f"build_engine({name}=...) is not in the port yet (ROADMAP "
+                f"queue 1, item {_LATER_BUILD_OPTIONS[name]})")
+    if preset == "elm" or preset.startswith("elm:"):
+        raise NotImplementedError("the OpenELM AR baseline is not in the "
+                                  "port yet (ROADMAP queue 1, item 8)")
+    if checkpoint is not None and reference_ckpt is not None:
+        raise ValueError("reference_ckpt loads reference weights and "
+                         "checkpoint loads a run dir: pass one")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize {quantize!r}")
     from unidisc_tpu_torch.models.dit import DIT
     dev = resolve_device(device)
     over = dict(overrides or {})
     if steps:
         over["sampling.steps"] = steps
-    config = Config.make(preset, **over)
-    if experiments:
-        config = config.apply_experiments(*experiments)
+    weights = None
+    if reference_ckpt:
+        from unidisc_tpu_torch.models.port import (infer_dit_overrides,
+                                                   read_reference_state_dict,
+                                                   reference_dit_state_dict)
+        ref = read_reference_state_dict(reference_ckpt)
+        over = {**infer_dit_overrides(ref), **over}
+        weights = reference_dit_state_dict(ref)
+    if checkpoint:
+        config, weights, _ = restore_run(checkpoint)
+        if experiments:
+            config = config.apply_experiments(*experiments)
+        if over:
+            config = config.override(**over)
+    else:
+        config = Config.make(preset, **over)
+        if experiments:
+            config = config.apply_experiments(*experiments)
     config.validate()
-    if quantize not in (None, "int8"):
-        raise ValueError(f"unknown quantize {quantize!r}")
     model = DIT(config.model, compute_dtype=torch.bfloat16)
-    model.reset_parameters(torch.Generator().manual_seed(config.seed))
+    if weights is None:
+        model.reset_parameters(torch.Generator().manual_seed(config.seed))
+    else:
+        model.load_state_dict(weights)
     if quantize:
         from unidisc_tpu_torch.ops.quant import quantize_model
         config, model = quantize_model(config, model)
-    return InferenceEngine(config, model, device=dev)
+    codec = None
+    if codec_name:
+        from unidisc_tpu_torch.tokenizers.image_codecs import (
+            codec_downsample, get_codec)
+        grid = math.isqrt(config.model.img_length)
+        codec = get_codec(codec_name, device=dev,
+                          image_size=grid * codec_downsample(codec_name))
+    return InferenceEngine(config, model, codec=codec, device=dev)
+
+
+def downscale_bool_mask(mask: np.ndarray, d: int) -> np.ndarray:
+    """Pixel-space edit mask (H, W[, C]) -> token-grid mask by any-pooling
+    over d x d cells."""
+    mask = np.asarray(mask)
+    if mask.ndim == 3:
+        mask = mask.any(-1)
+    h, w = mask.shape
+    if h % d or w % d:
+        raise ValueError(f"mask {h}x{w} not divisible by {d}")
+    return mask.reshape(h // d, d, w // d, d).any(axis=(1, 3))
+
+
+def to_uint8(images: torch.Tensor) -> torch.Tensor:
+    """Images in [-1, 1] -> uint8 as the JAX engine writes them:
+    clip((x + 1) * 127.5, 0, 255), truncated."""
+    return ((images + 1) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
+def encode_image_b64(img: np.ndarray) -> str:
+    """An image (H, W, 3), float in [-1, 1] or uint8 -> base64 PNG."""
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = np.clip((arr + 1) * 127.5, 0, 255).astype(np.uint8)
+    return base64.b64encode(encode_png(arr)).decode()
+
+
+def decode_image_b64(data: str) -> np.ndarray:
+    """base64 PNG -> float32 (H, W, 3) in [-1, 1]."""
+    img = decode_png(base64.b64decode(data))
+    return img.astype(np.float32) / 127.5 - 1.0

@@ -64,10 +64,15 @@ class CheckpointManager:
         """Load a step (the latest by default) into `state` in place.
         Returns (state, meta)."""
         step = self._resolve(step)
-        sd = torch.load(os.path.join(self._step_dir(step), "state.pt"),
-                        map_location="cpu", weights_only=True)
-        state.load_state_dict(sd)
+        state.load_state_dict(self.read_state(step))
         return state, self.read_meta(step)
+
+    def read_state(self, step: Optional[int] = None) -> dict:
+        """A step's saved ``TrainState.state_dict`` (CPU tensors), without
+        a state to load it into: serving reads only its EMA."""
+        return torch.load(os.path.join(self._step_dir(self._resolve(step)),
+                                       "state.pt"),
+                          map_location="cpu", weights_only=True)
 
     def read_meta(self, step: Optional[int] = None) -> dict:
         with open(os.path.join(self._step_dir(self._resolve(step)),
