@@ -64,6 +64,27 @@ and prints no result):
      times are taken; then the eight PNGs go back through
      decode_image_b64 -> codec.encode -> prepare(image_ids=) -> gen_text
      for eight captions, the encode timed.
+  4f. the serving front door (on phase 4's and 4b's weights): the rolling
+     chunk program (sampling/graph.py::CapturedChunk) against the eager
+     chunk under injected noise, generic and t2i, on a tiny model and at
+     full width (4 steps, a staggered ragged run, every state field equal
+     after every chunk), and a lockstep run against the whole-batch
+     captured sampler (tiny); the keyed noise bit-identical on the card
+     and the CPU, and a staggered run with per-row steps 8 and 32 on the
+     card against the CPU (tiny, fp32: token agreement >= 0.95, as the
+     samplers' CPU check); at full width 4 requests, then 8 more after the
+     first chunk, through a RollingT2IBatcher, each equal to its solo run,
+     launches exactly replays x a chunk's; the t2i and generic rolling
+     programs' build s, memory and ms a chunk; the scaffold sampler (the
+     flagship trunk, a 4-block trunk of its width) captured against eager
+     with its flash_fwd launches exact; make_server on the bf16 and the
+     int8 engines (with the VQ-16 codec), whole-batch and rolling=8: 8
+     concurrent t2i requests in one batch with exact launches and 256-px
+     PNGs, and on bf16 a caption of a data-URL image, an infill with an
+     is_mask attachment, a cached repeat, a streamed answer, /health and
+     /metrics; then 16 t2i requests 50 ms apart, whole-batch against
+     rolling: per-request p50 / p95 latency and image tok/s (a line of
+     its own, `front_door`).
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
@@ -98,7 +119,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -118,16 +141,24 @@ from unidisc_tpu_torch.ops.fused_qmm import (fused_quantize,
 from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                int8_matmul_reference)
 from unidisc_tpu_torch.ops.quant import quantize_dit_params, quantize_model
-from unidisc_tpu_torch.sampling.graph import captured
+from unidisc_tpu_torch.sampling.graph import CapturedChunk, captured
 from unidisc_tpu_torch.sampling.sampler import build_sampler
+from unidisc_tpu_torch.sampling.scaffold import build_scaffold_sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch import generate
-from unidisc_tpu_torch.serving.engine import (build_engine, decode_image_b64,
+from unidisc_tpu_torch.serving.batcher import PAD_SIZES, RequestBatcher
+from unidisc_tpu_torch.serving.engine import (InferenceEngine, build_engine,
+                                              decode_image_b64,
                                               encode_image_b64, to_uint8)
+from unidisc_tpu_torch.serving.rolling import (RollingT2IBatcher,
+                                               build_rolling_sampler,
+                                               build_rolling_t2i,
+                                               keyed_uniform)
+from unidisc_tpu_torch.serving.server import make_server
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
                                                     make_apply_fn)
 from unidisc_tpu_torch.training.trainer import Trainer
-from unidisc_tpu_torch.utils.png import decode_png
+from unidisc_tpu_torch.utils.png import decode_png, encode_png
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16, published
@@ -194,6 +225,11 @@ SERVE_PATHS = ("serve", "serve_gen_text", "serve_int8",
                "serve_int8_frozen_cond", "serve_int8_distilled_stack")
 # the served paths with the codec behind them (phase 4e)
 PIXEL_PATHS = ("pixels_serve", "pixels_serve_int8", "pixels_caption")
+# the counted runs of phase 4f: the rolling batcher at full width, the
+# scaffold program, and the server on bf16 and int8, whole-batch and rolling
+FRONT_DOOR_PATHS = ("rolling_determinism", "scaffold", "front_door_bf16",
+                    "front_door_bf16_rolling", "front_door_int8",
+                    "front_door_int8_rolling")
 
 
 def card_line() -> str:
@@ -1567,6 +1603,570 @@ def phase_generate(run_dir, final_ema, root) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4f: the serving front door
+# ---------------------------------------------------------------------------
+
+ROLL_SLOTS = 8       # the rolling batchers' slots (--rolling 8)
+ROLL_CHUNK = 8       # denoise steps a chunk replay
+SCAFFOLD_BLOCKS = 4  # the scaffold trunk: the flagship's width and io
+SCAFFOLD_STEPS, SCAFFOLD_SPLIT, SCAFFOLD_BATCH = 8, 3, 4
+TIMED_REQUESTS, SPACING_S = 16, 0.05
+TOKEN_AGREE = 0.95   # the card against the CPU, and whole-batch against
+#                      rolling t2i, run other float operations (module
+#                      docstring of phase 4f); captured against eager is exact
+
+
+def build_rolling(kind, model, cfg, slots, chunk, inject_noise,
+                  device="cuda"):
+    fn = build_rolling_t2i if kind == "t2i" else build_rolling_sampler
+    return fn(model, cfg, slots=slots, chunk=chunk,
+              inject_noise=inject_noise, device=device)
+
+
+def rolling_rows(kind, m, n, rng):
+    """n requests' insert arguments after the slots: text prompts (t2i),
+    or x0 / unmask / modality with the text given (one row infills part of
+    its text), and seeds."""
+    txt = rng.randint(1, m.mask_index, (n, m.txt_length))
+    seeds = rng.randint(0, 2 ** 31 - 1, n)
+    if kind == "t2i":
+        return (txt, seeds)
+    x0 = np.zeros((n, m.length), np.int64)
+    x0[:, :m.txt_length] = txt
+    unmask = np.zeros((n, m.length), bool)
+    unmask[:, :m.txt_length] = True
+    unmask[-1, 2:m.txt_length] = False
+    modality = np.repeat((np.arange(m.length) >= m.txt_length)
+                         .astype(np.int64)[None], n, 0)
+    return (x0, unmask, modality, seeds)
+
+
+def all_done(state, extra) -> bool:
+    return bool(((state.step >= state.row_steps + extra)
+                 | ~state.active).all())
+
+
+def phase_rolling_graph_vs_eager(models, label, steps, seed,
+                                 lockstep=False) -> dict:
+    """The captured chunk program against the eager chunk under the same
+    injected noise, generic and t2i: half the slots admitted at chunk 0
+    (full steps), the other half at chunk 1 (half the steps, one padding
+    row), every state field equal after every chunk. With `lockstep`, all
+    slots admitted at once also give the whole-batch captured sampler's
+    tokens (agreement >= TOKEN_AGREE for t2i: the whole-batch sampler
+    skips the unconditional pass where every weight is 0, step 0; the
+    rolling one always runs it)."""
+    rec = {}
+    for kind in ("t2i", "generic"):
+        cfg, model = models
+        cfg = cfg.override(**{"sampling.steps": steps})
+        m = cfg.model
+        S = ROLL_SLOTS
+        built = build_rolling(kind, model, cfg, S, 2, True)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        injected = {}
+        for name, shape in built.noise_shapes().items():
+            u = torch.rand(shape, generator=gen, device="cuda")
+            injected[name] = -torch.log(u) if name == "exp" else \
+                -torch.log(-torch.log(u))
+            del u
+        program = CapturedChunk(built)
+        eager = built.init_state()
+        rng_a, rng_b = np.random.RandomState(seed), np.random.RandomState(seed)
+        half = S // 2
+        plan = {0: (list(range(half)), [steps] * half),
+                1: (list(range(half, S)) + [S], [max(steps // 2, 1)]
+                    * (S - half + 1))}
+        chunks = 0
+        while chunks < 2 or not all_done(eager, built.extra):
+            if chunks in plan:
+                slots, row_steps = plan[chunks]
+                for st, rng in ((eager, rng_a), (program.state, rng_b)):
+                    built.insert_many(st, slots, *rolling_rows(
+                        kind, m, len(slots), rng), row_steps)
+            built.step_chunk(eager, injected)
+            program.step_chunk(program.state, injected)
+            chunks += 1
+            for name, a, b in zip(eager._fields, program.state, eager):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"rolling_graph_vs_eager {label} "
+                                         f"{kind}: {name} differs after "
+                                         f"chunk {chunks}")
+        r = {"slots": S, "steps": steps, "chunks": chunks,
+             "graph_build_s": program.build_s, "state_equal": True}
+        if lockstep:
+            built.reset(program.state)
+            rows = rolling_rows(kind, m, S, np.random.RandomState(seed + 1))
+            built.insert_many(program.state, list(range(S)), *rows)
+            while not all_done(program.state, built.extra):
+                program.step_chunk(program.state, injected)
+            sample = build_sampler_of(kind, cfg, model, True)
+            args = (torch.from_numpy(rows[0]).cuda(),) if kind == "t2i" \
+                else tuple(torch.from_numpy(a).cuda() for a in rows[:3])
+            want = captured(sample, S)(*args, injected=injected).tokens
+            agree = (program.state.x == want).float().mean().item()
+            r["lockstep_vs_whole_batch_agreement"] = agree
+            if agree < (1.0 if kind == "generic" else TOKEN_AGREE):
+                raise AssertionError(f"rolling lockstep {label} {kind}: "
+                                     f"{agree} of the whole-batch captured "
+                                     f"sampler's tokens")
+            del sample
+        rec[kind] = r
+        del built, program, eager, injected
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"rolling_graph_vs_eager_{label} " + json.dumps(rec))
+    return rec
+
+
+def phase_rolling_cpu_vs_card(seed) -> dict:
+    """Keyed noise bit-identical on the CPU and the card; then a staggered
+    run with per-row steps 8 and 32 on a tiny fp32 model (plain attention:
+    the hand kernels take bf16), eager on the CPU and the captured chunk
+    on the card, holding the tokens."""
+    seeds = torch.tensor([0, 1, 2 ** 31 - 1, seed])
+    steps = torch.tensor([0, 7, 31, 3])
+    same = all(torch.equal(keyed_uniform(seeds, steps, tag, n),
+                           keyed_uniform(seeds.cuda(), steps.cuda(), tag,
+                                         n).cpu())
+               for tag, n in ((1, 1 << 20), (2, 384)))
+    if not same:
+        raise AssertionError("the keyed noise differs on the card")
+    cfg = Config.make("tiny", **{**TINY_OVERRIDES, "model.attn_backend": "xla",
+                                 "sampling.steps": 32})
+    m = cfg.model
+    cpu_model = DIT(m, compute_dtype=torch.float32).eval()
+    card_model = DIT(m, compute_dtype=torch.float32).to("cuda").eval()
+    randomize_(card_model, seed)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()})
+    rec = {"keyed_uniforms_bit_identical": True}
+    for kind in ("t2i", "generic"):
+        out = {}
+        for dev, mdl in (("cpu", cpu_model), ("cuda", card_model)):
+            built = build_rolling(kind, mdl, cfg, 4, ROLL_CHUNK, False, dev)
+            program = CapturedChunk(built) if dev == "cuda" else None
+            st = program.state if program else built.init_state()
+            step = program.step_chunk if program else built.step_chunk
+            rng = np.random.RandomState(seed)
+            built.insert_many(st, [0, 1], *rolling_rows(kind, m, 2, rng),
+                              [8, 32])
+            step(st)
+            built.insert_many(st, [2, 3], *rolling_rows(kind, m, 2, rng),
+                              [32, 8])
+            while not all_done(st, built.extra):
+                step(st)
+            out[dev] = st.x.cpu()
+        agree = (out["cpu"] == out["cuda"]).float().mean().item()
+        rec[kind] = {"token_agreement": agree}
+        if agree < TOKEN_AGREE:
+            raise AssertionError(f"rolling {kind} on the card against the "
+                                 f"CPU: {agree}")
+    print("rolling_cpu_vs_cuda " + json.dumps(rec))
+    return rec
+
+
+def chunk_launches(m, s, t2i=True) -> dict:
+    """The launches of one chunk replay: ROLL_CHUNK forwards of the serve
+    path (CFG folded into one doubled batch)."""
+    return expected_serve_launches(m, s, ROLL_CHUNK, t2i)
+
+
+def program_memory_and_time(built) -> dict:
+    """A rolling program's build s, its memory (what the capture keeps
+    reserved: the graph's pool and the static state; and the peak
+    allocated while it builds and replays) and the ms of a chunk replay
+    (CUDA events around 5 replays)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    program = CapturedChunk(built)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved() - reserved
+    ms = time_ms(lambda: program.step_chunk(), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"build_s": program.build_s, "reserved_bytes": held,
+            "peak_bytes": peak, "ms_per_chunk": ms,
+            "launches_per_chunk": dict(program.launches)}
+
+
+def phase_rolling_determinism(engine, seed) -> dict:
+    """At full width through a RollingT2IBatcher: 4 requests, then 8 more
+    once the first chunk has run (4 wait for slots); each request's tokens
+    equal its solo run through the same program. The launches of the run
+    are replays x the chunk's launches from the code. Then the t2i and
+    generic rolling programs' build s, memory and chunk ms."""
+    m, s = engine.m, engine.config.sampling
+    batcher = RollingT2IBatcher(engine.model, engine.config,
+                                slots=ROLL_SLOTS, chunk=ROLL_CHUNK,
+                                dispatch_lock=engine._device_lock)
+    program = batcher.program
+    rng = np.random.RandomState(seed)
+    txt = rng.randint(1, m.mask_index, (12, m.txt_length))
+    seeds = [int(x) for x in rng.randint(0, 2 ** 31 - 1, 12)]
+    try:
+        _build.reset_launch_counts()
+        replays0 = program.replays
+        futs = [batcher.submit(txt[i], seed=seeds[i]) for i in range(4)]
+        t0 = time.perf_counter()
+        while program.replays == replays0:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("the rolling batcher ran no chunk")
+            time.sleep(0.001)
+        futs += [batcher.submit(txt[i], seed=seeds[i]) for i in range(4, 12)]
+        rows = [f.result(timeout=120) for f in futs]
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        replays = program.replays - replays0
+    finally:
+        batcher.shutdown()
+    per_chunk = chunk_launches(m, s)
+    want = {k: replays * n for k, n in per_chunk.items()}
+    if dict(program.launches) != per_chunk or launches != want:
+        raise AssertionError(f"rolling determinism: {replays} replays "
+                             f"launched {launches}; a chunk launches "
+                             f"{dict(program.launches)}, expected {per_chunk}")
+    built, st = batcher.built, program.state
+    for i in range(12):
+        built.reset(st)
+        built.insert_many(st, [0], txt[i:i + 1], [seeds[i]])
+        while not all_done(st, built.extra):
+            program.step_chunk()
+        if not np.array_equal(st.x[0].cpu().numpy(), rows[i]):
+            raise AssertionError(f"rolling determinism: request {i}'s "
+                                 f"tokens differ from its solo run")
+        if (rows[i][m.txt_length:] == m.mask_index).any():
+            raise AssertionError("a mask was left in a rolling t2i row")
+    rec = {"requests": 12, "slots": ROLL_SLOTS, "replays": replays,
+           "launches": launches, "expected_launches": want,
+           "solo_equal": True}
+    del batcher, program, built, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["t2i_program"] = program_memory_and_time(build_rolling(
+        "t2i", engine.model, engine.config, ROLL_SLOTS, ROLL_CHUNK, False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["generic_program"] = program_memory_and_time(build_rolling(
+        "generic", engine.model, engine.config, ROLL_SLOTS, ROLL_CHUNK,
+        False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("rolling_determinism " + json.dumps(rec))
+    return rec
+
+
+def http(url, path, req=None, timeout=120):
+    """(status, content type, body bytes) of a GET, or of a POST of `req`
+    as JSON."""
+    data = None if req is None else json.dumps(req).encode()
+    r = urllib.request.urlopen(urllib.request.Request(
+        f"{url}{path}", data=data,
+        headers={"Content-Type": "application/json"}), timeout=timeout)
+    return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def chat(url, req):
+    status, ctype, body = http(url, "/v1/chat/completions", req)
+    if status != 200 or ctype != "application/json":
+        raise AssertionError(f"POST answered {status} {ctype}")
+    return json.loads(body)
+
+
+def concurrent_chats(url, reqs) -> list:
+    with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+        return [f.result(timeout=180) for f in
+                [ex.submit(chat, url, r) for r in reqs]]
+
+
+def png_of(item) -> np.ndarray:
+    return decode_png(base64.b64decode(
+        item["image_url"]["url"].split(",", 1)[1]))
+
+
+def t2i_chat(text, seed):
+    return {"messages": [{"role": "user", "content": text}], "seed": seed}
+
+
+def phase_server(engine, label, full=True) -> dict:
+    """make_server(engine, port=0) in a thread: 8 concurrent t2i requests
+    warm the program, 8 more are counted (one batch, or one rolling
+    group, launches exact) and return 256-px PNGs; with `full`, a caption
+    of one PNG as a data URL, an infill with an is_mask attachment, a
+    cached repeat, a streamed request, /health and /metrics."""
+    m, s = engine.m, engine.config.sampling
+    srv = make_server(engine, port=0, max_wait_ms=200)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    size = math.isqrt(m.img_length) * engine.codec.downsample
+    rolling = bool(engine._rolling_slots)
+    rec = {"rolling": rolling}
+    try:
+        t0 = time.perf_counter()
+        concurrent_chats(url, [t2i_chat(f"a warm-up lighthouse {i}", i)
+                               for i in range(REQUESTS)])
+        rec["warm_s"] = time.perf_counter() - t0
+        batches0 = srv.batcher.batches_run
+        program = engine._rolling["t2i"].program if rolling else None
+        replays0 = program.replays if rolling else 0
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = concurrent_chats(url, [
+            t2i_chat(f"a watercolor painting of a lighthouse, variant {i}",
+                     100 + i) for i in range(REQUESTS)])
+        rec["counted_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        nfe = {r["usage"]["nfe"] for r in out}
+        if rolling:
+            replays = program.replays - replays0
+            want = {k: replays * n for k, n in chunk_launches(m, s).items()}
+            rec["replays"] = replays
+            ok = nfe == {s.steps + 1}
+        else:
+            want = expected_serve_launches(m, s, max(nfe), True)
+            ok = len(nfe) == 1
+        if launches != want or not ok:
+            raise AssertionError(f"{label}: launched {launches}, expected "
+                                 f"{want}; nfe {nfe}")
+        if srv.batcher.batches_run - batches0 != 1:
+            raise AssertionError(f"{label}: 8 concurrent requests ran in "
+                                 f"{srv.batcher.batches_run - batches0} "
+                                 f"batches")
+        for r in out:
+            content = r["choices"][0]["message"]["content"]
+            if [c["type"] for c in content] != ["text", "image_url"] or \
+                    png_of(content[1]).shape != (size, size, 3):
+                raise AssertionError(f"{label}: a t2i answer without its "
+                                     f"{size}-px PNG")
+        rec.update({"launches": launches, "expected_launches": want,
+                    "nfe": sorted(nfe)})
+        if full:
+            png_url = out[0]["choices"][0]["message"]["content"][1][
+                "image_url"]["url"]
+            caption = {"messages": [{"role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": png_url}}]}],
+                "seed": 5}
+            got = chat(url, caption)
+            if [c["type"] for c in got["choices"][0]["message"][
+                    "content"]] != ["text"]:
+                raise AssertionError(f"{label}: caption answer {got}")
+            mask = np.zeros((size, size, 3), np.uint8)
+            mask[:size // 2, :size // 2] = 255
+            mask_url = "data:image/png;base64," + base64.b64encode(
+                encode_png(mask)).decode()
+            infill = {"messages": [{"role": "user", "content": [
+                {"type": "text", "text": "a <mask:4> lighthouse"},
+                {"type": "image_url", "image_url": {"url": png_url}},
+                {"type": "image_url", "image_url": {"url": mask_url},
+                 "is_mask": True}]}], "seed": 6}
+            got = chat(url, infill)
+            types = [c["type"] for c in got["choices"][0]["message"]
+                     ["content"]]
+            if types != ["text", "image_url"]:
+                raise AssertionError(f"{label}: infill answer {types}")
+            if chat(url, caption) != chat(url, caption):
+                raise AssertionError(f"{label}: a cached answer changed")
+            status, ctype, body = http(url, "/v1/chat/completions",
+                                       {**caption, "stream": True})
+            events = [e[len("data: "):] for e in body.decode().split("\n\n")
+                      if e]
+            deltas = [json.loads(e)["choices"][0]["delta"]
+                      for e in events[:-1]]
+            if ctype != "text/event-stream" or events[-1] != "[DONE]" or \
+                    deltas[0] != {"role": "assistant"} or deltas[-1] != {}:
+                raise AssertionError(f"{label}: stream {events}")
+            if json.loads(http(url, "/health")[2]) != {"status": "ok"}:
+                raise AssertionError(f"{label}: /health")
+            metrics = http(url, "/metrics")[2].decode()
+            if "unidisc_cache_hits_total" not in metrics or \
+                    'route="diffusion"' not in metrics:
+                raise AssertionError(f"{label}: /metrics {metrics}")
+            rec["caption"] = got["choices"][0]["message"]["content"][0][
+                "text"]
+            rec["checked"] = ["caption", "infill_mask", "cache", "stream",
+                              "health", "metrics"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.shutdown()
+        for b in engine._rolling.values():
+            b.shutdown()
+    print(f"{label} " + json.dumps(rec))
+    return rec
+
+
+def phase_scaffold(engine, seed) -> dict:
+    """The flagship trunk with a SCAFFOLD_BLOCKS-block trunk of the same
+    width and io (random weights from the seed): its captured program gives
+    its eager tokens under injected noise, and the flash_fwd launches of a
+    captured call are split x 12 + the rest x SCAFFOLD_BLOCKS."""
+    cfg = engine.config.override(**{"sampling.steps": SCAFFOLD_STEPS})
+    small = DIT(cfg.override(**{"model.n_blocks": SCAFFOLD_BLOCKS}).model,
+                compute_dtype=torch.bfloat16).to("cuda").eval()
+    randomize_(small, seed + 1)
+    sample = build_scaffold_sampler(engine.model, small, cfg,
+                                    split=SCAFFOLD_SPLIT, inject_noise=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    args, injected = sampler_inputs("generic", cfg.model, SCAFFOLD_BATCH,
+                                    SCAFFOLD_STEPS, gen)
+    want = sample(*args, injected=injected)
+    program = captured(sample, SCAFFOLD_BATCH)
+    _build.reset_launch_counts()
+    got = program(*args, injected=injected)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    n_big = sum(sample.big[:SCAFFOLD_STEPS]) + \
+        (got.nfe - SCAFFOLD_STEPS) * sample.big[SCAFFOLD_STEPS]
+    flash = n_big * engine.m.n_blocks + (got.nfe - n_big) * SCAFFOLD_BLOCKS
+    rec = {"steps": SCAFFOLD_STEPS, "split": SCAFFOLD_SPLIT,
+           "batch": SCAFFOLD_BATCH, "small_blocks": SCAFFOLD_BLOCKS,
+           "big_steps": sample.big, "nfe": got.nfe, "launches": launches,
+           "expected_flash_fwd": flash,
+           "token_agreement": (got.tokens == want.tokens).float().mean()
+           .item(), "graph_build_s": program.build_s}
+    print("scaffold " + json.dumps(rec))
+    if not torch.equal(got.tokens, want.tokens) or got.nfe != want.nfe \
+            or launches != {"flash_fwd": flash} \
+            or sample.big[:SCAFFOLD_SPLIT] != [True] * SCAFFOLD_SPLIT:
+        raise AssertionError(f"scaffold: {rec}")
+    del sample, program, small, injected
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def latencies(submit_all) -> dict:
+    """Per-request latency (submit to result) of TIMED_REQUESTS requests
+    arriving every SPACING_S, p50 and p95, and image tok/s over the wall
+    time from the first arrival to the last answer. submit_all(i) returns
+    a Future of request i's result."""
+    done = [None] * TIMED_REQUESTS
+    sent = [None] * TIMED_REQUESTS
+    futs = []
+    t0 = time.perf_counter()
+    for i in range(TIMED_REQUESTS):
+        delay = t0 + i * SPACING_S - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        sent[i] = time.perf_counter()
+        fut = submit_all(i)
+        fut.add_done_callback(
+            lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append(fut)
+    for f in futs:
+        f.result(timeout=180)
+    torch.cuda.synchronize()
+    lat = sorted(d - s for d, s in zip(done, sent))
+    wall = max(done) - t0
+    return {"p50_s": statistics.median(lat),
+            "p95_s": lat[math.ceil(0.95 * len(lat)) - 1],
+            "max_s": lat[-1], "wall_s": wall,
+            "image_tok_per_s": TIMED_REQUESTS * 256 / wall}
+
+
+def phase_serving_timing(engine) -> dict:
+    """Whole-batch (RequestBatcher, max batch 16, 25 ms window, every pad
+    size captured first) against rolling (8 slots, each request its own
+    thread into the rolling batcher) on the same model without a codec:
+    TIMED_REQUESTS t2i requests SPACING_S apart."""
+    prompts = [f"a lighthouse at dusk, variant {i}"
+               for i in range(TIMED_REQUESTS)]
+    prepared = [engine.prepare(text=p) for p in prompts]
+    for b in PAD_SIZES:
+        engine.run_batch(prepared[:b], pad_to=b, seed=1)
+    batcher = RequestBatcher(engine, max_batch=16, max_wait_ms=25.0)
+    try:
+        whole = latencies(lambda i: batcher.submit(text=prompts[i],
+                                                   seed=i))
+        whole["batches"] = batcher.batches_run
+    finally:
+        batcher.shutdown()
+    rolling = InferenceEngine(engine.config, engine.model,
+                              rolling=ROLL_SLOTS)
+    pool = concurrent.futures.ThreadPoolExecutor(TIMED_REQUESTS)
+    try:
+        t0 = time.perf_counter()
+        rolling.run_batch(prepared[:1], seed=0)        # builds the program
+        build_s = time.perf_counter() - t0
+        roll = latencies(lambda i: pool.submit(
+            rolling.run_batch, [prepared[i]], seed=i))
+        roll["replays"] = rolling._rolling["t2i"].program.replays
+        roll["first_request_s_with_build"] = build_s
+    finally:
+        pool.shutdown(wait=True)
+        for b in rolling._rolling.values():
+            b.shutdown()
+    rec = {"requests": TIMED_REQUESTS, "spacing_s": SPACING_S,
+           "whole_batch": whole, "rolling": roll}
+    print("serving_timing " + json.dumps(rec))
+    return rec
+
+
+def phase_front_door(seed, qstate) -> dict:
+    """Phase 4f, on phase 4's random weights and 4b's int8 weights."""
+    t0 = time.perf_counter()
+    rec = {}
+    rec["rolling_graph_vs_eager"] = {
+        "tiny": phase_rolling_graph_vs_eager(
+            tiny_models(seed)[False], "tiny", GRAPH_STEPS, seed,
+            lockstep=True)}
+    rec["rolling_cpu_vs_cuda"] = phase_rolling_cpu_vs_card(seed)
+    engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES,
+                          codec_name=CODEC)
+    randomize_(engine.model, seed)              # phase 4's weights
+    rec["rolling_graph_vs_eager"]["flagship"] = phase_rolling_graph_vs_eager(
+        (engine.config, engine.model), "flagship", GRAPH_STEPS, seed)
+    rec["rolling_determinism"] = phase_rolling_determinism(engine, seed)
+    rec["scaffold"] = phase_scaffold(engine, seed)
+    rec["front_door_bf16"] = phase_server(engine, "front_door_bf16")
+    free(engine)
+    rec["front_door_bf16_rolling"] = phase_server(InferenceEngine(
+        engine.config, engine.model, codec=engine.codec, rolling=ROLL_SLOTS),
+        "front_door_bf16_rolling")
+    codec = engine.codec
+    plain = InferenceEngine(engine.config, engine.model)
+    rec["serving_timing"] = phase_serving_timing(plain)
+    free(plain, engine)
+    del engine, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    qengine = build_engine(preset="small", overrides=FLAGSHIP_INT8_OVERRIDES,
+                           quantize="int8")
+    qengine.model.load_state_dict(qstate)      # 4b's int8 weights
+    qengine.codec = codec
+    rec["front_door_int8"] = phase_server(qengine, "front_door_int8",
+                                          full=False)
+    free(qengine)
+    rec["front_door_int8_rolling"] = phase_server(InferenceEngine(
+        qengine.config, qengine.model, codec=codec, rolling=ROLL_SLOTS),
+        "front_door_int8_rolling", full=False)
+    free(qengine)
+    del qengine, codec
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    timing = rec["serving_timing"]
+    det = rec["rolling_determinism"]
+    print("front_door " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "whole_batch": {k: timing["whole_batch"][k] for k in
+                        ("p50_s", "p95_s", "image_tok_per_s", "batches")},
+        "rolling": {k: timing["rolling"][k] for k in
+                    ("p50_s", "p95_s", "image_tok_per_s", "replays")},
+        "rolling_program": {kind: {k: det[f"{kind}_program"][k] for k in
+                                   ("build_s", "reserved_bytes",
+                                    "peak_bytes", "ms_per_chunk")}
+                            for kind in ("t2i", "generic")}}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # train path
 # ---------------------------------------------------------------------------
 
@@ -1819,6 +2419,9 @@ def main() -> int:
 
     # 4e: pixels, on phase 4's and 4b's weights
     record.update(phase_pixels(args.seed, qstate))
+    free()
+    # 4f: the serving front door, on the same weights
+    record["front_door"] = phase_front_door(args.seed, qstate)
     del qstate
     free()
 
@@ -1861,6 +2464,10 @@ def main() -> int:
     by_path = {name: {path: record[path]["launches"].get(name, 0)
                       for path in SERVE_PATHS + PIXEL_PATHS + ("train",)}
                for name in KERNELS}
+    for name in KERNELS:
+        for path in FRONT_DOOR_PATHS:
+            by_path[name][path] = record["front_door"][path][
+                "launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path

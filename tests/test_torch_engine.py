@@ -159,14 +159,14 @@ def test_tiny_engine_serves_the_generic_tasks_on_cpu(predictor):
 def test_unported_engine_options_raise_naming_their_queue_item():
     _, tcfg = configs(**OVER)
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
-    for name, value, item in (("mesh", object(), 9), ("rolling", 8, 10)):
+    for name, value, item in (("mesh", object(), 9), ("ar_draft", object(),
+                                                      10),
+                              ("lookup_ngram", 2, 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             InferenceEngine(tcfg, model, device="cpu", **{name: value})
     for name, value, item in (("lora", "adapter.npz", 5),
                               ("mesh", "fsdp=2", 9),
-                              ("scaffold", "tiny", 4),
-                              ("speculative", "lookup", 10),
-                              ("rolling", 8, 10)):
+                              ("speculative", "lookup", 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_engine(preset="tiny", device="cpu", **{name: value})
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -176,10 +176,12 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     with pytest.raises(TypeError, match="unexpected"):
         InferenceEngine(tcfg, model, device="cpu", shards=2)
     eng = InferenceEngine(tcfg, model, device="cpu", rolling=0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.enable_scaffold(model, 4)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="items 4 and 10"):
         eng.continuous
+    with pytest.raises(NotImplementedError, match="items 4 and 10"):
+        eng.complete_text("hi")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        eng.run_interleaved([{"kind": "text", "text": "hi"}])
 
 
 # ---------------------------------------------------------------------------

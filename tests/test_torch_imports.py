@@ -150,6 +150,31 @@ def test_codec_slice_is_checked():
     assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
 
 
+# the modules of the serving front door: the server, the batchers, the
+# client, the resize and scaffold decoding
+SERVING_SLICE = [
+    "unidisc_tpu_torch/serving/server.py",
+    "unidisc_tpu_torch/serving/batcher.py",
+    "unidisc_tpu_torch/serving/client.py",
+    "unidisc_tpu_torch/serving/rolling.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/sampling/scaffold.py",
+    "unidisc_tpu_torch/sampling/graph.py",
+    "unidisc_tpu_torch/utils/resize.py",
+]
+
+
+def test_serving_slice_is_checked():
+    assert set(SERVING_SLICE) <= set(FILES)
+    assert (ROOT / "unidisc_tpu_torch/serving/webui.html").exists()
+    path = "tests/test_torch_rolling_cuda.py"
+    assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+    # the client stays on the standard library
+    roots = set(imported_roots("unidisc_tpu_torch/serving/client.py"))
+    assert roots <= {"__future__", "argparse", "base64", "json",
+                     "urllib"}, roots
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -32,6 +32,11 @@ and each replay adds them: the counts are what the device ran.
 
 ddpm_cache reads a device flag each step to skip its forward
 (``capturable`` is False) and is not captured.
+
+``CapturedChunk(built)`` does the same for a rolling sampler's
+``step_chunk`` (``serving/rolling.py``): one graph over the program's own
+static state, replayed once a chunk, with the new rows written into that
+state between replays.
 """
 
 from __future__ import annotations
@@ -109,6 +114,74 @@ class CapturedSampler:
             _build.launch_counts.update(self.launches)
             out = self.sampler.finish(self.x, self.state, self.static)
             return SampleResult(tokens=out.tokens.clone(), nfe=out.nfe)
+
+
+class CapturedChunk:
+    """A rolling sampler's ``step_chunk`` (``serving/rolling.py``) as one
+    captured CUDA graph over its own static state, ``self.state`` (and,
+    with inject_noise, static noise buffers), by the recipe above: a warm
+    run on a side stream, the capture, the launch counts taken out and
+    re-added at each replay. Both run on the freshly made state, where
+    every row is inactive, so neither changes it. The state's rows are
+    written between replays by ``insert_many``, in place."""
+
+    def __init__(self, built):
+        dev = built.device
+        if dev.type != "cuda":
+            raise ValueError(f"a captured chunk runs on the card; this "
+                             f"sampler runs on {dev}")
+        self.built = built
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            self.state = built.init_state()
+            self.injected = None
+            if built.inject_noise:
+                self.injected = {name: torch.ones(shape, device=dev)
+                                 for name, shape in
+                                 built.noise_shapes().items()}
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                built.step_chunk(self.state, self.injected)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            before = collections.Counter(_build.launch_counts)
+            with torch.cuda.graph(self.graph):
+                built.step_chunk(self.state, self.injected)
+            torch.cuda.synchronize(dev)
+        self.launches = collections.Counter(_build.launch_counts)
+        self.launches.subtract(before)
+        for name, n in self.launches.items():
+            _build.launch_counts[name] -= n
+            if _build.launch_counts[name] == 0:
+                del _build.launch_counts[name]
+        self.launches = +self.launches
+        self.build_s = time.perf_counter() - t0
+        self.replays = 0
+
+    def step_chunk(self, state=None, injected=None):
+        """`chunk` denoise iterations: one replay. A state other than the
+        program's own is copied in and the result copied back (in place
+        both ways); injected noise is copied into the static buffers."""
+        if (injected is not None) != self.built.inject_noise:
+            raise ValueError("pass `injected` exactly when the sampler was "
+                             "built with inject_noise=True")
+        own = state is None or state is self.state
+        with torch.no_grad():
+            if not own:
+                for dst, src in zip(self.state, state):
+                    dst.copy_(src)
+            for name, value in (injected or {}).items():
+                if value is not self.injected[name]:
+                    self.injected[name].copy_(torch.as_tensor(value))
+            self.graph.replay()
+            self.replays += 1
+            _build.launch_counts.update(self.launches)
+            if not own:
+                for dst, src in zip(state, self.state):
+                    dst.copy_(src)
+        return self.state if own else state
 
 
 def captured(sampler, batch: int) -> CapturedSampler:

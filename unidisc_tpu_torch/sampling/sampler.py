@@ -184,6 +184,31 @@ def guidance_weight(s, t) -> Optional[np.ndarray]:
     return wt.astype(np.float32)
 
 
+def guidance_weight_t(s, t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``guidance_weight`` on a device tensor: the rolling samplers' rows
+    sit at different steps, so each row's weight is computed from its own
+    t inside the captured loop. t: (B,) float32. The window's divisor is
+    a tensor: PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, which JAX and the CPU do not."""
+    w = s.cfg
+    if w is None:
+        return None
+    if w == -1:
+        w = torch.from_numpy(linspace_f32(0.0, 10.0, t.shape[0])).to(
+            t.device)
+    lo, hi = s.cfg_min_timestep, s.cfg_max_timestep
+    if lo is not None and hi is not None:
+        span = torch.tensor(np.float32(lo - hi), device=t.device)
+        wt = w * ((t - np.float32(hi)) / span)
+    else:
+        wt = w * (1 - t)
+    if lo is not None:
+        wt = torch.where(t > np.float32(lo), wt, 0.0)
+    if hi is not None:
+        wt = torch.where(t < np.float32(hi), wt, 0.0)
+    return wt.float()
+
+
 class Sampler:
     """The generic sampler of one predictor (``build_sampler``).
 
@@ -295,12 +320,18 @@ class Sampler:
     def _noise(self, inputs, key, i):
         return inputs[key][i] if key in inputs else None
 
+    def _model_at(self, i: int):
+        """The model that runs the forward of step i (a host int; i ==
+        steps is the noise-removal pass)."""
+        return self.model
+
     def _log_p(self, x, i, p, inputs, normalize=True):
         """log p(x0 | x) at step i with CFG and the vocabulary restriction;
         with normalize=False the masked unnormalized logits."""
         m = self.config.model
         t = p["t"][i]
         sigma = self.noise.total(t)
+        model = self._model_at(i)
         modality = inputs.get("modality")
         modal_kw = dict(modality=modality,
                         text_vocab_size=m.text_vocab_size) \
@@ -309,14 +340,14 @@ class Sampler:
             x_uncond = torch.where(inputs["unmask"], m.mask_index, x)
             mm = None if modality is None else torch.cat([modality,
                                                           modality], 0)
-            logits = self.model(torch.cat([x, x_uncond], 0),
-                                torch.cat([sigma, sigma], 0), modality=mm)
+            logits = model(torch.cat([x, x_uncond], 0),
+                           torch.cat([sigma, sigma], 0), modality=mm)
             logit_c, logit_u = logits.chunk(2, dim=0)
             w = p["w"][i][:, None, None]
             combined = (1 + w) * logit_c - w * logit_u
             return subs_parameterization(combined, None, m.mask_index,
                                          normalize=normalize, **modal_kw)
-        logits = self.model(x, sigma, modality=modality)
+        logits = model(x, sigma, modality=modality)
         return subs_parameterization(logits, x, m.mask_index,
                                      normalize=normalize, **modal_kw)
 

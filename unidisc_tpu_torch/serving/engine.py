@@ -18,9 +18,17 @@ gen_text also returns its image as a base64 PNG: the codec decodes the
 sampler's tokens on the device, and only the uint8 images come to the
 host. ``build_engine`` serves random weights from the config's seed, a run
 dir that the port's Trainer wrote (``checkpoint=``, its EMA weights) or a
-published reference checkpoint (``reference_ckpt=``). Meshes, rolling and
-continuous batching, scaffold and speculative decoding, LoRA and the
-interleaved documents are later slices (ROADMAP queue 1).
+published reference checkpoint (``reference_ckpt=``).
+
+``rolling=N`` serves every request through the rolling batchers
+(``serving/rolling.py``: per-row denoise steps, admission into slots that
+finish mid-flight, one captured chunk program each on the card);
+``enable_scaffold`` / ``build_engine(scaffold=)`` runs the first denoise
+steps on this model and the rest on a smaller trunk
+(``sampling/scaffold.py``), bypassing rolling and the t2i fast path as in
+JAX. Meshes, continuous AR batching, speculative decoding, LoRA and the
+interleaved documents are later slices (ROADMAP queue 1): they raise
+``NotImplementedError`` naming their items.
 """
 
 from __future__ import annotations
@@ -51,13 +59,16 @@ def expand_mask_tokens(text: str) -> str:
 
 # the JAX engine's options that later slices port, with their ROADMAP
 # queue 1 items
-_LATER_OPTIONS = {"mesh": 9, "rolling": 10, "ar_draft": 10,
-                  "lookup_ngram": 10}
+_LATER_OPTIONS = {"mesh": 9, "ar_draft": 10, "lookup_ngram": 10}
+
+# what the server's AR route needs, with its ROADMAP queue 1 items
+_AR_ITEMS = ("items 4 and 10: the AR decode loop of sampling/ar_sampler.py "
+             "and serving/continuous.py")
 
 
 class InferenceEngine:
     def __init__(self, config: Config, model, *, tokenizer=None,
-                 codec=None, device="cuda", **later):
+                 codec=None, device="cuda", rolling: int = 0, **later):
         for name, value in later.items():
             if name not in _LATER_OPTIONS:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -83,17 +94,47 @@ class InferenceEngine:
                              f"{self.m.image_vocab_size} image ids")
         self.codec = codec.to(self.device) if codec is not None else None
         self._samplers: Dict[tuple, object] = {}
-        # serializes device work and the sampler cache across threads
+        # serializes device work and the sampler cache across threads: HTTP
+        # handler threads and the batchers' workers all reach the device,
+        # and a CUDA graph capture must see no CUDA call from another thread
         self._device_lock = threading.Lock()
+        # rolling > 0: requests go through the rolling batchers with that
+        # many slots, built at first use under _rolling_lock
+        self._rolling_slots = rolling
+        self._rolling: Dict[str, object] = {}
+        self._rolling_lock = threading.Lock()
+        self._scaffold = None    # (small model, split) once enabled
 
-    def enable_scaffold(self, *args, **kwargs):
-        raise NotImplementedError("scaffold decoding is not in the port yet "
-                                  "(ROADMAP queue 1, item 4)")
+    def enable_scaffold(self, model_small, split: int):
+        """Scaffold decoding (``sampling/scaffold.py``): denoise steps [0,
+        split) run this engine's model, the rest `model_small`, which must
+        share the vocabulary and the length. Turns off the span-factored
+        t2i path and rolling admission for later requests (both as in JAX:
+        rolling rows sit at different steps, and the t2i path runs the main
+        model only) and drops the built samplers."""
+        if self.config.trainer.parameterization == "ar":
+            raise ValueError("scaffold decoding schedules diffusion denoise "
+                             "steps; it does not apply to AR models")
+        model_small = model_small.to(self.device).eval()
+        with self._device_lock:
+            self._scaffold = (model_small, split)
+            self._samplers.clear()
 
     @property
     def continuous(self):
-        raise NotImplementedError("continuous batching is not in the port "
-                                  "yet (ROADMAP queue 1, item 10)")
+        raise NotImplementedError(f"continuous batching is not in the port "
+                                  f"yet (ROADMAP queue 1, {_AR_ITEMS})")
+
+    def complete_text(self, text: str, **kwargs):
+        """The AR text completion route of the server."""
+        raise NotImplementedError(f"AR text completion is not in the port "
+                                  f"yet (ROADMAP queue 1, {_AR_ITEMS})")
+
+    def run_interleaved(self, segments, **kwargs):
+        """The interleaved-document route of the server."""
+        raise NotImplementedError("interleaved documents are not in the port "
+                                  "yet (ROADMAP queue 1, item 6: the DIT's "
+                                  "interleaved variants)")
 
     def _program(self, sampler, batch: int):
         """`sampler` as the engine runs it, run(*inputs, seed): on the card
@@ -120,14 +161,42 @@ class InferenceEngine:
         return self._program(self._samplers[key], batch)
 
     def _sampler(self, steps: Optional[int] = None, batch: int = 1):
-        """The generic sampler of sampling.predictor at `batch` rows."""
+        """The generic sampler of sampling.predictor at `batch` rows; with
+        scaffold decoding, its scaffold form over both trunks."""
         key = ("generic", steps or self.config.sampling.steps)
         if key not in self._samplers:
-            from unidisc_tpu_torch.sampling.sampler import build_sampler
-            self._samplers[key] = build_sampler(
-                self.model, self.config, num_steps=key[1],
-                device=self.device)
+            if self._scaffold is not None:
+                from unidisc_tpu_torch.sampling.scaffold import \
+                    build_scaffold_sampler
+                small, split = self._scaffold
+                # the boundary of the config's step count, as the JAX
+                # engine builds its scaffold forward
+                self._samplers[key] = build_scaffold_sampler(
+                    self.model, small, self.config, split=split,
+                    num_steps=key[1], device=self.device,
+                    boundary_steps=self.config.sampling.steps)
+            else:
+                from unidisc_tpu_torch.sampling.sampler import build_sampler
+                self._samplers[key] = build_sampler(
+                    self.model, self.config, num_steps=key[1],
+                    device=self.device)
         return self._program(self._samplers[key], batch)
+
+    def _rolling_batcher(self, kind: str):
+        """The rolling batcher of `kind` ("generic" or "t2i"), one each at
+        the config's maximum step count (per-request step counts ride the
+        rows); built once, under a lock of its own (its capture takes the
+        device lock)."""
+        with self._rolling_lock:
+            if kind not in self._rolling:
+                from unidisc_tpu_torch.serving.rolling import (
+                    RollingDiffusionBatcher, RollingT2IBatcher)
+                cls = RollingT2IBatcher if kind == "t2i" \
+                    else RollingDiffusionBatcher
+                self._rolling[kind] = cls(
+                    self.model, self.config, slots=self._rolling_slots,
+                    dispatch_lock=self._device_lock, device=self.device)
+        return self._rolling[kind]
 
     def _layout(self, batch: int) -> np.ndarray:
         """The [text | image] modality rows (0 text, 1 image)."""
@@ -207,7 +276,10 @@ class InferenceEngine:
     def run_batch(self, prepared: List[dict], *, steps: Optional[int] = None,
                   seed: int = 0, pad_to: Optional[int] = None) -> List[dict]:
         """Run N prepared requests as one device batch. pad_to rounds the
-        batch up with duplicate rows."""
+        batch up with duplicate rows. With rolling slots (and no scaffold)
+        the rows go through the rolling batchers instead."""
+        if self._rolling_slots and self._scaffold is None:
+            return self._run_batch_rolling(prepared, steps=steps, seed=seed)
         with self._device_lock:
             return self._run_batch_locked(prepared, steps=steps, seed=seed,
                                           pad_to=pad_to)
@@ -225,7 +297,7 @@ class InferenceEngine:
             unmask = np.concatenate([unmask, np.repeat(unmask[-1:], reps,
                                                        0)])
         b = x0.shape[0]
-        if all(p["fastpath"] for p in prepared):
+        if all(p["fastpath"] for p in prepared) and self._scaffold is None:
             sample = self._t2i_sampler(steps, b)
             out = sample(torch.from_numpy(x0[:, :m.txt_length]), seed=seed)
         else:
@@ -235,6 +307,32 @@ class InferenceEngine:
         images = self._decode_images(prepared, tokens)
         return self._decode_rows(prepared, tokens.cpu().numpy(), out.nfe,
                                  images)
+
+    def _run_batch_rolling(self, prepared, *, steps, seed):
+        """Each request into the rolling batcher of its kind, with the row
+        seed of the JAX engine; the images decoded under the device lock."""
+        m = self.m
+        fastpath = all(p["fastpath"] for p in prepared) and \
+            self.config.sampling.maskgit_dilation in (None, 0, 1)
+        batcher = self._rolling_batcher("t2i" if fastpath else "generic")
+        req_steps = min(steps or self.config.sampling.steps,
+                        batcher.built.steps)
+        mod_row = None if fastpath else self._layout(1)[0]
+        futs = []
+        for i, p in enumerate(prepared):
+            row_seed = (seed * 0x9E3779B1 + i) & 0x7FFFFFFF
+            if fastpath:
+                futs.append(batcher.submit(p["x0"][:m.txt_length],
+                                           seed=row_seed, steps=req_steps))
+            else:
+                futs.append(batcher.submit(p["x0"], p["unmask"], mod_row,
+                                           seed=row_seed, steps=req_steps))
+        tokens = np.stack([f.result(timeout=600) for f in futs])
+        with self._device_lock:
+            images = self._decode_images(
+                prepared, torch.from_numpy(tokens).to(self.device))
+        return self._decode_rows(prepared, tokens,
+                                 req_steps + batcher.built.extra, images)
 
     def _decode_images(self, prepared, tokens: torch.Tensor):
         """The rows' images as uint8 (n, H, W, 3) on the host, decoded by
@@ -286,8 +384,7 @@ class InferenceEngine:
 
 # build_engine's options that later slices port, with their ROADMAP queue 1
 # items
-_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9, "scaffold": 4,
-                        "speculative": 10, "rolling": 10}
+_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9, "speculative": 10}
 
 
 def restore_run(run_dir: str, *, ema: bool = True):
@@ -318,6 +415,9 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                  experiments=None, overrides: Optional[dict] = None,
                  steps: Optional[int] = None,
                  quantize: Optional[str] = None,
+                 rolling: int = 0,
+                 scaffold: Optional[str] = None,
+                 scaffold_split: int = 8,
                  **later) -> InferenceEngine:
     """An engine for a config preset, as the JAX ``build_engine``:
 
@@ -332,10 +432,16 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     * the model computes in bf16; ``quantize="int8"`` converts it to int8
       W8A8 after the weights are loaded;
     * ``codec_name`` adds an image codec sized to the model's image grid
-      (sqrt(img_length) x the codec's downsample), so results carry PNGs.
+      (sqrt(img_length) x the codec's downsample), so results carry PNGs;
+    * ``rolling=N`` serves through the rolling batchers with N slots;
+    * ``scaffold="preset[=run_dir]"`` with ``scaffold_split=K`` runs denoise
+      steps [0, K) on the main model and the rest on a trunk of that
+      preset, forced onto the main model's vocabulary and length: random
+      weights from its seed, or a port run dir's EMA weights; int8 too
+      when ``quantize`` is.
 
-    LoRA, meshes, scaffold, speculative decoding and rolling batching
-    raise NotImplementedError naming their ROADMAP items."""
+    LoRA, meshes and speculative decoding raise NotImplementedError naming
+    their ROADMAP items."""
     for name, value in later.items():
         if name not in _LATER_BUILD_OPTIONS:
             raise TypeError(f"build_engine got an unexpected argument "
@@ -391,7 +497,38 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         grid = math.isqrt(config.model.img_length)
         codec = get_codec(codec_name, device=dev,
                           image_size=grid * codec_downsample(codec_name))
-    return InferenceEngine(config, model, codec=codec, device=dev)
+    engine = InferenceEngine(config, model, codec=codec, device=dev,
+                             rolling=rolling)
+    if scaffold:
+        engine.enable_scaffold(scaffold_model(config, scaffold, quantize),
+                               scaffold_split)
+    return engine
+
+
+def scaffold_model(config: Config, spec: str, quantize: Optional[str] = None):
+    """The scaffold trunk of ``build_engine(scaffold="preset[=run_dir]")``:
+    the preset forced onto the main model's io contract, random weights
+    from its seed or the run dir's EMA weights, int8 with `quantize`."""
+    from unidisc_tpu_torch.models.dit import DIT
+    preset, _, run_dir = spec.partition("=")
+    m = config.model
+    s_cfg = Config.make(preset).override(**{
+        "model.length": m.length, "model.txt_length": m.txt_length,
+        "model.img_length": m.img_length,
+        "model.text_vocab_size": m.text_vocab_size,
+        "model.image_vocab_size": m.image_vocab_size,
+        "model.force_argmax_valid_indices": m.force_argmax_valid_indices,
+        "model.dropout": 0.0})
+    small = DIT(s_cfg.model, compute_dtype=torch.bfloat16)
+    if run_dir:
+        _, weights, _ = restore_run(run_dir)
+        small.load_state_dict(weights)
+    else:
+        small.reset_parameters(torch.Generator().manual_seed(s_cfg.seed))
+    if quantize:
+        from unidisc_tpu_torch.ops.quant import quantize_model
+        _, small = quantize_model(s_cfg, small)
+    return small.eval()
 
 
 def downscale_bool_mask(mask: np.ndarray, d: int) -> np.ndarray:
