@@ -85,6 +85,34 @@ and prints no result):
      /metrics; then 16 t2i requests 50 ms apart, whole-batch against
      rolling: per-request p50 / p95 latency and image tok/s (a line of
      its own, `front_door`).
+  4g. AR serving: on tiny fp32 models the card equals the CPU (tokens,
+     greedy and seeded under the keyed noise: the OpenELM continuous
+     batcher with bf16 and int8 caches, the DIT-AR's batcher and decode
+     loop); int8_matmul and dynamic_quantize at every decode and prefill
+     shape of OpenELM-270M and the flagship DIT-AR equal their plain
+     versions (device ms at the decode rows beside the bound, and
+     torch._int_mm at M 32, which it takes); (a) OpenELM-270M at full
+     width (ELM_PRESETS["270m"], random weights from seed 0) in bf16, then
+     int8 W8A8 with the int8 KV cache, through build_engine /
+     complete_text (the continuous batcher, 8 slots, its decode chunk of 8
+     steps one captured CUDA graph): a second capture of the chunk equals
+     the eager chunk field for field, 16 streamed requests 50 ms apart
+     (prompts 16-512 tokens, 64-256 new, half greedy, half seeded at 0.8,
+     four sharing a 256-token prefix) with exact launches, a seeded and a
+     greedy request equal alone, prefix-cache hits equal without the
+     cache; the int8 logits through the kernels against the plain int8
+     path; (d) 8 concurrent chat completions over HTTP to the bf16
+     engine, half streamed, the deltas concatenating to the answer; (c)
+     build_engine(preset="elm:450m", speculative="270m", spec_gamma=4) and
+     elm:270m with speculative="lookup", 8 greedy requests each equal to a
+     plain batcher's, with the acceptance rate and tokens a target read;
+     (b) the flagship DIT-AR (FLAGSHIP_OVERRIDES + parameterization ar,
+     causal, ar_shift; L 384) in bf16 and int8 with the int8 KV cache:
+     build_ar_sampler at batch 8 with CFG 2.0 as its captured program
+     (equal to the eager loop, launches exact) and the same 16 requests
+     (cut to fit 384 positions) through engine.continuous. Lines
+     `ar_serving` (TTFT and TPOT p50 / p95, tok/s), `ar_speculative`,
+     `ar_programs` (build s, memory, ms a replay) and `ar_kernels`.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
@@ -2167,6 +2195,1034 @@ def phase_front_door(seed, qstate) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4g: AR serving
+# ---------------------------------------------------------------------------
+
+AR_SLOTS, AR_CHUNK = 8, 8       # the engines' continuous batchers
+AR_REQUESTS, AR_SPACING_S = 16, 0.05
+AR_SHARED = 256                 # the prefix four of the requests share
+AR_TEMPERATURE = 0.8            # the seeded half of the requests
+SPEC_REQUESTS = 8
+AR_SAMPLER_CHUNK = 16           # decode steps a replay of the AR sampler
+AR_SAMPLER_PROMPT = 32          # prompt tokens of its 8 text rows
+AR_OVERRIDES = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
+                "model.full_attention": False}
+# the counted runs of phase 4g
+AR_PATHS = ("ar_elm_bf16", "ar_elm_int8", "ar_http", "ar_spec_draft",
+            "ar_spec_lookup", "ar_dit_sampler_bf16", "ar_dit_bf16",
+            "ar_dit_sampler_int8", "ar_dit_int8")
+
+
+def ar_requests(length: int, seed: int) -> list:
+    """AR_REQUESTS completions: prompts of 16-512 tokens (with the BOS)
+    and 64-256 new tokens, cut to fit a model of `length` positions
+    (prompts to half of it, a shared prefix to a third, and the new
+    tokens below the speculative rounds' stop cap, length - 8 at gamma
+    up to 7); even requests
+    greedy, odd ones seeded at AR_TEMPERATURE; requests 3, 7, 11 and 15
+    share a prefix of AR_SHARED tokens."""
+    rng = np.random.RandomState(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    shared = text(min(AR_SHARED, length // 3) - 1)
+    plens = [16, 512, 64, 0, 128, 256, 32, 0, 384, 48, 200, 0, 96, 320, 24,
+             0]
+    news = [64, 256, 128, 96, 192, 64, 256, 128, 96, 160, 64, 224, 128, 80,
+            256, 112]
+    reqs = []
+    for i in range(AR_REQUESTS):
+        body = shared + text(16 + 8 * i) if i % 4 == 3 \
+            else text(min(plens[i], length // 2) - 1)
+        reqs.append({"text": body,
+                     "max_new_tokens": min(news[i], length - len(body) - 9),
+                     "temperature": AR_TEMPERATURE if i % 2 else 0.0,
+                     "seed": 1000 + i if i % 2 else None})
+    return reqs
+
+
+def run_ar_requests(engine, reqs) -> tuple:
+    """Each request through engine.complete_text, AR_SPACING_S apart, each
+    streaming: time to first token (submit to the first streamed tokens),
+    time per output token ((last tokens - first tokens) / (n - 1)), and
+    generated tok/s over the first submit to the last answer."""
+    n = len(reqs)
+    sent, first, last, done = ([None] * n for _ in range(4))
+    streamed = [0] * n
+    futs = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs):
+        delay = t0 + i * AR_SPACING_S - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+
+        def on_tokens(ids, i=i):
+            now = time.perf_counter()
+            if first[i] is None:
+                first[i] = now
+            last[i] = now
+            streamed[i] += len(ids)
+
+        sent[i] = time.perf_counter()
+        fut = engine.complete_text(r["text"], stream_cb=on_tokens, **{
+            k: r[k] for k in ("max_new_tokens", "temperature", "seed")})
+        fut.add_done_callback(
+            lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append(fut)
+    results = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    ttft = sorted(f - s for f, s in zip(first, sent))
+    tpot = sorted((la - f) / (k - 1) for f, la, k in
+                  zip(first, last, streamed) if k > 1)
+    generated = sum(len(r["tokens"]) for r in results)
+    wall = max(done) - t0
+
+    def pct(xs, q):
+        return xs[math.ceil(q * len(xs)) - 1]
+
+    timing = {"requests": n, "spacing_s": AR_SPACING_S,
+              "ttft_p50_s": statistics.median(ttft),
+              "ttft_p95_s": pct(ttft, 0.95),
+              "tpot_p50_ms": 1e3 * statistics.median(tpot),
+              "tpot_p95_ms": 1e3 * pct(tpot, 0.95),
+              "generated_tokens": generated, "wall_s": wall,
+              "tok_per_s": generated / wall}
+    return timing, results
+
+
+def int8_products_per_forward(model) -> int:
+    """The int8 products (each one dynamic_quantize and one int8_matmul
+    launch) of one forward, from the module: its QLinear layers and, in an
+    int8 OpenELM, the head."""
+    from unidisc_tpu_torch.models.dit import QLinear
+    from unidisc_tpu_torch.models.elm import OpenELM
+    n = sum(isinstance(mod, QLinear) for mod in model.modules())
+    return n + int(isinstance(model, OpenELM) and model.cfg.quant == "int8")
+
+
+def clone_state(state):
+    def c(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(c(v) for v in x)
+        return x.clone()
+    return type(state)(*(c(f) for f in state))
+
+
+def state_tensors(state) -> list:
+    out = []
+    for name, field in zip(state._fields, state):
+        stack = [field]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, (list, tuple)):
+                stack.extend(x)
+            else:
+                out.append((name, x))
+    return out
+
+
+def replay_profile(replay, n: int = 2, top: int = 10) -> dict:
+    """Device time of one `replay()` by kernel name, from torch.profiler
+    over n replays: the total, the kernels a replay, and the `top`
+    largest names with their ms and launches a replay."""
+    replay()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+    ms, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] += e.time_range.elapsed_us() / 1e3 / n
+            count[e.name] += 1 / n
+    return {"device_ms": sum(ms.values()), "kernels": sum(count.values()),
+            "top": [[name[:90], t, count[name]]
+                    for name, t in ms.most_common(top)]}
+
+
+def phase_decode_program(engine, label, seed) -> dict:
+    """A second capture of the engine's decode chunk (the batcher keeps
+    its own): its build s, what it holds (reserved) and the peak while it
+    builds and replays, the ms of a replay (CUDA events over 5), and every
+    field of its state equal to the eager chunk's after each of 3 chunks,
+    with 3 requests of real lengths (greedy and seeded) admitted into both
+    before the first and a fourth before the third."""
+    decoder = engine.continuous.decoder
+    rng = np.random.RandomState(seed)
+    L, S = decoder.L, decoder.slots
+    with engine._device_lock:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base, reserved = torch.cuda.memory_allocated(), \
+            torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        program = CapturedChunk(decoder)
+        torch.cuda.synchronize()
+        build_s = program.build_s
+        held = torch.cuda.memory_reserved() - reserved
+        eager = clone_state(program.state)
+        bucket = min(512, L // 2)
+        for c in range(3):
+            if c in (0, 2):
+                slots = [0, 1, 2] if c == 0 else [S - 1]
+                n = len(slots)
+                args = (slots, rng.randint(4, 200, (n, bucket)),
+                        np.zeros((n, L), np.int64),
+                        rng.randint(bucket // 4, bucket, n),
+                        rng.randint(40, 120, n),
+                        np.asarray([0.0, AR_TEMPERATURE, 0.0][:n],
+                                   np.float32), rng.randint(0, 999, n))
+                for st in (eager, program.state):
+                    decoder.insert_many(st, *args)
+            decoder.step_chunk(eager)
+            program.step_chunk()
+            torch.cuda.synchronize()
+            for (name, x), (_, y) in zip(state_tensors(eager),
+                                         state_tensors(program.state)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label}: the captured decode "
+                                         f"chunk differs from the eager "
+                                         f"chunk in {name} after chunk {c}")
+        ms = time_ms(lambda: program.step_chunk(), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(program.launches)
+        profile = replay_profile(program.step_chunk)
+        del program, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"build_s": build_s, "reserved_bytes": held,
+            "peak_bytes": peak, "ms_per_replay": ms,
+            "chunk_steps": decoder.chunk,
+            "rounds_per_replay": decoder.rounds if decoder.speculative
+            else None, "launches_per_replay": launches,
+            "captured_equals_eager_chunks": 3, "profile": profile}
+
+
+def decode_bytes(model, cache) -> dict:
+    """The bytes a decode step must read: every projection of the module
+    (its stored weights, scales and biases; fp32 for the DIT, whose dense
+    casts at each call) and the head (an OpenELM's fp32 tables, or its
+    int8 copy and scales); and the whole K/V `cache` of the batcher's
+    slots, which the plain attention reads every step."""
+    from unidisc_tpu_torch.models.dit import QLinear
+    from unidisc_tpu_torch.models.elm import OpenELM
+    from unidisc_tpu_torch.serving.continuous import _leaves
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    weights = nbytes(t for mod in model.modules()
+                     if isinstance(mod, (torch.nn.Linear, QLinear))
+                     for t in itertools.chain(mod.parameters(),
+                                              mod.buffers()))
+    if isinstance(model, OpenELM):
+        weights += nbytes([model.lm_head_q, model.lm_head_scale]) \
+            if model.cfg.quant == "int8" else nbytes(
+                [model.token_embeddings, model.token_embeddings_extra])
+    kv = nbytes(_leaves(cache))
+    return {"weight_bytes": weights, "kv_cache_bytes": kv,
+            "weight_bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+            "step_bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_ar_path(engine, reqs, label, seed) -> dict:
+    """AR_REQUESTS requests through engine.complete_text (the continuous
+    batcher: the captured decode chunk, eager admissions), 50 ms apart,
+    each streaming; the counted run's launches equal the code's (int8
+    products a forward x the batcher's prefill forwards and chunk x its
+    chunks); every answer's ids in the vocabulary; the prefix cache hit.
+    Whether a greedy and a seeded request give the same tokens alone, and
+    the four sharing requests without the prefix cache, is recorded."""
+    batcher = engine.continuous        # built and captured here
+    t0 = time.perf_counter()
+    engine.complete_text("warm up the prefill", max_new_tokens=4).result(
+        timeout=600)
+    warm_s = time.perf_counter() - t0
+    rec = {"program": phase_decode_program(engine, label, seed),
+           "warm_request_s": warm_s,
+           "batcher_build_s": batcher.program.build_s}
+    c0, p0, h0, r0 = (batcher.chunks, batcher.prefills,
+                      batcher.prefix_hits, batcher.host_reads)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    timing, results = run_ar_requests(engine, reqs)
+    launches = dict(_build.launch_counts)
+    chunks, prefills = batcher.chunks - c0, batcher.prefills - p0
+    per_fwd = int8_products_per_forward(engine.model)
+    forwards = prefills + batcher.decoder.chunk * chunks
+    want = {"int8_matmul": per_fwd * forwards,
+            "dynamic_quantize": per_fwd * forwards} if per_fwd else {}
+    if launches != want:
+        raise AssertionError(f"{label}: the main path launched {launches}; "
+                             f"expected {want} ({per_fwd} int8 products a "
+                             f"forward, {prefills} prefills, {chunks} "
+                             f"chunks of {batcher.decoder.chunk})")
+    for r, res in zip(reqs, results):
+        toks = res["tokens"]
+        if len(toks) > r["max_new_tokens"] or any(
+                not 0 <= t < engine.vocab_size for t in toks) or \
+                not isinstance(res["text"], str):
+            raise AssertionError(f"{label}: an answer out of bounds: {res}")
+    # in this model's own precision, recorded: a request's tokens alone
+    # and from the prefix cache against the run's. Held exactly in fp64
+    # (phase_ar_exactness) and on the tiny fp32 models (phase_ar_cpu_vs_card):
+    # a prefill of other rows or another bucket sums in another order, and
+    # a near tie of bf16 logits can flip
+    def again(i):
+        r = reqs[i]
+        return engine.complete_text(r["text"], **{
+            k: r[k] for k in ("max_new_tokens", "temperature", "seed")}
+        ).result(timeout=600)["tokens"] == results[i]["tokens"]
+
+    hits = batcher.prefix_hits - h0
+    if hits < 1:
+        raise AssertionError(f"{label}: the shared prefix never hit")
+    same_alone = [again(i) for i in (0, 1)]
+    batcher._prefix_min = 0
+    try:
+        same_without_prefix = [again(i) for i in range(3, len(reqs), 4)]
+    finally:
+        batcher._prefix_min = 16
+    rec.update({"timing": timing, "launches": launches,
+                "expected_launches": want, "chunks": chunks,
+                "prefill_forwards": prefills, "prefix_hits": hits,
+                "same_alone_requests_0_1": same_alone,
+                "same_without_prefix_cache": same_without_prefix,
+                "host_reads": batcher.host_reads - r0,
+                "int8_products_per_forward": per_fwd,
+                "distinct_outputs": len({tuple(r["tokens"])
+                                         for r in results}),
+                "decode_step": decode_bytes(engine.model,
+                                            batcher.state.kv)})
+    print(f"{label} " + json.dumps(rec))
+    return rec
+
+
+def batcher_exactness(make, reqs, label) -> dict:
+    """reqs: (prompt ids, max new, temperature, seed). Each request alone
+    (a fresh batcher without the prefix cache, one request at a time)
+    gives the tokens it gives when all are submitted at once, and again
+    when they come one after another through a batcher with the prefix
+    cache, which must hit. make(prefix_min) builds a batcher."""
+    def run(prefix_min, together):
+        b = make(prefix_min)
+        try:
+            if together:
+                futs = [b.submit(p, max_new_tokens=n, temperature=t, seed=s)
+                        for p, n, t, s in reqs]
+                return [f.result(timeout=600)["tokens"] for f in futs], 0
+            out = [b.submit(p, max_new_tokens=n, temperature=t, seed=s)
+                   .result(timeout=600)["tokens"] for p, n, t, s in reqs]
+            return out, b.prefix_hits
+        finally:
+            b.shutdown()
+
+    alone, _ = run(0, False)
+    loaded, _ = run(0, True)
+    cached, hits = run(16, False)
+    rec = {"requests": len(reqs), "same_under_load": loaded == alone,
+           "same_from_prefix_cache": cached == alone, "prefix_hits": hits,
+           "tokens": sum(len(t) for t in alone)}
+    if not (rec["same_under_load"] and rec["same_from_prefix_cache"]
+            and hits >= 1):
+        raise AssertionError(f"{label}: {rec}")
+    return rec
+
+
+def phase_ar_exactness(engine, reqs) -> dict:
+    """The exactness of the continuous batcher at full width, on an fp64
+    copy of the engine's OpenELM (its K/V cache bf16, as served): 8 of the
+    requests (greedy and seeded, four sharing the 256-token prefix, 48 new
+    tokens each) give the same tokens alone, under load and from the
+    prefix cache. In fp64 the summation orders of prefills of other rows
+    and buckets differ by ~1e-15 of a logit, below every gap."""
+    from unidisc_tpu_torch.serving.continuous import elm_continuous_batcher
+    model = fp64_copy(engine.model)
+    tok = engine.tokenizer
+    picked = [0, 1, 3, 5, 7, 9, 11, 15]
+    gate = [(tok.encode(reqs[i]["text"], add_bos=True,
+                        add_eos=False)[:engine.m.length - 2],
+             min(48, reqs[i]["max_new_tokens"]), reqs[i]["temperature"],
+             reqs[i]["seed"] if reqs[i]["seed"] is not None else 7 + i)
+            for i in picked]
+    rec = batcher_exactness(
+        lambda pm: elm_continuous_batcher(
+            model, slots=AR_SLOTS, chunk=AR_CHUNK,
+            eos_id=tok.eos_token_id, prefix_min=pm,
+            device_lock=engine._device_lock), gate, "ar_exactness_fp64")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("ar_exactness_fp64 " + json.dumps(rec))
+    return rec
+
+
+def shutdown_ar(*engines) -> None:
+    for engine in engines:
+        if engine._continuous is not None:
+            engine._continuous.shutdown()
+            engine._continuous = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ar_sampler(engine, label, seed) -> dict:
+    """build_ar_sampler over the engine's DIT at batch 8 with the config's
+    CFG (16 rows), as its captured program (graph.py::captured_ar): 8
+    text prompts of AR_SAMPLER_PROMPT tokens, the rest of the sequence
+    generated (text span, then image span). The counted call's launches
+    equal the code's (int8 products a forward x the steps replayed); its
+    tokens equal the eager loop's at the same seed, keep the prompt and
+    the modality of each position; 3 steady calls are timed."""
+    from unidisc_tpu_torch.sampling.ar_sampler import (build_ar_sampler,
+                                                       make_apply_token)
+    from unidisc_tpu_torch.sampling.graph import captured_ar
+    cfg, m = engine.config, engine.m
+    sampler = build_ar_sampler(make_apply_token(engine.model), cfg,
+                               chunk=AR_SAMPLER_CHUNK, device=engine.device)
+    rng = np.random.RandomState(seed)
+    x0 = np.zeros((REQUESTS, m.length), np.int64)
+    x0[:, :AR_SAMPLER_PROMPT] = rng.randint(
+        4, min(260, m.text_vocab_size), (REQUESTS, AR_SAMPLER_PROMPT))
+    unmask = np.zeros_like(x0, dtype=bool)
+    unmask[:, :AR_SAMPLER_PROMPT] = True
+    modality = np.concatenate([np.zeros((REQUESTS, m.txt_length)),
+                               np.ones((REQUESTS, m.img_length))], 1)
+    with engine._device_lock:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        program = captured_ar(sampler, REQUESTS)
+        torch.cuda.synchronize()
+        build_s = program.build_s
+        held = torch.cuda.memory_reserved() - reserved
+        _build.reset_launch_counts()
+        out = program(x0, unmask, modality, seed=1)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        per_fwd = int8_products_per_forward(engine.model)
+        steps = sampler.chunk * sampler.n_chunks
+        want = {"int8_matmul": per_fwd * steps,
+                "dynamic_quantize": per_fwd * steps} if per_fwd else {}
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected "
+                                 f"{want}")
+        tokens = out.tokens.cpu().numpy()
+        eager = sampler(x0, unmask, modality, seed=1).tokens.cpu().numpy()
+        if not np.array_equal(tokens, eager):
+            raise AssertionError(f"{label}: the captured AR sampler "
+                                 f"differs from its eager loop")
+        if not (np.array_equal(tokens[unmask], x0[unmask])
+                and (tokens[:, :m.txt_length] < m.text_vocab_size).all()
+                and (tokens[:, m.txt_length:] >= m.text_vocab_size).all()
+                and (tokens < m.vocab_size).all()):
+            raise AssertionError(f"{label}: tokens off their modality")
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            program(x0, unmask, modality, seed=2 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: program.graph.replay(), iters=5, warmup=1)
+        _build.launch_counts.clear()
+        sampler.graphs.clear()
+        del program
+    generated = int((~unmask).sum())
+    batch_s = min(times)
+    rec = {"batch": REQUESTS, "rows": 2 * REQUESTS if sampler.use_cfg
+           else REQUESTS, "length": m.length, "steps": m.length - 1,
+           "build_s": build_s, "launches": launches,
+           "expected_launches": want, "int8_products_per_forward": per_fwd,
+           "steady_batch_s": times, "generated_tokens": generated,
+           "tok_per_s": generated / batch_s,
+           # whole-batch: every token comes back at the end of the batch
+           "ttft_s": batch_s,
+           "tpot_ms": 1e3 * batch_s / (m.length - 1),
+           "reserved_bytes": held, "peak_bytes": peak,
+           "ms_per_replay": ms, "steps_per_replay": sampler.chunk,
+           "distinct_outputs": len({r.tobytes() for r in tokens})}
+    print(f"{label} " + json.dumps(rec))
+    return rec
+
+
+class IdTokenizer:
+    """The byte tokenizer's encoding, with a decoding that writes every id
+    as <id>: the answers of random weights are mostly ids past the 256
+    bytes, which the byte tokenizer's decoding drops, and would stream no
+    text."""
+
+    def __init__(self):
+        from unidisc_tpu_torch.tokenizers.text import get_tokenizer
+        self.base = get_tokenizer("byte")
+        self.eos_token_id = self.base.eos_token_id
+
+    def encode(self, text, **kw):
+        return self.base.encode(text, **kw)
+
+    def decode(self, ids):
+        return "".join(f"<{i}>" for i in ids)
+
+
+def phase_ar_http(engine) -> dict:
+    """make_server over an ElmEngine of the engine's model that writes
+    every id (IdTokenizer): 8 concurrent chat completions, half streamed;
+    each streamed answer's deltas concatenate to the text of the same
+    request answered whole; /metrics shows the continuous batcher's
+    gauges."""
+    from unidisc_tpu_torch.serving.engine import ElmEngine
+    engine = ElmEngine(engine.elm_cfg, engine.model, tokenizer=IdTokenizer(),
+                       device=engine.device)
+    srv = make_server(engine, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    reqs = [{"messages": [{"role": "user",
+                           "content": f"tell me about lighthouses, {i}"}],
+             "max_tokens": 32 + 8 * i, "stream": i % 2 == 0}
+            for i in range(REQUESTS)]
+
+    def ask(req):
+        status, ctype, body = http(url, "/v1/chat/completions", req,
+                                   timeout=300)
+        if not req["stream"]:
+            answer = json.loads(body)
+            if not answer["usage"]["completion_tokens"] > 0:
+                raise AssertionError(f"ar_http: an empty answer {answer}")
+            return answer["choices"][0]["message"]["content"]
+        if ctype != "text/event-stream":
+            raise AssertionError(f"ar_http: stream answered {ctype}")
+        events = [e[len("data: "):] for e in body.decode().split("\n\n")
+                  if e]
+        if events[-1] != "[DONE]":
+            raise AssertionError("ar_http: a stream without [DONE]")
+        text = ""
+        for e in events[1:-2]:
+            delta = json.loads(e)["choices"][0]["delta"]
+            text = delta["content"] if delta.get("replace") \
+                else text + delta["content"]
+        return text
+
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+            texts = list(ex.map(ask, reqs))
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        if not all(texts):
+            raise AssertionError("ar_http: an answer without text")
+        for req, text in zip(reqs, texts):
+            if req["stream"]:
+                whole = ask({**req, "stream": False})
+                if whole != text:
+                    raise AssertionError("ar_http: the streamed deltas do "
+                                         "not concatenate to the answer")
+        metrics = http(url, "/metrics")[2].decode().splitlines()
+        if f"unidisc_slots {AR_SLOTS}" not in metrics or not any(
+                ln.startswith("unidisc_active_slots ") for ln in metrics):
+            raise AssertionError(f"ar_http: /metrics {metrics}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.shutdown()
+        shutdown_ar(engine)
+    rec = {"requests": len(reqs), "streamed": sum(r["stream"] for r in reqs),
+           "wall_s": wall, "launches": launches,
+           "chars": [len(t) for t in texts]}
+    print("ar_http " + json.dumps(rec))
+    return rec
+
+
+def fp64_copy(model):
+    """An OpenELM's weights in an fp64-computing copy on the card."""
+    from unidisc_tpu_torch.models.elm import OpenELM
+    copy_ = OpenELM(model.cfg, compute_dtype=torch.float64, init_seed=None)
+    copy_.load_state_dict(model.state_dict())
+    return copy_.to("cuda").eval()
+
+
+def speculative_lossless(engine, reqs, label) -> dict:
+    """Greedy speculative (or lookup) rounds against plain decoding on
+    fp64 copies of the engine's target and draft, token for token. The
+    rule is lossless in exact arithmetic. A verify forward's gamma + 1
+    rows a slot and a plain step's one are products of other shapes, which
+    cuBLAS sums in other orders: in bf16, and measured in fp32 too (the
+    first full-width runs), a near tie between the two best logits of
+    these random 20-layer models flips, and the sequences part there. In
+    fp64 the orders differ by ~1e-15 of a logit, below every gap."""
+    from unidisc_tpu_torch.serving.continuous import elm_continuous_batcher
+    target = fp64_copy(engine.model)
+    kw = dict(draft=fp64_copy(engine._draft), gamma=engine._gamma) \
+        if engine._draft is not None else \
+        dict(lookup_ngram=engine._lookup_ngram, gamma=engine._gamma)
+    ids = [engine.tokenizer.encode(r["text"], add_bos=True,
+                                   add_eos=False)[:engine.m.length - 2]
+           for r in reqs]
+    toks = {}
+    for name, extra in (("speculative", kw), ("plain", {})):
+        b = elm_continuous_batcher(
+            target, slots=AR_SLOTS, chunk=AR_CHUNK,
+            eos_id=engine.tokenizer.eos_token_id,
+            device_lock=engine._device_lock, **extra)
+        try:
+            futs = [b.submit(p, max_new_tokens=r["max_new_tokens"])
+                    for p, r in zip(ids, reqs)]
+            toks[name] = [f.result(timeout=600)["tokens"] for f in futs]
+        finally:
+            b.shutdown()
+    del target, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    if toks["speculative"] != toks["plain"]:
+        raise AssertionError(f"{label}: greedy speculative tokens differ "
+                             f"from plain decoding in fp64")
+    return {"requests": len(reqs),
+            "tokens": sum(len(t) for t in toks["plain"])}
+
+
+def phase_ar_speculative(seed) -> dict:
+    """(c) build_engine(preset="elm:450m", speculative="270m",
+    spec_gamma=4) and build_engine(preset="elm:270m",
+    speculative="lookup"): SPEC_REQUESTS greedy requests each through the
+    engine (speculative rounds in the captured chunk), timed, with the
+    acceptance rate and the tokens a target read from the state's
+    counters; their greedy tokens equal plain decoding's in fp64
+    (speculative_lossless), and the bf16 engine's agreement with plain
+    bf16 decoding is recorded."""
+    from unidisc_tpu_torch.serving.continuous import elm_continuous_batcher
+    out = {}
+    for label, kw in (("ar_spec_draft", dict(preset="elm:450m",
+                                             speculative="270m",
+                                             spec_gamma=4)),
+                      ("ar_spec_lookup", dict(preset="elm:270m",
+                                              speculative="lookup",
+                                              spec_gamma=4))):
+        t0 = time.perf_counter()
+        engine = build_engine(**kw)
+        build_s = time.perf_counter() - t0
+        reqs = [{**r, "temperature": 0.0, "seed": None} for r in
+                ar_requests(engine.m.length, seed)[:SPEC_REQUESTS]]
+        batcher = engine.continuous
+        engine.complete_text("warm up", max_new_tokens=4).result(timeout=600)
+        stats0 = batcher.state.stats.clone()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        timing, results = run_ar_requests(engine, reqs)
+        launches = dict(_build.launch_counts)
+        stats = (batcher.state.stats - stats0).tolist()
+        # the bf16 engine against plain bf16 decoding of its target:
+        # recorded (bf16 rounding can flip a near tie); the gate is fp64
+        plain = elm_continuous_batcher(
+            engine.model, slots=AR_SLOTS, chunk=AR_CHUNK,
+            eos_id=engine.tokenizer.eos_token_id,
+            device_lock=engine._device_lock)
+        try:
+            futs = [plain.submit(engine.tokenizer.encode(
+                r["text"], add_bos=True, add_eos=False)[:engine.m.length - 2],
+                max_new_tokens=r["max_new_tokens"]) for r in reqs]
+            plain_toks = [f.result(timeout=600)["tokens"] for f in futs]
+        finally:
+            plain.shutdown()
+        agree = [r["tokens"] == t for r, t in zip(results, plain_toks)]
+        lossless = speculative_lossless(engine, reqs, label)
+        rows, accepted, drafted, advanced = stats
+        rec = {"engine": kw, "engine_build_s": build_s, "timing": timing,
+               "launches": launches, "lossless_fp64": lossless,
+               "bf16_requests_equal_to_plain_bf16": sum(agree),
+               "row_rounds": rows,
+               "accepted": accepted, "drafted": drafted,
+               "acceptance_rate": accepted / max(drafted, 1),
+               "tokens_per_target_read": advanced / max(rows, 1),
+               "rounds_per_replay": batcher.decoder.rounds}
+        print(f"{label} " + json.dumps(rec))
+        out[label] = rec
+        shutdown_ar(engine)
+        del engine, batcher
+    return out
+
+
+def elm_int8_logits(model, qmodel, seed) -> dict:
+    """Full-width int8 OpenELM logits through the kernels (int8_matmul,
+    dynamic_quantize) against the plain int8 path, as phase 4b holds the
+    int8 DIT: the kernel path (bf16) within twice the plain bf16 path's
+    mean error from the plain path in fp32, and against the bf16 model
+    cosine > 0.99 and top-1 agreement > 0.9 where the bf16 lead is
+    clear."""
+    from unidisc_tpu_torch.models.elm import OpenELM
+    cfg = qmodel.cfg
+    state = qmodel.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(4, 260, (2, 256), generator=gen, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        out["kernel"] = qmodel(ids).float()
+        out["bf16_model"] = model(ids).float()
+        for label, dtype in (("plain_bf16", torch.bfloat16),
+                             ("plain_fp32", torch.float32)):
+            mdl = OpenELM(cfg, compute_dtype=dtype, quant_backend="xla",
+                          init_seed=None)
+            mdl.load_state_dict(state)
+            out[label] = mdl.to("cuda").eval()(ids).float()
+            del mdl
+    torch.cuda.synchronize()
+    kern, truth, ref = out["kernel"], out["plain_fp32"], out["bf16_model"]
+    err_kernel = (kern - truth).abs().mean().item()
+    err_plain16 = (out["plain_bf16"] - truth).abs().mean().item()
+    cos = ((kern.double() * ref.double()).sum()
+           / (kern.double().norm() * ref.double().norm())).item()
+    agree = kern.argmax(-1) == ref.argmax(-1)
+    mean_diff = (kern - ref).abs().mean().item()
+    best2 = ref.topk(2, dim=-1).values
+    clear = (best2[..., 0] - best2[..., 1]) > 2 * mean_diff
+    top1_clear = agree[clear].float().mean().item()
+    finite = bool(torch.isfinite(kern).all().item())
+    rec = {"shape": list(kern.shape), "logit_scale": truth.abs().max().item(),
+           "mean_abs_err_kernel_bf16_vs_plain_fp32": err_kernel,
+           "mean_abs_err_plain_bf16_vs_plain_fp32": err_plain16,
+           "kernel_equals_plain_bf16": bool(torch.equal(kern,
+                                                        out["plain_bf16"])),
+           "cosine_vs_bf16_model": cos,
+           "top1_vs_bf16_model": agree.float().mean().item(),
+           "top1_vs_bf16_model_clear_margin": top1_clear,
+           "share_clear_margin": clear.float().mean().item(),
+           "finite": finite}
+    print("elm_int8_logits " + json.dumps(rec))
+    if (not finite or err_kernel > 2 * err_plain16 or not cos > 0.99
+            or not top1_clear > 0.9):
+        raise AssertionError(f"full-width int8 ELM logits through the "
+                             f"kernels are off: {rec}")
+    return rec
+
+
+def ar_products() -> dict:
+    """(K, N) of the AR path's int8 products by (model, product):
+    OpenELM-270M's every projection width and its 48,385-wide head, and
+    the flagship DIT-AR's four trunk products and head."""
+    from unidisc_tpu_torch.models.elm import ELM_PRESETS
+    c = ELM_PRESETS["270m"]
+    hd, d = c.head_dim, c.model_dim
+    out = collections.defaultdict(set)
+    for q, kv, f in zip(c.layer_q_heads(), c.layer_kv_heads(),
+                        c.layer_ffn_dims()):
+        out["elm270m", "qkv"].add((d, (q + 2 * kv) * hd))
+        out["elm270m", "out"].add((q * hd, d))
+        out["elm270m", "proj_1"].add((d, 2 * f))
+        out["elm270m", "proj_2"].add((f, d))
+    out["elm270m", "head"].add((d, c.total_vocab))
+    m = Config.make("small", **FLAGSHIP_OVERRIDES).model
+    h, f = m.hidden_size, m.mlp_ratio * m.hidden_size
+    for name, k, n in (("attn_qkv", h, 3 * h), ("attn_out", h, h),
+                       ("mlp_0", h, f), ("mlp_2", f, h),
+                       ("head", h, m.vocab_size)):
+        out["dit_ar", name].add((k, n))
+    return {key: sorted(v) for key, v in out.items()}
+
+
+def ar_gemm_cases() -> list:
+    """(model, product, M, K, N, decode) of the checked int8 products:
+    every width at the decode rows (8 slots; 16 rows of the AR sampler
+    under CFG), at one 512-token prompt's prefill (the DIT's: 8 x 384
+    rows), and each product's widest at a group prefill of 8 x 512."""
+    cases = []
+    for (model, prod), shapes in ar_products().items():
+        rows = [(8, True), (16, True)] + ([(512, False)] if model ==
+                                          "elm270m" else [(8 * 384, False)])
+        cases += [(model, prod, mm, k, n, decode) for mm, decode in rows
+                  for k, n in shapes]
+        if model == "elm270m" and prod != "head":
+            cases.append((model, prod, 8 * 512, *max(
+                shapes, key=lambda kn: kn[0] * kn[1]), False))
+    return cases
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device ms of one call of fn: CUDA events around replays of a
+    captured graph of `calls` calls (no host time between the launches,
+    and no profiler trace to lose), the launches the capture counts taken
+    out again."""
+    before = collections.Counter(_build.launch_counts)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = time_ms(graph.replay, iters=replays, warmup=0) / calls
+    _build.launch_counts.clear()
+    _build.launch_counts.update(before)
+    del graph
+    return ms
+
+
+def phase_ar_kernels(seed) -> dict:
+    """int8_matmul and dynamic_quantize at every shape of ar_gemm_cases
+    against their plain versions, bit for bit (bf16 out; fp32 for the
+    heads, as the models call them); at the decode rows each one's device
+    ms (graph_ms) beside its bound, and at M 32 (torch._int_mm refuses M
+    <= 16 on the card) the library's product with a torch epilogue beside
+    the kernel at the same M."""
+    from unidisc_tpu_torch.ops.quant import (dynamic_quantize,
+                                             dynamic_quantize_reference)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    widest = {key: max(v, key=lambda kn: kn[0] * kn[1])
+              for key, v in ar_products().items()}
+    cases = ar_gemm_cases()
+    gemm, quant, library, seen_q = [], [], [], set()
+    for model, prod, mm, k, n, decode in cases:
+        out_dtype = torch.float32 if prod == "head" else torch.bfloat16
+        x = dynamic_quantize_input(gen, mm, k)
+        xq, s = dynamic_quantize(x)
+        rq, rs = dynamic_quantize_reference(x)
+        wq = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                           generator=gen, device="cuda")
+        ws = torch.rand((n,), generator=gen, device="cuda") * 0.02
+        got = int8_matmul(xq, s, wq, ws, out_dtype=out_dtype)
+        want = int8_matmul_reference(xq, s, wq, ws, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        if not (torch.equal(xq, rq) and torch.equal(s, rs)
+                and torch.equal(got, want)):
+            raise AssertionError(f"{model} {prod} ({mm}, {k}, {n}): a "
+                                 f"kernel differs from its plain version")
+        if decode:
+            bound, by, nbytes, ops = int8_gemm_bound(
+                mm, k, n, False, out_dtype.itemsize)
+            gemm.append({"model": model, "product": prod,
+                         "shape_mkn": [mm, k, n],
+                         "device_ms": graph_ms(lambda: int8_matmul(
+                             xq, s, wq, ws, out_dtype=out_dtype)),
+                         "bound_ms": bound, "bound_by": by,
+                         "weight_bytes": n * k})
+            if (mm, k) not in seen_q:
+                seen_q.add((mm, k))
+                nb = mm * k * 2 + mm * k + mm * 4
+                quant.append({"shape_mk": [mm, k], "device_ms": graph_ms(
+                    lambda: dynamic_quantize(x)),
+                    "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes"})
+            if mm == 8 and (k, n) == widest[model, prod]:
+                x32 = dynamic_quantize_input(gen, 32, k)
+                xq32, s32 = dynamic_quantize(x32)
+                lib = library_int8_fn(xq32, s32, wq, ws, None)
+                library.append({
+                    "model": model, "product": prod, "shape_mkn": [32, k, n],
+                    "kernel_device_ms": graph_ms(lambda: int8_matmul(
+                        xq32, s32, wq, ws, out_dtype=out_dtype)),
+                    "library_device_ms": None if lib is None
+                    else graph_ms(lib),
+                    "library": "torch._int_mm + torch epilogue, M 32"})
+        del x, xq, s, rq, rs, wq, ws, got, want
+    rec = {"checked_shapes": len(cases), "int8_matmul": gemm,
+           "dynamic_quantize": quant, "library_m32": library}
+    print("ar_kernels " + json.dumps({
+        "card": card_line(), "checked_shapes": rec["checked_shapes"],
+        "int8_matmul": [(g["model"], g["product"], g["shape_mkn"],
+                         round(g["device_ms"], 5), round(g["bound_ms"], 5))
+                        for g in gemm],
+        "dynamic_quantize": [(q["shape_mk"], round(q["device_ms"], 5),
+                              round(q["bound_ms"], 5)) for q in quant],
+        "library_m32": [(lb["model"], lb["product"], lb["shape_mkn"],
+                         lb["kernel_device_ms"], lb["library_device_ms"])
+                        for lb in library]}))
+    return rec
+
+
+def tiny_elm_model(seed, device, quant=False):
+    """The tiny OpenELM preset in fp32 with random weights from `seed`
+    (tables widened 50x so that tokens vary), on `device`."""
+    from unidisc_tpu_torch.models.elm import ELM_PRESETS, OpenELM
+    from unidisc_tpu_torch.ops.quant import quantize_elm_params
+    cfg = dataclasses.replace(ELM_PRESETS["tiny"],
+                              quant="int8" if quant else None)
+    state = OpenELM(ELM_PRESETS["tiny"], compute_dtype=torch.float32,
+                    init_seed=seed).state_dict()
+    state["token_embeddings"] = state["token_embeddings"] * 50
+    if quant:
+        state = quantize_elm_params(state)
+    model = OpenELM(cfg, compute_dtype=torch.float32, init_seed=None)
+    model.load_state_dict(state)
+    return model.to(device).eval()
+
+
+def phase_ar_cpu_vs_card(seed) -> dict:
+    """The card against the CPU in fp32 (TF32 off), tiny models: the
+    OpenELM continuous batcher (bf16 KV cache, and int8 weights with the
+    int8 KV cache: the kernels on the card, their plain versions on the
+    CPU) and the DIT-AR's (TINY_OVERRIDES, causal), 4 requests, two
+    greedy and two seeded at temperature 2 under the keyed noise; and the
+    DIT-AR's decode loop at batch 4 with CFG, seeded. Tokens equal. On
+    the card the same batchers give each request's tokens alone, under
+    load and from the prefix cache (batcher_exactness)."""
+    from unidisc_tpu_torch.sampling.ar_sampler import (build_ar_sampler,
+                                                       make_apply_token)
+    from unidisc_tpu_torch.serving.continuous import (ContinuousBatcher,
+                                                      elm_continuous_batcher)
+    rng = np.random.RandomState(seed)
+    reqs = [(rng.randint(4, 60, 3 + 2 * i).tolist(), 10 + i,
+             0.0 if i % 2 == 0 else 2.0, 50 + i) for i in range(4)]
+    rec = {}
+
+    def through(make):
+        toks = {}
+        for dev in ("cpu", "cuda"):
+            b = make(dev)
+            try:
+                futs = [b.submit(p, max_new_tokens=n, temperature=t, seed=s)
+                        for p, n, t, s in reqs]
+                toks[dev] = [f.result(timeout=300)["tokens"] for f in futs]
+            finally:
+                b.shutdown()
+        return toks
+
+    shared = rng.randint(4, 60, 17).tolist()
+    exact_reqs = reqs + [(shared + [5, 6, 7], 8, 2.0, 60),
+                         (shared + [9], 8, 0.0, 61)]
+    for label, quant in (("elm_bf16_cache", False), ("elm_int8", True)):
+        model = tiny_elm_model(seed, "cuda", quant)
+        toks = through(lambda dev: elm_continuous_batcher(
+            model if dev == "cuda" else tiny_elm_model(seed, dev, quant),
+            slots=4, chunk=4, quant_cache=quant))
+        rec[label] = toks["cuda"] == toks["cpu"]
+        rec[f"{label}_exactness_on_card"] = batcher_exactness(
+            lambda pm: elm_continuous_batcher(
+                model, slots=4, chunk=4, quant_cache=quant, prefix_min=pm),
+            exact_reqs, label)["same_under_load"]
+    cfg = Config.make("tiny", **{**TINY_OVERRIDES, **AR_OVERRIDES,
+                                 "model.attn_backend": "xla"})
+    cpu = DIT(cfg.model, compute_dtype=torch.float32).eval()
+    randomize_(cpu, seed)
+    card = DIT(cfg.model, compute_dtype=torch.float32).to("cuda").eval()
+    card.load_state_dict({k: v.to("cuda") for k, v in
+                          cpu.state_dict().items()})
+    models = {"cpu": cpu, "cuda": card}
+    toks = through(lambda dev: ContinuousBatcher(models[dev], cfg, slots=4,
+                                                 chunk=4))
+    rec["dit_ar_continuous"] = toks["cuda"] == toks["cpu"]
+    rec["dit_ar_exactness_on_card"] = batcher_exactness(
+        lambda pm: ContinuousBatcher(card, cfg, slots=4, chunk=4,
+                                     prefix_min=pm),
+        [(p[:8], 6, t, s) for p, _, t, s in exact_reqs[:4]]
+        + [(shared[:17] + [3], 4, 2.0, 62), (shared[:17], 4, 0.0, 63)],
+        "dit_ar_tiny")["same_under_load"]
+    m = cfg.model
+    x0 = rng.randint(0, m.text_vocab_size, (TINY_BATCH, m.length))
+    unmask = np.zeros_like(x0, dtype=bool)
+    unmask[:, :3] = True
+    mod = np.concatenate([np.zeros((TINY_BATCH, m.txt_length)),
+                          np.ones((TINY_BATCH, m.img_length))], 1)
+    sampled = {dev: build_ar_sampler(make_apply_token(models[dev]), cfg,
+                                     chunk=5, device=dev)(
+        x0, unmask, mod, seed=7).tokens.cpu() for dev in models}
+    rec["dit_ar_sampler"] = bool(torch.equal(sampled["cpu"],
+                                             sampled["cuda"]))
+    print("ar_cpu_vs_cuda " + json.dumps(rec))
+    if not all(rec.values()):
+        raise AssertionError(f"AR decoding on the card differs from the "
+                             f"CPU: {rec}")
+    return rec
+
+
+def phase_ar(seed) -> dict:
+    """Phase 4g: AR serving (module docstring)."""
+    t0 = time.perf_counter()
+    rec, part_s = {}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[key] = time.perf_counter() - t
+        return out
+
+    rec["cpu_vs_card"] = part("cpu_vs_card", phase_ar_cpu_vs_card, seed)
+    rec["kernels"] = part("kernels", phase_ar_kernels, seed)
+    # (a) OpenELM-270M, bf16, then int8 W8A8 with the int8 KV cache
+    engine = part("build_elm_bf16", lambda: build_engine(preset="elm:270m"))
+    reqs = ar_requests(engine.m.length, seed)
+    rec["ar_elm_bf16"] = part("ar_elm_bf16", phase_ar_path, engine, reqs,
+                              "ar_elm_bf16", seed)
+    rec["ar_http"] = part("ar_http", phase_ar_http, engine)
+    qengine = part("build_elm_int8", lambda: build_engine(
+        preset="elm:270m", quantize="int8", kv_cache="int8"))
+    rec["elm_int8_logits"] = part("elm_int8_logits", elm_int8_logits,
+                                  engine.model, qengine.model, seed)
+    rec["ar_exactness_fp64"] = part("ar_exactness_fp64", phase_ar_exactness,
+                                    engine, reqs)
+    shutdown_ar(engine)
+    del engine
+    rec["ar_elm_int8"] = part("ar_elm_int8", phase_ar_path, qengine, reqs,
+                              "ar_elm_int8", seed)
+    shutdown_ar(qengine)
+    del qengine
+    # (c) speculative and prompt-lookup decoding
+    rec.update(part("speculative", phase_ar_speculative, seed))
+    # (b) the flagship DIT-AR, bf16, then int8 with the int8 KV cache
+    dit = build_engine(preset="small",
+                       overrides={**FLAGSHIP_OVERRIDES, **AR_OVERRIDES})
+    randomize_(dit.model, seed)
+    dreqs = ar_requests(dit.m.length, seed)
+    rec["ar_dit_sampler_bf16"] = part("ar_dit_sampler_bf16",
+                                      phase_ar_sampler, dit,
+                                      "ar_dit_sampler_bf16", seed)
+    rec["ar_dit_bf16"] = part("ar_dit_bf16", phase_ar_path, dit, dreqs,
+                              "ar_dit_bf16", seed)
+    qstate = quantize_dit_params(dit.model.state_dict())
+    shutdown_ar(dit)
+    del dit
+    qdit = build_engine(preset="small",
+                        overrides={**FLAGSHIP_INT8_OVERRIDES,
+                                   **AR_OVERRIDES},
+                        quantize="int8", kv_cache="int8")
+    qdit.model.load_state_dict(qstate)
+    rec["ar_dit_sampler_int8"] = part("ar_dit_sampler_int8",
+                                      phase_ar_sampler, qdit,
+                                      "ar_dit_sampler_int8", seed)
+    rec["ar_dit_int8"] = part("ar_dit_int8", phase_ar_path, qdit, dreqs,
+                              "ar_dit_int8", seed)
+    shutdown_ar(qdit)
+    del qdit, qstate
+    rec["seconds_by_part"] = part_s
+    rec["seconds"] = time.perf_counter() - t0
+    card = card_line()
+    print("ar_serving " + json.dumps({
+        "card": card, "seconds": rec["seconds"],
+        "seconds_by_part": part_s,
+        **{label: {k: rec[label]["timing"][k] for k in
+                   ("ttft_p50_s", "ttft_p95_s", "tpot_p50_ms",
+                    "tpot_p95_ms", "tok_per_s")}
+           for label in ("ar_elm_bf16", "ar_elm_int8", "ar_dit_bf16",
+                         "ar_dit_int8")},
+        **{label: {k: rec[label][k] for k in
+                   ("ttft_s", "tpot_ms", "tok_per_s")}
+           for label in ("ar_dit_sampler_bf16", "ar_dit_sampler_int8")}}))
+    print("ar_speculative " + json.dumps({
+        "card": card, **{label: {k: rec[label][k] for k in
+                                 ("acceptance_rate",
+                                  "tokens_per_target_read")}
+                         | {"tok_per_s": rec[label]["timing"]["tok_per_s"]}
+                         for label in ("ar_spec_draft", "ar_spec_lookup")}}))
+    print("ar_programs " + json.dumps({
+        "card": card,
+        **{label: {k: rec[label]["program"][k] for k in
+                   ("build_s", "reserved_bytes", "peak_bytes",
+                    "ms_per_replay")}
+           for label in ("ar_elm_bf16", "ar_elm_int8", "ar_dit_bf16",
+                         "ar_dit_int8")},
+        **{label: {k: rec[label][k] for k in
+                   ("reserved_bytes", "peak_bytes", "ms_per_replay")}
+           for label in ("ar_dit_sampler_bf16", "ar_dit_sampler_int8")}}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # train path
 # ---------------------------------------------------------------------------
 
@@ -2349,6 +3405,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
 
     record["build"] = phase_build()
     record["kernel_cases"] = phase_kernels(args.seed)
@@ -2424,6 +3481,9 @@ def main() -> int:
     record["front_door"] = phase_front_door(args.seed, qstate)
     del qstate
     free()
+    # 4g: AR serving
+    record["ar"] = phase_ar(args.seed)
+    free()
 
     cfg = train_config()
     record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
@@ -2468,6 +3528,8 @@ def main() -> int:
         for path in FRONT_DOOR_PATHS:
             by_path[name][path] = record["front_door"][path][
                 "launches"].get(name, 0)
+        for path in AR_PATHS:
+            by_path[name][path] = record["ar"][path]["launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path
@@ -2518,6 +3580,8 @@ def main() -> int:
             "library_device_ms": case["library_device_ms"]})
     record["kernels"] = kernels
     record["device_ms_fallbacks"] = DEVICE_MS_FALLBACKS
+    record["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {record['seconds']:.1f} s")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)

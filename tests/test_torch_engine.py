@@ -157,28 +157,32 @@ def test_tiny_engine_serves_the_generic_tasks_on_cpu(predictor):
 
 
 def test_unported_engine_options_raise_naming_their_queue_item():
+    """The options still to port raise naming their items; the AR options
+    that the AR slice ported (ar_draft, lookup_ngram, speculative, the
+    elm preset, continuous, complete_text) are held in
+    tests/test_torch_speculative.py and tests/test_torch_serving.py, and
+    here only refuse a diffusion model."""
     _, tcfg = configs(**OVER)
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
-    for name, value, item in (("mesh", object(), 9), ("ar_draft", object(),
-                                                      10),
-                              ("lookup_ngram", 2, 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            InferenceEngine(tcfg, model, device="cpu", **{name: value})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        InferenceEngine(tcfg, model, device="cpu", mesh=object())
     for name, value, item in (("lora", "adapter.npz", 5),
-                              ("mesh", "fsdp=2", 9),
-                              ("speculative", "lookup", 10)):
+                              ("mesh", "fsdp=2", 9)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_engine(preset="tiny", device="cpu", **{name: value})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_engine(preset="elm:270m", device="cpu")
+    from unidisc_tpu_torch.serving.engine import build_elm_engine
+    with pytest.raises(NotImplementedError, match="item 5"):
+        build_elm_engine(preset="tiny", lora="adapter.npz", device="cpu")
     with pytest.raises(TypeError, match="unexpected"):
         build_engine(preset="tiny", device="cpu", shards=2)
     with pytest.raises(TypeError, match="unexpected"):
         InferenceEngine(tcfg, model, device="cpu", shards=2)
+    with pytest.raises(ValueError, match="scaffold"):
+        build_engine(preset="tiny", device="cpu", speculative="lookup")
     eng = InferenceEngine(tcfg, model, device="cpu", rolling=0)
-    with pytest.raises(NotImplementedError, match="items 4 and 10"):
+    with pytest.raises(ValueError, match="AR model"):
         eng.continuous
-    with pytest.raises(NotImplementedError, match="items 4 and 10"):
+    with pytest.raises(ValueError, match="AR model"):
         eng.complete_text("hi")
     with pytest.raises(NotImplementedError, match="item 6"):
         eng.run_interleaved([{"kind": "text", "text": "hi"}])

@@ -175,6 +175,28 @@ def test_serving_slice_is_checked():
                      "urllib"}, roots
 
 
+# the modules of the AR serving slice: the decode loop, OpenELM, the
+# continuous batcher, speculative and prompt-lookup decoding, the engines'
+# AR routes
+AR_SLICE = [
+    "unidisc_tpu_torch/sampling/ar_sampler.py",
+    "unidisc_tpu_torch/models/elm.py",
+    "unidisc_tpu_torch/serving/continuous.py",
+    "unidisc_tpu_torch/serving/speculative.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/serving/server.py",
+    "unidisc_tpu_torch/sampling/graph.py",
+    "unidisc_tpu_torch/models/port.py",
+    "unidisc_tpu_torch/ops/quant.py",
+]
+
+
+def test_ar_slice_is_checked():
+    assert set(AR_SLICE) <= set(FILES)
+    path = "tests/test_torch_ar_cuda.py"
+    assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -9,9 +9,14 @@ one and the port's. For text->image, caption (a data-URL image), infill
 with an is_mask attachment, a cached repeat, a streamed request, /health,
 /metrics and the web UI, the port's response has the JAX server's schema,
 ``usage.nfe`` and content types (the tokens differ: the two draw from
-different generators). The AR and interleaved routes answer 500 naming
-their ROADMAP items. Every request and future has a timeout, and the
-servers and batchers are shut down in a finally.
+different generators). The interleaved route answers 500 naming its
+ROADMAP item. The AR route answers: a JAX server and the port's over the
+same tiny OpenELM (fp32, greedy) give the same completion, plain and
+streamed (the streamed deltas concatenate to the final text); a DIT-AR
+engine answers plain and streamed requests with the engine's own
+completion; /metrics shows the continuous batcher's gauges. Every request
+and future has a timeout, and the servers and batchers are shut down in a
+finally.
 
 Scaffold: the port's per-step trunk choice equals JAX's sigma dispatch for
 steps {4, 8, 32} and every split, and its sampler gives JAX's
@@ -38,7 +43,7 @@ from unidisc_tpu.sampling import scaffold as jax_scaffold
 from unidisc_tpu.serving import server as jax_server
 from unidisc_tpu.serving.engine import InferenceEngine as JaxEngine
 from unidisc_tpu_torch.config import Config
-from unidisc_tpu_torch.models.dit import DIT
+from unidisc_tpu_torch.models.dit import DIT, randomize_
 from unidisc_tpu_torch.sampling.scaffold import (big_steps,
                                                  build_scaffold_sampler,
                                                  sigma_boundary)
@@ -251,23 +256,129 @@ def test_health_metrics_and_web_ui(servers):
     assert err.value.code == 404
 
 
+AR = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
+      "model.full_attention": False}
+
+
 def test_interleaved_and_ar_requests_answer_500_naming_their_items(servers):
+    """The interleaved route still answers 500 naming its item; the AR
+    route, a later slice when this test was written, now answers 200."""
     with pytest.raises(urllib.error.HTTPError) as err:
         post(servers["port"], {"segments": [{"kind": "text",
                                              "text": "a"}]})
     assert err.value.code == 500
     assert "item 6" in json.load(err.value)["error"]
-    _, tcfg = configs(**OVER, **{"trainer.parameterization": "ar"})
+    _, tcfg = configs(**OVER, **AR)
     eng = InferenceEngine(tcfg, DIT(tcfg.model), device="cpu")
     srv = server.make_server(eng, port=0)
     url = start(srv)
     try:
-        with pytest.raises(urllib.error.HTTPError) as err:
-            post(url, {"messages": [{"role": "user", "content": "hi"}]})
-        assert err.value.code == 500
-        assert "items 4 and 10" in json.load(err.value)["error"]
+        resp = post(url, {"messages": [{"role": "user", "content": "hi"}],
+                          "max_tokens": 3})
+        assert resp["object"] == "chat.completion"
+        assert isinstance(resp["choices"][0]["message"]["content"], str)
     finally:
         stop(srv)
+        eng.continuous.shutdown()
+
+
+def sse_events(body: str) -> list:
+    """The JSON events of an SSE body, [DONE] last."""
+    events = [line[len("data: "):] for line in body.splitlines()
+              if line.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    return [json.loads(e) for e in events[:-1]]
+
+
+def streamed_text(events) -> str:
+    text = ""
+    for e in events[1:-1]:
+        delta = e["choices"][0]["delta"]
+        text = delta["content"] if delta.get("replace") \
+            else text + delta["content"]
+    return text
+
+
+@pytest.fixture(scope="module")
+def elm_servers():
+    """A JAX ELM server and the port's over the same tiny OpenELM, fp32."""
+    from unidisc_tpu.models.elm import OpenELM as JaxELM
+    from unidisc_tpu.serving.engine import ElmEngine as JaxElmEngine
+    from unidisc_tpu_torch.models.elm import ELM_PRESETS
+    from unidisc_tpu_torch.serving.engine import ElmEngine
+    from test_torch_elm import elm_pair
+    cfg = ELM_PRESETS["tiny"]
+    _, params, model = elm_pair(cfg, seed=2)
+    jeng = JaxElmEngine(cfg, JaxELM(cfg, compute_dtype=jnp.float32), params,
+                        slots=4, chunk=4)
+    eng = ElmEngine(cfg, model, slots=4, chunk=4, device="cpu")
+    jsrv = jax_server.make_server(jeng, port=0)
+    psrv = server.make_server(eng, port=0)
+    try:
+        yield {"jax": start(jsrv), "port": start(psrv), "engine": eng}
+    finally:
+        stop(jsrv)
+        stop(psrv)
+        for e in (jeng, eng):
+            if e._continuous is not None:
+                e._continuous.shutdown()
+
+
+# the tiny ELM's 64 ids hold the byte tokenizer's bytes below 60
+ELM_REQ = {"messages": [{"role": "user", "content": "1+2 3, 4*5"}],
+           "max_tokens": 12, "temperature": 0.0}
+
+
+def test_elm_completion_matches_the_jax_server(elm_servers):
+    want = post(elm_servers["jax"], ELM_REQ)
+    got = post(elm_servers["port"], ELM_REQ)
+    assert schema(got) == schema(want)
+    assert got["choices"] == want["choices"]
+    assert got["usage"] == want["usage"]
+    # a repeat comes from the response cache
+    assert post(elm_servers["port"], ELM_REQ) == got
+
+
+def test_elm_stream_matches_the_jax_server(elm_servers):
+    req = {**ELM_REQ, "stream": True, "max_tokens": 10,
+           "messages": [{"role": "user", "content": "(7-3)/2"}]}
+    jtype, jbody = post(elm_servers["jax"], req, raw=True)
+    ptype, pbody = post(elm_servers["port"], req, raw=True)
+    assert ptype == jtype == "text/event-stream"
+    jev, pev = sse_events(jbody), sse_events(pbody)
+    assert pev[0]["choices"][0]["delta"] == {"role": "assistant"}
+    assert pev[-1]["choices"][0]["finish_reason"] == "stop"
+    assert streamed_text(pev) == streamed_text(jev)
+    final = post(elm_servers["port"], {**req, "stream": False})
+    assert streamed_text(pev) == final["choices"][0]["message"]["content"]
+
+
+def test_dit_ar_server_answers_plain_and_streamed_with_gauges():
+    eng = build_engine(preset="tiny", device="cpu",
+                       overrides={**OVERRIDES, **OVER, **AR})
+    randomize_(eng.model, 0)
+    srv = server.make_server(eng, port=0)
+    url = start(srv)
+    try:
+        want = eng.complete_text("hello", max_new_tokens=8).result(TIMEOUT)
+        req = {"messages": [{"role": "user", "content": "hello"}],
+               "max_tokens": 8}
+        resp = post(url, req)
+        assert resp["choices"][0]["message"]["content"] == want["text"]
+        assert resp["usage"] == {"completion_tokens": len(want["tokens"])}
+        ctype, body = post(url, {**req, "stream": True}, raw=True)
+        assert ctype == "text/event-stream"
+        assert streamed_text(sse_events(body)) == want["text"]
+        _, _, text = get(url, "/metrics")
+        lines = text.decode().splitlines()
+        assert "unidisc_slots 8" in lines
+        assert "unidisc_queue_depth 0" in lines
+        assert any(ln.startswith("unidisc_active_slots ") for ln in lines)
+        assert any(ln.startswith('unidisc_requests_total{route="ar"} ')
+                   for ln in lines)
+    finally:
+        stop(srv)
+        eng.continuous.shutdown()
 
 
 def test_client_talks_to_the_ports_server(servers, tmp_path, capsys,

@@ -31,6 +31,9 @@ kept int8, and its per-channel ``scale`` stays ``scale``, while a
 LayerNorm's ``scale`` still becomes ``weight``. Every other leaf is cast
 to fp32.
 
+``elm_state_dict_from_jax`` does the same for the OpenELM baseline
+(``models/elm.py``), float or quantized.
+
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` over (params,
 EMA, the Adam moments and counts, the schedule's count) with the same
 mapping, into the layout of the port's ``TrainState.state_dict``.
@@ -111,6 +114,31 @@ def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[_torch_name(path, quantized)] = torch.from_numpy(
                 np.ascontiguousarray(arr.T if kernel else arr))
+    return sd
+
+
+def elm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax OpenELM params (``unidisc_tpu/models/elm.py``, as numpy arrays;
+    the float tree or the ``quantize_elm_params`` one) -> the state_dict
+    of the port's ``models/elm.py::OpenELM``: ``layer_{i}`` becomes
+    ``layers.{i}``, a kernel (in, out) the weight (out, in), a
+    ``kernel_q`` the int8 ``weight_q`` (out, in) with its ``scale``, the
+    int8 head ``lm_head_q`` (D, V) the (V, D) one; every float leaf fp32."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        if path[-1] in ("kernel_q", "lm_head_q"):
+            if arr.dtype != np.int8:
+                raise TypeError(f"{'/'.join(path)} must be int8, got "
+                                f"{arr.dtype}")
+        else:
+            arr = arr.astype(np.float32)
+        if path[-1] in ("kernel", "kernel_q", "lm_head_q"):
+            arr = arr.T
+        mods = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path[:-1]]
+        leaf = {"kernel": "weight", "kernel_q": "weight_q"}.get(path[-1],
+                                                                path[-1])
+        sd[".".join(mods + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
     return sd
 
 

@@ -21,8 +21,8 @@ through ``dynamic_quantize_reference``, its plain version.
 
 The int8 KV cache (``quantize_kv``, ``int8_kv_attention``) reaches no
 Pallas kernel in the JAX package (XLA computes it), so its plain PyTorch
-form here is its port. The OpenELM conversion (``quantize_elm_params``)
-comes with the port's ELM slice.
+form here is its port. ``quantize_elm_params`` converts an OpenELM
+(``models/elm.py``) as ``quantize_dit_params`` converts a DIT.
 """
 
 from __future__ import annotations
@@ -130,8 +130,10 @@ def int8_kv_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
       scores = (q8 . k8) * q_s * k_s * scale
       out    = (p8 . v8) * p_s,   p8, p_s = quantize_kv(softmax(scores) * v_s)
 
-    q (B, l, H, D) float; kq, vq (B, L, H, D) int8; ks, vs (B, L, H, 1)
-    fp32; mask broadcastable to (B, H, l, L), True = attend. Returns
+    q (B, l, H, D) float; kq, vq (B, L, Hk, D) int8; ks, vs (B, L, Hk, 1)
+    fp32, Hk dividing H: query head h reads cache head h // (H / Hk), as
+    the JAX package's repeat of a grouped (GQA) cache gives it, without the
+    repeat; mask broadcastable to (B, H, l, L), True = attend. Returns
     (B, l, H, D) in q's dtype.
 
     PyTorch has no batched int8 product on the card, so both contractions
@@ -139,22 +141,33 @@ def int8_kv_attention(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     in the JAX package's int32 accumulation: the score product sums
     D <= 128 terms; the value product sums the cache length in chunks of
     at most 1024 keys, each exact in fp32, added exactly in int64."""
-    d = q.shape[-1]
+    b, l, h, d = q.shape
+    hk = kq.shape[2]
+    if h % hk:
+        raise ValueError(f"{h} query heads over {hk} cache heads")
+    rep = h // hk
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     q_q, q_s = quantize_kv(q)
-    acc = torch.einsum("blhd,bkhd->bhlk", q_q.float(), kq.float())
-    scores = (acc * q_s.permute(0, 2, 1, 3) * ks.permute(0, 2, 3, 1)
-              * scale)
+    # (B, Hk, rep, l, L): head h = g * rep + r
+    acc = torch.einsum("blgrd,bkgd->bgrlk",
+                       q_q.float().view(b, l, hk, rep, d), kq.float())
+    scores = (acc * q_s.view(b, l, hk, rep).permute(0, 2, 3, 1)[..., None]
+              * ks[..., 0].permute(0, 2, 1)[:, :, None, None, :] * scale)
     if mask is not None:
+        if mask.ndim == 3:
+            mask = mask[:, None]
+        mask = mask[:, :, None] if mask.shape[1] == 1 else \
+            mask.reshape(mask.shape[0], hk, rep, *mask.shape[2:])
         scores = torch.where(mask, scores, -1e30)
     p = torch.softmax(scores, dim=-1)
-    p_q, p_s = quantize_kv(p * vs.permute(0, 2, 3, 1))
-    acc_v = sum(torch.einsum("bhlk,bkhd->bhld",
+    p_q, p_s = quantize_kv(p * vs[..., 0].permute(0, 2, 1)[:, :, None, None,
+                                                           :])
+    acc_v = sum(torch.einsum("bgrlk,bkgd->bgrld",
                              p_q[..., k0:k0 + _PV_CHUNK].float(),
                              vq[:, k0:k0 + _PV_CHUNK].float()).to(torch.int64)
                 for k0 in range(0, vq.shape[1], _PV_CHUNK))
     out = acc_v.float() * p_s
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, l, h, d).to(q.dtype)
 
 
 def quantize_dit_params(state_dict: Dict[str, torch.Tensor]
@@ -174,6 +187,38 @@ def quantize_dit_params(state_dict: Dict[str, torch.Tensor]
                 quantize_per_channel(value, axis=1)
         else:
             out[name] = value
+    return out
+
+
+# the OpenELM linears that quantize_elm_params converts: every projection
+_ELM_QUANTIZED = re.compile(r"^layers\.\d+\.(attn\.(qkv_proj|out_proj)"
+                            r"|proj_1|proj_2)\.weight$")
+
+
+def quantize_elm_params(state_dict: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """A float OpenELM state_dict -> the state_dict of a quant="int8" one.
+
+    Every projection (qkv_proj, out_proj, proj_1, proj_2 of every layer)
+    quantizes per output channel into ``weight_q`` / ``scale``; the head
+    becomes an int8 copy of the concatenated [text | extra] table in the
+    (N, K) = (V, D) layout of ``int8_matmul``, ``lm_head_q``, with
+    per-vocab scales ``lm_head_scale`` (the JAX module's (D, V) copy,
+    transposed). The fp tables stay for the embedding lookups; the norms
+    stay as they are. Quantize fp32 weights: a model stored in bf16 has
+    already rounded its projections."""
+    out = {}
+    for name, value in state_dict.items():
+        if _ELM_QUANTIZED.match(name):
+            stem = name[:-len("weight")]
+            out[stem + "weight_q"], out[stem + "scale"] = \
+                quantize_per_channel(value, axis=1)
+        else:
+            out[name] = value
+    table = torch.cat([state_dict["token_embeddings"],
+                       state_dict["token_embeddings_extra"]], 0)
+    out["lm_head_q"], out["lm_head_scale"] = quantize_per_channel(table,
+                                                                  axis=1)
     return out
 
 

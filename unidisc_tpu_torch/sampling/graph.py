@@ -34,9 +34,12 @@ ddpm_cache reads a device flag each step to skip its forward
 (``capturable`` is False) and is not captured.
 
 ``CapturedChunk(built)`` does the same for a rolling sampler's
-``step_chunk`` (``serving/rolling.py``): one graph over the program's own
+``step_chunk`` (``serving/rolling.py``) and for the continuous AR
+decoder's (``serving/continuous.py``): one graph over the program's own
 static state, replayed once a chunk, with the new rows written into that
-state between replays.
+state between replays. ``captured_ar(sampler, batch)`` holds the AR decode
+loop (``sampling/ar_sampler.py``) as one captured chunk of decode steps
+whose step index lives on the device, replayed until the sequence ends.
 """
 
 from __future__ import annotations
@@ -49,6 +52,36 @@ import torch
 
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.sampling.sampler import SampleResult
+
+
+def capture(run, dev: torch.device, generator=None):
+    """`run()` captured in a CUDA graph: a warm run on a side stream (it
+    builds and loads the kernels, initialises cuBLAS and settles the
+    allocator), then the capture, on `generator` if given. The launch
+    counts of the capture are taken out of ``_build.launch_counts`` and
+    returned, for each replay to add. Returns (graph, run's output in the
+    graph's memory, launches a replay)."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    register = getattr(graph, "register_generator_state", None)
+    if generator is not None and register is not None:
+        register(generator)
+    before = collections.Counter(_build.launch_counts)
+    with torch.cuda.graph(graph):
+        out = run()
+    torch.cuda.synchronize(dev)
+    launches = collections.Counter(_build.launch_counts)
+    launches.subtract(before)
+    for name, n in launches.items():
+        _build.launch_counts[name] -= n
+        if _build.launch_counts[name] == 0:
+            del _build.launch_counts[name]
+    return graph, out, +launches
 
 
 class CapturedSampler:
@@ -69,28 +102,9 @@ class CapturedSampler:
         t0 = time.perf_counter()
         with torch.inference_mode():
             self.static = sampler.example_inputs(batch)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                sampler.denoise(self.static, self.generator)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            register = getattr(self.graph, "register_generator_state", None)
-            if register is not None:
-                register(self.generator)
-            before = collections.Counter(_build.launch_counts)
-            with torch.cuda.graph(self.graph):
-                self.x, self.state = sampler.denoise(self.static,
-                                                     self.generator)
-            torch.cuda.synchronize(dev)
-        self.launches = collections.Counter(_build.launch_counts)
-        self.launches.subtract(before)
-        for name, n in self.launches.items():
-            _build.launch_counts[name] -= n
-            if _build.launch_counts[name] == 0:
-                del _build.launch_counts[name]
-        self.launches = +self.launches
+            self.graph, (self.x, self.state), self.launches = capture(
+                lambda: sampler.denoise(self.static, self.generator), dev,
+                self.generator)
         self.build_s = time.perf_counter() - t0
 
     def __call__(self, *args, seed: int = 0, injected=None) -> SampleResult:
@@ -135,28 +149,12 @@ class CapturedChunk:
         with torch.no_grad():
             self.state = built.init_state()
             self.injected = None
-            if built.inject_noise:
+            if getattr(built, "inject_noise", False):
                 self.injected = {name: torch.ones(shape, device=dev)
                                  for name, shape in
                                  built.noise_shapes().items()}
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                built.step_chunk(self.state, self.injected)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            before = collections.Counter(_build.launch_counts)
-            with torch.cuda.graph(self.graph):
-                built.step_chunk(self.state, self.injected)
-            torch.cuda.synchronize(dev)
-        self.launches = collections.Counter(_build.launch_counts)
-        self.launches.subtract(before)
-        for name, n in self.launches.items():
-            _build.launch_counts[name] -= n
-            if _build.launch_counts[name] == 0:
-                del _build.launch_counts[name]
-        self.launches = +self.launches
+            self.graph, _, self.launches = capture(
+                lambda: built.step_chunk(self.state, self.injected), dev)
         self.build_s = time.perf_counter() - t0
         self.replays = 0
 
@@ -164,7 +162,7 @@ class CapturedChunk:
         """`chunk` denoise iterations: one replay. A state other than the
         program's own is copied in and the result copied back (in place
         both ways); injected noise is copied into the static buffers."""
-        if (injected is not None) != self.built.inject_noise:
+        if (injected is not None) != (self.injected is not None):
             raise ValueError("pass `injected` exactly when the sampler was "
                              "built with inject_noise=True")
         own = state is None or state is self.state
@@ -182,6 +180,48 @@ class CapturedChunk:
                 for dst, src in zip(state, self.state):
                     dst.copy_(src)
         return self.state if own else state
+
+
+class CapturedARSampler:
+    """The AR decode loop (``sampling/ar_sampler.py``) at one batch size:
+    one chunk of decode steps captured over the program's own state,
+    whose step index is a device tensor; a sample loads its inputs into
+    that state and replays the chunk ``n_chunks`` times, with no host read
+    between replays."""
+
+    def __init__(self, sampler, batch: int):
+        dev = sampler.device
+        if dev.type != "cuda":
+            raise ValueError(f"a captured sampler runs on the card; this "
+                             f"sampler runs on {dev}")
+        self.sampler, self.batch = sampler, batch
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            # the state starts done: the warm run and the capture change
+            # no token
+            self.state = sampler.init_state(batch)
+            self.graph, _, self.launches = capture(
+                lambda: sampler.step_chunk(self.state), dev)
+        self.build_s = time.perf_counter() - t0
+
+    def __call__(self, x0, x0_unmask, modality=None, *, seed: int = 0,
+                 injected=None) -> SampleResult:
+        with torch.no_grad():
+            self.sampler.load(self.state, x0, x0_unmask, modality,
+                              seed=seed, injected=injected)
+            for _ in range(self.sampler.n_chunks):
+                self.graph.replay()
+                _build.launch_counts.update(self.launches)
+            return self.sampler.result(self.state)
+
+
+def captured_ar(sampler, batch: int) -> CapturedARSampler:
+    """The captured program of an AR sampler at `batch` rows, built at
+    first use and kept on the sampler."""
+    program = sampler.graphs.get(batch)
+    if program is None:
+        program = sampler.graphs[batch] = CapturedARSampler(sampler, batch)
+    return program
 
 
 def captured(sampler, batch: int) -> CapturedSampler:

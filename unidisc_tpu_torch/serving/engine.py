@@ -26,18 +26,32 @@ finish mid-flight, one captured chunk program each on the card);
 ``enable_scaffold`` / ``build_engine(scaffold=)`` runs the first denoise
 steps on this model and the rest on a smaller trunk
 (``sampling/scaffold.py``), bypassing rolling and the t2i fast path as in
-JAX. Meshes, continuous AR batching, speculative decoding, LoRA and the
-interleaved documents are later slices (ROADMAP queue 1): they raise
-``NotImplementedError`` naming their items.
+JAX.
+
+AR models (``trainer.parameterization=ar``, a causal DIT) answer text
+completions (``complete_text``) through the continuous batcher
+(``serving/continuous.py``, ``engine.continuous``: per-row KV, prefix
+caching, one captured decode chunk on the card), with a draft DIT
+(``ar_draft``) or prompt lookup (``lookup_ngram``) for speculative rounds.
+``build_engine(preset="elm[:270m|450m|1.1b|tiny]")`` serves the OpenELM
+baseline (``models/elm.py``) the same way through ``ElmEngine``, in bf16
+or int8 W8A8 (``quantize="int8"``), with the int8 KV cache
+(``kv_cache="int8"``) and ``speculative="<draft preset>"`` or
+``"lookup[:N]"``. Meshes, LoRA and the interleaved documents are later
+slices (ROADMAP queue 1): they raise ``NotImplementedError`` naming their
+items.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import math
 import re
 import threading
+import types
+from concurrent.futures import Future
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -59,16 +73,66 @@ def expand_mask_tokens(text: str) -> str:
 
 # the JAX engine's options that later slices port, with their ROADMAP
 # queue 1 items
-_LATER_OPTIONS = {"mesh": 9, "ar_draft": 10, "lookup_ngram": 10}
-
-# what the server's AR route needs, with its ROADMAP queue 1 items
-_AR_ITEMS = ("items 4 and 10: the AR decode loop of sampling/ar_sampler.py "
-             "and serving/continuous.py")
+_LATER_OPTIONS = {"mesh": 9}
 
 
-class InferenceEngine:
+class _TextCompletion:
+    """The AR text route that InferenceEngine and ElmEngine share: the
+    prompt through the tokenizer into the continuous batcher, built at
+    first use under a lock of its own (its capture takes the device
+    lock)."""
+
+    def _continuous_batcher(self):
+        raise NotImplementedError
+
+    @property
+    def continuous(self):
+        """The continuous AR batcher (``serving/continuous.py``): requests
+        join and leave one persistent device batch; it shares the engine's
+        device lock."""
+        with self._continuous_lock:
+            if self._continuous is None:
+                self._continuous = self._continuous_batcher()
+        return self._continuous
+
+    def _eos(self) -> int:
+        eos = getattr(self.tokenizer, "eos_token_id", None)
+        return eos if eos is not None else -1
+
+    def complete_text(self, text: str, *, max_new_tokens: int = 64,
+                      temperature: float = 0.0, seed: Optional[int] = None,
+                      stream_cb=None) -> Future:
+        """A text completion through the continuous batcher: a Future of
+        {"text", "tokens", "prompt_len"}; stream_cb(new ids) as tokens
+        come to the host."""
+        prompt = self.tokenizer.encode(text or "", add_bos=True,
+                                       add_eos=False)[:self.m.length - 2]
+        # an id past the embedding table is a device-side assert on the
+        # card: refuse it here
+        if max(prompt, default=0) >= self.vocab_size:
+            raise ValueError(f"the tokenizer's ids reach {max(prompt)}; the "
+                             f"model has {self.vocab_size}")
+        fut = self.continuous.submit(
+            prompt, max_new_tokens=max_new_tokens, temperature=temperature,
+            seed=seed, stream_cb=stream_cb)
+        out: Future = Future()
+
+        def done(f):
+            try:
+                res = f.result()
+                res["text"] = self.tokenizer.decode(res["tokens"])
+                out.set_result(res)
+            except Exception as e:  # noqa: BLE001 — hand it to the caller
+                out.set_exception(e)
+        fut.add_done_callback(done)
+        return out
+
+
+class InferenceEngine(_TextCompletion):
     def __init__(self, config: Config, model, *, tokenizer=None,
-                 codec=None, device="cuda", rolling: int = 0, **later):
+                 codec=None, device="cuda", rolling: int = 0,
+                 ar_draft=None, gamma: int = 4,
+                 lookup_ngram: Optional[int] = None, **later):
         for name, value in later.items():
             if name not in _LATER_OPTIONS:
                 raise TypeError(f"InferenceEngine got an unexpected "
@@ -104,6 +168,17 @@ class InferenceEngine:
         self._rolling: Dict[str, object] = {}
         self._rolling_lock = threading.Lock()
         self._scaffold = None    # (small model, split) once enabled
+        # the AR route: a draft DIT (ar_draft) or prompt lookup
+        # (lookup_ngram) turns the continuous batcher's steps into
+        # speculative rounds of `gamma` proposals
+        if ar_draft is not None and lookup_ngram:
+            raise ValueError("ar_draft and lookup_ngram are exclusive")
+        self._ar_draft = None if ar_draft is None \
+            else ar_draft.to(self.device).eval()
+        self.vocab_size = self.m.vocab_size
+        self._gamma, self._lookup_ngram = gamma, lookup_ngram
+        self._continuous = None
+        self._continuous_lock = threading.Lock()
 
     def enable_scaffold(self, model_small, split: int):
         """Scaffold decoding (``sampling/scaffold.py``): denoise steps [0,
@@ -120,15 +195,25 @@ class InferenceEngine:
             self._scaffold = (model_small, split)
             self._samplers.clear()
 
-    @property
-    def continuous(self):
-        raise NotImplementedError(f"continuous batching is not in the port "
-                                  f"yet (ROADMAP queue 1, {_AR_ITEMS})")
-
-    def complete_text(self, text: str, **kwargs):
-        """The AR text completion route of the server."""
-        raise NotImplementedError(f"AR text completion is not in the port "
-                                  f"yet (ROADMAP queue 1, {_AR_ITEMS})")
+    def _continuous_batcher(self):
+        if self.config.trainer.parameterization != "ar":
+            raise ValueError("continuous batching needs an AR model "
+                             "(trainer.parameterization=ar)")
+        from unidisc_tpu_torch.sampling.ar_sampler import (
+            init_kv_cache_for, make_apply_token)
+        from unidisc_tpu_torch.serving.continuous import ContinuousBatcher
+        kw = {}
+        if self._ar_draft is not None:
+            apply_token = make_apply_token(self._ar_draft)
+            d_cfg, dev = self._ar_draft.cfg, self.device
+            kw = dict(draft=(lambda tok, mod, kv, ci: apply_token(
+                tok, kv, ci, mod), lambda b, n: init_kv_cache_for(
+                    d_cfg, b, n, device=dev)), gamma=self._gamma)
+        elif self._lookup_ngram:
+            kw = dict(lookup_ngram=self._lookup_ngram, gamma=self._gamma)
+        return ContinuousBatcher(self.model, self.config, slots=8, chunk=8,
+                                 eos_id=self._eos(),
+                                 device_lock=self._device_lock, **kw)
 
     def run_interleaved(self, segments, **kwargs):
         """The interleaved-document route of the server."""
@@ -384,7 +469,107 @@ class InferenceEngine:
 
 # build_engine's options that later slices port, with their ROADMAP queue 1
 # items
-_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9, "speculative": 10}
+_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9}
+
+
+class ElmEngine(_TextCompletion):
+    """Serves the OpenELM baseline (``models/elm.py``) through the
+    continuous batcher: the surface of the server's AR text route
+    (``config.trainer.parameterization == "ar"``, ``tokenizer``, ``codec``
+    None, ``complete_text``). `model` is on `device` in eval mode; `draft`
+    a smaller OpenELM of its vocabulary for speculative rounds, or
+    `lookup_ngram` for prompt lookup."""
+
+    def __init__(self, elm_cfg, model, *, tokenizer=None,
+                 kv_cache: Optional[str] = None, slots: int = 8,
+                 chunk: int = 8, draft=None, gamma: int = 4,
+                 lookup_ngram: Optional[int] = None, device="cuda"):
+        if kv_cache not in (None, "bf16", "int8"):
+            raise ValueError(f"unknown kv_cache {kv_cache!r}")
+        self.device = resolve_device(device)
+        self.elm_cfg = elm_cfg
+        self.model = model.to(self.device).eval()
+        self.codec = None
+        self._draft = None if draft is None else draft.to(self.device).eval()
+        self._gamma, self._lookup_ngram = gamma, lookup_ngram
+        # the config fields the server's routing reads
+        self.config = types.SimpleNamespace(
+            trainer=types.SimpleNamespace(parameterization="ar"),
+            sampling=types.SimpleNamespace(steps=0),
+            model=types.SimpleNamespace(length=elm_cfg.max_length))
+        self.m = self.config.model
+        self.vocab_size = elm_cfg.total_vocab
+        if tokenizer is None:
+            from unidisc_tpu_torch.tokenizers.text import get_tokenizer
+            tokenizer = get_tokenizer("byte")
+        self.tokenizer = tokenizer
+        self._kv_cache = kv_cache
+        self._slots, self._chunk = slots, chunk
+        self._device_lock = threading.Lock()
+        self._continuous = None
+        self._continuous_lock = threading.Lock()
+
+    def _continuous_batcher(self):
+        from unidisc_tpu_torch.serving.continuous import \
+            elm_continuous_batcher
+        return elm_continuous_batcher(
+            self.model, slots=self._slots, chunk=self._chunk,
+            eos_id=self._eos(), quant_cache=self._kv_cache == "int8",
+            draft=self._draft, gamma=self._gamma,
+            lookup_ngram=self._lookup_ngram, device_lock=self._device_lock)
+
+
+def elm_model(cfg, seed: int, quantize: Optional[str] = None,
+              device="cpu"):
+    """An OpenELM of `cfg` with random weights drawn from `seed` (the JAX
+    init's distributions), computing in bf16: its projections stored in
+    bf16, or with quantize="int8" converted from the fp32 weights by
+    ``quantize_elm_params``."""
+    from unidisc_tpu_torch.models.elm import OpenELM
+    from unidisc_tpu_torch.ops.quant import quantize_elm_params
+    state = OpenELM(cfg, compute_dtype=torch.float32,
+                    init_seed=seed).state_dict()
+    if quantize == "int8":
+        cfg = dataclasses.replace(cfg, quant="int8")
+        state = quantize_elm_params(state)
+    elif quantize is not None:
+        raise ValueError(f"unknown quantize {quantize!r}")
+    model = OpenELM(cfg, compute_dtype=torch.bfloat16, init_seed=None)
+    model.load_state_dict(state)
+    return model.to(resolve_device(device)).eval()
+
+
+def build_elm_engine(*, preset: str = "270m",
+                     quantize: Optional[str] = None,
+                     kv_cache: Optional[str] = None,
+                     speculative: Optional[str] = None, gamma: int = 4,
+                     lora: Optional[str] = None, tokenizer=None,
+                     device="cuda") -> ElmEngine:
+    """The OpenELM serving engine of `preset` ("tiny", "270m", "450m",
+    "1.1b"), random weights from seed 0: quantize="int8" serves int8 W8A8,
+    kv_cache="int8" the int8 KV cache; speculative="<preset>" decodes with
+    a draft of that preset (seed 1, forced onto the target's vocabulary
+    and length), "lookup[:N]" with prompt lookup (N-grams, default 2).
+    LoRA raises (ROADMAP queue 1, item 5)."""
+    from unidisc_tpu_torch.models.elm import ELM_PRESETS
+    if lora:
+        raise NotImplementedError("build_elm_engine(lora=...) is not in the "
+                                  "port yet (ROADMAP queue 1, item 5)")
+    dev = resolve_device(device)
+    cfg = ELM_PRESETS[preset]
+    model = elm_model(cfg, 0, quantize, dev)
+    draft, lookup_ngram = None, None
+    if speculative == "lookup" or (speculative or "").startswith("lookup:"):
+        _, _, n = speculative.partition(":")
+        lookup_ngram = int(n) if n else 2
+    elif speculative:
+        d_cfg = dataclasses.replace(
+            ELM_PRESETS[speculative], vocab_size=cfg.vocab_size,
+            extra_tokens=cfg.extra_tokens, max_length=cfg.max_length)
+        draft = elm_model(d_cfg, 1, None, dev)
+    return ElmEngine(cfg, model, tokenizer=tokenizer, kv_cache=kv_cache,
+                     draft=draft, gamma=gamma, lookup_ngram=lookup_ngram,
+                     device=dev)
 
 
 def restore_run(run_dir: str, *, ema: bool = True):
@@ -415,10 +600,13 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                  experiments=None, overrides: Optional[dict] = None,
                  steps: Optional[int] = None,
                  quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None,
                  rolling: int = 0,
                  scaffold: Optional[str] = None,
                  scaffold_split: int = 8,
-                 **later) -> InferenceEngine:
+                 speculative: Optional[str] = None,
+                 spec_gamma: int = 4,
+                 **later):
     """An engine for a config preset, as the JAX ``build_engine``:
 
     * weights: drawn from the config's seed (the JAX init's
@@ -438,10 +626,19 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
       steps [0, K) on the main model and the rest on a trunk of that
       preset, forced onto the main model's vocabulary and length: random
       weights from its seed, or a port run dir's EMA weights; int8 too
-      when ``quantize`` is.
+      when ``quantize`` is;
+    * ``kv_cache="int8"`` sets ``model.kv_cache_dtype``;
+    * AR models (``trainer.parameterization=ar``): ``speculative=
+      "preset[=run_dir]"`` decodes with a causal draft DIT of that preset
+      (its io contract the main model's; random weights from its seed + 1,
+      or a port run dir's EMA weights, which a served run dir requires),
+      ``"lookup[:N]"`` with prompt lookup; ``spec_gamma`` proposals a
+      round;
+    * ``preset="elm[:size]"``: the OpenELM baseline, ``build_elm_engine``
+      (size 270m by default).
 
-    LoRA, meshes and speculative decoding raise NotImplementedError naming
-    their ROADMAP items."""
+    LoRA and meshes raise NotImplementedError naming their ROADMAP
+    items."""
     for name, value in later.items():
         if name not in _LATER_BUILD_OPTIONS:
             raise TypeError(f"build_engine got an unexpected argument "
@@ -451,8 +648,13 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                 f"build_engine({name}=...) is not in the port yet (ROADMAP "
                 f"queue 1, item {_LATER_BUILD_OPTIONS[name]})")
     if preset == "elm" or preset.startswith("elm:"):
-        raise NotImplementedError("the OpenELM AR baseline is not in the "
-                                  "port yet (ROADMAP queue 1, item 8)")
+        if checkpoint or reference_ckpt:
+            raise ValueError("the OpenELM route takes no checkpoint (serve "
+                             "a DIT-AR run dir for checkpointed AR serving)")
+        return build_elm_engine(
+            preset=preset.partition(":")[2] or "270m", quantize=quantize,
+            kv_cache=kv_cache, speculative=speculative, gamma=spec_gamma,
+            device=device)
     if checkpoint is not None and reference_ckpt is not None:
         raise ValueError("reference_ckpt loads reference weights and "
                          "checkpoint loads a run dir: pass one")
@@ -463,6 +665,8 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     over = dict(overrides or {})
     if steps:
         over["sampling.steps"] = steps
+    if kv_cache:
+        over["model.kv_cache_dtype"] = kv_cache
     weights = None
     if reference_ckpt:
         from unidisc_tpu_torch.models.port import (infer_dit_overrides,
@@ -497,8 +701,21 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         grid = math.isqrt(config.model.img_length)
         codec = get_codec(codec_name, device=dev,
                           image_size=grid * codec_downsample(codec_name))
+    ar_draft, lookup_ngram = None, None
+    if speculative:
+        if config.trainer.parameterization != "ar":
+            raise ValueError("speculative decoding needs an AR model "
+                             "(trainer.parameterization=ar, or the elm "
+                             "route); use scaffold for diffusion models")
+        if speculative == "lookup" or speculative.startswith("lookup:"):
+            _, _, n = speculative.partition(":")
+            lookup_ngram = int(n) if n else 2
+        else:
+            ar_draft = draft_model(config, speculative,
+                                   served_run=bool(checkpoint))
     engine = InferenceEngine(config, model, codec=codec, device=dev,
-                             rolling=rolling)
+                             rolling=rolling, ar_draft=ar_draft,
+                             gamma=spec_gamma, lookup_ngram=lookup_ngram)
     if scaffold:
         engine.enable_scaffold(scaffold_model(config, scaffold, quantize),
                                scaffold_split)
@@ -529,6 +746,35 @@ def scaffold_model(config: Config, spec: str, quantize: Optional[str] = None):
         from unidisc_tpu_torch.ops.quant import quantize_model
         _, small = quantize_model(s_cfg, small)
     return small.eval()
+
+
+def draft_model(config: Config, spec: str, served_run: bool = False):
+    """The draft DIT of ``build_engine(speculative="preset[=run_dir]")``:
+    the preset forced onto the main model's io contract, causal, without
+    time conditioning; random weights from its seed + 1, or the run dir's
+    EMA weights. A served run dir needs a trained draft: a random one
+    accepts almost nothing, and every round would then cost gamma + 1
+    draft forwards to advance one token."""
+    from unidisc_tpu_torch.models.dit import DIT
+    preset, _, run_dir = spec.partition("=")
+    if served_run and not run_dir:
+        raise ValueError("speculative decoding of a run dir needs a trained "
+                         "draft: speculative='preset=run_dir'")
+    m = config.model
+    d_cfg = Config.make(preset).override(**{
+        "model.length": m.length, "model.txt_length": m.txt_length,
+        "model.img_length": m.img_length,
+        "model.text_vocab_size": m.text_vocab_size,
+        "model.image_vocab_size": m.image_vocab_size,
+        "model.full_attention": False, "model.time_conditioning": False,
+        "model.dropout": 0.0})
+    draft = DIT(d_cfg.model, compute_dtype=torch.bfloat16)
+    if run_dir:
+        _, weights, _ = restore_run(run_dir)
+        draft.load_state_dict(weights)
+    else:
+        draft.reset_parameters(torch.Generator().manual_seed(d_cfg.seed + 1))
+    return draft.eval()
 
 
 def downscale_bool_mask(mask: np.ndarray, d: int) -> np.ndarray:

@@ -135,19 +135,27 @@ def _row_keys(seed: torch.Tensor, step: torch.Tensor, tag: int):
     return k, _mix32_(k ^ 0x5BD1E995)
 
 
+def unit_interval(bits: torch.Tensor) -> torch.Tensor:
+    """23-bit integers in [0, 2^23) -> float32 (bits + 1/2) / 2^23, every
+    value exact and strictly inside (0, 1). (With 24 bits the top value,
+    1 - 2^-25, is not a float32 and rounds to 1.0, whose Gumbel noise is
+    infinite.)"""
+    return (bits.float() + 0.5) * np.float32(2.0 ** -23)
+
+
 def keyed_uniform(seed: torch.Tensor, step: torch.Tensor, tag: int,
                   n: int) -> torch.Tensor:
     """(S, n) float32 uniforms in (0, 1), element j of row r a pure
-    function of (seed[r], step[r], tag, j): the top 24 bits of two rounds
-    of the finaliser over the element's index, offset by half a step.
-    Integer ops and exact float conversions only, so the CPU and CUDA give
-    the same bits."""
+    function of (seed[r], step[r], tag, j): the top 23 bits of two rounds
+    of the finaliser over the element's index, offset by half a step
+    (``unit_interval``). Integer ops and exact float conversions only, so
+    the CPU and CUDA give the same bits."""
     k1, k2 = _row_keys(seed, step, tag)
     h = torch.arange(n, device=seed.device)[None, :] ^ k1[:, None]
     _mix32_(h)
     h.bitwise_xor_(k2[:, None])
     _mix32_(h)
-    return ((h >> 8).float() + 0.5) * np.float32(2.0 ** -24)
+    return unit_interval(h >> 9)
 
 
 def keyed_gumbel(seed: torch.Tensor, step: torch.Tensor, tag: int,

@@ -8,13 +8,18 @@ requests coalesce into one device batch through ``serving/batcher.py``;
 with ``--rolling N`` the engine admits them into its rolling batchers.
 One process, the standard library's ThreadingHTTPServer. Every device
 call of a handler thread (the codec's encode of an attached image) runs
-under the engine's device lock. The AR and interleaved routes are later
-slices: their engine calls raise, and the server answers 500 with the
-message, as it answers any engine error.
+under the engine's device lock. An AR model (a DIT with
+``trainer.parameterization=ar``, or ``--model elm[:size]``, the OpenELM
+baseline) answers text requests through the engine's continuous batcher,
+and with ``stream: true`` streams the text as it decodes. The interleaved
+route is a later slice: its engine call raises, and the server answers 500
+with the message, as it answers any engine error.
 
 Run: python -m unidisc_tpu_torch.serving.server --port 8000 [--ckpt DIR]
          [--codec llamagen-vq16] [--rolling 8] [--quantize int8]
          [--scaffold tiny --scaffold-split 8] [--device cpu]
+     python -m unidisc_tpu_torch.serving.server --model elm [--quantize int8
+         --kv-cache int8] [--speculative 270m|lookup [--gamma 4]]
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import hashlib
 import json
 import math
 import os
+import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -220,12 +226,10 @@ class Handler(BaseHTTPRequestHandler):
             parsed = parse_messages(req.get("messages", []))
             if (self.engine.config.trainer.parameterization == "ar"
                     and parsed["image"] is None):
+                # the request joins the continuous batcher's device batch
+                # at once; stream:true sends the text as it decodes
                 self._route = "ar"
-                self.engine.complete_text(
-                    parsed["text"] or "",
-                    max_new_tokens=int(req.get("max_tokens", 64)),
-                    temperature=float(req.get("temperature", 0.0)),
-                    seed=req.get("seed"))
+                self._ar_completion(req, parsed, key)
                 return
 
             self._route = "diffusion"
@@ -263,6 +267,79 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — any engine error is a 500
             self.metrics.count("errors_total")
             self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def _ar_completion(self, req: dict, parsed: dict, key: str):
+        """An AR text completion; with stream:true, SSE deltas of the text
+        as the batcher hands tokens to the host."""
+        kw = dict(max_new_tokens=int(req.get("max_tokens", 64)),
+                  temperature=float(req.get("temperature", 0.0)),
+                  seed=req.get("seed"))
+        text = parsed["text"] or ""
+        if not req.get("stream"):
+            res = self.engine.complete_text(text, **kw).result(timeout=600)
+            payload = {
+                "id": f"unidisc-{key[:12]}",
+                "object": "chat.completion",
+                "model": "unidisc-tpu",
+                "choices": [{"index": 0, "finish_reason": "stop",
+                             "message": {"role": "assistant",
+                                         "content": res["text"]}}],
+                "usage": {"completion_tokens": len(res["tokens"])},
+            }
+            self.cache[key] = payload
+            self._json(200, payload)
+            return
+        tok = self.engine.tokenizer
+        deltas: "queue.Queue" = queue.Queue()
+        acc: list = []
+
+        def on_tokens(ids):
+            acc.extend(ids)
+            deltas.put(tok.decode(acc))   # the text so far
+
+        fut = self.engine.complete_text(text, stream_cb=on_tokens, **kw)
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+
+        def chunk(delta, finish=None):
+            body = {"id": f"unidisc-{key[:12]}",
+                    "object": "chat.completion.chunk",
+                    "model": "unidisc-tpu",
+                    "choices": [{"index": 0, "delta": delta,
+                                 "finish_reason": finish}]}
+            self.wfile.write(f"data: {json.dumps(body)}\n\n".encode())
+            self.wfile.flush()
+
+        def stable(text):
+            # a character whose bytes are split across drains decodes to a
+            # trailing U+FFFD until the rest arrives: hold it back, so that
+            # every delta extends a prefix of the final text
+            return text.rstrip("\ufffd")
+
+        chunk({"role": "assistant"})
+        sent = ""
+        while True:
+            try:
+                text_now = stable(deltas.get(timeout=0.1))
+            except queue.Empty:
+                if fut.done():
+                    break
+                continue
+            if text_now.startswith(sent) and len(text_now) > len(sent):
+                chunk({"content": text_now[len(sent):]})
+                sent = text_now
+        res = fut.result(timeout=600)
+        if res["text"] != sent:
+            if res["text"].startswith(sent):
+                chunk({"content": res["text"][len(sent):]})
+            else:
+                # the detokenization rewrote earlier text: a full
+                # replacement makes the client's transcript converge
+                chunk({"content": res["text"], "replace": True})
+        chunk({}, finish="stop")
+        self.wfile.write(b"data: [DONE]\n\n")
 
     def _stream(self, payload: dict):
         """OpenAI-style SSE chunks: the role, each content item, the stop,
@@ -323,7 +400,9 @@ def main(argv: Optional[list] = None):
                         "(model.safetensors or a torch .pt); the "
                         "architecture is inferred from the weights, --model "
                         "supplies the sequence layout and sampling defaults")
-    parser.add_argument("--model", default="small")
+    parser.add_argument("--model", default="small",
+                        help="a config preset, or elm[:tiny|270m|450m|1.1b] "
+                        "for the OpenELM baseline")
     parser.add_argument("--steps", type=int, default=32)
     parser.add_argument("--codec", default=None,
                         help="image codec for pixel I/O (e.g. llamagen-vq16)")
@@ -350,7 +429,10 @@ def main(argv: Optional[list] = None):
                         help="denoise steps run on the main model before "
                         "the scaffold trunk takes over")
     parser.add_argument("--speculative", default=None,
-                        help="AR speculative decoding (not in the port yet)")
+                        help="AR models only: the draft preset of "
+                        "speculative decoding (the draft proposes --gamma "
+                        "tokens a target forward; greedy output is plain "
+                        "greedy's), or 'lookup[:N]' for prompt lookup")
     parser.add_argument("--gamma", type=int, default=4,
                         help="speculative draft length per round")
     args = parser.parse_args(argv)
@@ -361,12 +443,11 @@ def main(argv: Optional[list] = None):
                           reference_ckpt=args.reference_ckpt,
                           codec_name=args.codec, steps=args.steps,
                           quantize=args.quantize, lora=args.lora,
-                          overrides=({"model.kv_cache_dtype": args.kv_cache}
-                                     if args.kv_cache else None),
-                          mesh=args.mesh,
+                          kv_cache=args.kv_cache, mesh=args.mesh,
                           rolling=args.rolling, scaffold=args.scaffold,
                           scaffold_split=args.scaffold_split,
-                          speculative=args.speculative, device=args.device,
+                          speculative=args.speculative,
+                          spec_gamma=args.gamma, device=args.device,
                           experiments=(args.experiments.split(",")
                                        if args.experiments else None))
     server = make_server(engine, args.port, args.host)
