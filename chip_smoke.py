@@ -24,7 +24,10 @@ and prints no result):
      the elements) in each of its modes, and the per-row quantize of the
      int8 path (dynamic_quantize; q and s bit-exact) at its three shapes;
      and the conditioning-frozen paths' shapes (attention Lq 256 against
-     Lk 384, the products and row kernels at 4096, 3072 and 2048 rows).
+     Lk 384, the products and row kernels at 4096, 3072 and 2048 rows),
+     and the causal DIT-AR's ar_inpainting rows, (32, 12, 768, 64): the
+     forward with the LSE and both backward kernels, against SDPA's
+     causal flash forward and backward.
   4. serve path: build the flagship text->image engine at full width with
      random weights from the seed; check full-width logits through the
      kernel against the plain path; check the t2i sampler, the
@@ -123,6 +126,27 @@ and prints no result):
      serves the train phase's run dir with --use-ema and the VQ-16 codec:
      8 samples.jsonl lines and 8 PNGs, and the served weights equal the
      trainer's final EMA. Then the pixels line.
+  5c. the ar, sedd and d3pm objectives on data, at full width (the
+     flagship, FLAGSHIP_TRAIN_OVERRIDES, batch 32): 512 structured rows
+     from the seed written as token shards and as stream shards; one
+     gradient of the causal DIT-AR with ar_inpainting and the row flip
+     (L 768 through the kernels) against the plain path, as in phase 5
+     (batch 16); the loaders' host tok/s (--iterate-data-only); then
+     unidisc_tpu_torch.train.main, each run with the launch counts set to
+     0 just before and read just after (each train kernel once a block a
+     step): the DIT-AR with ar_inpainting and the flip for 20 steps on
+     the shards (--overfit; the loss falls), then served from its run
+     dir by build_engine(checkpoint=) (the weights equal the trainer's
+     final EMA; 8 streamed complete_text requests answer with ids in the
+     text vocabulary); the DIT-AR at L 384 (the flip only, 10 steps);
+     --stream for 10 steps with a checkpoint at 5 and a run resumed from
+     it alone (its batches the straight run's bit for bit, its losses
+     within 1e-5 relative); sedd and d3pm on the time-conditioned
+     non-causal flagship, 10 steps each (every loss finite; the overfit
+     batch's loss under one fixed set of draws lower at the final
+     parameters than at the initial ones).
+     A line `ar_train`: tok/s, median step s and peak memory a run, the
+     loaders' tok/s, the L 768 kernel times.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -158,7 +182,13 @@ import torch.nn.functional as F
 from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
                                       FLAGSHIP_OVERRIDES,
                                       FLAGSHIP_TRAIN_OVERRIDES, Config)
+from unidisc_tpu_torch import train as train_cli
+from unidisc_tpu_torch.data.streaming import (StreamingShardReader,
+                                              write_stream_shards)
 from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
+from unidisc_tpu_torch.data.token_shards import (TokenShardDataset,
+                                                 WeightedDatasetSampler,
+                                                 write_shard)
 from unidisc_tpu_torch.models.dit import DIT, randomize_
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.flash_attention import (
@@ -185,6 +215,7 @@ from unidisc_tpu_torch.serving.rolling import (RollingT2IBatcher,
 from unidisc_tpu_torch.serving.server import make_server
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
                                                     make_apply_fn)
+from unidisc_tpu_torch.training.checkpoint import CheckpointManager
 from unidisc_tpu_torch.training.trainer import Trainer
 from unidisc_tpu_torch.utils.png import decode_png, encode_png
 
@@ -373,6 +404,9 @@ ATTN_CASES = [
     ("causal_segments_padding", (2, 8, 512, 128), True, True),
     ("frozen_cond_path", (16, 12, 256, 64), False, False, 384),
     ("distilled_stack_path", (8, 12, 256, 64), False, False, 384),
+    # the causal DIT-AR trained with ar_inpainting: [corrupted || clean]
+    # rows, twice L 384 (phase 5c)
+    ("ar_inpainting_path", (32, 12, 768, 64), True, False),
 ]
 
 
@@ -459,6 +493,9 @@ def phase_kernels(seed: int) -> list:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def library():
+            if causal and not segs:     # SDPA's flash forward
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
         bound_ms, bound_by, nbytes, flops = attention_bound(shape, mask,
@@ -484,6 +521,7 @@ BWD_CASES = [
     ("extra_large_head_dim", (4, 16, 384, 128), False, False),
     ("long_tiled_range", (2, 12, 1024, 64), False, False),
     ("causal_segments_padding", (2, 8, 512, 128), True, True),
+    ("ar_inpainting_path", (32, 12, 768, 64), True, False),
 ]
 
 
@@ -517,21 +555,22 @@ def backward_bounds(shape, mask, segs):
             "flash_bwd_dkv": bound(6 * act + 2 * rows + seg, 8)}
 
 
-def sdpa_backward_fn(q, k, v, do, mask):
+def sdpa_backward_fn(q, k, v, do, mask, causal_only=False):
     """One call of PyTorch's fused attention backward on the same inputs,
     in the (B, H, L, D) layout SDPA uses: FlashAttention-2's backward where
-    nothing is masked, the memory-efficient kernel's backward with the
-    mask as an additive bias where something is (what
-    F.scaled_dot_product_attention dispatches to). The aten ops are called
-    directly, so no autograd overhead is timed."""
+    nothing is masked or the mask is only causal (causal_only), the
+    memory-efficient kernel's backward with the mask as an additive bias
+    otherwise (what F.scaled_dot_product_attention dispatches to). The
+    aten ops are called directly, so no autograd overhead is timed."""
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     aten = torch.ops.aten
-    if mask is None:
+    if mask is None or causal_only:
         (out, lse, cq, ck, mq, mk, seed, offset,
-         _) = aten._scaled_dot_product_flash_attention(qt, kt, vt)
+         _) = aten._scaled_dot_product_flash_attention(
+             qt, kt, vt, 0.0, causal_only)
         bwd = aten._scaled_dot_product_flash_attention_backward
         return lambda: bwd(dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0,
-                           False, seed, offset)
+                           causal_only, seed, offset)
     b, h, l, _ = qt.shape
     bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device) \
         .masked_fill(~mask, float("-inf")).expand(b, h, l, l)
@@ -582,7 +621,8 @@ def phase_bwd_kernels(seed: int) -> list:
                     raise AssertionError(f"{name}: {gname} is not zero on "
                                          f"padded rows / keys")
         bounds = backward_bounds(shape, mask, segs)
-        library = sdpa_backward_fn(q, k, v, do, mask)
+        library = sdpa_backward_fn(q, k, v, do, mask,
+                                   causal_only=causal and not segs)
         row = {"case": name, "shape_bhld": list(shape), "causal": causal,
                "segments": segs, "errors": errs, "rel_tol": BWD_REL_TOL,
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
@@ -3236,13 +3276,14 @@ def train_config(**extra) -> Config:
 
 def fixed_draws(cfg, batch, seed, device):
     """Every draw of one compute_batch_loss, made once from a seed, so the
-    kernel path and the plain path see the same corruption."""
+    kernel path and the plain path see the same corruption (and, on the
+    ar path, the same row flips and inpainting mask)."""
     gen = torch.Generator().manual_seed(seed)
     b, l = batch, cfg.model.length
-    return {"t": torch.rand((b,), generator=gen).to(device),
-            "move": torch.rand((b, l), generator=gen).to(device),
-            "txt": torch.rand((b, 1), generator=gen).to(device),
-            "img": torch.rand((b, 1), generator=gen).to(device)}
+    shapes = {"t": (b,), "move": (b, l), "txt": (b, 1), "img": (b, 1),
+              "flip": (b,), "inpaint": (b, 2 * l)}
+    return {name: torch.rand(shape, generator=gen).to(device)
+            for name, shape in shapes.items()}
 
 
 def flat_grad(cfg, model, batch, draws) -> torch.Tensor:
@@ -3387,6 +3428,328 @@ def phase_train(cfg, batch_size, steps, seed, root, device="cuda") -> tuple:
     return rec, run_a, final_ema
 
 
+# ---------------------------------------------------------------------------
+# 5c: the ar, sedd and d3pm objectives on token shards and stream shards
+# ---------------------------------------------------------------------------
+
+SHARD_ROWS = 512
+STREAM_ROWS_PER_SHARD = 128
+AR_TRAIN_STEPS, AR_SHORT_STEPS = 20, 10
+STREAM_STEPS, STREAM_CKPT = 10, 5
+LEGACY_STEPS = 10
+AR_GRAD_BATCH = 16        # the fp32 plain path at L 768 holds ~25 GB
+DATA_ONLY_BATCHES = 200
+# the ar_baseline overlay (causal, shifted targets, no time conditioning)
+AR_TRAIN_OVERRIDES = {"trainer.parameterization": "ar",
+                      "trainer.ar_shift": True,
+                      "model.full_attention": False,
+                      "model.time_conditioning": False}
+# ar_inpainting's [corrupted || clean] rows (L 768) with the row flip
+AR_INPAINT = {"trainer.ar_inpainting": True,
+              "trainer.rand_flip_ar_prob": 0.5}
+# the counted CLI runs of phase 5c
+AR_TRAIN_PATHS = ("ar_train_768", "ar_train_384", "ar_stream",
+                  "ar_stream_resumed", "sedd_train", "d3pm_train")
+
+
+def write_token_data(cfg, seed, root) -> dict:
+    """SHARD_ROWS rows [text ids | image ids] with their modality (the
+    structured synthetic rows of the seed), written as one token-shard
+    directory and as stream shards of STREAM_ROWS_PER_SHARD rows."""
+    rows = next(SyntheticDataLoader(cfg, SHARD_ROWS, seed=seed))
+    dirs = {"shards": os.path.join(root, "shards"),
+            "stream": os.path.join(root, "stream")}
+    write_shard(dirs["shards"], rows["input_ids"], rows["modality"])
+    write_stream_shards(dirs["stream"], rows["input_ids"], rows["modality"],
+                        rows_per_shard=STREAM_ROWS_PER_SHARD)
+    return dirs
+
+
+def cli_args(run_dir, data, steps, batch, overrides, *extra) -> list:
+    """The train CLI's arguments: the flagship (FLAGSHIP_TRAIN_OVERRIDES)
+    with a 2-step warmup, `overrides` on top, one log line a step."""
+    return ["--data", data, "--run-dir", run_dir, "--batch-size",
+            str(batch), "--log-every", "1", "--ckpt-every", "0",
+            "--flagship", f"trainer.max_steps={steps}",
+            "trainer.warmup_steps=2",
+            *(f"{k}={v}" for k, v in overrides.items()), *extra]
+
+
+class KeepFinalState:
+    """Trainer.close wrapped, while the block runs, to keep the trainer's
+    final EMA and parameters on the host."""
+
+    def __enter__(self):
+        self.ema = self.params = None
+        self._close = Trainer.close
+
+        def close(trainer):
+            self.ema, self.params = ({k: v.detach().cpu().clone()
+                                      for k, v in tree.items()}
+                                     for tree in (trainer.state.ema_params,
+                                                  trainer.state.params))
+            self._close(trainer)
+        Trainer.close = close
+        return self
+
+    def __exit__(self, *exc):
+        Trainer.close = self._close
+
+
+def train_cli_run(label, args, steps, n_blocks, falls=True) -> tuple:
+    """unidisc_tpu_torch.train.main(args), with the launch counts set to 0
+    just before and read just after: each train kernel launched once a
+    block a step, every loss finite, and (falls) the mean of the last 3
+    logged losses below that of the first 3. Returns (the record, a
+    KeepFinalState with the trainer's final EMA and parameters)."""
+    run_dir = args[args.index("--run-dir") + 1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with KeepFinalState() as keep:
+        result = train_cli.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in logged(run_dir) if "loss" in r]
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    early, late = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if falls and not late < early:
+        raise AssertionError(f"{label}: the loss did not fall: first 3 mean "
+                             f"{early}, last 3 mean {late}: {losses}")
+    want = {name: n_blocks * steps for name in TRAIN_KERNELS}
+    if launches != want:
+        raise AssertionError(f"{label}: the train path launched {launches}, "
+                             f"expected {want}")
+    median_s = statistics.median([r["step_s"] for r in recs][2:])
+    batch = int(args[args.index("--batch-size") + 1])
+    rec = {"steps": steps, "result_step": result["step"], "losses": losses,
+           "loss_first3_mean": early, "loss_last3_mean": late,
+           "launches": launches, "median_steady_step_s": median_s,
+           "batch": batch, "wall_s": wall_s, "peak_memory_bytes": peak}
+    print(f"{label} " + json.dumps(rec))
+    return rec, keep
+
+
+def fixed_draw_loss_falls(label, cfg, shards, final_params, seed) -> dict:
+    """The loss of the overfit batch (the first of the shard sampler at
+    the config's seed) under one fixed set of draws, at the trainer's
+    initial parameters (the config's seed) and at its final ones: it must
+    fall. A logged loss of the sedd and d3pm objectives is one draw of t
+    per row, and its spread from step to step (weights dsigma / expm1 and
+    T / t) is larger than 10 steps of training move it; the fixed draws
+    take that spread out."""
+    sampler = WeightedDatasetSampler([TokenShardDataset(shards)],
+                                     batch_size=TRAIN_BATCH, seed=cfg.seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(sampler).items()
+             if isinstance(v, np.ndarray)}
+    draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    model = model.cuda()
+    apply_fn = make_apply_fn(cfg, model)
+    losses = []
+    with torch.no_grad():
+        for params in (None, final_params):
+            if params is not None:
+                model.load_state_dict(params)
+            losses.append(compute_batch_loss(
+                cfg, apply_fn, None, batch, train=True,
+                draws=draws).loss.item())
+    del model
+    torch.cuda.empty_cache()
+    rec = {"fixed_draw_loss_initial": losses[0],
+           "fixed_draw_loss_final": losses[1]}
+    if not all(map(math.isfinite, losses)) or not losses[1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall under fixed "
+                             f"draws: {rec}")
+    return rec
+
+
+def phase_stream_resume(cfg, data, seed, root, n_blocks) -> dict:
+    """--stream for STREAM_STEPS steps with a checkpoint at STREAM_CKPT;
+    a run resumed from that checkpoint alone reads the straight run's
+    batches bit for bit (the loader state in the checkpoint, replayed
+    through StreamingShardReader) and logs its losses within phase 5's
+    resume criterion."""
+    over = {**AR_TRAIN_OVERRIDES, **AR_INPAINT}
+    straight = os.path.join(root, "stream_a")
+    rec = {"straight": train_cli_run(
+        "ar_stream", cli_args(straight, data, STREAM_STEPS, TRAIN_BATCH,
+                              over, "--stream", "--ckpt-every",
+                              str(STREAM_CKPT)),
+        STREAM_STEPS, n_blocks, falls=False)[0]}
+    resumed = os.path.join(root, "stream_b")
+    shutil.copytree(os.path.join(straight, "checkpoints", str(STREAM_CKPT)),
+                    os.path.join(resumed, "checkpoints", str(STREAM_CKPT)))
+    rec["resumed"] = train_cli_run(
+        "ar_stream_resumed", cli_args(resumed, data, STREAM_STEPS,
+                                      TRAIN_BATCH, over, "--stream"),
+        STREAM_STEPS - STREAM_CKPT, n_blocks, falls=False)[0]
+    want = rec["straight"]["losses"][STREAM_CKPT:]
+    got = rec["resumed"]["losses"]
+    for g, w in zip(got, want):
+        if abs(g - w) > 1e-5 * abs(w):
+            raise AssertionError(f"resumed stream losses {got} != {want}")
+    metas = [CheckpointManager(os.path.join(d, "checkpoints"))
+             for d in (straight, resumed)]
+    mid = metas[0].read_meta(STREAM_CKPT)["loader"]
+    end = [m.read_meta(STREAM_STEPS)["loader"] for m in metas]
+    if end[0] != end[1] or mid == end[0]:
+        raise AssertionError(f"loader states: mid {mid}, ends {end}")
+    # the batches: the straight sequence against one resumed from `mid`
+    reader = StreamingShardReader(data, batch_size=TRAIN_BATCH,
+                                  seed=cfg.seed)
+    batches = list(itertools.islice(iter(reader), STREAM_STEPS))
+    again = StreamingShardReader(data, batch_size=TRAIN_BATCH, seed=0)
+    again.load_state_dict(mid)
+    for want_b, got_b in zip(batches[STREAM_CKPT:],
+                             itertools.islice(iter(again),
+                                              STREAM_STEPS - STREAM_CKPT)):
+        for k in want_b:
+            if want_b[k].tobytes() != got_b[k].tobytes():
+                raise AssertionError(f"a resumed stream batch differs ({k})")
+    if again.state_dict() != end[0]:
+        raise AssertionError(f"replayed loader state {again.state_dict()} "
+                             f"!= {end[0]}")
+    rec.update({"mid_state": mid, "end_state": end[0],
+                "batches_equal": True, "resumed_losses": got,
+                "straight_losses": want})
+    for d in (straight, resumed):
+        shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def phase_serve_trained(run_dir, final_ema, seed) -> dict:
+    """build_engine(checkpoint=) on the DIT-AR run dir: the served weights
+    equal the trainer's final EMA bit for bit, and 8 streamed
+    complete_text requests (counts set to 0 just before, read just after)
+    answer with ids in the text vocabulary."""
+    t0 = time.perf_counter()
+    engine = build_engine(checkpoint=run_dir)
+    build_s = time.perf_counter() - t0
+    for name, value in engine.model.state_dict().items():
+        if not torch.equal(value.cpu(), final_ema[name]):
+            raise AssertionError(f"served {name} is not the trainer's final "
+                                 f"EMA")
+    m = engine.m
+    engine.complete_text("warm up the prefill", max_new_tokens=4).result(
+        timeout=600)
+    reqs = ar_requests(m.length, seed)[:REQUESTS]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    timing, results = run_ar_requests(engine, reqs)
+    launches = dict(_build.launch_counts)
+    for r, res in zip(reqs, results):
+        toks = res["tokens"]
+        if not toks or len(toks) > r["max_new_tokens"] or any(
+                not 0 <= t < m.text_vocab_size for t in toks):
+            raise AssertionError(f"a served answer out of bounds: {res}")
+    rec = {"build_s": build_s, "weights_equal_final_ema": True,
+           "timing": timing, "launches": launches,
+           "tokens": [len(r["tokens"]) for r in results],
+           "distinct_outputs": len({tuple(r["tokens"]) for r in results})}
+    print("ar_served_run_dir " + json.dumps(rec))
+    shutdown_ar(engine)
+    free(engine)
+    return rec
+
+
+def phase_ar_train(seed, root, kernel_rows, bwd_rows) -> dict:
+    """Phase 5c (module docstring)."""
+    t0 = time.perf_counter()
+    cfg = train_config(**AR_TRAIN_OVERRIDES, **AR_INPAINT)
+    n_blocks = cfg.model.n_blocks
+    data = write_token_data(cfg, seed, root)
+    rec = {"grad_check": phase_grad_check(cfg, AR_GRAD_BATCH, seed)}
+    torch.cuda.empty_cache()
+    rec["data_only"] = {
+        kind: train_cli.main(cli_args(
+            os.path.join(root, "data_only"), data[kind], 0, TRAIN_BATCH,
+            {}, "--iterate-data-only", str(DATA_ONLY_BATCHES),
+            *(["--stream"] if kind == "stream" else [])))["data_tok_per_s"]
+        for kind in ("shards", "stream")}
+    run_768 = os.path.join(root, "ar_768")
+    rec["ar_train_768"], final = train_cli_run(
+        "ar_train_768", cli_args(run_768, data["shards"], AR_TRAIN_STEPS,
+                                 TRAIN_BATCH, {**AR_TRAIN_OVERRIDES,
+                                               **AR_INPAINT}, "--overfit"),
+        AR_TRAIN_STEPS, n_blocks)
+    rec["served"] = phase_serve_trained(run_768, final.ema, seed)
+    del final
+    shutil.rmtree(run_768, ignore_errors=True)
+    run_384 = os.path.join(root, "ar_384")
+    rec["ar_train_384"] = train_cli_run(
+        "ar_train_384", cli_args(run_384, data["shards"], AR_SHORT_STEPS,
+                                 TRAIN_BATCH, {**AR_TRAIN_OVERRIDES,
+                                               "trainer.rand_flip_ar_prob":
+                                               0.5}, "--overfit"),
+        AR_SHORT_STEPS, n_blocks)[0]
+    shutil.rmtree(run_384, ignore_errors=True)
+    rec["stream"] = phase_stream_resume(cfg, data["stream"], seed, root,
+                                        n_blocks)
+    for kind in ("sedd", "d3pm"):
+        run = os.path.join(root, kind)
+        over = {"trainer.parameterization": kind}
+        rec[f"{kind}_train"], final = train_cli_run(
+            f"{kind}_train", cli_args(run, data["shards"], LEGACY_STEPS,
+                                      TRAIN_BATCH, over, "--overfit"),
+            LEGACY_STEPS, n_blocks, falls=False)
+        shutil.rmtree(run, ignore_errors=True)
+        rec[f"{kind}_train"].update(fixed_draw_loss_falls(
+            kind, train_config(**over), data["shards"], final.params,
+            seed))
+        del final
+    rec["seconds"] = time.perf_counter() - t0
+    for label, paths in (("ar_stream", ("stream", "straight")),
+                         ("ar_stream_resumed", ("stream", "resumed"))):
+        rec[label] = rec[paths[0]][paths[1]]
+    length = cfg.model.length
+
+    def line(run, tokens_per_row):
+        r = rec[run]
+        return {"median_step_s": r["median_steady_step_s"],
+                "train_tok_per_s": r["batch"] * tokens_per_row
+                / r["median_steady_step_s"],
+                "peak_memory_bytes": r["peak_memory_bytes"],
+                "loss_first3_mean": r["loss_first3_mean"],
+                "loss_last3_mean": r["loss_last3_mean"]}
+
+    fwd = next(r for r in kernel_rows if r["case"] == "ar_inpainting_path")
+    bwd = next(r for r in bwd_rows if r["case"] == "ar_inpainting_path")
+    print("ar_train " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        # the model runs L 768 tokens a row under ar_inpainting; the data
+        # rows are L 384
+        "L768_inpainting": line("ar_train_768", 2 * length),
+        "L384": line("ar_train_384", length),
+        **{kind: line(f"{kind}_train", length)
+           | {k: rec[f"{kind}_train"][k] for k in (
+               "fixed_draw_loss_initial", "fixed_draw_loss_final")}
+           for kind in ("sedd", "d3pm")},
+        "loader_host_tok_per_s": rec["data_only"],
+        "stream_resume_exact": rec["stream"]["batches_equal"],
+        "served": {k: rec["served"]["timing"][k]
+                   for k in ("ttft_p50_s", "tpot_p50_ms", "tok_per_s")},
+        "grad_rel_err": {k: rec["grad_check"][k] for k in (
+            "rel_err_kernel_bf16_vs_plain_fp32",
+            "rel_err_plain_bf16_vs_plain_fp32")},
+        "L768_kernels": {
+            "flash_fwd": {k: fwd[k] for k in (
+                "ms", "device_ms", "bound_ms", "library_ms",
+                "library_device_ms", "max_abs_err", "lse_err")},
+            "flash_bwd": {k: bwd[k] for k in (
+                "ms_dq", "ms_dkv", "device_ms_dq", "device_ms_dkv",
+                "library_ms", "library_device_ms", "max_abs_err")}
+            | {"bound_ms": {n: bwd["bounds"][n]["bound_ms"] for n in (
+                "flash_bwd_dq", "flash_bwd_dkv", "backward")}}}}))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3499,6 +3862,15 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
+    # 5c: the ar, sedd and d3pm objectives on token shards and streams
+    root = tempfile.mkdtemp(prefix="chip_smoke_ar_train_")
+    try:
+        record["ar_train"] = phase_ar_train(
+            args.seed, root, record["kernel_cases"],
+            record["bwd_kernel_cases"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
     pix = record["pixels"]
     print("pixels " + json.dumps({
         "card": card, "decode_ms_b8": {
@@ -3530,6 +3902,9 @@ def main() -> int:
                 "launches"].get(name, 0)
         for path in AR_PATHS:
             by_path[name][path] = record["ar"][path]["launches"].get(name, 0)
+        for path in AR_TRAIN_PATHS:
+            by_path[name][path] = record["ar_train"][path][
+                "launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path

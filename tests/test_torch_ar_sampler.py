@@ -28,6 +28,9 @@ from unidisc_tpu.sampling.ar_sampler import make_apply_token as jax_apply
 from unidisc_tpu_torch.sampling.ar_sampler import (build_ar_sampler,
                                                    make_apply_token)
 from test_torch_dit import B, IMG, L, TXT, configs, port_model, random_params
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 AR = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
       "model.full_attention": False,

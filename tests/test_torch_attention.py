@@ -22,6 +22,9 @@ from unidisc_tpu.ops.attention import multihead_attention as jax_mha
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.attention import multihead_attention
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ATOL = 2e-5   # fp32 on both sides: summation order only
 

@@ -30,6 +30,9 @@ from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.flash_attention import (
     attention_backward_reference, attention_reference, bwd_operands,
     flash_attention)
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ATOL, RTOL = 3e-3, 2e-3
 

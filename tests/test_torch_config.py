@@ -8,6 +8,9 @@ import pytest
 
 from unidisc_tpu import config as jax_config
 from unidisc_tpu_torch import config
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 SECTIONS = ["ModelConfig", "NoiseConfig", "TrainerConfig", "SamplingConfig",
             "MeshConfig", "DataConfig", "Config"]

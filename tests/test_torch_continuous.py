@@ -32,6 +32,9 @@ from unidisc_tpu_torch.serving.continuous import (ContinuousBatcher,
                                                   elm_continuous_batcher)
 from test_torch_ar_sampler import ar_models
 from test_torch_elm import SMALL, elm_pair
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 L = 32
 TEXT = {"model.length": L, "model.txt_length": L, "model.img_length": 0,

@@ -23,6 +23,9 @@ from unidisc_tpu.models.port import port_dit_state_dict
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.models.dit import DIT
 from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 B, TXT, IMG = 2, 8, 16
 L = TXT + IMG
@@ -127,6 +130,34 @@ def test_causal_layernorm_variant_matches_jax():
     with torch.no_grad():
         got = model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
                     modality=torch.from_numpy(modality).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("doubled", [False, True])
+def test_rope_index_matches_jax(jax_params, doubled):
+    """Per-token rope rows: text indices clipped into the text table, image
+    indices offset by txt_length into the image table; out-of-range
+    indices clip on both sides. Doubled: the [corrupted || clean] rows of
+    ar_inpainting, twice the model's length."""
+    jcfg, tcfg = configs(**{"model.attn_backend": "xla"})
+    jmodel, _ = init_dit(jax.random.PRNGKey(0), jcfg.model,
+                         compute_dtype=jnp.float32)
+    ids, sigma, modality = inputs(jcfg.model, seed=2)
+    rng = np.random.RandomState(7)
+    rope_index = rng.randint(-2, IMG + 3, (B, L)).astype(np.int32)
+    if doubled:
+        ids, modality, rope_index = (np.concatenate([a, a[:, ::-1]], 1)
+                                     for a in (ids, modality, rope_index))
+    want = jmodel.apply({"params": jax_params}, jnp.asarray(ids),
+                        jnp.asarray(sigma), modality=jnp.asarray(modality),
+                        rope_index=jnp.asarray(rope_index))
+    model = port_model(tcfg, jax_params)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids.copy()).long(),
+                    torch.from_numpy(sigma),
+                    modality=torch.from_numpy(modality.copy()).long(),
+                    rope_index=torch.from_numpy(rope_index.copy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=RTOL)
 

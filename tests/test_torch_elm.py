@@ -37,6 +37,9 @@ from unidisc_tpu_torch.models.elm import (ELM_PRESETS, ELMConfig, OpenELM,
 from unidisc_tpu_torch.models.port import elm_state_dict_from_jax
 from unidisc_tpu_torch.ops.quant import quantize_elm_params
 from test_torch_quant import MAX_TOL, MEAN_TOL, ROW_TOL, ROWS_AGREE, TOP1
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ATOL = 1e-4
 # a small ELM of the speculative tests' shape: GQA 4 groups, head 16

@@ -17,6 +17,9 @@ from unidisc_tpu_torch.models.dit import DIT
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch.serving.engine import InferenceEngine, build_engine
 from test_torch_dit import OVERRIDES, configs
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 OVER = {"sampling.predictor": "maskgit", "sampling.steps": 4,
         "sampling.cfg": 2.0, "model.text_vocab_size": 300}

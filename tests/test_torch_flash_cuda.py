@@ -252,6 +252,9 @@ RISKY_CASES = {
                                False),
     "B2_L1024_H8_D128_seg": (2, 1024, 1024, 8, 128, "projection", False,
                              True),
+    # ar_inpainting's doubled rows on the causal DIT-AR: 12 KV tiles
+    "B2_L768_H12_D64_causal": (2, 768, 768, 12, 64, "projection", True,
+                               False),
 }
 
 

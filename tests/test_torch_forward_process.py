@@ -15,6 +15,9 @@ import torch
 
 from unidisc_tpu.diffusion import forward_process as jfp
 from unidisc_tpu_torch.diffusion import forward_process as tfp
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 B, TXT, IMG = 6, 8, 12
 L = TXT + IMG

@@ -28,6 +28,9 @@ from unidisc_tpu_torch.config import MODEL_PRESETS
 from unidisc_tpu_torch.ops.fused_qmm import (GENERIC, fused_qmm,
                                              fused_quantize, quantize_plan,
                                              row_plan)
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 K, N = 256, 384
 B, L = 2, 128

@@ -16,6 +16,9 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
 from unidisc_tpu_torch.training.trainer import Trainer
 from unidisc_tpu_torch.utils.png import decode_png
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 # the byte tokenizer's ids need a text vocabulary of 260 and more
 RUN = {"model.length": 24, "model.txt_length": 8, "model.img_length": 16,

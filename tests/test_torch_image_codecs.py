@@ -34,6 +34,9 @@ from unidisc_tpu_torch.tokenizers.vqgan import (load_torch_state_dict,
 from unidisc_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_vqgan import random_params
 from test_vqgan import TINY, build_torch_vqmodel
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 PIXEL_ATOL = 1e-5
 

@@ -197,6 +197,25 @@ def test_ar_slice_is_checked():
     assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
 
 
+# the modules of the training-objectives and data slice: the legacy
+# losses, token shards, streaming and the CLI that trains on them
+DATA_SLICE = [
+    "unidisc_tpu_torch/diffusion/legacy.py",
+    "unidisc_tpu_torch/data/token_shards.py",
+    "unidisc_tpu_torch/data/streaming.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/train.py",
+]
+
+
+def test_data_slice_is_checked():
+    assert set(DATA_SLICE) <= set(FILES)
+    # the port keeps its own copies of the pure-numpy data modules
+    for path in DATA_SLICE:
+        assert "unidisc_tpu" not in set(imported_roots(path)), path
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -24,6 +24,9 @@ from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                int8_matmul_reference, pad_k)
 from unidisc_tpu_torch.ops.quant import qdot
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 BF16_ULP = 2.0 ** -7      # relative spacing of bf16 (8-bit significand)
 

@@ -41,6 +41,9 @@ from unidisc_tpu_torch.sampling.ar_sampler import (init_kv_cache,
                                                    init_kv_cache_for)
 from test_torch_dit import ATOL, B, RTOL, TXT, configs, port_model, \
     random_params
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 CAUSAL = {"model.full_attention": False, "model.attn_backend": "xla"}
 PREFILL = 10

@@ -13,6 +13,9 @@ from unidisc_tpu.tokenizers import text as jax_text
 from unidisc_tpu_torch.config import NoiseConfig
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.tokenizers import text
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 T = np.linspace(0.0, 0.99, 23, dtype=np.float32)
 

@@ -44,6 +44,9 @@ from unidisc_tpu_torch.models.dit import DIT, QLinear, randomize_
 from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
 from unidisc_tpu_torch.ops import _build, fused_qmm, quant
 from test_torch_dit import random_params
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ROW_TOL, ROWS_AGREE = 1e-4, 0.75     # of the logits' scale; share of rows
 MAX_TOL, MEAN_TOL, TOP1 = 2.5e-2, 3e-3, 0.99

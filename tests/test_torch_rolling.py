@@ -37,6 +37,9 @@ from unidisc_tpu_torch.serving.rolling import (RollingDiffusionBatcher,
                                                build_rolling_t2i,
                                                keyed_uniform)
 from test_torch_dit import configs, port_model, random_params
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 STEPS = 4
 TIMEOUT = 60    # seconds a future may take; a fault fails, never hangs

@@ -23,6 +23,9 @@ from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.sampling import sampler as jax_sampler
 from unidisc_tpu_torch.sampling import sampler
 from test_torch_dit import B, TXT, configs, port_model, random_params
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 STEPS = 5
 

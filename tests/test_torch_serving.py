@@ -55,6 +55,9 @@ from unidisc_tpu_torch.serving.engine import (InferenceEngine, build_engine,
 from unidisc_tpu_torch.utils.resize import resize_mask, resize_uint8
 from test_torch_dit import OVERRIDES, configs, port_model, random_params
 from test_torch_engine import tiny_codecs
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 TIMEOUT = 60
 # the tiny codec's 64 codes are the model's image vocabulary

@@ -34,6 +34,9 @@ from unidisc_tpu_torch.serving.speculative import (accept_window,
                                                    speculative_decode)
 from test_torch_continuous import elm_greedy
 from test_torch_elm import SMALL, elm_pair
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 TIMEOUT = 120
 

@@ -13,6 +13,9 @@ from unidisc_tpu.diffusion import loss as jloss
 from unidisc_tpu.diffusion import subs as jsubs
 from unidisc_tpu_torch.diffusion import loss as tloss
 from unidisc_tpu_torch.diffusion import subs as tsubs
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ATOL = RTOL = 1e-5
 B, L, TXT_V, V = 3, 10, 12, 20

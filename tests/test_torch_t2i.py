@@ -27,6 +27,9 @@ from unidisc_tpu_torch.sampling import sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from test_torch_dit import B, TXT, IMG, configs, port_model, random_params
 from test_torch_quant import configs as int8_configs
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 STEPS = 5
 

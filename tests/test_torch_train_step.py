@@ -7,7 +7,8 @@
   error of an LR near 0).
 * The optimizer against optax.chain(clip_by_global_norm, adamw) over 3
   steps, with the clip triggered and not: rtol 1e-5.
-* compute_batch_loss with injected draws in every ported branch: rtol 1e-4.
+* compute_batch_loss with injected draws in every ported branch (the
+  ``ar`` ones in tests/test_torch_ar_train.py): rtol 1e-4.
 * One whole train step on the tiny preset with the flagship's model flags
   and loss settings, the JAX TrainState carried over by
   train_state_from_jax and the JAX draws replayed: loss, grad norm, new
@@ -49,6 +50,9 @@ from unidisc_tpu_torch.models.dit import DIT
 from unidisc_tpu_torch.models.port import (dit_state_dict_from_jax,
                                            train_state_from_jax)
 from unidisc_tpu_torch.training import train_state as tts
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 B, TXT, IMG = 4, 8, 16
 L = TXT + IMG
@@ -251,6 +255,9 @@ LOSS_VARIANTS = {
     "ar_llm_loss": {"trainer.ar_llm_loss": True},
     "no_ce_weighting": {"trainer.no_ce_weighting": True},
     "uniform_mode": {"trainer.discrete_diffusion_mode": "uniform"},
+    # the legacy losses (diffusion/legacy.py) over the same corruption
+    "sedd": {"trainer.parameterization": "sedd"},
+    "d3pm": {"trainer.parameterization": "d3pm"},
     "no_modality_weights": {"trainer.text_loss_weight": None,
                             "trainer.img_loss_weight": None,
                             "model.force_argmax_valid_indices": False},
@@ -292,12 +299,17 @@ def test_unported_branches_raise(jax_params):
     model = DIT(tcfg.model, compute_dtype=torch.float32)
     batch = {k: torch.from_numpy(v)
              for k, v in make_batch(tcfg.model).items()}
-    for over in ({"trainer.parameterization": "sedd"},
-                 {"trainer.optimizer": "lion"}):
-        cfg = tcfg.override(**over)
-        with pytest.raises(NotImplementedError):
-            step = tts.make_train_step(cfg, model)
-            step(tts.init_train_state(cfg, model), batch)
+    # sedd and d3pm are ported (LOSS_VARIANTS); lion is not
+    cfg = tcfg.override(**{"trainer.optimizer": "lion"})
+    with pytest.raises(NotImplementedError):
+        step = tts.make_train_step(cfg, model)
+        step(tts.init_train_state(cfg, model), batch)
+    # interleaved batches (sample_ids) wait for ROADMAP item 6
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tts.compute_batch_loss(
+            tcfg, tts.make_apply_fn(tcfg, model), None,
+            {**batch, "sample_ids": torch.zeros_like(batch["input_ids"])},
+            generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="checkpointing"):
         tts.make_apply_fn(tcfg.override(
             **{"trainer.use_gradient_checkpointing": True}), model)

@@ -21,6 +21,9 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
 from unidisc_tpu_torch.training.checkpoint import CheckpointManager
 from unidisc_tpu_torch.training.trainer import Trainer
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 SMALL = {"model.length": 24, "model.txt_length": 8, "model.img_length": 16,
          "model.text_vocab_size": 24, "model.image_vocab_size": 40,

@@ -22,6 +22,9 @@ from unidisc_tpu.tokenizers import vqgan as J
 from unidisc_tpu_torch.tokenizers import vqgan as T
 from test_vqgan import (KL_TINY, TAMING_TINY, TINY, build_torch_klvae,
                         build_torch_taming, build_torch_vqmodel)
+from unidisc_tpu_torch.device import cap_test_threads
+
+cap_test_threads()
 
 ATOL, RTOL = 1e-4, 1e-3
 MASKGIT_TINY = dict(codebook_size=64, codebook_dim=32, ch=32, ch_mult=(1, 2),

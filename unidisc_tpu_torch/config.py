@@ -139,7 +139,9 @@ class NoiseConfig:
 class TrainerConfig:
     """Training hyperparameters. The port's train step
     (``training/train_state.py``) takes AdamW, the four LR schedules and
-    the ``subs`` parameterization; the other options raise there."""
+    the ``subs``, ``ar``, ``sedd`` and ``d3pm`` parameterizations; the
+    other optimizers, add_label, remat and interleaved batches raise
+    there."""
 
     optimizer: str = "adamw"  # adamw | adafactor | lion | ademamix | muon
     grad_accum_steps: int = 1
@@ -206,7 +208,7 @@ class SamplingConfig:
     # dilated unmasking: each maskgit step reveals only within one of d^2
     # spatially dilated groups of the image grid. 0 = off.
     maskgit_dilation: int = 0
-    # conditioning-frozen t2i sampling (not in the port yet)
+    # conditioning-frozen t2i sampling (sampling/t2i_fast.py)
     cached_cond: bool = False
     cached_cond_refresh: int = 0
     top_p: Optional[float] = None
@@ -476,7 +478,7 @@ EXPERIMENTS = {
         "sampling.maskgit_dilation": 2,
         "sampling.predictor": "maskgit",
     },
-    # conditioning-frozen t2i serving (not in the port yet)
+    # conditioning-frozen t2i serving
     "frozen_cond": {
         "sampling.cached_cond": True,
         "sampling.cached_cond_refresh": 0,

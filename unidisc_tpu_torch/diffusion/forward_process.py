@@ -16,6 +16,15 @@ missing ones from the ``torch.Generator`` it is given. The names:
   "rand"     (B, L) int tokens in [0, vocab)  (uniform mode without the
                     modality split)
 
+and, in the train step (``training/train_state.py``):
+
+  "joint"    (B,)    uniform: joint AR+NAR rows (JAX fold_in(rng, 11))
+  "flip"     (B,)    uniform: rand_flip_ar_prob's row flip (fold_in(rng, 13))
+  "inpaint"  (B, 2L) uniform: ar_inpainting's mask of the doubled rows
+                     (JAX draws it from the mask key itself, not through
+                     q_xt's split); its rate draws "t" (the t key)
+  "ar_drop"  (B,)    uniform: rand_ar_modality_dropout (fold_in(rng, 17))
+
 The JAX package derives these from one PRNG key; the tests replay that
 derivation and hand both packages the same numbers.
 """

@@ -409,8 +409,8 @@ class DDitFinalLayer(nn.Module):
 
 
 # arguments of the JAX DIT.__call__ whose branches later slices port
-_LATER_ARGS = ("sample_ids", "rope_index", "label", "x_cond",
-               "extra_embed", "img_block_index")
+_LATER_ARGS = ("sample_ids", "label", "x_cond", "extra_embed",
+               "img_block_index")
 
 _UNSUPPORTED_FLAGS = {
     "split_embed": "split text/image embedding",
@@ -443,7 +443,7 @@ class DIT(nn.Module):
         if cfg.img_resolutions is not None:
             raise NotImplementedError("model.img_resolutions (multi-"
                                       "resolution rope) is not in the port "
-                                      "yet")
+                                      "yet (ROADMAP queue 1, item 6)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         dim = cfg.hidden_size
@@ -531,7 +531,8 @@ class DIT(nn.Module):
                                 f"{name!r}")
             if value is not None:
                 raise NotImplementedError(
-                    f"DIT.forward({name}=...) is not in the port yet")
+                    f"DIT.forward({name}=...) is not in the port yet "
+                    f"(ROADMAP queue 1, item 6)")
         if self.training and self.cfg.dropout > 0:
             raise NotImplementedError("training-mode dropout is not in the "
                                       "port yet; set model.dropout=0.0 or "
@@ -543,16 +544,16 @@ class DIT(nn.Module):
 
     def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
                kv_cache=None, cache_index=None, frozen_kv=None,
-               **unsupported):
+               rope_index=None, **unsupported):
         """Final hidden state (B, L, hidden) after the block stack, without
         the vocab head; with a kv_cache, (hidden, new_cache)."""
         x, _, new_cache = self._trunk(indices, sigma, modality, attn_mask,
                                       kv_cache, cache_index, frozen_kv,
-                                      unsupported)
+                                      rope_index, unsupported)
         return x if kv_cache is None else (x, new_cache)
 
     def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
-               cache_index, frozen_kv, unsupported):
+               cache_index, frozen_kv, rope_index, unsupported):
         self._check(sigma, modality, unsupported)
         cfg = self.cfg
         dt = self.compute_dtype
@@ -573,7 +574,9 @@ class DIT(nn.Module):
         if cfg.modality_embed:
             x = x + self.modality_embed(modality).to(dt)
         l = indices.shape[1]
-        if kv_cache is None and frozen_kv is None:
+        if rope_index is not None:
+            cos, sin = self.rope_rows(rope_index, modality)
+        elif kv_cache is None and frozen_kv is None:
             cos, sin = self.rope_cos[:l], self.rope_sin[:l]
         else:
             cos, sin = cache_rope(self.rope_cos, self.rope_sin, cache_index,
@@ -588,16 +591,32 @@ class DIT(nn.Module):
                     else (frozen_kv[0][i], frozen_kv[1][i]))
         return x, c, (None if kv_cache is None else tuple(kv_cache))
 
+    def rope_rows(self, rope_index, modality):
+        """Per-token rotary rows (B, L, head_dim / 2) of the [text | image]
+        table: a text token's index is clipped into the text rows, an
+        image token's into the image rows after them, so rows flipped or
+        doubled in the batch keep their within-block positions."""
+        if modality is None:
+            raise ValueError("rope_index needs modality")
+        cfg = self.cfg
+        eff = torch.where(
+            modality == 1,
+            cfg.txt_length + rope_index.clamp(0, cfg.img_length - 1),
+            rope_index.clamp(0, cfg.txt_length - 1)).long()
+        return self.rope_cos[eff], self.rope_sin[eff]
+
     def forward(self, indices, sigma=None, *, modality=None,
                 attn_mask=None, return_hidden: bool = False,
                 kv_cache=None, cache_index=None, frozen_kv=None,
-                **unsupported):
+                rope_index=None, **unsupported):
         """logits; (logits, hidden) with return_hidden; with a kv_cache
         also the new cache last: (logits, new_cache) or (logits, hidden,
-        new_cache)."""
+        new_cache). rope_index (B, L): each token's position within its
+        text or image block (``rope_rows``), in place of the rows of the
+        fixed layout."""
         x, c, new_cache = self._trunk(indices, sigma, modality, attn_mask,
                                       kv_cache, cache_index, frozen_kv,
-                                      unsupported)
+                                      rope_index, unsupported)
         logits = self.output_layer(x, c, modality)
         out = (logits, x) if return_hidden else (logits,)
         if kv_cache is not None:

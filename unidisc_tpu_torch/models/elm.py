@@ -131,14 +131,15 @@ class RMSNorm(nn.Module):
 def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2]: the values outside redrawn until none
     is left (exact; several times faster than the inverse-CDF draw of
-    ``nn.init.trunc_normal_`` on a CPU)."""
-    z = torch.randn(shape, generator=generator)
+    ``nn.init.trunc_normal_`` on a CPU), on the generator's device."""
+    dev = generator.device
+    z = torch.randn(shape, generator=generator, device=dev)
     while True:
         out = z.abs() > 2
         n = int(out.sum())
         if n == 0:
             return z
-        z[out] = torch.randn(n, generator=generator)
+        z[out] = torch.randn(n, generator=generator, device=dev)
 
 
 def _linear(cfg: ELMConfig, in_features: int, out_features: int,
@@ -298,9 +299,12 @@ class OpenELM(nn.Module):
         two deviations, variance 1 / fan_in), norm scales 1; an int8
         projection the JAX ``QDense`` init, round(127 x U(-1/sqrt(fan_in),
         1/sqrt(fan_in))) with scale 1/127; the int8 head zeros with scales
-        1, as the JAX module's (``quantize_elm_params`` fills both)."""
+        1, as the JAX module's (``quantize_elm_params`` fills both). The
+        draws are made on the generator's device."""
+        dev = generator.device
         for table in (self.token_embeddings, self.token_embeddings_extra):
-            table.copy_(0.02 * torch.randn(table.shape, generator=generator))
+            table.copy_(0.02 * torch.randn(table.shape, generator=generator,
+                                           device=dev))
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 fan = module.in_features
@@ -309,7 +313,7 @@ class OpenELM(nn.Module):
                     module.weight.shape, generator))
             elif isinstance(module, QLinear):
                 bound = 1.0 / math.sqrt(module.in_features)
-                w = torch.empty(module.weight_q.shape).uniform_(
+                w = torch.empty(module.weight_q.shape, device=dev).uniform_(
                     -bound, bound, generator=generator)
                 module.weight_q.copy_(torch.round(w * 127).to(torch.int8))
                 module.scale.fill_(1 / 127.0)

@@ -522,21 +522,25 @@ class ElmEngine(_TextCompletion):
 def elm_model(cfg, seed: int, quantize: Optional[str] = None,
               device="cpu"):
     """An OpenELM of `cfg` with random weights drawn from `seed` (the JAX
-    init's distributions), computing in bf16: its projections stored in
-    bf16, or with quantize="int8" converted from the fp32 weights by
-    ``quantize_elm_params``."""
+    init's distributions) on `device` (so a card draws its own numbers,
+    in a fraction of the CPU's time), computing in bf16: its projections
+    stored in bf16, or with quantize="int8" converted from the fp32
+    weights by ``quantize_elm_params``."""
     from unidisc_tpu_torch.models.elm import OpenELM
     from unidisc_tpu_torch.ops.quant import quantize_elm_params
-    state = OpenELM(cfg, compute_dtype=torch.float32,
-                    init_seed=seed).state_dict()
+    dev = resolve_device(device)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize {quantize!r}")
+    src = OpenELM(cfg, compute_dtype=torch.float32, init_seed=None).to(dev)
+    src.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    state = src.state_dict()
     if quantize == "int8":
         cfg = dataclasses.replace(cfg, quant="int8")
         state = quantize_elm_params(state)
-    elif quantize is not None:
-        raise ValueError(f"unknown quantize {quantize!r}")
-    model = OpenELM(cfg, compute_dtype=torch.bfloat16, init_seed=None)
+    model = OpenELM(cfg, compute_dtype=torch.bfloat16,
+                    init_seed=None).to(dev)
     model.load_state_dict(state)
-    return model.to(resolve_device(device)).eval()
+    return model.eval()
 
 
 def build_elm_engine(*, preset: str = "270m",

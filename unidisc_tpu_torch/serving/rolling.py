@@ -695,15 +695,17 @@ class RollingDiffusionBatcher:
                     self.step_chunk(self.state)
                     self._harvest()
             except Exception as e:  # noqa: BLE001 — device errors
-                # fail everyone and reset: callers must never hang on a
-                # dead worker
-                self._fail_outstanding(e)
+                # reset, then fail everyone: callers must never hang on a
+                # dead worker, and a caller whose future failed finds the
+                # state already reset
                 self._done = [self.built.done_at] * self.slots
                 try:
                     with self._dispatch_lock:
                         self.built.reset(self.state)
                 except Exception:  # noqa: BLE001
                     self._stop = True
+                self._fail_outstanding(e)
+                if self._stop:
                     return
 
 

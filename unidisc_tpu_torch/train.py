@@ -1,19 +1,28 @@
-"""Training CLI (port of ``unidisc_tpu/train.py``) on synthetic data:
+"""Training CLI (port of ``unidisc_tpu/train.py``):
 
     python -m unidisc_tpu_torch.train [--device cpu] [--run-dir DIR]
-        [--batch-size N] [--overfit] [--flagship] [key=value ...]
+        [--batch-size N] [--data DIR[,DIR...] [--stream]] [--overfit]
+        [--iterate-data-only N] [--flagship] [key=value ...]
 
 key=value arguments are dotted overrides of the Config; ``model=<preset>``
 picks a size preset. ``--flagship`` starts from FLAGSHIP_TRAIN_OVERRIDES
 (the flagship model and the production loss settings) before the
 overrides. The model trains on the card unless ``--device cpu`` is given.
-Token shards and streaming are not in the port yet.
+
+Data: synthetic batches by default; ``--data`` names token-shard
+directories (``data/token_shards.py``), sampled by
+``data.dataset_weights`` (default: their sizes); with ``--stream`` one
+directory of ``shard-*.npz`` files is streamed in order with exact
+mid-epoch resume (``data/streaming.py``). The validation loader is the
+same source at seed + 777. ``--iterate-data-only N`` reads N batches
+without the model and reports the loader's host tok/s.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import time
 
 from unidisc_tpu_torch.config import (FLAGSHIP_TRAIN_OVERRIDES,
                                       MODEL_PRESETS, Config)
@@ -38,11 +47,40 @@ def parse_overrides(argv):
     return model, overrides
 
 
+def make_loaders(config: Config, batch: int, data=None, stream=False):
+    """(train loader, validation loader) of the CLI's data options."""
+    if data and stream:
+        from unidisc_tpu_torch.data.streaming import StreamingShardReader
+        return tuple(StreamingShardReader(
+            data, batch_size=batch, seed=seed,
+            pack_length=config.model.length if config.trainer.interleaved
+            else None) for seed in (config.seed, config.seed + 777))
+    if data:
+        from unidisc_tpu_torch.data.token_shards import (
+            TokenShardDataset, WeightedDatasetSampler)
+        dsets = [TokenShardDataset(d) for d in data.split(",")]
+        length = dsets[0].meta.get("length")
+        if length and length != config.model.length:
+            print(f"[train] WARNING: model.length={config.model.length} but "
+                  f"shard rows are {length} tokens; the model trains on "
+                  f"the shard layout. Set model.length/txt_length/"
+                  f"img_length to match.")
+        weights = config.data.dataset_weights
+        return (WeightedDatasetSampler(dsets, weights, batch_size=batch,
+                                       seed=config.seed),
+                WeightedDatasetSampler(dsets, weights, batch_size=batch,
+                                       seed=config.seed + 777,
+                                       shuffle=False))
+    return (SyntheticDataLoader(config, batch, seed=config.seed),
+            SyntheticDataLoader(config, batch, seed=config.seed + 777))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="unidisc_tpu_torch trainer",
         usage="python -m unidisc_tpu_torch.train [--device cpu] "
-              "[--run-dir DIR] [--flagship] [key=value ...]")
+              "[--run-dir DIR] [--data DIR[,DIR] [--stream]] [--flagship] "
+              "[key=value ...]")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--run-dir", default="runs/dev")
     parser.add_argument("--batch-size", type=int, default=None,
@@ -56,15 +94,36 @@ def main(argv=None):
                              "down smoke run)")
     parser.add_argument("--flagship", action="store_true",
                         help="start from FLAGSHIP_TRAIN_OVERRIDES")
+    parser.add_argument("--data", default=None,
+                        help="comma-separated token-shard dirs; default "
+                             "synthetic data")
+    parser.add_argument("--stream", action="store_true",
+                        help="stream one dir of shard-*.npz files in order, "
+                             "with exact mid-epoch resume")
+    parser.add_argument("--iterate-data-only", type=int, default=0,
+                        help="read N batches without the model and report "
+                             "the loader's host tok/s")
     args, rest = parser.parse_known_args(argv)
 
     model, overrides = parse_overrides(rest)
     base = dict(FLAGSHIP_TRAIN_OVERRIDES) if args.flagship else {}
     config = Config.make(model, **{**base, **overrides}).validate()
     batch = args.batch_size or config.trainer.global_batch_size
+    train_loader, val_loader = make_loaders(config, batch, args.data,
+                                            args.stream)
 
-    train_loader = SyntheticDataLoader(config, batch, seed=config.seed)
-    val_loader = SyntheticDataLoader(config, batch, seed=config.seed + 777)
+    if args.iterate_data_only:
+        t0 = time.perf_counter()
+        n_tok = 0
+        for i, b in enumerate(train_loader):
+            if i >= args.iterate_data_only:
+                break
+            n_tok += b["input_ids"].size
+        tok_s = n_tok / (time.perf_counter() - t0)
+        print(f"[train] data-only: {args.iterate_data_only} batches, "
+              f"{tok_s / 1e6:.2f}M tok/s host-side")
+        return {"step": 0, "data_tok_per_s": tok_s}
+
     trainer = Trainer(config, args.run_dir, device=args.device,
                       log_every=args.log_every, val_every=args.val_every,
                       ckpt_every=args.ckpt_every)

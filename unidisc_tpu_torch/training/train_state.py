@@ -19,16 +19,18 @@ nothing is read back to the host.
 
 Random numbers: the JAX step derives its draws from a key; here they come
 from a ``torch.Generator`` passed to the step, or are injected as tensors
-(``draws``, names in ``diffusion/forward_process.py`` plus "joint" (B,) for
-joint AR+NAR rows), which is how the tests feed both packages the same
-numbers.
+(``draws``, the names listed in ``diffusion/forward_process.py``), which
+is how the tests feed both packages the same numbers.
 
 Ported: the ``subs`` parameterization with importance sampling, change of
-variables, joint AR+NAR and the AR-LLM loss; AdamW with the four LR
-schedules; gradient accumulation; low-precision params with an fp32 EMA.
-The ``ar``, ``sedd`` and ``d3pm`` parameterizations, ``add_label``,
-``img_cond``, MoE, the other optimizers and muP raise
-``NotImplementedError`` (ROADMAP queue 1).
+variables, joint AR+NAR and the AR-LLM loss; ``ar`` with the row flip,
+``ar_inpainting`` (and its forced rate) and the modality dropout, over a
+per-token ``rope_index``; the legacy ``sedd`` and ``d3pm`` losses
+(``diffusion/legacy.py``); AdamW with the four LR schedules; gradient
+accumulation; low-precision params with an fp32 EMA. ``add_label``,
+``img_cond``, MoE, interleaved batches (``sample_ids``), the other
+optimizers, muP and remat raise ``NotImplementedError`` (ROADMAP queue 1,
+items 5b and 6).
 """
 
 from __future__ import annotations
@@ -45,8 +47,13 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.diffusion.forward_process import (Draws,
                                                          draw_uniform,
                                                          q_xt, sample_t)
+from unidisc_tpu_torch.diffusion.legacy import (d3pm_loss,
+                                                d3pm_parameterization,
+                                                score_entropy,
+                                                sedd_parameterization)
 from unidisc_tpu_torch.diffusion.loss import (LossOutput, ar_llm_token_nll,
-                                              nelbo_loss, nelbo_weighting)
+                                              ar_loss, nelbo_loss,
+                                              nelbo_weighting)
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.diffusion.subs import subs_log_p_at
 
@@ -152,6 +159,9 @@ def _split_metrics(out: LossOutput, modality, loss, grad_norm) -> StepMetrics:
         txt_mask = mask
         img_mask = torch.zeros_like(mask)
     else:
+        if modality.shape[-1] < mask.shape[-1]:
+            # ar_inpainting's doubled rows; the JAX step fails here
+            modality = torch.cat([modality, modality], dim=-1)
         if modality.shape[-1] != mask.shape[-1]:
             modality = modality[..., -mask.shape[-1]:]
         txt_mask = mask & (modality == 0)
@@ -335,25 +345,116 @@ def init_train_state(config: Config, model: nn.Module) -> TrainState:
 # Loss
 # ---------------------------------------------------------------------------
 
-_LATER_BATCH_KEYS = ("sample_ids", "rope_index", "x_cond")
+_LATER_BATCH_KEYS = ("sample_ids", "x_cond")
+
+
+def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
+                   attention_mask, extra, *, train, draws,
+                   generator) -> LossOutput:
+    """The ``ar`` parameterization: the optional row flip, ar_inpainting's
+    [corrupted || clean] doubling or the modality dropout, then the
+    next-token loss over the shifted logits."""
+    t_cfg = config.trainer
+    m_cfg = config.model
+    b, dev = x0.shape[0], x0.device
+    flip_rows = train and t_cfg.rand_flip_ar_prob is not None
+    if (t_cfg.ar_inpainting or flip_rows) and "rope_index" not in extra:
+        # flipped or doubled rows leave the fixed [txt | img] layout: each
+        # token keeps its position within its block (JAX defines the
+        # doubled path so; the reference's reads NaN-padded rope rows)
+        base = torch.cat([torch.arange(m_cfg.txt_length, device=dev),
+                          torch.arange(max(m_cfg.img_length, 0),
+                                       device=dev)])
+        extra["rope_index"] = base[None, :].expand(b, -1)
+        if modality is None:
+            modality = torch.zeros_like(x0)
+    if flip_rows:
+        flip = draw_uniform(draws, "flip", (b,), generator,
+                            dev) < t_cfg.rand_flip_ar_prob
+        tl = m_cfg.txt_length
+
+        def _flip(a):
+            return torch.where(flip[:, None],
+                               torch.cat([a[:, tl:], a[:, :tl]], 1), a)
+        x0 = _flip(x0)
+        if modality is not None:
+            modality = _flip(modality)
+        if attention_mask is not None:
+            attention_mask = _flip(attention_mask)
+        if "rope_index" in extra:
+            extra["rope_index"] = _flip(extra["rope_index"])
+    if t_cfg.ar_inpainting:
+        # [corrupted || clean] at an antithetic per-row rate; the loss
+        # covers only the clean half
+        u = draw_uniform(draws, "t", (b,), generator, dev)
+        offset = torch.arange(b, dtype=torch.float32, device=dev) / b
+        t_inp = torch.remainder(u / b + offset, 1.0)
+        if t_cfg.ar_inpainting_force_val is not None:
+            t_inp = torch.full_like(t_inp, t_cfg.ar_inpainting_force_val)
+        half = x0.shape[1]
+        x0 = torch.cat([x0, x0], dim=1)
+        move = draw_uniform(draws, "inpaint", tuple(x0.shape), generator,
+                            dev) < t_inp[:, None]
+        move[:, half:] = False
+        x0 = torch.where(move, m_cfg.mask_index, x0)
+        if modality is not None:
+            modality = torch.cat([modality, modality], dim=1)
+        if "rope_index" in extra:
+            extra["rope_index"] = torch.cat([extra["rope_index"]] * 2, 1)
+        base_mask = attention_mask if attention_mask is not None else \
+            torch.ones((b, half), dtype=torch.bool, device=dev)
+        attention_mask = torch.cat([torch.zeros_like(base_mask),
+                                    torch.ones_like(base_mask)], dim=1)
+    elif train and t_cfg.rand_ar_modality_dropout is not None:
+        # mask the row's first modality and drop it from the loss: the AR
+        # counterpart of CFG's unconditional rows
+        if modality is None:
+            raise ValueError("rand_ar_modality_dropout needs modality")
+        drop = draw_uniform(draws, "ar_drop", (b,), generator,
+                            dev) < t_cfg.rand_ar_modality_dropout
+        first = (modality == modality[:, :1]) & drop[:, None]
+        x0 = torch.where(first, m_cfg.mask_index, x0)
+        if attention_mask is None:
+            attention_mask = torch.ones(x0.shape, dtype=torch.bool,
+                                        device=dev)
+        attention_mask = torch.where(first, False, attention_mask)
+    logits = apply_fn(params, x0, None, modality, train, **extra)
+    restrict = m_cfg.force_argmax_valid_indices
+    return ar_loss(
+        logits[:, :-1], x0[:, 1:], m_cfg.mask_index,
+        attention_mask=None if attention_mask is None
+        else attention_mask[:, 1:],
+        modality=None if modality is None else modality[:, 1:],
+        text_vocab_size=m_cfg.text_vocab_size if restrict else None)
+
+
+def _legacy_loss(loss_tok, attention_mask) -> LossOutput:
+    """The sedd and d3pm losses: the per-token loss averaged over the
+    attended tokens."""
+    if attention_mask is None:
+        attention_mask = torch.ones_like(loss_tok, dtype=torch.bool)
+    total = (loss_tok * attention_mask).sum() \
+        / attention_mask.sum().clamp(min=1)
+    zero = torch.zeros_like(total)
+    return LossOutput(loss=total, nlls=loss_tok * attention_mask,
+                      token_mask=attention_mask, txt_loss=zero,
+                      img_loss=zero)
 
 
 def compute_batch_loss(config: Config, apply_fn, params, batch, *,
                        train: bool = True, step=None,
                        generator: Optional[torch.Generator] = None,
                        draws: Draws = None) -> LossOutput:
-    """t-sample -> corrupt -> backbone -> SUBS -> NELBO.
+    """t-sample -> corrupt -> backbone -> SUBS -> NELBO (or the sedd / d3pm
+    loss); for ``ar``, the next-token loss (``_ar_batch_loss``).
 
-    batch: dict with input_ids (B, L) and optionally modality (B, L) and
-    attention_mask (B, L), as tensors on the model's device. params: the
-    parameters apply_fn runs with (None: the model's own).
+    batch: dict with input_ids (B, L) and optionally modality (B, L),
+    attention_mask (B, L) and rope_index (B, L), as tensors on the model's
+    device. params: the parameters apply_fn runs with (None: the model's
+    own).
     """
     t_cfg = config.trainer
     m_cfg = config.model
-    if t_cfg.parameterization != "subs":
-        raise NotImplementedError(f"trainer.parameterization="
-                                  f"{t_cfg.parameterization!r} is not in "
-                                  f"the port yet (only subs)")
     if t_cfg.add_label:
         raise NotImplementedError("trainer.add_label is not in the port yet")
     if m_cfg.img_cond or m_cfg.moe_experts > 0:
@@ -363,7 +464,7 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     if later:
         raise NotImplementedError(f"batch keys {later} (interleaved / "
                                   f"image-conditioned batches) are not in "
-                                  f"the port yet")
+                                  f"the port yet (ROADMAP queue 1, item 6)")
     noise = get_noise(config.noise)
     x0 = batch["input_ids"].long()
     modality = batch.get("modality")
@@ -372,8 +473,15 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     attention_mask = batch.get("attention_mask")
     if attention_mask is not None:
         attention_mask = attention_mask.bool()
+    extra = {}
+    if "rope_index" in batch:
+        extra["rope_index"] = batch["rope_index"].long()
     b = x0.shape[0]
     dev = x0.device
+    if t_cfg.parameterization == "ar":
+        return _ar_batch_loss(config, apply_fn, params, x0, modality,
+                              attention_mask, extra, train=train,
+                              draws=draws, generator=generator)
 
     t = sample_t(b, antithetic=t_cfg.antithetic_sampling,
                  sampling_eps=t_cfg.sampling_eps,
@@ -423,7 +531,18 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
         xt = torch.where(joint_mask[:, None], x0, xt)
         batch_ignore = batch_ignore | joint_mask
 
-    logits = apply_fn(params, xt, sigma, modality, train)
+    logits = apply_fn(params, xt, sigma, modality, train, **extra)
+    if t_cfg.parameterization == "sedd":
+        log_score = sedd_parameterization(logits.float(), corrupted.xt,
+                                          sigma)
+        ent = score_entropy(log_score, sigma, corrupted.xt, x0,
+                            m_cfg.mask_index)
+        return _legacy_loss(dsigma[:, None] * ent, attention_mask)
+    if t_cfg.parameterization == "d3pm":
+        log_p = d3pm_parameterization(logits.float())
+        return _legacy_loss(d3pm_loss(log_p, corrupted.xt, x0, t, T=1000,
+                                      mask_index=m_cfg.mask_index),
+                            attention_mask)
     log_p_theta = subs_log_p_at(
         logits, xt, x0, m_cfg.mask_index,
         modality=modality if restrict else None,
@@ -467,22 +586,23 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
 # ---------------------------------------------------------------------------
 
 def make_apply_fn(config: Config, model: nn.Module):
-    """fn(params, x, sigma, modality, train) -> logits: the model run with
-    `params` (a name -> tensor mapping; None for its own parameters), in
-    train or eval mode; sigma None means zeros."""
+    """fn(params, x, sigma, modality, train, **extra) -> logits: the model
+    run with `params` (a name -> tensor mapping; None for its own
+    parameters), in train or eval mode; sigma None means zeros; extra
+    carries rope_index."""
     if config.trainer.use_gradient_checkpointing:
         raise NotImplementedError("trainer.use_gradient_checkpointing "
                                   "(remat) is not in the port yet")
 
-    def apply_fn(params, x, sigma, modality, train):
+    def apply_fn(params, x, sigma, modality, train, **extra):
         model.train(train)
         if sigma is None:
             sigma = torch.zeros((x.shape[0],), dtype=torch.float32,
                                 device=x.device)
         if params is None:
-            return model(x, sigma, modality=modality)
+            return model(x, sigma, modality=modality, **extra)
         return functional_call(model, params, (x, sigma),
-                               {"modality": modality})
+                               {"modality": modality, **extra})
     return apply_fn
 
 
