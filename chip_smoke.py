@@ -147,6 +147,36 @@ and prints no result):
      parameters than at the initial ones).
      A line `ar_train`: tok/s, median step s and peak memory a run, the
      loaders' tok/s, the L 768 kernel times.
+  5d. the rest of training, at full width (FLAGSHIP_TRAIN_OVERRIDES,
+     batch 32), every counted run with the launch counts set to 0 just
+     before and read just after: (a) one gradient without remat (twice:
+     the run-to-run difference) and under remat "none", "dots" and
+     "dots_all" (torch.utils.checkpoint, selective for dots: the attention
+     kernel is recomputed under every policy), equal to it bit for bit
+     where the two runs without remat are, else within twice their
+     difference; flash_fwd 2 x 12 launches under remat, flash_bwd_dq and
+     flash_bwd_dkv 12; the peak memory of each; (b) the same with dropout
+     0.1 from one seed (off against "dots"), then 10 steps through
+     Trainer.fit with dropout 0.1 under remat "dots" (the loss of the
+     batch under fixed draws falls); (c) Lion, AdEMAMix, Adafactor, Muon
+     and AdamW + muP: one full-width update on the card against the CPU
+     from the same parameters and gradients, then 10 steps each through
+     train.main (the loss under fixed draws falls), Adafactor checkpointed
+     at 5 and a run resumed from it with the straight run's losses; (d)
+     LoRA r16 over phase 5's run dir (base_checkpoint), 10 steps through
+     Trainer.fit: the base bit-equal, the run dir served by
+     build_engine(checkpoint=) as base + EMA adapter, 8 t2i requests as in
+     phase 4; (e) host offload: chunked (8) = unchunked (1) and working =
+     bf16(master) after 2 steps on the card, the flagship 10 steps through
+     Trainer.fit and its run dir served as in (d); extra_large at batch 16,
+     5 steps each resident, resident with remat and offloaded with remat
+     (peak memory and step time); (f) CFG distillation (guidance 2.0) of a
+     4-block student from phase 5's run dir (the teacher's [cond || uncond]
+     forward at batch 64 through the kernel), 10 steps, the KL falls; (g)
+     the supervisor CLI over train.main (batch 8): SIGTERM to the child
+     after its 4th step, the child checkpoints and exits 143, is
+     relaunched, resumes and finishes. Lines `remat`, `optimizers`,
+     `train_rest` (step s, tok/s and peak GB a path) and `offload`.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -167,6 +197,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -207,14 +238,19 @@ from unidisc_tpu_torch import generate
 from unidisc_tpu_torch.serving.batcher import PAD_SIZES, RequestBatcher
 from unidisc_tpu_torch.serving.engine import (InferenceEngine, build_engine,
                                               decode_image_b64,
-                                              encode_image_b64, to_uint8)
+                                              encode_image_b64, restore_run,
+                                              to_uint8)
 from unidisc_tpu_torch.serving.rolling import (RollingT2IBatcher,
                                                build_rolling_sampler,
                                                build_rolling_t2i,
                                                keyed_uniform)
 from unidisc_tpu_torch.serving.server import make_server
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
-                                                    make_apply_fn)
+                                                    flat_parameters,
+                                                    init_train_state,
+                                                    make_apply_fn,
+                                                    make_optimizer,
+                                                    make_train_step)
 from unidisc_tpu_torch.training.checkpoint import CheckpointManager
 from unidisc_tpu_torch.training.trainer import Trainer
 from unidisc_tpu_torch.utils.png import decode_png, encode_png
@@ -3545,7 +3581,14 @@ def fixed_draw_loss_falls(label, cfg, shards, final_params, seed) -> dict:
     take that spread out."""
     sampler = WeightedDatasetSampler([TokenShardDataset(shards)],
                                      batch_size=TRAIN_BATCH, seed=cfg.seed)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in next(sampler).items()
+    return fixed_draw_batch_loss_falls(label, cfg, next(sampler),
+                                       final_params, seed)
+
+
+def fixed_draw_batch_loss_falls(label, cfg, batch, final_params,
+                                seed) -> dict:
+    """fixed_draw_loss_falls on a given host batch."""
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
              if isinstance(v, np.ndarray)}
     draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
     model = DIT(cfg.model, compute_dtype=torch.bfloat16)
@@ -3750,6 +3793,641 @@ def phase_ar_train(seed, root, kernel_rows, bwd_rows) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 5d: the rest of training
+# ---------------------------------------------------------------------------
+
+REST_STEPS = 10
+REST_CKPT = 5
+REMAT_POLICIES = ("none", "dots", "dots_all")
+REST_DROPOUT = 0.1
+XL_BATCH, XL_STEPS = 16, 5
+SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER = 8, 16, 4
+DISTILL_BLOCKS, DISTILL_GUIDANCE = 4, 2.0
+# each optimizer's LR for its 10 steps (Lion wants ~3-10x less than AdamW,
+# Adafactor's LR multiplies the parameters' RMS)
+OPTIMIZER_RUNS = {
+    "lion": {"trainer.optimizer": "lion", "trainer.lr": 1e-4},
+    "ademamix": {"trainer.optimizer": "ademamix", "trainer.lr": 3e-4},
+    "adafactor": {"trainer.optimizer": "adafactor", "trainer.lr": 1e-2},
+    "muon": {"trainer.optimizer": "muon", "trainer.lr": 1e-3},
+    "mup": {"model.mup": True, "trainer.lr": 1e-3},
+}
+# the served sampling of a trained run dir (the flagship serving config)
+SERVE_OVER = {k: v for k, v in FLAGSHIP_OVERRIDES.items()
+              if k.startswith("sampling.") or k == "model.logits_dtype"}
+# the counted runs of phase 5d, each with its launch counts
+TRAIN_REST_PATHS = ("rest_dropout_remat_fit", "rest_lion", "rest_ademamix",
+                    "rest_adafactor", "rest_adafactor_resumed", "rest_muon",
+                    "rest_mup", "rest_lora", "lora_serve", "rest_offload",
+                    "offload_serve", "rest_distill")
+
+
+def train_launches(n_fwd, n_bwd, steps) -> dict:
+    return {"flash_fwd": n_fwd * steps, "flash_bwd_dq": n_bwd * steps,
+            "flash_bwd_dkv": n_bwd * steps}
+
+
+def check_launches(label, launches, want) -> None:
+    if launches != want:
+        raise AssertionError(f"{label}: launched {launches}, expected "
+                             f"{want}")
+
+
+def remat_grad(cfg, state, batch, draws, policy, seed,
+               timed: int = 0) -> tuple:
+    """The flat fp32 gradient of one compute_batch_loss of the flagship
+    (bf16, through the kernels), with remat `policy` (None: off) and the
+    dropout masks of seed `seed`; (grad, launches, peak bytes, the median
+    s of `timed` more forward + backward passes)."""
+    mcfg = dataclasses.replace(cfg.model, remat_policy=policy or "none")
+    c = dataclasses.replace(cfg, model=mcfg)
+    model = DIT(mcfg, compute_dtype=torch.bfloat16,
+                remat=policy is not None).cuda()
+    model.load_state_dict(state)
+    apply_fn = make_apply_fn(c, model)
+    params = [p for _, p in sorted(model.named_parameters())]
+
+    def grad():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out = compute_batch_loss(c, apply_fn, None, batch, train=True,
+                                 draws=draws, generator=gen)
+        return torch.autograd.grad(out.loss, params)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    grads = grad()
+    flat = torch.cat([g.float().reshape(-1) for g in grads])
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    del grads
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        grad()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del model
+    return flat, launches, peak, statistics.median(times) if times else None
+
+
+def grads_agree(label, base, again, others) -> dict:
+    """The remat gradients against the gradient without remat: bit for bit
+    when two runs without remat are (the forward recomputed under remat
+    runs the same kernels on the same inputs); else within twice their
+    run-to-run difference."""
+    noise = (again - base).abs().max().item()
+    rec = {"no_remat_run_to_run_max_abs": noise}
+    for name, g in others.items():
+        err = (g - base).abs().max().item()
+        rec[f"{name}_max_abs"] = err
+        rec[f"{name}_bit_equal"] = bool(torch.equal(g, base))
+        if not torch.isfinite(g).all() or err > 2 * noise:
+            raise AssertionError(f"{label}: {name}'s gradient differs by "
+                                 f"{err} (run to run {noise})")
+    return rec
+
+
+def phase_remat(seed) -> dict:
+    """(a) the full-width gradient under every remat policy against the
+    gradient without remat, with exact launch counts and peak memory;
+    (b) with dropout 0.1 the same from one seed, remat "dots" against
+    off."""
+    cfg = train_config()
+    n = cfg.model.n_blocks
+    loader = SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+    draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16)
+    randomize_(model, seed)
+    state = model.state_dict()
+    del model
+    rec = {"peak_bytes": {}, "launches": {}}
+    for label, c in (("dropout_0", cfg),
+                     ("dropout_0.1", train_config(
+                         **{"model.dropout": REST_DROPOUT}))):
+        grads = {}
+        for name, policy in (("off", None), ("off_again", None),
+                             *((p, p) for p in REMAT_POLICIES)):
+            if label != "dropout_0" and policy not in (None, "dots"):
+                continue
+            g, launches, peak, grad_s = remat_grad(
+                c, state, batch, draws, policy, seed + 1,
+                timed=3 if name != "off_again" else 0)
+            check_launches(f"{label} remat {policy}", launches,
+                           train_launches(2 * n if policy else n, n, 1))
+            grads[name] = g
+            rec["peak_bytes"][f"{label}/{name}"] = peak
+            rec["launches"][f"{label}/{name}"] = launches
+            if grad_s is not None:
+                rec.setdefault("grad_s", {})[f"{label}/{name}"] = grad_s
+            torch.cuda.empty_cache()
+        rec[label] = grads_agree(
+            label, grads.pop("off"), grads.pop("off_again"), grads)
+        del grads
+        torch.cuda.empty_cache()
+    print("remat " + json.dumps(rec))
+    return rec
+
+
+def cli_rest_args(run_dir, steps, overrides, *extra) -> list:
+    """The train CLI on synthetic data (its first batch, --overfit): the
+    flagship with a 2-step warmup, `overrides` on top."""
+    return ["--run-dir", run_dir, "--batch-size", str(TRAIN_BATCH),
+            "--log-every", "1", "--ckpt-every", "0", "--flagship",
+            "--overfit", f"trainer.max_steps={steps}",
+            "trainer.warmup_steps=2",
+            *(f"{k}={v}" for k, v in overrides.items()), *extra]
+
+
+def update_card_vs_cpu(name, over, params_cpu, grads_cpu) -> dict:
+    """One update of optimizer `name` from the same parameters and
+    gradients on the card and on the CPU. The updates (new - old) agree
+    within 1e-3 of the largest update, except Lion's sign at elements
+    whose interpolated momentum is within rounding of 0 (a share at most
+    1e-5)."""
+    cfg = train_config(**{**over, "trainer.warmup_steps": 0})
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: torch.nn.Parameter(v.to(dev, copy=True))
+                  for k, v in params_cpu.items()}
+        flat = flat_parameters(params)
+        opt = make_optimizer(cfg)
+        st = opt.init(flat, params)
+        t0 = time.perf_counter()
+        opt.apply(flat, grads_cpu.to(dev), st, params=params)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = ((flat.detach().cpu() - torch.cat(
+            [v.reshape(-1) for v in params_cpu.values()])),
+            time.perf_counter() - t0)
+        del params, flat, st
+    (upd_cpu, cpu_s), (upd_card, card_s) = out["cpu"], out["cuda"]
+    scale = upd_cpu.abs().max().item()
+    err = (upd_card - upd_cpu).abs()
+    off = (err > 1e-3 * scale).float().mean().item()
+    rec = {"max_abs_update": scale, "max_abs_err": err.max().item(),
+           "rel_err": err.max().item() / scale, "share_off": off,
+           "cpu_s": cpu_s, "card_s": card_s}
+    if not scale > 0 or off > (1e-5 if name == "lion" else 0.0):
+        raise AssertionError(f"{name}: the card's update differs from the "
+                             f"CPU's: {rec}")
+    return rec
+
+
+def phase_optimizers(seed, root) -> dict:
+    """(c) each optimizer and muP: one full-width update on the card
+    against the CPU, then 10 steps through train.main whose loss under
+    fixed draws falls; Adafactor also checkpointed at 5 and resumed."""
+    cfg = train_config()
+    n = cfg.model.n_blocks
+    model = DIT(cfg.model, compute_dtype=torch.float32)
+    randomize_(model, seed)
+    params_cpu = {k: v.detach().clone() for k, v in model.named_parameters()}
+    del model
+    gen = torch.Generator().manual_seed(seed)
+    grads_cpu = 1e-3 * torch.randn(
+        sum(v.numel() for v in params_cpu.values()), generator=gen)
+    first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=cfg.seed))
+    rec = {}
+    for name, over in OPTIMIZER_RUNS.items():
+        r = {"card_vs_cpu": update_card_vs_cpu(name, over, params_cpu,
+                                               grads_cpu)}
+        run = os.path.join(root, f"opt_{name}")
+        extra = ("--ckpt-every", str(REST_CKPT)) if name == "adafactor" \
+            else ()
+        r["run"], final = train_cli_run(
+            f"rest_{name}", cli_rest_args(run, REST_STEPS, over, *extra),
+            REST_STEPS, n, falls=False)
+        r["run"].update(fixed_draw_batch_loss_falls(
+            f"rest_{name}", train_config(**over), first, final.params,
+            seed))
+        del final
+        if name == "adafactor":
+            resumed = os.path.join(root, "opt_adafactor_resumed")
+            shutil.copytree(os.path.join(run, "checkpoints", str(REST_CKPT)),
+                            os.path.join(resumed, "checkpoints",
+                                         str(REST_CKPT)))
+            r["resumed"] = train_cli_run(
+                "rest_adafactor_resumed", cli_rest_args(resumed, REST_STEPS,
+                                                        over),
+                REST_STEPS - REST_CKPT, n, falls=False)[0]
+            want = r["run"]["losses"][REST_CKPT:]
+            got = r["resumed"]["losses"]
+            if len(got) != len(want) or any(
+                    abs(g - w) > 1e-5 * abs(w) for g, w in zip(got, want)):
+                raise AssertionError(f"resumed adafactor losses {got} != "
+                                     f"{want}")
+            shutil.rmtree(resumed, ignore_errors=True)
+        shutil.rmtree(run, ignore_errors=True)
+        rec[name] = r
+        torch.cuda.empty_cache()
+    print("optimizers " + json.dumps({k: {
+        "card_vs_cpu_rel_err": v["card_vs_cpu"]["rel_err"],
+        "fixed_draw_loss": [v["run"]["fixed_draw_loss_initial"],
+                            v["run"]["fixed_draw_loss_final"]],
+        "median_step_s": v["run"]["median_steady_step_s"]}
+        for k, v in rec.items()}))
+    return rec
+
+
+def fit_counted(label, trainer, batch, steps, want) -> dict:
+    """Trainer.fit on one host batch, the counts set to 0 just before and
+    read just after; the step time, tok/s and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit(itertools.repeat(batch), max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check_launches(label, launches, want)
+    recs = [r for r in logged(trainer.run_dir) if "loss" in r]
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    median_s = statistics.median([r["step_s"] for r in recs][2:])
+    b, length = batch["input_ids"].shape
+    rec = {"steps": steps, "result_step": result["step"], "losses": losses,
+           "loss_first3_mean": statistics.mean(losses[:3]),
+           "loss_last3_mean": statistics.mean(losses[-3:]),
+           "launches": launches, "median_steady_step_s": median_s,
+           "train_tok_per_s": b * length / median_s, "batch": b,
+           "wall_s": wall, "peak_memory_bytes":
+           torch.cuda.max_memory_allocated()}
+    print(f"{label} " + json.dumps(rec))
+    return rec
+
+
+def phase_dropout_fit(seed, root) -> tuple:
+    """(b) 10 steps through Trainer.fit with dropout 0.1 under remat
+    "dots": twice the forward launches, the loss under fixed draws falls."""
+    cfg = train_config(**{"model.dropout": REST_DROPOUT,
+                          "trainer.use_gradient_checkpointing": True,
+                          "model.remat_policy": "dots"})
+    n = cfg.model.n_blocks
+    first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed))
+    trainer = Trainer(cfg, os.path.join(root, "dropout_remat"), log_every=1,
+                      ckpt_every=0)
+    rec = fit_counted("rest_dropout_remat_fit", trainer, first, REST_STEPS,
+                      train_launches(2 * n, n, REST_STEPS))
+    final = {k: v.detach().cpu().clone()
+             for k, v in trainer.state.params.items()}
+    trainer.close()
+    del trainer
+    rec.update(fixed_draw_batch_loss_falls("rest_dropout_remat_fit", cfg,
+                                           first, final, seed))
+    shutil.rmtree(os.path.join(root, "dropout_remat"), ignore_errors=True)
+    return rec
+
+
+def serve_run_dir(label, run_dir, want_weights) -> dict:
+    """build_engine(checkpoint=) with the flagship serving config: the
+    served weights equal `want_weights` bit for bit; 8 t2i requests with
+    exact launch counts (phase_serve)."""
+    engine = build_engine(checkpoint=run_dir, overrides=SERVE_OVER)
+    for name, value in engine.model.state_dict().items():
+        if not torch.equal(value.cpu(), want_weights[name]):
+            raise AssertionError(f"{label}: served {name} differs")
+    rec = phase_serve(engine, t2i_requests(engine), label)
+    rec["weights_equal"] = True
+    free(engine)
+    del engine
+    free()
+    return rec
+
+
+def phase_lora(seed, root, base_run) -> dict:
+    """(d) LoRA r16 over phase 5's run dir (base_checkpoint), 10 steps: the
+    base stays bit-equal; the run dir is served as base + EMA adapter."""
+    from unidisc_tpu_torch.training.lora import merge_lora
+    from unidisc_tpu_torch.training.trainer import restore_base_params
+    cfg = train_config(**{"model.lora_rank": 16, "trainer.lr": 1e-3})
+    n = cfg.model.n_blocks
+    run = os.path.join(root, "lora")
+    first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed))
+    trainer = Trainer(cfg, run, log_every=1, ckpt_every=0,
+                      base_checkpoint=base_run)
+    base = restore_base_params(base_run)
+    rec = fit_counted("rest_lora", trainer, first, REST_STEPS,
+                      train_launches(n, n, REST_STEPS))
+    for name, value in trainer.model.state_dict().items():
+        if not torch.equal(value.cpu(), base[name]):
+            raise AssertionError(f"LoRA changed the frozen base's {name}")
+    adapter_ema = {k: v.detach().cpu().clone()
+                   for k, v in trainer.state.ema_params.items()}
+    rec["adapter_params"] = sum(v.numel() for v in adapter_ema.values())
+    rec["adapter_file"] = os.path.exists(os.path.join(run,
+                                                      "lora_adapter.npz"))
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    merged = merge_lora(base, adapter_ema, alpha=cfg.model.lora_alpha,
+                        rank=cfg.model.lora_rank)
+    rec["served"] = serve_run_dir("lora_serve", run, merged)
+    shutil.rmtree(run, ignore_errors=True)
+    return rec
+
+
+def offload_state(cfg, seed, chunks, remat=False):
+    """A flagship-width (or cfg's) offload train state from the seed's
+    init, with its step function."""
+    from unidisc_tpu_torch.training.offload import (init_offload_state,
+                                                    make_offload_train_step)
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16, remat=remat)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    state = init_offload_state(cfg, model, "cuda", chunks=chunks)
+    return state, make_offload_train_step(cfg, model)
+
+
+def timed_steps(step, state, batch, steps) -> tuple:
+    """`steps` steps, each generator seeded by its index; (per-step s
+    (host clock, synchronized), peak bytes, last loss)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, gen = [], torch.Generator(device="cuda")
+    for i in range(steps):
+        gen.manual_seed(i)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, torch.cuda.max_memory_allocated(), metrics.loss.item()
+
+
+def phase_offload(seed, root) -> dict:
+    """(e) offload: chunked (8) = unchunked (1) and working = bf16(master)
+    on the card; the flagship 10 steps through Trainer.fit, its run dir
+    served; extra_large at batch 16, resident without and with remat and
+    offloaded with remat, 5 steps each."""
+    cfg = train_config(**{"trainer.host_offload_optimizer": True})
+    n = cfg.model.n_blocks
+    first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    masters = {}
+    for chunks in (8, 1):
+        state, step = offload_state(cfg, cfg.seed, chunks)
+        timed_steps(step, state, batch, 2)
+        masters[chunks] = state.gathered("masters")
+        work = {k: v.detach().clone() for k, v in state.params.items()}
+        del state, step
+        torch.cuda.empty_cache()
+    for k, v in masters[8].items():
+        if not torch.equal(v, masters[1][k]):
+            raise AssertionError(f"offload: chunked {k} != unchunked")
+        if not torch.equal(work[k].cpu(), v.to(torch.bfloat16)):
+            raise AssertionError(f"offload: working {k} != bf16(master)")
+    del masters, work
+    run = os.path.join(root, "offload")
+    trainer = Trainer(cfg, run, log_every=1, ckpt_every=0)
+    rec = {"chunked_equals_unchunked": True,
+           "working_equals_bf16_master": True,
+           "fit": fit_counted("rest_offload", trainer, first, REST_STEPS,
+                              train_launches(n, n, REST_STEPS))}
+    spec = trainer.state.spec
+    rec["fit"]["chunks"], rec["fit"]["chunk_size"] = spec.chunks, \
+        spec.chunk_size
+    rec["fit"]["pcie_bytes_per_step_each_way"] = 16 * spec.chunks \
+        * spec.chunk_size
+    ema = trainer.state.ema_params
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    rec["served"] = serve_run_dir("offload_serve", run, ema)
+    shutil.rmtree(run, ignore_errors=True)
+    del ema
+
+    # extra_large: the model offload exists for
+    xl = {}
+    xcfg = Config.make("extra_large", **{
+        **{k: v for k, v in FLAGSHIP_TRAIN_OVERRIDES.items()
+           if not k.startswith("model.")},
+        "model.dropout": 0.0, "trainer.warmup_steps": 2}).validate()
+    xbatch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        SyntheticDataLoader(xcfg, XL_BATCH, seed=seed)).items()}
+    xn = xcfg.model.n_blocks
+    # one host model (its constructor's init) copied for each run: a
+    # second draw of 1.45B weights on the host would cost ~13 s a run
+    t0 = time.perf_counter()
+    host_model = DIT(xcfg.model, compute_dtype=torch.bfloat16)
+    rec["extra_large_host_init_s"] = time.perf_counter() - t0
+    for label, offload, remat in (("resident", False, False),
+                                  ("resident_remat", False, True),
+                                  ("offload_remat", True, True)):
+        c = xcfg.override(**{"trainer.use_gradient_checkpointing": remat,
+                             "trainer.host_offload_optimizer": offload})
+        t0 = time.perf_counter()
+        model = copy.deepcopy(host_model)
+        model.remat = remat
+        if offload:
+            from unidisc_tpu_torch.training.offload import (
+                init_offload_state, make_offload_train_step)
+            state = init_offload_state(c, model, "cuda")
+            step = make_offload_train_step(c, model)
+        else:
+            model = model.cuda()
+            state = init_train_state(c, model)
+            step = make_train_step(c, model)
+        init_s = time.perf_counter() - t0
+        rec["extra_large_params"] = sum(p.numel()
+                                        for p in state.params.values())
+        _build.reset_launch_counts()
+        times, peak, loss = timed_steps(step, state, xbatch, XL_STEPS)
+        check_launches(f"extra_large {label}", dict(_build.launch_counts),
+                       train_launches(2 * xn if remat else xn, xn,
+                                      XL_STEPS))
+        if not math.isfinite(loss):
+            raise AssertionError(f"extra_large {label}: loss {loss}")
+        xl[label] = {"peak_memory_bytes": peak,
+                     "median_step_s": statistics.median(times[1:]),
+                     "step_s": times, "init_s": init_s, "last_loss": loss,
+                     "train_tok_per_s": XL_BATCH * xcfg.model.length
+                     / statistics.median(times[1:])}
+        print(f"extra_large_{label} " + json.dumps(xl[label]))
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host_model
+    rec["extra_large"] = xl
+    return rec
+
+
+def phase_distill(seed, root, teacher_run) -> dict:
+    """(f) CFG distillation (guidance 2.0) of a 4-block student of the
+    flagship's width from phase 5's run dir (its EMA), 10 steps: the
+    teacher runs the [cond || uncond] forward at batch 64 under no_grad,
+    launches exact, the KL falls."""
+    from unidisc_tpu_torch.training.distill import make_distill_step
+    tcfg = train_config()
+    snap, weights, _ = restore_run(teacher_run)
+    teacher = DIT(snap.model, compute_dtype=torch.bfloat16)
+    teacher.load_state_dict(weights)
+    teacher = teacher.cuda().eval()
+    scfg = train_config(**{"model.n_blocks": DISTILL_BLOCKS,
+                           "model.zero_linear_init": False,
+                           "trainer.lr": 1e-3})
+    student = DIT(scfg.model, compute_dtype=torch.bfloat16)
+    student.reset_parameters(torch.Generator().manual_seed(scfg.seed))
+    student = student.cuda()
+    state = init_train_state(scfg, student)
+    step = make_distill_step(
+        scfg, student, lambda x, s, m: teacher(x, s, modality=m),
+        guidance=DISTILL_GUIDANCE)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        SyntheticDataLoader(scfg, TRAIN_BATCH, seed=seed)).items()}
+    gen = torch.Generator(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    kls, times = [], []
+    for i in range(REST_STEPS):
+        gen.manual_seed(i)
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen)
+        kls.append(m.kl.item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.launch_counts)
+    tn = tcfg.model.n_blocks
+    check_launches("rest_distill", launches, {
+        "flash_fwd": (tn + DISTILL_BLOCKS) * REST_STEPS,
+        "flash_bwd_dq": DISTILL_BLOCKS * REST_STEPS,
+        "flash_bwd_dkv": DISTILL_BLOCKS * REST_STEPS})
+    early, late = statistics.mean(kls[:3]), statistics.mean(kls[-3:])
+    if not all(map(math.isfinite, kls)) or not late < early:
+        raise AssertionError(f"distill: the KL did not fall: {kls}")
+    rec = {"kl": kls, "kl_first3_mean": early, "kl_last3_mean": late,
+           "launches": launches, "guidance": DISTILL_GUIDANCE,
+           "student_blocks": DISTILL_BLOCKS, "teacher_blocks": tn,
+           "median_step_s": statistics.median(times[2:]),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print("rest_distill " + json.dumps(rec))
+    del teacher, student, state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_supervised(root) -> dict:
+    """(g) python -m unidisc_tpu_torch.training.supervisor -- python -m
+    unidisc_tpu_torch.train (the flagship, batch 8): SIGTERM to the child
+    after its 4th logged step; it checkpoints and exits 143, the
+    supervisor relaunches it, it resumes and finishes."""
+    run = os.path.join(root, "supervised")
+    log = os.path.join(root, "supervisor.jsonl")
+    args = ["--run-dir", run, "--batch-size", str(SUP_BATCH), "--log-every",
+            "1", "--ckpt-every", "0", "--flagship", "--overfit",
+            f"trainer.max_steps={SUP_STEPS}", "trainer.warmup_steps=2"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "unidisc_tpu_torch.training.supervisor",
+         "--backoff-s", "1", "--log", log, "--", sys.executable, "-m",
+         "unidisc_tpu_torch.train", *args], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    metrics = os.path.join(run, "metrics.jsonl")
+    try:
+        while time.perf_counter() - t0 < 300:
+            if os.path.exists(metrics) and len(open(metrics).readlines()) \
+                    >= SUP_SIGNAL_AFTER:
+                break
+            if sup.poll() is not None:
+                break
+            time.sleep(0.1)
+        with open(log) as f:
+            pid = json.loads(f.readline())["pid"]
+        os.kill(pid, signal.SIGTERM)
+        out = sup.communicate(timeout=400)[0].decode()
+    finally:
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait()
+    with open(log) as f:
+        events = [json.loads(line) for line in f]
+    steps = CheckpointManager(os.path.join(run, "checkpoints")).all_steps()
+    rec = {"events": [e["event"] for e in events], "exit_code":
+           sup.returncode, "checkpoints": steps, "wall_s":
+           time.perf_counter() - t0,
+           "child_codes": [e.get("code") for e in events
+                           if e["event"] == "restart"]}
+    print("supervised " + json.dumps(rec))
+    if (sup.returncode != 0 or rec["events"] != ["launch", "restart",
+                                                 "launch", "clean_exit"]
+            or rec["child_codes"] != [128 + signal.SIGTERM]
+            or len(steps) != 2 or steps[-1] != SUP_STEPS
+            or not SUP_SIGNAL_AFTER <= steps[0] < SUP_STEPS
+            or "resumed from step" not in out):
+        raise AssertionError(f"supervised run: {rec}\n{out[-3000:]}")
+    shutil.rmtree(run, ignore_errors=True)
+    return rec
+
+
+def train_rest_line(rec) -> dict:
+    """The train_rest and offload lines' numbers."""
+    def line(r):
+        return {"median_step_s": r["median_steady_step_s"],
+                "train_tok_per_s": r["batch"] * 384
+                / r["median_steady_step_s"],
+                "peak_gb": r["peak_memory_bytes"] / 1e9}
+    out = {"dropout_remat_dots": line(rec["dropout_fit"]),
+           **{f"opt_{k}": line(v["run"])
+              for k, v in rec["optimizers"].items()},
+           "lora": line(rec["lora"]),
+           "distill": {"median_step_s": rec["distill"]["median_step_s"],
+                       "peak_gb": rec["distill"]["peak_memory_bytes"] / 1e9},
+           "remat_grad_peak_gb": {k: v / 1e9 for k, v in
+                                  rec["remat"]["peak_bytes"].items()},
+           "remat_grad_s": rec["remat"]["grad_s"]}
+    off = rec["offload"]
+    offload = {"flagship": line(off["fit"]) | {
+        "pcie_gb_per_step_each_way":
+        off["fit"]["pcie_bytes_per_step_each_way"] / 1e9},
+        "extra_large_params": off["extra_large_params"],
+        **{f"extra_large_{k}": {
+            "median_step_s": v["median_step_s"],
+            "train_tok_per_s": v["train_tok_per_s"],
+            "peak_gb": v["peak_memory_bytes"] / 1e9}
+           for k, v in off["extra_large"].items()}}
+    return out, offload
+
+
+def phase_train_rest(seed, root, base_run) -> dict:
+    """Phase 5d (module docstring)."""
+    t0 = time.perf_counter()
+    rec = {"remat": phase_remat(seed)}
+    free()
+    rec["dropout_fit"] = phase_dropout_fit(seed, root)
+    free()
+    rec["optimizers"] = phase_optimizers(seed, root)
+    free()
+    rec["lora"] = phase_lora(seed, root, base_run)
+    free()
+    rec["distill"] = phase_distill(seed, root, base_run)
+    free()
+    rec["offload"] = phase_offload(seed, root)
+    free()
+    rec["supervised"] = phase_supervised(root)
+    rec["seconds"] = time.perf_counter() - t0
+    rest, offload = train_rest_line(rec)
+    card = card_line()
+    print("train_rest " + json.dumps({"card": card,
+                                      "seconds": rec["seconds"], **rest}))
+    print("offload " + json.dumps({"card": card, **offload}))
+    paths = {"rest_dropout_remat_fit": rec["dropout_fit"],
+             "rest_lora": rec["lora"], "lora_serve": rec["lora"]["served"],
+             "rest_offload": rec["offload"]["fit"],
+             "offload_serve": rec["offload"]["served"],
+             "rest_distill": rec["distill"],
+             "rest_adafactor_resumed": rec["optimizers"]["adafactor"][
+                 "resumed"]}
+    for name in OPTIMIZER_RUNS:
+        paths[f"rest_{name}"] = rec["optimizers"][name]["run"]
+    rec["paths"] = {k: {"launches": v["launches"]} for k, v in paths.items()}
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3859,6 +4537,10 @@ def main() -> int:
         record["pixels"]["generate"] = phase_generate(run_dir, final_ema,
                                                       root)
         del final_ema
+        free()
+        # 5d: the rest of training, phase 5's run dir the LoRA base and
+        # the distillation teacher
+        record["train_rest"] = phase_train_rest(args.seed, root, run_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
@@ -3904,6 +4586,9 @@ def main() -> int:
             by_path[name][path] = record["ar"][path]["launches"].get(name, 0)
         for path in AR_TRAIN_PATHS:
             by_path[name][path] = record["ar_train"][path][
+                "launches"].get(name, 0)
+        for path in TRAIN_REST_PATHS:
+            by_path[name][path] = record["train_rest"]["paths"][path][
                 "launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape

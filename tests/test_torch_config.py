@@ -79,6 +79,17 @@ def test_flagship_overrides_match_the_benchmark_config():
     {"model.quant": "int4"},
     {"model.cond_label": True, "model.time_conditioning": True},
     {"mesh.ep": 2},
+    # the training settings
+    {"trainer.add_label": True},
+    {"trainer.first_token_dropout": 0.1},
+    {"trainer.host_offload_optimizer": True, "model.mup": True},
+    {"trainer.host_offload_optimizer": True, "trainer.grad_accum_steps": 2},
+    {"trainer.host_offload_optimizer": True, "model.lora_rank": 4},
+    {"trainer.host_offload_optimizer": True,
+     "trainer.low_precision_params": True},
+    {"trainer.host_offload_optimizer": True,
+     "trainer.host_offload_chunks": 0},
+    {"model.mup": True, "model.mup_base_width": 256},
 ])
 def test_validate_rejects_what_the_jax_config_rejects(over):
     with pytest.raises(ValueError):
@@ -86,3 +97,18 @@ def test_validate_rejects_what_the_jax_config_rejects(over):
     with pytest.raises(ValueError):
         config.Config.make("tiny", **over).validate()
     config.Config.make("tiny").validate()
+
+
+@pytest.mark.parametrize("over", [
+    {"trainer.optimizer": "sgd"},
+    {"model.remat_policy": "everything"},
+    {"model.lora_rank": -1},
+    {"trainer.host_offload_optimizer": True,
+     "trainer.optimizer": "adafactor"},
+])
+def test_validate_rejects_the_port_training_settings(over):
+    """What the JAX package fails on later (an unknown optimizer falls
+    back to adamw there; offload asserts its optimizer at init), the
+    port's validate rejects."""
+    with pytest.raises(ValueError):
+        config.Config.make("tiny", **over).validate()

@@ -196,3 +196,125 @@ def test_unported_branches_raise():
             DIT(tcfg.override(**{f"model.{flag}": True}).model)
     with pytest.raises(NotImplementedError, match="moe"):
         DIT(tcfg.override(**{"model.moe_experts": 4}).model)
+
+
+# ---------------------------------------------------------------------------
+# training-mode dropout and remat
+# ---------------------------------------------------------------------------
+
+P_DROP = 0.25
+
+
+def keep_mask(shape, seed):
+    return np.random.RandomState(seed).rand(*shape) >= P_DROP
+
+
+@pytest.mark.parametrize("gated,with_modality", [(True, True), (True, False),
+                                                 (False, True)])
+def test_gate_residual_dropout_matches_jax(gated, with_modality):
+    """The same keep mask through JAX's own dropout_fn argument and the
+    port's: image rows gate * dropped, text rows the raw branch output."""
+    from unidisc_tpu.models import dit as jdit
+    from unidisc_tpu_torch.models.dit import dropout_with, gate_residual
+    rng = np.random.RandomState(3)
+    x, out = (rng.standard_normal((B, L, 16)).astype(np.float32)
+              for _ in range(2))
+    gate = rng.standard_normal((B, 1, 16)).astype(np.float32) \
+        if gated else None
+    _, _, modality = inputs(configs()[0].model)
+    modality = modality if with_modality else None
+    keep = keep_mask((B, L, 16), 4)
+    want = jdit.gate_residual(
+        jnp.asarray(x), jnp.asarray(out),
+        None if gate is None else jnp.asarray(gate),
+        None if modality is None else jnp.asarray(modality),
+        dropout_fn=lambda y: jnp.where(keep, y / (1.0 - P_DROP), 0.0))
+    t = torch.from_numpy
+    got = gate_residual(t(x), t(out), None if gate is None else t(gate),
+                        None if modality is None else t(modality).long(),
+                        dropout_fn=dropout_with(t(keep), P_DROP))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    if gated and with_modality:
+        text = modality == 0
+        np.testing.assert_array_equal(got.numpy()[text], (x + out)[text])
+
+
+def test_dropout_masks_keep_share_and_scale():
+    from unidisc_tpu_torch.models.dit import dropout_masks, dropout_with
+    keep_a, keep_m = dropout_masks((8, 64, 128), P_DROP, 123, "cpu")
+    for keep in (keep_a, keep_m):
+        assert abs(keep.float().mean().item() - (1 - P_DROP)) < 0.01
+    assert not torch.equal(keep_a, keep_m)
+    again = dropout_masks((8, 64, 128), P_DROP, 123, "cpu")
+    assert torch.equal(again[0], keep_a) and torch.equal(again[1], keep_m)
+    y = dropout_with(keep_a, P_DROP)(torch.ones(8, 64, 128))
+    assert set(torch.unique(y).tolist()) == {
+        0.0, float(np.float32(1.0 / (1 - P_DROP)))}
+
+
+@pytest.mark.parametrize("sandwich", [True, False])
+def test_train_mode_forward_with_masks_matches_jax(jax_params, sandwich,
+                                                   monkeypatch):
+    """The whole model in training mode, the JAX side with one keep mask
+    substituted for every dropout of every block (inside this test only:
+    gate_residual's dropout_fn replaced), the port given the same mask for
+    both branches of every block."""
+    from unidisc_tpu.models import dit as jdit
+    jcfg, tcfg = configs(**{"model.dropout": P_DROP,
+                            "model.sandwich_normalization": sandwich,
+                            "model.attn_backend": "xla"})
+    jmodel, params = init_dit(jax.random.PRNGKey(2), jcfg.model,
+                              compute_dtype=jnp.float32)
+    params = random_params(params, seed=5)
+    ids, sigma, modality = inputs(jcfg.model, seed=3)
+    keep = keep_mask((B, L, jcfg.model.hidden_size), 6)
+    orig = jdit.gate_residual
+
+    def substituted(x_skip, out, gate, modality, *, dropout_fn=None):
+        fn = None if dropout_fn is None else (
+            lambda y: jnp.where(keep, y / (1.0 - P_DROP), 0.0))
+        return orig(x_skip, out, gate, modality, dropout_fn=fn)
+    monkeypatch.setattr(jdit, "gate_residual", substituted)
+    want = jmodel.apply({"params": params}, jnp.asarray(ids),
+                        jnp.asarray(sigma), modality=jnp.asarray(modality),
+                        deterministic=False,
+                        rngs={"dropout": jax.random.PRNGKey(0)})
+    model = port_model(tcfg, params).train()
+    k = torch.from_numpy(keep)
+    got = model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+                modality=torch.from_numpy(modality).long(),
+                dropout=[(k, k)] * tcfg.model.n_blocks)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+    ref = port_model(tcfg, params).eval()(
+        torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+        modality=torch.from_numpy(modality).long())
+    assert not torch.allclose(got, ref, atol=1e-3)     # dropout acted
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+@pytest.mark.parametrize("policy", ["none", "dots", "dots_all"])
+def test_remat_gradients_bit_equal_with_dropout(jax_params, policy, backend):
+    """Gradients with model.dropout 0.25 from one seed: bit-equal with and
+    without activation checkpointing; the recomputed blocks draw the same
+    masks. "auto": attention through the kernel's autograd function (its
+    plain versions on the CPU), "xla": the plain attention (batched
+    products, which "dots_all" saves)."""
+    _, tcfg = configs(**{"model.dropout": P_DROP,
+                         "model.remat_policy": policy,
+                         "model.attn_backend": backend})
+    ids, sigma, modality = inputs(tcfg.model, seed=4)
+    grads = {}
+    for remat in (False, True):
+        model = DIT(tcfg.model, compute_dtype=torch.float32, remat=remat)
+        model.load_state_dict(dit_state_dict_from_jax(jax_params))
+        model.train()
+        logits = model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+                       modality=torch.from_numpy(modality).long(),
+                       dropout=1234)
+        loss = (logits.float() ** 2).mean()
+        grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+    assert any(g.abs().max() > 0 for g in grads[True])

@@ -169,13 +169,9 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
     with pytest.raises(NotImplementedError, match="item 9"):
         InferenceEngine(tcfg, model, device="cpu", mesh=object())
-    for name, value, item in (("lora", "adapter.npz", 5),
-                              ("mesh", "fsdp=2", 9)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_engine(preset="tiny", device="cpu", **{name: value})
-    from unidisc_tpu_torch.serving.engine import build_elm_engine
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_elm_engine(preset="tiny", lora="adapter.npz", device="cpu")
+    # lora= is ported (tests/test_torch_lora.py)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_engine(preset="tiny", device="cpu", mesh="fsdp=2")
     with pytest.raises(TypeError, match="unexpected"):
         build_engine(preset="tiny", device="cpu", shards=2)
     with pytest.raises(TypeError, match="unexpected"):
@@ -299,20 +295,29 @@ def test_build_engine_serves_a_trainer_run_dir_with_pixels(tmp_path):
 
 
 def test_restore_refuses_lora_and_host_offload_run_dirs(tmp_path):
+    """LoRA and host-offload run dirs are served since the training slice
+    (tests/test_torch_lora.py, tests/test_torch_offload.py); what restore
+    still refuses: a LoRA run whose recorded base is itself a LoRA run, a
+    run dir without checkpoints, and both a run dir and a reference
+    checkpoint."""
     import json
     from unidisc_tpu_torch.serving.engine import restore_run
     _, tcfg = configs(**OVER)
-    for sub, over in (("lora", {"model.lora_rank": 4}),
-                      ("offload", {"trainer.host_offload_optimizer": True})):
+    for sub, over, meta in (
+            ("base", {"model.lora_rank": 4}, {}),
+            ("lora", {"model.lora_rank": 4},
+             {"lora_base_checkpoint": str(tmp_path / "base")})):
         step_dir = tmp_path / sub / "checkpoints" / "1"
         step_dir.mkdir(parents=True)
         (step_dir / "meta.json").write_text(json.dumps(
             {"config": json.loads(tcfg.override(**over).to_json()),
-             "step": 1}))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            restore_run(str(tmp_path / sub))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            build_engine(checkpoint=str(tmp_path / sub), device="cpu")
+             "step": 1, **meta}))
+        torch.save({"ema_params": {}, "params": {}},
+                   str(step_dir / "state.pt"))
+    with pytest.raises(ValueError, match="itself a LoRA run"):
+        restore_run(str(tmp_path / "lora"))
+    with pytest.raises(ValueError, match="itself a LoRA run"):
+        build_engine(checkpoint=str(tmp_path / "lora"), device="cpu")
     with pytest.raises(FileNotFoundError):
         restore_run(str(tmp_path / "empty"))
     with pytest.raises(ValueError, match="pass one"):

@@ -216,6 +216,32 @@ def test_data_slice_is_checked():
         assert "unidisc_tpu" not in set(imported_roots(path)), path
 
 
+# the modules of the rest of training: the optimizers, Muon, muP, the
+# flax-leaf layout, LoRA, host offload, distillation, the supervisor
+TRAIN_REST_SLICE = [
+    "unidisc_tpu_torch/training/optimizers.py",
+    "unidisc_tpu_torch/training/layout.py",
+    "unidisc_tpu_torch/training/muon.py",
+    "unidisc_tpu_torch/training/mup.py",
+    "unidisc_tpu_torch/training/lora.py",
+    "unidisc_tpu_torch/training/offload.py",
+    "unidisc_tpu_torch/training/distill.py",
+    "unidisc_tpu_torch/training/supervisor.py",
+    "unidisc_tpu_torch/training/trainer.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/serving/engine.py",
+]
+
+
+def test_train_rest_slice_is_checked():
+    assert set(TRAIN_REST_SLICE) <= set(FILES)
+    # the supervisor stays on the standard library
+    roots = set(imported_roots("unidisc_tpu_torch/training/supervisor.py"))
+    assert roots <= {"__future__", "argparse", "dataclasses", "json",
+                     "signal", "subprocess", "sys", "time", "typing"}, roots
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

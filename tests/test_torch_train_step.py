@@ -295,24 +295,27 @@ def test_compute_batch_loss_matches_jax(jax_params, variant, train):
 
 
 def test_unported_branches_raise(jax_params):
+    """The optimizers, remat, dropout and add_label are ported (the
+    OTHER_STEPS cases below, tests/test_torch_optimizers.py,
+    tests/test_torch_dit.py); img_cond, MoE and interleaved batches wait
+    for ROADMAP item 6."""
     _, tcfg = configs()
     model = DIT(tcfg.model, compute_dtype=torch.float32)
     batch = {k: torch.from_numpy(v)
              for k, v in make_batch(tcfg.model).items()}
-    # sedd and d3pm are ported (LOSS_VARIANTS); lion is not
-    cfg = tcfg.override(**{"trainer.optimizer": "lion"})
-    with pytest.raises(NotImplementedError):
-        step = tts.make_train_step(cfg, model)
-        step(tts.init_train_state(cfg, model), batch)
-    # interleaved batches (sample_ids) wait for ROADMAP item 6
+    apply_fn = tts.make_apply_fn(tcfg, model)
+    gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="item 6"):
         tts.compute_batch_loss(
-            tcfg, tts.make_apply_fn(tcfg, model), None,
+            tcfg, apply_fn, None,
             {**batch, "sample_ids": torch.zeros_like(batch["input_ids"])},
-            generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        tts.make_apply_fn(tcfg.override(
-            **{"trainer.use_gradient_checkpointing": True}), model)
+            generator=gen)
+    for over in ({"model.moe_experts": 4}, {"model.img_cond": True}):
+        with pytest.raises(NotImplementedError, match="MoE"):
+            tts.compute_batch_loss(tcfg.override(**over), apply_fn, None,
+                                   batch, generator=gen)
+    with pytest.raises(ValueError, match="unknown trainer.optimizer"):
+        tts.make_optimizer(tcfg.override(**{"trainer.optimizer": "sgd"}))
 
 
 # ---------------------------------------------------------------------------
@@ -442,3 +445,84 @@ def test_eval_step_matches_jax(jax_params):
         np.testing.assert_allclose(float(getattr(got, name)),
                                    float(getattr(want, name)), rtol=RTOL,
                                    atol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the other optimizers, muP, label tokens, dropout and remat: one whole
+# step each against JAX's make_train_step
+# ---------------------------------------------------------------------------
+
+P_DROP = 0.25
+OTHER_STEPS = {
+    "lion": {"trainer.optimizer": "lion"},
+    "ademamix": {"trainer.optimizer": "ademamix"},
+    "adafactor": {"trainer.optimizer": "adafactor"},
+    "muon": {"trainer.optimizer": "muon"},
+    "adamw_mup": {"model.mup": True, "model.mup_base_width": 64},
+    "add_label": {"trainer.add_label": True, "model.add_labels": 4,
+                  "trainer.first_token_dropout": 0.5,
+                  "trainer.mask_entire_modality": None},
+    "dropout": {"model.dropout": P_DROP},
+    "remat_dropout": {"model.dropout": P_DROP,
+                      "trainer.use_gradient_checkpointing": True,
+                      "model.remat_policy": "dots"},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(OTHER_STEPS))
+def test_other_train_steps_match_jax(jax_params, variant, monkeypatch):
+    """Fresh optimizer states on both sides (JAX's init; the port's from
+    the same parameters). The dropout cases substitute one keep mask for
+    every dropout of the JAX model (gate_residual's dropout_fn, inside
+    this test only) and give the port the same mask for every block."""
+    from unidisc_tpu.models import dit as jdit
+    jcfg, tcfg = configs(**{"model.attn_backend": "xla",
+                            **OTHER_STEPS[variant]})
+    params = jax_params
+    if variant == "add_label":
+        _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
+                             compute_dtype=jnp.float32)
+        params = random_params(params, seed=3)
+    batch = make_batch(jcfg.model, seed=5)
+    if variant == "add_label":
+        batch["label"] = np.asarray([0, 3, 1, 2], np.int32)
+    rng = jax.random.PRNGKey(11)
+    draws = step_draws(rng, 0, 1, jcfg.model)
+    if jcfg.model.dropout > 0:
+        keep = np.random.RandomState(8).rand(
+            B, L, jcfg.model.hidden_size) >= P_DROP
+        orig = jdit.gate_residual
+
+        def substituted(x_skip, out, gate, modality, *, dropout_fn=None):
+            fn = None if dropout_fn is None else (
+                lambda y: jnp.where(keep, y / (1.0 - P_DROP), 0.0))
+            return orig(x_skip, out, gate, modality, dropout_fn=fn)
+        monkeypatch.setattr(jdit, "gate_residual", substituted)
+        k = torch.from_numpy(keep)
+        draws["dropout"] = [(k, k)] * jcfg.model.n_blocks
+    jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32,
+                    remat=jcfg.trainer.use_gradient_checkpointing)
+    jstate = jts.init_train_state(jcfg, params)
+    jnew, jm = jax.jit(jts.make_train_step(jcfg, jmodel))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+
+    tcfg = dataclasses.replace(
+        tcfg, model=dataclasses.replace(tcfg.model, attn_backend="auto"))
+    model = DIT(tcfg.model, compute_dtype=torch.float32,
+                remat=tcfg.trainer.use_gradient_checkpointing)
+    model.load_state_dict(dit_state_dict_from_jax(params))
+    state = tts.init_train_state(tcfg, model)
+    state, m = tts.make_train_step(tcfg, model)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()},
+        draws=draws)
+    assert_tree_close(state.params, dit_state_dict_from_jax(
+        jax.device_get(jnew.params)), "params")
+    assert_tree_close(state.ema_params, dit_state_dict_from_jax(
+        jax.device_get(jnew.ema_params)), "ema")
+    for name in ("loss", "grad_norm", "nll_sum", "token_count"):
+        np.testing.assert_allclose(float(getattr(m, name)),
+                                   float(getattr(jm, name)), rtol=RTOL,
+                                   atol=1e-6, err_msg=name)
+    before = dit_state_dict_from_jax(params)
+    assert max(float((state.params[k].detach() - before[k]).abs().max())
+               for k in before) > 1e-5

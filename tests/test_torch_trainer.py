@@ -126,14 +126,15 @@ def test_validate_aggregates_eval_metrics(tmp_path):
 
 
 def test_unported_trainer_options_raise(tmp_path):
+    # LoRA and host offload are ported (tests/test_torch_lora.py,
+    # tests/test_torch_offload.py); wandb and meshes still raise
     cfg = config()
     with pytest.raises(NotImplementedError):
         Trainer(cfg, str(tmp_path), device="cpu", use_wandb=True)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg.override(**{"model.lora_rank": 4}), str(tmp_path),
-                device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(cfg, str(tmp_path), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="LoRA"):
+        Trainer(cfg, str(tmp_path), device="cpu", base_params={})
 
 
 def test_train_cli_runs_on_cpu(tmp_path, capsys):

@@ -86,7 +86,7 @@ class ModelConfig:
     # logits dtype: fp32 for training; bf16 halves the logits traffic for
     # inference
     logits_dtype: str = "float32"
-    # LoRA fine-tuning (training; not in the port yet)
+    # LoRA fine-tuning (training/lora.py)
     lora_rank: int = 0
     lora_alpha: float = 32.0
     lora_targets: Tuple[str, ...] = ("attn_qkv", "qkv_proj")
@@ -96,7 +96,8 @@ class ModelConfig:
     quant_backend: str = "xla"
     quant_fused: bool = False
     kv_cache_dtype: str = "bf16"
-    # activation checkpointing policy (training; not in the port yet)
+    # activation checkpointing policy: "none" | "dots" | "dots_all"
+    # (models/dit.py)
     remat_policy: str = "none"
     mup: bool = False
     mup_base_width: int = 256
@@ -138,10 +139,10 @@ class NoiseConfig:
 @dataclass(frozen=True)
 class TrainerConfig:
     """Training hyperparameters. The port's train step
-    (``training/train_state.py``) takes AdamW, the four LR schedules and
-    the ``subs``, ``ar``, ``sedd`` and ``d3pm`` parameterizations; the
-    other optimizers, add_label, remat and interleaved batches raise
-    there."""
+    (``training/train_state.py``) takes every optimizer, the four LR
+    schedules, the ``subs``, ``ar``, ``sedd`` and ``d3pm``
+    parameterizations, add_label, remat and host offload; interleaved
+    batches raise there."""
 
     optimizer: str = "adamw"  # adamw | adafactor | lion | ademamix | muon
     grad_accum_steps: int = 1
@@ -339,7 +340,17 @@ class Config:
             if t.mask_entire_modality is not None:
                 errs.append("first_token_dropout excludes "
                             "mask_entire_modality")
+        if t.optimizer not in ("adamw", "adafactor", "lion", "ademamix",
+                               "muon"):
+            errs.append(f"unknown trainer.optimizer {t.optimizer!r}")
+        if m.remat_policy not in ("none", "dots", "dots_all"):
+            errs.append(f"unknown model.remat_policy {m.remat_policy!r}")
+        if m.lora_rank < 0:
+            errs.append("model.lora_rank must be >= 0")
         if t.host_offload_optimizer:
+            if t.optimizer not in ("adamw", "lion"):
+                errs.append("host_offload_optimizer takes adamw or lion "
+                            "(its flat chunks hold no per-leaf shapes)")
             if m.mup:
                 errs.append("host_offload_optimizer excludes model.mup")
             if t.grad_accum_steps != 1:

@@ -42,15 +42,38 @@ over a cache or a frozen prefix takes the hand-written kernel on the card,
 like every unmasked self-attention; the fused int8 block path is left when
 a KV cache is given and kept under ``frozen_kv``, as in the JAX block.
 
+Training mode applies ``model.dropout`` to the branch outputs of every
+block before the residual add, as flax ``nn.Dropout`` in the JAX block's
+``gate_residual``: kept elements are scaled by 1 / (1 - p), and with
+modality given the text rows take the raw, undropped branch output. The
+masks of a forward are drawn from a seed, a host integer fixed before the
+block stack (``dropout=`` of ``forward``; the train step passes its
+generator's seed), each block from its own ``torch.Generator`` seeded with
+(seed, block index), so a block recomputed under activation checkpointing
+draws the same masks; ``dropout=`` may instead carry the masks themselves
+(one (keep_attention, keep_mlp) pair per block), which is how the tests
+give both packages the same masks.
+
+With ``remat`` (``DIT(remat=True)``; the Trainer sets it from
+``trainer.use_gradient_checkpointing``) every block runs
+under ``torch.utils.checkpoint`` in training: ``model.remat_policy`` "none"
+recomputes the whole block in the backward, "dots" saves the outputs of
+its unbatched products (the linear layers: ``aten.mm`` / ``addmm``) and
+"dots_all" also the batched ones (``bmm``), through selective activation
+checkpointing, as JAX's ``dots_with_no_batch_dims_saveable`` and
+``dots_saveable``. The attention kernel is not an aten op, so every policy
+recomputes it, as no JAX policy saves the Pallas call: under remat the
+forward kernel runs twice a block a step.
+
 The port covers the inference forward (bf16 and int8, with the KV-cache and
-frozen-KV paths) and training mode without dropout (the flagship trains
-with dropout 0.0); training-mode dropout, the image-conditioning, MoE,
+frozen-KV paths) and training; the image-conditioning, MoE,
 split-embedding, class-label, multi-resolution and parallel branches raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -220,15 +243,64 @@ def modulate(x, shift, scale, modality=None):
     return torch.where((modality == 1)[..., None], out, x)
 
 
-def gate_residual(x_skip, out, gate, modality):
-    """Residual add with the adaLN gate on image rows; text rows take the
-    raw branch output when `modality` is given."""
+def gate_residual(x_skip, out, gate, modality, *, dropout_fn=None):
+    """Residual add with the adaLN gate on image rows: image rows take
+    gate * dropout(out); text rows take the raw branch output when
+    `modality` is given."""
+    dropped = dropout_fn(out) if dropout_fn is not None else out
     if gate is None:
-        return x_skip + out
-    gated = gate * out
+        return x_skip + dropped
+    gated = gate * dropped
     if modality is not None:
         gated = torch.where((modality == 1)[..., None], gated, out)
     return x_skip + gated
+
+
+def dropout_with(keep: torch.Tensor, p: float):
+    """flax ``nn.Dropout(p)`` with a given keep mask: x / (1 - p) where
+    kept, 0 elsewhere."""
+    def fn(x):
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return fn
+
+
+def block_dropout_seed(seed: int, block: int) -> int:
+    """The seed of one block's dropout generator."""
+    return (seed * 1_000_003 + 7_919 * (block + 1)) % (2 ** 63)
+
+
+def dropout_masks(shape, p: float, seed: int, device):
+    """(keep_attention, keep_mlp) of one block: bool masks, each element
+    kept with probability 1 - p, from a generator seeded with `seed`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.rand(shape, generator=gen, device=device) < 1.0 - p
+                 for _ in range(2))
+
+
+_SAVED_PRODUCTS = {
+    "dots": ("mm", "addmm"),
+    "dots_all": ("mm", "addmm", "bmm", "baddbmm"),
+}
+
+
+def remat_context(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat
+    policy: None for "none" (recompute everything), else selective
+    checkpointing that saves the products of the policy and recomputes
+    every other op."""
+    if policy == "none":
+        return None
+    if policy not in _SAVED_PRODUCTS:
+        raise ValueError(f"unknown model.remat_policy {policy!r}")
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, n).default
+             for n in _SAVED_PRODUCTS[policy]}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 class DDiTBlock(nn.Module):
@@ -313,11 +385,18 @@ class DDiTBlock(nn.Module):
 
     def forward(self, x, c, rope_cos, rope_sin, modality=None,
                 attn_mask=None, kv_cache=None, cache_index=None,
-                frozen_kv=None):
+                frozen_kv=None, dropout=None):
         """One block; a kv_cache (this block's slices) is written in
-        place."""
+        place. dropout: None, this block's seed (an int) or its
+        (keep_attention, keep_mlp) masks."""
         cfg = self.cfg
         dt = self.compute_dtype
+        drop_attn = drop_mlp = None
+        if dropout is not None:
+            keep = dropout_masks(x.shape, cfg.dropout, dropout, x.device) \
+                if isinstance(dropout, int) else dropout
+            drop_attn, drop_mlp = (dropout_with(k, cfg.dropout)
+                                   for k in keep)
         if cfg.time_conditioning:
             cond = dense(c, self.adaLN_modulation, dt)
             cond = cond[:, None, :] if cond.ndim == 2 else cond
@@ -364,7 +443,8 @@ class DDiTBlock(nn.Module):
         if cfg.sandwich_normalization:
             x = x_skip + self.pre_residual_norm(attn_out)
         else:
-            x = gate_residual(x_skip, attn_out, gate_msa, modality)
+            x = gate_residual(x_skip, attn_out, gate_msa, modality,
+                              dropout_fn=drop_attn)
 
         if fused:
             hidden = self.mlp[0](x, dt, prologue(self.norm2, shift_mlp,
@@ -378,7 +458,8 @@ class DDiTBlock(nn.Module):
         hidden = dense(hidden, self.mlp[2], dt)
         if cfg.sandwich_normalization:
             hidden = self.post_ff_norm(hidden)
-        return gate_residual(x, hidden, gate_mlp, modality)
+        return gate_residual(x, hidden, gate_mlp, modality,
+                             dropout_fn=drop_mlp)
 
 
 class DDitFinalLayer(nn.Module):
@@ -431,7 +512,8 @@ class DIT(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
         for flag, what in _UNSUPPORTED_FLAGS.items():
             if getattr(cfg, flag):
@@ -446,6 +528,7 @@ class DIT(nn.Module):
                                       "yet (ROADMAP queue 1, item 6)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.remat = remat
         dim = cfg.hidden_size
         self.vocab_embed = Embedding(cfg.vocab_size, dim)
         if cfg.time_conditioning:
@@ -533,10 +616,6 @@ class DIT(nn.Module):
                 raise NotImplementedError(
                     f"DIT.forward({name}=...) is not in the port yet "
                     f"(ROADMAP queue 1, item 6)")
-        if self.training and self.cfg.dropout > 0:
-            raise NotImplementedError("training-mode dropout is not in the "
-                                      "port yet; set model.dropout=0.0 or "
-                                      "call .eval()")
         if self.cfg.time_conditioning and sigma is None:
             raise ValueError("time_conditioning needs sigma")
         if self.cfg.modality_embed and modality is None:
@@ -544,16 +623,33 @@ class DIT(nn.Module):
 
     def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
                kv_cache=None, cache_index=None, frozen_kv=None,
-               rope_index=None, **unsupported):
+               rope_index=None, dropout=None, **unsupported):
         """Final hidden state (B, L, hidden) after the block stack, without
         the vocab head; with a kv_cache, (hidden, new_cache)."""
         x, _, new_cache = self._trunk(indices, sigma, modality, attn_mask,
                                       kv_cache, cache_index, frozen_kv,
-                                      rope_index, unsupported)
+                                      rope_index, unsupported, dropout)
         return x if kv_cache is None else (x, new_cache)
 
+    def _dropout_per_block(self, dropout):
+        """Each block's dropout argument (None without dropout): its seed,
+        or the given masks. In training with model.dropout > 0 and no
+        `dropout`, the seed is drawn from torch's default CPU generator."""
+        if not (self.training and self.cfg.dropout > 0):
+            return [None] * len(self.blocks)
+        if dropout is None:
+            dropout = int(torch.randint(0, 2 ** 62, (1,)).item())
+        if isinstance(dropout, int):
+            return [block_dropout_seed(dropout, i)
+                    for i in range(len(self.blocks))]
+        if len(dropout) != len(self.blocks):
+            raise ValueError(f"dropout masks for {len(dropout)} blocks, the "
+                             f"model has {len(self.blocks)}")
+        return list(dropout)
+
     def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
-               cache_index, frozen_kv, rope_index, unsupported):
+               cache_index, frozen_kv, rope_index, unsupported,
+               dropout=None):
         self._check(sigma, modality, unsupported)
         cfg = self.cfg
         dt = self.compute_dtype
@@ -581,6 +677,17 @@ class DIT(nn.Module):
         else:
             cos, sin = cache_rope(self.rope_cos, self.rope_sin, cache_index,
                                   l)
+        drops = self._dropout_per_block(dropout)
+        remat = (self.remat and self.training and torch.is_grad_enabled()
+                 and kv_cache is None and frozen_kv is None)
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            context = remat_context(cfg.remat_policy)
+            kw = {} if context is None else {"context_fn": context}
+            for blk, drop in zip(self.blocks, drops):
+                x = checkpoint(blk, x, c, cos, sin, modality, attn_mask,
+                               dropout=drop, use_reentrant=False, **kw)
+            return x, c, None
         for i, blk in enumerate(self.blocks):
             # block i writes its slices of the (n_blocks, ...) cache in place
             x = blk(x, c, cos, sin, modality, attn_mask,
@@ -588,7 +695,8 @@ class DIT(nn.Module):
                     else tuple(t[i] for t in kv_cache),
                     cache_index=cache_index,
                     frozen_kv=None if frozen_kv is None
-                    else (frozen_kv[0][i], frozen_kv[1][i]))
+                    else (frozen_kv[0][i], frozen_kv[1][i]),
+                    dropout=drops[i])
         return x, c, (None if kv_cache is None else tuple(kv_cache))
 
     def rope_rows(self, rope_index, modality):
@@ -608,15 +716,17 @@ class DIT(nn.Module):
     def forward(self, indices, sigma=None, *, modality=None,
                 attn_mask=None, return_hidden: bool = False,
                 kv_cache=None, cache_index=None, frozen_kv=None,
-                rope_index=None, **unsupported):
+                rope_index=None, dropout=None, **unsupported):
         """logits; (logits, hidden) with return_hidden; with a kv_cache
         also the new cache last: (logits, new_cache) or (logits, hidden,
         new_cache). rope_index (B, L): each token's position within its
         text or image block (``rope_rows``), in place of the rows of the
-        fixed layout."""
+        fixed layout. dropout (training with model.dropout > 0): the seed
+        of the masks (an int), or the masks, one (keep_attention,
+        keep_mlp) pair of (B, L, hidden) bool tensors per block."""
         x, c, new_cache = self._trunk(indices, sigma, modality, attn_mask,
                                       kv_cache, cache_index, frozen_kv,
-                                      rope_index, unsupported)
+                                      rope_index, unsupported, dropout)
         logits = self.output_layer(x, c, modality)
         out = (logits, x) if return_hidden else (logits,)
         if kv_cache is not None:

@@ -87,6 +87,58 @@ def _torch_name(path: tuple, quantized: bool = False) -> str:
     return ".".join(mods + [leaf])
 
 
+_ATTENTION_MODULES = ("attn_qkv", "attn_out", "q_norm", "k_norm")
+_BLOCK_NAME = re.compile(r"^blocks\.(\d+)\.(.+)$")
+
+
+def flax_path(name: str, ndim: int) -> tuple:
+    """The JAX DIT's parameter path of a port parameter (the inverse of
+    ``_torch_name``; a block parameter's path starts with "blocks" and has
+    no block index, its leaf being scan-stacked in JAX): a 2-D ``weight``
+    is a ``kernel``, a QK-norm ``weight`` its ``scale``."""
+    m = _BLOCK_NAME.match(name)
+    rest = m.group(2) if m else name
+    parts = rest.split(".")
+    if len(parts) == 2 and parts[1] == "embedding":
+        return ("blocks",) * bool(m) + (parts[0],)
+    mods, leaf = parts[:-1], parts[-1]
+    out = []
+    for i, p in enumerate(mods):
+        if p.isdigit() and out and out[-1] == "mlp":
+            out[-1] = f"mlp_{p}"
+            continue
+        if m and i == 0 and p in _ATTENTION_MODULES:
+            out.append("attention")
+        out.append(p)
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 2 else (
+            "scale" if mods and mods[-1] in ("q_norm", "k_norm") else leaf)
+    return ("blocks",) * bool(m) + tuple(out) + (leaf,)
+
+
+def block_index(name: str):
+    """The block index of a port parameter name, or None outside the
+    block stack."""
+    m = _BLOCK_NAME.match(name)
+    return int(m.group(1)) if m else None
+
+
+def torch_names_of_flax_path(path: tuple, n_blocks: int = 0) -> list:
+    """Port parameter names of a JAX parameter path: one per block for a
+    scan-stacked DIT block leaf (``n_blocks`` of them), else one; an
+    OpenELM path (``layer_{i}/...``) maps as ``elm_state_dict_from_jax``
+    names it."""
+    if path[0] == "blocks":
+        name = _torch_name(path[1:])
+        return [f"blocks.{i}.{name}" for i in range(n_blocks)]
+    if path[0] in _TOP_LEVEL:
+        return [_torch_name(path)]
+    mods = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path[:-1]]
+    leaf = {"kernel": "weight", "kernel_q": "weight_q"}.get(path[-1],
+                                                            path[-1])
+    return [".".join(mods + [leaf])]
+
+
 def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax DIT params (nested mapping of arrays) -> the port's state_dict
     (tensors on the CPU: fp32, and int8 for quantized weights)."""

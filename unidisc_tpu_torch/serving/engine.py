@@ -37,9 +37,12 @@ caching, one captured decode chunk on the card), with a draft DIT
 baseline (``models/elm.py``) the same way through ``ElmEngine``, in bf16
 or int8 W8A8 (``quantize="int8"``), with the int8 KV cache
 (``kv_cache="int8"``) and ``speculative="<draft preset>"`` or
-``"lookup[:N]"``. Meshes, LoRA and the interleaved documents are later
-slices (ROADMAP queue 1): they raise ``NotImplementedError`` naming their
-items.
+``"lookup[:N]"``. ``lora=`` merges a saved adapter
+(``training/lora.py``, either package's ``lora_adapter.npz``) into the
+weights before any quantization; a LoRA run dir is served as its base plus
+its EMA adapter, a host-offload run dir as the EMA gathered from its
+chunks. Meshes and the interleaved documents are later slices (ROADMAP
+queue 1): they raise ``NotImplementedError`` naming their items.
 """
 
 from __future__ import annotations
@@ -469,7 +472,19 @@ class InferenceEngine(_TextCompletion):
 
 # build_engine's options that later slices port, with their ROADMAP queue 1
 # items
-_LATER_BUILD_OPTIONS = {"lora": 5, "mesh": 9}
+_LATER_BUILD_OPTIONS = {"mesh": 9}
+
+
+def apply_lora(model, path: str) -> None:
+    """Merge the adapter saved at `path` into `model`'s weights in place
+    (``training/lora.py``: base + (alpha / rank) B A)."""
+    from unidisc_tpu_torch.training.lora import load_lora, merge_lora
+    adapter, alpha, rank = load_lora(path)
+    sd = model.state_dict()
+    dev = next(model.parameters()).device
+    merged = merge_lora(sd, {k: v.to(dev) for k, v in adapter.items()},
+                        alpha=alpha, rank=rank)
+    model.load_state_dict(merged)
 
 
 class ElmEngine(_TextCompletion):
@@ -520,12 +535,13 @@ class ElmEngine(_TextCompletion):
 
 
 def elm_model(cfg, seed: int, quantize: Optional[str] = None,
-              device="cpu"):
+              device="cpu", lora: Optional[str] = None):
     """An OpenELM of `cfg` with random weights drawn from `seed` (the JAX
     init's distributions) on `device` (so a card draws its own numbers,
     in a fraction of the CPU's time), computing in bf16: its projections
     stored in bf16, or with quantize="int8" converted from the fp32
-    weights by ``quantize_elm_params``."""
+    weights by ``quantize_elm_params``; a LoRA adapter file merged into
+    the fp32 weights first."""
     from unidisc_tpu_torch.models.elm import OpenELM
     from unidisc_tpu_torch.ops.quant import quantize_elm_params
     dev = resolve_device(device)
@@ -533,6 +549,8 @@ def elm_model(cfg, seed: int, quantize: Optional[str] = None,
         raise ValueError(f"unknown quantize {quantize!r}")
     src = OpenELM(cfg, compute_dtype=torch.float32, init_seed=None).to(dev)
     src.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    if lora:
+        apply_lora(src, lora)
     state = src.state_dict()
     if quantize == "int8":
         cfg = dataclasses.replace(cfg, quant="int8")
@@ -554,14 +572,12 @@ def build_elm_engine(*, preset: str = "270m",
     kv_cache="int8" the int8 KV cache; speculative="<preset>" decodes with
     a draft of that preset (seed 1, forced onto the target's vocabulary
     and length), "lookup[:N]" with prompt lookup (N-grams, default 2).
-    LoRA raises (ROADMAP queue 1, item 5)."""
+    lora: an adapter file (``lora_adapter.npz``, OpenELM's qkv_proj
+    targets) merged into the weights before any quantization."""
     from unidisc_tpu_torch.models.elm import ELM_PRESETS
-    if lora:
-        raise NotImplementedError("build_elm_engine(lora=...) is not in the "
-                                  "port yet (ROADMAP queue 1, item 5)")
     dev = resolve_device(device)
     cfg = ELM_PRESETS[preset]
-    model = elm_model(cfg, 0, quantize, dev)
+    model = elm_model(cfg, 0, quantize, dev, lora=lora)
     draft, lookup_ngram = None, None
     if speculative == "lookup" or (speculative or "").startswith("lookup:"):
         _, _, n = speculative.partition(":")
@@ -585,22 +601,38 @@ def restore_run(run_dir: str, *, ema: bool = True):
     step = mgr.latest_step()
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {run_dir}")
-    snap = Config.from_json(json.dumps(mgr.read_meta(step)["config"]))
-    if snap.model.lora_rank > 0:
-        raise NotImplementedError("serving a LoRA run dir (adapter "
-                                  "checkpoints) is not in the port yet "
-                                  "(ROADMAP queue 1, item 5)")
-    if snap.trainer.host_offload_optimizer:
-        raise NotImplementedError("serving a host-offload run dir (chunked "
-                                  "flat state) is not in the port yet "
-                                  "(ROADMAP queue 1, item 5)")
+    meta = mgr.read_meta(step)
+    snap = Config.from_json(json.dumps(meta["config"]))
     state = mgr.read_state(step)
+    if snap.trainer.host_offload_optimizer:
+        # the chunked host state: the EMA (or the fp32 master) gathered
+        from unidisc_tpu_torch.training.offload import gather_state_dict
+        return snap, gather_state_dict(state, "emas" if ema
+                                       else "masters"), step
+    if snap.model.lora_rank > 0:
+        # the adapter's checkpoint: the frozen base rebuilt as the Trainer
+        # had it (the recorded base run's EMA, else the seed's init), plus
+        # the adapter
+        from unidisc_tpu_torch.models.dit import DIT
+        from unidisc_tpu_torch.training.lora import merge_lora
+        from unidisc_tpu_torch.training.trainer import restore_base_params
+        model = DIT(snap.model, compute_dtype=torch.float32)
+        model.reset_parameters(torch.Generator().manual_seed(snap.seed))
+        base = model.state_dict()
+        if meta.get("lora_base_checkpoint"):
+            base.update(restore_base_params(meta["lora_base_checkpoint"],
+                                            expect_like=base))
+        weights = merge_lora(base, state["ema_params" if ema else "params"],
+                             alpha=snap.model.lora_alpha,
+                             rank=snap.model.lora_rank)
+        return snap, weights, step
     return snap, state["ema_params" if ema else "params"], step
 
 
 def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                  reference_ckpt: Optional[str] = None,
                  codec_name: Optional[str] = None, device="cuda",
+                 lora: Optional[str] = None,
                  experiments=None, overrides: Optional[dict] = None,
                  steps: Optional[int] = None,
                  quantize: Optional[str] = None,
@@ -639,10 +671,12 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
       ``"lookup[:N]"`` with prompt lookup; ``spec_gamma`` proposals a
       round;
     * ``preset="elm[:size]"``: the OpenELM baseline, ``build_elm_engine``
-      (size 270m by default).
+      (size 270m by default);
+    * ``lora``: an adapter file merged into the weights before any
+      quantization. A LoRA run dir (``checkpoint=``) serves its base plus
+      its EMA adapter, a host-offload run dir its gathered EMA.
 
-    LoRA and meshes raise NotImplementedError naming their ROADMAP
-    items."""
+    Meshes raise NotImplementedError naming their ROADMAP item."""
     for name, value in later.items():
         if name not in _LATER_BUILD_OPTIONS:
             raise TypeError(f"build_engine got an unexpected argument "
@@ -658,7 +692,7 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         return build_elm_engine(
             preset=preset.partition(":")[2] or "270m", quantize=quantize,
             kv_cache=kv_cache, speculative=speculative, gamma=spec_gamma,
-            device=device)
+            lora=lora, device=device)
     if checkpoint is not None and reference_ckpt is not None:
         raise ValueError("reference_ckpt loads reference weights and "
                          "checkpoint loads a run dir: pass one")
@@ -695,6 +729,8 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         model.reset_parameters(torch.Generator().manual_seed(config.seed))
     else:
         model.load_state_dict(weights)
+    if lora:
+        apply_lora(model, lora)
     if quantize:
         from unidisc_tpu_torch.ops.quant import quantize_model
         config, model = quantize_model(config, model)

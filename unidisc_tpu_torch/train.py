@@ -8,6 +8,17 @@ key=value arguments are dotted overrides of the Config; ``model=<preset>``
 picks a size preset. ``--flagship`` starts from FLAGSHIP_TRAIN_OVERRIDES
 (the flagship model and the production loss settings) before the
 overrides. The model trains on the card unless ``--device cpu`` is given.
+``--base-checkpoint DIR`` names the frozen base of a LoRA run
+(``model.lora_rank=16``): a port run dir, whose EMA weights are loaded.
+
+Every training mode of the Trainer is reached through the overrides:
+``trainer.optimizer=adafactor|lion|ademamix|muon``, ``model.mup=True``,
+``trainer.use_gradient_checkpointing=True model.remat_policy=dots``,
+``model.dropout=0.1``, ``trainer.add_label=True model.add_labels=N``,
+``trainer.host_offload_optimizer=True``. A run stopped by SIGTERM or
+SIGUSR1 checkpoints and exits with 128 + the signal's number, so that
+``python -m unidisc_tpu_torch.training.supervisor -- <this command>``
+relaunches it and it resumes.
 
 Data: synthetic batches by default; ``--data`` names token-shard
 directories (``data/token_shards.py``), sampled by
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import sys
 import time
 
 from unidisc_tpu_torch.config import (FLAGSHIP_TRAIN_OVERRIDES,
@@ -100,6 +112,9 @@ def main(argv=None):
     parser.add_argument("--stream", action="store_true",
                         help="stream one dir of shard-*.npz files in order, "
                              "with exact mid-epoch resume")
+    parser.add_argument("--base-checkpoint", default=None,
+                        help="a port run dir: the frozen base of a LoRA "
+                             "run (its EMA weights)")
     parser.add_argument("--iterate-data-only", type=int, default=0,
                         help="read N batches without the model and report "
                              "the loader's host tok/s")
@@ -126,7 +141,8 @@ def main(argv=None):
 
     trainer = Trainer(config, args.run_dir, device=args.device,
                       log_every=args.log_every, val_every=args.val_every,
-                      ckpt_every=args.ckpt_every)
+                      ckpt_every=args.ckpt_every,
+                      base_checkpoint=args.base_checkpoint)
     print(f"[train] model={model} params={trainer.n_params / 1e6:.1f}M "
           f"device={trainer.device} batch={batch}")
     try:
@@ -134,6 +150,10 @@ def main(argv=None):
                              overfit_first_batch=args.overfit)
     finally:
         trainer.close()
+    if "signal" in result:
+        print(f"[train] stopped by signal {result['signal']} at step "
+              f"{result['step']} (checkpointed)", flush=True)
+        sys.exit(128 + result["signal"])
     print(f"[train] done at step {result['step']}: "
           f"loss={result.get('loss', float('nan')):.4f}")
     return result

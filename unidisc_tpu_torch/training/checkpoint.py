@@ -97,7 +97,11 @@ class CheckpointManager:
 
 def _to_cpu(tree):
     """Compact CPU copies: the state's tensors may be views of one flat
-    buffer, which torch.save would otherwise write whole for each view."""
+    buffer, which torch.save would otherwise write whole for each view.
+    Values that are not tensors (a layout's names and shapes) pass as
+    they are."""
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
+    if not torch.is_tensor(tree):
+        return tree
     return tree.detach().to("cpu", copy=True)

@@ -1,42 +1,46 @@
-"""Train state, optimizer, loss and the train step (port of
-``unidisc_tpu/training/train_state.py``).
+"""Train state, loss and the train step (port of
+``unidisc_tpu/training/train_state.py``; the optimizers are in
+``training/optimizers.py``).
 
 One step: t-sampling, corruption, forward, SUBS, NELBO, backward, clip,
-AdamW, the non-finite-loss skip and the EMA. The optimizer follows optax's
-semantics, not ``torch.optim``'s: the learning rate is read at the
-schedule's count before the update (step 0 runs at ``warmup_lr_init``),
-clipping scales by max_norm / g_norm only when g_norm >= max_norm (no
-epsilon), Adam's bias correction uses count + 1, weight decay is decoupled,
-and a step whose loss is not finite leaves the parameters and the whole
-optimizer state, counts included, as they were (``TrainState.step`` still
-advances and the EMA still moves toward the unchanged parameters).
+the optimizer, the non-finite-loss skip and the EMA. The optimizers follow
+optax's semantics, not ``torch.optim``'s (``training/optimizers.py``): a
+step whose loss is not finite leaves the parameters and the whole optimizer
+state, counts included, as they were (``TrainState.step`` still advances
+and the EMA still moves toward the unchanged parameters).
 
 The step updates the state in place. The parameters are the model's own
-``nn.Parameter``s, made views of one flat buffer; the Adam moments and the
-EMA are flat buffers too (one element per parameter element, in the
-parameters' order), so the update and the EMA run on whole buffers. The skip is a ``torch.where`` on the device;
-nothing is read back to the host.
+``nn.Parameter``s (or, for LoRA, the adapter's), made views of one flat
+buffer; the moments and the EMA are flat buffers too (one element per
+parameter element, in the parameters' order), so the update and the EMA
+run on whole buffers. The skip is a ``torch.where`` on the device; nothing
+is read back to the host.
 
 Random numbers: the JAX step derives its draws from a key; here they come
 from a ``torch.Generator`` passed to the step, or are injected as tensors
 (``draws``, the names listed in ``diffusion/forward_process.py``), which
-is how the tests feed both packages the same numbers.
+is how the tests feed both packages the same numbers. The dropout masks
+of a step (``model.dropout`` > 0) are drawn from the generator's seed, a
+host integer (``initial_seed()``; the Trainer seeds the generator each
+step), or injected as ``draws["dropout"]`` (``models/dit.py``).
 
 Ported: the ``subs`` parameterization with importance sampling, change of
 variables, joint AR+NAR and the AR-LLM loss; ``ar`` with the row flip,
 ``ar_inpainting`` (and its forced rate) and the modality dropout, over a
 per-token ``rope_index``; the legacy ``sedd`` and ``d3pm`` losses
-(``diffusion/legacy.py``); AdamW with the four LR schedules; gradient
-accumulation; low-precision params with an fp32 EMA. ``add_label``,
-``img_cond``, MoE, interleaved batches (``sample_ids``), the other
-optimizers, muP and remat raise ``NotImplementedError`` (ROADMAP queue 1,
-items 5b and 6).
+(``diffusion/legacy.py``); label tokens (``trainer.add_label``, with
+``first_token_dropout``); the five optimizers with the four LR schedules
+and muP; remat (``trainer.use_gradient_checkpointing``); training-mode
+dropout; gradient accumulation; low-precision params with an fp32 EMA; a
+``param_map`` (the LoRA merge, ``training/lora.py``). ``img_cond``, MoE
+and interleaved batches (``sample_ids``) raise ``NotImplementedError``
+(ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -56,17 +60,11 @@ from unidisc_tpu_torch.diffusion.loss import (LossOutput, ar_llm_token_nll,
                                               nelbo_weighting)
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.diffusion.subs import subs_log_p_at
+from unidisc_tpu_torch.training.optimizers import (  # noqa: F401
+    AdamState, ClippedAdamW, GenericOptState, OptState, flat_views,
+    make_lr_schedule, make_optimizer)
 
 Params = Dict[str, torch.Tensor]
-
-
-def flat_views(flat: torch.Tensor, like: Params) -> Params:
-    """Views of a flat buffer shaped like `like`, in its order."""
-    out, off = {}, 0
-    for name, p in like.items():
-        out[name] = flat[off:off + p.numel()].view(p.shape)
-        off += p.numel()
-    return out
 
 
 def flatten(tensors) -> torch.Tensor:
@@ -87,29 +85,11 @@ def flat_parameters(params: Params) -> torch.Tensor:
 
 
 @dataclass
-class AdamState:
-    """optax ScaleByAdamState, with the moments as flat buffers in the
-    order of the parameters."""
-    count: torch.Tensor   # () int32
-    mu: torch.Tensor      # flat, the parameters' dtype
-    nu: torch.Tensor
-
-
-@dataclass
-class OptState:
-    """The state of ``chain(clip_by_global_norm, adamw)``: the Adam state
-    and the count of the learning-rate schedule (optax
-    ScaleByScheduleState); the clip and the weight decay keep none."""
-    adam: AdamState
-    schedule_count: torch.Tensor   # () int32
-
-
-@dataclass
 class TrainState:
     step: torch.Tensor    # () int64
-    params: Params        # the model's own parameters, views of `flat`
+    params: Params        # the trained parameters, views of `flat`
     flat: torch.Tensor    # the parameters, updated in place
-    opt_state: OptState
+    opt_state: Union[OptState, GenericOptState]
     ema: torch.Tensor     # flat fp32 EMA in the order of params
 
     @property
@@ -117,21 +97,35 @@ class TrainState:
         return flat_views(self.ema, self.params)
 
     def state_dict(self) -> dict:
-        """Tensors by parameter name (views of the flat buffers)."""
-        adam = self.opt_state.adam
-        return {"step": self.step, "params": dict(self.params),
-                "ema_params": self.ema_params, "adam_count": adam.count,
-                "mu": flat_views(adam.mu, self.params),
-                "nu": flat_views(adam.nu, self.params),
-                "schedule_count": self.opt_state.schedule_count}
+        """Tensors by parameter name (views of the flat buffers). AdamW's
+        moments are saved by parameter name; the other optimizers' state
+        under "opt_state" by buffer name (flat buffers whole, Adafactor's
+        factored moments by flax leaf)."""
+        sd = {"step": self.step, "params": dict(self.params),
+              "ema_params": self.ema_params}
+        opt = self.opt_state
+        if isinstance(opt, OptState):
+            sd.update({"adam_count": opt.adam.count,
+                       "mu": flat_views(opt.adam.mu, self.params),
+                       "nu": flat_views(opt.adam.nu, self.params),
+                       "schedule_count": opt.schedule_count})
+        else:
+            sd["opt_state"] = opt.tensors()
+        return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """Copy a state_dict into this state's tensors, in place."""
         mine = self.state_dict()
         for key in ("step", "adam_count", "schedule_count"):
-            mine[key].copy_(sd[key])
-        for key in ("params", "ema_params", "mu", "nu"):
+            if key in mine:
+                mine[key].copy_(sd[key])
+        for key in ("params", "ema_params", "mu", "nu", "opt_state"):
+            if key not in mine:
+                continue
+            if key not in sd:
+                raise KeyError(f"the state_dict has no {key!r} (saved by "
+                               f"another optimizer?)")
             have, got = set(mine[key]), set(sd[key])
             if have != got:
                 raise KeyError(f"{key}: missing {sorted(have - got)}, "
@@ -174,170 +168,28 @@ def _split_metrics(out: LossOutput, modality, loss, grad_norm) -> StepMetrics:
         nll_img_sum=(out.nlls * img_mask).sum(), img_count=img_mask.sum())
 
 
-# ---------------------------------------------------------------------------
-# Optimizer
-# ---------------------------------------------------------------------------
-
-def _linear(init: float, end: float, steps: int):
-    """optax.linear_schedule."""
-    if steps <= 0:
-        return lambda count: torch.full_like(count, init, dtype=torch.float32)
-
-    def schedule(count):
-        c = count.clamp(0, steps).float()
-        return (init - end) * (1 - c / steps) + end
-    return schedule
-
-
-def _cosine(init: float, decay_steps: int, alpha: float = 0.0):
-    """optax.cosine_decay_schedule."""
-    if decay_steps <= 0:
-        raise ValueError(f"cosine decay needs positive decay_steps, got "
-                         f"{decay_steps}")
-
-    def schedule(count):
-        c = torch.minimum(count.float(), torch.tensor(float(decay_steps),
-                                                      device=count.device))
-        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
-        return init * ((1 - alpha) * cosine + alpha)
-    return schedule
-
-
-def _join(schedules, boundaries):
-    """optax.join_schedules."""
-    def schedule(count):
-        out = schedules[0](count)
-        for boundary, fn in zip(boundaries, schedules[1:]):
-            out = torch.where(count < boundary, out, fn(count - boundary))
-        return out
-    return schedule
-
-
-def make_lr_schedule(config: Config):
-    """count (an int tensor) -> learning rate (fp32 tensor on its device):
-    constant_warmup, cosine_decay, constant_warmup_cosine_decay or
-    cosine_hard_restarts, as in the JAX package."""
-    t = config.trainer
-    if t.scale_lr_by_batch_size:
-        t = replace(t, lr=t.lr * t.global_batch_size / 512)
-    total = max(t.max_steps, t.warmup_steps + 1)
-    warmup = _linear(t.warmup_lr_init, t.lr, t.warmup_steps)
-    if t.lr_schedule == "constant_warmup":
-        return _join([warmup, lambda c: torch.full_like(
-            c, t.lr, dtype=torch.float32)], [t.warmup_steps])
-    if t.lr_schedule == "cosine_decay":
-        return _join([warmup, _cosine(t.lr, total - t.warmup_steps)],
-                     [t.warmup_steps])
-    if t.lr_schedule == "constant_warmup_cosine_decay":
-        return _join([warmup, _cosine(t.lr, max(total - t.warmup_steps, 1),
-                                      alpha=t.lr_min / t.lr)],
-                     [t.warmup_steps])
-    if t.lr_schedule == "cosine_hard_restarts":
-        decay_len = max(total - t.warmup_steps, 1)
-
-        def restarts(step):
-            progress = step / decay_len
-            phase = torch.remainder(
-                t.num_cycles * torch.clamp(progress, max=1.0), 1.0)
-            return (t.lr * 0.5 * (1.0 + torch.cos(math.pi * phase))
-                    * (progress < 1.0))
-
-        return _join([warmup, restarts], [t.warmup_steps])
-    raise ValueError(t.lr_schedule)
-
-
-class ClippedAdamW:
-    """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
-    eps, weight_decay))`` with optax's arithmetic, updating in place. It
-    runs on flat buffers (the parameters and the gradients, each in the
-    parameters' order), so a step is a few dozen kernels whatever the
-    number of parameter tensors."""
-
-    def __init__(self, schedule, *, max_norm: float, b1: float, b2: float,
-                 eps: float, weight_decay: float):
-        self.schedule = schedule
-        self.max_norm = max_norm
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.weight_decay = weight_decay
-
-    def init(self, flat: torch.Tensor) -> OptState:
-        """The state for the flat parameter buffer `flat`."""
-        count = lambda: torch.zeros((), dtype=torch.int32,  # noqa: E731
-                                    device=flat.device)
-        return OptState(adam=AdamState(count=count(),
-                                       mu=torch.zeros_like(flat),
-                                       nu=torch.zeros_like(flat)),
-                        schedule_count=count())
-
-    @torch.no_grad()
-    def apply(self, p: torch.Tensor, g: torch.Tensor, state: OptState,
-              ok: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One update of the flat parameters `p` and of state, in place,
-        from the flat gradients `g`; returns the global norm of the
-        gradients (before clipping). Where `ok` (a () bool tensor) is False,
-        p and the whole state stay as they were."""
-        b1, b2 = self.b1, self.b2
-        adam = state.adam
-        g_norm = torch.sqrt(torch.sum(g.float() * g.float()))
-        g = torch.where(g_norm < self.max_norm, g,
-                        (g / g_norm.to(g.dtype)) * self.max_norm)
-        count_inc = adam.count + 1
-        bc1 = 1 - b1 ** count_inc.float()
-        bc2 = 1 - b2 ** count_inc.float()
-        mu = (1 - b1) * g + b1 * adam.mu
-        nu = (1 - b2) * (g * g) + b2 * adam.nu
-        u = (mu / bc1.to(mu.dtype)) / (
-            torch.sqrt(nu / bc2.to(nu.dtype)) + self.eps)
-        u = u + self.weight_decay * p
-        u = -self.schedule(state.schedule_count).to(u.dtype) * u
-        new_p = (p + u).to(p.dtype)
-        counts = (adam.count, state.schedule_count)
-        new_counts = [c + 1 for c in counts]
-        if ok is not None:
-            new_p = torch.where(ok, new_p, p)
-            mu = torch.where(ok, mu, adam.mu)
-            nu = torch.where(ok, nu, adam.nu)
-            new_counts = [torch.where(ok, n, c)
-                          for n, c in zip(new_counts, counts)]
-        p.copy_(new_p)
-        adam.mu.copy_(mu)
-        adam.nu.copy_(nu)
-        for c, n in zip(counts, new_counts):
-            c.copy_(n)
-        return g_norm
-
-
-def make_optimizer(config: Config) -> ClippedAdamW:
-    """Global-norm clipping + AdamW. The JAX package's other optimizers and
-    muP are not in the port yet."""
-    t = config.trainer
-    if t.optimizer != "adamw":
-        raise NotImplementedError(f"trainer.optimizer={t.optimizer!r} is "
-                                  f"not in the port yet (only adamw)")
-    if config.model.mup:
-        raise NotImplementedError("model.mup is not in the port yet")
-    return ClippedAdamW(make_lr_schedule(config),
-                        max_norm=t.gradient_clip_val, b1=t.beta1,
-                        b2=t.beta2, eps=t.opt_eps,
-                        weight_decay=t.weight_decay)
-
-
 @torch.no_grad()
-def init_train_state(config: Config, model: nn.Module) -> TrainState:
+def init_train_state(config: Config,
+                     model: Union[nn.Module, Params]) -> TrainState:
     """The train state over `model`'s own parameters (move the model to its
-    device first). With low_precision_params the parameters (and so the
-    Adam moments) become bf16 in place; the EMA stays fp32, because at
+    device first), or over a dict of tensors (a LoRA adapter: they become
+    ``nn.Parameter``s). With low_precision_params the parameters (and so
+    the moments) become bf16 in place; the EMA stays fp32, because at
     decay 0.9999 the increment is far below bf16's resolution."""
+    if isinstance(model, nn.Module):
+        params = dict(model.named_parameters())
+    else:
+        params = {k: v if isinstance(v, nn.Parameter) else nn.Parameter(v)
+                  for k, v in model.items()}
     if config.trainer.low_precision_params:
-        for p in model.parameters():
+        for p in params.values():
             if p.is_floating_point():
                 p.data = p.data.to(torch.bfloat16)
-    params = dict(model.named_parameters())
     flat = flat_parameters(params)
     return TrainState(step=torch.zeros((), dtype=torch.int64,
                                        device=flat.device),
                       params=params, flat=flat,
-                      opt_state=make_optimizer(config).init(flat),
+                      opt_state=make_optimizer(config).init(flat, params),
                       ema=flat.to(torch.float32, copy=True))
 
 
@@ -441,25 +293,40 @@ def _legacy_loss(loss_tok, attention_mask) -> LossOutput:
                       img_loss=zero)
 
 
+def dropout_arg(config: Config, train: bool, draws: Draws,
+                generator: Optional[torch.Generator], micro: int = 0):
+    """The DIT's ``dropout=`` for one forward: the injected masks
+    (draws["dropout"]), or a seed from the generator's seed and the
+    microbatch index (host integers: nothing is read from the device), or
+    None (no dropout, or the model draws its own seed)."""
+    if not train or config.model.dropout <= 0:
+        return None
+    if draws is not None and "dropout" in draws:
+        return draws["dropout"]
+    if generator is not None:
+        return (generator.initial_seed() * 1_000_033 + micro) % (2 ** 63)
+    return None
+
+
 def compute_batch_loss(config: Config, apply_fn, params, batch, *,
                        train: bool = True, step=None,
                        generator: Optional[torch.Generator] = None,
-                       draws: Draws = None) -> LossOutput:
+                       draws: Draws = None, micro: int = 0) -> LossOutput:
     """t-sample -> corrupt -> backbone -> SUBS -> NELBO (or the sedd / d3pm
     loss); for ``ar``, the next-token loss (``_ar_batch_loss``).
 
     batch: dict with input_ids (B, L) and optionally modality (B, L),
-    attention_mask (B, L) and rope_index (B, L), as tensors on the model's
-    device. params: the parameters apply_fn runs with (None: the model's
-    own).
+    attention_mask (B, L), rope_index (B, L) and label (B,) (the class id
+    that ``trainer.add_label`` writes at position 0), as tensors on the
+    model's device. params: the parameters apply_fn runs with (None: the
+    model's own). micro: the microbatch index (it varies the dropout
+    seed).
     """
     t_cfg = config.trainer
     m_cfg = config.model
-    if t_cfg.add_label:
-        raise NotImplementedError("trainer.add_label is not in the port yet")
     if m_cfg.img_cond or m_cfg.moe_experts > 0:
         raise NotImplementedError("img_cond and MoE training are not in the "
-                                  "port yet")
+                                  "port yet (ROADMAP queue 1, item 6)")
     later = [k for k in _LATER_BATCH_KEYS if k in batch]
     if later:
         raise NotImplementedError(f"batch keys {later} (interleaved / "
@@ -476,8 +343,22 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     extra = {}
     if "rope_index" in batch:
         extra["rope_index"] = batch["rope_index"].long()
+    drop = dropout_arg(config, train, draws, generator, micro)
+    if drop is not None:
+        extra["dropout"] = drop
     b = x0.shape[0]
     dev = x0.device
+    if t_cfg.add_label and "label" in batch:
+        # label-as-token conditioning: the class id + label_shift at
+        # position 0, left out of the loss through the attention mask;
+        # q_xt never corrupts it (first_token_dropout re-masks it)
+        x0 = x0.clone()
+        x0[:, 0] = batch["label"].long() + m_cfg.label_shift
+        if attention_mask is None:
+            attention_mask = torch.ones(x0.shape, dtype=torch.bool,
+                                        device=dev)
+        attention_mask = attention_mask.clone()
+        attention_mask[:, 0] = False
     if t_cfg.parameterization == "ar":
         return _ar_batch_loss(config, apply_fn, params, x0, modality,
                               attention_mask, extra, train=train,
@@ -509,6 +390,7 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
         x0, move_chance, m_cfg.mask_index, modality=modality,
         mask_entire_modality=t_cfg.mask_entire_modality if train else None,
         multimodal=t_cfg.multimodal_batches,
+        protect_first=t_cfg.add_label,
         first_token_dropout=t_cfg.first_token_dropout if train else None,
         diffusion_mode=t_cfg.discrete_diffusion_mode,
         text_vocab_size=m_cfg.text_vocab_size if restrict else None,
@@ -589,10 +471,9 @@ def make_apply_fn(config: Config, model: nn.Module):
     """fn(params, x, sigma, modality, train, **extra) -> logits: the model
     run with `params` (a name -> tensor mapping; None for its own
     parameters), in train or eval mode; sigma None means zeros; extra
-    carries rope_index."""
-    if config.trainer.use_gradient_checkpointing:
-        raise NotImplementedError("trainer.use_gradient_checkpointing "
-                                  "(remat) is not in the port yet")
+    carries rope_index and dropout. Remat is the model's own setting
+    (``DIT(remat=)``, which the Trainer takes from
+    trainer.use_gradient_checkpointing, as JAX's ``init_dit(remat=)``)."""
 
     def apply_fn(params, x, sigma, modality, train, **extra):
         model.train(train)
@@ -616,22 +497,28 @@ def _chunks(batch: dict, accum: int) -> List[dict]:
             for i in range(accum)]
 
 
-def make_train_step(config: Config, model: nn.Module):
+def make_train_step(config: Config, model: nn.Module, param_map=None):
     """The train step fn(state, batch, generator=None, draws=None) ->
     (state, metrics). It updates `state` in place and returns it.
 
     With grad_accum_steps > 1 the batch is split into that many equal
     microbatches whose gradients are averaged; `draws` is then a sequence
-    with one mapping per microbatch."""
+    with one mapping per microbatch.
+
+    param_map: fn(state.params) -> the parameters the model runs with
+    (the LoRA merge, ``training/lora.py``): state.params are then the
+    adapter's and only they get gradients."""
     opt = make_optimizer(config)
     apply_fn = make_apply_fn(config, model)
     ema_decay = config.trainer.ema_decay
     accum = config.trainer.grad_accum_steps
 
-    def grads_of(state, batch, generator, draws):
-        out = compute_batch_loss(config, apply_fn, None, batch, train=True,
-                                 step=state.step, generator=generator,
-                                 draws=draws)
+    def grads_of(state, batch, generator, draws, micro=0):
+        run_with = None if param_map is None else param_map(state.params)
+        out = compute_batch_loss(config, apply_fn, run_with, batch,
+                                 train=True, step=state.step,
+                                 generator=generator, draws=draws,
+                                 micro=micro)
         return out, flatten(torch.autograd.grad(out.loss,
                                                 list(state.params.values())))
 
@@ -642,8 +529,8 @@ def make_train_step(config: Config, model: nn.Module):
             micro = _chunks(batch, accum)
             per = draws if draws is not None else [None] * accum
             outs, grads = [], None
-            for chunk, d in zip(micro, per):
-                out, g = grads_of(state, chunk, generator, d)
+            for i, (chunk, d) in enumerate(zip(micro, per)):
+                out, g = grads_of(state, chunk, generator, d, i)
                 outs.append(out)
                 grads = g if grads is None else grads + g
             grads = grads / accum
@@ -658,7 +545,8 @@ def make_train_step(config: Config, model: nn.Module):
             out, grads = grads_of(state, batch, generator, draws)
             loss = out.loss.detach()
         ok = torch.isfinite(loss)
-        grad_norm = opt.apply(state.flat, grads, state.opt_state, ok)
+        grad_norm = opt.apply(state.flat, grads, state.opt_state, ok,
+                              params=state.params)
         with torch.no_grad():
             state.ema.copy_(state.ema * ema_decay
                             + state.flat.to(state.ema.dtype)
@@ -671,17 +559,21 @@ def make_train_step(config: Config, model: nn.Module):
     return train_step
 
 
-def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True):
+def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True,
+                   param_map=None):
     """fn(state, batch, generator=None, draws=None) -> StepMetrics with the
     eval loss (no entire-modality masking), under no_grad, with the EMA
-    parameters (or the live ones)."""
+    parameters (or the live ones), through param_map when given."""
     apply_fn = make_apply_fn(config, model)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict,
                   generator: Optional[torch.Generator] = None,
                   draws: Draws = None) -> StepMetrics:
-        params = state.ema_params if use_ema else None
+        params = state.ema_params if use_ema else \
+            (None if param_map is None else state.params)
+        if param_map is not None:
+            params = param_map(params)
         out = compute_batch_loss(config, apply_fn, params, batch,
                                  train=False, generator=generator,
                                  draws=draws)

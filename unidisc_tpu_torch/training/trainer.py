@@ -2,14 +2,31 @@
 ``unidisc_tpu/training/trainer.py``).
 
 Host-side work is data feeding, metric logging and checkpointing. The port
-trains on one device and computes in bf16, as the JAX trainer does. The
-JAX trainer's mesh, LoRA, host offload, signal handler and wandb are not in
-the port: asking for any of them raises.
+trains on one device and computes in bf16, as the JAX trainer does.
+
+* LoRA (``model.lora_rank`` > 0, ``training/lora.py``): the model holds
+  the frozen base, from ``base_checkpoint`` (a port run dir: its EMA
+  weights), ``base_params`` (a state_dict) or the seed; the train state is
+  the adapter's, and every checkpoint also writes ``lora_adapter.npz`` in
+  the JAX package's format (with the base run recorded in the meta).
+* Host offload (``trainer.host_offload_optimizer``,
+  ``training/offload.py``): bf16 working weights on the card, the fp32
+  master, moments and EMA in pinned host chunks; validation runs on the
+  working weights.
+* SIGTERM or SIGUSR1 during ``fit`` sets a flag: the trainer checkpoints
+  after the current step and stops (``fit`` then reports the signal, and
+  the train CLI exits non-zero so that a supervisor relaunches it;
+  ``training/supervisor.py``).
+
+Meshes and wandb raise.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import signal
 import time
 from typing import Iterator, Optional
 
@@ -57,6 +74,31 @@ def _step_seed(base: int, step: int) -> int:
     return (base * 1_000_003 + step) % (2 ** 63)
 
 
+def restore_base_params(run_dir: str, expect_like=None) -> dict:
+    """A port run dir's EMA weights (CPU tensors by name), the frozen base
+    of a LoRA run. The run must not itself be a LoRA run; with
+    `expect_like` (a state_dict) the shapes must match it."""
+    mgr = CheckpointManager(f"{run_dir}/checkpoints")
+    snap = Config.from_json(json.dumps(mgr.read_meta()["config"]))
+    if snap.model.lora_rank > 0:
+        raise ValueError(f"{run_dir} is itself a LoRA run: point "
+                         f"base_checkpoint at the full-parameter base run")
+    sd = mgr.read_state()
+    if snap.trainer.host_offload_optimizer:
+        from unidisc_tpu_torch.training.offload import gather_state_dict
+        params = gather_state_dict(sd)
+    else:
+        params = sd["ema_params"]
+    if expect_like is not None:
+        want = {k: tuple(v.shape) for k, v in expect_like.items()}
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if want != got:
+            raise ValueError("the base checkpoint's architecture differs "
+                             "from config.model: the LoRA run must use the "
+                             "base run's model config")
+    return params
+
+
 class Trainer:
     def __init__(self, config: Config, run_dir: str, *, device="cuda",
                  log_every: int = 10, val_every: int = 0,
@@ -66,29 +108,50 @@ class Trainer:
                  base_checkpoint: Optional[str] = None):
         if mesh is not None:
             raise NotImplementedError("device meshes are not in the port "
-                                      "yet; it trains on one device")
-        if base_params is not None or base_checkpoint is not None \
-                or config.model.lora_rank > 0:
-            raise NotImplementedError("LoRA fine-tuning is not in the port "
-                                      "yet")
-        if config.trainer.host_offload_optimizer:
-            raise NotImplementedError("host_offload_optimizer is not in "
-                                      "the port yet")
+                                      "yet (ROADMAP queue 1, item 9); it "
+                                      "trains on one device")
         self.device = resolve_device(device)
         self.config = config
         self.run_dir = run_dir
         self.log_every = log_every
         self.val_every = val_every
         self.ckpt_every = ckpt_every
+        t_cfg, m_cfg = config.trainer, config.model
 
-        model = DIT(config.model, compute_dtype=torch.bfloat16)
+        model = DIT(m_cfg, compute_dtype=torch.bfloat16,
+                    remat=t_cfg.use_gradient_checkpointing)
         model.reset_parameters(torch.Generator().manual_seed(config.seed))
-        self.model = model.to(self.device)
-        self.n_params = count_params(self.model)
-        self.state = init_train_state(config, self.model)
-        self.train_step = make_train_step(config, self.model)
+        self.n_params = count_params(model)
+        self.param_map = None
+        self._lora_base_checkpoint = None
+        self.host_offload = bool(t_cfg.host_offload_optimizer)
+        if (base_params is not None or base_checkpoint is not None) \
+                and m_cfg.lora_rank == 0:
+            raise ValueError("base_params / base_checkpoint are the frozen "
+                             "base of a LoRA run (model.lora_rank > 0)")
+        if self.host_offload:
+            from unidisc_tpu_torch.training.offload import (
+                init_offload_state, make_offload_train_step)
+            self.state = init_offload_state(config, model, self.device)
+            self.model = model
+            self.train_step = make_offload_train_step(config, model)
+            if val_use_ema:
+                print("[trainer] host_offload_optimizer: validation uses "
+                      "the live bf16 working weights (the EMA lives on the "
+                      "host in chunks)")
+            val_use_ema = False
+        else:
+            self.model = model.to(self.device)
+            if m_cfg.lora_rank > 0:
+                self.state = init_train_state(
+                    config, self._lora_init(base_params, base_checkpoint))
+            else:
+                self.state = init_train_state(config, self.model)
+            self.train_step = make_train_step(config, self.model,
+                                              param_map=self.param_map)
         self.eval_step = make_eval_step(config, self.model,
-                                        use_ema=val_use_ema)
+                                        use_ema=val_use_ema,
+                                        param_map=self.param_map)
         self.generator = torch.Generator(device=self.device)
         self.ckpt = CheckpointManager(f"{run_dir}/checkpoints",
                                       max_to_keep=max_ckpts,
@@ -97,6 +160,46 @@ class Trainer:
                                    console_every=log_every)
         self.monitor = ThroughputMonitor(self.n_params, device=self.device)
         self._last_saved = None
+        self._stop = None
+
+    def _lora_init(self, base_params, base_checkpoint) -> dict:
+        """Load the frozen base into self.model and return the adapter
+        (on the device)."""
+        from unidisc_tpu_torch.training.lora import (count_lora_params,
+                                                     lora_from_config,
+                                                     lora_param_map)
+        cfg = self.config
+        own = self.model.state_dict()
+        if base_checkpoint is not None:
+            if base_params is not None:
+                raise ValueError("pass base_params or base_checkpoint, not "
+                                 "both")
+            base_params = restore_base_params(base_checkpoint,
+                                              expect_like=own)
+            self._lora_base_checkpoint = os.path.abspath(base_checkpoint)
+        elif base_params is None and cfg.model.zero_linear_init:
+            raise ValueError(
+                "LoRA on a random-init base with zero_linear_init=True "
+                "cannot learn: the frozen zero output head blocks every "
+                "adapter gradient. Pass base_checkpoint= or base_params= (a "
+                "pretrained base), or set model.zero_linear_init=False for "
+                "a from-scratch smoke run.")
+        elif base_params is None:
+            print("[trainer] WARNING: LoRA over a RANDOM-INIT base (no "
+                  "base_checkpoint/base_params): only rank-r directions "
+                  "are trainable")
+        if base_params is not None:
+            self.model.load_state_dict(base_params)
+        base = dict(self.model.named_parameters())
+        for p in base.values():
+            p.requires_grad_(False)
+        adapter = lora_from_config(base, cfg.model, cfg.seed + 1)
+        self.param_map = lora_param_map(base, alpha=cfg.model.lora_alpha,
+                                        rank=cfg.model.lora_rank)
+        print(f"[trainer] LoRA r={cfg.model.lora_rank}: "
+              f"{count_lora_params(adapter):,} trainable / "
+              f"{self.n_params:,} total params")
+        return adapter
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
@@ -116,14 +219,39 @@ class Trainer:
         print(f"[trainer] resumed from step {step}")
         return int(step)
 
+    def _install_signal_handler(self):
+        """SIGTERM / SIGUSR1 -> checkpoint after the current step, then
+        stop. Returns the previous handlers (fit restores them)."""
+        def handler(signum, frame):
+            print(f"[trainer] signal {signum}: checkpointing then stopping",
+                  flush=True)
+            self._stop = signum
+        old = {}
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                old[sig] = signal.signal(sig, handler)
+            except (ValueError, OSError):
+                pass      # not the main thread
+        return old
+
     def fit(self, train_loader: Iterator, val_loader=None,
             max_steps: Optional[int] = None, *,
             overfit_first_batch: bool = False) -> dict:
-        """Train until max_steps (default trainer.max_steps) or the loader
-        ends. Every log_every steps the metrics come to the host (one sync)
-        and are logged with the host seconds per step since the last log
+        """Train until max_steps (default trainer.max_steps), the loader
+        ends or a SIGTERM / SIGUSR1 arrives (then the result has "signal").
+        Every log_every steps the metrics come to the host (one sync) and
+        are logged with the host seconds per step since the last log
         (step_s) and the throughput. Returns the step and the last logged
         metrics."""
+        old = self._install_signal_handler()
+        try:
+            return self._fit(train_loader, val_loader, max_steps,
+                             overfit_first_batch)
+        finally:
+            for sig, h in old.items():
+                signal.signal(sig, h)
+
+    def _fit(self, train_loader, val_loader, max_steps, overfit_first_batch):
         cfg = self.config
         max_steps = max_steps or cfg.trainer.max_steps
         start = self.maybe_restore(train_loader)
@@ -139,7 +267,7 @@ class Trainer:
         # the step check comes before the fetch, so the saved loader state
         # is that of the last batch trained on (the JAX loop fetches one
         # batch more, which a resumed run would skip)
-        while step < max_steps:
+        while step < max_steps and self._stop is None:
             with phases("data"):
                 batch = next(loader_it, None)
             if batch is None:
@@ -172,6 +300,8 @@ class Trainer:
 
         if self._last_saved != step:
             self._save(step, train_loader, force=True)
+        if self._stop is not None:
+            last["signal"] = self._stop
         return {"step": step, **last}
 
     # ------------------------------------------------------------------
@@ -208,6 +338,15 @@ class Trainer:
         extra = {}
         if hasattr(loader, "state_dict"):
             extra["loader"] = loader.state_dict()
+        if self.param_map is not None:
+            # how to rebuild the frozen base (serving a LoRA run dir), and
+            # the live adapter for build_engine(lora=)
+            if self._lora_base_checkpoint:
+                extra["lora_base_checkpoint"] = self._lora_base_checkpoint
+            from unidisc_tpu_torch.training.lora import save_lora
+            save_lora(f"{self.run_dir}/lora_adapter.npz", self.state.params,
+                      alpha=self.config.model.lora_alpha,
+                      rank=self.config.model.lora_rank)
         if self.ckpt.save(step, self.state, self.config, extra=extra,
                           force=force):
             self._last_saved = step
