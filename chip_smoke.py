@@ -177,6 +177,41 @@ and prints no result):
      after its 4th step, the child checkpoints and exits 143, is
      relaunched, resumes and finishes. Lines `remat`, `optimizers`,
      `train_rest` (step s, tok/s and peak GB a path) and `offload`.
+  5e. interleaved documents end to end, at the flagship width with the
+     interleaved experiment (L 1024: 128 text rope rows and one 16 x 16
+     image block, indexed through rope_index): (a) 640 documents from the
+     seed (1-3 images of 256 tokens, text spans of 8-120 ids) written as 4
+     ragged ishard files, each packed at L 1024 with EOS 2 by the native
+     packer bit for bit as by the Python packer; (b) train.main --stream
+     over them at batch 16 for 20 steps with a checkpoint at 10, counted
+     (each train kernel once a block a step, with the batch's sample ids
+     as segment ids), a run resumed from step 10 alone with the straight
+     run's losses and loader batches bit for bit, the fixed-draw loss of
+     the stream's first batch falling; (c) flash_fwd (with the LSE),
+     flash_bwd_dq and flash_bwd_dkv at (16, 12, 1024, 64) with that
+     batch's own sample ids (-1 padding, documents ending mid-tile)
+     against their plain versions, padded rows and keys zero, times
+     beside the bound over the allowed pairs and SDPA with the equivalent
+     boolean mask; (d) the run dir served by build_engine(checkpoint=)
+     with the VQ-16 codec behind make_server: three documents ([text,
+     generated image]; [text, given image with a pixel_mask, 32 generated
+     text tokens]; [given image, 32 generated text tokens]) through the
+     interleaved route, counted (flash_fwd once a block a forward), equal
+     to run_interleaved at the same seed, given tokens unchanged, image
+     slots holding image ids and text slots text ids, 256-px PNGs; the
+     captured packed program equal to the eager packed sampler under
+     injected noise. Lines `interleaved_shards`, `interleaved_kernels`,
+     `interleaved_serve`, `interleaved`.
+  5f. the samplers left: (a) the caching sampler at the flagship t2i
+     layout (L 384, bf16, CFG 2.0), recompute txt and img, bf16 and int8
+     KV cache: the captured program equals the eager sampler under
+     injected noise, with equal launches; (b) on a tiny fp32 model the
+     analytic, Tweedie (reward_on tokens and tweedie_img) and semi-AR
+     samplers (time-conditioned: each stride captured; without: eager)
+     on the card against the CPU under the same injected noise (token
+     agreement >= 0.95, equal NFE); (c) TransfusionDIT at the flagship
+     width, 32 DDIM steps on the card against the CPU in fp32 (max abs
+     error <= 1e-2 of the latents' largest magnitude).
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -214,12 +249,18 @@ from unidisc_tpu_torch.config import (FLAGSHIP_INT8_OVERRIDES,
                                       FLAGSHIP_OVERRIDES,
                                       FLAGSHIP_TRAIN_OVERRIDES, Config)
 from unidisc_tpu_torch import train as train_cli
+from unidisc_tpu_torch.data.interleaved import (Document, Segment,
+                                                pack_documents)
+from unidisc_tpu_torch.data.native_packer import pack_documents_native
 from unidisc_tpu_torch.data.streaming import (StreamingShardReader,
+                                              docs_from_ishard,
+                                              write_interleaved_shard,
                                               write_stream_shards)
 from unidisc_tpu_torch.data.synthetic import SyntheticDataLoader
 from unidisc_tpu_torch.data.token_shards import (TokenShardDataset,
                                                  WeightedDatasetSampler,
                                                  write_shard)
+from unidisc_tpu_torch.models.continuous import TransfusionDIT
 from unidisc_tpu_torch.models.dit import DIT, randomize_
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.flash_attention import (
@@ -230,6 +271,9 @@ from unidisc_tpu_torch.ops.fused_qmm import (fused_quantize,
 from unidisc_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                int8_matmul_reference)
 from unidisc_tpu_torch.ops.quant import quantize_dit_params, quantize_model
+from unidisc_tpu_torch.sampling.caching import build_caching_sampler
+from unidisc_tpu_torch.sampling.continuous import build_continuous_sampler
+from unidisc_tpu_torch.sampling import extras
 from unidisc_tpu_torch.sampling.graph import CapturedChunk, captured
 from unidisc_tpu_torch.sampling.sampler import build_sampler
 from unidisc_tpu_torch.sampling.scaffold import build_scaffold_sampler
@@ -446,7 +490,10 @@ ATTN_CASES = [
 ]
 
 
-def attention_inputs(shape, causal, segs, gen, lk=None):
+def attention_inputs(shape, causal, segs, gen, lk=None, seg=None):
+    """q, k, v (bf16), the kernel's keyword arguments and the boolean mask
+    of a case; with segs, the segment ids `seg` (B, L) when given, else
+    three segments with a padded tail on row 0."""
     b, h, l, d = shape
     # q, k, v as views of one (B, L, 3, H, D) projection, as the DIT
     # hands them over (v keeps the projection's strides); with lk, k and v
@@ -462,10 +509,11 @@ def attention_inputs(shape, causal, segs, gen, lk=None):
     kw = {"causal": causal}
     mask = None
     if segs:
-        seg = torch.zeros((b, l), dtype=torch.int32, device="cuda")
-        seg[:, l // 3:] = 1
-        seg[:, 2 * l // 3:] = 2
-        seg[0, l - l // 8:] = -1           # padding rows attend to nothing
+        if seg is None:
+            seg = torch.zeros((b, l), dtype=torch.int32, device="cuda")
+            seg[:, l // 3:] = 1
+            seg[:, 2 * l // 3:] = 2
+            seg[0, l - l // 8:] = -1       # padding rows attend to nothing
         kw["segment_ids"] = (seg, seg)
         mask = ((seg[:, :, None] == seg[:, None, :])
                 & (seg >= 0)[:, :, None])[:, None]
@@ -3317,7 +3365,7 @@ def fixed_draws(cfg, batch, seed, device):
     gen = torch.Generator().manual_seed(seed)
     b, l = batch, cfg.model.length
     shapes = {"t": (b,), "move": (b, l), "txt": (b, 1), "img": (b, 1),
-              "flip": (b,), "inpaint": (b, 2 * l)}
+              "flip": (b,), "inpaint": (b, 2 * l), "block": (b, l)}
     return {name: torch.rand(shape, generator=gen).to(device)
             for name, shape in shapes.items()}
 
@@ -3590,7 +3638,7 @@ def fixed_draw_batch_loss_falls(label, cfg, batch, final_params,
     """fixed_draw_loss_falls on a given host batch."""
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
              if isinstance(v, np.ndarray)}
-    draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
+    draws = fixed_draws(cfg, batch["input_ids"].shape[0], seed, "cuda")
     model = DIT(cfg.model, compute_dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     model = model.cuda()
@@ -4428,6 +4476,575 @@ def phase_train_rest(seed, root, base_run) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 5e: interleaved documents end to end
+# ---------------------------------------------------------------------------
+
+IL_BATCH, IL_STEPS, IL_CKPT = 16, 20, 10
+IL_DOCS, IL_SHARDS = 640, 4     # ~110 packed rows a shard, 7 batches
+# the flagship with the interleaved experiment at L 1024: the rope table is
+# 128 text rows and one 16 x 16 image block, indexed through rope_index
+IL_OVERRIDES = {"model.length": 1024, "model.txt_length": 128,
+                "model.img_length": 256, "trainer.interleaved": True,
+                "trainer.multimodal_batches": True,
+                "model.modality_embed": True, "model.rope_2d": True}
+IL_EOS = 2
+# the counted runs of phase 5e and 5f
+INTERLEAVED_PATHS = ("interleaved_train", "interleaved_train_resumed",
+                     "interleaved_serve")
+SAMPLERS_LEFT_PATHS = tuple(f"caching_{r}_{kv}" for r in ("txt", "img")
+                            for kv in ("bf16", "int8"))
+
+
+def interleaved_docs(m, n, seed) -> list:
+    """n documents from a seeded generator: 1-3 images of 256 tokens (a
+    16 x 16 grid), each after a text span of 8-120 ids in the text
+    vocabulary, sometimes a closing span. The ids follow per-document
+    patterns (byte ids on a stride, image ids on an affine raster) that
+    a model can learn in a few steps."""
+    rng = np.random.RandomState(seed)
+    docs = []
+    for _ in range(n):
+        segs = []
+        for _ in range(rng.randint(1, 4)):
+            t = rng.randint(8, 121)
+            start, stride = rng.randint(0, 200), rng.randint(1, 4)
+            segs.append(Segment("text", (4 + (start + stride * np.arange(t))
+                                         % 200).astype(np.int32)))
+            base = rng.randint(0, 1024)
+            segs.append(Segment("image", (m.text_vocab_size + (
+                base + 13 * np.arange(256)) % 1024).astype(np.int32), 16))
+        if rng.rand() < 0.5:
+            t = rng.randint(8, 121)
+            segs.append(Segment("text", (4 + (7 + np.arange(t)) % 200)
+                                .astype(np.int32)))
+        docs.append(Document(segs))
+    return docs
+
+
+def phase_ishards(cfg, seed, root) -> dict:
+    """(a) IL_DOCS documents written as IL_SHARDS ragged shards; each
+    shard's documents packed at model.length with EOS 2 by the native
+    packer, bit for bit as by the Python packer (host ms of each)."""
+    m = cfg.model
+    data = os.path.join(root, "ishards")
+    docs = interleaved_docs(m, IL_DOCS, seed)
+    per = IL_DOCS // IL_SHARDS
+    for s in range(IL_SHARDS):
+        write_interleaved_shard(data, docs[s * per:(s + 1) * per],
+                                shard_index=s)
+    rec = {"documents": IL_DOCS, "shards": IL_SHARDS, "rows": 0,
+           "native_ms": 0.0, "python_ms": 0.0}
+    for s in range(IL_SHARDS):
+        back = docs_from_ishard(os.path.join(data, f"ishard-{s:05d}.npz"))
+        packed = {}
+        for name, pack in (("native", pack_documents_native),
+                           ("python", pack_documents)):
+            t0 = time.perf_counter()
+            packed[name] = pack(back, m.length, pad_id=0, eos_id=IL_EOS)
+            rec[f"{name}_ms"] += (time.perf_counter() - t0) * 1e3
+        for k, v in packed["python"].items():
+            if v.dtype != packed["native"][k].dtype or \
+                    v.tobytes() != packed["native"][k].tobytes():
+                raise AssertionError(f"ishard {s}: the native packer's {k} "
+                                     f"differs from the Python packer's")
+        rec["rows"] += packed["python"]["input_ids"].shape[0]
+        rec.setdefault("padding_share", []).append(
+            float((packed["python"]["sample_ids"] < 0).mean()))
+    rec["dir"] = data
+    print("interleaved_shards " + json.dumps(
+        {k: v for k, v in rec.items() if k != "dir"}))
+    return rec
+
+
+def phase_interleaved_train(cfg, data, seed, root) -> tuple:
+    """(b) train.main --stream over the ragged shards, IL_STEPS steps at
+    batch IL_BATCH, checkpoint at IL_CKPT; a run resumed from that
+    checkpoint alone logs the straight run's losses (1e-5 relative) and
+    its loader reads the straight run's batches bit for bit; the
+    fixed-draw loss of the stream's first batch falls. Returns (the
+    record, the straight run's dir, its final EMA, the first batch)."""
+    n_blocks = cfg.model.n_blocks
+    straight = os.path.join(root, "il_a")
+    args = cli_args(straight, data, IL_STEPS, IL_BATCH, IL_OVERRIDES,
+                    "--stream", "--ckpt-every", str(IL_CKPT))
+    rec = {}
+    rec["straight"], final = train_cli_run("interleaved_train", args,
+                                           IL_STEPS, n_blocks, falls=False)
+    resumed = os.path.join(root, "il_b")
+    shutil.copytree(os.path.join(straight, "checkpoints", str(IL_CKPT)),
+                    os.path.join(resumed, "checkpoints", str(IL_CKPT)))
+    rec["resumed"] = train_cli_run(
+        "interleaved_train_resumed",
+        cli_args(resumed, data, IL_STEPS, IL_BATCH, IL_OVERRIDES,
+                 "--stream"), IL_STEPS - IL_CKPT, n_blocks, falls=False)[0]
+    want = rec["straight"]["losses"][IL_CKPT:]
+    got = rec["resumed"]["losses"]
+    for g, w in zip(got, want):
+        if abs(g - w) > 1e-5 * abs(w):
+            raise AssertionError(f"resumed interleaved losses {got} != "
+                                 f"{want}")
+    metas = [CheckpointManager(os.path.join(d, "checkpoints"))
+             for d in (straight, resumed)]
+    mid = metas[0].read_meta(IL_CKPT)["loader"]
+    end = [mt.read_meta(IL_STEPS)["loader"] for mt in metas]
+    if end[0] != end[1] or mid == end[0]:
+        raise AssertionError(f"loader states: mid {mid}, ends {end}")
+    reader = train_cli.make_loaders(cfg, IL_BATCH, data, stream=True)[0]
+    batches = list(itertools.islice(iter(reader), IL_STEPS))
+    again = train_cli.make_loaders(cfg, IL_BATCH, data, stream=True)[0]
+    again.load_state_dict(mid)
+    for want_b, got_b in zip(batches[IL_CKPT:], itertools.islice(
+            iter(again), IL_STEPS - IL_CKPT)):
+        for k in want_b:
+            if want_b[k].tobytes() != got_b[k].tobytes():
+                raise AssertionError(f"a resumed interleaved batch differs "
+                                     f"({k})")
+    if again.state_dict() != end[0]:
+        raise AssertionError(f"replayed loader state {again.state_dict()} "
+                             f"!= {end[0]}")
+    rec.update(fixed_draw_batch_loss_falls("interleaved_train", cfg,
+                                           batches[0], final.params, seed))
+    first = batches[0]
+    rec.update({"mid_state": mid, "end_state": end[0],
+                "batches_equal": True,
+                "documents_per_row": float(np.mean([
+                    len(np.unique(r[r >= 0])) for r in first["sample_ids"]])),
+                "padding_share_first_batch": float(
+                    (first["sample_ids"] < 0).mean())})
+    shutil.rmtree(resumed, ignore_errors=True)
+    return rec, straight, final.ema, first
+
+
+def phase_packed_kernels(seg, seed) -> dict:
+    """(c) flash_fwd (with the LSE), flash_bwd_dq and flash_bwd_dkv at the
+    packed shape (B, 12, 1024, 64) with the batch's own sample ids (-1
+    padding, documents ending mid-tile) against their plain versions:
+    padded query rows give output 0, LSE 0 and gradient 0, padded keys
+    gradient 0. Times as phase 3's, with the bound over the allowed pairs
+    and SDPA with the equivalent boolean mask as the library call."""
+    b, l = seg.shape
+    shape = (b, 12, l, 64)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    q, k, v, kw, mask = attention_inputs(shape, False, True, gen, seg=seg)
+    out, lse = flash_attention(q, k, v, need_lse=True, **kw)
+    ref, ref_lse = attention_reference(q, k, v, need_lse=True, **kw)
+    torch.cuda.synchronize()
+    pad = seg < 0
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if err > OUT_TOL or lse_err > LSE_TOL or not bool(
+            (out[pad] == 0).all()) or not bool(
+            (lse.transpose(1, 2)[pad] == 0).all()):
+        raise AssertionError(f"packed flash_fwd: max_abs_err {err}, "
+                             f"lse_err {lse_err}, padded rows zero "
+                             f"{bool((out[pad] == 0).all())}")
+
+    def kernel():
+        return flash_attention(q, k, v, **kw)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_bound = attention_bound(shape, mask, True)
+    rec = {"shape_bhld": list(shape), "padded_rows": int(pad.sum()),
+           "documents": int(sum(len(torch.unique(r[r >= 0]))
+                                for r in seg)),
+           "flash_fwd": {
+               "max_abs_err": err, "lse_err": lse_err, "ms": time_ms(kernel),
+               "device_ms": device_ms(kernel), "host_us": host_us(kernel),
+               "plain_ms": time_ms(lambda: attention_reference(q, k, v,
+                                                               **kw),
+                                   iters=5),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask)),
+               "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}}
+    do = torch.randn((b, l, 12, 64), generator=gen, device="cuda",
+                     dtype=torch.float32).to(torch.bfloat16)
+    o, lse = flash_attention(q, k, v, need_lse=True, **kw)
+    grads, launch_dq, launch_dkv = bwd_launches(q, k, v, o, lse, do,
+                                                kw["segment_ids"], False,
+                                                64 ** -0.5)
+    launch_dq()
+    launch_dkv()
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, want):
+        e = (g.float() - r).abs().max().item()
+        top = r.abs().max().item()
+        errs[gname] = e
+        if not bool(torch.isfinite(g.float()).all()) or \
+                e > BWD_REL_TOL * top or not bool((g[pad] == 0).all()):
+            raise AssertionError(f"packed flash_bwd {gname}: max_abs_err "
+                                 f"{e} (tol {BWD_REL_TOL} x {top}), padded "
+                                 f"rows zero {bool((g[pad] == 0).all())}")
+    bounds = backward_bounds(shape, mask, True)
+    library = sdpa_backward_fn(q, k, v, do, mask)
+    lib_ms = time_ms(library)
+    plain_ms = time_ms(lambda: attention_backward_reference(
+        q, k, v, o, lse, do, **kw), iters=5)
+    for name, launch, gn in (("flash_bwd_dq", launch_dq, ("dq",)),
+                             ("flash_bwd_dkv", launch_dkv, ("dk", "dv"))):
+        rec[name] = {"max_abs_err": max(errs[g] for g in gn),
+                     "ms": time_ms(launch), "device_ms": device_ms(launch),
+                     "host_us": host_us(launch), "plain_ms": plain_ms,
+                     "library_ms": lib_ms, **bounds[name]}
+    rec["backward_bound_ms"] = bounds["backward"]["bound_ms"]
+    print("interleaved_kernels " + json.dumps(rec))
+    return rec
+
+
+def interleaved_requests(m, seed) -> list:
+    """The three documents of phase 5e(d): [given text, generated image];
+    [given text, given image with its top-left quarter to regenerate, 32
+    generated text tokens]; [given image, 32 generated text tokens]."""
+    rng = np.random.RandomState(seed)
+    side = 16 * 16                      # the VQ-16 codec's 256 px
+    pixel_mask = np.zeros((side, side), bool)
+    pixel_mask[:side // 2, :side // 2] = True
+    img = [rng.randint(0, m.image_vocab_size, 256).tolist()
+           for _ in range(2)]
+    return [
+        [{"kind": "text", "text": "a red cube on a wooden table"},
+         {"kind": "image", "generate": True, "grid": 16}],
+        [{"kind": "text", "text": "two cats on a sofa"},
+         {"kind": "image", "ids": img[0],
+          "pixel_mask": pixel_mask.tolist()},
+         {"kind": "text", "generate": 32}],
+        [{"kind": "image", "ids": img[1]},
+         {"kind": "text", "generate": 32}]]
+
+
+def phase_interleaved_serve(run_dir, final_ema, seed) -> dict:
+    """(d) build_engine(checkpoint=) on the interleaved run dir (its
+    weights the trainer's final EMA, bit for bit) with the flagship
+    serving sampling and the VQ-16 codec, behind make_server: the three
+    documents through the interleaved route, counted (flash_fwd once a
+    block a forward); the same documents through run_interleaved give the
+    same answer; given tokens unchanged, image slots hold image ids, text
+    slots text ids, every image a 256-px PNG; the captured packed program
+    equals the eager packed sampler under injected noise (GRAPH_STEPS
+    steps)."""
+    t0 = time.perf_counter()
+    engine = build_engine(checkpoint=run_dir, overrides=SERVE_OVER,
+                          codec_name=CODEC)
+    build_s = time.perf_counter() - t0
+    for name, value in engine.model.state_dict().items():
+        if not torch.equal(value.cpu(), final_ema[name]):
+            raise AssertionError(f"served {name} is not the final EMA")
+    m = engine.m
+    docs = interleaved_requests(m, seed)
+    t0 = time.perf_counter()
+    engine.run_interleaved(docs[0], seed=0)     # captures the program
+    capture_s = time.perf_counter() - t0
+    srv = make_server(engine, port=0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    answers, latency = [], []
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for i, doc in enumerate(docs):
+            t0 = time.perf_counter()
+            status, ctype, body = http(url, "/v1/chat/completions",
+                                       {"segments": doc, "seed": 100 + i})
+            latency.append(time.perf_counter() - t0)
+            if status != 200 or ctype != "application/json":
+                raise AssertionError(f"interleaved POST answered {status}")
+            answers.append(json.loads(body))
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.shutdown()
+    nfe = [a["usage"]["nfe"] for a in answers]
+    check_launches("interleaved_serve", launches,
+                   {"flash_fwd": m.n_blocks * sum(nfe)})
+    for i, (doc, ans) in enumerate(zip(docs, answers)):
+        direct = engine.run_interleaved(doc, seed=100 + i)
+        layout = engine.interleaved_row(doc)
+        row, tokens = layout["row"], direct["tokens"]
+        if ans["object"] != "interleaved.completion" or \
+                direct["nfe"] != ans["usage"]["nfe"]:
+            raise AssertionError(f"document {i}: {ans['object']}, nfe "
+                                 f"{direct['nfe']} vs {ans['usage']}")
+        for got, want in zip(ans["segments"], direct["segments"]):
+            same = got["text"] == want["text"] if got["kind"] == "text" \
+                else (got["ids"] == [int(x) for x in want["ids"]]
+                      and got.get("image_b64") == want.get("image_b64"))
+            if not same:
+                raise AssertionError(f"document {i}: the HTTP answer "
+                                     f"differs from run_interleaved")
+        given = row["unmask"]
+        end = layout["spans"][-1][2]
+        img = (row["modality"] == 1)[:end]
+        if not (tokens[given] == row["x0"][given]).all():
+            raise AssertionError(f"document {i}: a given token changed")
+        if not ((tokens[:end][img] >= m.text_vocab_size)
+                & (tokens[:end][img] < m.text_vocab_size
+                   + m.image_vocab_size)).all():
+            raise AssertionError(f"document {i}: an image slot holds a "
+                                 f"non-image id")
+        if not (tokens[:end][~img] < m.text_vocab_size).all():
+            raise AssertionError(f"document {i}: a text slot holds a "
+                                 f"non-text id")
+        for seg in ans["segments"]:
+            if seg["kind"] == "image" and decode_png(base64.b64decode(
+                    seg["image_b64"])).shape != (256, 256, 3):
+                raise AssertionError(f"document {i}: no 256-px PNG")
+    # the captured packed program against the eager packed sampler
+    sampler = build_sampler(engine.model, engine.config,
+                            num_steps=GRAPH_STEPS, inject_noise=True,
+                            packed=True)
+    row = engine.interleaved_row(docs[1])["row"]
+    args = [torch.from_numpy(row[k][None]).cuda() for k in
+            ("x0", "unmask", "modality", "sample_ids", "rope_index")]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    shape = (GRAPH_STEPS, 1, m.length)
+    injected = {"exp": torch.empty(shape + (m.vocab_size,), device="cuda")
+                .exponential_(generator=gen),
+                "gumbel": -torch.log(-torch.log(torch.rand(
+                    shape, generator=gen, device="cuda")))}
+    want = sampler(*args, injected=injected)
+    program = captured(sampler, 1)
+    got = program(*args, injected=injected)
+    torch.cuda.synchronize()
+    if not torch.equal(got.tokens, want.tokens) or got.nfe != want.nfe:
+        raise AssertionError("the captured packed program differs from the "
+                             "eager packed sampler")
+    rec = {"build_s": build_s, "capture_s": capture_s,
+           "weights_equal_final_ema": True, "launches": launches,
+           "nfe": nfe, "latency_s": latency,
+           "document_tokens": [engine.interleaved_row(d)["spans"][-1][2]
+                               for d in docs],
+           "graph_vs_eager_equal": True, "graph_steps": GRAPH_STEPS,
+           "texts": [[s["text"] for s in a["segments"]
+                      if s["kind"] == "text"] for a in answers]}
+    print("interleaved_serve " + json.dumps(rec))
+    del program, sampler, injected
+    free(engine)
+    return rec
+
+
+def phase_interleaved(seed, root, kernel_seed) -> dict:
+    """Phase 5e (module docstring)."""
+    t0 = time.perf_counter()
+    cfg = train_config(**IL_OVERRIDES)
+    rec = {"shards": phase_ishards(cfg, seed, root)}
+    data = rec["shards"].pop("dir")
+    rec["train"], run_dir, final_ema, first = phase_interleaved_train(
+        cfg, data, seed, root)
+    torch.cuda.empty_cache()
+    rec["kernels"] = phase_packed_kernels(
+        torch.from_numpy(first["sample_ids"]).cuda(), kernel_seed)
+    free()
+    rec["serve"] = phase_interleaved_serve(run_dir, final_ema, seed)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rec["interleaved_train"] = rec["train"]["straight"]
+    rec["interleaved_train_resumed"] = rec["train"]["resumed"]
+    rec["interleaved_serve"] = rec["serve"]
+    rec["seconds"] = time.perf_counter() - t0
+    tr = rec["train"]["straight"]
+    print("interleaved " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "train": {"batch": IL_BATCH, "length": cfg.model.length,
+                  "median_step_s": tr["median_steady_step_s"],
+                  "train_tok_per_s": IL_BATCH * cfg.model.length
+                  / tr["median_steady_step_s"],
+                  "peak_memory_bytes": tr["peak_memory_bytes"],
+                  "fixed_draw_loss": [rec["train"][k] for k in (
+                      "fixed_draw_loss_initial", "fixed_draw_loss_final")],
+                  "resume_exact": rec["train"]["batches_equal"]},
+        "pack_ms_native_python": [rec["shards"]["native_ms"],
+                                  rec["shards"]["python_ms"]],
+        "serve_latency_s": rec["serve"]["latency_s"],
+        "kernels_ms": {k: rec["kernels"][k]["ms"] for k in TRAIN_KERNELS}}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 5f: the samplers left
+# ---------------------------------------------------------------------------
+
+CACHING_BATCH, CACHING_RATIO = 4, 2
+TRANSFUSION_STEPS, TRANSFUSION_LATENT = 32, 16
+# the transfusion DDIM trajectory on the card against the CPU, both in
+# fp32 (TF32 off): max abs error over the final latents at most this share
+# of their largest magnitude (the products of 32 steps x 12 blocks are
+# summed in other orders; each step feeds its latents back)
+TRANSFUSION_REL_TOL = 1e-2
+
+
+def phase_caching(seed) -> dict:
+    """(a) the caching sampler at the flagship t2i layout (random weights
+    from the seed, bf16, CFG 2.0), recompute txt and img, with the bf16 and
+    the int8 KV cache: the captured program equals the eager sampler under
+    injected noise (GRAPH_STEPS steps, ratio CACHING_RATIO), launches
+    counted from the replay."""
+    cfg = Config.make("small", **FLAGSHIP_OVERRIDES)
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16).to("cuda").eval()
+    randomize_(model, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    args, injected = sampler_inputs("generic", cfg.model, CACHING_BATCH,
+                                    GRAPH_STEPS, gen)
+    rec = {}
+    for recompute in ("txt", "img"):
+        for kv in ("bf16", "int8"):
+            c = cfg.override(**{"model.kv_cache_dtype": kv})
+            sample = build_caching_sampler(
+                model, c, txt_to_img_ratio=CACHING_RATIO,
+                num_steps=GRAPH_STEPS, recompute=recompute,
+                inject_noise=True)
+            _build.reset_launch_counts()
+            want = sample(*args, injected=injected)
+            torch.cuda.synchronize()
+            eager_launches = dict(_build.launch_counts)
+            program = captured(sample, CACHING_BATCH)
+            _build.reset_launch_counts()
+            got = program(*args, injected=injected)
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            name = f"caching_{recompute}_{kv}"
+            if not torch.equal(got.tokens, want.tokens) or \
+                    got.nfe != want.nfe or launches != eager_launches:
+                raise AssertionError(f"{name}: captured != eager (nfe "
+                                     f"{got.nfe} / {want.nfe}, launches "
+                                     f"{launches} / {eager_launches})")
+            rec[name] = {"nfe": got.nfe, "launches": launches,
+                         "graph_build_s": program.build_s}
+            del sample, program, want, got
+            gc.collect()
+    del model, injected
+    torch.cuda.empty_cache()
+    print("caching_graph_vs_eager " + json.dumps(rec))
+    return rec
+
+
+def phase_extras_cpu_vs_card(seed) -> dict:
+    """(b) semi-AR (time-conditioned: each stride a captured program on
+    the card; and without time conditioning: eager, one flag read a step),
+    the analytic sampler and Tweedie best-of-N (reward_on tokens and
+    tweedie_img) on the card against the CPU: a tiny fp32 model (plain
+    attention), the same injected noise; token agreement at least 0.95 as
+    the samplers' CPU check, and the same NFE."""
+    rec = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+
+    def models(**extra):
+        cfg = Config.make("tiny", **{**TINY_OVERRIDES,
+                                     "model.attn_backend": "xla", **extra})
+        gpu = DIT(cfg.model, compute_dtype=torch.float32).to("cuda").eval()
+        randomize_(gpu, seed)
+        cpu = DIT(cfg.model, compute_dtype=torch.float32).eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             gpu.state_dict().items()})
+        fwd = {dev: (lambda mdl: lambda x, s, mod: mdl(x, s, modality=mod))(
+            mdl) for dev, mdl in (("cpu", cpu), ("cuda", gpu))}
+        return cfg, fwd
+
+    def agree(name, outs):
+        a = float((outs["cpu"].tokens == outs["cuda"].tokens.cpu())
+                  .float().mean().item())
+        rec[name] = {"token_agreement": a,
+                     "nfe": [outs["cpu"].nfe, outs["cuda"].nfe]}
+        if a < 0.95 or outs["cpu"].nfe != outs["cuda"].nfe:
+            raise AssertionError(f"{name}: the card disagrees with the CPU: "
+                                 f"{rec[name]}")
+
+    cfg, fwd = models()
+    m, steps = cfg.model, cfg.sampling.steps
+    (x0, unmask, modality), _ = sampler_inputs("generic", m, TINY_BATCH,
+                                               steps, gen)
+    exp = torch.empty((steps + 1, TINY_BATCH, m.length, m.vocab_size),
+                      device="cuda").exponential_(generator=gen)
+    agree("analytic", {dev: extras.build_analytic_sampler(
+        fwd[dev], cfg, device=dev)(x0.to(dev), unmask.to(dev),
+                                   modality.to(dev),
+                                   injected={"exp": exp.to(dev)})
+        for dev in ("cpu", "cuda")})
+    n = 3
+    exp = torch.empty((steps, n, TINY_BATCH, m.length, m.vocab_size),
+                      device="cuda").exponential_(generator=gen)
+    for reward_on in ("tokens", "tweedie_img"):
+        agree(f"tweedie_{reward_on}", {dev: extras.build_tweedie_sampler(
+            fwd[dev], cfg, lambda t: (t % 5 == 2).sum(-1).float(),
+            n_candidates=n, reward_on=reward_on, device=dev)(
+                x0.to(dev), unmask.to(dev), modality.to(dev),
+                injected={"exp": exp.to(dev)}) for dev in ("cpu", "cuda")})
+    stride, strides, per = 4, 2, 4
+    for tc in (True, False):
+        cfg, fwd = models(**{"model.time_conditioning": tc})
+        exp = torch.empty((strides + 1, per + 1, TINY_BATCH, m.length,
+                           m.vocab_size), device="cuda").exponential_(
+                               generator=gen)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            sampler = extras.build_semi_ar_sampler(
+                fwd[dev], cfg, stride_length=stride, num_strides=strides,
+                steps_per_stride=per, device=dev)
+            outs[dev] = sampler(TINY_BATCH, modality.to(dev),
+                                injected={"exp": exp.to(dev)})
+            if dev == "cuda" and sampler.captured != tc:
+                raise AssertionError("semi-AR: a time-conditioned stride "
+                                     "must run captured, else eager")
+        agree(f"semi_ar_{'captured' if tc else 'eager'}", outs)
+    print("extras_cpu_vs_cuda " + json.dumps(rec))
+    return rec
+
+
+def phase_transfusion(seed) -> dict:
+    """(c) TransfusionDIT at the flagship width and t2i layout (fp32,
+    random weights from the seed, latent_dim 16), TRANSFUSION_STEPS DDIM
+    steps from the same starting noise on the card and on the CPU: the
+    final latents within TRANSFUSION_REL_TOL of their largest magnitude;
+    zero off the image."""
+    cfg = Config.make("small", **FLAGSHIP_OVERRIDES)
+    m = cfg.model
+    gpu = TransfusionDIT(m, latent_dim=TRANSFUSION_LATENT,
+                         compute_dtype=torch.float32).to("cuda").eval()
+    randomize_(gpu, seed)
+    cpu = TransfusionDIT(m, latent_dim=TRANSFUSION_LATENT,
+                         compute_dtype=torch.float32).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(seed + 23)
+    ids = torch.randint(4, 200, (1, m.length), generator=gen)
+    modality = (torch.arange(m.length) >= m.txt_length).long()[None]
+    z0 = torch.randn((1, m.length, TRANSFUSION_LATENT), generator=gen)
+    out, secs = {}, {}
+    for dev, mdl in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        out[dev] = build_continuous_sampler(
+            mdl, cfg, latent_dim=TRANSFUSION_LATENT,
+            num_steps=TRANSFUSION_STEPS, device=dev)(
+                ids, modality, z=z0.to(dev)).cpu()
+        secs[dev] = time.perf_counter() - t0
+    top = out["cpu"].abs().max().item()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    rec = {"steps": TRANSFUSION_STEPS, "max_abs_err": err,
+           "max_abs_latent": top, "rel_err": err / top,
+           "rel_tol": TRANSFUSION_REL_TOL, "seconds": secs}
+    print("transfusion_cpu_vs_cuda " + json.dumps(rec))
+    if not torch.isfinite(out["cuda"]).all() or err > TRANSFUSION_REL_TOL \
+            * top or (out["cuda"][:, :m.txt_length] != 0).any():
+        raise AssertionError(f"transfusion: the card's DDIM trajectory "
+                             f"disagrees with the CPU's: {rec}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_samplers_left(seed) -> dict:
+    """Phase 5f (module docstring)."""
+    t0 = time.perf_counter()
+    rec = {"caching": phase_caching(seed)}
+    rec.update({name: rec["caching"][name] for name in SAMPLERS_LEFT_PATHS})
+    rec["extras"] = phase_extras_cpu_vs_card(seed)
+    rec["transfusion"] = phase_transfusion(seed)
+    rec["seconds"] = time.perf_counter() - t0
+    print("samplers_left " + json.dumps({"seconds": rec["seconds"]}))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4553,6 +5170,16 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
+    # 5e: interleaved documents end to end; 5f: the samplers left
+    root = tempfile.mkdtemp(prefix="chip_smoke_interleaved_")
+    try:
+        record["interleaved"] = phase_interleaved(args.seed, root,
+                                                  args.seed + 3)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    record["samplers_left"] = phase_samplers_left(args.seed)
+    free()
     pix = record["pixels"]
     print("pixels " + json.dumps({
         "card": card, "decode_ms_b8": {
@@ -4589,6 +5216,12 @@ def main() -> int:
                 "launches"].get(name, 0)
         for path in TRAIN_REST_PATHS:
             by_path[name][path] = record["train_rest"]["paths"][path][
+                "launches"].get(name, 0)
+        for path in INTERLEAVED_PATHS:
+            by_path[name][path] = record["interleaved"][path][
+                "launches"].get(name, 0)
+        for path in SAMPLERS_LEFT_PATHS:
+            by_path[name][path] = record["samplers_left"][path][
                 "launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape

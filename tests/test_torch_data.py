@@ -131,9 +131,18 @@ def test_stream_reader_equals_jax(shard_dirs, process_index, process_count):
 
 
 def test_interleaved_streams_raise(tmp_path):
+    """Ragged shards stream since the interleaved slice (tests/
+    test_torch_interleaved.py); a ragged dir without pack_length, a dir
+    mixing both kinds and an unknown packer still raise."""
     (tmp_path / "ishard-00000.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="pack_length"):
         tstream.StreamingShardReader(str(tmp_path))
+    with pytest.raises(ValueError, match="packer"):
+        tstream.StreamingShardReader(str(tmp_path), pack_length=8,
+                                     packer="rust")
+    (tmp_path / "shard-00000.npz").write_bytes(b"")
+    with pytest.raises(ValueError, match="mixes"):
+        tstream.StreamingShardReader(str(tmp_path), pack_length=8)
 
 
 def cli(run_dir, data, *extra):

@@ -185,16 +185,19 @@ def test_unported_branches_raise():
     _, tcfg = configs()
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
     ids, sigma, modality = inputs(tcfg.model)
-    # the KV-cache and frozen-KV arguments are ported (tests/
-    # test_torch_kv_cache.py); the packed-batch ones still raise
-    with pytest.raises(NotImplementedError, match="sample_ids"):
-        model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
-              modality=torch.from_numpy(modality).long(),
-              sample_ids=torch.zeros((B, L), dtype=torch.int32))
-    for flag in ("split_embed", "cond_label"):
-        with pytest.raises(NotImplementedError, match=flag):
+    # the KV-cache, frozen-KV and packed-batch arguments are ported
+    # (tests/test_torch_kv_cache.py, test_torch_interleaved.py); the
+    # label and image-conditioning ones still raise, naming item 6
+    for arg, value in (("label", torch.zeros((B,), dtype=torch.long)),
+                       ("x_cond", torch.zeros((B, 4), dtype=torch.long))):
+        with pytest.raises(NotImplementedError, match=f"{arg}.*item 6"):
+            model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+                  modality=torch.from_numpy(modality).long(),
+                  **{arg: value})
+    for flag in ("split_embed", "cond_label", "img_cond"):
+        with pytest.raises(NotImplementedError, match=f"{flag}.*item 6"):
             DIT(tcfg.override(**{f"model.{flag}": True}).model)
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(NotImplementedError, match="moe.*item 6"):
         DIT(tcfg.override(**{"model.moe_experts": 4}).model)
 
 

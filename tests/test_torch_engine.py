@@ -183,8 +183,11 @@ def test_unported_engine_options_raise_naming_their_queue_item():
         eng.continuous
     with pytest.raises(ValueError, match="AR model"):
         eng.complete_text("hi")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.run_interleaved([{"kind": "text", "text": "hi"}])
+    # interleaved documents run since the interleaved slice (tests/
+    # test_torch_interleaved.py); one longer than the model still raises
+    with pytest.raises(ValueError, match="exceeds model.length"):
+        eng.run_interleaved([{"kind": "text", "generate": tcfg.model.length
+                              + 1}])
 
 
 # ---------------------------------------------------------------------------

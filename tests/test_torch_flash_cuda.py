@@ -352,3 +352,45 @@ def test_forward_kernel_at_the_frozen_paths_shapes(case):
     k, v = (torch.randn((b, 384, 12, 64), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
     check_forward(q, k, v, {})
+
+
+# --- the packed interleaved batch (the interleaved training slice) -----------
+#
+# (16, 12, 1024, 64) with the sample ids of a real packed batch: documents
+# of 1-3 images of 256 tokens and text spans of 8-120 tokens packed into
+# rows of 1024 with EOS (data/interleaved.py), so documents end mid-tile
+# and rows end in -1 padding. Same tolerances as above; padded query rows
+# give output 0, LSE 0 and gradient 0, padded keys gradient 0.
+
+def packed_segment_ids(b=16, length=1024, seed=0):
+    import numpy as np
+    from unidisc_tpu_torch.data.interleaved import (Document, Segment,
+                                                    pack_documents)
+    rng = np.random.RandomState(seed)
+    docs = []
+    for _ in range(3 * b):
+        segs = []
+        for _ in range(rng.randint(1, 4)):
+            segs.append(Segment("text", np.full(rng.randint(8, 121), 5,
+                                                np.int32)))
+            segs.append(Segment("image", np.zeros(256, np.int32), 16))
+        docs.append(Document(segs))
+    batch = pack_documents(docs, length, pad_id=0, eos_id=2, batch_size=b)
+    return torch.from_numpy(batch["sample_ids"]).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_kernels_at_the_packed_interleaved_shape(direction):
+    needs_card()
+    seg = packed_segment_ids()
+    assert bool((seg < 0).any()) and bool((seg[:, -1] < 0).any())
+    # documents end inside a 64-row tile
+    ends = (seg[:, 1:] != seg[:, :-1]).nonzero()[:, 1] + 1
+    assert bool((ends % 64 != 0).any())
+    q, k, v, _, gen = make_case(16, 1024, 1024, 12, 64, seed=21)
+    kw = {"segment_ids": (seg, seg)}
+    if direction == "forward":
+        check_forward(q, k, v, kw)
+    else:
+        check_backward(q, k, v, kw, gen)

@@ -7,7 +7,9 @@ JAX, so it also runs on a GPU machine without it:
 On a tiny bf16 model (the hand kernels take bf16), for the text->image
 sampler in bf16 and int8 (the kernels' paths), its conditioning-frozen
 int8 variant, its refresh-2 int8 variant with an int8 KV cache, and the
-generic maskgit sampler: the captured program gives the eager sampler's
+generic maskgit sampler, its packed form (interleaved documents' sample
+ids and rope indices), and the caching sampler (recompute txt, and img
+with the int8 KV cache): the captured program gives the eager sampler's
 tokens and NFE under the same injected noise, exactly (the same kernels
 on the same inputs in the same order). Launch counts after one and after
 three replays are the eager call's counts, once and three times; two
@@ -21,6 +23,7 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.models.dit import DIT, randomize_
 from unidisc_tpu_torch.ops import _build
 from unidisc_tpu_torch.ops.quant import quantize_model
+from unidisc_tpu_torch.sampling.caching import build_caching_sampler
 from unidisc_tpu_torch.sampling.graph import captured
 from unidisc_tpu_torch.sampling.sampler import build_sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
@@ -47,6 +50,12 @@ CASES = {
         "sampling.cached_cond": True, "sampling.cached_cond_refresh": 2,
         "model.kv_cache_dtype": "int8"}),
     "generic_maskgit": (False, "generic", {}),
+    # the packed generic sampler of interleaved documents
+    "packed_generic": (False, "packed", {}),
+    # the caching sampler, both modes, with the bf16 and the int8 KV cache
+    "caching_txt": (False, "caching_txt", {}),
+    "caching_img_int8_kv": (False, "caching_img",
+                            {"model.kv_cache_dtype": "int8"}),
 }
 
 
@@ -71,7 +80,12 @@ def build(kind, cfg, model, inject_noise):
         return build_t2i_sampler(model, cfg, inject_noise=inject_noise,
                                  cached_cond=s.cached_cond,
                                  cond_refresh=s.cached_cond_refresh)
-    return build_sampler(model, cfg, inject_noise=inject_noise)
+    if kind.startswith("caching"):
+        return build_caching_sampler(model, cfg, txt_to_img_ratio=2,
+                                     recompute=kind.split("_")[1],
+                                     inject_noise=inject_noise)
+    return build_sampler(model, cfg, inject_noise=inject_noise,
+                         packed=kind == "packed")
 
 
 def inputs(kind, m, gen):
@@ -86,7 +100,14 @@ def inputs(kind, m, gen):
     unmask[1, :m.txt_length] = False         # one joint row
     modality = (torch.arange(m.length, device="cuda") >= m.txt_length
                 ).long().expand(B, -1)
-    return x0, unmask, modality
+    if kind != "packed":
+        return x0, unmask, modality
+    # two documents a row: ids 0 and 1, the last two positions padding
+    sample_ids = torch.zeros_like(x0, dtype=torch.int32)
+    sample_ids[:, 12:] = 1
+    sample_ids[:, -2:] = -1
+    rope_index = torch.arange(m.length, device="cuda").expand(B, -1) % 12
+    return x0, unmask, modality, sample_ids, rope_index
 
 
 def noise(kind, m, gen):

@@ -242,6 +242,41 @@ def test_train_rest_slice_is_checked():
                      "signal", "subprocess", "sys", "time", "typing"}, roots
 
 
+# the modules of the interleaved slice: packing (Python and native), the
+# ragged streams, the DIT's packed-batch arguments, the interleaved engine
+# route, and the samplers left (caching, extras, transfusion)
+INTERLEAVED_SLICE = [
+    "unidisc_tpu_torch/models/rotary.py",
+    "unidisc_tpu_torch/ops/attention.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/models/port.py",
+    "unidisc_tpu_torch/data/interleaved.py",
+    "unidisc_tpu_torch/data/native_packer.py",
+    "unidisc_tpu_torch/data/streaming.py",
+    "unidisc_tpu_torch/tokenizers/interleaved_text.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/train.py",
+    "unidisc_tpu_torch/sampling/sampler.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/serving/server.py",
+    "unidisc_tpu_torch/sampling/caching.py",
+    "unidisc_tpu_torch/sampling/extras.py",
+    "unidisc_tpu_torch/models/continuous.py",
+    "unidisc_tpu_torch/sampling/continuous.py",
+]
+
+
+def test_interleaved_slice_is_checked():
+    assert set(INTERLEAVED_SLICE) <= set(FILES)
+    for path in INTERLEAVED_SLICE:
+        assert "unidisc_tpu" not in set(imported_roots(path)), path
+    # the native packer builds the shared C++ source into the port's
+    # build directory; it keeps no binding of the JAX package's
+    assert (ROOT / "native/packer.cpp").exists()
+    binding = (ROOT / "unidisc_tpu_torch/data/native_packer.py").read_text()
+    assert "BUILD_DIR" in binding and "packer.so" not in binding
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

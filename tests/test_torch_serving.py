@@ -264,13 +264,15 @@ AR = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
 
 
 def test_interleaved_and_ar_requests_answer_500_naming_their_items(servers):
-    """The interleaved route still answers 500 naming its item; the AR
-    route, a later slice when this test was written, now answers 200."""
+    """The interleaved and AR routes, later slices when this test was
+    written, now answer (the interleaved route's parity is in tests/
+    test_torch_interleaved.py); an interleaved document longer than the
+    model answers 500 with the engine's error, as JAX's server does."""
     with pytest.raises(urllib.error.HTTPError) as err:
         post(servers["port"], {"segments": [{"kind": "text",
-                                             "text": "a"}]})
+                                             "generate": 10_000}]})
     assert err.value.code == 500
-    assert "item 6" in json.load(err.value)["error"]
+    assert "exceeds model.length" in json.load(err.value)["error"]
     _, tcfg = configs(**OVER, **AR)
     eng = InferenceEngine(tcfg, DIT(tcfg.model), device="cpu")
     srv = server.make_server(eng, port=0)

@@ -297,7 +297,8 @@ def test_compute_batch_loss_matches_jax(jax_params, variant, train):
 def test_unported_branches_raise(jax_params):
     """The optimizers, remat, dropout and add_label are ported (the
     OTHER_STEPS cases below, tests/test_torch_optimizers.py,
-    tests/test_torch_dit.py); img_cond, MoE and interleaved batches wait
+    tests/test_torch_dit.py), and packed interleaved batches too (tests/
+    test_torch_interleaved.py); img_cond, MoE and x_cond batches wait
     for ROADMAP item 6."""
     _, tcfg = configs()
     model = DIT(tcfg.model, compute_dtype=torch.float32)
@@ -308,7 +309,7 @@ def test_unported_branches_raise(jax_params):
     with pytest.raises(NotImplementedError, match="item 6"):
         tts.compute_batch_loss(
             tcfg, apply_fn, None,
-            {**batch, "sample_ids": torch.zeros_like(batch["input_ids"])},
+            {**batch, "x_cond": torch.zeros_like(batch["input_ids"])},
             generator=gen)
     for over in ({"model.moe_experts": 4}, {"model.img_cond": True}):
         with pytest.raises(NotImplementedError, match="MoE"):

@@ -68,7 +68,8 @@ class ModelConfig:
     n_cond_blocks: int = 8
     cond_img_embed_dim: Optional[int] = None
     rope_2d: bool = False
-    # interleaved variable-resolution batches (not in the port yet)
+    # interleaved variable-resolution batches: one 2D rope block per grid
+    # size, rope_index absolute into the combined table
     img_resolutions: Optional[Tuple[int, ...]] = None
     img_count_embed: bool = False
     max_images_per_sample: int = 16
@@ -141,8 +142,8 @@ class TrainerConfig:
     """Training hyperparameters. The port's train step
     (``training/train_state.py``) takes every optimizer, the four LR
     schedules, the ``subs``, ``ar``, ``sedd`` and ``d3pm``
-    parameterizations, add_label, remat and host offload; interleaved
-    batches raise there."""
+    parameterizations, add_label, remat, host offload and packed
+    interleaved batches."""
 
     optimizer: str = "adamw"  # adamw | adafactor | lion | ademamix | muon
     grad_accum_steps: int = 1

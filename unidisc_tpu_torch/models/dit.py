@@ -65,9 +65,22 @@ checkpointing, as JAX's ``dots_with_no_batch_dims_saveable`` and
 recomputes it, as no JAX policy saves the Pallas call: under remat the
 forward kernel runs twice a block a step.
 
+Packed interleaved batches (``data/interleaved.py``) give ``sample_ids``
+(B, L): a token attends only within its own sample and a token with id -1
+(padding) to nothing. Every self-attention then takes them as the
+kernel's segment ids, causal or not (on a CPU tensor the kernel's plain
+version); under ``attn_backend="xla"`` they become the dense
+``make_sample_ids_mask``, as in JAX, and a given ``attn_mask`` wins over
+them. ``rope_index`` indexes the [text | image] table per token, or, with
+``model.img_resolutions``, the combined multi-resolution table
+(``build_multires_rope``) absolutely. ``model.img_count_embed`` adds a
+learned row per earlier image block of the sample (``img_block_index``)
+to image tokens, and ``extra_embed`` (B, L, hidden) is added to the
+embedding (the transfusion branch, ``models/continuous.py``).
+
 The port covers the inference forward (bf16 and int8, with the KV-cache and
-frozen-KV paths) and training; the image-conditioning, MoE,
-split-embedding, class-label, multi-resolution and parallel branches raise
+frozen-KV paths), training and packed batches; the image-conditioning,
+MoE, split-embedding, class-label and parallel branches raise
 ``NotImplementedError``.
 """
 
@@ -81,8 +94,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidisc_tpu_torch.config import ModelConfig
-from unidisc_tpu_torch.models.rotary import apply_rope, build_multimodal_rope
-from unidisc_tpu_torch.ops.attention import multihead_attention
+from unidisc_tpu_torch.models.rotary import (apply_rope, build_multimodal_rope,
+                                             build_multires_rope)
+from unidisc_tpu_torch.ops.attention import (make_sample_ids_mask,
+                                             multihead_attention)
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
 from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
 from unidisc_tpu_torch.ops.quant import (int8_kv_attention, qdot,
@@ -334,9 +349,10 @@ class DDiTBlock(nn.Module):
 
     def attention(self, x, rope_cos, rope_sin, attn_mask=None,
                   qkv_prologue=None, kv_cache=None, cache_index=None,
-                  frozen_kv=None):
+                  frozen_kv=None, segment_ids=None):
         """Self-attention. kv_cache: this block's (k, v) or int8 (k_q, k_s,
-        v_q, v_s) slices, written in place at cache_index."""
+        v_q, v_s) slices, written in place at cache_index. segment_ids:
+        (q_seg, k_seg) of a packed batch, taken where no attn_mask is."""
         cfg = self.cfg
         dt = self.compute_dtype
         b, l, dim = x.shape
@@ -378,14 +394,15 @@ class DDiTBlock(nn.Module):
             out = flash_attention(q, k, v) if kernel \
                 else multihead_attention(q, k, v)
         elif attn_mask is None and kernel:
-            out = flash_attention(q, k, v, causal=causal)
+            out = flash_attention(q, k, v, causal=causal,
+                                  segment_ids=segment_ids)
         else:
             out = multihead_attention(q, k, v, mask=attn_mask, causal=causal)
         return dense(out.reshape(b, l, dim), self.attn_out, dt)
 
     def forward(self, x, c, rope_cos, rope_sin, modality=None,
                 attn_mask=None, kv_cache=None, cache_index=None,
-                frozen_kv=None, dropout=None):
+                frozen_kv=None, dropout=None, segment_ids=None):
         """One block; a kv_cache (this block's slices) is written in
         place. dropout: None, this block's seed (an int) or its
         (keep_attention, keep_mlp) masks."""
@@ -428,7 +445,7 @@ class DDiTBlock(nn.Module):
 
         x_skip = x
         cache_kw = dict(kv_cache=kv_cache, cache_index=cache_index,
-                        frozen_kv=frozen_kv)
+                        frozen_kv=frozen_kv, segment_ids=segment_ids)
         if fused:
             attn_out = self.attention(
                 x, rope_cos, rope_sin, attn_mask,
@@ -490,14 +507,12 @@ class DDitFinalLayer(nn.Module):
 
 
 # arguments of the JAX DIT.__call__ whose branches later slices port
-_LATER_ARGS = ("sample_ids", "label", "x_cond", "extra_embed",
-               "img_block_index")
+_LATER_ARGS = ("label", "x_cond")
 
 _UNSUPPORTED_FLAGS = {
     "split_embed": "split text/image embedding",
     "cond_label": "class-label conditioning",
     "img_cond": "image cross-attention conditioning",
-    "img_count_embed": "image-count embedding",
 }
 
 
@@ -508,7 +523,8 @@ class DIT(nn.Module):
     attn_mask optional boolean (B, L, L) or (B, H, L, L)) -> logits
     (B, L, vocab) in ``model.logits_dtype``; with return_hidden, also the
     final hidden state. ``hidden(...)`` returns only the hidden state and
-    skips the vocab head.
+    skips the vocab head. Packed batches add sample_ids, rope_index and
+    img_block_index (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -518,14 +534,12 @@ class DIT(nn.Module):
         for flag, what in _UNSUPPORTED_FLAGS.items():
             if getattr(cfg, flag):
                 raise NotImplementedError(
-                    f"model.{flag} ({what}) is not in the port yet")
+                    f"model.{flag} ({what}) is not in the port yet "
+                    f"(ROADMAP queue 1, item 6)")
         if cfg.moe_experts > 0:
             raise NotImplementedError("model.moe_experts > 0 (MoE MLP) is "
-                                      "not in the port yet")
-        if cfg.img_resolutions is not None:
-            raise NotImplementedError("model.img_resolutions (multi-"
-                                      "resolution rope) is not in the port "
-                                      "yet (ROADMAP queue 1, item 6)")
+                                      "not in the port yet (ROADMAP queue "
+                                      "1, item 6)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -536,12 +550,22 @@ class DIT(nn.Module):
                                               compute_dtype=compute_dtype)
         if cfg.modality_embed:
             self.modality_embed = Embedding(2, dim)
+        if cfg.img_count_embed:
+            # the reference name: a bare table, zero at init
+            self.img_count_embedding = nn.Parameter(
+                torch.zeros(cfg.max_images_per_sample, dim))
         self.blocks = nn.ModuleList(DDiTBlock(cfg, compute_dtype)
                                     for _ in range(cfg.n_blocks))
         self.output_layer = DDitFinalLayer(cfg, compute_dtype)
-        cos, sin = build_multimodal_rope(cfg.txt_length, cfg.img_length,
-                                         cfg.head_dim, cfg.rope_2d,
-                                         base=cfg.rope_base)
+        if cfg.img_resolutions is not None:
+            # the text rows span the whole length, as in JAX
+            cos, sin, _ = build_multires_rope(
+                cfg.length, tuple(cfg.img_resolutions), cfg.head_dim,
+                base=cfg.rope_base)
+        else:
+            cos, sin = build_multimodal_rope(cfg.txt_length, cfg.img_length,
+                                             cfg.head_dim, cfg.rope_2d,
+                                             base=cfg.rope_base)
         self.register_buffer("rope_cos", torch.from_numpy(cos),
                              persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin),
@@ -578,6 +602,8 @@ class DIT(nn.Module):
                     uniform_(lin.bias, lin.bias.numel())
 
         uniform_(self.vocab_embed.embedding, cfg.hidden_size)
+        if cfg.img_count_embed:
+            self.img_count_embedding.zero_()
         if cfg.modality_embed:
             uniform_(self.modality_embed.embedding, cfg.hidden_size)
         if cfg.time_conditioning:
@@ -623,12 +649,14 @@ class DIT(nn.Module):
 
     def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
                kv_cache=None, cache_index=None, frozen_kv=None,
-               rope_index=None, dropout=None, **unsupported):
+               rope_index=None, dropout=None, sample_ids=None,
+               img_block_index=None, extra_embed=None, **unsupported):
         """Final hidden state (B, L, hidden) after the block stack, without
         the vocab head; with a kv_cache, (hidden, new_cache)."""
-        x, _, new_cache = self._trunk(indices, sigma, modality, attn_mask,
-                                      kv_cache, cache_index, frozen_kv,
-                                      rope_index, unsupported, dropout)
+        x, _, new_cache = self._trunk(
+            indices, sigma, modality, attn_mask, kv_cache, cache_index,
+            frozen_kv, rope_index, unsupported, dropout,
+            packed=(sample_ids, img_block_index, extra_embed))
         return x if kv_cache is None else (x, new_cache)
 
     def _dropout_per_block(self, dropout):
@@ -647,12 +675,32 @@ class DIT(nn.Module):
                              f"model has {len(self.blocks)}")
         return list(dropout)
 
-    def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
-               cache_index, frozen_kv, rope_index, unsupported,
-               dropout=None):
-        self._check(sigma, modality, unsupported)
+    def _embed(self, indices, modality, img_block_index, extra_embed):
+        """The token embedding with the image-count rows and the extra
+        embedding added, then the modality rows, in the JAX order."""
         cfg = self.cfg
         dt = self.compute_dtype
+        x = self.vocab_embed(indices).to(dt)
+        if cfg.img_count_embed and img_block_index is not None:
+            if modality is None:
+                raise ValueError("img_block_index needs modality")
+            idx = img_block_index.long().clamp(0,
+                                               cfg.max_images_per_sample - 1)
+            add = torch.where((modality == 1)[..., None],
+                              self.img_count_embedding[idx], 0.0)
+            x = x + add.to(dt)
+        if extra_embed is not None:
+            x = x + extra_embed.to(dt)
+        if cfg.modality_embed:
+            x = x + self.modality_embed(modality).to(dt)
+        return x
+
+    def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
+               cache_index, frozen_kv, rope_index, unsupported,
+               dropout=None, packed=(None, None, None)):
+        self._check(sigma, modality, unsupported)
+        sample_ids, img_block_index, extra_embed = packed
+        cfg = self.cfg
         if kv_cache is not None and frozen_kv is not None:
             raise ValueError("pass kv_cache or frozen_kv, not both")
         if kv_cache is not None or frozen_kv is not None:
@@ -663,12 +711,19 @@ class DIT(nn.Module):
                 raise ValueError("kv_cache and frozen_kv need a cache_index "
                                  "(an int, or a (B,) tensor of per-row "
                                  "positions) and take no attn_mask")
-        x = self.vocab_embed(indices).to(dt)
+            if sample_ids is not None:
+                raise ValueError("sample_ids take no kv_cache or frozen_kv")
+        x = self._embed(indices, modality, img_block_index, extra_embed)
         c = None
         if cfg.time_conditioning:
             c = silu(self.sigma_map(sigma))
-        if cfg.modality_embed:
-            x = x + self.modality_embed(modality).to(dt)
+        segment_ids = None
+        if sample_ids is not None and attn_mask is None:
+            if cfg.attn_backend == "xla":
+                attn_mask = make_sample_ids_mask(sample_ids)
+            else:
+                sample_ids = sample_ids.to(torch.int32)
+                segment_ids = (sample_ids, sample_ids)
         l = indices.shape[1]
         if rope_index is not None:
             cos, sin = self.rope_rows(rope_index, modality)
@@ -686,7 +741,8 @@ class DIT(nn.Module):
             kw = {} if context is None else {"context_fn": context}
             for blk, drop in zip(self.blocks, drops):
                 x = checkpoint(blk, x, c, cos, sin, modality, attn_mask,
-                               dropout=drop, use_reentrant=False, **kw)
+                               dropout=drop, segment_ids=segment_ids,
+                               use_reentrant=False, **kw)
             return x, c, None
         for i, blk in enumerate(self.blocks):
             # block i writes its slices of the (n_blocks, ...) cache in place
@@ -696,17 +752,22 @@ class DIT(nn.Module):
                     cache_index=cache_index,
                     frozen_kv=None if frozen_kv is None
                     else (frozen_kv[0][i], frozen_kv[1][i]),
-                    dropout=drops[i])
+                    dropout=drops[i], segment_ids=segment_ids)
         return x, c, (None if kv_cache is None else tuple(kv_cache))
 
     def rope_rows(self, rope_index, modality):
         """Per-token rotary rows (B, L, head_dim / 2) of the [text | image]
         table: a text token's index is clipped into the text rows, an
         image token's into the image rows after them, so rows flipped or
-        doubled in the batch keep their within-block positions."""
+        doubled in the batch keep their within-block positions. Under
+        model.img_resolutions the index is absolute into the combined
+        table (clipped to it)."""
+        cfg = self.cfg
+        if cfg.img_resolutions is not None:
+            eff = rope_index.long().clamp(0, self.rope_cos.shape[0] - 1)
+            return self.rope_cos[eff], self.rope_sin[eff]
         if modality is None:
             raise ValueError("rope_index needs modality")
-        cfg = self.cfg
         eff = torch.where(
             modality == 1,
             cfg.txt_length + rope_index.clamp(0, cfg.img_length - 1),
@@ -716,17 +777,21 @@ class DIT(nn.Module):
     def forward(self, indices, sigma=None, *, modality=None,
                 attn_mask=None, return_hidden: bool = False,
                 kv_cache=None, cache_index=None, frozen_kv=None,
-                rope_index=None, dropout=None, **unsupported):
+                rope_index=None, dropout=None, sample_ids=None,
+                img_block_index=None, extra_embed=None, **unsupported):
         """logits; (logits, hidden) with return_hidden; with a kv_cache
         also the new cache last: (logits, new_cache) or (logits, hidden,
         new_cache). rope_index (B, L): each token's position within its
         text or image block (``rope_rows``), in place of the rows of the
         fixed layout. dropout (training with model.dropout > 0): the seed
         of the masks (an int), or the masks, one (keep_attention,
-        keep_mlp) pair of (B, L, hidden) bool tensors per block."""
-        x, c, new_cache = self._trunk(indices, sigma, modality, attn_mask,
-                                      kv_cache, cache_index, frozen_kv,
-                                      rope_index, unsupported, dropout)
+        keep_mlp) pair of (B, L, hidden) bool tensors per block.
+        sample_ids, img_block_index (B, L) and extra_embed (B, L, hidden):
+        the packed-batch and transfusion arguments (module docstring)."""
+        x, c, new_cache = self._trunk(
+            indices, sigma, modality, attn_mask, kv_cache, cache_index,
+            frozen_kv, rope_index, unsupported, dropout,
+            packed=(sample_ids, img_block_index, extra_embed))
         logits = self.output_layer(x, c, modality)
         out = (logits, x) if return_hidden else (logits,)
         if kv_cache is not None:

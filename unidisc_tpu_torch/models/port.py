@@ -8,6 +8,7 @@ reference torch names:
 
   vocab_embed                         -> vocab_embed.embedding
   modality_embed                      -> modality_embed.embedding
+  img_count_embedding                 -> img_count_embedding
   sigma_map/mlp_{0,2}/{kernel,bias}   -> sigma_map.mlp.{0,2}.{weight,bias}
   blocks/attention/attn_qkv/kernel[i] -> blocks.{i}.attn_qkv.weight
   blocks/attention/attn_out/kernel[i] -> blocks.{i}.attn_out.weight
@@ -32,7 +33,9 @@ LayerNorm's ``scale`` still becomes ``weight``. Every other leaf is cast
 to fp32.
 
 ``elm_state_dict_from_jax`` does the same for the OpenELM baseline
-(``models/elm.py``), float or quantized.
+(``models/elm.py``), float or quantized, and
+``transfusion_state_dict_from_jax`` for the transfusion wrapper
+(``models/continuous.py``: ``proj_in``, ``proj_out`` and ``dit.*``).
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` over (params,
 EMA, the Adam moments and counts, the schedule's count) with the same
@@ -57,7 +60,9 @@ import numpy as np
 import torch
 
 _TOP_LEVEL = ("vocab_embed", "modality_embed", "sigma_map", "blocks",
-              "output_layer")
+              "output_layer", "img_count_embedding")
+# bare tables whose reference name has no ".embedding"
+_BARE = ("img_count_embedding",)
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -79,7 +84,7 @@ def _torch_name(path: tuple, quantized: bool = False) -> str:
     quantized dense (`quantized`), ``scale`` is the per-channel weight
     scale and keeps its name."""
     if len(path) == 1:                       # a bare table
-        return f"{path[0]}.embedding"
+        return path[0] if path[0] in _BARE else f"{path[0]}.embedding"
     mods = [re.sub(r"^mlp_(\d)$", r"mlp.\1", p) for p in path[:-1]
             if p != "attention"]
     leaf = path[-1] if quantized and path[-1] == "scale" \
@@ -166,6 +171,21 @@ def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[_torch_name(path, quantized)] = torch.from_numpy(
                 np.ascontiguousarray(arr.T if kernel else arr))
+    return sd
+
+
+def transfusion_state_dict_from_jax(params: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """flax ``TransfusionDIT`` params -> the port's state_dict: proj_in and
+    proj_out (kernels transposed) and the wrapped DIT under ``dit.``."""
+    sd = {f"dit.{k}": v for k, v in dit_state_dict_from_jax(
+        params["dit"]).items()}
+    for name in ("proj_in", "proj_out"):
+        p = params[name]
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(p["kernel"], np.float32).T))
+        sd[f"{name}.bias"] = torch.from_numpy(
+            np.asarray(p["bias"], np.float32).copy())
     return sd
 
 

@@ -2,7 +2,9 @@
 
 The tables are built host-side in numpy, exactly as the JAX package builds
 them: 1D tables for text and Lumina-style axial 2D tables for the square
-image grid. ``apply_rope`` uses the non-interleaved GPT-NeoX convention.
+image grid, and ``build_multires_rope``'s combined [1D text | one 2D block
+per grid] table of interleaved variable-resolution batches.
+``apply_rope`` uses the non-interleaved GPT-NeoX convention.
 """
 
 from __future__ import annotations
@@ -46,6 +48,41 @@ def rope_2d_lumina(seq_len_2d: int, head_dim: int, linear_factor: float = 1.0,
     angles[..., 1::2] = ang[None, :, :]
     angles = angles.reshape(seq_len_2d, head_dim // 2)
     return np.cos(angles).astype(np.float32), np.sin(angles).astype(np.float32)
+
+
+def build_multires_rope(txt_length: int, img_lengths: Tuple[int, ...],
+                        head_dim: int, base: float = 10_000.0,
+                        linear_factor=None):
+    """The combined table of interleaved variable-resolution batches: rows
+    [0, txt_length) the 1D table, then one 2D Lumina block per grid of
+    `img_lengths`. Returns (cos, sin, offsets), offsets mapping an image
+    length to the row of its block; the packer adds it to each image
+    token's raster index. linear_factor: the frequency stretch of every
+    block, default grid side / 16 (at least 1)."""
+    cos1, sin1 = rope_1d(txt_length, head_dim, base)
+    cos_parts, sin_parts = [cos1], [sin1]
+    offsets = {}
+    off = txt_length
+    for n in img_lengths:
+        lf = (linear_factor if linear_factor is not None
+              else max(math.isqrt(n) / 16.0, 1.0))
+        c2, s2 = rope_2d_lumina(n, head_dim, lf, base)
+        offsets[n] = off
+        cos_parts.append(c2)
+        sin_parts.append(s2)
+        off += n
+    return (np.concatenate(cos_parts, 0), np.concatenate(sin_parts, 0),
+            offsets)
+
+
+def rope_offsets(m):
+    """The image blocks' row offsets in a ModelConfig's combined
+    multi-resolution table (``model.img_resolutions``, its text rows
+    spanning model.length, as the DIT builds it), or None without one."""
+    if m.img_resolutions is None:
+        return None
+    return build_multires_rope(m.length, tuple(m.img_resolutions),
+                               m.head_dim, base=m.rope_base)[2]
 
 
 def build_multimodal_rope(txt_length: int, img_length: int, head_dim: int,

@@ -2,8 +2,9 @@
 
 This is the JAX package's "xla" backend: scores in fp32, ``-inf`` masking
 and ``nan_to_num`` on fully-masked rows. In the port it serves callers
-that pass a dense ``attn_mask`` and models configured with
-``attn_backend="xla"``; every other self-attention goes through the
+that pass a dense ``attn_mask`` (the transfusion mask among them) and
+models configured with ``attn_backend="xla"``, where a packed batch's
+``sample_ids`` become the dense ``make_sample_ids_mask``; every other self-attention goes through the
 hand-written kernel in ``ops/flash_attention.py``, whose masked rows follow
 the flash kernels' rules instead (additive -1e30, padded rows defined as
 zero).
@@ -14,6 +15,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def make_sample_ids_mask(sample_ids: torch.Tensor) -> torch.Tensor:
+    """(B, L, L) boolean mask of a packed batch: a token attends only to
+    tokens of its own sample, and a token with a negative id (padding) to
+    nothing."""
+    same = sample_ids[:, :, None] == sample_ids[:, None, :]
+    valid = (sample_ids >= 0)[:, :, None] & (sample_ids >= 0)[:, None, :]
+    return same & valid
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

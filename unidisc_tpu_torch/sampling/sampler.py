@@ -301,12 +301,14 @@ class Sampler:
                                                             torch.float32)
         return inputs
 
-    def example_inputs(self, b: int) -> dict:
-        """Inputs of the right shapes for a batch of b rows, for a capture's
-        warm-up: the flagship layout's modality, the text masked."""
+    def _example_args(self, b: int) -> tuple:
+        """(x0, x0_unmask, modality, injected) of the right shapes for a
+        batch of b rows: text then image rows over model.length (the
+        flagship layout's modality), the text masked."""
         m = self.config.model
-        modality = np.concatenate([np.zeros((b, m.txt_length), np.int64),
-                                   np.ones((b, m.img_length), np.int64)], 1)
+        modality = np.repeat(
+            (np.arange(m.length) >= m.txt_length).astype(np.int64)[None],
+            b, 0)
         injected = None
         if self.inject_noise:
             shape = (self.steps, b, m.length)
@@ -314,8 +316,19 @@ class Sampler:
                         "gumbel": np.zeros(shape, np.float32),
                         "uniform": np.full(shape, 0.5, np.float32)}
             injected = {k: injected[k] for k in self._noise_keys}
-        return self.prepare(np.zeros((b, m.length), np.int64),
-                            modality == 1, modality, injected)
+        return (np.zeros((b, m.length), np.int64), modality == 1, modality,
+                injected)
+
+    def example_inputs(self, b: int) -> dict:
+        """Inputs of the right shapes for a batch of b rows, for a capture's
+        warm-up."""
+        x0, unmask, modality, injected = self._example_args(b)
+        return self.prepare(x0, unmask, modality, injected=injected)
+
+    def _model_kwargs(self, inputs, reps: int) -> dict:
+        """Extra keyword arguments of the model's forward, for a forward of
+        `reps` copies of the batch (2 under CFG)."""
+        return {}
 
     def _noise(self, inputs, key, i):
         return inputs[key][i] if key in inputs else None
@@ -341,13 +354,15 @@ class Sampler:
             mm = None if modality is None else torch.cat([modality,
                                                           modality], 0)
             logits = model(torch.cat([x, x_uncond], 0),
-                           torch.cat([sigma, sigma], 0), modality=mm)
+                           torch.cat([sigma, sigma], 0), modality=mm,
+                           **self._model_kwargs(inputs, 2))
             logit_c, logit_u = logits.chunk(2, dim=0)
             w = p["w"][i][:, None, None]
             combined = (1 + w) * logit_c - w * logit_u
             return subs_parameterization(combined, None, m.mask_index,
                                          normalize=normalize, **modal_kw)
-        logits = model(x, sigma, modality=modality)
+        logits = model(x, sigma, modality=modality,
+                       **self._model_kwargs(inputs, 1))
         return subs_parameterization(logits, x, m.mask_index,
                                      normalize=normalize, **modal_kw)
 
@@ -455,12 +470,47 @@ class Sampler:
         return SampleResult(tokens=x, nfe=nfe)
 
     @torch.inference_mode()
-    def __call__(self, x0, x0_unmask, modality=None, *,
+    def __call__(self, x0, x0_unmask, modality=None, *packed,
                  generator: Optional[torch.Generator] = None,
                  injected=None) -> SampleResult:
-        inputs = self.prepare(x0, x0_unmask, modality, injected)
+        """packed: a PackedSampler's sample_ids and rope_index."""
+        inputs = self.prepare(x0, x0_unmask, modality, *packed,
+                              injected=injected)
         x, state = self.denoise(inputs, generator)
         return self.finish(x, state, inputs)
+
+
+class PackedSampler(Sampler):
+    """The generic sampler over packed rows (interleaved documents): each
+    call also takes sample_ids and rope_index (B, L), uploaded with the
+    other inputs (a captured program's static inputs) and tiled over the
+    CFG-doubled rows of every forward, as the JAX engine's interleaved
+    sampler does. Called as ``sample(x0, x0_unmask, modality, sample_ids,
+    rope_index, *, generator=None, injected=None)``."""
+
+    def prepare(self, x0, x0_unmask, modality=None, sample_ids=None,
+                rope_index=None, injected=None) -> dict:
+        if modality is None or sample_ids is None or rope_index is None:
+            raise ValueError("a packed sampler takes modality, sample_ids "
+                             "and rope_index")
+        inputs = super().prepare(x0, x0_unmask, modality, injected)
+        dev = self.device
+        inputs["sample_ids"] = torch.as_tensor(sample_ids).to(dev,
+                                                              torch.int32)
+        inputs["rope_index"] = torch.as_tensor(rope_index).to(dev,
+                                                              torch.long)
+        return inputs
+
+    def example_inputs(self, b: int) -> dict:
+        x0, unmask, modality, injected = self._example_args(b)
+        zeros = np.zeros(x0.shape, np.int64)
+        return self.prepare(x0, unmask, modality, zeros, zeros,
+                            injected=injected)
+
+    def _model_kwargs(self, inputs, reps: int) -> dict:
+        return {k: inputs[k].repeat(reps, 1)
+                for k in ("sample_ids", "rope_index")}
+
 
 
 # maskgit's confidence floor, log(1e-30) in fp32
@@ -468,7 +518,8 @@ _LOG_1E_30 = float(np.log(np.float32(1e-30)))
 
 
 def build_sampler(model, config: Config, num_steps: Optional[int] = None,
-                  inject_noise: bool = False, device="cuda") -> Sampler:
+                  inject_noise: bool = False, device="cuda",
+                  packed: bool = False) -> Sampler:
     """The generic sampler of ``config.sampling.predictor``:
     sample(x0 (B, L), x0_unmask (B, L) bool, modality (B, L) 0/1 or None,
     *, generator=None, injected=None) -> SampleResult. x0 holds the given
@@ -483,6 +534,10 @@ def build_sampler(model, config: Config, num_steps: Optional[int] = None,
     draw; a key the predictor reads and the dict leaves out is drawn from
     `generator`, one it does not read is ignored.
 
+    packed=True: the ``PackedSampler`` of interleaved documents, which
+    also takes each row's sample_ids and rope_index.
+
     The model must already be on `device` and in eval mode.
     """
-    return Sampler(model, config, num_steps, inject_noise, device)
+    cls = PackedSampler if packed else Sampler
+    return cls(model, config, num_steps, inject_noise, device)

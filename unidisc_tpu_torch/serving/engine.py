@@ -41,8 +41,16 @@ or int8 W8A8 (``quantize="int8"``), with the int8 KV cache
 (``training/lora.py``, either package's ``lora_adapter.npz``) into the
 weights before any quantization; a LoRA run dir is served as its base plus
 its EMA adapter, a host-offload run dir as the EMA gathered from its
-chunks. Meshes and the interleaved documents are later slices (ROADMAP
-queue 1): they raise ``NotImplementedError`` naming their items.
+chunks.
+
+``run_interleaved`` generates over one interleaved document (given and
+generated text spans, given images with optional regions to regenerate,
+generated images), laid out as one packed row with its sample ids and
+rope indices, through the generic sampler's packed form
+(``sampling/sampler.py::PackedSampler``; on the card its captured
+program). Under ``model.img_resolutions`` an image's rope indices carry
+its block's offset in the combined table. Meshes are a later slice
+(ROADMAP queue 1, item 9) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -218,11 +226,125 @@ class InferenceEngine(_TextCompletion):
                                  eos_id=self._eos(),
                                  device_lock=self._device_lock, **kw)
 
-    def run_interleaved(self, segments, **kwargs):
-        """The interleaved-document route of the server."""
-        raise NotImplementedError("interleaved documents are not in the port "
-                                  "yet (ROADMAP queue 1, item 6: the DIT's "
-                                  "interleaved variants)")
+    def _interleaved_sampler(self, steps: Optional[int] = None):
+        """The packed generic sampler of interleaved documents, one row."""
+        key = ("interleaved", steps or self.config.sampling.steps)
+        if key not in self._samplers:
+            from unidisc_tpu_torch.sampling.sampler import build_sampler
+            self._samplers[key] = build_sampler(
+                self.model, self.config, num_steps=key[1],
+                device=self.device, packed=True)
+        return self._program(self._samplers[key], 1)
+
+    def interleaved_row(self, segments: List[dict]) -> dict:
+        """One document's packed row: {"row": x0, unmask, modality,
+        sample_ids and rope_index (L,), "spans": [(kind, start, end,
+        grid)]} (the layout of ``run_interleaved``)."""
+        m = self.m
+        length = m.length
+        row = {"x0": np.zeros(length, np.int32),
+               "unmask": np.zeros(length, bool),
+               "modality": np.zeros(length, np.int32),
+               "sample_ids": np.full(length, -1, np.int32),
+               "rope_index": np.zeros(length, np.int32)}
+        from unidisc_tpu_torch.models.rotary import rope_offsets
+        offsets = rope_offsets(m)
+        spans = []
+        pos = txt_pos = 0
+        for seg in segments:
+            if seg["kind"] == "text":
+                if seg.get("generate"):
+                    n = int(seg["generate"])
+                    ids, known = np.zeros(n, np.int32), np.zeros(n, bool)
+                else:
+                    # given text is whole conditioning; a generate slot
+                    # holds free text
+                    ids = np.asarray(self.tokenizer.encode(
+                        seg["text"], add_bos=(pos == 0), add_eos=False),
+                        np.int32)
+                    known = np.ones(len(ids), bool)
+                rope = np.arange(txt_pos, txt_pos + len(ids))
+                txt_pos += len(ids)
+                grid = 0
+            elif seg["kind"] == "image":
+                if seg.get("generate"):
+                    grid = int(seg.get("grid", math.isqrt(m.img_length)))
+                    ids = np.zeros(grid * grid, np.int32)
+                    known = np.zeros(grid * grid, bool)
+                else:
+                    raw = np.asarray(seg["ids"], np.int32).reshape(-1)
+                    grid = math.isqrt(len(raw))
+                    ids = raw + (0 if raw.max(initial=0) >=
+                                 m.text_vocab_size else m.text_vocab_size)
+                    known = np.ones(len(ids), bool)
+                    if seg.get("pixel_mask") is not None:
+                        pm = np.asarray(seg["pixel_mask"])
+                        known &= ~downscale_bool_mask(
+                            pm, pm.shape[0] // grid).reshape(-1)
+                rope = np.arange(len(ids))   # raster, per image
+                if offsets is not None:
+                    if len(ids) not in offsets:
+                        raise ValueError(
+                            f"an image of {len(ids)} tokens; "
+                            f"model.img_resolutions has "
+                            f"{tuple(m.img_resolutions)}")
+                    rope = rope + offsets[len(ids)]
+            else:
+                raise ValueError(f"unknown segment kind {seg['kind']!r}")
+            n = len(ids)
+            if pos + n > length:
+                raise ValueError(f"the document exceeds model.length "
+                                 f"{length}")
+            sl = slice(pos, pos + n)
+            row["x0"][sl], row["unmask"][sl] = ids, known
+            row["modality"][sl] = int(seg["kind"] == "image")
+            row["rope_index"][sl] = rope
+            spans.append((seg["kind"], pos, pos + n, grid))
+            pos += n
+        row["sample_ids"][:pos] = 0   # one document a row
+        return {"row": row, "spans": spans}
+
+    def run_interleaved(self, segments: List[dict], *,
+                        steps: Optional[int] = None, seed: int = 0) -> dict:
+        """Generate over one interleaved document. segments, in order:
+        {"kind": "text", "text": str} (given), {"kind": "text", "generate":
+        N} (N tokens to generate), {"kind": "image", "ids": (G*G,),
+        "pixel_mask": optional (H, W[, C]) bool} (given; the mask, pooled
+        to the token grid, marks the region to regenerate) and {"kind":
+        "image", "generate": True, "grid": G}. Returns {"segments" (text
+        decoded; image ids, their grid, and a PNG where the grid is the
+        codec's), "tokens" (L,), "nfe"}."""
+        with self._device_lock:
+            return self._run_interleaved_locked(segments, steps=steps,
+                                                seed=seed)
+
+    def _run_interleaved_locked(self, segments, *, steps, seed):
+        m = self.m
+        doc = self.interleaved_row(segments)
+        row = doc["row"]
+        sample = self._interleaved_sampler(steps)
+        out = sample(*(row[k][None] for k in ("x0", "unmask", "modality",
+                                              "sample_ids", "rope_index")),
+                     seed=seed)
+        host = out.tokens[0].cpu().numpy()
+        from unidisc_tpu_torch.tokenizers.text import wrapped_batch_decode
+        codec_grid = None if self.codec is None \
+            else self.codec.image_size // self.codec.downsample
+        result = []
+        for kind, start, end, grid in doc["spans"]:
+            if kind == "text":
+                result.append({"kind": "text", "text": wrapped_batch_decode(
+                    self.tokenizer, host[None, start:end])[0]})
+                continue
+            ids = np.clip(host[start:end] - m.text_vocab_size, 0,
+                          m.image_vocab_size - 1)
+            seg = {"kind": "image", "ids": ids, "grid": grid}
+            if grid == codec_grid:   # another grid: ids only
+                img = self.codec.decode(torch.from_numpy(ids)[None])
+                seg["image_b64"] = encode_image_b64(
+                    to_uint8(img)[0].cpu().numpy())
+            result.append(seg)
+        return {"segments": result, "tokens": host, "nfe": int(out.nfe)}
 
     def _program(self, sampler, batch: int):
         """`sampler` as the engine runs it, run(*inputs, seed): on the card

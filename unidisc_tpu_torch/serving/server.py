@@ -11,9 +11,10 @@ call of a handler thread (the codec's encode of an attached image) runs
 under the engine's device lock. An AR model (a DIT with
 ``trainer.parameterization=ar``, or ``--model elm[:size]``, the OpenELM
 baseline) answers text requests through the engine's continuous batcher,
-and with ``stream: true`` streams the text as it decodes. The interleaved
-route is a later slice: its engine call raises, and the server answers 500
-with the message, as it answers any engine error.
+and with ``stream: true`` streams the text as it decodes. A request with
+``segments`` is an interleaved document (``engine.run_interleaved``),
+answered as an ``interleaved.completion``; any engine error answers 500
+with its message.
 
 Run: python -m unidisc_tpu_torch.serving.server --port 8000 [--ckpt DIR]
          [--codec llamagen-vq16] [--rolling 8] [--quantize int8]
@@ -36,6 +37,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import numpy as np
 import torch
 
 from unidisc_tpu_torch.serving.batcher import RequestBatcher
@@ -217,10 +219,7 @@ class Handler(BaseHTTPRequestHandler):
 
             if "segments" in req:
                 self._route = "interleaved"
-                result = self.engine.run_interleaved(
-                    req["segments"], steps=req.get("steps"),
-                    seed=req.get("seed", int(time.time()) % 2 ** 31))
-                self._json(200, result)
+                self._interleaved(req, key)
                 return
 
             parsed = parse_messages(req.get("messages", []))
@@ -267,6 +266,44 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 — any engine error is a 500
             self.metrics.count("errors_total")
             self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def _interleaved(self, req: dict, key: str):
+        """An interleaved document (``engine.run_interleaved``): image_b64
+        segments are encoded by the codec on the device (400 without a
+        codec), pixel masks become bool arrays; the request bypasses the
+        batcher (one document a row) and runs under the engine's lock."""
+        codec = self.engine.codec
+        if codec is None and any("image_b64" in s for s in req["segments"]):
+            self._json(400, {"error": "image_b64 segments need a codec "
+                                      "(--codec) for pixel I/O"})
+            return
+        segs = []
+        for s in req["segments"]:
+            s = dict(s)
+            if s.get("kind") == "image" and "image_b64" in s:
+                img = torch.from_numpy(decode_image_b64(s.pop("image_b64")))
+                with self.engine._device_lock:
+                    s["ids"] = codec.encode(
+                        img[None].to(self.engine.device))[0].cpu().numpy()
+            if s.get("pixel_mask") is not None:
+                s["pixel_mask"] = np.asarray(s["pixel_mask"], bool)
+            segs.append(s)
+        result = self.engine.run_interleaved(
+            segs, steps=req.get("steps"),
+            seed=req.get("seed", int(time.time()) % 2 ** 31))
+        out = []
+        for s in result["segments"]:
+            if s["kind"] == "text":
+                out.append({"kind": "text", "text": s["text"]})
+                continue
+            o = {"kind": "image", "grid": s["grid"],
+                 "ids": [int(i) for i in s["ids"]]}
+            if "image_b64" in s:
+                o["image_b64"] = s["image_b64"]
+            out.append(o)
+        self._json(200, {"id": f"unidisc-{key[:12]}",
+                         "object": "interleaved.completion",
+                         "segments": out, "usage": {"nfe": result["nfe"]}})
 
     def _ar_completion(self, req: dict, parsed: dict, key: str):
         """An AR text completion; with stream:true, SSE deltas of the text

@@ -23,7 +23,9 @@ relaunches it and it resumes.
 Data: synthetic batches by default; ``--data`` names token-shard
 directories (``data/token_shards.py``), sampled by
 ``data.dataset_weights`` (default: their sizes); with ``--stream`` one
-directory of ``shard-*.npz`` files is streamed in order with exact
+directory of ``shard-*.npz`` files, or of ragged ``ishard-*.npz``
+documents under ``trainer.interleaved`` (packed into rows of
+``model.length`` as they stream), is streamed in order with exact
 mid-epoch resume (``data/streaming.py``). The validation loader is the
 same source at seed + 777. ``--iterate-data-only N`` reads N batches
 without the model and reports the loader's host tok/s.
@@ -63,10 +65,18 @@ def make_loaders(config: Config, batch: int, data=None, stream=False):
     """(train loader, validation loader) of the CLI's data options."""
     if data and stream:
         from unidisc_tpu_torch.data.streaming import StreamingShardReader
-        return tuple(StreamingShardReader(
-            data, batch_size=batch, seed=seed,
-            pack_length=config.model.length if config.trainer.interleaved
-            else None) for seed in (config.seed, config.seed + 777))
+        from unidisc_tpu_torch.models.rotary import rope_offsets
+        packed = {}
+        if config.trainer.interleaved:
+            # ragged shards pack into rows of the model's length with EOS
+            # 2 (JAX train.py); under img_resolutions the image tokens
+            # index the combined rope table, so the packer takes its
+            # offsets (JAX passes none: ROADMAP section 3)
+            packed = dict(pack_length=config.model.length, eos_id=2,
+                          rope_offsets=rope_offsets(config.model))
+        return tuple(StreamingShardReader(data, batch_size=batch, seed=seed,
+                                          **packed)
+                     for seed in (config.seed, config.seed + 777))
     if data:
         from unidisc_tpu_torch.data.token_shards import (
             TokenShardDataset, WeightedDatasetSampler)
@@ -110,7 +120,9 @@ def main(argv=None):
                         help="comma-separated token-shard dirs; default "
                              "synthetic data")
     parser.add_argument("--stream", action="store_true",
-                        help="stream one dir of shard-*.npz files in order, "
+                        help="stream one dir of shard-*.npz (or, under "
+                             "trainer.interleaved, ishard-*.npz) files in "
+                             "order, "
                              "with exact mid-epoch resume")
     parser.add_argument("--base-checkpoint", default=None,
                         help="a port run dir: the frozen base of a LoRA "

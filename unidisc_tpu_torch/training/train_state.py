@@ -32,9 +32,11 @@ per-token ``rope_index``; the legacy ``sedd`` and ``d3pm`` losses
 ``first_token_dropout``); the five optimizers with the four LR schedules
 and muP; remat (``trainer.use_gradient_checkpointing``); training-mode
 dropout; gradient accumulation; low-precision params with an fp32 EMA; a
-``param_map`` (the LoRA merge, ``training/lora.py``). ``img_cond``, MoE
-and interleaved batches (``sample_ids``) raise ``NotImplementedError``
-(ROADMAP queue 1, item 6).
+``param_map`` (the LoRA merge, ``training/lora.py``); packed interleaved
+batches (``data/interleaved.py``: ``sample_ids`` and ``rope_index`` go to
+the DIT, and under ``trainer.interleaved`` the CFG masking takes whole
+blocks of a sample). ``img_cond``, MoE and ``x_cond`` raise
+``NotImplementedError`` (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -197,7 +199,7 @@ def init_train_state(config: Config,
 # Loss
 # ---------------------------------------------------------------------------
 
-_LATER_BATCH_KEYS = ("sample_ids", "x_cond")
+_LATER_BATCH_KEYS = ("x_cond",)
 
 
 def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
@@ -210,7 +212,8 @@ def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
     m_cfg = config.model
     b, dev = x0.shape[0], x0.device
     flip_rows = train and t_cfg.rand_flip_ar_prob is not None
-    if (t_cfg.ar_inpainting or flip_rows) and "rope_index" not in extra:
+    if (t_cfg.ar_inpainting or flip_rows) and "rope_index" not in extra \
+            and m_cfg.img_resolutions is None:
         # flipped or doubled rows leave the fixed [txt | img] layout: each
         # token keeps its position within its block (JAX defines the
         # doubled path so; the reference's reads NaN-padded rope rows)
@@ -316,8 +319,9 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     loss); for ``ar``, the next-token loss (``_ar_batch_loss``).
 
     batch: dict with input_ids (B, L) and optionally modality (B, L),
-    attention_mask (B, L), rope_index (B, L) and label (B,) (the class id
-    that ``trainer.add_label`` writes at position 0), as tensors on the
+    attention_mask (B, L), rope_index (B, L), sample_ids (B, L) (a packed
+    batch, -1 on padding) and label (B,) (the class id that
+    ``trainer.add_label`` writes at position 0), as tensors on the
     model's device. params: the parameters apply_fn runs with (None: the
     model's own). micro: the microbatch index (it varies the dropout
     seed).
@@ -329,9 +333,9 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
                                   "port yet (ROADMAP queue 1, item 6)")
     later = [k for k in _LATER_BATCH_KEYS if k in batch]
     if later:
-        raise NotImplementedError(f"batch keys {later} (interleaved / "
-                                  f"image-conditioned batches) are not in "
-                                  f"the port yet (ROADMAP queue 1, item 6)")
+        raise NotImplementedError(f"batch keys {later} (image-conditioned "
+                                  f"batches) are not in the port yet "
+                                  f"(ROADMAP queue 1, item 6)")
     noise = get_noise(config.noise)
     x0 = batch["input_ids"].long()
     modality = batch.get("modality")
@@ -341,6 +345,8 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     if attention_mask is not None:
         attention_mask = attention_mask.bool()
     extra = {}
+    if "sample_ids" in batch:
+        extra["sample_ids"] = batch["sample_ids"].to(torch.int32)
     if "rope_index" in batch:
         extra["rope_index"] = batch["rope_index"].long()
     drop = dropout_arg(config, train, draws, generator, micro)
@@ -390,6 +396,8 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
         x0, move_chance, m_cfg.mask_index, modality=modality,
         mask_entire_modality=t_cfg.mask_entire_modality if train else None,
         multimodal=t_cfg.multimodal_batches,
+        # interleaved batches mask whole blocks of a sample for CFG
+        sample_ids=extra.get("sample_ids") if t_cfg.interleaved else None,
         protect_first=t_cfg.add_label,
         first_token_dropout=t_cfg.first_token_dropout if train else None,
         diffusion_mode=t_cfg.discrete_diffusion_mode,
