@@ -107,10 +107,11 @@ and prints no result):
      path; (d) 8 concurrent chat completions over HTTP to the bf16
      engine, half streamed, the deltas concatenating to the answer; (c)
      build_engine(preset="elm:450m", speculative="270m", spec_gamma=4) and
-     elm:270m with speculative="lookup", 8 greedy requests each equal to a
+     elm:270m with speculative="lookup", 4 greedy requests each equal to a
      plain batcher's, with the acceptance rate and tokens a target read;
      (b) the flagship DIT-AR (FLAGSHIP_OVERRIDES + parameterization ar,
-     causal, ar_shift; L 384) in bf16 and int8 with the int8 KV cache:
+     causal, ar_shift; L 384; 6 of its 12 blocks) in bf16 and int8 with
+     the int8 KV cache:
      build_ar_sampler at batch 8 with CFG 2.0 as its captured program
      (equal to the eager loop, launches exact) and the same 16 requests
      (cut to fit 384 positions) through engine.continuous. Lines
@@ -159,23 +160,25 @@ and prints no result):
      0.1 from one seed (off against "dots"), then 10 steps through
      Trainer.fit with dropout 0.1 under remat "dots" (the loss of the
      batch under fixed draws falls); (c) Lion, AdEMAMix, Adafactor, Muon
-     and AdamW + muP: one full-width update on the card against the CPU
-     from the same parameters and gradients, then 10 steps each through
-     train.main (the loss under fixed draws falls), Adafactor checkpointed
-     at 5 and a run resumed from it with the straight run's losses; (d)
+     and AdamW + muP, on 6 of the flagship's 12 blocks: one full-width
+     update on the card against the CPU from the same parameters and
+     gradients, then 10 steps each through train.main (the loss under
+     fixed draws falls), Adafactor checkpointed at 5 and a run resumed
+     from it with the straight run's losses; (d)
      LoRA r16 over phase 5's run dir (base_checkpoint), 10 steps through
      Trainer.fit: the base bit-equal, the run dir served by
      build_engine(checkpoint=) as base + EMA adapter, 8 t2i requests as in
-     phase 4; (e) host offload: chunked (8) = unchunked (1) and working =
-     bf16(master) after 2 steps on the card, the flagship 10 steps through
-     Trainer.fit and its run dir served as in (d); extra_large at batch 16,
-     5 steps each resident, resident with remat and offloaded with remat
+     phase 4; (e) host offload, on 6 of the flagship's blocks: chunked (8)
+     = unchunked (1) and working = bf16(master) after 2 steps on the card,
+     10 steps through Trainer.fit and its run dir served as in (d);
+     extra_large (all of it) at batch 16,
+     3 steps each resident, resident with remat and offloaded with remat
      (peak memory and step time); (f) CFG distillation (guidance 2.0) of a
      4-block student from phase 5's run dir (the teacher's [cond || uncond]
      forward at batch 64 through the kernel), 10 steps, the KL falls; (g)
-     the supervisor CLI over train.main (batch 8): SIGTERM to the child
-     after its 4th step, the child checkpoints and exits 143, is
-     relaunched, resumes and finishes. Lines `remat`, `optimizers`,
+     the supervisor CLI over train.main (batch 8, 4 blocks): SIGTERM to
+     the child after its 4th step, the child checkpoints and exits 143,
+     is relaunched, resumes and finishes. Lines `remat`, `optimizers`,
      `train_rest` (step s, tok/s and peak GB a path) and `offload`.
   5e. interleaved documents end to end, at the flagship width with the
      interleaved experiment (L 1024: 128 text rope rows and one 16 x 16
@@ -210,8 +213,42 @@ and prints no result):
      samplers (time-conditioned: each stride captured; without: eager)
      on the card against the CPU under the same injected noise (token
      agreement >= 0.95, equal NFE); (c) TransfusionDIT at the flagship
-     width, 32 DDIM steps on the card against the CPU in fp32 (max abs
+     width, 8 DDIM steps on the card against the CPU in fp32 (max abs
      error <= 1e-2 of the latents' largest magnitude).
+  5g. the DIT variants and the data tail: (a) 64 procedural 256-px
+     images encoded by the VQ-16 codec on the card into a token shard
+     (data/precompute.py); one gradient of the MoE flagship
+     (FLAGSHIP_TRAIN_OVERRIDES + 8 experts, top-2, capacity factor 1.25,
+     aux weight 0.01, batch 32) through the kernels against the plain
+     path; 10 steps of it through train.main on that shard (--overfit),
+     counted (each train kernel once a block a step), the fixed-draw loss
+     falling, the balance auxiliary finite at the final parameters, s/step,
+     tok/s and peak memory; (b) its run dir served by
+     build_engine(checkpoint=) with the flagship's sampling: 8 t2i
+     requests in bf16 and in int8 (quant_fused off: int8_matmul and
+     dynamic_quantize on the attention and head products, the experts in
+     floating point), launches exact, the captured program equal to the
+     eager sampler at the same seed; the served weights' logits on the
+     card in fp32 (plain attention) against the CPU's (within 1e-4 of the
+     largest logit, routing agreement >= 0.999) and in bf16 through the
+     kernels (within twice the plain bf16 path's distance), routing
+     agreement shares printed; (f) DevicePrefetcher over the shard:
+     batches on the card equal to the loader's, a resume exact; (c) the
+     img_cond flagship (1D rope, no QK-norm or sandwich norm, 8
+     conditioning blocks over 256 VQ-16 ids, batch 32): one gradient
+     against the plain path (attention launches 2 x 12 + 8 a pass), 10
+     train steps on one batch with x_cond (counted, the fixed-draw loss
+     falling), then 4-step maskgit samples through the closure over x_cond
+     (sampling/sampler.py::ConditionedModel), the captured program equal to
+     the eager sampler under injected noise for two conditions that give
+     different tokens; (d) flash_fwd (with the LSE), flash_bwd_dq and
+     flash_bwd_dkv at the cross-attention's (32, 12, 384 x 256, 64) and the
+     trunk's (32, 12, 256, 64) against their plain versions, times beside
+     the bound and SDPA; (e) the split_embed and cond_label flagships,
+     forward through the kernels within twice the plain bf16 path's
+     distance of the plain fp32 path. Lines `moe_train_line`,
+     `moe_logits`, `img_cond_train`, `img_cond_sample`, `kernel img_cond`
+     and `variants`.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -313,6 +350,7 @@ BF16_ULP = 2.0 ** -7   # relative spacing of bf16 (8-bit significand)
 Q_SCALE_RTOL = 1e-6    # fused_qmm scales: fp32 row sums in another order
 Q_MOVED_SHARE = 1e-3   # ... can move a value on a rounding boundary by one
 REQUESTS = 8      # batch 8 -> 16 rows under CFG
+SERVE_ROUNDS = 2  # steady batches timed a served path
 CODEC = "llamagen-vq16"
 # the codec on the card against the CPU: fp32 on both sides (TF32 off), in
 # another summation order; the bound of the JAX package's torch-mirror
@@ -1056,8 +1094,8 @@ def phase_logits(engine, seed) -> dict:
     for dtype, logits in ((torch.bfloat16, cfg.logits_dtype),
                           (torch.float32, "float32")):
         mdl = DIT(dataclasses.replace(cfg, attn_backend="xla",
-                                      logits_dtype=logits),
-                  compute_dtype=dtype).to("cuda").eval()
+                                            logits_dtype=logits),
+                  dtype, device="cuda", init=False).eval()
         mdl.load_state_dict(state)
         plain[dtype] = mdl
     x, sigma, modality = forward_inputs(engine, 2 * REQUESTS, seed)
@@ -1115,7 +1153,7 @@ def phase_int8_logits(engine, qengine, seed) -> dict:
             mdl = DIT(dataclasses.replace(
                 cfg, attn_backend="xla", quant_backend="xla",
                 quant_fused=False, logits_dtype=logits),
-                compute_dtype=dtype).to("cuda").eval()
+                dtype, device="cuda", init=False).eval()
             mdl.load_state_dict(state)
             out[label] = mdl(x, sigma, modality=modality).float()
             del mdl
@@ -1307,7 +1345,7 @@ def tiny_models(seed) -> dict:
     """The tiny bf16 model on the card and its int8 (flagship settings)
     quantization, for phase_graph_vs_eager."""
     cfg = Config.make("tiny", **TINY_OVERRIDES)
-    model = DIT(cfg.model, compute_dtype=torch.bfloat16).to("cuda").eval()
+    model = DIT(cfg.model, torch.bfloat16, device="cuda", init=False).eval()
     randomize_(model, seed)
     qcfg = cfg.override(**{"model.quant_backend": "pallas",
                            "model.quant_fused": True})
@@ -1367,14 +1405,18 @@ def expected_serve_launches(m, s, nfe, t2i=True) -> dict:
     and every forward of the refresh paths."""
     n = m.n_blocks
 
+    # int8 products a block: attn_qkv, attn_out, mlp.0, mlp.2; under MoE
+    # the experts stay in floating point (validate() keeps quant_fused off)
+    products = 2 if m.moe_experts else 4
+
     def forward(fused):
         want = {"flash_fwd": n}
         if m.quant == "int8":
             if m.quant_backend == "pallas":
-                want["int8_matmul"] = 4 * n + 1
+                want["int8_matmul"] = products * n + 1
             if fused:
                 want["fused_qmm"] = 2 * n
-            want["dynamic_quantize"] = (2 if fused else 4) * n + 1
+            want["dynamic_quantize"] = (2 if fused else products) * n + 1
         return collections.Counter(want)
 
     fused = m.quant == "int8" and m.quant_fused
@@ -1415,7 +1457,7 @@ def phase_serve(engine, prepared, label="serve") -> dict:
     counted run (counts to 0 just before, read just after) then replays
     it, and its launches must be exactly those derived from the code. The
     captured program is held to the eager sampler at the same seed, and
-    three steady batches of each are timed."""
+    SERVE_ROUNDS steady batches of each are timed."""
     m, s = engine.m, engine.config.sampling
     t2i, args = batch_inputs(engine, prepared)
     torch.cuda.synchronize()
@@ -1447,7 +1489,7 @@ def phase_serve(engine, prepared, label="serve") -> dict:
 
     def steady(run):
         times = []
-        for i in range(3):
+        for i in range(SERVE_ROUNDS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(i + 1)
@@ -2159,8 +2201,8 @@ def phase_scaffold(engine, seed) -> dict:
     its eager tokens under injected noise, and the flash_fwd launches of a
     captured call are split x 12 + the rest x SCAFFOLD_BLOCKS."""
     cfg = engine.config.override(**{"sampling.steps": SCAFFOLD_STEPS})
-    small = DIT(cfg.override(**{"model.n_blocks": SCAFFOLD_BLOCKS}).model,
-                compute_dtype=torch.bfloat16).to("cuda").eval()
+    small = DIT(cfg.override(**{"model.n_blocks": SCAFFOLD_BLOCKS})
+                .model, torch.bfloat16, device="cuda", init=False).eval()
     randomize_(small, seed + 1)
     sample = build_scaffold_sampler(engine.model, small, cfg,
                                     split=SCAFFOLD_SPLIT, inject_noise=True)
@@ -2326,11 +2368,13 @@ AR_SLOTS, AR_CHUNK = 8, 8       # the engines' continuous batchers
 AR_REQUESTS, AR_SPACING_S = 16, 0.05
 AR_SHARED = 256                 # the prefix four of the requests share
 AR_TEMPERATURE = 0.8            # the seeded half of the requests
-SPEC_REQUESTS = 8
+SPEC_REQUESTS = 4
 AR_SAMPLER_CHUNK = 16           # decode steps a replay of the AR sampler
 AR_SAMPLER_PROMPT = 32          # prompt tokens of its 8 text rows
 AR_OVERRIDES = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
                 "model.full_attention": False}
+# the DIT-AR served in phase 4g: the flagship's width, 6 of its 12 blocks
+AR_DIT_DEPTH = {"model.n_blocks": 6}
 # the counted runs of phase 4g
 AR_PATHS = ("ar_elm_bf16", "ar_elm_int8", "ar_http", "ar_spec_draft",
             "ar_spec_lookup", "ar_dit_sampler_bf16", "ar_dit_bf16",
@@ -2700,7 +2744,7 @@ def phase_ar_sampler(engine, label, seed) -> dict:
     generated (text span, then image span). The counted call's launches
     equal the code's (int8 products a forward x the steps replayed); its
     tokens equal the eager loop's at the same seed, keep the prompt and
-    the modality of each position; 3 steady calls are timed."""
+    the modality of each position; 2 steady calls are timed."""
     from unidisc_tpu_torch.sampling.ar_sampler import (build_ar_sampler,
                                                        make_apply_token)
     from unidisc_tpu_torch.sampling.graph import captured_ar
@@ -2748,7 +2792,7 @@ def phase_ar_sampler(engine, label, seed) -> dict:
                 and (tokens < m.vocab_size).all()):
             raise AssertionError(f"{label}: tokens off their modality")
         times = []
-        for i in range(3):
+        for i in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             program(x0, unmask, modality, seed=2 + i)
@@ -3290,7 +3334,8 @@ def phase_ar(seed) -> dict:
     rec.update(part("speculative", phase_ar_speculative, seed))
     # (b) the flagship DIT-AR, bf16, then int8 with the int8 KV cache
     dit = build_engine(preset="small",
-                       overrides={**FLAGSHIP_OVERRIDES, **AR_OVERRIDES})
+                       overrides={**FLAGSHIP_OVERRIDES, **AR_OVERRIDES,
+                                  **AR_DIT_DEPTH})
     randomize_(dit.model, seed)
     dreqs = ar_requests(dit.m.length, seed)
     rec["ar_dit_sampler_bf16"] = part("ar_dit_sampler_bf16",
@@ -3303,7 +3348,7 @@ def phase_ar(seed) -> dict:
     del dit
     qdit = build_engine(preset="small",
                         overrides={**FLAGSHIP_INT8_OVERRIDES,
-                                   **AR_OVERRIDES},
+                                   **AR_OVERRIDES, **AR_DIT_DEPTH},
                         quantize="int8", kv_cache="int8")
     qdit.model.load_state_dict(qstate)
     rec["ar_dit_sampler_int8"] = part("ar_dit_sampler_int8",
@@ -3379,37 +3424,43 @@ def flat_grad(cfg, model, batch, draws) -> torch.Tensor:
     return torch.cat([g.float().reshape(-1) for g in grads])
 
 
-def phase_grad_check(cfg, batch_size, seed, device="cuda") -> dict:
+def phase_grad_check(cfg, batch_size, seed, device="cuda",
+                     label="grad_check", extra=None) -> dict:
     """One compute_batch_loss + backward at full width through the kernels
     (bf16) against the plain path (plain attention, its autograd) in fp32.
     Truth is the plain path in fp32; the kernel path must be as close to
-    it as the plain path in bf16 is, within a factor of 2."""
+    it as the plain path in bf16 is, within a factor of 2. `extra`: more
+    batch entries (an img_cond model's x_cond, whose trunk and
+    cross-attention add attention launches)."""
     m = cfg.model
     loader = SyntheticDataLoader(cfg, batch_size, seed=seed)
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in next(loader).items()}
+    batch.update(extra or {})
+    attentions = m.n_blocks
+    if m.img_cond and "x_cond" in batch:
+        attentions += m.n_blocks + m.n_cond_blocks
     draws = fixed_draws(cfg, batch_size, seed, device)
     state = None
     grads = {}
-    for label, backend, dtype in (("kernel_bf16", "auto", torch.bfloat16),
-                                  ("plain_bf16", "xla", torch.bfloat16),
-                                  ("plain_fp32", "xla", torch.float32)):
+    for path, backend, dtype in (("kernel_bf16", "auto", torch.bfloat16),
+                                 ("plain_bf16", "xla", torch.bfloat16),
+                                 ("plain_fp32", "xla", torch.float32)):
         mcfg = dataclasses.replace(cfg, model=dataclasses.replace(
             m, attn_backend=backend))
-        model = DIT(mcfg.model, compute_dtype=dtype).to(device)
+        model = DIT(mcfg.model, dtype, device=device, init=False)
         if state is None:
             randomize_(model, seed)
             state = model.state_dict()
         else:
             model.load_state_dict(state)
         _build.reset_launch_counts()
-        grads[label] = flat_grad(mcfg, model, batch, draws)
+        grads[path] = flat_grad(mcfg, model, batch, draws)
         if device == "cuda":
             torch.cuda.synchronize()
         launches = dict(_build.launch_counts)
-        if label == "kernel_bf16" and device == "cuda":
-            want = {"flash_fwd": m.n_blocks, "flash_bwd_dq": m.n_blocks,
-                    "flash_bwd_dkv": m.n_blocks}
+        if path == "kernel_bf16" and device == "cuda":
+            want = {name: attentions for name in TRAIN_KERNELS}
             if launches != want:
                 raise AssertionError(f"gradient check launched {launches}, "
                                      f"expected {want}")
@@ -3423,10 +3474,10 @@ def phase_grad_check(cfg, batch_size, seed, device="cuda") -> dict:
            "rel_err_kernel_bf16_vs_plain_fp32": rel["kernel_bf16"],
            "rel_err_plain_bf16_vs_plain_fp32": rel["plain_bf16"],
            "finite": finite}
-    print("grad_check " + json.dumps(rec))
+    print(f"{label} " + json.dumps(rec))
     if not finite or rel["kernel_bf16"] > 2 * rel["plain_bf16"]:
-        raise AssertionError(f"the full-width gradient through the kernels "
-                             f"is off: {rec}")
+        raise AssertionError(f"{label}: the full-width gradient through the "
+                             f"kernels is off: {rec}")
     return rec
 
 
@@ -3633,15 +3684,18 @@ def fixed_draw_loss_falls(label, cfg, shards, final_params, seed) -> dict:
                                        final_params, seed)
 
 
-def fixed_draw_batch_loss_falls(label, cfg, batch, final_params,
-                                seed) -> dict:
-    """fixed_draw_loss_falls on a given host batch."""
+def fixed_draw_batch_loss_falls(label, cfg, batch, final_params, seed,
+                                initial_params=None) -> dict:
+    """fixed_draw_loss_falls on a given host batch; `initial_params`, the
+    trainer's initial parameters when the caller has them (else drawn
+    from the config's seed)."""
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
              if isinstance(v, np.ndarray)}
     draws = fixed_draws(cfg, batch["input_ids"].shape[0], seed, "cuda")
-    model = DIT(cfg.model, compute_dtype=torch.bfloat16)
-    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    model = model.cuda()
+    model = DIT(cfg.model, torch.bfloat16, device="cuda", init=False)
+    if initial_params is None:
+        initial_params = initial_state(cfg)
+    model.load_state_dict(initial_params)
     apply_fn = make_apply_fn(cfg, model)
     losses = []
     with torch.no_grad():
@@ -3659,6 +3713,14 @@ def fixed_draw_batch_loss_falls(label, cfg, batch, final_params,
         raise AssertionError(f"{label}: the loss did not fall under fixed "
                              f"draws: {rec}")
     return rec
+
+
+def initial_state(cfg) -> dict:
+    """The Trainer's initial parameters for `cfg` (its seed's draws), on
+    the host."""
+    model = DIT(cfg.model, torch.bfloat16, init=False)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    return model.state_dict()
 
 
 def phase_stream_resume(cfg, data, seed, root, n_blocks) -> dict:
@@ -3849,8 +3911,11 @@ REST_STEPS = 10
 REST_CKPT = 5
 REMAT_POLICIES = ("none", "dots", "dots_all")
 REST_DROPOUT = 0.1
-XL_BATCH, XL_STEPS = 16, 5
-SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER = 8, 16, 4
+XL_BATCH, XL_STEPS = 16, 3
+SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER, SUP_BLOCKS = 8, 16, 4, 4
+# the optimizer runs and the flagship's offload runs: its width, 6 of its
+# 12 blocks
+REST_DEPTH = {"model.n_blocks": 6}
 DISTILL_BLOCKS, DISTILL_GUIDANCE = 4, 2.0
 # each optimizer's LR for its 10 steps (Lion wants ~3-10x less than AdamW,
 # Adafactor's LR multiplies the parameters' RMS)
@@ -3890,8 +3955,8 @@ def remat_grad(cfg, state, batch, draws, policy, seed,
     s of `timed` more forward + backward passes)."""
     mcfg = dataclasses.replace(cfg.model, remat_policy=policy or "none")
     c = dataclasses.replace(cfg, model=mcfg)
-    model = DIT(mcfg, compute_dtype=torch.bfloat16,
-                remat=policy is not None).cuda()
+    model = DIT(mcfg, torch.bfloat16, remat=policy is not None,
+                device="cuda", init=False)
     model.load_state_dict(state)
     apply_fn = make_apply_fn(c, model)
     params = [p for _, p in sorted(model.named_parameters())]
@@ -3948,7 +4013,7 @@ def phase_remat(seed) -> dict:
     loader = SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed)
     batch = {k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
     draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
-    model = DIT(cfg.model, compute_dtype=torch.bfloat16)
+    model = DIT(cfg.model, torch.bfloat16, init=False)
     randomize_(model, seed)
     state = model.state_dict()
     del model
@@ -4026,12 +4091,13 @@ def update_card_vs_cpu(name, over, params_cpu, grads_cpu) -> dict:
 
 
 def phase_optimizers(seed, root) -> dict:
-    """(c) each optimizer and muP: one full-width update on the card
-    against the CPU, then 10 steps through train.main whose loss under
-    fixed draws falls; Adafactor also checkpointed at 5 and resumed."""
-    cfg = train_config()
+    """(c) each optimizer and muP, on REST_DEPTH's blocks: one full-width
+    update on the card against the CPU, then 10 steps through train.main
+    whose loss under fixed draws falls; Adafactor also checkpointed at 5
+    and resumed."""
+    cfg = train_config(**REST_DEPTH)
     n = cfg.model.n_blocks
-    model = DIT(cfg.model, compute_dtype=torch.float32)
+    model = DIT(cfg.model, torch.float32, init=False)
     randomize_(model, seed)
     params_cpu = {k: v.detach().clone() for k, v in model.named_parameters()}
     del model
@@ -4039,8 +4105,13 @@ def phase_optimizers(seed, root) -> dict:
     grads_cpu = 1e-3 * torch.randn(
         sum(v.numel() for v in params_cpu.values()), generator=gen)
     first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=cfg.seed))
+    # every run starts from the same draws: the model config is the same
+    # and the parameters' init does not read the optimizer or muP
+    init = initial_state(cfg)
     rec = {}
     for name, over in OPTIMIZER_RUNS.items():
+        t0 = time.perf_counter()
+        over = {**REST_DEPTH, **over}
         r = {"card_vs_cpu": update_card_vs_cpu(name, over, params_cpu,
                                                grads_cpu)}
         run = os.path.join(root, f"opt_{name}")
@@ -4051,7 +4122,7 @@ def phase_optimizers(seed, root) -> dict:
             REST_STEPS, n, falls=False)
         r["run"].update(fixed_draw_batch_loss_falls(
             f"rest_{name}", train_config(**over), first, final.params,
-            seed))
+            seed, initial_params=init))
         del final
         if name == "adafactor":
             resumed = os.path.join(root, "opt_adafactor_resumed")
@@ -4070,13 +4141,15 @@ def phase_optimizers(seed, root) -> dict:
                                      f"{want}")
             shutil.rmtree(resumed, ignore_errors=True)
         shutil.rmtree(run, ignore_errors=True)
+        r["seconds"] = time.perf_counter() - t0
         rec[name] = r
         torch.cuda.empty_cache()
     print("optimizers " + json.dumps({k: {
         "card_vs_cpu_rel_err": v["card_vs_cpu"]["rel_err"],
         "fixed_draw_loss": [v["run"]["fixed_draw_loss_initial"],
                             v["run"]["fixed_draw_loss_final"]],
-        "median_step_s": v["run"]["median_steady_step_s"]}
+        "median_step_s": v["run"]["median_steady_step_s"],
+        "seconds": v["seconds"]}
         for k, v in rec.items()}))
     return rec
 
@@ -4185,7 +4258,7 @@ def offload_state(cfg, seed, chunks, remat=False):
     init, with its step function."""
     from unidisc_tpu_torch.training.offload import (init_offload_state,
                                                     make_offload_train_step)
-    model = DIT(cfg.model, compute_dtype=torch.bfloat16, remat=remat)
+    model = DIT(cfg.model, torch.bfloat16, remat=remat, init=False)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     state = init_offload_state(cfg, model, "cuda", chunks=chunks)
     return state, make_offload_train_step(cfg, model)
@@ -4207,11 +4280,12 @@ def timed_steps(step, state, batch, steps) -> tuple:
 
 
 def phase_offload(seed, root) -> dict:
-    """(e) offload: chunked (8) = unchunked (1) and working = bf16(master)
-    on the card; the flagship 10 steps through Trainer.fit, its run dir
-    served; extra_large at batch 16, resident without and with remat and
-    offloaded with remat, 5 steps each."""
-    cfg = train_config(**{"trainer.host_offload_optimizer": True})
+    """(e) offload, on REST_DEPTH's blocks: chunked (8) = unchunked (1)
+    and working = bf16(master) on the card; 10 steps through Trainer.fit,
+    its run dir served; extra_large at batch 16, resident without and with
+    remat and offloaded with remat, 3 steps each."""
+    cfg = train_config(**{**REST_DEPTH,
+                          "trainer.host_offload_optimizer": True})
     n = cfg.model.n_blocks
     first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed))
     batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
@@ -4257,10 +4331,12 @@ def phase_offload(seed, root) -> dict:
     xbatch = {k: torch.from_numpy(v).cuda() for k, v in next(
         SyntheticDataLoader(xcfg, XL_BATCH, seed=seed)).items()}
     xn = xcfg.model.n_blocks
-    # one host model (its constructor's init) copied for each run: a
-    # second draw of 1.45B weights on the host would cost ~13 s a run
+    # one host model copied for each run, its weights drawn on the card
+    # (the host's init of 1.41B weights took 25 s)
     t0 = time.perf_counter()
-    host_model = DIT(xcfg.model, compute_dtype=torch.bfloat16)
+    host_model = DIT(xcfg.model, torch.bfloat16, device="cuda", init=False)
+    randomize_(host_model, seed)
+    host_model = host_model.cpu()
     rec["extra_large_host_init_s"] = time.perf_counter() - t0
     for label, offload, remat in (("resident", False, False),
                                   ("resident_remat", False, True),
@@ -4311,13 +4387,12 @@ def phase_distill(seed, root, teacher_run) -> dict:
     from unidisc_tpu_torch.training.distill import make_distill_step
     tcfg = train_config()
     snap, weights, _ = restore_run(teacher_run)
-    teacher = DIT(snap.model, compute_dtype=torch.bfloat16)
+    teacher = DIT(snap.model, torch.bfloat16, device="cuda", init=False).eval()
     teacher.load_state_dict(weights)
-    teacher = teacher.cuda().eval()
     scfg = train_config(**{"model.n_blocks": DISTILL_BLOCKS,
                            "model.zero_linear_init": False,
                            "trainer.lr": 1e-3})
-    student = DIT(scfg.model, compute_dtype=torch.bfloat16)
+    student = DIT(scfg.model, torch.bfloat16, init=False)
     student.reset_parameters(torch.Generator().manual_seed(scfg.seed))
     student = student.cuda()
     state = init_train_state(scfg, student)
@@ -4359,14 +4434,16 @@ def phase_distill(seed, root, teacher_run) -> dict:
 
 def phase_supervised(root) -> dict:
     """(g) python -m unidisc_tpu_torch.training.supervisor -- python -m
-    unidisc_tpu_torch.train (the flagship, batch 8): SIGTERM to the child
-    after its 4th logged step; it checkpoints and exits 143, the
-    supervisor relaunches it, it resumes and finishes."""
+    unidisc_tpu_torch.train (the flagship's width, SUP_BLOCKS blocks,
+    batch 8): SIGTERM to the child after its 4th logged step; it
+    checkpoints and exits 143, the supervisor relaunches it, it resumes
+    and finishes."""
     run = os.path.join(root, "supervised")
     log = os.path.join(root, "supervisor.jsonl")
     args = ["--run-dir", run, "--batch-size", str(SUP_BATCH), "--log-every",
             "1", "--ckpt-every", "0", "--flagship", "--overfit",
-            f"trainer.max_steps={SUP_STEPS}", "trainer.warmup_steps=2"]
+            f"trainer.max_steps={SUP_STEPS}", "trainer.warmup_steps=2",
+            f"model.n_blocks={SUP_BLOCKS}"]
     env = {**os.environ, "PYTHONPATH": os.path.dirname(
         os.path.abspath(__file__))}
     t0 = time.perf_counter()
@@ -4444,24 +4521,25 @@ def train_rest_line(rec) -> dict:
 def phase_train_rest(seed, root, base_run) -> dict:
     """Phase 5d (module docstring)."""
     t0 = time.perf_counter()
-    rec = {"remat": phase_remat(seed)}
-    free()
-    rec["dropout_fit"] = phase_dropout_fit(seed, root)
-    free()
-    rec["optimizers"] = phase_optimizers(seed, root)
-    free()
-    rec["lora"] = phase_lora(seed, root, base_run)
-    free()
-    rec["distill"] = phase_distill(seed, root, base_run)
-    free()
-    rec["offload"] = phase_offload(seed, root)
-    free()
-    rec["supervised"] = phase_supervised(root)
+    rec, part_s = {}, {}
+    for key, fn, args in (("remat", phase_remat, (seed,)),
+                          ("dropout_fit", phase_dropout_fit, (seed, root)),
+                          ("optimizers", phase_optimizers, (seed, root)),
+                          ("lora", phase_lora, (seed, root, base_run)),
+                          ("distill", phase_distill, (seed, root, base_run)),
+                          ("offload", phase_offload, (seed, root)),
+                          ("supervised", phase_supervised, (root,))):
+        t = time.perf_counter()
+        rec[key] = fn(*args)
+        free()
+        part_s[key] = time.perf_counter() - t
     rec["seconds"] = time.perf_counter() - t0
+    rec["seconds_by_part"] = part_s
     rest, offload = train_rest_line(rec)
     card = card_line()
     print("train_rest " + json.dumps({"card": card,
-                                      "seconds": rec["seconds"], **rest}))
+                                      "seconds": rec["seconds"],
+                                      "seconds_by_part": part_s, **rest}))
     print("offload " + json.dumps({"card": card, **offload}))
     paths = {"rest_dropout_remat_fit": rec["dropout_fit"],
              "rest_lora": rec["lora"], "lora_serve": rec["lora"]["served"],
@@ -4867,10 +4945,10 @@ def phase_interleaved(seed, root, kernel_seed) -> dict:
 # ---------------------------------------------------------------------------
 
 CACHING_BATCH, CACHING_RATIO = 4, 2
-TRANSFUSION_STEPS, TRANSFUSION_LATENT = 32, 16
+TRANSFUSION_STEPS, TRANSFUSION_LATENT = 8, 16
 # the transfusion DDIM trajectory on the card against the CPU, both in
 # fp32 (TF32 off): max abs error over the final latents at most this share
-# of their largest magnitude (the products of 32 steps x 12 blocks are
+# of their largest magnitude (the products of 8 steps x 12 blocks are
 # summed in other orders; each step feeds its latents back)
 TRANSFUSION_REL_TOL = 1e-2
 
@@ -4882,7 +4960,7 @@ def phase_caching(seed) -> dict:
     injected noise (GRAPH_STEPS steps, ratio CACHING_RATIO), launches
     counted from the replay."""
     cfg = Config.make("small", **FLAGSHIP_OVERRIDES)
-    model = DIT(cfg.model, compute_dtype=torch.bfloat16).to("cuda").eval()
+    model = DIT(cfg.model, torch.bfloat16, device="cuda", init=False).eval()
     randomize_(model, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 17)
     args, injected = sampler_inputs("generic", cfg.model, CACHING_BATCH,
@@ -5045,6 +5123,568 @@ def phase_samplers_left(seed) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 5g: the DIT variants (MoE, img_cond, split embedding, class labels) and
+# the data tail (precompute, prefetch)
+# ---------------------------------------------------------------------------
+
+MOE_OVERRIDES = {"model.moe_experts": 8, "model.moe_top_k": 2,
+                 "model.moe_capacity_factor": 1.25,
+                 "trainer.moe_aux_weight": 0.01}
+MOE_STEPS = 10
+MOE_IMAGES = 64        # procedural 256-px images, VQ-16-encoded on the card
+# img_cond at the flagship width: 1D rope, no QK-norm or sandwich norm
+# (validate() rules them out), the reference's 8 conditioning blocks over
+# the VQ-16 ids of a 256-px conditioning image
+IMG_COND_OVERRIDES = {"model.img_cond": True,
+                      "model.cond_image_vocab_size": 16384,
+                      "model.cond_length": 256, "model.n_cond_blocks": 8,
+                      "model.qk_norm": False,
+                      "model.sandwich_normalization": False,
+                      "model.rope_2d": False}
+IMG_COND_STEPS = 10
+# the served MoE run dir: the flagship's sampling settings
+SERVE_SAMPLING = {k: v for k, v in FLAGSHIP_OVERRIDES.items()
+                  if k.startswith("sampling.") or k == "model.logits_dtype"}
+# the card's MoE logits against the CPU's (fp32 on both sides, TF32 off,
+# the attention's plain path on the card): the same function in another
+# summation order, so routing differs only on near ties of fp32 router
+# probabilities; bf16 through the kernels on the card as far from the
+# CPU's fp32 as the plain path in bf16 on the card is, within 2x
+MOE_FP32_REL, MOE_ROUTE_AGREE, MOE_FLIP_REL = 1e-4, 0.999, 1e-2
+# the cross-attention and the trunk's self-attention at training shape:
+# (case, q (B, H, Lq, D), Lk)
+CROSS_CASES = [("img_cond_cross", (32, 12, 384, 64), 256),
+               ("img_cond_trunk", (32, 12, 256, 64), 256)]
+VARIANT_PATHS = ("moe_train", "moe_serve", "moe_serve_int8",
+                 "img_cond_train", "img_cond_sample")
+
+
+def moe_data(cfg, root) -> str:
+    """MOE_IMAGES procedural 256-px images through the VQ-16 codec on the
+    card and captions through the byte tokenizer, written by
+    data/precompute.py as the model's [text | image] token shard."""
+    from unidisc_tpu_torch.data.precompute import (precompute_tokens,
+                                                   procedural_samples)
+    from unidisc_tpu_torch.tokenizers.image_codecs import get_codec
+    from unidisc_tpu_torch.tokenizers.text import get_tokenizer
+    m = cfg.model
+    codec = get_codec(CODEC, image_size=256)
+    t0 = time.perf_counter()
+    dirs = precompute_tokens(
+        procedural_samples(MOE_IMAGES, 256), os.path.join(root, "moe_data"),
+        tokenizer=get_tokenizer("byte"), codec=codec,
+        txt_length=m.txt_length, text_vocab_size=m.text_vocab_size)
+    seconds = time.perf_counter() - t0
+    data = TokenShardDataset(dirs[0])
+    ids = np.asarray(data.tokens)
+    if (len(dirs) != 1 or ids.shape != (MOE_IMAGES, m.length)
+            or ids[:, :m.txt_length].max() >= m.text_vocab_size
+            or ids[:, m.txt_length:].min() < m.text_vocab_size
+            or ids.max() >= m.vocab_size):
+        raise AssertionError(f"precompute wrote {dirs}, rows {ids.shape}")
+    print("moe_precompute " + json.dumps({"images": MOE_IMAGES,
+                                          "seconds": seconds}))
+    del codec
+    free()
+    return dirs[0]
+
+
+def forward_logits(model, ids, sigma, modality, **kw) -> torch.Tensor:
+    with torch.no_grad():
+        return model(ids, sigma, modality=modality, **kw).float()
+
+
+def moe_routes(model, ids, sigma, modality) -> list:
+    """Each block's top-k experts (S, k) of one forward: the router's
+    inputs captured by a hook."""
+    from unidisc_tpu_torch.models.moe import route
+    out = []
+
+    def hook(mod, args):
+        x = args[0]
+        probs = torch.softmax(F.linear(x.reshape(-1, x.shape[-1]).float(),
+                                       mod.router.weight.float()), -1)
+        k = min(mod.cfg.moe_top_k, mod.cfg.moe_experts)
+        out.append(route(probs, k, probs.shape[0])[1].cpu())
+    hooks = [blk.moe.register_forward_pre_hook(hook) for blk in model.blocks]
+    forward_logits(model, ids, sigma, modality)
+    for h in hooks:
+        h.remove()
+    return out
+
+
+def phase_moe_logits(cfg, weights, seed) -> dict:
+    """The trained MoE model's final weights (the live ones: after 10
+    steps the EMA is still close to the zero-initialised head) at full
+    width on the card against the same model on the CPU, 2 rows at L 384:
+    fp32 with the plain attention on both sides (logits within
+    MOE_FP32_REL of the largest where every route agrees, routing
+    agreement share >= MOE_ROUTE_AGREE), and the bf16 kernel path against
+    the CPU's fp32 within twice the plain bf16 path's distance."""
+    m = cfg.model
+    gen = torch.Generator().manual_seed(seed)
+    b = 2
+    ids = torch.cat([torch.randint(0, m.mask_index, (b, m.txt_length),
+                                   generator=gen),
+                     torch.randint(m.text_vocab_size, m.vocab_size,
+                                   (b, m.img_length), generator=gen)], 1)
+    sigma = torch.rand((b,), generator=gen) * 2
+    modality = (torch.arange(m.length) >= m.txt_length).long().expand(b, -1)
+    models, logits, routes = {}, {}, {}
+    for label, dev, dtype, backend in (
+            ("cpu_fp32", "cpu", torch.float32, "xla"),
+            ("card_fp32", "cuda", torch.float32, "xla"),
+            ("card_bf16_plain", "cuda", torch.bfloat16, "xla"),
+            ("card_bf16_kernel", "cuda", torch.bfloat16, "auto")):
+        model = DIT(dataclasses.replace(m, attn_backend=backend,
+                                              logits_dtype="float32"), dtype,
+                    device=dev, init=False).eval()
+        model.load_state_dict(weights)
+        args = (ids.to(dev), sigma.to(dev), modality.to(dev))
+        logits[label] = forward_logits(model, *args).cpu()
+        routes[label] = moe_routes(model, *args)
+        del model
+    free()
+    truth = logits["cpu_fp32"]
+    top = truth.abs().max().item()
+
+    def agree(label):
+        return statistics.fmean(
+            (a == w).float().mean().item()
+            for a, w in zip(routes[label], routes["cpu_fp32"]))
+
+    rel = {label: (logits[label] - truth).norm().item() / truth.norm().item()
+           for label in logits if label != "cpu_fp32"}
+    rec = {"rows": b, "length": m.length,
+           "card_fp32_max_abs_err": (logits["card_fp32"] - truth).abs()
+           .max().item(), "max_abs_logit": top,
+           "rel_l2_err": rel,
+           "routing_agreement": {label: agree(label) for label in routes
+                                 if label != "cpu_fp32"},
+           "fp32_tol_rel": MOE_FP32_REL, "route_tol": MOE_ROUTE_AGREE}
+    print("moe_logits " + json.dumps(rec))
+    # a flipped near tie moves its token's logits by O(1) and the others'
+    # through attention: the max-abs bound holds where every route agrees,
+    # else the relative L2 distance stays within MOE_FLIP_REL
+    agree32 = rec["routing_agreement"]["card_fp32"]
+    fp32_ok = agree32 >= MOE_ROUTE_AGREE and (
+        rec["card_fp32_max_abs_err"] <= MOE_FP32_REL * top if agree32 == 1.0
+        else rel["card_fp32"] <= MOE_FLIP_REL)
+    if not fp32_ok or rel["card_bf16_kernel"] > 2 * rel["card_bf16_plain"]:
+        raise AssertionError(f"the MoE logits on the card disagree with the "
+                             f"CPU: {rec}")
+    return rec
+
+
+def phase_moe(seed, root) -> dict:
+    """(a) and (b) of phase 5g: the MoE flagship trained from precomputed
+    shards, its run dir served in bf16 and int8."""
+    cfg = train_config(**MOE_OVERRIDES)
+    m = cfg.model
+    rec, seconds = {}, {}
+    t0 = time.perf_counter()
+    data = moe_data(cfg, root)
+    seconds["precompute"] = time.perf_counter() - t0
+    rec["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, seed,
+                                         label="moe_grad_check")
+    free()
+    seconds["grad_check"] = time.perf_counter() - t0 - sum(seconds.values())
+    run_dir = os.path.join(root, "moe_run")
+    rec["train"], keep = train_cli_run(
+        "moe_train", cli_args(run_dir, data, MOE_STEPS, TRAIN_BATCH,
+                              MOE_OVERRIDES, "--overfit"),
+        MOE_STEPS, m.n_blocks)
+    rec["train"]["tok_per_s"] = (TRAIN_BATCH * m.length
+                                 / rec["train"]["median_steady_step_s"])
+    rec["train"].update(fixed_draw_loss_falls("moe_train", cfg, data,
+                                              keep.params, seed))
+    # the balance auxiliary at the final parameters, on the overfit batch
+    model = DIT(m, torch.bfloat16, device="cuda", init=False).eval()
+    model.load_state_dict(keep.params)
+    batch = next(WeightedDatasetSampler([TokenShardDataset(data)],
+                                        batch_size=TRAIN_BATCH,
+                                        seed=cfg.seed))
+    with torch.no_grad():
+        _, aux = model(torch.from_numpy(batch["input_ids"]).cuda(),
+                       torch.full((TRAIN_BATCH,), 1.0, device="cuda"),
+                       modality=torch.from_numpy(batch["modality"]).cuda(),
+                       return_moe_aux=True)
+    rec["train"]["final_aux"] = aux.item()
+    rec["params"] = sum(v.numel() for v in keep.params.values())
+    if not math.isfinite(rec["train"]["final_aux"]) or not (
+            0 < rec["train"]["final_aux"] <= m.moe_experts * m.n_blocks):
+        raise AssertionError(f"the MoE auxiliary is off: {aux.item()}")
+    final = keep.params
+    del model, keep
+    free()
+    seconds["train"] = time.perf_counter() - t0 - sum(seconds.values())
+    print("moe_train_line " + json.dumps({
+        "card": card_line(), "s_per_step": rec["train"][
+            "median_steady_step_s"], "tok_per_s": rec["train"]["tok_per_s"],
+        "peak_gb": rec["train"]["peak_memory_bytes"] / 1e9,
+        "final_aux": rec["train"]["final_aux"]}))
+
+    # (b) the run dir served: bf16, then int8 with quant_fused off
+    for label, kw in (("moe_serve", {}),
+                      ("moe_serve_int8", {"quantize": "int8"})):
+        over = dict(SERVE_SAMPLING)
+        if kw:
+            over.update({"model.quant_backend": "pallas",
+                         "model.quant_fused": False})
+        engine = build_engine(checkpoint=run_dir, overrides=over, **kw)
+        served = phase_serve(engine, t2i_requests(engine), label)
+        if served["eager_same_seed_token_agreement"] != 1.0:
+            raise AssertionError(f"{label}: the captured program differs "
+                                 f"from the eager sampler at the same seed")
+        rec[label] = served
+        free(engine)
+        del engine
+        free()
+        seconds[label] = time.perf_counter() - t0 - sum(seconds.values())
+    rec["logits"] = phase_moe_logits(cfg, final, seed)
+    seconds["logits"] = time.perf_counter() - t0 - sum(seconds.values())
+    rec["seconds"] = seconds
+    print("moe_seconds " + json.dumps(seconds))
+    return rec
+
+
+def img_cond_batch(cfg, seed) -> dict:
+    """One training batch of the img_cond model: the structured synthetic
+    rows of the seed, and x_cond ids drawn from the seed."""
+    m = cfg.model
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed)).items()
+        if isinstance(v, np.ndarray)}
+    gen = torch.Generator().manual_seed(seed + 11)
+    batch["x_cond"] = torch.randint(0, m.cond_image_vocab_size,
+                                    (TRAIN_BATCH, m.cond_length),
+                                    generator=gen).cuda()
+    return batch
+
+
+def phase_img_cond(seed) -> dict:
+    """(c) of phase 5g: one gradient of the img_cond model through the
+    kernels against the plain path, 10 train steps on one batch with
+    x_cond (counted), the fixed-draw loss falling, then 4-step maskgit
+    samples through the closure over x_cond, captured = eager under
+    injected noise for two conditions that give different tokens."""
+    from unidisc_tpu_torch.sampling.sampler import ConditionedModel
+    cfg = train_config(**IMG_COND_OVERRIDES)
+    m = cfg.model
+    batch = img_cond_batch(cfg, seed)
+    rec = {"grad_check": phase_grad_check(
+        cfg, TRAIN_BATCH, seed, label="img_cond_grad_check",
+        extra={"x_cond": batch["x_cond"]})}
+    free()
+    model = DIT(m, torch.bfloat16, init=False)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    model = model.cuda()
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    state = init_train_state(cfg, model)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device="cuda")
+    attentions = 2 * m.n_blocks + m.n_cond_blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, times = [], []
+    for i in range(IMG_COND_STEPS):
+        gen.manual_seed(seed * 1000 + i)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator=gen)
+        losses.append(metrics.loss.item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.launch_counts)
+    want = {name: attentions * IMG_COND_STEPS for name in TRAIN_KERNELS}
+    if launches != want or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"img_cond training launched {launches} "
+                             f"(expected {want}), losses {losses}")
+    final = {k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items()}
+    draws = fixed_draws(cfg, TRAIN_BATCH, seed, "cuda")
+    apply_fn = make_apply_fn(cfg, model)
+    fixed = []
+    with torch.no_grad():
+        for params in (init, final):
+            model.load_state_dict(params)
+            fixed.append(compute_batch_loss(cfg, apply_fn, None, batch,
+                                            train=True, draws=draws)
+                         .loss.item())
+    rec["train"] = {"steps": IMG_COND_STEPS, "losses": losses,
+                    "launches": launches, "attentions_per_step": attentions,
+                    "median_step_s": statistics.median(times[2:]),
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "fixed_draw_loss_initial": fixed[0],
+                    "fixed_draw_loss_final": fixed[1]}
+    print("img_cond_train " + json.dumps(rec["train"]))
+    if not fixed[1] < fixed[0]:
+        raise AssertionError(f"img_cond: the fixed-draw loss did not fall: "
+                             f"{fixed}")
+    del state, step
+    free()
+
+    # sampling through the closure: generic maskgit, no CFG (JAX's closure
+    # carries x_cond for the batch's own rows)
+    model.eval()
+    scfg = cfg.override(**{"sampling.predictor": "maskgit",
+                           "sampling.steps": GRAPH_STEPS,
+                           "sampling.cfg": None})
+    sgen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    args, injected = sampler_inputs("generic", m, REQUESTS, GRAPH_STEPS,
+                                    sgen)
+    conds = [batch["x_cond"][:REQUESTS],
+             (batch["x_cond"][:REQUESTS] + 1) % m.cond_image_vocab_size]
+    cond_model = ConditionedModel(model, conds[0])
+    sample = build_sampler(cond_model, scfg, inject_noise=True)
+    program = captured(sample, REQUESTS)
+    # each replay counted on its own (counts to 0 just before, read just
+    # after, before the eager comparison): every forward runs the trunk's
+    # and each main block's self- and cross-attention
+    tokens, launches = [], collections.Counter()
+    for cond in conds:
+        cond_model.set_condition(cond)
+        _build.reset_launch_counts()
+        got = program(*args, injected=injected)
+        torch.cuda.synchronize()
+        replay = dict(_build.launch_counts)
+        want = {"flash_fwd": got.nfe * attentions}
+        if replay != want:
+            raise AssertionError(f"img_cond_sample: a replay launched "
+                                 f"{replay}, expected {want}")
+        launches += collections.Counter(replay)
+        want_t = sample(*args, injected=injected)
+        if not torch.equal(got.tokens, want_t.tokens) \
+                or got.nfe != want_t.nfe:
+            raise AssertionError("img_cond: the captured program differs "
+                                 "from the eager sampler")
+        tokens.append(got.tokens)
+    differ = (tokens[0] != tokens[1]).float().mean().item()
+    rec["sample"] = {"batch": REQUESTS, "steps": GRAPH_STEPS,
+                     "nfe": got.nfe, "replays": len(conds),
+                     "captured_equals_eager": True,
+                     "share_differing_between_conditions": differ,
+                     "graph_build_s": program.build_s,
+                     "launches": dict(launches),
+                     "expected_launches_per_replay": want}
+    print("img_cond_sample " + json.dumps(rec["sample"]))
+    if differ == 0.0:
+        raise AssertionError("img_cond: two conditions gave the same tokens")
+    del program, sample, cond_model, model, injected
+    free()
+    return rec
+
+
+def phase_cross_kernels(seed) -> list:
+    """(d) of phase 5g: flash_fwd (with the LSE), flash_bwd_dq and
+    flash_bwd_dkv at the img_cond shapes against their plain versions,
+    timed beside the bound and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    rows = []
+    for name, shape, lk in CROSS_CASES:
+        b, h, lq, d = shape
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (lq, lk, lk))
+        do = torch.randn((b, lq, h, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention(q, k, v, need_lse=True)
+        ref, ref_lse = attention_reference(q, k, v, need_lse=True)
+        grads, launch_dq, launch_dkv = bwd_launches(q, k, v, out, lse, do,
+                                                    None, False, d ** -0.5)
+        launch_dq()
+        launch_dkv()
+        gref = attention_backward_reference(q.float(), k.float(), v.float(),
+                                            out.float(), lse, do.float())
+        torch.cuda.synchronize()
+        errs = {"o": (out.float() - ref.float()).abs().max().item(),
+                "lse": (lse - ref_lse).abs().max().item()}
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, gref):
+            errs[gname] = (g.float() - r).abs().max().item()
+            errs[gname + "_ref_max"] = r.abs().max().item()
+        bad = (errs["o"] > OUT_TOL or errs["lse"] > LSE_TOL or any(
+            errs[g] > BWD_REL_TOL * errs[g + "_ref_max"]
+            for g in ("dq", "dk", "dv")))
+        if bad:
+            raise AssertionError(f"attention kernels disagree with their "
+                                 f"plain versions at {name}: {errs}")
+        act_q, act_k = b * lq * h * d * 2, b * lk * h * d * 2
+        pairs, rows_lse = b * h * lq * lk, b * h * lq * 4
+
+        def bound(nbytes, flops_per_pair):
+            flops = flops_per_pair * d * pairs
+            tb, to = nbytes / HBM_BYTES_PER_S * 1e3, \
+                flops / BF16_FLOP_PER_S * 1e3
+            return {"bound_ms": max(tb, to),
+                    "bound_by": "bytes" if tb >= to else "operations"}
+
+        def fwd():
+            return flash_attention(q, k, v, need_lse=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+        library_bwd = sdpa_backward_fn(q, k, v, do, None)
+        row = {"case": name, "shape_bhld": list(shape), "lk": lk,
+               "errors": errs, "tol": {"o": OUT_TOL, "lse": LSE_TOL,
+                                       "bwd_rel": BWD_REL_TOL},
+               "fwd": {"ms": time_ms(fwd), "device_ms": device_ms(fwd),
+                       "plain_ms": time_ms(lambda: attention_reference(
+                           q, k, v, need_lse=True), iters=5),
+                       "library_ms": time_ms(sdpa),
+                       "library_device_ms": device_ms(sdpa),
+                       # q, k, v, o, lse moved once; 4 D flops a pair
+                       **bound(2 * act_q + 2 * act_k + rows_lse, 4)},
+               "dq": {"ms": time_ms(launch_dq),
+                      "device_ms": device_ms(launch_dq),
+                      # q, k, v, o, dO, lse read; dq, di written
+                      **bound(4 * act_q + 2 * act_k + 2 * rows_lse, 6)},
+               "dkv": {"ms": time_ms(launch_dkv),
+                       "device_ms": device_ms(launch_dkv),
+                       # q, k, v, dO, lse, di read; dk, dv written
+                       **bound(2 * act_q + 4 * act_k + 2 * rows_lse, 8)},
+               "backward_plain_ms": time_ms(
+                   lambda: attention_backward_reference(q, k, v, out, lse,
+                                                        do), iters=5),
+               "backward_library_ms": time_ms(library_bwd),
+               "backward_library_device_ms": device_ms(library_bwd)}
+        rows.append(row)
+        print("kernel img_cond " + json.dumps(row))
+        del q, k, v, do, out, lse, grads, gref
+    free()
+    return rows
+
+
+def phase_variant_forwards(seed) -> dict:
+    """(e) of phase 5g: the split_embed (img_embed_dim 8) and cond_label
+    (no time conditioning) flagships, forward only, through the kernels in
+    bf16 against the plain path in fp32 on the card, within twice the
+    plain bf16 path's distance (labels include 1000, the null slot)."""
+    rec = {}
+    b = REQUESTS
+    for name, over in (("split_embed", {"model.split_embed": True,
+                                        "model.img_embed_dim": 8}),
+                       ("cond_label", {"model.cond_label": True,
+                                       "model.time_conditioning": False})):
+        cfg = Config.make("small", **{**FLAGSHIP_OVERRIDES, **over})
+        m = cfg.model
+        gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+        ids = torch.cat([torch.randint(0, m.mask_index, (b, m.txt_length),
+                                       generator=gen, device="cuda"),
+                         torch.randint(m.text_vocab_size, m.vocab_size,
+                                       (b, m.img_length), generator=gen,
+                                       device="cuda")], 1)
+        ids[:, ::7] = m.mask_index
+        sigma = torch.rand((b,), generator=gen, device="cuda")
+        modality = (torch.arange(m.length, device="cuda")
+                    >= m.txt_length).long().expand(b, -1)
+        kw = {}
+        if m.cond_label:     # 1000: the CFG null slot
+            kw["label"] = torch.tensor([0, 1, 500, 999, 1000, 1000, 7, 3],
+                                       device="cuda")[:b]
+        state, out = None, {}
+        _build.reset_launch_counts()
+        for label, backend, dtype in (("kernel_bf16", "auto",
+                                       torch.bfloat16),
+                                      ("plain_bf16", "xla", torch.bfloat16),
+                                      ("plain_fp32", "xla", torch.float32)):
+            model = DIT(dataclasses.replace(m, attn_backend=backend,
+                                                  logits_dtype="float32"),
+                        dtype, device="cuda", init=False).eval()
+            if state is None:
+                randomize_(model, seed)
+                state = model.state_dict()
+            else:
+                model.load_state_dict(state)
+            out[label] = forward_logits(model, ids, sigma, modality, **kw)
+            if label == "kernel_bf16":
+                launches = dict(_build.launch_counts)
+            del model
+        truth = out["plain_fp32"]
+        rel = {k: (out[k] - truth).norm().item() / truth.norm().item()
+               for k in ("kernel_bf16", "plain_bf16")}
+        rec[name] = {"rows": b, "rel_l2_err_vs_plain_fp32": rel,
+                     "launches": launches}
+        print(f"variant_forward_{name} " + json.dumps(rec[name]))
+        if (launches != {"flash_fwd": m.n_blocks}
+                or rel["kernel_bf16"] > 2 * rel["plain_bf16"]):
+            raise AssertionError(f"{name}: the forward through the kernels "
+                                 f"is off: {rec[name]}")
+        del out, state
+        free()
+    return rec
+
+
+def phase_prefetch(data, seed) -> dict:
+    """(f) of phase 5g: DevicePrefetcher over the precomputed shard: its
+    batches on the card equal the loader's, and a loader restored from
+    its state after 2 batches gives batch 3."""
+    from unidisc_tpu_torch.data.prefetch import DevicePrefetcher
+
+    def loader():
+        return WeightedDatasetSampler([TokenShardDataset(data)],
+                                      batch_size=TRAIN_BATCH, seed=seed)
+    straight = list(itertools.islice(loader(), 4))
+    pf = DevicePrefetcher(loader(), depth=2)
+    for i in range(2):
+        got = next(pf)
+        for k, v in straight[i].items():
+            if isinstance(v, np.ndarray):
+                if got[k].device.type != "cuda" or not np.array_equal(
+                        got[k].cpu().numpy(), v):
+                    raise AssertionError(f"prefetched batch {i} differs ({k})")
+    state = pf.state_dict()
+    pf.close()
+    again = DevicePrefetcher(loader(), depth=2)
+    again.load_state_dict(state)
+    got = next(again)
+    again.close()
+    if not np.array_equal(got["input_ids"].cpu().numpy(),
+                          straight[2]["input_ids"]):
+        raise AssertionError("a resumed prefetcher did not give batch 3")
+    rec = {"batches_on_card_equal": True, "resumed_exactly": True,
+           "state": state}
+    print("prefetch " + json.dumps(rec))
+    return rec
+
+
+def phase_variants(seed, root) -> dict:
+    """Phase 5g (module docstring)."""
+    t0 = time.perf_counter()
+    rec = {"moe": phase_moe(seed, root)}
+    free()
+    rec["prefetch"] = phase_prefetch(os.path.join(
+        root, "moe_data", "shard_00000"), seed)
+    rec["img_cond"] = phase_img_cond(seed)
+    free()
+    rec["kernels"] = phase_cross_kernels(seed)
+    rec["forwards"] = phase_variant_forwards(seed)
+    rec["moe_train"] = rec["moe"]["train"]
+    rec["moe_serve"] = rec["moe"]["moe_serve"]
+    rec["moe_serve_int8"] = rec["moe"]["moe_serve_int8"]
+    rec["img_cond_train"] = rec["img_cond"]["train"]
+    rec["img_cond_sample"] = rec["img_cond"]["sample"]
+    rec["seconds"] = time.perf_counter() - t0
+    moe = rec["moe"]
+    print("variants " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "moe_params": moe["params"],
+        "moe_s_per_step": moe["train"]["median_steady_step_s"],
+        "moe_tok_per_s": moe["train"]["tok_per_s"],
+        "moe_peak_gb": moe["train"]["peak_memory_bytes"] / 1e9,
+        "moe_served_tok_per_s": {
+            q: moe[q]["steady_tok_per_s"] for q in ("moe_serve",
+                                                    "moe_serve_int8")},
+        "moe_routing_agreement": moe["logits"]["routing_agreement"],
+        "img_cond_s_per_step": rec["img_cond"]["train"]["median_step_s"],
+        "img_cond_peak_gb": rec["img_cond"]["train"][
+            "peak_memory_bytes"] / 1e9,
+        "kernel_device_ms": {
+            r["case"]: {p: r[p]["device_ms"] for p in ("fwd", "dq", "dkv")}
+            for r in rec["kernels"]}}))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5064,8 +5704,16 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """The seconds since the last lap, under `name`."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     record["build"] = phase_build()
+    lap("build")
     record["kernel_cases"] = phase_kernels(args.seed)
     record["bwd_kernel_cases"] = phase_bwd_kernels(args.seed)
     int8_model = Config.make("small", **FLAGSHIP_INT8_OVERRIDES).model
@@ -5073,6 +5721,7 @@ def main() -> int:
     record["fused_qmm_cases"] = phase_fused_qmm(int8_model, args.seed)
     record["dynamic_quantize_cases"] = phase_dynamic_quantize(int8_model,
                                                               args.seed)
+    lap("kernels")
 
     t0 = time.perf_counter()
     engine = build_engine(preset="small", overrides=FLAGSHIP_OVERRIDES)
@@ -5131,17 +5780,21 @@ def main() -> int:
         label: {"captured": record[label]["steady_tok_per_s"],
                 "eager": record[label]["eager_steady_tok_per_s"]}
         for label in SERVE_PATHS}))
+    lap("serve")
 
     # 4e: pixels, on phase 4's and 4b's weights
     record.update(phase_pixels(args.seed, qstate))
     free()
+    lap("pixels")
     # 4f: the serving front door, on the same weights
     record["front_door"] = phase_front_door(args.seed, qstate)
     del qstate
     free()
+    lap("front_door")
     # 4g: AR serving
     record["ar"] = phase_ar(args.seed)
     free()
+    lap("ar")
 
     cfg = train_config()
     record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
@@ -5155,12 +5808,14 @@ def main() -> int:
                                                       root)
         del final_ema
         free()
+        lap("train")
         # 5d: the rest of training, phase 5's run dir the LoRA base and
         # the distillation teacher
         record["train_rest"] = phase_train_rest(args.seed, root, run_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
+    lap("train_rest")
     # 5c: the ar, sedd and d3pm objectives on token shards and streams
     root = tempfile.mkdtemp(prefix="chip_smoke_ar_train_")
     try:
@@ -5170,6 +5825,7 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
+    lap("ar_train")
     # 5e: interleaved documents end to end; 5f: the samplers left
     root = tempfile.mkdtemp(prefix="chip_smoke_interleaved_")
     try:
@@ -5178,8 +5834,20 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
+    lap("interleaved")
     record["samplers_left"] = phase_samplers_left(args.seed)
     free()
+    lap("samplers_left")
+    # 5g: the DIT variants and the data tail
+    root = tempfile.mkdtemp(prefix="chip_smoke_variants_")
+    try:
+        record["variants"] = phase_variants(args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free()
+    lap("variants")
+    record["phase_seconds"] = laps
+    print("phase_seconds " + json.dumps(laps))
     pix = record["pixels"]
     print("pixels " + json.dumps({
         "card": card, "decode_ms_b8": {
@@ -5222,6 +5890,9 @@ def main() -> int:
                 "launches"].get(name, 0)
         for path in SAMPLERS_LEFT_PATHS:
             by_path[name][path] = record["samplers_left"][path][
+                "launches"].get(name, 0)
+        for path in VARIANT_PATHS:
+            by_path[name][path] = record["variants"][path][
                 "launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape

@@ -90,6 +90,22 @@ def test_flagship_overrides_match_the_benchmark_config():
     {"trainer.host_offload_optimizer": True,
      "trainer.host_offload_chunks": 0},
     {"model.mup": True, "model.mup_base_width": 256},
+    # the MoE and img_cond rules
+    {"model.moe_experts": 4, "model.moe_top_k": 0},
+    {"model.moe_experts": 4, "mesh.ep": 3},
+    {"model.moe_experts": 4, "model.quant": "int8",
+     "model.quant_fused": True},
+    {"model.img_cond": True},
+    {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+     "model.cond_length": 4, "model.sandwich_normalization": True},
+    {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+     "model.cond_length": 4, "model.qk_norm": True},
+    {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+     "model.cond_length": 4, "model.rope_2d": True},
+    {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+     "model.cond_length": 4, "model.img_resolutions": (4,)},
+    {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+     "model.cond_length": 4, "mesh.pp": 2, "model.dropout": 0.0},
 ])
 def test_validate_rejects_what_the_jax_config_rejects(over):
     with pytest.raises(ValueError):

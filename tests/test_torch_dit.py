@@ -181,24 +181,82 @@ def test_weight_carry_over_round_trips(jax_params):
                                       np.asarray(want[k]), err_msg=k)
 
 
-def test_unported_branches_raise():
-    _, tcfg = configs()
+VARIANTS = {
+    # every DIT variant of the JAX package runs (held to JAX in
+    # tests/test_torch_moe.py and tests/test_torch_img_cond.py)
+    "label": {"model.cond_label": True, "model.time_conditioning": False},
+    "x_cond": {"model.img_cond": True, "model.cond_image_vocab_size": 8,
+               "model.cond_length": 4, "model.n_cond_blocks": 1,
+               "model.qk_norm": False, "model.sandwich_normalization": False,
+               "model.rope_2d": False},
+    "split_embed": {"model.split_embed": True},
+    "moe": {"model.moe_experts": 4},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_forwards_run(variant):
+    _, tcfg = configs(**VARIANTS[variant])
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
     ids, sigma, modality = inputs(tcfg.model)
-    # the KV-cache, frozen-KV and packed-batch arguments are ported
-    # (tests/test_torch_kv_cache.py, test_torch_interleaved.py); the
-    # label and image-conditioning ones still raise, naming item 6
-    for arg, value in (("label", torch.zeros((B,), dtype=torch.long)),
-                       ("x_cond", torch.zeros((B, 4), dtype=torch.long))):
-        with pytest.raises(NotImplementedError, match=f"{arg}.*item 6"):
-            model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
-                  modality=torch.from_numpy(modality).long(),
-                  **{arg: value})
-    for flag in ("split_embed", "cond_label", "img_cond"):
-        with pytest.raises(NotImplementedError, match=f"{flag}.*item 6"):
-            DIT(tcfg.override(**{f"model.{flag}": True}).model)
-    with pytest.raises(NotImplementedError, match="moe.*item 6"):
-        DIT(tcfg.override(**{"model.moe_experts": 4}).model)
+    kw = {}
+    if variant == "label":
+        kw["label"] = torch.tensor([0, 1000])
+    if variant == "x_cond":
+        kw["x_cond"] = torch.zeros((B, 4), dtype=torch.long)
+    with torch.no_grad():
+        out = model(torch.from_numpy(ids).long(), torch.from_numpy(sigma),
+                    modality=torch.from_numpy(modality).long(), **kw)
+    assert out.shape == (B, L, tcfg.model.vocab_size)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS) + ["int8",
+                                                       "img_count_embed"])
+def test_empty_dit_is_filled_whole_by_reset_parameters(variant):
+    """A DIT built with init=False (no draws) leaves every parameter and
+    persistent buffer without a value; reset_parameters fills each of
+    them (none is left NaN) with the values of a DIT built the usual way
+    from the same seed."""
+    over = {"int8": {"model.quant": "int8"},
+            "img_count_embed": {"model.img_count_embed": True}
+            }.get(variant) or VARIANTS[variant]
+    _, tcfg = configs(**over)
+    model = DIT(tcfg.model, torch.float32, init=False)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            t.fill_(float("nan") if t.is_floating_point() else -1)
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    want = DIT(tcfg.model, compute_dtype=torch.float32)
+    want.reset_parameters(torch.Generator().manual_seed(5))
+    got = model.state_dict()
+    for name, value in want.state_dict().items():
+        assert torch.equal(got[name], value), name
+    for name, value in want.named_buffers():
+        assert torch.equal(model.get_buffer(name), value), name
+
+
+def test_unported_branches_raise():
+    """No DIT branch is unported now; what the JAX DIT refuses (asserts)
+    the port refuses: a cond_label forward without a label, img_cond with a
+    KV cache, and an argument the DIT does not have."""
+    _, tcfg = configs(**VARIANTS["label"])
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    ids, sigma, modality = inputs(tcfg.model)
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(sigma))
+    mod = torch.from_numpy(modality).long()
+    with pytest.raises(ValueError, match="needs label"):
+        model(*args, modality=mod)
+    with pytest.raises(ValueError, match="generator"):
+        model.train()(*args, modality=mod, label=torch.tensor([0, 1]))
+    _, tcfg = configs(**VARIANTS["x_cond"])
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    kv = torch.zeros((tcfg.model.n_blocks, B, L, 2, 64))
+    with pytest.raises(ValueError, match="KV-cache"):
+        model(*args, modality=mod, x_cond=torch.zeros((B, 4)).long(),
+              kv_cache=(kv, kv.clone()), cache_index=0)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        model(*args, modality=mod, no_such_argument=1)
 
 
 # ---------------------------------------------------------------------------

@@ -391,8 +391,8 @@ def test_reference_checkpoint_loads_with_the_jax_overrides(tmp_path, fmt):
 def test_infer_dit_overrides_matches_jax_on_split_and_conditioned_keys():
     """The shape rules beyond the flagship's: split embedding, layernorm
     with bias, class labels without time conditioning, image conditioning
-    and the image-count table (each raises in the port's DIT, but the
-    config is inferred as JAX infers it)."""
+    and the image-count table (the config inferred as JAX infers it;
+    tests/test_torch_img_cond.py serves such checkpoints)."""
     from unidisc_tpu.models.port import infer_dit_overrides as jax_infer
     from unidisc_tpu_torch.models.port import infer_dit_overrides
     z = np.zeros

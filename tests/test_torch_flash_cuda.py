@@ -255,6 +255,13 @@ RISKY_CASES = {
     # ar_inpainting's doubled rows on the causal DIT-AR: 12 KV tiles
     "B2_L768_H12_D64_causal": (2, 768, 768, 12, 64, "projection", True,
                                False),
+    # img_cond at the flagship width: the cross-attention (384 queries of
+    # the main stream against the 256 conditioning positions) and the
+    # conditioning trunk's self-attention, training batch 32
+    "B32_Lq384_Lk256_H12_D64_cross": (32, 384, 256, 12, 64, "contiguous",
+                                      False, False),
+    "B32_L256_H12_D64_trunk": (32, 256, 256, 12, 64, "projection", False,
+                               False),
 }
 
 

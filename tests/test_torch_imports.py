@@ -277,6 +277,34 @@ def test_interleaved_slice_is_checked():
     assert "BUILD_DIR" in binding and "packer.so" not in binding
 
 
+# the modules of the DIT variants and the data tail: MoE, the variant
+# branches of the DIT, train step, engine and shape rules, prefetch,
+# precompute and the dataset adapters
+VARIANTS_SLICE = [
+    "unidisc_tpu_torch/models/moe.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/models/port.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/training/layout.py",
+    "unidisc_tpu_torch/training/lora.py",
+    "unidisc_tpu_torch/sampling/sampler.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/data/prefetch.py",
+    "unidisc_tpu_torch/data/precompute.py",
+    "unidisc_tpu_torch/data/hf_datasets.py",
+]
+
+
+def test_variants_slice_is_checked():
+    assert set(VARIANTS_SLICE) <= set(FILES)
+    for path in VARIANTS_SLICE:
+        assert "unidisc_tpu" not in set(imported_roots(path)), path
+    # the dataset adapters import datasets and PIL only where they run
+    # (the card's machine has neither)
+    roots = set(imported_roots("unidisc_tpu_torch/data/hf_datasets.py"))
+    assert not roots & {"datasets", "PIL"}, roots
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

@@ -297,24 +297,26 @@ def test_compute_batch_loss_matches_jax(jax_params, variant, train):
 def test_unported_branches_raise(jax_params):
     """The optimizers, remat, dropout and add_label are ported (the
     OTHER_STEPS cases below, tests/test_torch_optimizers.py,
-    tests/test_torch_dit.py), and packed interleaved batches too (tests/
-    test_torch_interleaved.py); img_cond, MoE and x_cond batches wait
-    for ROADMAP item 6."""
+    tests/test_torch_dit.py), packed interleaved batches (tests/
+    test_torch_interleaved.py), MoE and img_cond with x_cond (tests/
+    test_torch_moe.py, test_torch_img_cond.py). Refused, as JAX refuses
+    them: an img_cond model without x_cond in the batch, and a cond_label
+    model, whose label the JAX step never passes to the DIT (which asserts
+    one); an unknown optimizer fails validate()."""
     _, tcfg = configs()
     model = DIT(tcfg.model, compute_dtype=torch.float32)
     batch = {k: torch.from_numpy(v)
              for k, v in make_batch(tcfg.model).items()}
     apply_fn = tts.make_apply_fn(tcfg, model)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tts.compute_batch_loss(
-            tcfg, apply_fn, None,
-            {**batch, "x_cond": torch.zeros_like(batch["input_ids"])},
-            generator=gen)
-    for over in ({"model.moe_experts": 4}, {"model.img_cond": True}):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tts.compute_batch_loss(tcfg.override(**over), apply_fn, None,
-                                   batch, generator=gen)
+    with pytest.raises(ValueError, match="no 'x_cond'"):
+        tts.compute_batch_loss(tcfg.override(**{
+            "model.img_cond": True, "model.cond_image_vocab_size": 8,
+            "model.cond_length": 4}), apply_fn, None, batch, generator=gen)
+    with pytest.raises(ValueError, match="cond_label has no train step"):
+        tts.compute_batch_loss(tcfg.override(**{
+            "model.cond_label": True, "model.time_conditioning": False}),
+            apply_fn, None, batch, generator=gen)
     with pytest.raises(ValueError, match="unknown trainer.optimizer"):
         tts.make_optimizer(tcfg.override(**{"trainer.optimizer": "sgd"}))
 

@@ -78,24 +78,53 @@ learned row per earlier image block of the sample (``img_block_index``)
 to image tokens, and ``extra_embed`` (B, L, hidden) is added to the
 embedding (the transfusion branch, ``models/continuous.py``).
 
-The port covers the inference forward (bf16 and int8, with the KV-cache and
-frozen-KV paths), training and packed batches; the image-conditioning,
-MoE, split-embedding, class-label and parallel branches raise
-``NotImplementedError``.
+The variants of the JAX DIT:
+
+  * ``model.moe_experts > 0``: every block's MLP is ``models/moe.py::
+    MoEMLP`` (norm2, the adaLN modulation when time-conditioned, then the
+    experts); ``forward(return_moe_aux=True)`` returns (logits, the balance
+    auxiliary summed over the blocks). The experts and the router stay in
+    floating point in an int8 model.
+  * ``model.split_embed``: text ids through a (text_vocab + 1)-row table
+    whose last row is the mask token, image ids through
+    ``img_vocab_embed`` (image_vocab, img_embed_dim) projected by
+    ``img_vocab_proj`` in fp32; each position picks its source by id.
+  * ``model.cond_label``: ``label`` (B,) through ``y_embedder``, a
+    1001-row table whose row 1000 is the CFG null slot, is the
+    conditioning vector c (no SiLU). In training mode labels are dropped
+    to the null slot with probability 0.1, drawn from ``generator``.
+  * ``model.img_cond``: ``x_cond`` (B, Lc) ids of the conditioning image
+    go through ``cond_img_vocab_embed`` (and ``cond_img_vocab_proj`` under
+    ``cond_img_embed_dim``), then ``n_cond_blocks`` plain blocks
+    (``img_cond_blocks``: no time conditioning, 1D rope, floating point);
+    every main block's ``cross_attention`` takes Q from the main stream
+    (the Q third of its 3 x dim ``attn_qkv``) and K / V from the trunk's
+    output (``attn_qkv_cond``, K with the cond positions' 1D rope), and its
+    output is added to the block input through the attention gate, with
+    no modality, as the JAX block wires it. The cross-attention (Lq != Lk)
+    and the trunk's self-attention take the hand kernels on the card.
+    ``img_cond`` takes no KV cache. Without ``x_cond`` the trunk and the
+    cross-attention are skipped, as in JAX.
+
+The parallel branches (pipeline, sequence parallelism) are not in the
+port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from unidisc_tpu_torch.config import ModelConfig
+from unidisc_tpu_torch.models.moe import MoEMLP
 from unidisc_tpu_torch.models.rotary import (apply_rope, build_multimodal_rope,
-                                             build_multires_rope)
+                                             build_multires_rope, rope_1d)
 from unidisc_tpu_torch.ops.attention import (make_sample_ids_mask,
                                              multihead_attention)
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
@@ -284,12 +313,69 @@ def block_dropout_seed(seed: int, block: int) -> int:
     return (seed * 1_000_003 + 7_919 * (block + 1)) % (2 ** 63)
 
 
-def dropout_masks(shape, p: float, seed: int, device):
-    """(keep_attention, keep_mlp) of one block: bool masks, each element
-    kept with probability 1 - p, from a generator seeded with `seed`."""
+def dropout_masks(shape, p: float, seed: int, device, n: int = 2):
+    """(keep_attention, keep_mlp) of one block, or (keep_attention,
+    keep_cross, keep_mlp) with n 3: bool masks, each element kept with
+    probability 1 - p, from a generator seeded with `seed`."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return tuple(torch.rand(shape, generator=gen, device=device) < 1.0 - p
-                 for _ in range(2))
+                 for _ in range(n))
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding with a CFG null slot: ``embedding_table`` has
+    num_classes + 1 rows, the last the null label."""
+
+    def __init__(self, num_classes: int, cond_dim: int,
+                 dropout_prob: float = 0.1):
+        super().__init__()
+        self.num_classes, self.dropout_prob = num_classes, dropout_prob
+        self.embedding_table = nn.Embedding(num_classes + 1, cond_dim)
+
+    def forward(self, labels: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """In training each label becomes the null slot with probability
+        dropout_prob, drawn from `generator` (required there)."""
+        labels = labels.long()
+        if train and self.dropout_prob > 0:
+            if generator is None:
+                raise ValueError("the training-mode label drop needs a "
+                                 "torch.Generator (generator=)")
+            drop = torch.rand(labels.shape, generator=generator,
+                              device=labels.device) < self.dropout_prob
+            labels = torch.where(drop, self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention of the main stream to the conditioning trunk's
+    output: Q from the Q third of ``attn_qkv`` (the whole 3 x dim
+    parameter is kept, as in the reference and JAX), K and V from the K and
+    V thirds of ``attn_qkv_cond``; Q takes the main stream's rope, K the
+    cond positions' 1D rope. Always floating point."""
+
+    def __init__(self, cfg: ModelConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        dim = cfg.hidden_size
+        self.attn_qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.attn_qkv_cond = nn.Linear(dim, 3 * dim, bias=False)
+        self.attn_out = nn.Linear(dim, dim, bias=False)
+
+    def forward(self, x, x_cond, rope_cos, rope_sin, cond_rope):
+        cfg, dt = self.cfg, self.compute_dtype
+        b, l, dim = x.shape
+        lc = x_cond.shape[1]
+        h, d = cfg.n_heads, cfg.head_dim
+        q = F.linear(x.to(dt), self.attn_qkv.weight[:dim].to(dt))
+        kv = F.linear(x_cond.to(dt), self.attn_qkv_cond.weight[dim:].to(dt))
+        k, v = kv.view(b, lc, 2, h, d).unbind(2)
+        q = apply_rope(q.view(b, l, h, d), rope_cos, rope_sin)
+        k = apply_rope(k, *cond_rope)
+        out = flash_attention(q, k, v) if cfg.attn_backend != "xla" \
+            else multihead_attention(q, k, v)
+        return dense(out.reshape(b, l, dim), self.attn_out, dt)
 
 
 _SAVED_PRODUCTS = {
@@ -337,10 +423,15 @@ class DDiTBlock(nn.Module):
             self.q_norm = QKNorm(dim, compute_dtype)
             self.k_norm = QKNorm(dim, compute_dtype)
         self.norm2 = Norm(dim, cfg.norm_type, compute_dtype)
-        self.mlp = nn.Sequential(
-            make_linear(cfg, dim, cfg.mlp_ratio * dim, bias=True),
-            nn.GELU(approximate="tanh"),
-            make_linear(cfg, cfg.mlp_ratio * dim, dim, bias=True))
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(cfg, compute_dtype)
+        else:
+            self.mlp = nn.Sequential(
+                make_linear(cfg, dim, cfg.mlp_ratio * dim, bias=True),
+                nn.GELU(approximate="tanh"),
+                make_linear(cfg, cfg.mlp_ratio * dim, dim, bias=True))
+        if cfg.img_cond:
+            self.cross_attention = CrossAttention(cfg, compute_dtype)
         if cfg.time_conditioning:
             self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim)
         if cfg.sandwich_normalization:
@@ -402,18 +493,26 @@ class DDiTBlock(nn.Module):
 
     def forward(self, x, c, rope_cos, rope_sin, modality=None,
                 attn_mask=None, kv_cache=None, cache_index=None,
-                frozen_kv=None, dropout=None, segment_ids=None):
+                frozen_kv=None, dropout=None, segment_ids=None,
+                x_cond=None, cond_rope=None):
         """One block; a kv_cache (this block's slices) is written in
         place. dropout: None, this block's seed (an int) or its
-        (keep_attention, keep_mlp) masks."""
+        (keep_attention, keep_mlp) masks, (keep_attention, keep_cross,
+        keep_mlp) where the cross-attention runs. x_cond: the conditioning
+        trunk's output (B, Lc, hidden), with its rope rows cond_rope.
+        Returns x, or (x, the MoE auxiliary) under model.moe_experts."""
         cfg = self.cfg
         dt = self.compute_dtype
-        drop_attn = drop_mlp = None
+        cross = cfg.img_cond and x_cond is not None
+        drop_attn = drop_cross = drop_mlp = None
         if dropout is not None:
-            keep = dropout_masks(x.shape, cfg.dropout, dropout, x.device) \
+            keep = dropout_masks(x.shape, cfg.dropout, dropout, x.device,
+                                 3 if cross else 2) \
                 if isinstance(dropout, int) else dropout
-            drop_attn, drop_mlp = (dropout_with(k, cfg.dropout)
-                                   for k in keep)
+            drops = [dropout_with(k, cfg.dropout) for k in keep]
+            drop_attn, drop_mlp = drops[0], drops[-1]
+            if cross:
+                drop_cross = drops[1]
         if cfg.time_conditioning:
             cond = dense(c, self.adaLN_modulation, dt)
             cond = cond[:, None, :] if cond.ndim == 2 else cond
@@ -462,21 +561,36 @@ class DDiTBlock(nn.Module):
         else:
             x = gate_residual(x_skip, attn_out, gate_msa, modality,
                               dropout_fn=drop_attn)
+        if cross:
+            # the JAX (and reference) wiring: the cross output goes onto
+            # the block input through the attention gate, with no modality
+            cross_out = self.cross_attention(x, x_cond, rope_cos, rope_sin,
+                                             cond_rope)
+            x = gate_residual(x_skip, cross_out, gate_msa, None,
+                              dropout_fn=drop_cross)
 
-        if fused:
-            hidden = self.mlp[0](x, dt, prologue(self.norm2, shift_mlp,
-                                                 scale_mlp))
-        else:
+        aux = None
+        if cfg.moe_experts > 0:
             hidden = self.norm2(x)
             if cfg.time_conditioning:
                 hidden = modulate(hidden, shift_mlp, scale_mlp, modality)
-            hidden = dense(hidden, self.mlp[0], dt)
-        hidden = F.gelu(hidden, approximate="tanh")
-        hidden = dense(hidden, self.mlp[2], dt)
+            hidden, aux = self.moe(hidden)
+        else:
+            if fused:
+                hidden = self.mlp[0](x, dt, prologue(self.norm2, shift_mlp,
+                                                     scale_mlp))
+            else:
+                hidden = self.norm2(x)
+                if cfg.time_conditioning:
+                    hidden = modulate(hidden, shift_mlp, scale_mlp,
+                                      modality)
+                hidden = dense(hidden, self.mlp[0], dt)
+            hidden = F.gelu(hidden, approximate="tanh")
+            hidden = dense(hidden, self.mlp[2], dt)
         if cfg.sandwich_normalization:
             hidden = self.post_ff_norm(hidden)
-        return gate_residual(x, hidden, gate_mlp, modality,
-                             dropout_fn=drop_mlp)
+        x = gate_residual(x, hidden, gate_mlp, modality, dropout_fn=drop_mlp)
+        return x if aux is None else (x, aux)
 
 
 class DDitFinalLayer(nn.Module):
@@ -506,16 +620,6 @@ class DDitFinalLayer(nn.Module):
         return dense(x.to(out_dtype), self.linear, out_dtype)
 
 
-# arguments of the JAX DIT.__call__ whose branches later slices port
-_LATER_ARGS = ("label", "x_cond")
-
-_UNSUPPORTED_FLAGS = {
-    "split_embed": "split text/image embedding",
-    "cond_label": "class-label conditioning",
-    "img_cond": "image cross-attention conditioning",
-}
-
-
 class DIT(nn.Module):
     """The UniDisc denoiser.
 
@@ -524,36 +628,75 @@ class DIT(nn.Module):
     (B, L, vocab) in ``model.logits_dtype``; with return_hidden, also the
     final hidden state. ``hidden(...)`` returns only the hidden state and
     skips the vocab head. Packed batches add sample_ids, rope_index and
-    img_block_index (module docstring).
+    img_block_index, the variants label and x_cond (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 remat: bool = False):
+                 remat: bool = False, device="cpu", init: bool = True):
+        """The modules are built on the meta device, so with no draws,
+        then given storage on `device`; ``init`` fills them through
+        ``reset_parameters`` (seed 0), else they hold no values until
+        ``load_state_dict`` or ``reset_parameters`` fills them. The rope
+        tables, made from numpy on the host, are carried over."""
         super().__init__()
-        for flag, what in _UNSUPPORTED_FLAGS.items():
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"model.{flag} ({what}) is not in the port yet "
-                    f"(ROADMAP queue 1, item 6)")
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("model.moe_experts > 0 (MoE MLP) is "
-                                      "not in the port yet (ROADMAP queue "
-                                      "1, item 6)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.remat = remat
+        with torch.device("meta"):
+            self._build(cfg, compute_dtype)
+        tables = {n: b for n, b in self.named_buffers() if not b.is_meta}
+        self.to_empty(device=device)
+        with torch.no_grad():
+            for name, value in tables.items():
+                self.get_buffer(name).copy_(value)
+        if init:
+            self.reset_parameters(torch.Generator().manual_seed(0))
+
+    def _build(self, cfg: ModelConfig, compute_dtype: torch.dtype) -> None:
         dim = cfg.hidden_size
-        self.vocab_embed = Embedding(cfg.vocab_size, dim)
-        if cfg.time_conditioning:
+        if cfg.split_embed:
+            self.vocab_embed = Embedding(cfg.text_vocab_size + 1, dim)
+            self.img_vocab_embed = nn.Embedding(cfg.image_vocab_size,
+                                                cfg.img_embed_dim)
+            self.img_vocab_proj = nn.Linear(cfg.img_embed_dim, dim)
+        else:
+            self.vocab_embed = Embedding(cfg.vocab_size, dim)
+        if cfg.time_conditioning and not cfg.cond_label:
             self.sigma_map = TimestepEmbedder(cfg.cond_dim,
                                               compute_dtype=compute_dtype)
+        if cfg.cond_label:
+            self.y_embedder = LabelEmbedder(1000, cfg.cond_dim)
         if cfg.modality_embed:
             self.modality_embed = Embedding(2, dim)
         if cfg.img_count_embed:
             # the reference name: a bare table, zero at init
             self.img_count_embedding = nn.Parameter(
                 torch.zeros(cfg.max_images_per_sample, dim))
+        if cfg.img_cond:
+            if cfg.cond_img_embed_dim is not None:
+                self.cond_img_vocab_embed = nn.Embedding(
+                    cfg.cond_image_vocab_size, cfg.cond_img_embed_dim)
+                self.cond_img_vocab_proj = nn.Linear(cfg.cond_img_embed_dim,
+                                                     dim)
+            else:
+                self.cond_img_vocab_embed = Embedding(
+                    cfg.cond_image_vocab_size, dim)
+            # plain blocks: unconditioned, dense, floating point (JAX builds
+            # them with time conditioning, img_cond and MoE off; its
+            # quantize leaves them in floating point)
+            cond_cfg = dataclasses.replace(cfg, time_conditioning=False,
+                                           img_cond=False, moe_experts=0,
+                                           quant=None)
+            self.img_cond_blocks = nn.ModuleList(
+                DDiTBlock(cond_cfg, compute_dtype)
+                for _ in range(cfg.n_cond_blocks))
+            ccos, csin = rope_1d(cfg.cond_length, cfg.head_dim,
+                                 base=cfg.rope_base)
+            self.register_buffer("cond_rope_cos", torch.from_numpy(ccos),
+                                 persistent=False)
+            self.register_buffer("cond_rope_sin", torch.from_numpy(csin),
+                                 persistent=False)
         self.blocks = nn.ModuleList(DDiTBlock(cfg, compute_dtype)
                                     for _ in range(cfg.n_blocks))
         self.output_layer = DDitFinalLayer(cfg, compute_dtype)
@@ -570,22 +713,30 @@ class DIT(nn.Module):
                              persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin),
                              persistent=False)
-        self.reset_parameters(torch.Generator().manual_seed(0))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialise like ``unidisc_tpu.models.dit.init_dit`` (the same
         distributions; torch and JAX draw different numbers): torch-Linear
         uniform kernels, uniform embeddings, zero adaLN tables, and a zero
-        vocab head under ``zero_linear_init``. A ``QLinear`` takes the
-        JAX ``QDense`` init, round(127 x the uniform kernel) with scale
-        1/127, the vocab head too."""
+        vocab head under ``zero_linear_init``; flax's default lecun-normal
+        kernels (zero biases) for the split-embed and cond projections and
+        the MoE router and experts. A ``QLinear`` takes the JAX ``QDense``
+        init, round(127 x the uniform kernel) with scale 1/127, the vocab
+        head too."""
+        from unidisc_tpu_torch.tokenizers.vqgan import _truncated_normal_
         cfg = self.cfg
 
         def uniform_(p, fan):
             bound = 1.0 / math.sqrt(fan)
             p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
                                                   generator=generator))
+
+        def lecun_(p, fan):
+            t = torch.empty(p.shape)
+            _truncated_normal_(t, math.sqrt(1.0 / fan) / .87962566103423978,
+                               generator)
+            p.copy_(t)
 
         def linear_(lin, bias="zeros"):
             if isinstance(lin, QLinear):
@@ -601,20 +752,28 @@ class DIT(nn.Module):
                 else:  # the JAX init draws the bias with fan = its length
                     uniform_(lin.bias, lin.bias.numel())
 
-        uniform_(self.vocab_embed.embedding, cfg.hidden_size)
-        if cfg.img_count_embed:
-            self.img_count_embedding.zero_()
-        if cfg.modality_embed:
-            uniform_(self.modality_embed.embedding, cfg.hidden_size)
-        if cfg.time_conditioning:
-            linear_(self.sigma_map.mlp[0])
-            linear_(self.sigma_map.mlp[2])
-        for blk in self.blocks:
+        def dense_(lin):       # flax nn.Dense's default init
+            lecun_(lin.weight, lin.in_features)
+            lin.bias.zero_()
+
+        def block_(blk):
             linear_(blk.attn_qkv)
             linear_(blk.attn_out)
-            linear_(blk.mlp[0], bias="uniform")
-            linear_(blk.mlp[2], bias="uniform")
-            if cfg.time_conditioning:
+            if blk.cfg.moe_experts > 0:
+                lecun_(blk.moe.router.weight, cfg.hidden_size)
+                lecun_(blk.moe.w1, cfg.hidden_size)
+                lecun_(blk.moe.w2, cfg.mlp_ratio * cfg.hidden_size)
+                blk.moe.b1.zero_()
+                blk.moe.b2.zero_()
+            else:
+                linear_(blk.mlp[0], bias="uniform")
+                linear_(blk.mlp[2], bias="uniform")
+            if blk.cfg.img_cond:
+                for lin in (blk.cross_attention.attn_qkv,
+                            blk.cross_attention.attn_qkv_cond,
+                            blk.cross_attention.attn_out):
+                    linear_(lin)
+            if blk.cfg.time_conditioning:
                 blk.adaLN_modulation.weight.zero_()
                 blk.adaLN_modulation.bias.zero_()
             for m in blk.modules():
@@ -622,6 +781,32 @@ class DIT(nn.Module):
                     m.weight.fill_(1.0)
                     if isinstance(m, QKNorm):
                         m.bias.zero_()
+
+        uniform_(self.vocab_embed.embedding, cfg.hidden_size)
+        if cfg.split_embed:
+            uniform_(self.img_vocab_embed.weight, cfg.img_embed_dim)
+            dense_(self.img_vocab_proj)
+        if cfg.img_count_embed:
+            self.img_count_embedding.zero_()
+        if cfg.modality_embed:
+            uniform_(self.modality_embed.embedding, cfg.hidden_size)
+        if cfg.time_conditioning and not cfg.cond_label:
+            linear_(self.sigma_map.mlp[0])
+            linear_(self.sigma_map.mlp[2])
+        if cfg.cond_label:
+            uniform_(self.y_embedder.embedding_table.weight, cfg.cond_dim)
+        if cfg.img_cond:
+            if cfg.cond_img_embed_dim is not None:
+                uniform_(self.cond_img_vocab_embed.weight,
+                         cfg.cond_img_embed_dim)
+                dense_(self.cond_img_vocab_proj)
+            else:
+                uniform_(self.cond_img_vocab_embed.embedding,
+                         cfg.hidden_size)
+            for blk in self.img_cond_blocks:
+                block_(blk)
+        for blk in self.blocks:
+            block_(blk)
         out = self.output_layer
         out.norm_final.weight.fill_(1.0)
         if cfg.time_conditioning:
@@ -633,15 +818,7 @@ class DIT(nn.Module):
             out.linear.weight.zero_()
             out.linear.bias.zero_()
 
-    def _check(self, sigma, modality, unsupported) -> None:
-        for name, value in unsupported.items():
-            if name not in _LATER_ARGS:
-                raise TypeError(f"DIT.forward got an unexpected argument "
-                                f"{name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"DIT.forward({name}=...) is not in the port yet "
-                    f"(ROADMAP queue 1, item 6)")
+    def _check(self, sigma, modality) -> None:
         if self.cfg.time_conditioning and sigma is None:
             raise ValueError("time_conditioning needs sigma")
         if self.cfg.modality_embed and modality is None:
@@ -650,29 +827,31 @@ class DIT(nn.Module):
     def hidden(self, indices, sigma=None, *, modality=None, attn_mask=None,
                kv_cache=None, cache_index=None, frozen_kv=None,
                rope_index=None, dropout=None, sample_ids=None,
-               img_block_index=None, extra_embed=None, **unsupported):
+               img_block_index=None, extra_embed=None, label=None,
+               x_cond=None, generator=None):
         """Final hidden state (B, L, hidden) after the block stack, without
         the vocab head; with a kv_cache, (hidden, new_cache)."""
-        x, _, new_cache = self._trunk(
+        x, _, new_cache, _ = self._trunk(
             indices, sigma, modality, attn_mask, kv_cache, cache_index,
-            frozen_kv, rope_index, unsupported, dropout,
-            packed=(sample_ids, img_block_index, extra_embed))
+            frozen_kv, rope_index, dropout,
+            packed=(sample_ids, img_block_index, extra_embed),
+            conditioning=(label, x_cond, generator))
         return x if kv_cache is None else (x, new_cache)
 
-    def _dropout_per_block(self, dropout):
-        """Each block's dropout argument (None without dropout): its seed,
-        or the given masks. In training with model.dropout > 0 and no
-        `dropout`, the seed is drawn from torch's default CPU generator."""
+    def _dropout_per_block(self, dropout, n: int):
+        """The dropout argument of each of n blocks (the main blocks, then
+        the conditioning trunk's), None without dropout: its seed, or the
+        given masks. In training with model.dropout > 0 and no `dropout`,
+        the seed is drawn from torch's default CPU generator."""
         if not (self.training and self.cfg.dropout > 0):
-            return [None] * len(self.blocks)
+            return [None] * n
         if dropout is None:
             dropout = int(torch.randint(0, 2 ** 62, (1,)).item())
         if isinstance(dropout, int):
-            return [block_dropout_seed(dropout, i)
-                    for i in range(len(self.blocks))]
-        if len(dropout) != len(self.blocks):
+            return [block_dropout_seed(dropout, i) for i in range(n)]
+        if len(dropout) != n:
             raise ValueError(f"dropout masks for {len(dropout)} blocks, the "
-                             f"model has {len(self.blocks)}")
+                             f"forward runs {n}")
         return list(dropout)
 
     def _embed(self, indices, modality, img_block_index, extra_embed):
@@ -680,7 +859,20 @@ class DIT(nn.Module):
         embedding added, then the modality rows, in the JAX order."""
         cfg = self.cfg
         dt = self.compute_dtype
-        x = self.vocab_embed(indices).to(dt)
+        if cfg.split_embed:
+            tvs = cfg.text_vocab_size
+            mask_tok = indices == cfg.mask_index
+            img_tok = (indices >= tvs) & ~mask_tok
+            txt_ids = torch.where(mask_tok, tvs,
+                                  torch.where(indices < tvs, indices, 0))
+            img_ids = torch.where(img_tok, indices - tvs, 0)
+            img_x = F.linear(self.img_vocab_embed(img_ids),
+                             self.img_vocab_proj.weight,
+                             self.img_vocab_proj.bias)
+            x = torch.where(img_tok[..., None], img_x,
+                            self.vocab_embed(txt_ids)).to(dt)
+        else:
+            x = self.vocab_embed(indices).to(dt)
         if cfg.img_count_embed and img_block_index is not None:
             if modality is None:
                 raise ValueError("img_block_index needs modality")
@@ -695,11 +887,32 @@ class DIT(nn.Module):
             x = x + self.modality_embed(modality).to(dt)
         return x
 
+    def _cond_trunk(self, x_cond, drops):
+        """The conditioning trunk over x_cond (B, Lc): (its output (B, Lc,
+        hidden), its 1D rope rows)."""
+        cfg = self.cfg
+        lc = x_cond.shape[1]
+        if lc > self.cond_rope_cos.shape[0]:
+            raise ValueError(f"x_cond has {lc} positions; model.cond_length "
+                             f"is {cfg.cond_length}")
+        ce = self.cond_img_vocab_embed(x_cond.long())
+        if cfg.cond_img_embed_dim is not None:
+            ce = F.linear(ce, self.cond_img_vocab_proj.weight,
+                          self.cond_img_vocab_proj.bias)
+        ce = ce.to(self.compute_dtype)
+        rope = (self.cond_rope_cos[:lc], self.cond_rope_sin[:lc])
+        for blk, drop in zip(self.img_cond_blocks, drops):
+            ce = blk(ce, None, *rope, dropout=drop)
+        return ce, rope
+
     def _trunk(self, indices, sigma, modality, attn_mask, kv_cache,
-               cache_index, frozen_kv, rope_index, unsupported,
-               dropout=None, packed=(None, None, None)):
-        self._check(sigma, modality, unsupported)
+               cache_index, frozen_kv, rope_index, dropout=None,
+               packed=(None, None, None), conditioning=(None, None, None)):
+        """(hidden, c, new cache, the MoE auxiliary summed over the blocks
+        or None)."""
+        self._check(sigma, modality)
         sample_ids, img_block_index, extra_embed = packed
+        label, x_cond, generator = conditioning
         cfg = self.cfg
         if kv_cache is not None and frozen_kv is not None:
             raise ValueError("pass kv_cache or frozen_kv, not both")
@@ -713,10 +926,18 @@ class DIT(nn.Module):
                                  "positions) and take no attn_mask")
             if sample_ids is not None:
                 raise ValueError("sample_ids take no kv_cache or frozen_kv")
+        cross = cfg.img_cond and x_cond is not None
+        if cross and kv_cache is not None:
+            raise ValueError("img_cond excludes KV-cache decode")
         x = self._embed(indices, modality, img_block_index, extra_embed)
         c = None
-        if cfg.time_conditioning:
+        if cfg.time_conditioning and not cfg.cond_label:
             c = silu(self.sigma_map(sigma))
+        if cfg.cond_label:
+            if label is None:
+                raise ValueError("model.cond_label needs label")
+            c = self.y_embedder(label, train=self.training,
+                                generator=generator).to(self.compute_dtype)
         segment_ids = None
         if sample_ids is not None and attn_mask is None:
             if cfg.attn_backend == "xla":
@@ -732,7 +953,21 @@ class DIT(nn.Module):
         else:
             cos, sin = cache_rope(self.rope_cos, self.rope_sin, cache_index,
                                   l)
-        drops = self._dropout_per_block(dropout)
+        nb = len(self.blocks)
+        drops = self._dropout_per_block(
+            dropout, nb + (len(self.img_cond_blocks) if cross else 0))
+        cond_kw = {}
+        if cross:
+            x_cond_repr, cond_rope = self._cond_trunk(x_cond, drops[nb:])
+            cond_kw = dict(x_cond=x_cond_repr, cond_rope=cond_rope)
+        auxes = []
+
+        def run(out):
+            if cfg.moe_experts > 0:
+                out, aux = out
+                auxes.append(aux)
+            return out
+
         remat = (self.remat and self.training and torch.is_grad_enabled()
                  and kv_cache is None and frozen_kv is None)
         if remat:
@@ -740,20 +975,24 @@ class DIT(nn.Module):
             context = remat_context(cfg.remat_policy)
             kw = {} if context is None else {"context_fn": context}
             for blk, drop in zip(self.blocks, drops):
-                x = checkpoint(blk, x, c, cos, sin, modality, attn_mask,
-                               dropout=drop, segment_ids=segment_ids,
-                               use_reentrant=False, **kw)
-            return x, c, None
-        for i, blk in enumerate(self.blocks):
-            # block i writes its slices of the (n_blocks, ...) cache in place
-            x = blk(x, c, cos, sin, modality, attn_mask,
-                    kv_cache=None if kv_cache is None
-                    else tuple(t[i] for t in kv_cache),
-                    cache_index=cache_index,
-                    frozen_kv=None if frozen_kv is None
-                    else (frozen_kv[0][i], frozen_kv[1][i]),
-                    dropout=drops[i], segment_ids=segment_ids)
-        return x, c, (None if kv_cache is None else tuple(kv_cache))
+                x = run(checkpoint(blk, x, c, cos, sin, modality, attn_mask,
+                                   dropout=drop, segment_ids=segment_ids,
+                                   use_reentrant=False, **cond_kw, **kw))
+            new_cache = None
+        else:
+            for i, blk in enumerate(self.blocks):
+                # block i writes its slices of the cache in place
+                x = run(blk(x, c, cos, sin, modality, attn_mask,
+                            kv_cache=None if kv_cache is None
+                            else tuple(t[i] for t in kv_cache),
+                            cache_index=cache_index,
+                            frozen_kv=None if frozen_kv is None
+                            else (frozen_kv[0][i], frozen_kv[1][i]),
+                            dropout=drops[i], segment_ids=segment_ids,
+                            **cond_kw))
+            new_cache = None if kv_cache is None else tuple(kv_cache)
+        aux = torch.stack(auxes).sum() if auxes else None
+        return x, c, new_cache, aux
 
     def rope_rows(self, rope_index, modality):
         """Per-token rotary rows (B, L, head_dim / 2) of the [text | image]
@@ -778,21 +1017,37 @@ class DIT(nn.Module):
                 attn_mask=None, return_hidden: bool = False,
                 kv_cache=None, cache_index=None, frozen_kv=None,
                 rope_index=None, dropout=None, sample_ids=None,
-                img_block_index=None, extra_embed=None, **unsupported):
+                img_block_index=None, extra_embed=None, label=None,
+                x_cond=None, generator=None, return_moe_aux: bool = False):
         """logits; (logits, hidden) with return_hidden; with a kv_cache
         also the new cache last: (logits, new_cache) or (logits, hidden,
-        new_cache). rope_index (B, L): each token's position within its
-        text or image block (``rope_rows``), in place of the rows of the
-        fixed layout. dropout (training with model.dropout > 0): the seed
-        of the masks (an int), or the masks, one (keep_attention,
-        keep_mlp) pair of (B, L, hidden) bool tensors per block.
-        sample_ids, img_block_index (B, L) and extra_embed (B, L, hidden):
-        the packed-batch and transfusion arguments (module docstring)."""
-        x, c, new_cache = self._trunk(
+        new_cache); with return_moe_aux (no cache, no hidden) (logits, the
+        MoE balance auxiliary summed over the blocks, 0 without MoE).
+        rope_index (B, L): each token's position within its text or image
+        block (``rope_rows``), in place of the rows of the fixed layout.
+        dropout (training with model.dropout > 0): the seed of the masks
+        (an int), or the masks, one (keep_attention, keep_mlp) pair of (B,
+        L, hidden) bool tensors per block (a triple with the cross mask
+        where the cross-attention runs; the conditioning trunk's blocks
+        after the main ones). sample_ids, img_block_index (B, L) and
+        extra_embed (B, L, hidden): the packed-batch and transfusion
+        arguments; label (B,) and x_cond (B, Lc): the cond_label and
+        img_cond inputs; generator: the training-mode label drop's
+        (module docstring)."""
+        if return_moe_aux and (kv_cache is not None or return_hidden):
+            raise ValueError("return_moe_aux takes no kv_cache and no "
+                             "return_hidden")
+        x, c, new_cache, aux = self._trunk(
             indices, sigma, modality, attn_mask, kv_cache, cache_index,
-            frozen_kv, rope_index, unsupported, dropout,
-            packed=(sample_ids, img_block_index, extra_embed))
+            frozen_kv, rope_index, dropout,
+            packed=(sample_ids, img_block_index, extra_embed),
+            conditioning=(label, x_cond, generator))
         logits = self.output_layer(x, c, modality)
+        if return_moe_aux:
+            if aux is None:
+                aux = torch.zeros((), dtype=torch.float32,
+                                  device=logits.device)
+            return logits, aux
         out = (logits, x) if return_hidden else (logits,)
         if kv_cache is not None:
             out = out + (new_cache,)

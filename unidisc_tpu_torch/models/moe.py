@@ -1,0 +1,153 @@
+"""Mixture-of-Experts MLP (port of ``unidisc_tpu/models/moe.py``).
+
+The drop-in replacement for a ``DDiTBlock``'s MLP when
+``model.moe_experts > 0``: capacity-routed top-k experts in the
+Switch / GShard style, computing what the JAX module computes.
+
+  * S = B x L tokens share one capacity C = min(max(1, ceil(cf x k x S /
+    E)), S) slots per expert (``moe_capacity_factor`` cf, ``moe_top_k`` k,
+    ``moe_experts`` E);
+  * the router runs in fp32 (no bias): softmax, top-k (exact ties to the
+    lower expert, as ``jax.lax.top_k``), the k gates renormalized to sum
+    to 1;
+  * slots go in choice-major order: every token's first choice claims a
+    slot before any second choice (the cumsum of the JAX module); a
+    choice past its expert's capacity contributes zero to the MLP branch;
+  * the experts' products run in the compute dtype, the bias and the
+    tanh-GELU in fp32;
+  * the balance auxiliary is the Switch loss E x sum_e f_e x P_e over the
+    top-1 assignments (f_e the routed share, P_e the mean router
+    probability).
+
+Dispatch is by index, not by the JAX module's one-hot (S, E, C) dispatch
+and combine tensors, which cost S x E x C elements each (377.5 M at S
+12,288, E 8, C 3,840) and twice the experts' FLOPs in their two einsums.
+Each (token, choice) gets a slot e x C + position, the position the rank
+the JAX module's cumsum gives it (computed by a stable sort);
+the token rows are copied into an (E x C + 1, D) buffer (the extra row
+takes every overflowed choice and is dropped), ``torch.bmm`` runs the
+experts over (E, C, D), and each token gathers its choices' outputs
+(``index_select``; an overflowed choice reads a zero row) weighted by its
+gates. Nothing reads
+the device: the capacity comes from the static shapes, so the layer runs
+inside a captured CUDA graph.
+
+The forward's four parts run under ``torch.profiler.record_function``
+spans, ``moe_route``, ``moe_dispatch``, ``moe_experts`` and
+``moe_combine``, which ``profile_train.py`` reads (with the backward of
+each span's ops) as each part's device time.
+
+Parameters, in the JAX layout: ``router.weight`` (E, D) (the flax kernel
+(D, E) transposed), ``w1`` (E, D, F), ``b1`` (E, 1, F), ``w2`` (E, F, D),
+``b2`` (E, 1, D).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from unidisc_tpu_torch.config import ModelConfig
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for `tokens` routed tokens."""
+    k = min(cfg.moe_top_k, cfg.moe_experts)
+    cap = max(1, int(math.ceil(cfg.moe_capacity_factor * k * tokens
+                               / cfg.moe_experts)))
+    return min(cap, tokens)
+
+
+def route(probs: torch.Tensor, k: int, cap: int):
+    """(gates (S, k), expert (S, k), slot (S, k)) of router probabilities
+    (S, E): the top-k experts with renormalized gates, and each choice's
+    slot e x cap + position in choice-major priority, E x cap where the
+    choice overflowed its expert."""
+    s, n_exp = probs.shape
+    # top-k through a stable descending sort: exact ties go to the lower
+    # expert, as jax.lax.top_k breaks them (torch.topk leaves ties open)
+    gates, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, expert = gates[:, :k], expert[:, :k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    # a choice's position in its expert: its rank among the (token,
+    # choice) pairs routed there in choice-major order, which is the JAX
+    # module's cumsum over the flattened one-hots. A stable sort of the
+    # flat expert ids gives those ranks: the cumsum along the (k S) axis
+    # would be a sequential scan on the card.
+    flat = expert.t().reshape(k * s)
+    order = torch.sort(flat, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(k * s, device=probs.device)
+    counts = (flat == torch.arange(n_exp, device=probs.device)[:, None]
+              ).sum(-1)
+    starts = torch.cumsum(counts, 0) - counts            # (E,)
+    pos = (rank - starts[flat]).reshape(k, s).t()          # (S, k)
+    slot = torch.where(pos < cap, expert * cap + pos, n_exp * cap)
+    return gates, expert, slot
+
+
+class MoEMLP(nn.Module):
+    """forward(x (B, L, D)) -> (y (B, L, D) in the compute dtype, the
+    scalar balance auxiliary in fp32)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        n_exp, dim = cfg.moe_experts, cfg.hidden_size
+        ff = cfg.mlp_ratio * dim
+        self.router = nn.Linear(dim, n_exp, bias=False)
+        self.w1 = nn.Parameter(torch.empty(n_exp, dim, ff))
+        self.b1 = nn.Parameter(torch.zeros(n_exp, 1, ff))
+        self.w2 = nn.Parameter(torch.empty(n_exp, ff, dim))
+        self.b2 = nn.Parameter(torch.zeros(n_exp, 1, dim))
+
+    def forward(self, x: torch.Tensor):
+        cfg, cdt = self.cfg, self.compute_dtype
+        n_exp = cfg.moe_experts
+        k = min(cfg.moe_top_k, n_exp)
+        b, t, dim = x.shape
+        s = b * t
+        cap = capacity(cfg, s)
+        xr = x.reshape(s, dim)
+        with record_function("moe_route"):
+            logits = F.linear(xr.float(), self.router.weight.float())
+            probs = torch.softmax(logits, dim=-1)                # (S, E)
+            gates, expert, slot = route(probs, k, cap)
+            f_e = (expert[:, 0:1] == torch.arange(
+                n_exp, device=x.device)).float().mean(0)
+            aux = n_exp * torch.sum(f_e * probs.mean(0))
+
+        # dispatch: each (token, choice) row into its slot; overflowed
+        # choices all land in the extra last row, which is dropped
+        with record_function("moe_dispatch"):
+            rows = xr.to(cdt)[:, None, :].expand(s, k, dim) \
+                .reshape(s * k, dim)
+            buf = torch.zeros((n_exp * cap + 1, dim), dtype=cdt,
+                              device=x.device).index_copy(
+                                  0, slot.reshape(-1), rows)
+            expert_in = buf[:-1].view(n_exp, cap, dim)
+        with record_function("moe_experts"):
+            h = torch.bmm(expert_in, self.w1.to(cdt)).float() \
+                + self.b1.float()
+            h = F.gelu(h, approximate="tanh")
+            out = torch.bmm(h.to(cdt), self.w2.to(cdt)).float() \
+                + self.b2.float()
+
+        # combine: each choice reads its slot's output (an overflowed one
+        # the zero row), weighted by its gate in the compute dtype. An
+        # index_select, whose backward adds with atomics: the backward of
+        # advanced indexing sorts the indices and then runs every
+        # overflowed choice's add to the one zero row in sequence
+        with record_function("moe_combine"):
+            flat = torch.cat([out.to(cdt).reshape(n_exp * cap, dim),
+                              torch.zeros((1, dim), dtype=cdt,
+                                          device=x.device)])
+            picked = flat.index_select(0, slot.reshape(-1)).view(s, k, dim)
+            y = (gates.to(cdt).float()[..., None] * picked.float()).sum(1)
+        return y.reshape(b, t, dim).to(cdt), aux

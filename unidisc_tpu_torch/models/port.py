@@ -21,9 +21,21 @@ reference torch names:
                                       -> blocks.{i}.{...}_norm.weight
   output_layer/{norm_final,adaLN_modulation,linear}/*
                                       -> output_layer.*
+  img_vocab_embed                     -> img_vocab_embed.weight
+  img_vocab_proj/{kernel,bias}        -> img_vocab_proj.{weight,bias}
+  y_embedder/embedding_table          -> y_embedder.embedding_table.weight
+  cond_img_vocab_embed                -> cond_img_vocab_embed.embedding
+                                         (.weight beside a projection)
+  cond_img_vocab_proj/{kernel,bias}   -> cond_img_vocab_proj.{weight,bias}
+  img_cond_blocks/...[i]              -> img_cond_blocks.{i}.* (as blocks)
+  blocks/cross_attention/{attn_qkv,attn_qkv_cond,attn_out}/kernel[i]
+                                      -> blocks.{i}.cross_attention.*.weight
+  blocks/moe/router/kernel[i]         -> blocks.{i}.moe.router.weight
+  blocks/moe/{w1,b1,w2,b2}[i]         -> blocks.{i}.moe.{w1,b1,w2,b2}
 
-The scan axis of the stacked blocks becomes ``blocks.{i}``; flax kernels
-(in, out) are transposed to torch weights (out, in).
+The scan axis of the stacked blocks (``blocks``, ``img_cond_blocks``)
+becomes ``<stack>.{i}``; flax kernels (in, out) are transposed to torch
+weights (out, in); the MoE experts keep their (E, in, out) layout.
 
 A quantized tree (``unidisc_tpu/ops/quant.py::quantize_dit_params``)
 carries its int8 linears over as the port's ``QLinear``: a ``QDense``'s
@@ -59,10 +71,18 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_TOP_LEVEL = ("vocab_embed", "modality_embed", "sigma_map", "blocks",
-              "output_layer", "img_count_embedding")
+# the scan-stacked block trees
+STACKED = ("blocks", "img_cond_blocks")
+_TOP_LEVEL = STACKED + (
+    "vocab_embed", "modality_embed", "sigma_map", "output_layer",
+    "img_count_embedding", "img_vocab_embed", "img_vocab_proj",
+    "y_embedder", "cond_img_vocab_embed", "cond_img_vocab_proj")
 # bare tables whose reference name has no ".embedding"
 _BARE = ("img_count_embedding",)
+# tables the reference keeps as nn.Embedding (".weight"); the cond table is
+# one only beside its projection
+_WEIGHT_TABLES = ("img_vocab_embed",)
+_LABEL_TABLE = "y_embedder.embedding_table.weight"
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -79,12 +99,18 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 _LEAVES = {"kernel": "weight", "scale": "weight", "kernel_q": "weight_q"}
 
 
-def _torch_name(path: tuple, quantized: bool = False) -> str:
+def _torch_name(path: tuple, quantized: bool = False,
+                weight_tables=_WEIGHT_TABLES) -> str:
     """Flax path (without the scan axis) -> reference torch name. In a
     quantized dense (`quantized`), ``scale`` is the per-channel weight
     scale and keeps its name."""
     if len(path) == 1:                       # a bare table
-        return path[0] if path[0] in _BARE else f"{path[0]}.embedding"
+        if path[0] in _BARE:
+            return path[0]
+        return f"{path[0]}.weight" if path[0] in weight_tables \
+            else f"{path[0]}.embedding"
+    if path == ("y_embedder", "embedding_table"):
+        return _LABEL_TABLE
     mods = [re.sub(r"^mlp_(\d)$", r"mlp.\1", p) for p in path[:-1]
             if p != "attention"]
     leaf = path[-1] if quantized and path[-1] == "scale" \
@@ -93,19 +119,24 @@ def _torch_name(path: tuple, quantized: bool = False) -> str:
 
 
 _ATTENTION_MODULES = ("attn_qkv", "attn_out", "q_norm", "k_norm")
-_BLOCK_NAME = re.compile(r"^blocks\.(\d+)\.(.+)$")
+_BLOCK_NAME = re.compile(r"^(blocks|img_cond_blocks)\.(\d+)\.(.+)$")
 
 
 def flax_path(name: str, ndim: int) -> tuple:
     """The JAX DIT's parameter path of a port parameter (the inverse of
-    ``_torch_name``; a block parameter's path starts with "blocks" and has
-    no block index, its leaf being scan-stacked in JAX): a 2-D ``weight``
-    is a ``kernel``, a QK-norm ``weight`` its ``scale``."""
+    ``_torch_name``; a block parameter's path starts with its stack,
+    "blocks" or "img_cond_blocks", and has no block index, its leaf being
+    scan-stacked in JAX): a 2-D ``weight`` is a ``kernel``, a QK-norm
+    ``weight`` its ``scale``."""
     m = _BLOCK_NAME.match(name)
-    rest = m.group(2) if m else name
+    stack = (m.group(1),) if m else ()
+    rest = m.group(3) if m else name
+    if rest == _LABEL_TABLE:
+        return ("y_embedder", "embedding_table")
     parts = rest.split(".")
-    if len(parts) == 2 and parts[1] == "embedding":
-        return ("blocks",) * bool(m) + (parts[0],)
+    if len(parts) == 2 and (parts[1] == "embedding" or (
+            parts[1] == "weight" and parts[0].endswith("vocab_embed"))):
+        return stack + (parts[0],)
     mods, leaf = parts[:-1], parts[-1]
     out = []
     for i, p in enumerate(mods):
@@ -118,14 +149,14 @@ def flax_path(name: str, ndim: int) -> tuple:
     if leaf == "weight":
         leaf = "kernel" if ndim == 2 else (
             "scale" if mods and mods[-1] in ("q_norm", "k_norm") else leaf)
-    return ("blocks",) * bool(m) + tuple(out) + (leaf,)
+    return stack + tuple(out) + (leaf,)
 
 
 def block_index(name: str):
     """The block index of a port parameter name, or None outside the
-    block stack."""
+    block stacks."""
     m = _BLOCK_NAME.match(name)
-    return int(m.group(1)) if m else None
+    return int(m.group(2)) if m else None
 
 
 def torch_names_of_flax_path(path: tuple, n_blocks: int = 0) -> list:
@@ -133,9 +164,9 @@ def torch_names_of_flax_path(path: tuple, n_blocks: int = 0) -> list:
     scan-stacked DIT block leaf (``n_blocks`` of them), else one; an
     OpenELM path (``layer_{i}/...``) maps as ``elm_state_dict_from_jax``
     names it."""
-    if path[0] == "blocks":
+    if path[0] in STACKED:
         name = _torch_name(path[1:])
-        return [f"blocks.{i}.{name}" for i in range(n_blocks)]
+        return [f"{path[0]}.{i}.{name}" for i in range(n_blocks)]
     if path[0] in _TOP_LEVEL:
         return [_torch_name(path)]
     mods = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path[:-1]]
@@ -150,6 +181,8 @@ def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     flat = _flatten(params)
     qdense = {path[:-1] for path in flat if path[-1] == "kernel_q"}
+    tables = _WEIGHT_TABLES + (("cond_img_vocab_embed",) if (
+        "cond_img_vocab_proj", "kernel") in flat else ())
     for path, arr in flat.items():
         if path[0] not in _TOP_LEVEL:
             raise NotImplementedError(
@@ -163,13 +196,13 @@ def dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                                 f"{arr.dtype}")
         else:
             arr = arr.astype(np.float32)
-        if path[0] == "blocks":
+        if path[0] in STACKED:
             name = _torch_name(path[1:], quantized)
             for i, a in enumerate(arr):
-                sd[f"blocks.{i}.{name}"] = torch.from_numpy(
+                sd[f"{path[0]}.{i}.{name}"] = torch.from_numpy(
                     np.ascontiguousarray(a.T if kernel else a))
         else:
-            sd[_torch_name(path, quantized)] = torch.from_numpy(
+            sd[_torch_name(path, quantized, tables)] = torch.from_numpy(
                 np.ascontiguousarray(arr.T if kernel else arr))
     return sd
 
@@ -285,17 +318,25 @@ def read_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             torch.as_tensor(v) for k, v in sd.items()}
 
 
+_COND_ADALN = re.compile(r"^img_cond_blocks\.\d+\.adaLN_modulation\.")
+
+
 def _ignorable(key: str) -> bool:
-    """Reference keys that hold no weight of the DIT: rotary tables, the
-    cond blocks' unused attn_qkv_cond, BatchNorm counters."""
-    return ("rotary" in key or "attn_qkv_cond" in key
+    """Reference keys that hold no weight of the DIT: rotary tables, an
+    attn_qkv_cond outside the cross-attention, the cond blocks' adaLN
+    tables (the reference builds them but runs the cond blocks with no
+    conditioning), BatchNorm counters."""
+    return ("rotary" in key
+            or ("attn_qkv_cond" in key and ".cross_attention." not in key)
+            or _COND_ADALN.match(key) is not None
             or key.endswith("num_batches_tracked"))
 
 
 def reference_dit_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     """A reference DIT state_dict in the port's form: the production DIT's
     nested ``blocks.{i}.attention.*`` flattened to ``blocks.{i}.*`` (as
-    the frozen dit_orig names them), keys without weights dropped."""
+    the frozen dit_orig names them), keys without weights dropped; the
+    split-embed, class-label and img_cond names are the port's own."""
     return {k.replace(".attention.", "."): torch.as_tensor(v)
             for k, v in state_dict.items() if not _ignorable(k)}
 

@@ -231,6 +231,6 @@ def quantize_model(config, model):
     qm = dataclasses.replace(config.model, quant="int8")
     qconfig = dataclasses.replace(config, model=qm)
     device = next(model.parameters()).device
-    qmodel = DIT(qm, compute_dtype=model.compute_dtype)
+    qmodel = DIT(qm, compute_dtype=model.compute_dtype, init=False)
     qmodel.load_state_dict(quantize_dit_params(model.state_dict()))
     return qconfig, qmodel.to(device).eval()

@@ -27,6 +27,11 @@ step reads a device tensor, so ``sampling/graph.py`` can capture the loop
 in one CUDA graph. The exception is ddpm_cache, whose skip is a device
 flag: it reads one flag a step and is not captured. The noise-removal pass
 after the loop reads the device once.
+
+An img_cond model samples through ``ConditionedModel(model, x_cond)``, a
+forward closure over its conditioning image; a captured program holds
+x_cond as a static buffer. A MoE model's routing inside the loop reads no
+device value (its capacity comes from the static shapes).
 """
 
 from __future__ import annotations
@@ -69,6 +74,39 @@ def gumbel(shape, generator: Optional[torch.Generator],
     `generator` (the device's default generator when None)."""
     e = torch.empty(shape, device=device).exponential_(generator=generator)
     return -torch.log(e)
+
+
+class ConditionedModel(torch.nn.Module):
+    """`model` sampling under the conditioning image x_cond (B, Lc): the
+    forward closure over x_cond through which an img_cond model samples,
+    as in the JAX package (every forward and ``hidden`` call gets
+    ``x_cond=``; other attributes are the model's). x_cond is copied to a
+    buffer on the model's device, so a captured sampler program reads it
+    at a fixed address: ``set_condition`` copies a new condition in for
+    the next replay."""
+
+    def __init__(self, model, x_cond):
+        super().__init__()
+        self.model = model
+        dev = next(model.parameters()).device
+        self.register_buffer("x_cond", torch.as_tensor(x_cond).to(
+            dev, torch.long, copy=True), persistent=False)
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(super().__getattr__("model"), name)
+
+    @torch.no_grad()
+    def set_condition(self, x_cond) -> None:
+        self.x_cond.copy_(torch.as_tensor(x_cond))
+
+    def forward(self, *args, **kw):
+        return self.model(*args, x_cond=self.x_cond, **kw)
+
+    def hidden(self, *args, **kw):
+        return self.model.hidden(*args, x_cond=self.x_cond, **kw)
 
 
 def check_model_device(model, dev: torch.device) -> None:

@@ -797,6 +797,12 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     * ``lora``: an adapter file merged into the weights before any
       quantization. A LoRA run dir (``checkpoint=``) serves its base plus
       its EMA adapter, a host-offload run dir its gathered EMA.
+    * an MoE model serves in bf16, and in int8 with ``model.quant_fused``
+      off (the experts and the router stay in floating point). Its routing
+      is batch-wide (capacity is shared by every row of a forward, the
+      CFG rows included), so a request's tokens depend on the other rows
+      of its batch. ``img_cond`` and ``cond_label`` models are refused: no
+      request carries an x_cond or a label.
 
     Meshes raise NotImplementedError naming their ROADMAP item."""
     for name, value in later.items():
@@ -846,7 +852,16 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         if experiments:
             config = config.apply_experiments(*experiments)
     config.validate()
-    model = DIT(config.model, compute_dtype=torch.bfloat16)
+    if config.model.img_cond:
+        raise ValueError(
+            "model.img_cond=True checkpoint cannot be served: the engine "
+            "supplies no x_cond conditioning stream (use the sampling API "
+            "with an explicit x_cond, or serve a non-img_cond model)")
+    if config.model.cond_label:
+        raise ValueError(
+            "model.cond_label=True checkpoint cannot be served: no sampler "
+            "of the engine passes the class label the model needs")
+    model = DIT(config.model, compute_dtype=torch.bfloat16, init=False)
     if weights is None:
         model.reset_parameters(torch.Generator().manual_seed(config.seed))
     else:
@@ -856,6 +871,7 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     if quantize:
         from unidisc_tpu_torch.ops.quant import quantize_model
         config, model = quantize_model(config, model)
+        config.validate()    # e.g. quant_fused with MoE
     codec = None
     if codec_name:
         from unidisc_tpu_torch.tokenizers.image_codecs import (

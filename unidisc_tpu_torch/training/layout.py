@@ -1,8 +1,9 @@
 """The JAX package's parameter tree seen from the port's parameters.
 
-The JAX optimizers run over the flax tree: the DIT's blocks are
-scan-stacked, so ``blocks/attention/attn_qkv/kernel`` is ONE (n_blocks, in,
-out) leaf, and a flax kernel is (in, out) where a torch weight is (out,
+The JAX optimizers run over the flax tree: the DIT's blocks (and the
+img_cond trunk's) are scan-stacked, so ``blocks/attention/attn_qkv/kernel``
+is ONE (n_blocks, in, out) leaf (``blocks/moe/w1`` one (n_blocks, E, in,
+out) leaf), and a flax kernel is (in, out) where a torch weight is (out,
 in). Adafactor's block RMS (clipping and parameter scaling), its factored
 moments, Muon's routing and muP's fan-in test all read that leaf, so the
 port's optimizers see the port's parameters through ``ParamLayout``: each
@@ -25,7 +26,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from unidisc_tpu_torch.models.port import block_index, flax_path
+from unidisc_tpu_torch.models.port import STACKED, block_index, flax_path
 
 
 @dataclass(frozen=True)
@@ -47,10 +48,10 @@ def _describe(name: str, shape) -> Tuple[tuple, bool]:
         weight, _, ab = rest.rpartition(".")
         return (("lora",) + flax_path(weight, 2) + (ab.lower(),), True)
     if kind == "full":
-        return ("full",) + flax_path(rest, len(shape)), \
-            rest.endswith(".weight") and len(shape) == 2
-    return flax_path(name, len(shape)), \
-        name.endswith(".weight") and len(shape) == 2
+        path = flax_path(rest, len(shape))
+        return ("full",) + path, path[-1] == "kernel"
+    path = flax_path(name, len(shape))
+    return path, path[-1] == "kernel"
 
 
 class ParamLayout:
@@ -74,7 +75,7 @@ class ParamLayout:
             shape = members[0][2]
             if transposed[path]:
                 shape = shape[::-1]
-            stacked = "blocks" in path
+            stacked = any(p in STACKED for p in path[:2])
             self.leaves.append(Leaf(
                 path=path, names=tuple(n for _, n, _ in members),
                 transposed=transposed[path],

@@ -16,8 +16,10 @@ A ``train_full`` leaf gets a zero full-shape delta ``full.<name>``
 
 Targets match the JAX rule on the flax path of each 2-D weight (a kernel):
 "attn_qkv" (the DIT's ``blocks/attention/attn_qkv/kernel``) and "qkv_proj"
-(OpenELM's, the reference's target). The JAX adapter is scan-stacked over
-the DIT blocks; the port's is per block.
+(OpenELM's, the reference's target). Being substrings, as in JAX, they
+also match an img_cond model's ``blocks/cross_attention/attn_qkv`` and
+``attn_qkv_cond`` and ``img_cond_blocks/attention/attn_qkv``. The JAX
+adapter is scan-stacked over the DIT blocks; the port's is per block.
 
 ``save_lora`` writes ``lora_adapter.npz`` in the JAX package's format (keys
 ``lora|<flax path>/a`` with the scan-stacked (n_blocks, in, rank) arrays,
@@ -35,7 +37,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from unidisc_tpu_torch.models.port import flax_path, torch_names_of_flax_path
+from unidisc_tpu_torch.models.port import (STACKED, flax_path,
+                                           torch_names_of_flax_path)
 from unidisc_tpu_torch.training.layout import ParamLayout
 
 DEFAULT_TARGETS = ("attn_qkv", "qkv_proj")
@@ -155,7 +158,7 @@ def load_lora(path: str) -> Tuple[Tensors, float, int]:
         arr = np.asarray(z[key], np.float32)
         if kind == "lora":
             weight, ab = path_[:-1], path_[-1]
-            stacked = weight[0] == "blocks"
+            stacked = weight[0] in STACKED
             names = torch_names_of_flax_path(
                 weight, arr.shape[0] if stacked else 0)
             parts = list(arr) if stacked else [arr]
@@ -163,7 +166,7 @@ def load_lora(path: str) -> Tuple[Tensors, float, int]:
                 out[f"lora.{name}.{ab.upper()}"] = torch.from_numpy(
                     np.ascontiguousarray(a.T))
         elif kind == "full":
-            stacked = path_[0] == "blocks"
+            stacked = path_[0] in STACKED
             names = torch_names_of_flax_path(
                 path_, arr.shape[0] if stacked else 0)
             parts = list(arr) if stacked else [arr]

@@ -35,8 +35,11 @@ dropout; gradient accumulation; low-precision params with an fp32 EMA; a
 ``param_map`` (the LoRA merge, ``training/lora.py``); packed interleaved
 batches (``data/interleaved.py``: ``sample_ids`` and ``rope_index`` go to
 the DIT, and under ``trainer.interleaved`` the CFG masking takes whole
-blocks of a sample). ``img_cond``, MoE and ``x_cond`` raise
-``NotImplementedError`` (ROADMAP queue 1, item 6).
+blocks of a sample); MoE models (in training, every objective's loss
+plus ``trainer.moe_aux_weight`` x the balance auxiliary, as in JAX) and
+``img_cond`` models (the ``x_cond`` batch key goes to the forward). A
+``cond_label`` model has no train step: the JAX step passes no ``label``
+to the DIT, which asserts one, so the port raises a ``ValueError``.
 """
 
 from __future__ import annotations
@@ -199,9 +202,6 @@ def init_train_state(config: Config,
 # Loss
 # ---------------------------------------------------------------------------
 
-_LATER_BATCH_KEYS = ("x_cond",)
-
-
 def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
                    attention_mask, extra, *, train, draws,
                    generator) -> LossOutput:
@@ -316,26 +316,46 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
                        generator: Optional[torch.Generator] = None,
                        draws: Draws = None, micro: int = 0) -> LossOutput:
     """t-sample -> corrupt -> backbone -> SUBS -> NELBO (or the sedd / d3pm
-    loss); for ``ar``, the next-token loss (``_ar_batch_loss``).
+    loss); for ``ar``, the next-token loss (``_ar_batch_loss``). A MoE
+    model's training loss adds ``trainer.moe_aux_weight`` x its balance
+    auxiliary (the eval loss does not).
 
     batch: dict with input_ids (B, L) and optionally modality (B, L),
     attention_mask (B, L), rope_index (B, L), sample_ids (B, L) (a packed
-    batch, -1 on padding) and label (B,) (the class id that
-    ``trainer.add_label`` writes at position 0), as tensors on the
-    model's device. params: the parameters apply_fn runs with (None: the
-    model's own). micro: the microbatch index (it varies the dropout
-    seed).
+    batch, -1 on padding), label (B,) (the class id that
+    ``trainer.add_label`` writes at position 0) and x_cond (B, Lc) (the
+    conditioning image of an img_cond model), as tensors on the model's
+    device. params: the parameters apply_fn runs with (None: the model's
+    own). micro: the microbatch index (it varies the dropout seed).
     """
+    m_cfg = config.model
+    if m_cfg.cond_label:
+        raise ValueError("model.cond_label has no train step: the JAX step "
+                         "passes no label to the DIT, which asserts one")
+    if m_cfg.img_cond and "x_cond" not in batch:
+        raise ValueError("model.img_cond=True but the batch has no "
+                         "'x_cond' stream")
+    auxes = []
+    if m_cfg.moe_experts > 0 and train:
+        forward = apply_fn
+
+        def apply_fn(*args, **kw):
+            logits, aux = forward(*args, return_moe_aux=True, **kw)
+            auxes.append(aux)
+            return logits
+    out = _batch_loss(config, apply_fn, params, batch, train=train,
+                      step=step, generator=generator, draws=draws,
+                      micro=micro)
+    if auxes:
+        out = out._replace(loss=out.loss + config.trainer.moe_aux_weight
+                           * auxes[-1])
+    return out
+
+
+def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
+                generator, draws, micro) -> LossOutput:
     t_cfg = config.trainer
     m_cfg = config.model
-    if m_cfg.img_cond or m_cfg.moe_experts > 0:
-        raise NotImplementedError("img_cond and MoE training are not in the "
-                                  "port yet (ROADMAP queue 1, item 6)")
-    later = [k for k in _LATER_BATCH_KEYS if k in batch]
-    if later:
-        raise NotImplementedError(f"batch keys {later} (image-conditioned "
-                                  f"batches) are not in the port yet "
-                                  f"(ROADMAP queue 1, item 6)")
     noise = get_noise(config.noise)
     x0 = batch["input_ids"].long()
     modality = batch.get("modality")
@@ -349,6 +369,8 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
         extra["sample_ids"] = batch["sample_ids"].to(torch.int32)
     if "rope_index" in batch:
         extra["rope_index"] = batch["rope_index"].long()
+    if "x_cond" in batch:
+        extra["x_cond"] = batch["x_cond"].long()
     drop = dropout_arg(config, train, draws, generator, micro)
     if drop is not None:
         extra["dropout"] = drop

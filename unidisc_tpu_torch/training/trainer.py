@@ -119,7 +119,7 @@ class Trainer:
         t_cfg, m_cfg = config.trainer, config.model
 
         model = DIT(m_cfg, compute_dtype=torch.bfloat16,
-                    remat=t_cfg.use_gradient_checkpointing)
+                    remat=t_cfg.use_gradient_checkpointing, init=False)
         model.reset_parameters(torch.Generator().manual_seed(config.seed))
         self.n_params = count_params(model)
         self.param_map = None
