@@ -249,6 +249,40 @@ and prints no result):
      distance of the plain fp32 path. Lines `moe_train_line`,
      `moe_logits`, `img_cond_train`, `img_cond_sample`, `kernel img_cond`
      and `variants`.
+  5h. the device mesh: flash_fwd with the LSE alone at the ring's block
+     shapes (2, 12, 2048, 64) and (16, 12, 256, 64) (ring_attention.py's
+     _flash_block) against its plain version, timed beside the bound, the
+     plain version and aten._scaled_dot_product_flash_attention (which
+     returns the LSE); then one world of MESH_RANKS spawned ranks sharing
+     card 0 over gloo, every collective staged through host memory
+     (parallel/comm.py; NCCL refuses two ranks on one device, and FSDP2's
+     collectives move device tensors, so the world runs "seq" and
+     data-parallel rows but no FSDP sharding on the card): (a) the
+     flash-kernel ring at (2, 8192, 12, 64) bf16 over the 4 ranks (Lc
+     2048), full, causal and with a packed batch's ids (documents across
+     chunk edges, -1 padding), gathered and held to one flash_attention
+     over the whole sequence (the error's RMS <= MESH_RING_RMS_TOL of the
+     output's, no element off by more than MESH_RING_MAX_TOL of the
+     largest output), two wrong rings (a block dropped, the blocks merged
+     unweighted) failing that gate, each rank's flash_fwd
+     launches the code's count (4 blocks full, rank + 1 causal); (b) its gradient (the plain ring recomputed) on a packed
+     causal (2, 1024, 4, 64) slice against fp32 attention; (c)
+     MESH_TRAIN_STEPS seq = 4 train steps of the flagship width at L 1024
+     (phase 5e's packed batch of 16 rows, Lc 256, depth MESH_TRAIN_BLOCKS),
+     losses within MESH_LOSS_RTOL of the one-rank step on the same batch
+     and draws and the parameter update's cosine with it >=
+     MESH_UPDATE_COSINE, flash_fwd launches exact; (d) on a dp 2 x seq 2
+     mesh the flagship (depth MESH_SERVE_BLOCKS) t2i sampler under
+     spmd_sampler with injected noise, in fp32 through the plain ring
+     (the kernel takes bf16) equal token for token to the one-rank
+     sampler, in bf16 through the kernel ring agreeing >=
+     MESH_TOKEN_AGREEMENT, and build_engine(mesh="fsdp=2,seq=2") serving
+     8 requests, agreeing >= MESH_TOKEN_AGREEMENT with the one-rank
+     engine run on each data-parallel rank's rows with that rank's seed;
+     every rank's tokens equal, launches exact (two ring blocks an
+     attention, none in fp32). Line
+     `mesh`; the kernels line's flash_fwd counts the paths mesh_ring,
+     mesh_train and mesh_serve, summed over the ranks.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -5685,6 +5719,538 @@ def phase_variants(seed, root) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 5h: the device mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_RING_SHAPE = (2, 8192, 12, 64)   # B, L, H, D: Lc 2048 on each rank
+MESH_RING_BWD_SHAPE = (2, 1024, 4, 64)  # small enough for fp32 scores
+# the ring against one kernel pass: each rounds an fp32 result to bf16,
+# the ring its blocks' outputs too before it merges them in fp32, so an
+# element differs by about a bf16 ulp of the larger of its blocks'
+# outputs, which where they cancel is many ulps of the element (on the
+# H100 a packed element exceeded 2^-6 |ref| + 2^-11). The outputs are small
+# (unit-normal q, k, v: an element ~N(0, e / L), ~0.02 at full
+# attention), so the gate is relative: the error's RMS within
+# MESH_RING_RMS_TOL (one bf16 ulp) of the output's, and no element off by
+# more than MESH_RING_MAX_TOL (two ulps) of the case's largest output. Two
+# wrong rings (a block dropped, the blocks merged unweighted) are read
+# against it on rank 0 and must fail it
+MESH_RING_RMS_TOL, MESH_RING_MAX_TOL = 2 ** -7, 2 ** -6
+MESH_BLOCK_SHAPES = ((2, 2048, 12, 64), (16, 256, 12, 64))  # B, Lc, H, D
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_TRAIN_BLOCKS = 16, 2, 2
+MESH_SERVE_STEPS, MESH_SERVE_BLOCKS = 4, 4
+# the mesh step against the one-rank step: bf16 compute, the attention a
+# ring of four blocks against one pass. The losses agreed to one fp32 ulp
+# (7e-8 relative) in the sound runs; the update's cosine read 0.9945
+MESH_LOSS_RTOL, MESH_UPDATE_COSINE = 1e-5, 0.99
+# bf16 through the kernel ring against one pass: a 1-ulp difference in an
+# attention output flips a near-tie token now and then (the sound runs:
+# the sampler 98.93%, the engine 98.49%); in fp32 through the plain ring
+# (the kernel takes bf16) the tokens must be equal
+MESH_TOKEN_AGREEMENT = 0.98
+MESH_PATHS = ("mesh_ring", "mesh_train", "mesh_serve")
+
+
+def mesh_train_config() -> Config:
+    """The flagship at L 1024 with packed rows (phase 5e's settings),
+    depth cut to MESH_TRAIN_BLOCKS."""
+    return train_config(**IL_OVERRIDES,
+                        **{"model.n_blocks": MESH_TRAIN_BLOCKS})
+
+
+def mesh_packed_batch(cfg, seed) -> dict:
+    docs = interleaved_docs(cfg.model, 3 * MESH_TRAIN_BATCH, seed)
+    packed = pack_documents(docs, cfg.model.length, pad_id=0,
+                            eos_id=IL_EOS, batch_size=MESH_TRAIN_BATCH)
+    return {k: np.asarray(v) for k, v in dict(packed).items()}
+
+
+MESH_SERVE_OVERRIDES = {**FLAGSHIP_OVERRIDES,
+                        "sampling.steps": MESH_SERVE_STEPS,
+                        "model.n_blocks": MESH_SERVE_BLOCKS}
+
+
+def mesh_serve_config(plain: bool = False) -> Config:
+    """The served flagship at depth MESH_SERVE_BLOCKS; `plain`: its
+    attention (and the ring) the plain version, for fp32."""
+    return Config.make("small", **MESH_SERVE_OVERRIDES, **(
+        {"model.attn_backend": "xla"} if plain else {}))
+
+
+def mesh_serve_inputs(cfg, seed):
+    m = cfg.model
+    rng = np.random.RandomState(seed)
+    txt = rng.randint(0, m.text_vocab_size - 1,
+                      (REQUESTS, m.txt_length)).astype(np.int64)
+    injected = {"gumbel_tok": rng.gumbel(size=(
+        MESH_SERVE_STEPS, REQUESTS, m.img_length, m.image_vocab_size)
+    ).astype(np.float32), "gumbel_conf": rng.gumbel(size=(
+        MESH_SERVE_STEPS, REQUESTS, m.img_length)).astype(np.float32)}
+    return txt, injected
+
+
+def mesh_ring_ids(b, l) -> torch.Tensor:
+    """A packed batch's ids: documents across the chunk edges, then -1."""
+    ids = torch.full((b, l), -1, dtype=torch.int32)
+    ids[0, :3000], ids[0, 3000:5000], ids[0, 5000:7900] = 0, 1, 2
+    ids[1, :1000], ids[1, 1000:8100] = 0, 1
+    return ids
+
+
+def mesh_ring_check(rank, world, seed) -> dict:
+    """The ring op over the world at MESH_RING_SHAPE, causal, full and
+    packed, gathered and held on rank 0 to one flash_attention over the
+    whole sequence; counts per rank."""
+    from unidisc_tpu_torch.parallel.comm import all_gather
+    from unidisc_tpu_torch.parallel.ring_attention import (
+        ring_attention_flash, ring_flash_blocks)
+    b, l, h, d = MESH_RING_SHAPE
+    lc = l // world
+    sl = slice(rank * lc, (rank + 1) * lc)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(MESH_RING_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    ids = mesh_ring_ids(b, l).cuda()
+    rec = {"launches": collections.Counter(), "cases": {}}
+    for name, causal, segs in (("full", False, None),
+                               ("causal", True, None),
+                               ("packed", False, ids),
+                               ("packed_causal", True, ids)):
+        mine = None if segs is None else segs[:, sl].contiguous()
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            out = ring_attention_flash(q[:, sl], k[:, sl], v[:, sl], mine,
+                                       group=None, causal=causal)
+        torch.cuda.synchronize()
+        n = _build.launch_counts["flash_fwd"]
+        want = ring_flash_blocks(world, rank, causal)
+        if n != want:
+            raise AssertionError(f"mesh ring {name}: rank {rank} launched "
+                                 f"flash_fwd {n} times, the code {want}")
+        rec["launches"]["flash_fwd"] += n
+        full = all_gather(out, None, dim=1)
+        if rank == 0:
+            with torch.no_grad():
+                ref = flash_attention(
+                    q, k, v, causal=causal,
+                    segment_ids=None if segs is None else (segs, segs))
+            gate = ring_gate(full, ref)
+            if not gate["use"] <= 1:
+                raise AssertionError(f"mesh ring {name}: {gate} over the "
+                                     f"gate (RMS {MESH_RING_RMS_TOL}, max "
+                                     f"{MESH_RING_MAX_TOL} x max |ref|)")
+            rec["cases"][name] = {**gate, "launches_rank0": n}
+            if name == "full":
+                rec["wrong_rings"] = wrong_ring_uses(q, k, v, ref, world)
+        del out, full
+    _build.reset_launch_counts()
+    return rec
+
+
+def ring_gate(got, ref) -> dict:
+    """The ring's readings against one pass: the error's RMS relative to
+    the output's, the largest error and output, and the share of the
+    gate used (the larger of the two ratios; the gate holds at <= 1)."""
+    ref = ref.float()
+    err = got.float() - ref
+    rel_rms = float(err.norm() / ref.norm())
+    max_err, max_ref = float(err.abs().max()), float(ref.abs().max())
+    return {"rel_rms_err": rel_rms, "max_abs_err": max_err,
+            "max_abs_ref": max_ref,
+            "use": max(rel_rms / MESH_RING_RMS_TOL,
+                       max_err / (MESH_RING_MAX_TOL * max_ref))}
+
+
+def wrong_ring_uses(q, k, v, ref, world) -> dict:
+    """Full attention as two wrong rings of `world` blocks would give it,
+    read against the gate (each must fail it): the last block dropped from
+    every row, and the blocks' outputs averaged without their LSE
+    weights. Comparison launches: not counted."""
+    lc = q.shape[1] // world
+    with torch.no_grad():
+        dropped = flash_attention(q, k[:, :-lc], v[:, :-lc])
+        unweighted = sum(flash_attention(q, k[:, i * lc:(i + 1) * lc],
+                                         v[:, i * lc:(i + 1) * lc]).float()
+                         for i in range(world)) / world
+    reads = {"block_dropped": ring_gate(dropped, ref),
+             "merged_unweighted": ring_gate(unweighted, ref)}
+    for name, gate in reads.items():
+        if not gate["use"] > 1:
+            raise AssertionError(f"mesh ring: a wrong ring ({name}) passes "
+                                 f"the gate ({gate})")
+    return reads
+
+
+def mesh_ring_bwd_check(rank, world, seed) -> dict:
+    """The ring's gradient (the plain ring recomputed) on a packed causal
+    slice, gathered and held on rank 0 to fp32 attention's."""
+    from unidisc_tpu_torch.parallel.comm import all_gather
+    from unidisc_tpu_torch.parallel.ring_attention import \
+        ring_attention_flash
+    b, l, h, d = MESH_RING_BWD_SHAPE
+    lc = l // world
+    sl = slice(rank * lc, (rank + 1) * lc)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q, k, v, g = (torch.randn(MESH_RING_BWD_SHAPE, generator=gen,
+                              device="cuda", dtype=torch.bfloat16)
+                  for _ in range(4))
+    ids = torch.full((b, l), -1, dtype=torch.int32, device="cuda")
+    ids[0, :400], ids[0, 400:1000] = 0, 1
+    ids[1, :700], ids[1, 700:1020] = 0, 1
+    mine = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
+    out = ring_attention_flash(*mine, ids[:, sl].contiguous(), group=None,
+                               causal=True)
+    out.backward(g[:, sl])
+    grads = [all_gather(x.grad, None, dim=1) for x in mine]
+    rec = {}
+    if rank == 0:
+        ref = [x.float().requires_grad_() for x in (q, k, v)]
+        attention_reference(*ref, segment_ids=(ids, ids),
+                            causal=True).backward(g.float())
+        for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            scale = float(want.grad.abs().max())
+            err = float((got.float() - want.grad).abs().max())
+            if not err <= BWD_REL_TOL * scale:
+                raise AssertionError(f"mesh ring backward {name}: max abs "
+                                     f"error {err} > {BWD_REL_TOL} x {scale}")
+            rec[name] = {"max_abs_err": err, "max_abs": scale}
+    return rec
+
+
+def mesh_train_rank(rank, world, seed, work) -> dict:
+    """MESH_TRAIN_STEPS seq-parallel steps (seq = world) of the flagship
+    width on the packed batch; rank 0 saves its parameters."""
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.training.train_state import shard_train_step
+    cfg = mesh_train_config()
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, dcn=1, fsdp=1, seq=world))
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16, init=False)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.cuda()
+    step, state, _ = shard_train_step(cfg, model, make_mesh(cfg.mesh))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in mesh_packed_batch(cfg, seed).items()}
+    gen = torch.Generator(device="cuda")
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(MESH_TRAIN_STEPS):
+        gen.manual_seed(seed + i)
+        state, m = step(state, batch, generator=gen)
+        losses.append(float(m.loss))
+        norms.append(float(m.grad_norm))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    # each forward: one ring a block, every block of the ring (full
+    # attention); the backward recomputes the plain ring, no kernel
+    want = {"flash_fwd": MESH_TRAIN_STEPS * cfg.model.n_blocks * world}
+    if launches != want:
+        raise AssertionError(f"mesh train: rank {rank} launches {launches}, "
+                             f"the code {want}")
+    if rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in state.params.items()},
+                   os.path.join(work, "mesh_train_params.pt"))
+    return {"losses": losses, "grad_norms": norms, "launches": launches,
+            "seconds": secs}
+
+
+def mesh_serve_rank(rank, world, seed) -> dict:
+    """The flagship (depth MESH_SERVE_BLOCKS) on a dp 2 x seq 2 mesh: the
+    t2i sampler under spmd_sampler with injected noise, in fp32 through
+    the plain ring and in bf16 through the kernel ring, and
+    build_engine(mesh=) serving REQUESTS t2i requests; each run's launches
+    held to the code's count."""
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, make_mesh
+    from unidisc_tpu_torch.parallel.sample import spmd_sampler
+    from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+    spec = dict(dcn=1, fsdp=world // 2, seq=2)
+    rec = {"launches": collections.Counter()}
+
+    def launched(name, cfg, nfe, kernel):
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        # a forward at the rank's rows: a ring of 2 blocks an attention
+        per = expected_serve_launches(cfg.model, cfg.sampling, nfe)
+        want = {"flash_fwd": 2 * per["flash_fwd"]} if kernel else {}
+        if got != want:
+            raise AssertionError(f"mesh serve {name}: rank {rank} launches "
+                                 f"{got}, the code {want}")
+        rec["launches"].update(got)
+
+    for name, plain, dtype in (("fp32", True, torch.float32),
+                               ("bf16", False, torch.bfloat16)):
+        cfg = mesh_serve_config(plain)
+        layout = MeshLayout.of(make_mesh(dataclasses.replace(cfg.mesh,
+                                                             **spec)))
+        model = DIT(cfg.model, compute_dtype=dtype, init=False)
+        randomize_(model, seed)
+        model.cuda().eval()
+        txt, injected = mesh_serve_inputs(cfg, seed)
+        sample = spmd_sampler(build_t2i_sampler(model, cfg,
+                                                inject_noise=True),
+                              cfg, layout)
+        _build.reset_launch_counts()
+        out = sample(torch.from_numpy(txt).cuda(),
+                     injected={k: torch.from_numpy(v).cuda()
+                               for k, v in injected.items()})
+        launched(name, cfg, out.nfe, kernel=not plain)
+        rec[name] = out.tokens.cpu().numpy()
+        del model, sample
+    engine = build_engine(preset="small", overrides=MESH_SERVE_OVERRIDES,
+                          mesh=",".join(f"{k}={v}" for k, v in spec.items()))
+    randomize_(engine.model, seed)
+    prepared = t2i_requests(engine)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_batch(prepared, seed=seed)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    launched("engine", engine.config, results[0]["nfe"], kernel=True)
+    ids = np.stack([r["image_ids"][0] for r in results])
+    if ids.shape != (REQUESTS, engine.m.img_length) or ids.min() < 0 or \
+            ids.max() >= engine.m.image_vocab_size:
+        raise AssertionError(f"mesh serve: image ids {ids.shape} out of "
+                             f"range")
+    return {**rec, "launches": dict(rec["launches"]), "engine_ids": ids,
+            "engine_batch_s": served_s, "dp_size": engine.mesh.dp_size}
+
+
+def mesh_rank(rank, world, work, seed):
+    """One rank of phase 5h's world (a spawned process on card 0)."""
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 10, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store"), world), rank=rank, world_size=world)
+    rec = {"ring": mesh_ring_check(rank, world, seed),
+           "ring_bwd": mesh_ring_bwd_check(rank, world, seed)}
+    free()
+    rec["train"] = mesh_train_rank(rank, world, seed, work)
+    free()
+    rec["serve"] = mesh_serve_rank(rank, world, seed)
+    torch.save(rec, os.path.join(work, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+MESH_TIMEOUT_S = 400
+
+
+def mesh_world(seed) -> list:
+    """Run mesh_rank on MESH_RANKS spawned processes sharing card 0 over
+    gloo (NCCL refuses two ranks on one device; every collective stages
+    through host memory, parallel/comm.py); their records by rank. A rank
+    that fails fails the phase: the others are stopped."""
+    import torch.multiprocessing as mp
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, work, seed))
+             for r in range(MESH_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                raise AssertionError(f"phase 5h: a rank failed (exit codes "
+                                     f"{[p.exitcode for p in procs]})")
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 5h: exit codes {codes}")
+        recs = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(MESH_RANKS)]
+        params = torch.load(os.path.join(work, "mesh_train_params.pt"))
+        return recs, params
+    finally:
+        for p in procs:
+            if p.pid is None:
+                continue
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ring_block_cases(seed) -> list:
+    """_flash_block's kernel alone, one rank: flash_attention with the LSE
+    at the ring's block shapes, against its plain version, timed beside
+    the bound, the plain version and the flash SDPA entry that returns the
+    LSE (aten._scaled_dot_product_flash_attention)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    rows = []
+    for b, lc, h, d in MESH_BLOCK_SHAPES:
+        q, k, v = (torch.randn((b, lc, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        out, lse = flash_attention(q, k, v, need_lse=True)
+        ref, ref_lse = attention_reference(q.float(), k.float(), v.float(),
+                                           need_lse=True)
+        err = float((out.float() - ref).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        if not (err <= OUT_TOL and lse_err <= LSE_TOL):
+            raise AssertionError(f"ring block {(b, lc, h, d)}: errors "
+                                 f"{err}, lse {lse_err}")
+        del ref, ref_lse
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = torch.ops.aten._scaled_dot_product_flash_attention
+
+        def kernel():
+            return flash_attention(q, k, v, need_lse=True)
+        bound, by, nbytes, flops = attention_bound((b, h, lc, d), None,
+                                                   False)
+        nbytes += b * h * lc * 4                    # the LSE written
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound, by = max(bound, t_bytes), ("bytes" if t_bytes >= flops /
+                                          BF16_FLOP_PER_S * 1e3
+                                          else "operations")
+        rows.append({"shape_bhld": [b, h, lc, d], "max_abs_err": err,
+                     "lse_max_abs_err": lse_err,
+                     "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+                     "plain_ms": time_ms(lambda: attention_reference(
+                         q, k, v, need_lse=True), iters=3, warmup=1),
+                     "library_ms": time_ms(lambda: lib(qt, kt, vt)),
+                     "library_device_ms": device_ms(lambda: lib(qt, kt,
+                                                                vt)),
+                     "library": "aten._scaled_dot_product_flash_attention",
+                     "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def mesh_serve_against_one_rank(recs, seed) -> dict:
+    """Phase 5h (d) held to one rank on the card: the mesh sampler's
+    tokens to the one-rank sampler's under the same injected noise (fp32:
+    equal; bf16: agreement >= MESH_TOKEN_AGREEMENT), the mesh engine's
+    to the one-rank engine's, each data-parallel rank's rows run with the
+    seed it drew them with (agreement >= MESH_TOKEN_AGREEMENT); every
+    rank's tokens equal."""
+    from unidisc_tpu_torch.parallel.sample import dp_seed
+    r0 = recs[0]["serve"]
+    for r in recs[1:]:
+        for key in ("fp32", "bf16", "engine_ids"):
+            if not np.array_equal(r["serve"][key], r0[key]):
+                raise AssertionError(f"mesh serve: the ranks' {key} differ")
+    out = {"launches": dict(sum((collections.Counter(r["serve"]["launches"])
+                                 for r in recs), collections.Counter())),
+           "engine_batch_s": r0["engine_batch_s"]}
+    for name, plain, dtype in (("fp32", True, torch.float32),
+                               ("bf16", False, torch.bfloat16)):
+        cfg = mesh_serve_config(plain)
+        model = DIT(cfg.model, compute_dtype=dtype, init=False)
+        randomize_(model, seed)
+        model.cuda().eval()
+        txt, injected = mesh_serve_inputs(cfg, seed)
+        want = build_t2i_sampler(model, cfg, inject_noise=True)(
+            torch.from_numpy(txt).cuda(),
+            injected={k: torch.from_numpy(v).cuda()
+                      for k, v in injected.items()}).tokens.cpu().numpy()
+        lt = cfg.model.txt_length
+        agree = float((r0[name][:, lt:] == want[:, lt:]).mean())
+        out[f"{name}_token_agreement"] = agree
+        if plain and not np.array_equal(r0[name], want):
+            raise AssertionError(f"mesh serve: fp32 tokens differ from the "
+                                 f"one-rank sampler's ({agree} agree)")
+        if not agree >= MESH_TOKEN_AGREEMENT:
+            raise AssertionError(f"mesh serve: {name} token agreement "
+                                 f"{agree} < {MESH_TOKEN_AGREEMENT}")
+        del model
+    engine = build_engine(preset="small", overrides=MESH_SERVE_OVERRIDES)
+    randomize_(engine.model, seed)
+    prepared = t2i_requests(engine)
+    n = len(prepared) // r0["dp_size"]
+    want = np.concatenate([
+        np.stack([r["image_ids"][0] for r in engine.run_batch(
+            prepared[i * n:(i + 1) * n], seed=dp_seed(seed, i))])
+        for i in range(r0["dp_size"])])
+    agree = float((r0["engine_ids"] == want).mean())
+    out["engine_token_agreement"] = agree
+    if not agree >= MESH_TOKEN_AGREEMENT:
+        raise AssertionError(f"mesh serve: the mesh engine's tokens agree "
+                             f"{agree} with the one-rank engine's < "
+                             f"{MESH_TOKEN_AGREEMENT}")
+    del engine
+    return out
+
+
+def phase_mesh(seed) -> dict:
+    """Phase 5h (module docstring)."""
+    t0 = time.perf_counter()
+    rec = {"blocks": ring_block_cases(seed)}
+    free()
+    recs, mesh_params = mesh_world(seed)
+    rec["world_s"] = time.perf_counter() - t0
+    r0 = recs[0]
+    rec["ring"] = {"cases": r0["ring"]["cases"], "launches": dict(sum(
+        (r["ring"]["launches"] for r in recs), collections.Counter()))}
+    rec["ring_bwd"] = r0["ring_bwd"]
+    # the one-rank step on the same batch and draws
+    cfg = mesh_train_config()
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16, init=False)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.cuda()
+    before = {n: p.detach().cpu().clone() for n, p in
+              model.named_parameters()}
+    state = init_train_state(cfg, model)
+    step = make_train_step(cfg, model)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in mesh_packed_batch(cfg, seed).items()}
+    gen = torch.Generator(device="cuda")
+    losses = []
+    for i in range(MESH_TRAIN_STEPS):
+        gen.manual_seed(seed + i)
+        state, m = step(state, batch, generator=gen)
+        losses.append(float(m.loss))
+    mesh_losses = r0["train"]["losses"]
+    for got, want in zip(mesh_losses, losses):
+        if not abs(got - want) <= MESH_LOSS_RTOL * abs(want):
+            raise AssertionError(f"mesh train losses {mesh_losses} against "
+                                 f"the one-rank step's {losses}")
+    up_mesh = torch.cat([(mesh_params[n].float() - before[n].float())
+                         .reshape(-1) for n in before])
+    up_one = torch.cat([(p.detach().cpu().float() - before[n].float())
+                        .reshape(-1) for n, p in state.params.items()])
+    cosine = float(F.cosine_similarity(up_mesh, up_one, dim=0))
+    if not cosine >= MESH_UPDATE_COSINE:
+        raise AssertionError(f"mesh train: update cosine {cosine} < "
+                             f"{MESH_UPDATE_COSINE}")
+    rec["mesh_train"] = {**r0["train"], "one_rank_losses": losses,
+                         "update_cosine": cosine, "launches": dict(sum(
+                             (collections.Counter(r["train"]["launches"])
+                              for r in recs), collections.Counter()))}
+    del model, state, step, before, mesh_params, up_mesh, up_one
+    free()
+    rec["mesh_serve"] = mesh_serve_against_one_rank(recs, seed)
+    rec["mesh_ring"] = {"launches": rec["ring"]["launches"]}
+    free()
+    rec["seconds"] = time.perf_counter() - t0
+    print("mesh " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "ranks": MESH_RANKS, "transport": "gloo, staged through host memory",
+        "ring": {k: {f: v[f] for f in ("rel_rms_err", "max_abs_err",
+                                       "max_abs_ref", "use")}
+                 for k, v in rec["ring"]["cases"].items()},
+        "wrong_rings": r0["ring"]["wrong_rings"],
+        "ring_bwd_max_abs_err": {k: v["max_abs_err"]
+                                 for k, v in rec["ring_bwd"].items()},
+        "train_losses": mesh_losses, "one_rank_losses": losses,
+        "update_cosine": cosine,
+        "serve": {k: v for k, v in rec["mesh_serve"].items()
+                  if k != "launches"},
+        "blocks": [{k: r[k] for k in ("shape_bhld", "ms", "device_ms",
+                                      "bound_ms", "library_ms",
+                                      "library_device_ms")}
+                   for r in rec["blocks"]]}))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5846,6 +6412,10 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     free()
     lap("variants")
+    # 5h: the device mesh
+    record["mesh"] = phase_mesh(args.seed)
+    free()
+    lap("mesh")
     record["phase_seconds"] = laps
     print("phase_seconds " + json.dumps(laps))
     pix = record["pixels"]
@@ -5894,6 +6464,9 @@ def main() -> int:
         for path in VARIANT_PATHS:
             by_path[name][path] = record["variants"][path][
                 "launches"].get(name, 0)
+        for path in MESH_PATHS:
+            by_path[name][path] = record["mesh"][path]["launches"].get(
+                name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path

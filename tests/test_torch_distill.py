@@ -22,7 +22,7 @@ import torch
 
 from unidisc_tpu.config import Config as JaxConfig
 from unidisc_tpu.diffusion.subs import subs_parameterization as jax_subs
-from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.models.dit import DIT as JaxDIT
 from unidisc_tpu.training import distill as jdistill
 from unidisc_tpu.training import train_state as jts
 from unidisc_tpu_torch.config import Config
@@ -32,6 +32,7 @@ from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
 from unidisc_tpu_torch.training import distill as tdistill
 from unidisc_tpu_torch.training import train_state as tts
 
+from test_torch_dit import param_tree
 from test_torch_train_step import (TINY, B, assert_tree_close, loss_draws,
                                    make_batch, random_params)
 
@@ -85,12 +86,10 @@ def test_distill_step_matches_jax(guidance, t_max, hard):
             "trainer.mask_entire_modality": None}
     jcfg = JaxConfig.make("tiny", **over).validate()
     tcfg = Config.make("tiny", **{**over, "model.attn_backend": "auto"})
-    jteacher, tparams = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                                 compute_dtype=jnp.float32)
-    tparams = random_params(tparams, seed=1)
-    jstudent, sparams = init_dit(jax.random.PRNGKey(2), jcfg.model,
-                                 compute_dtype=jnp.float32)
-    sparams = random_params(sparams, seed=2)
+    jteacher = jstudent = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
+    tree = param_tree(jcfg.model, jnp.float32)
+    tparams, sparams = random_params(tree, seed=1), random_params(tree,
+                                                                   seed=2)
 
     def jax_teacher(p, x, sigma, modality):
         return jteacher.apply({"params": p}, x, sigma, modality=modality)

@@ -10,6 +10,8 @@ Tolerance atol 2e-4, rtol 1e-3, as in tests/test_port.py: fp32 on both
 sides, differing only in summation order through two blocks and the head.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from flax import traverse_util
 
 from unidisc_tpu.config import Config as JaxConfig
+from unidisc_tpu.models.dit import DIT as JaxDIT
 from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.models.port import port_dit_state_dict
 from unidisc_tpu_torch.config import Config
@@ -64,6 +67,19 @@ def random_params(params, seed=0):
     return traverse_util.unflatten_dict(out, sep="/")
 
 
+@functools.lru_cache(maxsize=None)
+def param_tree(m, compute_dtype):
+    """init_dit's parameter tree for a model config, made once a process:
+    random_params reads only its leaves' names, order and shapes."""
+    return init_dit(jax.random.PRNGKey(0), m, compute_dtype=compute_dtype)[1]
+
+
+def random_dit(m, seed=0, compute_dtype=jnp.bfloat16):
+    """(the JAX DIT, random_params over its parameter tree)."""
+    return (JaxDIT(m, compute_dtype=compute_dtype),
+            random_params(param_tree(m, compute_dtype), seed=seed))
+
+
 def inputs(m, seed=0):
     rng = np.random.RandomState(seed)
     ids = np.concatenate([rng.randint(0, m.text_vocab_size, (B, TXT)),
@@ -84,16 +100,13 @@ def port_model(tcfg, params):
 @pytest.fixture(scope="module")
 def jax_params():
     jcfg, _ = configs()
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
-    return random_params(params)
+    return random_dit(jcfg.model, compute_dtype=jnp.float32)[1]
 
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 def test_logits_and_hidden_match_jax(jax_params, backend):
     jcfg, tcfg = configs(**{"model.attn_backend": backend})
-    jmodel, _ = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
+    jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
     ids, sigma, modality = inputs(jcfg.model)
     want_logits, want_hidden = jmodel.apply(
         {"params": jax_params}, jnp.asarray(ids), jnp.asarray(sigma),
@@ -120,9 +133,8 @@ def test_causal_layernorm_variant_matches_jax():
              "model.qk_norm": False, "model.sandwich_normalization": False,
              "model.rope_2d": False, "model.attn_backend": "pallas"}
     jcfg, tcfg = configs(**extra)
-    jmodel, params = init_dit(jax.random.PRNGKey(1), jcfg.model,
-                              compute_dtype=jnp.float32)
-    params = random_params(params, seed=1)
+    jmodel, params = random_dit(jcfg.model, seed=1,
+                                compute_dtype=jnp.float32)
     ids, sigma, modality = inputs(jcfg.model, seed=1)
     want = jmodel.apply({"params": params}, jnp.asarray(ids),
                         jnp.asarray(sigma), modality=jnp.asarray(modality))
@@ -141,8 +153,7 @@ def test_rope_index_matches_jax(jax_params, doubled):
     indices clip on both sides. Doubled: the [corrupted || clean] rows of
     ar_inpainting, twice the model's length."""
     jcfg, tcfg = configs(**{"model.attn_backend": "xla"})
-    jmodel, _ = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
+    jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
     ids, sigma, modality = inputs(jcfg.model, seed=2)
     rng = np.random.RandomState(7)
     rope_index = rng.randint(-2, IMG + 3, (B, L)).astype(np.int32)
@@ -325,9 +336,8 @@ def test_train_mode_forward_with_masks_matches_jax(jax_params, sandwich,
     jcfg, tcfg = configs(**{"model.dropout": P_DROP,
                             "model.sandwich_normalization": sandwich,
                             "model.attn_backend": "xla"})
-    jmodel, params = init_dit(jax.random.PRNGKey(2), jcfg.model,
-                              compute_dtype=jnp.float32)
-    params = random_params(params, seed=5)
+    jmodel, params = random_dit(jcfg.model, seed=5,
+                                compute_dtype=jnp.float32)
     ids, sigma, modality = inputs(jcfg.model, seed=3)
     keep = keep_mask((B, L, jcfg.model.hidden_size), 6)
     orig = jdit.gate_residual

@@ -167,11 +167,20 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     here only refuse a diffusion model."""
     _, tcfg = configs(**OVER)
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        InferenceEngine(tcfg, model, device="cpu", mesh=object())
+    # mesh= is ported for dcn, fsdp and seq (tests/test_torch_seq_parallel.py
+    # serves on 4 ranks); a one-device spec builds the one-rank engine, a
+    # spec larger than the world is refused, and pp, tensor and ep > 1 name
+    # item 9
+    assert build_engine(preset="tiny", device="cpu", overrides=OVER,
+                        mesh="fsdp=1,seq=1").mesh is None
+    with pytest.raises(ValueError, match="does not cover"):
+        build_engine(preset="tiny", device="cpu", mesh="fsdp=2,seq=2")
+    for spec in ("pp=2", "tensor=2", "ep=2", "fsdp=2,pp=2"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_engine(preset="tiny", device="cpu", mesh=spec)
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        build_engine(preset="tiny", device="cpu", mesh="data=2")
     # lora= is ported (tests/test_torch_lora.py)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_engine(preset="tiny", device="cpu", mesh="fsdp=2")
     with pytest.raises(TypeError, match="unexpected"):
         build_engine(preset="tiny", device="cpu", shards=2)
     with pytest.raises(TypeError, match="unexpected"):

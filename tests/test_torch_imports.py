@@ -305,6 +305,45 @@ def test_variants_slice_is_checked():
     assert not roots & {"datasets", "PIL"}, roots
 
 
+# the modules of the device mesh: the process-group helpers, the mesh and
+# its sharding rules, the collectives, ring attention, the sequence-
+# parallel context and SPMD sampling, and the entry points they enter
+MESH_SLICE = [
+    "unidisc_tpu_torch/utils/dist.py",
+    "unidisc_tpu_torch/parallel/__init__.py",
+    "unidisc_tpu_torch/parallel/comm.py",
+    "unidisc_tpu_torch/parallel/mesh.py",
+    "unidisc_tpu_torch/parallel/ring_attention.py",
+    "unidisc_tpu_torch/parallel/seq_parallel.py",
+    "unidisc_tpu_torch/parallel/sample.py",
+    "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/training/train_state.py",
+    "unidisc_tpu_torch/training/trainer.py",
+    "unidisc_tpu_torch/serving/engine.py",
+    "unidisc_tpu_torch/serving/server.py",
+    "unidisc_tpu_torch/train.py",
+]
+
+
+def test_mesh_slice_is_checked():
+    assert set(MESH_SLICE) <= set(FILES)
+    for path in MESH_SLICE + ["tests/torch_mesh_worker.py"]:
+        assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+    # importing the mesh modules joins no process group and touches no card
+    code = ("import torch.distributed as dist\n"
+            "import unidisc_tpu_torch.utils.dist\n"
+            "import unidisc_tpu_torch.parallel.mesh\n"
+            "import unidisc_tpu_torch.parallel.ring_attention\n"
+            "import unidisc_tpu_torch.parallel.sample\n"
+            "import unidisc_tpu_torch.parallel.seq_parallel\n"
+            "from unidisc_tpu_torch.utils import dist as udist\n"
+            "assert not dist.is_initialized()\n"
+            "assert udist.world_size() == 1 and udist.is_main_process()\n"
+            "assert not udist.initialize(device='cpu')\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   env={"PATH": "/nonexistent", "CUDA_VISIBLE_DEVICES": ""})
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

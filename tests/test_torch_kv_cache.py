@@ -40,7 +40,7 @@ from unidisc_tpu_torch.ops import quant
 from unidisc_tpu_torch.sampling.ar_sampler import (init_kv_cache,
                                                    init_kv_cache_for)
 from test_torch_dit import ATOL, B, RTOL, TXT, configs, port_model, \
-    random_params
+    random_dit, random_params
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -51,9 +51,8 @@ PREFILL = 10
 
 def model_pair(seed, **extra):
     jcfg, tcfg = configs(**extra)
-    jmodel, params = init_dit(jax.random.PRNGKey(seed), jcfg.model,
-                              compute_dtype=jnp.float32)
-    params = random_params(params, seed=seed)
+    jmodel, params = random_dit(jcfg.model, seed=seed,
+                                compute_dtype=jnp.float32)
     return jmodel, params, port_model(tcfg, params), tcfg.model
 
 

@@ -19,10 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.sampling import sampler as jax_sampler
 from unidisc_tpu_torch.sampling import sampler
-from test_torch_dit import B, TXT, configs, port_model, random_params
+from test_torch_dit import B, TXT, configs, port_model, random_dit
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -53,9 +52,7 @@ def run_both(predictor, cfg, seed=0, steps=STEPS, **extra):
             **extra}
     jcfg, tcfg = configs(**over)
     m = jcfg.model
-    jmodel, params = init_dit(jax.random.PRNGKey(seed), m,
-                              compute_dtype=jnp.float32)
-    params = random_params(params, seed=seed)
+    jmodel, params = random_dit(m, seed=seed, compute_dtype=jnp.float32)
     x0, unmask, modality = conditioning(m, seed + 1)
     rng = np.random.RandomState(seed + 2)
     shape = (steps, B, m.length)

@@ -38,7 +38,6 @@ import torch
 from PIL import Image
 
 from unidisc_tpu.diffusion.noise import get_noise as jax_get_noise
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.sampling import scaffold as jax_scaffold
 from unidisc_tpu.serving import server as jax_server
 from unidisc_tpu.serving.engine import InferenceEngine as JaxEngine
@@ -53,7 +52,7 @@ from unidisc_tpu_torch.serving.batcher import (PAD_SIZES, RequestBatcher,
 from unidisc_tpu_torch.serving.engine import (InferenceEngine, build_engine,
                                               downscale_bool_mask)
 from unidisc_tpu_torch.utils.resize import resize_mask, resize_uint8
-from test_torch_dit import OVERRIDES, configs, port_model, random_params
+from test_torch_dit import OVERRIDES, configs, port_model, random_dit
 from test_torch_engine import tiny_codecs
 from unidisc_tpu_torch.device import cap_test_threads
 
@@ -115,9 +114,7 @@ def content_types(resp):
 def servers():
     """The JAX server and the port's over the same weights and codec."""
     jcfg, tcfg = configs(**OVER)
-    jmodel, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                              compute_dtype=jnp.float32)
-    params = random_params(params)
+    jmodel, params = random_dit(jcfg.model, compute_dtype=jnp.float32)
     jcodec, codec = tiny_codecs()
     jeng = JaxEngine(jcfg, jmodel, params, codec=jcodec)
     eng = InferenceEngine(tcfg, port_model(tcfg, params), codec=codec,
@@ -559,11 +556,9 @@ def test_scaffold_sampler_matches_jax_token_for_token(split):
     jcfg, tcfg = configs(**OVER)
     jsmall_cfg, small_cfg = configs(**OVER, **{"model.n_blocks": 1,
                                                "model.hidden_size": 64})
-    jbig, pbig = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                          compute_dtype=jnp.float32)
-    jsmall, psmall = init_dit(jax.random.PRNGKey(1), jsmall_cfg.model,
-                              compute_dtype=jnp.float32)
-    pbig, psmall = random_params(pbig, 0), random_params(psmall, 1)
+    jbig, pbig = random_dit(jcfg.model, 0, compute_dtype=jnp.float32)
+    jsmall, psmall = random_dit(jsmall_cfg.model, 1,
+                                compute_dtype=jnp.float32)
     m = tcfg.model
     rng = np.random.RandomState(split)
     b = 2

@@ -18,14 +18,13 @@ import pytest
 import torch
 
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.ops.quant import quantize_dit_params
 from unidisc_tpu.sampling import sampler as jax_sampler
 from unidisc_tpu.sampling.t2i_fast import \
     build_t2i_sampler as jax_build_t2i_sampler
 from unidisc_tpu_torch.sampling import sampler
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
-from test_torch_dit import B, TXT, IMG, configs, port_model, random_params
+from test_torch_dit import B, TXT, IMG, configs, port_model, random_dit
 from test_torch_quant import configs as int8_configs
 from unidisc_tpu_torch.device import cap_test_threads
 
@@ -46,9 +45,7 @@ def run_both(seed=0, int8=False, configs=configs, experiments=(),
 
     jcfg, tcfg = make()
     m = jcfg.model
-    jmodel, params = init_dit(jax.random.PRNGKey(seed), m,
-                              compute_dtype=jnp.float32)
-    params = random_params(params, seed=seed)
+    jmodel, params = random_dit(m, seed=seed, compute_dtype=jnp.float32)
     if int8:
         params = quantize_dit_params(params)
         jcfg, tcfg = make(**{"model.quant": "int8"})

@@ -1,0 +1,400 @@
+"""A gloo world of CPU ranks for the port's mesh tests.
+
+``run_world(job, world, tmp_path)`` starts `world` processes of this file,
+each ``python tests/torch_mesh_worker.py JOB WORLD RANK DIR``, and
+returns at once. They meet through a ``FileStore`` under `tmp_path` (no
+port to pick, so several pytest-xdist workers can hold worlds at once),
+run ``JOBS[JOB](rank, world)`` and write its result (a dict of numpy
+arrays and numbers) to ``DIR/out{rank}.pt``; the returned ``World`` gives
+them by rank, waiting for the ranks when first indexed, so a test file
+computes its JAX references while the ranks run. Each rank takes its
+share of the worker's cores (``device.cap_test_threads(ranks=)``).
+
+The jobs use the port only: this file imports no JAX. The test files hold
+what they return to the JAX package. Inputs come from numpy seeds, so a
+test can rebuild them.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class World:
+    """A started world of `n` ranks running JOBS[job]: indexing or iterating
+    it waits for the ranks (at most `timeout` s from the start) and gives
+    their results by rank. Each rank's output goes to a log file in the
+    world's directory, read back if the rank fails."""
+
+    def __init__(self, job: str, n: int, tmp_path, timeout: float, inputs):
+        import tempfile
+        import time
+
+        import torch
+        self.job, self.n, self._results = job, n, None
+        self.dir = tempfile.mkdtemp(prefix=f"world_{job}_", dir=str(tmp_path))
+        if inputs is not None:
+            torch.save(inputs, os.path.join(self.dir, "inputs.pt"))
+        env = dict(os.environ)
+        env["MESH_WORKER_DIR"] = self.dir
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        env["MESH_WORKER_TIMEOUT"] = str(timeout)
+        self.deadline = time.monotonic() + timeout
+        self.logs = [os.path.join(self.dir, f"log{r}.txt") for r in range(n)]
+        self.procs = []
+        for r in range(n):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), job, str(n),
+                     str(r), self.dir], env=env, cwd=REPO, stdout=log,
+                    stderr=subprocess.STDOUT))
+
+    def results(self) -> list:
+        if self._results is None:
+            import time
+
+            import torch
+            try:
+                for p in self.procs:
+                    p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+            finally:
+                for p in self.procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            failed = [f"rank {r} (rc {p.returncode}):\n"
+                      f"{open(self.logs[r]).read()[-4000:]}"
+                      for r, p in enumerate(self.procs) if p.returncode]
+            if failed:
+                raise RuntimeError(f"job {self.job!r} failed on "
+                                   + "\n".join(failed))
+            self._results = [torch.load(os.path.join(self.dir,
+                                                     f"out{r}.pt"),
+                                        weights_only=False)
+                             for r in range(self.n)]
+        return self._results
+
+    def __getitem__(self, rank):
+        return self.results()[rank]
+
+    def __iter__(self):
+        return iter(self.results())
+
+
+def run_world(job: str, world: int, tmp_path, timeout: float = 300.0,
+              inputs=None) -> World:
+    """Start JOBS[job] on `world` gloo ranks and return at once: the
+    caller computes its references while the ranks run. inputs: any
+    picklable object, which the job reads with ``load_inputs()``."""
+    return World(job, world, tmp_path, timeout, inputs)
+
+
+def _init(rank: int, world: int, out_dir: str):
+    import torch.distributed as dist
+    from torch.distributed import FileStore
+    store = FileStore(os.path.join(out_dir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+
+
+# ---------------------------------------------------------------------------
+# ring attention (tests/test_torch_ring.py)
+# ---------------------------------------------------------------------------
+
+RING_SHAPE = (2, 64, 4, 16)       # B, L, H, D: Lc 16 over 4 ranks
+
+
+def ring_inputs(seed):
+    b, l, h, d = RING_SHAPE
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, l, h, d).astype(np.float32) for _ in range(4)]
+
+
+def ring_cases():
+    """name -> (causal, q ids, kv ids) over the global (B, L)."""
+    b, l = RING_SHAPE[:2]
+    packed = np.full((b, l), -1, np.int32)
+    # documents across the chunk edges (16, 32, 48), then padding
+    packed[0, :10], packed[0, 10:27], packed[0, 27:58] = 0, 1, 2
+    packed[1, :40], packed[1, 40:61] = 0, 1
+    kv = np.repeat(np.arange(4), l // 4)[None].repeat(b, 0).astype(np.int32)
+    q_missing = kv.copy()
+    q_missing[0, :16] = 99        # matches no key: zero rows
+    q_missing[1, 20:24] = 7
+    return {"full": (False, None, None), "causal": (True, None, None),
+            "packed_full": (False, packed, None),
+            "packed_causal": (True, packed, None),
+            "distinct_full": (False, q_missing, kv),
+            "distinct_causal": (True, q_missing, kv)}
+
+
+def job_ring(rank, world):
+    import torch
+    from unidisc_tpu_torch.parallel import ring_attention as ra
+    group = None
+    lc = RING_SHAPE[1] // world
+    sl = slice(rank * lc, (rank + 1) * lc)
+    q, k, v, g = (torch.from_numpy(x) for x in ring_inputs(0))
+    out = {}
+    for name, (causal, qid, kvid) in ring_cases().items():
+        qs = None if qid is None else torch.from_numpy(qid[:, sl].copy())
+        ks = None if kvid is None else torch.from_numpy(kvid[:, sl].copy())
+        for ring in ("plain", "flash"):
+            fn = ra.ring_attention if ring == "plain" \
+                else ra.ring_attention_flash
+            qq, kk, vv = (x[:, sl].clone().requires_grad_()
+                          for x in (q, k, v))
+            o = fn(qq, kk, vv, qs, group=group, causal=causal,
+                   kv_segment_ids=ks)
+            o.backward(g[:, sl])
+            out[f"{ring}/{name}"] = {
+                "out": o.detach().numpy(), "dq": qq.grad.numpy(),
+                "dk": kk.grad.numpy(), "dv": vv.grad.numpy()}
+    # the global entry: every rank holds the global arrays
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    o = ra.ring_attention_sharded(qq, kk, vv, group, causal=True)
+    o.backward(g)
+    out["sharded"] = {"out": o.detach().numpy(), "dq": qq.grad.numpy(),
+                      "dk": kk.grad.numpy(), "dv": vv.grad.numpy()}
+    errors = {}
+    for what, call in (
+            ("indivisible", lambda: ra.ring_attention_sharded(
+                q[:, :62], k[:, :62], v[:, :62], group)),
+            ("kv_without_q", lambda: ra.ring_attention_sharded(
+                q, k, v, group, kv_segment_ids=torch.zeros(
+                    RING_SHAPE[:2], dtype=torch.int32)))):
+        try:
+            call()
+        except ValueError as e:
+            errors[what] = str(e)
+    out["errors"] = errors
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the train step on a mesh (tests/test_torch_seq_parallel.py,
+# tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+def load_inputs():
+    import torch
+    return torch.load(os.path.join(os.environ["MESH_WORKER_DIR"],
+                                   "inputs.pt"), weights_only=False)
+
+
+def mesh_train(cfg, spec, sd0, batch, draws):
+    """len(draws) steps of the mesh step on `spec` from the state dict sd0;
+    (whole state dict (on every rank), metrics per step)."""
+    import dataclasses
+
+    import torch
+
+    from unidisc_tpu_torch.models.dit import DIT
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.training import train_state as tts
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                            **spec))
+    model = DIT(cfg.model, compute_dtype=torch.float32)
+    step, state, _ = tts.shard_train_step(cfg, model, make_mesh(cfg.mesh))
+    state.load_state_dict(sd0)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    metrics = []
+    for d in draws:
+        state, m = step(state, tb, draws=d)
+        metrics.append({k: float(v) for k, v in m._asdict().items()})
+    sd = state.state_dict()
+    return ({k: {n: t.detach().clone() for n, t in v.items()}
+             if isinstance(v, dict) else v.clone() for k, v in sd.items()},
+            metrics)
+
+
+def job_train(rank, world):
+    """inputs: config, meshes (name -> MeshConfig fields), sd0, batch,
+    draws (one mapping per step)."""
+    inp = load_inputs()
+    out = {}
+    for name, spec in inp["meshes"].items():
+        sd, metrics = mesh_train(inp["config"], spec, inp["sd0"],
+                                 inp["batch"], inp["draws"])
+        out[name] = {"metrics": metrics}
+        if rank == 0:
+            out[name]["state"] = sd
+    return out
+
+
+def t2i_mesh(cfg, sd, spec, txt, injected):
+    """The t2i sampler under spmd_sampler on `spec`: its tokens."""
+    import dataclasses
+
+    import torch
+
+    from unidisc_tpu_torch.models.dit import DIT
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, make_mesh
+    from unidisc_tpu_torch.parallel.sample import spmd_sampler
+    from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+    mcfg = dataclasses.replace(cfg.mesh, **spec)
+    layout = MeshLayout.of(make_mesh(mcfg))
+    model = DIT(cfg.model, compute_dtype=torch.float32).eval()
+    model.load_state_dict(sd)
+    sample = spmd_sampler(build_t2i_sampler(model, cfg, inject_noise=True,
+                                            device="cpu"), cfg, layout)
+    out = sample(torch.from_numpy(txt),
+                 injected={k: torch.from_numpy(v)
+                           for k, v in injected.items()})
+    return out.tokens.numpy()
+
+
+def job_seq(rank, world):
+    """The 4-rank world of tests/test_torch_seq_parallel.py: the train
+    step on three meshes, the t2i sampler on two, the engine."""
+    inp = load_inputs()
+    out = {"train": {}}
+    for name, spec in inp["meshes"].items():
+        sd, metrics = mesh_train(inp["config"], spec, inp["sd0"],
+                                 inp["batch"], inp["draws"])
+        out["train"][name] = {"metrics": metrics}
+        if rank == 0:
+            out["train"][name]["state"] = sd
+    s = inp["sampler"]
+    out["t2i"] = {name: t2i_mesh(s["config"], s["sd"], spec, s["txt"],
+                                 s["injected"])
+                  for name, spec in s["meshes"].items()}
+    out["engine"] = engine_checks(rank, inp["engine"])
+    return out
+
+
+def engine_checks(rank, e):
+    """build_engine on a mesh: run_batch SPMD, with a batch off the
+    granule, and led from rank 0 with the others following (a call the
+    leader refuses first)."""
+    from unidisc_tpu_torch.serving.engine import build_engine
+    out = {}
+    for spec in e["meshes"]:
+        eng = build_engine(preset="tiny", device="cpu", mesh=spec,
+                           overrides=e["overrides"])
+        prepared = [eng.prepare(**r) for r in e["requests"]]
+        res = eng.run_batch(prepared, seed=e["seed"])
+        got = {"tokens": [r["image_ids"] for r in res],
+               "texts": [r["text"] for r in res],
+               "granule": eng._batch_multiple}
+        if rank == 0:
+            eng.lead()
+            # a request the leader refuses never reaches the followers
+            try:
+                eng.run_batch(prepared, steps=-1, seed=e["seed"])
+            except ValueError:
+                got["refused"] = True
+            led = eng.run_batch(prepared, seed=e["seed"])
+            eng.stop_followers()
+            got["led"] = [r["image_ids"] for r in led]
+        else:
+            eng.follow()
+        out[spec] = got
+    return out
+
+
+TRAINER_OVER = {
+    "model.length": 16, "model.txt_length": 8, "model.img_length": 8,
+    "model.text_vocab_size": 40, "model.image_vocab_size": 24,
+    "model.dropout": 0.0, "trainer.warmup_steps": 2,
+    "trainer.max_steps": 3, "mesh.fsdp": 2}
+TRAINER_BATCH = 8
+
+
+def local_batches(seed, rank, world):
+    """This rank's slice of a deterministic global batch (as
+    tests/multihost_worker.py)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, 40, (TRAINER_BATCH, 16)).astype(np.int32)
+    mod = np.zeros((TRAINER_BATCH, 16), np.int32)
+    mod[:, 8:] = 1
+    toks[:, 8:] = rng.randint(40, 64, (TRAINER_BATCH, 8))
+    n = TRAINER_BATCH // world
+    sl = slice(rank * n, (rank + 1) * n)
+    return {"input_ids": toks[sl], "modality": mod[sl]}
+
+
+class Loader:
+    def __init__(self, seeds, rank, world):
+        self.seeds, self.rank, self.world = list(seeds), rank, world
+
+    def __iter__(self):
+        return (local_batches(s, self.rank, self.world) for s in self.seeds)
+
+
+def job_mesh2(rank, world):
+    """The 2-rank world of tests/test_torch_mesh.py: the train step on
+    fsdp 2; Trainer.fit + validate on fsdp 2; the train CLI on it."""
+    import torch
+
+    from unidisc_tpu_torch import train as train_cli
+    from unidisc_tpu_torch.config import Config
+    from unidisc_tpu_torch.training.trainer import Trainer
+    from unidisc_tpu_torch.utils import dist as udist
+    inp = load_inputs()
+    out = {}
+    sd, metrics = mesh_train(inp["config"], {"fsdp": 2}, inp["sd0"],
+                             inp["batch"], inp["draws"])
+    out["train"] = {"metrics": metrics}
+    if rank == 0:
+        out["train"]["state"] = sd
+    cfg = Config.make("tiny", **TRAINER_OVER)
+    assert udist.host_local_batch_size(TRAINER_BATCH) == TRAINER_BATCH // 2
+    g = udist.host_batch_to_global(local_batches(0, rank, world))
+    out["global_batch"] = g
+    run_dir = os.path.join(inp["dir"], "run")
+    trainer = Trainer(cfg, run_dir, device="cpu", log_every=100,
+                      val_every=0, ckpt_every=0)
+    out["sharded"] = sorted(trainer.state.shard_dims)
+    fit = trainer.fit(Loader(range(100), rank, world), None, max_steps=3)
+    out["fit_step"] = fit["step"]
+    out["val"] = trainer.validate(Loader(range(50, 54), rank, world), 3,
+                                  max_batches=4)
+    out["param_hash"] = udist.param_hash(trainer.state.params)
+    full = trainer.state.state_dict()
+    if rank == 0:
+        out["final"] = {k: {n: t.detach().clone() for n, t in full[k].items()}
+                        for k in ("params", "ema_params")}
+    trainer.close()
+    cli_dir = os.path.join(inp["dir"], "cli")
+    res = train_cli.main(["--device", "cpu", "--run-dir", cli_dir,
+                          "--batch-size", "4", "--log-every", "1",
+                          "model=tiny", "model.length=16",
+                          "model.txt_length=8", "model.img_length=8",
+                          "mesh.fsdp=2", "trainer.max_steps=2"])
+    out["cli_step"] = res["step"]
+    out["cli_loss"] = res["loss"]
+    del torch
+    return out
+
+
+JOBS = {"ring": job_ring, "train": job_train, "seq": job_seq,
+        "mesh2": job_mesh2}
+
+
+def main():
+    job, world, rank, out_dir = sys.argv[1], int(sys.argv[2]), \
+        int(sys.argv[3]), sys.argv[4]
+    sys.path.insert(0, REPO)
+    import faulthandler
+    faulthandler.dump_traceback_later(
+        float(os.environ.get("MESH_WORKER_TIMEOUT", "300")) - 5, exit=True)
+    import torch
+    from unidisc_tpu_torch.device import cap_test_threads
+    cap_test_threads(ranks=world)
+    _init(rank, world, out_dir)
+    result = JOBS[job](rank, world)
+    torch.save(result, os.path.join(out_dir, f"out{rank}.pt"))
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -22,11 +22,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def cap_test_threads() -> None:
+def cap_test_threads(ranks: int = 1) -> None:
     """Share the CPU's cores among pytest-xdist workers: with
     PYTEST_XDIST_WORKER_COUNT set, set torch's intra-op threads to
-    cpu_count // workers (at least 1). Without it nothing changes. The
-    CPU test files call it when they are imported."""
-    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
-    if workers:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+    cpu_count // workers // ranks (at least 1); `ranks`: the processes of
+    a multi-rank test world, which share their worker's cores. Without the
+    variable, ranks > 1 take cpu_count // ranks and one process keeps its
+    threads. The CPU test files call it when they are imported."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if workers or ranks > 1:
+        cores = (os.cpu_count() or 1) // max(workers, 1)
+        torch.set_num_threads(max(1, cores // ranks))

@@ -106,8 +106,18 @@ The variants of the JAX DIT:
     ``img_cond`` takes no KV cache. Without ``x_cond`` the trunk and the
     cross-attention are skipped, as in JAX.
 
-The parallel branches (pipeline, sequence parallelism) are not in the
-port.
+Sequence parallelism (``parallel/seq_parallel.py``): under
+``sequence_parallel`` the forward takes its rank's L-chunk of the tokens,
+``modality``, ``sample_ids``, ``img_block_index``, ``extra_embed`` and the
+rope rows (at the chunk's global positions), runs every self-attention as
+the flash-kernel ring over the "seq" group
+(``parallel/ring_attention.py::ring_attention_flash``; the plain ring under
+``attn_backend="xla"``), and, when the context gathers, gathers the final
+hidden states over L before the vocab head, so every rank of the group
+gets the whole sequence's logits. The ring takes no dense ``attn_mask``,
+KV cache or frozen prefix; MoE (whose expert capacity is per batch) and
+the img_cond cross-attention under it are ROADMAP queue 1, item 13. The
+pipeline branch is not in the port.
 """
 
 from __future__ import annotations
@@ -131,6 +141,8 @@ from unidisc_tpu_torch.ops.flash_attention import flash_attention
 from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
 from unidisc_tpu_torch.ops.quant import (int8_kv_attention, qdot,
                                          quantize_kv)
+from unidisc_tpu_torch.parallel.seq_parallel import \
+    current_seq_mesh as _ring_ctx
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -484,6 +496,15 @@ class DDiTBlock(nn.Module):
             v = torch.cat([fv.to(v.dtype), v], dim=1)
             out = flash_attention(q, k, v) if kernel \
                 else multihead_attention(q, k, v)
+        elif _ring_ctx() is not None:
+            # sequence parallelism: this rank holds an L-chunk; the ring
+            # runs over the "seq" group, the ids rotating with K/V
+            from unidisc_tpu_torch.parallel.ring_attention import (
+                ring_attention, ring_attention_flash)
+            ring = ring_attention_flash if kernel else ring_attention
+            out = ring(q, k, v, None if segment_ids is None
+                       else segment_ids[0], group=_ring_ctx().group,
+                       causal=causal)
         elif attn_mask is None and kernel:
             out = flash_attention(q, k, v, causal=causal,
                                   segment_ids=segment_ids)
@@ -929,6 +950,34 @@ class DIT(nn.Module):
         cross = cfg.img_cond and x_cond is not None
         if cross and kv_cache is not None:
             raise ValueError("img_cond excludes KV-cache decode")
+        ring = _ring_ctx()
+        l = indices.shape[1]
+        if ring is not None:
+            if kv_cache is not None or frozen_kv is not None \
+                    or attn_mask is not None:
+                raise ValueError("sequence parallelism takes no kv_cache, "
+                                 "frozen_kv or attn_mask")
+            if cross or cfg.moe_experts > 0:
+                raise NotImplementedError(
+                    "MoE and img_cond under sequence parallelism are not in "
+                    "the port yet (ROADMAP queue 1, item 13)")
+            if l % ring.size:
+                raise ValueError(f"sequence {l} not divisible by the seq "
+                                 f"group size {ring.size}")
+            lo = ring.rank * (l // ring.size)
+            hi = lo + l // ring.size
+            if rope_index is not None:
+                rope = self.rope_rows(rope_index, modality)
+                rope_index = None
+            else:
+                rope = (self.rope_cos[:l], self.rope_sin[:l])
+            rope = tuple(t[..., lo:hi, :] for t in rope)
+
+            def chunk(t):
+                return None if t is None else t[:, lo:hi]
+            indices, modality, sample_ids, img_block_index, extra_embed = (
+                chunk(t) for t in (indices, modality, sample_ids,
+                                   img_block_index, extra_embed))
         x = self._embed(indices, modality, img_block_index, extra_embed)
         c = None
         if cfg.time_conditioning and not cfg.cond_label:
@@ -945,8 +994,9 @@ class DIT(nn.Module):
             else:
                 sample_ids = sample_ids.to(torch.int32)
                 segment_ids = (sample_ids, sample_ids)
-        l = indices.shape[1]
-        if rope_index is not None:
+        if ring is not None:
+            cos, sin = rope
+        elif rope_index is not None:
             cos, sin = self.rope_rows(rope_index, modality)
         elif kv_cache is None and frozen_kv is None:
             cos, sin = self.rope_cos[:l], self.rope_sin[:l]
@@ -992,6 +1042,9 @@ class DIT(nn.Module):
                             **cond_kw))
             new_cache = None if kv_cache is None else tuple(kv_cache)
         aux = torch.stack(auxes).sum() if auxes else None
+        if ring is not None and ring.gather:
+            from unidisc_tpu_torch.parallel.comm import GatherReplicated
+            x = GatherReplicated.apply(x, ring.group, 1)
         return x, c, new_cache, aux
 
     def rope_rows(self, rope_index, modality):
@@ -1042,6 +1095,11 @@ class DIT(nn.Module):
             frozen_kv, rope_index, dropout,
             packed=(sample_ids, img_block_index, extra_embed),
             conditioning=(label, x_cond, generator))
+        ring = _ring_ctx()
+        if ring is not None and not ring.gather and modality is not None:
+            # the chunk's hidden states: the head takes the chunk's rows
+            lc = modality.shape[1] // ring.size
+            modality = modality[:, ring.rank * lc:(ring.rank + 1) * lc]
         logits = self.output_layer(x, c, modality)
         if return_moe_aux:
             if aux is None:

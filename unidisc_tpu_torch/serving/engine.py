@@ -49,7 +49,14 @@ generated images), laid out as one packed row with its sample ids and
 rope indices, through the generic sampler's packed form
 (``sampling/sampler.py::PackedSampler``; on the card its captured
 program). Under ``model.img_resolutions`` an image's rope indices carry
-its block's offset in the combined table. Meshes are a later slice
+its block's offset in the combined table.
+
+On a device mesh (``build_engine(mesh="fsdp=2,seq=2")``, one process per
+device) every rank holds the whole model and makes the same calls: a batch
+rounds up to the data-parallel width, each data-parallel rank samples its
+rows and a "seq" group samples replicated with the ring in the DIT
+(``parallel/sample.py``). The server's other ranks replay the leader's
+calls (``lead`` / ``follow``). "pp", "tensor" and "ep" are a later slice
 (ROADMAP queue 1, item 9) and raise ``NotImplementedError``.
 """
 
@@ -59,6 +66,7 @@ import base64
 import dataclasses
 import json
 import math
+import numbers
 import re
 import threading
 import types
@@ -81,10 +89,6 @@ def expand_mask_tokens(text: str) -> str:
     return MASK_TOKEN_RE.sub(
         lambda m: "<mask>" * int(m.group(1) or 1), text)
 
-
-# the JAX engine's options that later slices port, with their ROADMAP
-# queue 1 items
-_LATER_OPTIONS = {"mesh": 9}
 
 
 class _TextCompletion:
@@ -139,23 +143,40 @@ class _TextCompletion:
         return out
 
 
+def check_call(steps, seed) -> None:
+    """A request's steps (None, or 0 for the config's) and seed, checked
+    before a leader sends the call to its followers."""
+    if steps is not None and (not isinstance(steps, numbers.Integral)
+                              or steps < 0):
+        raise ValueError(f"steps must be a non-negative int, got {steps!r}")
+    if not isinstance(seed, numbers.Integral):
+        raise ValueError(f"seed must be an int, got {seed!r}")
+
+
 class InferenceEngine(_TextCompletion):
     def __init__(self, config: Config, model, *, tokenizer=None,
                  codec=None, device="cuda", rolling: int = 0,
                  ar_draft=None, gamma: int = 4,
-                 lookup_ngram: Optional[int] = None, **later):
-        for name, value in later.items():
-            if name not in _LATER_OPTIONS:
-                raise TypeError(f"InferenceEngine got an unexpected "
-                                f"argument {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"InferenceEngine({name}=...) is not in the port yet "
-                    f"(ROADMAP queue 1, item {_LATER_OPTIONS[name]})")
+                 lookup_ngram: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         self.config = config
         self.m = config.model
         self.model = model.to(self.device).eval()
+        # mesh: a DeviceMesh (module docstring)
+        self.mesh = None
+        self._batch_multiple = 1
+        if mesh is not None:
+            from unidisc_tpu_torch.parallel.mesh import MeshLayout
+            from unidisc_tpu_torch.parallel.sample import (batch_multiple,
+                                                           validate_mesh)
+            self.mesh = MeshLayout.of(mesh)
+            validate_mesh(config, self.mesh)
+            self._batch_multiple = batch_multiple(config, self.mesh)
+            if rolling or ar_draft is not None or lookup_ngram:
+                raise NotImplementedError(
+                    "rolling admission and AR decoding on a mesh are not in "
+                    "the port yet (ROADMAP queue 1, item 13)")
+        self._leading = False
         if tokenizer is None:
             from unidisc_tpu_torch.tokenizers.text import get_tokenizer
             tokenizer = get_tokenizer("byte")
@@ -234,7 +255,7 @@ class InferenceEngine(_TextCompletion):
             self._samplers[key] = build_sampler(
                 self.model, self.config, num_steps=key[1],
                 device=self.device, packed=True)
-        return self._program(self._samplers[key], 1)
+        return self._program(self._samplers[key], self._batch_multiple)
 
     def interleaved_row(self, segments: List[dict]) -> dict:
         """One document's packed row: {"row": x0, unmask, modality,
@@ -314,18 +335,24 @@ class InferenceEngine(_TextCompletion):
         "image", "generate": True, "grid": G}. Returns {"segments" (text
         decoded; image ids, their grid, and a PNG where the grid is the
         codec's), "tokens" (L,), "nfe"}."""
-        with self._device_lock:
-            return self._run_interleaved_locked(segments, steps=steps,
-                                                seed=seed)
-
-    def _run_interleaved_locked(self, segments, *, steps, seed):
-        m = self.m
+        # the call is checked (and the row built) before the followers
+        # see it
+        check_call(steps, seed)
         doc = self.interleaved_row(segments)
+        with self._device_lock:
+            kw = dict(doc=doc, steps=steps, seed=seed)
+            self._announce("_run_interleaved_locked", kw)
+            return self._run_interleaved_locked(**kw)
+
+    def _run_interleaved_locked(self, doc, *, steps, seed):
+        m = self.m
         row = doc["row"]
         sample = self._interleaved_sampler(steps)
-        out = sample(*(row[k][None] for k in ("x0", "unmask", "modality",
-                                              "sample_ids", "rope_index")),
-                     seed=seed)
+        # a mesh granule > 1 takes the single document tiled across rows
+        reps = self._batch_multiple
+        out = sample(*(np.repeat(row[k][None], reps, 0)
+                       for k in ("x0", "unmask", "modality", "sample_ids",
+                                 "rope_index")), seed=seed)
         host = out.tokens[0].cpu().numpy()
         from unidisc_tpu_torch.tokenizers.text import wrapped_batch_decode
         codec_grid = None if self.codec is None \
@@ -349,13 +376,24 @@ class InferenceEngine(_TextCompletion):
     def _program(self, sampler, batch: int):
         """`sampler` as the engine runs it, run(*inputs, seed): on the card
         its captured program at `batch` rows (ddpm_cache runs eager), on
-        the CPU the eager sampler with a generator seeded per call."""
+        the CPU the eager sampler with a generator seeded per call. On a
+        mesh the program runs the rank's rows of a `batch`-row call
+        (``parallel/sample.py::spmd_sampler``); under "seq" > 1 eager,
+        its steps holding the ring's collectives, which a CUDA graph over
+        a gloo group cannot hold (several ranks on one card) and which
+        wait for an NCCL host with a card per rank."""
+        local = batch // self._batch_multiple
+        if self.mesh is not None and self.mesh.seq_size > 1:
+            sampler.capturable = False
         if self.device.type == "cuda" and sampler.capturable:
-            return captured(sampler, batch)
-
-        def run(*inputs, seed: int):
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            return sampler(*inputs, generator=gen)
+            run = captured(sampler, local)
+        else:
+            def run(*inputs, seed: int):
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                return sampler(*inputs, generator=gen)
+        if self.mesh is not None:
+            from unidisc_tpu_torch.parallel.sample import spmd_sampler
+            run = spmd_sampler(run, self.config, self.mesh)
         return run
 
     def _t2i_sampler(self, steps: Optional[int] = None, batch: int = 1):
@@ -488,21 +526,67 @@ class InferenceEngine(_TextCompletion):
         """Run N prepared requests as one device batch. pad_to rounds the
         batch up with duplicate rows. With rolling slots (and no scaffold)
         the rows go through the rolling batchers instead."""
+        if not prepared:
+            raise ValueError("run_batch needs at least one request")
+        check_call(steps, seed)
         if self._rolling_slots and self._scaffold is None:
             return self._run_batch_rolling(prepared, steps=steps, seed=seed)
         with self._device_lock:
-            return self._run_batch_locked(prepared, steps=steps, seed=seed,
-                                          pad_to=pad_to)
+            kw = dict(prepared=prepared, steps=steps, seed=seed,
+                      pad_to=pad_to)
+            self._announce("_run_batch_locked", kw)
+            return self._run_batch_locked(**kw)
+
+    # a mesh served from one rank: the leader (rank 0, which takes the
+    # requests) sends each device call to the other ranks, which replay it
+    def lead(self) -> None:
+        """Make this rank the leader: every later run_batch and
+        run_interleaved is broadcast to the followers first."""
+        self._leading = True
+
+    def _announce(self, name: str, kw: dict) -> None:
+        if self._leading:
+            import torch.distributed as dist
+            dist.broadcast_object_list([(name, kw)], src=0)
+
+    def follow(self) -> None:
+        """Replay the leader's calls until it stops (``stop_followers``).
+        The leader checks a request before it sends it, so a call that
+        raises here failed in a collective or on this rank: it propagates
+        and the rank exits (torchrun then tears the world down), where a
+        rank that went on would pair its next collective with the wrong
+        one of the leader's."""
+        import torch.distributed as dist
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is None:
+                return
+            name, kw = msg[0]
+            with self._device_lock:
+                getattr(self, name)(**kw)
+
+    def stop_followers(self) -> None:
+        if self._leading:
+            import torch.distributed as dist
+            dist.broadcast_object_list([None], src=0)
+            self._leading = False
 
     def _run_batch_locked(self, prepared, *, steps, seed, pad_to):
         m = self.m
         n = len(prepared)
-        if n == 0:
-            raise ValueError("run_batch needs at least one request")
         x0 = np.stack([p["x0"] for p in prepared])
         unmask = np.stack([p["unmask"] for p in prepared])
         if pad_to and pad_to > n:
             reps = pad_to - n
+            x0 = np.concatenate([x0, np.repeat(x0[-1:], reps, 0)])
+            unmask = np.concatenate([unmask, np.repeat(unmask[-1:], reps,
+                                                       0)])
+        mult = self._batch_multiple
+        if x0.shape[0] % mult:
+            # the mesh granule (the data-parallel width): round up with
+            # duplicate rows, dropped again after sampling
+            reps = mult - x0.shape[0] % mult
             x0 = np.concatenate([x0, np.repeat(x0[-1:], reps, 0)])
             unmask = np.concatenate([unmask, np.repeat(unmask[-1:], reps,
                                                        0)])
@@ -591,10 +675,6 @@ class InferenceEngine(_TextCompletion):
             first["images_b64"] = [r["images_b64"][0] for r in results]
         return first
 
-
-# build_engine's options that later slices port, with their ROADMAP queue 1
-# items
-_LATER_BUILD_OPTIONS = {"mesh": 9}
 
 
 def apply_lora(model, path: str) -> None:
@@ -764,7 +844,7 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                  scaffold_split: int = 8,
                  speculative: Optional[str] = None,
                  spec_gamma: int = 4,
-                 **later):
+                 mesh: Optional[str] = None):
     """An engine for a config preset, as the JAX ``build_engine``:
 
     * weights: drawn from the config's seed (the JAX init's
@@ -803,16 +883,12 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
       CFG rows included), so a request's tokens depend on the other rows
       of its batch. ``img_cond`` and ``cond_label`` models are refused: no
       request carries an x_cond or a label.
-
-    Meshes raise NotImplementedError naming their ROADMAP item."""
-    for name, value in later.items():
-        if name not in _LATER_BUILD_OPTIONS:
-            raise TypeError(f"build_engine got an unexpected argument "
-                            f"{name!r}")
-        if value:
-            raise NotImplementedError(
-                f"build_engine({name}=...) is not in the port yet (ROADMAP "
-                f"queue 1, item {_LATER_BUILD_OPTIONS[name]})")
+    * ``mesh="fsdp=2,seq=2"`` (``parse_mesh_spec``) serves SPMD over the
+      ranks of a process group (one process per device, started by
+      torchrun, ``utils/dist.py::initialize``): every rank builds the same
+      engine and makes the same calls (the server's followers replay the
+      leader's, ``serving/server.py``). "pp", "tensor" and "ep" > 1 raise
+      NotImplementedError naming ROADMAP queue 1, item 9."""
     if preset == "elm" or preset.startswith("elm:"):
         if checkpoint or reference_ckpt:
             raise ValueError("the OpenELM route takes no checkpoint (serve "
@@ -851,6 +927,14 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
         config = Config.make(preset, **over)
         if experiments:
             config = config.apply_experiments(*experiments)
+    live_mesh = None
+    if mesh:
+        live_mesh, mesh_kw = parse_mesh_spec(mesh, dev)
+        config = config.override(**{f"mesh.{k}": v
+                                    for k, v in mesh_kw.items()})
+        if scaffold:
+            raise ValueError("scaffold decoding on a mesh is not in the "
+                             "port (nor in the JAX engine)")
     config.validate()
     if config.model.img_cond:
         raise ValueError(
@@ -893,11 +977,38 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
                                    served_run=bool(checkpoint))
     engine = InferenceEngine(config, model, codec=codec, device=dev,
                              rolling=rolling, ar_draft=ar_draft,
-                             gamma=spec_gamma, lookup_ngram=lookup_ngram)
+                             gamma=spec_gamma, lookup_ngram=lookup_ngram,
+                             mesh=live_mesh)
     if scaffold:
         engine.enable_scaffold(scaffold_model(config, scaffold, quantize),
                                scaffold_split)
     return engine
+
+
+def parse_mesh_spec(spec: str, device="cuda"):
+    """"fsdp=2,seq=2" -> (a DeviceMesh over the process group's ranks, or
+    None when the mesh is one device; the axis sizes). Unnamed axes
+    default to 1; one may be -1 (all remaining ranks). A process group is
+    joined from torchrun's environment when none is up."""
+    from unidisc_tpu_torch.config import MeshConfig
+    from unidisc_tpu_torch.parallel.mesh import (check_ported_axes,
+                                                 make_mesh,
+                                                 resolve_mesh_shape)
+    from unidisc_tpu_torch.utils import dist as udist
+    kw = {}
+    for part in spec.split(","):
+        k, _, v = part.strip().partition("=")
+        if k not in ("dcn", "fsdp", "tensor", "seq", "pp", "ep",
+                     "pp_microbatches"):
+            raise ValueError(f"unknown mesh axis {k!r}")
+        kw[k] = int(v)
+    kw.setdefault("fsdp", 1)
+    check_ported_axes(kw)
+    cfg = MeshConfig(**kw)
+    udist.initialize(device=str(device))
+    world = udist.world_size()
+    resolve_mesh_shape(cfg, world)
+    return (make_mesh(cfg) if world > 1 else None), kw
 
 
 def scaffold_model(config: Config, spec: str, quantize: Optional[str] = None):

@@ -453,7 +453,9 @@ def main(argv: Optional[list] = None):
                         help="comma-separated experiment overlays (e.g. "
                         "fast_nfe)")
     parser.add_argument("--mesh", default=None,
-                        help="serving mesh spec (not in the port yet)")
+                        help="serving mesh spec, e.g. 'fsdp=2,seq=2', under "
+                        "torchrun (one process per device): rank 0 serves "
+                        "HTTP, the other ranks replay its device calls")
     parser.add_argument("--rolling", type=int, default=0,
                         help="serve diffusion requests through the rolling "
                         "batchers with N slots (per-row denoise steps, "
@@ -487,6 +489,12 @@ def main(argv: Optional[list] = None):
                           spec_gamma=args.gamma, device=args.device,
                           experiments=(args.experiments.split(",")
                                        if args.experiments else None))
+    if engine.mesh is not None:
+        from unidisc_tpu_torch.utils.dist import rank
+        if rank() != 0:
+            engine.follow()
+            return
+        engine.lead()
     server = make_server(engine, args.port, args.host)
     print(f"[serve] listening on {args.host}:{args.port}")
     try:
@@ -494,6 +502,8 @@ def main(argv: Optional[list] = None):
     finally:
         server.server_close()
         server.batcher.shutdown()
+        if engine.mesh is not None:
+            engine.stop_followers()
 
 
 if __name__ == "__main__":

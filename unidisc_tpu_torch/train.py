@@ -29,6 +29,12 @@ documents under ``trainer.interleaved`` (packed into rows of
 mid-epoch resume (``data/streaming.py``). The validation loader is the
 same source at seed + 777. ``--iterate-data-only N`` reads N batches
 without the model and reports the loader's host tok/s.
+
+Under torchrun (``torchrun --nproc-per-node N -m unidisc_tpu_torch.train
+mesh.fsdp=2 mesh.seq=2 ...``) every rank joins the process group
+(``utils/dist.py::initialize``), the Trainer lays ``config.mesh`` over the
+ranks, and each rank's loader yields its rows of the global batch
+(``--batch-size`` stays the global batch).
 """
 
 from __future__ import annotations
@@ -97,6 +103,28 @@ def make_loaders(config: Config, batch: int, data=None, stream=False):
             SyntheticDataLoader(config, batch, seed=config.seed + 777))
 
 
+class RankRows:
+    """The rows [rank * b, (rank + 1) * b) of a loader's global batches
+    (b = the global batch over the ranks); its other attributes (state)
+    are the loader's."""
+
+    def __init__(self, loader, rank: int, world: int):
+        self.loader, self.rank, self.world = loader, rank, world
+
+    def __iter__(self):
+        for batch in self.loader:
+            out = {}
+            for k, v in batch.items():
+                n = v.shape[0] // self.world if hasattr(v, "shape") else 0
+                out[k] = v[self.rank * n:(self.rank + 1) * n] if n else v
+            yield out
+
+    def __getattr__(self, name):
+        if name == "loader":
+            raise AttributeError(name)
+        return getattr(self.loader, name)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="unidisc_tpu_torch trainer",
@@ -132,12 +160,19 @@ def main(argv=None):
                              "the loader's host tok/s")
     args, rest = parser.parse_known_args(argv)
 
+    from unidisc_tpu_torch.utils import dist as udist
+    udist.initialize(device=args.device)
     model, overrides = parse_overrides(rest)
     base = dict(FLAGSHIP_TRAIN_OVERRIDES) if args.flagship else {}
     config = Config.make(model, **{**base, **overrides}).validate()
     batch = args.batch_size or config.trainer.global_batch_size
     train_loader, val_loader = make_loaders(config, batch, args.data,
                                             args.stream)
+    if udist.world_size() > 1:
+        udist.host_local_batch_size(batch)
+        train_loader, val_loader = (
+            RankRows(x, udist.rank(), udist.world_size())
+            for x in (train_loader, val_loader))
 
     if args.iterate_data_only:
         t0 = time.perf_counter()

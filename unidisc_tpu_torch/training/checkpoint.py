@@ -34,9 +34,13 @@ class CheckpointManager:
         return os.path.join(self.directory, str(int(step)))
 
     def save(self, step: int, state, config: Config,
-             extra: Optional[dict] = None, force: bool = False) -> bool:
+             extra: Optional[dict] = None, force: bool = False,
+             write: bool = True) -> bool:
         """Save unless the step exists already or, without force, is off
-        the save interval. Returns True if a checkpoint was written."""
+        the save interval. Returns True if a checkpoint was written (or,
+        with write False, would have been). write False: gather the state
+        (a mesh's ranks all call ``state_dict``) but write nothing; rank 0
+        writes."""
         step = int(step)
         if step in self.all_steps():
             return False
@@ -46,6 +50,8 @@ class CheckpointManager:
         meta = {"config": json.loads(config.to_json()), "step": step,
                 **(extra or {})}
         tensors = _to_cpu(state.state_dict())
+        if not write:
+            return True
         tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
         try:
             torch.save(tensors, os.path.join(tmp, "state.pt"))

@@ -233,13 +233,17 @@ class _Clipped:
     @torch.no_grad()
     def apply(self, p: torch.Tensor, g: torch.Tensor, state,
               ok: Optional[torch.Tensor] = None,
-              params: Optional[Params] = None) -> torch.Tensor:
+              params: Optional[Params] = None,
+              g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update of the flat parameters `p` and of state, in place,
         from the flat gradients `g`; returns the global norm of the
         gradients (before clipping). Where `ok` (a () bool tensor) is False,
         p and the whole state stay as they were. `params`: views of p by
-        name (the rules that read the flax leaves need them)."""
-        g_norm = torch.sqrt(torch.sum(g.float() * g.float()))
+        name (the rules that read the flax leaves need them). g_norm: the
+        norm of the whole gradient where `g` is a rank's shard of it (the
+        mesh step), else computed from `g`."""
+        if g_norm is None:
+            g_norm = torch.sqrt(torch.sum(g.float() * g.float()))
 
         def clipped(x):
             return torch.where(g_norm < self.max_norm, x,

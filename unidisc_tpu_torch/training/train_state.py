@@ -40,13 +40,36 @@ plus ``trainer.moe_aux_weight`` x the balance auxiliary, as in JAX) and
 ``img_cond`` models (the ``x_cond`` batch key goes to the forward). A
 ``cond_label`` model has no train step: the JAX step passes no ``label``
 to the DIT, which asserts one, so the port raises a ``ValueError``.
+
+On a device mesh (``make_train_step(..., mesh=)``, a
+``parallel/mesh.py::MeshLayout``; one process per device) every rank holds
+the whole global batch (``utils/dist.py::host_batch_to_global``) and
+computes everything before the model on it, draws included, so each rank
+sees the draws of the one-rank step. The model runs on the rank's rows
+(the "dcn" x "fsdp" axes) and, with a "seq" axis, its L-chunk under
+``parallel/seq_parallel.py`` (the attention a ring). The per-token log
+probabilities are gathered back into the global (B, L) tensor, so the loss
+and the metrics are the one-rank step's, normalized by global counts, on
+every rank. The gradient of a rank is then its part of the whole; the
+parts are summed: by FSDP2's reduce-scatter (an average over the data-
+parallel ranks, scaled back by their count) and a sum over "seq" for the
+sharded parameters, by one all-reduce over the world for the rest. The
+gradient norm of the clip is that of the whole gradient, and the skip
+agrees on every rank, the loss being the same everywhere. The state (the
+moments, the EMA) is the rank's shard; ``state_dict`` gathers it whole
+(the one-rank checkpoint format) and ``load_state_dict`` takes the
+rank's shard of a whole one, so a run dir resumes on one rank or on a
+mesh. On a mesh the step takes the ``subs`` objective with AdamW (no muP,
+LoRA, MoE, joint AR+NAR or AR-LLM loss): the rest is ROADMAP queue 1,
+item 13.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import (TYPE_CHECKING, Dict, List, NamedTuple, Optional,
+                    Sequence, Union)
 
 import torch
 import torch.nn as nn
@@ -68,6 +91,9 @@ from unidisc_tpu_torch.diffusion.subs import subs_log_p_at
 from unidisc_tpu_torch.training.optimizers import (  # noqa: F401
     AdamState, ClippedAdamW, GenericOptState, OptState, flat_views,
     make_lr_schedule, make_optimizer)
+
+if TYPE_CHECKING:
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout
 
 Params = Dict[str, torch.Tensor]
 
@@ -96,16 +122,17 @@ class TrainState:
     flat: torch.Tensor    # the parameters, updated in place
     opt_state: Union[OptState, GenericOptState]
     ema: torch.Tensor     # flat fp32 EMA in the order of params
+    # on a mesh: the rank's place, and the torch dim of each FSDP-sharded
+    # parameter's shard; `params` are then the rank's shards (FSDP's own
+    # storage, which `flat` is copied into after each update)
+    mesh: Optional["MeshLayout"] = None
+    shard_dims: Optional[Dict[str, int]] = None
 
     @property
     def ema_params(self) -> Params:
         return flat_views(self.ema, self.params)
 
-    def state_dict(self) -> dict:
-        """Tensors by parameter name (views of the flat buffers). AdamW's
-        moments are saved by parameter name; the other optimizers' state
-        under "opt_state" by buffer name (flat buffers whole, Adafactor's
-        factored moments by flax leaf)."""
+    def _local_state_dict(self) -> dict:
         sd = {"step": self.step, "params": dict(self.params),
               "ema_params": self.ema_params}
         opt = self.opt_state
@@ -118,10 +145,53 @@ class TrainState:
             sd["opt_state"] = opt.tensors()
         return sd
 
+    def state_dict(self) -> dict:
+        """Tensors by parameter name (views of the flat buffers). AdamW's
+        moments are saved by parameter name; the other optimizers' state
+        under "opt_state" by buffer name (flat buffers whole, Adafactor's
+        factored moments by flax leaf). On a mesh every rank calls it: the
+        shards are gathered whole."""
+        sd = self._local_state_dict()
+        if not self.shard_dims:
+            return sd
+        from unidisc_tpu_torch.parallel.comm import all_gather
+        group = self.mesh.fsdp_group
+        for key in ("params", "ema_params", "mu", "nu"):
+            sd[key] = {n: all_gather(t, group, self.shard_dims[n])
+                       if n in self.shard_dims else t
+                       for n, t in sd[key].items()}
+        return sd
+
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a state_dict into this state's tensors, in place."""
-        mine = self.state_dict()
+        """Copy a state_dict into this state's tensors, in place (on a
+        mesh, the rank's shard of each whole tensor)."""
+        if self.shard_dims:
+            i, f = self.mesh.fsdp_rank, self.mesh.sizes["fsdp"]
+            sd = dict(sd)
+            for key in ("params", "ema_params", "mu", "nu"):
+                if key in sd:
+                    sd[key] = {n: t.narrow(self.shard_dims[n],
+                                           i * t.shape[self.shard_dims[n]]
+                                           // f,
+                                           t.shape[self.shard_dims[n]] // f)
+                               if n in self.shard_dims else t
+                               for n, t in sd[key].items()}
+        self._load_local(sd)
+        if self.shard_dims:
+            # the parameters were written in place (FSDP's storage): the
+            # flat buffer follows them
+            self.flat.copy_(flatten(self.params.values()))
+
+    @torch.no_grad()
+    def sync_shards(self) -> None:
+        """FSDP: copy `flat` into the shards the model runs with."""
+        views = flat_views(self.flat, self.params)
+        torch._foreach_copy_([self.params[n] for n in views],
+                             list(views.values()))
+
+    def _load_local(self, sd: dict) -> None:
+        mine = self._local_state_dict()
         for key in ("step", "adam_count", "schedule_count"):
             if key in mine:
                 mine[key].copy_(sd[key])
@@ -175,12 +245,35 @@ def _split_metrics(out: LossOutput, modality, loss, grad_norm) -> StepMetrics:
 
 @torch.no_grad()
 def init_train_state(config: Config,
-                     model: Union[nn.Module, Params]) -> TrainState:
+                     model: Union[nn.Module, Params],
+                     mesh=None) -> TrainState:
     """The train state over `model`'s own parameters (move the model to its
     device first), or over a dict of tensors (a LoRA adapter: they become
     ``nn.Parameter``s). With low_precision_params the parameters (and so
     the moments) become bf16 in place; the EMA stays fp32, because at
-    decay 0.9999 the increment is far below bf16's resolution."""
+    decay 0.9999 the increment is far below bf16's resolution. mesh: the
+    rank's MeshLayout, the model already sharded by
+    ``parallel/mesh.py::params_shardings`` when fsdp > 1: the state is then
+    over the rank's shards."""
+    if mesh is not None and mesh.sharded:
+        if config.trainer.low_precision_params:
+            raise NotImplementedError("low_precision_params on an FSDP "
+                                      "mesh (ROADMAP queue 1, item 13)")
+        params, shard_dims = {}, {}
+        for name, p in model.named_parameters():
+            if hasattr(p, "to_local"):
+                shard_dims[name] = p.placements[-1].dim
+                params[name] = p.to_local()
+            else:
+                params[name] = p
+        flat = flatten(params.values())
+        return TrainState(step=torch.zeros((), dtype=torch.int64,
+                                           device=flat.device),
+                          params=params, flat=flat,
+                          opt_state=make_optimizer(config).init(flat,
+                                                                params),
+                          ema=flat.to(torch.float32, copy=True), mesh=mesh,
+                          shard_dims=shard_dims)
     if isinstance(model, nn.Module):
         params = dict(model.named_parameters())
     else:
@@ -195,7 +288,7 @@ def init_train_state(config: Config,
                                        device=flat.device),
                       params=params, flat=flat,
                       opt_state=make_optimizer(config).init(flat, params),
-                      ema=flat.to(torch.float32, copy=True))
+                      ema=flat.to(torch.float32, copy=True), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +407,8 @@ def dropout_arg(config: Config, train: bool, draws: Draws,
 def compute_batch_loss(config: Config, apply_fn, params, batch, *,
                        train: bool = True, step=None,
                        generator: Optional[torch.Generator] = None,
-                       draws: Draws = None, micro: int = 0) -> LossOutput:
+                       draws: Draws = None, micro: int = 0,
+                       mesh=None) -> LossOutput:
     """t-sample -> corrupt -> backbone -> SUBS -> NELBO (or the sedd / d3pm
     loss); for ``ar``, the next-token loss (``_ar_batch_loss``). A MoE
     model's training loss adds ``trainer.moe_aux_weight`` x its balance
@@ -327,6 +421,8 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
     conditioning image of an img_cond model), as tensors on the model's
     device. params: the parameters apply_fn runs with (None: the model's
     own). micro: the microbatch index (it varies the dropout seed).
+    mesh: the rank's MeshLayout, with apply_fn from ``mesh_apply_fn``
+    (module docstring).
     """
     m_cfg = config.model
     if m_cfg.cond_label:
@@ -345,7 +441,7 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
             return logits
     out = _batch_loss(config, apply_fn, params, batch, train=train,
                       step=step, generator=generator, draws=draws,
-                      micro=micro)
+                      micro=micro, mesh=mesh)
     if auxes:
         out = out._replace(loss=out.loss + config.trainer.moe_aux_weight
                            * auxes[-1])
@@ -353,7 +449,7 @@ def compute_batch_loss(config: Config, apply_fn, params, batch, *,
 
 
 def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
-                generator, draws, micro) -> LossOutput:
+                generator, draws, micro, mesh=None) -> LossOutput:
     t_cfg = config.trainer
     m_cfg = config.model
     noise = get_noise(config.noise)
@@ -455,10 +551,18 @@ def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
         return _legacy_loss(d3pm_loss(log_p, corrupted.xt, x0, t, T=1000,
                                       mask_index=m_cfg.mask_index),
                             attention_mask)
-    log_p_theta = subs_log_p_at(
-        logits, xt, x0, m_cfg.mask_index,
-        modality=modality if restrict else None,
-        text_vocab_size=m_cfg.text_vocab_size)
+    if mesh is None:
+        log_p_theta = subs_log_p_at(
+            logits, xt, x0, m_cfg.mask_index,
+            modality=modality if restrict else None,
+            text_vocab_size=m_cfg.text_vocab_size)
+    else:
+        # the rank's block of the (B, L) grid, gathered: the loss below
+        # is the global one on every rank
+        log_p_theta = mesh.gather_tokens(subs_log_p_at(
+            logits, mesh.local(xt), mesh.local(x0), m_cfg.mask_index,
+            modality=mesh.local(modality) if restrict else None,
+            text_vocab_size=m_cfg.text_vocab_size))
     out = nelbo_loss(
         log_p_theta, x0, sigma, dsigma, attention_mask=attention_mask,
         modality=modality, batch_ignore=batch_ignore, cov_weight=cov_weight,
@@ -527,7 +631,89 @@ def _chunks(batch: dict, accum: int) -> List[dict]:
             for i in range(accum)]
 
 
-def make_train_step(config: Config, model: nn.Module, param_map=None):
+def check_mesh_step(config: Config, param_map=None) -> None:
+    """Raise for what the mesh step does not take (module docstring)."""
+    t, m = config.trainer, config.model
+    later = [what for what, bad in (
+        (f"parameterization={t.parameterization!r}",
+         t.parameterization != "subs"),
+        (f"optimizer={t.optimizer!r}", t.optimizer != "adamw"),
+        ("model.mup", m.mup), ("LoRA", param_map is not None),
+        ("MoE", m.moe_experts > 0),
+        ("joint_ar_nar_prob", t.joint_ar_nar_prob is not None),
+        ("ar_llm_loss", t.ar_llm_loss),
+        ("dropout with img_cond", m.dropout > 0 and m.img_cond)) if bad]
+    if later:
+        raise NotImplementedError(
+            f"the train step on a mesh takes the subs objective with AdamW; "
+            f"{', '.join(later)} on a mesh is ROADMAP queue 1, item 13")
+
+
+def mesh_apply_fn(config: Config, model: nn.Module, mesh):
+    """apply_fn for the mesh step: takes the global batch's tensors, runs
+    the model on the rank's rows (and, with "seq", its L-chunk, the
+    attention a ring) and returns the logits of the rank's block. Dropout
+    masks are the global draw's slice: a seed draws each block's global
+    masks (``models/dit.py::dropout_masks``, the one-rank draw) and keeps
+    the rank's block; given masks are sliced."""
+    from unidisc_tpu_torch.models.dit import block_dropout_seed, dropout_masks
+    from unidisc_tpu_torch.parallel.seq_parallel import sequence_parallel
+    base = make_apply_fn(config, model)
+
+    def apply_fn(params, x, sigma, modality, train, **extra):
+        drop = extra.pop("dropout", None)
+        if isinstance(drop, int):
+            shape = tuple(x.shape) + (config.model.hidden_size,)
+            drop = [dropout_masks(shape, config.model.dropout,
+                                  block_dropout_seed(drop, i), x.device)
+                    for i in range(len(model.blocks))]
+        if drop is not None:
+            extra["dropout"] = [tuple(mesh.local(k).contiguous()
+                                      for k in masks) for masks in drop]
+        for k in ("sample_ids", "rope_index", "x_cond"):
+            if k in extra:
+                extra[k] = mesh.rows(extra[k])
+        with sequence_parallel(mesh, gather=False):
+            return base(params, mesh.rows(x), mesh.rows(sigma),
+                        mesh.rows(modality), train, **extra)
+    return apply_fn
+
+
+@torch.no_grad()
+def _reduce_mesh_grads(state: TrainState, model: nn.Module):
+    """The rank's flat gradient of the whole loss, in the order of
+    state.params, and the norm of the whole gradient. FSDP2 has averaged
+    the sharded parameters' gradients over the data-parallel ranks: scaled
+    back to a sum, then summed over "seq"; the rest is summed over the
+    world."""
+    import torch.distributed as dist
+
+    from unidisc_tpu_torch.parallel.comm import all_reduce
+    mesh = state.mesh
+    named = dict(model.named_parameters())
+    shard_dims = state.shard_dims or {}
+    is_sharded = [n in shard_dims for n in state.params]
+    sharded = [named[n].grad.to_local() * mesh.dp_size
+               for n, sh in zip(state.params, is_sharded) if sh]
+    whole = [named[n].grad for n, sh in zip(state.params, is_sharded)
+             if not sh]
+    sq = torch.zeros((), dtype=torch.float32, device=state.flat.device)
+    if sharded:
+        sharded = all_reduce(flatten(sharded), mesh.seq_group)
+        sq = all_reduce(sharded.float().square().sum(), mesh.fsdp_group)
+        sharded = iter(sharded.split([t.numel() for t, sh in zip(
+            state.params.values(), is_sharded) if sh]))
+    if whole:
+        whole = all_reduce(flatten(whole), dist.group.WORLD)
+        sq = sq + whole.float().square().sum()
+        whole = iter(whole.split([t.numel() for t, sh in zip(
+            state.params.values(), is_sharded) if not sh]))
+    parts = [next(sharded) if sh else next(whole) for sh in is_sharded]
+    return torch.cat(parts), torch.sqrt(sq)
+
+
+def make_train_step(config: Config, model: nn.Module, param_map=None,
+                    mesh=None):
     """The train step fn(state, batch, generator=None, draws=None) ->
     (state, metrics). It updates `state` in place and returns it.
 
@@ -537,9 +723,16 @@ def make_train_step(config: Config, model: nn.Module, param_map=None):
 
     param_map: fn(state.params) -> the parameters the model runs with
     (the LoRA merge, ``training/lora.py``): state.params are then the
-    adapter's and only they get gradients."""
+    adapter's and only they get gradients.
+
+    mesh: the rank's MeshLayout (module docstring); every rank calls the
+    step with the same global batch and draws."""
     opt = make_optimizer(config)
-    apply_fn = make_apply_fn(config, model)
+    if mesh is not None:
+        check_mesh_step(config, param_map)
+        apply_fn = mesh_apply_fn(config, model, mesh)
+    else:
+        apply_fn = make_apply_fn(config, model)
     ema_decay = config.trainer.ema_decay
     accum = config.trainer.grad_accum_steps
 
@@ -548,13 +741,20 @@ def make_train_step(config: Config, model: nn.Module, param_map=None):
         out = compute_batch_loss(config, apply_fn, run_with, batch,
                                  train=True, step=state.step,
                                  generator=generator, draws=draws,
-                                 micro=micro)
+                                 micro=micro, mesh=mesh)
+        if mesh is not None:
+            # FSDP2 reduces its shards' gradients in the backward, hooked
+            # on .grad accumulation: the mesh step accumulates .grad
+            out.loss.backward()
+            return out, None
         return out, flatten(torch.autograd.grad(out.loss,
                                                 list(state.params.values())))
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    draws: Union[Draws, Sequence[Draws]] = None):
+        if mesh is not None:
+            model.zero_grad(set_to_none=True)
         if accum > 1:
             micro = _chunks(batch, accum)
             per = draws if draws is not None else [None] * accum
@@ -562,8 +762,10 @@ def make_train_step(config: Config, model: nn.Module, param_map=None):
             for i, (chunk, d) in enumerate(zip(micro, per)):
                 out, g = grads_of(state, chunk, generator, d, i)
                 outs.append(out)
-                grads = g if grads is None else grads + g
-            grads = grads / accum
+                if g is not None:
+                    grads = g if grads is None else grads + g
+            if grads is not None:
+                grads = grads / accum
             loss = sum(o.loss.detach() for o in outs) / accum
             out = LossOutput(
                 loss=loss,
@@ -574,9 +776,16 @@ def make_train_step(config: Config, model: nn.Module, param_map=None):
         else:
             out, grads = grads_of(state, batch, generator, draws)
             loss = out.loss.detach()
+        g_norm = None
+        if mesh is not None:
+            grads, g_norm = _reduce_mesh_grads(state, model)
+            if accum > 1:
+                grads, g_norm = grads / accum, g_norm / accum
         ok = torch.isfinite(loss)
         grad_norm = opt.apply(state.flat, grads, state.opt_state, ok,
-                              params=state.params)
+                              params=state.params, g_norm=g_norm)
+        if state.shard_dims:
+            state.sync_shards()
         with torch.no_grad():
             state.ema.copy_(state.ema * ema_decay
                             + state.flat.to(state.ema.dtype)
@@ -589,11 +798,30 @@ def make_train_step(config: Config, model: nn.Module, param_map=None):
     return train_step
 
 
+def shard_train_step(config: Config, model: nn.Module, mesh,
+                     param_map=None):
+    """The train step on a DeviceMesh (``parallel/mesh.py::make_mesh``):
+    the model (on its device) laid out by the rule (FSDP2 where fsdp > 1),
+    the train state over the rank's shards and the mesh step. Returns
+    (train_step, state, the rank's MeshLayout), as JAX's shard_train_step
+    returns (the jitted step, the sharded state, the batch sharding)."""
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, params_shardings
+    layout = MeshLayout.of(mesh)
+    params_shardings(model, mesh)
+    state = init_train_state(config, model, mesh=layout)
+    return (make_train_step(config, model, param_map, mesh=layout), state,
+            layout)
+
+
 def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True,
-                   param_map=None):
+                   param_map=None, mesh=None):
     """fn(state, batch, generator=None, draws=None) -> StepMetrics with the
     eval loss (no entire-modality masking), under no_grad, with the EMA
-    parameters (or the live ones), through param_map when given."""
+    parameters (or the live ones), through param_map when given. On a mesh
+    (the rank's MeshLayout) the model runs as in the mesh step, the EMA
+    copied into its parameters for the call."""
+    if mesh is not None:
+        return _mesh_eval_step(config, model, use_ema, mesh)
     apply_fn = make_apply_fn(config, model)
 
     @torch.no_grad()
@@ -607,6 +835,32 @@ def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True,
         out = compute_batch_loss(config, apply_fn, params, batch,
                                  train=False, generator=generator,
                                  draws=draws)
+        return _split_metrics(out, batch.get("modality"), out.loss,
+                              torch.zeros((), device=out.loss.device))
+    return eval_step
+
+
+def _mesh_eval_step(config: Config, model: nn.Module, use_ema: bool, mesh):
+    apply_fn = mesh_apply_fn(config, model, mesh)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Draws = None) -> StepMetrics:
+        live = state.flat.clone() if use_ema else None
+        if use_ema:
+            state.flat.copy_(state.ema.to(state.flat.dtype))
+            if state.shard_dims:
+                state.sync_shards()
+        try:
+            out = compute_batch_loss(config, apply_fn, None, batch,
+                                     train=False, generator=generator,
+                                     draws=draws, mesh=mesh)
+        finally:
+            if use_ema:
+                state.flat.copy_(live)
+                if state.shard_dims:
+                    state.sync_shards()
         return _split_metrics(out, batch.get("modality"), out.loss,
                               torch.zeros((), device=out.loss.device))
     return eval_step

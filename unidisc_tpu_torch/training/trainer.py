@@ -18,7 +18,23 @@ trains on one device and computes in bf16, as the JAX trainer does.
   the train CLI exits non-zero so that a supervisor relaunches it;
   ``training/supervisor.py``).
 
-Meshes and wandb raise.
+* A device mesh (``mesh=``, a ``DeviceMesh`` from ``parallel/mesh.py::
+  make_mesh``; built from ``config.mesh`` when a process group of more
+  than one rank is up): one process per device, every rank a Trainer.
+  The loader of each rank yields its slice of the global batch
+  (``utils/dist.py::host_local_batch_size`` rows), which
+  ``host_batch_to_global`` assembles on every rank; the step is
+  ``train_state.py``'s mesh step, the model FSDP2-sharded when fsdp > 1.
+  Validation is the mesh's too. Every rank gathers the state for a
+  checkpoint and rank 0 writes it, in the one-rank format, so a run dir
+  resumes on one rank or on a mesh; rank 0 logs ``metrics.jsonl``, rank
+  r > 0 ``metrics.rank<r>.jsonl``. The start prints the parameters'
+  ``param_hash``. fsdp > 1 on the card takes NCCL (a card per rank):
+  FSDP2's collectives move device tensors, which a gloo group of ranks
+  sharing one card cannot. Host offload and LoRA on a mesh raise (ROADMAP
+  queue 1, item 13).
+
+wandb raises.
 """
 
 from __future__ import annotations
@@ -40,7 +56,9 @@ from unidisc_tpu_torch.training.checkpoint import CheckpointManager
 from unidisc_tpu_torch.training.train_state import (StepMetrics,
                                                     init_train_state,
                                                     make_eval_step,
-                                                    make_train_step)
+                                                    make_train_step,
+                                                    shard_train_step)
+from unidisc_tpu_torch.utils import dist as udist
 from unidisc_tpu_torch.utils.logging import MetricLogger
 from unidisc_tpu_torch.utils.monitor import PhaseTimer, ThroughputMonitor
 
@@ -106,11 +124,8 @@ class Trainer:
                  val_use_ema: bool = True, use_wandb: bool = False,
                  mesh=None, base_params=None,
                  base_checkpoint: Optional[str] = None):
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not in the port "
-                                      "yet (ROADMAP queue 1, item 9); it "
-                                      "trains on one device")
         self.device = resolve_device(device)
+        self.mesh, self.layout = self._mesh(config, mesh)
         self.config = config
         self.run_dir = run_dir
         self.log_every = log_every
@@ -129,7 +144,11 @@ class Trainer:
                 and m_cfg.lora_rank == 0:
             raise ValueError("base_params / base_checkpoint are the frozen "
                              "base of a LoRA run (model.lora_rank > 0)")
-        if self.host_offload:
+        if self.layout is not None:
+            self.model = model.to(self.device)
+            self.train_step, self.state, _ = shard_train_step(
+                config, self.model, self.mesh)
+        elif self.host_offload:
             from unidisc_tpu_torch.training.offload import (
                 init_offload_state, make_offload_train_step)
             self.state = init_offload_state(config, model, self.device)
@@ -151,16 +170,47 @@ class Trainer:
                                               param_map=self.param_map)
         self.eval_step = make_eval_step(config, self.model,
                                         use_ema=val_use_ema,
-                                        param_map=self.param_map)
+                                        param_map=self.param_map,
+                                        mesh=self.layout)
         self.generator = torch.Generator(device=self.device)
         self.ckpt = CheckpointManager(f"{run_dir}/checkpoints",
                                       max_to_keep=max_ckpts,
                                       save_interval_steps=ckpt_every)
-        self.logger = MetricLogger(run_dir, use_wandb=use_wandb,
-                                   console_every=log_every)
+        r = udist.rank()
+        self.logger = MetricLogger(
+            run_dir, use_wandb=use_wandb,
+            console_every=log_every if r == 0 else 0,
+            filename="metrics.jsonl" if r == 0 else f"metrics.rank{r}.jsonl")
+        if self.layout is not None:
+            udist.rprint(f"[trainer] mesh={self.layout.sizes} param_hash="
+                         f"{udist.param_hash(self.state.params)}")
         self.monitor = ThroughputMonitor(self.n_params, device=self.device)
         self._last_saved = None
         self._stop = None
+
+    def _mesh(self, config: Config, mesh):
+        """(the DeviceMesh, the rank's MeshLayout), or (None, None) on one
+        device."""
+        if mesh is None and udist.world_size() > 1:
+            from unidisc_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(config.mesh)
+        if mesh is None:
+            return None, None
+        from unidisc_tpu_torch.parallel.mesh import MeshLayout
+        from unidisc_tpu_torch.training.train_state import check_mesh_step
+        layout = MeshLayout.of(mesh)
+        t_cfg = config.trainer
+        if t_cfg.host_offload_optimizer or config.model.lora_rank > 0:
+            raise NotImplementedError("host offload and LoRA on a mesh are "
+                                      "not in the port yet (ROADMAP queue "
+                                      "1, item 13)")
+        check_mesh_step(config)
+        if layout.sharded and self.device.type == "cuda" \
+                and torch.distributed.get_backend() != "nccl":
+            raise ValueError("fsdp > 1 on the card needs NCCL, a card per "
+                             "rank: FSDP2's collectives move device "
+                             "tensors, which gloo cannot")
+        return mesh, layout
 
     def _lora_init(self, base_params, base_checkpoint) -> dict:
         """Load the frozen base into self.model and return the adapter
@@ -202,8 +252,13 @@ class Trainer:
         return adapter
 
     def _to_device(self, batch: dict) -> dict:
+        """A loader batch as device tensors; on a mesh the rank's slice
+        assembled into the global batch first."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        if self.layout is not None:
+            arrays = udist.host_batch_to_global(arrays)
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if isinstance(v, np.ndarray)}
+                for k, v in arrays.items()}
 
     # ------------------------------------------------------------------
     def maybe_restore(self, loader=None) -> int:
@@ -348,8 +403,9 @@ class Trainer:
                       alpha=self.config.model.lora_alpha,
                       rank=self.config.model.lora_rank)
         if self.ckpt.save(step, self.state, self.config, extra=extra,
-                          force=force):
+                          force=force, write=udist.is_main_process()):
             self._last_saved = step
+        udist.barrier()
 
     def close(self):
         self.logger.close()

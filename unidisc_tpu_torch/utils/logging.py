@@ -10,12 +10,12 @@ import time
 
 class MetricLogger:
     def __init__(self, run_dir: str, *, use_wandb: bool = False,
-                 console_every: int = 1):
+                 console_every: int = 1, filename: str = "metrics.jsonl"):
         if use_wandb:
             raise NotImplementedError("wandb logging is not in the port; "
                                       "metrics go to metrics.jsonl")
         os.makedirs(run_dir, exist_ok=True)
-        self.path = os.path.join(run_dir, "metrics.jsonl")
+        self.path = os.path.join(run_dir, filename)
         self._f = open(self.path, "a", buffering=1)
         self.console_every = console_every
 
