@@ -107,10 +107,10 @@ and prints no result):
      path; (d) 8 concurrent chat completions over HTTP to the bf16
      engine, half streamed, the deltas concatenating to the answer; (c)
      build_engine(preset="elm:450m", speculative="270m", spec_gamma=4) and
-     elm:270m with speculative="lookup", 4 greedy requests each equal to a
+     elm:270m with speculative="lookup", SPEC_REQUESTS greedy requests each equal to a
      plain batcher's, with the acceptance rate and tokens a target read;
      (b) the flagship DIT-AR (FLAGSHIP_OVERRIDES + parameterization ar,
-     causal, ar_shift; L 384; 6 of its 12 blocks) in bf16 and int8 with
+     causal, ar_shift; L 384; 4 of its 12 blocks) in bf16 and int8 with
      the int8 KV cache:
      build_ar_sampler at batch 8 with CFG 2.0 as its captured program
      (equal to the eager loop, launches exact) and the same 16 requests
@@ -172,7 +172,7 @@ and prints no result):
      = unchunked (1) and working = bf16(master) after 2 steps on the card,
      10 steps through Trainer.fit and its run dir served as in (d);
      extra_large (all of it) at batch 16,
-     3 steps each resident, resident with remat and offloaded with remat
+     XL_STEPS steps each resident, resident with remat and offloaded with remat
      (peak memory and step time); (f) CFG distillation (guidance 2.0) of a
      4-block student from phase 5's run dir (the teacher's [cond || uncond]
      forward at batch 64 through the kernel), 10 steps, the KL falls; (g)
@@ -278,11 +278,48 @@ and prints no result):
      sampler, in bf16 through the kernel ring agreeing >=
      MESH_TOKEN_AGREEMENT, and build_engine(mesh="fsdp=2,seq=2") serving
      8 requests, agreeing >= MESH_TOKEN_AGREEMENT with the one-rank
-     engine run on each data-parallel rank's rows with that rank's seed;
+     engine at the same seed (each rank draws the global batch's noise);
      every rank's tokens equal, launches exact (two ring blocks an
      attention, none in fp32). Line
      `mesh`; the kernels line's flash_fwd counts the paths mesh_ring,
      mesh_train and mesh_serve, summed over the ranks.
+  5i. the rest of the mesh: flash_fwd, flash_bwd_dq and flash_bwd_dkv at
+     a tensor rank's (16, 6, 384, 64) against their plain versions, timed
+     beside the bound and SDPA; the t2i sampler's two draws of a step at
+     the global batch's rows on dp 1, 2 and 4 (F2's cost); the bf16 MoE
+     experts' fp32 accumulation against an fp64 reference (F1); then one world
+     of MESH_RANKS spawned ranks on card 0 over gloo (as 5h) at the
+     flagship width (hidden 768, 12 heads, L 384) with the depth cut to
+     MESH2_BLOCKS (bf16 GEMMs reduced in fp32 on both sides of each
+     comparison): (a) MESH_TRAIN_STEPS train steps at batch
+     MESH2_TRAIN_BATCH on dcn 2 x pp 2 (2 microbatches, GPipe) and on dcn
+     2 x tensor 2 (megatron, 6 heads a rank), and the MoE flagship (8
+     experts, top-2) on dcn 2 x ep 2 (global routing, 4 experts a rank),
+     from randomize_'s weights (drawn on the card; the adaLN gates and the
+     head non-zero, so the trunk drives the losses and every leaf's
+     gradient), each against the one-rank step that rank 0 runs after it
+     on the same weights, batch and draws, within MESH2_TRAIN_LIMITS (set
+     from sound and planted-fault readings of scripts/mesh2_readings.py):
+     every rank's losses and gradient norms, the trunk's first moments
+     (AdamW's mu, linear in both steps' gradients, over the blocks rank 0
+     holds) and the update's cosine (fp64, over the parameters rank 0
+     holds); flash_fwd / dq / dkv launches the code's count; (b) on pp 2 x
+     tensor 2 (2
+     microbatches, MESH2_SERVE_STEPS steps) the t2i sampler under
+     spmd_sampler with injected noise, fp32 through the plain attention
+     equal token for token to one rank, bf16 through the kernels agreeing
+     >= MESH_TOKEN_AGREEMENT, and build_engine(mesh="pp=2,tensor=2,
+     pp_microbatches=2") serving 8 requests agreeing >=
+     MESH_TOKEN_AGREEMENT with the one-rank engine at the same seed,
+     launches exact; (c) build_engine(mesh=MESH2_DP_ENGINE_SPEC), dense
+     data parallelism, whose ranks run the t2i sampler's captured program
+     on their rows (drawing the global batch's noise), serving 8 requests
+     equal token for token (MESH2_DP_ENGINE_AGREEMENT) to the one-rank
+     engine at the same seed, one program a rank, launches exact (the
+     first call's warm run and its replay). Line `mesh2`; the
+     kernels line counts the paths mesh2_train_pp, mesh2_train_tensor,
+     mesh2_train_moe, mesh2_serve, mesh2_engine and mesh2_dp_engine,
+     summed over the ranks.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -614,10 +651,10 @@ def attention_bound(shape, mask, segs, lk=None):
                                  else "operations"), nbytes, flops
 
 
-def phase_kernels(seed: int) -> list:
+def phase_kernels(seed: int, cases=None) -> list:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for name, shape, causal, segs, *lk in ATTN_CASES:
+    for name, shape, causal, segs, *lk in cases or ATTN_CASES:
         lk = lk[0] if lk else None
         q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen, lk)
         need_lse = name != "main_path"   # training asks for the LSE
@@ -737,13 +774,13 @@ def sdpa_backward_fn(q, k, v, do, mask, causal_only=False):
                        [True, True, True, False])
 
 
-def phase_bwd_kernels(seed: int) -> list:
+def phase_bwd_kernels(seed: int, cases=None) -> list:
     """The two backward kernels against attention_backward_reference,
     computed in fp32 on the card from the same bf16 inputs (and the
     forward kernel's O and LSE)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     rows = []
-    for name, shape, causal, segs in BWD_CASES:
+    for name, shape, causal, segs in cases or BWD_CASES:
         q, k, v, kw, mask = attention_inputs(shape, causal, segs, gen)
         b, h, l, d = shape
         do = torch.randn((b, l, h, d), generator=gen, device="cuda",
@@ -2402,13 +2439,13 @@ AR_SLOTS, AR_CHUNK = 8, 8       # the engines' continuous batchers
 AR_REQUESTS, AR_SPACING_S = 16, 0.05
 AR_SHARED = 256                 # the prefix four of the requests share
 AR_TEMPERATURE = 0.8            # the seeded half of the requests
-SPEC_REQUESTS = 4
+SPEC_REQUESTS = 2   # cut from 4 for the script's limit
 AR_SAMPLER_CHUNK = 16           # decode steps a replay of the AR sampler
 AR_SAMPLER_PROMPT = 32          # prompt tokens of its 8 text rows
 AR_OVERRIDES = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
                 "model.full_attention": False}
-# the DIT-AR served in phase 4g: the flagship's width, 6 of its 12 blocks
-AR_DIT_DEPTH = {"model.n_blocks": 6}
+# the DIT-AR served in phase 4g: the flagship's width, 4 of its 12 blocks
+AR_DIT_DEPTH = {"model.n_blocks": 4}
 # the counted runs of phase 4g
 AR_PATHS = ("ar_elm_bf16", "ar_elm_int8", "ar_http", "ar_spec_draft",
             "ar_spec_lookup", "ar_dit_sampler_bf16", "ar_dit_bf16",
@@ -3945,7 +3982,7 @@ REST_STEPS = 10
 REST_CKPT = 5
 REMAT_POLICIES = ("none", "dots", "dots_all")
 REST_DROPOUT = 0.1
-XL_BATCH, XL_STEPS = 16, 3
+XL_BATCH, XL_STEPS = 16, 2   # the first step warms up
 SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER, SUP_BLOCKS = 8, 16, 4, 4
 # the optimizer runs and the flagship's offload runs: its width, 6 of its
 # 12 blocks
@@ -4317,7 +4354,7 @@ def phase_offload(seed, root) -> dict:
     """(e) offload, on REST_DEPTH's blocks: chunked (8) = unchunked (1)
     and working = bf16(master) on the card; 10 steps through Trainer.fit,
     its run dir served; extra_large at batch 16, resident without and with
-    remat and offloaded with remat, 3 steps each."""
+    remat and offloaded with remat, XL_STEPS steps each."""
     cfg = train_config(**{**REST_DEPTH,
                           "trainer.host_offload_optimizer": True})
     n = cfg.model.n_blocks
@@ -5740,7 +5777,7 @@ MESH_RING_BWD_SHAPE = (2, 1024, 4, 64)  # small enough for fp32 scores
 MESH_RING_RMS_TOL, MESH_RING_MAX_TOL = 2 ** -7, 2 ** -6
 MESH_BLOCK_SHAPES = ((2, 2048, 12, 64), (16, 256, 12, 64))  # B, Lc, H, D
 MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_TRAIN_BLOCKS = 16, 2, 2
-MESH_SERVE_STEPS, MESH_SERVE_BLOCKS = 4, 4
+MESH_SERVE_STEPS, MESH_SERVE_BLOCKS = 2, 4
 # the mesh step against the one-rank step: bf16 compute, the attention a
 # ring of four blocks against one pass. The losses agreed to one fp32 ulp
 # (7e-8 relative) in the sound runs; the update's cosine read 0.9945
@@ -5780,14 +5817,14 @@ def mesh_serve_config(plain: bool = False) -> Config:
 
 
 def mesh_serve_inputs(cfg, seed):
-    m = cfg.model
+    m, steps = cfg.model, cfg.sampling.steps
     rng = np.random.RandomState(seed)
     txt = rng.randint(0, m.text_vocab_size - 1,
                       (REQUESTS, m.txt_length)).astype(np.int64)
     injected = {"gumbel_tok": rng.gumbel(size=(
-        MESH_SERVE_STEPS, REQUESTS, m.img_length, m.image_vocab_size)
+        steps, REQUESTS, m.img_length, m.image_vocab_size)
     ).astype(np.float32), "gumbel_conf": rng.gumbel(size=(
-        MESH_SERVE_STEPS, REQUESTS, m.img_length)).astype(np.float32)}
+        steps, REQUESTS, m.img_length)).astype(np.float32)}
     return txt, injected
 
 
@@ -6129,10 +6166,9 @@ def mesh_serve_against_one_rank(recs, seed) -> dict:
     """Phase 5h (d) held to one rank on the card: the mesh sampler's
     tokens to the one-rank sampler's under the same injected noise (fp32:
     equal; bf16: agreement >= MESH_TOKEN_AGREEMENT), the mesh engine's
-    to the one-rank engine's, each data-parallel rank's rows run with the
-    seed it drew them with (agreement >= MESH_TOKEN_AGREEMENT); every
-    rank's tokens equal."""
-    from unidisc_tpu_torch.parallel.sample import dp_seed
+    to the one-rank engine's at the same seed (each rank draws the global
+    batch's noise; agreement >= MESH_TOKEN_AGREEMENT); every rank's
+    tokens equal."""
     r0 = recs[0]["serve"]
     for r in recs[1:]:
         for key in ("fp32", "bf16", "engine_ids"):
@@ -6164,12 +6200,8 @@ def mesh_serve_against_one_rank(recs, seed) -> dict:
         del model
     engine = build_engine(preset="small", overrides=MESH_SERVE_OVERRIDES)
     randomize_(engine.model, seed)
-    prepared = t2i_requests(engine)
-    n = len(prepared) // r0["dp_size"]
-    want = np.concatenate([
-        np.stack([r["image_ids"][0] for r in engine.run_batch(
-            prepared[i * n:(i + 1) * n], seed=dp_seed(seed, i))])
-        for i in range(r0["dp_size"])])
+    want = np.stack([r["image_ids"][0] for r in engine.run_batch(
+        t2i_requests(engine), seed=seed)])
     agree = float((r0["engine_ids"] == want).mean())
     out["engine_token_agreement"] = agree
     if not agree >= MESH_TOKEN_AGREEMENT:
@@ -6248,6 +6280,649 @@ def phase_mesh(seed) -> dict:
                                       "bound_ms", "library_ms",
                                       "library_device_ms")}
                    for r in rec["blocks"]]}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 5i: the rest of the mesh (pipeline, tensor and expert parallelism)
+# ---------------------------------------------------------------------------
+
+MESH2_BLOCKS = 4        # the flagship's 12 blocks cut to 4 (one world)
+MESH2_TRAIN_MESHES = {
+    "mesh2_train_pp": dict(dcn=2, fsdp=1, pp=2, pp_microbatches=2),
+    "mesh2_train_tensor": dict(dcn=2, fsdp=1, tensor=2),
+    "mesh2_train_moe": dict(dcn=2, fsdp=1, ep=2)}
+MESH2_SERVE_SPEC = dict(dcn=1, fsdp=1, pp=2, tensor=2, pp_microbatches=2)
+# dense data parallelism, whose engine runs its captured program
+MESH2_DP_ENGINE_SPEC = "dcn=2,fsdp=2"
+MESH2_RUNS = tuple(MESH2_TRAIN_MESHES) + ("mesh2_serve", "mesh2_dp_engine")
+MESH2_PATHS = tuple(MESH2_TRAIN_MESHES) + ("mesh2_serve", "mesh2_engine",
+                                           "mesh2_dp_engine")
+# flash_fwd and the backward kernels at a tensor-parallel rank's heads:
+# the flagship's 12 heads over tensor 2, batch 16
+MESH2_TP_CASE = ("tensor_rank", (16, 6, 384, 64), False, False)
+MESH2_TIMEOUT_S = 240
+MESH2_TRAIN_BATCH = 8   # 5h's 16 halved: every collective here crosses
+                        # the host (gloo), and 5i must stay near a minute
+# The train paths' limits against the one-rank step (mesh2_train_readings),
+# from scripts/mesh2_readings.py on an H100 80GB HBM3 at 700 W: the sound
+# tree's largest readings in bf16 were a loss gap of 1.52e-5 (tensor; 0 on
+# pp and ep), gradient-norm gaps of 1.8e-4, trunk-moment distances of
+# 5.7e-3 and cosines of 0.99992 (fp32 through the plain attention: 7.5e-8,
+# 9.9e-8, 1.1e-6: the bf16 gaps are rounding); five planted faults read
+# loss gaps of 7.8e-4 to 3.0e-3 (one, gradients summed over every rank,
+# the sound 1.52e-5: the first step's LR is 0, so both losses are of the
+# initial weights), gradient-norm gaps of 0.014 to 1.34, trunk-moment
+# distances of 0.40 to 0.94 and cosines of 0.29 to 0.91.
+MESH2_TRAIN_LIMITS = {name: {"loss_rel": MESH_LOSS_RTOL,
+                             "grad_norm_rel": 1e-3,
+                             "trunk_moment_rel": 2e-2,
+                             "update_cosine": MESH_UPDATE_COSINE}
+                      for name in MESH2_TRAIN_MESHES}
+MESH2_TRAIN_LIMITS["mesh2_train_tensor"]["loss_rel"] = 3e-5
+# the dense data-parallel engine token for token (read 1.0; its program
+# captured outside global_rows read 0.0005)
+MESH2_DP_ENGINE_AGREEMENT = 1.0
+
+
+def mesh2_train_config(name, plain: bool = False) -> Config:
+    """The flagship training configuration at depth MESH2_BLOCKS; the MoE
+    path's with phase 5g's MoE settings (8 experts, top-2); plain: through
+    the plain attention (an fp32 run)."""
+    return train_config(**{"model.n_blocks": MESH2_BLOCKS,
+                           **(MOE_OVERRIDES if name.endswith("moe")
+                              else {}),
+                           **({"model.attn_backend": "xla"} if plain
+                              else {})})
+
+
+def mesh2_batch(cfg, seed) -> dict:
+    """A [text | image] token batch of MESH2_TRAIN_BATCH rows."""
+    m = cfg.model
+    b = MESH2_TRAIN_BATCH
+    rng = np.random.RandomState(seed)
+    ids = np.concatenate([
+        rng.randint(0, m.text_vocab_size - 1, (b, m.txt_length)),
+        rng.randint(m.text_vocab_size, m.vocab_size, (b, m.img_length))],
+        -1)
+    modality = np.concatenate([np.zeros((b, m.txt_length)),
+                               np.ones((b, m.img_length))], -1)
+    return {"input_ids": torch.from_numpy(ids.astype(np.int64)).cuda(),
+            "modality": torch.from_numpy(modality.astype(np.int64)).cuda()}
+
+
+def mesh2_train_launches(name, cfg, steps) -> dict:
+    """flash_fwd / dq / dkv launches of one rank's `steps` mesh steps, from
+    the code: a pp rank runs its stage's blocks once a microbatch, forward
+    and backward; a tensor or ep rank every block once."""
+    mesh = MESH2_TRAIN_MESHES[name]
+    per = cfg.model.n_blocks
+    if mesh.get("pp", 1) > 1:
+        per = per // mesh["pp"] * mesh["pp_microbatches"]
+    return {k: steps * per for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+
+
+def mesh2_model(cfg, seed, dtype=torch.bfloat16):
+    """A train path's model on the card with randomize_'s weights, drawn
+    on the card: the adaLN gates and the head non-zero (the default init
+    zeroes both), so the trunk drives the losses and every leaf has a
+    gradient."""
+    model = DIT(cfg.model, compute_dtype=dtype, init=False).cuda()
+    randomize_(model, seed)
+    return model
+
+
+def mesh2_steps(step, state, batch, seed):
+    """MESH_TRAIN_STEPS steps with the step's seeded draws: (state,
+    losses, gradient norms, seconds)."""
+    gen = torch.Generator(device="cuda")
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MESH_TRAIN_STEPS):
+        gen.manual_seed(seed + i)
+        state, m = step(state, batch, generator=gen)
+        losses.append(float(m.loss))
+        norms.append(float(m.grad_norm))
+    torch.cuda.synchronize()
+    return state, losses, norms, time.perf_counter() - t0
+
+
+def update_cosine(after, before, params) -> float:
+    """The cosine of two parameter updates (after - before by name, and
+    params - before), in fp64 (an fp32 cosine over the MoE's ~10^8
+    elements read 1.04)."""
+    dot = na = nb = 0.0
+    for n, p0 in before.items():
+        a = (after[n].double() - p0.double()).reshape(-1)
+        b = (params[n].detach().double() - p0.double()).reshape(-1)
+        dot += float(a @ b)
+        na += float(a @ a)
+        nb += float(b @ b)
+    return dot / math.sqrt(na * nb)
+
+
+def first_moments(state) -> dict:
+    """AdamW's first moment by parameter name: after two steps
+    (1 - b1) (b1 g1 + g2), linear in the two steps' gradients."""
+    from unidisc_tpu_torch.training.train_state import flat_views
+    return flat_views(state.opt_state.adam.mu, state.params)
+
+
+def trunk_moment_error(mine, one) -> tuple:
+    """(relative L2 distance, reference norm) of the first moments of the
+    trunk's leaves (``blocks.*``) in `mine`, in fp64."""
+    num = den = 0.0
+    for n, m in mine.items():
+        if n.startswith("blocks."):
+            ref = one[n].double()
+            num += float((m.double() - ref).square().sum())
+            den += float(ref.square().sum())
+    return math.sqrt(num / den), math.sqrt(den)
+
+
+def mesh2_train_rank(rank, world, seed, name, plain=False) -> dict:
+    """MESH_TRAIN_STEPS mesh steps of the path `name` on its mesh (plain:
+    in fp32 through the plain attention); then on rank 0 the one-rank step
+    from the same weights, batch and draws, its losses and gradient norms,
+    the two updates' cosine and the trunk's first moments against it."""
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.training.train_state import shard_train_step
+    t_start = time.perf_counter()
+    dtype = torch.float32 if plain else torch.bfloat16
+    cfg = mesh2_train_config(name, plain)
+    mesh_cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, **MESH2_TRAIN_MESHES[name]))
+    model = mesh2_model(cfg, seed, dtype)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()} \
+        if rank == 0 else None
+    step, state, layout = shard_train_step(mesh_cfg, model,
+                                           make_mesh(mesh_cfg.mesh))
+    batch = mesh2_batch(cfg, seed)
+    _build.reset_launch_counts()
+    state, losses, norms, secs = mesh2_steps(step, state, batch, seed)
+    launches = dict(_build.launch_counts)
+    want = {} if plain else mesh2_train_launches(name, cfg,
+                                                 MESH_TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"{name}: rank {rank} launches {launches}, "
+                             f"the code {want}")
+    rec = {"losses": losses, "grad_norms": norms, "launches": launches,
+           "seconds": secs, "held": len(state.params)}
+    if rank == 0:
+        # what rank 0 holds (its stage, head shards and experts,
+        # MeshShards.scatter's part of the whole) against the same part
+        # of the one-rank step's
+        one = mesh2_model(cfg, seed, dtype)
+        (one_state, rec["one_rank_losses"], rec["one_rank_grad_norms"],
+         rec["one_rank_s"]) = mesh2_steps(
+            make_train_step(cfg, one), init_train_state(cfg, one), batch,
+            seed)
+        shards = model.mesh_shards
+        rec["update_cosine"] = update_cosine(
+            state.params, shards.scatter(before, layout, {}),
+            shards.scatter(one_state.params, layout, {}))
+        rec["trunk_moment_rel"], rec["trunk_moment_norm"] = \
+            trunk_moment_error(first_moments(state), shards.scatter(
+                first_moments(one_state), layout, {}))
+        del one, one_state
+    rec["path_s"] = time.perf_counter() - t_start
+    return rec
+
+
+MESH2_SERVE_STEPS = 2    # 5h's 4 halved: each step's collectives cross
+                         # the host
+MESH2_SERVE_OVERRIDES = {**FLAGSHIP_OVERRIDES,
+                         "sampling.steps": MESH2_SERVE_STEPS,
+                         "model.n_blocks": MESH2_BLOCKS}
+
+
+def mesh2_serve_config(plain: bool = False) -> Config:
+    return Config.make("small", **MESH2_SERVE_OVERRIDES, **(
+        {"model.attn_backend": "xla"} if plain else {}))
+
+
+def mesh2_weights(cfg, seed) -> dict:
+    """The served flagship's random weights (randomize_ on the card, as
+    the one-rank runs draw them)."""
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16, init=False).cuda()
+    randomize_(model, seed)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def mesh2_serve_rank(rank, world, seed) -> dict:
+    """On pp 2 x tensor 2 (2 microbatches): the t2i sampler under
+    spmd_sampler with injected noise in fp32 (plain attention) and bf16
+    (the kernel), then build_engine(mesh=) serving REQUESTS requests;
+    launches held to the code's count."""
+    from unidisc_tpu_torch.parallel.mesh import (MeshLayout, make_mesh,
+                                                 shard_model)
+    from unidisc_tpu_torch.parallel.sample import spmd_sampler
+    from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+    rec = {}
+
+    def launched(name, cfg, nfe, kernel):
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        # a stage's blocks once a microbatch: with as many microbatches as
+        # stages, the one-rank forward's count
+        per = expected_serve_launches(cfg.model, cfg.sampling, nfe)
+        want = {"flash_fwd": per["flash_fwd"]} if kernel else {}
+        if got != want:
+            raise AssertionError(f"mesh2 serve {name}: rank {rank} launches "
+                                 f"{got}, the code {want}")
+        return got
+
+    launches = collections.Counter()
+    t0 = time.perf_counter()
+    for name, plain, dtype in (("fp32", True, torch.float32),
+                               ("bf16", False, torch.bfloat16)):
+        cfg = mesh2_serve_config(plain)
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, **MESH2_SERVE_SPEC))
+        layout = MeshLayout.of(make_mesh(cfg.mesh))
+        model = DIT(cfg.model, compute_dtype=dtype, init=False).cuda()
+        randomize_(model, seed)
+        shard_model(model.eval(), layout)
+        txt, injected = mesh_serve_inputs(cfg, seed)
+        sample = spmd_sampler(build_t2i_sampler(model, cfg,
+                                                inject_noise=True),
+                              cfg, layout)
+        _build.reset_launch_counts()
+        out = sample(torch.from_numpy(txt).cuda(),
+                     injected={k: torch.from_numpy(v).cuda()
+                               for k, v in injected.items()})
+        launches.update(launched(name, cfg, out.nfe, kernel=not plain))
+        rec[name] = out.tokens.cpu().numpy()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        del model, sample
+    rec["sampler_s"] = time.perf_counter() - t0
+    rec["serve_launches"] = dict(launches)
+    t_engine = time.perf_counter()
+    spec = ",".join(f"{k}={v}" for k, v in MESH2_SERVE_SPEC.items())
+    engine = build_engine(preset="small", overrides=MESH2_SERVE_OVERRIDES,
+                          mesh=spec)
+    # the one-rank engine's weights, this rank's part of them
+    mine = engine.model.mesh_shards.scatter(
+        mesh2_weights(engine.config, seed), engine.mesh, {})
+    with torch.no_grad():
+        for n, p in engine.model.named_parameters():
+            if n in mine:
+                p.copy_(mine[n])
+    prepared = t2i_requests(engine)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run_batch(prepared, seed=seed)
+    torch.cuda.synchronize()
+    rec["engine_batch_s"] = time.perf_counter() - t0
+    rec["engine_launches"] = launched("engine", engine.config,
+                                      results[0]["nfe"], kernel=True)
+    rec["engine_ids"] = np.stack([r["image_ids"][0] for r in results])
+    rec["held"] = sum(p.numel() for p in engine.model.parameters())
+    rec["engine_s"] = time.perf_counter() - t_engine
+    return rec
+
+
+def mesh2_dp_engine_rank(rank, world, seed) -> dict:
+    """build_engine(mesh=MESH2_DP_ENGINE_SPEC), dense data parallelism:
+    each rank's t2i sampler runs its captured program on its rows of
+    REQUESTS requests, with the one-rank engine's weights; launches held
+    to the code's count."""
+    t0 = time.perf_counter()
+    engine = build_engine(preset="small", overrides=MESH2_SERVE_OVERRIDES,
+                          mesh=MESH2_DP_ENGINE_SPEC)
+    with torch.no_grad():
+        weights = mesh2_weights(engine.config, seed)
+        for n, p in engine.model.named_parameters():
+            p.copy_(weights[n])
+    prepared = t2i_requests(engine)
+    _build.reset_launch_counts()
+    t_batch = time.perf_counter()
+    results = engine.run_batch(prepared, seed=seed)
+    torch.cuda.synchronize()
+    rec = {"batch_s": time.perf_counter() - t_batch}
+    got = dict(_build.launch_counts)
+    # the first call captures the program: its warm run (eager) and one
+    # replay both run on the card
+    want = {"flash_fwd": 2 * expected_serve_launches(
+        engine.config.model, engine.config.sampling,
+        results[0]["nfe"])["flash_fwd"]}
+    if got != want:
+        raise AssertionError(f"mesh2 dp engine: rank {rank} launches {got}, "
+                             f"the code {want}")
+    programs = sum(len(s.graphs) for s in engine._samplers.values())
+    if programs != 1:
+        raise AssertionError(f"mesh2 dp engine: rank {rank} captured "
+                             f"{programs} programs, not 1")
+    rec.update(launches=got, seconds=time.perf_counter() - t0,
+               ids=np.stack([r["image_ids"][0] for r in results]))
+    return rec
+
+
+def full_precision_gemms(on: bool = True) -> None:
+    """TF32 off and bf16 GEMMs reduced in fp32 (no bf16 split-K
+    partials), so a mesh path and its one-rank reference differ only in
+    their summation order."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        not on
+
+
+def mesh2_rank(rank, world, work, seed, runs=MESH2_RUNS, plain=False):
+    """One rank of phase 5i's world (a spawned process on card 0): the
+    runs named in `runs` (plain: the train paths in fp32 through the
+    plain attention)."""
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.dump_traceback_later(MESH2_TIMEOUT_S - 10, exit=True)
+    full_precision_gemms()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store"), world), rank=rank, world_size=world)
+    rec = {}
+    for name in MESH2_TRAIN_MESHES:
+        if name in runs:
+            rec[name] = mesh2_train_rank(rank, world, seed, name, plain)
+            free()
+    if "mesh2_serve" in runs:
+        rec["serve"] = mesh2_serve_rank(rank, world, seed)
+        free()
+    if "mesh2_dp_engine" in runs:
+        rec["dp_engine"] = mesh2_dp_engine_rank(rank, world, seed)
+    torch.save(rec, os.path.join(work, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh2_world(seed, runs=MESH2_RUNS, plain=False):
+    """mesh2_rank on MESH_RANKS spawned processes sharing card 0 over gloo
+    (as mesh_world); their records by rank."""
+    import torch.multiprocessing as mp
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh2_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh2_rank, args=(r, MESH_RANKS, work,
+                                                  seed, runs, plain))
+             for r in range(MESH_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH2_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                raise AssertionError(f"phase 5i: a rank failed (exit codes "
+                                     f"{[p.exitcode for p in procs]})")
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 5i: exit codes {codes}")
+        return [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(MESH_RANKS)]
+    finally:
+        for p in procs:
+            if p.pid is None:
+                continue
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def rel_gap(got, want) -> float:
+    """The largest relative distance of two lists of numbers."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def mesh2_train_readings(name, recs) -> dict:
+    """A train path against the one-rank step (rank 0 ran it on the same
+    weights, batch and draws): the largest relative gap of any rank's
+    losses and gradient norms, the update's cosine and the trunk's first
+    moments' relative distance over rank 0's part."""
+    r0 = recs[0][name]
+    return {
+        "loss_rel": max(rel_gap(rec[name]["losses"], r0["one_rank_losses"])
+                        for rec in recs),
+        "grad_norm_rel": max(rel_gap(rec[name]["grad_norms"],
+                                     r0["one_rank_grad_norms"])
+                             for rec in recs),
+        "trunk_moment_rel": r0["trunk_moment_rel"],
+        "trunk_moment_norm": r0["trunk_moment_norm"],
+        "update_cosine": r0["update_cosine"]}
+
+
+def mesh2_train_against_one_rank(name, recs) -> dict:
+    """A train path held to the one-rank step: each reading of
+    mesh2_train_readings within MESH2_TRAIN_LIMITS."""
+    r0 = recs[0][name]
+    readings = mesh2_train_readings(name, recs)
+    for key, limit in MESH2_TRAIN_LIMITS[name].items():
+        ok = readings[key] >= limit if key == "update_cosine" \
+            else readings[key] <= limit
+        if not ok:
+            raise AssertionError(f"{name}: {key} {readings[key]} against "
+                                 f"the limit {limit} (losses "
+                                 f"{r0['losses']}, one rank "
+                                 f"{r0['one_rank_losses']})")
+    return {**readings, "losses": r0["losses"],
+            "one_rank_losses": r0["one_rank_losses"],
+            "grad_norms": r0["grad_norms"],
+            "one_rank_grad_norms": r0["one_rank_grad_norms"],
+            "mesh_s": [rec[name]["seconds"] for rec in recs],
+            "path_s": r0["path_s"],
+            "one_rank_s": r0["one_rank_s"], "held_params_rank0": r0["held"],
+            "launches": dict(sum((collections.Counter(rec[name]["launches"])
+                                  for rec in recs), collections.Counter()))}
+
+
+def mesh2_serve_against_one_rank(recs, seed) -> dict:
+    """The pp 2 x tensor 2 sampler and engine held to one rank: fp32
+    tokens equal to the one-rank sampler's under the same injected noise,
+    bf16 and the engine (at the same seed) agreeing >=
+    MESH_TOKEN_AGREEMENT; every rank's tokens equal."""
+    r0 = recs[0]["serve"]
+    for r in recs[1:]:
+        for key in ("fp32", "bf16", "engine_ids"):
+            if not np.array_equal(r["serve"][key], r0[key]):
+                raise AssertionError(f"mesh2 serve: the ranks' {key} differ")
+    out = {"sampler_s": r0["sampler_s"], "fp32_s": r0["fp32_s"],
+           "bf16_s": r0["bf16_s"], "engine_s": r0["engine_s"],
+           "engine_batch_s": r0["engine_batch_s"],
+           "held_params_rank0": r0["held"]}
+    for name, plain, dtype in (("fp32", True, torch.float32),
+                               ("bf16", False, torch.bfloat16)):
+        cfg = mesh2_serve_config(plain)
+        model = DIT(cfg.model, compute_dtype=dtype, init=False).cuda()
+        randomize_(model, seed)
+        model.eval()
+        txt, injected = mesh_serve_inputs(cfg, seed)
+        want = build_t2i_sampler(model, cfg, inject_noise=True)(
+            torch.from_numpy(txt).cuda(),
+            injected={k: torch.from_numpy(v).cuda()
+                      for k, v in injected.items()}).tokens.cpu().numpy()
+        lt = cfg.model.txt_length
+        agree = float((r0[name][:, lt:] == want[:, lt:]).mean())
+        out[f"{name}_token_agreement"] = agree
+        if plain and not np.array_equal(r0[name], want):
+            raise AssertionError(f"mesh2 serve: fp32 tokens differ from the "
+                                 f"one-rank sampler's ({agree} agree)")
+        if not agree >= MESH_TOKEN_AGREEMENT:
+            raise AssertionError(f"mesh2 serve: {name} token agreement "
+                                 f"{agree} < {MESH_TOKEN_AGREEMENT}")
+        del model
+    agree = float((r0["engine_ids"] == one_rank_engine_ids(seed)).mean())
+    out["engine_token_agreement"] = agree
+    if not agree >= MESH_TOKEN_AGREEMENT:
+        raise AssertionError(f"mesh2 serve: the mesh engine's tokens agree "
+                             f"{agree} with the one-rank engine's < "
+                             f"{MESH_TOKEN_AGREEMENT}")
+    return out
+
+
+def one_rank_engine_ids(seed) -> np.ndarray:
+    """The image ids of the one-rank engine (captured) serving REQUESTS
+    requests at `seed` on the mesh engines' weights (kept after the first
+    call)."""
+    if seed not in _ONE_RANK_ENGINE_IDS:
+        engine = build_engine(preset="small", overrides=MESH2_SERVE_OVERRIDES)
+        randomize_(engine.model, seed)
+        _ONE_RANK_ENGINE_IDS[seed] = np.stack([
+            r["image_ids"][0] for r in engine.run_batch(
+                t2i_requests(engine), seed=seed)])
+        del engine
+        free()
+    return _ONE_RANK_ENGINE_IDS[seed]
+
+
+_ONE_RANK_ENGINE_IDS: dict = {}
+
+
+def mesh2_dp_engine_readings(recs, seed) -> dict:
+    """The dense data-parallel engine's captured programs against the
+    one-rank engine at the same seed: the share of image ids equal, and
+    whether every rank gathered the same ids."""
+    ids = recs[0]["dp_engine"]["ids"]
+    return {"token_agreement": float((ids == one_rank_engine_ids(seed))
+                                     .mean()),
+            "ranks_equal": all(np.array_equal(r["dp_engine"]["ids"], ids)
+                               for r in recs)}
+
+
+def mesh2_dp_engine_against_one_rank(recs, seed) -> dict:
+    """mesh2_dp_engine_readings within MESH2_DP_ENGINE_AGREEMENT."""
+    out = mesh2_dp_engine_readings(recs, seed)
+    if not out["ranks_equal"]:
+        raise AssertionError("mesh2 dp engine: the ranks' ids differ")
+    if not out["token_agreement"] >= MESH2_DP_ENGINE_AGREEMENT:
+        raise AssertionError(
+            f"mesh2 dp engine: the captured programs' tokens agree "
+            f"{out['token_agreement']} with the one-rank engine's < "
+            f"{MESH2_DP_ENGINE_AGREEMENT}")
+    return {**out, "batch_s": [r["dp_engine"]["batch_s"] for r in recs],
+            "seconds": [r["dp_engine"]["seconds"] for r in recs],
+            "launches": dict(sum((collections.Counter(
+                r["dp_engine"]["launches"]) for r in recs),
+                collections.Counter()))}
+
+
+def global_draw_ms(seed) -> dict:
+    """F2's cost: a data-parallel rank's two draws of a t2i step at the
+    served batch (REQUESTS rows, the image span) on a dp 2 and a dp 4 mesh:
+    at the global batch's rows, the rank keeping its own (what it draws
+    since F2), against its rows alone (what it drew before)."""
+    from unidisc_tpu_torch.sampling.sampler import global_rows, gumbel
+    m = Config.make("small", **FLAGSHIP_OVERRIDES).model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for dp in (2, 4):
+        rows = REQUESTS // dp
+        for kind, ranks in (("rank_rows", 1), ("global_rows", dp)):
+            def draws():
+                with global_rows(0, ranks):
+                    gumbel((rows, m.img_length, m.image_vocab_size), gen,
+                           "cuda")
+                    gumbel((rows, m.img_length), gen, "cuda")
+            draws()
+            out[f"dp{dp}_{kind}_ms"] = time_ms(draws, iters=50)
+    return out
+
+
+def moe_fp32_accumulation(seed) -> dict:
+    """F1 on the card: the bf16 MoE experts' products accumulate in fp32
+    and take the fp32 bias before any rounding. Each first product is
+    1000 + a small term and b1 = -1000 cancels the 1000: a product rounded
+    to bf16 first (a step of 4 at 1000) would leave an error up to 2 in the
+    pre-activation. Held to an fp64 reference of the same bf16 operands
+    (the GELU output and the result rounded to bf16, as the layer does);
+    tests/test_torch_moe.py holds the same check."""
+    from unidisc_tpu_torch.models.moe import MoEMLP
+    cfg = dataclasses.replace(Config.make("tiny").model, hidden_size=64,
+                              mlp_ratio=4, moe_experts=2, moe_top_k=1,
+                              moe_capacity_factor=8.0)
+    gen = torch.Generator().manual_seed(seed)
+    s, d, f = 64, 64, 256
+    x = torch.rand((1, s, d), generator=gen) * 2 - 1
+    x[..., 0] = 1.0
+    w1 = torch.randn((2, d, f), generator=gen) * 0.05
+    w1[:, 0, :] = 1000.0
+    w2 = torch.randn((2, f, d), generator=gen) / 16
+    b2 = torch.randn((2, 1, d), generator=gen) * 0.02
+    router = torch.randn((2, d), generator=gen)
+    mod = MoEMLP(cfg, compute_dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        for name, value in (("w1", w1), ("w2", w2), ("b2", b2),
+                            ("router.weight", router)):
+            mod.get_parameter(name).copy_(value)
+        mod.b1.fill_(-1000.0)
+        y, _ = mod(x.cuda().bfloat16())
+    xb = x.bfloat16().double()[0]
+    expert = torch.argmax(x[0] @ router.t(), -1)
+    h = torch.einsum("sd,sdf->sf", xb, w1.bfloat16().double()[expert]) \
+        - 1000.0
+    h = F.gelu(h, approximate="tanh").bfloat16().double()
+    want = (torch.einsum("sf,sfd->sd", h, w2.bfloat16().double()[expert])
+            + b2.double()[expert, 0]).bfloat16().float()
+    err = float((y[0].float().cpu() - want).abs().max())
+    top = float(want.abs().max())
+    if not err <= 2e-2 * top:
+        raise AssertionError(f"MoE experts: max abs error {err} > 2e-2 x "
+                             f"{top} (a product rounded before its bias?)")
+    return {"max_abs_err": err, "max_abs_ref": top}
+
+
+def phase_mesh2(seed) -> dict:
+    """Phase 5i (module docstring)."""
+    t0 = time.perf_counter()
+    rec = {"tp_fwd": phase_kernels(seed, [MESH2_TP_CASE])[0],
+           "tp_bwd": phase_bwd_kernels(seed, [MESH2_TP_CASE])[0],
+           "global_draws": global_draw_ms(seed),
+           "moe_fp32_accumulation": moe_fp32_accumulation(seed)}
+    free()
+    rec["before_world_s"] = time.perf_counter() - t0
+    recs = mesh2_world(seed)
+    rec["world_s"] = time.perf_counter() - t0
+    for name in MESH2_TRAIN_MESHES:
+        rec[name] = mesh2_train_against_one_rank(name, recs)
+    full_precision_gemms()
+    try:
+        serve = mesh2_serve_against_one_rank(recs, seed)
+        rec["mesh2_dp_engine"] = mesh2_dp_engine_against_one_rank(recs, seed)
+    finally:
+        full_precision_gemms(False)
+    rec["mesh2_serve"] = {**serve, "launches": dict(sum(
+        (collections.Counter(r["serve"]["serve_launches"]) for r in recs),
+        collections.Counter()))}
+    rec["mesh2_engine"] = {"launches": dict(sum(
+        (collections.Counter(r["serve"]["engine_launches"]) for r in recs),
+        collections.Counter()))}
+    free()
+    rec["seconds"] = time.perf_counter() - t0
+    print("mesh2 " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "before_world_s": rec["before_world_s"],
+        "world_s": rec["world_s"], "ranks": MESH_RANKS,
+        "depth": MESH2_BLOCKS,
+        "transport": "gloo, staged through host memory",
+        "train": {name: {k: rec[name][k] for k in (
+            "losses", "one_rank_losses", "grad_norms",
+            "one_rank_grad_norms", "loss_rel", "grad_norm_rel",
+            "trunk_moment_rel", "trunk_moment_norm", "update_cosine",
+            "mesh_s", "path_s", "one_rank_s", "held_params_rank0")}
+            for name in MESH2_TRAIN_MESHES},
+        "serve": serve, "dp_engine": {
+            k: v for k, v in rec["mesh2_dp_engine"].items()
+            if k != "launches"},
+        "global_draws": rec["global_draws"],
+        "moe_fp32_accumulation": rec["moe_fp32_accumulation"],
+        "tensor_rank_kernels": {
+            "shape_bhld": list(MESH2_TP_CASE[1]),
+            "flash_fwd": {k: rec["tp_fwd"][k] for k in (
+                "ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+                "library_device_ms")},
+            "flash_bwd": {k: rec["tp_bwd"][k] for k in (
+                "ms_dq", "ms_dkv", "device_ms_dq", "device_ms_dkv",
+                "plain_ms", "library_ms", "library_device_ms", "bounds")}}}))
     return rec
 
 
@@ -6416,6 +7091,10 @@ def main() -> int:
     record["mesh"] = phase_mesh(args.seed)
     free()
     lap("mesh")
+    # 5i: the rest of the mesh
+    record["mesh2"] = phase_mesh2(args.seed)
+    free()
+    lap("mesh2")
     record["phase_seconds"] = laps
     print("phase_seconds " + json.dumps(laps))
     pix = record["pixels"]
@@ -6466,6 +7145,9 @@ def main() -> int:
                 "launches"].get(name, 0)
         for path in MESH_PATHS:
             by_path[name][path] = record["mesh"][path]["launches"].get(
+                name, 0)
+        for path in MESH2_PATHS:
+            by_path[name][path] = record["mesh2"][path]["launches"].get(
                 name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape

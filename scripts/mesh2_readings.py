@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Phase 5i's mesh readings on the card, without its limits.
+
+    python3 scripts/mesh2_readings.py [--root DIR] [--runs R[,R...]]
+                                      [--plain] [--plant FAULT]
+                                      [--label NAME]
+
+Runs ``chip_smoke.py``'s 5i world (MESH_RANKS ranks sharing card 0 over
+gloo) from the tree at --root (default: this one; its kernels build into
+DIR/build) for the runs named (default: the three train paths and
+``mesh2_dp_engine``), and prints what 5i holds to its limits: for each
+train path against the one-rank step, ``mesh2_train_readings`` (the
+largest relative gap of any rank's losses and gradient norms, the trunk's
+first moments' relative distance and the update's cosine); for
+``mesh2_dp_engine`` the captured programs' token agreement with the
+one-rank engine at the same seed. --plain runs the train paths in fp32
+through the plain attention, to tell the bf16 paths' rounding from a
+fault. --plant FAULT (one of PLANTS) runs a copy of the tree, made in a
+temporary directory and removed after, with that one fault planted and
+only the run that should see it: whether 5i's limits see the fault.
+Prints the card line and one JSON line, and writes
+chiprun_out/mesh2_readings_<label>.json beside this script's tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+# fault: (file, the text replaced, its replacement, the run that sees it)
+PLANTS = {
+    # the row-parallel product's partial sums left unsummed
+    "no_row_reduce": (
+        "unidisc_tpu_torch/models/dit.py",
+        "y = reduce_from(_product_f32(x.to(dt), layer.weight.to(dt)),\n"
+        "                        tp.group)",
+        "y = _product_f32(x.to(dt), layer.weight.to(dt))",
+        "mesh2_train_tensor"),
+    # stage 0 reads the microbatches in reverse order
+    "reversed_microbatches": (
+        "unidisc_tpu_torch/parallel/pipeline.py",
+        "            a = x_mb[t]\n",
+        "            a = x_mb[m_micro - 1 - t]\n", "mesh2_train_pp"),
+    # the MoE combine's partial outputs left unsummed over "ep"
+    "no_ep_combine": (
+        "unidisc_tpu_torch/models/moe.py",
+        "                y = reduce_from(y, ep.group)\n",
+        "                pass\n", "mesh2_train_moe"),
+    # replicated leaves' gradients summed over every rank ("tensor" too)
+    "world_grad_sum": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "(False, mesh.grad_group)", "(False, dist.group.WORLD)",
+        "mesh2_train_tensor"),
+    # the engine's program captured outside global_rows
+    "capture_local_rows": (
+        "unidisc_tpu_torch/serving/engine.py",
+        "            with rows:\n                run = captured(sampler, "
+        "local)\n", "            run = captured(sampler, local)\n",
+        "mesh2_dp_engine"),
+}
+
+
+def planted(root: Path, fault: str) -> Path:
+    """A copy of the tree at `root` in a new temporary directory, its
+    kernels' build directory included, with `fault` planted."""
+    path, old, new, _ = PLANTS[fault]
+    dest = Path(tempfile.mkdtemp(prefix=f"mesh2_{fault}_")) / "tree"
+    shutil.copytree(root, dest, ignore=shutil.ignore_patterns(
+        ".git", "chiprun_out", "local", "__pycache__"))
+    src = (dest / path).read_text()
+    if src.count(old) != 1:
+        raise ValueError(f"{fault}: the text to replace is not in {path} "
+                         f"once")
+    (dest / path).write_text(src.replace(old, new))
+    return dest
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--runs", default="")
+    ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--plant", choices=sorted(PLANTS))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    if args.plant:
+        root = planted(root, args.plant)
+        args.runs = PLANTS[args.plant][3]
+    try:
+        return run(root, args)
+    finally:
+        if args.plant:
+            shutil.rmtree(root.parent, ignore_errors=True)
+
+
+def run(root: Path, args) -> int:
+    # the ranks are spawned: they import chip_smoke and the package from
+    # `root` by this path
+    sys.path.insert(0, str(root))
+    os.chdir(root)
+    import chip_smoke as cs
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.phase_build()
+    runs = tuple(args.runs.split(",")) if args.runs else cs.MESH2_RUNS
+    out = {"card": cs.card_line(), "label": args.label,
+           "plain": args.plain, "plant": args.plant, "runs": list(runs)}
+    t0 = time.perf_counter()
+    try:
+        recs = cs.mesh2_world(args.seed, runs, args.plain)
+    except AssertionError as e:   # a rank failed: report it
+        out["error"] = str(e)
+        recs = None
+    out["world_s"] = time.perf_counter() - t0
+    if recs is not None:
+        for name in cs.MESH2_TRAIN_MESHES:
+            if name in runs:
+                out[name] = {**cs.mesh2_train_readings(name, recs),
+                             **{k: recs[0][name][k] for k in (
+                                 "losses", "one_rank_losses", "grad_norms",
+                                 "one_rank_grad_norms")}}
+        if "mesh2_dp_engine" in runs:
+            cs.full_precision_gemms()
+            out["mesh2_dp_engine"] = cs.mesh2_dp_engine_readings(recs,
+                                                                 args.seed)
+            cs.full_precision_gemms(False)
+    print(cs.card_line())
+    print("mesh2_readings " + json.dumps(out))
+    dest = HERE / "chiprun_out" / f"mesh2_readings_{args.label}.json"
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    dest.write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

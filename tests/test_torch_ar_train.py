@@ -30,9 +30,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_dit import param_tree
 from unidisc_tpu.config import Config as JaxConfig
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.training import train_state as jts
 from unidisc_tpu_torch.config import FLAGSHIP_TRAIN_OVERRIDES, Config
 from unidisc_tpu_torch.data.token_shards import (TokenShardDataset,
@@ -86,9 +86,7 @@ def ar_draws(rng, b, m):
 @pytest.fixture(scope="module")
 def jax_params():
     jcfg, _ = configs()
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
-    return random_params(params, seed=3)
+    return random_params(param_tree(jcfg.model, jnp.float32), seed=3)
 
 
 AR_VARIANTS = {

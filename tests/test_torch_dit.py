@@ -69,9 +69,20 @@ def random_params(params, seed=0):
 
 @functools.lru_cache(maxsize=None)
 def param_tree(m, compute_dtype):
-    """init_dit's parameter tree for a model config, made once a process:
-    random_params reads only its leaves' names, order and shapes."""
-    return init_dit(jax.random.PRNGKey(0), m, compute_dtype=compute_dtype)[1]
+    """init_dit's parameter tree for a model config as shapes
+    (``jax.eval_shape``: the init traced, not run), made once a process:
+    random_params reads only its leaves' names, order and shapes. The
+    leaves keep the init's order (eval_shape's output sorts dict keys)."""
+    order = []
+
+    def init(key):
+        tree = init_dit(key, m, compute_dtype=compute_dtype)[1]
+        order.extend(traverse_util.flatten_dict(tree, sep="/"))
+        return tree
+    flat = traverse_util.flatten_dict(
+        jax.eval_shape(init, jax.random.PRNGKey(0)), sep="/")
+    return traverse_util.unflatten_dict({k: flat[k] for k in order},
+                                        sep="/")
 
 
 def random_dit(m, seed=0, compute_dtype=jnp.bfloat16):
@@ -181,7 +192,7 @@ def test_weight_carry_over_round_trips(jax_params):
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
         {k: tuple(v.shape) for k, v in sd.items()}
     # and the JAX package's own torch->flax mapping restores the tree
-    _, template = init_dit(jax.random.PRNGKey(5), jcfg.model)
+    template = param_tree(jcfg.model, jnp.float32)
     back = port_dit_state_dict(template,
                                {k: v.numpy() for k, v in sd.items()})
     want = traverse_util.flatten_dict(jax_params, sep="/")

@@ -5,18 +5,18 @@ unless asked for the CPU."""
 
 import base64
 
-import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.models.dit import DIT as JaxDIT
 from unidisc_tpu.serving.engine import InferenceEngine as JaxEngine
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.models.dit import DIT
 from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
 from unidisc_tpu_torch.serving.engine import InferenceEngine, build_engine
-from test_torch_dit import OVERRIDES, configs
+from test_torch_dit import OVERRIDES, configs, param_tree
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -39,7 +39,8 @@ REQUESTS = [
 
 def test_prepare_matches_jax_engine():
     jcfg, tcfg = configs(**OVER)
-    jmodel, params = init_dit(jax.random.PRNGKey(0), jcfg.model)
+    # prepare and the decode tail run no forward: the tree's shapes do
+    jmodel, params = JaxDIT(jcfg.model), param_tree(jcfg.model, jnp.float32)
     jeng = JaxEngine(jcfg, jmodel, params)
     eng = InferenceEngine(tcfg, DIT(tcfg.model), device="cpu")
     for req in REQUESTS:
@@ -167,17 +168,22 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     here only refuse a diffusion model."""
     _, tcfg = configs(**OVER)
     model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
-    # mesh= is ported for dcn, fsdp and seq (tests/test_torch_seq_parallel.py
+    # mesh= is ported for every axis (tests/test_torch_seq_parallel.py
     # serves on 4 ranks); a one-device spec builds the one-rank engine, a
-    # spec larger than the world is refused, and pp, tensor and ep > 1 name
-    # item 9
+    # spec larger than the world is refused, and what stays refused on a
+    # mesh names item 9: ep inside a pipeline stage, int8 on pp, tensor or
+    # ep
     assert build_engine(preset="tiny", device="cpu", overrides=OVER,
                         mesh="fsdp=1,seq=1").mesh is None
-    with pytest.raises(ValueError, match="does not cover"):
-        build_engine(preset="tiny", device="cpu", mesh="fsdp=2,seq=2")
-    for spec in ("pp=2", "tensor=2", "ep=2", "fsdp=2,pp=2"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for spec in ("fsdp=2,seq=2", "pp=2", "tensor=2", "fsdp=2,pp=2"):
+        with pytest.raises(ValueError, match="does not cover"):
             build_engine(preset="tiny", device="cpu", mesh=spec)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_engine(preset="tiny", device="cpu", mesh="pp=2,ep=2")
+    for spec in ("pp=2", "tensor=2"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_engine(preset="tiny", device="cpu", quantize="int8",
+                         overrides={"model.dropout": 0.0}, mesh=spec)
     with pytest.raises(ValueError, match="unknown mesh axis"):
         build_engine(preset="tiny", device="cpu", mesh="data=2")
     # lora= is ported (tests/test_torch_lora.py)
@@ -238,7 +244,8 @@ def test_engine_images_equal_the_jax_engines_decode():
     are clamped alike, and gen_text rows carry no image."""
     jcfg, tcfg = configs(**OVER)
     jcodec, codec = tiny_codecs()
-    jmodel, params = init_dit(jax.random.PRNGKey(0), jcfg.model)
+    # prepare and the decode tail run no forward: the tree's shapes do
+    jmodel, params = JaxDIT(jcfg.model), param_tree(jcfg.model, jnp.float32)
     jeng = JaxEngine(jcfg, jmodel, params, codec=jcodec)
     eng = InferenceEngine(tcfg, DIT(tcfg.model), codec=codec, device="cpu")
     m = eng.m

@@ -313,10 +313,12 @@ MESH_SLICE = [
     "unidisc_tpu_torch/parallel/__init__.py",
     "unidisc_tpu_torch/parallel/comm.py",
     "unidisc_tpu_torch/parallel/mesh.py",
+    "unidisc_tpu_torch/parallel/pipeline.py",
     "unidisc_tpu_torch/parallel/ring_attention.py",
     "unidisc_tpu_torch/parallel/seq_parallel.py",
     "unidisc_tpu_torch/parallel/sample.py",
     "unidisc_tpu_torch/models/dit.py",
+    "unidisc_tpu_torch/models/moe.py",
     "unidisc_tpu_torch/training/train_state.py",
     "unidisc_tpu_torch/training/trainer.py",
     "unidisc_tpu_torch/serving/engine.py",
@@ -333,6 +335,7 @@ def test_mesh_slice_is_checked():
     code = ("import torch.distributed as dist\n"
             "import unidisc_tpu_torch.utils.dist\n"
             "import unidisc_tpu_torch.parallel.mesh\n"
+            "import unidisc_tpu_torch.parallel.pipeline\n"
             "import unidisc_tpu_torch.parallel.ring_attention\n"
             "import unidisc_tpu_torch.parallel.sample\n"
             "import unidisc_tpu_torch.parallel.seq_parallel\n"

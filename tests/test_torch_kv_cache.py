@@ -30,7 +30,6 @@ import pytest
 import torch
 
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.ops import quant as jax_quant
 from unidisc_tpu.sampling.ar_sampler import init_kv_cache as jax_init_kv
 from unidisc_tpu_torch.models import dit as dit_module
@@ -39,8 +38,8 @@ from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
 from unidisc_tpu_torch.ops import quant
 from unidisc_tpu_torch.sampling.ar_sampler import (init_kv_cache,
                                                    init_kv_cache_for)
-from test_torch_dit import ATOL, B, RTOL, TXT, configs, port_model, \
-    random_dit, random_params
+from test_torch_dit import (ATOL, B, RTOL, TXT, configs, param_tree,
+                            port_model, random_dit, random_params)
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -247,9 +246,8 @@ def test_fused_int8_model_leaves_the_fused_path_with_a_kv_cache(
     extra = {"model.quant": "int8", "model.quant_backend": "pallas",
              "model.quant_fused": True}
     jcfg, tcfg = configs(**extra)
-    _, params = init_dit(jax.random.PRNGKey(8), configs()[0].model,
-                         compute_dtype=jnp.float32)
-    qparams = jax_quant.quantize_dit_params(random_params(params, seed=8))
+    qparams = jax_quant.quantize_dit_params(random_params(
+        param_tree(configs()[0].model, jnp.float32), seed=8))
     jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
     m = tcfg.model
     ids, modality, sigma = tokens(m, seed=9)

@@ -25,9 +25,9 @@ import pytest
 import torch
 from flax import traverse_util
 
+from test_torch_dit import param_tree
 from unidisc_tpu.config import Config as JaxConfig
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.models.elm import ELM_PRESETS as JAX_ELM_PRESETS
 from unidisc_tpu.models.elm import init_elm
 from unidisc_tpu.training import lora as jlora
@@ -63,9 +63,7 @@ def jax_adapter(base, rank, seed, train_full=()):
 @pytest.fixture(scope="module")
 def dit_base():
     jcfg = JaxConfig.make("tiny", **TINY)
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
-    return random_params(params)
+    return random_params(param_tree(jcfg.model, jnp.float32))
 
 
 def test_jax_written_dit_adapter_merges_to_jax(dit_base, tmp_path):

@@ -16,7 +16,15 @@ training on it, against the JAX package.
   ``Trainer.fit`` + ``validate`` on fsdp 2 with equal ``param_hash`` and
   validation metrics on both ranks, as tests/test_multihost.py holds JAX's;
   its run dir resumed by a one-rank Trainer with the mesh's parameters;
-  and the train CLI on the world (``mesh.fsdp=2``).
+  and the train CLI on the world (``mesh.fsdp=2``). In the same world:
+  ``Trainer.fit`` on pp 2 (each rank holds its stage's block, the run dir
+  resumed by a one-rank Trainer bit for bit), the train CLI on tensor 2,
+  and ``build_engine(mesh="fsdp=2")`` equal to the one-rank engine at the
+  same seed token for token (each rank draws the global batch's noise
+  and keeps its rows).
+* ``MeshShards``'s parts: attn_qkv's [q | k | v] head shards taken and
+  joined back; what the port still refuses on a mesh names ROADMAP item
+  9.
 """
 
 import dataclasses
@@ -51,6 +59,9 @@ from unidisc_tpu_torch.training.trainer import Trainer
 cap_test_threads()
 
 STEPS = 2
+ENGINE_OVER = {"sampling.predictor": "maskgit", "sampling.steps": 4,
+               "sampling.cfg": 2.0, "model.text_vocab_size": 300}
+ENGINE_REQUESTS = [dict(text="a red cube"), dict(text="two cats")]
 SIZES = [dict(fsdp=f, tensor=t, pp=p, ep=e, dcn=1, seq=1)
          for f, t, p, e in itertools.product((1, 2, 4, 8), (1, 2), (1, 2),
                                              (1, 2))]
@@ -114,10 +125,44 @@ def test_resolve_mesh_shape_matches_jax(spec, n):
 
 
 def test_later_axes_raise_naming_item_9():
+    # "tensor", "pp" and "ep" run; what stays refused names item 9
     for axis in ("tensor", "pp", "ep"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tmesh.check_ported_axes({"fsdp": 2, axis: 2})
+        tmesh.check_ported_axes({"fsdp": 2, axis: 2})
     tmesh.check_ported_axes({"dcn": 2, "fsdp": 2, "seq": 2})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tmesh.check_ported_axes({"pp": 2, "ep": 2})
+    _, tcfg = configs()
+    m = tcfg.model
+    for model, sizes in (
+            (dataclasses.replace(m, quant="int8"), {"tensor": 2}),
+            (dataclasses.replace(m, quant="int8"), {"pp": 2}),
+            (dataclasses.replace(m, quant="int8", moe_experts=2),
+             {"ep": 2}),
+            (dataclasses.replace(m, img_cond=True), {"pp": 2}),
+            (dataclasses.replace(m, img_cond=True), {"tensor": 2})):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tmesh.check_mesh_model(model, sizes)
+    tmesh.check_mesh_model(dataclasses.replace(m, quant="int8"),
+                           {"fsdp": 2, "seq": 2})
+    with pytest.raises(ValueError, match="n_heads"):
+        tmesh.check_mesh_model(m, {"tensor": 4})
+    with pytest.raises(ValueError, match="moe_experts"):
+        tmesh.check_mesh_model(m, {"ep": 2})
+
+
+def test_mesh_parts_take_and_join():
+    rng = np.random.RandomState(0)
+    qkv = torch.from_numpy(rng.randn(12, 5).astype(np.float32))
+    part = tmesh.Part("tensor", 0, 3)
+    shards = [part.take(qkv, r, 2) for r in range(2)]
+    # rank r: rows of its heads in each of q, k and v
+    np.testing.assert_array_equal(shards[1].numpy(), qkv[[2, 3, 6, 7, 10, 11]]
+                                  .numpy())
+    np.testing.assert_array_equal(part.join(shards).numpy(), qkv.numpy())
+    cols = tmesh.Part("tensor", 1)
+    np.testing.assert_array_equal(cols.join([cols.take(qkv, r, 5)
+                                             for r in range(5)]).numpy(),
+                                  qkv.numpy())
 
 
 
@@ -141,7 +186,8 @@ def case(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh2")
     inputs = {"config": tcfg, "sd0": train_state_from_jax(
         jax.device_get(jstate0)), "batch": batch, "draws": draws,
-        "dir": str(tmp)}
+        "dir": str(tmp), "engine": {"overrides": ENGINE_OVER,
+                                    "requests": ENGINE_REQUESTS, "seed": 5}}
     world = run_world("mesh2", 2, tmp, inputs=inputs)
     return dict(jcfg=jcfg, tcfg=tcfg, jstate0=jstate0, batch=batch,
                 rng=rng, inputs=inputs, world=world, dir=tmp)
@@ -217,3 +263,38 @@ def test_two_rank_fit_validate_hash_and_resume(case):
     # the train CLI under the world
     assert r0["cli_step"] == r1["cli_step"] == 2
     assert r0["cli_loss"] == r1["cli_loss"] and np.isfinite(r0["cli_loss"])
+
+
+def test_pp_trainer_holds_its_stage_and_resumes_on_one_rank(case):
+    r0, r1 = case["world"]
+    # each rank holds its stage's block and every parameter outside them
+    for r, rank in enumerate((r0, r1)):
+        blocks = {n.split(".")[1] for n in rank["pp_held"]
+                  if n.startswith("blocks.")}
+        assert blocks == {str(r)}, blocks
+        assert "vocab_embed.embedding" in rank["pp_held"]
+    assert r0["pp_fit_step"] == r1["pp_fit_step"] == 3
+    cfg = Config.make("tiny", **TRAINER_OVER).override(**{"mesh.fsdp": 1})
+    one = Trainer(cfg, str(case["dir"] / "run_pp"), device="cpu",
+                  log_every=100)
+    assert one.maybe_restore() == 3
+    got = one.state.state_dict()["params"]
+    assert set(got) == set(r0["pp_final"])
+    for n, t in r0["pp_final"].items():
+        torch.testing.assert_close(got[n].detach(), t, rtol=0, atol=0)
+    one.close()
+    # the train CLI on tensor 2
+    assert r0["cli_tensor_step"] == r1["cli_tensor_step"] == 2
+    assert r0["cli_tensor_loss"] == r1["cli_tensor_loss"]
+    assert np.isfinite(r0["cli_tensor_loss"])
+
+
+def test_dp_engine_draws_the_one_rank_engines_noise(case):
+    from unidisc_tpu_torch.serving.engine import build_engine
+    one = build_engine(preset="tiny", device="cpu", overrides=ENGINE_OVER)
+    want = one.run_batch([one.prepare(**r) for r in ENGINE_REQUESTS],
+                         seed=5)
+    for rank in case["world"]:
+        assert len(rank["engine"]) == len(want)
+        for got, w in zip(rank["engine"], want):
+            np.testing.assert_array_equal(got, w["image_ids"])

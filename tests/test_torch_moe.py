@@ -21,7 +21,12 @@ shape rules) against the JAX package's.
   and in int8 (quant_fused off; on refuses).
 * Muon, Adafactor and muP over the MoE leaves: the routes JAX's, and two
   updates against optax (tests/test_torch_optimizers.py's tolerance).
+* On the card (marked ``cuda``): the bf16 experts' products accumulated
+  and biased in fp32, against an fp64 reference of the same bf16 operands
+  (JAX's ``preferred_element_type=float32``).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -435,3 +440,47 @@ def test_two_updates_over_moe_leaves_match_optax(moe_dit, optimizer, mup):
         assert "v_row/blocks/moe/w1" in state.buffers
         assert tuple(state.buffers["v_row/blocks/moe/w1"].shape) == \
             (2, 4, 128)
+
+
+@pytest.mark.cuda
+def test_bf16_experts_accumulate_and_bias_in_fp32_on_card():
+    """On the card the experts' products take bf16 operands and return
+    fp32, the bias added before any rounding, as JAX's
+    preferred_element_type=float32. The inputs make that visible: each
+    first product is 1000 + a small term, and b1 = -1000 cancels the 1000;
+    a product rounded to bf16 first (a step of 4 at 1000) would leave an
+    error of up to 2 in the pre-activation, where the fp32 product leaves
+    ~1e-4. Held to an fp64 reference of the same bf16 operands (rounding
+    the GELU output and the result to bf16, as the layer does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run this file on the card")
+    cfg = dataclasses.replace(Config.make("tiny").model, hidden_size=64,
+                              mlp_ratio=4, moe_experts=2, moe_top_k=1,
+                              moe_capacity_factor=8.0)
+    gen = torch.Generator().manual_seed(0)
+    s, d, f = 64, 64, 256
+    x = torch.rand((1, s, d), generator=gen) * 2 - 1
+    x[..., 0] = 1.0
+    w1 = torch.randn((2, d, f), generator=gen) * 0.05
+    w1[:, 0, :] = 1000.0
+    w2 = torch.randn((2, f, d), generator=gen) / 16
+    b2 = torch.randn((2, 1, d), generator=gen) * 0.02
+    router = torch.randn((2, d), generator=gen)
+    mod = MoEMLP(cfg, compute_dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        for name, value in (("w1", w1), ("w2", w2), ("b2", b2),
+                            ("router.weight", router)):
+            mod.get_parameter(name).copy_(value)
+        mod.b1.fill_(-1000.0)
+        y, _ = mod(x.cuda().bfloat16())
+    # the reference: the same bf16 operands in fp64, top-1 routing (gate 1)
+    xb = x.bfloat16().double()[0]
+    expert = torch.argmax(x[0] @ router.t(), -1)
+    h = torch.einsum("sd,sdf->sf", xb, w1.bfloat16().double()[expert]) \
+        - 1000.0
+    h = torch.nn.functional.gelu(h, approximate="tanh").bfloat16().double()
+    want = torch.einsum("sf,sfd->sd", h, w2.bfloat16().double()[expert]) \
+        + b2.double()[expert, 0]
+    want = want.bfloat16().float()
+    err = (y[0].float().cpu() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err

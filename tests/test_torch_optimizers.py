@@ -27,8 +27,8 @@ import pytest
 import torch
 from flax import traverse_util
 
+from test_torch_dit import param_tree
 from unidisc_tpu.config import Config as JaxConfig
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.training import train_state as jts
 from unidisc_tpu.training.muon import muon_dimension_numbers
 from unidisc_tpu.training.mup import mup_multiplier as jax_mup_multiplier
@@ -61,8 +61,7 @@ def configs(**extra):
 @pytest.fixture(scope="module")
 def flax_params():
     jcfg, _ = configs()
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
+    params = param_tree(jcfg.model, jnp.float32)
     rng = np.random.RandomState(0)
     flat = traverse_util.flatten_dict(params, sep="/")
     return traverse_util.unflatten_dict(
@@ -100,13 +99,15 @@ def test_three_updates_match_optax(flax_params, optimizer, mup):
     topt = tts.make_optimizer(tcfg)
     state = topt.init(flat, params)
     rng = np.random.RandomState(1)
+    # one compiled update: optax op by op compiles each primitive apart
+    update = jax.jit(lambda g, s, p: (lambda u, s2: (
+        optax.apply_updates(p, u), s2))(*opt.update(g, s, p)))
     for step, scale in enumerate((0.3, 1e-3, 5e-4)):
         grads = tree_like(jparams, lambda k, v: jnp.asarray(
             rng.standard_normal(np.shape(v)) * scale, jnp.float32))
         norm = float(optax.global_norm(grads))
         assert (norm >= 1.0) == (step == 0)       # the clip fires once
-        upd, jstate = opt.update(grads, jstate, jparams)
-        jparams = optax.apply_updates(jparams, upd)
+        jparams, jstate = update(grads, jstate, jparams)
         g = tts.flatten(dit_state_dict_from_jax(jax.device_get(grads))[k]
                         for k in params)
         topt.apply(flat, g, state, params=params)

@@ -35,7 +35,6 @@ from flax import traverse_util
 
 from unidisc_tpu.config import Config as JaxConfig
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.ops import fused_qmm as jax_fused
 from unidisc_tpu.ops import quant as jax_quant
 from unidisc_tpu_torch.config import Config
@@ -43,7 +42,7 @@ from unidisc_tpu_torch.models import dit as dit_module
 from unidisc_tpu_torch.models.dit import DIT, QLinear, randomize_
 from unidisc_tpu_torch.models.port import dit_state_dict_from_jax
 from unidisc_tpu_torch.ops import _build, fused_qmm, quant
-from test_torch_dit import random_params
+from test_torch_dit import param_tree, random_params
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -174,9 +173,7 @@ def configs(**extra):
 @pytest.fixture(scope="module")
 def trees():
     jcfg, _ = configs()
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
-    params = random_params(params, seed=3)
+    params = random_params(param_tree(jcfg.model, jnp.float32), seed=3)
     return params, jax_quant.quantize_dit_params(params)
 
 

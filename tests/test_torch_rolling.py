@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from unidisc_tpu.config import SamplingConfig as JaxSampling
-from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.models.dit import DIT as JaxDIT
 from unidisc_tpu.sampling import sampler as jax_sampler
 from unidisc_tpu.serving import rolling as jax_rolling
 from unidisc_tpu_torch.config import SamplingConfig
@@ -36,7 +36,7 @@ from unidisc_tpu_torch.serving.rolling import (RollingDiffusionBatcher,
                                                build_rolling_sampler,
                                                build_rolling_t2i,
                                                keyed_uniform)
-from test_torch_dit import configs, port_model, random_params
+from test_torch_dit import configs, param_tree, port_model, random_params
 from unidisc_tpu_torch.device import cap_test_threads
 
 cap_test_threads()
@@ -54,9 +54,8 @@ def setup(**extra):
     key = tuple(sorted(extra.items()))
     if key not in _MODELS:
         jcfg, tcfg = configs(**{**OVER, **extra})
-        jmodel, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                                  compute_dtype=jnp.float32)
-        params = random_params(params, seed=0)
+        jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
+        params = random_params(param_tree(jcfg.model, jnp.float32), seed=0)
         _MODELS[key] = (jcfg, tcfg, jmodel, params, port_model(tcfg, params))
     return _MODELS[key]
 

@@ -1,28 +1,39 @@
-"""Sequence- and data-parallel training and sampling of the port on a mesh,
-against the JAX package on its 8 virtual CPU devices and against the
-port's one-rank paths.
+"""Sequence-, data-, pipeline-, tensor- and expert-parallel training and
+sampling of the port on a mesh, against the JAX package on its 8 virtual
+CPU devices and against the port's one-rank paths.
 
 The port's side runs once, in one gloo world of 4 CPU ranks
 (``tests/torch_mesh_worker.py``, job "seq"):
 
 * the train step (``make_train_step(mesh=)``) two steps from the same
-  state, batch and draws on three meshes: seq 4 (the ring, Lc 6 of L 24),
-  dcn 2 x fsdp 2 (HSDP: FSDP2 shards over "fsdp", replicates over "dcn")
-  and fsdp 2 x seq 2. Loss, grad norm, the metric sums, the parameters,
-  the Adam moments and the EMA are held to JAX's ``make_train_step`` on
-  the fsdp 2 x seq 2 mesh (``shard_train_step``; the JAX draws replayed)
-  within tests/test_torch_train_step.py's tolerance (fp32 both sides,
-  rtol 1e-4 with a floor of 1e-4 x each tensor's largest magnitude), and
-  to the port's one-rank step within the same bound (they differ only in
-  the attention's block order and the reductions' summation order;
-  observed ~1e-7).
+  state, batch and draws on six meshes: seq 4 (the ring, Lc 6 of L 24),
+  dcn 2 x fsdp 2 (HSDP: FSDP2 shards over "fsdp", replicates over "dcn"),
+  fsdp 2 x seq 2, fsdp 2 x pp 2 (GPipe, 2 microbatches), seq 2 x pp 2
+  (the ring inside each stage) and fsdp 2 x tensor 2 (megatron). Loss,
+  grad norm, the metric sums, the parameters, the Adam moments and the
+  EMA are held to JAX's ``make_train_step`` (``shard_train_step``; the JAX
+  draws replayed) on the same mesh for the pipeline and tensor meshes,
+  on fsdp 2 x seq 2 for the others, within
+  tests/test_torch_train_step.py's tolerance (fp32 both sides, rtol 1e-4
+  with a floor of 1e-4 x each tensor's largest magnitude), and to the
+  port's one-rank step within the same bound (they differ only in the
+  attention's block order and the reductions' summation order; observed
+  ~1e-7).
+* the MoE step (4 experts, top-2) on fsdp 2 x ep 2 (global routing, each
+  rank two experts) the same way, against JAX's MoE step on fsdp 2 x ep 2
+  and the port's one-rank MoE step.
 * ``spmd_sampler`` over the t2i sampler under injected noise on fsdp 2 x
-  seq 2 (dp 2: each rank samples one of the 2 rows) and on seq 4: token
-  for token JAX's t2i sampler under ``spmd_sampler`` on the fsdp 2 x seq 2
-  mesh, every rank alike.
-* ``build_engine(mesh=)``: on seq 4 the one-rank engine's results at the
-  same seed; on fsdp 2 x seq 2 a batch of 3 requests rounded up to the
-  granule 2, and the leader / follower replay equal to the SPMD call.
+  seq 2, seq 4, pp 4, fsdp 2 x pp 2 and fsdp 2 x tensor 2: token for
+  token JAX's t2i sampler under ``spmd_sampler`` on the fsdp 2 x seq 2
+  mesh (JAX's tests/test_spmd_sampling.py holds its pp, fsdp x pp and
+  fsdp x tensor meshes to one device), every rank alike; an MoE t2i on
+  dcn 2 x ep 2 token for token the port's one-rank MoE t2i (held to JAX in
+  tests/test_torch_moe.py).
+* ``build_engine(mesh=)``: on seq 4, fsdp 2 x seq 2 and pp 2 x tensor 2
+  the one-rank engine's results at the same seed (padded to the mesh's
+  granule: the noise is the global batch's), a batch of 3 requests
+  rounded up to the granule, and the leader / follower replay equal to
+  the SPMD call.
 """
 
 import dataclasses
@@ -60,22 +71,39 @@ cap_test_threads()
 STEPS = 2
 TRAIN_MESHES = {"seq4": dict(dcn=1, fsdp=1, seq=4),
                 "hsdp": dict(dcn=2, fsdp=2, seq=1),
-                "fsdp2_seq2": dict(dcn=1, fsdp=2, seq=2)}
+                "fsdp2_seq2": dict(dcn=1, fsdp=2, seq=2),
+                "fsdp2_pp2": dict(dcn=1, fsdp=2, pp=2, pp_microbatches=2),
+                "seq2_pp2": dict(dcn=1, fsdp=1, seq=2, pp=2,
+                                 pp_microbatches=2),
+                "fsdp2_tensor2": dict(dcn=1, fsdp=2, tensor=2)}
+# the JAX mesh each train mesh is held to: its own for the new axes
+JAX_TRAIN_MESH = {"seq4": "fsdp2_seq2", "hsdp": "fsdp2_seq2",
+                  "fsdp2_seq2": "fsdp2_seq2", "fsdp2_pp2": "fsdp2_pp2",
+                  "seq2_pp2": "seq2_pp2", "fsdp2_tensor2": "fsdp2_tensor2"}
+MOE_MESHES = {"fsdp2_ep2": dict(dcn=1, fsdp=2, ep=2)}
+MOE_OVER = {"model.moe_experts": 4, "model.moe_top_k": 2}
 SAMPLER_MESHES = {"fsdp2_seq2": dict(fsdp=2, seq=2),
-                  "seq4": dict(fsdp=1, seq=4)}
+                  "seq4": dict(fsdp=1, seq=4),
+                  "pp4": dict(fsdp=1, pp=4, pp_microbatches=2),
+                  "fsdp2_pp2": dict(fsdp=2, pp=2, pp_microbatches=1),
+                  "fsdp2_tensor2": dict(fsdp=2, tensor=2)}
+MOE_SAMPLER_MESHES = {"dcn2_ep2": dict(dcn=2, fsdp=1, ep=2)}
+ENGINE_MESHES = ["seq=4", "fsdp=2,seq=2", "pp=2,tensor=2,pp_microbatches=2"]
 ENGINE_OVER = {"sampling.predictor": "maskgit", "sampling.steps": 4,
-               "sampling.cfg": 2.0, "model.text_vocab_size": 300}
+               "sampling.cfg": 2.0, "model.text_vocab_size": 300,
+               "model.dropout": 0.0}
 REQUESTS = [dict(text="a red cube"), dict(text="two cats"), dict(text="x")]
 T2I_STEPS = 4
 
 
-def sampler_case():
-    """The flagship-shaped tiny DIT of tests/test_torch_dit.py with random
-    weights, 2 prompts and the injected noise."""
+def sampler_case(**extra):
+    """The flagship-shaped tiny DIT of tests/test_torch_dit.py (4 blocks,
+    for pp 4) with random weights, 2 prompts and the injected noise."""
     from test_torch_dit import B, configs as dit_configs
     jcfg, tcfg = dit_configs(**{"sampling.predictor": "maskgit",
                                 "sampling.steps": T2I_STEPS,
-                                "sampling.cfg": 2.0})
+                                "sampling.cfg": 2.0, "model.n_blocks": 4,
+                                **extra})
     m = jcfg.model
     from test_torch_dit import random_params as dit_random_params
     params = dit_random_params(param_shapes(m), seed=3)
@@ -99,63 +127,86 @@ def param_shapes(m):
         lambda key: init_dit(key, m, compute_dtype=jnp.float32)[1],
         jax.random.PRNGKey(0))
 
-@pytest.fixture(scope="module")
-def case(tmp_path_factory):
-    jcfg, tcfg = configs()
+def train_case(**extra):
+    """(JAX config, port config, JAX state, its port state dict, batch,
+    rng, draws) of the train-step case."""
+    jcfg, tcfg = configs(**extra)
     params = random_params(param_shapes(jcfg.model))
     jstate0 = jts.init_train_state(jcfg, params)
     sd0 = train_state_from_jax(jax.device_get(jstate0))
     batch = make_batch(jcfg.model)
     rng = jax.random.PRNGKey(7)
     draws = [step_draws(rng, i, 1, jcfg.model) for i in range(STEPS)]
-    sjcfg, stcfg, sparams, txt, injected = sampler_case()
-    inputs = {
-        "config": tcfg, "meshes": TRAIN_MESHES, "sd0": sd0, "batch": batch,
-        "draws": draws,
-        "sampler": {"config": stcfg, "sd": dit_state_dict_from_jax(sparams),
-                    "txt": txt, "injected": injected,
-                    "meshes": SAMPLER_MESHES},
-        "engine": {"meshes": ["seq=4", "fsdp=2,seq=2"],
-                   "overrides": ENGINE_OVER, "requests": REQUESTS,
-                   "seed": 3}}
-    world = run_world("seq", 4, tmp_path_factory.mktemp("seq"),
-                      inputs=inputs)
-    return dict(jcfg=jcfg, tcfg=tcfg, params=params, jstate0=jstate0,
-                sd0=sd0, batch=batch, rng=rng, draws=draws, world=world,
-                sampler=(sjcfg, stcfg, sparams, txt, injected))
+    return dict(jcfg=jcfg, tcfg=tcfg, jstate0=jstate0, sd0=sd0,
+                batch=batch, rng=rng, draws=draws)
 
 
 @pytest.fixture(scope="module")
-def jax_mesh_steps(case):
-    """JAX's make_train_step on the fsdp 2 x seq 2 mesh: (state, metrics)
-    after STEPS steps."""
-    jcfg = case["jcfg"]
-    jcfg = dataclasses.replace(jcfg, mesh=JaxMeshConfig(
-        dcn=1, fsdp=2, tensor=1, seq=2))
-    mesh = jax_make_mesh(jcfg.mesh, devices=jax.devices()[:4])
+def case(tmp_path_factory):
+    train, moe = train_case(), train_case(**MOE_OVER)
+    sjcfg, stcfg, sparams, txt, injected = sampler_case()
+    mjcfg, mtcfg, mparams, _, _ = sampler_case(**MOE_OVER)
+    inputs = {
+        "train": {"config": train["tcfg"], "meshes": TRAIN_MESHES,
+                  **{k: train[k] for k in ("sd0", "batch", "draws")}},
+        "moe": {"config": moe["tcfg"], "meshes": MOE_MESHES,
+                **{k: moe[k] for k in ("sd0", "batch", "draws")}},
+        "t2i": {"config": stcfg, "sd": dit_state_dict_from_jax(sparams),
+                "txt": txt, "injected": injected, "meshes": SAMPLER_MESHES},
+        "moe_t2i": {"config": mtcfg, "sd": dit_state_dict_from_jax(mparams),
+                    "txt": txt, "injected": injected,
+                    "meshes": MOE_SAMPLER_MESHES},
+        "engine": {"meshes": ENGINE_MESHES, "overrides": ENGINE_OVER,
+                   "requests": REQUESTS, "seed": 3}}
+    world = run_world("seq", 4, tmp_path_factory.mktemp("seq"),
+                      inputs=inputs)
+    return dict(train=train, moe=moe, world=world,
+                sampler=(sjcfg, stcfg, sparams, txt, injected),
+                moe_sampler=(mtcfg, mparams))
+
+
+def jax_steps(c, spec):
+    """JAX's make_train_step on the mesh of `spec` (port mesh fields):
+    (state, metrics) after STEPS steps from the case `c`."""
+    spec = {"dcn": 1, "tensor": 1, "seq": 1, **spec}
+    jcfg = dataclasses.replace(c["jcfg"], mesh=JaxMeshConfig(**spec))
+    n = int(np.prod([spec.get(a, 1) for a in ("dcn", "fsdp", "tensor",
+                                               "seq", "pp", "ep")]))
+    mesh = jax_make_mesh(jcfg.mesh, devices=jax.devices()[:n])
     jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
     step = jts.make_train_step(jcfg, jmodel, mesh=mesh)
-    jitted, state, data_sh = jts.shard_train_step(step, case["jstate0"],
-                                                  mesh)
+    # a fresh copy of the start state: a step donates the state it takes
+    jitted, state, data_sh = jts.shard_train_step(
+        step, jax.tree_util.tree_map(jnp.array, c["jstate0"]), mesh)
     batch = jax.device_put({k: jnp.asarray(v)
-                            for k, v in case["batch"].items()}, data_sh)
+                            for k, v in c["batch"].items()}, data_sh)
     metrics = []
     for _ in range(STEPS):
-        state, m = jitted(state, batch, case["rng"])
+        state, m = jitted(state, batch, c["rng"])
         metrics.append(m)
     return state, metrics
 
 
 @pytest.fixture(scope="module")
-def one_rank_steps(case):
-    tcfg = case["tcfg"]
+def jax_mesh_steps(case, jax_spmd_tokens):
+    """JAX's steps by the name of the mesh they ran on. The first test
+    asks for every JAX reference (these and the sampler's tokens) before
+    it reads the world, so they compile while the ranks run."""
+    return {name: jax_steps(case["moe" if name in MOE_MESHES else "train"],
+                            {**TRAIN_MESHES, **MOE_MESHES}[name])
+            for name in sorted(set(JAX_TRAIN_MESH.values())
+                               | set(MOE_MESHES))}
+
+
+def one_rank(c):
+    tcfg = c["tcfg"]
     model = DIT(tcfg.model, compute_dtype=torch.float32)
     state = tts.init_train_state(tcfg, model)
-    state.load_state_dict(case["sd0"])
+    state.load_state_dict(c["sd0"])
     step = tts.make_train_step(tcfg, model)
-    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
     metrics = []
-    for d in case["draws"]:
+    for d in c["draws"]:
         state, m = step(state, batch, draws=d)
         metrics.append(m)
     sd = {k: {n: t.detach() for n, t in v.items()} if isinstance(v, dict)
@@ -163,41 +214,52 @@ def one_rank_steps(case):
     return sd, metrics
 
 
+@pytest.fixture(scope="module")
+def one_rank_steps(case):
+    return {key: one_rank(case[key]) for key in ("train", "moe")}
+
+
 METRICS = ("loss", "grad_norm", "txt_loss", "img_loss", "nll_sum",
            "token_count", "nll_txt_sum", "txt_count", "nll_img_sum",
            "img_count")
 
 
-@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+ALL_TRAIN = [("train", m) for m in TRAIN_MESHES] + \
+    [("moe", m) for m in MOE_MESHES]
+
+
+@pytest.mark.parametrize("mesh", [m for _, m in ALL_TRAIN])
 def test_mesh_train_step_matches_jax_on_its_mesh(case, jax_mesh_steps, mesh):
-    jstate, jmetrics = jax_mesh_steps
-    got = case["world"][0]["train"][mesh]
+    key = "moe" if mesh in MOE_MESHES else "train"
+    jstate, jmetrics = jax_mesh_steps[JAX_TRAIN_MESH.get(mesh, mesh)]
+    got = case["world"][0][key][mesh]
     for i, jm in enumerate(jmetrics):
         for name in METRICS:
             np.testing.assert_allclose(
                 got["metrics"][i][name], float(getattr(jm, name)),
                 rtol=1e-4, atol=1e-6, err_msg=f"{mesh} step {i}: {name}")
     want = train_state_from_jax(jax.device_get(jstate))
-    for key in ("step", "adam_count", "schedule_count"):
-        assert int(got["state"][key]) == int(want[key]) == STEPS, key
-    for key in ("params", "mu", "nu", "ema_params"):
-        assert_tree_close(got["state"][key], want[key], f"{mesh}: {key}")
+    for k in ("step", "adam_count", "schedule_count"):
+        assert int(got["state"][k]) == int(want[k]) == STEPS, k
+    for k in ("params", "mu", "nu", "ema_params"):
+        assert_tree_close(got["state"][k], want[k], f"{mesh}: {k}")
 
 
-@pytest.mark.parametrize("mesh", list(TRAIN_MESHES))
+@pytest.mark.parametrize("mesh", [m for _, m in ALL_TRAIN])
 def test_mesh_train_step_matches_the_one_rank_step(case, one_rank_steps,
                                                    mesh):
-    want_sd, want_metrics = one_rank_steps
+    key = "moe" if mesh in MOE_MESHES else "train"
+    want_sd, want_metrics = one_rank_steps[key]
     for r, rank in enumerate(case["world"]):
-        got = rank["train"][mesh]["metrics"]
+        got = rank[key][mesh]["metrics"]
         for i, wm in enumerate(want_metrics):
             for name in METRICS:
                 np.testing.assert_allclose(
                     got[i][name], float(getattr(wm, name)), rtol=1e-5,
                     atol=1e-6, err_msg=f"{mesh} rank {r} step {i}: {name}")
-    got_sd = case["world"][0]["train"][mesh]["state"]
-    for key in ("params", "mu", "nu", "ema_params"):
-        assert_tree_close(got_sd[key], want_sd[key], f"{mesh}: {key}")
+    got_sd = case["world"][0][key][mesh]["state"]
+    for k in ("params", "mu", "nu", "ema_params"):
+        assert_tree_close(got_sd[k], want_sd[k], f"{mesh}: {k}")
 
 
 @pytest.fixture(scope="module")
@@ -229,22 +291,40 @@ def test_spmd_t2i_sampler_matches_jax_token_for_token(case, jax_spmd_tokens,
                                       err_msg=f"rank {r}")
 
 
+def test_moe_t2i_on_dcn2_ep2_matches_the_one_rank_sampler(case):
+    from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+    mtcfg, mparams = case["moe_sampler"]
+    _, _, _, txt, injected = case["sampler"]
+    model = DIT(mtcfg.model, compute_dtype=torch.float32).eval()
+    model.load_state_dict(dit_state_dict_from_jax(mparams))
+    want = build_t2i_sampler(model, mtcfg, inject_noise=True,
+                             device="cpu")(
+        torch.from_numpy(txt), injected={
+            k: torch.from_numpy(v) for k, v in injected.items()}).tokens
+    for r, rank in enumerate(case["world"]):
+        np.testing.assert_array_equal(rank["moe_t2i"]["dcn2_ep2"],
+                                      want.numpy(), err_msg=f"rank {r}")
+
+
 def test_engine_on_a_mesh(case):
     one = build_engine(preset="tiny", device="cpu", overrides=ENGINE_OVER)
-    want = one.run_batch([one.prepare(**r) for r in REQUESTS], seed=3)
-    for r, rank in enumerate(case["world"]):
-        seq = rank["engine"]["seq=4"]
-        assert seq["granule"] == 1
-        for got, w in zip(seq["tokens"], want):
-            np.testing.assert_array_equal(got, w["image_ids"])
-        assert seq["texts"] == [w["text"] for w in want]
-        dp = rank["engine"]["fsdp=2,seq=2"]
-        assert dp["granule"] == 2 and len(dp["tokens"]) == len(REQUESTS)
-        for got, w in zip(dp["tokens"], case["world"][0]["engine"][
-                "fsdp=2,seq=2"]["tokens"]):
-            np.testing.assert_array_equal(got, w)
+    prepared = [one.prepare(**r) for r in REQUESTS]
+    granules = {"seq=4": 1, "fsdp=2,seq=2": 2,
+                "pp=2,tensor=2,pp_microbatches=2": 2}
+    for spec, granule in granules.items():
+        # the one-rank engine at the same seed over the mesh's padded batch
+        want = one.run_batch(prepared, seed=3, pad_to=-(-len(REQUESTS)
+                                                        // granule) * granule)
+        for r, rank in enumerate(case["world"]):
+            got = rank["engine"][spec]
+            assert got["granule"] == granule
+            assert len(got["tokens"]) == len(REQUESTS)
+            for g, w in zip(got["tokens"], want):
+                np.testing.assert_array_equal(g, w["image_ids"],
+                                              err_msg=f"{spec} rank {r}")
+            assert got["texts"] == [w["text"] for w in want]
     led = case["world"][0]["engine"]
-    for spec in ("seq=4", "fsdp=2,seq=2"):
+    for spec in granules:
         assert led[spec]["refused"]
         for a, b in zip(led[spec]["led"], led[spec]["tokens"]):
             np.testing.assert_array_equal(a, b)
@@ -259,9 +339,24 @@ def test_granule_and_validate_mesh_refusals():
     odd = dataclasses.replace(layout, seq_size=5)
     with pytest.raises(ValueError, match="not divisible by seq=5"):
         validate_mesh(tcfg, odd)
-    for axis in ("pp", "tensor", "ep"):
-        bad = dataclasses.replace(layout, sizes={**layout.sizes, axis: 2})
+    # the pipeline's granule: data-parallel width x microbatches
+    pp = dataclasses.replace(layout, sizes={**layout.sizes, "pp": 2})
+    assert batch_multiple(tcfg, pp) == 4 * tcfg.mesh.pp_microbatches
+    validate_mesh(tcfg, pp)
+    with pytest.raises(ValueError, match="n_blocks"):
+        validate_mesh(tcfg, dataclasses.replace(
+            layout, sizes={**layout.sizes, "pp": 4 * tcfg.model.n_blocks}))
+    validate_mesh(tcfg, dataclasses.replace(
+        layout, sizes={**layout.sizes, "tensor": 2}))
+    # what stays refused names item 9
+    with pytest.raises(NotImplementedError, match="item 9"):
+        validate_mesh(tcfg, dataclasses.replace(
+            layout, sizes={**layout.sizes, "pp": 2, "ep": 2}))
+    int8 = dataclasses.replace(tcfg, model=dataclasses.replace(
+        tcfg.model, quant="int8"))
+    for axis in ("pp", "tensor"):
         with pytest.raises(NotImplementedError, match="item 9"):
-            validate_mesh(tcfg, bad)
+            validate_mesh(int8, dataclasses.replace(
+                layout, sizes={**layout.sizes, axis: 2}))
     assert MeshConfig().axis_names() == ("dcn", "fsdp", "tensor", "seq",
                                          "pp", "ep")

@@ -41,9 +41,9 @@ import pytest
 import torch
 from flax import traverse_util
 
+from test_torch_dit import param_tree
 from unidisc_tpu.config import Config as JaxConfig
 from unidisc_tpu.models.dit import DIT as JaxDIT
-from unidisc_tpu.models.dit import init_dit
 from unidisc_tpu.training import train_state as jts
 from unidisc_tpu_torch.config import FLAGSHIP_TRAIN_OVERRIDES, Config
 from unidisc_tpu_torch.models.dit import DIT
@@ -147,9 +147,7 @@ def assert_tree_close(got, want, what):
 @pytest.fixture(scope="module")
 def jax_params():
     jcfg, _ = configs()
-    _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                         compute_dtype=jnp.float32)
-    return random_params(params)
+    return random_params(param_tree(jcfg.model, jnp.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -483,9 +481,7 @@ def test_other_train_steps_match_jax(jax_params, variant, monkeypatch):
                             **OTHER_STEPS[variant]})
     params = jax_params
     if variant == "add_label":
-        _, params = init_dit(jax.random.PRNGKey(0), jcfg.model,
-                             compute_dtype=jnp.float32)
-        params = random_params(params, seed=3)
+        params = random_params(param_tree(jcfg.model, jnp.float32), seed=3)
     batch = make_batch(jcfg.model, seed=5)
     if variant == "add_label":
         batch["label"] = np.asarray([0, 3, 1, 2], np.int32)

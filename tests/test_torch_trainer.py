@@ -129,15 +129,15 @@ def test_validate_aggregates_eval_metrics(tmp_path):
 
 def test_unported_trainer_options_raise(tmp_path):
     # LoRA and host offload are ported (tests/test_torch_lora.py,
-    # tests/test_torch_offload.py), and meshes over dcn, fsdp and seq
-    # (tests/test_torch_mesh.py); wandb and a mesh with pp, tensor or ep
-    # > 1 still raise
+    # tests/test_torch_offload.py), and meshes over every axis
+    # (tests/test_torch_mesh.py, tests/test_torch_seq_parallel.py); wandb
+    # and a mesh with ep inside a pipeline stage still raise
     cfg = config()
     with pytest.raises(NotImplementedError):
         Trainer(cfg, str(tmp_path), device="cpu", use_wandb=True)
     from unidisc_tpu_torch.parallel.mesh import AXES
-    for axis in ("pp", "tensor", "ep"):
-        sizes = {a: 2 if a in (axis, "fsdp") else 1 for a in AXES}
+    for axis in ("fsdp", "tensor"):
+        sizes = {a: 2 if a in (axis, "pp", "ep") else 1 for a in AXES}
         mesh = types.SimpleNamespace(mesh_dim_names=AXES,
                                      size=lambda i: sizes[AXES[i]])
         with pytest.raises(NotImplementedError, match="item 9"):

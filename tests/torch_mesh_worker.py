@@ -178,6 +178,81 @@ def job_ring(rank, world):
 
 
 # ---------------------------------------------------------------------------
+# the GPipe schedule (tests/test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+PIPE_B, PIPE_D, PIPE_LAYERS = 8, 16, 8
+
+
+def pipe_stack(seed):
+    rng = np.random.RandomState(seed)
+    return {"w": rng.randn(PIPE_LAYERS, PIPE_D, PIPE_D) / np.sqrt(PIPE_D),
+            "b": rng.randn(PIPE_LAYERS, PIPE_D) * 0.1}
+
+
+def pipe_inputs(seed):
+    rng = np.random.RandomState(seed)
+    return rng.randn(PIPE_B, PIPE_D), rng.randn(PIPE_B, PIPE_D) * 0.3
+
+
+def pipe_stage(params, a, mb_args, scale):
+    """JAX tests/test_pipeline.py's stage: dense + GELU layers, each adding
+    the microbatch's own bias."""
+    import torch
+    for w, b in zip(params["w"], params["b"]):
+        a = torch.nn.functional.gelu(a @ w + b + 0.1 * mb_args["bias"],
+                                     approximate="tanh") \
+            * scale
+    return a
+
+
+def job_pipeline(rank, world):
+    """pipeline_sharded on 4 stages: the forward at 1, 2, 4 and 8
+    microbatches, the gradients at 4 (a loss every rank computes alike),
+    and the refusals."""
+    import torch
+    from unidisc_tpu_torch.parallel.pipeline import pipeline_sharded
+    group = None
+
+    def t(a, grad=False):
+        return torch.tensor(a, dtype=torch.float32, requires_grad=grad)
+    params = {k: t(v) for k, v in pipe_stack(0).items()}
+    x, bias = (t(a) for a in pipe_inputs(1))
+    out = {"forward": {}}
+    with torch.no_grad():
+        for m in (1, 2, 4, 8):
+            out["forward"][m] = pipeline_sharded(
+                pipe_stage, params, x, group, 1.01, mb_args={"bias": bias},
+                microbatches=m).numpy()
+    params = {k: t(v, True) for k, v in pipe_stack(2).items()}
+    x = t(pipe_inputs(3)[0], True)
+    bias = t(pipe_inputs(3)[1])
+    loss = torch.tanh(pipeline_sharded(pipe_stage, params, x, group, 0.99,
+                                       mb_args={"bias": bias},
+                                       microbatches=4)).sum()
+    loss.backward()
+    per = PIPE_LAYERS // world
+    out["grads"] = {k: p.grad[rank * per:(rank + 1) * per].numpy()
+                    for k, p in params.items()}
+    out["dx"] = x.grad.numpy()
+    out["loss"] = float(loss)
+    errors = {}
+    for what, call in (
+            ("batch", lambda: pipeline_sharded(
+                pipe_stage, params, x[:6], group, 1.0,
+                mb_args={"bias": bias[:6]}, microbatches=4)),
+            ("layers", lambda: pipeline_sharded(
+                pipe_stage, {k: v[:6] for k, v in params.items()}, x, group,
+                1.0, mb_args={"bias": bias}, microbatches=4))):
+        try:
+            call()
+        except ValueError as e:
+            errors[what] = str(e)
+    out["errors"] = errors
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the train step on a mesh (tests/test_torch_seq_parallel.py,
 # tests/test_torch_mesh.py)
 # ---------------------------------------------------------------------------
@@ -235,13 +310,16 @@ def t2i_mesh(cfg, sd, spec, txt, injected):
     import torch
 
     from unidisc_tpu_torch.models.dit import DIT
-    from unidisc_tpu_torch.parallel.mesh import MeshLayout, make_mesh
+    from unidisc_tpu_torch.parallel.mesh import (MeshLayout, make_mesh,
+                                                 shard_model)
     from unidisc_tpu_torch.parallel.sample import spmd_sampler
     from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
-    mcfg = dataclasses.replace(cfg.mesh, **spec)
-    layout = MeshLayout.of(make_mesh(mcfg))
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                            **spec))
+    layout = MeshLayout.of(make_mesh(cfg.mesh))
     model = DIT(cfg.model, compute_dtype=torch.float32).eval()
     model.load_state_dict(sd)
+    shard_model(model, layout)
     sample = spmd_sampler(build_t2i_sampler(model, cfg, inject_noise=True,
                                             device="cpu"), cfg, layout)
     out = sample(torch.from_numpy(txt),
@@ -252,19 +330,24 @@ def t2i_mesh(cfg, sd, spec, txt, injected):
 
 def job_seq(rank, world):
     """The 4-rank world of tests/test_torch_seq_parallel.py: the train
-    step on three meshes, the t2i sampler on two, the engine."""
+    step on the dense meshes and the MoE step on its own, the t2i sampler
+    on the dense meshes and the MoE one on its own, the engine."""
     inp = load_inputs()
-    out = {"train": {}}
-    for name, spec in inp["meshes"].items():
-        sd, metrics = mesh_train(inp["config"], spec, inp["sd0"],
-                                 inp["batch"], inp["draws"])
-        out["train"][name] = {"metrics": metrics}
-        if rank == 0:
-            out["train"][name]["state"] = sd
-    s = inp["sampler"]
-    out["t2i"] = {name: t2i_mesh(s["config"], s["sd"], spec, s["txt"],
-                                 s["injected"])
-                  for name, spec in s["meshes"].items()}
+    out = {}
+    for key in ("train", "moe"):
+        t = inp[key]
+        out[key] = {}
+        for name, spec in t["meshes"].items():
+            sd, metrics = mesh_train(t["config"], spec, t["sd0"],
+                                     t["batch"], t["draws"])
+            out[key][name] = {"metrics": metrics}
+            if rank == 0:
+                out[key][name]["state"] = sd
+    for key in ("t2i", "moe_t2i"):
+        s = inp[key]
+        out[key] = {name: t2i_mesh(s["config"], s["sd"], spec, s["txt"],
+                                   s["injected"])
+                    for name, spec in s["meshes"].items()}
     out["engine"] = engine_checks(rank, inp["engine"])
     return out
 
@@ -362,20 +445,43 @@ def job_mesh2(rank, world):
         out["final"] = {k: {n: t.detach().clone() for n, t in full[k].items()}
                         for k in ("params", "ema_params")}
     trainer.close()
-    cli_dir = os.path.join(inp["dir"], "cli")
-    res = train_cli.main(["--device", "cpu", "--run-dir", cli_dir,
-                          "--batch-size", "4", "--log-every", "1",
-                          "model=tiny", "model.length=16",
-                          "model.txt_length=8", "model.img_length=8",
-                          "mesh.fsdp=2", "trainer.max_steps=2"])
-    out["cli_step"] = res["step"]
-    out["cli_loss"] = res["loss"]
+    # the Trainer on pp 2: a stage's blocks on each rank, the run dir in
+    # the one-rank format
+    pp_cfg = Config.make("tiny", **{**TRAINER_OVER, "mesh.fsdp": 1,
+                                    "mesh.pp": 2, "mesh.pp_microbatches": 2})
+    trainer = Trainer(pp_cfg, os.path.join(inp["dir"], "run_pp"),
+                      device="cpu", log_every=100, val_every=0, ckpt_every=0)
+    out["pp_held"] = sorted(trainer.state.params)
+    out["pp_fit_step"] = trainer.fit(Loader(range(100), rank, world), None,
+                                     max_steps=3)["step"]
+    full = trainer.state.state_dict()
+    if rank == 0:
+        out["pp_final"] = {n: t.detach().clone()
+                           for n, t in full["params"].items()}
+    trainer.close()
+    for name, mesh in (("cli", ["mesh.fsdp=2"]),
+                       ("cli_tensor", ["mesh.fsdp=1", "mesh.tensor=2"])):
+        res = train_cli.main(["--device", "cpu", "--run-dir",
+                              os.path.join(inp["dir"], name),
+                              "--batch-size", "4", "--log-every", "1",
+                              "model=tiny", "model.length=16",
+                              "model.txt_length=8", "model.img_length=8",
+                              *mesh, "trainer.max_steps=2"])
+        out[f"{name}_step"] = res["step"]
+        out[f"{name}_loss"] = res["loss"]
+    # the engine on fsdp 2 at a seed: the draws of the global batch
+    from unidisc_tpu_torch.serving.engine import build_engine
+    e = inp["engine"]
+    eng = build_engine(preset="tiny", device="cpu", mesh="fsdp=2",
+                       overrides=e["overrides"])
+    out["engine"] = [r["image_ids"] for r in eng.run_batch(
+        [eng.prepare(**r) for r in e["requests"]], seed=e["seed"])]
     del torch
     return out
 
 
 JOBS = {"ring": job_ring, "train": job_train, "seq": job_seq,
-        "mesh2": job_mesh2}
+        "mesh2": job_mesh2, "pipeline": job_pipeline}
 
 
 def main():

@@ -220,8 +220,9 @@ class SamplingConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (multi-device parallelism is not in the port
-    yet). A size of -1 means "all remaining devices"."""
+    """Device mesh layout (``parallel/mesh.py``): one process per device.
+    A size of -1 means "all remaining devices"; ``pp_microbatches`` is the
+    pipeline's microbatch count under pp > 1."""
 
     dcn: int = 1
     fsdp: int = -1

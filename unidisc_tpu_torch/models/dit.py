@@ -116,8 +116,17 @@ the flash-kernel ring over the "seq" group
 hidden states over L before the vocab head, so every rank of the group
 gets the whole sequence's logits. The ring takes no dense ``attn_mask``,
 KV cache or frozen prefix; MoE (whose expert capacity is per batch) and
-the img_cond cross-attention under it are ROADMAP queue 1, item 13. The
-pipeline branch is not in the port.
+the img_cond cross-attention under it are ROADMAP queue 1, item 13.
+
+The rest of the device mesh: under ``parallel/pipeline.py::
+pipeline_parallel`` (a "pp" axis larger than 1) the block stack runs as a
+GPipe pipeline over the "pp" group, each rank running the blocks of its
+stage (``_pipelined``); the "seq" chunking above composes with it, L
+staying sharded across the stage boundary with the ring inside each
+stage. Under "tensor" each block runs megatron tensor parallelism
+(``DDiTBlock``); under "ep" and on a data-parallel mesh the MoE layers
+route over the global batch and run their experts split over "ep"
+(``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -132,7 +141,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidisc_tpu_torch.config import ModelConfig
-from unidisc_tpu_torch.models.moe import MoEMLP
+from unidisc_tpu_torch.models.moe import MoEMLP, bmm_f32
 from unidisc_tpu_torch.models.rotary import (apply_rope, build_multimodal_rope,
                                              build_multires_rope, rope_1d)
 from unidisc_tpu_torch.ops.attention import (make_sample_ids_mask,
@@ -141,6 +150,9 @@ from unidisc_tpu_torch.ops.flash_attention import flash_attention
 from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
 from unidisc_tpu_torch.ops.quant import (int8_kv_attention, qdot,
                                          quantize_kv)
+from unidisc_tpu_torch.parallel.comm import (GatherReplicated, copy_to,
+                                             reduce_from, sum_over)
+from unidisc_tpu_torch.parallel.pipeline import current_pp
 from unidisc_tpu_torch.parallel.seq_parallel import \
     current_seq_mesh as _ring_ctx
 
@@ -179,6 +191,16 @@ class QLinear(nn.Module):
                       self.scale, bias=self.bias, out_dtype=out_dtype,
                       backend=self.backend, **prologue)
         return y.reshape(*x.shape[:-1], self.out_features)
+
+
+def _product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T of compute-dtype operands accumulated and returned in fp32:
+    on the card one fp32-output product (``models/moe.py::bmm_f32``),
+    elsewhere the product of the operands' fp32 values."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return bmm_f32(x.reshape(1, -1, x.shape[-1]), w.t()[None]).view(
+            *x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
 
 
 def make_linear(cfg: ModelConfig, in_features: int, out_features: int, *,
@@ -245,13 +267,27 @@ class QKNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """x: the whole width, or with `tp` (a tensor ``comm.Axis``) the
+        rank's block of it: the statistics are then the sums of every
+        rank's part, and the rank applies its block of the scale and
+        bias."""
         x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        mul = torch.rsqrt(var + 1e-6) * self.weight.float()
-        y = (x32 - mean) * mul + self.bias.float()
+        weight, bias = self.weight, self.bias
+        if tp is None:
+            mean = x32.mean(-1, keepdim=True)
+            ex2 = (x32 * x32).mean(-1, keepdim=True)
+        else:
+            w = x.shape[-1]
+            sums = sum_over(torch.stack([x32.sum(-1), (x32 * x32).sum(-1)],
+                                        -1), tp.group) / (w * tp.size)
+            mean, ex2 = sums[..., :1], sums[..., 1:]
+            lo = tp.rank * w
+            weight = copy_to(weight, tp.group)[lo:lo + w]
+            bias = copy_to(bias, tp.group)[lo:lo + w]
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + 1e-6) * weight.float()
+        y = (x32 - mean) * mul + bias.float()
         return y.to(self.compute_dtype)
 
 
@@ -420,13 +456,25 @@ class DDiTBlock(nn.Module):
     """Transformer block with optional adaLN time conditioning and
     sandwich normalization. The self-attention parameters sit on the
     block (``attn_qkv``, ``attn_out``, ``q_norm``, ``k_norm``), as in the
-    reference torch names."""
+    reference torch names.
+
+    ``tp``: under tensor parallelism (set by ``parallel/mesh.py::
+    shard_model``, a ``comm.Axis`` of the "tensor" group) the block holds
+    its head shard of the megatron leaves and runs them so: ``attn_qkv``,
+    ``mlp.0`` and ``adaLN_modulation`` column-parallel (the input through
+    ``comm.copy_to``), ``attn_out`` and ``mlp.2`` row-parallel (the
+    partial outputs through ``comm.reduce_from``, mlp.2's bias after the
+    sum), attention over the rank's n_heads / tensor heads, the QK-norm's
+    statistics summed over the group, the six adaLN chunks gathered whole
+    on every rank. The residual stream, the norms and the dropout masks
+    are whole and alike on every tensor rank."""
 
     def __init__(self, cfg: ModelConfig,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.tp = None
         dim = cfg.hidden_size
         self.norm1 = Norm(dim, cfg.norm_type, compute_dtype)
         self.attn_qkv = make_linear(cfg, dim, 3 * dim, bias=False)
@@ -458,15 +506,23 @@ class DDiTBlock(nn.Module):
         (q_seg, k_seg) of a packed batch, taken where no attn_mask is."""
         cfg = self.cfg
         dt = self.compute_dtype
+        tp = self.tp
         b, l, dim = x.shape
         h, d = cfg.n_heads, cfg.head_dim
+        if tp is not None:
+            if kv_cache is not None or frozen_kv is not None:
+                raise NotImplementedError(
+                    "a KV cache or frozen K/V under tensor parallelism is "
+                    "not in the port yet (ROADMAP queue 1, item 9)")
+            x = copy_to(x, tp.group)
+            h, dim = h // tp.size, dim // tp.size
         if qkv_prologue is None:
             qkv = dense(x, self.attn_qkv, dt)
         else:
             qkv = self.attn_qkv(x, dt, qkv_prologue)
         if cfg.qk_norm:
-            qkv = torch.cat([self.q_norm(qkv[..., :dim]),
-                             self.k_norm(qkv[..., dim:2 * dim]),
+            qkv = torch.cat([self.q_norm(qkv[..., :dim], tp),
+                             self.k_norm(qkv[..., dim:2 * dim], tp),
                              qkv[..., 2 * dim:]], dim=-1)
         q, k, v = qkv.view(b, l, 3, h, d).unbind(2)
         q = apply_rope(q, rope_cos, rope_sin)
@@ -510,7 +566,30 @@ class DDiTBlock(nn.Module):
                                   segment_ids=segment_ids)
         else:
             out = multihead_attention(q, k, v, mask=attn_mask, causal=causal)
-        return dense(out.reshape(b, l, dim), self.attn_out, dt)
+        if tp is None:
+            return dense(out.reshape(b, l, dim), self.attn_out, dt)
+        return self._tp_linear(out.reshape(b, l, dim), self.attn_out,
+                               cols=False)
+
+    def _tp_linear(self, x, layer, cols: bool):
+        """One tensor-parallel product: `cols` column-parallel (the rank's
+        block of the output in the compute dtype, its block of the whole
+        bias), else row-parallel: the ranks' partial products of the
+        compute-dtype operands in fp32, summed, the bias added and rounded
+        once to the compute dtype, as the one-rank product rounds its
+        fp32 accumulator."""
+        dt, tp = self.compute_dtype, self.tp
+        if cols:
+            w = layer.weight.shape[0]
+            bias = None if layer.bias is None else copy_to(
+                layer.bias, tp.group)[tp.rank * w:(tp.rank + 1) * w].to(dt)
+            return F.linear(copy_to(x, tp.group).to(dt),
+                            layer.weight.to(dt), bias)
+        y = reduce_from(_product_f32(x.to(dt), layer.weight.to(dt)),
+                        tp.group)
+        if layer.bias is not None:
+            y = y + layer.bias.to(dt).float()
+        return y.to(dt)
 
     def forward(self, x, c, rope_cos, rope_sin, modality=None,
                 attn_mask=None, kv_cache=None, cache_index=None,
@@ -535,7 +614,12 @@ class DDiTBlock(nn.Module):
             if cross:
                 drop_cross = drops[1]
         if cfg.time_conditioning:
-            cond = dense(c, self.adaLN_modulation, dt)
+            if self.tp is None:
+                cond = dense(c, self.adaLN_modulation, dt)
+            else:
+                cond = self._tp_linear(c, self.adaLN_modulation, cols=True)
+                cond = GatherReplicated.apply(cond, self.tp.group,
+                                              cond.ndim - 1)
             cond = cond[:, None, :] if cond.ndim == 2 else cond
             (shift_msa, scale_msa, gate_msa,
              shift_mlp, scale_mlp, gate_mlp) = cond.chunk(6, dim=-1)
@@ -605,9 +689,11 @@ class DDiTBlock(nn.Module):
                 if cfg.time_conditioning:
                     hidden = modulate(hidden, shift_mlp, scale_mlp,
                                       modality)
-                hidden = dense(hidden, self.mlp[0], dt)
+                hidden = dense(hidden, self.mlp[0], dt) if self.tp is None \
+                    else self._tp_linear(hidden, self.mlp[0], cols=True)
             hidden = F.gelu(hidden, approximate="tanh")
-            hidden = dense(hidden, self.mlp[2], dt)
+            hidden = dense(hidden, self.mlp[2], dt) if self.tp is None \
+                else self._tp_linear(hidden, self.mlp[2], cols=False)
         if cfg.sandwich_normalization:
             hidden = self.post_ff_norm(hidden)
         x = gate_residual(x, hidden, gate_mlp, modality, dropout_fn=drop_mlp)
@@ -744,24 +830,26 @@ class DIT(nn.Module):
         kernels (zero biases) for the split-embed and cond projections and
         the MoE router and experts. A ``QLinear`` takes the JAX ``QDense``
         init, round(127 x the uniform kernel) with scale 1/127, the vocab
-        head too."""
+        head too. The numbers are drawn on the generator's device (a
+        card's generator draws on the card)."""
         from unidisc_tpu_torch.tokenizers.vqgan import _truncated_normal_
         cfg = self.cfg
+        dev = generator.device
 
         def uniform_(p, fan):
             bound = 1.0 / math.sqrt(fan)
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                                  generator=generator))
+            p.copy_(torch.empty(p.shape, device=dev).uniform_(
+                -bound, bound, generator=generator))
 
         def lecun_(p, fan):
-            t = torch.empty(p.shape)
+            t = torch.empty(p.shape, device=dev)
             _truncated_normal_(t, math.sqrt(1.0 / fan) / .87962566103423978,
                                generator)
             p.copy_(t)
 
         def linear_(lin, bias="zeros"):
             if isinstance(lin, QLinear):
-                w = torch.empty(lin.weight_q.shape)
+                w = torch.empty(lin.weight_q.shape, device=dev)
                 uniform_(w, lin.in_features)
                 lin.weight_q.copy_(torch.round(w * 127).to(torch.int8))
                 lin.scale.fill_(1 / 127.0)
@@ -1020,7 +1108,19 @@ class DIT(nn.Module):
 
         remat = (self.remat and self.training and torch.is_grad_enabled()
                  and kv_cache is None and frozen_kv is None)
-        if remat:
+        pp = current_pp()
+        if pp is not None:
+            if kv_cache is not None or frozen_kv is not None \
+                    or any(d is not None for d in drops):
+                raise NotImplementedError(
+                    "a KV cache, frozen K/V or training-mode dropout under "
+                    "pipeline parallelism is not in the port yet (a pp "
+                    "rank holds one stage's blocks; ROADMAP queue 1, item "
+                    "9)")
+            x = self._pipelined(x, c, cos, sin, modality, attn_mask,
+                                segment_ids, pp)
+            new_cache = None
+        elif remat:
             from torch.utils.checkpoint import checkpoint
             context = remat_context(cfg.remat_policy)
             kw = {} if context is None else {"context_fn": context}
@@ -1046,6 +1146,39 @@ class DIT(nn.Module):
             from unidisc_tpu_torch.parallel.comm import GatherReplicated
             x = GatherReplicated.apply(x, ring.group, 1)
         return x, c, new_cache, aux
+
+    def _pipelined(self, x, c, cos, sin, modality, attn_mask, segment_ids,
+                   pp):
+        """The block stack as a GPipe pipeline over the "pp" group
+        (``parallel/pipeline.py``; JAX's ``models/dit.py`` pp branch): the
+        per-row operands ride the microbatches, the rope tables are
+        broadcast (per-row rope rows ride along). An MoE block routes
+        over its stage's microbatch, and its balance auxiliary is not
+        carried out of the stage, as in JAX."""
+        from unidisc_tpu_torch.parallel.pipeline import pipeline_sharded
+        mb = {k: v for k, v in (("c", c), ("modality", modality),
+                                ("attn_mask", attn_mask),
+                                ("seg", None if segment_ids is None
+                                 else segment_ids[0])) if v is not None}
+        bcast = (cos, sin)
+        if cos.ndim == 3:
+            mb["rope_cos"], mb["rope_sin"] = cos, sin
+            bcast = ()
+        moe = self.cfg.moe_experts > 0
+
+        def stage(blocks, a, mbt, *rope):
+            rc, rs = (mbt["rope_cos"], mbt["rope_sin"]) if not rope \
+                else rope
+            seg = mbt.get("seg")
+            for blk in blocks:
+                a = blk(a, mbt.get("c"), rc, rs, mbt.get("modality"),
+                        mbt.get("attn_mask"),
+                        segment_ids=None if seg is None else (seg, seg))
+                a = a[0] if moe else a
+            return a
+        return pipeline_sharded(stage, list(self.blocks), x, pp.group,
+                                *bcast, mb_args=mb,
+                                microbatches=pp.microbatches)
 
     def rope_rows(self, rope_index, modality):
         """Per-token rotary rows (B, L, head_dim / 2) of the [text | image]

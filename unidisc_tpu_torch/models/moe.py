@@ -13,8 +13,11 @@ Switch / GShard style, computing what the JAX module computes.
   * slots go in choice-major order: every token's first choice claims a
     slot before any second choice (the cumsum of the JAX module); a
     choice past its expert's capacity contributes zero to the MLP branch;
-  * the experts' products run in the compute dtype, the bias and the
-    tanh-GELU in fp32;
+  * the experts' products take compute-dtype operands and accumulate in
+    fp32 (on the card one fp32-output product, ``torch.bmm(...,
+    out_dtype=torch.float32)``, as JAX's ``preferred_element_type``; on
+    the CPU the product in the compute dtype, then fp32), and the bias
+    and the tanh-GELU run in fp32;
   * the balance auxiliary is the Switch loss E x sum_e f_e x P_e over the
     top-1 assignments (f_e the routed share, P_e the mean router
     probability).
@@ -37,6 +40,33 @@ spans, ``moe_route``, ``moe_dispatch``, ``moe_experts`` and
 ``moe_combine``, which ``profile_train.py`` reads (with the backward of
 each span's ops) as each part's device time.
 
+On a mesh (``dp`` and ``ep``, ``comm.Axis`` views of the data-parallel
+and "ep" groups that ``parallel/mesh.py::shard_model`` sets) the layer
+computes what JAX's GSPMD computes over the global batch:
+
+  * routing: each rank's router probabilities are gathered over the
+    data-parallel group (``comm.GatherReplicated``), so every rank routes
+    the global S tokens alike (capacity ``capacity(cfg, S_global)``, the
+    same gates, experts and slots) and keeps its own rows' choices; the
+    balance auxiliary is the global one. A forward whose rows are
+    several stacked copies of the batch (CFG's conditional and
+    unconditional halves, stacked by ``sampling/sampler.py::cfg_forward``
+    under ``stacked_batches``) orders the gathered rows copy-major, as
+    one rank running the whole batch lays them;
+  * the experts: an "ep" rank holds E / ep of them and runs only those;
+  * the exchange, exact and simple: dispatch writes the rank's own rows
+    into its experts' (E / ep, C, D) buffer and sums the buffer over the
+    data-parallel group (``comm.sum_over``: every rank's slots are
+    disjoint); combine reads the rank's rows' outputs from its experts
+    and sums the partial results over the "ep" group
+    (``comm.reduce_from``). The rows and the gates enter through
+    ``comm.copy_to`` over "ep", each "ep" rank's gradient of them being a
+    part of the whole. An all-to-all that moves only the routed rows is a
+    later speed item.
+
+Inside a pipeline stage (``parallel/pipeline.py``) the layer routes over
+the stage's microbatch on the rank alone, as JAX's stage body does.
+
 Parameters, in the JAX layout: ``router.weight`` (E, D) (the flax kernel
 (D, E) transposed), ``w1`` (E, D, F), ``b1`` (E, 1, F), ``w2`` (E, F, D),
 ``b2`` (E, 1, D).
@@ -44,7 +74,9 @@ Parameters, in the JAX layout: ``router.weight`` (E, D) (the flax kernel
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -52,6 +84,41 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from unidisc_tpu_torch.config import ModelConfig
+from unidisc_tpu_torch.parallel.comm import (GatherReplicated, copy_to,
+                                             reduce_from, sum_over)
+from unidisc_tpu_torch.parallel.pipeline import current_pp
+
+
+_STACKED = threading.local()
+
+
+@contextlib.contextmanager
+def stacked_batches(n: int):
+    """The forwards inside take n stacked copies of the batch's rows (a
+    sampler's CFG halves; entered by ``sampling/sampler.py::cfg_forward``
+    alone): on a data-parallel mesh the MoE layers order the global
+    batch's rows copy-major, as one rank's stacked batch lays them
+    (module docstring)."""
+    prev = getattr(_STACKED, "value", 1)
+    _STACKED.value = n
+    try:
+        yield
+    finally:
+        _STACKED.value = prev
+
+
+def _copy_major(t: torch.Tensor, ranks: int, copies: int) -> torch.Tensor:
+    """Rows gathered rank-major ([rank][copy][row]) into copy-major order
+    ([copy][rank][row])."""
+    return t.view(ranks, copies, -1, *t.shape[1:]).transpose(0, 1) \
+        .reshape(t.shape)
+
+
+def _own(t: torch.Tensor, rank: int, ranks: int,
+         copies: int) -> torch.Tensor:
+    """This rank's rows of copy-major global rows, in its local order."""
+    return t.view(copies, ranks, -1, *t.shape[1:])[:, rank] \
+        .reshape(-1, *t.shape[1:])
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -106,6 +173,8 @@ class MoEMLP(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(n_exp, 1, ff))
         self.w2 = nn.Parameter(torch.empty(n_exp, ff, dim))
         self.b2 = nn.Parameter(torch.zeros(n_exp, 1, dim))
+        # the data-parallel and "ep" axes on a mesh (module docstring)
+        self.dp = self.ep = None
 
     def forward(self, x: torch.Tensor):
         cfg, cdt = self.cfg, self.compute_dtype
@@ -113,31 +182,56 @@ class MoEMLP(nn.Module):
         k = min(cfg.moe_top_k, n_exp)
         b, t, dim = x.shape
         s = b * t
-        cap = capacity(cfg, s)
+        dp, ep = (self.dp, self.ep) if current_pp() is None \
+            else (None, None)
+        dp_size = dp.size if dp is not None else 1
+        cap = capacity(cfg, s * dp_size)
         xr = x.reshape(s, dim)
         with record_function("moe_route"):
             logits = F.linear(xr.float(), self.router.weight.float())
             probs = torch.softmax(logits, dim=-1)                # (S, E)
+            copies = getattr(_STACKED, "value", 1)
+            if dp_size > 1:
+                # the global batch's probabilities in the global batch's
+                # row order: every rank routes them alike
+                probs = _copy_major(GatherReplicated.apply(probs, dp.group,
+                                                           0),
+                                    dp_size, copies)
             gates, expert, slot = route(probs, k, cap)
             f_e = (expert[:, 0:1] == torch.arange(
                 n_exp, device=x.device)).float().mean(0)
             aux = n_exp * torch.sum(f_e * probs.mean(0))
+            if dp_size > 1:
+                gates, expert, slot = (_own(t, dp.rank, dp_size, copies)
+                                       for t in (gates, expert, slot))
+
+        local = n_exp
+        if ep is not None and ep.size > 1:
+            # this rank's experts [e0, e0 + E / ep): their slots, local;
+            # the other experts' choices go to the dropped row
+            local = n_exp // ep.size
+            e0 = ep.rank * local
+            slot = torch.where((slot < n_exp * cap) & (expert >= e0)
+                               & (expert < e0 + local), slot - e0 * cap,
+                               local * cap)
+            xr = copy_to(xr, ep.group)
+            gates = copy_to(gates, ep.group)
 
         # dispatch: each (token, choice) row into its slot; overflowed
         # choices all land in the extra last row, which is dropped
         with record_function("moe_dispatch"):
             rows = xr.to(cdt)[:, None, :].expand(s, k, dim) \
                 .reshape(s * k, dim)
-            buf = torch.zeros((n_exp * cap + 1, dim), dtype=cdt,
+            buf = torch.zeros((local * cap + 1, dim), dtype=cdt,
                               device=x.device).index_copy(
                                   0, slot.reshape(-1), rows)
-            expert_in = buf[:-1].view(n_exp, cap, dim)
+            if dp_size > 1:
+                buf = sum_over(buf, dp.group)
+            expert_in = buf[:-1].view(local, cap, dim)
         with record_function("moe_experts"):
-            h = torch.bmm(expert_in, self.w1.to(cdt)).float() \
-                + self.b1.float()
+            h = bmm_f32(expert_in, self.w1.to(cdt)) + self.b1.float()
             h = F.gelu(h, approximate="tanh")
-            out = torch.bmm(h.to(cdt), self.w2.to(cdt)).float() \
-                + self.b2.float()
+            out = bmm_f32(h.to(cdt), self.w2.to(cdt)) + self.b2.float()
 
         # combine: each choice reads its slot's output (an overflowed one
         # the zero row), weighted by its gate in the compute dtype. An
@@ -145,9 +239,40 @@ class MoEMLP(nn.Module):
         # advanced indexing sorts the indices and then runs every
         # overflowed choice's add to the one zero row in sequence
         with record_function("moe_combine"):
-            flat = torch.cat([out.to(cdt).reshape(n_exp * cap, dim),
+            flat = torch.cat([out.to(cdt).reshape(local * cap, dim),
                               torch.zeros((1, dim), dtype=cdt,
                                           device=x.device)])
             picked = flat.index_select(0, slot.reshape(-1)).view(s, k, dim)
             y = (gates.to(cdt).float()[..., None] * picked.float()).sum(1)
+            if local < n_exp:
+                y = reduce_from(y, ep.group)
         return y.reshape(b, t, dim).to(cdt), aux
+
+
+class _ProductF32(torch.autograd.Function):
+    """a @ b batched, one fp32-output product of compute-dtype operands on
+    the card (``torch.bmm(..., out_dtype=torch.float32)``, which has no
+    derivative in every torch this runs on); the backward in the
+    operands' dtype, as a product in that dtype cast to fp32
+    differentiates."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return torch.bmm(g, b.transpose(1, 2)), torch.bmm(a.transpose(1, 2),
+                                                          g)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched, accumulated and returned in fp32: on the card one
+    fp32-output product of the compute-dtype operands; on the CPU the
+    product in their dtype (fp32 there), then fp32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return _ProductF32.apply(a, b)
+    return torch.bmm(a, b).float()

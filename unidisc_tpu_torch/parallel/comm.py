@@ -7,7 +7,8 @@ over gloo, since NCCL refuses two ranks on one device); NCCL moves device
 memory, so a CPU tensor on an NCCL group rides on the rank's card. A
 collective that fails raises; nothing falls back.
 
-* ``all_reduce`` (sum), ``all_gather`` (concatenated along a dim);
+* ``all_reduce`` (sum), ``all_gather`` (concatenated along a dim),
+  ``broadcast``;
 * ``shift``: each rank sends to the next rank of the group and receives
   from the previous one, the ring step (``jax.lax.ppermute`` with
   ``perm=[(i, (i + 1) % n)]``);
@@ -16,14 +17,38 @@ collective that fails raises; nothing falls back.
 * ``GatherReplicated``: ``all_gather`` for a result every rank then
   computes on alike: its backward keeps the rank's own slice of the
   gradient.
+* the all-reduces with autograd (``AllReduce``), by what the backward
+  does:
+  - ``copy_to``: identity forward, all-reduce backward (megatron's "f"):
+    where a tensor every rank holds alike enters work that each rank
+    does a part of (a column-parallel product, a pipeline's input), so
+    each rank's gradient of it is a part of the whole;
+  - ``reduce_from``: all-reduce forward, identity backward (megatron's
+    "g"): the sum of the ranks' parts (a row-parallel product's partial
+    outputs, the last pipeline stage's output against zeros elsewhere)
+    for a consumer every rank then runs alike, so each rank's gradient of
+    the sum is already the whole one;
+  - ``sum_over``: all-reduce both ways: a sum each rank consumes
+    differently (the QK-norm's partial statistics, the MoE dispatch
+    buffer read at each rank's own slots).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+@dataclass(frozen=True)
+class Axis:
+    """A module's view of one mesh axis: its group, this rank's index in
+    it and its size."""
+    group: object
+    rank: int
+    size: int
 
 
 def _wire(group, t: torch.Tensor) -> torch.device:
@@ -47,6 +72,16 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     if buf is not t:
         t.copy_(buf)
     return t
+
+
+def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank `src`'s `t` on every rank of the group (returned)."""
+    if dist.get_world_size(group) == 1:
+        return t
+    wire = _wire(group, t)
+    buf = t.to(wire).contiguous()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.to(t.device)
 
 
 def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
@@ -118,3 +153,56 @@ class GatherReplicated(torch.autograd.Function):
     def backward(ctx, g):
         me = dist.get_rank(ctx.group)
         return g.narrow(ctx.dim, me * ctx.n, ctx.n), None, None
+
+
+class AllReduce(torch.autograd.Function):
+    """Sum over the group in the forward when `fwd`, in the backward when
+    `bwd` (identity otherwise); see ``copy_to``, ``reduce_from`` and
+    ``sum_over``."""
+
+    @staticmethod
+    def forward(ctx, t, group, fwd: bool, bwd: bool):
+        ctx.group, ctx.bwd = group, bwd
+        return all_reduce(t.clone(), group) if fwd else t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.bwd:
+            g = all_reduce(g.clone(), ctx.group)
+        return g, None, None, None
+
+
+def _one(group) -> bool:
+    return dist.get_world_size(group) == 1
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce backward (module docstring)."""
+    return t if _one(group) else AllReduce.apply(t, group, False, True)
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce forward, identity backward (module docstring)."""
+    return t if _one(group) else AllReduce.apply(t, group, True, False)
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce forward and backward (module docstring)."""
+    return t if _one(group) else AllReduce.apply(t, group, True, True)
+
+
+class Tie(torch.autograd.Function):
+    """`out` unchanged, with `tied` as inputs whose gradient is zero: it
+    keeps in every rank's backward graph a node (a shift, a ``copy_to``)
+    whose result this rank does not use but whose backward collective its
+    peers run."""
+
+    @staticmethod
+    def forward(ctx, out, *tied):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in tied]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=dt, device=dev)
+                     for s, dt, dev in ctx.like))

@@ -12,41 +12,67 @@ replicated, skip the scan-stacked layer axis of block leaves, and the
 parameter through ``training/layout.py`` (a flax kernel is (in, out), a
 torch weight (out, in)).
 
-``params_shardings`` turns the rule into FSDP2: ``fully_shard`` on every
-DIT block and then at the root, over the ("dcn", "fsdp") sub-mesh, with
-``shard_placement_fn`` putting each parameter's shard on the torch
-dimension the rule names. With dcn > 1 that is HSDP: replicated over
-"dcn", sharded over "fsdp", as JAX's batch spec P(("dcn", "fsdp")) lays
-the data. A parameter the rule leaves replicated (under
-``MIN_SHARD_SIZE``, or with no dimension that divides) is one of
-``fully_shard``'s ``ignored_params``: every rank keeps it whole, and the
-train step sums its gradient over the world itself.
+``shard_model`` keeps on each rank only its part of the parameters
+that "tensor", "pp" and "ep" split, where JAX's rule puts those axes:
+
+* "pp": a rank keeps the DIT blocks of its stage, contiguous groups of
+  n_blocks / pp (the rule's "pp" on the stacked layer axis); the other
+  blocks' parameters become empty tensors;
+* "tensor": a main block keeps its head shard of each megatron leaf:
+  ``attn_qkv`` the rank's heads' rows of each of q, k and v (the weight's
+  3 x dim rows are [q | k | v], each head-major, so the shard is three
+  blocks, not the contiguous block the rule names), ``mlp.0`` and
+  ``adaLN_modulation`` a contiguous block of rows (column-parallel),
+  ``attn_out`` and ``mlp.2`` a block of columns (row-parallel). The rule
+  also names ``sigma_map``'s ``mlp_0`` and the head's
+  ``adaLN_modulation``; the port keeps those two whole on every tensor
+  rank, which computes them alike;
+* "ep": an MoE block keeps its experts' ``w1``, ``b1``, ``w2``, ``b2``
+  (E / ep of them).
+
+It also tells the modules the groups they compute over (the blocks'
+tensor group, the MoE layers' data-parallel and "ep" groups), and records
+on the model what it kept (``MeshShards``), which the train state reads to
+gather a whole state dict and to take a rank's part of one.
+
+``params_shardings`` is ``shard_model`` and then FSDP2: ``fully_shard``
+on every DIT block the rank keeps and then at the root, over the ("dcn",
+"fsdp") sub-mesh, with ``shard_placement_fn`` putting each parameter's
+shard on the torch dimension the rule names. With dcn > 1 that is HSDP:
+replicated over "dcn", sharded over "fsdp", as JAX's batch spec
+P(("dcn", "fsdp")) lays the data. A parameter the rule leaves unsharded
+over "fsdp" (under ``MIN_SHARD_SIZE``, or with no dimension that
+divides) is one of ``fully_shard``'s ``ignored_params``: the rank keeps
+its part whole, and the train step sums its gradient itself.
 
 ``MeshLayout`` is the rank's place on the mesh: its data-parallel index
-and size over ("dcn", "fsdp"), its "seq" group, and the rank-local slicing
-and gathering that JAX's ``batch_sharding``, ``replicated`` and
-``logits_constraint`` stand for: a (B, L) batch's rows are split over the
-data-parallel ranks and L over "seq".
+and size over ("dcn", "fsdp"), its "seq", "tensor", "pp" and "ep" indices
+and groups, and the rank-local slicing and gathering that JAX's
+``batch_sharding``, ``replicated`` and ``logits_constraint`` stand for: a
+(B, L) batch's rows are split over the data-parallel ranks and L over
+"seq"; "tensor", "pp" and "ep" ranks hold the same rows.
 
-"tensor", "pp" and "ep" larger than 1 raise ``NotImplementedError``
-(ROADMAP queue 1, item 9): their compute is not in the port.
+What the port does not run on a mesh raises ``NotImplementedError``
+naming ROADMAP queue 1, item 9 (``check_mesh_model``): int8 W8A8 models
+on "tensor", "pp" or "ep"; img_cond under "pp" (JAX's ``validate()``
+refuses it too) or "tensor"; "ep" inside a pipeline stage.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from unidisc_tpu_torch.config import MeshConfig
+from unidisc_tpu_torch.parallel.comm import Axis
 
 AXES = ("dcn", "fsdp", "tensor", "seq", "pp", "ep")
 # parameters smaller than this stay replicated
 MIN_SHARD_SIZE = 2 ** 14
-LATER_AXES = ("tensor", "pp", "ep")
 
 
 def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple:
@@ -63,13 +89,35 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple:
 
 
 def check_ported_axes(sizes: Mapping[str, int]) -> None:
-    """Raise for the axes whose compute is a later slice."""
-    later = {a: sizes.get(a, 1) for a in LATER_AXES if sizes.get(a, 1) > 1}
-    if later:
+    """Raise for the axis combinations whose compute is a later slice."""
+    if sizes.get("pp", 1) > 1 and sizes.get("ep", 1) > 1:
         raise NotImplementedError(
-            f"mesh axes {later} are not in the port yet: pipeline, tensor-"
-            f"parallel and expert-parallel compute are ROADMAP queue 1, "
-            f"item 9")
+            "expert parallelism inside a pipeline stage (pp > 1 with ep > "
+            "1) is not in the port yet (ROADMAP queue 1, item 9)")
+
+
+def check_mesh_model(m, sizes: Mapping[str, int]) -> None:
+    """Raise for a model configuration `m` (a ModelConfig) the mesh of
+    axis sizes `sizes` cannot run (module docstring)."""
+    check_ported_axes(sizes)
+    tensor, pp, ep = (sizes.get(a, 1) for a in ("tensor", "pp", "ep"))
+    later = [what for what, bad in (
+        ("int8 W8A8 on tensor / pp / ep",
+         m.quant == "int8" and max(tensor, pp, ep) > 1),
+        ("img_cond under pp or tensor", m.img_cond and max(tensor, pp) > 1),
+    ) if bad]
+    if later:
+        raise NotImplementedError(f"{', '.join(later)} is not in the port "
+                                  f"yet (ROADMAP queue 1, item 9)")
+    if pp > 1 and m.n_blocks % pp:
+        raise ValueError(f"model.n_blocks={m.n_blocks} not divisible by "
+                         f"pp={pp}")
+    if tensor > 1 and m.n_heads % tensor:
+        raise ValueError(f"model.n_heads={m.n_heads} not divisible by "
+                         f"tensor={tensor}")
+    if ep > 1 and (m.moe_experts == 0 or m.moe_experts % ep):
+        raise ValueError(f"ep={ep} needs model.moe_experts a multiple of "
+                         f"it (got {m.moe_experts})")
 
 
 def make_mesh(cfg: MeshConfig, device_type: Optional[str] = None):
@@ -186,22 +234,158 @@ def param_specs(params: Mapping[str, torch.Tensor],
     return out
 
 
-def params_shardings(model: torch.nn.Module, mesh) -> torch.nn.Module:
-    """FSDP2 over the ("dcn", "fsdp") sub-mesh (HSDP with dcn > 1): each
-    DIT block (and img_cond trunk block) its own group, then the root;
-    the rule picks each parameter's shard dimension, and the parameters it
-    leaves replicated are ignored by FSDP. Returns the model (sharded in
-    place). A mesh with fsdp == 1 leaves the model as it is."""
+@dataclass(frozen=True)
+class Part:
+    """A rank's part of a parameter that "tensor" or "ep" splits: the
+    parameter is `parts` equal blocks along torch dim `dim` (3 for
+    attn_qkv's [q | k | v]) and the rank keeps its 1 / size of each."""
+    axis: str
+    dim: int
+    parts: int = 1
+
+    def take(self, full: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+        return torch.cat([b.chunk(size, self.dim)[rank]
+                          for b in full.chunk(self.parts, self.dim)],
+                         self.dim)
+
+    def join(self, shards: List[torch.Tensor]) -> torch.Tensor:
+        """The whole parameter from every rank's part, in rank order."""
+        each = [t.chunk(self.parts, self.dim) for t in shards]
+        return torch.cat([each[r][i] for i in range(self.parts)
+                          for r in range(len(shards))], self.dim)
+
+
+# the parts of a main block's parameters under "tensor" and "ep"
+_TENSOR_PARTS = {"attn_qkv.weight": Part("tensor", 0, 3),
+                 "mlp.0.weight": Part("tensor", 0),
+                 "adaLN_modulation.weight": Part("tensor", 0),
+                 "attn_out.weight": Part("tensor", 1),
+                 "mlp.2.weight": Part("tensor", 1)}
+_EP_PARTS = {f"moe.{n}": Part("ep", 0) for n in ("w1", "b1", "w2", "b2")}
+
+
+@dataclass
+class MeshShards:
+    """What ``shard_model`` kept on a rank: `parts` the parameters it
+    holds a "tensor" / "ep" part of, `stage_of` each block parameter's
+    pipeline stage under pp > 1 (only its stage's ranks hold it), `shapes`
+    every parameter's whole shape."""
+    parts: Dict[str, Part] = field(default_factory=dict)
+    stage_of: Dict[str, int] = field(default_factory=dict)
+    shapes: Dict[str, tuple] = field(default_factory=dict)
+
+    def held(self, name: str, layout: "MeshLayout") -> bool:
+        return self.stage_of.get(name, layout.pp.rank) == layout.pp.rank
+
+    def gather(self, local: Mapping[str, torch.Tensor], layout: "MeshLayout",
+               fsdp_dims: Mapping[str, int]) -> Dict[str, torch.Tensor]:
+        """Every parameter whole, on every rank, from each rank's `local`
+        tensors by name (its FSDP shards along `fsdp_dims`)."""
+        from unidisc_tpu_torch.parallel.comm import all_gather, broadcast
+        out = {}
+        for name, t in local.items():
+            t = t.detach()
+            if name in fsdp_dims:
+                t = all_gather(t, layout.fsdp_group, fsdp_dims[name])
+            part = self.parts.get(name)
+            if part is not None:
+                t = part.join(list(all_gather(
+                    t[None], layout.axis(part.axis).group, 0)))
+            out[name] = t
+        if layout.pp.size > 1:
+            like = next(iter(local.values()))
+            for stage in range(layout.pp.size):
+                names = sorted(n for n, s in self.stage_of.items()
+                               if s == stage)
+                if stage == layout.pp.rank:
+                    flat = torch.cat([out[n].reshape(-1) for n in names])
+                else:
+                    flat = like.new_empty(sum(math.prod(self.shapes[n])
+                                              for n in names))
+                flat = broadcast(flat, layout.pp.group, stage)
+                for n, piece in zip(names, flat.split(
+                        [math.prod(self.shapes[n]) for n in names])):
+                    out[n] = piece.view(self.shapes[n])
+        return out
+
+    def scatter(self, whole: Mapping[str, torch.Tensor],
+                layout: "MeshLayout", fsdp_dims: Mapping[str, int]
+                ) -> Dict[str, torch.Tensor]:
+        """The rank's tensors of a whole state (the inverse of gather),
+        for the parameters it holds."""
+        out = {}
+        for name, t in whole.items():
+            if not self.held(name, layout):
+                continue
+            part = self.parts.get(name)
+            if part is not None:
+                ax = layout.axis(part.axis)
+                t = part.take(t, ax.rank, ax.size)
+            if name in fsdp_dims:
+                d, f = fsdp_dims[name], layout.sizes["fsdp"]
+                t = t.narrow(d, layout.fsdp_rank * t.shape[d] // f,
+                             t.shape[d] // f)
+            out[name] = t
+        return out
+
+
+def shard_model(model: torch.nn.Module, layout: "MeshLayout"):
+    """Keep on this rank only its "pp" / "tensor" / "ep" part of `model`'s
+    parameters (module docstring), in place; set the blocks' tensor group
+    and the MoE layers' data-parallel and "ep" groups; record
+    ``model.mesh_shards``. Returns the model."""
+    if getattr(model, "mesh_shards", None) is not None:
+        raise ValueError("the model is already laid out on a mesh")
+    check_mesh_model(model.cfg, layout.sizes)
+    shards = MeshShards(shapes={n: tuple(p.shape)
+                                for n, p in model.named_parameters()})
+    per = len(model.blocks) // layout.pp.size
+    tp, ep = layout.tensor, layout.ep
+    dp = Axis(layout.dp_group, layout.dp_rank, layout.dp_size)
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            for n, p in blk.named_parameters():
+                name = f"blocks.{i}.{n}"
+                if layout.pp.size > 1:
+                    shards.stage_of[name] = i // per
+                    if i // per != layout.pp.rank:
+                        p.data = p.data.new_empty(0)
+                        continue
+                part = (_TENSOR_PARTS.get(n) if tp.size > 1 else None) \
+                    or (_EP_PARTS.get(n) if ep.size > 1 else None)
+                if part is not None:
+                    shards.parts[name] = part
+                    ax = layout.axis(part.axis)
+                    p.data = part.take(p.data, ax.rank, ax.size).contiguous()
+            if tp.size > 1:
+                blk.tp = tp
+            if model.cfg.moe_experts > 0 and (dp.size > 1 or ep.size > 1):
+                blk.moe.dp, blk.moe.ep = dp, ep
+    model.mesh_shards = shards
+    return model
+
+
+def params_shardings(model: torch.nn.Module, mesh,
+                     layout: Optional["MeshLayout"] = None
+                     ) -> torch.nn.Module:
+    """``shard_model``, then FSDP2 over the ("dcn", "fsdp") sub-mesh (HSDP
+    with dcn > 1): each DIT block the rank holds (and img_cond trunk
+    block) its own group, then the root; the rule picks each parameter's
+    shard dimension, and the parameters it leaves unsharded over "fsdp"
+    are ignored by FSDP. Returns the model (sharded in place). A mesh with
+    fsdp == 1 takes no FSDP."""
     from torch.distributed.fsdp import (fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Shard
     sizes = mesh_sizes(mesh)
-    check_ported_axes(sizes)
+    # the rule reads the whole shapes: before shard_model
+    specs = param_specs(dict(model.named_parameters()), sizes)
+    shard_model(model, layout if layout is not None else MeshLayout.of(mesh))
     if sizes["fsdp"] == 1:
         return model
-    specs = param_specs(dict(model.named_parameters()), sizes)
     by_param = {p: specs[n] for n, p in model.named_parameters()}
-    ignored = {p for p, s in by_param.items() if "fsdp" not in s}
+    ignored = {p for p, s in by_param.items()
+               if "fsdp" not in s or p.numel() == 0}
     dp_mesh = mesh["dcn", "fsdp"] if sizes["dcn"] > 1 else mesh["fsdp"]
 
     def placement(p):
@@ -211,7 +395,8 @@ def params_shardings(model: torch.nn.Module, mesh) -> torch.nn.Module:
               ignored_params=ignored)
     for stack in ("blocks", "img_cond_blocks"):
         for blk in getattr(model, stack, ()):
-            fully_shard(blk, **kw)
+            if any(p.numel() for p in blk.parameters()):
+                fully_shard(blk, **kw)
     fully_shard(model, **kw)
     # the samplers' trunk-only entry unshards like forward
     register_fsdp_forward_method(model, "hidden")
@@ -222,22 +407,38 @@ def params_shardings(model: torch.nn.Module, mesh) -> torch.nn.Module:
 # The rank's place on the mesh
 # ---------------------------------------------------------------------------
 
+def _group(mesh, sizes, axes):
+    """The process group over `axes` of `mesh` (flattened when several
+    are larger than 1)."""
+    big = tuple(a for a in axes if sizes[a] > 1)
+    if len(big) > 1:
+        return mesh[big]._flatten().get_group()
+    return mesh[big[0] if big else axes[-1]].get_group()
+
+
 @dataclass
 class MeshLayout:
     """dp_rank / dp_size: the rank's index and the size of the
     ("dcn", "fsdp") data-parallel axes; seq_rank / seq_size and seq_group:
     its "seq" axis; dp_group: its data-parallel group (the ranks with the
-    same "seq" index); fsdp_rank / fsdp_group: its "fsdp" index and axis
-    (the ranks that hold the other shards of its parameters)."""
+    same other indices); fsdp_rank / fsdp_group: its "fsdp" index and axis
+    (the ranks that hold the other shards of its parameters); tensor, pp
+    and ep: its "tensor", "pp" and "ep" axes (``comm.Axis``); grad_group: the
+    ("dcn", "fsdp", "seq") ranks, whose parts of the loss differ (the
+    train step sums the gradients over it)."""
     sizes: Dict[str, int]
     dp_rank: int = 0
     dp_size: int = 1
     seq_rank: int = 0
     seq_size: int = 1
     fsdp_rank: int = 0
+    tensor: Axis = Axis(None, 0, 1)
+    pp: Axis = Axis(None, 0, 1)
+    ep: Axis = Axis(None, 0, 1)
     dp_group: object = None
     seq_group: object = None
     fsdp_group: object = None
+    grad_group: object = None
     mesh: object = None
 
     @classmethod
@@ -245,21 +446,29 @@ class MeshLayout:
         sizes = mesh_sizes(mesh)
         check_ported_axes(sizes)
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+        def axis(name):
+            return Axis(mesh[name].get_group(), coord[name], sizes[name])
         return cls(sizes=sizes,
                    dp_rank=coord["dcn"] * sizes["fsdp"] + coord["fsdp"],
                    dp_size=sizes["dcn"] * sizes["fsdp"],
                    seq_rank=coord["seq"], seq_size=sizes["seq"],
                    fsdp_rank=coord["fsdp"],
-                   dp_group=mesh["dcn", "fsdp"]._flatten().get_group()
-                   if sizes["dcn"] > 1 else mesh["fsdp"].get_group(),
+                   tensor=axis("tensor"), pp=axis("pp"), ep=axis("ep"),
+                   dp_group=_group(mesh, sizes, ("dcn", "fsdp")),
                    seq_group=mesh["seq"].get_group(),
-                   fsdp_group=mesh["fsdp"].get_group(), mesh=mesh)
+                   fsdp_group=mesh["fsdp"].get_group(),
+                   grad_group=_group(mesh, sizes, ("dcn", "fsdp", "seq")),
+                   mesh=mesh)
+
+    def axis(self, name: str) -> Axis:
+        """The "tensor", "pp" or "ep" axis."""
+        return {"tensor": self.tensor, "pp": self.pp, "ep": self.ep}[name]
 
     @property
     def sharded(self) -> bool:
         """Whether the parameters are FSDP-sharded (fsdp > 1)."""
         return self.sizes["fsdp"] > 1
-
     def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """This rank's rows of a global batch tensor (JAX's
         batch_sharding on the leading dim)."""

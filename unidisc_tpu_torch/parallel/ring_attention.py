@@ -36,7 +36,8 @@ import torch
 
 import torch.distributed as dist
 
-from unidisc_tpu_torch.parallel.comm import GatherReplicated, Shift, shift
+from unidisc_tpu_torch.parallel.comm import (GatherReplicated, Shift, Tie,
+                                             shift)
 
 MASK_VALUE = -1e30
 
@@ -113,25 +114,12 @@ def ring_attention(q, k, v, segment_ids=None, *, group,
     out = torch.where(anyv[..., None], out, 0.0)
     out = out.transpose(1, 2).to(q.dtype)
     if n > 1 and torch.is_grad_enabled():
-        out = _Tie.apply(out, k_cur, v_cur)
+        # the last shifted K/V stay in the backward graph: a rank that
+        # skips the blocks after the diagonal (causal) would otherwise
+        # leave its later shifts out, and the ring's backward exchanges
+        # must run on every rank alike
+        out = Tie.apply(out, k_cur, v_cur)
     return out
-
-
-class _Tie(torch.autograd.Function):
-    """out unchanged, with the last shifted K/V as inputs whose gradient is
-    zero. A rank that skips the blocks after the diagonal (causal) would
-    otherwise leave its later shifts out of the backward graph, and the
-    ring's backward exchanges must run on every rank alike."""
-
-    @staticmethod
-    def forward(ctx, out, *tied):
-        ctx.like = [(t.shape, t.dtype, t.device) for t in tied]
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g, *(torch.zeros(s, dtype=dt, device=dev)
-                     for s, dt, dev in ctx.like))
 
 
 def ring_attention_sharded(q, k, v, group, segment_ids=None, *,

@@ -7,18 +7,26 @@ group runs the sampler replicated, the DIT taking its L-chunk, running
 the ring and gathering the hidden states over L before the vocab head
 (``models/dit.py``), so the maskgit top-k and the confidences are taken
 over the whole sequence and every rank of the group picks the same tokens.
-The rows come back together on every rank.
+Under "pp" the DIT's block stack runs as a GPipe pipeline over the
+rank's rows in ``mesh.pp_microbatches`` microbatches (the batch granule is
+then the data-parallel width x the microbatches); "tensor" and "ep" ranks
+run their parts of each block and of each MoE layer. The rows come back
+together on every rank.
 
 The weights: ``shard_params`` lays them out by the mesh rule (FSDP2, which
-all-gathers each block in every forward). The engine keeps a whole copy
-on each rank instead, so a data-parallel step holds no collective and
-stays a captured CUDA-graph program; a "seq" group's steps hold the ring's
-collectives and run eager (``InferenceEngine``).
+all-gathers each block in every forward, over ``shard_model``'s "pp" /
+"tensor" / "ep" parts). The engine keeps the "pp" / "tensor" / "ep" parts
+only (``shard_model``) and no FSDP, so a data-parallel step holds no
+collective and stays a captured CUDA-graph program; steps that hold
+collectives (the ring, the pipeline, the tensor-parallel sums, an MoE
+layer's global routing) run eager (``InferenceEngine``).
 
-The injected noise of a sampler (``sampling/sampler.py``,
-``sampling/t2i_fast.py``) is (steps, B, ...): each rank takes its rows of
-dim 1. A call's ``seed`` is offset per data-parallel rank (``dp_seed``), so
-the ranks' rows draw different noise (rank 0 keeps the seed).
+The noise: a rank's draws are those of the global batch
+(``sampling/sampler.py::global_rows``): each is made at the global batch's
+rows and the rank keeps its own, so a seed gives the tokens of one rank
+sampling the whole batch, as JAX's replicated rng does. The injected noise
+of a sampler (``sampling/sampler.py``, ``sampling/t2i_fast.py``) is
+(steps, B, ...): each rank takes its rows of dim 1.
 """
 
 from __future__ import annotations
@@ -26,17 +34,19 @@ from __future__ import annotations
 from typing import Callable
 
 from unidisc_tpu_torch.config import Config
-from unidisc_tpu_torch.parallel.mesh import check_ported_axes
+from unidisc_tpu_torch.parallel.mesh import check_mesh_model
 
 
 def batch_multiple(config: Config, layout) -> int:
-    """Smallest batch the mesh runs: the data-parallel width."""
-    check_ported_axes(layout.sizes)
+    """Smallest batch the mesh runs: the data-parallel width, times the
+    microbatches when pipelining."""
+    if layout.sizes.get("pp", 1) > 1:
+        return layout.dp_size * config.mesh.pp_microbatches
     return layout.dp_size
 
 
 def validate_mesh(config: Config, layout) -> None:
-    check_ported_axes(layout.sizes)
+    check_mesh_model(config.model, layout.sizes)
     seq = layout.seq_size
     if seq > 1 and config.model.length % seq != 0:
         raise ValueError(f"model.length={config.model.length} not divisible "
@@ -51,10 +61,13 @@ def shard_params(model, mesh):
     return params_shardings(model, mesh)
 
 
-def dp_seed(seed: int, dp_rank: int) -> int:
-    """The seed data-parallel rank `dp_rank` samples its rows with: a
-    one-rank call on those rows with this seed draws the same noise."""
-    return (seed + dp_rank * 0x9E3779B1) & 0x7FFFFFFF
+def has_collectives(config: Config, layout) -> bool:
+    """Whether a sampler step on this mesh holds collectives (and so runs
+    eager: a CUDA graph cannot hold a gloo collective, and NCCL capture
+    waits for a card per rank, ROADMAP queue 1, item 9)."""
+    s = layout.sizes
+    return (max(s["seq"], s["pp"], s["tensor"], s["ep"]) > 1
+            or (config.model.moe_experts > 0 and layout.dp_size > 1))
 
 
 def spmd_sampler(sample_fn: Callable, config: Config, layout) -> Callable:
@@ -63,8 +76,9 @@ def spmd_sampler(sample_fn: Callable, config: Config, layout) -> Callable:
     **kw) with the global batch (every arg's dim 0 the batch, a multiple
     of ``batch_multiple``) returns the SampleResult of the global batch
     on every rank."""
+    from unidisc_tpu_torch.parallel.pipeline import pipeline_parallel
     from unidisc_tpu_torch.parallel.seq_parallel import sequence_parallel
-    from unidisc_tpu_torch.sampling.sampler import SampleResult
+    from unidisc_tpu_torch.sampling.sampler import SampleResult, global_rows
     validate_mesh(config, layout)
     mult = batch_multiple(config, layout)
 
@@ -72,17 +86,18 @@ def spmd_sampler(sample_fn: Callable, config: Config, layout) -> Callable:
         b = args[0].shape[0]
         if b % mult:
             raise ValueError(f"batch {b} not a multiple of the mesh granule "
-                             f"{mult} (the data-parallel width); pad with "
+                             f"{mult} (the data-parallel width x the "
+                             f"pipeline's microbatches); pad with "
                              f"batch_multiple()")
-        n = b // mult
+        n = b // layout.dp_size
         lo = layout.dp_rank * n
         local = [a[lo:lo + n] for a in args]
         if injected is not None:
             kw["injected"] = {k: v[:, lo:lo + n]
                               for k, v in injected.items()}
-        if "seed" in kw:
-            kw["seed"] = dp_seed(kw["seed"], layout.dp_rank)
-        with sequence_parallel(layout):
+        with sequence_parallel(layout), \
+                pipeline_parallel(layout, config.mesh.pp_microbatches), \
+                global_rows(layout.dp_rank, layout.dp_size):
             out = sample_fn(*local, **kw)
         return SampleResult(tokens=layout.gather_rows(out.tokens),
                             nfe=out.nfe)

@@ -43,8 +43,10 @@ from unidisc_tpu_torch.diffusion.subs import subs_parameterization
 from unidisc_tpu_torch.sampling.ar_sampler import init_kv_cache_for
 from unidisc_tpu_torch.sampling.sampler import (SampleResult,
                                                 adaptive_schedule,
+                                                cfg_forward,
                                                 check_model_device,
-                                                confidence_threshold, gumbel,
+                                                confidence_threshold,
+                                                exponential, gumbel,
                                                 linspace_f32, upload)
 
 
@@ -128,15 +130,11 @@ class CachingSampler:
         writing the cache at `start`; with CFG the unconditional rows
         (conditioning re-masked) run in the same forward."""
         m, s = self.config.model, self.config.sampling
-        sigma = self.noise.total(t)
-        if self.use_cfg:
-            x_in = torch.cat([x, torch.where(unmask, m.mask_index, x)], 0)
-            mod_in = torch.cat([modality, modality], 0)
-            sigma = torch.cat([sigma, sigma], 0)
-        else:
-            x_in, mod_in = x, modality
-        logits, _ = self.model(x_in, sigma, modality=mod_in, kv_cache=kv,
-                               cache_index=start)
+        x_uncond = torch.where(unmask, m.mask_index, x) if self.use_cfg \
+            else None
+        logits, _ = cfg_forward(self.model, x, x_uncond, self.noise.total(t),
+                                modality=modality, kv_cache=kv,
+                                cache_index=start)
         logits = logits.float()
         kw = dict(modality=modality, text_vocab_size=m.text_vocab_size) \
             if m.force_argmax_valid_indices else {}
@@ -188,8 +186,7 @@ class CachingSampler:
                 pred = torch.argmax(p / (inputs["exp"][i] + 1e-10), dim=-1)
                 g = inputs["gumbel"][i]
             else:
-                e = torch.empty(p.shape, device=dev).exponential_(
-                    generator=generator)
+                e = exponential(p.shape, generator, dev)
                 pred = torch.argmax(p / (e + 1e-10), dim=-1)
                 g = gumbel(pred.shape, generator, dev)
             conf = torch.gather(p, -1, pred[..., None])[..., 0]

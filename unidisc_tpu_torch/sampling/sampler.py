@@ -36,6 +36,8 @@ device value (its capacity comes from the static shapes).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +47,7 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.diffusion.subs import subs_parameterization
+from unidisc_tpu_torch.models.moe import stacked_batches
 
 PREDICTORS = ("ddpm", "ddpm_cache", "maskgit", "maskgit_nucleus",
               "first_hitting")
@@ -68,12 +71,71 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def global_rows(rank: int, size: int):
+    """The samplers' draws inside the context are those of the global
+    batch: each is made at `size` x its rows (dim 0) and this rank keeps
+    rows [rank x b, (rank + 1) x b). A data-parallel rank sampling its b
+    rows of a size x b batch so draws the numbers one rank draws for the
+    whole batch (``parallel/sample.py::spmd_sampler``)."""
+    prev = getattr(_ROWS, "value", None)
+    _ROWS.value = (rank, size) if size > 1 else None
+    try:
+        yield
+    finally:
+        _ROWS.value = prev
+
+
+def _draw(fill, shape, device) -> torch.Tensor:
+    """`fill` (an in-place sampler of a tensor) at `shape`, or at the
+    global batch's shape with this rank's rows kept (``global_rows``)."""
+    rows = getattr(_ROWS, "value", None)
+    if rows is None:
+        return fill(torch.empty(shape, device=device))
+    rank, size = rows
+    b = shape[0]
+    full = fill(torch.empty((size * b,) + tuple(shape[1:]), device=device))
+    return full[rank * b:(rank + 1) * b]
+
+
+def exponential(shape, generator: Optional[torch.Generator],
+                device) -> torch.Tensor:
+    """Exp(1) noise, fp32, from `generator` (the device's default
+    generator when None)."""
+    return _draw(lambda t: t.exponential_(generator=generator), shape,
+                 device)
+
+
+def _uniform(shape, generator: Optional[torch.Generator],
+            device) -> torch.Tensor:
+    """U[0, 1) noise, fp32, from `generator`."""
+    return _draw(lambda t: t.uniform_(generator=generator), shape, device)
+
+
 def gumbel(shape, generator: Optional[torch.Generator],
            device) -> torch.Tensor:
     """Standard Gumbel noise, -log(E) with E ~ Exp(1), fp32, from
     `generator` (the device's default generator when None)."""
-    e = torch.empty(shape, device=device).exponential_(generator=generator)
-    return -torch.log(e)
+    return -torch.log(exponential(shape, generator, device))
+
+
+def cfg_forward(fn, x, x_uncond, sigma, modality=None, **kw):
+    """fn(x, sigma, modality=, **kw), the model's forward (or ``hidden``);
+    under CFG (x_uncond given) one forward over the conditional rows x and
+    the unconditional rows x_uncond stacked ([x; x_uncond], sigma and
+    modality doubled alike). Every doubled forward of the samplers goes
+    through here, and here alone the MoE layers learn that the rows are
+    two stacked copies of the batch (``models/moe.py::stacked_batches``),
+    which they read on a data-parallel mesh."""
+    if x_uncond is None:
+        return fn(x, sigma, modality=modality, **kw)
+    mm = None if modality is None else torch.cat([modality, modality], 0)
+    with stacked_batches(2):
+        return fn(torch.cat([x, x_uncond], 0), torch.cat([sigma, sigma], 0),
+                  modality=mm, **kw)
 
 
 class ConditionedModel(torch.nn.Module):
@@ -122,8 +184,7 @@ def sample_categorical(probs: torch.Tensor,
                        ) -> torch.Tensor:
     """Gumbel-trick categorical sampling in the reference's probs / Exp(1)
     argmax form: argmax(probs / (E + 1e-10)), E ~ Exp(1) fp32."""
-    exp = torch.empty(probs.shape, device=probs.device).exponential_(
-        generator=generator) + 1e-10
+    exp = exponential(probs.shape, generator, probs.device) + 1e-10
     return torch.argmax(probs / exp, dim=-1)
 
 
@@ -147,9 +208,8 @@ def nucleus_sample(probs: torch.Tensor, top_p: float,
     filtered = filtered / torch.clamp(filtered.sum(-1, keepdim=True),
                                       min=1e-30)
     if exp_noise is None:
-        exp_noise = torch.empty(filtered.shape,
-                                device=filtered.device).exponential_(
-            generator=generator) + 1e-10
+        exp_noise = exponential(filtered.shape, generator,
+                                filtered.device) + 1e-10
     j = torch.argmax(filtered / exp_noise, dim=-1)
     return torch.gather(order, -1, j[..., None])[..., 0]
 
@@ -389,11 +449,9 @@ class Sampler:
             if m.force_argmax_valid_indices and modality is not None else {}
         if self.use_cfg:
             x_uncond = torch.where(inputs["unmask"], m.mask_index, x)
-            mm = None if modality is None else torch.cat([modality,
-                                                          modality], 0)
-            logits = model(torch.cat([x, x_uncond], 0),
-                           torch.cat([sigma, sigma], 0), modality=mm,
-                           **self._model_kwargs(inputs, 2))
+            logits = cfg_forward(model, x, x_uncond, sigma,
+                                 modality=modality,
+                                 **self._model_kwargs(inputs, 2))
             logit_c, logit_u = logits.chunk(2, dim=0)
             w = p["w"][i][:, None, None]
             combined = (1 + w) * logit_c - w * logit_u
@@ -455,8 +513,7 @@ class Sampler:
         pred = self._select(log_p, self._noise(inputs, "exp", i), generator)
         uniform = self._noise(inputs, "uniform", i)
         if uniform is None:
-            uniform = torch.rand(x.shape, generator=generator,
-                                 device=x.device)
+            uniform = _uniform(x.shape, generator, x.device)
         randv = torch.where(copy, -1.0, uniform)
         thresh = confidence_threshold(randv, num)
         return torch.where(randv >= thresh, pred, x)

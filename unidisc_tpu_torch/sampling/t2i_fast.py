@@ -37,6 +37,7 @@ from unidisc_tpu_torch.ops.quant import qdot
 from unidisc_tpu_torch.sampling.ar_sampler import init_kv_cache_for
 from unidisc_tpu_torch.sampling.sampler import (SampleResult,
                                                 adaptive_schedule,
+                                                cfg_forward,
                                                 check_model_device,
                                                 confidence_threshold,
                                                 gumbel, guidance_weight,
@@ -125,11 +126,10 @@ def img_log_weights_fn(model, config: Config) -> Callable:
             return cond_only(x, sigma, modality).float()
         x_uncond = x.clone()
         x_uncond[:, :lt] = mask_index
-        xx = torch.cat([x, x_uncond], 0)
-        ss = torch.cat([sigma, sigma], 0)
-        mm = torch.cat([modality, modality], 0)
-        hidden = model.hidden(xx, ss, modality=mm)
-        c = _sigma_cond(model, ss, m.time_conditioning)
+        hidden = cfg_forward(model.hidden, x, x_uncond, sigma,
+                             modality=modality)
+        c = _sigma_cond(model, torch.cat([sigma, sigma], 0),
+                        m.time_conditioning)
         # the head's linear is linear: combine the normalised and
         # modulated halves before it, one (B, Li, V) product instead of two
         y = _head_pre(model, hidden[:, lt:], c, config)
@@ -175,26 +175,29 @@ def img_log_weights_cached_fn(model, config: Config):
             y = (1 + w) * yc - w * yu
         return _head_linear(model, y, config, v0).float()
 
-    def doubled(*rows):
-        return tuple(torch.cat([r, r], 0) for r in rows) if use_cfg else rows
+    def doubled(sigma):
+        return torch.cat([sigma, sigma], 0) if use_cfg else sigma
 
     def cache_full(x, t, modality, kv, w):
         sigma = noise.total(t)
+        x_uncond = None
         if use_cfg:
             x_uncond = x.clone()
             x_uncond[:, :lt] = mask_index
-            xx = torch.cat([x, x_uncond], 0)
-            ss, mm = doubled(sigma, modality)
-        else:
-            xx, ss, mm = x, sigma, modality
-        hidden, kv = model.hidden(xx, ss, modality=mm, kv_cache=kv,
-                                  cache_index=0)
-        return head(hidden[:, lt:], ss, w), kv
+        hidden, kv = cfg_forward(model.hidden, x, x_uncond, sigma,
+                                 modality=modality, kv_cache=kv,
+                                 cache_index=0)
+        return head(hidden[:, lt:], doubled(sigma), w), kv
+
+    def image_rows(x, t, modality, **kw):
+        # the image rows of the two halves are the same input
+        xi, sigma = x[:, lt:], noise.total(t)
+        return cfg_forward(model.hidden, xi, xi if use_cfg else None, sigma,
+                           modality=modality[:, lt:], cache_index=lt,
+                           **kw), doubled(sigma)
 
     def cache_step(x, t, modality, kv, w):
-        xx, ss, mm = doubled(x[:, lt:], noise.total(t), modality[:, lt:])
-        hidden, kv = model.hidden(xx, ss, modality=mm, kv_cache=kv,
-                                  cache_index=lt)
+        (hidden, kv), ss = image_rows(x, t, modality, kv_cache=kv)
         return head(hidden, ss, w), kv
 
     def frozen_txt_kv(kv):
@@ -206,9 +209,7 @@ def img_log_weights_cached_fn(model, config: Config):
         return ck[:, :, :lt], cv[:, :, :lt]
 
     def frozen_step(x, t, modality, frozen, w):
-        xx, ss, mm = doubled(x[:, lt:], noise.total(t), modality[:, lt:])
-        hidden = model.hidden(xx, ss, modality=mm, frozen_kv=frozen,
-                              cache_index=lt)
+        hidden, ss = image_rows(x, t, modality, frozen_kv=frozen)
         return head(hidden, ss, w)
 
     return cache_full, cache_step, frozen_txt_kv, frozen_step

@@ -52,17 +52,24 @@ program). Under ``model.img_resolutions`` an image's rope indices carry
 its block's offset in the combined table.
 
 On a device mesh (``build_engine(mesh="fsdp=2,seq=2")``, one process per
-device) every rank holds the whole model and makes the same calls: a batch
-rounds up to the data-parallel width, each data-parallel rank samples its
-rows and a "seq" group samples replicated with the ring in the DIT
-(``parallel/sample.py``). The server's other ranks replay the leader's
-calls (``lead`` / ``follow``). "pp", "tensor" and "ep" are a later slice
-(ROADMAP queue 1, item 9) and raise ``NotImplementedError``.
+device) every rank makes the same calls: a batch rounds up to the mesh
+granule (the data-parallel width, times ``pp_microbatches`` under "pp"),
+each data-parallel rank samples its rows, a "seq" group samples
+replicated with the ring in the DIT, and "pp" / "tensor" / "ep" ranks hold
+only their stage's blocks, their head shards and their experts
+(``parallel/mesh.py::shard_model``) and run them as the DIT does on a mesh
+(``parallel/sample.py``). A rank keeps its part of the weights whole: no
+FSDP. Steps that hold collectives run eager (``capturable`` False): a CUDA
+graph cannot hold a gloo collective, and NCCL capture of a mesh sampler is
+ROADMAP queue 1, item 9. The server's other ranks replay the leader's
+calls (``lead`` / ``follow``). An int8 engine on "pp", "tensor" or "ep"
+raises ``NotImplementedError`` (item 9).
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import json
 import math
@@ -169,8 +176,10 @@ class InferenceEngine(_TextCompletion):
             from unidisc_tpu_torch.parallel.mesh import MeshLayout
             from unidisc_tpu_torch.parallel.sample import (batch_multiple,
                                                            validate_mesh)
+            from unidisc_tpu_torch.parallel.mesh import shard_model
             self.mesh = MeshLayout.of(mesh)
             validate_mesh(config, self.mesh)
+            shard_model(self.model, self.mesh)
             self._batch_multiple = batch_multiple(config, self.mesh)
             if rolling or ar_draft is not None or lookup_ngram:
                 raise NotImplementedError(
@@ -378,15 +387,25 @@ class InferenceEngine(_TextCompletion):
         its captured program at `batch` rows (ddpm_cache runs eager), on
         the CPU the eager sampler with a generator seeded per call. On a
         mesh the program runs the rank's rows of a `batch`-row call
-        (``parallel/sample.py::spmd_sampler``); under "seq" > 1 eager,
-        its steps holding the ring's collectives, which a CUDA graph over
-        a gloo group cannot hold (several ranks on one card) and which
-        wait for an NCCL host with a card per rank."""
-        local = batch // self._batch_multiple
-        if self.mesh is not None and self.mesh.seq_size > 1:
-            sampler.capturable = False
+        (``parallel/sample.py::spmd_sampler``); eager where its steps hold
+        collectives (the ring, the pipeline, the tensor-parallel sums, an
+        MoE layer's global routing), which a CUDA graph over a gloo group
+        cannot hold (several ranks on one card) and which wait for an
+        NCCL host with a card per rank (ROADMAP queue 1, item 9)."""
+        local, rows = batch, contextlib.nullcontext()
+        if self.mesh is not None:
+            from unidisc_tpu_torch.parallel.sample import has_collectives
+            from unidisc_tpu_torch.sampling.sampler import global_rows
+            if has_collectives(self.config, self.mesh):
+                sampler.capturable = False
+            local = batch // self.mesh.dp_size
+            # the program's draws are those of the global batch, as the
+            # eager sampler's under spmd_sampler: captured in the same
+            # context, the graph draws them at the global shape
+            rows = global_rows(self.mesh.dp_rank, self.mesh.dp_size)
         if self.device.type == "cuda" and sampler.capturable:
-            run = captured(sampler, local)
+            with rows:
+                run = captured(sampler, local)
         else:
             def run(*inputs, seed: int):
                 gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -929,9 +948,18 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
             config = config.apply_experiments(*experiments)
     live_mesh = None
     if mesh:
+        from unidisc_tpu_torch.parallel.mesh import check_mesh_model
+        # what the mesh cannot run is refused before the world is joined
+        check_mesh_model(dataclasses.replace(config.model, quant="int8")
+                         if quantize else config.model,
+                         mesh_spec_sizes(mesh))
         live_mesh, mesh_kw = parse_mesh_spec(mesh, dev)
         config = config.override(**{f"mesh.{k}": v
                                     for k, v in mesh_kw.items()})
+        if config.mesh.pp > 1:
+            # validate() refuses pp with dropout > 0 (a training rule);
+            # an engine runs in eval mode, where dropout does nothing
+            config = config.override(**{"model.dropout": 0.0})
         if scaffold:
             raise ValueError("scaffold decoding on a mesh is not in the "
                              "port (nor in the JAX engine)")
@@ -985,6 +1013,21 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     return engine
 
 
+def mesh_spec_sizes(spec: str) -> Dict[str, int]:
+    """"pp=2,tensor=2" -> {"pp": 2, "tensor": 2, "fsdp": 1}: the fields of
+    a mesh spec (the axes, and ``pp_microbatches``); "fsdp" defaults to
+    1."""
+    kw = {}
+    for part in spec.split(","):
+        k, _, v = part.strip().partition("=")
+        if k not in ("dcn", "fsdp", "tensor", "seq", "pp", "ep",
+                     "pp_microbatches"):
+            raise ValueError(f"unknown mesh axis {k!r}")
+        kw[k] = int(v)
+    kw.setdefault("fsdp", 1)
+    return kw
+
+
 def parse_mesh_spec(spec: str, device="cuda"):
     """"fsdp=2,seq=2" -> (a DeviceMesh over the process group's ranks, or
     None when the mesh is one device; the axis sizes). Unnamed axes
@@ -995,14 +1038,7 @@ def parse_mesh_spec(spec: str, device="cuda"):
                                                  make_mesh,
                                                  resolve_mesh_shape)
     from unidisc_tpu_torch.utils import dist as udist
-    kw = {}
-    for part in spec.split(","):
-        k, _, v = part.strip().partition("=")
-        if k not in ("dcn", "fsdp", "tensor", "seq", "pp", "ep",
-                     "pp_microbatches"):
-            raise ValueError(f"unknown mesh axis {k!r}")
-        kw[k] = int(v)
-    kw.setdefault("fsdp", 1)
+    kw = mesh_spec_sizes(spec)
     check_ported_axes(kw)
     cfg = MeshConfig(**kw)
     udist.initialize(device=str(device))

@@ -250,7 +250,8 @@ def _truncated_normal_(t: torch.Tensor, std: float,
     t.normal_(generator=generator)
     bad = t.abs() > 2
     while bad.any():
-        t[bad] = torch.randn(int(bad.sum()), generator=generator)
+        t[bad] = torch.randn(int(bad.sum()), generator=generator,
+                             device=t.device)
         bad = t.abs() > 2
     t.mul_(std)
 

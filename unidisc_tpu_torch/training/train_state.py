@@ -50,18 +50,25 @@ sees the draws of the one-rank step. The model runs on the rank's rows
 ``parallel/seq_parallel.py`` (the attention a ring). The per-token log
 probabilities are gathered back into the global (B, L) tensor, so the loss
 and the metrics are the one-rank step's, normalized by global counts, on
-every rank. The gradient of a rank is then its part of the whole; the
-parts are summed: by FSDP2's reduce-scatter (an average over the data-
-parallel ranks, scaled back by their count) and a sum over "seq" for the
-sharded parameters, by one all-reduce over the world for the rest. The
-gradient norm of the clip is that of the whole gradient, and the skip
-agrees on every rank, the loss being the same everywhere. The state (the
-moments, the EMA) is the rank's shard; ``state_dict`` gathers it whole
-(the one-rank checkpoint format) and ``load_state_dict`` takes the
-rank's shard of a whole one, so a run dir resumes on one rank or on a
-mesh. On a mesh the step takes the ``subs`` objective with AdamW (no muP,
-LoRA, MoE, joint AR+NAR or AR-LLM loss): the rest is ROADMAP queue 1,
-item 13.
+every rank. Under "pp" the DIT's blocks run as a GPipe pipeline over the
+rank's rows (``parallel/pipeline.py``), under "tensor" megatron-style,
+and under "ep" (or any data-parallel width) an MoE model routes over the
+global batch (``models/moe.py``). The gradient of a rank is then its part
+of the whole, summed over the axes whose ranks compute different parts
+of the loss (``_reduce_mesh_grads``): by FSDP2's reduce-scatter (an
+average over the data-parallel ranks, scaled back by their count) and a
+sum over "seq" for the FSDP-sharded parameters, by one all-reduce over
+the ("dcn", "fsdp", "seq") ranks for the rest; never over "tensor",
+"pp" or "ep". The gradient norm of the clip is that of the whole
+gradient, and the skip agrees on every rank, the loss being the same
+everywhere. The state (the moments, the EMA) is over the parameters the
+rank holds (its FSDP shards, its stage's blocks, its head shards and
+experts); ``state_dict`` gathers it whole (the one-rank checkpoint
+format) and ``load_state_dict`` takes the rank's part of a whole one, so
+a run dir resumes on one rank or on a mesh. On a mesh the step takes the
+``subs`` objective with AdamW (no muP, LoRA, joint AR+NAR or AR-LLM
+loss): the rest is ROADMAP queue 1, item 13. Under "pp" the MoE balance
+auxiliary is zero, as in JAX (the stage body does not carry it out).
 """
 
 from __future__ import annotations
@@ -127,6 +134,10 @@ class TrainState:
     # storage, which `flat` is copied into after each update)
     mesh: Optional["MeshLayout"] = None
     shard_dims: Optional[Dict[str, int]] = None
+    # on a mesh: what parallel/mesh.py::shard_model kept on the rank (its
+    # "tensor" / "ep" parts, its pipeline stage's blocks); `params` are
+    # then the parameters the rank holds
+    shards: Optional["MeshShards"] = None
 
     @property
     def ema_params(self) -> Params:
@@ -152,31 +163,27 @@ class TrainState:
         factored moments by flax leaf). On a mesh every rank calls it: the
         shards are gathered whole."""
         sd = self._local_state_dict()
-        if not self.shard_dims:
+        if self.shards is None:
             return sd
-        from unidisc_tpu_torch.parallel.comm import all_gather
-        group = self.mesh.fsdp_group
         for key in ("params", "ema_params", "mu", "nu"):
-            sd[key] = {n: all_gather(t, group, self.shard_dims[n])
-                       if n in self.shard_dims else t
-                       for n, t in sd[key].items()}
+            if key in sd:
+                sd[key] = self.shards.gather(sd[key], self.mesh,
+                                             self.shard_dims or {})
         return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """Copy a state_dict into this state's tensors, in place (on a
         mesh, the rank's shard of each whole tensor)."""
-        if self.shard_dims:
-            i, f = self.mesh.fsdp_rank, self.mesh.sizes["fsdp"]
+        if self.shards is not None:
             sd = dict(sd)
             for key in ("params", "ema_params", "mu", "nu"):
                 if key in sd:
-                    sd[key] = {n: t.narrow(self.shard_dims[n],
-                                           i * t.shape[self.shard_dims[n]]
-                                           // f,
-                                           t.shape[self.shard_dims[n]] // f)
-                               if n in self.shard_dims else t
-                               for n, t in sd[key].items()}
+                    missing = set(self.shards.shapes) - set(sd[key])
+                    if missing:
+                        raise KeyError(f"{key}: missing {sorted(missing)}")
+                    sd[key] = self.shards.scatter(sd[key], self.mesh,
+                                                  self.shard_dims or {})
         self._load_local(sd)
         if self.shard_dims:
             # the parameters were written in place (FSDP's storage): the
@@ -255,12 +262,17 @@ def init_train_state(config: Config,
     rank's MeshLayout, the model already sharded by
     ``parallel/mesh.py::params_shardings`` when fsdp > 1: the state is then
     over the rank's shards."""
+    shards = None
+    if mesh is not None:
+        shards = model.mesh_shards
     if mesh is not None and mesh.sharded:
         if config.trainer.low_precision_params:
             raise NotImplementedError("low_precision_params on an FSDP "
                                       "mesh (ROADMAP queue 1, item 13)")
         params, shard_dims = {}, {}
         for name, p in model.named_parameters():
+            if not shards.held(name, mesh):
+                continue
             if hasattr(p, "to_local"):
                 shard_dims[name] = p.placements[-1].dim
                 params[name] = p.to_local()
@@ -273,8 +285,11 @@ def init_train_state(config: Config,
                           opt_state=make_optimizer(config).init(flat,
                                                                 params),
                           ema=flat.to(torch.float32, copy=True), mesh=mesh,
-                          shard_dims=shard_dims)
-    if isinstance(model, nn.Module):
+                          shard_dims=shard_dims, shards=shards)
+    if mesh is not None:
+        params = {n: p for n, p in model.named_parameters()
+                  if shards.held(n, mesh)}
+    elif isinstance(model, nn.Module):
         params = dict(model.named_parameters())
     else:
         params = {k: v if isinstance(v, nn.Parameter) else nn.Parameter(v)
@@ -288,7 +303,8 @@ def init_train_state(config: Config,
                                        device=flat.device),
                       params=params, flat=flat,
                       opt_state=make_optimizer(config).init(flat, params),
-                      ema=flat.to(torch.float32, copy=True), mesh=mesh)
+                      ema=flat.to(torch.float32, copy=True), mesh=mesh,
+                      shards=shards)
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +655,6 @@ def check_mesh_step(config: Config, param_map=None) -> None:
          t.parameterization != "subs"),
         (f"optimizer={t.optimizer!r}", t.optimizer != "adamw"),
         ("model.mup", m.mup), ("LoRA", param_map is not None),
-        ("MoE", m.moe_experts > 0),
         ("joint_ar_nar_prob", t.joint_ar_nar_prob is not None),
         ("ar_llm_loss", t.ar_llm_loss),
         ("dropout with img_cond", m.dropout > 0 and m.img_cond)) if bad]
@@ -657,6 +672,7 @@ def mesh_apply_fn(config: Config, model: nn.Module, mesh):
     masks (``models/dit.py::dropout_masks``, the one-rank draw) and keeps
     the rank's block; given masks are sliced."""
     from unidisc_tpu_torch.models.dit import block_dropout_seed, dropout_masks
+    from unidisc_tpu_torch.parallel.pipeline import pipeline_parallel
     from unidisc_tpu_torch.parallel.seq_parallel import sequence_parallel
     base = make_apply_fn(config, model)
 
@@ -673,7 +689,8 @@ def mesh_apply_fn(config: Config, model: nn.Module, mesh):
         for k in ("sample_ids", "rope_index", "x_cond"):
             if k in extra:
                 extra[k] = mesh.rows(extra[k])
-        with sequence_parallel(mesh, gather=False):
+        with sequence_parallel(mesh, gather=False), \
+                pipeline_parallel(mesh, config.mesh.pp_microbatches):
             return base(params, mesh.rows(x), mesh.rows(sigma),
                         mesh.rows(modality), train, **extra)
     return apply_fn
@@ -682,34 +699,59 @@ def mesh_apply_fn(config: Config, model: nn.Module, mesh):
 @torch.no_grad()
 def _reduce_mesh_grads(state: TrainState, model: nn.Module):
     """The rank's flat gradient of the whole loss, in the order of
-    state.params, and the norm of the whole gradient. FSDP2 has averaged
-    the sharded parameters' gradients over the data-parallel ranks: scaled
-    back to a sum, then summed over "seq"; the rest is summed over the
-    world."""
+    state.params, and the norm of the whole gradient.
+
+    A gradient is summed over the axes whose ranks compute different parts
+    of the loss, the data-parallel rows and the "seq" chunks: FSDP2 has
+    averaged the sharded parameters' over the data-parallel ranks (scaled
+    back to a sum, then summed over "seq"); the rest are summed over the
+    ("dcn", "fsdp", "seq") ranks. It is not summed over "tensor", "pp" or
+    "ep", whose ranks hold the same rows: where such a rank computes a
+    part of a parameter's gradient (a column-parallel input, a pipeline's
+    input, the MoE exchange), the model's ``comm.copy_to`` has summed it
+    already, and the parameters they split are each rank's own. The norm
+    counts each parameter's elements once: on the ranks at index 0 of
+    every axis that does not split it."""
     import torch.distributed as dist
 
     from unidisc_tpu_torch.parallel.comm import all_reduce
-    mesh = state.mesh
+    from unidisc_tpu_torch.parallel.mesh import AXES
+    mesh, shards = state.mesh, state.shards
     named = dict(model.named_parameters())
     shard_dims = state.shard_dims or {}
-    is_sharded = [n in shard_dims for n in state.params]
-    sharded = [named[n].grad.to_local() * mesh.dp_size
-               for n, sh in zip(state.params, is_sharded) if sh]
-    whole = [named[n].grad for n, sh in zip(state.params, is_sharded)
-             if not sh]
+    coord = {"dcn": mesh.dp_rank // mesh.sizes["fsdp"],
+             "fsdp": mesh.fsdp_rank, "tensor": mesh.tensor.rank,
+             "seq": mesh.seq_rank, "pp": mesh.pp.rank, "ep": mesh.ep.rank}
+
+    def counted(n):
+        split = {"fsdp"} if n in shard_dims else set()
+        if n in shards.parts:
+            split.add(shards.parts[n].axis)
+        if n in shards.stage_of:
+            split.add("pp")
+        return all(coord[a] == 0 for a in AXES if a not in split)
+
+    def grad(n):
+        g = named[n].grad
+        if g is None:
+            return torch.zeros_like(state.params[n])
+        return g.to_local() * mesh.dp_size if n in shard_dims else g
+
+    names = list(state.params)
+    is_sharded = [n in shard_dims for n in names]
+    parts = {}
+    for sh, group in ((True, mesh.seq_group), (False, mesh.grad_group)):
+        mine = [n for n, s in zip(names, is_sharded) if s == sh]
+        if mine:
+            flat = all_reduce(flatten([grad(n) for n in mine]), group)
+            parts.update(zip(mine, flat.split(
+                [state.params[n].numel() for n in mine])))
     sq = torch.zeros((), dtype=torch.float32, device=state.flat.device)
-    if sharded:
-        sharded = all_reduce(flatten(sharded), mesh.seq_group)
-        sq = all_reduce(sharded.float().square().sum(), mesh.fsdp_group)
-        sharded = iter(sharded.split([t.numel() for t, sh in zip(
-            state.params.values(), is_sharded) if sh]))
-    if whole:
-        whole = all_reduce(flatten(whole), dist.group.WORLD)
-        sq = sq + whole.float().square().sum()
-        whole = iter(whole.split([t.numel() for t, sh in zip(
-            state.params.values(), is_sharded) if not sh]))
-    parts = [next(sharded) if sh else next(whole) for sh in is_sharded]
-    return torch.cat(parts), torch.sqrt(sq)
+    for n in names:
+        if counted(n):
+            sq = sq + parts[n].float().square().sum()
+    sq = all_reduce(sq, dist.group.WORLD)
+    return torch.cat([parts[n] for n in names]), torch.sqrt(sq)
 
 
 def make_train_step(config: Config, model: nn.Module, param_map=None,

@@ -24,7 +24,10 @@ trains on one device and computes in bf16, as the JAX trainer does.
   The loader of each rank yields its slice of the global batch
   (``utils/dist.py::host_local_batch_size`` rows), which
   ``host_batch_to_global`` assembles on every rank; the step is
-  ``train_state.py``'s mesh step, the model FSDP2-sharded when fsdp > 1.
+  ``train_state.py``'s mesh step over every axis of ``config.mesh``
+  (the model laid out by ``parallel/mesh.py::params_shardings``: a pp
+  rank's stage, a tensor rank's head shards, an ep rank's experts, FSDP2
+  over the rest when fsdp > 1).
   Validation is the mesh's too. Every rank gathers the state for a
   checkpoint and rank 0 writes it, in the one-rank format, so a run dir
   resumes on one rank or on a mesh; rank 0 logs ``metrics.jsonl``, rank
