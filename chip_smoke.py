@@ -320,6 +320,27 @@ and prints no result):
      kernels line counts the paths mesh2_train_pp, mesh2_train_tensor,
      mesh2_train_moe, mesh2_serve, mesh2_engine and mesh2_dp_engine,
      summed over the ranks.
+  5j. evaluation: unidisc_tpu_torch.eval_run.main in-process on phase 5's
+     run dir (its step-TRAIN_STEPS checkpoint copied into a run dir whose
+     snapshot samples as the flagship serves: maskgit, 32 steps, CFG 2.0),
+     on the card with --use-ema, 4 val batches of 16 rows of token shards
+     from the seed, the VQ-16 codec, an FID reference of the shards' image
+     ids decoded (32 images), a MAUVE reference of their captions, and an
+     asset dir holding the CLIP ViT-L/14 and gpt2-large judges at their
+     published widths with JUDGE_LAYERS layers of random weights (in HF's
+     files, with a byte-level BPE learned from the captions) and no
+     inception file; the launch counts set to 0 just before and read just
+     after: every key of eval_results.json there and finite, the fallback
+     (FID on random_conv) and the judges (MAUVE on gpt2-large features, the
+     judge LM's perplexity, the CLIP score) printed and asserted, the step
+     TRAIN_STEPS, flash_fwd launched the code's count (a block a forward:
+     the val batches, the capture's warm run, every sampler call's NFE),
+     val/nll within EVAL_VAL_RTOL of Trainer.validate on the same batches,
+     FID over random_conv of the same images on the card within
+     EVAL_FID_RTOL of the CPU's, and the CLIP and GPT-2 judges on the card
+     within JUDGE_TOL of the CPU on the same inputs, their forward times
+     beside. Line `eval` (eval_run's wall s, speed_eval's tok/s and p50
+     latency, the judges' forward ms, the card).
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -397,6 +418,7 @@ from unidisc_tpu_torch.serving.rolling import (RollingT2IBatcher,
                                                build_rolling_t2i,
                                                keyed_uniform)
 from unidisc_tpu_torch.serving.server import make_server
+from unidisc_tpu_torch.tokenizers.bpe import bytes_to_unicode
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
                                                     flat_parameters,
                                                     init_train_state,
@@ -6926,6 +6948,345 @@ def phase_mesh2(seed) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 5j: evaluation (eval_run on phase 5's run dir)
+# ---------------------------------------------------------------------------
+
+EVAL_BATCH = 16          # eval_run's --batch: the val and generated rows
+EVAL_VAL_BATCHES = 4     # --max-batches
+EVAL_GEN_BATCHES = 2     # --gen-batches: the timed sampler calls
+EVAL_REF_ROWS = 32       # shard rows decoded into the FID reference
+EVAL_VAL_RTOL = 1e-5     # val/nll against Trainer.validate: the same
+#                          kernels, weights and draws
+EVAL_FID_RTOL = 1e-3     # FID over random_conv, card against CPU (fp32)
+JUDGE_TOL = 1e-4         # the judges card against CPU, fp32 on both sides
+#                          (TF32 off): relative to the largest magnitude
+JUDGE_LAYERS = 2
+# the judges at their published widths (the config.json of HF's
+# clip-vit-large-patch14 and gpt2-large), JUDGE_LAYERS layers a tower
+CLIP_L14 = {"projection_dim": 768,
+            "text_config": {"hidden_size": 768, "intermediate_size": 3072,
+                            "num_attention_heads": 12,
+                            "num_hidden_layers": JUDGE_LAYERS,
+                            "max_position_embeddings": 77,
+                            "vocab_size": 49408, "eos_token_id": 2},
+            "vision_config": {"hidden_size": 1024,
+                              "intermediate_size": 4096,
+                              "num_attention_heads": 16,
+                              "num_hidden_layers": JUDGE_LAYERS,
+                              "image_size": 224, "patch_size": 14}}
+GPT2_LARGE = {"n_embd": 1280, "n_head": 20, "n_layer": JUDGE_LAYERS,
+              "n_positions": 1024, "vocab_size": 50257}
+# the served sampling of the flagship, which the run dir's snapshot (a
+# training config) lacks
+FLAGSHIP_SAMPLING = {k: v for k, v in FLAGSHIP_OVERRIDES.items()
+                     if k.startswith("sampling.")}
+EVAL_PATHS = ("eval",)
+
+
+def learn_merges(words: list, n: int) -> list:
+    """n BPE merges learned greedily from words (lists of symbols)."""
+    merges = []
+    for _ in range(n):
+        counts = collections.Counter(
+            pair for w in words for pair in zip(w, w[1:]))
+        if not counts:
+            break
+        best = counts.most_common(1)[0][0]
+        merges.append(best)
+        out = []
+        for w in words:
+            new, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    new.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    new.append(w[i])
+                    i += 1
+            out.append(new)
+        words = out
+    return merges
+
+
+def write_bpe(path, texts, clip: bool) -> None:
+    """A byte-level BPE in HF's files: the 256 byte symbols (CLIP: and
+    their word-final forms), 64 merges learned from `texts`, the end token
+    at the published id (CLIP: 49407 after the start token 49406; GPT-2:
+    50256)."""
+    bm = bytes_to_unicode()
+    syms = [bm[b] for b in range(256)]
+    words = []
+    for t in texts:
+        for w in t.lower().split() if clip else t.split():
+            s = [bm[b] for b in w.encode()]
+            words.append(s[:-1] + [s[-1] + "</w>"] if clip else s)
+    vocab = {s: i for i, s in enumerate(
+        syms + ([s + "</w>" for s in syms] if clip else []))}
+    merges = learn_merges(words, 64)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    if clip:
+        vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    else:
+        vocab["<|endoftext|>"] = 50256
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                            for a, b in merges))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "CLIPTokenizer" if clip else
+                   "GPT2Tokenizer",
+                   "model_max_length": 77 if clip else 1024}, f)
+
+
+def judge_init_(module, seed: int) -> None:
+    """Random judge weights from a seed: matrices N(0, 0.02), norm scales
+    1, every other vector 0."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            elif name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def write_judge_assets(root, texts, seed) -> str:
+    """An asset dir with the CLIP and GPT-2 judges at their published
+    widths (JUDGE_LAYERS layers of random weights), in HF's files
+    (config.json, pytorch_model.bin, the BPE files); no inception file, so
+    eval_run's FID takes the random-conv fallback."""
+    from unidisc_tpu_torch.eval.judge_nets import (CLIP_PREPROCESS,
+                                                   CLIPModel,
+                                                   GPT2LMHeadModel)
+    base = os.path.join(root, "assets")
+    for name, conf, cls, clip in (
+            ("clip-vit-large-patch14", CLIP_L14, CLIPModel, True),
+            ("gpt2-large", GPT2_LARGE, GPT2LMHeadModel, False)):
+        path = os.path.join(base, name)
+        os.makedirs(path)
+        model = cls(conf)
+        judge_init_(model, seed)
+        torch.save(model.state_dict(),
+                   os.path.join(path, "pytorch_model.bin"))
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(conf, f)
+        if clip:
+            with open(os.path.join(path, "preprocessor_config.json"),
+                      "w") as f:
+                json.dump(CLIP_PREPROCESS, f)
+        write_bpe(path, texts, clip)
+        del model
+    return base
+
+
+def blob_images(n: int, seed: int, size: int) -> np.ndarray:
+    """n images in [-1, 1]: a square of a random colour at a random place
+    on black."""
+    rng = np.random.RandomState(seed)
+    imgs = np.full((n, size, size, 3), -1.0, np.float32)
+    r = size // 8
+    for img in imgs:
+        cx, cy = rng.randint(size // 4, 3 * size // 4, 2)
+        img[cy - r:cy + r, cx - r:cx + r] = rng.uniform(-1, 1, 3)
+    return imgs
+
+
+def eval_run_dir(run_dir, root) -> str:
+    """Phase 5's latest checkpoint in a run dir of its own whose snapshot
+    samples as the flagship serves (FLAGSHIP_SAMPLING)."""
+    out = os.path.join(root, "eval_run")
+    src = os.path.join(run_dir, "checkpoints", str(TRAIN_STEPS))
+    dst = os.path.join(out, "checkpoints", str(TRAIN_STEPS))
+    shutil.copytree(src, dst)
+    with open(os.path.join(dst, "meta.json")) as f:
+        meta = json.load(f)
+    for key, value in FLAGSHIP_SAMPLING.items():
+        meta["config"]["sampling"][key.split(".", 1)[1]] = value
+    with open(os.path.join(dst, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    return out
+
+
+def judge_agreement(assets, images, texts) -> dict:
+    """The CLIP and GPT-2 judges on the card against the CPU on the same
+    inputs (fp32 on both sides): CLIP's image embeddings and scores,
+    GPT-2's NLLs and embeddings; and the forward times of each judge's
+    network on the card (CUDA events; the score call's host work, the
+    tokenizer and the image processor, outside them)."""
+    from unidisc_tpu_torch.eval import judges
+    from unidisc_tpu_torch.eval.judge_nets import load_gpt2
+    out = {}
+
+    def gate(what, got, want):
+        got = torch.as_tensor(np.asarray(got)).double()
+        want = torch.as_tensor(np.asarray(want)).double()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= JUDGE_TOL * scale:
+            raise AssertionError(f"{what}: card vs CPU {err} > "
+                                 f"{JUDGE_TOL} x {scale}")
+        out[f"{what}_max_abs_err"] = err
+
+    clip_dir = os.path.join(assets, "clip-vit-large-patch14")
+    clip = {dev: judges.ClipJudge(clip_dir, dev) for dev in ("cuda", "cpu")}
+    gate("clip_image_embeds", clip["cuda"].image_embeds(images).cpu(),
+         clip["cpu"].image_embeds(images))
+    gate("clip_score", clip["cuda"].score(images, texts),
+         clip["cpu"].score(images, texts))
+    judge = clip["cuda"]
+    pixels = judge.pixels(images)
+    enc = judge.tokenizer(texts, padding="longest", truncation=True)
+    ids = torch.from_numpy(enc["input_ids"]).cuda()
+    mask = torch.from_numpy(enc["attention_mask"]).cuda()
+    with torch.no_grad():
+        out["clip_forward_ms"] = time_ms(
+            lambda: judge.model(ids, pixels, mask), iters=10, warmup=2)
+    out["clip_batch"] = len(texts)
+    del clip, judge, pixels
+    nll = {dev: judges.judge_lm(assets, device=dev) for dev in ("cuda",
+                                                                "cpu")}
+    gate("gpt2_nll", nll["cuda"][0](texts), nll["cpu"][0](texts))
+    gate("gpt2_embed", nll["cuda"][1](texts), nll["cpu"][1](texts))
+    del nll
+    lm = load_gpt2(os.path.join(assets, "gpt2-large"), "cuda")
+    row = torch.randint(0, GPT2_LARGE["vocab_size"], (1, 128),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        out["gpt2_forward_ms_1x128"] = time_ms(lambda: lm(row), iters=10,
+                                               warmup=2)
+    del lm
+    free()
+    return out
+
+
+def phase_eval(run_dir, root, seed) -> dict:
+    """Phase 5j (module docstring): eval_run on phase 5's run dir."""
+    from unidisc_tpu_torch import eval_run
+    from unidisc_tpu_torch.eval import judges
+    from unidisc_tpu_torch.eval.fid import FIDMetric
+    from unidisc_tpu_torch.tokenizers.image_codecs import get_codec
+    from unidisc_tpu_torch.tokenizers.text import get_tokenizer
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    m = cfg.model
+    run = eval_run_dir(run_dir, root)
+    rows = next(SyntheticDataLoader(cfg, EVAL_BATCH * EVAL_VAL_BATCHES,
+                                    seed=seed + 9))
+    shards = os.path.join(root, "eval_shards")
+    write_shard(shards, rows["input_ids"], rows["modality"])
+    size = math.isqrt(m.img_length) * 16          # VQ-16's downsample
+    codec = get_codec(CODEC, image_size=size)
+    ids = rows["input_ids"][:EVAL_REF_ROWS, m.txt_length:] - \
+        m.text_vocab_size
+    ref_imgs = codec.decode(np.clip(ids, 0, m.image_vocab_size - 1)
+                            ).float().cpu().numpy()
+    del codec
+    np.save(os.path.join(root, "fid_ref.npy"), ref_imgs)
+    tok = get_tokenizer()
+    captions = [tok.decode(r[r < m.text_vocab_size - 1])
+                for r in rows["input_ids"][:, :m.txt_length]]
+    with open(os.path.join(root, "mauve_ref.txt"), "w") as f:
+        f.write("\n".join(c.replace("\n", " ") for c in captions) + "\n")
+    assets = write_judge_assets(root, captions, seed)
+    setup_s = time.perf_counter() - t_phase
+
+    args = ["--ckpt", run, "--data", shards, "--batch", str(EVAL_BATCH),
+            "--max-batches", str(EVAL_VAL_BATCHES), "--gen-batches",
+            str(EVAL_GEN_BATCHES), "--codec", CODEC, "--image-size",
+            str(size), "--use-ema", "--fid-ref",
+            os.path.join(root, "fid_ref.npy"), "--mauve-ref",
+            os.path.join(root, "mauve_ref.txt"), "--assets", assets,
+            "--clip"]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eval_run.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+
+    # every key JAX's eval_run writes with these flags, finite; the
+    # fallback the missing inception file forces, and the judges found
+    keys = {"step", "val/nll", "val/bpd", "val/ppl", "val/txt_ppl",
+            "val/img_bpd", "p50_latency_s", "avg_time_per_sample",
+            "avg_time_per_token", "tokens_per_sec", "avg_nfe_cnt",
+            "gen/token_entropy", "gen/txt_vocab_respected",
+            "fid/random_conv(seed7)", "mauve/features", "mauve/score",
+            "gen/judge_ppl", "clip/score"}
+    if set(results) != keys:
+        raise AssertionError(f"eval_results keys {sorted(results)}")
+    with open(os.path.join(run, "eval_results.json")) as f:
+        if set(json.load(f)) != keys:
+            raise AssertionError("eval_results.json keys")
+    for k, v in results.items():
+        if k != "mauve/features" and not math.isfinite(v):
+            raise AssertionError(f"eval {k} = {v}")
+    if results["mauve/features"] != "gpt2-large":
+        raise AssertionError(f"MAUVE ran on {results['mauve/features']}")
+    if results["step"] != TRAIN_STEPS:
+        raise AssertionError(f"eval_run restored step {results['step']}")
+    print("eval fallbacks: fid on random_conv(seed7) (no inception asset), "
+          "mauve on gpt2-large features, clip score from the CLIP judge")
+
+    # flash_fwd: a block a forward: the val batches, the capture's warm
+    # run of the denoise loop, and every call's forwards (NFE each):
+    # speed_eval's warmup and timed calls and the final sample
+    s = FLAGSHIP_SAMPLING
+    calls = 1 + max(EVAL_GEN_BATCHES, 2) + 1
+    nfe = int(results["avg_nfe_cnt"])
+    want = {"flash_fwd": m.n_blocks * (EVAL_VAL_BATCHES
+                                       + s["sampling.steps"] + calls * nfe)}
+    if launches != want:
+        raise AssertionError(f"eval launched {launches}, expected {want}")
+
+    # val/nll is the Trainer's validate on the same batches
+    trainer = Trainer(cfg, run, device="cuda", log_every=1000)
+    if trainer.maybe_restore() != TRAIN_STEPS:
+        raise AssertionError("the Trainer restored another step")
+    val = trainer.validate(WeightedDatasetSampler(
+        [TokenShardDataset(shards)], batch_size=EVAL_BATCH, seed=7,
+        shuffle=False), TRAIN_STEPS, max_batches=EVAL_VAL_BATCHES)
+    trainer.close()
+    del trainer
+    free()
+    val_err = abs(results["val/nll"] - val["val/nll"]) / abs(val["val/nll"])
+    if not val_err <= EVAL_VAL_RTOL:
+        raise AssertionError(f"eval_run val/nll {results['val/nll']} vs "
+                             f"Trainer.validate {val['val/nll']}")
+
+    # FID over random_conv features: the card against the CPU, on two sets
+    # of blob images (the random codec's decodes are nearly alike: their
+    # FID is ~0 and its relative error says nothing)
+    fids = {}
+    real, fake = blob_images(16, seed, size), blob_images(16, seed + 1, size)
+    for dev in ("cuda", "cpu"):
+        metric = FIDMetric(judges.random_conv_features(device=dev), 192)
+        metric.update_real(real)
+        metric.update_fake(fake)
+        fids[dev] = metric.compute()
+    fid_err = abs(fids["cuda"] - fids["cpu"]) / abs(fids["cpu"])
+    if not fid_err <= EVAL_FID_RTOL:
+        raise AssertionError(f"random_conv FID card {fids['cuda']} vs CPU "
+                             f"{fids['cpu']}")
+
+    u8 = ((np.clip(ref_imgs[:EVAL_BATCH], -1, 1) + 1) * 127.5).astype(
+        np.uint8)
+    agree = judge_agreement(assets, u8, captions[:EVAL_BATCH])
+    rec = {"card": card_line(), "wall_s": wall_s, "setup_s": setup_s,
+           "phase_s": time.perf_counter() - t_phase, "results": results,
+           "launches": launches, "expected_launches": want,
+           "trainer_val_nll": val["val/nll"], "val_nll_rel_err": val_err,
+           "fid_random_conv": fids, "fid_rel_err": fid_err,
+           "judges": agree}
+    print("eval " + json.dumps(rec))
+    return rec
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7053,10 +7414,14 @@ def main() -> int:
         # 5d: the rest of training, phase 5's run dir the LoRA base and
         # the distillation teacher
         record["train_rest"] = phase_train_rest(args.seed, root, run_dir)
+        free()
+        lap("train_rest")
+        # 5j: evaluation, eval_run on phase 5's run dir
+        record["eval"] = phase_eval(run_dir, root, args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free()
-    lap("train_rest")
+    lap("eval")
     # 5c: the ar, sedd and d3pm objectives on token shards and streams
     root = tempfile.mkdtemp(prefix="chip_smoke_ar_train_")
     try:
@@ -7149,6 +7514,8 @@ def main() -> int:
         for path in MESH2_PATHS:
             by_path[name][path] = record["mesh2"][path]["launches"].get(
                 name, 0)
+        for path in EVAL_PATHS:
+            by_path[name][path] = record[path]["launches"].get(name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path

@@ -1,7 +1,7 @@
 """The port stands alone: no file of unidisc_tpu_torch/ and not
-chip_smoke.py imports JAX, flax or the JAX package, nor PIL or safetensors
-(the card's machine has neither), and importing the package needs neither
-nvcc nor CUDA."""
+chip_smoke.py imports JAX, flax or the JAX package, nor PIL, safetensors,
+sklearn, transformers or tokenizers (the card's machine has none of them),
+and importing the package needs neither nvcc nor CUDA."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "unidisc_tpu",
-             "PIL", "safetensors"}
+             "PIL", "safetensors", "sklearn", "transformers", "tokenizers"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "unidisc_tpu_torch").rglob("*.py")) \
     + ["chip_smoke.py"]
@@ -345,6 +345,38 @@ def test_mesh_slice_is_checked():
             "assert not udist.initialize(device='cpu')\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    env={"PATH": "/nonexistent", "CUDA_VISIBLE_DEVICES": ""})
+
+
+# the modules of the evaluation slice: the metric battery, its judges and
+# their tokenizer, scoring, auto-enhance, the eval CLI and the utils left
+EVAL_SLICE = [
+    "unidisc_tpu_torch/eval/__init__.py",
+    "unidisc_tpu_torch/eval/fid.py",
+    "unidisc_tpu_torch/eval/judge_nets.py",
+    "unidisc_tpu_torch/eval/judges.py",
+    "unidisc_tpu_torch/eval/harness.py",
+    "unidisc_tpu_torch/eval/rewards.py",
+    "unidisc_tpu_torch/eval/auto_enhance.py",
+    "unidisc_tpu_torch/eval/scoring.py",
+    "unidisc_tpu_torch/eval_run.py",
+    "unidisc_tpu_torch/tokenizers/bpe.py",
+    "unidisc_tpu_torch/utils/caption_llm.py",
+    "unidisc_tpu_torch/utils/profiling.py",
+    "unidisc_tpu_torch/utils/viz.py",
+    "unidisc_tpu_torch/utils/resize.py",
+]
+
+
+def test_eval_slice_is_checked():
+    assert set(EVAL_SLICE) <= set(FILES)
+    # every module of the JAX package's eval/ has its counterpart
+    jax_eval = {p.name for p in (ROOT / "unidisc_tpu/eval").glob("*.py")}
+    port_eval = {p.name for p in (ROOT / "unidisc_tpu_torch/eval")
+                 .glob("*.py")}
+    assert jax_eval <= port_eval, sorted(jax_eval - port_eval)
+    # caption_llm stays on numpy and the standard library
+    roots = set(imported_roots("unidisc_tpu_torch/utils/caption_llm.py"))
+    assert roots <= {"__future__", "re", "typing", "numpy"}, roots
 
 
 @pytest.mark.parametrize("path", FILES)

@@ -95,6 +95,34 @@ def _step_seed(base: int, step: int) -> int:
     return (base * 1_000_003 + step) % (2 ** 63)
 
 
+def validation_sums(eval_step, state, loader, max_batches: int, *,
+                    seed: int, device, to_device,
+                    draws=None) -> Optional[np.ndarray]:
+    """The sums over up to max_batches loader batches (None for none) of
+    (nll, tokens, text nll, text tokens, image nll, image tokens, loss, 1)
+    under eval_step(state, to_device(batch), generator=, draws=): batch i
+    draws from a generator seeded _step_seed(seed + 2, i), or from
+    ``draws(i, rows)`` when given. Trainer.validate and eval_run share it,
+    so the two read the same draws."""
+    gen = torch.Generator(device=device)
+    sums = None
+    for i, batch in enumerate(loader):
+        if i >= max_batches:
+            break
+        batch = to_device(batch)
+        gen.manual_seed(_step_seed(seed + 2, i))
+        m = eval_step(state, batch, generator=gen,
+                      draws=None if draws is None else
+                      draws(i, batch["input_ids"].shape[0]))
+        cur = torch.stack([m.nll_sum.float(), m.token_count.float(),
+                           m.nll_txt_sum.float(), m.txt_count.float(),
+                           m.nll_img_sum.float(), m.img_count.float(),
+                           m.loss.float()]).double().cpu().numpy()
+        cur = np.append(cur, 1.0)
+        sums = cur if sums is None else sums + cur
+    return sums
+
+
 def restore_base_params(run_dir: str, expect_like=None) -> dict:
     """A port run dir's EMA weights (CPU tensors by name), the frozen base
     of a LoRA run. The run must not itself be a LoRA run; with
@@ -365,20 +393,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def validate(self, val_loader, step: int, max_batches: int = 16) -> dict:
         """Aggregate validation NLL / BPD / PPL over up to max_batches."""
-        gen = torch.Generator(device=self.device)
-        sums = None
-        for i, batch in enumerate(val_loader):
-            if i >= max_batches:
-                break
-            gen.manual_seed(_step_seed(self.config.seed + 2, i))
-            m = self.eval_step(self.state, self._to_device(batch),
-                               generator=gen)
-            cur = torch.stack([m.nll_sum.float(), m.token_count.float(),
-                               m.nll_txt_sum.float(), m.txt_count.float(),
-                               m.nll_img_sum.float(), m.img_count.float(),
-                               m.loss.float()]).double().cpu().numpy()
-            cur = np.append(cur, 1.0)
-            sums = cur if sums is None else sums + cur
+        sums = validation_sums(self.eval_step, self.state, val_loader,
+                               max_batches, seed=self.config.seed,
+                               device=self.device, to_device=self._to_device)
         if sums is None:
             return {}
         nll = sums[0] / max(sums[1], 1)
