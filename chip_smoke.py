@@ -117,6 +117,27 @@ and prints no result):
      (cut to fit 384 positions) through engine.continuous. Lines
      `ar_serving` (TTFT and TPOT p50 / p95, tok/s), `ar_speculative`,
      `ar_programs` (build s, memory, ms a replay) and `ar_kernels`.
+  4h. the codecs left, on phase 4's randomize_ weights with the image
+     vocabulary the codecs' 8,192 codes: MAGVITv2 (MagvitConfig(), the
+     published widths) and titok256 (hidden 512, 8 layers, K 256), each
+     behind build_engine(codec_name=): the codec module on the card against
+     a CPU copy (fp32, TF32 off: latents and the decode of the CPU's ids
+     within CODEC_ATOL / CODEC_RTOL, ids equal where the CPU's margin
+     exceeds ID_MARGIN, at least CLEAR_SHARE of them; MAGVIT at 64 px,
+     TiTok at its own 256 px on 2 images), 8 t2i requests served as in 4e
+     (counted launches exact: flash_fwd once a block a forward; PNGs the
+     decode of the returned ids; the batch with and without the decode),
+     2 of the PNGs captioned back through the codec's encoder, and encode
+     and decode ms at batch 8; load_magvit_foreign of the MAGVIT card
+     module's weights under foreign names (a discriminator key beside
+     them) decoding bit for bit as the original; get_video_codec() at its
+     defaults (16 frames of 64 px) on the card against a CPU copy, 2 clips,
+     as above; tokenize_t2i_batch over chameleon-vqgan with var-aspect
+     crops (300 x 150 images to (128, 64)) on the card against the CPU,
+     the streams equal where the VQ margin (relative to the top score) is
+     clear. Line `codecs` (each codec's ms, the served batch s and tok/s);
+     the kernels line's flash_fwd counts the paths codecs_magvit and
+     codecs_titok.
   5. train path: check one full-width gradient (FLAGSHIP_TRAIN_OVERRIDES,
      batch 32) through the kernels against the plain path; then train the
      flagship for 20 steps through Trainer.fit on one synthetic batch with
@@ -419,6 +440,15 @@ from unidisc_tpu_torch.serving.rolling import (RollingT2IBatcher,
                                                keyed_uniform)
 from unidisc_tpu_torch.serving.server import make_server
 from unidisc_tpu_torch.tokenizers.bpe import bytes_to_unicode
+from unidisc_tpu_torch.tokenizers.chameleon import (ChameleonSpec,
+                                                    build_crop_size_list,
+                                                    decode_stream,
+                                                    tokenize_t2i_batch,
+                                                    var_center_crop)
+from unidisc_tpu_torch.tokenizers.image_codecs import (get_codec,
+                                                       get_video_codec)
+from unidisc_tpu_torch.tokenizers.remap import load_magvit_foreign
+from unidisc_tpu_torch.tokenizers.text import get_tokenizer
 from unidisc_tpu_torch.training.train_state import (compute_batch_loss,
                                                     flat_parameters,
                                                     init_train_state,
@@ -1629,29 +1659,47 @@ def free(*engines) -> None:
 
 def codec_flops(module, fn) -> float:
     """The multiply-adds x 2 of every convolution and product that fn runs
-    in `module` (conv hooks; the attention blocks' two products counted
-    from their shapes), from one call."""
+    in `module` (conv and linear hooks; the attention blocks' products
+    counted from their shapes), from one call."""
     total = [0.0]
 
     def conv_hook(mod, inputs, out):
-        k = mod.weight[0].numel()              # cin x kh x kw
+        k = mod.weight[0].numel()     # cin x kernel volume, or in_features
         total[0] += 2.0 * out.numel() * k
 
     def attn_hook(mod, inputs, out):
         b, c, h, w = inputs[0].shape
         total[0] += 2 * 2.0 * b * (h * w) ** 2 * c
 
+    def vit_attn_hook(mod, inputs, out):
+        # the packed q, k, v product and the two attention products (the
+        # output projection is a Linear of its own)
+        b, n, h = inputs[0].shape
+        total[0] += 2.0 * b * n * 3 * h * h + 2 * 2.0 * b * n * n * h
+
+    from unidisc_tpu_torch.tokenizers.titok import SelfAttention
     from unidisc_tpu_torch.tokenizers.vqgan import AttnBlock
-    hooks = [m.register_forward_hook(
-        attn_hook if isinstance(m, AttnBlock) else conv_hook)
-        for m in module.modules()
-        if isinstance(m, (torch.nn.Conv2d, AttnBlock))]
+    hook_of = {AttnBlock: attn_hook, SelfAttention: vit_attn_hook}
+    hooks = [m.register_forward_hook(hook_of.get(type(m), conv_hook))
+             for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                               torch.nn.Linear, AttnBlock, SelfAttention))]
     try:
         fn()
     finally:
         for h in hooks:
             h.remove()
     return total[0]
+
+
+def close_record(got, want) -> dict:
+    """The error of `got` against `want`, and its largest excess over
+    CODEC_ATOL + CODEC_RTOL |want| (<= 0 within tolerance)."""
+    excess = ((got - want).abs()
+              - (CODEC_ATOL + CODEC_RTOL * want.abs())).max().item()
+    return {"max_abs_err": (got - want).abs().max().item(),
+            "max_abs": want.abs().max().item(),
+            "max_excess_over_tol": excess}
 
 
 def phase_codec_cpu_vs_card(codec, seed) -> dict:
@@ -1676,17 +1724,10 @@ def phase_codec_cpu_vs_card(codec, seed) -> dict:
         top = (2.0 * (zf @ cb.T) - (cb ** 2).sum(-1)).topk(2, -1).values
         margin = (top[:, 0] - top[:, 1]).reshape(2, -1)
     z_card = z_card.cpu()
-
-    def err(got, want):
-        excess = ((got - want).abs()
-                  - (CODEC_ATOL + CODEC_RTOL * want.abs())).max().item()
-        return {"max_abs_err": (got - want).abs().max().item(),
-                "max_abs": want.abs().max().item(),
-                "max_excess_over_tol": excess}
-
     clear = margin > ID_MARGIN
     rec = {"image_px": CODEC_CHECK_PX, "batch": 2,
-           "latents": err(z_card, z_cpu), "pixels": err(rec_card, rec_cpu),
+           "latents": close_record(z_card, z_cpu),
+           "pixels": close_record(rec_card, rec_cpu),
            "ids_clear_margin_share": clear.float().mean().item(),
            "ids_equal_share": (ids_card == ids_cpu).float().mean().item(),
            "ids_equal_where_clear": bool(torch.equal(ids_card[clear],
@@ -1886,6 +1927,325 @@ def phase_generate(run_dir, final_ema, root) -> dict:
            "weights_equal_final_ema": True, "wall_s": wall_s,
            "texts": sorted({r["text"] for r in lines})}
     free(engine)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 4h: the codecs left (MAGVITv2, TiTok, the video VQVAE, the Chameleon
+# stream, the structural remap)
+# ---------------------------------------------------------------------------
+
+# the served codecs: (path label, codec name); the model's image vocabulary
+# is the codec's 8,192 codes, as a model trained on its tokens has
+CODECS_SERVED = (("codecs_magvit", "magvitv2"), ("codecs_titok", "titok256"))
+CODECS_PATHS = tuple(label for label, _ in CODECS_SERVED)
+CODECS_IMAGE_VOCAB = 8192
+CODECS_CAPTIONS = 2        # served PNGs captioned back through the encoder
+TITOK_CHECK_IMAGES = 2     # TiTok runs at its own 256 px only: its CPU copy
+VIDEO_CLIPS = 2            # get_video_codec()'s 16 frames of 64 px
+CLEAR_SHARE = 0.9          # ids compared where the margin is clear: at least
+#                            this share of them must be
+
+
+def lfq_margin(module, z):
+    """MAGVIT's id is z's sign pattern: the smallest |z| of a position."""
+    return z.abs().min(-1).values
+
+
+def vq_margin(scores):
+    top = scores.topk(2, -1).values
+    return top[..., 0] - top[..., 1]
+
+
+def titok_margin(module, z):
+    cb = module._codes()
+    return vq_margin(2.0 * (z @ cb.T) - (cb ** 2).sum(-1))
+
+
+def video_margin(module, z):
+    cb = module._codes()
+    z = z / z.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+    return vq_margin(z @ cb.T - 0.5 * (cb * cb).sum(-1))
+
+
+def vqgan_margin(module, z):
+    """The top-2 margin of a VQGAN's codebook scores over the top score's
+    magnitude, (B, h, w) from latents (B, D, h, w): relative, because
+    raw codes (chameleon-vqgan's) drawn uniform in [0, 2/N) make every
+    score small."""
+    cb = module._codes()
+    zf = z.permute(0, 2, 3, 1)
+    if module.cfg.l2_norm_codes:
+        zf = zf / zf.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+    scores = 2.0 * (zf @ cb.T) - (cb ** 2).sum(-1)
+    return vq_margin(scores) / scores.abs().amax(-1).clamp_min(1e-30)
+
+
+def module_cpu_vs_card(label, card, cpu, x, margin, decode=None) -> dict:
+    """A codec module on the card against its CPU copy (fp32 on both
+    sides): the encoder's latents within CODEC_ATOL / CODEC_RTOL, the ids
+    equal where the CPU's margin exceeds ID_MARGIN (at least CLEAR_SHARE
+    of them), and the decode of the CPU's ids within the same tolerance."""
+    decode = decode or (lambda m, ids: m.decode(ids))
+    with torch.no_grad():
+        z_cpu = cpu.latents(x)
+        z_card = card.latents(x.cuda())
+        ids_cpu = cpu.quantize(z_cpu)
+        ids_card = card.quantize(z_card).cpu()
+        clear = margin(cpu, z_cpu) > ID_MARGIN
+        b = x.shape[0]
+        rec_cpu = decode(cpu, ids_cpu.reshape(b, -1))
+        rec_card = decode(card, ids_cpu.reshape(b, -1).cuda()).cpu()
+    z_card = z_card.cpu()
+    rec = {"batch": b, "input_shape": list(x.shape[1:]),
+           "latents": close_record(z_card, z_cpu),
+           "decode": close_record(rec_card, rec_cpu),
+           "ids_clear_margin_share": clear.float().mean().item(),
+           "ids_equal_share": (ids_card == ids_cpu).float().mean().item(),
+           "ids_equal_where_clear": bool(torch.equal(ids_card[clear],
+                                                     ids_cpu[clear])),
+           "atol": CODEC_ATOL, "rtol": CODEC_RTOL, "id_margin": ID_MARGIN}
+    print(f"{label}_cpu_vs_cuda " + json.dumps(rec))
+    torch.testing.assert_close(z_card, z_cpu, atol=CODEC_ATOL,
+                               rtol=CODEC_RTOL)
+    torch.testing.assert_close(rec_card, rec_cpu, atol=CODEC_ATOL,
+                               rtol=CODEC_RTOL)
+    if not rec["ids_equal_where_clear"] or \
+            rec["ids_clear_margin_share"] < CLEAR_SHARE:
+        raise AssertionError(f"{label}: ids on the card differ from the "
+                             f"CPU's where the margin is clear: {rec}")
+    return rec
+
+
+def codec_times(codec, images) -> dict:
+    """encode and decode ms (CUDA events) at the batch of `images`, and
+    their convolution and product GFLOP beside the fp32 bound."""
+    ids = codec.encode(images)
+    rec = {"batch": int(images.shape[0]),
+           "encode_ms": time_ms(lambda: codec.encode(images), iters=5,
+                                warmup=1),
+           "decode_ms": time_ms(lambda: codec.decode(ids), iters=5,
+                                warmup=1)}
+    for kind, fn in (("encode", lambda: codec.encode(images)),
+                     ("decode", lambda: codec.decode(ids))):
+        flops = codec_flops(codec.module, fn)
+        rec[f"{kind}_gflop"] = flops / 1e9
+        rec[f"{kind}_fp32_bound_ms"] = flops / FP32_FLOP_PER_S * 1e3
+    return rec
+
+
+def codec_captions(engine, results) -> dict:
+    """CODECS_CAPTIONS served PNGs back through decode_image_b64 ->
+    codec.encode -> prepare(image_ids=) -> gen_text: captions, the given
+    ids kept, no PNG returned."""
+    codec = engine.codec
+    images = torch.from_numpy(np.stack([
+        decode_image_b64(r["images_b64"][0])
+        for r in results[:CODECS_CAPTIONS]])).cuda()
+    ids = codec.encode(images)
+    if ids.shape != (CODECS_CAPTIONS, engine.m.img_length) or \
+            ids.min() < 0 or ids.max() >= codec.vocab_size:
+        raise AssertionError(f"encoded ids {tuple(ids.shape)}, range "
+                             f"{ids.min().item()}..{ids.max().item()}")
+    rows = ids.cpu().numpy()
+    captions = engine.run_batch([engine.prepare(image_ids=row)
+                                 for row in rows], seed=0)
+    for row, r in zip(rows, captions):
+        if r["task"] != "gen_text" or not isinstance(r["text"], str) or \
+                "images_b64" in r:
+            raise AssertionError(f"caption result {r['task']} {r.keys()}")
+        if not np.array_equal(r["image_ids"][0], row):
+            raise AssertionError("a captioned image's ids changed")
+    return {"captions": [r["text"] for r in captions]}
+
+
+def phase_codec_served(label, name, seed) -> dict:
+    """The flagship engine with codec `name` (phase 4's randomize_
+    weights, the image vocabulary the codec's): its module on the card
+    against a CPU copy, 8 t2i requests served as in 4e (counted launches
+    exact, PNGs the decode of the returned ids, the batch with and without
+    the decode), captions of CODECS_CAPTIONS of them, and the codec's
+    encode and decode ms at batch 8. Returns (this phase's record, the
+    served record, the codec)."""
+    t0 = time.perf_counter()
+    engine = build_engine(preset="small", codec_name=name, overrides={
+        **FLAGSHIP_OVERRIDES, "model.image_vocab_size": CODECS_IMAGE_VOCAB})
+    randomize_(engine.model, seed)
+    codec = engine.codec
+    rec = {"codec": codec.name, "engine_build_s": time.perf_counter() - t0,
+           "codec_params": sum(p.numel() for p in codec.module.parameters()),
+           "image_px": codec.image_size}
+    gen = torch.Generator().manual_seed(seed)
+    cpu = copy.deepcopy(codec.module).cpu()
+    if name.startswith("titok"):
+        x = torch.rand((TITOK_CHECK_IMAGES, codec.image_size,
+                        codec.image_size, 3), generator=gen) * 2 - 1
+        rec["cpu_vs_cuda"] = module_cpu_vs_card(label, codec.module, cpu, x,
+                                                titok_margin)
+    else:
+        x = torch.rand((2, CODEC_CHECK_PX, CODEC_CHECK_PX, 3),
+                       generator=gen) * 2 - 1
+        rec["cpu_vs_cuda"] = module_cpu_vs_card(label, codec.module, cpu, x,
+                                                lfq_margin)
+    del cpu
+    served, rec["pixels"], results = phase_pixels_serve(engine, label)
+    rec["caption"] = codec_captions(engine, results)
+    images = torch.from_numpy(np.stack([decode_image_b64(r["images_b64"][0])
+                                        for r in results])).cuda()
+    rec["times_b8"] = codec_times(codec, images)
+    free(engine)
+    return rec, served, codec
+
+
+def phase_video_codec(seed) -> dict:
+    """get_video_codec() at its defaults on the card against a CPU copy
+    (the same weights, drawn from the factory's seed), VIDEO_CLIPS clips;
+    encode and decode ms."""
+    card = get_video_codec()
+    cpu = get_video_codec(device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    clips = torch.rand((VIDEO_CLIPS, card.frames, card.image_size,
+                        card.image_size, 3), generator=gen) * 2 - 1
+    d = card.downsample
+    grids = (card.frames // d, card.image_size // d)
+    rec = module_cpu_vs_card("video", card.module, cpu.module, clips,
+                             video_margin,
+                             decode=lambda m, ids: m.decode(ids, *grids))
+    rec["times"] = codec_times(card, clips.cuda())
+    rec["tokens_per_clip"] = grids[0] * grids[1] ** 2
+    return rec
+
+
+def phase_chameleon_stream(seed) -> dict:
+    """tokenize_t2i_batch with chameleon-vqgan on the card against the
+    same codec on the CPU: var-aspect crops (300 x 150 images: halved,
+    then an antialiased resize to the (128, 64) crop of
+    build_crop_size_list(max_grids=32)), the streams equal where the VQ
+    margin is clear."""
+    card = get_codec("chameleon-vqgan")
+    cpu = get_codec("chameleon-vqgan", device="cpu")
+    sizes = build_crop_size_list(patch_size=16, max_grids=32)
+    rng = np.random.default_rng(seed)
+    images = rng.random((4, 300, 150, 3)).astype(np.float32) * 2 - 1
+    tok = get_tokenizer("byte")
+    spec = ChameleonSpec(text_vocab=tok.vocab_size,
+                         img_vocab=card.vocab_size, patch_size=16)
+    captions = [f"a var-aspect picture, variant {i}" for i in range(4)]
+    t0 = time.perf_counter()
+    streams = {dev: tokenize_t2i_batch(
+        spec, tok, codec, images, captions, 256, sizes,
+        np.random.default_rng(seed + 1))
+        for dev, codec in (("card", card), ("cpu", cpu))}
+    card_s = time.perf_counter() - t0
+    # the same crops again, for the CPU's margins
+    crop_rng = np.random.default_rng(seed + 1)
+    crops = np.stack([var_center_crop(im, sizes, crop_rng) for im in images])
+    with torch.no_grad():
+        margin = vqgan_margin(cpu.module, cpu.module.latents(
+            torch.from_numpy(crops)))
+    clear = (margin > ID_MARGIN).reshape(len(images), -1).numpy()
+    (ids_card, mask_card), (ids_cpu, mask_cpu) = streams["card"], \
+        streams["cpu"]
+    if not np.array_equal(mask_card, mask_cpu):
+        raise AssertionError("chameleon: the streams' masks differ")
+    equal_where_clear = True
+    for i in range(len(images)):
+        text_a, grids_a = decode_stream(spec, ids_card[i][mask_card[i]])
+        text_b, grids_b = decode_stream(spec, ids_cpu[i][mask_cpu[i]])
+        if not np.array_equal(text_a, text_b) or len(grids_a) != 1 or \
+                len(grids_b) != 1 or grids_a[0].shape != (8, 4):
+            raise AssertionError(f"chameleon: stream {i} differs outside "
+                                 f"its image ids")
+        equal_where_clear &= bool(np.array_equal(
+            grids_a[0].reshape(-1)[clear[i]], grids_b[0].reshape(-1)[clear[i]]))
+    rec = {"images": len(images), "crop_hw": list(crops.shape[1:3]),
+           "stream_length": int(mask_card[0].sum()),
+           "ids_clear_margin_share": float(clear.mean()),
+           "streams_equal_share": float((ids_card == ids_cpu).mean()),
+           "equal_where_clear": equal_where_clear,
+           "tokenize_s_card_and_cpu": card_s}
+    print("chameleon_stream " + json.dumps(rec))
+    if not equal_where_clear or rec["ids_clear_margin_share"] < CLEAR_SHARE:
+        raise AssertionError(f"chameleon: streams differ where the margin "
+                             f"is clear: {rec}")
+    return rec
+
+
+def foreign_magvit_name(key: str) -> str:
+    """A mirror key in a taming / open-magvit2 flavoured naming: other
+    section names, dotted block paths, renamed norm leaves; the order
+    kept."""
+    for a, b in (("encoder.", "enc_net."), ("decoder.", "dec_net."),
+                 ("down_", "down."), ("up_", "up."), ("_block_", ".blk."),
+                 ("_downsample", ".pool"), ("_upsample", ".unpool"),
+                 ("mid_block_1", "middle.one"), ("mid_block_2", "middle.two"),
+                 ("norm1.weight", "norm1.gamma"),
+                 ("norm1.bias", "norm1.beta")):
+        key = key.replace(a, b)
+    return key
+
+
+def phase_remap(codec) -> dict:
+    """load_magvit_foreign of the card module's weights under foreign
+    names (with a discriminator's keys beside them): a module loaded
+    from the remapped state_dict decodes exactly as the original."""
+    module = codec.module
+    foreign = {foreign_magvit_name(k): v.cpu()
+               for k, v in module.state_dict().items()}
+    foreign["loss.discriminator.main.0.weight"] = torch.zeros(64, 3, 4, 4)
+    t0 = time.perf_counter()
+    state, report = load_magvit_foreign(module, foreign)
+    remap_s = time.perf_counter() - t0
+    fresh = copy.deepcopy(module)
+    for p in fresh.parameters():
+        p.data.zero_()
+    fresh.load_state_dict(state)
+    ids = torch.randint(0, codec.vocab_size, (2, 256),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    with torch.no_grad():
+        same = bool(torch.equal(fresh.decode(ids), module.decode(ids)))
+    rec = {"summary": report.summary(), "complete": report.complete,
+           "skipped_foreign": report.skipped_foreign,
+           "decode_equal": same, "remap_s": remap_s}
+    print("codec_remap " + json.dumps(rec))
+    if not (report.complete and same and report.skipped_foreign ==
+            ["loss.discriminator.main.0.weight"]):
+        raise AssertionError(f"remap: {rec}")
+    return rec
+
+
+def phase_codecs_left(seed) -> dict:
+    """Phase 4h: MAGVITv2 and titok256 served at the flagship width, the
+    video VQVAE, the Chameleon stream and the structural remap."""
+    rec = {}
+    for label, name in CODECS_SERVED:
+        rec[name], rec[label], codec = phase_codec_served(label, name, seed)
+        if name == "magvitv2":
+            rec["remap"] = phase_remap(codec)
+        del codec
+        free()
+    rec["video"] = phase_video_codec(seed)
+    rec["chameleon"] = phase_chameleon_stream(seed)
+    free()
+    card = card_line()
+    print("codecs " + json.dumps({
+        "card": card,
+        **{name: {"encode_ms_b8": rec[name]["times_b8"]["encode_ms"],
+                  "decode_ms_b8": rec[name]["times_b8"]["decode_ms"],
+                  "served_batch_s_with_decode": min(
+                      rec[name]["pixels"]["steady_batch_s_with_decode"]),
+                  "served_batch_s_without_decode": min(
+                      rec[name]["pixels"]["steady_batch_s_without_decode"]),
+                  "served_tok_per_s": rec[label]["steady_tok_per_s"],
+                  "flash_fwd_launches": rec[label]["launches"].get(
+                      "flash_fwd", 0)}
+           for label, name in CODECS_SERVED},
+        "video": {"clips": VIDEO_CLIPS,
+                  "encode_ms": rec["video"]["times"]["encode_ms"],
+                  "decode_ms": rec["video"]["times"]["decode_ms"]},
+        "chameleon_streams_equal_where_clear":
+            rec["chameleon"]["equal_where_clear"],
+        "remap_decode_equal": rec["remap"]["decode_equal"]}))
     return rec
 
 
@@ -7397,6 +7757,10 @@ def main() -> int:
     record["ar"] = phase_ar(args.seed)
     free()
     lap("ar")
+    # 4h: the codecs left, on phase 4's weights
+    record["codecs"] = phase_codecs_left(args.seed)
+    free()
+    lap("codecs")
 
     cfg = train_config()
     record["grad_check"] = phase_grad_check(cfg, TRAIN_BATCH, args.seed)
@@ -7516,6 +7880,9 @@ def main() -> int:
                 name, 0)
         for path in EVAL_PATHS:
             by_path[name][path] = record[path]["launches"].get(name, 0)
+        for path in CODECS_PATHS:
+            by_path[name][path] = record["codecs"][path]["launches"].get(
+                name, 0)
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path

@@ -161,13 +161,69 @@ def test_codec_downsample_needs_no_weights():
     assert T.codec_downsample("llamagen-vq8") == 8
 
 
+# the MAGVITv2 and TiTok names at small widths (the preset's other fields
+# kept): the factories' wiring, not the modules (tests/test_torch_magvit.py,
+# tests/test_torch_titok.py hold those)
+SMALL = {"magvit": dict(bits=6, ch=32, ch_mult=(1, 2), num_res_blocks=1),
+         "titok": dict(hidden_size=32, n_layers=1, n_heads=2,
+                       codebook_dim=4)}
+
+
 @pytest.mark.parametrize("name", ["showo", "show-o", "magvit", "magvitv2",
+                                  "titok64", "titok128", "titok256",
                                   "titok-s-128"])
-def test_unported_codecs_name_their_queue_item(name):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.get_codec(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.codec_downsample(name)
+def test_magvit_and_titok_names_match_jax(name, monkeypatch):
+    """Each name builds the codec JAX's get_codec builds (its name,
+    vocabulary and downsample at 256 px, the size build_engine probes);
+    titok-s-128 raises ValueError in both. JAX's module inits are
+    skipped (what is compared comes from the configs)."""
+    from unidisc_tpu.tokenizers import magvit as JM, titok as JT
+    for cls in (JM.MagvitLFQ, JT.TiTok):
+        monkeypatch.setattr(cls, "init", lambda self, rng, x: {"params": {}})
+    kw = SMALL["titok" if name.startswith("titok") else "magvit"]
+    try:
+        want = J.get_codec(name, **kw)
+    except ValueError as e:
+        assert "unknown titok preset" in str(e)
+        for build in (lambda: T.get_codec(name, device="cpu", **kw),
+                      lambda: T.codec_downsample(name)):
+            with pytest.raises(ValueError, match="unknown titok preset"):
+                build()
+        return
+    got = T.get_codec(name, device="cpu", **kw)
+    assert (got.name, got.vocab_size, got.downsample, got.image_size) == (
+        want.name, want.vocab_size, want.downsample, 256)
+    assert T.codec_downsample(name, **kw) == want.downsample
+    # the published widths, without building the port's weights
+    assert T.codec_downsample(name) == J.get_codec(name).downsample
+
+
+def test_magvit_codec_matches_jax_codec(monkeypatch):
+    """get_codec("showo") at a tiny width with JAX's codec's weights
+    carried over: the decode of a grid of ids agrees within the VQGAN's
+    bound, and the ids of that decode are equal where the latents' signs
+    are clear."""
+    from unidisc_tpu.tokenizers import magvit as JM
+    from unidisc_tpu_torch.tokenizers.magvit import magvit_state_dict_from_jax
+    kw = SMALL["magvit"]
+    params = random_params(JM.MagvitLFQ(JM.MagvitConfig(**kw)),
+                           np.zeros((1, 32, 32, 3), np.float32))
+    monkeypatch.setattr(JM.MagvitLFQ, "init",
+                        lambda self, rng, x: {"params": params})
+    want = J.get_codec("showo", image_size=32, **kw)
+    got = T.get_codec("showo", image_size=32, device="cpu", **kw)
+    got.module.load_state_dict(magvit_state_dict_from_jax(params))
+    ids = np.arange(2 * 256).reshape(2, 256) % 64
+    rec = np.asarray(want.decode(params, jnp.asarray(ids)))
+    np.testing.assert_allclose(got.decode(ids).numpy(), rec, atol=1e-4,
+                               rtol=1e-3)
+    with torch.no_grad():
+        z = got.module.latents(torch.from_numpy(rec)).numpy()
+    clear = (np.abs(z).min(-1) > 1e-4).reshape(2, -1)
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(
+        got.encode(rec).numpy()[clear],
+        np.asarray(want.encode(params, jnp.asarray(rec)))[clear])
 
 
 @pytest.mark.parametrize("name,match", [("sd-vae", "continuous"),

@@ -379,6 +379,33 @@ def test_eval_slice_is_checked():
     assert roots <= {"__future__", "re", "typing", "numpy"}, roots
 
 
+# the modules of the tokenizer slice: MAGVITv2, TiTok, the video VQVAE,
+# the Chameleon stream tokenizer, the structural remap, the HF text
+# tokenizers, and the factories that reach them
+TOKENIZER_SLICE = [
+    "unidisc_tpu_torch/tokenizers/magvit.py",
+    "unidisc_tpu_torch/tokenizers/titok.py",
+    "unidisc_tpu_torch/tokenizers/video.py",
+    "unidisc_tpu_torch/tokenizers/chameleon.py",
+    "unidisc_tpu_torch/tokenizers/remap.py",
+    "unidisc_tpu_torch/tokenizers/hf_text.py",
+    "unidisc_tpu_torch/tokenizers/text.py",
+    "unidisc_tpu_torch/tokenizers/image_codecs.py",
+]
+
+
+def test_tokenizer_slice_is_checked():
+    assert set(TOKENIZER_SLICE) <= set(FILES)
+    for path in TOKENIZER_SLICE:
+        assert not sorted(set(imported_roots(path)) & FORBIDDEN), path
+    # every module of the JAX package's tokenizers/ has its counterpart
+    jax_tok = {p.name for p in (ROOT / "unidisc_tpu/tokenizers")
+               .glob("*.py")}
+    port_tok = {p.name for p in (ROOT / "unidisc_tpu_torch/tokenizers")
+                .glob("*.py")}
+    assert jax_tok <= port_tok, sorted(jax_tok - port_tok)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     # the first dotted component must not be a forbidden name exactly:

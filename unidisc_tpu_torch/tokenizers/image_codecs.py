@@ -7,11 +7,13 @@ takes images (B, H, W, 3) in [-1, 1] and returns ids (B, T) (int64);
 arrays) and return tensors on the codec's device, as the JAX codecs take
 and return arrays.
 
-Ported backends: LlamaGen VQ-16 / VQ-8, taming, MaskGIT-class and
-Chameleon VQGANs (``tokenizers/vqgan.py``), LFQ, BSQ and Cosmos-style FSQ
-on a shared 16x conv trunk, raw pixels, the deterministic dummy codec, and
-the SD KL-VAE continuous codec (``get_continuous_codec``). MAGVITv2 (Show-o),
-TiTok and the video VQVAE are ROADMAP queue 1 item 11.
+Backends: LlamaGen VQ-16 / VQ-8, taming, MaskGIT-class and Chameleon
+VQGANs (``tokenizers/vqgan.py``), MAGVITv2 (the Show-o codec,
+``tokenizers/magvit.py``), TiTok 1D (``tokenizers/titok.py``), LFQ, BSQ and
+Cosmos-style FSQ on a shared 16x conv trunk, raw pixels, the deterministic
+dummy codec, the SD KL-VAE continuous codec (``get_continuous_codec``) and
+the video VQVAE (``get_video_codec``, ``tokenizers/video.py``). The
+factories build on the card unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -335,6 +337,94 @@ def _make_dummy(image_size: int, device, vocab: int = 16384) -> ImageCodec:
 
 
 # ---------------------------------------------------------------------------
+# MAGVITv2 (Show-o), TiTok and the video VQVAE
+# ---------------------------------------------------------------------------
+
+_MAGVIT_NAMES = ("showo", "show-o", "magvit", "magvitv2")
+
+
+def _make_magvit(generator, image_size: int, device, **kw) -> ImageCodec:
+    """MAGVITv2 LFQ conv tokenizer (showlab/magvitv2, the small-scale
+    configs' codec)."""
+    from unidisc_tpu_torch.tokenizers.magvit import MagvitConfig, MagvitLFQ
+    cfg = MagvitConfig(**kw)
+    model = MagvitLFQ(cfg, generator).eval()
+    return ImageCodec(name="magvitv2", module=model, encode_fn=model.encode,
+                      decode_fn=model.decode, vocab_size=cfg.codebook_size,
+                      downsample=cfg.downsample, image_size=image_size,
+                      device=torch.device("cpu")).to(device)
+
+
+def _titok_downsample(cfg) -> int:
+    """TiTok's ids are a 1D sequence of K tokens: the downsample reported
+    is image_size / sqrt(K), layout bookkeeping only."""
+    return max(1, int(cfg.image_size / math.sqrt(cfg.num_latent_tokens)))
+
+
+def _make_titok(name: str, generator, image_size: int, device,
+                **kw) -> ImageCodec:
+    """TiTok 1D tokenizer (titok64 / titok128 / titok256)."""
+    from unidisc_tpu_torch.tokenizers.titok import TiTok, titok_preset
+    cfg = titok_preset(name, image_size=image_size, **kw)
+    model = TiTok(cfg, generator).eval()
+    return ImageCodec(name=name, module=model, encode_fn=model.encode,
+                      decode_fn=model.decode, vocab_size=cfg.codebook_size,
+                      downsample=_titok_downsample(cfg),
+                      image_size=image_size,
+                      device=torch.device("cpu")).to(device)
+
+
+@dataclass
+class VideoCodec:
+    """A video codec on one device: ``encode(clips)`` takes clips (B, T,
+    H, W, 3) in [-1, 1] and returns time-major ids (B, T'*H'*W') (int64);
+    ``decode(ids)`` returns clips (fp32)."""
+    name: str
+    module: nn.Module
+    vocab_size: int
+    downsample: int                 # spatial AND temporal factor
+    frames: int
+    image_size: int
+    device: torch.device
+
+    @torch.no_grad()
+    def encode(self, clips) -> torch.Tensor:
+        clips = torch.as_tensor(clips).to(self.device, torch.float32)
+        return self.module.encode(clips)
+
+    @torch.no_grad()
+    def decode(self, ids) -> torch.Tensor:
+        d = self.downsample
+        return self.module.decode(
+            torch.as_tensor(ids).to(self.device, torch.long),
+            self.frames // d, self.image_size // d)
+
+    def to(self, device) -> "VideoCodec":
+        self.device = resolve_device(device)
+        self.module.to(self.device)
+        return self
+
+
+def get_video_codec(name: str = "video-vqvae", *,
+                    generator: Optional[torch.Generator] = None,
+                    frames: int = 16, image_size: int = 64, device="cuda",
+                    **kw) -> VideoCodec:
+    """The VideoGPT-style 3D-conv VQVAE (``tokenizers/video.py``) for
+    clips of `frames` x `image_size`^2."""
+    from unidisc_tpu_torch.tokenizers.video import VideoVQConfig, VideoVQVAE
+    if name not in ("video-vqvae", "video"):
+        raise ValueError(f"unknown video codec {name!r}")
+    device = resolve_device(device)
+    cfg = VideoVQConfig(**kw)
+    model = VideoVQVAE(cfg, generator).eval()
+    return VideoCodec(name="video-vqvae", module=model,
+                      vocab_size=cfg.codebook_size,
+                      downsample=cfg.downsample, frames=frames,
+                      image_size=image_size,
+                      device=torch.device("cpu")).to(device)
+
+
+# ---------------------------------------------------------------------------
 # factories
 # ---------------------------------------------------------------------------
 
@@ -345,24 +435,20 @@ _TRUNK_CODECS = {"lfq": _make_lfq, "bsq": _make_bsq, "bsq18": _make_bsq,
 
 def _refuse(name: str):
     """The error for a name the factory does not build."""
-    if name in ("showo", "show-o", "magvit", "magvitv2") or \
-            name.startswith("titok"):
-        return NotImplementedError(
-            f"codec {name!r} (MAGVITv2 / TiTok) is not in the port yet "
-            f"(ROADMAP queue 1, item 11)")
     if name in ("sd-vae", "klvae"):
         return ValueError(
             "sd-vae is a CONTINUOUS codec (float latents, no token ids): "
             "use get_continuous_codec('sd-vae')")
     if name in ("video-vqvae", "video"):
         return ValueError(
-            "video-vqvae takes clips (B, T, H, W, 3), not images; the video "
-            "codec is not in the port yet (ROADMAP queue 1, item 11)")
+            "video-vqvae takes clips (B, T, H, W, 3), not images: use "
+            "get_video_codec('video-vqvae')")
     if name == "chameleon":
         return ValueError(
             "'chameleon' names the STREAM tokenizer (var-aspect crops, "
-            "grid/newline tokens), not in the port yet (ROADMAP queue 1, "
-            "item 11); get_codec('chameleon-vqgan') is its VQ stage")
+            "grid/newline tokens): build a ChameleonSpec over an image "
+            "codec (tokenizers/chameleon.py), e.g. "
+            "get_codec('chameleon-vqgan') for its VQ stage")
     return ValueError(f"unknown codec {name!r}")
 
 
@@ -372,6 +458,12 @@ def codec_downsample(name: str, image_size: int = 256, **kw) -> int:
     preset = _vq_preset(name)
     if preset is not None:
         return preset[0](**kw).downsample
+    if name in _MAGVIT_NAMES:
+        from unidisc_tpu_torch.tokenizers.magvit import MagvitConfig
+        return MagvitConfig(**kw).downsample
+    if name.startswith("titok"):
+        from unidisc_tpu_torch.tokenizers.titok import titok_preset
+        return _titok_downsample(titok_preset(name, image_size, **kw))
     if name == "pixels":
         return image_size // kw.get("pixel_grid", 16)
     if name in _TRUNK_CODECS or name == "dummy":
@@ -383,11 +475,16 @@ def get_codec(name: str, *, generator: Optional[torch.Generator] = None,
               image_size: int = 256, device="cuda", **kw) -> ImageCodec:
     """Codec factory; weights are drawn from `generator` (seed 0 by
     default) on the CPU and then moved to `device`."""
+    device = resolve_device(device)
     preset = _vq_preset(name)
     if preset is not None:
         make, canonical = preset
         return _make_vqgan(make(**kw), generator, image_size, canonical,
                            device)
+    if name in _MAGVIT_NAMES:
+        return _make_magvit(generator, image_size, device, **kw)
+    if name.startswith("titok"):
+        return _make_titok(name, generator, image_size, device, **kw)
     if name in _TRUNK_CODECS:
         return _TRUNK_CODECS[name](_generator(generator), image_size,
                                    device, **kw)

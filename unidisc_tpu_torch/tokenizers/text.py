@@ -1,9 +1,13 @@
-"""Text tokenizer and decode helpers (port of
-``unidisc_tpu/tokenizers/text.py``): the offline byte-level tokenizer.
-The HF-backed tokenizers are not in the port yet."""
+"""Text tokenizers and decode helpers (port of
+``unidisc_tpu/tokenizers/text.py``): the offline byte-level tokenizer,
+and HF tokenizers read from a local directory (``tokenizers/hf_text.py``)
+with right padding, pad = EOS where the config has no pad token, and
+``<image>`` registered as a special token at the next id when the
+vocabulary lacks it."""
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import numpy as np
@@ -74,10 +78,22 @@ class ByteTokenizer:
 
 
 def get_tokenizer(name: str = "byte"):
+    """'byte', or a local HF tokenizer directory (``tokenizer.json`` and
+    ``tokenizer_config.json``, e.g. a LLaMA-2 or GPT-2 snapshot): the port
+    reads no hub names."""
     if name == "byte":
         return ByteTokenizer()
-    raise NotImplementedError(f"tokenizer {name!r}: only the byte-level "
-                              f"tokenizer is in the port yet")
+    if not os.path.isfile(os.path.join(name, "tokenizer.json")):
+        raise NotImplementedError(
+            f"tokenizer {name!r}: not 'byte' and not a directory with a "
+            f"tokenizer.json (hub names are not downloaded)")
+    from unidisc_tpu_torch.tokenizers.hf_text import HFTokenizer
+    tok = HFTokenizer.from_pretrained(name)    # it pads on the right
+    if tok.pad_token is None:
+        tok.pad_token = tok.eos_token
+    if IMAGE_TOKEN not in tok.get_vocab():
+        tok.add_special_tokens({"additional_special_tokens": [IMAGE_TOKEN]})
+    return tok
 
 
 def mask_after_eos(ids: np.ndarray, eos_id: int, pad_id: int) -> np.ndarray:

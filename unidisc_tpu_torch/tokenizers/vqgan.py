@@ -461,14 +461,15 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax conv-codec parameter tree (numpy arrays) -> the port's
-    state_dict: the path joined with ".", conv kernels HWIO -> OIHW as
-    ``weight``, GroupNorm ``scale`` -> ``weight``, every other leaf (biases,
-    the codebook) as it is; fp32 tensors on the CPU."""
+    state_dict: the path joined with ".", conv kernels HWIO -> OIHW (and
+    DHWIO -> OIDHW) as ``weight``, GroupNorm ``scale`` -> ``weight``, every
+    other leaf (biases, the codebook) as it is; fp32 tensors on the CPU."""
     sd = {}
     for path, arr in _flatten(params).items():
         arr = arr.astype(np.float32)
-        if path[-1] == "kernel":
-            arr = np.transpose(arr, (3, 2, 0, 1))
+        if path[-1] == "kernel":     # (..., I, O) -> (O, I, ...)
+            arr = np.transpose(arr, (arr.ndim - 1, arr.ndim - 2,
+                                     *range(arr.ndim - 2)))
         leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1],
                                                            path[-1])
         sd[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
@@ -497,10 +498,13 @@ _ARCH_ROOTS = ("encoder", "decoder", "quant_conv", "post_quant_conv")
 
 
 def _renamed(model: nn.Module, state_dict: Mapping,
-             source: Callable[[str], str]) -> Dict[str, torch.Tensor]:
+             source: Callable[[str], str],
+             roots: Optional[Tuple[str, ...]] = _ARCH_ROOTS
+             ) -> Dict[str, torch.Tensor]:
     """The port's state_dict for `model`, each entry taken from
     ``state_dict[source(name)]``; every name and shape is checked, and an
-    architecture weight of the checkpoint that no name takes raises."""
+    architecture weight of the checkpoint (a key under one of `roots`, or
+    any key when `roots` is None) that no name takes raises."""
     out, used = {}, set()
     for name, ref in model.state_dict().items():
         key = source(name)
@@ -514,8 +518,8 @@ def _renamed(model: nn.Module, state_dict: Mapping,
                              f"the module's {tuple(ref.shape)}")
         out[name] = val.to(ref.dtype)
         used.add(key)
-    stray = sorted(k for k in state_dict
-                   if k.split(".")[0] in _ARCH_ROOTS and k not in used)
+    stray = sorted(k for k in state_dict if k not in used and (
+        roots is None or k.split(".")[0] in roots))
     if stray:
         raise KeyError(f"checkpoint weights with no place in the module "
                        f"({len(stray)}): {stray[:8]}")
