@@ -101,14 +101,15 @@ and prints no result):
      steps one captured CUDA graph): a second capture of the chunk equals
      the eager chunk field for field, 16 streamed requests 50 ms apart
      (prompts 16-512 tokens, 64-256 new, half greedy, half seeded at 0.8,
-     four sharing a 256-token prefix) with exact launches, a seeded and a
-     greedy request equal alone, prefix-cache hits equal without the
-     cache; the int8 logits through the kernels against the plain int8
+     four sharing a 256-token prefix) with exact launches and the prefix
+     cache hit; the int8 logits through the kernels against the plain int8
      path; (d) 8 concurrent chat completions over HTTP to the bf16
      engine, half streamed, the deltas concatenating to the answer; (c)
      build_engine(preset="elm:450m", speculative="270m", spec_gamma=4) and
-     elm:270m with speculative="lookup", SPEC_REQUESTS greedy requests each equal to a
-     plain batcher's, with the acceptance rate and tokens a target read;
+     elm:270m with speculative="lookup", SPEC_REQUESTS greedy requests
+     each, their first SPEC_LOSSLESS_TOKENS new tokens equal to a plain
+     batcher's in fp64, with the acceptance rate and tokens a target
+     read;
      (b) the flagship DIT-AR (FLAGSHIP_OVERRIDES + parameterization ar,
      causal, ar_shift; L 384; 4 of its 12 blocks) in bf16 and int8 with
      the int8 KV cache:
@@ -126,7 +127,8 @@ and prints no result):
      exceeds ID_MARGIN, at least CLEAR_SHARE of them; MAGVIT at 64 px,
      TiTok at its own 256 px on 2 images), 8 t2i requests served as in 4e
      (counted launches exact: flash_fwd once a block a forward; PNGs the
-     decode of the returned ids; the batch with and without the decode),
+     decode of the returned ids; the batch with and without the decode;
+     captured batches only, phase 4 having read the eager sampler),
      2 of the PNGs captioned back through the codec's encoder, and encode
      and decode ms at batch 8; load_magvit_foreign of the MAGVIT card
      module's weights under foreign names (a discriminator key beside
@@ -160,13 +162,14 @@ and prints no result):
      the shards (--overfit; the loss falls), then served from its run
      dir by build_engine(checkpoint=) (the weights equal the trainer's
      final EMA; 8 streamed complete_text requests answer with ids in the
-     text vocabulary); the DIT-AR at L 384 (the flip only, 10 steps);
-     --stream for 10 steps with a checkpoint at 5 and a run resumed from
-     it alone (its batches the straight run's bit for bit, its losses
-     within 1e-5 relative); sedd and d3pm on the time-conditioned
-     non-causal flagship, 10 steps each (every loss finite; the overfit
-     batch's loss under one fixed set of draws lower at the final
-     parameters than at the initial ones).
+     text vocabulary); then at AR_SHORT_DEPTH (4 of the 12 blocks): the
+     DIT-AR at L 384 (the flip only, 10 steps); --stream for 10 steps
+     with a checkpoint at 5 and a run resumed from it alone (its batches
+     the straight run's bit for bit, its losses within 1e-5 relative);
+     sedd and d3pm on the time-conditioned non-causal flagship, 10 steps
+     each (every loss finite; the overfit batch's loss under one fixed
+     set of draws lower at the trainer's final parameters than at its
+     initial ones).
      A line `ar_train`: tok/s, median step s and peak memory a run, the
      loaders' tok/s, the L 768 kernel times.
   5d. the rest of training, at full width (FLAGSHIP_TRAIN_OVERRIDES,
@@ -181,19 +184,20 @@ and prints no result):
      0.1 from one seed (off against "dots"), then 10 steps through
      Trainer.fit with dropout 0.1 under remat "dots" (the loss of the
      batch under fixed draws falls); (c) Lion, AdEMAMix, Adafactor, Muon
-     and AdamW + muP, on 6 of the flagship's 12 blocks: one full-width
-     update on the card against the CPU from the same parameters and
-     gradients, then 10 steps each through train.main (the loss under
-     fixed draws falls), Adafactor checkpointed at 5 and a run resumed
-     from it with the straight run's losses; (d)
+     and AdamW + muP: one full-width update (2 blocks) on the card
+     against the CPU from the same parameters and gradients, then, on 6
+     of the flagship's 12 blocks, 10 steps each through train.main (the
+     loss under fixed draws falls), Adafactor checkpointed at 5 and a run
+     resumed from it with the straight run's losses; (d)
      LoRA r16 over phase 5's run dir (base_checkpoint), 10 steps through
      Trainer.fit: the base bit-equal, the run dir served by
      build_engine(checkpoint=) as base + EMA adapter, 8 t2i requests as in
      phase 4; (e) host offload, on 6 of the flagship's blocks: chunked (8)
      = unchunked (1) and working = bf16(master) after 2 steps on the card,
      10 steps through Trainer.fit and its run dir served as in (d);
-     extra_large (all of it) at batch 16,
-     XL_STEPS steps each resident, resident with remat and offloaded with remat
+     extra_large at its width with 12 of its 24 blocks (XL_DEPTH) at
+     batch 16, XL_STEPS steps each resident, resident with remat and
+     offloaded with remat
      (peak memory and step time); (f) CFG distillation (guidance 2.0) of a
      4-block student from phase 5's run dir (the teacher's [cond || uncond]
      forward at batch 64 through the kernel), 10 steps, the KL falls; (g)
@@ -203,7 +207,8 @@ and prints no result):
      `train_rest` (step s, tok/s and peak GB a path) and `offload`.
   5e. interleaved documents end to end, at the flagship width with the
      interleaved experiment (L 1024: 128 text rope rows and one 16 x 16
-     image block, indexed through rope_index): (a) 640 documents from the
+     image block, indexed through rope_index; the runs and the served run
+     dir at IL_DEPTH, 4 of the 12 blocks): (a) 640 documents from the
      seed (1-3 images of 256 tokens, text spans of 8-120 ids) written as 4
      ragged ishard files, each packed at L 1024 with EOS 2 by the native
      packer bit for bit as by the Python packer; (b) train.main --stream
@@ -241,7 +246,8 @@ and prints no result):
      (data/precompute.py); one gradient of the MoE flagship
      (FLAGSHIP_TRAIN_OVERRIDES + 8 experts, top-2, capacity factor 1.25,
      aux weight 0.01, batch 32) through the kernels against the plain
-     path; 10 steps of it through train.main on that shard (--overfit),
+     path; then at MOE_RUN_DEPTH (4 of the 12 blocks) 10 steps of it
+     through train.main on that shard (--overfit),
      counted (each train kernel once a block a step), the fixed-draw loss
      falling, the balance auxiliary finite at the final parameters, s/step,
      tok/s and peak memory; (b) its run dir served by
@@ -274,8 +280,11 @@ and prints no result):
      shapes (2, 12, 2048, 64) and (16, 12, 256, 64) (ring_attention.py's
      _flash_block) against its plain version, timed beside the bound, the
      plain version and aten._scaled_dot_product_flash_attention (which
-     returns the LSE); then one world of MESH_RANKS spawned ranks sharing
-     card 0 over gloo, every collective staged through host memory
+     returns the LSE); then, after 5i's one-rank part, one world of
+     MESH_RANKS spawned ranks sharing card 0 over gloo that runs 5h's,
+     5i's and 5k's work in turn (one start-up of the ranks, each part
+     timed on rank 0 after a barrier; line `mesh_world`), every
+     collective staged through host memory
      (parallel/comm.py; NCCL refuses two ranks on one device, and FSDP2's
      collectives move device tensors, so the world runs "seq" and
      data-parallel rows but no FSDP sharding on the card): (a) the
@@ -308,12 +317,11 @@ and prints no result):
      a tensor rank's (16, 6, 384, 64) against their plain versions, timed
      beside the bound and SDPA; the t2i sampler's two draws of a step at
      the global batch's rows on dp 1, 2 and 4 (F2's cost); the bf16 MoE
-     experts' fp32 accumulation against an fp64 reference (F1); then one world
-     of MESH_RANKS spawned ranks on card 0 over gloo (as 5h) at the
-     flagship width (hidden 768, 12 heads, L 384) with the depth cut to
-     MESH2_BLOCKS (bf16 GEMMs reduced in fp32 on both sides of each
-     comparison): (a) MESH_TRAIN_STEPS train steps at batch
-     MESH2_TRAIN_BATCH on dcn 2 x pp 2 (2 microbatches, GPipe) and on dcn
+     experts' fp32 accumulation against an fp64 reference (F1); then, in
+     5h's world after 5h's work, at the flagship width (hidden 768, 12
+     heads, L 384) with the depth cut to MESH2_BLOCKS (bf16 GEMMs reduced
+     in fp32 on both sides of each comparison): (a) MESH_TRAIN_STEPS
+     train steps at batch MESH2_TRAIN_BATCH on dcn 2 x pp 2 (2 microbatches, GPipe) and on dcn
      2 x tensor 2 (megatron, 6 heads a rank), and the MoE flagship (8
      experts, top-2) on dcn 2 x ep 2 (global routing, 4 experts a rank),
      from randomize_'s weights (drawn on the card; the adaLN gates and the
@@ -362,6 +370,25 @@ and prints no result):
      within JUDGE_TOL of the CPU on the same inputs, their forward times
      beside. Line `eval` (eval_run's wall s, speed_eval's tok/s and p50
      latency, the judges' forward ms, the card).
+  5k. the mesh's other modes (in 5h's world, after 5i's work): at the
+     flagship width with the depth cut to MESH2_BLOCKS, MESH_TRAIN_STEPS
+     steps at batch MESH2_TRAIN_BATCH from randomize_'s weights, each path
+     (MESH3_PATHS_SPEC) held to the one-rank step rank 0 runs after it on
+     the same weights, batch and draws within MESH3_LIMITS (set from sound
+     and planted-fault readings of scripts/mesh2_readings.py): ar with
+     ar_inpainting on dcn 2 x seq 2 (L 768 after the doubling; the causal
+     flash ring), subs with joint AR+NAR and the AR-LLM loss on dcn 2 x
+     seq 2, sedd on dcn 2 x tensor 2, d3pm on dcn 2 x pp 2, Adafactor on
+     pp 2 x tensor 2, Muon with muP on dcn 2 x tensor 2, LoRA (rank 16,
+     the default targets, B redrawn non-zero) on dcn 2 x tensor 2, the
+     MoE flagship (8 experts, top-2) on seq 2 x ep 2: every rank's losses
+     and gradient norms, the update's cosine (fp64, over the parameters
+     rank 0 holds, or the adapter) and the optimizer state's relative
+     distance over rank 0's part; flash_fwd / dq / dkv launches the
+     code's count (mesh3_launches). FSDP does not run on one card (it
+     needs NCCL and a card per rank), so bf16 parameters under FSDP and
+     every fsdp mesh are held by the CPU tests only. Line `mesh3`; the
+     kernels line counts the paths mesh3_*, summed over the ranks.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -376,6 +403,7 @@ import collections
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -473,7 +501,7 @@ BF16_ULP = 2.0 ** -7   # relative spacing of bf16 (8-bit significand)
 Q_SCALE_RTOL = 1e-6    # fused_qmm scales: fp32 row sums in another order
 Q_MOVED_SHARE = 1e-3   # ... can move a value on a rounding boundary by one
 REQUESTS = 8      # batch 8 -> 16 rows under CFG
-SERVE_ROUNDS = 2  # steady batches timed a served path
+SERVE_ROUNDS = 1  # steady batches timed a served path (the time limit)
 CODEC = "llamagen-vq16"
 # the codec on the card against the CPU: fp32 on both sides (TF32 off), in
 # another summation order; the bound of the JAX package's torch-mirror
@@ -568,12 +596,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, traces: int = 3) -> float:
     back with no device event at all: it is then taken again, up to
     `traces` times, and if every trace is empty the calls are timed with
     CUDA events (time_ms, which counts host gaps between launches too) and
-    the fallback is recorded in DEVICE_MS_FALLBACKS."""
+    the fallback is recorded in DEVICE_MS_FALLBACKS. Once a call has
+    fallen back, later calls take one trace (a host whose traces came
+    back empty keeps losing them)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    if DEVICE_MS_FALLBACKS:
+        traces = 1
     for _ in range(traces):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
@@ -1574,13 +1606,16 @@ def gen_text_requests(engine, seed) -> list:
             for _ in range(REQUESTS)]
 
 
-def phase_serve(engine, prepared, label="serve") -> dict:
+def phase_serve(engine, prepared, label="serve", eager=True) -> dict:
     """Serve one batch of REQUESTS through InferenceEngine.run_batch, which
     runs the sampler's captured program. The first batch captures it; the
     counted run (counts to 0 just before, read just after) then replays
     it, and its launches must be exactly those derived from the code. The
     captured program is held to the eager sampler at the same seed, and
-    SERVE_ROUNDS steady batches of each are timed."""
+    SERVE_ROUNDS steady batches of each are timed (eager=False: the
+    captured batches only, for a path whose eager sampler an earlier
+    phase already read; the eager batches are timed on phase 4's
+    SERVE_PATHS only)."""
     m, s = engine.m, engine.config.sampling
     t2i, args = batch_inputs(engine, prepared)
     torch.cuda.synchronize()
@@ -1604,11 +1639,6 @@ def phase_serve(engine, prepared, label="serve") -> dict:
                              f"{nfe})")
     tokens = program(*args, seed=0).tokens
     check_results(engine, prepared, results, tokens)
-    # the seeded comparison: the program's generator against the eager
-    # sampler's at the same seed
-    eager = sample(*args, generator=torch.Generator(device="cuda")
-                   .manual_seed(0)).tokens
-    same_seed = (eager == tokens).float().mean().item()
 
     def steady(run):
         times = []
@@ -1621,8 +1651,6 @@ def phase_serve(engine, prepared, label="serve") -> dict:
         return times
 
     captured_s = steady(lambda i: engine.run_batch(prepared, seed=i))
-    eager_s = steady(lambda i: sample(*args, generator=torch.Generator(
-        device="cuda").manual_seed(i)))
     unmask = np.stack([p["unmask"] for p in prepared])
     gen_tokens = int((~unmask).sum())
     rec = {"requests": REQUESTS, "nfe": nfe, "sampler": "t2i" if t2i
@@ -1633,15 +1661,24 @@ def phase_serve(engine, prepared, label="serve") -> dict:
            "captured_launches_per_replay": dict(program.launches),
            "steady_batch_s": captured_s,
            "steady_tok_per_s": gen_tokens / min(captured_s),
-           "eager_steady_batch_s": eager_s,
-           "eager_steady_tok_per_s": gen_tokens / min(eager_s),
-           "eager_same_seed_token_agreement": same_seed,
            "distinct_outputs": len({tokens[i].cpu().numpy().tobytes()
                                     for i in range(REQUESTS)})}
+    if eager:
+        # the seeded comparison: the program's generator against the
+        # eager sampler's at the same seed
+        e_tokens = sample(*args, generator=torch.Generator(device="cuda")
+                          .manual_seed(0)).tokens
+        rec["eager_same_seed_token_agreement"] = (
+            e_tokens == tokens).float().mean().item()
+    if eager and label in SERVE_PATHS:
+        eager_s = steady(lambda i: sample(*args, generator=torch.Generator(
+            device="cuda").manual_seed(i)))
+        rec.update(eager_steady_batch_s=eager_s,
+                   eager_steady_tok_per_s=gen_tokens / min(eager_s))
     print(f"{label} " + json.dumps(rec))
     print(f"{label}_tok_per_s " + json.dumps({
         "captured_steady_tok_per_s": rec["steady_tok_per_s"],
-        "eager_steady_tok_per_s": rec["eager_steady_tok_per_s"]}))
+        "eager_steady_tok_per_s": rec.get("eager_steady_tok_per_s")}))
     return rec
 
 
@@ -1745,7 +1782,7 @@ def phase_codec_cpu_vs_card(codec, seed) -> dict:
     return rec
 
 
-def alternate_steady(runs: dict, rounds: int = 3) -> dict:
+def alternate_steady(runs: dict, rounds: int = 2) -> dict:
     """Seconds of each run, taken in turns (a, b, a, b, ...), each ending
     in a device sync."""
     times = {name: [] for name in runs}
@@ -1759,14 +1796,14 @@ def alternate_steady(runs: dict, rounds: int = 3) -> dict:
     return times
 
 
-def phase_pixels_serve(engine, label) -> tuple:
+def phase_pixels_serve(engine, label, eager=True) -> tuple:
     """8 t2i requests through an engine with the codec: the counted,
     captured batch of phase_serve, then eight 256-px PNGs that hold the
     decode of the returned ids (to one step where an fp32 value lies on an
     integer boundary), and the batch timed with and without the decode.
     Returns (the served record, this phase's record, the results)."""
     prepared = t2i_requests(engine)
-    served = phase_serve(engine, prepared, label)
+    served = phase_serve(engine, prepared, label, eager)
     results = engine.run_batch(prepared, seed=0)
     codec, m = engine.codec, engine.m
     size = math.isqrt(m.img_length) * codec.downsample
@@ -1845,7 +1882,7 @@ def phase_pixels_caption(engine, results) -> tuple:
     search = 2.0 * ids.numel() * codec.module.cfg.codebook_dim \
         * codec.vocab_size
     prepared = [engine.prepare(image_ids=row) for row in ids.cpu().numpy()]
-    served = phase_serve(engine, prepared, "pixels_caption")
+    served = phase_serve(engine, prepared, "pixels_caption", eager=False)
     captions = engine.run_batch(prepared, seed=0)
     for p, r in zip(prepared, captions):
         if r["task"] != "gen_text" or not isinstance(r["text"], str) or \
@@ -1871,16 +1908,18 @@ def phase_pixels(seed, qstate) -> dict:
            "codec_params": sum(p.numel() for p in
                                engine.codec.module.parameters())}
     rec["cpu_vs_cuda"] = phase_codec_cpu_vs_card(engine.codec, seed)
+    # phase 4's serve and serve_int8 read these engines' eager samplers
     served, rec["bf16"], results = phase_pixels_serve(engine,
-                                                      "pixels_serve")
+                                                      "pixels_serve",
+                                                      eager=False)
     served_caption, rec["caption"] = phase_pixels_caption(engine, results)
     free(engine)
     del engine
     qengine = build_engine(preset="small", overrides=FLAGSHIP_INT8_OVERRIDES,
                            quantize="int8", codec_name=CODEC)
     qengine.model.load_state_dict(qstate)      # 4b's int8 weights
-    served_int8, rec["int8"], _ = phase_pixels_serve(qengine,
-                                                     "pixels_serve_int8")
+    served_int8, rec["int8"], _ = phase_pixels_serve(
+        qengine, "pixels_serve_int8", eager=False)
     free(qengine)
     del qengine
     free()
@@ -2088,7 +2127,10 @@ def phase_codec_served(label, name, seed) -> dict:
         rec["cpu_vs_cuda"] = module_cpu_vs_card(label, codec.module, cpu, x,
                                                 lfq_margin)
     del cpu
-    served, rec["pixels"], results = phase_pixels_serve(engine, label)
+    # 4's served batch read the flagship's eager sampler; 4h's paths differ
+    # from it by the codec, which the eager sampler does not run
+    served, rec["pixels"], results = phase_pixels_serve(engine, label,
+                                                        eager=False)
     rec["caption"] = codec_captions(engine, results)
     images = torch.from_numpy(np.stack([decode_image_b64(r["images_b64"][0])
                                         for r in results])).cuda()
@@ -2821,7 +2863,11 @@ AR_SLOTS, AR_CHUNK = 8, 8       # the engines' continuous batchers
 AR_REQUESTS, AR_SPACING_S = 16, 0.05
 AR_SHARED = 256                 # the prefix four of the requests share
 AR_TEMPERATURE = 0.8            # the seeded half of the requests
-SPEC_REQUESTS = 2   # cut from 4 for the script's limit
+SPEC_REQUESTS = 1   # greedy requests an engine (the script's time limit)
+# new tokens a request of the fp64 lossless check decodes (cut from the
+# requests' 64-256 for the script's limit: every speculative round's
+# acceptance is still held to plain decoding, over fewer rounds)
+SPEC_LOSSLESS_TOKENS = 24
 AR_SAMPLER_CHUNK = 16           # decode steps a replay of the AR sampler
 AR_SAMPLER_PROMPT = 32          # prompt tokens of its 8 text rows
 AR_OVERRIDES = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
@@ -3055,8 +3101,10 @@ def phase_ar_path(engine, reqs, label, seed) -> dict:
     each streaming; the counted run's launches equal the code's (int8
     products a forward x the batcher's prefill forwards and chunk x its
     chunks); every answer's ids in the vocabulary; the prefix cache hit.
-    Whether a greedy and a seeded request give the same tokens alone, and
-    the four sharing requests without the prefix cache, is recorded."""
+    That a request gives the same tokens alone, under load and from the
+    prefix cache is held in fp64 (phase_ar_exactness) and on the tiny fp32
+    models (phase_ar_cpu_vs_card): in bf16 a prefill of other rows or
+    another bucket sums in another order, and a near tie can flip."""
     batcher = engine.continuous        # built and captured here
     t0 = time.perf_counter()
     engine.complete_text("warm up the prefill", max_new_tokens=4).result(
@@ -3087,31 +3135,12 @@ def phase_ar_path(engine, reqs, label, seed) -> dict:
                 not 0 <= t < engine.vocab_size for t in toks) or \
                 not isinstance(res["text"], str):
             raise AssertionError(f"{label}: an answer out of bounds: {res}")
-    # in this model's own precision, recorded: a request's tokens alone
-    # and from the prefix cache against the run's. Held exactly in fp64
-    # (phase_ar_exactness) and on the tiny fp32 models (phase_ar_cpu_vs_card):
-    # a prefill of other rows or another bucket sums in another order, and
-    # a near tie of bf16 logits can flip
-    def again(i):
-        r = reqs[i]
-        return engine.complete_text(r["text"], **{
-            k: r[k] for k in ("max_new_tokens", "temperature", "seed")}
-        ).result(timeout=600)["tokens"] == results[i]["tokens"]
-
     hits = batcher.prefix_hits - h0
     if hits < 1:
         raise AssertionError(f"{label}: the shared prefix never hit")
-    same_alone = [again(i) for i in (0, 1)]
-    batcher._prefix_min = 0
-    try:
-        same_without_prefix = [again(i) for i in range(3, len(reqs), 4)]
-    finally:
-        batcher._prefix_min = 16
     rec.update({"timing": timing, "launches": launches,
                 "expected_launches": want, "chunks": chunks,
                 "prefill_forwards": prefills, "prefix_hits": hits,
-                "same_alone_requests_0_1": same_alone,
-                "same_without_prefix_cache": same_without_prefix,
                 "host_reads": batcher.host_reads - r0,
                 "int8_products_per_forward": per_fwd,
                 "distinct_outputs": len({tuple(r["tokens"])
@@ -3197,7 +3226,7 @@ def phase_ar_sampler(engine, label, seed) -> dict:
     generated (text span, then image span). The counted call's launches
     equal the code's (int8 products a forward x the steps replayed); its
     tokens equal the eager loop's at the same seed, keep the prompt and
-    the modality of each position; 2 steady calls are timed."""
+    the modality of each position; a steady call is timed."""
     from unidisc_tpu_torch.sampling.ar_sampler import (build_ar_sampler,
                                                        make_apply_token)
     from unidisc_tpu_torch.sampling.graph import captured_ar
@@ -3244,13 +3273,11 @@ def phase_ar_sampler(engine, label, seed) -> dict:
                 and (tokens[:, m.txt_length:] >= m.text_vocab_size).all()
                 and (tokens < m.vocab_size).all()):
             raise AssertionError(f"{label}: tokens off their modality")
-        times = []
-        for i in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            program(x0, unmask, modality, seed=2 + i)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program(x0, unmask, modality, seed=2)
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
         peak = torch.cuda.max_memory_allocated() - base
         ms = time_ms(lambda: program.graph.replay(), iters=5, warmup=1)
         _build.launch_counts.clear()
@@ -3395,7 +3422,8 @@ def speculative_lossless(engine, reqs, label) -> dict:
             eos_id=engine.tokenizer.eos_token_id,
             device_lock=engine._device_lock, **extra)
         try:
-            futs = [b.submit(p, max_new_tokens=r["max_new_tokens"])
+            futs = [b.submit(p, max_new_tokens=min(r["max_new_tokens"],
+                                                   SPEC_LOSSLESS_TOKENS))
                     for p, r in zip(ids, reqs)]
             toks[name] = [f.result(timeout=600)["tokens"] for f in futs]
         finally:
@@ -3417,9 +3445,7 @@ def phase_ar_speculative(seed) -> dict:
     engine (speculative rounds in the captured chunk), timed, with the
     acceptance rate and the tokens a target read from the state's
     counters; their greedy tokens equal plain decoding's in fp64
-    (speculative_lossless), and the bf16 engine's agreement with plain
-    bf16 decoding is recorded."""
-    from unidisc_tpu_torch.serving.continuous import elm_continuous_batcher
+    (speculative_lossless)."""
     out = {}
     for label, kw in (("ar_spec_draft", dict(preset="elm:450m",
                                              speculative="270m",
@@ -3437,28 +3463,13 @@ def phase_ar_speculative(seed) -> dict:
         stats0 = batcher.state.stats.clone()
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        timing, results = run_ar_requests(engine, reqs)
+        timing, _ = run_ar_requests(engine, reqs)
         launches = dict(_build.launch_counts)
         stats = (batcher.state.stats - stats0).tolist()
-        # the bf16 engine against plain bf16 decoding of its target:
-        # recorded (bf16 rounding can flip a near tie); the gate is fp64
-        plain = elm_continuous_batcher(
-            engine.model, slots=AR_SLOTS, chunk=AR_CHUNK,
-            eos_id=engine.tokenizer.eos_token_id,
-            device_lock=engine._device_lock)
-        try:
-            futs = [plain.submit(engine.tokenizer.encode(
-                r["text"], add_bos=True, add_eos=False)[:engine.m.length - 2],
-                max_new_tokens=r["max_new_tokens"]) for r in reqs]
-            plain_toks = [f.result(timeout=600)["tokens"] for f in futs]
-        finally:
-            plain.shutdown()
-        agree = [r["tokens"] == t for r, t in zip(results, plain_toks)]
         lossless = speculative_lossless(engine, reqs, label)
         rows, accepted, drafted, advanced = stats
         rec = {"engine": kw, "engine_build_s": build_s, "timing": timing,
                "launches": launches, "lossless_fp64": lossless,
-               "bf16_requests_equal_to_plain_bf16": sum(agree),
                "row_rounds": rows,
                "accepted": accepted, "drafted": drafted,
                "acceptance_rate": accepted / max(drafted, 1),
@@ -4035,6 +4046,9 @@ AR_TRAIN_OVERRIDES = {"trainer.parameterization": "ar",
 # ar_inpainting's [corrupted || clean] rows (L 768) with the row flip
 AR_INPAINT = {"trainer.ar_inpainting": True,
               "trainer.rand_flip_ar_prob": 0.5}
+# the 5c runs but the served DIT-AR at L 768: the flagship's width, 4 of
+# its 12 blocks (each run's host init and checkpoints are most of its time)
+AR_SHORT_DEPTH = {"model.n_blocks": 4}
 # the counted CLI runs of phase 5c
 AR_TRAIN_PATHS = ("ar_train_768", "ar_train_384", "ar_stream",
                   "ar_stream_resumed", "sedd_train", "d3pm_train")
@@ -4064,12 +4078,19 @@ def cli_args(run_dir, data, steps, batch, overrides, *extra) -> list:
 
 
 class KeepFinalState:
-    """Trainer.close wrapped, while the block runs, to keep the trainer's
-    final EMA and parameters on the host."""
+    """Trainer.__init__ and Trainer.close wrapped, while the block runs: the
+    trainer's initial parameters as it drew them (before any restore; a
+    bf16 copy on its device, what a bf16 model loads from its fp32
+    masters) and its final EMA and parameters on the host."""
 
     def __enter__(self):
-        self.ema = self.params = None
-        self._close = Trainer.close
+        self.initial = self.ema = self.params = None
+        self._init, self._close = Trainer.__init__, Trainer.close
+
+        def init(trainer, *args, **kw):
+            self._init(trainer, *args, **kw)
+            self.initial = {k: v.detach().to(torch.bfloat16, copy=True)
+                            for k, v in trainer.state.params.items()}
 
         def close(trainer):
             self.ema, self.params = ({k: v.detach().cpu().clone()
@@ -4077,11 +4098,11 @@ class KeepFinalState:
                                      for tree in (trainer.state.ema_params,
                                                   trainer.state.params))
             self._close(trainer)
-        Trainer.close = close
+        Trainer.__init__, Trainer.close = init, close
         return self
 
     def __exit__(self, *exc):
-        Trainer.close = self._close
+        Trainer.__init__, Trainer.close = self._init, self._close
 
 
 def train_cli_run(label, args, steps, n_blocks, falls=True) -> tuple:
@@ -4123,10 +4144,10 @@ def train_cli_run(label, args, steps, n_blocks, falls=True) -> tuple:
     return rec, keep
 
 
-def fixed_draw_loss_falls(label, cfg, shards, final_params, seed) -> dict:
+def fixed_draw_loss_falls(label, cfg, shards, keep, seed) -> dict:
     """The loss of the overfit batch (the first of the shard sampler at
     the config's seed) under one fixed set of draws, at the trainer's
-    initial parameters (the config's seed) and at its final ones: it must
+    initial parameters and at its final ones (a KeepFinalState): it must
     fall. A logged loss of the sedd and d3pm objectives is one draw of t
     per row, and its spread from step to step (weights dsigma / expm1 and
     T / t) is larger than 10 steps of training move it; the fixed draws
@@ -4134,20 +4155,17 @@ def fixed_draw_loss_falls(label, cfg, shards, final_params, seed) -> dict:
     sampler = WeightedDatasetSampler([TokenShardDataset(shards)],
                                      batch_size=TRAIN_BATCH, seed=cfg.seed)
     return fixed_draw_batch_loss_falls(label, cfg, next(sampler),
-                                       final_params, seed)
+                                       keep.initial, keep.params, seed)
 
 
-def fixed_draw_batch_loss_falls(label, cfg, batch, final_params, seed,
-                                initial_params=None) -> dict:
-    """fixed_draw_loss_falls on a given host batch; `initial_params`, the
-    trainer's initial parameters when the caller has them (else drawn
-    from the config's seed)."""
+def fixed_draw_batch_loss_falls(label, cfg, batch, initial_params,
+                                final_params, seed) -> dict:
+    """fixed_draw_loss_falls on a given host batch, from the trainer's
+    initial and final parameters."""
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()
              if isinstance(v, np.ndarray)}
     draws = fixed_draws(cfg, batch["input_ids"].shape[0], seed, "cuda")
     model = DIT(cfg.model, torch.bfloat16, device="cuda", init=False)
-    if initial_params is None:
-        initial_params = initial_state(cfg)
     model.load_state_dict(initial_params)
     apply_fn = make_apply_fn(cfg, model)
     losses = []
@@ -4168,21 +4186,13 @@ def fixed_draw_batch_loss_falls(label, cfg, batch, final_params, seed,
     return rec
 
 
-def initial_state(cfg) -> dict:
-    """The Trainer's initial parameters for `cfg` (its seed's draws), on
-    the host."""
-    model = DIT(cfg.model, torch.bfloat16, init=False)
-    model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    return model.state_dict()
-
-
 def phase_stream_resume(cfg, data, seed, root, n_blocks) -> dict:
     """--stream for STREAM_STEPS steps with a checkpoint at STREAM_CKPT;
     a run resumed from that checkpoint alone reads the straight run's
     batches bit for bit (the loader state in the checkpoint, replayed
     through StreamingShardReader) and logs its losses within phase 5's
-    resume criterion."""
-    over = {**AR_TRAIN_OVERRIDES, **AR_INPAINT}
+    resume criterion. At AR_SHORT_DEPTH (n_blocks its blocks)."""
+    over = {**AR_TRAIN_OVERRIDES, **AR_INPAINT, **AR_SHORT_DEPTH}
     straight = os.path.join(root, "stream_a")
     rec = {"straight": train_cli_run(
         "ar_stream", cli_args(straight, data, STREAM_STEPS, TRAIN_BATCH,
@@ -4288,27 +4298,28 @@ def phase_ar_train(seed, root, kernel_rows, bwd_rows) -> dict:
     rec["served"] = phase_serve_trained(run_768, final.ema, seed)
     del final
     shutil.rmtree(run_768, ignore_errors=True)
+    short = AR_SHORT_DEPTH["model.n_blocks"]
     run_384 = os.path.join(root, "ar_384")
     rec["ar_train_384"] = train_cli_run(
         "ar_train_384", cli_args(run_384, data["shards"], AR_SHORT_STEPS,
                                  TRAIN_BATCH, {**AR_TRAIN_OVERRIDES,
                                                "trainer.rand_flip_ar_prob":
-                                               0.5}, "--overfit"),
-        AR_SHORT_STEPS, n_blocks)[0]
+                                               0.5, **AR_SHORT_DEPTH},
+                                 "--overfit"),
+        AR_SHORT_STEPS, short)[0]
     shutil.rmtree(run_384, ignore_errors=True)
     rec["stream"] = phase_stream_resume(cfg, data["stream"], seed, root,
-                                        n_blocks)
+                                        short)
     for kind in ("sedd", "d3pm"):
         run = os.path.join(root, kind)
-        over = {"trainer.parameterization": kind}
+        over = {"trainer.parameterization": kind, **AR_SHORT_DEPTH}
         rec[f"{kind}_train"], final = train_cli_run(
             f"{kind}_train", cli_args(run, data["shards"], LEGACY_STEPS,
                                       TRAIN_BATCH, over, "--overfit"),
-            LEGACY_STEPS, n_blocks, falls=False)
+            LEGACY_STEPS, short, falls=False)
         shutil.rmtree(run, ignore_errors=True)
         rec[f"{kind}_train"].update(fixed_draw_loss_falls(
-            kind, train_config(**over), data["shards"], final.params,
-            seed))
+            kind, train_config(**over), data["shards"], final, seed))
         del final
     rec["seconds"] = time.perf_counter() - t0
     for label, paths in (("ar_stream", ("stream", "straight")),
@@ -4365,10 +4376,16 @@ REST_CKPT = 5
 REMAT_POLICIES = ("none", "dots", "dots_all")
 REST_DROPOUT = 0.1
 XL_BATCH, XL_STEPS = 16, 2   # the first step warms up
+# extra_large's width, 12 of its 24 blocks (0.7B parameters: its host
+# buffers, copies and inits are most of phase 5d's offload part)
+XL_DEPTH = {"model.n_blocks": 12}
 SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER, SUP_BLOCKS = 8, 16, 4, 4
 # the optimizer runs and the flagship's offload runs: its width, 6 of its
 # 12 blocks
 REST_DEPTH = {"model.n_blocks": 6}
+# the one update of each optimizer on the card against the CPU: its width,
+# 2 blocks (the CPU's update is host time; every leaf kind is there)
+UPDATE_CHECK_DEPTH = {"model.n_blocks": 2}
 DISTILL_BLOCKS, DISTILL_GUIDANCE = 4, 2.0
 # each optimizer's LR for its 10 steps (Lion wants ~3-10x less than AdamW,
 # Adafactor's LR multiplies the parameters' RMS)
@@ -4544,13 +4561,14 @@ def update_card_vs_cpu(name, over, params_cpu, grads_cpu) -> dict:
 
 
 def phase_optimizers(seed, root) -> dict:
-    """(c) each optimizer and muP, on REST_DEPTH's blocks: one full-width
-    update on the card against the CPU, then 10 steps through train.main
-    whose loss under fixed draws falls; Adafactor also checkpointed at 5
-    and resumed."""
+    """(c) each optimizer and muP: one full-width update on the card
+    against the CPU (UPDATE_CHECK_DEPTH's blocks), then 10 steps through
+    train.main on REST_DEPTH's blocks whose loss under fixed draws falls;
+    Adafactor also checkpointed at 5 and resumed."""
     cfg = train_config(**REST_DEPTH)
     n = cfg.model.n_blocks
-    model = DIT(cfg.model, torch.float32, init=False)
+    model = DIT(train_config(**UPDATE_CHECK_DEPTH).model, torch.float32,
+                init=False)
     randomize_(model, seed)
     params_cpu = {k: v.detach().clone() for k, v in model.named_parameters()}
     del model
@@ -4558,15 +4576,12 @@ def phase_optimizers(seed, root) -> dict:
     grads_cpu = 1e-3 * torch.randn(
         sum(v.numel() for v in params_cpu.values()), generator=gen)
     first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=cfg.seed))
-    # every run starts from the same draws: the model config is the same
-    # and the parameters' init does not read the optimizer or muP
-    init = initial_state(cfg)
     rec = {}
     for name, over in OPTIMIZER_RUNS.items():
         t0 = time.perf_counter()
         over = {**REST_DEPTH, **over}
-        r = {"card_vs_cpu": update_card_vs_cpu(name, over, params_cpu,
-                                               grads_cpu)}
+        r = {"card_vs_cpu": update_card_vs_cpu(
+            name, {**over, **UPDATE_CHECK_DEPTH}, params_cpu, grads_cpu)}
         run = os.path.join(root, f"opt_{name}")
         extra = ("--ckpt-every", str(REST_CKPT)) if name == "adafactor" \
             else ()
@@ -4574,8 +4589,8 @@ def phase_optimizers(seed, root) -> dict:
             f"rest_{name}", cli_rest_args(run, REST_STEPS, over, *extra),
             REST_STEPS, n, falls=False)
         r["run"].update(fixed_draw_batch_loss_falls(
-            f"rest_{name}", train_config(**over), first, final.params,
-            seed, initial_params=init))
+            f"rest_{name}", train_config(**over), first, final.initial,
+            final.params, seed))
         del final
         if name == "adafactor":
             resumed = os.path.join(root, "opt_adafactor_resumed")
@@ -4644,16 +4659,16 @@ def phase_dropout_fit(seed, root) -> tuple:
                           "model.remat_policy": "dots"})
     n = cfg.model.n_blocks
     first = next(SyntheticDataLoader(cfg, TRAIN_BATCH, seed=seed))
-    trainer = Trainer(cfg, os.path.join(root, "dropout_remat"), log_every=1,
-                      ckpt_every=0)
-    rec = fit_counted("rest_dropout_remat_fit", trainer, first, REST_STEPS,
-                      train_launches(2 * n, n, REST_STEPS))
-    final = {k: v.detach().cpu().clone()
-             for k, v in trainer.state.params.items()}
-    trainer.close()
+    with KeepFinalState() as keep:
+        trainer = Trainer(cfg, os.path.join(root, "dropout_remat"),
+                          log_every=1, ckpt_every=0)
+        rec = fit_counted("rest_dropout_remat_fit", trainer, first,
+                          REST_STEPS, train_launches(2 * n, n, REST_STEPS))
+        trainer.close()
     del trainer
     rec.update(fixed_draw_batch_loss_falls("rest_dropout_remat_fit", cfg,
-                                           first, final, seed))
+                                           first, keep.initial, keep.params,
+                                           seed))
     shutil.rmtree(os.path.join(root, "dropout_remat"), ignore_errors=True)
     return rec
 
@@ -4666,7 +4681,7 @@ def serve_run_dir(label, run_dir, want_weights) -> dict:
     for name, value in engine.model.state_dict().items():
         if not torch.equal(value.cpu(), want_weights[name]):
             raise AssertionError(f"{label}: served {name} differs")
-    rec = phase_serve(engine, t2i_requests(engine), label)
+    rec = phase_serve(engine, t2i_requests(engine), label, eager=False)
     rec["weights_equal"] = True
     free(engine)
     del engine
@@ -4779,13 +4794,13 @@ def phase_offload(seed, root) -> dict:
     xl = {}
     xcfg = Config.make("extra_large", **{
         **{k: v for k, v in FLAGSHIP_TRAIN_OVERRIDES.items()
-           if not k.startswith("model.")},
+           if not k.startswith("model.")}, **XL_DEPTH,
         "model.dropout": 0.0, "trainer.warmup_steps": 2}).validate()
     xbatch = {k: torch.from_numpy(v).cuda() for k, v in next(
         SyntheticDataLoader(xcfg, XL_BATCH, seed=seed)).items()}
     xn = xcfg.model.n_blocks
-    # one host model copied for each run, its weights drawn on the card
-    # (the host's init of 1.41B weights took 25 s)
+    # one host model, copied for each resident run, its weights drawn on
+    # the card (the host's init of the whole 1.41B weights took 25 s)
     t0 = time.perf_counter()
     host_model = DIT(xcfg.model, torch.bfloat16, device="cuda", init=False)
     randomize_(host_model, seed)
@@ -4797,7 +4812,8 @@ def phase_offload(seed, root) -> dict:
         c = xcfg.override(**{"trainer.use_gradient_checkpointing": remat,
                              "trainer.host_offload_optimizer": offload})
         t0 = time.perf_counter()
-        model = copy.deepcopy(host_model)
+        # the last run takes the host model itself
+        model = host_model if offload else copy.deepcopy(host_model)
         model.remat = remat
         if offload:
             from unidisc_tpu_torch.training.offload import (
@@ -5020,6 +5036,9 @@ IL_OVERRIDES = {"model.length": 1024, "model.txt_length": 128,
                 "trainer.multimodal_batches": True,
                 "model.modality_embed": True, "model.rope_2d": True}
 IL_EOS = 2
+# the interleaved runs and their served run dir: 4 of the flagship's 12
+# blocks (the packed kernels' case keeps the (16, 12, 1024, 64) shape)
+IL_DEPTH = {"model.n_blocks": 4}
 # the counted runs of phase 5e and 5f
 INTERLEAVED_PATHS = ("interleaved_train", "interleaved_train_resumed",
                      "interleaved_serve")
@@ -5097,8 +5116,9 @@ def phase_interleaved_train(cfg, data, seed, root) -> tuple:
     record, the straight run's dir, its final EMA, the first batch)."""
     n_blocks = cfg.model.n_blocks
     straight = os.path.join(root, "il_a")
-    args = cli_args(straight, data, IL_STEPS, IL_BATCH, IL_OVERRIDES,
-                    "--stream", "--ckpt-every", str(IL_CKPT))
+    args = cli_args(straight, data, IL_STEPS, IL_BATCH,
+                    {**IL_OVERRIDES, **IL_DEPTH}, "--stream",
+                    "--ckpt-every", str(IL_CKPT))
     rec = {}
     rec["straight"], final = train_cli_run("interleaved_train", args,
                                            IL_STEPS, n_blocks, falls=False)
@@ -5107,8 +5127,9 @@ def phase_interleaved_train(cfg, data, seed, root) -> tuple:
                     os.path.join(resumed, "checkpoints", str(IL_CKPT)))
     rec["resumed"] = train_cli_run(
         "interleaved_train_resumed",
-        cli_args(resumed, data, IL_STEPS, IL_BATCH, IL_OVERRIDES,
-                 "--stream"), IL_STEPS - IL_CKPT, n_blocks, falls=False)[0]
+        cli_args(resumed, data, IL_STEPS, IL_BATCH,
+                 {**IL_OVERRIDES, **IL_DEPTH}, "--stream"),
+        IL_STEPS - IL_CKPT, n_blocks, falls=False)[0]
     want = rec["straight"]["losses"][IL_CKPT:]
     got = rec["resumed"]["losses"]
     for g, w in zip(got, want):
@@ -5135,7 +5156,8 @@ def phase_interleaved_train(cfg, data, seed, root) -> tuple:
         raise AssertionError(f"replayed loader state {again.state_dict()} "
                              f"!= {end[0]}")
     rec.update(fixed_draw_batch_loss_falls("interleaved_train", cfg,
-                                           batches[0], final.params, seed))
+                                           batches[0], final.initial,
+                                           final.params, seed))
     first = batches[0]
     rec.update({"mid_state": mid, "end_state": end[0],
                 "batches_equal": True,
@@ -5360,7 +5382,7 @@ def phase_interleaved_serve(run_dir, final_ema, seed) -> dict:
 def phase_interleaved(seed, root, kernel_seed) -> dict:
     """Phase 5e (module docstring)."""
     t0 = time.perf_counter()
-    cfg = train_config(**IL_OVERRIDES)
+    cfg = train_config(**IL_OVERRIDES, **IL_DEPTH)
     rec = {"shards": phase_ishards(cfg, seed, root)}
     data = rec["shards"].pop("dir")
     rec["train"], run_dir, final_ema, first = phase_interleaved_train(
@@ -5585,6 +5607,10 @@ MOE_OVERRIDES = {"model.moe_experts": 8, "model.moe_top_k": 2,
                  "model.moe_capacity_factor": 1.25,
                  "trainer.moe_aux_weight": 0.01}
 MOE_STEPS = 10
+# the MoE run through train.main, its served run dir and its logits: the
+# flagship's width, 4 of its 12 blocks (its host init and checkpoints are
+# the phase's largest costs; the gradient check runs all 12)
+MOE_RUN_DEPTH = {"model.n_blocks": 4}
 MOE_IMAGES = 64        # procedural 256-px images, VQ-16-encoded on the card
 # img_cond at the flagship width: 1D rope, no QK-norm or sandwich norm
 # (validate() rules them out), the reference's 8 conditioning blocks over
@@ -5734,7 +5760,6 @@ def phase_moe(seed, root) -> dict:
     """(a) and (b) of phase 5g: the MoE flagship trained from precomputed
     shards, its run dir served in bf16 and int8."""
     cfg = train_config(**MOE_OVERRIDES)
-    m = cfg.model
     rec, seconds = {}, {}
     t0 = time.perf_counter()
     data = moe_data(cfg, root)
@@ -5743,15 +5768,19 @@ def phase_moe(seed, root) -> dict:
                                          label="moe_grad_check")
     free()
     seconds["grad_check"] = time.perf_counter() - t0 - sum(seconds.values())
+    # the run, its served run dir and its logits at MOE_RUN_DEPTH
+    run_over = {**MOE_OVERRIDES, **MOE_RUN_DEPTH}
+    cfg = train_config(**run_over)
+    m = cfg.model
     run_dir = os.path.join(root, "moe_run")
     rec["train"], keep = train_cli_run(
         "moe_train", cli_args(run_dir, data, MOE_STEPS, TRAIN_BATCH,
-                              MOE_OVERRIDES, "--overfit"),
+                              run_over, "--overfit"),
         MOE_STEPS, m.n_blocks)
     rec["train"]["tok_per_s"] = (TRAIN_BATCH * m.length
                                  / rec["train"]["median_steady_step_s"])
     rec["train"].update(fixed_draw_loss_falls("moe_train", cfg, data,
-                                              keep.params, seed))
+                                              keep, seed))
     # the balance auxiliary at the final parameters, on the overfit batch
     model = DIT(m, torch.bfloat16, device="cuda", init=False).eval()
     model.load_state_dict(keep.params)
@@ -6199,14 +6228,25 @@ def mesh_serve_config(plain: bool = False) -> Config:
 
 
 def mesh_serve_inputs(cfg, seed):
-    m, steps = cfg.model, cfg.sampling.steps
+    """REQUESTS text prompts and the t2i sampler's injected Gumbel noise,
+    drawn from `seed` with numpy: the same on every rank and in the
+    one-rank reference. Read only (each caller copies them to the card),
+    so a process draws the arrays of one shape once."""
+    m = cfg.model
+    return _mesh_serve_draws(cfg.sampling.steps, m.txt_length, m.img_length,
+                             m.text_vocab_size, m.image_vocab_size, seed)
+
+
+@functools.lru_cache(maxsize=2)
+def _mesh_serve_draws(steps, txt_length, img_length, text_vocab_size,
+                      image_vocab_size, seed):
     rng = np.random.RandomState(seed)
-    txt = rng.randint(0, m.text_vocab_size - 1,
-                      (REQUESTS, m.txt_length)).astype(np.int64)
+    txt = rng.randint(0, text_vocab_size - 1,
+                      (REQUESTS, txt_length)).astype(np.int64)
     injected = {"gumbel_tok": rng.gumbel(size=(
-        steps, REQUESTS, m.img_length, m.image_vocab_size)
+        steps, REQUESTS, img_length, image_vocab_size)
     ).astype(np.float32), "gumbel_conf": rng.gumbel(size=(
-        steps, REQUESTS, m.img_length)).astype(np.float32)}
+        steps, REQUESTS, img_length)).astype(np.float32)}
     return txt, injected
 
 
@@ -6338,9 +6378,9 @@ def mesh_ring_bwd_check(rank, world, seed) -> dict:
     return rec
 
 
-def mesh_train_rank(rank, world, seed, work) -> dict:
+def mesh_train_rank(rank, world, seed) -> dict:
     """MESH_TRAIN_STEPS seq-parallel steps (seq = world) of the flagship
-    width on the packed batch; rank 0 saves its parameters."""
+    width on the packed batch; rank 0's record holds its parameters."""
     from unidisc_tpu_torch.parallel.mesh import make_mesh
     from unidisc_tpu_torch.training.train_state import shard_train_step
     cfg = mesh_train_config()
@@ -6371,11 +6411,10 @@ def mesh_train_rank(rank, world, seed, work) -> dict:
     if launches != want:
         raise AssertionError(f"mesh train: rank {rank} launches {launches}, "
                              f"the code {want}")
-    if rank == 0:
-        torch.save({n: p.detach().cpu() for n, p in state.params.items()},
-                   os.path.join(work, "mesh_train_params.pt"))
+    params = {n: p.detach().cpu() for n, p in state.params.items()} \
+        if rank == 0 else None
     return {"losses": losses, "grad_norms": norms, "launches": launches,
-            "seconds": secs}
+            "seconds": secs, "params": params}
 
 
 def mesh_serve_rank(rank, world, seed) -> dict:
@@ -6439,65 +6478,20 @@ def mesh_serve_rank(rank, world, seed) -> dict:
             "engine_batch_s": served_s, "dp_size": engine.mesh.dp_size}
 
 
-def mesh_rank(rank, world, work, seed):
-    """One rank of phase 5h's world (a spawned process on card 0)."""
-    import faulthandler
-
-    import torch.distributed as dist
-    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 10, exit=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(work, "store"), world), rank=rank, world_size=world)
+def mesh_rank_work(rank, world, seed) -> dict:
+    """Phase 5h's work on one rank of a started world: the ring, its
+    gradient, the seq-parallel steps (rank 0's parameters in its record)
+    and the served mesh."""
     rec = {"ring": mesh_ring_check(rank, world, seed),
            "ring_bwd": mesh_ring_bwd_check(rank, world, seed)}
     free()
-    rec["train"] = mesh_train_rank(rank, world, seed, work)
+    rec["train"] = mesh_train_rank(rank, world, seed)
     free()
     rec["serve"] = mesh_serve_rank(rank, world, seed)
-    torch.save(rec, os.path.join(work, f"rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
+    return rec
 
 
 MESH_TIMEOUT_S = 400
-
-
-def mesh_world(seed) -> list:
-    """Run mesh_rank on MESH_RANKS spawned processes sharing card 0 over
-    gloo (NCCL refuses two ranks on one device; every collective stages
-    through host memory, parallel/comm.py); their records by rank. A rank
-    that fails fails the phase: the others are stopped."""
-    import torch.multiprocessing as mp
-    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, work, seed))
-             for r in range(MESH_RANKS)]
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + MESH_TIMEOUT_S
-        while any(p.is_alive() for p in procs):
-            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-            if bad or time.monotonic() > deadline:
-                raise AssertionError(f"phase 5h: a rank failed (exit codes "
-                                     f"{[p.exitcode for p in procs]})")
-            time.sleep(0.5)
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            raise AssertionError(f"phase 5h: exit codes {codes}")
-        recs = [torch.load(os.path.join(work, f"rank{r}.pt"),
-                           weights_only=False) for r in range(MESH_RANKS)]
-        params = torch.load(os.path.join(work, "mesh_train_params.pt"))
-        return recs, params
-    finally:
-        for p in procs:
-            if p.pid is None:
-                continue
-            if p.is_alive():
-                p.kill()
-            p.join()
-        shutil.rmtree(work, ignore_errors=True)
 
 
 def ring_block_cases(seed) -> list:
@@ -6594,14 +6588,16 @@ def mesh_serve_against_one_rank(recs, seed) -> dict:
     return out
 
 
-def phase_mesh(seed) -> dict:
-    """Phase 5h (module docstring)."""
+def phase_mesh(seed, pre, world) -> dict:
+    """Phase 5h (module docstring): `pre` its one-rank part
+    (ring_block_cases, run before the world), `world` mesh_worlds'
+    records; its seconds are its one-rank part's, its part of the world
+    and its checks after."""
     t0 = time.perf_counter()
-    rec = {"blocks": ring_block_cases(seed)}
-    free()
-    recs, mesh_params = mesh_world(seed)
-    rec["world_s"] = time.perf_counter() - t0
+    rec = dict(pre)
+    recs = world["5h"]
     r0 = recs[0]
+    mesh_params = r0["train"].pop("params")
     rec["ring"] = {"cases": r0["ring"]["cases"], "launches": dict(sum(
         (r["ring"]["launches"] for r in recs), collections.Counter()))}
     rec["ring_bwd"] = r0["ring_bwd"]
@@ -6644,7 +6640,9 @@ def phase_mesh(seed) -> dict:
     rec["mesh_serve"] = mesh_serve_against_one_rank(recs, seed)
     rec["mesh_ring"] = {"launches": rec["ring"]["launches"]}
     free()
-    rec["seconds"] = time.perf_counter() - t0
+    rec["world_part_s"] = world["part_s"]["5h"]
+    rec["seconds"] = rec["before_world_s"] + rec["world_part_s"] + \
+        time.perf_counter() - t0
     print("mesh " + json.dumps({
         "card": card_line(), "seconds": rec["seconds"],
         "ranks": MESH_RANKS, "transport": "gloo, staged through host memory",
@@ -6779,6 +6777,7 @@ def update_cosine(after, before, params) -> float:
     for n, p0 in before.items():
         a = (after[n].double() - p0.double()).reshape(-1)
         b = (params[n].detach().double() - p0.double()).reshape(-1)
+        a = a.detach()
         dot += float(a @ b)
         na += float(a @ a)
         nb += float(b @ b)
@@ -6991,18 +6990,12 @@ def full_precision_gemms(on: bool = True) -> None:
         not on
 
 
-def mesh2_rank(rank, world, work, seed, runs=MESH2_RUNS, plain=False):
-    """One rank of phase 5i's world (a spawned process on card 0): the
-    runs named in `runs` (plain: the train paths in fp32 through the
-    plain attention)."""
-    import faulthandler
-
-    import torch.distributed as dist
-    faulthandler.dump_traceback_later(MESH2_TIMEOUT_S - 10, exit=True)
+def mesh2_rank_work(rank, world, seed, runs=MESH2_RUNS,
+                    plain=False) -> dict:
+    """Phase 5i's work on one rank of a started world, with full-precision
+    GEMMs: the runs named in `runs` (plain: the train paths in fp32
+    through the plain attention)."""
     full_precision_gemms()
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(work, "store"), world), rank=rank, world_size=world)
     rec = {}
     for name in MESH2_TRAIN_MESHES:
         if name in runs:
@@ -7013,33 +7006,61 @@ def mesh2_rank(rank, world, work, seed, runs=MESH2_RUNS, plain=False):
         free()
     if "mesh2_dp_engine" in runs:
         rec["dp_engine"] = mesh2_dp_engine_rank(rank, world, seed)
+    return rec
+
+
+def world_rank(rank, world, work, timeout, parts):
+    """One rank of a world of spawned processes sharing card 0 over gloo
+    (NCCL refuses two ranks on one device; every collective stages
+    through host memory, parallel/comm.py): each (name, fn, args) of
+    `parts` in order, fn(rank, world, *args) its record, after a barrier
+    and timed; the records, and each part's seconds under "part_s", saved
+    to work/rank<r>.pt. Past `timeout` s the rank dumps its stacks and
+    exits."""
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.dump_traceback_later(timeout - 10, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(work, "store"), world), rank=rank, world_size=world)
+    rec = {"part_s": {}}
+    for name, fn, args in parts:
+        dist.barrier()
+        t0 = time.perf_counter()
+        rec[name] = fn(rank, world, *args)
+        free()
+        rec["part_s"][name] = time.perf_counter() - t0
     torch.save(rec, os.path.join(work, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def mesh2_world(seed, runs=MESH2_RUNS, plain=False):
-    """mesh2_rank on MESH_RANKS spawned processes sharing card 0 over gloo
-    (as mesh_world); their records by rank."""
+def spawn_world(parts, timeout, label):
+    """world_rank(rank, MESH_RANKS, work, timeout, parts) on MESH_RANKS
+    spawned processes sharing card 0; their records by rank. A rank that
+    fails, or a world past `timeout` s, fails the phase `label`: the
+    other ranks are stopped."""
     import torch.multiprocessing as mp
-    work = tempfile.mkdtemp(prefix="chip_smoke_mesh2_")
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh2_rank, args=(r, MESH_RANKS, work,
-                                                  seed, runs, plain))
+    procs = [ctx.Process(target=world_rank,
+                         args=(r, MESH_RANKS, work, timeout, parts))
              for r in range(MESH_RANKS)]
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + MESH2_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         while any(p.is_alive() for p in procs):
             bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
             if bad or time.monotonic() > deadline:
-                raise AssertionError(f"phase 5i: a rank failed (exit codes "
-                                     f"{[p.exitcode for p in procs]})")
+                raise AssertionError(f"phase {label}: a rank failed (exit "
+                                     f"codes {[p.exitcode for p in procs]})")
             time.sleep(0.5)
         codes = [p.exitcode for p in procs]
         if any(codes):
-            raise AssertionError(f"phase 5i: exit codes {codes}")
+            raise AssertionError(f"phase {label}: exit codes {codes}")
         return [torch.load(os.path.join(work, f"rank{r}.pt"),
                            weights_only=False) for r in range(MESH_RANKS)]
     finally:
@@ -7050,6 +7071,14 @@ def mesh2_world(seed, runs=MESH2_RUNS, plain=False):
                 p.kill()
             p.join()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def mesh2_world(seed, runs=MESH2_RUNS, plain=False):
+    """Phase 5i's work alone on a world of MESH_RANKS spawned ranks; their
+    records by rank."""
+    return [r["5i"] for r in spawn_world(
+        (("5i", mesh2_rank_work, (seed, runs, plain)),), MESH2_TIMEOUT_S,
+        "5i")]
 
 
 def rel_gap(got, want) -> float:
@@ -7253,17 +7282,32 @@ def moe_fp32_accumulation(seed) -> dict:
     return {"max_abs_err": err, "max_abs_ref": top}
 
 
-def phase_mesh2(seed) -> dict:
-    """Phase 5i (module docstring)."""
+def mesh_before_world(seed) -> dict:
+    """The one-rank parts of phases 5h and 5i, run before their world:
+    5h's ring block cases; 5i's kernels at a tensor rank's heads, its
+    global draws and the MoE experts' fp32 accumulation."""
     t0 = time.perf_counter()
-    rec = {"tp_fwd": phase_kernels(seed, [MESH2_TP_CASE])[0],
-           "tp_bwd": phase_bwd_kernels(seed, [MESH2_TP_CASE])[0],
-           "global_draws": global_draw_ms(seed),
-           "moe_fp32_accumulation": moe_fp32_accumulation(seed)}
+    out = {"5h": {"blocks": ring_block_cases(seed)}}
     free()
-    rec["before_world_s"] = time.perf_counter() - t0
-    recs = mesh2_world(seed)
-    rec["world_s"] = time.perf_counter() - t0
+    out["5h"]["before_world_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["5i"] = {"tp_fwd": phase_kernels(seed, [MESH2_TP_CASE])[0],
+                 "tp_bwd": phase_bwd_kernels(seed, [MESH2_TP_CASE])[0],
+                 "global_draws": global_draw_ms(seed),
+                 "moe_fp32_accumulation": moe_fp32_accumulation(seed)}
+    free()
+    out["5i"]["before_world_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh2(seed, pre, world) -> dict:
+    """Phase 5i (module docstring): `pre` its one-rank part
+    (mesh_before_world), `world` mesh_worlds' records; its seconds as
+    phase_mesh's."""
+    t0 = time.perf_counter()
+    rec = dict(pre)
+    recs = world["5i"]
+    rec["world_part_s"] = world["part_s"]["5i"]
     for name in MESH2_TRAIN_MESHES:
         rec[name] = mesh2_train_against_one_rank(name, recs)
     full_precision_gemms()
@@ -7279,11 +7323,12 @@ def phase_mesh2(seed) -> dict:
         (collections.Counter(r["serve"]["engine_launches"]) for r in recs),
         collections.Counter()))}
     free()
-    rec["seconds"] = time.perf_counter() - t0
+    rec["seconds"] = rec["before_world_s"] + rec["world_part_s"] + \
+        time.perf_counter() - t0
     print("mesh2 " + json.dumps({
         "card": card_line(), "seconds": rec["seconds"],
         "before_world_s": rec["before_world_s"],
-        "world_s": rec["world_s"], "ranks": MESH_RANKS,
+        "world_part_s": rec["world_part_s"], "ranks": MESH_RANKS,
         "depth": MESH2_BLOCKS,
         "transport": "gloo, staged through host memory",
         "train": {name: {k: rec[name][k] for k in (
@@ -7305,6 +7350,304 @@ def phase_mesh2(seed) -> dict:
             "flash_bwd": {k: rec["tp_bwd"][k] for k in (
                 "ms_dq", "ms_dkv", "device_ms_dq", "device_ms_dkv",
                 "plain_ms", "library_ms", "library_device_ms", "bounds")}}}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 5k: the mesh's other modes (objectives, optimizers, LoRA, MoE under seq)
+# ---------------------------------------------------------------------------
+
+# path -> (configuration overrides, mesh), each at the flagship width with
+# MESH2_BLOCKS blocks, MESH2_TRAIN_BATCH rows and MESH_TRAIN_STEPS steps
+MESH3_PATHS_SPEC = {
+    "mesh3_ar": ({**AR_TRAIN_OVERRIDES, "trainer.ar_inpainting": True},
+                 dict(dcn=2, fsdp=1, seq=2)),
+    "mesh3_joint": ({"trainer.joint_ar_nar_prob": 0.5,
+                     "trainer.ar_llm_loss": True},
+                    dict(dcn=2, fsdp=1, seq=2)),
+    "mesh3_sedd": ({"trainer.parameterization": "sedd"},
+                   dict(dcn=2, fsdp=1, tensor=2)),
+    "mesh3_d3pm": ({"trainer.parameterization": "d3pm"},
+                   dict(dcn=2, fsdp=1, pp=2, pp_microbatches=2)),
+    "mesh3_adafactor": ({"trainer.optimizer": "adafactor"},
+                        dict(dcn=1, fsdp=1, pp=2, tensor=2,
+                             pp_microbatches=2)),
+    "mesh3_muon": ({"trainer.optimizer": "muon", "model.mup": True},
+                   dict(dcn=2, fsdp=1, tensor=2)),
+    "mesh3_lora": ({"model.lora_rank": 16}, dict(dcn=2, fsdp=1, tensor=2)),
+    "mesh3_moe": (MOE_OVERRIDES, dict(dcn=1, fsdp=1, seq=2, ep=2)),
+}
+MESH3_PATHS = tuple(MESH3_PATHS_SPEC)
+MESH3_TIMEOUT_S = 240
+# LoRA's B redrawn at this scale (the init's zero B leaves the first
+# steps' losses blind to the adapter)
+MESH3_LORA_B_STD = 0.02
+# The paths' limits against the one-rank step (mesh3_train_readings),
+# from scripts/mesh2_readings.py on an H100 80GB HBM3 at 700 W. The sound
+# tree in bf16 (two runs, equal to every digit): loss gaps <= 1.8e-5,
+# gradient-norm gaps <= 8.5e-4, optimizer-state distances <= 6.5e-3,
+# cosines >= 0.99961 (the trunk's >= 0.99913; Muon's 0.99792); in fp32
+# through the plain attention every path within 3.2e-7, 1.3e-6 and a
+# cosine of 1 - 1e-10 (the bf16 gaps are rounding). The MoE under "seq"
+# reads 9.7e-5, 5.7e-3, 0.077, 0.980 (trunk 0.961) in bf16 and 2e-7 in
+# fp32: a bf16 rounding of a router input flips a near-tie expert choice.
+# Eight planted faults (PLANTS of the script, one a path) read: the AR
+# targets shifted inside a chunk a loss gap of 157; the loss's tensors
+# cut from the wrong rows 0.075; sedd's sigma and d3pm's t from the wrong
+# rows 55 and 1.18; Adafactor's statistics over the rank's part a cosine
+# of 0.983 (trunk 0.991); Muon's Newton-Schulz on the rank's part a trunk
+# cosine of 0.9942; the adapter's gradient parts unsummed a gradient-norm
+# gap of 1.0; an MoE rank keeping another chunk's routing 1.5e-3, 0.023,
+# 0.34, 0.734.
+MESH3_LIMITS = {name: {"loss_rel": 1e-4, "grad_norm_rel": 2e-3,
+                       "state_rel": 2e-2, "update_cosine": 0.999,
+                       "trunk_update_cosine": 0.998}
+                for name in MESH3_PATHS}
+MESH3_LIMITS["mesh3_muon"]["trunk_update_cosine"] = 0.996
+MESH3_LIMITS["mesh3_moe"] = {"loss_rel": 5e-4, "grad_norm_rel": 1.5e-2,
+                             "state_rel": 0.2, "update_cosine": 0.95,
+                             "trunk_update_cosine": 0.9}
+
+
+def mesh3_config(name, plain: bool = False) -> Config:
+    """The path's training configuration at depth MESH2_BLOCKS; plain:
+    through the plain attention (an fp32 run)."""
+    return train_config(**{"model.n_blocks": MESH2_BLOCKS,
+                           **MESH3_PATHS_SPEC[name][0],
+                           **({"model.attn_backend": "xla"} if plain
+                              else {})})
+
+
+def mesh3_launches(name, cfg, layout, steps) -> dict:
+    """flash_fwd / dq / dkv launches of one rank's `steps` steps, from the
+    code: under "seq" the flash ring's forward blocks an attention
+    (``ring_flash_blocks``: the diagonal and the earlier chunks when
+    causal) and no backward kernel (the ring's backward recomputes the
+    plain ring); a pp rank its stage's blocks once a microbatch, forward
+    and backward; otherwise every block once."""
+    from unidisc_tpu_torch.parallel.ring_attention import ring_flash_blocks
+    spec = MESH3_PATHS_SPEC[name][1]
+    n = cfg.model.n_blocks
+    if spec.get("seq", 1) > 1:
+        per = ring_flash_blocks(spec["seq"], layout.seq_rank,
+                                not cfg.model.full_attention)
+        return {"flash_fwd": steps * n * per}
+    if spec.get("pp", 1) > 1:
+        n = n // spec["pp"] * spec["pp_microbatches"]
+    return {k: steps * n for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")}
+
+
+def mesh3_setup(cfg, seed, dtype):
+    """A path's model with randomize_'s weights, and for LoRA its adapter
+    (drawn from the whole base, B redrawn at MESH3_LORA_B_STD) and map:
+    (model, param_map, adapter)."""
+    from unidisc_tpu_torch.training.lora import (lora_from_config,
+                                                 lora_param_map)
+    model = mesh2_model(cfg, seed, dtype)
+    if cfg.model.lora_rank == 0:
+        return model, None, None
+    base = dict(model.named_parameters())
+    for p in base.values():
+        p.requires_grad_(False)
+    adapter = lora_from_config(base, cfg.model, seed + 1)
+    gen = torch.Generator().manual_seed(seed + 2)
+    for k, v in adapter.items():
+        if k.endswith(".B"):
+            v.copy_(torch.randn(v.shape, generator=gen) * MESH3_LORA_B_STD)
+    return model, lora_param_map(base, alpha=cfg.model.lora_alpha,
+                                 rank=cfg.model.lora_rank), adapter
+
+
+def mesh3_state_parts(state, whole=None) -> dict:
+    """The optimizer state this rank holds (tensors, by name), or, given
+    a one-rank state's state_dict `whole`, this rank's part of it."""
+    sd = state._local_state_dict()
+    out = {}
+    if "mu" in sd:                  # AdamW: the moments by parameter
+        for key in ("mu", "nu"):
+            if whole is None:
+                src = sd[key]
+            elif state.shards is None:
+                src = whole[key]
+            else:
+                src = state.shards.scatter(whole[key], state.mesh, {})
+            out.update({f"{key}/{n}": t for n, t in src.items()})
+        return out
+    for k, t in sd["opt_state"].items():
+        if t.dim() == 0:
+            continue
+        if whole is None:
+            out[k] = t
+        elif state.shards is None:
+            out[k] = whole["opt_state"][k]
+        else:
+            out[k] = state._opt_tensor(k, whole["opt_state"][k], whole=False)
+    return out
+
+
+def rel_distance(mine: dict, ref: dict) -> float:
+    """The relative L2 distance of two sets of tensors, in fp64."""
+    num = den = 0.0
+    for k, r in ref.items():
+        num += float((mine[k].double() - r.double()).square().sum())
+        den += float(r.double().square().sum())
+    return math.sqrt(num / den)
+
+
+def mesh3_train_rank(rank, world, seed, name, plain=False) -> dict:
+    """MESH_TRAIN_STEPS mesh steps of the path `name` on its mesh (plain:
+    in fp32 through the plain attention); then on rank 0 the one-rank step
+    from the same weights, batch and draws: its losses and gradient norms,
+    the two updates' cosine (over the parameters rank 0 holds, or the
+    adapter) and the optimizer state's relative distance over rank 0's
+    part of it; the cosine also over the trunk alone."""
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.training.train_state import shard_train_step
+    t_start = time.perf_counter()
+    dtype = torch.float32 if plain else torch.bfloat16
+    cfg = mesh3_config(name, plain)
+    mesh_cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, **MESH3_PATHS_SPEC[name][1]))
+    model, pmap, adapter = mesh3_setup(cfg, seed, dtype)
+    step, state, layout = shard_train_step(
+        mesh_cfg, model, make_mesh(mesh_cfg.mesh), param_map=pmap,
+        adapter=None if adapter is None else
+        {k: v.clone() for k, v in adapter.items()})
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    batch = mesh2_batch(cfg, seed)
+    _build.reset_launch_counts()
+    state, losses, norms, secs = mesh2_steps(step, state, batch, seed)
+    launches = dict(_build.launch_counts)
+    want = {} if plain else mesh3_launches(name, cfg, layout,
+                                           MESH_TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"{name}: rank {rank} launches {launches}, "
+                             f"the code {want}")
+    rec = {"losses": losses, "grad_norms": norms, "launches": launches,
+           "seconds": secs}
+    if rank == 0:
+        one, one_map, one_adapter = mesh3_setup(cfg, seed, dtype)
+        one_state = init_train_state(cfg, one if one_adapter is None
+                                     else one_adapter)
+        (one_state, rec["one_rank_losses"], rec["one_rank_grad_norms"],
+         rec["one_rank_s"]) = mesh2_steps(
+            make_train_step(cfg, one, param_map=one_map), one_state, batch,
+            seed)
+        one_sd = one_state.state_dict()
+        ref = one_sd["params"] if state.shards is None else \
+            state.shards.scatter(one_sd["params"], layout, {})
+        rec["update_cosine"] = update_cosine(state.params, before, ref)
+        # the trunk's (or the adapter's) parameters alone: Muon's and
+        # Adafactor's block rules act there, where the embeddings' and the
+        # head's Adam updates would outweigh them in the whole cosine
+        trunk = [n for n in before if "blocks." in n]
+        rec["trunk_update_cosine"] = update_cosine(
+            state.params, {n: before[n] for n in trunk}, ref)
+        rec["state_rel"] = rel_distance(mesh3_state_parts(state),
+                                        mesh3_state_parts(state, one_sd))
+        del one, one_state, one_sd
+    rec["path_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def mesh3_rank_work(rank, world, seed, runs=MESH3_PATHS,
+                    plain=False) -> dict:
+    """Phase 5k's work on one rank of a started world, with full-precision
+    GEMMs: the paths named in `runs` (plain: in fp32 through the plain
+    attention)."""
+    full_precision_gemms()
+    rec = {}
+    for name in runs:
+        rec[name] = mesh3_train_rank(rank, world, seed, name, plain)
+        free()
+    return rec
+
+
+def mesh3_world(seed, runs=MESH3_PATHS, plain=False):
+    """Phase 5k's work alone on a world of MESH_RANKS spawned ranks; their
+    records by rank."""
+    return [r["5k"] for r in spawn_world(
+        (("5k", mesh3_rank_work, (seed, runs, plain)),), MESH3_TIMEOUT_S,
+        "5k")]
+
+
+def mesh_worlds(seed) -> dict:
+    """Phases 5h, 5i and 5k on one world of MESH_RANKS spawned ranks (one
+    start-up of the ranks, not three): each phase's records by rank, each
+    part's seconds on rank 0 (after a barrier) and the world's seconds."""
+    t0 = time.perf_counter()
+    recs = spawn_world((("5h", mesh_rank_work, (seed,)),
+                        ("5i", mesh2_rank_work, (seed,)),
+                        ("5k", mesh3_rank_work, (seed,))),
+                       MESH_TIMEOUT_S + MESH2_TIMEOUT_S + MESH3_TIMEOUT_S,
+                       "5h-5k")
+    out = {part: [r[part] for r in recs] for part in ("5h", "5i", "5k")}
+    out["part_s"] = recs[0]["part_s"]
+    out["world_s"] = time.perf_counter() - t0
+    print("mesh_world " + json.dumps({
+        "card": card_line(), "world_s": out["world_s"],
+        "part_s": out["part_s"], "start_and_exit_s": out["world_s"]
+        - sum(out["part_s"].values())}))
+    return out
+
+
+def mesh3_train_readings(name, recs) -> dict:
+    """A path against the one-rank step (rank 0 ran it on the same
+    weights, batch and draws): the largest relative gap of any rank's
+    losses and gradient norms, the update's cosine and the optimizer
+    state's relative distance over rank 0's part."""
+    r0 = recs[0][name]
+    return {
+        "loss_rel": max(rel_gap(rec[name]["losses"], r0["one_rank_losses"])
+                        for rec in recs),
+        "grad_norm_rel": max(rel_gap(rec[name]["grad_norms"],
+                                     r0["one_rank_grad_norms"])
+                             for rec in recs),
+        "state_rel": r0["state_rel"], "update_cosine": r0["update_cosine"],
+        "trunk_update_cosine": r0["trunk_update_cosine"]}
+
+
+def mesh3_against_one_rank(name, recs) -> dict:
+    """A path held to the one-rank step: each reading of
+    mesh3_train_readings within MESH3_LIMITS."""
+    r0 = recs[0][name]
+    readings = mesh3_train_readings(name, recs)
+    for key, limit in MESH3_LIMITS[name].items():
+        ok = readings[key] >= limit if key.endswith("cosine") \
+            else readings[key] <= limit
+        if not ok:
+            raise AssertionError(f"{name}: {key} {readings[key]} against "
+                                 f"the limit {limit} (losses "
+                                 f"{r0['losses']}, one rank "
+                                 f"{r0['one_rank_losses']})")
+    return {**readings, "losses": r0["losses"],
+            "one_rank_losses": r0["one_rank_losses"],
+            "grad_norms": r0["grad_norms"],
+            "one_rank_grad_norms": r0["one_rank_grad_norms"],
+            "mesh_s": [rec[name]["seconds"] for rec in recs],
+            "path_s": r0["path_s"], "one_rank_s": r0["one_rank_s"],
+            "launches": dict(sum((collections.Counter(rec[name]["launches"])
+                                  for rec in recs), collections.Counter()))}
+
+
+def phase_mesh3(world) -> dict:
+    """Phase 5k (module docstring), on mesh_worlds' records; its seconds
+    are its part of the world and its checks after."""
+    t0 = time.perf_counter()
+    recs = world["5k"]
+    rec = {"world_part_s": world["part_s"]["5k"]}
+    for name in MESH3_PATHS:
+        rec[name] = mesh3_against_one_rank(name, recs)
+    rec["seconds"] = rec["world_part_s"] + time.perf_counter() - t0
+    print("mesh3 " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "world_part_s": rec["world_part_s"], "ranks": MESH_RANKS,
+        "depth": MESH2_BLOCKS, "batch": MESH2_TRAIN_BATCH,
+        "steps": MESH_TRAIN_STEPS,
+        "transport": "gloo, staged through host memory",
+        "train": {name: {k: v for k, v in rec[name].items()
+                         if k != "launches"} for name in MESH3_PATHS}}))
     return rec
 
 
@@ -7816,14 +8159,24 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     free()
     lap("variants")
-    # 5h: the device mesh
-    record["mesh"] = phase_mesh(args.seed)
+    # 5h (the device mesh), 5i (the rest of the mesh) and 5k (the mesh's
+    # other modes): their one-rank parts, one world of spawned ranks for
+    # the three, then each phase's checks against one rank
+    before = mesh_before_world(args.seed)
+    lap("mesh_before_world")
+    world = mesh_worlds(args.seed)
+    record["mesh_world"] = {k: world[k] for k in ("part_s", "world_s")}
+    lap("mesh_world")
+    record["mesh"] = phase_mesh(args.seed, before["5h"], world)
     free()
     lap("mesh")
-    # 5i: the rest of the mesh
-    record["mesh2"] = phase_mesh2(args.seed)
+    record["mesh2"] = phase_mesh2(args.seed, before["5i"], world)
     free()
     lap("mesh2")
+    record["mesh3"] = phase_mesh3(world)
+    del world
+    free()
+    lap("mesh3")
     record["phase_seconds"] = laps
     print("phase_seconds " + json.dumps(laps))
     pix = record["pixels"]
@@ -7877,6 +8230,9 @@ def main() -> int:
                 name, 0)
         for path in MESH2_PATHS:
             by_path[name][path] = record["mesh2"][path]["launches"].get(
+                name, 0)
+        for path in MESH3_PATHS:
+            by_path[name][path] = record["mesh3"][path]["launches"].get(
                 name, 0)
         for path in EVAL_PATHS:
             by_path[name][path] = record[path]["launches"].get(name, 0)

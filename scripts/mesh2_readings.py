@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phase 5i's mesh readings on the card, without its limits.
+"""Phase 5i's and 5k's mesh readings on the card, without their limits.
 
     python3 scripts/mesh2_readings.py [--root DIR] [--runs R[,R...]]
                                       [--plain] [--plant FAULT]
@@ -13,7 +13,10 @@ train path against the one-rank step, ``mesh2_train_readings`` (the
 largest relative gap of any rank's losses and gradient norms, the trunk's
 first moments' relative distance and the update's cosine); for
 ``mesh2_dp_engine`` the captured programs' token agreement with the
-one-rank engine at the same seed. --plain runs the train paths in fp32
+one-rank engine at the same seed. Runs named ``mesh3_*`` (``--runs 5k``:
+all of them) run in 5k's world instead, read by
+``mesh3_train_readings`` (the optimizer state's relative distance in
+place of the trunk's first moments). --plain runs the train paths in fp32
 through the plain attention, to tell the bf16 paths' rounding from a
 fault. --plant FAULT (one of PLANTS) runs a copy of the tree, made in a
 temporary directory and removed after, with that one fault planted and
@@ -57,7 +60,8 @@ PLANTS = {
     # replicated leaves' gradients summed over every rank ("tensor" too)
     "world_grad_sum": (
         "unidisc_tpu_torch/training/train_state.py",
-        "(False, mesh.grad_group)", "(False, dist.group.WORLD)",
+        "(False, mesh.grad_group)",
+        "(False, torch.distributed.group.WORLD)",
         "mesh2_train_tensor"),
     # the engine's program captured outside global_rows
     "capture_local_rows": (
@@ -65,6 +69,54 @@ PLANTS = {
         "            with rows:\n                run = captured(sampler, "
         "local)\n", "            run = captured(sampler, local)\n",
         "mesh2_dp_engine"),
+    # 5k: the AR targets shifted inside each L-chunk
+    "ar_in_chunk": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "return _block(mesh, torch.cat([x[:, 1:], x[:, -1:]], 1))",
+        "return (lambda b: torch.cat([b[:, 1:], b[:, -1:]], 1))("
+        "_block(mesh, x))", "mesh3_ar"),
+    # the per-token tensors of the loss cut from the wrong rows
+    "block_rows_flipped": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "else mesh.local(x)\n", "else mesh.local(x.flip(0))\n",
+        "mesh3_joint"),
+    # sedd's per-row sigma and d3pm's per-row t from the wrong rows
+    "sedd_rows_flipped": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "else mesh.rows(x)\n", "else mesh.rows(x.flip(0))\n",
+        "mesh3_sedd"),
+    "d3pm_rows_flipped": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "else mesh.rows(x)\n", "else mesh.rows(x.flip(0))\n",
+        "mesh3_d3pm"),
+    # Adafactor's statistics over the rank's part only
+    "adafactor_no_allsum": (
+        "unidisc_tpu_torch/training/leaf_shards.py",
+        "t = all_reduce(t.contiguous(), sp.axis.group)", "t = t",
+        "mesh3_adafactor"),
+    # Muon's Newton-Schulz on the rank's part of each matrix
+    "muon_local_ns": (
+        "unidisc_tpu_torch/training/optimizers.py",
+        "            if state.leaves is not None:\n"
+        "                # each (in, out) matrix whole over the axes that "
+        "split it\n"
+        "                o = state.leaves.gather(o, leaf.key, mat, "
+        "mat[-2:])\n"
+        "            o = newton_schulz(o, self.ns_steps, self.eps)\n"
+        "            if state.leaves is not None:\n"
+        "                o = state.leaves.take(o, leaf.key, mat, mat[-2:])\n",
+        "            o = newton_schulz(o, self.ns_steps, self.eps)\n",
+        "mesh3_muon"),
+    # the adapter's gradient parts left unsummed over the world
+    "lora_no_world_sum": (
+        "unidisc_tpu_torch/training/train_state.py",
+        "    return all_reduce(flat, dist.group.WORLD)\n",
+        "    return flat\n", "mesh3_lora"),
+    # an MoE rank under "seq" keeps another chunk's routing
+    "moe_seq_wrong_chunk": (
+        "unidisc_tpu_torch/models/moe.py",
+        "u.view(b, seq_size, t, k)[:, seq.rank]",
+        "u.view(b, seq_size, t, k)[:, 0]", "mesh3_moe"),
 }
 
 
@@ -113,11 +165,30 @@ def run(root: Path, args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_build()
     runs = tuple(args.runs.split(",")) if args.runs else cs.MESH2_RUNS
+    if runs == ("5k",):
+        runs = cs.MESH3_PATHS
+    mesh3 = tuple(r for r in runs if r.startswith("mesh3_"))
+    runs = tuple(r for r in runs if not r.startswith("mesh3_"))
     out = {"card": cs.card_line(), "label": args.label,
-           "plain": args.plain, "plant": args.plant, "runs": list(runs)}
+           "plain": args.plain, "plant": args.plant,
+           "runs": list(runs + mesh3)}
+    if mesh3:
+        t0 = time.perf_counter()
+        try:
+            recs3 = cs.mesh3_world(args.seed, mesh3, args.plain)
+            for name in mesh3:
+                out[name] = {**cs.mesh3_train_readings(name, recs3),
+                             **{k: recs3[0][name][k] for k in (
+                                 "losses", "one_rank_losses", "grad_norms",
+                                 "one_rank_grad_norms")}}
+        except AssertionError as e:   # a rank failed: report it
+            out["error_5k"] = str(e)
+        out["world_5k_s"] = time.perf_counter() - t0
+    recs = None
     t0 = time.perf_counter()
     try:
-        recs = cs.mesh2_world(args.seed, runs, args.plain)
+        if runs:
+            recs = cs.mesh2_world(args.seed, runs, args.plain)
     except AssertionError as e:   # a rank failed: report it
         out["error"] = str(e)
         recs = None

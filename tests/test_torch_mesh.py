@@ -139,11 +139,14 @@ def test_later_axes_raise_naming_item_9():
             (dataclasses.replace(m, quant="int8", moe_experts=2),
              {"ep": 2}),
             (dataclasses.replace(m, img_cond=True), {"pp": 2}),
-            (dataclasses.replace(m, img_cond=True), {"tensor": 2})):
+            (dataclasses.replace(m, img_cond=True), {"tensor": 2}),
+            (dataclasses.replace(m, moe_experts=2), {"pp": 2, "seq": 2})):
         with pytest.raises(NotImplementedError, match="item 9"):
             tmesh.check_mesh_model(model, sizes)
     tmesh.check_mesh_model(dataclasses.replace(m, quant="int8"),
                            {"fsdp": 2, "seq": 2})
+    tmesh.check_mesh_model(dataclasses.replace(m, moe_experts=2),
+                           {"seq": 2, "ep": 2})
     with pytest.raises(ValueError, match="n_heads"):
         tmesh.check_mesh_model(m, {"tensor": 4})
     with pytest.raises(ValueError, match="moe_experts"):

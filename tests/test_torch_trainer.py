@@ -144,6 +144,20 @@ def test_unported_trainer_options_raise(tmp_path):
             Trainer(cfg, str(tmp_path), device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="LoRA"):
         Trainer(cfg, str(tmp_path), device="cpu", base_params={})
+    # JAX's own refusals: host offload is a single-device mode (its
+    # Trainer asserts so), and validate() refuses img_cond under "seq"
+    sizes = {a: 2 if a == "fsdp" else 1 for a in AXES}
+    mesh = types.SimpleNamespace(mesh_dim_names=AXES,
+                                 size=lambda i: sizes[AXES[i]])
+    with pytest.raises(ValueError, match="single-device mode"):
+        Trainer(cfg.override(**{"trainer.host_offload_optimizer": True}),
+                str(tmp_path), device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="img_cond is not wired"):
+        cfg.override(**{"model.img_cond": True,
+                        "model.cond_image_vocab_size": 8,
+                        "model.cond_length": 4, "model.qk_norm": False,
+                        "model.sandwich_normalization": False,
+                        "model.rope_2d": False, "mesh.seq": 2}).validate()
 
 
 def test_train_cli_runs_on_cpu(tmp_path, capsys):

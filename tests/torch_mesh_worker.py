@@ -480,8 +480,101 @@ def job_mesh2(rank, world):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mesh's other modes (tests/test_torch_mesh_modes.py)
+# ---------------------------------------------------------------------------
+
+def modes_run(c, rank):
+    """One case of job "modes": its steps on its mesh from its start.
+    c: config, mesh (MeshConfig fields), draws (one mapping per step),
+    batch, and sd0 (a whole state dict) or base + adapter (LoRA); dtype
+    (the DIT's compute dtype), resume (load the state after step 1 back
+    and run step 2 again), in_chunk (the AR targets shifted inside each
+    L-chunk). Returns the metrics per step, and on rank 0 the whole
+    state after the last step."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from unidisc_tpu_torch.models.dit import DIT
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.training import lora as tlora
+    from unidisc_tpu_torch.training import train_state as tts
+    cfg = dataclasses.replace(c["config"], mesh=dataclasses.replace(
+        c["config"].mesh, **c["mesh"]))
+    model = DIT(cfg.model, compute_dtype=c.get("dtype", torch.float32))
+    mesh = make_mesh(cfg.mesh)
+    if "adapter" in c:
+        m = cfg.model
+        model.load_state_dict(c["base"])
+        pmap = tlora.lora_param_map(dict(model.named_parameters()),
+                                    alpha=m.lora_alpha, rank=m.lora_rank)
+        step, state, _ = tts.shard_train_step(
+            cfg, model, mesh, param_map=pmap,
+            adapter={k: v.clone() for k, v in c["adapter"].items()})
+    else:
+        step, state, _ = tts.shard_train_step(cfg, model, mesh)
+        state.load_state_dict(c["sd0"])
+    tb = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+
+    def whole():
+        return {k: {n: t.detach().clone() for n, t in v.items()}
+                if isinstance(v, dict) else v.clone()
+                for k, v in state.state_dict().items()}
+    def in_chunk(x, mesh=None):
+        b = mesh.local(x)
+        return torch.cat([b[:, 1:], b[:, -1:]], 1)
+    out = {"metrics": []}
+    patch = mock.patch.object(tts, "next_token_targets", in_chunk) \
+        if c.get("in_chunk") else None
+    if patch is not None:
+        patch.start()
+    for i, d in enumerate(c["draws"]):
+        if c.get("resume") and i == 1:
+            mid = whole()
+        state, m = step(state, tb, draws=d)
+        out["metrics"].append({k: float(v) for k, v in m._asdict().items()})
+    if patch is not None:
+        patch.stop()
+    sd = whole()
+    if c.get("resume"):
+        # the mesh state after step 1, gathered whole, scattered back
+        state.load_state_dict(mid)
+        state, _ = step(state, tb, draws=c["draws"][1])
+        again = whole()
+        out["resumed_equal"] = all(
+            torch.equal(again[k][n], sd[k][n]) if isinstance(sd[k], dict)
+            else torch.equal(again[k], sd[k]) for k in sd for n in
+            (sd[k] if isinstance(sd[k], dict) else [None]))
+    if rank == 0:
+        out["state"] = sd
+    return out
+
+
+def job_modes(rank, world):
+    """The 4-rank world of tests/test_torch_mesh_modes.py: each case's
+    steps (``modes_run``), then a LoRA Trainer on fsdp 2 x tensor 2."""
+    import os
+
+    from unidisc_tpu_torch.training.trainer import Trainer
+    inp = load_inputs()
+    out = {name: modes_run(c, rank) for name, c in inp["cases"].items()}
+    t = inp["trainer"]
+    trainer = Trainer(t["config"], os.path.join(inp["dir"], "lora_run"),
+                      device="cpu", log_every=100, val_every=0, ckpt_every=0)
+    batch = t["batch"]
+    n = len(batch["input_ids"]) // world
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    trainer.fit(iter([local] * t["steps"]), None, max_steps=t["steps"])
+    out["trainer_val"] = trainer.validate(iter([local]), t["steps"],
+                                          max_batches=1)
+    trainer.close()
+    return out
+
+
 JOBS = {"ring": job_ring, "train": job_train, "seq": job_seq,
-        "mesh2": job_mesh2, "pipeline": job_pipeline}
+        "mesh2": job_mesh2, "pipeline": job_pipeline, "modes": job_modes}
 
 
 def main():

@@ -134,11 +134,19 @@ def ar_loss(logits: torch.Tensor, x0: torch.Tensor, mask_index: int, *,
             text_vocab_size: Optional[int] = None) -> LossOutput:
     """Autoregressive next-token loss (the caller applies the shift:
     logits[:, :-1] against x0[:, 1:])."""
-    nll = ar_llm_token_nll(logits, x0, mask_index, modality=modality,
-                           text_vocab_size=text_vocab_size)
+    return ar_loss_from_nll(
+        ar_llm_token_nll(logits, x0, mask_index, modality=modality,
+                         text_vocab_size=text_vocab_size), attention_mask)
+
+
+def ar_loss_from_nll(nll: torch.Tensor,
+                     attention_mask: Optional[torch.Tensor] = None
+                     ) -> LossOutput:
+    """``ar_loss`` from its per-token NLL (B, L'): the mean over the
+    attended tokens."""
     if attention_mask is None:
-        attention_mask = torch.ones(x0.shape, dtype=torch.bool,
-                                    device=x0.device)
+        attention_mask = torch.ones(nll.shape, dtype=torch.bool,
+                                    device=nll.device)
     loss = (nll * attention_mask).sum() / attention_mask.sum().clamp(min=1)
     zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
     return LossOutput(loss=loss, nlls=nll * attention_mask,

@@ -37,6 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unidisc_tpu_torch.device import resolve_device
+
 
 # ---------------------------------------------------------------------------
 # pytorch-fid InceptionV3 (torchvision inception_v3 key layout)
@@ -638,12 +640,12 @@ class CLIPModel(nn.Module):
                 txt / txt.norm(dim=-1, keepdim=True))
 
 
-def load_clip(path: str, device="cpu") -> CLIPModel:
+def load_clip(path: str, device="cuda") -> CLIPModel:
     """An HF CLIP directory's model (config.json + weights), in eval mode
-    on `device`."""
+    on `device` (the card unless asked for the CPU)."""
     model = CLIPModel(read_config(path))
     load_strict(model, read_hf_weights(path), ignore=("position_ids",))
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()
 
 
 # CLIPImageProcessor's defaults
@@ -807,10 +809,11 @@ class GPT2LMHeadModel(nn.Module):
         return hidden @ t.wte.weight.T, hidden
 
 
-def load_gpt2(path: str, device="cpu") -> GPT2LMHeadModel:
+def load_gpt2(path: str, device="cuda") -> GPT2LMHeadModel:
     """An HF GPT-2 directory's LM (config.json + weights; the keys with or
     without the ``transformer.`` prefix, the head tied to the token
-    table), in eval mode on `device`."""
+    table), in eval mode on `device` (the card unless asked for the
+    CPU)."""
     model = GPT2LMHeadModel(read_config(path))
     sd = {k if k.startswith(("transformer.", "lm_head.")) else
           f"transformer.{k}": v for k, v in read_hf_weights(path).items()}
@@ -820,4 +823,4 @@ def load_gpt2(path: str, device="cpu") -> GPT2LMHeadModel:
         raise ValueError("lm_head.weight differs from the token table; "
                          "GPT2LMHeadModel ties them")
     load_strict(model, sd, ignore=(".attn.bias", ".attn.masked_bias"))
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()

@@ -115,8 +115,9 @@ the flash-kernel ring over the "seq" group
 ``attn_backend="xla"``), and, when the context gathers, gathers the final
 hidden states over L before the vocab head, so every rank of the group
 gets the whole sequence's logits. The ring takes no dense ``attn_mask``,
-KV cache or frozen prefix; MoE (whose expert capacity is per batch) and
-the img_cond cross-attention under it are ROADMAP queue 1, item 13.
+KV cache or frozen prefix. An MoE layer under it routes over the global
+batch's tokens (``models/moe.py``); an img_cond model raises, as JAX's
+``validate()`` refuses img_cond under "seq".
 
 The rest of the device mesh: under ``parallel/pipeline.py::
 pipeline_parallel`` (a "pp" axis larger than 1) the block stack runs as a
@@ -1045,10 +1046,11 @@ class DIT(nn.Module):
                     or attn_mask is not None:
                 raise ValueError("sequence parallelism takes no kv_cache, "
                                  "frozen_kv or attn_mask")
-            if cross or cfg.moe_experts > 0:
-                raise NotImplementedError(
-                    "MoE and img_cond under sequence parallelism are not in "
-                    "the port yet (ROADMAP queue 1, item 13)")
+            if cross:
+                raise ValueError("img_cond under sequence parallelism: "
+                                 "JAX's validate() refuses it (img_cond is "
+                                 "not wired through pipeline/sequence "
+                                 "parallelism)")
             if l % ring.size:
                 raise ValueError(f"sequence {l} not divisible by the seq "
                                  f"group size {ring.size}")

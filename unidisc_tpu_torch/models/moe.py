@@ -64,6 +64,12 @@ computes what JAX's GSPMD computes over the global batch:
     part of the whole. An all-to-all that moves only the routed rows is a
     later speed item.
 
+Under "seq" (``parallel/seq_parallel.py``: the layer gets the rank's
+L-chunk) the router probabilities are gathered over the "seq" group as
+well, first along L, so the routing is over every token of the global
+batch in its (B, L) order, as JAX's GSPMD routes it; the rank keeps its
+chunk's choices and the dispatch buffer is summed over "seq" too.
+
 Inside a pipeline stage (``parallel/pipeline.py``) the layer routes over
 the stage's microbatch on the rank alone, as JAX's stage body does.
 
@@ -87,6 +93,7 @@ from unidisc_tpu_torch.config import ModelConfig
 from unidisc_tpu_torch.parallel.comm import (GatherReplicated, copy_to,
                                              reduce_from, sum_over)
 from unidisc_tpu_torch.parallel.pipeline import current_pp
+from unidisc_tpu_torch.parallel.seq_parallel import current_seq_mesh
 
 
 _STACKED = threading.local()
@@ -182,15 +189,20 @@ class MoEMLP(nn.Module):
         k = min(cfg.moe_top_k, n_exp)
         b, t, dim = x.shape
         s = b * t
-        dp, ep = (self.dp, self.ep) if current_pp() is None \
-            else (None, None)
+        dp, ep, seq = (self.dp, self.ep, current_seq_mesh()) \
+            if current_pp() is None else (None, None, None)
         dp_size = dp.size if dp is not None else 1
-        cap = capacity(cfg, s * dp_size)
+        seq_size = seq.size if seq is not None else 1
+        cap = capacity(cfg, s * dp_size * seq_size)
         xr = x.reshape(s, dim)
         with record_function("moe_route"):
             logits = F.linear(xr.float(), self.router.weight.float())
             probs = torch.softmax(logits, dim=-1)                # (S, E)
             copies = getattr(_STACKED, "value", 1)
+            if seq_size > 1:
+                # the rows' whole sequences, in their token order
+                probs = GatherReplicated.apply(
+                    probs.view(b, t, n_exp), seq.group, 1).reshape(-1, n_exp)
             if dp_size > 1:
                 # the global batch's probabilities in the global batch's
                 # row order: every rank routes them alike
@@ -202,8 +214,12 @@ class MoEMLP(nn.Module):
                 n_exp, device=x.device)).float().mean(0)
             aux = n_exp * torch.sum(f_e * probs.mean(0))
             if dp_size > 1:
-                gates, expert, slot = (_own(t, dp.rank, dp_size, copies)
-                                       for t in (gates, expert, slot))
+                gates, expert, slot = (_own(u, dp.rank, dp_size, copies)
+                                       for u in (gates, expert, slot))
+            if seq_size > 1:
+                gates, expert, slot = (
+                    u.view(b, seq_size, t, k)[:, seq.rank].reshape(s, k)
+                    for u in (gates, expert, slot))
 
         local = n_exp
         if ep is not None and ep.size > 1:
@@ -227,6 +243,8 @@ class MoEMLP(nn.Module):
                                   0, slot.reshape(-1), rows)
             if dp_size > 1:
                 buf = sum_over(buf, dp.group)
+            if seq_size > 1:
+                buf = sum_over(buf, seq.group)
             expert_in = buf[:-1].view(local, cap, dim)
         with record_function("moe_experts"):
             h = bmm_f32(expert_in, self.w1.to(cdt)) + self.b1.float()

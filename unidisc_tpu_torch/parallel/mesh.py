@@ -55,7 +55,8 @@ and groups, and the rank-local slicing and gathering that JAX's
 What the port does not run on a mesh raises ``NotImplementedError``
 naming ROADMAP queue 1, item 9 (``check_mesh_model``): int8 W8A8 models
 on "tensor", "pp" or "ep"; img_cond under "pp" (JAX's ``validate()``
-refuses it too) or "tensor"; "ep" inside a pipeline stage.
+refuses it too) or "tensor"; "ep" inside a pipeline stage; an MoE model
+under "seq" inside a pipeline stage.
 """
 
 from __future__ import annotations
@@ -105,6 +106,8 @@ def check_mesh_model(m, sizes: Mapping[str, int]) -> None:
         ("int8 W8A8 on tensor / pp / ep",
          m.quant == "int8" and max(tensor, pp, ep) > 1),
         ("img_cond under pp or tensor", m.img_cond and max(tensor, pp) > 1),
+        ("MoE under seq inside a pipeline stage",
+         m.moe_experts > 0 and pp > 1 and sizes.get("seq", 1) > 1),
     ) if bad]
     if later:
         raise NotImplementedError(f"{', '.join(later)} is not in the port "

@@ -756,7 +756,7 @@ class ElmEngine(_TextCompletion):
 
 
 def elm_model(cfg, seed: int, quantize: Optional[str] = None,
-              device="cpu", lora: Optional[str] = None):
+              device="cuda", lora: Optional[str] = None):
     """An OpenELM of `cfg` with random weights drawn from `seed` (the JAX
     init's distributions) on `device` (so a card draws its own numbers,
     in a fraction of the CPU's time), computing in bf16: its projections

@@ -82,37 +82,114 @@ def init_lora(base: Tensors, *, rank: int = 16,
     return out
 
 
-def merge_lora(base: Tensors, adapter: Tensors, *, alpha: float = 32.0,
-               rank: int = 16) -> Tensors:
-    """base + (alpha / rank) * B @ A at every adapted weight, base + delta
-    at every full leaf; every other tensor of base as it is.
+def lora_deltas(adapter: Tensors, dtypes: Dict[str, torch.dtype], *,
+                alpha: float = 32.0, rank: int = 16) -> Tensors:
+    """{weight name: the term the merge adds to it}: (alpha / rank) x B @ A
+    in the weight's dtype at an adapted weight, the delta at a full leaf.
     Differentiable in the adapter."""
     scale = alpha / rank
-    out = dict(base)
+    out = {}
     for key, value in adapter.items():
         kind, _, name = key.partition(".")
         if kind == "lora":
             name, _, ab = name.rpartition(".")
             if ab != "A":
                 continue
-            w = base[name]
             delta = adapter[f"lora.{name}.B"] @ value
-            out[name] = (w + scale * delta.to(w.dtype)).to(w.dtype)
+            out[name] = scale * delta.to(dtypes[name])
         elif kind == "full":
-            out[name] = base[name] + value.to(base[name].dtype)
+            out[name] = value.to(dtypes[name])
         else:
             raise KeyError(f"not an adapter tensor: {key!r}")
     return out
 
 
-def lora_param_map(base: Tensors, *, alpha: float, rank: int):
-    """fn(adapter) -> the full parameters, the base held constant (its
-    tensors detached): the train step's ``param_map``."""
-    frozen = {k: v.detach() for k, v in base.items()}
+def merge_lora(base: Tensors, adapter: Tensors, *, alpha: float = 32.0,
+               rank: int = 16) -> Tensors:
+    """base + (alpha / rank) * B @ A at every adapted weight, base + delta
+    at every full leaf; every other tensor of base as it is.
+    Differentiable in the adapter."""
+    out = dict(base)
+    for name, term in lora_deltas(adapter, {k: v.dtype for k, v in
+                                            base.items()},
+                                  alpha=alpha, rank=rank).items():
+        out[name] = (base[name] + term).to(base[name].dtype)
+    return out
 
-    def pmap(adapter):
-        return merge_lora(frozen, adapter, alpha=alpha, rank=rank)
-    return pmap
+
+class LoraParamMap:
+    """fn(adapter) -> the full parameters, the base held constant (its
+    tensors detached): the train step's ``param_map``.
+
+    On a device mesh (``bind``, after ``parallel/mesh.py::
+    params_shardings`` laid the base out) the map keeps only the rank's
+    part of each adapted weight of the base: the FSDP2 shard's rows, a
+    tensor rank's heads, a pp stage's blocks (``MeshShards.scatter`` of
+    the whole delta). ``write(adapter)`` puts base + delta into the
+    model's own parameters there, in place, and returns the rank's parts
+    of the deltas, differentiable in the adapter: the mesh step runs the
+    model with its own parameters (FSDP2 all-gathers the merged shards),
+    and the adapted weights, the only base parameters that take gradients
+    on a mesh, give the adapter's gradient by the chain rule
+    (``training/train_state.py::_lora_mesh_grads``)."""
+
+    def __init__(self, base: Tensors, *, alpha: float, rank: int):
+        self.frozen: Optional[Tensors] = {k: v.detach()
+                                          for k, v in base.items()}
+        self.dtypes = {k: v.dtype for k, v in base.items()}
+        self.alpha, self.rank = alpha, rank
+        self.layout = self.shards = None
+        self.shard_dims: Dict[str, int] = {}
+        self._base: Tensors = {}
+        self._storage: Tensors = {}
+
+    def __call__(self, adapter: Tensors) -> Tensors:
+        if self.frozen is None:
+            raise ValueError("the map is bound to a mesh: it writes the "
+                             "merge into the model (write)")
+        return merge_lora(self.frozen, adapter, alpha=self.alpha,
+                          rank=self.rank)
+
+    def deltas(self, adapter: Tensors) -> Tensors:
+        return lora_deltas(adapter, self.dtypes, alpha=self.alpha,
+                           rank=self.rank)
+
+    @torch.no_grad()
+    def bind(self, model: torch.nn.Module, layout, adapter: Tensors) -> None:
+        """Keep the rank's part of each weight `adapter` adapts (the model
+        laid out on the mesh of `layout`, a MeshLayout), let only those
+        take gradients, and drop the whole base."""
+        shards = model.mesh_shards
+        named = dict(model.named_parameters())
+        for name in self.deltas({k: v.detach() for k, v in adapter.items()}):
+            if not shards.held(name, layout):
+                continue
+            p = named[name]
+            if hasattr(p, "to_local"):
+                self.shard_dims[name] = p.placements[-1].dim
+                self._storage[name] = p.to_local()
+            else:
+                self._storage[name] = p.data
+            self._base[name] = self._storage[name].detach().clone()
+        for name, p in named.items():
+            p.requires_grad_(name in self._storage)
+        self.frozen, self.layout, self.shards = None, layout, shards
+
+    def write(self, adapter: Tensors) -> Tensors:
+        """base + delta into the rank's part of each adapted weight; the
+        rank's parts of the deltas, by weight name."""
+        mine = self.shards.scatter(self.deltas(adapter), self.layout,
+                                   self.shard_dims)
+        with torch.no_grad():
+            for name, d in mine.items():
+                self._storage[name].copy_(self._base[name] + d)
+        return mine
+
+
+def lora_param_map(base: Tensors, *, alpha: float,
+                   rank: int) -> LoraParamMap:
+    """The train step's ``param_map`` over `base` (``LoraParamMap``)."""
+    return LoraParamMap(base, alpha=alpha, rank=rank)
 
 
 def lora_from_config(base: Tensors, model_cfg, seed: int) -> Tensors:

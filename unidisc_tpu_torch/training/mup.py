@@ -17,7 +17,8 @@ the mean |activation| across widths after one muP-scaled SGD step.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from dataclasses import replace
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -38,13 +39,18 @@ def mup_multiplier(leaf: Leaf, *, base_width: int, width: int) -> float:
     return base_width / width
 
 
-def mup_multipliers(params: Dict[str, torch.Tensor],
-                    config: Config) -> torch.Tensor:
+def mup_multipliers(params: Dict[str, torch.Tensor], config: Config,
+                    shapes: Optional[Dict[str, tuple]] = None
+                    ) -> torch.Tensor:
     """The flat fp32 multipliers of `params` (in their order) under
-    config.model's mup_base_width and hidden_size."""
+    config.model's mup_base_width and hidden_size. shapes: each leaf's
+    whole flax shape by key, where `params` are a mesh rank's parts
+    (``training/leaf_shards.py``): the rule reads the whole leaf."""
     m = config.model
     per_name = {}
     for leaf in ParamLayout(params).leaves:
+        if shapes is not None:
+            leaf = replace(leaf, shape=shapes[leaf.key])
         mult = mup_multiplier(leaf, base_width=m.mup_base_width,
                               width=m.hidden_size)
         for n in leaf.names:

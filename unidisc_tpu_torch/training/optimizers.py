@@ -36,6 +36,17 @@ tensors of each leaf's shape.
 With ``model.mup`` the final update of every parameter is multiplied by
 its muP LR multiplier (``training/mup.py``), as ``mup_lr_scale`` does at
 the end of the JAX chain.
+
+On a device mesh (``init(..., leaves=)``, a ``training/leaf_shards.py::
+LeafShards``) the parameters and the gradient are the rank's parts, the
+gradient's norm that of the whole (the train step's). The elementwise
+chains run on the parts as they are. The rules that read a whole leaf
+decide on its whole shape (Adafactor's factored dims, Muon's scale, muP's
+fan-in); Adafactor's moments, block RMS and parameter RMS are partial sums
+over the rank's part summed over the axes that split the leaf (its
+factored moments are the rank's parts of the row and column vectors);
+Muon gathers each momentum matrix whole over the axes that split its
+(in, out) dims, orthogonalizes it and keeps the rank's part.
 """
 
 from __future__ import annotations
@@ -186,6 +197,8 @@ class GenericOptState:
     buffers: Dict[str, torch.Tensor]
     layout: Optional[ParamLayout] = field(default=None, repr=False)
     mup: Optional[torch.Tensor] = None
+    # on a mesh: the splits of the rank's leaves (training/leaf_shards.py)
+    leaves: Optional[object] = field(default=None, repr=False)
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         return {**{f"count/{k}": v for k, v in self.counts.items()},
@@ -198,7 +211,8 @@ class GenericOptState:
             counts=self.counts,
             buffers={k: v[part] for k, v in self.buffers.items()},
             layout=self.layout,
-            mup=None if self.mup is None else self.mup[part])
+            mup=None if self.mup is None else self.mup[part],
+            leaves=self.leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -216,14 +230,17 @@ class _Clipped:
         self.max_norm = max_norm
         self.mup_config = mup
 
-    def _mup(self, params: Optional[Params], flat: torch.Tensor):
+    def _mup(self, params: Optional[Params], flat: torch.Tensor,
+             leaves=None):
         if self.mup_config is None:
             return None
         if params is None:
             raise ValueError("muP needs the parameters' names")
         from unidisc_tpu_torch.training.mup import mup_multipliers
-        return mup_multipliers(params, self.mup_config).to(flat.device,
-                                                           flat.dtype)
+        return mup_multipliers(
+            params, self.mup_config,
+            shapes=None if leaves is None else leaves.shapes).to(
+                flat.device, flat.dtype)
 
     # elementwise chains update the flat buffers SLICE elements at a time,
     # so their temporaries are a few slices, not a few copies of the model
@@ -291,15 +308,16 @@ class ClippedAdamW(_Clipped):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
 
-    def init(self, flat: torch.Tensor,
-             params: Optional[Params] = None) -> OptState:
+    def init(self, flat: torch.Tensor, params: Optional[Params] = None,
+             leaves=None) -> OptState:
         """The state for the flat parameter buffer `flat` (`params`: its
-        views by name, which muP needs)."""
+        views by name, which muP needs; `leaves`: their splits on a
+        mesh)."""
         return OptState(adam=AdamState(count=_count(flat.device),
                                        mu=torch.zeros_like(flat),
                                        nu=torch.zeros_like(flat)),
                         schedule_count=_count(flat.device),
-                        mup=self._mup(params, flat))
+                        mup=self._mup(params, flat, leaves))
 
     def update(self, p, g, state, params):
         b1, b2 = self.b1, self.b2
@@ -321,13 +339,14 @@ class _GenericChain(_Clipped):
     COUNTS = ()
     BUFFERS = ()
 
-    def init(self, flat: torch.Tensor,
-             params: Optional[Params] = None) -> GenericOptState:
+    def init(self, flat: torch.Tensor, params: Optional[Params] = None,
+             leaves=None) -> GenericOptState:
         layout = ParamLayout(params) if params is not None else None
         return GenericOptState(
             counts={k: _count(flat.device) for k in self.COUNTS},
             buffers={k: torch.zeros_like(flat) for k in self.BUFFERS},
-            layout=layout, mup=self._mup(params, flat))
+            layout=layout, mup=self._mup(params, flat, leaves),
+            leaves=leaves)
 
     @staticmethod
     def _inc(state, *names) -> dict:
@@ -386,6 +405,19 @@ class ClippedAdEMAMix(_GenericChain):
                                "schedule")}
 
 
+def _whole_shape(state: GenericOptState, leaf) -> tuple:
+    """A leaf's whole flax shape (its own off a mesh)."""
+    return leaf.shape if state.leaves is None else \
+        state.leaves.shapes[leaf.key]
+
+
+def _allsum(state: GenericOptState, t: torch.Tensor, key: str,
+            dims) -> torch.Tensor:
+    """A partial sum over flax `dims` of a leaf, summed over the ranks
+    that hold the rest of them (itself off a mesh)."""
+    return t if state.leaves is None else state.leaves.allsum(t, key, dims)
+
+
 def factored_dims(shape, min_dim: int = 128):
     """optax's ``_factored_dims``: the two largest axes (second largest,
     largest), when the second largest has at least `min_dim`."""
@@ -395,6 +427,18 @@ def factored_dims(shape, min_dim: int = 128):
     if shape[order[-2]] < min_dim:
         return None
     return int(order[-2]), int(order[-1])
+
+
+def buffer_dims(kind: str, whole_shape, min_dim: int = 128) -> tuple:
+    """The flax dims of its leaf that an Adafactor moment of `kind` ("v",
+    "v_row" or "v_col") has, in its order: v_row lacks the factored d0,
+    v_col d1 (``factored_dims`` of the leaf's whole shape)."""
+    dims = tuple(range(len(whole_shape)))
+    if kind == "v":
+        return dims
+    d1, d0 = factored_dims(whole_shape, min_dim)
+    drop = d0 if kind == "v_row" else d1
+    return tuple(d for d in dims if d != drop)
 
 
 class ClippedAdafactor(_GenericChain):
@@ -411,12 +455,12 @@ class ClippedAdafactor(_GenericChain):
         self.clip_threshold = clip_threshold
         self.min_param_scale = min_param_scale
 
-    def init(self, flat, params=None) -> GenericOptState:
+    def init(self, flat, params=None, leaves=None) -> GenericOptState:
         if params is None:
             raise ValueError("adafactor needs the parameters' names")
-        state = super().init(flat, params)
+        state = super().init(flat, params, leaves)
         for leaf in state.layout.leaves:
-            dims = factored_dims(leaf.shape, self.min_dim)
+            dims = factored_dims(_whole_shape(state, leaf), self.min_dim)
             if dims is None:
                 state.buffers[f"v/{leaf.key}"] = torch.zeros(
                     leaf.shape, dtype=flat.dtype, device=flat.device)
@@ -440,34 +484,43 @@ class ClippedAdafactor(_GenericChain):
         for leaf in layout.leaves:
             grad = layout.gather(gv, leaf)
             param = layout.gather(pv, leaf)
-            dims = factored_dims(leaf.shape, self.min_dim)
+            whole, key = _whole_shape(state, leaf), leaf.key
+            every = tuple(range(len(whole)))
+            dims = factored_dims(whole, self.min_dim)
             grad_sqr = grad * grad + self.eps
             decay_t = decay.to(grad.dtype)
             if dims is not None:
                 d1, d0 = dims
-                row = decay_t * buf[f"v_row/{leaf.key}"] \
-                    + (1.0 - decay_t) * grad_sqr.mean(d0)
-                col = decay_t * buf[f"v_col/{leaf.key}"] \
-                    + (1.0 - decay_t) * grad_sqr.mean(d1)
+                row = decay_t * buf[f"v_row/{key}"] + (1.0 - decay_t) \
+                    * _allsum(state, grad_sqr.sum(d0), key, (d0,)) \
+                    / whole[d0]
+                col = decay_t * buf[f"v_col/{key}"] + (1.0 - decay_t) \
+                    * _allsum(state, grad_sqr.sum(d1), key, (d1,)) \
+                    / whole[d1]
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = row.mean(reduced_d1, keepdim=True)
+                row_col_mean = _allsum(
+                    state, row.sum(reduced_d1, keepdim=True), key,
+                    (d1,)) / whole[d1]
                 row_factor = (row / row_col_mean) ** -0.5
                 col_factor = col ** -0.5
                 upd = grad * row_factor.unsqueeze(d0) \
                     * col_factor.unsqueeze(d1)
-                new[f"buffer/v_row/{leaf.key}"] = row
-                new[f"buffer/v_col/{leaf.key}"] = col
+                new[f"buffer/v_row/{key}"] = row
+                new[f"buffer/v_col/{key}"] = col
             else:
-                v = decay_t * buf[f"v/{leaf.key}"] + (1.0 - decay_t) * grad_sqr
+                v = decay_t * buf[f"v/{key}"] + (1.0 - decay_t) * grad_sqr
                 upd = grad * v ** -0.5
-                new[f"buffer/v/{leaf.key}"] = v
+                new[f"buffer/v/{key}"] = v
+            numel = float(math.prod(whole))
             # clip_by_block_rms
-            denom = torch.clamp(torch.sqrt(torch.mean(upd * upd))
-                                / self.clip_threshold, min=1.0)
+            denom = torch.clamp(torch.sqrt(
+                _allsum(state, torch.sum(upd * upd), key, every) / numel)
+                / self.clip_threshold, min=1.0)
             upd = upd / denom
             upd = lr.to(upd.dtype) * upd
             # scale_by_param_block_rms
-            rms = torch.sqrt(torch.mean(param * param))
+            rms = torch.sqrt(_allsum(state, torch.sum(param * param), key,
+                                     every) / numel)
             upd = upd * torch.where(rms <= self.min_param_scale,
                                     torch.full_like(rms,
                                                     self.min_param_scale),
@@ -517,11 +570,11 @@ class ClippedMuon(_GenericChain):
         self.b1, self.b2 = adam_b1, adam_b2
         self.weight_decay = weight_decay
 
-    def init(self, flat, params=None) -> GenericOptState:
+    def init(self, flat, params=None, leaves=None) -> GenericOptState:
         if params is None:
             raise ValueError("muon needs the parameters' names")
         from unidisc_tpu_torch.training.muon import muon_routes
-        state = super().init(flat, params)
+        state = super().init(flat, params, leaves)
         routes = muon_routes(state.layout)
         state.muon_leaves = [leaf for leaf in state.layout.leaves
                              if routes[leaf.key]]
@@ -557,9 +610,15 @@ class ClippedMuon(_GenericChain):
         hv, pv, uv = (flat_views(x, params) for x in (hat_m, p, u))
         lr_m = self.lr(state.counts["muon_schedule"], g.dtype)
         for leaf in state.muon_leaves:
-            o = newton_schulz(layout.gather(hv, leaf), self.ns_steps,
-                              self.eps)
-            k, n = leaf.shape[-2], leaf.shape[-1]
+            o = layout.gather(hv, leaf)
+            mat = tuple(range(o.dim()))
+            if state.leaves is not None:
+                # each (in, out) matrix whole over the axes that split it
+                o = state.leaves.gather(o, leaf.key, mat, mat[-2:])
+            o = newton_schulz(o, self.ns_steps, self.eps)
+            if state.leaves is not None:
+                o = state.leaves.take(o, leaf.key, mat, mat[-2:])
+            k, n = _whole_shape(state, leaf)[-2:]
             scale = torch.sqrt(torch.tensor(max(1.0, n / k),
                                             dtype=torch.float32))
             o = scale.to(o.device, o.dtype) * o

@@ -47,15 +47,22 @@ the whole global batch (``utils/dist.py::host_batch_to_global``) and
 computes everything before the model on it, draws included, so each rank
 sees the draws of the one-rank step. The model runs on the rank's rows
 (the "dcn" x "fsdp" axes) and, with a "seq" axis, its L-chunk under
-``parallel/seq_parallel.py`` (the attention a ring). The per-token log
-probabilities are gathered back into the global (B, L) tensor, so the loss
-and the metrics are the one-rank step's, normalized by global counts, on
-every rank. Under "pp" the DIT's blocks run as a GPipe pipeline over the
+``parallel/seq_parallel.py`` (the attention a ring), and returns the
+logits of the rank's block. Every objective takes its per-token quantity
+on that block against the global tensors cut to it (``_block``,
+``_rows``) and gathers it back into the global (B, L) tensor
+(``_gathered``): subs' log-probability, sedd's score entropy, d3pm's
+per-token loss, the AR-LLM and joint AR+NAR cross-entropy, and ``ar``'s
+next-token loss, whose targets are the whole sequence shifted by one
+before the cut (``next_token_targets``: under "seq" a chunk's last
+position predicts the next chunk's first token). So the loss and the
+metrics are the one-rank step's, normalized by global counts, on every
+rank. Under "pp" the DIT's blocks run as a GPipe pipeline over the
 rank's rows (``parallel/pipeline.py``), under "tensor" megatron-style,
-and under "ep" (or any data-parallel width) an MoE model routes over the
-global batch (``models/moe.py``). The gradient of a rank is then its part
-of the whole, summed over the axes whose ranks compute different parts
-of the loss (``_reduce_mesh_grads``): by FSDP2's reduce-scatter (an
+and under "ep" (or any data-parallel or "seq" width) an MoE model routes
+over the global batch (``models/moe.py``). The gradient of a rank is then
+its part of the whole, summed over the axes whose ranks compute different
+parts of the loss (``_mesh_grad_parts``): by FSDP2's reduce-scatter (an
 average over the data-parallel ranks, scaled back by their count) and a
 sum over "seq" for the FSDP-sharded parameters, by one all-reduce over
 the ("dcn", "fsdp", "seq") ranks for the rest; never over "tensor",
@@ -63,11 +70,18 @@ the ("dcn", "fsdp", "seq") ranks for the rest; never over "tensor",
 gradient, and the skip agrees on every rank, the loss being the same
 everywhere. The state (the moments, the EMA) is over the parameters the
 rank holds (its FSDP shards, its stage's blocks, its head shards and
-experts); ``state_dict`` gathers it whole (the one-rank checkpoint
-format) and ``load_state_dict`` takes the rank's part of a whole one, so
-a run dir resumes on one rank or on a mesh. On a mesh the step takes the
-``subs`` objective with AdamW (no muP, LoRA, joint AR+NAR or AR-LLM
-loss): the rest is ROADMAP queue 1, item 13. Under "pp" the MoE balance
+experts); the optimizers' rules that read a whole leaf run on those
+parts through ``training/leaf_shards.py`` (Adafactor's statistics as
+partial sums, Muon's matrices gathered, muP's whole shapes).
+``state_dict`` gathers the state whole (the one-rank checkpoint format,
+Adafactor's factored moments and the flat buffers included) and
+``load_state_dict`` takes the rank's part of a whole one, so a run dir
+resumes on one rank or on a mesh. With ``low_precision_params`` the
+parameters are bf16 before FSDP2 lays them out (``shard_train_step``).
+LoRA on a mesh: the base is laid out and frozen, the adapter whole on
+every rank, the merge written into each rank's part of the base
+(``training/lora.py::LoraParamMap``) and the adapter's gradient summed
+from the parts (``_lora_mesh_grads``). Under "pp" the MoE balance
 auxiliary is zero, as in JAX (the stage body does not carry it out).
 """
 
@@ -91,10 +105,11 @@ from unidisc_tpu_torch.diffusion.legacy import (d3pm_loss,
                                                 score_entropy,
                                                 sedd_parameterization)
 from unidisc_tpu_torch.diffusion.loss import (LossOutput, ar_llm_token_nll,
-                                              ar_loss, nelbo_loss,
+                                              ar_loss_from_nll, nelbo_loss,
                                               nelbo_weighting)
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.diffusion.subs import subs_log_p_at
+from unidisc_tpu_torch.training.leaf_shards import LeafShards
 from unidisc_tpu_torch.training.optimizers import (  # noqa: F401
     AdamState, ClippedAdamW, GenericOptState, OptState, flat_views,
     make_lr_schedule, make_optimizer)
@@ -169,7 +184,34 @@ class TrainState:
             if key in sd:
                 sd[key] = self.shards.gather(sd[key], self.mesh,
                                              self.shard_dims or {})
+        if "opt_state" in sd:
+            sd["opt_state"] = {k: self._opt_tensor(k, t, whole=True)
+                               for k, t in sd["opt_state"].items()}
         return sd
+
+    def _opt_tensor(self, name: str, t: torch.Tensor,
+                    whole: bool) -> torch.Tensor:
+        """On a mesh: an optimizer state tensor of the rank made whole
+        (whole=True), or the rank's part of a whole one. A flat buffer
+        goes by parameter (the one-rank order, ``shards.shapes``), a
+        factored moment by the splits of its flax leaf."""
+        from unidisc_tpu_torch.training.optimizers import buffer_dims
+        if t.dim() == 0:
+            return t
+        kind, _, key = name[len("buffer/"):].partition("/")
+        if key:
+            leaves = self.opt_state.leaves
+            dims = buffer_dims(kind, leaves.shapes[key])
+            return (leaves.gather if whole else leaves.take)(t, key, dims)
+        shard_dims = self.shard_dims or {}
+        if whole:
+            parts = self.shards.gather(flat_views(t, self.params), self.mesh,
+                                       shard_dims)
+            return flatten(parts[n] for n in self.shards.shapes)
+        views = flat_views(t, {n: torch.empty(s, device="meta")
+                               for n, s in self.shards.shapes.items()})
+        mine = self.shards.scatter(views, self.mesh, shard_dims)
+        return flatten(mine[n] for n in self.params)
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
@@ -184,6 +226,9 @@ class TrainState:
                         raise KeyError(f"{key}: missing {sorted(missing)}")
                     sd[key] = self.shards.scatter(sd[key], self.mesh,
                                                   self.shard_dims or {})
+            if "opt_state" in sd:
+                sd["opt_state"] = {k: self._opt_tensor(k, t, whole=False)
+                                   for k, t in sd["opt_state"].items()}
         self._load_local(sd)
         if self.shard_dims:
             # the parameters were written in place (FSDP's storage): the
@@ -266,9 +311,8 @@ def init_train_state(config: Config,
     if mesh is not None:
         shards = model.mesh_shards
     if mesh is not None and mesh.sharded:
-        if config.trainer.low_precision_params:
-            raise NotImplementedError("low_precision_params on an FSDP "
-                                      "mesh (ROADMAP queue 1, item 13)")
+        # low_precision_params: shard_train_step made the parameters bf16
+        # before FSDP2 laid them out
         params, shard_dims = {}, {}
         for name, p in model.named_parameters():
             if not shards.held(name, mesh):
@@ -279,11 +323,12 @@ def init_train_state(config: Config,
             else:
                 params[name] = p
         flat = flatten(params.values())
+        leaves = LeafShards(params, shards, mesh, shard_dims)
         return TrainState(step=torch.zeros((), dtype=torch.int64,
                                            device=flat.device),
                           params=params, flat=flat,
-                          opt_state=make_optimizer(config).init(flat,
-                                                                params),
+                          opt_state=make_optimizer(config).init(
+                              flat, params, leaves=leaves),
                           ema=flat.to(torch.float32, copy=True), mesh=mesh,
                           shard_dims=shard_dims, shards=shards)
     if mesh is not None:
@@ -299,10 +344,12 @@ def init_train_state(config: Config,
             if p.is_floating_point():
                 p.data = p.data.to(torch.bfloat16)
     flat = flat_parameters(params)
+    leaves = None if mesh is None else LeafShards(params, shards, mesh, {})
     return TrainState(step=torch.zeros((), dtype=torch.int64,
                                        device=flat.device),
                       params=params, flat=flat,
-                      opt_state=make_optimizer(config).init(flat, params),
+                      opt_state=make_optimizer(config).init(
+                          flat, params, leaves=leaves),
                       ema=flat.to(torch.float32, copy=True), mesh=mesh,
                       shards=shards)
 
@@ -311,12 +358,40 @@ def init_train_state(config: Config,
 # Loss
 # ---------------------------------------------------------------------------
 
+def _block(mesh, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The rank's block of a global (B, L, ...) tensor on a mesh (its rows
+    and its L-chunk, the block its logits cover); `x` itself on one
+    rank."""
+    return x if mesh is None or x is None else mesh.local(x)
+
+
+def _rows(mesh, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The rank's rows of a per-row (B, ...) tensor on a mesh."""
+    return x if mesh is None or x is None else mesh.rows(x)
+
+
+def _gathered(mesh, x: torch.Tensor) -> torch.Tensor:
+    """A per-token quantity of the rank's block back in the global (B, L)
+    tensor on every rank (differentiable); `x` itself on one rank."""
+    return x if mesh is None else mesh.gather_tokens(x)
+
+
+def next_token_targets(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """x (B, L) shifted left by one along the whole sequence, cut to the
+    rank's block: position i holds token i + 1, the last position its own
+    token (a target the loss drops). Under "seq" the last position of
+    chunk r so pairs with the first token of chunk r + 1."""
+    return _block(mesh, torch.cat([x[:, 1:], x[:, -1:]], 1))
+
+
 def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
                    attention_mask, extra, *, train, draws,
-                   generator) -> LossOutput:
+                   generator, mesh=None) -> LossOutput:
     """The ``ar`` parameterization: the optional row flip, ar_inpainting's
     [corrupted || clean] doubling or the modality dropout, then the
-    next-token loss over the shifted logits."""
+    next-token loss: the logits at position i against token i + 1, taken
+    per token on the logits' block (``next_token_targets``) and gathered,
+    the last position dropped."""
     t_cfg = config.trainer
     m_cfg = config.model
     b, dev = x0.shape[0], x0.device
@@ -384,12 +459,13 @@ def _ar_batch_loss(config: Config, apply_fn, params, x0, modality,
         attention_mask = torch.where(first, False, attention_mask)
     logits = apply_fn(params, x0, None, modality, train, **extra)
     restrict = m_cfg.force_argmax_valid_indices
-    return ar_loss(
-        logits[:, :-1], x0[:, 1:], m_cfg.mask_index,
-        attention_mask=None if attention_mask is None
-        else attention_mask[:, 1:],
-        modality=None if modality is None else modality[:, 1:],
-        text_vocab_size=m_cfg.text_vocab_size if restrict else None)
+    nll = _gathered(mesh, ar_llm_token_nll(
+        logits, next_token_targets(x0, mesh), m_cfg.mask_index,
+        modality=None if modality is None
+        else next_token_targets(modality, mesh),
+        text_vocab_size=m_cfg.text_vocab_size if restrict else None))
+    return ar_loss_from_nll(nll[:, :-1], None if attention_mask is None
+                            else attention_mask[:, 1:])
 
 
 def _legacy_loss(loss_tok, attention_mask) -> LossOutput:
@@ -502,7 +578,7 @@ def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
     if t_cfg.parameterization == "ar":
         return _ar_batch_loss(config, apply_fn, params, x0, modality,
                               attention_mask, extra, train=train,
-                              draws=draws, generator=generator)
+                              draws=draws, generator=generator, mesh=mesh)
 
     t = sample_t(b, antithetic=t_cfg.antithetic_sampling,
                  sampling_eps=t_cfg.sampling_eps,
@@ -555,30 +631,26 @@ def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
         xt = torch.where(joint_mask[:, None], x0, xt)
         batch_ignore = batch_ignore | joint_mask
 
+    # on a mesh the logits are the rank's block: each per-token quantity
+    # is taken on the block and gathered, so the loss below is the global
+    # one on every rank
     logits = apply_fn(params, xt, sigma, modality, train, **extra)
+    xt_b, x0_b = _block(mesh, xt), _block(mesh, x0)
     if t_cfg.parameterization == "sedd":
-        log_score = sedd_parameterization(logits.float(), corrupted.xt,
-                                          sigma)
-        ent = score_entropy(log_score, sigma, corrupted.xt, x0,
-                            m_cfg.mask_index)
+        xc_b, sigma_b = _block(mesh, corrupted.xt), _rows(mesh, sigma)
+        log_score = sedd_parameterization(logits.float(), xc_b, sigma_b)
+        ent = _gathered(mesh, score_entropy(log_score, sigma_b, xc_b, x0_b,
+                                            m_cfg.mask_index))
         return _legacy_loss(dsigma[:, None] * ent, attention_mask)
     if t_cfg.parameterization == "d3pm":
         log_p = d3pm_parameterization(logits.float())
-        return _legacy_loss(d3pm_loss(log_p, corrupted.xt, x0, t, T=1000,
-                                      mask_index=m_cfg.mask_index),
-                            attention_mask)
-    if mesh is None:
-        log_p_theta = subs_log_p_at(
-            logits, xt, x0, m_cfg.mask_index,
-            modality=modality if restrict else None,
-            text_vocab_size=m_cfg.text_vocab_size)
-    else:
-        # the rank's block of the (B, L) grid, gathered: the loss below
-        # is the global one on every rank
-        log_p_theta = mesh.gather_tokens(subs_log_p_at(
-            logits, mesh.local(xt), mesh.local(x0), m_cfg.mask_index,
-            modality=mesh.local(modality) if restrict else None,
-            text_vocab_size=m_cfg.text_vocab_size))
+        return _legacy_loss(_gathered(mesh, d3pm_loss(
+            log_p, _block(mesh, corrupted.xt), x0_b, _rows(mesh, t), T=1000,
+            mask_index=m_cfg.mask_index)), attention_mask)
+    log_p_theta = _gathered(mesh, subs_log_p_at(
+        logits, xt_b, x0_b, m_cfg.mask_index,
+        modality=_block(mesh, modality) if restrict else None,
+        text_vocab_size=m_cfg.text_vocab_size))
     out = nelbo_loss(
         log_p_theta, x0, sigma, dsigma, attention_mask=attention_mask,
         modality=modality, batch_ignore=batch_ignore, cov_weight=cov_weight,
@@ -590,10 +662,10 @@ def _batch_loss(config: Config, apply_fn, params, batch, *, train, step,
         else t_cfg.img_loss_weight)
 
     if joint_mask is not None or t_cfg.ar_llm_loss:
-        ar_tok = ar_llm_token_nll(
-            logits.float(), x0, m_cfg.mask_index,
-            modality=modality if restrict else None,
-            text_vocab_size=m_cfg.text_vocab_size)
+        ar_tok = _gathered(mesh, ar_llm_token_nll(
+            logits.float(), x0_b, m_cfg.mask_index,
+            modality=_block(mesh, modality) if restrict else None,
+            text_vocab_size=m_cfg.text_vocab_size))
         attn = attention_mask if attention_mask is not None else \
             torch.ones(x0.shape, dtype=torch.bool, device=dev)
         if joint_mask is not None:
@@ -648,20 +720,15 @@ def _chunks(batch: dict, accum: int) -> List[dict]:
 
 
 def check_mesh_step(config: Config, param_map=None) -> None:
-    """Raise for what the mesh step does not take (module docstring)."""
-    t, m = config.trainer, config.model
-    later = [what for what, bad in (
-        (f"parameterization={t.parameterization!r}",
-         t.parameterization != "subs"),
-        (f"optimizer={t.optimizer!r}", t.optimizer != "adamw"),
-        ("model.mup", m.mup), ("LoRA", param_map is not None),
-        ("joint_ar_nar_prob", t.joint_ar_nar_prob is not None),
-        ("ar_llm_loss", t.ar_llm_loss),
-        ("dropout with img_cond", m.dropout > 0 and m.img_cond)) if bad]
-    if later:
-        raise NotImplementedError(
-            f"the train step on a mesh takes the subs objective with AdamW; "
-            f"{', '.join(later)} on a mesh is ROADMAP queue 1, item 13")
+    """Raise for what the mesh step cannot take. The step takes every
+    objective, optimizer and mode of the one-rank step; a param_map must
+    say how it changes the model's parameters (the LoRA map,
+    ``training/lora.py::LoraParamMap``: the merge is written into each
+    rank's part of the base)."""
+    if param_map is not None and not hasattr(param_map, "bind"):
+        raise ValueError("a param_map on a mesh must be a training/lora.py::"
+                         "LoraParamMap (its additive delta is laid out as "
+                         "the base is)")
 
 
 def mesh_apply_fn(config: Config, model: nn.Module, mesh):
@@ -670,22 +737,35 @@ def mesh_apply_fn(config: Config, model: nn.Module, mesh):
     attention a ring) and returns the logits of the rank's block. Dropout
     masks are the global draw's slice: a seed draws each block's global
     masks (``models/dit.py::dropout_masks``, the one-rank draw) and keeps
-    the rank's block; given masks are sliced."""
+    the rank's block; an img_cond trunk block's masks are (B, Lc, D), of
+    which the rank keeps its rows (the trunk is not L-sharded); given masks
+    are sliced alike."""
     from unidisc_tpu_torch.models.dit import block_dropout_seed, dropout_masks
     from unidisc_tpu_torch.parallel.pipeline import pipeline_parallel
     from unidisc_tpu_torch.parallel.seq_parallel import sequence_parallel
     base = make_apply_fn(config, model)
+    m_cfg = config.model
+    n_main = len(model.blocks)
 
     def apply_fn(params, x, sigma, modality, train, **extra):
         drop = extra.pop("dropout", None)
+        cross = m_cfg.img_cond and extra.get("x_cond") is not None
         if isinstance(drop, int):
-            shape = tuple(x.shape) + (config.model.hidden_size,)
-            drop = [dropout_masks(shape, config.model.dropout,
-                                  block_dropout_seed(drop, i), x.device)
-                    for i in range(len(model.blocks))]
+            seed, d = drop, m_cfg.hidden_size
+            drop = [dropout_masks(tuple(x.shape) + (d,), m_cfg.dropout,
+                                  block_dropout_seed(seed, i), x.device,
+                                  3 if cross else 2) for i in range(n_main)]
+            if cross:
+                shape = tuple(extra["x_cond"].shape) + (d,)
+                drop += [dropout_masks(shape, m_cfg.dropout,
+                                       block_dropout_seed(seed, n_main + j),
+                                       x.device)
+                         for j in range(len(model.img_cond_blocks))]
         if drop is not None:
-            extra["dropout"] = [tuple(mesh.local(k).contiguous()
-                                      for k in masks) for masks in drop]
+            extra["dropout"] = [
+                tuple((mesh.local(k) if i < n_main else mesh.rows(k))
+                      .contiguous() for k in masks)
+                for i, masks in enumerate(drop)]
         for k in ("sample_ids", "rope_index", "x_cond"):
             if k in extra:
                 extra[k] = mesh.rows(extra[k])
@@ -696,62 +776,109 @@ def mesh_apply_fn(config: Config, model: nn.Module, mesh):
     return apply_fn
 
 
-@torch.no_grad()
-def _reduce_mesh_grads(state: TrainState, model: nn.Module):
-    """The rank's flat gradient of the whole loss, in the order of
-    state.params, and the norm of the whole gradient.
-
-    A gradient is summed over the axes whose ranks compute different parts
-    of the loss, the data-parallel rows and the "seq" chunks: FSDP2 has
-    averaged the sharded parameters' over the data-parallel ranks (scaled
-    back to a sum, then summed over "seq"); the rest are summed over the
-    ("dcn", "fsdp", "seq") ranks. It is not summed over "tensor", "pp" or
-    "ep", whose ranks hold the same rows: where such a rank computes a
-    part of a parameter's gradient (a column-parallel input, a pipeline's
-    input, the MoE exchange), the model's ``comm.copy_to`` has summed it
-    already, and the parameters they split are each rank's own. The norm
-    counts each parameter's elements once: on the ranks at index 0 of
-    every axis that does not split it."""
-    import torch.distributed as dist
-
-    from unidisc_tpu_torch.parallel.comm import all_reduce
+def _counted(name: str, mesh, shards, shard_dims) -> bool:
+    """Whether this rank counts its part of parameter `name` once over the
+    world: it is at index 0 of every axis that does not split the
+    parameter (the ranks of such an axis hold the same part)."""
     from unidisc_tpu_torch.parallel.mesh import AXES
-    mesh, shards = state.mesh, state.shards
-    named = dict(model.named_parameters())
-    shard_dims = state.shard_dims or {}
+    split = {"fsdp"} if name in shard_dims else set()
+    if name in shards.parts:
+        split.add(shards.parts[name].axis)
+    if name in shards.stage_of:
+        split.add("pp")
     coord = {"dcn": mesh.dp_rank // mesh.sizes["fsdp"],
              "fsdp": mesh.fsdp_rank, "tensor": mesh.tensor.rank,
              "seq": mesh.seq_rank, "pp": mesh.pp.rank, "ep": mesh.ep.rank}
+    return all(coord[a] == 0 for a in AXES if a not in split)
 
-    def counted(n):
-        split = {"fsdp"} if n in shard_dims else set()
-        if n in shards.parts:
-            split.add(shards.parts[n].axis)
-        if n in shards.stage_of:
-            split.add("pp")
-        return all(coord[a] == 0 for a in AXES if a not in split)
+
+@torch.no_grad()
+def _mesh_grad_parts(model: nn.Module, names: Sequence[str], mesh,
+                     shard_dims: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """The rank's gradient of the whole loss for each of `names` (model
+    parameters the rank holds), summed over the axes whose ranks compute
+    different parts of the loss, the data-parallel rows and the "seq"
+    chunks: FSDP2 has averaged the sharded parameters' over the
+    data-parallel ranks (scaled back to a sum, then summed over "seq");
+    the rest are summed over the ("dcn", "fsdp", "seq") ranks. It is not
+    summed over "tensor", "pp" or "ep", whose ranks hold the same rows:
+    where such a rank computes a part of a parameter's gradient (a
+    column-parallel input, a pipeline's input, the MoE exchange), the
+    model's ``comm.copy_to`` has summed it already, and the parameters
+    they split are each rank's own."""
+    from unidisc_tpu_torch.parallel.comm import all_reduce
+    named = dict(model.named_parameters())
 
     def grad(n):
         g = named[n].grad
         if g is None:
-            return torch.zeros_like(state.params[n])
+            p = named[n]
+            return torch.zeros_like(p.to_local() if n in shard_dims else p)
         return g.to_local() * mesh.dp_size if n in shard_dims else g
 
-    names = list(state.params)
-    is_sharded = [n in shard_dims for n in names]
+    grads = {n: grad(n) for n in names}
     parts = {}
     for sh, group in ((True, mesh.seq_group), (False, mesh.grad_group)):
-        mine = [n for n, s in zip(names, is_sharded) if s == sh]
+        mine = [n for n in names if (n in shard_dims) == sh]
         if mine:
-            flat = all_reduce(flatten([grad(n) for n in mine]), group)
-            parts.update(zip(mine, flat.split(
-                [state.params[n].numel() for n in mine])))
+            flat = all_reduce(flatten([grads[n] for n in mine]), group)
+            for n, t in zip(mine, flat.split([grads[n].numel()
+                                              for n in mine])):
+                parts[n] = t.view_as(grads[n])
+    return {n: parts[n] for n in names}
+
+
+@torch.no_grad()
+def _reduce_mesh_grads(state: TrainState, model: nn.Module):
+    """The rank's flat gradient of the whole loss, in the order of
+    state.params (``_mesh_grad_parts``), and the norm of the whole
+    gradient: it counts each parameter's elements once, on the ranks at
+    index 0 of every axis that does not split it (``_counted``)."""
+    import torch.distributed as dist
+
+    from unidisc_tpu_torch.parallel.comm import all_reduce
+    mesh, shards = state.mesh, state.shards
+    shard_dims = state.shard_dims or {}
+    names = list(state.params)
+    parts = _mesh_grad_parts(model, names, mesh, shard_dims)
     sq = torch.zeros((), dtype=torch.float32, device=state.flat.device)
     for n in names:
-        if counted(n):
+        if _counted(n, mesh, shards, shard_dims):
             sq = sq + parts[n].float().square().sum()
     sq = all_reduce(sq, dist.group.WORLD)
-    return torch.cat([parts[n] for n in names]), torch.sqrt(sq)
+    return torch.cat([parts[n].reshape(-1) for n in names]), torch.sqrt(sq)
+
+
+def _lora_mesh_grads(state: TrainState, model: nn.Module, param_map,
+                     deltas: Dict[str, torch.Tensor], mesh) -> torch.Tensor:
+    """The flat gradient of the adapter (state.params, whole on every
+    rank) from a mesh backward through the merged base. Each rank holds
+    its part of every merged weight (``LoraParamMap.write``), so the
+    chain rule from its part of the weight's gradient (``_mesh_grad_parts``)
+    to the adapter gives the rank's part of the adapter's gradient; the
+    parts are summed over the world, each counted once (``_counted``).
+    So, unlike ``_reduce_mesh_grads``, the sum runs over "tensor" and
+    "pp" too: a tensor rank's split delta (its heads' rows of B @ A) and
+    a pp stage's blocks give only a part of the adapter's gradient, where a
+    parameter those axes split is each rank's own. The sum is the
+    gradient of the one-rank step on every rank."""
+    import torch.distributed as dist
+
+    from unidisc_tpu_torch.parallel.comm import all_reduce
+    shards, shard_dims = model.mesh_shards, param_map.shard_dims
+    parts = _mesh_grad_parts(model, list(deltas), mesh, shard_dims)
+    mine = [n for n in deltas if _counted(n, mesh, shards, shard_dims)]
+    adapter = list(state.params.values())
+    grads = [None] * len(adapter)
+    if mine:
+        grads = torch.autograd.grad(
+            [deltas[n] for n in mine],
+            adapter, grad_outputs=[parts[n].view_as(deltas[n])
+                                   .to(deltas[n].dtype) for n in mine],
+            allow_unused=True)
+    flat = flatten(torch.zeros_like(p) if g is None else g
+                   for p, g in zip(adapter, grads))
+    return all_reduce(flat, dist.group.WORLD)
 
 
 def make_train_step(config: Config, model: nn.Module, param_map=None,
@@ -765,7 +892,10 @@ def make_train_step(config: Config, model: nn.Module, param_map=None,
 
     param_map: fn(state.params) -> the parameters the model runs with
     (the LoRA merge, ``training/lora.py``): state.params are then the
-    adapter's and only they get gradients.
+    adapter's and only they get gradients. On a mesh the LoRA map writes
+    each rank's part of the merged weights into the model before the
+    forward (``LoraParamMap.write``) and the adapter's gradient comes from
+    theirs (``_lora_mesh_grads``).
 
     mesh: the rank's MeshLayout (module docstring); every rank calls the
     step with the same global batch and draws."""
@@ -777,9 +907,12 @@ def make_train_step(config: Config, model: nn.Module, param_map=None,
         apply_fn = make_apply_fn(config, model)
     ema_decay = config.trainer.ema_decay
     accum = config.trainer.grad_accum_steps
+    # on a mesh the model runs with its own parameters: the LoRA merge is
+    # written into them
+    maps = param_map is not None and mesh is None
 
     def grads_of(state, batch, generator, draws, micro=0):
-        run_with = None if param_map is None else param_map(state.params)
+        run_with = param_map(state.params) if maps else None
         out = compute_batch_loss(config, apply_fn, run_with, batch,
                                  train=True, step=state.step,
                                  generator=generator, draws=draws,
@@ -795,8 +928,11 @@ def make_train_step(config: Config, model: nn.Module, param_map=None,
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    draws: Union[Draws, Sequence[Draws]] = None):
+        deltas = None
         if mesh is not None:
             model.zero_grad(set_to_none=True)
+            if param_map is not None:
+                deltas = param_map.write(state.params)
         if accum > 1:
             micro = _chunks(batch, accum)
             per = draws if draws is not None else [None] * accum
@@ -819,7 +955,11 @@ def make_train_step(config: Config, model: nn.Module, param_map=None,
             out, grads = grads_of(state, batch, generator, draws)
             loss = out.loss.detach()
         g_norm = None
-        if mesh is not None:
+        if deltas is not None:
+            grads = _lora_mesh_grads(state, model, param_map, deltas, mesh)
+            if accum > 1:
+                grads = grads / accum
+        elif mesh is not None:
             grads, g_norm = _reduce_mesh_grads(state, model)
             if accum > 1:
                 grads, g_norm = grads / accum, g_norm / accum
@@ -841,16 +981,34 @@ def make_train_step(config: Config, model: nn.Module, param_map=None,
 
 
 def shard_train_step(config: Config, model: nn.Module, mesh,
-                     param_map=None):
+                     param_map=None, adapter=None):
     """The train step on a DeviceMesh (``parallel/mesh.py::make_mesh``):
     the model (on its device) laid out by the rule (FSDP2 where fsdp > 1),
     the train state over the rank's shards and the mesh step. Returns
     (train_step, state, the rank's MeshLayout), as JAX's shard_train_step
-    returns (the jitted step, the sharded state, the batch sharding)."""
+    returns (the jitted step, the sharded state, the batch sharding).
+
+    With low_precision_params the model's parameters become bf16 before
+    the layout (FSDP2 then shards bf16 parameters; the EMA stays fp32).
+    LoRA: `param_map` a ``training/lora.py::LoraParamMap`` over the model's
+    (whole) base and `adapter` its adapter (drawn from the whole base):
+    the base is laid out and frozen, the map bound to the rank's part of
+    it, and the state is the adapter's, whole on every rank."""
     from unidisc_tpu_torch.parallel.mesh import MeshLayout, params_shardings
     layout = MeshLayout.of(mesh)
-    params_shardings(model, mesh)
-    state = init_train_state(config, model, mesh=layout)
+    if config.trainer.low_precision_params:
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(torch.bfloat16)
+    params_shardings(model, mesh, layout)
+    if param_map is not None:
+        if adapter is None:
+            raise ValueError("LoRA on a mesh needs the adapter")
+        param_map.bind(model, layout, adapter)
+        state = init_train_state(config, adapter)
+    else:
+        state = init_train_state(config, model, mesh=layout)
     return (make_train_step(config, model, param_map, mesh=layout), state,
             layout)
 
@@ -861,9 +1019,10 @@ def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True,
     eval loss (no entire-modality masking), under no_grad, with the EMA
     parameters (or the live ones), through param_map when given. On a mesh
     (the rank's MeshLayout) the model runs as in the mesh step, the EMA
-    copied into its parameters for the call."""
+    copied into its parameters for the call (with LoRA, the merge of the
+    adapter's EMA written into the base)."""
     if mesh is not None:
-        return _mesh_eval_step(config, model, use_ema, mesh)
+        return _mesh_eval_step(config, model, use_ema, mesh, param_map)
     apply_fn = make_apply_fn(config, model)
 
     @torch.no_grad()
@@ -882,15 +1041,21 @@ def make_eval_step(config: Config, model: nn.Module, use_ema: bool = True,
     return eval_step
 
 
-def _mesh_eval_step(config: Config, model: nn.Module, use_ema: bool, mesh):
+def _mesh_eval_step(config: Config, model: nn.Module, use_ema: bool, mesh,
+                    param_map=None):
     apply_fn = mesh_apply_fn(config, model, mesh)
+    if param_map is not None:
+        check_mesh_step(config, param_map)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict,
                   generator: Optional[torch.Generator] = None,
                   draws: Draws = None) -> StepMetrics:
-        live = state.flat.clone() if use_ema else None
-        if use_ema:
+        if param_map is not None:
+            # the merge is written anew before every train step
+            param_map.write(state.ema_params if use_ema else state.params)
+        live = state.flat.clone() if use_ema and param_map is None else None
+        if live is not None:
             state.flat.copy_(state.ema.to(state.flat.dtype))
             if state.shard_dims:
                 state.sync_shards()
@@ -899,7 +1064,7 @@ def _mesh_eval_step(config: Config, model: nn.Module, use_ema: bool, mesh):
                                      train=False, generator=generator,
                                      draws=draws, mesh=mesh)
         finally:
-            if use_ema:
+            if live is not None:
                 state.flat.copy_(live)
                 if state.shard_dims:
                     state.sync_shards()

@@ -34,8 +34,11 @@ trains on one device and computes in bf16, as the JAX trainer does.
   r > 0 ``metrics.rank<r>.jsonl``. The start prints the parameters'
   ``param_hash``. fsdp > 1 on the card takes NCCL (a card per rank):
   FSDP2's collectives move device tensors, which a gloo group of ranks
-  sharing one card cannot. Host offload and LoRA on a mesh raise (ROADMAP
-  queue 1, item 13).
+  sharing one card cannot. LoRA on a mesh lays the frozen base out as the
+  model is and keeps the adapter whole on every rank
+  (``train_state.py::shard_train_step``); rank 0 writes
+  ``lora_adapter.npz``, the file of the one-rank run. Host offload is a
+  single-device mode, as in JAX: on a mesh it raises a ``ValueError``.
 
 wandb raises.
 """
@@ -177,8 +180,13 @@ class Trainer:
                              "base of a LoRA run (model.lora_rank > 0)")
         if self.layout is not None:
             self.model = model.to(self.device)
+            adapter = None
+            if m_cfg.lora_rank > 0:
+                # drawn from the whole base, then the base is laid out
+                adapter = self._lora_init(base_params, base_checkpoint)
             self.train_step, self.state, _ = shard_train_step(
-                config, self.model, self.mesh)
+                config, self.model, self.mesh, param_map=self.param_map,
+                adapter=adapter)
         elif self.host_offload:
             from unidisc_tpu_torch.training.offload import (
                 init_offload_state, make_offload_train_step)
@@ -227,15 +235,13 @@ class Trainer:
             mesh = make_mesh(config.mesh)
         if mesh is None:
             return None, None
+        if config.trainer.host_offload_optimizer:
+            # as the JAX Trainer asserts
+            raise ValueError("host_offload_optimizer is a single-device "
+                             "mode; use the FSDP mesh for multi-chip memory "
+                             "scaling")
         from unidisc_tpu_torch.parallel.mesh import MeshLayout
-        from unidisc_tpu_torch.training.train_state import check_mesh_step
         layout = MeshLayout.of(mesh)
-        t_cfg = config.trainer
-        if t_cfg.host_offload_optimizer or config.model.lora_rank > 0:
-            raise NotImplementedError("host offload and LoRA on a mesh are "
-                                      "not in the port yet (ROADMAP queue "
-                                      "1, item 13)")
-        check_mesh_step(config)
         if layout.sharded and self.device.type == "cuda" \
                 and torch.distributed.get_backend() != "nccl":
             raise ValueError("fsdp > 1 on the card needs NCCL, a card per "
@@ -419,9 +425,12 @@ class Trainer:
             if self._lora_base_checkpoint:
                 extra["lora_base_checkpoint"] = self._lora_base_checkpoint
             from unidisc_tpu_torch.training.lora import save_lora
-            save_lora(f"{self.run_dir}/lora_adapter.npz", self.state.params,
-                      alpha=self.config.model.lora_alpha,
-                      rank=self.config.model.lora_rank)
+            if udist.is_main_process():
+                # on a mesh the adapter is whole on every rank
+                save_lora(f"{self.run_dir}/lora_adapter.npz",
+                          self.state.params,
+                          alpha=self.config.model.lora_alpha,
+                          rank=self.config.model.lora_rank)
         if self.ckpt.save(step, self.state, self.config, extra=extra,
                           force=force, write=udist.is_main_process()):
             self._last_saved = step
