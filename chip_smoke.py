@@ -111,7 +111,7 @@ and prints no result):
      batcher's in fp64, with the acceptance rate and tokens a target
      read;
      (b) the flagship DIT-AR (FLAGSHIP_OVERRIDES + parameterization ar,
-     causal, ar_shift; L 384; 4 of its 12 blocks) in bf16 and int8 with
+     causal, ar_shift; L 384; 2 of its 12 blocks) in bf16 and int8 with
      the int8 KV cache:
      build_ar_sampler at batch 8 with CFG 2.0 as its captured program
      (equal to the eager loop, launches exact) and the same 16 requests
@@ -185,17 +185,17 @@ and prints no result):
      Trainer.fit with dropout 0.1 under remat "dots" (the loss of the
      batch under fixed draws falls); (c) Lion, AdEMAMix, Adafactor, Muon
      and AdamW + muP: one full-width update (2 blocks) on the card
-     against the CPU from the same parameters and gradients, then, on 6
+     against the CPU from the same parameters and gradients, then, on 4
      of the flagship's 12 blocks, 10 steps each through train.main (the
      loss under fixed draws falls), Adafactor checkpointed at 5 and a run
      resumed from it with the straight run's losses; (d)
      LoRA r16 over phase 5's run dir (base_checkpoint), 10 steps through
      Trainer.fit: the base bit-equal, the run dir served by
      build_engine(checkpoint=) as base + EMA adapter, 8 t2i requests as in
-     phase 4; (e) host offload, on 6 of the flagship's blocks: chunked (8)
+     phase 4; (e) host offload, on 4 of the flagship's blocks: chunked (8)
      = unchunked (1) and working = bf16(master) after 2 steps on the card,
      10 steps through Trainer.fit and its run dir served as in (d);
-     extra_large at its width with 12 of its 24 blocks (XL_DEPTH) at
+     extra_large at its width with 8 of its 24 blocks (XL_DEPTH) at
      batch 16, XL_STEPS steps each resident, resident with remat and
      offloaded with remat
      (peak memory and step time); (f) CFG distillation (guidance 2.0) of a
@@ -203,7 +203,9 @@ and prints no result):
      forward at batch 64 through the kernel), 10 steps, the KL falls; (g)
      the supervisor CLI over train.main (batch 8, 4 blocks): SIGTERM to
      the child after its 4th step, the child checkpoints and exits 143,
-     is relaunched, resumes and finishes. Lines `remat`, `optimizers`,
+     is relaunched, resumes and finishes (on a thread while the mesh
+     world of 5h-5l runs: it waits on its child processes, line
+     `supervised`). Lines `remat`, `optimizers`,
      `train_rest` (step s, tok/s and peak GB a path) and `offload`.
   5e. interleaved documents end to end, at the flagship width with the
      interleaved experiment (L 1024: 128 text rope rows and one 16 x 16
@@ -389,6 +391,34 @@ and prints no result):
      needs NCCL and a card per rank), so bf16 parameters under FSDP and
      every fsdp mesh are held by the CPU tests only. Line `mesh3`; the
      kernels line counts the paths mesh3_*, summed over the ranks.
+  5l. rolling admission and AR decoding in a mesh engine (in 5h's world,
+     after 5k's work), at the flagship width with the depth cut to
+     MESH2_BLOCKS, each engine led by rank 0 while the other ranks replay
+     its batchers' ops, each against the one-rank engine rank 0 runs
+     after it on the same weights and seeds, within MESH4_LIMITS (set
+     from sound and planted-fault readings of scripts/mesh2_readings.py
+     --runs 5l): (a) build_engine(mesh=MESH4_SPEC, rolling=8) (4 slots a
+     data-parallel rank) serving MESH4_ROLLING requests (8 t2i, 2
+     captions, 2 infills) through run_batch, arriving MESH4_GAP_S apart
+     with MESH4_STEPS mixed, every rank's rolling chunks captured, the
+     generated image ids and caption text agreeing >=
+     MESH_TOKEN_AGREEMENT; then the 8 t2i requests at 8 steps at once in
+     fp32 through the plain attention, equal token for token; (b) (a)'s
+     four 8-step t2i requests on MESH4_PP_SPEC, eager chunks, bf16 >=
+     MESH4_PP_AGREEMENT; (c) the DIT-AR of phase 4g at MESH2_BLOCKS on
+     MESH4_SPEC, 8 streamed greedy completions (prompts of 16-256
+     tokens, two sharing MESH4_AR_SHARED): bf16 (build_engine) agreeing
+     >= MESH4_AR_AGREEMENT (bf16 near ties flip), then in fp64 (its K/V
+     cache bf16, as served) plain and with prompt lookup (2-grams) equal
+     token for token; the decode chunk captured on every rank, the
+     streams equal to the tokens, the prefix cache hit. A request
+     unanswered after MESH4_WAIT_S counts wrong. Every rank's launches
+     equal the code's count (the rolling programs' warm run and replays,
+     the eager chunks; none through the plain attention, the DIT-AR's
+     cached attention among them). Line `mesh4` (each path's readings
+     and seconds, per-request p50 / p95, chunks, harvests and row reads,
+     drains, prefix hits, the ops each follower replayed, the card); the
+     kernels line counts the bf16 paths mesh4_*, summed over the ranks.
   6. print the kernels line, the card line and the result line.
 
 The full record is written to --out as JSON. Numbers are measured on the
@@ -2872,8 +2902,8 @@ AR_SAMPLER_CHUNK = 16           # decode steps a replay of the AR sampler
 AR_SAMPLER_PROMPT = 32          # prompt tokens of its 8 text rows
 AR_OVERRIDES = {"trainer.parameterization": "ar", "trainer.ar_shift": True,
                 "model.full_attention": False}
-# the DIT-AR served in phase 4g: the flagship's width, 4 of its 12 blocks
-AR_DIT_DEPTH = {"model.n_blocks": 4}
+# the DIT-AR served in phase 4g: the flagship's width, 2 of its 12 blocks
+AR_DIT_DEPTH = {"model.n_blocks": 2}
 # the counted runs of phase 4g
 AR_PATHS = ("ar_elm_bf16", "ar_elm_int8", "ar_http", "ar_spec_draft",
             "ar_spec_lookup", "ar_dit_sampler_bf16", "ar_dit_bf16",
@@ -4376,13 +4406,13 @@ REST_CKPT = 5
 REMAT_POLICIES = ("none", "dots", "dots_all")
 REST_DROPOUT = 0.1
 XL_BATCH, XL_STEPS = 16, 2   # the first step warms up
-# extra_large's width, 12 of its 24 blocks (0.7B parameters: its host
-# buffers, copies and inits are most of phase 5d's offload part)
-XL_DEPTH = {"model.n_blocks": 12}
+# extra_large's width, 8 of its 24 blocks (its host buffers, copies and
+# inits are most of phase 5d's offload part)
+XL_DEPTH = {"model.n_blocks": 8}
 SUP_BATCH, SUP_STEPS, SUP_SIGNAL_AFTER, SUP_BLOCKS = 8, 16, 4, 4
-# the optimizer runs and the flagship's offload runs: its width, 6 of its
+# the optimizer runs and the flagship's offload runs: its width, 4 of its
 # 12 blocks
-REST_DEPTH = {"model.n_blocks": 6}
+REST_DEPTH = {"model.n_blocks": 4}
 # the one update of each optimizer on the card against the CPU: its width,
 # 2 blocks (the CPU's update is host time; every leaf kind is there)
 UPDATE_CHECK_DEPTH = {"model.n_blocks": 2}
@@ -4996,8 +5026,7 @@ def phase_train_rest(seed, root, base_run) -> dict:
                           ("optimizers", phase_optimizers, (seed, root)),
                           ("lora", phase_lora, (seed, root, base_run)),
                           ("distill", phase_distill, (seed, root, base_run)),
-                          ("offload", phase_offload, (seed, root)),
-                          ("supervised", phase_supervised, (root,))):
+                          ("offload", phase_offload, (seed, root))):
         t = time.perf_counter()
         rec[key] = fn(*args)
         free()
@@ -7037,10 +7066,12 @@ def world_rank(rank, world, work, timeout, parts):
     dist.destroy_process_group()
 
 
-def spawn_world(parts, timeout, label):
+def spawn_world(parts, timeout, label, during=None):
     """world_rank(rank, MESH_RANKS, work, timeout, parts) on MESH_RANKS
-    spawned processes sharing card 0; their records by rank. A rank that
-    fails, or a world past `timeout` s, fails the phase `label`: the
+    spawned processes sharing card 0; their records by rank. `during`:
+    work this process does on the card while the ranks run (the one-rank
+    references of their phases), its result in `during.result`. A rank
+    that fails, or a world past `timeout` s, fails the phase `label`: the
     other ranks are stopped."""
     import torch.multiprocessing as mp
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
@@ -7052,6 +7083,8 @@ def spawn_world(parts, timeout, label):
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
+        if during is not None:
+            during.result = during()
         while any(p.is_alive() for p in procs):
             bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
             if bad or time.monotonic() > deadline:
@@ -7573,22 +7606,30 @@ def mesh3_world(seed, runs=MESH3_PATHS, plain=False):
 
 
 def mesh_worlds(seed) -> dict:
-    """Phases 5h, 5i and 5k on one world of MESH_RANKS spawned ranks (one
-    start-up of the ranks, not three): each phase's records by rank, each
-    part's seconds on rank 0 (after a barrier) and the world's seconds."""
+    """Phases 5h, 5i, 5k and 5l on one world of MESH_RANKS spawned ranks
+    (one start-up of the ranks, not four), 5l's one-rank references made
+    in this process meanwhile: each phase's records by rank, the
+    references, each part's seconds on rank 0 (after a barrier) and the
+    world's seconds."""
     t0 = time.perf_counter()
+    during = mesh4_during(seed)
     recs = spawn_world((("5h", mesh_rank_work, (seed,)),
                         ("5i", mesh2_rank_work, (seed,)),
-                        ("5k", mesh3_rank_work, (seed,))),
-                       MESH_TIMEOUT_S + MESH2_TIMEOUT_S + MESH3_TIMEOUT_S,
-                       "5h-5k")
-    out = {part: [r[part] for r in recs] for part in ("5h", "5i", "5k")}
+                        ("5k", mesh3_rank_work, (seed,)),
+                        ("5l", mesh4_rank_work, (seed,))),
+                       MESH_TIMEOUT_S + MESH2_TIMEOUT_S + MESH3_TIMEOUT_S
+                       + MESH4_TIMEOUT_S, "5h-5l", during)
+    out = {part: [r[part] for r in recs]
+           for part in ("5h", "5i", "5k", "5l")}
+    out["5l_references"] = during.result
+    out["references_s"] = during.seconds
     out["part_s"] = recs[0]["part_s"]
     out["world_s"] = time.perf_counter() - t0
     print("mesh_world " + json.dumps({
         "card": card_line(), "world_s": out["world_s"],
         "part_s": out["part_s"], "start_and_exit_s": out["world_s"]
-        - sum(out["part_s"].values())}))
+        - sum(out["part_s"].values()),
+        "references_meanwhile_s": out["references_s"]}))
     return out
 
 
@@ -7648,6 +7689,558 @@ def phase_mesh3(world) -> dict:
         "transport": "gloo, staged through host memory",
         "train": {name: {k: v for k, v in rec[name].items()
                          if k != "launches"} for name in MESH3_PATHS}}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 5l: rolling admission and AR decoding in a mesh engine
+# ---------------------------------------------------------------------------
+
+MESH4_SPEC = "fsdp=2,seq=2"
+MESH4_PP_SPEC = "pp=2,tensor=2,pp_microbatches=2"
+MESH4_OVERRIDES = {**FLAGSHIP_OVERRIDES, "model.n_blocks": MESH2_BLOCKS}
+MESH4_AR_OVERRIDES = {**FLAGSHIP_OVERRIDES, **AR_OVERRIDES,
+                      "model.n_blocks": MESH2_BLOCKS}
+MESH4_ROLLING = 12        # requests: 8 t2i, 2 captions (3rd, 9th), 2 infills
+MESH4_STEPS = (32, 8)     # the requests' denoise steps, alternating
+MESH4_GAP_S = 0.05        # the requests arrive this far apart
+MESH4_WAIT_S = 60         # a request unanswered by then counts as wrong
+MESH4_AR_NEW = 32         # new tokens a completion
+MESH4_AR_SHARED = 128     # the shared prefix of two AR prompts
+# the DIT-AR on fsdp 2 x seq 2 against one rank in bf16: the mean over the
+# completions of the share of the one-rank tokens before the first that
+# differs (a flipped near tie changes the rest of its completion). Set
+# from the readings of scripts/mesh2_readings.py --runs 5l: sound 0.958
+# and 1.0, the planted faults 0.583-0.625; the exact gate is fp64's
+MESH4_AR_AGREEMENT = 0.8
+# rolling t2i on pp 2 x tensor 2 against one rank in bf16: the
+# row-parallel products' partial sums round apart from one rank's single
+# product, and a flip early in a request cascades over its reveals. The
+# readings: sound 0.9795 and 0.9834 (4 requests, 1,024 positions), the
+# planted faults 0.827-0.865; the pipeline's and the tensor ranks' fp32
+# exactness is phase 5i's (its sampler and engine on pp 2 x tensor 2)
+MESH4_PP_AGREEMENT = 0.95
+# each path's token agreement with one rank: bf16 near ties may flip
+# (the rolling samplers' reveals cascade over the steps); fp32 through the
+# plain attention equal token for token for rolling; the AR paths in
+# fp64, whose K/V cache stays bf16 as served: in fp32 a decode product of
+# 4 rows and one of 8 round apart, and the bf16 cache widens that to a
+# flip (the readings: 0.88)
+MESH4_LIMITS = {"rolling_bf16": MESH_TOKEN_AGREEMENT, "rolling_fp32": 1.0,
+                "rolling_pp_bf16": MESH4_PP_AGREEMENT,
+                "ar_bf16": MESH4_AR_AGREEMENT,
+                "ar_fp64": 1.0, "ar_lookup_fp64": 1.0}
+MESH4_RUNS = ("mesh4_rolling", "mesh4_rolling_pp", "mesh4_ar")
+MESH4_TIMEOUT_S = 300
+
+
+def mesh4_rolling_requests(engine, seed) -> list:
+    """(kind, prepared, steps, seed) of the rolling runs: MESH4_ROLLING
+    requests, t2i but a caption at i % 6 == 2 and an infill (the image's
+    second half regenerated with a masked text span) at i % 6 == 5, steps
+    alternating MESH4_STEPS, each its own seed."""
+    m = engine.m
+    rng = np.random.RandomState(seed)
+    mask = np.zeros(m.img_length, bool)
+    mask[m.img_length // 2:] = True
+    out = []
+    for i in range(MESH4_ROLLING):
+        if i % 6 == 2:
+            kind, kw = "caption", dict(image_ids=rng.randint(
+                0, m.image_vocab_size, m.img_length))
+        elif i % 6 == 5:
+            kind, kw = "infill", dict(
+                text="a <mask:6> harbour at dusk", image_mask=mask,
+                image_ids=rng.randint(0, m.image_vocab_size, m.img_length))
+        else:
+            kind, kw = "t2i", dict(
+                text=f"a watercolor painting of a lighthouse, variant {i}")
+        out.append((kind, engine.prepare(**kw), MESH4_STEPS[i % 2],
+                    1000 * seed + i))
+    return out
+
+
+def mesh4_led(engine, rank, lead_fn) -> dict:
+    """Rank 0 leads `engine` through lead_fn(engine) and shuts it down
+    (its batchers' workers, then the followers); the other ranks follow
+    until then. {"lead": lead_fn's result on rank 0, "replayed": the ops
+    a follower replayed}."""
+    out = {"lead": None, "replayed": 0}
+    if rank == 0:
+        engine.lead()
+        try:
+            out["lead"] = lead_fn(engine)
+        finally:
+            engine.shutdown()
+        return out
+    replay = engine._batcher_op
+
+    def counted(route, op, kw):
+        out["replayed"] += 1
+        return replay(route, op, kw)
+    engine._batcher_op = counted
+    engine.follow()
+    return out
+
+
+def mesh4_serve_rolling(engine, reqs, gap_s) -> dict:
+    """Each request of `reqs` through engine.run_batch alone, on its own
+    thread, started gap_s apart; at most MESH4_WAIT_S for the last. Per
+    request its image ids and text, or None with the error where it was
+    not answered (the gate counts it wrong), and its latency."""
+    n = len(reqs)
+    results, latency, errors = [None] * n, [None] * n, [None] * n
+
+    def run(i, prepared, steps, seed):
+        t0 = time.perf_counter()
+        try:
+            r = engine.run_batch([prepared], steps=steps, seed=seed)[0]
+        except Exception as e:  # noqa: BLE001 — recorded; the gate fails
+            errors[i] = f"{type(e).__name__}: {e}"
+            return
+        latency[i] = time.perf_counter() - t0
+        results[i] = {"image_ids": r["image_ids"][0], "text": r["text"]}
+
+    threads = []
+    for i, (_, prepared, steps, seed) in enumerate(reqs):
+        t = threading.Thread(target=run, args=(i, prepared, steps, seed),
+                             daemon=True)
+        t.start()
+        threads.append(t)
+        time.sleep(gap_s)
+    deadline = time.monotonic() + MESH4_WAIT_S
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    return {"results": results, "latency_s": latency, "errors": errors}
+
+
+def mesh4_agreement(got, want, reqs, txt_length) -> float:
+    """The share of generated positions equal to the one-rank engine's:
+    the image ids a t2i or infill request generates, a caption's text
+    characters; an unanswered request counts every position unequal."""
+    eq = tot = 0
+    for g, w, (kind, prepared, _, _) in zip(got, want, reqs):
+        if kind == "caption":
+            a, b = ("" if g is None else g["text"]), w["text"]
+            tot += max(len(a), len(b))
+            eq += sum(x == y for x, y in zip(a, b))
+            continue
+        gen = ~prepared["unmask"][txt_length:]
+        tot += int(gen.sum())
+        if g is not None:
+            eq += int(((g["image_ids"] == w["image_ids"]) & gen).sum())
+    return eq / tot
+
+
+def mesh4_rolling_launches(engine) -> dict:
+    """The code's count of the rolling batchers' launches on this rank: a
+    captured chunk's warm run and its replays, an eager one each chunk,
+    ROLL_CHUNK forwards a chunk; none through the plain attention."""
+    total = collections.Counter()
+    if engine.m.attn_backend == "xla":
+        return {}
+    for kind, b in engine._rolling.items():
+        runs = (1 + b.program.replays) if b.program is not None \
+            else b.chunks
+        per = chunk_launches(engine.m, engine.config.sampling, kind == "t2i")
+        total.update({k: v * runs for k, v in per.items()})
+    return dict(total)
+
+
+def mesh4_one_rank_rolling(engine, reqs) -> list:
+    """The one-rank rolling `engine`'s results for reqs, every request at
+    once; the engine shut down after."""
+    try:
+        return mesh4_serve_rolling(engine, reqs, 0.0)["results"]
+    finally:
+        engine.shutdown()
+
+
+def mesh4_rolling_part(rank, engine, reqs, gap_s) -> dict:
+    """`engine` (a rolling mesh engine) led through reqs; this rank's
+    launches against the code's, its programs, counters and seconds."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = mesh4_led(engine, rank,
+                    lambda e: mesh4_serve_rolling(e, reqs, gap_s))
+    torch.cuda.synchronize()
+    rec.update(seconds=time.perf_counter() - t0,
+               launches=dict(_build.launch_counts),
+               want_launches=mesh4_rolling_launches(engine),
+               captured={k: b.program is not None
+                         for k, b in engine._rolling.items()},
+               counters={k: {"chunks": b.chunks, "harvests": b.harvests,
+                             "row_reads": b.row_reads}
+                         for k, b in engine._rolling.items()})
+    return rec
+
+
+def exact_engine(cfg, weights, mesh=None, dtype=torch.float32, **kw):
+    """An InferenceEngine computing in `dtype` (fp32 or fp64) through the
+    plain attention over `weights` (a whole state dict), on `mesh` (a
+    DeviceMesh; its rank's parts kept) or one rank."""
+    cfg = cfg.override(**{"model.attn_backend": "xla"})
+    model = DIT(cfg.model, compute_dtype=dtype, init=False).cuda()
+    model.load_state_dict(weights)
+    return InferenceEngine(cfg, model, mesh=mesh, **kw)
+
+
+def mesh4_rolling_rank(rank, world, seed) -> dict:
+    """(a): the flagship at depth MESH2_BLOCKS rolling on fsdp 2 x seq 2:
+    bf16 (build_engine) with the staggered requests, and fp32 through
+    the plain attention with the t2i ones at 8 steps at once (both data
+    ranks' slots)."""
+    engine = build_engine(preset="small", overrides=MESH4_OVERRIDES,
+                          mesh=MESH4_SPEC, rolling=ROLL_SLOTS)
+    randomize_(engine.model, seed)
+    mesh, cfg = engine.mesh.mesh, engine.config
+    reqs = mesh4_rolling_requests(engine, seed)
+    rec = {"bf16": mesh4_rolling_part(rank, engine, reqs, MESH4_GAP_S)}
+    weights = engine.model.state_dict()
+    free(engine)
+    del engine
+    engine32 = exact_engine(cfg, weights, mesh, rolling=ROLL_SLOTS)
+    rec["fp32"] = mesh4_rolling_part(rank, engine32, mesh4_fp32_requests(
+        reqs), 0.0)
+    free(engine32)
+    return rec
+
+
+def mesh4_fp32_requests(reqs) -> list:
+    """(a)'s t2i requests at 8 steps: the fp32 run's."""
+    return [(k, p, MESH4_STEPS[1], s) for k, p, _, s in reqs if k == "t2i"]
+
+
+def mesh4_pp_requests(reqs) -> list:
+    """(a)'s four 8-step t2i requests: (b)'s."""
+    return [r for r in reqs if r[0] == "t2i" and r[2] == MESH4_STEPS[1]]
+
+
+def mesh4_rolling_pp_rank(rank, world, seed) -> dict:
+    """(b): rolling t2i on pp 2 x tensor 2 (eager chunks), bf16
+    (build_engine), the one-rank weights' parts on each rank, (a)'s
+    four 8-step t2i requests staggered."""
+    engine = build_engine(preset="small", overrides=MESH4_OVERRIDES,
+                          mesh=MESH4_PP_SPEC, rolling=ROLL_SLOTS)
+    mine = engine.model.mesh_shards.scatter(
+        mesh2_weights(engine.config, seed), engine.mesh, {})
+    with torch.no_grad():
+        for n, p in engine.model.named_parameters():
+            if n in mine:
+                p.copy_(mine[n])
+    del mine
+    reqs = mesh4_pp_requests(mesh4_rolling_requests(engine, seed))
+    rec = {"bf16": mesh4_rolling_part(rank, engine, reqs, MESH4_GAP_S)}
+    free(engine)
+    return rec
+
+
+def mesh4_ar_requests(seed) -> list:
+    """The DIT-AR's 8 completions (text, new tokens): prompts of 16-256
+    tokens (with the BOS), the first two sharing MESH4_AR_SHARED, greedy,
+    MESH4_AR_NEW new tokens each."""
+    rng = np.random.RandomState(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    shared = text(MESH4_AR_SHARED - 1)
+    bodies = [shared + text(16), shared + text(40)] + [
+        text(n - 1) for n in (16, 256, 64, 32, 200, 96)]
+    return [(b, MESH4_AR_NEW) for b in bodies]
+
+
+def mesh4_complete(engine, reqs) -> dict:
+    """The completions of `reqs` through engine.complete_text, streamed:
+    the first alone (its prompt then resident in slot 0), the rest at
+    once; at most MESH4_WAIT_S. Per request its tokens (None where not
+    answered), the streamed ids and the latency; the batcher's chunks,
+    drains and prefix hits."""
+    n = len(reqs)
+    tokens, streams, latency = [None] * n, [[] for _ in range(n)], [None] * n
+    errors = [None] * n
+
+    def submit(i):
+        t0 = time.perf_counter()
+        text, new = reqs[i]
+        fut = engine.complete_text(text, max_new_tokens=new,
+                                   stream_cb=streams[i].extend)
+
+        def done(f):
+            latency[i] = time.perf_counter() - t0
+            if f.exception() is not None:
+                errors[i] = repr(f.exception())
+            else:
+                tokens[i] = f.result()["tokens"]
+        fut.add_done_callback(done)
+        return fut
+
+    deadline = time.monotonic() + MESH4_WAIT_S
+    concurrent.futures.wait([submit(0)], timeout=MESH4_WAIT_S)
+    futs = [submit(i) for i in range(1, n)]
+    concurrent.futures.wait(futs, timeout=max(0.0, deadline
+                                              - time.monotonic()))
+    b = engine.continuous
+    return {"tokens": tokens, "streams": [list(s) for s in streams],
+            "latency_s": latency, "errors": errors, "chunks": b.chunks,
+            "drains": b.host_reads, "prefix_hits": b.prefix_hits}
+
+
+def mesh4_ar_agreement(got, want) -> float:
+    """The mean over the completions of the share of the one-rank tokens
+    before the first that differs (an unanswered completion: 0; extra
+    tokens count as differing)."""
+    shares = []
+    for g, w in zip(got, want):
+        g = g or []
+        same = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                    min(len(g), len(w)))
+        shares.append(same / max(len(g), len(w), 1))
+    return float(np.mean(shares))
+
+
+def mesh4_ar_part(rank, engine, reqs) -> dict:
+    """`engine` (an AR mesh engine) led through reqs (``mesh4_complete``);
+    this rank's launches (the DIT-AR's cached attention is the plain one:
+    none), whether its decode chunk is captured, its seconds."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = mesh4_led(engine, rank, lambda e: mesh4_complete(e, reqs))
+    torch.cuda.synchronize()
+    rec.update(seconds=time.perf_counter() - t0,
+               launches=dict(_build.launch_counts),
+               captured=engine.continuous.program is not None)
+    return rec
+
+
+def mesh4_ar_rank(rank, world, seed) -> dict:
+    """(c): the DIT-AR of phase 4g (at MESH2_BLOCKS) on fsdp 2 x seq 2,
+    greedy: bf16 plain (build_engine), then fp64 plain and with prompt
+    lookup (2-grams)."""
+    engine = build_engine(preset="small", overrides=MESH4_AR_OVERRIDES,
+                          mesh=MESH4_SPEC)
+    randomize_(engine.model, seed)
+    mesh, cfg = engine.mesh.mesh, engine.config
+    reqs = mesh4_ar_requests(seed)
+    rec = {"bf16": mesh4_ar_part(rank, engine, reqs)}
+    weights = engine.model.state_dict()
+    free(engine)
+    del engine
+    for name, kw in MESH4_AR_EXACT:
+        eng = exact_engine(cfg, weights, mesh, dtype=torch.float64, **kw)
+        rec[name] = mesh4_ar_part(rank, eng, reqs)
+        free(eng)
+    return rec
+
+
+# the DIT-AR's exact runs: (name, the engine's decoding arguments)
+MESH4_AR_EXACT = (("fp64", {}), ("lookup_fp64", {"lookup_ngram": 2}))
+
+
+def mesh4_references(seed, runs=MESH4_RUNS) -> dict:
+    """The one-rank engines' runs of 5l's requests on the same weights
+    (this process, while the ranks run): by path, the requests and the
+    results."""
+    out = {}
+    if {"mesh4_rolling", "mesh4_rolling_pp"} & set(runs):
+        engine = build_engine(preset="small", overrides=MESH4_OVERRIDES,
+                              rolling=ROLL_SLOTS)
+        randomize_(engine.model, seed)
+        reqs = mesh4_rolling_requests(engine, seed)
+        weights = engine.model.state_dict()
+        want = mesh4_one_rank_rolling(engine, reqs)
+        by_seed = dict(zip((r[3] for r in reqs), want))
+        out["rolling_bf16"] = (reqs, want)
+        pp = mesh4_pp_requests(reqs)
+        out["rolling_pp_bf16"] = (pp, [by_seed[r[3]] for r in pp])
+        free(engine)
+        del engine
+        reqs32 = mesh4_fp32_requests(reqs)
+        out["rolling_fp32"] = (reqs32, mesh4_one_rank_rolling(exact_engine(
+            engine_cfg(MESH4_OVERRIDES), weights, rolling=ROLL_SLOTS),
+            reqs32))
+        free()
+    if "mesh4_ar" in runs:
+        engine = build_engine(preset="small", overrides=MESH4_AR_OVERRIDES)
+        randomize_(engine.model, seed)
+        reqs = mesh4_ar_requests(seed)
+        weights = engine.model.state_dict()
+        out["ar_bf16"] = (reqs, mesh4_complete(engine, reqs))
+        engine.shutdown()
+        free(engine)
+        del engine
+        for name, kw in MESH4_AR_EXACT:
+            one = exact_engine(engine_cfg(MESH4_AR_OVERRIDES), weights,
+                               dtype=torch.float64, **kw)
+            out[f"ar_{name}"] = (reqs, mesh4_complete(one, reqs))
+            one.shutdown()
+            free(one)
+    return out
+
+
+def mesh4_during(seed, runs=MESH4_RUNS):
+    """The work a 5l world's spawn_world does meanwhile: the one-rank
+    references (``mesh4_references``) with full-precision GEMMs, as the
+    ranks compute; its seconds in ``.seconds``."""
+    def during():
+        t = time.perf_counter()
+        full_precision_gemms()
+        try:
+            return mesh4_references(seed, runs)
+        finally:
+            full_precision_gemms(False)
+            during.seconds = time.perf_counter() - t
+    return during
+
+
+def engine_cfg(overrides) -> Config:
+    """The config build_engine makes of the "small" preset and
+    `overrides`."""
+    return Config.make("small", **overrides)
+
+
+def mesh4_rank_work(rank, world, seed, runs=MESH4_RUNS) -> dict:
+    """Phase 5l's work on one rank of a started world, with full-precision
+    GEMMs: the runs named in `runs`."""
+    full_precision_gemms()
+    rec = {}
+    t0 = time.perf_counter()
+    if "mesh4_rolling" in runs:
+        rec["mesh4_rolling"] = mesh4_rolling_rank(rank, world, seed)
+        free()
+    if "mesh4_rolling_pp" in runs:
+        rec["mesh4_rolling_pp"] = mesh4_rolling_pp_rank(rank, world, seed)
+        free()
+    if "mesh4_ar" in runs:
+        rec["mesh4_ar"] = mesh4_ar_rank(rank, world, seed)
+        free()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def mesh4_world(seed, runs=MESH4_RUNS):
+    """Phase 5l's work alone on a world of MESH_RANKS spawned ranks, and
+    its one-rank references made meanwhile: (the ranks' records, the
+    references)."""
+    during = mesh4_during(seed, runs)
+    recs = spawn_world((("5l", mesh4_rank_work, (seed, runs)),),
+                       MESH4_TIMEOUT_S, "5l", during)
+    return [r["5l"] for r in recs], during.result
+
+
+# (the gate's path name, the run, the part of the run's record)
+MESH4_GATES = (("rolling_bf16", "mesh4_rolling", "bf16"),
+               ("rolling_fp32", "mesh4_rolling", "fp32"),
+               ("rolling_pp_bf16", "mesh4_rolling_pp", "bf16"),
+               ("ar_bf16", "mesh4_ar", "bf16"),
+               ("ar_fp64", "mesh4_ar", "fp64"),
+               ("ar_lookup_fp64", "mesh4_ar", "lookup_fp64"))
+
+
+def mesh4_readings(recs, refs, runs=MESH4_RUNS) -> dict:
+    """What phase 5l holds to its gates, per path: the token agreement
+    with the one-rank engine (`refs`, ``mesh4_references``), the
+    unanswered requests, whether every rank captured its chunk programs
+    (the pp path: ran them eager), whether every rank's launches are the
+    code's count; for the AR paths the stream against the tokens and the
+    prefix hits; the path's seconds on rank 0."""
+    out = {}
+    for name, run, part in MESH4_GATES:
+        if run not in runs:
+            continue
+        lead = recs[0][run][part]
+        ar = run == "mesh4_ar"
+        reqs, want = refs[name]
+        if ar:
+            got = lead["lead"]["tokens"]
+            agreement = mesh4_ar_agreement(got, want["tokens"])
+        else:
+            got = lead["lead"]["results"]
+            agreement = mesh4_agreement(got, want, reqs,
+                                        Config.make("small", **MESH4_OVERRIDES)
+                                        .model.txt_length)
+        r = {"token_agreement": agreement,
+             "unanswered": sum(g is None for g in got),
+             "errors": [e for e in lead["lead"]["errors"] if e],
+             "captured": [rec[run][part]["captured"] if ar else
+                          all(rec[run][part]["captured"].values())
+                          for rec in recs],
+             "launches_exact": all(
+                 rec[run][part]["launches"] == ({} if ar else
+                                                rec[run][part][
+                                                    "want_launches"])
+                 for rec in recs),
+             "seconds": lead["seconds"]}
+        if ar:
+            r.update(streams_equal=lead["lead"]["streams"] == [
+                t or [] for t in got],
+                prefix_hits=lead["lead"]["prefix_hits"],
+                one_rank_prefix_hits=want["prefix_hits"])
+        out[name] = r
+    return out
+
+
+def phase_mesh4(world) -> dict:
+    """Phase 5l (module docstring), on mesh_worlds' records: each path's
+    readings within its gate; its seconds are its part of the world and
+    its checks after."""
+    t0 = time.perf_counter()
+    recs = world["5l"]
+    readings = mesh4_readings(recs, world["5l_references"])
+    for name, r in readings.items():
+        bad = [what for what, ok in (
+            (f"token agreement {r['token_agreement']} < "
+             f"{MESH4_LIMITS[name]}",
+             r["token_agreement"] >= MESH4_LIMITS[name]),
+            ("launches off the code's count", r["launches_exact"]),
+            (f"programs captured {r['captured']}",
+             not any(r["captured"]) if name.startswith("rolling_pp")
+             else all(r["captured"])),
+            ("the stream differs from the tokens",
+             r.get("streams_equal", True)),
+            ("no prefix hit", r.get("prefix_hits", 1) >= 1),
+        ) if not ok]
+        if bad:
+            raise AssertionError(f"mesh4 {name}: {'; '.join(bad)} "
+                                 f"({r['errors'][:3]})")
+    r0 = recs[0]
+
+    def lat(values):
+        v = np.asarray([x for x in values if x is not None])
+        return {"p50_s": float(np.percentile(v, 50)),
+                "p95_s": float(np.percentile(v, 95))}
+
+    counters = {}
+    for name, run, part in MESH4_GATES:
+        lead = r0[run][part]
+        counters[name] = ({k: lead["lead"][k] for k in
+                           ("chunks", "drains", "prefix_hits")}
+                          if run == "mesh4_ar" else lead["counters"])
+    rec = {"readings": readings, "world_part_s": world["part_s"]["5l"],
+           "latency": {name: lat(r0[run][part]["lead"]["latency_s"])
+                       for name, run, part in MESH4_GATES},
+           "counters": counters,
+           "replayed_ops": {name: [rec[run][part]["replayed"]
+                                   for rec in recs[1:]]
+                            for name, run, part in MESH4_GATES},
+           "rank0_s": r0["seconds"]}
+    # the kernels line's paths: the bf16 runs' launches, summed over the
+    # ranks (the fp32 paths run the plain attention)
+    for run in MESH4_RUNS:
+        rec[run] = {"launches": dict(sum(
+            (collections.Counter(r[run]["bf16"]["launches"]) for r in recs),
+            collections.Counter()))}
+    rec["seconds"] = rec["world_part_s"] + time.perf_counter() - t0
+    print("mesh4 " + json.dumps({
+        "card": card_line(), "seconds": rec["seconds"],
+        "world_part_s": rec["world_part_s"], "ranks": MESH_RANKS,
+        "depth": MESH2_BLOCKS, "slots": ROLL_SLOTS,
+        "transport": "gloo, staged through host memory",
+        **{k: rec[k] for k in ("readings", "latency", "counters",
+                               "replayed_ops", "rank0_s")}}))
     return rec
 
 
@@ -8162,11 +8755,22 @@ def main() -> int:
     # 5h (the device mesh), 5i (the rest of the mesh) and 5k (the mesh's
     # other modes): their one-rank parts, one world of spawned ranks for
     # the three, then each phase's checks against one rank
-    before = mesh_before_world(args.seed)
-    lap("mesh_before_world")
-    world = mesh_worlds(args.seed)
-    record["mesh_world"] = {k: world[k] for k in ("part_s", "world_s")}
-    lap("mesh_world")
+    # 5d's (g), the supervised run, waits on its child processes most of
+    # its time: it runs on a thread while the mesh world does
+    sup_root = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
+    meanwhile = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        supervised = meanwhile.submit(phase_supervised, sup_root)
+        before = mesh_before_world(args.seed)
+        lap("mesh_before_world")
+        world = mesh_worlds(args.seed)
+        record["mesh_world"] = {k: world[k] for k in ("part_s", "world_s")}
+        lap("mesh_world")
+        record["train_rest"]["supervised"] = supervised.result()
+    finally:
+        meanwhile.shutdown(wait=True)
+        shutil.rmtree(sup_root, ignore_errors=True)
+    lap("supervised_after_world")
     record["mesh"] = phase_mesh(args.seed, before["5h"], world)
     free()
     lap("mesh")
@@ -8174,9 +8778,12 @@ def main() -> int:
     free()
     lap("mesh2")
     record["mesh3"] = phase_mesh3(world)
-    del world
     free()
     lap("mesh3")
+    record["mesh4"] = phase_mesh4(world)
+    del world
+    free()
+    lap("mesh4")
     record["phase_seconds"] = laps
     print("phase_seconds " + json.dumps(laps))
     pix = record["pixels"]
@@ -8233,6 +8840,9 @@ def main() -> int:
                 name, 0)
         for path in MESH3_PATHS:
             by_path[name][path] = record["mesh3"][path]["launches"].get(
+                name, 0)
+        for path in MESH4_RUNS:
+            by_path[name][path] = record["mesh4"][path]["launches"].get(
                 name, 0)
         for path in EVAL_PATHS:
             by_path[name][path] = record[path]["launches"].get(name, 0)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Phase 5i's and 5k's mesh readings on the card, without their limits.
+"""Phase 5i's, 5k's and 5l's mesh readings on the card, without their
+limits.
 
     python3 scripts/mesh2_readings.py [--root DIR] [--runs R[,R...]]
                                       [--plain] [--plant FAULT]
@@ -16,7 +17,10 @@ first moments' relative distance and the update's cosine); for
 one-rank engine at the same seed. Runs named ``mesh3_*`` (``--runs 5k``:
 all of them) run in 5k's world instead, read by
 ``mesh3_train_readings`` (the optimizer state's relative distance in
-place of the trunk's first moments). --plain runs the train paths in fp32
+place of the trunk's first moments). Runs named ``mesh4_*`` (``--runs
+5l``: all of them) run in 5l's world, read by ``mesh4_readings`` (each
+path's token agreement with the one-rank engine, its unanswered
+requests, its programs and launches). --plain runs the train paths in fp32
 through the plain attention, to tell the bf16 paths' rounding from a
 fault. --plant FAULT (one of PLANTS) runs a copy of the tree, made in a
 temporary directory and removed after, with that one fault planted and
@@ -38,7 +42,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 
-# fault: (file, the text replaced, its replacement, the run that sees it)
+# fault: (file, the text replaced, its replacement, the runs that see it)
 PLANTS = {
     # the row-parallel product's partial sums left unsummed
     "no_row_reduce": (
@@ -117,6 +121,25 @@ PLANTS = {
         "unidisc_tpu_torch/models/moe.py",
         "u.view(b, seq_size, t, k)[:, seq.rank]",
         "u.view(b, seq_size, t, k)[:, 0]", "mesh3_moe"),
+    # 5l: a follower skips the first insert that holds rows of its slots
+    "follower_drops_insert": (
+        "unidisc_tpu_torch/serving/engine.py",
+        '        return getattr(batcher, "op_" + op)(**kw)\n',
+        '        if op == "insert" and not getattr(self, "_dropped", False) '
+        'and (\n                batcher.split.own(kw["slots_v"])\n'
+        '                < batcher.split.local).any():\n'
+        '            self._dropped = True\n            return None\n'
+        '        return getattr(batcher, "op_" + op)(**kw)\n',
+        "mesh4_rolling,mesh4_rolling_pp,mesh4_ar"),
+    # 5l: the harvest's gather gives rank 0's rows for every data-parallel
+    # rank
+    "harvest_rank0_rows": (
+        "unidisc_tpu_torch/parallel/sample.py",
+        "        out = gather(t, self.layout.dp_group, 0)\n",
+        "        out = gather(t, self.layout.dp_group, 0)\n"
+        "        if out is not None:\n"
+        "            out = t.repeat(self.layout.dp_size, *([1] * (t.dim() - "
+        "1)))\n", "mesh4_rolling,mesh4_ar"),
 }
 
 
@@ -167,11 +190,22 @@ def run(root: Path, args) -> int:
     runs = tuple(args.runs.split(",")) if args.runs else cs.MESH2_RUNS
     if runs == ("5k",):
         runs = cs.MESH3_PATHS
+    if runs == ("5l",):
+        runs = cs.MESH4_RUNS
     mesh3 = tuple(r for r in runs if r.startswith("mesh3_"))
-    runs = tuple(r for r in runs if not r.startswith("mesh3_"))
+    mesh4 = tuple(r for r in runs if r.startswith("mesh4_"))
+    runs = tuple(r for r in runs if r.startswith("mesh2_"))
     out = {"card": cs.card_line(), "label": args.label,
            "plain": args.plain, "plant": args.plant,
-           "runs": list(runs + mesh3)}
+           "runs": list(runs + mesh3 + mesh4)}
+    if mesh4:
+        t0 = time.perf_counter()
+        try:
+            recs4, refs4 = cs.mesh4_world(args.seed, mesh4)
+            out["5l"] = cs.mesh4_readings(recs4, refs4, mesh4)
+        except AssertionError as e:   # a rank failed: report it
+            out["error_5l"] = str(e)
+        out["world_5l_s"] = time.perf_counter() - t0
     if mesh3:
         t0 = time.perf_counter()
         try:

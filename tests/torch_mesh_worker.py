@@ -573,8 +573,277 @@ def job_modes(rank, world):
     return out
 
 
+# ---------------------------------------------------------------------------
+# rolling admission and AR decoding on a mesh (tests/test_torch_mesh_serving.py)
+# ---------------------------------------------------------------------------
+
+def led(engine, rank, lead_fn):
+    """Rank 0 leads `engine` through lead_fn(engine) and shuts it down;
+    the other ranks follow until then, recording the batcher ops they
+    replay. Every rank gives {"lead": lead_fn's result (rank 0), "ops":
+    the (route, op) replayed (the followers), "states": its batchers'
+    rows}."""
+    out = {"lead": None, "ops": []}
+    if rank == 0:
+        engine.lead()
+        try:
+            out["lead"] = lead_fn(engine)
+        finally:
+            engine.shutdown()
+    else:
+        replay = engine._batcher_op
+
+        def recorded(route, op, kw):
+            out["ops"].append((route, op))
+            return replay(route, op, kw)
+        engine._batcher_op = recorded
+        engine.follow()
+    out["states"] = batcher_states(engine)
+    return out
+
+
+def batcher_states(engine) -> dict:
+    """Each built batcher's rows on this rank: its first global slot, the
+    tokens, steps or positions and activity of its slots."""
+    out = {}
+    batchers = {f"rolling:{k}": b for k, b in engine._rolling.items()}
+    if engine._continuous is not None:
+        batchers["continuous"] = engine._continuous
+    for route, b in batchers.items():
+        st = b.state
+        out[route] = {"lo": b.split.lo, "x": st.x.numpy().copy(),
+                      "active": st.active.numpy().copy(),
+                      "at": (st.step if hasattr(st, "step")
+                             else st.pos).numpy().copy()}
+    return out
+
+
+def staggered(engine, requests, gap_s=0.05):
+    """Each (prepared, steps, seed) of `requests` through run_batch alone,
+    started `gap_s` apart on threads: the results in request order."""
+    import threading
+    import time
+    out = [None] * len(requests)
+
+    def run(i, prepared, steps, seed):
+        out[i] = engine.run_batch([prepared], steps=steps, seed=seed)[0]
+    threads = []
+    for i, (prepared, steps, seed) in enumerate(requests):
+        t = threading.Thread(target=run, args=(i, prepared, steps, seed))
+        t.start()
+        threads.append(t)
+        time.sleep(gap_s)
+    for t in threads:
+        t.join()
+    return out
+
+
+def served(results) -> list:
+    return [{"text": r["text"], "image_ids": r["image_ids"][0]}
+            for r in results]
+
+
+def rolling_machine(rank, c):
+    """The generic rolling state machine on c["mesh"] under injected
+    noise, with c's staggered admissions (tests/test_torch_rolling.py's):
+    this rank's rows and steps, and on rank 0 the gathered global rows."""
+    import dataclasses
+
+    import torch
+
+    from unidisc_tpu_torch.models.dit import DIT
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, make_mesh
+    from unidisc_tpu_torch.serving.rolling import build_rolling_sampler
+    cfg = dataclasses.replace(c["config"], mesh=dataclasses.replace(
+        c["config"].mesh, **c["mesh"]))
+    layout = MeshLayout.of(make_mesh(cfg.mesh))
+    model = DIT(cfg.model, compute_dtype=torch.float32).eval()
+    model.load_state_dict(c["sd"])
+    built = build_rolling_sampler(model, cfg, slots=c["slots"], chunk=1,
+                                  inject_noise=True, device="cpu",
+                                  mesh=layout)
+    noise = {k: torch.from_numpy(v) for k, v in c["noise"].items()}
+    st = built.init_state()
+    for group in c["groups"]:
+        built.insert_many(st, *group)
+        built.step_chunk(st, noise)
+    for _ in range(32):
+        if bool(((st.step >= st.row_steps + built.extra)
+                 | ~st.active).all()):
+            break
+        built.step_chunk(st, noise)
+    return {"lo": built.split.lo, "x": st.x.numpy(),
+            "step": st.step.numpy(), "slots": built.slots,
+            "gathered": built.split.gather(st.x)}
+
+
+def rolling_engine_checks(rank, c):
+    """The rolling engine on c["spec"] led by rank 0: c's requests
+    staggered; a planted device error in the leader's chunk; the server
+    over it answering c's chat requests concurrently; then shut down
+    (the batchers first)."""
+    from unidisc_tpu_torch.serving.engine import build_engine
+    eng = build_engine(preset="tiny", device="cpu", mesh=c["spec"],
+                       rolling=c["slots"], overrides=c["overrides"])
+
+    def lead(eng):
+        import json
+        import threading
+        import urllib.request
+        from concurrent.futures import ThreadPoolExecutor
+
+        from unidisc_tpu_torch.serving.server import (close_server,
+                                                      make_server)
+        out = rolling_lead(eng, c)
+        reqs = [(eng.prepare(**r), steps, seed)
+                for r, steps, seed in c["requests"]]
+        # a device error in the leader's chunk: the futures fail, every
+        # rank resets, the next request is served
+        batcher = eng._rolling_batcher("generic")
+        chunk, fail = batcher.step_chunk, [True]
+
+        def planted(state):
+            if fail[0]:
+                fail[0] = False
+                raise RuntimeError("planted device error")
+            return chunk(state)
+        batcher.step_chunk = planted
+        prepared, steps, seed = reqs[c["after_error"]]
+        try:
+            eng.run_batch([prepared], steps=steps, seed=seed)
+            out["error"] = None
+        except RuntimeError as e:
+            out["error"] = str(e)
+        out["after_error"] = served(eng.run_batch([prepared], steps=steps,
+                                                  seed=seed))
+        out["counters"] = {k: (b.chunks, b.harvests, b.row_reads)
+                           for k, b in eng._rolling.items()}
+        srv = make_server(eng, 0)
+        loop = threading.Thread(target=srv.serve_forever, daemon=True)
+        loop.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def chat(body):
+            req = urllib.request.Request(
+                url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+        with ThreadPoolExecutor(len(c["chats"])) as pool:
+            answers = list(pool.map(chat, c["chats"]))
+        out["chats"] = [a["choices"][0]["message"]["content"][0]["text"]
+                        for a in answers]
+        srv.shutdown()
+        close_server(srv)
+        out["stopped"] = all(b._thread is not None
+                             and not b._thread.is_alive()
+                             for b in eng._rolling.values())
+        return out
+    return led(eng, rank, lead)
+
+
+def rolling_lead(eng, c):
+    """c's requests through the rolling engine `eng`: each run_batch alone,
+    started 10 ms apart (or, with c["together"], one run_batch of them
+    all, admitted in one group); {"results"}."""
+    import threading
+    import time
+    reqs = [(eng.prepare(**r), steps, seed)
+            for r, steps, seed in c["requests"]]
+    if not c.get("together"):
+        return {"results": served(staggered(eng, reqs, gap_s=0.01))}
+    prepared = [p for p, _, _ in reqs]
+    batcher = eng._rolling_batcher(
+        "t2i" if all(p["fastpath"] for p in prepared) else "generic")
+    out = []
+    # the worker admits the whole batch in one group: it waits for the
+    # device lock until every request is queued
+    with eng._device_lock:
+        t = threading.Thread(target=lambda: out.extend(eng.run_batch(
+            prepared, steps=reqs[0][1], seed=reqs[0][2])))
+        t.start()
+        while batcher._pending.qsize() < len(prepared):
+            time.sleep(0.005)
+    t.join()
+    return {"results": served(out)}
+
+
+def rolling_engine_run(rank, c):
+    """The rolling engine on c["spec"] led by rank 0 through
+    ``rolling_lead``."""
+    from unidisc_tpu_torch.serving.engine import build_engine
+    eng = build_engine(preset="tiny", device="cpu", mesh=c["spec"],
+                       rolling=c["slots"], overrides=c["overrides"])
+    return led(eng, rank, lambda e: rolling_lead(e, c))
+
+
+def ar_lead(eng, completions):
+    """Each (text, max_new, temperature, seed) of `completions` through
+    eng.complete_text: the first alone (its prompt then resident in slot
+    0), the rest at once, the second streamed. Its tokens, the stream,
+    and the batcher's counters."""
+    def submit(text, n, temp, seed, stream_cb=None):
+        return eng.complete_text(text, max_new_tokens=n, temperature=temp,
+                                 seed=seed, stream_cb=stream_cb)
+    res = [submit(*completions[0]).result(timeout=240)["tokens"]]
+    streamed = []
+    futs = [submit(*comp, stream_cb=streamed.extend if i == 0 else None)
+            for i, comp in enumerate(completions[1:])]
+    res += [f.result(timeout=240)["tokens"] for f in futs]
+    b = eng.continuous
+    return {"tokens": res, "streamed": list(streamed),
+            "prefix_hits": b.prefix_hits, "drains": b.host_reads,
+            "chunks": b.chunks, "slots": b.slots}
+
+
+def ar_engine_run(rank, c):
+    """An AR InferenceEngine of c's fp32 DIT on c["mesh"] led by rank 0
+    through ``ar_lead``, for each decoding mode (plain, prompt lookup, a
+    draft DIT)."""
+    import dataclasses
+
+    import torch
+
+    from unidisc_tpu_torch.models.dit import DIT
+    from unidisc_tpu_torch.parallel.mesh import make_mesh
+    from unidisc_tpu_torch.serving.engine import InferenceEngine
+    out = {}
+    for mode in ("plain", "lookup", "draft"):
+        cfg = c["config"].override(**{f"mesh.{k}": v
+                                      for k, v in c["mesh"].items()})
+        model = DIT(cfg.model, compute_dtype=torch.float32)
+        model.load_state_dict(c["sd"])
+        kw = {}
+        if mode == "lookup":
+            kw["lookup_ngram"] = 2
+        elif mode == "draft":
+            draft = DIT(c["draft_config"].model, compute_dtype=torch.float32)
+            draft.load_state_dict(c["draft_sd"])
+            kw["ar_draft"] = draft
+        eng = InferenceEngine(cfg, model, device="cpu",
+                              mesh=make_mesh(cfg.mesh), **kw)
+
+        out[mode] = led(eng, rank,
+                        lambda e: ar_lead(e, c["completions"]))
+    return out
+
+
+def job_serving(rank, world):
+    """The 4-rank world of tests/test_torch_mesh_serving.py: the rolling
+    state machine under injected noise, the rolling engines (fsdp 2 x seq
+    2 with the planted error and the server, pp 2 x tensor 2, the MoE on
+    dcn 2 x ep 2) and the AR engines, each led by rank 0."""
+    inp = load_inputs()
+    return {"machine": rolling_machine(rank, inp["machine"]),
+            "rolling": rolling_engine_checks(rank, inp["rolling"]),
+            "pp_tensor": rolling_engine_run(rank, inp["pp_tensor"]),
+            "moe": rolling_engine_run(rank, inp["moe"]),
+            "ar": ar_engine_run(rank, inp["ar"])}
+
+
 JOBS = {"ring": job_ring, "train": job_train, "seq": job_seq,
-        "mesh2": job_mesh2, "pipeline": job_pipeline, "modes": job_modes}
+        "mesh2": job_mesh2, "pipeline": job_pipeline, "modes": job_modes,
+        "serving": job_serving}
 
 
 def main():

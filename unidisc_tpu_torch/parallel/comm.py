@@ -8,7 +8,8 @@ memory, so a CPU tensor on an NCCL group rides on the rank's card. A
 collective that fails raises; nothing falls back.
 
 * ``all_reduce`` (sum), ``all_gather`` (concatenated along a dim),
-  ``broadcast``;
+  ``gather`` (concatenated along dim 0 on one rank: a batcher's host
+  read, ``parallel/sample.py::SlotSplit``), ``broadcast``;
 * ``shift``: each rank sends to the next rank of the group and receives
   from the previous one, the ring step (``jax.lax.ppermute`` with
   ``perm=[(i, (i + 1) % n)]``);
@@ -36,7 +37,7 @@ collective that fails raises; nothing falls back.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -95,6 +96,23 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
                       dtype=src.dtype, device=wire)
     dist.all_gather_into_tensor(out, src, group=group)
     return out.to(t.device).movedim(0, dim)
+
+
+def gather(t: torch.Tensor, group, dst: int = 0) -> Optional[torch.Tensor]:
+    """The group's tensors (one shape on every rank) concatenated along
+    dim 0 in rank order, on group rank `dst`; None on the other ranks."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    if group is None:
+        group = dist.group.WORLD
+    wire = _wire(group, t)
+    src = t.to(wire).contiguous()
+    me = dist.get_rank(group)
+    parts = [torch.empty_like(src) for _ in range(n)] if me == dst else None
+    dist.gather(src, parts, dst=dist.get_global_rank(group, dst),
+                group=group)
+    return None if parts is None else torch.cat(parts).to(t.device)
 
 
 def shift(tensors: Sequence[torch.Tensor], group,

@@ -27,11 +27,30 @@ rows and the rank keeps its own, so a seed gives the tokens of one rank
 sampling the whole batch, as JAX's replicated rng does. The injected noise
 of a sampler (``sampling/sampler.py``, ``sampling/t2i_fast.py``) is
 (steps, B, ...): each rank takes its rows of dim 1.
+
+The batchers' slots (``SlotSplit``): the rolling batchers and the
+continuous AR batcher keep one persistent device batch of S slots, the
+global batch of a mesh: S is rounded up to the granule (``batch_multiple``)
+and data-parallel rank r owns slots [r S / dp, (r + 1) S / dp). Their
+chunks run outside ``sequence_parallel``, as JAX jits them outside
+``spmd_sampler``'s contexts: a "seq" group runs its rows replicated,
+without the ring, so on dcn / fsdp / seq meshes a chunk holds no
+collective; under "pp" the chunk's forward runs in ``pipeline_parallel``
+over the rank's rows, and "tensor" and "ep" ranks run their parts. A
+batcher's host reads become one gather over rank 0's data-parallel group
+(``SlotSplit.gather``), to which only the ranks whose other indices are 0
+contribute. AR decoding (the KV-cache paths) runs on dcn, fsdp and seq
+only: on "tensor", "pp" or "ep", or for an MoE model on a data-parallel
+mesh, ``check_ar_mesh`` raises naming ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Mapping, Optional
+
+import numpy as np
+import torch
 
 from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.parallel.mesh import check_mesh_model
@@ -61,12 +80,14 @@ def shard_params(model, mesh):
     return params_shardings(model, mesh)
 
 
-def has_collectives(config: Config, layout) -> bool:
+def has_collectives(config: Config, layout, ring: bool = True) -> bool:
     """Whether a sampler step on this mesh holds collectives (and so runs
     eager: a CUDA graph cannot hold a gloo collective, and NCCL capture
-    waits for a card per rank, ROADMAP queue 1, item 9)."""
+    waits for a card per rank, ROADMAP queue 1, item 9). ring=False: a
+    batcher's chunk, which runs a "seq" group replicated (module
+    docstring), so "seq" adds none."""
     s = layout.sizes
-    return (max(s["seq"], s["pp"], s["tensor"], s["ep"]) > 1
+    return (max(s["seq"] if ring else 1, s["pp"], s["tensor"], s["ep"]) > 1
             or (config.model.moe_experts > 0 and layout.dp_size > 1))
 
 
@@ -103,3 +124,79 @@ def spmd_sampler(sample_fn: Callable, config: Config, layout) -> Callable:
                             nfe=out.nfe)
 
     return call
+
+
+def check_ar_mesh(config: Config, sizes: Mapping[str, int]) -> None:
+    """Raise NotImplementedError (ROADMAP queue 1, item 9) where AR
+    decoding cannot run on a mesh of axis sizes `sizes`: under "tensor" or
+    "pp" (a rank holds a part of each block, or one stage's blocks, and the
+    KV cache is not split with them), under "ep", and for an MoE model on a
+    data-parallel mesh (its routing spans the ranks inside each decode
+    step)."""
+    if config.trainer.parameterization != "ar":
+        return
+    big = lambda a: sizes.get(a, 1) > 1
+    later = [what for what, bad in (
+        ("AR decoding on tensor or pp", big("tensor") or big("pp")),
+        ("AR decoding on ep", big("ep")),
+        ("an MoE AR model on a data-parallel mesh",
+         config.model.moe_experts > 0 and (big("dcn") or big("fsdp"))),
+    ) if bad]
+    if later:
+        raise NotImplementedError(f"{', '.join(later)} is not in the port "
+                                  f"yet (ROADMAP queue 1, item 9)")
+
+
+class SlotSplit:
+    """The S slots of a batcher's persistent device batch on a mesh
+    (module docstring): ``slots`` the global count (the request rounded up
+    to the granule), ``local`` this rank's, ``lo`` its first global slot.
+    Without a layout, one rank owns every slot."""
+
+    def __init__(self, slots: int, config: Optional[Config] = None,
+                 layout=None):
+        self.layout = layout
+        mult = 1 if layout is None else batch_multiple(config, layout)
+        self.slots = -(-slots // mult) * mult
+        dp = 1 if layout is None else layout.dp_size
+        self.local = self.slots // dp
+        self.lo = 0 if layout is None else layout.dp_rank * self.local
+        self.microbatches = 1 if config is None \
+            else config.mesh.pp_microbatches
+        # the ranks of rank 0's data-parallel group gather the host reads
+        self.reports = layout is None or (
+            layout.seq_rank == 0 and layout.tensor.rank == 0
+            and layout.pp.rank == 0 and layout.ep.rank == 0)
+
+    def owner(self, slot: int) -> int:
+        """The data-parallel rank that owns global slot `slot`."""
+        return slot // self.local
+
+    def own(self, slots_v) -> np.ndarray:
+        """Global slot ids -> this rank's local ones; a slot of another
+        rank, or past the global count (padding), becomes ``local`` (the
+        state machines drop it)."""
+        v = np.asarray(torch.as_tensor(slots_v).cpu()).astype(np.int64)
+        mine = (v >= self.lo) & (v < self.lo + self.local)
+        return np.where(mine, v - self.lo, self.local)
+
+    def forward(self):
+        """The context a chunk's forward runs in: the pipeline over "pp"
+        (no "seq" ring: a seq group runs its rows replicated)."""
+        if self.layout is None:
+            return contextlib.nullcontext()
+        from unidisc_tpu_torch.parallel.pipeline import pipeline_parallel
+        return pipeline_parallel(self.layout, self.microbatches)
+
+    def gather(self, t: torch.Tensor) -> Optional[np.ndarray]:
+        """This rank's (local, ...) rows -> the global (S, ...) rows as a
+        host array on rank 0, None elsewhere: one gather over rank 0's
+        data-parallel group (``parallel/comm.py::gather``); the other
+        ranks take no part."""
+        if self.layout is None:
+            return t.cpu().numpy()
+        if not self.reports:
+            return None
+        from unidisc_tpu_torch.parallel.comm import gather
+        out = gather(t, self.layout.dp_group, 0)
+        return None if out is None else out.cpu().numpy()

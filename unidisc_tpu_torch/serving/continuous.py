@@ -29,6 +29,18 @@ Noise is the port's keyed noise (``serving/rolling.py``): the draw for the
 token written at position p is a pure function of (row seed, p, tag), so a
 seeded request reproduces whatever shares the batch. Parity with JAX holds
 under greedy decoding.
+
+On a device mesh (``mesh=``, dcn / fsdp / seq only: ``parallel/sample.py::
+check_ar_mesh``) the S slots are the global batch split over the
+data-parallel ranks (``SlotSplit``): a rank's decoder holds its slots' rows
+and KV cache (a draft model's too), admits only the prompts of its slots
+and decodes them outside the "seq" ring, as JAX jits the decode chunk
+outside ``spmd_sampler``, so the chunk holds no collective and stays one
+captured program a rank. The front end runs on the leader: its device ops
+(``op_*``) are announced before they run and replayed by the other ranks'
+batchers; the drain is a gather of (pos, active, x) to rank 0, and a
+prefix-cache donor is taken only from a slot of the same rank (lossless
+either way; the hit rate may fall).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
 from unidisc_tpu_torch.diffusion.subs import (NEG_INFINITY,
                                               restrict_modality_logits)
+from unidisc_tpu_torch.parallel.sample import SlotSplit
 from unidisc_tpu_torch.sampling.ar_sampler import init_kv_cache_for
 from unidisc_tpu_torch.serving.rolling import keyed_gumbel
 from unidisc_tpu_torch.serving.speculative import (TAG_ACCEPT, TAG_BONUS,
@@ -94,13 +107,15 @@ class ContinuousDecoder:
 
     def __init__(self, apply_fn, cache_factory, restrict_fn, length, slots,
                  chunk, eos_id, cache_batch_axis, draft, gamma,
-                 lookup_ngram, device):
+                 lookup_ngram, device, split):
         if draft is not None and lookup_ngram:
             raise ValueError("draft-model and prompt-lookup speculation are "
                              "exclusive")
         self.apply_fn, self.cache_factory = apply_fn, cache_factory
         self.restrict = restrict_fn
-        self.L, self.slots, self.chunk = length, slots, chunk
+        # slots: this rank's rows of the split's global slots
+        self.split = split
+        self.L, self.slots, self.chunk = length, split.local, chunk
         self.eos_id, self.axis = eos_id, cache_batch_axis
         self.draft, self.gamma, self.lookup_ngram = draft, gamma, lookup_ngram
         self.device = resolve_device(device)
@@ -157,13 +172,18 @@ class ContinuousDecoder:
     @torch.no_grad()
     def insert_many(self, state: DecodeState, slots_v, prompts, mod_rows,
                     plens, max_news, temps, seeds) -> DecodeState:
-        """Admit k prompts in one prefill, in place: slots_v (k,), prompts
-        (k, bucket) right-padded, mod_rows (k, L), plens, max_news (k,),
-        temps (k,) fp32, seeds (k,). Host arrays or tensors."""
+        """Admit k prompts in one prefill, in place: slots_v (k,) global
+        slot ids, prompts (k, bucket) right-padded, mod_rows (k, L), plens,
+        max_news (k,), temps (k,) fp32, seeds (k,). Host arrays or tensors.
+        On a mesh a rank prefills only the prompts of its slots."""
         dev, L = self.device, self.L
-        t = lambda a, dt=torch.long: torch.as_tensor(np.asarray(a)).to(
-            dev, dt)
-        slots_v, prompts, mod_rows = t(slots_v), t(prompts), t(mod_rows)
+        local = self.split.own(slots_v)
+        keep = np.flatnonzero(local < self.slots)
+        if keep.size == 0:
+            return state
+        t = lambda a, dt=torch.long: torch.as_tensor(
+            np.asarray(torch.as_tensor(a).cpu())[keep]).to(dev, dt)
+        slots_v, prompts, mod_rows = t(local), t(prompts), t(mod_rows)
         plens, max_news, seeds = t(plens), t(max_news), t(seeds)
         temps = t(temps, torch.float32)
         k, bucket = prompts.shape
@@ -197,8 +217,16 @@ class ContinuousDecoder:
         prompt[shared:] (padded to `bucket_suffix`) is prefilled, at
         cache index `shared`, attending the copied keys. The tokens are
         those of a full prefill. prompt (plen,), mod_row (L,): host
-        arrays; shared <= plen - 1."""
+        arrays; shared <= plen - 1. `slot` and `src_slot` are global ids of
+        one rank's slots; the other ranks do nothing."""
         dev, L = self.device, self.L
+        if self.split.owner(slot) != self.split.owner(src_slot):
+            raise ValueError(f"a prefix donor {src_slot} of another rank "
+                             f"than slot {slot}'s")
+        own = self.split.own([slot, src_slot])
+        if own[0] == self.slots:
+            return state
+        slot, src_slot = int(own[0]), int(own[1])
         prompt = np.asarray(prompt, np.int64)
         plen = len(prompt)
         n = shared + bucket_suffix
@@ -372,7 +400,7 @@ def build_continuous_decoder(model, config: Optional[Config], *,
                              cache_batch_axis: int = 1, draft=None,
                              gamma: int = 4,
                              lookup_ngram: Optional[int] = None,
-                             device=None) -> ContinuousDecoder:
+                             device=None, mesh=None) -> ContinuousDecoder:
     """The continuous decoding state machine:
 
       init_state() -> DecodeState of `slots` empty rows;
@@ -390,7 +418,13 @@ def build_continuous_decoder(model, config: Optional[Config], *,
     draft-verify rounds of `gamma` proposals (``serving/speculative.py``);
     lookup_ngram=N: prompt-lookup rounds instead. Greedy rows stay plain
     greedy's tokens; stochastic rows use the rejection rule under their
-    own keyed noise, which differs from the plain steps' noise."""
+    own keyed noise, which differs from the plain steps' noise.
+
+    mesh: the rank's MeshLayout (a DIT with its config only): `slots` is
+    the global count, rounded up to the granule, and the decoder holds
+    this rank's (module docstring)."""
+    if mesh is not None and config is None:
+        raise ValueError("a mesh decoder serves a DIT: pass its config")
     if config is not None:
         m = config.model
         if m.full_attention:
@@ -420,7 +454,8 @@ def build_continuous_decoder(model, config: Optional[Config], *,
             return logits
     return ContinuousDecoder(apply_fn, cache_factory, restrict_fn, length,
                              slots, chunk, eos_id, cache_batch_axis, draft,
-                             gamma, lookup_ngram, device)
+                             gamma, lookup_ngram, device,
+                             SlotSplit(slots, config, mesh))
 
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -438,23 +473,35 @@ class ContinuousBatcher:
     capture must see no CUDA call from another thread); every device call
     of the worker holds it too.
 
-    Host reads: one transfer of (pos, active, x) a drain; the worker
-    drains only when it can matter (a stream is waiting, a row may have
-    reached its stop bound, or with an EOS the wall-clock deadline has
-    passed), and counts its drains in ``host_reads`` and its chunks in
-    ``chunks``. A device error fails the live futures and resets the
-    state; the worker survives."""
+    The device work is five ops, ``op_insert`` (a group's prefill),
+    ``op_prefix`` (a prefix-cache admission), ``op_chunk``, ``op_drain``
+    and ``op_reset``; each is passed to `announce(name, kwargs)` before it
+    runs, so that on a mesh (`mesh`, the rank's MeshLayout) the other
+    ranks' batchers, built with ``worker=False``, replay it on their
+    slots. ``slots`` is the global count (rounded up to the granule).
+
+    Host reads: one transfer of (pos, active, x) a drain (a gather to rank
+    0 on a mesh); the worker drains only when it can matter (a stream is
+    waiting, a row may have reached its stop bound, or with an EOS the
+    wall-clock deadline has passed), and counts its drains in
+    ``host_reads`` and its chunks in ``chunks``. A request is checked
+    before it is queued. A device error fails the live futures and
+    resets the state (the reset announced first); the worker survives."""
 
     def __init__(self, model, config: Optional[Config], *, slots: int = 8,
                  chunk: int = 8, eos_id: int = -1,
                  device_lock: Optional[threading.Lock] = None,
                  drain_deadline_s: float = 0.05, prefix_min: int = 16,
+                 mesh=None, announce=None, worker: bool = True,
                  **decoder_kwargs):
         self.config = config
-        self.slots, self.chunk, self.eos_id = slots, chunk, eos_id
+        self.chunk, self.eos_id = chunk, eos_id
         self.decoder = build_continuous_decoder(
             model, config, slots=slots, chunk=chunk, eos_id=eos_id,
-            **decoder_kwargs)
+            mesh=mesh, **decoder_kwargs)
+        self.split = self.decoder.split
+        self.slots = self.split.slots
+        self._announce = announce
         self.length = self.decoder.L
         self._max_advance = self.decoder.max_advance
         self._stop_cap = self.decoder.stop_cap
@@ -473,22 +520,24 @@ class ContinuousBatcher:
                 self.state = self.decoder.init_state()
                 self._decode = self.decoder.step_chunk
         self._queue: "queue.Queue" = queue.Queue()
-        self._slot_req: list = [None] * slots
+        self._slot_req: list = [None] * self.slots
         # automatic prefix caching: the prompt whose prefill K/V is resident
         # in each slot (valid until the slot is reused: decode writes only
         # positions >= its prompt length); prefix_min is the shortest
         # shared prefix worth a copy, 0 disables
         self._prefix_min = prefix_min
-        self._slot_prompt: list = [None] * slots
+        self._slot_prompt: list = [None] * self.slots
         self.prefix_hits = 0
         self.host_reads = 0     # (pos, active, x) transfers
         self.chunks = 0         # decode chunks run
         self.prefills = 0       # prefill forwards (admissions)
         self._seq = 0
         self._stopping = False
-        self._worker_thread = threading.Thread(target=self._worker,
-                                               daemon=True)
-        self._worker_thread.start()
+        self._worker_thread = None
+        if worker:
+            self._worker_thread = threading.Thread(target=self._worker,
+                                                   daemon=True)
+            self._worker_thread.start()
 
     def submit(self, prompt_ids: Sequence[int], *, max_new_tokens: int = 64,
                temperature: float = 0.0, seed: Optional[int] = None,
@@ -496,21 +545,28 @@ class ContinuousBatcher:
                stream_cb: Optional[Callable] = None) -> Future:
         """Queue a request. The Future resolves to {"tokens": the generated
         ids (EOS stripped), "prompt_len"}; stream_cb(new ids) is called from
-        the worker as tokens come to the host."""
+        the worker as tokens come to the host. A prompt of a length the
+        buffer cannot take fails its Future here, before it is queued."""
         if self._stopping:
             raise RuntimeError("batcher is shut down")
+        if self._worker_thread is None:
+            raise RuntimeError("this batcher replays a leader's ops; it "
+                               "takes no requests")
         fut: Future = Future()
-        self._queue.put(dict(prompt=np.asarray(prompt_ids, np.int64),
-                             modality=(None if modality is None else
-                                       np.asarray(modality, np.int64)),
-                             max_new=int(max_new_tokens),
-                             temperature=float(temperature), seed=seed,
-                             stream_cb=stream_cb, future=fut, emitted=0))
+        req = dict(prompt=np.asarray(prompt_ids, np.int64),
+                   modality=(None if modality is None else
+                             np.asarray(modality, np.int64)),
+                   max_new=int(max_new_tokens),
+                   temperature=float(temperature), seed=seed,
+                   stream_cb=stream_cb, future=fut, emitted=0)
+        if self._check_length(req):
+            self._queue.put(req)
         return fut
 
     def shutdown(self):
         self._stopping = True
-        self._worker_thread.join(timeout=30)
+        if self._worker_thread is not None:
+            self._worker_thread.join(timeout=30)
         exc = RuntimeError("batcher shut down")
         for slot, r in enumerate(self._slot_req):
             if r is not None and not r["future"].done():
@@ -523,6 +579,33 @@ class ContinuousBatcher:
                 break
             if not r["future"].done():
                 r["future"].set_exception(exc)
+
+    # -- the device ops (under the device lock; replayed on a mesh) ---------
+    def _op(self, name: str, **kw):
+        if self._announce is not None:
+            self._announce(name, kw)
+        return getattr(self, "op_" + name)(**kw)
+
+    def op_insert(self, slots_v, prompts, mod_rows, plens, max_news, temps,
+                  seeds):
+        self.decoder.insert_many(self.state, slots_v, prompts, mod_rows,
+                                 plens, max_news, temps, seeds)
+
+    def op_prefix(self, **kw):
+        self.decoder.insert_prefix(self.state, **kw)
+
+    def op_chunk(self):
+        self._decode(self.state)
+
+    def op_drain(self):
+        """(S, L + 2) rows of [pos, active, x] on the leader (None on the
+        other ranks): one host read, a gather on a mesh."""
+        st = self.state
+        return self.split.gather(torch.cat(
+            [st.pos[:, None], st.active.long()[:, None], st.x], 1))
+
+    def op_reset(self):
+        self.decoder.reset(self.state)
 
     # -- worker internals ---------------------------------------------------
     def _seed_of(self, req) -> int:
@@ -549,25 +632,26 @@ class ContinuousBatcher:
 
     def _admit_group(self, pairs):
         """Admit [(req, slot)] in one prefill (``insert_many``), each row
-        with its own seed (the client's, or a counter value)."""
-        valid = [(req, slot) for req, slot in pairs
-                 if self._check_length(req)]
-        if not valid:
-            return
-        plens = [len(req["prompt"]) for req, _ in valid]
+        with its own seed (the client's, or a counter value); their
+        lengths were checked at submit."""
+        plens = [len(req["prompt"]) for req, _ in pairs]
         bucket = min(_bucket(max(plens)), self.length)
-        prompts = np.zeros((len(valid), bucket), np.int64)
-        for i, (req, _) in enumerate(valid):
+        prompts = np.zeros((len(pairs), bucket), np.int64)
+        for i, (req, _) in enumerate(pairs):
             prompts[i, :plens[i]] = req["prompt"]
-        self.decoder.insert_many(
-            self.state, [slot for _, slot in valid], prompts,
-            np.stack([self._mod_row(req) for req, _ in valid]), plens,
-            [req["max_new"] for req, _ in valid],
-            np.asarray([req["temperature"] for req, _ in valid],
-                       np.float32),
-            [self._seed_of(req) for req, _ in valid])
+        self._op("insert", slots_v=np.asarray([slot for _, slot in pairs],
+                                              np.int64),
+                 prompts=prompts,
+                 mod_rows=np.stack([self._mod_row(req) for req, _ in pairs]),
+                 plens=np.asarray(plens, np.int64),
+                 max_news=np.asarray([req["max_new"] for req, _ in pairs],
+                                     np.int64),
+                 temps=np.asarray([req["temperature"] for req, _ in pairs],
+                                  np.float32),
+                 seeds=np.asarray([self._seed_of(req) for req, _ in pairs],
+                                  np.int64))
         self.prefills += 1
-        for (req, slot), plen in zip(valid, plens):
+        for (req, slot), plen in zip(pairs, plens):
             self._register_admission(req, slot, plen)
 
     def _register_admission(self, req, slot, plen):
@@ -579,16 +663,18 @@ class ContinuousBatcher:
         self._slot_req[slot] = req
         self._slot_prompt[slot] = np.asarray(req["prompt"], np.int64)
 
-    def _find_prefix_donor(self, prompt) -> Optional[tuple]:
+    def _find_prefix_donor(self, prompt, slot=None) -> Optional[tuple]:
         """(src_slot, shared) of the longest usable shared prefix among the
-        slots' resident prompts, or None; at most len(prompt) - 1 so the
-        suffix prefill is never empty."""
+        slots' resident prompts (on a mesh, those of `slot`'s rank), or
+        None; at most len(prompt) - 1 so the suffix prefill is never
+        empty."""
         if not self._prefix_min:
             return None
         p = np.asarray(prompt, np.int64)
         best, best_slot = 0, None
         for s, q in enumerate(self._slot_prompt):
-            if q is None:
+            if q is None or (slot is not None and self.split.owner(s)
+                             != self.split.owner(slot)):
                 continue
             m = min(len(q), len(p) - 1)
             if m < self._prefix_min or m <= best:
@@ -600,16 +686,15 @@ class ContinuousBatcher:
         return (best_slot, best) if best_slot is not None else None
 
     def _admit_prefix(self, req, slot, src_slot, shared):
-        if not self._check_length(req):
-            return
         plen = len(req["prompt"])
         # the suffix bucket must fit the buffer, or the write would clamp
         # onto the copied prefix
         bucket_s = min(_bucket(plen - shared), self.length - shared)
-        self.decoder.insert_prefix(
-            self.state, slot, src_slot, req["prompt"], self._mod_row(req),
-            shared, bucket_s, req["max_new"], req["temperature"],
-            self._seed_of(req))
+        self._op("prefix", slot=slot, src_slot=src_slot,
+                 prompt=np.asarray(req["prompt"], np.int64),
+                 mod_row=self._mod_row(req), shared=shared,
+                 bucket_suffix=bucket_s, max_new=req["max_new"],
+                 temperature=req["temperature"], seed=self._seed_of(req))
         self.prefix_hits += 1
         self.prefills += 1
         self._register_admission(req, slot, plen)
@@ -617,12 +702,9 @@ class ContinuousBatcher:
     def _drain(self):
         """Emit stream deltas and retire finished rows from one host copy
         of (pos, active, x)."""
-        S = self.slots
-        snap = torch.cat([self.state.pos, self.state.active.long(),
-                          self.state.x.reshape(-1)]).cpu().numpy()
+        snap = self._op("drain")
         self.host_reads += 1
-        pos, active = snap[:S], snap[S:2 * S].astype(bool)
-        x = snap[2 * S:].reshape(S, self.length)
+        pos, active, x = snap[:, 0], snap[:, 1].astype(bool), snap[:, 2:]
         self._last_drain = _time.monotonic()
         for slot, req in enumerate(self._slot_req):
             if req is None:
@@ -646,7 +728,7 @@ class ContinuousBatcher:
         group; a failure fails its requests."""
         group, admitted = [], False
         for req, slot in pairs:
-            donor = self._find_prefix_donor(req["prompt"])
+            donor = self._find_prefix_donor(req["prompt"], slot)
             if donor is None:
                 group.append((req, slot))
                 continue
@@ -668,7 +750,7 @@ class ContinuousBatcher:
 
     def _decode_and_drain(self, live):
         t0 = _time.monotonic()
-        self._decode(self.state)
+        self._op("chunk")
         self.chunks += 1
         chunk_s = _time.monotonic() - t0
         self._chunk_s = chunk_s if self._chunk_s is None \
@@ -708,15 +790,16 @@ class ContinuousBatcher:
                     try:
                         self._decode_and_drain(live)
                     except Exception as e:  # noqa: BLE001 — device error:
-                        # fail the live futures and reset, so callers never
-                        # hang on a dead worker
+                        # reset (announced first, so the other ranks reset
+                        # too), then fail the live futures, so callers
+                        # never hang on a dead worker
+                        self._op("reset")
                         for slot, r in enumerate(self._slot_req):
                             if r is not None and not r["future"].done():
                                 r["future"].set_exception(e)
                             self._slot_req[slot] = None
                         # the resident prompts' K/V is no longer trusted
                         self._slot_prompt = [None] * self.slots
-                        self.decoder.reset(self.state)
                         self._last_drain = _time.monotonic()
                     continue
             if not admitted and carry is None:

@@ -64,6 +64,28 @@ graph cannot hold a gloo collective, and NCCL capture of a mesh sampler is
 ROADMAP queue 1, item 9. The server's other ranks replay the leader's
 calls (``lead`` / ``follow``). An int8 engine on "pp", "tensor" or "ep"
 raises ``NotImplementedError`` (item 9).
+
+Rolling admission (``rolling=N``) and AR decoding (the continuous
+batcher, with ``ar_draft`` or ``lookup_ngram``) run on a mesh led by rank
+0 (``lead``; the other ranks ``follow``). Their slots are the global
+batch split over the data-parallel ranks: rank r owns slots [r S / dp,
+(r + 1) S / dp), S (N, or the continuous batcher's 8) rounded up to the
+mesh granule as a batch is (``parallel/sample.py::SlotSplit``). A
+request's tokens are the one-rank engine's at the same seeds: the keyed
+noise depends on the row's seed and step or position, not on its slot or
+rank. As in JAX, whose engine jits these programs outside
+``spmd_sampler``, a "seq" group runs the rolling and decode chunks
+replicated, without the ring: on dcn / fsdp / seq meshes a chunk holds no
+collective and stays one captured program a rank. Rolling on "pp" runs a
+chunk's forward as the pipeline (the slots a multiple of the
+microbatches), on "tensor" and "ep" each rank's parts, eager. The
+leader's batcher workers announce each device op (``_batcher_op``: the
+batcher's ``op_*`` by name, with global slot ids and host arrays) under
+the device lock before running it; a follower builds the same batchers at
+their first op, without a worker, and replays the op on its slots. The
+harvest and the drain are gathers over rank 0's data-parallel group.
+AR decoding on "tensor", "pp" or "ep", and an MoE AR model on a
+data-parallel mesh, raise ``NotImplementedError`` (item 9).
 """
 
 from __future__ import annotations
@@ -102,7 +124,21 @@ class _TextCompletion:
     """The AR text route that InferenceEngine and ElmEngine share: the
     prompt through the tokenizer into the continuous batcher, built at
     first use under a lock of its own (its capture takes the device
-    lock)."""
+    lock).
+
+    On a mesh (InferenceEngine's ``mesh``) the route runs led from rank 0
+    (``lead`` / ``follow``)."""
+
+    mesh = None          # the rank's MeshLayout on a mesh
+    _leading = False     # this rank leads the mesh (``lead``)
+
+    def _check_led(self, what: str) -> None:
+        """On a mesh, `what` runs led from rank 0: its batcher's worker ops
+        would otherwise meet no peer."""
+        if self.mesh is not None and not self._leading:
+            raise RuntimeError(f"{what} on a mesh is led from rank 0: call "
+                               f"lead() there and follow() on the other "
+                               f"ranks")
 
     def _continuous_batcher(self):
         raise NotImplementedError
@@ -117,6 +153,12 @@ class _TextCompletion:
                 self._continuous = self._continuous_batcher()
         return self._continuous
 
+    def shutdown(self) -> None:
+        """Stop the continuous batcher's worker (its outstanding futures
+        fail)."""
+        if self._continuous is not None:
+            self._continuous.shutdown()
+
     def _eos(self) -> int:
         eos = getattr(self.tokenizer, "eos_token_id", None)
         return eos if eos is not None else -1
@@ -127,6 +169,7 @@ class _TextCompletion:
         """A text completion through the continuous batcher: a Future of
         {"text", "tokens", "prompt_len"}; stream_cb(new ids) as tokens
         come to the host."""
+        self._check_led("AR decoding")
         prompt = self.tokenizer.encode(text or "", add_bos=True,
                                        add_eos=False)[:self.m.length - 2]
         # an id past the embedding table is a device-side assert on the
@@ -175,17 +218,15 @@ class InferenceEngine(_TextCompletion):
         if mesh is not None:
             from unidisc_tpu_torch.parallel.mesh import MeshLayout
             from unidisc_tpu_torch.parallel.sample import (batch_multiple,
+                                                           check_ar_mesh,
                                                            validate_mesh)
             from unidisc_tpu_torch.parallel.mesh import shard_model
             self.mesh = MeshLayout.of(mesh)
             validate_mesh(config, self.mesh)
+            check_ar_mesh(config, self.mesh.sizes)
             shard_model(self.model, self.mesh)
             self._batch_multiple = batch_multiple(config, self.mesh)
-            if rolling or ar_draft is not None or lookup_ngram:
-                raise NotImplementedError(
-                    "rolling admission and AR decoding on a mesh are not in "
-                    "the port yet (ROADMAP queue 1, item 13)")
-        self._leading = False
+        self._leading = self._following = False
         if tokenizer is None:
             from unidisc_tpu_torch.tokenizers.text import get_tokenizer
             tokenizer = get_tokenizer("byte")
@@ -243,18 +284,46 @@ class InferenceEngine(_TextCompletion):
         from unidisc_tpu_torch.sampling.ar_sampler import (
             init_kv_cache_for, make_apply_token)
         from unidisc_tpu_torch.serving.continuous import ContinuousBatcher
-        kw = {}
+        kw = self._batcher_kw("continuous")
         if self._ar_draft is not None:
             apply_token = make_apply_token(self._ar_draft)
             d_cfg, dev = self._ar_draft.cfg, self.device
-            kw = dict(draft=(lambda tok, mod, kv, ci: apply_token(
+            kw.update(draft=(lambda tok, mod, kv, ci: apply_token(
                 tok, kv, ci, mod), lambda b, n: init_kv_cache_for(
                     d_cfg, b, n, device=dev)), gamma=self._gamma)
         elif self._lookup_ngram:
-            kw = dict(lookup_ngram=self._lookup_ngram, gamma=self._gamma)
+            kw.update(lookup_ngram=self._lookup_ngram, gamma=self._gamma)
+        lock = kw.pop("dispatch_lock")
         return ContinuousBatcher(self.model, self.config, slots=8, chunk=8,
-                                 eos_id=self._eos(),
-                                 device_lock=self._device_lock, **kw)
+                                 eos_id=self._eos(), device_lock=lock, **kw)
+
+    def _batcher_kw(self, route: str) -> dict:
+        """The mesh arguments of a batcher of `route`: its layout, the
+        announcement of its ops to the followers, and on a follower no
+        worker (and a lock of its own: the follower replays under the
+        device lock already)."""
+        kw = dict(dispatch_lock=self._device_lock)
+        if self.mesh is not None:
+            kw.update(mesh=self.mesh, announce=lambda op, args: self._announce(
+                "_batcher_op", dict(route=route, op=op, kw=args)))
+            if self._following:
+                kw.update(dispatch_lock=None, worker=False)
+        return kw
+
+    def _batcher_op(self, route: str, op: str, kw: dict):
+        """A follower's replay of one of the leader's batcher ops: the
+        batcher of `route` ("continuous", "rolling:t2i" or
+        "rolling:generic"), built at its first op, runs op_<op>(**kw) on
+        this rank's slots. An op it has not raises (and the rank exits,
+        ``follow``)."""
+        if route == "continuous":
+            batcher = self.continuous
+        else:
+            kind = route.partition(":")[2]
+            if kind not in ("t2i", "generic"):
+                raise ValueError(f"unknown batcher route {route!r}")
+            batcher = self._rolling_batcher(kind)
+        return getattr(batcher, "op_" + op)(**kw)
 
     def _interleaved_sampler(self, steps: Optional[int] = None):
         """The packed generic sampler of interleaved documents, one row."""
@@ -462,7 +531,7 @@ class InferenceEngine(_TextCompletion):
                     else RollingDiffusionBatcher
                 self._rolling[kind] = cls(
                     self.model, self.config, slots=self._rolling_slots,
-                    dispatch_lock=self._device_lock, device=self.device)
+                    device=self.device, **self._batcher_kw(f"rolling:{kind}"))
         return self._rolling[kind]
 
     def _layout(self, batch: int) -> np.ndarray:
@@ -560,7 +629,8 @@ class InferenceEngine(_TextCompletion):
     # requests) sends each device call to the other ranks, which replay it
     def lead(self) -> None:
         """Make this rank the leader: every later run_batch and
-        run_interleaved is broadcast to the followers first."""
+        run_interleaved, and every device op of the batchers' workers, is
+        broadcast to the followers first."""
         self._leading = True
 
     def _announce(self, name: str, kw: dict) -> None:
@@ -576,6 +646,7 @@ class InferenceEngine(_TextCompletion):
         rank that went on would pair its next collective with the wrong
         one of the leader's."""
         import torch.distributed as dist
+        self._following = True
         while True:
             msg = [None]
             dist.broadcast_object_list(msg, src=0)
@@ -586,10 +657,21 @@ class InferenceEngine(_TextCompletion):
                 getattr(self, name)(**kw)
 
     def stop_followers(self) -> None:
+        """End the followers' ``follow``; after the batchers' workers have
+        stopped (``shutdown``), or a late op would meet no follower."""
         if self._leading:
             import torch.distributed as dist
-            dist.broadcast_object_list([None], src=0)
-            self._leading = False
+            with self._device_lock:
+                dist.broadcast_object_list([None], src=0)
+                self._leading = False
+
+    def shutdown(self) -> None:
+        """Stop the rolling batchers' and the continuous batcher's workers
+        (their outstanding futures fail), then the followers."""
+        for batcher in list(self._rolling.values()):
+            batcher.shutdown()
+        super().shutdown()
+        self.stop_followers()
 
     def _run_batch_locked(self, prepared, *, steps, seed, pad_to):
         m = self.m
@@ -625,6 +707,7 @@ class InferenceEngine(_TextCompletion):
         """Each request into the rolling batcher of its kind, with the row
         seed of the JAX engine; the images decoded under the device lock."""
         m = self.m
+        self._check_led("rolling admission")
         fastpath = all(p["fastpath"] for p in prepared) and \
             self.config.sampling.maskgit_dilation in (None, 0, 1)
         batcher = self._rolling_batcher("t2i" if fastpath else "generic")
@@ -906,8 +989,16 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
       ranks of a process group (one process per device, started by
       torchrun, ``utils/dist.py::initialize``): every rank builds the same
       engine and makes the same calls (the server's followers replay the
-      leader's, ``serving/server.py``). "pp", "tensor" and "ep" > 1 raise
-      NotImplementedError naming ROADMAP queue 1, item 9."""
+      leader's, ``serving/server.py``). With ``rolling=N`` or an AR model
+      the engine is led from rank 0 (``lead`` / ``follow``): the slots
+      (N, rounded up to the mesh granule) are split over the
+      data-parallel ranks and "seq" runs them replicated, as in JAX
+      (module docstring). What the mesh cannot run raises
+      NotImplementedError naming ROADMAP queue 1, item 9 before the world
+      is joined: int8 on "pp", "tensor" or "ep"
+      (``parallel/mesh.py::check_mesh_model``), and AR decoding on
+      "tensor", "pp" or "ep" or of an MoE model on a data-parallel mesh
+      (``parallel/sample.py::check_ar_mesh``)."""
     if preset == "elm" or preset.startswith("elm:"):
         if checkpoint or reference_ckpt:
             raise ValueError("the OpenELM route takes no checkpoint (serve "
@@ -949,10 +1040,12 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     live_mesh = None
     if mesh:
         from unidisc_tpu_torch.parallel.mesh import check_mesh_model
+        from unidisc_tpu_torch.parallel.sample import check_ar_mesh
         # what the mesh cannot run is refused before the world is joined
         check_mesh_model(dataclasses.replace(config.model, quant="int8")
                          if quantize else config.model,
                          mesh_spec_sizes(mesh))
+        check_ar_mesh(config, mesh_spec_sizes(mesh))
         live_mesh, mesh_kw = parse_mesh_spec(mesh, dev)
         config = config.override(**{f"mesh.{k}": v
                                     for k, v in mesh_kw.items()})

@@ -27,6 +27,20 @@ Restrictions, as in JAX: predictor must be "maskgit"; ``sampling.cfg ==
 The t2i path runs its CFG pass at every step (the JAX one skips it by a
 device branch when every row's weight is 0; a guidance weight of 0 gives
 the conditional logits either way).
+
+On a device mesh (``mesh=``, a ``parallel/mesh.py::MeshLayout``) the S
+slots are the global batch, split over the data-parallel ranks
+(``parallel/sample.py::SlotSplit``): a rank's state machine holds its
+slots' rows, takes global slot ids in ``insert_many`` (dropping the other
+ranks') and reads injected noise at its global rows. A chunk runs outside
+the "seq" ring, as JAX jits it outside ``spmd_sampler``; under "pp" its
+forward runs in ``pipeline_parallel``. The keyed noise depends only on
+(row seed, row step, tag), so a request's tokens are the one-rank
+batcher's whatever its slot or rank. The threaded front end runs on the
+leader (rank 0): each device op is an ``op_*`` method, announced before it
+runs (``announce``) so that the other ranks' batchers, built without a
+worker, replay it on their slots; the harvest is a gather of the rows to
+rank 0.
 """
 
 from __future__ import annotations
@@ -43,7 +57,9 @@ from unidisc_tpu_torch.config import Config
 from unidisc_tpu_torch.device import resolve_device
 from unidisc_tpu_torch.diffusion.noise import get_noise
 from unidisc_tpu_torch.diffusion.subs import subs_parameterization
+from unidisc_tpu_torch.parallel.sample import SlotSplit, has_collectives
 from unidisc_tpu_torch.sampling.sampler import (_LOG_1E_30,
+                                                cfg_forward,
                                                 check_model_device,
                                                 confidence_threshold,
                                                 guidance_weight_t)
@@ -174,7 +190,7 @@ class _Rolling:
     its in-place scatter and reset, the per-row timestep, the chunk loop."""
 
     def __init__(self, model, config: Config, slots, num_steps, chunk,
-                 inject_noise, device, extra):
+                 inject_noise, device, extra, mesh=None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
         s = config.sampling
@@ -190,7 +206,9 @@ class _Rolling:
         self.model, self.config = model, config
         self.noise = get_noise(config.noise)
         self.steps = num_steps or s.steps   # per-row maximum and default
-        self.slots, self.chunk = slots, chunk
+        # slots: this rank's rows of the split's global slots
+        self.split = SlotSplit(slots, config, mesh)
+        self.slots, self.chunk = self.split.local, chunk
         self.inject_noise = inject_noise
         self.use_cfg = s.cfg is not None
         self.extra = extra
@@ -221,13 +239,15 @@ class _Rolling:
 
     def _scatter(self, state: RollingState, slots_v, rows: dict, seeds,
                  steps_v, num_masked) -> None:
-        """Write n requests into their slots in place. Slots >= S are
-        padding and are dropped here, on the host (admission groups are
-        bucketed). The schedule is computed on the host, so a request's
+        """Write n requests into their slots in place. slots_v are global
+        slot ids: slots >= S are padding and, on a mesh, other ranks' slots
+        are theirs; both are dropped here, on the host (admission groups
+        are bucketed). The schedule is computed on the host, so a request's
         schedule is the same whichever device serves it."""
         slots_v = np.asarray(torch.as_tensor(slots_v).cpu()).astype(np.int64)
         if (slots_v < 0).any():
             raise ValueError(f"negative slot in {slots_v.tolist()}")
+        slots_v = self.split.own(slots_v)
         n = slots_v.shape[0]
         if steps_v is None:
             steps_v = torch.full((n,), self.steps, dtype=torch.long)
@@ -261,9 +281,11 @@ class _Rolling:
         return torch.where(st.step >= rs, eps, t_lin), step_c
 
     def _picked_noise(self, injected, name, st):
-        """Each row's injected noise at its own step."""
+        """Each row's injected noise at its own step and its global
+        slot."""
         gi = st.step.clamp(0, self.steps - 1)
-        return injected[name][gi, torch.arange(self.slots,
+        lo = self.split.lo
+        return injected[name][gi, torch.arange(lo, lo + self.slots,
                                                device=gi.device)]
 
     def _advance(self, st: RollingState) -> None:
@@ -280,8 +302,9 @@ class _Rolling:
         if injected is not None:
             injected = {k: torch.as_tensor(v).to(self.device, torch.float32)
                         for k, v in injected.items()}
-        for _ in range(self.chunk):
-            self._body(state, injected)
+        with self.split.forward():
+            for _ in range(self.chunk):
+                self._body(state, injected)
         return state
 
 
@@ -289,15 +312,16 @@ class RollingSampler(_Rolling):
     """The generic rolling sampler (``build_rolling_sampler``)."""
 
     def __init__(self, model, config, slots, num_steps, chunk, inject_noise,
-                 device):
+                 device, mesh=None):
         super().__init__(model, config, slots, num_steps, chunk,
                          inject_noise, device,
-                         1 if config.sampling.noise_removal else 0)
+                         1 if config.sampling.noise_removal else 0, mesh)
 
     def noise_shapes(self) -> dict:
-        """The injected noise arrays this sampler reads, by name."""
+        """The injected noise arrays this sampler reads, by name (at the
+        global slots)."""
         m = self.config.model
-        base = (self.steps, self.slots, m.length)
+        base = (self.steps, self.split.slots, m.length)
         return {"exp": base + (m.vocab_size,), "gumbel": base}
 
     @torch.no_grad()
@@ -327,10 +351,8 @@ class RollingSampler(_Rolling):
             if m.force_argmax_valid_indices else {}
         if self.use_cfg:
             x_uncond = torch.where(st.unmask, mask_index, st.x)
-            logits = self.model(torch.cat([st.x, x_uncond], 0),
-                                torch.cat([sigma, sigma], 0),
-                                modality=torch.cat([st.modality,
-                                                    st.modality], 0))
+            logits = cfg_forward(self.model, st.x, x_uncond, sigma,
+                                 modality=st.modality)
             logit_c, logit_u = logits.chunk(2, dim=0)
             w = guidance_weight_t(self.config.sampling, t)[:, None, None]
             combined = (1 + w) * logit_c - w * logit_u
@@ -386,7 +408,7 @@ class RollingT2ISampler(_Rolling):
     conditioning by construction."""
 
     def __init__(self, model, config, slots, num_steps, chunk, inject_noise,
-                 device):
+                 device, mesh=None):
         s = config.sampling
         if s.predictor != "maskgit":
             raise ValueError("rolling t2i supports predictor='maskgit'")
@@ -394,19 +416,20 @@ class RollingT2ISampler(_Rolling):
             raise ValueError("rolling t2i does not schedule dilated groups; "
                              "use per-request low step counts instead")
         super().__init__(model, config, slots, num_steps, chunk,
-                         inject_noise, device, 1)
+                         inject_noise, device, 1, mesh)
         from unidisc_tpu_torch.sampling.t2i_fast import img_log_weights_fn
         m = config.model
         self._log_w = img_log_weights_fn(model, config)
         self._modality = torch.cat([
-            torch.zeros((slots, m.txt_length), dtype=torch.long),
-            torch.ones((slots, m.img_length), dtype=torch.long)], -1).to(
-                self.device)
+            torch.zeros((self.slots, m.txt_length), dtype=torch.long),
+            torch.ones((self.slots, m.img_length), dtype=torch.long)],
+            -1).to(self.device)
 
     def noise_shapes(self) -> dict:
-        """The injected noise arrays this sampler reads, by name."""
+        """The injected noise arrays this sampler reads, by name (at the
+        global slots)."""
         m = self.config.model
-        base = (self.steps, self.slots, m.img_length)
+        base = (self.steps, self.split.slots, m.img_length)
         return {"gumbel_tok": base + (m.image_vocab_size,),
                 "gumbel_conf": base}
 
@@ -463,10 +486,11 @@ class RollingT2ISampler(_Rolling):
 
 def build_rolling_sampler(model, config: Config, *, slots: int,
                           num_steps: Optional[int] = None, chunk: int = 8,
-                          inject_noise: bool = False,
-                          device="cuda") -> RollingSampler:
+                          inject_noise: bool = False, device="cuda",
+                          mesh=None) -> RollingSampler:
     """The generic rolling state machine over `model` (already on `device`,
-    in eval mode):
+    in eval mode; on a mesh, `mesh` the rank's MeshLayout and `slots` the
+    global count, module docstring):
 
       init_state() -> RollingState
       insert_many(state, slots_v, x0, unmask, modality, seeds[, steps_v])
@@ -478,19 +502,19 @@ def build_rolling_sampler(model, config: Config, *, slots: int,
     V), "gumbel" (steps, S, L)}, each row reading its own step's slice, the
     JAX contract; otherwise the keyed noise."""
     return RollingSampler(model, config, slots, num_steps, chunk,
-                          inject_noise, device)
+                          inject_noise, device, mesh)
 
 
 def build_rolling_t2i(model, config: Config, *, slots: int,
                       num_steps: Optional[int] = None, chunk: int = 8,
-                      inject_noise: bool = False,
-                      device="cuda") -> RollingT2ISampler:
+                      inject_noise: bool = False, device="cuda",
+                      mesh=None) -> RollingT2ISampler:
     """The span-factored t2i rolling state machine; as
     ``build_rolling_sampler`` with insert_many(state, slots_v, txt, seeds[,
     steps_v]) and injected {"gumbel_tok" (steps, S, Li, image_vocab),
     "gumbel_conf" (steps, S, Li)}."""
     return RollingT2ISampler(model, config, slots, num_steps, chunk,
-                             inject_noise, device)
+                             inject_noise, device, mesh)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -510,30 +534,47 @@ class RollingDiffusionBatcher:
     with dropped slot-S rows, one insert an admission group) and advances
     the whole batch `chunk` denoise steps per dispatch. On the card the
     chunk is the captured program over the batcher's static state, built
-    here under the dispatch lock.
+    here under the dispatch lock (eager where the mesh puts collectives in
+    the chunk, ``parallel/sample.py::has_collectives``).
 
-    A device error in the worker fails every owned and queued future and
-    resets the state, so callers never hang on a dead worker; shutdown()
-    fails what is outstanding too. `dispatch_lock` serializes device work
-    with the engine's other routes (the engine passes its _device_lock: a
-    capture in progress must see no CUDA call from another thread)."""
+    The device work is five ops, ``op_insert``, ``op_chunk``,
+    ``op_harvest`` (step and active of every slot), ``op_rows`` (the token
+    rows, read only when a row finished) and ``op_reset``; each is passed
+    to `announce(name, kwargs)` before it runs, so that on a mesh (`mesh`,
+    the rank's MeshLayout) the other ranks' batchers, built with
+    ``worker=False``, replay it on their slots. ``slots`` is the global
+    count (rounded up to the mesh granule); the harvest's reads are
+    gathers to rank 0. Counters: ``chunks``, ``harvests``, ``row_reads``.
+
+    A device error in the worker announces the reset, resets the state
+    and fails every owned and queued future, so callers never hang on a
+    dead worker; shutdown() fails what is outstanding too.
+    `dispatch_lock` serializes device work with the engine's other routes
+    (the engine passes its _device_lock: a capture in progress must see no
+    CUDA call from another thread)."""
 
     def __init__(self, model, config: Config, *, slots: int = 8,
                  chunk: int = 8, num_steps: Optional[int] = None,
-                 dispatch_lock=None, device="cuda"):
+                 dispatch_lock=None, device="cuda", mesh=None,
+                 announce=None, worker: bool = True):
         self.built = build_rolling_sampler(model, config, slots=slots,
                                            chunk=chunk, num_steps=num_steps,
-                                           device=device)
-        self.slots = slots
-        self.L = config.model.length
-        self._start(dispatch_lock)
+                                           device=device, mesh=mesh)
+        self._start(config, mesh, dispatch_lock, announce, worker)
 
     # shared front-end machinery (also used by RollingT2IBatcher)
-    def _start(self, dispatch_lock):
+    def _start(self, config, mesh, dispatch_lock, announce, worker):
+        self.L, self.Lt = config.model.length, config.model.txt_length
+        self.vocab_size = config.model.vocab_size
+        self.split = self.built.split
+        self.slots = self.split.slots
+        self._announce = announce
         self._dispatch_lock = dispatch_lock or threading.Lock()
         self.program = None
         with self._dispatch_lock:
-            if self.built.device.type == "cuda":
+            if self.built.device.type == "cuda" and not (
+                    mesh is not None and has_collectives(config, mesh,
+                                                         ring=False)):
                 from unidisc_tpu_torch.sampling.graph import CapturedChunk
                 self.program = CapturedChunk(self.built)
                 self.state = self.program.state
@@ -541,6 +582,7 @@ class RollingDiffusionBatcher:
             else:
                 self.state = self.built.init_state()
                 self.step_chunk = self.built.step_chunk
+        self.chunks = self.harvests = self.row_reads = 0
         self._pending: "queue.Queue" = queue.Queue()
         self._submit_lock = threading.Lock()
         self._owner = [None] * self.slots   # slot -> Future | None
@@ -548,8 +590,11 @@ class RollingDiffusionBatcher:
         self._done = [self.built.done_at] * self.slots
         self._stop = False
         self._wake = threading.Event()
-        self._thread = threading.Thread(target=self._worker, daemon=True)
-        self._thread.start()
+        self._thread = None
+        if worker:
+            self._thread = threading.Thread(target=self._worker,
+                                            daemon=True)
+            self._thread.start()
 
     def _check_steps(self, steps: Optional[int]) -> int:
         steps = self.built.steps if steps is None else int(steps)
@@ -557,25 +602,64 @@ class RollingDiffusionBatcher:
             raise ValueError(f"steps={steps} outside [1, {self.built.steps}]")
         return steps
 
+    def _check_ids(self, *rows) -> None:
+        """Every id of a request inside the vocabulary, checked before it
+        is queued (an id past the embedding table is a device-side assert
+        on the card, and on a mesh no replay may fail on a request)."""
+        for row in rows:
+            if row.size and (row.min() < 0 or row.max() >= self.vocab_size):
+                raise ValueError(f"token ids outside [0, {self.vocab_size})")
+
+    # ------------------------------------------------------------------
+    # the device ops (run under the dispatch lock; replayed on a mesh)
+    def _op(self, name: str, **kw):
+        if self._announce is not None:
+            self._announce(name, kw)
+        return getattr(self, "op_" + name)(**kw)
+
+    def op_insert(self, slots_v, rows, seeds, steps_v):
+        x0, unmask, modality = rows
+        self.built.insert_many(self.state, slots_v, x0, unmask, modality,
+                               seeds, steps_v)
+
+    def op_chunk(self):
+        self.step_chunk(self.state)
+        self.chunks += 1
+
+    def op_harvest(self):
+        """(S, 2) step and active of every global slot on the leader
+        (None on the other ranks): one host read, a gather on a mesh."""
+        self.harvests += 1
+        return self.split.gather(torch.stack(
+            [self.state.step, self.state.active.long()], 1))
+
+    def op_rows(self):
+        """The (S, L) token rows on the leader (None elsewhere)."""
+        self.row_reads += 1
+        return self.split.gather(self.state.x)
+
+    def op_reset(self):
+        self.built.reset(self.state)
+
     def warmup(self):
         """One all-padding admission per bucket and one chunk on the empty
         state, under the dispatch lock (the capture happened at
-        construction)."""
+        construction); announced like any op."""
         with self._dispatch_lock:
             b = 1
             while True:
                 b = min(b, self.slots)
-                self._dispatch_insert(np.full((b,), self.slots, np.int64),
-                                      self._empty_rows(b),
-                                      np.zeros((b,), np.int64),
-                                      np.full((b,), self.built.steps,
-                                              np.int64))
+                self._op("insert", slots_v=np.full((b,), self.slots,
+                                                   np.int64),
+                         rows=self._empty_rows(b),
+                         seeds=np.zeros((b,), np.int64),
+                         steps_v=np.full((b,), self.built.steps, np.int64))
                 if b == self.slots:
                     break
                 b *= 2
             if not any(o is not None for o in self._owner):
-                self.step_chunk(self.state)
-                self.state.step.cpu()
+                self._op("chunk")
+                self._op("harvest")
 
     def submit(self, x0: np.ndarray, unmask: np.ndarray,
                modality: Optional[np.ndarray] = None, seed: int = 0,
@@ -586,9 +670,13 @@ class RollingDiffusionBatcher:
         if modality is None:
             modality = np.zeros((self.L,), np.int64)
         steps = self._check_steps(steps)
-        self._enqueue(((np.asarray(x0, np.int64), np.asarray(unmask, bool),
-                        np.asarray(modality, np.int64)), int(seed), steps,
-                       fut))
+        row = (np.asarray(x0, np.int64), np.asarray(unmask, bool),
+               np.asarray(modality, np.int64))
+        if row[0].shape != (self.L,) or row[1].shape != (self.L,) \
+                or row[2].shape != (self.L,):
+            raise ValueError(f"a request row is ({self.L},)")
+        self._check_ids(row[0])
+        self._enqueue((row, int(seed), steps, fut))
         return fut
 
     def _enqueue(self, item):
@@ -597,6 +685,9 @@ class RollingDiffusionBatcher:
         with self._submit_lock:
             if self._stop:
                 raise RuntimeError("batcher is shut down")
+            if self._thread is None:
+                raise RuntimeError("this batcher replays a leader's ops; "
+                                   "it takes no requests")
             self._pending.put(item)
         self._wake.set()
 
@@ -604,7 +695,8 @@ class RollingDiffusionBatcher:
         with self._submit_lock:
             self._stop = True
         self._wake.set()
-        self._thread.join(timeout=30)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
         self._fail_outstanding(RuntimeError("batcher shut down"))
 
     def _fail_outstanding(self, exc):
@@ -649,7 +741,8 @@ class RollingDiffusionBatcher:
             seeds[j], steps_v[j] = seed, stp
             self._owner[slot] = fut
             self._done[slot] = stp + self.built.extra
-        self._dispatch_insert(slots_v, rows, seeds, steps_v)
+        self._op("insert", slots_v=slots_v, rows=rows, seeds=seeds,
+                 steps_v=steps_v)
         return True
 
     # per-mode row packing hooks
@@ -660,22 +753,16 @@ class RollingDiffusionBatcher:
     def _fill_row(self, rows, j, row):
         rows[0][j], rows[1][j], rows[2][j] = row
 
-    def _dispatch_insert(self, slots_v, rows, seeds, steps_v):
-        x0, unmask, modality = rows
-        self.built.insert_many(self.state, slots_v, x0, unmask, modality,
-                               seeds, steps_v)
-
     # ------------------------------------------------------------------
     def _harvest(self):
         """One read of step and active (S,) a chunk decides who finished;
         the (S, L) tokens come to the host only when someone did."""
-        step, active = torch.stack([self.state.step,
-                                    self.state.active.long()]).cpu().numpy()
+        step, active = self._op("harvest").T
         done = [i for i, o in enumerate(self._owner)
                 if o is not None and active[i] and step[i] >= self._done[i]]
         if not done:
             return
-        rows = self.state.x.cpu().numpy()
+        rows = self._op("rows")
         for i in done:
             fut, self._owner[i] = self._owner[i], None
             if not fut.done():
@@ -692,16 +779,17 @@ class RollingDiffusionBatcher:
                     self._wake.clear()
                     continue
                 with self._dispatch_lock:
-                    self.step_chunk(self.state)
+                    self._op("chunk")
                     self._harvest()
             except Exception as e:  # noqa: BLE001 — device errors
-                # reset, then fail everyone: callers must never hang on a
-                # dead worker, and a caller whose future failed finds the
-                # state already reset
+                # reset (announced first, so the other ranks reset too),
+                # then fail everyone: callers must never hang on a dead
+                # worker, and a caller whose future failed finds the state
+                # already reset
                 self._done = [self.built.done_at] * self.slots
                 try:
                     with self._dispatch_lock:
-                        self.built.reset(self.state)
+                        self._op("reset")
                 except Exception:  # noqa: BLE001
                     self._stop = True
                 self._fail_outstanding(e)
@@ -712,25 +800,27 @@ class RollingDiffusionBatcher:
 class RollingT2IBatcher(RollingDiffusionBatcher):
     """The rolling front end on the span-factored t2i path
     (``build_rolling_t2i``): submit() takes the text prompt row. Shares the
-    worker, harvest and failure handling with the base class; only the
-    build and the row-packing hooks differ."""
+    worker, the ops, the harvest and failure handling with the base class;
+    only the build and the row-packing hooks differ."""
 
     def __init__(self, model, config: Config, *, slots: int = 8,
                  chunk: int = 8, num_steps: Optional[int] = None,
-                 dispatch_lock=None, device="cuda"):
+                 dispatch_lock=None, device="cuda", mesh=None,
+                 announce=None, worker: bool = True):
         self.built = build_rolling_t2i(model, config, slots=slots,
                                        chunk=chunk, num_steps=num_steps,
-                                       device=device)
-        self.slots = slots
-        self.L = config.model.length
-        self.Lt = config.model.txt_length
-        self._start(dispatch_lock)
+                                       device=device, mesh=mesh)
+        self._start(config, mesh, dispatch_lock, announce, worker)
 
     def submit(self, txt: np.ndarray, seed: int = 0,
                steps: Optional[int] = None) -> Future:
         fut: Future = Future()
         steps = self._check_steps(steps)
-        self._enqueue((np.asarray(txt, np.int64), int(seed), steps, fut))
+        txt = np.asarray(txt, np.int64)
+        if txt.shape != (self.Lt,):
+            raise ValueError(f"a text row is ({self.Lt},)")
+        self._check_ids(txt)
+        self._enqueue((txt, int(seed), steps, fut))
         return fut
 
     def _empty_rows(self, n):
@@ -739,5 +829,5 @@ class RollingT2IBatcher(RollingDiffusionBatcher):
     def _fill_row(self, rows, j, row):
         rows[j] = row
 
-    def _dispatch_insert(self, slots_v, rows, seeds, steps_v):
+    def op_insert(self, slots_v, rows, seeds, steps_v):
         self.built.insert_many(self.state, slots_v, rows, seeds, steps_v)

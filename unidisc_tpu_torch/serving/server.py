@@ -16,11 +16,25 @@ and with ``stream: true`` streams the text as it decodes. A request with
 answered as an ``interleaved.completion``; any engine error answers 500
 with its message.
 
+On a device mesh (``--mesh``, under torchrun: one process per device)
+rank 0 serves HTTP and leads, and the other ranks replay its device calls
+(``engine.follow``): whole batches, and with ``--rolling N`` or an AR
+model every op of the rolling and continuous batchers' workers. Their
+slots are the global batch split over the data-parallel ranks (N, or the
+continuous batcher's 8, rounded up to the mesh granule), and "seq" runs
+them replicated, without the ring, as in JAX. AR decoding on "tensor",
+"pp" or "ep", or of an MoE model on a data-parallel mesh, raises
+NotImplementedError naming ROADMAP queue 1, item 9. On the way out the
+batchers' workers stop before the followers do (``close_server``).
+
 Run: python -m unidisc_tpu_torch.serving.server --port 8000 [--ckpt DIR]
          [--codec llamagen-vq16] [--rolling 8] [--quantize int8]
          [--scaffold tiny --scaffold-split 8] [--device cpu]
      python -m unidisc_tpu_torch.serving.server --model elm [--quantize int8
          --kv-cache int8] [--speculative 270m|lookup [--gamma 4]]
+     torchrun --nproc-per-node 4 -m unidisc_tpu_torch.serving.server
+         --mesh fsdp=2,seq=2 --rolling 8 [--device cpu --model tiny
+         --experiments fid_eval]
 """
 
 from __future__ import annotations
@@ -408,8 +422,8 @@ def make_server(engine: InferenceEngine, port: int = 8000,
     """A server bound to (host, port) (port 0: any free port) whose handler
     threads share `engine`, a RequestBatcher over it (``srv.batcher``), a
     response cache and the metrics (``srv.metrics``). Call
-    ``serve_forever`` in a thread; ``shutdown``, ``server_close`` and
-    ``batcher.shutdown`` stop it."""
+    ``serve_forever`` in a thread; ``shutdown`` and ``close_server`` stop
+    it."""
     if batcher is None:
         batcher = RequestBatcher(engine, max_batch=max_batch,
                                  max_wait_ms=max_wait_ms)
@@ -421,7 +435,18 @@ def make_server(engine: InferenceEngine, port: int = 8000,
     srv.daemon_threads = True
     srv.batcher = batcher
     srv.metrics = metrics
+    srv.engine = engine
     return srv
+
+
+def close_server(srv: ThreadingHTTPServer) -> None:
+    """Close a server of ``make_server`` whose loop has stopped: its
+    socket, its request batcher, then the engine's batchers' workers and,
+    on a mesh, its followers, in that order (a worker's late op must find
+    the followers still replaying)."""
+    srv.server_close()
+    srv.batcher.shutdown()
+    srv.engine.shutdown()
 
 
 def main(argv: Optional[list] = None):
@@ -500,10 +525,7 @@ def main(argv: Optional[list] = None):
     try:
         server.serve_forever()
     finally:
-        server.server_close()
-        server.batcher.shutdown()
-        if engine.mesh is not None:
-            engine.stop_followers()
+        close_server(server)
 
 
 if __name__ == "__main__":
