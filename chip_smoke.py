@@ -347,10 +347,26 @@ and prints no result):
      on their rows (drawing the global batch's noise), serving 8 requests
      equal token for token (MESH2_DP_ENGINE_AGREEMENT) to the one-rank
      engine at the same seed, one program a rank, launches exact (the
-     first call's warm run and its replay). Line `mesh2`; the
+     first call's warm run and its replay); (d) int8 W8A8 on the mesh:
+     on pp 2 x tensor 2's tensor group each row-parallel product
+     (attn_out's and mlp.2's K-slices at 2 x REQUESTS x L rows, bf16 out)
+     through qdot_row_parallel bit for bit the one-rank qdot on every
+     rank, then build_engine(quantize="int8", mesh=) serving 8 requests
+     on its part of the one-rank int8 engine's weights, the int8 headline
+     on pp 2 x tensor 2 and the int8 MoE flagship on dcn 2 x ep 2, each
+     agreeing >= MESH_TOKEN_AGREEMENT with the one-rank int8 engine at the
+     same seed, its ranks' ids equal, launches exact (a tensor rank's
+     attn_out and mlp.2 a row_amax, a quantize_by_amax and an int32
+     int8_matmul each). Before the world, the row-parallel kernels at a
+     tensor-2 rank's shapes against their plain versions, exactly: the
+     int32 form of int8_matmul at (6144, 384, 768) and (6144, 1536, 768),
+     row_amax and quantize_by_amax at (6144, 384) and (6144, 1536) in bf16
+     and fp32 (quantize_by_amax given the whole row's amax equal to
+     dynamic_quantize of the whole row), timed beside the bound and
+     torch._int_mm / torch.linalg.vector_norm. Line `mesh2`; the
      kernels line counts the paths mesh2_train_pp, mesh2_train_tensor,
-     mesh2_train_moe, mesh2_serve, mesh2_engine and mesh2_dp_engine,
-     summed over the ranks.
+     mesh2_train_moe, mesh2_serve, mesh2_engine, mesh2_dp_engine,
+     mesh2_int8_engine and mesh2_moe_int8_engine, summed over the ranks.
   5j. evaluation: unidisc_tpu_torch.eval_run.main in-process on phase 5's
      run dir (its step-TRAIN_STEPS checkpoint copied into a run dir whose
      snapshot samples as the flagship serves: maskgit, 32 steps, CFG 2.0),
@@ -572,6 +588,24 @@ KERNELS = {
     # the int8 path's per-row activation quantize: no Pallas kernel in the
     # JAX package (XLA fuses it); an entry of the fused_qmm source
     "dynamic_quantize": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
+        "replaces": "unidisc_tpu/ops/quant.py:51",
+    },
+    # a tensor rank's row-parallel int8 product (phase 5i): the int8
+    # kernel with its epilogue skipped (int32 out), and dynamic_quantize
+    # split in two around the group's max of the row amax
+    "int8_matmul_int32": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "unidisc_tpu/ops/int8_matmul.py:53",
+    },
+    "row_amax": {
+        "route": "cuda",
+        "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
+        "replaces": "unidisc_tpu/ops/quant.py:51",
+    },
+    "quantize_by_amax": {
         "route": "cuda",
         "source": "unidisc_tpu_torch/ops/csrc/fused_qmm.cu",
         "replaces": "unidisc_tpu/ops/quant.py:51",
@@ -6704,9 +6738,12 @@ MESH2_TRAIN_MESHES = {
 MESH2_SERVE_SPEC = dict(dcn=1, fsdp=1, pp=2, tensor=2, pp_microbatches=2)
 # dense data parallelism, whose engine runs its captured program
 MESH2_DP_ENGINE_SPEC = "dcn=2,fsdp=2"
-MESH2_RUNS = tuple(MESH2_TRAIN_MESHES) + ("mesh2_serve", "mesh2_dp_engine")
+MESH2_RUNS = tuple(MESH2_TRAIN_MESHES) + ("mesh2_serve", "mesh2_dp_engine",
+                                          "mesh2_int8")
 MESH2_PATHS = tuple(MESH2_TRAIN_MESHES) + ("mesh2_serve", "mesh2_engine",
-                                           "mesh2_dp_engine")
+                                           "mesh2_dp_engine",
+                                           "mesh2_int8_engine",
+                                           "mesh2_moe_int8_engine")
 # flash_fwd and the backward kernels at a tensor-parallel rank's heads:
 # the flagship's 12 heads over tensor 2, batch 16
 MESH2_TP_CASE = ("tensor_rank", (16, 6, 384, 64), False, False)
@@ -6886,6 +6923,24 @@ MESH2_SERVE_STEPS = 2    # 5h's 4 halved: each step's collectives cross
 MESH2_SERVE_OVERRIDES = {**FLAGSHIP_OVERRIDES,
                          "sampling.steps": MESH2_SERVE_STEPS,
                          "model.n_blocks": MESH2_BLOCKS}
+# int8 W8A8 on the mesh: the int8 headline (the int8 kernel, the fused
+# prologue) on MESH2_SERVE_SPEC, and the int8 MoE flagship (its experts in
+# floating point, the fused prologue off) on dcn 2 x ep 2; label ->
+# (overrides, mesh, the launch counts' path)
+MESH2_INT8_OVERRIDES = {**FLAGSHIP_INT8_OVERRIDES,
+                        "sampling.steps": MESH2_SERVE_STEPS,
+                        "model.n_blocks": MESH2_BLOCKS}
+MESH2_INT8_ENGINES = {
+    "int8": (MESH2_INT8_OVERRIDES, MESH2_SERVE_SPEC, "mesh2_int8_engine"),
+    "moe_int8": ({**MESH2_INT8_OVERRIDES, **MOE_OVERRIDES,
+                  "model.quant_fused": False}, dict(dcn=2, fsdp=1, ep=2),
+                 "mesh2_moe_int8_engine")}
+MESH2_TP = 2             # the tensor width of the row-parallel checks
+
+
+def mesh_spec(spec: dict) -> str:
+    """build_engine's mesh= string of a dict of mesh fields."""
+    return ",".join(f"{k}={v}" for k, v in spec.items())
 
 
 def mesh2_serve_config(plain: bool = False) -> Config:
@@ -6950,9 +7005,8 @@ def mesh2_serve_rank(rank, world, seed) -> dict:
     rec["sampler_s"] = time.perf_counter() - t0
     rec["serve_launches"] = dict(launches)
     t_engine = time.perf_counter()
-    spec = ",".join(f"{k}={v}" for k, v in MESH2_SERVE_SPEC.items())
     engine = build_engine(preset="small", overrides=MESH2_SERVE_OVERRIDES,
-                          mesh=spec)
+                          mesh=mesh_spec(MESH2_SERVE_SPEC))
     # the one-rank engine's weights, this rank's part of them
     mine = engine.model.mesh_shards.scatter(
         mesh2_weights(engine.config, seed), engine.mesh, {})
@@ -7010,6 +7064,123 @@ def mesh2_dp_engine_rank(rank, world, seed) -> dict:
     return rec
 
 
+def row_parallel_shapes(m, tensor=MESH2_TP) -> list:
+    """(name, M, K-slice, N) of a tensor rank's row-parallel int8 products
+    in the served batch (2 x REQUESTS x L rows): attn_out's and mlp.2's."""
+    rows = 2 * REQUESTS * m.length
+    d, f = m.hidden_size, m.mlp_ratio * m.hidden_size
+    return [("attn_out", rows, d // tensor, d),
+            ("mlp_2", rows, f // tensor, d)]
+
+
+def row_parallel_input(gen, mm, k, dtype=torch.bfloat16) -> torch.Tensor:
+    """(mm, k) rows of random scale: every 64th row zero, and every 64th
+    from the second zero in its first half only (a tensor rank's K-slice
+    all zero where the whole row is not)."""
+    x = torch.randn((mm, k), generator=gen, device="cuda") \
+        * torch.rand((mm, 1), generator=gen, device="cuda") * 4
+    x[::64] = 0.0
+    x[1::64, :k // 2] = 0.0
+    return x.to(dtype)
+
+
+def mesh2_int8_weights(overrides, seed) -> dict:
+    """The one-rank int8 engine's weights: randomize_'s flagship weights
+    (drawn on the card, as mesh2_weights) quantized whole by
+    quantize_dit_params."""
+    cfg = Config.make("small", **overrides)
+    model = DIT(cfg.model, compute_dtype=torch.bfloat16, init=False).cuda()
+    randomize_(model, seed)
+    return quantize_dit_params(model.state_dict())
+
+
+def expected_mesh_int8_launches(m, s, nfe, tensor) -> dict:
+    """A mesh rank's launches of one served int8 batch (eager, at as many
+    microbatches as stages: the one-rank forward's count): the one-rank
+    counts, with a tensor rank's row-parallel products (attn_out, mlp.2)
+    each a row_amax, a quantize_by_amax and an int32 int8_matmul in place
+    of a dynamic_quantize and an int8_matmul."""
+    want = collections.Counter(expected_serve_launches(m, s, nfe))
+    if tensor > 1:
+        rows = 2 * m.n_blocks * nfe
+        want.subtract({"int8_matmul": rows, "dynamic_quantize": rows})
+        want.update({"int8_matmul_int32": rows, "row_amax": rows,
+                     "quantize_by_amax": rows})
+    return {k: v for k, v in want.items() if v}
+
+
+def mesh2_int8_rank(rank, world, seed) -> dict:
+    """Phase 5i's int8 W8A8 work on one rank: (1) on MESH2_SERVE_SPEC's
+    tensor group, each row-parallel product of row_parallel_shapes through
+    qdot_row_parallel on the rank's K-slice of inputs every rank draws
+    alike, against qdot of the whole rows on this rank, bit for bit; (2)
+    each engine of MESH2_INT8_ENGINES, build_engine(quantize="int8",
+    mesh=) serving REQUESTS requests with its part of the one-rank int8
+    engine's weights, launches held to the code's count."""
+    from unidisc_tpu_torch.ops.quant import qdot, qdot_row_parallel
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, Part, make_mesh
+    t0 = time.perf_counter()
+    cfg = Config.make("small", **MESH2_INT8_OVERRIDES)
+    tp = MeshLayout.of(make_mesh(dataclasses.replace(
+        cfg.mesh, **MESH2_SERVE_SPEC))).tensor
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    part = Part("tensor", 1)
+    rec = {"products": {}}
+    for name, mm, k, n in row_parallel_shapes(cfg.model, tp.size):
+        x = row_parallel_input(gen, mm, k * tp.size)
+        w_q = torch.randint(-127, 128, (n, k * tp.size), dtype=torch.int8,
+                            generator=gen, device="cuda")
+        w_s = torch.rand((n,), generator=gen, device="cuda") * 0.02 + 1e-3
+        bias = torch.randn((n,), generator=gen, device="cuda") \
+            if name == "mlp_2" else None
+        want = qdot(x, w_q, w_s, bias=bias, backend="pallas")
+        got = qdot_row_parallel(
+            part.take(x, tp.rank, tp.size).contiguous(),
+            part.take(w_q, tp.rank, tp.size).contiguous(), w_s, tp.group,
+            bias=bias, out_dtype=torch.bfloat16, backend="pallas")
+        torch.cuda.synchronize()
+        rec["products"][name] = {
+            "shape_mkn": [mm, k, n], "equal": bool(torch.equal(got, want)),
+            "max_abs_err": float((got.float() - want.float()).abs().max())}
+        del x, w_q, got, want
+    rec["products_s"] = time.perf_counter() - t0
+    for label, (over, spec, _) in MESH2_INT8_ENGINES.items():
+        t0 = time.perf_counter()
+        engine = build_engine(preset="small", overrides=over,
+                              quantize="int8", mesh=mesh_spec(spec))
+        # this rank's part of the one-rank engine's int8 weights
+        mine = engine.model.mesh_shards.scatter(
+            mesh2_int8_weights(over, seed), engine.mesh, {})
+        with torch.no_grad():
+            for n, t in itertools.chain(engine.model.named_parameters(),
+                                        engine.model.named_buffers()):
+                if n in mine:
+                    t.copy_(mine[n])
+        del mine
+        prepared = t2i_requests(engine)
+        _build.reset_launch_counts()
+        t_batch = time.perf_counter()
+        results = engine.run_batch(prepared, seed=seed)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t_batch
+        got = dict(_build.launch_counts)
+        want = expected_mesh_int8_launches(
+            engine.config.model, engine.config.sampling, results[0]["nfe"],
+            engine.mesh.tensor.size)
+        if got != want:
+            raise AssertionError(f"mesh2 {label} engine: rank {rank} "
+                                 f"launches {got}, the code {want}")
+        rec[label] = {"ids": np.stack([r["image_ids"][0] for r in results]),
+                      "launches": got, "batch_s": batch_s,
+                      "held": sum(t.numel() for t in itertools.chain(
+                          engine.model.parameters(),
+                          engine.model.buffers())),
+                      "seconds": time.perf_counter() - t0}
+        del engine
+        free()
+    return rec
+
+
 def full_precision_gemms(on: bool = True) -> None:
     """TF32 off and bf16 GEMMs reduced in fp32 (no bf16 split-K
     partials), so a mesh path and its one-rank reference differ only in
@@ -7035,6 +7206,9 @@ def mesh2_rank_work(rank, world, seed, runs=MESH2_RUNS,
         free()
     if "mesh2_dp_engine" in runs:
         rec["dp_engine"] = mesh2_dp_engine_rank(rank, world, seed)
+        free()
+    if "mesh2_int8" in runs:
+        rec["int8"] = mesh2_int8_rank(rank, world, seed)
     return rec
 
 
@@ -7250,6 +7424,188 @@ def mesh2_dp_engine_against_one_rank(recs, seed) -> dict:
                 collections.Counter()))}
 
 
+def one_rank_int8_engine_ids(label, seed) -> np.ndarray:
+    """The image ids of the one-rank int8 engine of MESH2_INT8_ENGINES[
+    label] (captured) serving REQUESTS requests at `seed` on
+    mesh2_int8_weights."""
+    over = MESH2_INT8_ENGINES[label][0]
+    engine = build_engine(preset="small", overrides=over, quantize="int8")
+    engine.model.load_state_dict(mesh2_int8_weights(over, seed))
+    ids = np.stack([r["image_ids"][0] for r in engine.run_batch(
+        t2i_requests(engine), seed=seed)])
+    del engine
+    free()
+    return ids
+
+
+def mesh2_int8_readings(recs, seed) -> dict:
+    """The int8 work of the world: whether each row-parallel product
+    equalled the one-rank qdot on every rank (and its largest error), and
+    each int8 engine's token agreement with the one-rank int8 engine at
+    the same seed, whether its ranks' ids were equal, its seconds."""
+    out = {"products": {
+        name: {"equal_on_every_rank": all(
+            r["int8"]["products"][name]["equal"] for r in recs),
+            "max_abs_err": max(r["int8"]["products"][name]["max_abs_err"]
+                               for r in recs),
+            "shape_mkn": recs[0]["int8"]["products"][name]["shape_mkn"]}
+        for name in recs[0]["int8"]["products"]},
+        "products_s": recs[0]["int8"]["products_s"]}
+    for label in MESH2_INT8_ENGINES:
+        ids = recs[0]["int8"][label]["ids"]
+        out[label] = {
+            "token_agreement": float((ids == one_rank_int8_engine_ids(
+                label, seed)).mean()),
+            "ranks_equal": all(np.array_equal(r["int8"][label]["ids"], ids)
+                               for r in recs),
+            "batch_s": [r["int8"][label]["batch_s"] for r in recs],
+            "seconds": [r["int8"][label]["seconds"] for r in recs],
+            "held_rank0": recs[0]["int8"][label]["held"]}
+    return out
+
+
+def mesh2_int8_against_one_rank(recs, seed) -> dict:
+    """mesh2_int8_readings within its limits: every row-parallel product
+    bit for bit the one-rank qdot; every int8 engine's ranks equal and
+    agreeing >= MESH_TOKEN_AGREEMENT with the one-rank int8 engine."""
+    out = mesh2_int8_readings(recs, seed)
+    for name, p in out["products"].items():
+        if not p["equal_on_every_rank"]:
+            raise AssertionError(f"mesh2 int8: the row-parallel {name} "
+                                 f"product differs from the one-rank qdot "
+                                 f"(max abs {p['max_abs_err']})")
+    for label in MESH2_INT8_ENGINES:
+        got = out[label]
+        if not got["ranks_equal"]:
+            raise AssertionError(f"mesh2 {label} engine: the ranks' ids "
+                                 f"differ")
+        if not got["token_agreement"] >= MESH_TOKEN_AGREEMENT:
+            raise AssertionError(
+                f"mesh2 {label} engine: its tokens agree "
+                f"{got['token_agreement']} with the one-rank int8 engine's "
+                f"< {MESH_TOKEN_AGREEMENT}")
+    return out
+
+
+ROW_AMAX_OPS_PER_ELEMENT = 2    # |x| and the max
+
+
+def phase_row_parallel_kernels(seed) -> dict:
+    """5i's one-rank checks of a tensor rank's row-parallel int8 kernels
+    at row_parallel_shapes: the int32 form of int8_matmul against
+    int8_matmul_reference(out_dtype=int32), equal; row_amax and
+    quantize_by_amax on the rank's K-slice (bf16 and fp32 in, some rows
+    zero, some zero in the slice only) against their plain versions,
+    equal, and quantize_by_amax given the whole row's amax equal to
+    dynamic_quantize of the whole row on the slice. Each timed at bf16
+    in: ms, device_ms, host_us, the plain version, one library call where
+    there is one, and the bound (bytes at HBM_BYTES_PER_S or operations
+    at the int8 / fp32 peak)."""
+    from unidisc_tpu_torch.ops.quant import (dynamic_quantize,
+                                             quantize_by_amax,
+                                             quantize_by_amax_reference,
+                                             row_amax, row_amax_reference)
+    m = Config.make("small", **FLAGSHIP_INT8_OVERRIDES).model
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    out = {"int8_matmul_int32": [], "row_amax": [], "quantize_by_amax": []}
+
+    def bound(nbytes, ops, peak):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops}
+
+    def timed(fn, plain, library):
+        return {"ms": time_ms(fn), "device_ms": device_ms(fn),
+                "host_us": host_us(fn), "plain_ms": time_ms(plain, iters=5),
+                "library_ms": time_ms(library) if library else None,
+                "library_device_ms": (device_ms(library) if library
+                                      else None)}
+
+    for name, mm, k, n in row_parallel_shapes(m):
+        kw = dict(generator=gen, device="cuda")
+        xq = torch.randint(-127, 128, (mm, k), dtype=torch.int8, **kw)
+        wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, **kw)
+
+        def raw():
+            return int8_matmul(xq, None, wq, None, out_dtype=torch.int32)
+
+        got = raw()
+        want = int8_matmul_reference(xq, None, wq, None,
+                                     out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        err = (got.long() - want.long()).abs().max().item()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul int32 differs from "
+                                 f"int8_matmul_reference at {name} ({mm}, "
+                                 f"{k}, {n}): max abs {err}")
+
+        def library():
+            return torch._int_mm(xq, wq.t())
+        try:
+            if not torch.equal(library(), want):
+                raise AssertionError("torch._int_mm differs")
+        except RuntimeError as e:
+            print(f"  torch._int_mm refused ({mm}, {k}) x ({k}, {n}): "
+                  f"{str(e).splitlines()[0]}")
+            library = None
+        row = {"case": name, "shape_mkn": [mm, k, n],
+               "max_abs_err": float(err),
+               **timed(raw, lambda: int8_matmul_reference(
+                   xq, None, wq, None, out_dtype=torch.int32), library),
+               **bound(mm * k + n * k + 4 * mm * n, 2.0 * mm * n * k,
+                       INT8_OP_PER_S)}
+        out["int8_matmul_int32"].append(row)
+        print("kernel int8_matmul_int32 " + json.dumps(row))
+        del xq, wq, got, want
+
+        errs = {"row_amax": 0.0, "quantize_by_amax": 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            whole = row_parallel_input(gen, mm, MESH2_TP * k, dtype)
+            x = whole[:, :k].contiguous()      # rank 0's K-slice
+            a, a_ref = row_amax(x), row_amax_reference(x)
+            amax = row_amax_reference(whole)   # the group's max
+            q, sc = quantize_by_amax(x, amax)
+            q_ref, sc_ref = quantize_by_amax_reference(x, amax)
+            dq, ds = dynamic_quantize(whole)
+            torch.cuda.synchronize()
+            errs["row_amax"] = max(errs["row_amax"],
+                                   (a - a_ref).abs().max().item())
+            errs["quantize_by_amax"] = max(
+                errs["quantize_by_amax"],
+                (q.int() - q_ref.int()).abs().max().item(),
+                (sc - sc_ref).abs().max().item())
+            checks = {"row_amax": torch.equal(a, a_ref),
+                      "quantize_by_amax": torch.equal(q, q_ref)
+                      and torch.equal(sc, sc_ref),
+                      "the whole row's dynamic_quantize": torch.equal(
+                          q, dq[:, :k]) and torch.equal(sc, ds)}
+            bad = [c for c, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"row-parallel quantize at {name} "
+                                     f"({mm}, {k}) {dtype}: differs from "
+                                     f"{bad} (errors {errs})")
+        x = whole[:, :k].contiguous()          # bf16, as the path's
+        e = mm * k
+        for kernel, fn, plain, library, nbytes, ops in (
+                ("row_amax", lambda: row_amax(x),
+                 lambda: row_amax_reference(x),
+                 lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1),
+                 2 * e + 4 * mm, ROW_AMAX_OPS_PER_ELEMENT * e),
+                ("quantize_by_amax", lambda: quantize_by_amax(x, amax),
+                 lambda: quantize_by_amax_reference(x, amax), None,
+                 2 * e + e + 8 * mm, QUANT_OPS_PER_ELEMENT["none"] * e)):
+            row = {"case": name, "shape_mk": [mm, k],
+                   "max_abs_err": float(errs[kernel]),
+                   **timed(fn, plain, library),
+                   **bound(nbytes, ops, FP32_FLOP_PER_S)}
+            out[kernel].append(row)
+            print(f"kernel {kernel} " + json.dumps(row))
+        del whole, x, amax
+    return out
+
+
 def global_draw_ms(seed) -> dict:
     """F2's cost: a data-parallel rank's two draws of a t2i step at the
     served batch (REQUESTS rows, the image span) on a dp 2 and a dp 4 mesh:
@@ -7327,7 +7683,8 @@ def mesh_before_world(seed) -> dict:
     out["5i"] = {"tp_fwd": phase_kernels(seed, [MESH2_TP_CASE])[0],
                  "tp_bwd": phase_bwd_kernels(seed, [MESH2_TP_CASE])[0],
                  "global_draws": global_draw_ms(seed),
-                 "moe_fp32_accumulation": moe_fp32_accumulation(seed)}
+                 "moe_fp32_accumulation": moe_fp32_accumulation(seed),
+                 "row_parallel": phase_row_parallel_kernels(seed)}
     free()
     out["5i"]["before_world_s"] = time.perf_counter() - t0
     return out
@@ -7347,8 +7704,13 @@ def phase_mesh2(seed, pre, world) -> dict:
     try:
         serve = mesh2_serve_against_one_rank(recs, seed)
         rec["mesh2_dp_engine"] = mesh2_dp_engine_against_one_rank(recs, seed)
+        int8 = mesh2_int8_against_one_rank(recs, seed)
     finally:
         full_precision_gemms(False)
+    for label, (_, _, path) in MESH2_INT8_ENGINES.items():
+        rec[path] = {**int8[label], "launches": dict(sum(
+            (collections.Counter(r["int8"][label]["launches"])
+             for r in recs), collections.Counter()))}
     rec["mesh2_serve"] = {**serve, "launches": dict(sum(
         (collections.Counter(r["serve"]["serve_launches"]) for r in recs),
         collections.Counter()))}
@@ -7373,6 +7735,15 @@ def phase_mesh2(seed, pre, world) -> dict:
         "serve": serve, "dp_engine": {
             k: v for k, v in rec["mesh2_dp_engine"].items()
             if k != "launches"},
+        "int8": int8, "int8_launches": {
+            path: rec[path]["launches"]
+            for _, _, path in MESH2_INT8_ENGINES.values()},
+        "row_parallel_kernels": {
+            kernel: [{k: row[k] for k in (
+                "case", "shape_mkn" if "shape_mkn" in row else "shape_mk",
+                "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                "library_ms")} for row in rows]
+            for kernel, rows in rec["row_parallel"].items()},
         "global_draws": rec["global_draws"],
         "moe_fp32_accumulation": rec["moe_fp32_accumulation"],
         "tensor_rank_kernels": {
@@ -8849,6 +9220,10 @@ def main() -> int:
         for path in CODECS_PATHS:
             by_path[name][path] = record["codecs"][path]["launches"].get(
                 name, 0)
+    idle = [name for name in KERNELS if not sum(by_path[name].values())]
+    if idle:
+        raise AssertionError(f"kernels launched no time on the main path: "
+                             f"{idle}")
     fwd = record["kernel_cases"][0]          # the serve path's shape
     bwd = record["bwd_kernel_cases"][0]      # the train path's shape
     qmm = record["int8_matmul_cases"][0]     # attn_qkv of the int8 path
@@ -8871,12 +9246,18 @@ def main() -> int:
             **bwd["bounds"]["flash_bwd_dkv"]},
         "int8_matmul": qmm, "fused_qmm": fq, "dynamic_quantize": dq,
     }
+    # a tensor rank's row-parallel kernels at attn_out's K-slice (5i)
+    row_parallel = {name: rows[0] for name, rows in
+                    record["mesh2"]["row_parallel"].items()}
+    measured.update(row_parallel)
     shape_key = {"int8_matmul": "shape_mkn", "fused_qmm": "shape_mk",
-                 "dynamic_quantize": "shape_mk"}
+                 "dynamic_quantize": "shape_mk",
+                 "int8_matmul_int32": "shape_mkn", "row_amax": "shape_mk",
+                 "quantize_by_amax": "shape_mk"}
     kernels = []
     for name, meta in KERNELS.items():
         case = {"flash_fwd": fwd, "int8_matmul": qmm, "fused_qmm": fq,
-                "dynamic_quantize": dq}.get(name, bwd)
+                "dynamic_quantize": dq, **row_parallel}.get(name, bwd)
         key = shape_key.get(name, "shape_bhld")
         kernels.append({
             "name": name, "route": meta["route"], "source": meta["source"],

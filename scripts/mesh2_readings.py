@@ -8,13 +8,17 @@ limits.
 
 Runs ``chip_smoke.py``'s 5i world (MESH_RANKS ranks sharing card 0 over
 gloo) from the tree at --root (default: this one; its kernels build into
-DIR/build) for the runs named (default: the three train paths and
-``mesh2_dp_engine``), and prints what 5i holds to its limits: for each
-train path against the one-rank step, ``mesh2_train_readings`` (the
+DIR/build) for the runs named (default: ``MESH2_RUNS``, the three train
+paths, ``mesh2_serve``, ``mesh2_dp_engine`` and ``mesh2_int8``), and
+prints what 5i holds to its limits: for each train path against the
+one-rank step, ``mesh2_train_readings`` (the
 largest relative gap of any rank's losses and gradient norms, the trunk's
 first moments' relative distance and the update's cosine); for
 ``mesh2_dp_engine`` the captured programs' token agreement with the
-one-rank engine at the same seed. Runs named ``mesh3_*`` (``--runs 5k``:
+one-rank engine at the same seed; for ``mesh2_int8`` whether each
+row-parallel int8 product equalled the one-rank qdot on every rank, and
+each int8 engine's token agreement with the one-rank int8 engine
+(``mesh2_int8_readings``). Runs named ``mesh3_*`` (``--runs 5k``:
 all of them) run in 5k's world instead, read by
 ``mesh3_train_readings`` (the optimizer state's relative distance in
 place of the trunk's first moments). Runs named ``mesh4_*`` (``--runs
@@ -121,6 +125,23 @@ PLANTS = {
         "unidisc_tpu_torch/models/moe.py",
         "u.view(b, seq_size, t, k)[:, seq.rank]",
         "u.view(b, seq_size, t, k)[:, 0]", "mesh3_moe"),
+    # 5i: a tensor rank quantizes its K-slice of a row by the slice's own
+    # amax, not the row's
+    "int8_own_amax": (
+        "unidisc_tpu_torch/ops/quant.py",
+        "amax = all_reduce(row_amax(x2), group, op=dist.ReduceOp.MAX)",
+        "amax = row_amax(x2)", "mesh2_int8"),
+    # 5i: each tensor rank applies the epilogue and rounds to the output
+    # dtype before the sum
+    "int8_rounded_partials": (
+        "unidisc_tpu_torch/ops/quant.py",
+        "    acc = all_reduce(acc, group)\n"
+        "    y = int8_epilogue(acc, x_scale, w_scale, bias=bias, "
+        "out_dtype=out_dtype)\n",
+        "    y = all_reduce(int8_epilogue(acc, x_scale, w_scale, "
+        "out_dtype=out_dtype).float(), group)\n"
+        "    y = (y if bias is None else y + bias.float()).to(out_dtype)\n",
+        "mesh2_int8"),
     # 5l: a follower skips the first insert that holds rows of its slots
     "follower_drops_insert": (
         "unidisc_tpu_torch/serving/engine.py",
@@ -234,11 +255,13 @@ def run(root: Path, args) -> int:
                              **{k: recs[0][name][k] for k in (
                                  "losses", "one_rank_losses", "grad_norms",
                                  "one_rank_grad_norms")}}
+        cs.full_precision_gemms()
         if "mesh2_dp_engine" in runs:
-            cs.full_precision_gemms()
             out["mesh2_dp_engine"] = cs.mesh2_dp_engine_readings(recs,
                                                                  args.seed)
-            cs.full_precision_gemms(False)
+        if "mesh2_int8" in runs:
+            out["mesh2_int8"] = cs.mesh2_int8_readings(recs, args.seed)
+        cs.full_precision_gemms(False)
     print(cs.card_line())
     print("mesh2_readings " + json.dumps(out))
     dest = HERE / "chiprun_out" / f"mesh2_readings_{args.label}.json"

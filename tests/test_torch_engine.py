@@ -171,8 +171,8 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     # mesh= is ported for every axis (tests/test_torch_seq_parallel.py
     # serves on 4 ranks); a one-device spec builds the one-rank engine, a
     # spec larger than the world is refused, and what stays refused on a
-    # mesh names item 9: ep inside a pipeline stage, int8 on pp, tensor or
-    # ep
+    # mesh names item 9: ep inside a pipeline stage (int8 serves on every
+    # axis: tests/test_torch_seq_parallel.py)
     assert build_engine(preset="tiny", device="cpu", overrides=OVER,
                         mesh="fsdp=1,seq=1").mesh is None
     for spec in ("fsdp=2,seq=2", "pp=2", "tensor=2", "fsdp=2,pp=2"):
@@ -181,7 +181,7 @@ def test_unported_engine_options_raise_naming_their_queue_item():
     with pytest.raises(NotImplementedError, match="item 9"):
         build_engine(preset="tiny", device="cpu", mesh="pp=2,ep=2")
     for spec in ("pp=2", "tensor=2"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="does not cover"):
             build_engine(preset="tiny", device="cpu", quantize="int8",
                          overrides={"model.dropout": 0.0}, mesh=spec)
     with pytest.raises(ValueError, match="unknown mesh axis"):

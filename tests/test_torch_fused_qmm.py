@@ -127,6 +127,24 @@ def test_modality_none_modulates_every_row():
         fused_quantize(t(a["x"]), mode="silu")
 
 
+def test_adaln_rows_the_kernel_refuses_fail_on_the_cpu_too():
+    """The kernel reads each adaLN row as a contiguous vector, one row a
+    batch element: a strided last dimension (an all_gather's view along
+    it) or too few rows raise on the CPU as on the card."""
+    a = inputs(seed=10)
+    t = torch.from_numpy
+    kw = dict(mode="adaln_norm", norm_type="rms", norm_w=t(a["norm_w"]),
+              rows_per_batch=L)
+    shift, scale = t(a["shift"]), t(a["scale"])
+    strided = shift.t().contiguous().t()
+    assert strided.stride(1) != 1
+    for bad in (dict(shift=strided, scale=strided),
+                dict(shift=shift[:1], scale=scale[:1])):
+        with pytest.raises(ValueError, match="contiguous last dimension"):
+            fused_quantize(t(a["x"]), **kw, **bad)
+    fused_quantize(t(a["x"]), **kw, shift=shift, scale=scale)
+
+
 # --- the row kernel's width (runs on the CPU) --------------------------------
 #
 # row_plan / quantize_plan choose the register-resident row kernel of

@@ -1,6 +1,7 @@
-"""The hand-written int8 kernels (int8_matmul.cu, fused_qmm.cu with its
-two entries, fused_qmm and dynamic_quantize) against their plain versions,
-on the card. Skips where CUDA is absent. This file imports no JAX, so it
+"""The hand-written int8 kernels (int8_matmul.cu, its int32 form too;
+fused_qmm.cu with its two entries, fused_qmm and the dividing form's
+dynamic_quantize, row_amax and quantize_by_amax) against their plain
+versions, on the card. Skips where CUDA is absent. This file imports no JAX, so it
 also runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py
@@ -392,3 +393,49 @@ def test_row_kernels_at_the_frozen_paths_shapes(rows):
     for k in (768, 3072):
         x = rng.randn(m, k) * rng.uniform(0.01, 8.0, (m, 1))
         check_dynamic_quantize(x.astype(np.float32), torch.bfloat16)
+
+
+# a tensor rank's row-parallel products (ops/quant.py::qdot_row_parallel):
+# the int32 form of int8_matmul, and dynamic_quantize split into row_amax
+# and quantize_by_amax, all exact
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(6144, 384, 768), (6144, 1536, 768),
+                                   (200, 48, 77), (1, 40, 130)])
+def test_int8_matmul_int32_form_equals_its_plain_version(m, k, n):
+    need_card()
+    xq, _, wq, _, _ = operands(m, k, n, seed=m + k + n)
+    before = _build.launch_counts["int8_matmul_int32"]
+    got = int8_matmul(xq, None, wq, None, out_dtype=torch.int32)
+    assert _build.launch_counts["int8_matmul_int32"] == before + 1
+    want = int8_matmul_reference(xq, None, wq, None, out_dtype=torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="no bias"):
+        int8_matmul(xq, None, wq, None, bias=torch.zeros(n, device="cuda"),
+                    out_dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(6144, 384), (6144, 1536), (130, 96),
+                                 (64, 100)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_row_amax_and_quantize_by_amax_on_card(m, k, x_dtype):
+    """A K-slice quantized by the whole row's amax: equal to the plain
+    versions, and to dynamic_quantize of the whole row on the slice."""
+    from unidisc_tpu_torch.ops.quant import (quantize_by_amax,
+                                             quantize_by_amax_reference,
+                                             row_amax, row_amax_reference)
+    need_card()
+    rng = np.random.RandomState(m + k)
+    whole = rng.randn(m, 2 * k) * rng.uniform(0.01, 8.0, (m, 1))
+    whole[::7] = 0.0
+    whole[1::7, :k] = 0.0
+    whole = torch.from_numpy(whole.astype(np.float32)).to("cuda", x_dtype)
+    x = whole[:, :k].contiguous()
+    assert torch.equal(row_amax(x), row_amax_reference(x))
+    amax = row_amax(whole)
+    q, s = quantize_by_amax(x, amax)
+    q_ref, s_ref = quantize_by_amax_reference(x, amax)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    dq, ds = dynamic_quantize(whole)
+    assert torch.equal(q, dq[:, :k]) and torch.equal(s, ds)

@@ -21,7 +21,8 @@ the leader's batcher workers on their slots:
   rank replays the reset, and the request then answers as one rank does;
   ``make_server`` on port 0 answers three concurrent chats as the
   one-rank engine does and shuts down, the batchers' workers first;
-* rolling on pp 2 x tensor 2 (2 microbatches, eager chunks) and the MoE
+* rolling on pp 2 x tensor 2 (2 microbatches, eager chunks), in bf16
+  and in int8 W8A8 (the flagship's int8 settings), and the MoE
   tiny model (4 experts, top-2) on dcn 2 x ep 2 (admitted in one group:
   MoE routing spans the batch, so the comparison needs the one-rank
   engine's slots) give the one-rank engine's tokens;
@@ -66,6 +67,8 @@ ROLL_OVER = {**OVERRIDES, **tr.OVER, "sampling.steps": 8,
              "model.text_vocab_size": 300}
 SLOTS = 4
 MOE = {"model.moe_experts": 4, "model.moe_top_k": 2}
+# the int8 headline's settings (the int8 kernel's path, the fused prologue)
+INT8 = {"model.quant_backend": "pallas", "model.quant_fused": True}
 AR_TEXT = {**AR, "model.length": 48, "model.txt_length": 48,
            "model.img_length": 0, "model.rope_2d": False,
            "model.text_vocab_size": 300, "model.image_vocab_size": 0,
@@ -149,6 +152,12 @@ def case(tmp_path_factory):
                       "requests": [r for r in roll_requests(m)
                                    if "text" in r[0]
                                    and "image_ids" not in r[0]]},
+        "pp_tensor_int8": {"spec": "pp=2,tensor=2,pp_microbatches=2",
+                           "slots": SLOTS, "quantize": "int8",
+                           "overrides": {**ROLL_OVER, **INT8},
+                           "requests": [r for r in roll_requests(m)
+                                        if "text" in r[0]
+                                        and "image_ids" not in r[0]]},
         "moe": {"spec": "dcn=2,ep=2", "slots": SLOTS,
                 "overrides": {**ROLL_OVER, **MOE}, "together": True,
                 "requests": [(r, 4, 21) for r, _, _ in
@@ -166,7 +175,7 @@ def one_rank_rolling(c):
     """The one-rank rolling engine's results for c's requests
     (``rolling_lead``)."""
     eng = build_engine(preset="tiny", device="cpu", rolling=c["slots"],
-                       overrides=c["overrides"])
+                       overrides=c["overrides"], quantize=c.get("quantize"))
     try:
         return rolling_lead(eng, c)
     finally:
@@ -299,6 +308,22 @@ def test_rolling_on_pp_tensor_gives_the_one_rank_tokens(case):
     for r, st in enumerate(states):
         assert all(tuple(row[8:] - 300) in ids
                    for row in admitted_rows(st)), r
+        for k in ("x", "active", "at"):
+            np.testing.assert_array_equal(st[k], states[0][k], err_msg=k)
+
+
+def test_int8_rolling_on_pp_tensor_gives_the_one_rank_tokens(case):
+    """The int8 W8A8 rolling engine on pp 2 x tensor 2 (its row-parallel
+    products through qdot_row_parallel, the fused prologue on each
+    microbatch's adaLN rows): the one-rank int8 engine's tokens, every
+    rank in the same state."""
+    c = case["inputs"]["pp_tensor_int8"]
+    want = one_rank_rolling(c)
+    assert_served(case["world"][0]["pp_tensor_int8"]["lead"]["results"],
+                  want["results"], "int8 pp x tensor")
+    states = [rank["pp_tensor_int8"]["states"]["rolling:t2i"]
+              for rank in case["world"]]
+    for st in states:
         for k in ("x", "active", "at"):
             np.testing.assert_array_equal(st[k], states[0][k], err_msg=k)
 

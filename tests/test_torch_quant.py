@@ -274,6 +274,18 @@ def test_int8_dit_tracks_the_float_model(trees):
     assert (a.argmax(-1) == b.argmax(-1)).double().mean() > 0.9
 
 
+def test_quantize_model_takes_the_one_rank_model():
+    """The weights are quantized whole, then laid out on a mesh: a laid-out
+    model's per-channel scales would be maxima over a shard, so
+    quantize_model refuses one."""
+    from unidisc_tpu_torch.parallel.mesh import MeshShards
+    _, tcfg = configs()
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    model.mesh_shards = MeshShards()
+    with pytest.raises(ValueError, match="before parallel/mesh.py"):
+        quant.quantize_model(tcfg, model)
+
+
 @pytest.mark.parametrize("rows", ["per_batch_row", "per_token"])
 def test_fused_block_path_needs_per_batch_row_adaln(rows, monkeypatch):
     """A quant_fused block takes the fused quantize kernel only with one

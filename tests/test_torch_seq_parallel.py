@@ -29,11 +29,24 @@ The port's side runs once, in one gloo world of 4 CPU ranks
   fsdp x tensor meshes to one device), every rank alike; an MoE t2i on
   dcn 2 x ep 2 token for token the port's one-rank MoE t2i (held to JAX in
   tests/test_torch_moe.py).
-* ``build_engine(mesh=)``: on seq 4, fsdp 2 x seq 2 and pp 2 x tensor 2
-  the one-rank engine's results at the same seed (padded to the mesh's
-  granule: the noise is the global batch's), a batch of 3 requests
-  rounded up to the granule, and the leader / follower replay equal to
-  the SPMD call.
+* the int8 W8A8 t2i sampler (the JAX tree quantized by JAX's
+  ``quantize_dit_params`` and carried over) on dcn 2 x tensor 2, dcn 2 x
+  pp 2, fsdp 2 x tensor 2 and pp 2 x tensor 2: with the plain products,
+  token for token JAX's int8 sampler under ``spmd_sampler`` on the same
+  mesh; with the flagship's settings (the int8 kernel's path, the fused
+  norm / adaLN prologue, which JAX cannot run at this L) token for token
+  the port's one-rank sampler; an int8 MoE on dcn 2 x ep 2 token for
+  token JAX's int8 MoE sampler on its dcn 2 x ep 2 mesh.
+* ``ops/quant.py::qdot_row_parallel`` at tensor 2 (each rank a K-slice of
+  the rows and of the weight): bit for bit the one-rank ``qdot``, with
+  rows whose halves differ in amax by 100x, all-zero rows and int32 sums
+  past 2^24.
+* ``build_engine(mesh=)``: on seq 4, fsdp 2 x seq 2 and pp 2 x tensor 2,
+  and in int8 (``quantize="int8"``, the flagship's int8 settings) on
+  pp 2 x tensor 2 and fsdp 2 x tensor 2, the one-rank engine's results
+  at the same seed (padded to the mesh's granule: the noise is the global
+  batch's), a batch of 3 requests rounded up to the granule, and the
+  leader / follower replay equal to the SPMD call.
 """
 
 import dataclasses
@@ -50,7 +63,9 @@ from torch_mesh_worker import run_world
 from unidisc_tpu.config import MeshConfig as JaxMeshConfig
 from unidisc_tpu.models.dit import DIT as JaxDIT
 from unidisc_tpu.models.dit import init_dit
+from unidisc_tpu.ops.quant import quantize_dit_params as jax_quantize_dit
 from unidisc_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from unidisc_tpu.parallel.sample import shard_params as jax_shard_params
 from unidisc_tpu.parallel.sample import spmd_sampler as jax_spmd_sampler
 from unidisc_tpu.sampling.t2i_fast import \
     build_t2i_sampler as jax_build_t2i_sampler
@@ -88,7 +103,27 @@ SAMPLER_MESHES = {"fsdp2_seq2": dict(fsdp=2, seq=2),
                   "fsdp2_pp2": dict(fsdp=2, pp=2, pp_microbatches=1),
                   "fsdp2_tensor2": dict(fsdp=2, tensor=2)}
 MOE_SAMPLER_MESHES = {"dcn2_ep2": dict(dcn=2, fsdp=1, ep=2)}
-ENGINE_MESHES = ["seq=4", "fsdp=2,seq=2", "pp=2,tensor=2,pp_microbatches=2"]
+# the int8 sampler's meshes: tensor 2, pp 2 (one microbatch a rank), fsdp 2
+# x tensor 2, and pp 2 x tensor 2 (two microbatches: the fused path's adaLN
+# rows are each microbatch's own)
+INT8_MESHES = {"dcn2_tensor2": dict(dcn=2, fsdp=1, tensor=2),
+               "dcn2_pp2": dict(dcn=2, fsdp=1, pp=2, pp_microbatches=1),
+               "fsdp2_tensor2": dict(fsdp=2, tensor=2),
+               "pp2_tensor2": dict(fsdp=1, pp=2, tensor=2,
+                                   pp_microbatches=2)}
+INT8_PLAIN = {"model.quant_backend": "xla", "model.quant_fused": False}
+INT8_FLAGSHIP = {"model.quant_backend": "pallas", "model.quant_fused": True}
+# the int8 engines' settings: the flagship's, and the adaLN and head
+# initialised non-zero (zero-initialised, every logit is its bias and the
+# tokens say nothing of the trunk)
+INT8_ENGINE = {**INT8_FLAGSHIP, "model.zero_linear_init": False}
+# (spec, quantize, extra overrides) of each engine case
+ENGINE_MESHES = [("seq=4", None, {}), ("fsdp=2,seq=2", None, {}),
+                 ("pp=2,tensor=2,pp_microbatches=2", None, {}),
+                 ("pp=2,tensor=2,pp_microbatches=2", "int8", INT8_ENGINE),
+                 ("fsdp=2,tensor=2", "int8", INT8_ENGINE)]
+ENGINE_GRANULES = {"seq=4": 1, "fsdp=2,seq=2": 2,
+                   "pp=2,tensor=2,pp_microbatches=2": 2, "fsdp=2,tensor=2": 2}
 ENGINE_OVER = {"sampling.predictor": "maskgit", "sampling.steps": 4,
                "sampling.cfg": 2.0, "model.text_vocab_size": 300,
                "model.dropout": 0.0}
@@ -119,6 +154,43 @@ def sampler_case(**extra):
     return jcfg, tcfg, params, txt, injected
 
 
+def int8_sampler_case(**extra):
+    """sampler_case's model and inputs in int8 W8A8: its float tree
+    quantized by JAX's quantize_dit_params."""
+    jcfg, tcfg, params, txt, injected = sampler_case(**extra)
+    q = {"model.quant": "int8"}
+    return (jcfg.override(**q), tcfg.override(**q), jax_quantize_dit(params),
+            txt, injected)
+
+
+def row_parallel_cases():
+    """(name, x, x dtype, w_q, w_scale, bias, out dtype) of the row-parallel
+    products at tensor 2: attn_out's and mlp.2's shapes of the tiny model
+    (K 128 and 512), rows whose K-halves differ in amax by 100x and rows
+    all zero; and a K of 3,072 whose int32 sums pass 2^24 on each rank."""
+    rng = np.random.RandomState(11)
+    cases = []
+    for name, m, k, n, dtype, out, bias in (
+            ("attn_out_f32", 24, 128, 128, "float32", "float32", False),
+            ("mlp2_bf16", 24, 512, 128, "bfloat16", "bfloat16", True),
+            ("mlp2_f32_bf16", 24, 512, 128, "float32", "bfloat16", True)):
+        x = rng.randn(m, k).astype(np.float32)
+        x[::3, :k // 2] *= 100.0
+        x[1::3, k // 2:] *= 100.0
+        x[5] = 0.0
+        w_q = rng.randint(-127, 128, (n, k)).astype(np.int8)
+        w_s = (rng.rand(n) / 127 + 1e-3).astype(np.float32)
+        b = rng.randn(n).astype(np.float32) if bias else None
+        cases.append((name, x, dtype, w_q, w_s, b, out))
+    k, n = 3072, 16
+    sign = np.where(rng.rand(8, k) < 0.5, -1.0, 1.0)
+    x = (sign * rng.uniform(0.9, 1.0, (8, k))).astype(np.float32)
+    w_q = (np.repeat(sign[:1], n, 0) * rng.randint(120, 128, (n, k))
+           ).astype(np.int8)
+    w_s = np.full(n, 1e-4, np.float32)
+    cases.append(("deep_f32", x, "float32", w_q, w_s, None, "float32"))
+    return cases
+
 
 def param_shapes(m):
     """init_dit's parameter tree as shapes (jax.eval_shape: the init traced,
@@ -146,6 +218,9 @@ def case(tmp_path_factory):
     train, moe = train_case(), train_case(**MOE_OVER)
     sjcfg, stcfg, sparams, txt, injected = sampler_case()
     mjcfg, mtcfg, mparams, _, _ = sampler_case(**MOE_OVER)
+    int8 = {key: int8_sampler_case(**extra) for key, extra in (
+        ("int8_t2i", INT8_PLAIN), ("int8_fused_t2i", INT8_FLAGSHIP),
+        ("moe_int8_t2i", {**INT8_PLAIN, **MOE_OVER}))}
     inputs = {
         "train": {"config": train["tcfg"], "meshes": TRAIN_MESHES,
                   **{k: train[k] for k in ("sd0", "batch", "draws")}},
@@ -156,13 +231,18 @@ def case(tmp_path_factory):
         "moe_t2i": {"config": mtcfg, "sd": dit_state_dict_from_jax(mparams),
                     "txt": txt, "injected": injected,
                     "meshes": MOE_SAMPLER_MESHES},
+        **{key: {"config": c[1], "sd": dit_state_dict_from_jax(c[2]),
+                 "txt": c[3], "injected": c[4],
+                 "meshes": MOE_SAMPLER_MESHES if key == "moe_int8_t2i"
+                 else INT8_MESHES} for key, c in int8.items()},
+        "row_parallel": {"cases": row_parallel_cases()},
         "engine": {"meshes": ENGINE_MESHES, "overrides": ENGINE_OVER,
                    "requests": REQUESTS, "seed": 3}}
     world = run_world("seq", 4, tmp_path_factory.mktemp("seq"),
                       inputs=inputs)
     return dict(train=train, moe=moe, world=world,
                 sampler=(sjcfg, stcfg, sparams, txt, injected),
-                moe_sampler=(mtcfg, mparams))
+                moe_sampler=(mtcfg, mparams), int8=int8)
 
 
 def jax_steps(c, spec):
@@ -291,6 +371,81 @@ def test_spmd_t2i_sampler_matches_jax_token_for_token(case, jax_spmd_tokens,
                                       err_msg=f"rank {r}")
 
 
+def jax_int8_tokens(c, spec):
+    """JAX's int8 t2i sampler of the case `c` under its spmd_sampler on the
+    mesh of `spec` (port mesh fields)."""
+    jcfg, _, qparams, txt, injected = c
+    spec = {"dcn": 1, "fsdp": 1, "tensor": 1, "seq": 1, **spec}
+    jcfg = dataclasses.replace(jcfg, mesh=JaxMeshConfig(**spec))
+    n = int(np.prod([spec.get(a, 1) for a in ("dcn", "fsdp", "tensor",
+                                               "seq", "pp", "ep")]))
+    jmesh = jax_make_mesh(jcfg.mesh, devices=jax.devices()[:n])
+    jmodel = JaxDIT(jcfg.model, compute_dtype=jnp.float32)
+    inj = {k: jnp.asarray(v) for k, v in injected.items()}
+    base = jax_build_t2i_sampler(jmodel, jcfg, inject_noise=True)
+
+    def sample(params, rng, txt):
+        return base(params, rng, txt, injected=inj)
+    return np.asarray(jax_spmd_sampler(sample, jcfg, jmesh)(
+        jax_shard_params(qparams, jmesh), jax.random.PRNGKey(0),
+        jnp.asarray(txt)).tokens)
+
+
+INT8_JAX_CASES = [("int8_t2i", m) for m in INT8_MESHES] + \
+    [("moe_int8_t2i", m) for m in MOE_SAMPLER_MESHES]
+
+
+@pytest.mark.parametrize("key,mesh", INT8_JAX_CASES)
+def test_int8_spmd_t2i_matches_jax_on_its_mesh(case, key, mesh):
+    """The int8 W8A8 sampler on a mesh, token for token JAX's int8 sampler
+    on the same mesh, every rank alike."""
+    spec = {**INT8_MESHES, **MOE_SAMPLER_MESHES}[mesh]
+    want = jax_int8_tokens(case["int8"][key], spec)
+    for r, rank in enumerate(case["world"]):
+        np.testing.assert_array_equal(rank[key][mesh], want,
+                                      err_msg=f"{key} {mesh} rank {r}")
+
+
+@pytest.fixture(scope="module")
+def one_rank_int8_fused(case):
+    from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
+    _, tcfg, qparams, txt, injected = case["int8"]["int8_fused_t2i"]
+    model = DIT(tcfg.model, compute_dtype=torch.float32).eval()
+    model.load_state_dict(dit_state_dict_from_jax(qparams))
+    return build_t2i_sampler(model, tcfg, inject_noise=True, device="cpu")(
+        torch.from_numpy(txt), injected={
+            k: torch.from_numpy(v) for k, v in injected.items()}
+    ).tokens.numpy()
+
+
+@pytest.mark.parametrize("mesh", list(INT8_MESHES))
+def test_int8_fused_spmd_t2i_matches_the_one_rank_sampler(
+        case, one_rank_int8_fused, mesh):
+    """The flagship's int8 settings (fused prologue, the int8 kernel's
+    path) on a mesh: token for token the one-rank sampler."""
+    for r, rank in enumerate(case["world"]):
+        np.testing.assert_array_equal(rank["int8_fused_t2i"][mesh],
+                                      one_rank_int8_fused,
+                                      err_msg=f"{mesh} rank {r}")
+
+
+@pytest.mark.parametrize("name", [c[0] for c in row_parallel_cases()])
+def test_row_parallel_int8_product_equals_one_rank_qdot(case, name):
+    """At tensor 2 a row-parallel product (the row amax reduced over the
+    group, the int32 partials summed, one epilogue) is the one-rank qdot
+    bit for bit, on every rank."""
+    from unidisc_tpu_torch.ops.quant import qdot
+    _, x, dtype, w_q, w_s, bias, out = next(
+        c for c in row_parallel_cases() if c[0] == name)
+    want = qdot(torch.from_numpy(x).to(getattr(torch, dtype)),
+                torch.from_numpy(w_q), torch.from_numpy(w_s),
+                bias=None if bias is None else torch.from_numpy(bias),
+                out_dtype=getattr(torch, out), backend="pallas").float()
+    for r, rank in enumerate(case["world"]):
+        np.testing.assert_array_equal(rank["row_parallel"][name],
+                                      want.numpy(), err_msg=f"rank {r}")
+
+
 def test_moe_t2i_on_dcn2_ep2_matches_the_one_rank_sampler(case):
     from unidisc_tpu_torch.sampling.t2i_fast import build_t2i_sampler
     mtcfg, mparams = case["moe_sampler"]
@@ -306,17 +461,20 @@ def test_moe_t2i_on_dcn2_ep2_matches_the_one_rank_sampler(case):
                                       want.numpy(), err_msg=f"rank {r}")
 
 
-def test_engine_on_a_mesh(case):
-    one = build_engine(preset="tiny", device="cpu", overrides=ENGINE_OVER)
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+def test_engine_on_a_mesh(case, quantize):
+    extra = INT8_ENGINE if quantize else {}
+    one = build_engine(preset="tiny", device="cpu", quantize=quantize,
+                       overrides={**ENGINE_OVER, **extra})
     prepared = [one.prepare(**r) for r in REQUESTS]
-    granules = {"seq=4": 1, "fsdp=2,seq=2": 2,
-                "pp=2,tensor=2,pp_microbatches=2": 2}
-    for spec, granule in granules.items():
+    specs = [spec for spec, q, _ in ENGINE_MESHES if q == quantize]
+    for spec in specs:
+        granule = ENGINE_GRANULES[spec]
         # the one-rank engine at the same seed over the mesh's padded batch
         want = one.run_batch(prepared, seed=3, pad_to=-(-len(REQUESTS)
                                                         // granule) * granule)
         for r, rank in enumerate(case["world"]):
-            got = rank["engine"][spec]
+            got = rank["engine"][(spec, quantize)]
             assert got["granule"] == granule
             assert len(got["tokens"]) == len(REQUESTS)
             for g, w in zip(got["tokens"], want):
@@ -324,9 +482,10 @@ def test_engine_on_a_mesh(case):
                                               err_msg=f"{spec} rank {r}")
             assert got["texts"] == [w["text"] for w in want]
     led = case["world"][0]["engine"]
-    for spec in granules:
-        assert led[spec]["refused"]
-        for a, b in zip(led[spec]["led"], led[spec]["tokens"]):
+    for spec in specs:
+        got = led[(spec, quantize)]
+        assert got["refused"]
+        for a, b in zip(got["led"], got["tokens"]):
             np.testing.assert_array_equal(a, b)
 
 
@@ -352,11 +511,11 @@ def test_granule_and_validate_mesh_refusals():
     with pytest.raises(NotImplementedError, match="item 9"):
         validate_mesh(tcfg, dataclasses.replace(
             layout, sizes={**layout.sizes, "pp": 2, "ep": 2}))
+    # an int8 model runs on "pp" and "tensor" (the tests above)
     int8 = dataclasses.replace(tcfg, model=dataclasses.replace(
         tcfg.model, quant="int8"))
     for axis in ("pp", "tensor"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            validate_mesh(int8, dataclasses.replace(
-                layout, sizes={**layout.sizes, axis: 2}))
+        validate_mesh(int8, dataclasses.replace(
+            layout, sizes={**layout.sizes, axis: 2}))
     assert MeshConfig().axis_names() == ("dcn", "fsdp", "tensor", "seq",
                                          "pp", "ep")

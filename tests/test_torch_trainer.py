@@ -172,6 +172,42 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
         "tiny", {"trainer.lr": 0.1, "data.dataset": "x"})
 
 
+def test_train_cli_takes_every_flag_of_jax_train_py():
+    """Every flag of JAX's train.py (its add_argument calls) but --wandb
+    (unported: not installed, and no network) parses in the port's CLI."""
+    import ast
+    import inspect
+
+    from unidisc_tpu import train as jax_train_cli
+    tree = ast.parse(inspect.getsource(jax_train_cli))
+    flags = {a.value for node in ast.walk(tree)
+             if isinstance(node, ast.Call)
+             and getattr(node.func, "attr", None) == "add_argument"
+             for a in node.args if isinstance(a, ast.Constant)}
+    assert "--print-hashes" in flags and len(flags) > 5
+    known = set(train_cli.build_parser()._option_string_actions)
+    assert flags - {"--wandb"} <= known, flags - known
+
+
+def test_train_cli_prints_the_param_hash(tmp_path, capsys):
+    """--print-hashes prints one param_hash line before the first step: the
+    same for the same seed, another for another seed."""
+    hashes = []
+    for i, seed in enumerate((0, 0, 1)):
+        train_cli.main(["--device", "cpu", "--run-dir", str(tmp_path / str(i)),
+                        "--batch-size", "2", "--print-hashes",
+                        "model=tiny", *(
+                            f"{k}={v}" for k, v in SMALL.items()),
+                        f"seed={seed}", "trainer.max_steps=1"])
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if "param_hash=" in ln]
+        assert len(lines) == 1 and lines[0].startswith(
+            "[trainer] param_hash="), lines
+        hashes.append(lines[0].split("=")[1].split()[0])
+    assert len(hashes[0]) == 16
+    assert hashes[0] == hashes[1] != hashes[2]
+
+
 def test_cuda_is_the_default_device(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the default is usable here")

@@ -328,10 +328,15 @@ def t2i_mesh(cfg, sd, spec, txt, injected):
     return out.tokens.numpy()
 
 
+T2I_CASES = ("t2i", "moe_t2i", "int8_t2i", "int8_fused_t2i",
+             "moe_int8_t2i")
+
+
 def job_seq(rank, world):
     """The 4-rank world of tests/test_torch_seq_parallel.py: the train
     step on the dense meshes and the MoE step on its own, the t2i sampler
-    on the dense meshes and the MoE one on its own, the engine."""
+    (float and int8) on the dense meshes and the MoE one on its own, the
+    row-parallel int8 product at tensor 2, the engine (float and int8)."""
     inp = load_inputs()
     out = {}
     for key in ("train", "moe"):
@@ -343,24 +348,52 @@ def job_seq(rank, world):
             out[key][name] = {"metrics": metrics}
             if rank == 0:
                 out[key][name]["state"] = sd
-    for key in ("t2i", "moe_t2i"):
+    for key in T2I_CASES:
         s = inp[key]
         out[key] = {name: t2i_mesh(s["config"], s["sd"], spec, s["txt"],
                                    s["injected"])
                     for name, spec in s["meshes"].items()}
+    out["row_parallel"] = row_parallel_products(inp["row_parallel"])
     out["engine"] = engine_checks(rank, inp["engine"])
+    return out
+
+
+def row_parallel_products(c):
+    """qdot_row_parallel on dcn 2 x tensor 2: each rank's K-slice of every
+    case's x (M, K) and w_q (N, K); the whole (M, N) it returns, in the
+    case's output dtype (as fp32)."""
+    import torch
+
+    from unidisc_tpu_torch.config import MeshConfig
+    from unidisc_tpu_torch.ops.quant import qdot_row_parallel
+    from unidisc_tpu_torch.parallel.mesh import MeshLayout, Part, make_mesh
+    tp = MeshLayout.of(make_mesh(MeshConfig(dcn=2, fsdp=1,
+                                            tensor=2))).tensor
+    part = Part("tensor", 1)
+    out = {}
+    for name, x, dtype, w_q, w_scale, bias, out_dtype in c["cases"]:
+        x = torch.from_numpy(x).to(getattr(torch, dtype))
+        y = qdot_row_parallel(
+            part.take(x, tp.rank, tp.size).contiguous(),
+            part.take(torch.from_numpy(w_q), tp.rank, tp.size).contiguous(),
+            torch.from_numpy(w_scale), tp.group,
+            bias=None if bias is None else torch.from_numpy(bias),
+            out_dtype=getattr(torch, out_dtype), backend="pallas")
+        out[name] = y.float().numpy()
     return out
 
 
 def engine_checks(rank, e):
     """build_engine on a mesh: run_batch SPMD, with a batch off the
     granule, and led from rank 0 with the others following (a call the
-    leader refuses first)."""
+    leader refuses first). Each case is (spec, quantize, extra
+    overrides)."""
     from unidisc_tpu_torch.serving.engine import build_engine
     out = {}
-    for spec in e["meshes"]:
+    for spec, quantize, extra in e["meshes"]:
         eng = build_engine(preset="tiny", device="cpu", mesh=spec,
-                           overrides=e["overrides"])
+                           overrides={**e["overrides"], **extra},
+                           quantize=quantize)
         prepared = [eng.prepare(**r) for r in e["requests"]]
         res = eng.run_batch(prepared, seed=e["seed"])
         got = {"tokens": [r["image_ids"] for r in res],
@@ -378,7 +411,7 @@ def engine_checks(rank, e):
             got["led"] = [r["image_ids"] for r in led]
         else:
             eng.follow()
-        out[spec] = got
+        out[(spec, quantize)] = got
     return out
 
 
@@ -459,16 +492,24 @@ def job_mesh2(rank, world):
         out["pp_final"] = {n: t.detach().clone()
                            for n, t in full["params"].items()}
     trainer.close()
+    import contextlib
+    import io
     for name, mesh in (("cli", ["mesh.fsdp=2"]),
-                       ("cli_tensor", ["mesh.fsdp=1", "mesh.tensor=2"])):
-        res = train_cli.main(["--device", "cpu", "--run-dir",
-                              os.path.join(inp["dir"], name),
-                              "--batch-size", "4", "--log-every", "1",
-                              "model=tiny", "model.length=16",
-                              "model.txt_length=8", "model.img_length=8",
-                              *mesh, "trainer.max_steps=2"])
+                       ("cli_tensor", ["mesh.fsdp=1", "mesh.tensor=2",
+                                       "--print-hashes"])):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = train_cli.main(["--device", "cpu", "--run-dir",
+                                  os.path.join(inp["dir"], name),
+                                  "--batch-size", "4", "--log-every", "1",
+                                  "model=tiny", "model.length=16",
+                                  "model.txt_length=8", "model.img_length=8",
+                                  *mesh, "trainer.max_steps=2"])
         out[f"{name}_step"] = res["step"]
         out[f"{name}_loss"] = res["loss"]
+        out[f"{name}_hash_lines"] = [
+            ln for ln in printed.getvalue().splitlines()
+            if ln.startswith("[trainer] param_hash=")]
     # the engine on fsdp 2 at a seed: the draws of the global batch
     from unidisc_tpu_torch.serving.engine import build_engine
     e = inp["engine"]
@@ -769,11 +810,12 @@ def rolling_lead(eng, c):
 
 
 def rolling_engine_run(rank, c):
-    """The rolling engine on c["spec"] led by rank 0 through
-    ``rolling_lead``."""
+    """The rolling engine on c["spec"] (int8 under c["quantize"]) led by
+    rank 0 through ``rolling_lead``."""
     from unidisc_tpu_torch.serving.engine import build_engine
     eng = build_engine(preset="tiny", device="cpu", mesh=c["spec"],
-                       rolling=c["slots"], overrides=c["overrides"])
+                       rolling=c["slots"], overrides=c["overrides"],
+                       quantize=c.get("quantize"))
     return led(eng, rank, lambda e: rolling_lead(e, c))
 
 
@@ -831,12 +873,15 @@ def ar_engine_run(rank, c):
 def job_serving(rank, world):
     """The 4-rank world of tests/test_torch_mesh_serving.py: the rolling
     state machine under injected noise, the rolling engines (fsdp 2 x seq
-    2 with the planted error and the server, pp 2 x tensor 2, the MoE on
-    dcn 2 x ep 2) and the AR engines, each led by rank 0."""
+    2 with the planted error and the server, pp 2 x tensor 2 in bf16 and
+    int8, the MoE on dcn 2 x ep 2) and the AR engines, each led by rank
+    0."""
     inp = load_inputs()
     return {"machine": rolling_machine(rank, inp["machine"]),
             "rolling": rolling_engine_checks(rank, inp["rolling"]),
             "pp_tensor": rolling_engine_run(rank, inp["pp_tensor"]),
+            "pp_tensor_int8": rolling_engine_run(rank,
+                                                 inp["pp_tensor_int8"]),
             "moe": rolling_engine_run(rank, inp["moe"]),
             "ar": ar_engine_run(rank, inp["ar"])}
 

@@ -127,7 +127,11 @@ staying sharded across the stage boundary with the ring inside each
 stage. Under "tensor" each block runs megatron tensor parallelism
 (``DDiTBlock``); under "ep" and on a data-parallel mesh the MoE layers
 route over the global batch and run their experts split over "ep"
-(``models/moe.py``).
+(``models/moe.py``). An int8 model runs on each of them: a pp stage's int8
+blocks inside the pipeline (the fused path's adaLN rows are the
+microbatch's own), a tensor rank's int8 products split as its bf16 ones
+(``DDiTBlock``), and under "ep" the int8 attention and head whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -150,7 +154,7 @@ from unidisc_tpu_torch.ops.attention import (make_sample_ids_mask,
 from unidisc_tpu_torch.ops.flash_attention import flash_attention
 from unidisc_tpu_torch.ops.fused_qmm import fused_qmm
 from unidisc_tpu_torch.ops.quant import (int8_kv_attention, qdot,
-                                         quantize_kv)
+                                         qdot_row_parallel, quantize_kv)
 from unidisc_tpu_torch.parallel.comm import (GatherReplicated, copy_to,
                                              reduce_from, sum_over)
 from unidisc_tpu_torch.parallel.pipeline import current_pp
@@ -188,10 +192,11 @@ class QLinear(nn.Module):
         if prologue is None:
             return qdot(x, self.weight_q, self.scale, bias=self.bias,
                         out_dtype=out_dtype, backend=self.backend)
-        y = fused_qmm(x.reshape(-1, self.in_features), self.weight_q,
+        # weight_q's own shape: a tensor rank holds its columns only
+        y = fused_qmm(x.reshape(-1, x.shape[-1]), self.weight_q,
                       self.scale, bias=self.bias, out_dtype=out_dtype,
                       backend=self.backend, **prologue)
-        return y.reshape(*x.shape[:-1], self.out_features)
+        return y.reshape(*x.shape[:-1], self.weight_q.shape[0])
 
 
 def _product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -468,7 +473,17 @@ class DDiTBlock(nn.Module):
     sum), attention over the rank's n_heads / tensor heads, the QK-norm's
     statistics summed over the group, the six adaLN chunks gathered whole
     on every rank. The residual stream, the norms and the dropout masks
-    are whole and alike on every tensor rank."""
+    are whole and alike on every tensor rank.
+
+    An int8 block (``QLinear``) runs the same split with every int8
+    product equal to the one-rank product bit for bit (``_tp_linear``):
+    the column-parallel products quantize the whole row (the fused path's
+    norm and adaLN prologue too, over the whole residual row) against the
+    rank's columns, and the row-parallel ones quantize the rank's K-slice
+    by the whole row's amax and sum the int32 partials before the one
+    epilogue. What can still differ from one device is what differs in
+    the bf16 tensor path too: the QK-norm's statistics summed over the
+    group, and the floating-point adaLN product taken by columns."""
 
     def __init__(self, cfg: ModelConfig,
                  compute_dtype: torch.dtype = torch.bfloat16):
@@ -578,8 +593,19 @@ class DDiTBlock(nn.Module):
         bias), else row-parallel: the ranks' partial products of the
         compute-dtype operands in fp32, summed, the bias added and rounded
         once to the compute dtype, as the one-rank product rounds its
-        fp32 accumulator."""
+        fp32 accumulator. A ``QLinear`` holds its own part (its columns and
+        their bias, or its K-slice): column-parallel it quantizes the whole
+        row, which every rank holds alike, and row-parallel it runs
+        ``ops/quant.py::qdot_row_parallel`` (the row amax reduced over the
+        group, the int32 partials summed, one epilogue): either way the
+        one-rank int8 product bit for bit."""
         dt, tp = self.compute_dtype, self.tp
+        if isinstance(layer, QLinear):
+            if cols:
+                return layer(x, dt)
+            return qdot_row_parallel(x, layer.weight_q, layer.scale, tp.group,
+                                     bias=layer.bias, out_dtype=dt,
+                                     backend=layer.backend)
         if cols:
             w = layer.weight.shape[0]
             bias = None if layer.bias is None else copy_to(
@@ -619,8 +645,11 @@ class DDiTBlock(nn.Module):
                 cond = dense(c, self.adaLN_modulation, dt)
             else:
                 cond = self._tp_linear(c, self.adaLN_modulation, cols=True)
+                # contiguous: the gather's view along the last dimension
+                # is strided, and the fused prologue reads the chunks' rows
+                # as contiguous vectors
                 cond = GatherReplicated.apply(cond, self.tp.group,
-                                              cond.ndim - 1)
+                                              cond.ndim - 1).contiguous()
             cond = cond[:, None, :] if cond.ndim == 2 else cond
             (shift_msa, scale_msa, gate_msa,
              shift_mlp, scale_mlp, gate_mlp) = cond.chunk(6, dim=-1)

@@ -6,10 +6,23 @@
 //                       unidisc_tpu/ops/fused_qmm.py:97  _kernel
 //                       (fused_qmm, call :216):
 //                     a prologue, then the MULTIPLYING rounding form;
-//   row_quantize_div  the port's kernel for the JAX package's
+//   row_quantize_div  no prologue, the DIVIDING form, in three forms:
+//                     the port's kernel for the JAX package's
 //                       unidisc_tpu/ops/quant.py:51  dynamic_quantize,
 //                     which has no Pallas kernel (XLA fuses it into the
-//                     jitted program): no prologue, the DIVIDING form.
+//                     jitted program); and that quantize split in two,
+//                     each row's amax(|x|) in fp32 (row_amax) and the
+//                     quantize by a per-row amax it is given, not by the
+//                     row's own (quantize_by_amax).
+//
+// The split forms serve a row-parallel int8 product under tensor
+// parallelism (ops/quant.py::qdot_row_parallel): a rank holds a K-slice
+// of each row, takes its slice's amax, the amaxes are reduced (max) over
+// the group, and each rank quantizes its slice by the whole row's amax, so
+// its int8 values and scale are those of dynamic_quantize of the whole
+// row. They replace no TPU kernel (JAX quantizes whole rows on every
+// device). A max is exact in any order, so both equal their plain
+// versions bit for bit.
 //
 // For each row x of an (M, K) activation matrix (bf16 or fp32), in fp32:
 //
@@ -41,7 +54,10 @@
 // bf16 in, at 3.35 TB/s: fused_qmm (6144, 768) rms + adaLN + modality
 // 14.3 MB, 4.26 us; dynamic_quantize (6144, 768) 14.2 MB, 4.23 us,
 // (6144, 3072) 56.6 MB, 16.9 us, (2048, 768) 4.7 MB, 1.41 us. The prologue
-// is ~15 fp32 operations an element, far under the card's rate.
+// is ~15 fp32 operations an element, far under the card's rate. A tensor
+// rank's row-parallel inputs at tensor 2, bf16: row_amax (6144, 384)
+// 4.7 MB, 1.42 us, (6144, 1536) 18.9 MB, 5.64 us; quantize_by_amax
+// 7.1 MB, 2.13 us, and 28.4 MB, 8.47 us.
 //
 // Design: register-resident rows. LANES lanes hold a row (a warp, or a
 // quarter or half warp for narrow rows); each lane issues all of its
@@ -80,7 +96,14 @@ constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2 / pi)
 
 enum Mode { kNone = 0, kAdalnNorm = 1, kGelu = 2 };
 enum NormType { kLayerNorm = 0, kRms = 1 };
-enum Form { kMultiply = 0, kDivide = 1 };
+// kAmax writes the row's amax and quantizes nothing; kGiven is the
+// dividing form by the amax in Params::amax
+enum Form { kMultiply = 0, kDivide = 1, kAmax = 2, kGiven = 3 };
+
+// the forms that round as the dividing form does
+__host__ __device__ constexpr bool divides(int form) {
+  return form == kDivide || form == kGiven;
+}
 
 struct Params {
   const void* x;         // (M, K) bf16 or fp32
@@ -89,7 +112,8 @@ struct Params {
   const void* scale;
   const float* modality;  // (M) or nullptr (= all ones)
   int8_t* q;             // (M, K)
-  float* s;              // (M)
+  float* s;              // (M): the scales, or kAmax's amaxes
+  const float* amax;     // (M): kGiven's amaxes, or nullptr
   long long cond_stride;
   int M, K, rows_per_batch, mode, norm_type;
 };
@@ -193,7 +217,7 @@ __device__ __forceinline__ float adaln(float v, bool layernorm, float mu,
 
 template <int FORM>
 __device__ __forceinline__ float row_scale(float amax) {
-  if constexpr (FORM == kMultiply) {
+  if constexpr (!divides(FORM)) {
     return amax > 0.0f ? __fmul_rn(amax, INV127) : 1.0f;
   } else {
     return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 1.0f;
@@ -260,11 +284,11 @@ __device__ __forceinline__ void quantize_vec(const float* y, float s,
     const float t = __fmul_rn(y[i], inv);
     const float u = __fadd_rn(t, ROUND_MAGIC);
     q[i] = __float_as_int(u) - ROUND_BITS;
-    if constexpr (FORM == kDivide) {
+    if constexpr (divides(FORM)) {
       clear &= fabsf(__fsub_rn(t, __fsub_rn(u, ROUND_MAGIC))) < CLEAR_OF_HALF;
     }
   }
-  if (FORM == kDivide && !clear) {
+  if (divides(FORM) && !clear) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const float t = __fmul_rn(y[i], inv);
@@ -281,7 +305,7 @@ __device__ __forceinline__ void quantize_vec(const float* y, float s,
 // for the multiplying form)
 template <int FORM>
 __device__ __forceinline__ float tiny_lift(float s) {
-  return FORM == kDivide && s < TINY_SCALE ? TINY_LIFT : 1.0f;
+  return divides(FORM) && s < TINY_SCALE ? TINY_LIFT : 1.0f;
 }
 
 // The register-resident row kernel: LANES lanes a row, NV 16-byte vectors
@@ -358,9 +382,17 @@ __global__ void __launch_bounds__(THREADS) row_kernel(const Params p) {
   }
 
   float amax = 0.0f;
+  if constexpr (FORM == kGiven) {
+    amax = p.amax[row];
+  } else {
 #pragma unroll
-  for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(y[e]));
-  amax = group_max<LANES>(amax);
+    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(y[e]));
+    amax = group_max<LANES>(amax);
+  }
+  if constexpr (FORM == kAmax) {
+    if (valid && sub == 0) p.s[row] = amax;
+    return;
+  }
   const float s = row_scale<FORM>(amax);
   const float lift = tiny_lift<FORM>(s);
   const float s_lifted = __fmul_rn(s, lift);
@@ -434,8 +466,19 @@ __global__ void __launch_bounds__(THREADS) generic_kernel(const Params p) {
   };
 
   float amax = 0.0f;
-  for (int j = lane; j < p.K; j += 32) amax = fmaxf(amax, fabsf(prologue(j)));
-  const float s = row_scale<FORM>(group_max<32>(amax));
+  if constexpr (FORM == kGiven) {
+    amax = p.amax[row];
+  } else {
+    for (int j = lane; j < p.K; j += 32) {
+      amax = fmaxf(amax, fabsf(prologue(j)));
+    }
+    amax = group_max<32>(amax);
+  }
+  if constexpr (FORM == kAmax) {
+    if (lane == 0) p.s[row] = amax;
+    return;
+  }
+  const float s = row_scale<FORM>(amax);
   const float lift = tiny_lift<FORM>(s);
   const float s_lifted = __fmul_rn(s, lift);
   const float inv = row_inverse(s_lifted);
@@ -498,7 +541,7 @@ int fused_qmm(const void* x, const void* norm_w, const void* shift,
               long long cond_stride, int M, int K, int rows_per_batch,
               int mode, int norm_type, int lanes, int nv, int x_bf16,
               int cond_bf16, void* stream) {
-  Params p;
+  Params p = {};
   p.x = x;
   p.norm_w = static_cast<const float*>(norm_w);
   p.shift = shift;
@@ -529,12 +572,20 @@ int fused_qmm(const void* x, const void* norm_w, const void* shift,
   return static_cast<int>(err);
 }
 
-// dynamic_quantize: x (M, K) -> q (M, K) int8, s (M) fp32 in the dividing
-// form, no prologue.
-int row_quantize_div(const void* x, void* q, void* s, int M, int K, int lanes,
-                     int nv, int x_bf16, void* stream) {
+// The dividing form's entry, no prologue: x (M, K) bf16 or fp32, by
+// `form`:
+//   kDivide  dynamic_quantize: q (M, K) int8 and s (M) fp32, s = amax /
+//            127 of each row's own amax (1 where it is 0), q = rint(x / s);
+//            amax unread;
+//   kAmax    row_amax: s (M) fp32 = each row's amax(|x|); q unwritten;
+//   kGiven   as kDivide, by the amax (M) fp32 given, at least each row's
+//            own (a tensor rank's K-slice by the whole row's amax).
+int row_quantize_div(const void* x, const void* amax, void* q, void* s, int M,
+                     int K, int lanes, int nv, int x_bf16, int form,
+                     void* stream) {
   Params p = {};
   p.x = x;
+  p.amax = static_cast<const float*>(amax);
   p.q = static_cast<int8_t*>(q);
   p.s = static_cast<float*>(s);
   p.M = M;
@@ -542,11 +593,29 @@ int row_quantize_div(const void* x, void* q, void* s, int M, int K, int lanes,
   p.rows_per_batch = 1;
   p.mode = kNone;
   p.norm_type = kLayerNorm;
-  if (M < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || K < 1 || s == nullptr || (form == kGiven) != (amax != nullptr)
+      || (form != kAmax && q == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kDivide>(p, lanes, nv, st)
-             : launch<float, float, kDivide>(p, lanes, nv, st));
+  cudaError_t err;
+  switch (form) {
+    case kDivide:
+      err = x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kDivide>(p, lanes, nv, st)
+                   : launch<float, float, kDivide>(p, lanes, nv, st);
+      break;
+    case kAmax:
+      err = x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kAmax>(p, lanes, nv, st)
+                   : launch<float, float, kAmax>(p, lanes, nv, st);
+      break;
+    case kGiven:
+      err = x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, kGiven>(p, lanes, nv, st)
+                   : launch<float, float, kGiven>(p, lanes, nv, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* fused_qmm_error_string(int err) {

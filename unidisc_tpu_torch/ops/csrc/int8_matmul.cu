@@ -11,6 +11,19 @@
 // scales, bias (N) fp32 or null; out (M, N) bf16 or fp32, written once.
 // The int32 accumulator never leaves the registers.
 //
+// The raw form (out_kind 2) skips the epilogue and writes the int32
+// accumulator itself, out (M, N) int32, reading no scale or bias. It is
+// the row-parallel product of a tensor-parallel rank (models/dit.py): each
+// rank's K-slice gives a partial sum, the int32 partials are summed over
+// the group exactly, and the one epilogue runs on the sum. fp32 partials
+// would not be exact: a rank's K-slice of mlp.2 at tensor 2 is 1,536
+// deep, and 1,536 x 127^2 = 2.5e7 passes 2^24. It adds no replaced TPU
+// kernel (JAX computes the whole row on every device, its int8 leaves
+// replicated under "tensor"). Bound at the two row-parallel shapes of the
+// flagship at tensor 2 (M 6144; K 384, N 768 and K 1536, N 768): 3.6 and
+// 14.5 G int8 ops (1.8 and 7.3 us at 1,979 TOPS) against 21.5 and 29.5 MB
+// of operands and int32 output (6.4 and 8.8 us at 3.35 TB/s): bytes.
+//
 // Numerics: the integer product is exact. The epilogue keeps the JAX
 // oracle's order, ((acc * s) * ws) + bias, with round-to-nearest intrinsics
 // so that nvcc cannot contract the multiply and the add into an FMA: the
@@ -75,6 +88,8 @@
 // 8 n + 7 its epilogue done; the producer into 8 n + 5 and 8 n + 6 the
 // issue of the tile's first and last stage; 62 the end.
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -95,8 +110,10 @@ struct Params {
   const float* bias;   // (N) or nullptr
   void* out;           // (M, N)
   int M, N, K;
-  int out_bf16;
+  int out_kind;        // OUT_FP32, OUT_BF16 or OUT_INT32
 };
+
+enum OutKind { OUT_FP32 = 0, OUT_BF16 = 1, OUT_INT32 = 2 };
 
 template <int BN>
 struct Config {
@@ -136,6 +153,7 @@ __device__ __forceinline__ void wgmma_s8(int32_t (&d)[BN / 2], uint64_t da,
 // store instruction of the warp writes four 128-byte row segments. Pieces
 // at the edges (or all of them, where a row of `out` is not a multiple of
 // 16 bytes) are stored element by element.
+// With T int32_t the accumulator goes out as it is (the raw form).
 template <typename T, int BN>
 __device__ __forceinline__ void store_tile(const Params& p,
                                            const int32_t (&acc)[BN / 2],
@@ -143,9 +161,13 @@ __device__ __forceinline__ void store_tile(const Params& p,
                                            int n0, const float* sWs,
                                            const float* sBias, int lane) {
   constexpr int CH = 128 / sizeof(T);  // columns of one 128-byte segment
+  constexpr bool RAW = std::is_same<T, int32_t>::value;
   const int g = lane >> 2, t = lane & 3;
-  const float s0 = row0 + g < p.M ? __ldg(p.s + row0 + g) : 0.f;
-  const float s1 = row0 + g + 8 < p.M ? __ldg(p.s + row0 + g + 8) : 0.f;
+  float s0 = 0.f, s1 = 0.f;
+  if constexpr (!RAW) {
+    s0 = row0 + g < p.M ? __ldg(p.s + row0 + g) : 0.f;
+    s1 = row0 + g + 8 < p.M ? __ldg(p.s + row0 + g + 8) : 0.f;
+  }
   const bool bias = p.bias != nullptr;
   const bool vec = (static_cast<long long>(p.N) * sizeof(T)) % 16 == 0;
 #pragma unroll
@@ -156,18 +178,23 @@ __device__ __forceinline__ void store_tile(const Params& p,
       const int j = c * (CH / 8) + jj;
       const int cl = 8 * j + 2 * t;  // column within the tile
       float v[4];
+      if constexpr (!RAW) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]),
-                                   e < 2 ? s0 : s1),
-                         sWs[cl + e % 2]);
-        if (bias) v[e] = __fadd_rn(v[e], sBias[cl + e % 2]);
+        for (int e = 0; e < 4; ++e) {
+          v[e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]),
+                                     e < 2 ? s0 : s1),
+                           sWs[cl + e % 2]);
+          if (bias) v[e] = __fadd_rn(v[e], sBias[cl + e % 2]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         unsigned char* at = stage + (g + 8 * r) * EPI_ROW +
                             (8 * jj + 2 * t) * sizeof(T);
-        if constexpr (sizeof(T) == 2) {
+        if constexpr (RAW) {
+          *reinterpret_cast<int2*>(at) =
+              make_int2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        } else if constexpr (sizeof(T) == 2) {
           *reinterpret_cast<__nv_bfloat162*>(at) =
               __floats2bfloat162_rn(v[2 * r], v[2 * r + 1]);
         } else {
@@ -290,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < PER; ++i) {
         const int c = n0 + lt + 128 * i;
         const bool in = lt + 128 * i < BN && c < p.N;
-        wv[i] = in ? __ldg(p.ws + c) : 0.f;
+        wv[i] = in && p.ws != nullptr ? __ldg(p.ws + c) : 0.f;
         bv[i] = in && p.bias != nullptr ? __ldg(p.bias + c) : 0.f;
       }
       for (int kb = 0; kb < nk; ++kb, ++it) {
@@ -326,9 +353,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       wg_sync();
       const int row0 = m0 + wg * 64 + warp * 16;
-      if (p.out_bf16) {
+      if (p.out_kind == OUT_BF16) {
         store_tile<__nv_bfloat16, BN>(p, acc, stage_epi, row0, n0, sWs,
                                       sBias, lane);
+      } else if (p.out_kind == OUT_INT32) {
+        store_tile<int32_t, BN>(p, acc, stage_epi, row0, n0, sWs, sBias,
+                                lane);
       } else {
         store_tile<float, BN>(p, acc, stage_epi, row0, n0, sWs, sBias,
                               lane);
@@ -362,11 +392,14 @@ extern "C" {
 // Returns a cudaError_t (0 on success). Shapes, dtypes, alignment and
 // K % 16 == 0 are checked by the Python wrapper, which also chooses
 // block_n (128, 192 or 256) and the persistent grid (at most one block per
-// tile).
+// tile). out_kind: 0 fp32, 1 bf16 (the epilogue), 2 int32 (the raw
+// accumulator; s, ws and bias are not read and may be null).
 int int8_matmul(const void* a, const void* s, const void* w, const void* ws,
                 const void* bias, void* out, int M, int N, int K, int block_n,
-                int grid, int out_bf16, void* stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || grid < 1) {
+                int grid, int out_kind, void* stream) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || grid < 1 ||
+      out_kind < OUT_FP32 || out_kind > OUT_INT32 ||
+      (out_kind != OUT_INT32 && (s == nullptr || ws == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -377,7 +410,8 @@ int int8_matmul(const void* a, const void* s, const void* w, const void* ws,
   p.M = M;
   p.N = N;
   p.K = K;
-  p.out_bf16 = out_bf16;
+  p.out_kind = out_kind;
+  if (out_kind == OUT_INT32) p.bias = nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (block_n) {
     case 128: return static_cast<int>(launch<128>(a, w, grid, p, st));

@@ -18,7 +18,10 @@ version otherwise.
 
 The same source carries the kernel of ``ops/quant.py::dynamic_quantize``
 (``_dynamic_quantize_cuda``, counted as "dynamic_quantize"): the row
-kernel with no prologue, in the dividing form. ``row_plan`` and
+kernel with no prologue, in the dividing form; and that quantize split in
+two for a tensor-parallel rank's K-slice of a row (``ops/quant.py::
+row_amax`` and ``quantize_by_amax``): ``_row_amax_cuda`` ("row_amax")
+and ``_quantize_by_amax_cuda`` ("quantize_by_amax"). ``row_plan`` and
 ``quantize_plan`` choose the row kernel's width, or its generic loop, from
 the row's width and the operands' alignment.
 """
@@ -31,10 +34,14 @@ from typing import Optional, Tuple
 import torch
 
 from unidisc_tpu_torch.ops import _build
-from unidisc_tpu_torch.ops.int8_matmul import int8_product
+from unidisc_tpu_torch.ops.int8_matmul import _ptr, int8_product
 
 KERNEL = "fused_qmm"
 DQ_KERNEL = "dynamic_quantize"
+AMAX_KERNEL = "row_amax"
+GIVEN_KERNEL = "quantize_by_amax"
+# the forms of the C entry row_quantize_div (fused_qmm.cu's Form)
+ROW_FORMS = {DQ_KERNEL: 1, AMAX_KERNEL: 2, GIVEN_KERNEL: 3}
 MODES = {"none": 0, "adaln_norm": 1, "gelu": 2}
 NORM_TYPES = {"layernorm": 0, "rms": 1}
 X_DTYPES = (torch.bfloat16, torch.float32)
@@ -124,6 +131,10 @@ def fused_quantize(x: torch.Tensor, *, mode: str = "none",
               scale=scale, modality=modality, rows_per_batch=rows_per_batch)
     if mode not in MODES:
         raise ValueError(f"unknown fused_qmm mode {mode!r}")
+    if mode == "adaln_norm" and shift is not None:
+        # the kernel's contract, held on every device: a layout the card
+        # refuses fails on the CPU too
+        _check_adaln(x, shift, scale, rows_per_batch)
     if x.device.type == "cpu":
         return fused_quantize_reference(x, **kw)
     if x.device.type != "cuda":
@@ -218,18 +229,8 @@ def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
     rpb, stride, cond_bf16 = 1, 0, 0
     if cond:
         rpb = _rows_per_batch(rows_per_batch)
-        n_batch = -(-m_rows // rpb)
         for name, t in (("shift", shift), ("scale", scale)):
-            if (t is None or t.ndim != 2 or t.shape[0] < n_batch
-                    or t.shape[1] != k or t.stride(1) != 1
-                    or t.dtype not in X_DTYPES):
-                raise ValueError(f"fused_qmm: {name} must be a ({n_batch}, "
-                                 f"{k}) bf16 or fp32 matrix with a "
-                                 f"contiguous last dimension")
             on_device(name, t)
-        if shift.dtype != scale.dtype or shift.stride() != scale.stride():
-            raise ValueError("fused_qmm: shift and scale must share dtype "
-                             "and strides")
         stride, cond_bf16 = shift.stride(0), int(shift.dtype == torch.bfloat16)
         if modality is not None:
             modality = on_device("modality",
@@ -256,32 +257,90 @@ def _fused_quantize_cuda(x, *, mode, norm_type, norm_w, shift, scale,
     return q, s
 
 
-def _dynamic_quantize_cuda(x: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``ops/quant.py::dynamic_quantize`` through the row kernel: x (M, K)
-    bf16 or fp32 with contiguous rows -> (q (M, K) int8, s (M, 1) fp32),
-    s = amax / 127 and q = round(x / s), as its plain version."""
+def _check_adaln(x: torch.Tensor, shift: torch.Tensor,
+                 scale: Optional[torch.Tensor],
+                 rows_per_batch: Optional[int]) -> None:
+    """The adaLN rows the row kernel reads: shift and scale (n_batch, K)
+    bf16 or fp32 with a contiguous last dimension, one dtype and one
+    layout, n_batch = ceil(M / rows_per_batch)."""
+    k = x.shape[-1]
+    n_batch = -(-(x.numel() // k) // _rows_per_batch(rows_per_batch))
+    for name, t in (("shift", shift), ("scale", scale)):
+        if (t is None or t.ndim != 2 or t.shape[0] < n_batch
+                or t.shape[1] != k or t.stride(1) != 1
+                or t.dtype not in X_DTYPES):
+            raise ValueError(f"fused_qmm: {name} must be a ({n_batch}, "
+                             f"{k}) bf16 or fp32 matrix with a "
+                             f"contiguous last dimension")
+    if shift.dtype != scale.dtype or shift.stride() != scale.stride():
+        raise ValueError("fused_qmm: shift and scale must share dtype "
+                         "and strides")
+
+
+def _check_rows(x: torch.Tensor, name: str) -> None:
+    """x: a contiguous bf16 or fp32 (M, K) matrix with M, K >= 1."""
     if x.dtype not in X_DTYPES:
-        raise TypeError(f"dynamic_quantize: x must be one of {X_DTYPES}, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{name}: x must be one of {X_DTYPES}, got "
+                        f"{x.dtype}")
     if x.ndim != 2 or not x.is_contiguous() or min(x.shape) < 1:
-        raise ValueError(f"dynamic_quantize: x must be a contiguous (M, K) "
-                         f"matrix with M, K >= 1, got shape "
-                         f"{tuple(x.shape)} strides {x.stride()}")
+        raise ValueError(f"{name}: x must be a contiguous (M, K) matrix "
+                         f"with M, K >= 1, got shape {tuple(x.shape)} "
+                         f"strides {x.stride()}")
+
+
+def _row_cuda(x: torch.Tensor, kernel: str,
+              amax: Optional[torch.Tensor] = None
+              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The row kernel with no prologue, in the dividing form (the C entry
+    ``row_quantize_div``) as `kernel` names it (ROW_FORMS): x (M, K) bf16
+    or fp32 with contiguous rows, amax (M, 1) fp32 for GIVEN_KERNEL ->
+    (q (M, K) int8, or None for AMAX_KERNEL; s (M, 1) fp32, the scales or
+    AMAX_KERNEL's amaxes)."""
+    _check_rows(x, kernel)
     m_rows, k = x.shape
     dev = x.device
-    q = torch.empty((m_rows, k), dtype=torch.int8, device=dev)
+    if amax is not None:
+        amax = amax.reshape(-1).float().contiguous()
+        if amax.numel() != m_rows or amax.device != dev:
+            raise ValueError(f"{kernel}: amax must have {m_rows} elements "
+                             f"on {dev}, got {amax.numel()} on "
+                             f"{amax.device}")
+    q = None if kernel == AMAX_KERNEL else torch.empty(
+        (m_rows, k), dtype=torch.int8, device=dev)
     s = torch.empty((m_rows, 1), dtype=torch.float32, device=dev)
     lanes, nv = quantize_plan(x)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.row_quantize_div(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                                   m_rows, k, lanes, nv,
-                                   int(x.dtype == torch.bfloat16), stream)
-    _check(lib, err, DQ_KERNEL)
-    _build.launch_counts[DQ_KERNEL] += 1
+        err = lib.row_quantize_div(
+            x.data_ptr(), _ptr(amax), _ptr(q), s.data_ptr(), m_rows, k,
+            lanes, nv, int(x.dtype == torch.bfloat16), ROW_FORMS[kernel],
+            stream)
+    _check(lib, err, kernel)
+    _build.launch_counts[kernel] += 1
     return q, s
+
+
+def _dynamic_quantize_cuda(x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops/quant.py::dynamic_quantize`` through the row kernel: x (M, K)
+    bf16 or fp32 with contiguous rows -> (q (M, K) int8, s (M, 1) fp32),
+    s = amax / 127 and q = round(x / s), as its plain version."""
+    return _row_cuda(x, DQ_KERNEL)
+
+
+def _row_amax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """``ops/quant.py::row_amax`` through the row kernel: x (M, K) bf16 or
+    fp32 with contiguous rows -> each row's amax(|x|), fp32 (M, 1)."""
+    return _row_cuda(x, AMAX_KERNEL)[1]
+
+
+def _quantize_by_amax_cuda(x: torch.Tensor, amax: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops/quant.py::quantize_by_amax`` through the row kernel: x (M, K)
+    bf16 or fp32 with contiguous rows and amax (M, 1) fp32 -> (q (M, K)
+    int8, s (M, 1) fp32), s = amax / 127 and q = round(x / s)."""
+    return _row_cuda(x, GIVEN_KERNEL, amax)
 
 
 def _check(lib, err: int, name: str) -> None:
@@ -297,7 +356,7 @@ def _library() -> ctypes.CDLL:
         lib.fused_qmm.argtypes = ([ptr] * 7 + [ctypes.c_longlong]
                                   + [i32] * 9 + [ptr])
         lib.fused_qmm.restype = i32
-        lib.row_quantize_div.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.row_quantize_div.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.row_quantize_div.restype = i32
         lib.fused_qmm_error_string.argtypes = [i32]
         lib.fused_qmm_error_string.restype = ctypes.c_char_p

@@ -4,6 +4,12 @@ JAX package's Pallas ``int8_matmul``, ``unidisc_tpu/ops/int8_matmul.py``).
 
     out = (x_q @ w_q^T)_int32 * s_row * w_scale_col (+ bias)   -> out_dtype
 
+With ``out_dtype=torch.int32`` the kernel skips its epilogue and writes
+the int32 accumulator ``x_q @ w_q^T`` itself (the raw form, counted as
+"int8_matmul_int32"): a tensor-parallel rank's partial product of a
+row-parallel layer, summed exactly over the group before the one epilogue
+(``ops/quant.py::qdot_row_parallel``).
+
 The weight is stored in the port's (N, K) layout, K contiguous: a row
 slice (the t2i head's image vocabulary) is itself a contiguous (N', K)
 matrix. On a CUDA tensor ``int8_matmul`` launches the kernel or raises; on
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from unidisc_tpu_torch.ops import _build
 
 KERNEL = "int8_matmul"
+RAW_KERNEL = "int8_matmul_int32"   # the launch count of the raw form
 BLOCK_M = 128               # output rows per tile (int8_matmul.cu)
 BLOCK_NS = (256, 192, 128)  # the tile widths the kernel is built for
 # A tile's cost in the wave model of `plan`, in output columns: BLOCK_N for
@@ -34,7 +41,9 @@ BLOCK_NS = (256, 192, 128)  # the tile widths the kernel is built for
 # products of the int8 serve path on an H100 (PERF.md §6).
 TILE_OVERHEAD = 32
 MAX_TILES = 2 ** 31 - 1
-OUT_DTYPES = (torch.bfloat16, torch.float32)
+# the C entry's output kinds: fp32 and bf16 take the epilogue, int32 is
+# the raw accumulator
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
 def int8_matmul_reference(x_q: torch.Tensor, s: torch.Tensor,
@@ -43,14 +52,30 @@ def int8_matmul_reference(x_q: torch.Tensor, s: torch.Tensor,
                           out_dtype: torch.dtype = torch.bfloat16
                           ) -> torch.Tensor:
     """The kernel's plain version. x_q (M, K) int8, s (M, 1) fp32,
-    w_q (N, K) int8, w_scale (N,), bias (N,) or None -> (M, N) out_dtype.
+    w_q (N, K) int8, w_scale (N,), bias (N,) or None -> (M, N) out_dtype;
+    out_dtype int32: the accumulator itself (s, w_scale and bias unread).
 
     The product is taken in fp64, where every partial sum of int8 x int8
     products is an exact integer (|acc| <= 127^2 K < 2^53), so the result
     is the int32 accumulator whatever the summation order; its cast to fp32
     rounds as JAX's int32 -> fp32 cast does."""
-    acc = (x_q.double() @ w_q.double().t()).float()
-    out = acc * s.float().reshape(-1, 1) * w_scale.float()[None, :]
+    acc = x_q.double() @ w_q.double().t()
+    if out_dtype == torch.int32:
+        return acc.to(torch.int32)
+    return int8_epilogue(acc.to(torch.int32), s, w_scale, bias=bias,
+                         out_dtype=out_dtype)
+
+
+def int8_epilogue(acc: torch.Tensor, s: torch.Tensor,
+                  w_scale: torch.Tensor, *,
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The epilogue in JAX's order: the int32 accumulator (M, N) cast to
+    fp32, ``(acc * s) * w_scale``, then ``+ bias``, then the cast to
+    out_dtype; each step a PyTorch op that rounds once, so it equals the
+    kernel's fused epilogue (which keeps nvcc from contracting any of it)
+    on every device."""
+    out = acc.float() * s.float().reshape(-1, 1) * w_scale.float()[None, :]
     if bias is not None:
         out = out + bias.float()[None, :]
     return out.to(out_dtype)
@@ -61,7 +86,8 @@ def int8_matmul(x_q: torch.Tensor, s: torch.Tensor, w_q: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(x_q int8 (M, K), s fp32 (M, 1)) x (w_q int8 (N, K), w_scale (N,))
-    -> out_dtype (M, N), the epilogue fused.
+    -> out_dtype (M, N), the epilogue fused; out_dtype int32: the raw
+    accumulator, s and w_scale unread (None will do) and no bias.
 
     On the card: both int8 operands K-contiguous and 16-byte aligned, any
     M, N and K (a K that is not a multiple of 16, which the TMA tensor
@@ -72,6 +98,11 @@ def int8_matmul(x_q: torch.Tensor, s: torch.Tensor, w_q: torch.Tensor,
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
     return _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A C pointer argument: the tensor's address, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def int8_product(backend: str):
@@ -134,9 +165,14 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype, block_n=None):
     if m < 1 or n < 1 or -(-m // BLOCK_M) * -(-n // min(BLOCK_NS)) \
             > MAX_TILES:
         raise ValueError(f"int8_matmul: unsupported M = {m}, N = {n}")
-    if out_dtype not in OUT_DTYPES:
+    if out_dtype not in OUT_KINDS:
         raise TypeError(f"int8_matmul: out_dtype {out_dtype} not in "
-                        f"{OUT_DTYPES}")
+                        f"{tuple(OUT_KINDS)}")
+    raw = out_dtype == torch.int32
+    if raw and bias is not None:
+        raise ValueError("int8_matmul: the int32 form takes no bias (it "
+                         "writes the accumulator; add the bias after the "
+                         "epilogue)")
     dev = x_q.device
     for name, t in (("x_q", x_q), ("w_q", w_q)):
         if t.device != dev:
@@ -148,11 +184,14 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype, block_n=None):
                              f"{t.stride()}")
     # the epilogue reads fp32 vectors (JAX casts w_scale and bias to fp32
     # in its epilogue); these are no-ops for fp32 inputs
-    s = s.reshape(-1).float().contiguous()
-    w_scale = w_scale.float().contiguous()
-    if s.numel() != m or w_scale.shape != (n,):
-        raise ValueError(f"int8_matmul: s must have {m} and w_scale {n} "
-                         f"elements")
+    if raw:
+        s = w_scale = None
+    else:
+        s = s.reshape(-1).float().contiguous()
+        w_scale = w_scale.float().contiguous()
+        if s.numel() != m or w_scale.shape != (n,):
+            raise ValueError(f"int8_matmul: s must have {m} and w_scale "
+                             f"{n} elements")
     if bias is not None:
         bias = bias.float().contiguous()
         if bias.shape != (n,):
@@ -174,13 +213,12 @@ def _int8_matmul_cuda(x_q, s, w_q, w_scale, bias, out_dtype, block_n=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.int8_matmul(
-            x_q.data_ptr(), s.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, n, k, bn, grid, int(out_dtype == torch.bfloat16), stream)
+            x_q.data_ptr(), _ptr(s), w_q.data_ptr(), _ptr(w_scale), _ptr(bias),
+            out.data_ptr(), m, n, k, bn, grid, OUT_KINDS[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: "
                            f"{lib.int8_matmul_error_string(err).decode()}")
-    _build.launch_counts[KERNEL] += 1
+    _build.launch_counts[RAW_KERNEL if raw else KERNEL] += 1
     return out
 
 

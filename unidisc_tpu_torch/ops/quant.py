@@ -19,6 +19,28 @@ reciprocals instead, as its JAX counterpart does. Rounding is half to even
 "dynamic_quantize", whatever the product's backend), on a CPU tensor
 through ``dynamic_quantize_reference``, its plain version.
 
+``qdot_row_parallel`` is ``qdot`` of a row-parallel layer under tensor
+parallelism, where each rank of the group holds a K-slice of every input
+row and the matching K-slice of the weight. It gives the one-device
+``qdot`` bit for bit:
+
+  1. ``row_amax`` of the rank's slice (each row's max |x| in fp32);
+  2. the amaxes' max over the group: the whole row's amax, exactly;
+  3. ``quantize_by_amax``: the dividing form by that amax, so the slice's
+     int8 values and the row's scale are those of ``dynamic_quantize`` of
+     the whole row (a slice quantized by its own amax would differ);
+  4. the int8 product of the slice to the int32 accumulator, with no
+     epilogue (``int8_matmul(out_dtype=torch.int32)``);
+  5. the int32 partials summed over the group: exact, as the one-device
+     accumulator is (fp32 partials would not be: 1,536 x 127^2 > 2^24);
+  6. one fp32 epilogue on the sum in JAX's order, ``(acc * s) * w_scale``,
+     ``+ bias``, the cast (``int8_matmul.py::int8_epilogue``).
+
+Steps 1 and 3 run two forms of the row kernel's dividing entry on a CUDA
+tensor (counted as "row_amax" and "quantize_by_amax") and their plain
+versions on a CPU tensor; step 4 the int32 form of the int8 kernel under
+backend "pallas" (counted as "int8_matmul_int32").
+
 The int8 KV cache (``quantize_kv``, ``int8_kv_attention``) reaches no
 Pallas kernel in the JAX package (XLA computes it), so its plain PyTorch
 form here is its port. ``quantize_elm_params`` converts an OpenELM
@@ -32,9 +54,13 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from unidisc_tpu_torch.ops.fused_qmm import _dynamic_quantize_cuda
-from unidisc_tpu_torch.ops.int8_matmul import int8_product
+from unidisc_tpu_torch.ops.fused_qmm import (_dynamic_quantize_cuda,
+                                             _quantize_by_amax_cuda,
+                                             _row_amax_cuda)
+from unidisc_tpu_torch.ops.int8_matmul import int8_epilogue, int8_product
+from unidisc_tpu_torch.parallel.comm import all_reduce
 
 # the DIT linears that quantize_dit_params converts: the four trunk
 # matmuls of every block and the vocab head
@@ -68,10 +94,49 @@ def dynamic_quantize_reference(x: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: per-row (last dimension) symmetric int8
     activation quantization, (x_q int8, scale fp32 (..., 1))."""
-    x32 = x.float()
-    amax = x32.abs().amax(dim=-1, keepdim=True)
+    return quantize_by_amax_reference(x, row_amax_reference(x))
+
+
+def row_amax_reference(x: torch.Tensor) -> torch.Tensor:
+    """The row_amax kernel's plain version: each row's (last dimension)
+    max |x| in fp32, (..., 1)."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_by_amax_reference(x: torch.Tensor, amax: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantize_by_amax kernel's plain version: x (..., K) quantized
+    in the dividing form by a given per-row amax (..., 1), at least the
+    row's own: (x_q int8, scale = amax / 127 fp32 (..., 1))."""
+    amax = amax.float()
     scale = torch.where(amax > 0, _div127(amax), 1.0)
-    return torch.round(x32 / scale).to(torch.int8), scale
+    return torch.round(x.float() / scale).to(torch.int8), scale
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's (last dimension) max |x| in fp32, (..., 1). On the card
+    x is bf16 or fp32 with contiguous rows."""
+    if x.device.type == "cpu":
+        return row_amax_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_amax: unsupported device {x.device}")
+    return _row_amax_cuda(x.reshape(-1, x.shape[-1])).reshape(
+        *x.shape[:-1], 1)
+
+
+def quantize_by_amax(x: torch.Tensor, amax: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., K) quantized per row in the dividing form by a given amax
+    (..., 1), which is at least the row's own (the max over the group of
+    the ranks' ``row_amax`` of their slices of the row): (x_q int8,
+    scale fp32 (..., 1)); given the row's own amax it is
+    ``dynamic_quantize``."""
+    if x.device.type == "cpu":
+        return quantize_by_amax_reference(x, amax)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_by_amax: unsupported device {x.device}")
+    x_q, scale = _quantize_by_amax_cuda(x.reshape(-1, x.shape[-1]), amax)
+    return x_q.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
 
 
 def dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +165,27 @@ def qdot(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     lead = x.shape[:-1]
     x_q, x_scale = dynamic_quantize(x.reshape(-1, x.shape[-1]))
     y = matmul(x_q, x_scale, w_q, w_scale, bias=bias, out_dtype=out_dtype)
+    return y.reshape(*lead, w_q.shape[0])
+
+
+def qdot_row_parallel(x: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor, group, *,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.bfloat16,
+                      backend: str = "xla") -> torch.Tensor:
+    """``qdot`` of a row-parallel layer over the tensor `group` (module
+    docstring): x (..., K / T) the rank's K-slice of each row, w_q (N,
+    K / T) int8 its K-slice of the weight, w_scale (N,) and bias (N,) or
+    None whole. Returns the whole (..., N) on every rank, equal to
+    ``qdot`` of the whole rows and weight."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    amax = all_reduce(row_amax(x2), group, op=dist.ReduceOp.MAX)
+    x_q, x_scale = quantize_by_amax(x2, amax)
+    acc = int8_product(backend)(x_q, None, w_q, None,
+                                out_dtype=torch.int32)
+    acc = all_reduce(acc, group)
+    y = int8_epilogue(acc, x_scale, w_scale, bias=bias, out_dtype=out_dtype)
     return y.reshape(*lead, w_q.shape[0])
 
 
@@ -228,6 +314,10 @@ def quantize_model(config, model):
     device and in eval mode, holding the quantized weights."""
     from unidisc_tpu_torch.models.dit import DIT
 
+    if getattr(model, "mesh_shards", None) is not None:
+        # a shard's per-channel scales would be maxima over its slice
+        raise ValueError("quantize_model takes the one-rank model: quantize "
+                         "before parallel/mesh.py::shard_model splits it")
     qm = dataclasses.replace(config.model, quant="int8")
     qconfig = dataclasses.replace(config, model=qm)
     device = next(model.parameters()).device

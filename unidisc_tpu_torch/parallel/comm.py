@@ -7,7 +7,9 @@ over gloo, since NCCL refuses two ranks on one device); NCCL moves device
 memory, so a CPU tensor on an NCCL group rides on the rank's card. A
 collective that fails raises; nothing falls back.
 
-* ``all_reduce`` (sum), ``all_gather`` (concatenated along a dim),
+* ``all_reduce`` (sum, or another ``dist.ReduceOp``: the int8
+  row-parallel product's max of the row amaxes), ``all_gather``
+  (concatenated along a dim),
   ``gather`` (concatenated along dim 0 on one rank: a batcher's host
   read, ``parallel/sample.py::SlotSplit``), ``broadcast``;
 * ``shift``: each rank sends to the next rank of the group and receives
@@ -62,14 +64,15 @@ def _wire(group, t: torch.Tensor) -> torch.device:
     raise ValueError(f"no transport rule for backend {backend!r}")
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum of `t` over the group (in place when `t` is on the wire's
-    device; returns the result)."""
+def all_reduce(t: torch.Tensor, group=None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or `op`) of `t` over the group (in place when `t` is on the
+    wire's device; returns the result)."""
     if dist.get_world_size(group) == 1:
         return t
     wire = _wire(group, t)
     buf = t if t.device == wire else t.to(wire)
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     if buf is not t:
         t.copy_(buf)
     return t

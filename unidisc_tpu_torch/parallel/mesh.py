@@ -30,6 +30,19 @@ that "tensor", "pp" and "ep" split, where JAX's rule puts those axes:
 * "ep": an MoE block keeps its experts' ``w1``, ``b1``, ``w2``, ``b2``
   (E / ep of them).
 
+An int8 W8A8 model (``model.quant="int8"``) is quantized whole, before
+``shard_model`` (``ops/quant.py::quantize_model`` refuses a laid-out
+model): a row-parallel weight's per-channel scale is a max over the whole
+K, so a rank's ``weight_q`` and ``scale`` are slices of the one-device
+tensors. ``shard_model`` then splits ``QLinear``'s buffers as it splits
+parameters: a pp rank drops the other stages' ``weight_q`` and ``scale``;
+under "tensor" ``attn_qkv`` keeps its heads' rows of q, k and v and
+``mlp.0`` its rows (``weight_q``, ``scale`` and the bias), ``attn_out``
+and ``mlp.2`` the columns of their K-slice (``weight_q``; their scale and
+bias stay whole); under "ep" only the experts split, which stay in floating
+point as in JAX, and the int8 attention and head stay whole. The blocks run
+the int8 products split so (``models/dit.py::DDiTBlock``).
+
 It also tells the modules the groups they compute over (the blocks'
 tensor group, the MoE layers' data-parallel and "ep" groups), and records
 on the model what it kept (``MeshShards``), which the train state reads to
@@ -53,10 +66,10 @@ and groups, and the rank-local slicing and gathering that JAX's
 "seq"; "tensor", "pp" and "ep" ranks hold the same rows.
 
 What the port does not run on a mesh raises ``NotImplementedError``
-naming ROADMAP queue 1, item 9 (``check_mesh_model``): int8 W8A8 models
-on "tensor", "pp" or "ep"; img_cond under "pp" (JAX's ``validate()``
-refuses it too) or "tensor"; "ep" inside a pipeline stage; an MoE model
-under "seq" inside a pipeline stage.
+naming ROADMAP queue 1, item 9 (``check_mesh_model``): img_cond under
+"tensor" (item 9c; under "pp" JAX's and the port's ``Config.validate``
+refuse it with a ``ValueError``); "ep" inside a pipeline stage; an MoE
+model under "seq" inside a pipeline stage.
 """
 
 from __future__ import annotations
@@ -103,9 +116,7 @@ def check_mesh_model(m, sizes: Mapping[str, int]) -> None:
     check_ported_axes(sizes)
     tensor, pp, ep = (sizes.get(a, 1) for a in ("tensor", "pp", "ep"))
     later = [what for what, bad in (
-        ("int8 W8A8 on tensor / pp / ep",
-         m.quant == "int8" and max(tensor, pp, ep) > 1),
-        ("img_cond under pp or tensor", m.img_cond and max(tensor, pp) > 1),
+        ("img_cond under tensor (item 9c)", m.img_cond and tensor > 1),
         ("MoE under seq inside a pipeline stage",
          m.moe_experts > 0 and pp > 1 and sizes.get("seq", 1) > 1),
     ) if bad]
@@ -264,15 +275,28 @@ _TENSOR_PARTS = {"attn_qkv.weight": Part("tensor", 0, 3),
                  "adaLN_modulation.weight": Part("tensor", 0),
                  "attn_out.weight": Part("tensor", 1),
                  "mlp.2.weight": Part("tensor", 1)}
+# an int8 block's parts under "tensor": its QLinear leaves split as the
+# weights they replace (a row-parallel scale stays whole) and mlp.0's bias
+# with its columns (a QLinear adds its own bias); adaLN_modulation stays
+# floating point
+_TENSOR_INT8_PARTS = {**_TENSOR_PARTS,
+                      "attn_qkv.weight_q": Part("tensor", 0, 3),
+                      "attn_qkv.scale": Part("tensor", 0, 3),
+                      "mlp.0.weight_q": Part("tensor", 0),
+                      "mlp.0.scale": Part("tensor", 0),
+                      "mlp.0.bias": Part("tensor", 0),
+                      "attn_out.weight_q": Part("tensor", 1),
+                      "mlp.2.weight_q": Part("tensor", 1)}
 _EP_PARTS = {f"moe.{n}": Part("ep", 0) for n in ("w1", "b1", "w2", "b2")}
 
 
 @dataclass
 class MeshShards:
-    """What ``shard_model`` kept on a rank: `parts` the parameters it
-    holds a "tensor" / "ep" part of, `stage_of` each block parameter's
-    pipeline stage under pp > 1 (only its stage's ranks hold it), `shapes`
-    every parameter's whole shape."""
+    """What ``shard_model`` kept on a rank: `parts` the parameters (and
+    an int8 model's ``QLinear`` buffers) it holds a "tensor" / "ep" part
+    of, `stage_of` each block tensor's pipeline stage under pp > 1 (only
+    its stage's ranks hold it), `shapes` every parameter's and int8
+    buffer's whole shape."""
     parts: Dict[str, Part] = field(default_factory=dict)
     stage_of: Dict[str, int] = field(default_factory=dict)
     shapes: Dict[str, tuple] = field(default_factory=dict)
@@ -332,29 +356,42 @@ class MeshShards:
         return out
 
 
+def _held_tensors(module: torch.nn.Module):
+    """(name, tensor) of `module`'s parameters and its int8 ``QLinear``
+    buffers (``weight_q``, ``scale``): what ``shard_model`` lays out."""
+    from unidisc_tpu_torch.models.dit import QLinear
+    yield from module.named_parameters()
+    for prefix, sub in module.named_modules():
+        if isinstance(sub, QLinear):
+            for n, b in sub.named_buffers(recurse=False):
+                yield (f"{prefix}.{n}" if prefix else n), b
+
+
 def shard_model(model: torch.nn.Module, layout: "MeshLayout"):
     """Keep on this rank only its "pp" / "tensor" / "ep" part of `model`'s
-    parameters (module docstring), in place; set the blocks' tensor group
-    and the MoE layers' data-parallel and "ep" groups; record
-    ``model.mesh_shards``. Returns the model."""
+    parameters and int8 buffers (module docstring), in place; set the
+    blocks' tensor group and the MoE layers' data-parallel and "ep" groups;
+    record ``model.mesh_shards``. Returns the model."""
     if getattr(model, "mesh_shards", None) is not None:
         raise ValueError("the model is already laid out on a mesh")
     check_mesh_model(model.cfg, layout.sizes)
     shards = MeshShards(shapes={n: tuple(p.shape)
-                                for n, p in model.named_parameters()})
+                                for n, p in _held_tensors(model)})
     per = len(model.blocks) // layout.pp.size
     tp, ep = layout.tensor, layout.ep
     dp = Axis(layout.dp_group, layout.dp_rank, layout.dp_size)
+    tensor_parts = _TENSOR_INT8_PARTS if model.cfg.quant == "int8" \
+        else _TENSOR_PARTS
     with torch.no_grad():
         for i, blk in enumerate(model.blocks):
-            for n, p in blk.named_parameters():
+            for n, p in _held_tensors(blk):
                 name = f"blocks.{i}.{n}"
                 if layout.pp.size > 1:
                     shards.stage_of[name] = i // per
                     if i // per != layout.pp.rank:
                         p.data = p.data.new_empty(0)
                         continue
-                part = (_TENSOR_PARTS.get(n) if tp.size > 1 else None) \
+                part = (tensor_parts.get(n) if tp.size > 1 else None) \
                     or (_EP_PARTS.get(n) if ep.size > 1 else None)
                 if part is not None:
                     shards.parts[name] = part

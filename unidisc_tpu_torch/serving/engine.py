@@ -62,8 +62,11 @@ only their stage's blocks, their head shards and their experts
 FSDP. Steps that hold collectives run eager (``capturable`` False): a CUDA
 graph cannot hold a gloo collective, and NCCL capture of a mesh sampler is
 ROADMAP queue 1, item 9. The server's other ranks replay the leader's
-calls (``lead`` / ``follow``). An int8 engine on "pp", "tensor" or "ep"
-raises ``NotImplementedError`` (item 9).
+calls (``lead`` / ``follow``). An int8 engine (``quantize="int8"``) runs
+on every axis: its model is quantized whole and then laid out, each rank
+keeping its part of ``weight_q`` and ``scale`` (``parallel/mesh.py``), and
+a tensor rank's int8 products equal the one-rank products bit for bit
+(``models/dit.py::DDiTBlock``).
 
 Rolling admission (``rolling=N``) and AR decoding (the continuous
 batcher, with ``ar_draft`` or ``lookup_ngram``) run on a mesh led by rank
@@ -995,10 +998,11 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
       data-parallel ranks and "seq" runs them replicated, as in JAX
       (module docstring). What the mesh cannot run raises
       NotImplementedError naming ROADMAP queue 1, item 9 before the world
-      is joined: int8 on "pp", "tensor" or "ep"
-      (``parallel/mesh.py::check_mesh_model``), and AR decoding on
-      "tensor", "pp" or "ep" or of an MoE model on a data-parallel mesh
-      (``parallel/sample.py::check_ar_mesh``)."""
+      is joined (``parallel/mesh.py::check_mesh_model``), and so does AR
+      decoding on "tensor", "pp" or "ep" or of an MoE model on a
+      data-parallel mesh (``parallel/sample.py::check_ar_mesh``). With
+      ``quantize="int8"`` the model is quantized on one rank, whole, and
+      then laid out on the mesh (``InferenceEngine``)."""
     if preset == "elm" or preset.startswith("elm:"):
         if checkpoint or reference_ckpt:
             raise ValueError("the OpenELM route takes no checkpoint (serve "
@@ -1074,6 +1078,8 @@ def build_engine(*, preset: str = "small", checkpoint: Optional[str] = None,
     if lora:
         apply_lora(model, lora)
     if quantize:
+        # whole, before the engine lays the model out on the mesh: a
+        # shard's per-channel scales would be maxima over its slice
         from unidisc_tpu_torch.ops.quant import quantize_model
         config, model = quantize_model(config, model)
         config.validate()    # e.g. quant_fused with MoE

@@ -2,7 +2,8 @@
 
     python -m unidisc_tpu_torch.train [--device cpu] [--run-dir DIR]
         [--batch-size N] [--data DIR[,DIR...] [--stream]] [--overfit]
-        [--iterate-data-only N] [--flagship] [key=value ...]
+        [--iterate-data-only N] [--print-hashes] [--flagship]
+        [key=value ...]
 
 key=value arguments are dotted overrides of the Config; ``model=<preset>``
 picks a size preset. ``--flagship`` starts from FLAGSHIP_TRAIN_OVERRIDES
@@ -125,7 +126,9 @@ class RankRows:
         return getattr(self.loader, name)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags: JAX's ``train.py`` flags but ``--wandb``, and the
+    port's own (``--device``, ``--flagship``, ``--base-checkpoint``)."""
     parser = argparse.ArgumentParser(
         description="unidisc_tpu_torch trainer",
         usage="python -m unidisc_tpu_torch.train [--device cpu] "
@@ -155,10 +158,17 @@ def main(argv=None):
     parser.add_argument("--base-checkpoint", default=None,
                         help="a port run dir: the frozen base of a LoRA "
                              "run (its EMA weights)")
+    parser.add_argument("--print-hashes", action="store_true",
+                        help="print the parameters' hash before the first "
+                             "step (determinism check)")
     parser.add_argument("--iterate-data-only", type=int, default=0,
                         help="read N batches without the model and report "
                              "the loader's host tok/s")
-    args, rest = parser.parse_known_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args, rest = build_parser().parse_known_args(argv)
 
     from unidisc_tpu_torch.utils import dist as udist
     udist.initialize(device=args.device)
@@ -194,7 +204,8 @@ def main(argv=None):
           f"device={trainer.device} batch={batch}")
     try:
         result = trainer.fit(train_loader, val_loader,
-                             overfit_first_batch=args.overfit)
+                             overfit_first_batch=args.overfit,
+                             print_hashes=args.print_hashes)
     finally:
         trainer.close()
     if "signal" in result:

@@ -328,25 +328,35 @@ class Trainer:
 
     def fit(self, train_loader: Iterator, val_loader=None,
             max_steps: Optional[int] = None, *,
-            overfit_first_batch: bool = False) -> dict:
+            overfit_first_batch: bool = False,
+            print_hashes: bool = False) -> dict:
         """Train until max_steps (default trainer.max_steps), the loader
         ends or a SIGTERM / SIGUSR1 arrives (then the result has "signal").
         Every log_every steps the metrics come to the host (one sync) and
         are logged with the host seconds per step since the last log
-        (step_s) and the throughput. Returns the step and the last logged
+        (step_s) and the throughput. print_hashes: print the parameters'
+        hash (``utils/dist.py::param_hash``) once, after a resume and
+        before the first step, on rank 0 (a determinism check, as JAX's
+        ``train.py --print-hashes``). Returns the step and the last logged
         metrics."""
         old = self._install_signal_handler()
         try:
             return self._fit(train_loader, val_loader, max_steps,
-                             overfit_first_batch)
+                             overfit_first_batch, print_hashes)
         finally:
             for sig, h in old.items():
                 signal.signal(sig, h)
 
-    def _fit(self, train_loader, val_loader, max_steps, overfit_first_batch):
+    def _fit(self, train_loader, val_loader, max_steps, overfit_first_batch,
+             print_hashes=False):
         cfg = self.config
         max_steps = max_steps or cfg.trainer.max_steps
         start = self.maybe_restore(train_loader)
+        if print_hashes:
+            # every rank hashes its shards (a collective on a mesh)
+            udist.rprint(f"[trainer] param_hash="
+                         f"{udist.param_hash(self.state.params)} "
+                         f"(determinism check)")
         if overfit_first_batch:
             first = next(iter(train_loader))
             train_loader = iter(lambda: first, None)
